@@ -1,0 +1,87 @@
+"""Continuous-batching serving engine with a paged KV cache, on the card.
+
+Port of ``deepspeed_tpu/serving/__init__.py:48,77``::
+
+    import deepspeed_tpu_torch.serving as serving
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_large, init_params
+
+    cfg = gpt2_large()
+    engine = serving.build_engine(
+        "gpt2", cfg, init_params(cfg, seed=0),
+        config={"serving": {"slots": 8, "page_size": 16,
+                            "max_pages_per_slot": 64}})
+    results = engine.serve([serving.Request(0, prompt_ids,
+                                            max_new_tokens=64)])
+
+``device=None`` means CUDA, and raises when there is no card; pass
+``device="cpu"`` to run the plain PyTorch versions of the kernels.
+"""
+
+from deepspeed_tpu_torch.config.config import ServingConfig, load_param_dict
+from deepspeed_tpu_torch.models.gpt2_inference import (as_serving_params,
+                                                       from_jax_params,
+                                                       is_jax_tree)
+from deepspeed_tpu_torch.serving.adapters import GPT2ServingAdapter
+from deepspeed_tpu_torch.serving.engine import (ContinuousBatcher,  # noqa: F401
+                                                Request)
+from deepspeed_tpu_torch.serving.paged_cache import (  # noqa: F401
+    PagedCacheSpec, PagedKVCache, TRASH_BLOCK)
+from deepspeed_tpu_torch.utils.device import resolve_device
+
+_KNOWN = ("slots", "page_size", "max_pages_per_slot", "num_blocks",
+          "kv_cache_bits")
+
+
+def cache_spec_from_config(model_config, family: str, config=None,
+                           **overrides) -> PagedCacheSpec:
+    """Resolve a PagedCacheSpec from a model config + the ``serving``
+    config block (+ keyword overrides: slots, page_size,
+    max_pages_per_slot, num_blocks, kv_cache_bits)."""
+    unknown = set(overrides) - set(_KNOWN) - {"quantize_bits"}
+    if unknown:
+        raise TypeError(f"unknown serving override(s) {sorted(unknown)}; "
+                        f"valid: {list(_KNOWN) + ['quantize_bits']}")
+    pd = load_param_dict(config)
+    block = dict(pd.get("serving") or {})
+    block.update(overrides)       # validated together with the block
+    sc = ServingConfig({**pd, "serving": block})
+    if family == "llama":
+        raise NotImplementedError(
+            "LLaMA serving is not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP.md queue 2, item \"the LLaMA serving adapter\")")
+    if family != "gpt2":
+        raise ValueError(f"unknown serving family {family!r} "
+                         "(expected 'gpt2' or 'llama')")
+    return PagedCacheSpec(n_layers=model_config.n_layer,
+                          kv_heads=model_config.n_head,
+                          head_dim=model_config.head_dim,
+                          dtype=model_config.dtype,
+                          **{k: getattr(sc, k) for k in _KNOWN})
+
+
+def build_engine(family: str, model_config, params, config=None,
+                 device=None, registry=None,
+                 **overrides) -> ContinuousBatcher:
+    """Build a ContinuousBatcher for ``family`` ("gpt2"). ``params`` is
+    the port's stacked weight dict (``models.gpt2.init_params``) or a
+    JAX GPT-2 tree of numpy-convertible arrays (training, scan-stacked
+    or unrolled, or converted inference), carried across by
+    ``models.gpt2_inference.from_jax_params``."""
+    dev = resolve_device(device)
+    pd = load_param_dict(config)
+    if "serving" in pd and not ServingConfig(pd).enabled:
+        raise ValueError(
+            "the config's serving block sets enabled: false — drop the "
+            "block (or flip the flag) to build a serving engine from it")
+    spec = cache_spec_from_config(model_config, family, pd, **overrides)
+    if is_jax_tree(params):
+        params = from_jax_params(params, model_config, dev)
+    else:
+        params = as_serving_params(params, model_config, dev)
+    adapter = GPT2ServingAdapter(model_config, params, spec, dev)
+    return ContinuousBatcher(adapter, registry=registry)
+
+
+__all__ = ["ContinuousBatcher", "Request", "PagedCacheSpec",
+           "PagedKVCache", "TRASH_BLOCK", "GPT2ServingAdapter",
+           "build_engine", "cache_spec_from_config"]

@@ -10,7 +10,11 @@ setup(
     version="0.1.0",
     description="TPU-native large-model training framework "
                 "(DeepSpeed-capability rebuild on JAX/XLA/Pallas)",
-    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*"]),
+    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*",
+                                    "deepspeed_tpu_torch",
+                                    "deepspeed_tpu_torch.*"]),
+    # the PyTorch/CUDA port builds its kernels from these at first use
+    package_data={"deepspeed_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "numpy"],
     entry_points={

@@ -51,6 +51,10 @@ def pytest_configure(config):
         "slow: heavyweight end-to-end variants excluded from the "
         "wall-clock-budgeted tier-1 run (run them with -m slow); each has "
         "a faster sibling covering the same subsystem in tier-1")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU (a CUDA kernel of deepspeed_tpu_torch); "
+        "skips with a reason where there is no card")
 
 
 @pytest.fixture(scope="session")

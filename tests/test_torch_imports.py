@@ -1,0 +1,68 @@
+"""deepspeed_tpu_torch and chip_smoke.py stand alone: neither imports
+jax, flax nor anything of deepspeed_tpu (the machine with the card has
+no JAX). And the ctypes signatures of the CUDA library match its C
+entry points (a mismatch shows only on the card otherwise)."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "deepspeed_tpu_torch"
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|deepspeed_tpu)(\.|\s|$)", re.M)
+
+
+def _modules():
+    out = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        out.append(".".join(parts))
+    return out
+
+
+def test_port_sources_import_no_jax():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    bad = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
+           for p in files for m in FORBIDDEN.finditer(p.read_text())]
+    assert not bad, bad
+
+
+def test_port_imports_with_jax_poisoned():
+    """Every module of the port, and chip_smoke without running its
+    main, import in a process where jax and deepspeed_tpu cannot."""
+    mods = _modules() + ["chip_smoke"]
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'deepspeed_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('OK', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("OK")
+    assert len(mods) >= 15
+
+
+def test_ctypes_signatures_match_c_entry_points():
+    import ctypes
+
+    from deepspeed_tpu_torch.ops.cuda.builder import SIGNATURES
+    ctype = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    entry = re.compile(r'^(?:extern "C" )?int (dstpu_\w+)\(([^)]*)\)', re.M)
+    found = {}
+    for cu in sorted((PKG / "csrc").glob("*.cu")):
+        for name, params in entry.findall(cu.read_text()):
+            types = [re.sub(r"\s+\w+$", "", a.strip()).replace("const ", "")
+                     .replace(" ", "") for a in params.split(",")]
+            found[name] = [ctype[t] for t in types]
+    assert found == SIGNATURES
