@@ -1,5 +1,5 @@
-"""Chip smoke for deepspeed_tpu_torch: GPT-2 large paged serving on one
-NVIDIA GPU, through the hand-written CUDA kernels.
+"""Chip smoke for deepspeed_tpu_torch: GPT-2 large paged serving and GPT-2
+large training on one NVIDIA GPU, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -13,8 +13,9 @@ Phases, one JSON line each:
                at its row-relative limit (``ops/cuda/tolerance.py``),
                beside a planted fault (a dropped page, K tile or weight
                rows, made with the plain version) that the same check
-               must reject; with its device time (CUDA-graph replay between CUDA
-               events), the time of an eager call (host included), the
+               must reject; with its device time (CUDA-graph replay
+               between CUDA events), the time of an eager call (host
+               included), the
                plain version's time, the least time the card could take
                (bytes over 3.35 TB/s or bf16 operations over 989 TFLOP/s,
                whichever is larger) and, for flash attention,
@@ -26,12 +27,39 @@ Phases, one JSON line each:
                time, decode-only tokens/s over the ticks' time, and the
                decode step time beside its weight-read floor; a
                teacher-forced check of every request against a dense
-               forward of the plain versions.
+               forward of the plain versions;
+4. kernel    — the flash kernels at the training shape (B=8, H=20,
+               S=1024, D=64, causal): the forward (its planted fault:
+               every batch element given element 0's K/V) beside SDPA,
+               and the two backward kernels (dk/dv and dq), also at
+               S=8192 and not causal, beside a planted fault each (one
+               q tile's contribution dropped from dk/dv, one k tile from
+               dq) and SDPA's backward as the library time, and both
+               together against the whole backward's bound;
+5. train    — the serving engine freed, ``initialize`` of GPT-2 large
+               (vocab 50304, 36 layers, bf16 compute, fp32 masters, bf16
+               grads and exp_avg, AdamW, clipping 1.0, ZeRO stage 3 on one
+               rank, chunked loss; remat off) and 2 warm-up + 10 timed
+               ``train_batch`` steps on one seeded batch of 8 x 1024:
+               step time, tokens/s, model TFLOP/s, MFU against 989
+               TFLOP/s, peak memory, every step's loss (finite, falling)
+               and the kernels' launches (36 a step each);
+6. grad_check — a 2-layer model of the same width: one step's loss and
+               gradients through the kernels against the same step
+               through the plain versions, every leaf at a row-relative
+               limit, and a planted fault (a k tile left out of dq)
+               that the limit must reject.
 
-With ``--profile`` a fourth phase serves the same kind of traffic again
-under torch.profiler (device time by kernel name, the device's idle
-share, the torch ops' host time) and once more under cProfile (the
-host's Python by function).
+Each path counts its kernels' launches from 0 just before its run: the
+serve run for the decode kernels and the prefill forward, the train run
+for the flash kernels. Flash forward has a row for each path; each row
+of the kernels line is timed and bounded at its path's shapes and
+carries that path's launches.
+
+With ``--profile`` the serve is repeated under torch.profiler (device
+time by kernel name, the device's idle share, the torch ops' host time)
+and cProfile (the host's Python by function), and three train steps
+under torch.profiler.
 
 It then prints the nvidia-smi line, a ``kernels`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -40,6 +68,7 @@ with code 2 before doing anything.
 """
 
 import cProfile
+import dataclasses
 import itertools
 import json
 import pstats
@@ -62,6 +91,28 @@ LAYER = 17
 # that takes the runner-up fails.
 TF_ULPS = 3
 N_REQUESTS = 16
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_VOCAB = 8, 1024, 50304
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# full-width 2-layer gradient check: row-relative limit per leaf, kernels
+# against plain versions (both bf16 end to end); measured on an H100
+# 9.0e-3 at most (wpe), 6.4e-3 median over the 28 leaves
+GRAD_RTOL = 3e-2
+# the same check's fp32 losses, relative: measured on an H100 1.2e-5
+# (11.07650 against 11.07636)
+LOSS_RTOL = 1e-3
+# the train profile's kernel groups, by words in the kernel's name
+# (first match wins)
+TRAIN_KERNEL_GROUPS = (
+    ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+    ("flash_bwd_dq", ("flash_bwd_dq",)),
+    ("flash_fwd", ("flash_fwd",)),
+    ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
+    ("copies and casts", ("copy_kernel", "direct_copy", "cat")),
+    ("layer norm", ("layer_norm",)),
+    ("reductions", ("reduce_kernel", "softmax", "logsumexp")),
+    ("embedding", ("embedding", "index")),
+    ("elementwise", ("elementwise",)))
 
 
 def emit(obj):
@@ -133,7 +184,7 @@ def held(name, got, want, fault=None):
     abs_err = float((got.float() - want.float()).abs().max())
     if fault is None:
         return abs_err, rel, None
-    f_rel = tolerance.row_rel_err(fault, want)
+    f_rel = tolerance.kernel_err(name, fault, want)
     if not f_rel > tolerance.ROW_RTOL[name]:
         raise AssertionError(f"{name}: a planted fault ({f_rel:.3g}) "
                              f"passes the check")
@@ -142,6 +193,37 @@ def held(name, got, want, fault=None):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def record(results, name, path, replaces, checks, ms, call_ms, plain_ms,
+           bound_ms_by, cases, fault, library_ms=None, lse_err=None):
+    """Append a kernel's row to ``results`` and print its kernel line.
+    ``path`` is the main path ("serve" or "train") whose shapes the row
+    was timed and bounded at, and whose run its launches are counted
+    in. ``checks``: (max abs error, row-relative error, planted fault's
+    row-relative error or None) per case."""
+    from deepspeed_tpu_torch.ops.cuda import tolerance
+    b_ms, b_by = bound_ms_by
+    abs_errs = [c[0] for c in checks] + ([] if lse_err is None else [lse_err])
+    f_rel = min(c[2] for c in checks if c[2] is not None)
+    results.append({
+        "name": name, "path": path, "route": "cuda",
+        "source": f"deepspeed_tpu_torch/csrc/"
+                  f"{'flash_attention' if 'flash' in name else 'decode'}.cu",
+        "replaces": replaces, "launches": 0, "max_abs_err": max(abs_errs),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms})
+    emit({"phase": "kernel", "name": name, "path": path, "cases": cases,
+          "kernel_us": ms * 1e3, "call_us": call_ms * 1e3,
+          "plain_us": plain_ms * 1e3,
+          "bound_us": b_ms * 1e3, "bound_by": b_by,
+          "library_us": None if library_ms is None else library_ms * 1e3,
+          "pct_of_bound": 100.0 * b_ms / ms,
+          "max_abs_err": max(abs_errs),
+          "row_rel_err": max(c[1] for c in checks),
+          "row_rtol": tolerance.ROW_RTOL[name],
+          "fault": fault, "fault_row_rel_err": f_rel,
+          "lse_abs_err": lse_err})
 
 
 # ------------------------------------------------------------------ phases
@@ -187,32 +269,6 @@ def kernel_phase(eng, cfg, gen):
 
     results = []
 
-    def record(name, replaces, checks, ms, call_ms, plain_ms, bound_ms_by,
-               cases, fault, library_ms=None, lse_err=None):
-        b_ms, b_by = bound_ms_by
-        abs_errs = [c[0] for c in checks] + (
-            [] if lse_err is None else [lse_err])
-        f_rel = min(c[2] for c in checks if c[2] is not None)
-        row = {"name": name, "route": "cuda",
-               "source": f"deepspeed_tpu_torch/csrc/"
-                         f"{'flash_attention' if 'flash' in name else 'decode'}.cu",
-               "replaces": replaces, "launches": 0,
-               "max_abs_err": max(abs_errs), "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": library_ms}
-        results.append(row)
-        emit({"phase": "kernel", "name": name, "cases": cases,
-              "kernel_us": ms * 1e3, "call_us": call_ms * 1e3,
-              "plain_us": plain_ms * 1e3,
-              "bound_us": b_ms * 1e3, "bound_by": b_by,
-              "library_us": None if library_ms is None else library_ms * 1e3,
-              "pct_of_bound": 100.0 * b_ms / ms,
-              "max_abs_err": max(abs_errs),
-              "row_rel_err": max(c[1] for c in checks),
-              "row_rtol": tolerance.ROW_RTOL[name],
-              "fault": fault, "fault_row_rel_err": f_rel,
-              "lse_abs_err": lse_err})
-
     # -- ln_qkv_stacked: [8, 1280] . [36, 1280, 3840]
     x = rnd(B, E)
     qkv_args = (p["ln1_w"], p["ln1_b"], p["attn_qkvw"], ones, p["attn_qkvb"])
@@ -230,7 +286,8 @@ def kernel_phase(eng, cfg, gen):
     plain_ms = time_ms(lambda: dk.ln_qkv_stacked_plain(
         x, *qkv_args, next(cyc), eps), reps=20, inner=1)
     N = 3 * E
-    record("ln_qkv_stacked", "deepspeed_tpu/ops/pallas/decode.py:496",
+    record(results, "ln_qkv_stacked", "serve",
+           "deepspeed_tpu/ops/pallas/decode.py:496",
            checks, ms, call_ms, plain_ms,
            bound(nbytes(x) + E * N * 2 + 2 * E * 4 + N * 4 + B * N * 2,
                  2 * B * E * N), [{"B": B, "E": E, "N": N, "L": L}],
@@ -275,7 +332,7 @@ def kernel_phase(eng, cfg, gen):
     # this run's data: the live K/V rows, q and out, pos, live table rows
     live = sum(pp + 1 for pp in pos_list if pp >= 0)
     pages_read = sum(pp // page + 1 for pp in pos_list if pp >= 0)
-    record("decode_attention_paged",
+    record(results, "decode_attention_paged", "serve",
            "deepspeed_tpu/ops/pallas/decode.py:931", checks, ms, call_ms,
            plain_ms,
            bound(live * H * D * 2 * 2 + 2 * nbytes(q) + nbytes(pos)
@@ -302,7 +359,8 @@ def kernel_phase(eng, cfg, gen):
         ctx, x, *ffn, next(cyc), eps=eps), reps=20, inner=1)
     w_bytes = (E * E + 2 * E * Fd) * 2
     v_bytes = (6 * E + Fd) * 4
-    record("out_ffn_stacked", "deepspeed_tpu/ops/pallas/decode.py:1000",
+    record(results, "out_ffn_stacked", "serve",
+           "deepspeed_tpu/ops/pallas/decode.py:1000",
            checks, ms, call_ms, plain_ms,
            bound(w_bytes + v_bytes + 3 * B * E * 2,
                  2 * B * (E * E + 2 * E * Fd)),
@@ -332,7 +390,7 @@ def kernel_phase(eng, cfg, gen):
     lib_ms = time_graph_ms(
         lambda i: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True))
-    record("flash_attention_fwd",
+    record(results, "flash_attention_fwd", "serve",
            "deepspeed_tpu/ops/pallas/flash_attention.py:122", checks, ms,
            call_ms, plain_ms,
            bound(4 * H * S * D * 2 + H * S * 4,
@@ -341,6 +399,352 @@ def kernel_phase(eng, cfg, gen):
            library_ms=lib_ms, lse_err=lse_err)
     torch.cuda.synchronize()
     return results
+
+
+def train_kernel_phase(gen):
+    """The flash kernels at the training shape (B=8, H=20, S=1024,
+    causal): the forward, held against its plain version with a planted
+    fault and timed beside SDPA; the two backward kernels there, at
+    S=8192 and not causal, with a planted fault each, timed beside SDPA's
+    backward."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import tolerance
+    dev = "cuda"
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    results = []
+    B, H, S = TRAIN_BATCH, 20, TRAIN_SEQ
+    q, k, v = (rnd(B, H, S, 64) for _ in range(3))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+    # fault: every batch element attends to element 0's K/V, as a kernel
+    # that left the batch out of its K/V offset would
+    fault = fa.flash_attention_fwd_plain(q, k[:1].expand_as(k),
+                                         v[:1].expand_as(v), causal=True)[0]
+    checks = [held("flash_attention_fwd", o, o_ref, fault)]
+    lse_err = tolerance.check_lse(lse, lse_ref)
+    del o, lse, o_ref, lse_ref, fault
+    ms = time_graph_ms(lambda i: fa.flash_attention_fwd(q, k, v, causal=True))
+    call_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
+        q, k, v, causal=True), reps=10, inner=1)
+    lib_ms = time_graph_ms(
+        lambda i: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+    record(results, "flash_attention_fwd", "train",
+           "deepspeed_tpu/ops/pallas/flash_attention.py:122", checks, ms,
+           call_ms, plain_ms,
+           bound(4 * B * H * S * 64 * 2 + B * H * S * 4,
+                 4 * B * H * 64 * S * (S + 1) // 2),
+           [{"B": B, "S": S, "H": H, "Hkv": H, "causal": True}],
+           "every batch element given element 0's K/V", library_ms=lib_ms,
+           lse_err=lse_err)
+    del q, k, v
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def inputs(B, H, S, causal):
+        q, k, v, do = (rnd(B, H, S, 64) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        delta = (do.float() * o.float()).sum(-1)
+        return q, k, v, do, lse, delta
+
+    dkv_checks, dq_checks, cases = [], [], []
+    for B, H, S, causal in ((TRAIN_BATCH, 20, TRAIN_SEQ, True),
+                            (1, 4, 8192, True), (1, 20, 1024, False)):
+        q, k, v, do, lse, delta = inputs(B, H, S, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk_p, dv_p = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse,
+                                                      delta, causal)
+        dq_p = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                               causal)
+        fault_dk = fault_dv = fault_dq = None
+        if len(cases) == 0:
+            # faults: the last q tile's contribution dropped from dk/dv,
+            # the first k tile dropped from dq
+            qf, dof = q.clone(), do.clone()
+            qf[:, :, -64:] = 0
+            dof[:, :, -64:] = 0
+            fault_dk, fault_dv = fa.flash_attention_bwd_dkv_plain(
+                qf, k, v, dof, lse, delta, causal)
+            kf = k.clone()
+            kf[:, :, :64] = 0
+            fault_dq = fa.flash_attention_bwd_dq_plain(q, kf, v, do, lse,
+                                                       delta, causal)
+        dkv_checks += [held("flash_attention_bwd_dkv", dk, dk_p, fault_dk),
+                       held("flash_attention_bwd_dkv", dv, dv_p, fault_dv)]
+        dq_checks.append(held("flash_attention_bwd_dq", dq, dq_p, fault_dq))
+        cases.append({"B": B, "H": H, "S": S, "D": 64, "causal": causal})
+        del dk_p, dv_p, dq_p, fault_dk, fault_dv, fault_dq
+        torch.cuda.empty_cache()
+
+    B, H, S = TRAIN_BATCH, 20, TRAIN_SEQ
+    q, k, v, do, lse, delta = inputs(B, H, S, True)
+    args = (q, k, v, do, lse, delta, True)
+    pairs = B * H * S * (S + 1) // 2             # causal (q, k) pairs
+    mm_flops = 2 * pairs * 64                    # one [S, S] x D product
+    in_bytes = nbytes(q, k, v, do, lse, delta)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg,
+                                                           is_causal=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                 retain_graph=True))
+    bwd_rows = []
+    for name, fn, plain, checks, n_mm, out_bytes, replaces, fault in (
+            ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv,
+             fa.flash_attention_bwd_dkv_plain, dkv_checks, 4,
+             2 * nbytes(k), "deepspeed_tpu/ops/pallas/flash_attention.py:405",
+             "the last 64-query tile's contribution dropped from dk and dv"),
+            ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq,
+             fa.flash_attention_bwd_dq_plain, dq_checks, 3, nbytes(q),
+             "deepspeed_tpu/ops/pallas/flash_attention.py:367",
+             "the first 64-key tile dropped from dq")):
+        ms = time_graph_ms(lambda i, fn=fn: fn(*args))
+        call_ms = time_ms(lambda fn=fn: fn(*args))
+        plain_ms = time_ms(lambda plain=plain: plain(*args), reps=10,
+                           inner=1)
+        record(bwd_rows, name, "train", replaces, checks, ms, call_ms,
+               plain_ms, bound(in_bytes + out_bytes, n_mm * mm_flops), cases,
+               fault, library_ms=lib_ms)
+    # the whole backward (dq, dk, dv): 5 products of 2·S²·D a head when
+    # each score tile is computed once, against SDPA's backward
+    whole_ms, whole_by = bound(in_bytes + 3 * nbytes(q), 5 * mm_flops)
+    both_ms = sum(row["ms"] for row in bwd_rows)
+    emit({"phase": "flash_backward", "B": B, "H": H, "S": S, "causal": True,
+          "kernels_us": both_ms * 1e3, "bound_us": whole_ms * 1e3,
+          "bound_by": whole_by, "pct_of_bound": 100.0 * whole_ms / both_ms,
+          "sdpa_backward_us": lib_ms * 1e3})
+    del out, qg, kg, vg
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results + bwd_rows
+
+
+def train_model_config(n_layer=36):
+    """bench.py's GPT-2 large training model (``bench_train_gpt2``), remat
+    off: 80 GB holds the activations."""
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_large
+    return dataclasses.replace(
+        gpt2_large(vocab_size=TRAIN_VOCAB, n_positions=TRAIN_SEQ,
+                   dtype=torch.bfloat16, loss_chunk=1024), n_layer=n_layer)
+
+
+def train_ds_config():
+    """bench.py's GPT-2 large training config."""
+    return {"train_batch_size": TRAIN_BATCH,
+            "gradient_accumulation_steps": 1,
+            "zero_optimization": {"stage": 3},
+            "bf16": {"enabled": True},
+            "data_types": {"grad_dtype": "bf16"},
+            "gradient_clipping": 1.0,
+            "optimizer": {"type": "AdamW",
+                          "params": {"lr": 1e-4, "weight_decay": 0.01,
+                                     "moment_dtype": "bf16"}},
+            "steps_per_print": 1000}
+
+
+def train_batch_ids():
+    """One seeded batch of token ids, on the card (as a loader with
+    pinned memory would hand it over)."""
+    ids = np.random.RandomState(0).randint(
+        0, TRAIN_VOCAB, size=(TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    return {"input_ids": torch.as_tensor(ids, device="cuda")}
+
+
+def train_phase(n_layer=36, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS):
+    """``initialize`` + ``train_batch`` at GPT-2 large's full width; returns
+    (engine, batch, the train run's kernel launches)."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    from deepspeed_tpu_torch.ops.cuda import builder
+    cfg = train_model_config(n_layer)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, _, _, _ = ds.initialize(config=train_ds_config(),
+                                    model=GPT2LMHeadModel(cfg))
+    batch = train_batch_ids()
+    warm = [engine.train_batch(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    builder.launches.clear()             # count the main path's run only
+    t0 = time.perf_counter()
+    losses = [engine.train_batch(batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(builder.launches)
+    losses = [float(x) for x in torch.stack(warm + losses).cpu()]
+    timed = losses[warmup:]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not timed[-1] < timed[0]:
+        raise AssertionError(f"the loss did not fall: {timed}")
+    expect = {name: n_layer * steps for name in
+              ("flash_attention_fwd", "flash_attention_bwd_dkv",
+               "flash_attention_bwd_dq")}
+    if launches != expect:
+        raise AssertionError(f"train launch counts {launches} != {expect}")
+    step_s = wall_s / steps
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = cfg.num_params()
+    flops = (6 * n_params + 12 * cfg.n_layer * TRAIN_SEQ * cfg.n_embd) \
+        * tokens
+    emit({"phase": "train", "model": "gpt2_large", "layers": cfg.n_layer,
+          "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "remat": cfg.remat, "steps": steps, "warmup_steps": warmup,
+          "init_and_warmup_s": init_s, "step_ms": step_s * 1e3,
+          "tokens_per_s": tokens / step_s,
+          "model_tflops_per_step": flops / 1e12,
+          "model_tflop_per_s": flops / step_s / 1e12,
+          "mfu": flops / step_s / BF16_FLOP_PER_S,
+          "step_floor_ms": flops / BF16_FLOP_PER_S * 1e3,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "launches_per_step":
+              {k: v / steps for k, v in launches.items()},
+          "losses": losses})
+    return engine, batch, launches
+
+
+class _PlainFlash(torch.autograd.Function):
+    """Flash attention through the kernels' plain versions, forward and
+    backward: the grad check's reference. With ``drop_dq_tile`` the
+    backward leaves the first 64-key tile out of dq: the grad check's
+    planted fault."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, drop_dq_tile):
+        from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+        o, lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.drop_dq_tile = causal, drop_dq_tile
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                  causal=ctx.causal)
+        if ctx.drop_dq_tile:
+            kf = k.clone()
+            kf[:, :, :64] = 0
+            dq = fa.flash_attention_bwd_plain(q, kf, v, o, lse, do,
+                                              causal=ctx.causal)[0]
+        return dq, dk, dv, None, None
+
+
+def plain_attention(drop_dq_tile=False):
+    """An attention function for ``SelfAttention.attention`` that runs
+    ``_PlainFlash``."""
+    def attention(q, k, v, causal=False):
+        return _PlainFlash.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, drop_dq_tile)
+    return attention
+
+
+def model_loss_and_grads(model, ids, attention=None):
+    """(loss, gradients) of one step of ``model`` on ``ids`` (its
+    next-token loss, as ``train_batch`` takes it), with every block's
+    attention function swapped for ``attention`` (None: the model's
+    own, the kernels)."""
+    blocks = [block.attn for block in model.h]
+    if attention is not None:
+        for attn in blocks:
+            attn.attention = attention
+    try:
+        loss = model(ids, labels=ids)
+        grads = torch.autograd.grad(loss.float(), list(model.parameters()))
+    finally:
+        for attn in blocks:
+            attn.__dict__.pop("attention", None)
+    return float(loss.detach()), grads
+
+
+def grad_check_phase(n_layer=2):
+    """A 2-layer model of GPT-2 large's width, as ``initialize`` holds it
+    on the card (bf16 compute copy): one step's gradients through the
+    kernels against the same step through their plain versions, every
+    leaf at GRAD_RTOL and the losses at LOSS_RTOL; then through a planted
+    fault (the first 64-key tile left out of dq), which the same limit
+    must reject."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.cuda import tolerance
+    engine, _, _, _ = ds.initialize(
+        config=train_ds_config(),
+        model=gpt2.GPT2LMHeadModel(train_model_config(n_layer)))
+    ids = train_batch_ids()["input_ids"]
+    model, names = engine.module, engine.param_names
+    loss_k, grads_k = model_loss_and_grads(model, ids)
+    loss_p, grads_p = model_loss_and_grads(model, ids, plain_attention())
+    loss_f, grads_f = model_loss_and_grads(model, ids,
+                                           plain_attention(True))
+
+    def errs(grads):
+        return {name: tolerance.row_rel_err(g, w, floor=1e-3)
+                for name, g, w in zip(names, grads, grads_p)}
+    err, f_err = errs(grads_k), errs(grads_f)
+    worst = max(err, key=err.get)
+    f_worst = max(f_err, key=f_err.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    emit({"phase": "grad_check", "layers": n_layer, "leaves": len(err),
+          "loss_kernels": loss_k, "loss_plain": loss_p,
+          "loss_rel_err": loss_rel, "loss_limit": LOSS_RTOL,
+          "max_row_rel_err": err[worst], "worst_leaf": worst,
+          "median_row_rel_err": float(np.median(list(err.values()))),
+          "limit": GRAD_RTOL,
+          "fault": "the first 64-key tile left out of dq (plain versions)",
+          "fault_loss": loss_f, "fault_max_row_rel_err": f_err[f_worst],
+          "fault_worst_leaf": f_worst,
+          "fault_leaves_rejected": sum(e > GRAD_RTOL
+                                       for e in f_err.values())})
+    if not err[worst] <= GRAD_RTOL:
+        raise AssertionError(f"grad check: {worst} row-relative error "
+                             f"{err[worst]:.3g} > {GRAD_RTOL}")
+    if not loss_rel <= LOSS_RTOL:
+        raise AssertionError(f"grad check: loss {loss_k} vs plain {loss_p} "
+                             f"({loss_rel:.3g} > {LOSS_RTOL})")
+    if not f_err[f_worst] > GRAD_RTOL:
+        raise AssertionError(f"grad check: a planted fault "
+                             f"({f_err[f_worst]:.3g}) passes the check")
+
+
+def train_profile_phase(engine, batch, steps=3):
+    """``--profile``: ``steps`` train steps under torch.profiler: device
+    time by kernel name and the device's idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.train_batch(batch)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:20]
+    groups = {}
+    for e in kernels:
+        key = e.key.lower()
+        group = next((g for g, words in TRAIN_KERNEL_GROUPS
+                      if any(w in key for w in words)), "other")
+        groups[group] = groups.get(group, 0.0) + e.device_time_total
+    emit({"phase": "train_profile", "steps": steps, "wall_s": wall_s,
+          "device_busy_s": busy_us / 1e6,
+          "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
+          "groups_ms_per_step": {g: us / 1e3 / steps for g, us in
+                                 sorted(groups.items(),
+                                        key=lambda kv: -kv[1])},
+          "kernels": [{"name": e.key[:90], "count": e.count,
+                       "device_ms_per_step": e.device_time_total / 1e3
+                       / steps,
+                       "share_of_busy": e.device_time_total / busy_us}
+                      for e in top]})
 
 
 def traffic(cfg, rs):
@@ -507,6 +911,7 @@ def main():
         return 2
     import deepspeed_tpu_torch.serving as serving
     from deepspeed_tpu_torch.models.gpt2 import gpt2_large, init_params
+    profile = "--profile" in sys.argv[1:]
     smi = phase_device()
     cfg = gpt2_large(dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -516,12 +921,24 @@ def main():
                             "max_pages_per_slot": 64}})
     kernels = kernel_phase(eng, cfg, gen)
     launches = serve_phase(eng, cfg, gen)
-    for row in kernels:
-        row["launches"] = launches.get(row["name"], 0)
-        if row["launches"] <= 0:
-            raise AssertionError(f"{row['name']} never launched")
-    if "--profile" in sys.argv[1:]:
+    if profile:
         profile_phase(eng, cfg)
+    del eng                       # free the serving engine for training
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kernels += train_kernel_phase(gen)
+    engine, batch, train_launches = train_phase()
+    if profile:
+        train_profile_phase(engine, batch)
+    del engine, batch
+    torch.cuda.empty_cache()
+    grad_check_phase()
+    for row in kernels:
+        ran = train_launches if row["path"] == "train" else launches
+        row["launches"] = ran.get(row["name"], 0)
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} never launched on the "
+                                 f"{row['path']} path")
     for line in smi:
         print(line, flush=True)
     emit({"kernels": kernels})

@@ -1,15 +1,40 @@
-"""Attention dispatch: the CUDA flash kernel for CUDA tensors, the plain
+"""Attention dispatch: the CUDA flash kernels for CUDA tensors, the plain
 PyTorch reference for CPU tensors.
 
 Port of ``deepspeed_tpu/ops/attention.py``. Unlike the JAX dispatch, a
-CUDA call never falls back: the kernel runs or the call raises.
+CUDA call never falls back: the kernel runs or the call raises. On CUDA
+the forward and its backward are the flash kernels, joined by
+``FlashAttentionFunction`` as ``jax.custom_vjp`` joins them at
+``deepspeed_tpu/ops/pallas/flash_attention.py:521``.
 """
 
 import math
 
 import torch
 
-from deepspeed_tpu_torch.ops.cuda.flash_attention import flash_attention
+from deepspeed_tpu_torch.ops.cuda.flash_attention import (
+    flash_attention_bwd, flash_attention_fwd)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its recompute backward: the forward saves
+    (q, k, v, o, lse) and the backward recomputes the scores from lse
+    (``_flash_attention_fwd`` / ``_flash_attention_bwd``). On a CPU tensor
+    both halves run their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=False, scale=None):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def reference_attention(q, k, v, causal=False, bias=None, scale=None,
@@ -40,13 +65,16 @@ def reference_attention(q, k, v, causal=False, bias=None, scale=None,
 
 def dot_product_attention(q, k, v, causal=False, bias=None, scale=None,
                           segment_ids=None):
-    """[B, H, S, D] attention. CUDA tensors go to the flash kernel, which
-    takes no bias or segment ids; CPU tensors go to reference_attention."""
+    """[B, H, S, D] attention. CUDA tensors go to the flash kernels
+    (differentiable through FlashAttentionFunction), which take no bias
+    or segment ids; CPU tensors go to reference_attention, which
+    autograd differentiates."""
     if q.device.type == "cuda":
         if bias is not None or segment_ids is not None:
             raise NotImplementedError(
                 "dot_product_attention: the CUDA flash kernel takes no "
                 "bias or segment_ids")
-        return flash_attention(q, k, v, causal=causal, scale=scale)
+        return FlashAttentionFunction.apply(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), causal, scale)
     return reference_attention(q, k, v, causal=causal, bias=bias,
                                scale=scale, segment_ids=segment_ids)

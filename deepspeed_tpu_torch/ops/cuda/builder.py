@@ -35,6 +35,8 @@ _F = ctypes.c_float
 # argtypes of every C entry point (all return cudaError_t as int)
 SIGNATURES = {
     "dstpu_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "dstpu_flash_bwd_dkv": [_P] * 8 + [_I, _I, _F, _I, _P],
+    "dstpu_flash_bwd_dq": [_P] * 7 + [_I, _I, _F, _I, _P],
     "dstpu_ln_qkv_stacked": [_P] * 8 + [_I, _I, _I, _F, _P],
     "dstpu_out_ffn_stacked": [_P] * 18 + [_I, _I, _I, _F, _P],
     "dstpu_decode_attention_paged": [_P] * 7 + [_I] * 7 + [_F, _P],

@@ -20,6 +20,18 @@ attention) and 4.8e-3 (flash), and the faults (the last 32 of 1280
 weight rows, 64 rows of Wp, each slot's last page, the last 64-key tile)
 0.16-0.99; one dropped weight row of 1280 would give about
 sqrt(1/1280) = 0.03.
+
+The flash backward's gradients have rows whose true value is ~0 by
+cancellation, not by construction: in a causal dq, query 0 sees only key
+0, so p = 1 and ds = dp - delta is rounding noise on both sides. Their
+check measures each row against at least ``ROW_FLOOR[name]`` times the
+tensor's root-mean-square row norm, which leaves every other row's
+relative error as it is. On an H100 (chip_smoke.py, B=8, H=20, S=1024
+causal, S=8192 causal and S=1024 not causal) the backward kernels' errors
+were 6.1e-3 (dk/dv) and 5.1e-3 (dq), and their faults (the last 64-query
+tile's contribution dropped from dk/dv, the first 64-key tile from dq)
+1.10 and 1.13: the limit 2e-2 sits 3x above the one and 55x below the
+other.
 """
 
 import math
@@ -28,14 +40,18 @@ import torch
 
 # largest row-relative error a kernel may show against its plain version
 ROW_RTOL = {"ln_qkv_stacked": 2e-3, "out_ffn_stacked": 2e-3,
-            "decode_attention_paged": 1e-2, "flash_attention_fwd": 1e-2}
+            "decode_attention_paged": 1e-2, "flash_attention_fwd": 1e-2,
+            "flash_attention_bwd_dkv": 2e-2, "flash_attention_bwd_dq": 2e-2}
+# least row norm, as a share of the RMS row norm, an error is measured on
+ROW_FLOOR = {"flash_attention_bwd_dkv": 1e-3, "flash_attention_bwd_dq": 1e-3}
 # flash's lse is fp32 on both sides: only the summation order differs
 LSE_ATOL = 1e-3
 
 
-def row_rel_err(got, want):
-    """max over rows of ||got - want|| / ||want||. A row that is zero in
-    ``want`` must be exactly zero in ``got`` (error 0, else inf)."""
+def row_rel_err(got, want, floor=0.0):
+    """max over rows of ||got - want|| / max(||want||, floor · RMS row
+    norm of ``want``). With no floor, a row that is zero in ``want``
+    must be exactly zero in ``got`` (error 0, else inf)."""
     g = got.detach().float().reshape(-1, got.shape[-1])
     w = want.detach().float().reshape(-1, want.shape[-1])
     if g.shape != w.shape:
@@ -47,15 +63,23 @@ def row_rel_err(got, want):
         return math.inf
     num = (g - w).norm(dim=1)
     den = w.norm(dim=1)
+    if floor:
+        den = den.clamp_min(floor * float(den.square().mean().sqrt()))
     zero = torch.where(num > 0, math.inf, 0.0)
     rel = torch.where(den > 0, num / den.clamp_min(1e-30), zero)
     return float(rel.max())
 
 
+def kernel_err(name, got, want):
+    """Row-relative error of ``got`` against ``want`` as ``name``'s check
+    measures it."""
+    return row_rel_err(got, want, ROW_FLOOR.get(name, 0.0))
+
+
 def check_kernel(name, got, want):
     """Row-relative error of ``got`` against ``want``; raises
     AssertionError above ``ROW_RTOL[name]``."""
-    err = row_rel_err(got, want)
+    err = kernel_err(name, got, want)
     if not err <= ROW_RTOL[name]:
         raise AssertionError(f"{name}: row-relative error {err:.3g} > "
                              f"{ROW_RTOL[name]}")

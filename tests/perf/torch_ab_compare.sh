@@ -1,0 +1,55 @@
+#!/usr/bin/env bash
+# A/B comparison of two trees of the PyTorch port on one card, in one call:
+# chip_smoke.py runs from the old tree, this tree, this tree again (with
+# --profile) and the old tree again, so that drift of the card or the host
+# shows on both sides. Each run's output goes to chiprun_out/ab_*.log; a
+# summary of the flash kernel lines, the train line and the grad check is
+# printed per run, then the GPU unit tests of this tree.
+#
+#   bash tests/perf/torch_ab_compare.sh OLD_TREE
+#
+# OLD_TREE is a directory inside this tree that .gitignore lists (e.g.
+# build/pre_change), holding `git archive` of the commit to compare with.
+set -u
+old=${1:?usage: torch_ab_compare.sh OLD_TREE}
+here=$(pwd)
+mkdir -p chiprun_out
+summ() {
+  python3 - "$1" <<'PY'
+import json, sys
+name = sys.argv[1]
+ok = False
+for line in open(name):
+    line = line.strip()
+    if not line.startswith("{"):
+        continue
+    try:
+        d = json.loads(line)
+    except ValueError:
+        continue
+    if d.get("phase") == "kernel" and "flash" in d["name"]:
+        print(name, d["name"], d.get("path", ""),
+              "kernel_us=%.2f call_us=%.2f rel=%.3g fault=%.3g"
+              % (d["kernel_us"], d["call_us"], d["row_rel_err"],
+                 d["fault_row_rel_err"]))
+    if d.get("phase") == "train":
+        print(name, "train step_ms=%.2f mfu=%.4f peak=%.2f"
+              % (d["step_ms"], d["mfu"], d["peak_memory_gb"]))
+    if d.get("phase") == "grad_check":
+        print(name, "grad_check", d["max_row_rel_err"])
+    if d.get("ok"):
+        ok = True
+print(name, "ok" if ok else "FAILED")
+PY
+}
+(cd "$old" && python3 chip_smoke.py > "$here/chiprun_out/ab_old1.log" 2>&1)
+summ chiprun_out/ab_old1.log
+python3 chip_smoke.py > chiprun_out/ab_new1.log 2>&1
+summ chiprun_out/ab_new1.log
+python3 chip_smoke.py --profile > chiprun_out/ab_new2.log 2>&1
+summ chiprun_out/ab_new2.log
+(cd "$old" && python3 chip_smoke.py > "$here/chiprun_out/ab_old2.log" 2>&1)
+summ chiprun_out/ab_old2.log
+python3 -m pytest --noconftest -p no:cacheprovider -m gpu \
+  tests/test_torch_flash_backward.py tests/test_torch_flash_attention.py \
+  tests/test_torch_decode_kernels.py -q 2>&1 | tail -3
