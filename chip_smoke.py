@@ -1,9 +1,10 @@
-"""Chip smoke for deepspeed_tpu_torch: GPT-2 large paged serving and GPT-2
-large training on one NVIDIA GPU, through the hand-written CUDA kernels.
+"""Chip smoke for deepspeed_tpu_torch: GPT-2 large and LLaMA-7B paged
+serving and GPT-2 large training on one NVIDIA GPU, through the
+hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
+Phases, one JSON line each, each with its wall ``seconds``:
 
 1. device   — the card (nvidia-smi name and power limit), CUDA version,
                and the time to build the kernels from ``csrc/*.cu``;
@@ -25,9 +26,20 @@ Phases, one JSON line each:
                requests through 8 slots; every kernel's launch count over
                that run, TTFT, generated tokens/s over the serve's wall
                time, decode-only tokens/s over the ticks' time, and the
-               decode step time beside its weight-read floor; a
-               teacher-forced check of every request against a dense
-               forward of the plain versions;
+               decode step time beside its floor (the layer weights and
+               LM head read once, plus the live K/V rows the step's
+               slots attend over); a teacher-forced check of every
+               request against a dense forward of the plain versions;
+   llama_init, kernel, serve_llama — the same for LLaMA-7B (E 4096, 32
+               layers, 32 heads of 128, F 11008, vocab 32000, bf16,
+               random weights from seed 0, LLAMA_INIT_STD) after the
+               GPT-2 engine is
+               freed: its five kernels at their shapes (RMSNorm ln_qkv,
+               matvec_stacked for the o-projection beside torch.matmul,
+               SwiGLU out_ffn with fuse_proj=False, head-dim-128 paged
+               attention, also at LLaMA-3-8B's GQA geometry, and the
+               head-dim-128 flash forward beside SDPA), then the same 16
+               requests through 8 slots;
 4. kernel    — the flash kernels at the training shape (B=8, H=20,
                S=1024, D=64, causal): the forward (its planted fault:
                every batch element given element 0's K/V) beside SDPA,
@@ -50,13 +62,13 @@ Phases, one JSON line each:
                limit, and a planted fault (a k tile left out of dq)
                that the limit must reject.
 
-Each path counts its kernels' launches from 0 just before its run: the
+Each path counts its kernels' launches from 0 just before its run: each
 serve run for the decode kernels and the prefill forward, the train run
-for the flash kernels. Flash forward has a row for each path; each row
-of the kernels line is timed and bounded at its path's shapes and
-carries that path's launches.
+for the flash kernels. A kernel has a row for each path it runs on
+("serve", "serve_llama", "train"); each row of the kernels line is timed
+and bounded at its path's shapes and carries that path's launches.
 
-With ``--profile`` the serve is repeated under torch.profiler (device
+With ``--profile`` each serve is repeated under torch.profiler (device
 time by kernel name, the device's idle share, the torch ops' host time)
 and cProfile (the host's Python by function), and three train steps
 under torch.profiler.
@@ -71,6 +83,7 @@ import cProfile
 import dataclasses
 import itertools
 import json
+import math
 import pstats
 import statistics
 import subprocess
@@ -91,6 +104,18 @@ LAYER = 17
 # that takes the runner-up fails.
 TF_ULPS = 3
 N_REQUESTS = 16
+# both serving paths: 8 slots of up to 64 pages of 16 tokens
+SERVING = {"slots": 8, "page_size": 16, "max_pages_per_slot": 64}
+# LLaMA-7B's random weights: N(0, std) with std * sqrt(E) = 0.02 *
+# sqrt(1280), the pre-activation scale of GPT-2 large's init. At flax's
+# std 0.02 the random model's attention scores have a std of ~1.6, and
+# bf16 rounding differences grow over its 32 layers until the paged
+# decode parts from a dense forward by 10-11 bf16 units, through the
+# plain versions as through the kernels and against a bf16 or an fp32
+# dense pass alike (tests/perf/torch_llama_teacher_forced.py): the
+# teacher-forced check could not tell a fault from rounding. At this std
+# both stay within 3 units of the fp32 dense pass, the LLaMA oracle
+LLAMA_INIT_STD = 0.02 * math.sqrt(1280 / 4096)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_VOCAB = 8, 1024, 50304
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 # full-width 2-layer gradient check: row-relative limit per leaf, kernels
@@ -115,7 +140,16 @@ TRAIN_KERNEL_GROUPS = (
     ("elementwise", ("elementwise",)))
 
 
+_CLOCK = [time.perf_counter()]
+
+
 def emit(obj):
+    """Print one JSON line. A phase line gets ``seconds``: the wall time
+    since the previous phase line (the first: since the script began)."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj = dict(obj, seconds=now - _CLOCK[0])
+        _CLOCK[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -178,7 +212,9 @@ def held(name, got, want, fault=None):
     """(max abs error, row-relative error) of a kernel's output against
     its plain version, which must be within the kernel's limit; and the
     row-relative error of ``fault``, a planted fault's output on the
-    same inputs, which must be beyond it (or None)."""
+    same inputs, which must be beyond it (or None). ``name`` is the
+    limit's key in ``tolerance.ROW_RTOL`` (``kernel[variant]`` for a
+    variant)."""
     from deepspeed_tpu_torch.ops.cuda import tolerance
     rel = tolerance.check_kernel(name, got, want)
     abs_err = float((got.float() - want.float()).abs().max())
@@ -196,12 +232,14 @@ def nbytes(*ts):
 
 
 def record(results, name, path, replaces, checks, ms, call_ms, plain_ms,
-           bound_ms_by, cases, fault, library_ms=None, lse_err=None):
+           bound_ms_by, cases, fault, library_ms=None, lse_err=None,
+           limit=None):
     """Append a kernel's row to ``results`` and print its kernel line.
-    ``path`` is the main path ("serve" or "train") whose shapes the row
-    was timed and bounded at, and whose run its launches are counted
-    in. ``checks``: (max abs error, row-relative error, planted fault's
-    row-relative error or None) per case."""
+    ``path`` is the main path ("serve", "serve_llama" or "train") whose
+    shapes the row was timed and bounded at, and whose run its launches
+    are counted in. ``checks``: (max abs error, row-relative error,
+    planted fault's row-relative error or None) per case; ``limit``: the
+    key of the limit they were held to (default ``name``)."""
     from deepspeed_tpu_torch.ops.cuda import tolerance
     b_ms, b_by = bound_ms_by
     abs_errs = [c[0] for c in checks] + ([] if lse_err is None else [lse_err])
@@ -221,7 +259,7 @@ def record(results, name, path, replaces, checks, ms, call_ms, plain_ms,
           "pct_of_bound": 100.0 * b_ms / ms,
           "max_abs_err": max(abs_errs),
           "row_rel_err": max(c[1] for c in checks),
-          "row_rtol": tolerance.ROW_RTOL[name],
+          "row_rtol": tolerance.ROW_RTOL[limit or name],
           "fault": fault, "fault_row_rel_err": f_rel,
           "lse_abs_err": lse_err})
 
@@ -397,6 +435,201 @@ def kernel_phase(eng, cfg, gen):
                  4 * H * D * S * (S + 1) // 2), cases,
            "the last 64-key tile dropped (S=1024, GQA, not causal)",
            library_ms=lib_ms, lse_err=lse_err)
+    torch.cuda.synchronize()
+    return results
+
+
+def llama_kernel_phase(eng, cfg, gen):
+    """The LLaMA-7B path's kernels at its shapes (8 slots, bf16, a
+    scattered page table, one idle slot), each against its plain version
+    and a planted fault; the paged kernel also at LLaMA-3-8B's GQA
+    geometry (8 KV heads, R = 4)."""
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import tolerance
+    p, ad = eng.adapter.p, eng.adapter
+    dev = ad.device
+    L, E, H, Hkv, D, Fd = (cfg.n_layers, cfg.hidden_size, cfg.n_heads,
+                           cfg.kv_heads, cfg.head_dim,
+                           cfg.intermediate_size)
+    B = eng.spec.slots
+    lids = ad._layer_ids
+    (Wq, sq), (Wo, so), (Wg, sg), (Wu, su), (Wd, sd) = (
+        ad._w[k] for k in ("qkv_w", "o_w", "gate_w", "up_w", "down_w"))
+    eps = cfg.rms_eps
+    cyc = itertools.cycle(range(L))   # stream every layer: L2 stays cold
+    path = "serve_llama"
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(
+            cfg.dtype)
+
+    def at_layer(*stacks):
+        """LAYER's slice of each per-layer stack, as a stack of one."""
+        return [t[LAYER:LAYER + 1].clone() for t in stacks]
+
+    def timed(kernel, plain):
+        """(graph-replay ms, eager ms, plain ms) of ``kernel(layer id)``
+        and ``plain(layer)`` over the model's layers."""
+        return (time_graph_ms(lambda i: kernel(lids[i]), n=L),
+                time_ms(lambda: kernel(lids[next(cyc)])),
+                time_ms(lambda: plain(next(cyc)), reps=10, inner=1))
+
+    results = []
+
+    # -- ln_qkv_stacked, RMSNorm: [8, 4096] . [32, 4096, 12288]
+    N = Wq.shape[2]
+    x = rnd(B, E)
+    f_w = at_layer(p["norm1"], Wq, sq)
+    f_w[1][:, -32:] = 0                     # the last 32 weight rows
+    checks = [held("ln_qkv_stacked[rms]",
+                   dk.ln_qkv_stacked(x, p["norm1"], None, Wq, sq, None,
+                                     lids[LAYER], eps=eps, norm="rms"),
+                   dk.ln_qkv_stacked_plain(x, p["norm1"], None, Wq, sq, None,
+                                           LAYER, eps, "rms"),
+                   dk.ln_qkv_stacked_plain(x, f_w[0], None, f_w[1], f_w[2],
+                                           None, 0, eps, "rms"))]
+    ms, call_ms, plain_ms = timed(
+        lambda lid: dk.ln_qkv_stacked(x, p["norm1"], None, Wq, sq, None, lid,
+                                      eps=eps, norm="rms"),
+        lambda l: dk.ln_qkv_stacked_plain(x, p["norm1"], None, Wq, sq, None,
+                                          l, eps, "rms"))
+    record(results, "ln_qkv_stacked", path,
+           "deepspeed_tpu/ops/pallas/decode.py:496", checks, ms, call_ms,
+           plain_ms, bound(nbytes(x) + E * N * 2 + E * 4 + B * N * 2,
+                           2 * B * E * N),
+           [{"B": B, "E": E, "N": N, "L": L, "norm": "rms"}],
+           f"the last 32 of the {E} weight rows dropped",
+           limit="ln_qkv_stacked[rms]")
+
+    # -- matvec_stacked: the o-projection, [8, 4096] . [32, 4096, 4096]
+    ctx = rnd(B, H * D)
+    f_o = at_layer(Wo, so)
+    f_o[0][:, -32:] = 0
+    checks = [held("matvec_stacked",
+                   dk.matvec_stacked(ctx, Wo, so, lids[LAYER]),
+                   dk.matvec_stacked_plain(ctx, Wo, so, LAYER),
+                   dk.matvec_stacked_plain(ctx, *f_o, 0))]
+    ms, call_ms, plain_ms = timed(
+        lambda lid: dk.matvec_stacked(ctx, Wo, so, lid),
+        lambda l: dk.matvec_stacked_plain(ctx, Wo, so, l))
+    lib_ms = time_graph_ms(lambda i: torch.matmul(ctx, Wo[i]), n=L)
+    record(results, "matvec_stacked", path,
+           "deepspeed_tpu/ops/pallas/decode.py:558", checks, ms, call_ms,
+           plain_ms, bound(nbytes(ctx) + H * D * E * 2 + B * E * 2,
+                           2 * B * H * D * E),
+           [{"B": B, "K": H * D, "N": E, "L": L}],
+           f"the last 32 of the {H * D} weight rows dropped",
+           library_ms=lib_ms)
+
+    # -- out_ffn_stacked, RMSNorm + SwiGLU, fuse_proj=False: two launches
+    x1 = rnd(B, E)
+    ffn = (None, None, None, p["norm2"], None, Wg, sg, None, Wd, sd, None)
+    kw = dict(act="swiglu", eps=eps, norm="rms", w1b_stack=Wu, s1b=su,
+              fuse_proj=False)
+    f_n2, f_g, f_sg, f_d, f_sd, f_u, f_su = at_layer(p["norm2"], Wg, sg, Wd,
+                                                     sd, Wu, su)
+    f_d[:, -32:] = 0                        # the last 32 rows of Wd
+    checks = [held("out_ffn_stacked[swiglu]",
+                   dk.out_ffn_stacked(None, x1, *ffn, lids[LAYER], **kw),
+                   dk.out_ffn_stacked_plain(None, x1, *ffn, LAYER, **kw),
+                   dk.out_ffn_stacked_plain(
+                       None, x1, None, None, None, f_n2, None, f_g, f_sg,
+                       None, f_d, f_sd, None, 0,
+                       **dict(kw, w1b_stack=f_u, s1b=f_su)))]
+    ms, call_ms, plain_ms = timed(
+        lambda lid: dk.out_ffn_stacked(None, x1, *ffn, lid, **kw),
+        lambda l: dk.out_ffn_stacked_plain(None, x1, *ffn, l, **kw))
+    record(results, "out_ffn_stacked", path,
+           "deepspeed_tpu/ops/pallas/decode.py:1000", checks, ms, call_ms,
+           plain_ms, bound(3 * E * Fd * 2 + E * 4 + 2 * B * E * 2,
+                           3 * 2 * B * E * Fd),
+           [{"B": B, "E": E, "F": Fd, "act": "swiglu", "norm": "rms",
+             "fuse_proj": False, "launches_per_call": 2}],
+           f"the last 32 of the {Fd} rows of Wd dropped",
+           limit="out_ffn_stacked[swiglu]")
+
+    # -- decode_attention_paged at head dim 128: the engine's pool (MHA,
+    # R = 1) and a LLaMA-3-8B-shaped pool (8 KV heads, R = 4)
+    kc, vc = eng.cache.pool
+    for t in (kc, vc):
+        for layer in t:
+            layer.copy_(torch.randn(layer.shape, generator=gen, device=dev,
+                                    dtype=torch.float32).to(t.dtype) * 0.5)
+    maxp, page = eng.spec.max_pages_per_slot, eng.spec.page_size
+    pos_list = [511, 300, 17, 700, 100, 1000, 64, -1][:B]
+    perm = torch.randperm(eng.cache.num_blocks - 1, generator=gen,
+                          device=dev) + 1
+    pt = perm[:B * maxp].reshape(B, maxp).to(torch.int32).contiguous()
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    pos_fault = torch.where(pos >= page, pos // page * page - 1, pos)
+    kc8, vc8 = (torch.randn((2, eng.cache.num_blocks, 8, page, D),
+                            generator=gen, device=dev).to(cfg.dtype) * 0.5
+                for _ in range(2))
+    checks, cases = [], []
+    for pools, hk, R, rps in (((kc, vc), Hkv, 1, None),
+                              ((kc8, vc8), 8, 4, None),
+                              ((kc8, vc8), 8, 4, 2)):
+        q = rnd(B, hk, R, D)
+        pos_r = pos.clamp(max=maxp * page - R) if rps else pos
+        got = dk.decode_attention_paged(q, *pools, pos_r, pt, lids[1],
+                                        rows_per_step=rps)
+        if torch.count_nonzero(got[B - 1]):
+            raise AssertionError("idle slot output is not zero")
+        fault = dk.decode_attention_paged_plain(
+            q, *pools, pos_fault, pt, 1) if rps is None else None
+        checks.append(held("decode_attention_paged[d128]", got,
+                           dk.decode_attention_paged_plain(
+                               q, *pools, pos_r, pt, 1, rows_per_step=rps),
+                           fault))
+        cases.append({"B": B, "Hkv": hk, "R": R, "D": D, "page": page,
+                      "rows_per_step": rps, "pos": pos_r.tolist()})
+    del kc8, vc8
+    q = rnd(B, Hkv, H // Hkv, D)
+    ms, call_ms, plain_ms = timed(
+        lambda lid: dk.decode_attention_paged(q, kc, vc, pos, pt, lid),
+        lambda l: dk.decode_attention_paged_plain(q, kc, vc, pos, pt, l))
+    live = sum(pp + 1 for pp in pos_list if pp >= 0)
+    pages_read = sum(pp // page + 1 for pp in pos_list if pp >= 0)
+    record(results, "decode_attention_paged", path,
+           "deepspeed_tpu/ops/pallas/decode.py:931", checks, ms, call_ms,
+           plain_ms,
+           bound(live * Hkv * D * 2 * 2 + 2 * nbytes(q) + nbytes(pos)
+                 + pages_read * 4, 4 * live * H * D), cases,
+           "each live slot's last page dropped (R=1 and R=4)",
+           limit="decode_attention_paged[d128]")
+
+    # -- flash_attention_fwd at head dim 128: prefill buckets, GQA
+    checks, cases, lse_err = [], [], 0.0
+    for S, Hq, Hk, causal in ((16, H, H, True), (1024, H, H, True),
+                              (1024, H, H // 4, False)):
+        q, k, v = rnd(1, Hq, S, D), rnd(1, Hk, S, D), rnd(1, Hk, S, D)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
+        fault = None if causal else fa.flash_attention_fwd_plain(
+            q, k[:, :, :-64], v[:, :, :-64])[0]
+        checks.append(held("flash_attention_fwd[d128]", o, o_ref, fault))
+        lse_err = max(lse_err, tolerance.check_lse(lse, lse_ref))
+        cases.append({"S": S, "H": Hq, "Hkv": Hk, "D": D, "causal": causal})
+        del o_ref, lse_ref, fault
+    S = 1024
+    q, k, v = rnd(1, H, S, D), rnd(1, H, S, D), rnd(1, H, S, D)
+    ms = time_graph_ms(lambda i: fa.flash_attention_fwd(q, k, v, causal=True),
+                       n=L)
+    call_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
+        q, k, v, causal=True), reps=10, inner=1)
+    lib_ms = time_graph_ms(
+        lambda i: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True), n=L)
+    record(results, "flash_attention_fwd", path,
+           "deepspeed_tpu/ops/pallas/flash_attention.py:122", checks, ms,
+           call_ms, plain_ms,
+           bound(4 * H * S * D * 2 + H * S * 4,
+                 4 * H * D * S * (S + 1) // 2), cases,
+           "the last 64-key tile dropped (S=1024, GQA, not causal)",
+           library_ms=lib_ms, lse_err=lse_err,
+           limit="flash_attention_fwd[d128]")
     torch.cuda.synchronize()
     return results
 
@@ -757,10 +990,44 @@ def traffic(cfg, rs):
             for i in range(N_REQUESTS)]
 
 
-def serve_phase(eng, cfg, gen):
+def serve_geometry(eng, family):
+    """(model name, layers, KV heads, head dim, layer weight bytes, LM head
+    bytes, dense-forward oracle, expected launches per tick step by
+    kernel) of a serving engine."""
+    p, cfg = eng.adapter.p, eng.adapter.cfg
+    if family == "gpt2":
+        from deepspeed_tpu_torch.models.gpt2_inference import dense_logits
+        mats = ("attn_qkvw", "attn_ow", "inter_w", "output_w")
+        name, L, Hkv, head = "gpt2_large", cfg.n_layer, cfg.n_head, "wte"
+        per_step = ("ln_qkv_stacked", "decode_attention_paged",
+                    "out_ffn_stacked")
+    else:
+        from deepspeed_tpu_torch.models.llama_inference import \
+            dense_logits as dense_bf16
+
+        def dense_logits(p, cfg, ids):
+            # fp32: a bf16 dense pass of 32 layers parts from the fp32 one
+            # by more than the paged decode does (LLAMA_INIT_STD)
+            return dense_bf16(p, cfg, ids, torch.float32)
+        mats = ("qkv_w", "o_w", "gate_w", "up_w", "down_w")
+        name, L, Hkv, head = "llama_7b", cfg.n_layers, cfg.kv_heads, "head"
+        per_step = ("ln_qkv_stacked", "decode_attention_paged",
+                    "out_ffn_stacked") + (
+            () if eng.adapter.fused_proj() else ("matvec_stacked",))
+    return (name, L, Hkv, cfg.head_dim, nbytes(*(p[m] for m in mats)),
+            nbytes(p[head]), dense_logits, per_step)
+
+
+def serve_phase(eng, cfg, family):
+    """N_REQUESTS greedy requests through ``eng`` (a fresh batcher on its
+    adapter): exact launch counts, every budget finished, a teacher-
+    forced check against a dense forward of the plain versions, TTFT,
+    tokens/s and ms per decode step beside its floor. Returns the run's
+    launches."""
     import deepspeed_tpu_torch.serving as serving
-    from deepspeed_tpu_torch.models.gpt2_inference import dense_logits
     from deepspeed_tpu_torch.ops.cuda import builder
+    name, L, Hkv, D, w_layers, w_head, dense_logits, per_step = \
+        serve_geometry(eng, family)
     rs = np.random.RandomState(0)
     # warm-up (cuBLAS handles, allocator) on a throwaway batcher
     eng.serve([serving.Request("warm", rs.randint(0, cfg.vocab_size, 40),
@@ -775,11 +1042,8 @@ def serve_phase(eng, cfg, gen):
     wall_s = time.perf_counter() - t0
     launches = dict(builder.launches)
     st = main.stats
-    L = cfg.n_layer
     expect = {"flash_attention_fwd": L * st["prefills"],
-              "ln_qkv_stacked": L * st["tick_steps"],
-              "decode_attention_paged": L * st["tick_steps"],
-              "out_ffn_stacked": L * st["tick_steps"]}
+              **{k: L * st["tick_steps"] for k in per_step}}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
     if len(res) != N_REQUESTS or any(
@@ -795,11 +1059,18 @@ def serve_phase(eng, cfg, gen):
     snap = main.metrics_snapshot()
     tick_s = snap["tick_latency_s"]["sum"]
     ms_per_step = tick_s / st["tick_steps"] * 1e3
-    w_layers = L * (12 * cfg.n_embd ** 2) * 2          # bf16 layer weights
-    w_head = cfg.vocab_size * cfg.n_embd * 2
-    floor_ms = (w_layers + w_head) / HBM_BYTES_PER_S * 1e3
+    # the floor of a decode step: the layer weights and the LM head read
+    # once, plus the cached K/V rows the step's live slots attend over (a
+    # request's k-th decode step, at position S + k, reads S + k + 1 rows
+    # of K and V in every layer); averaged over the run's steps
+    kv_rows = sum(len(r.prompt) + k + 1 for r in res.values()
+                  for k in range(len(r.generated) - 1))
+    kv_bytes = kv_rows * L * 2 * Hkv * D * 2
+    floor_ms = ((w_layers + w_head) * st["tick_steps"] + kv_bytes) \
+        / st["tick_steps"] / HBM_BYTES_PER_S * 1e3
     # teacher-forced check: every request's tokens against a dense
-    # forward of the plain versions, at every generated position. The
+    # forward of the plain versions (bf16 for GPT-2, fp32 for LLaMA), at
+    # every generated position. The
     # planted fault is a decoder that takes the plain runner-up token
     # everywhere: it must fail at some position.
     gaps, spacings, ulps = [], [], []
@@ -826,7 +1097,8 @@ def serve_phase(eng, cfg, gen):
         raise AssertionError("a runner-up decoder passes the teacher-forced "
                              "check")
     generated = sum(len(r.generated) for r in res.values())
-    emit({"phase": "serve", "model": "gpt2_large", "layers": L,
+    emit({"phase": "serve" if family == "gpt2" else "serve_llama",
+          "model": name, "layers": L,
           "requests": N_REQUESTS, "slots": eng.spec.slots,
           "prefills": st["prefills"], "prefill_tokens": st["prefill_tokens"],
           "decode_tokens": st["decode_tokens"], "ticks": st["ticks"],
@@ -839,8 +1111,12 @@ def serve_phase(eng, cfg, gen):
           "decode_only_tokens_per_s": st["decode_tokens"] / tick_s,
           "ms_per_decode_step": ms_per_step,
           "decode_step_floor_ms": floor_ms,
+          "floor_weight_bytes_per_step": w_layers + w_head,
+          "floor_kv_bytes_per_step": kv_bytes / st["tick_steps"],
           "page_pool_occupancy_hwm": snap["page_pool"]["occupancy_hwm"],
           "launches": launches,
+          "teacher_forced_oracle": "bf16 dense" if family == "gpt2"
+          else "fp32 dense",
           "teacher_forced_requests": len(res),
           "teacher_forced_positions": len(spacing),
           "teacher_forced_gap_limit_ulps": TF_ULPS,
@@ -852,7 +1128,7 @@ def serve_phase(eng, cfg, gen):
     return launches
 
 
-def profile_phase(eng, cfg, reqs_seed=1):
+def profile_phase(eng, cfg, model, reqs_seed=1):
     """``--profile``: the same traffic served twice more. Once under
     torch.profiler: device time by kernel name, the device's busy share
     of the window (kernels run on one stream, so their times add) and
@@ -877,7 +1153,8 @@ def profile_phase(eng, cfg, reqs_seed=1):
     busy_us = sum(e.device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:16]
     top_host = sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:12]
-    emit({"phase": "profile", "wall_s": wall_s, "device_busy_s": busy_us / 1e6,
+    emit({"phase": "profile", "model": model, "wall_s": wall_s,
+          "device_busy_s": busy_us / 1e6,
           "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
           "prefills": main.stats["prefills"],
           "tick_steps": main.stats["tick_steps"],
@@ -897,7 +1174,7 @@ def profile_phase(eng, cfg, reqs_seed=1):
     wall_s = time.perf_counter() - t0
     rows = sorted(pstats.Stats(prof_py).stats.items(),
                   key=lambda kv: -kv[1][2])[:15]
-    emit({"phase": "host_profile", "wall_s": wall_s,
+    emit({"phase": "host_profile", "model": model, "wall_s": wall_s,
           "tick_steps": main.stats["tick_steps"],
           "functions": [{"name": f"{fn[0].split('/')[-1]}:{fn[1]}:{fn[2]}",
                          "calls": st[1], "tottime_ms": st[2] * 1e3,
@@ -911,19 +1188,39 @@ def main():
         return 2
     import deepspeed_tpu_torch.serving as serving
     from deepspeed_tpu_torch.models.gpt2 import gpt2_large, init_params
+    from deepspeed_tpu_torch.models.llama import llama_7b
+    from deepspeed_tpu_torch.models.llama_inference import \
+        init_serving_params
     profile = "--profile" in sys.argv[1:]
     smi = phase_device()
     cfg = gpt2_large(dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(0)
     eng = serving.build_engine(
         "gpt2", cfg, init_params(cfg, seed=0, device="cuda"),
-        config={"serving": {"slots": 8, "page_size": 16,
-                            "max_pages_per_slot": 64}})
+        config={"serving": SERVING})
     kernels = kernel_phase(eng, cfg, gen)
-    launches = serve_phase(eng, cfg, gen)
+    launches = {"serve": serve_phase(eng, cfg, "gpt2")}
     if profile:
-        profile_phase(eng, cfg)
-    del eng                       # free the serving engine for training
+        profile_phase(eng, cfg, "gpt2_large")
+    del eng                       # free each serving engine before the next
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lcfg = llama_7b()
+    eng = serving.build_engine(
+        "llama", lcfg, init_serving_params(lcfg, seed=0, device="cuda",
+                                           std=LLAMA_INIT_STD),
+        config={"serving": SERVING})
+    emit({"phase": "llama_init", "model": "llama_7b",
+          "params": lcfg.num_params(), "init_std": LLAMA_INIT_STD,
+          "weight_gb": sum(nbytes(t) for t in eng.adapter.p.values()) / 1e9,
+          "pool_gb": nbytes(*eng.cache.pool) / 1e9,
+          "pool_blocks": eng.cache.num_blocks,
+          "fused_proj": eng.adapter.fused_proj()})
+    kernels += llama_kernel_phase(eng, lcfg, gen)
+    launches["serve_llama"] = serve_phase(eng, lcfg, "llama")
+    if profile:
+        profile_phase(eng, lcfg, "llama_7b")
+    del eng
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     kernels += train_kernel_phase(gen)
@@ -933,9 +1230,9 @@ def main():
     del engine, batch
     torch.cuda.empty_cache()
     grad_check_phase()
+    launches["train"] = train_launches
     for row in kernels:
-        ran = train_launches if row["path"] == "train" else launches
-        row["launches"] = ran.get(row["name"], 0)
+        row["launches"] = launches[row["path"]].get(row["name"], 0)
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on the "
                                  f"{row['path']} path")

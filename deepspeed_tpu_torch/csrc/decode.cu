@@ -1,10 +1,14 @@
-// Decode-tick (S=1) kernels for paged GPT-2 serving on Hopper (sm_90a).
+// Decode-tick (S=1) kernels for paged GPT-2 and LLaMA serving on Hopper
+// (sm_90a).
 //
-// Replaces three Pallas kernels of deepspeed_tpu/ops/pallas/decode.py:
+// Replaces four Pallas kernels of deepspeed_tpu/ops/pallas/decode.py:
 //   ln_qkv_int8_stacked     (:432, kernel _ln_qkv_stacked_kernel :496)
+//   matvec_int8_stacked     (:523, kernel _matvec_stacked_kernel :558)
 //   out_ffn_int8_stacked    (:698, kernel _out_ffn_stacked_kernel :1000)
 //   decode_attention_paged  (:854, kernel _decode_attn_paged_kernel :931)
-// for bf16 activations and weights (int8 codes are a later slice).
+// for bf16 activations and weights (int8 codes are a later slice): GPT-2's
+// LayerNorm/bias/gelu_tanh contract and LLaMA's RMSNorm/bias-free/SwiGLU
+// one, head dim 64 or 128, GQA query rows.
 //
 // What bounds them on the H100: bytes. At 8 slots a decode matvec does
 // 2*B = 16 flops per weight byte read, far below the ~295 flop/byte the
@@ -36,6 +40,14 @@
 //   (c) y = x1 + h.W2.s2 + b2; a block holds only its K slice of h.
 //   Rounding points follow the Pallas kernel: x1, u and h are rounded to
 //   bf16, every product accumulates in fp32.
+// - LLaMA (fuse_proj=False, the large-E path): x arrives as the bf16 x1
+//   (o_proj ran as matvec_stacked), so (a) is skipped. (b) streams the
+//   gate and up tiles together as the Pallas kernel does (decode.py:709):
+//   the blocks of a column tile's gate half and of its up half form one
+//   cluster, each streams its own matrix, and the epilogue takes both
+//   sums from distributed shared memory: h = silu(u.Wg.sg) * (u.Wu.su).
+//   Its RMSNorm prologue stages the bf16 x1 rows (8 x 4096 x 2 B = 64 KiB
+//   at LLaMA-7B); fp32 rows would not leave room for u at 8 slots.
 // - The layer index (a one-element device int32) and the per-layer
 //   scales are read on the device, so a layer loop never syncs to the
 //   host.
@@ -44,8 +56,11 @@
 //   live keys in 16-key groups, each warp with its own fp32 online
 //   softmax, holding the next group's K/V in registers while it computes
 //   the current one (no shared-memory staging, no block barrier in the
-//   loop); the block merges the 8 states at the end. A lane pair owns a
-//   key for the score (32 dims each), a lane owns 2 dims of P.V. Splitting
+//   loop); the block merges the 8 states at the end. Head dim D is a
+//   template parameter: D/32 lanes own a key for the score (32 dims
+//   each), a lane owns D/32 dims of P.V, and a group holds 1024/D keys
+//   (16 at D 64, 8 at D 128), so a warp's K/V registers do not grow with
+//   D. GQA: the R query rows of a KV head share its stream. Splitting
 //   one slot over several blocks ("flash-decoding") is later work: a
 //   long slot still runs on one SM.
 
@@ -76,8 +91,17 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   return 0.5f * v * (1.f + tanhf(k0 * (v + 0.044715f * v * v * v)));
 }
 
-enum { PRO_COPY = 0, PRO_LN_BF16 = 1, PRO_LN_F32 = 2 };
-enum { EPI_BIAS = 0, EPI_RESID_X1 = 1, EPI_GELU = 2, EPI_RESID = 3 };
+// jax.nn.silu
+__device__ __forceinline__ float silu_f32(float v) {
+  return v / (1.f + __expf(-v));
+}
+
+enum { PRO_COPY = 0, PRO_LN_BF16 = 1, PRO_LN_F32 = 2, PRO_RMS_BF16 = 3 };
+// EPI_BIAS: a*s (+ b); EPI_RESID: resid + a*s (+ b); EPI_SWIGLU (paired
+// gate/up launches only): silu(a_gate*s_gate) * (a_up*s_up). A null bias
+// adds nothing.
+enum { EPI_BIAS = 0, EPI_RESID_X1 = 1, EPI_GELU = 2, EPI_RESID = 3,
+       EPI_SWIGLU = 4 };
 
 // bytes of one element of the kernel's input rows
 template <int PRO>
@@ -179,6 +203,34 @@ __device__ void layer_norm_slice(const Tin* __restrict__ x,
   }
 }
 
+// ut[kk][b] = bf16(x[b] * rsqrt(mean(x[b]^2) + eps) * w) at k = k_lo + kk,
+// as _rms (decode.py:425): fp32 mean of squares over the whole staged row.
+template <int MAXB>
+__device__ void rms_norm_slice(const bf16* __restrict__ x,
+                               const float* __restrict__ w,
+                               bf16* __restrict__ ut, int B, int K, int k_lo,
+                               int klen, float eps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < B; r += kWarps) {
+    const bf16* xr = x + (size_t)r * K;
+    float f[8], s = 0.f;
+    for (int k = lane * 8; k < K; k += 256) {
+      load8(xr + k, f);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s += f[i] * f[i];
+    }
+    const float rstd = rsqrtf(warp_sum(s) / K + eps);
+    for (int kk = lane * 8; kk < klen; kk += 256) {
+      float g[8];
+      load8(xr + k_lo + kk, f);
+      load8(w + kk, g);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        ut[(kk + i) * MAXB + r] = __float2bfloat16(f[i] * rstd * g[i]);
+    }
+  }
+}
+
 // dst[j] = W row k0 + j * kRowGroups (16 bytes at the thread's columns),
 // or zeros at and past row k_hi: one predicated batch of loads.
 template <int NB>
@@ -205,18 +257,22 @@ __device__ __forceinline__ void load_w_rows(uint4 (&dst)[NB],
 // [B x 64] partial; after a cluster barrier each block sums its share of
 // the outputs over the S partials (distributed shared memory, fixed order,
 // so the result does not depend on timing) and applies the epilogue.
+// PAIR (the SwiGLU gate/up launch): grid (N / 64, 2S), the cluster's
+// first S blocks stream W (gate, scales), the last S W2 (up, scales2).
 //
 // Shared memory: red [kWarps][MAXB][64] f32, part [MAXB][64] f32, ut
 // [kslice][MAXB] bf16 (u transposed: one 16-byte load gives a row's B
-// values) and, for a LayerNorm prologue, the whole input rows [B][K] and
-// the slice of ln_w, ln_b.
-template <int MAXB, int PRO, int EPI>
+// values) and, for a norm prologue, the whole input rows [B][K] and
+// the slice of ln_w (and ln_b for LayerNorm).
+template <int MAXB, int PRO, int EPI, bool PAIR>
 __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
     stacked_matvec_kernel(const void* __restrict__ xin,
                           const float* __restrict__ ln_w,
                           const float* __restrict__ ln_b,
                           const bf16* __restrict__ W,
                           const float* __restrict__ scales,
+                          const bf16* __restrict__ W2,
+                          const float* __restrict__ scales2,
                           const float* __restrict__ bias,
                           const int* __restrict__ layer_ptr,
                           const bf16* __restrict__ resid,
@@ -225,9 +281,13 @@ __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
   constexpr int kBatch = MAXB <= 8 ? 4 : 2;
   constexpr int kOut = (MAXB * kCols + kThreads - 1) / kThreads;
   constexpr bool kResid = EPI == EPI_RESID_X1 || EPI == EPI_RESID;
+  constexpr bool kNorm = PRO != PRO_COPY;
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), nsplit = (int)cluster.num_blocks();
-  const int k_lo = rank * kslice, k_hi = min(K, k_lo + kslice);
+  const int rank = (int)cluster.block_rank(), nblk = (int)cluster.num_blocks();
+  const int nsplit = PAIR ? nblk / 2 : nblk;     // blocks a matrix
+  const bool up = PAIR && rank >= nsplit;        // this block streams W2
+  const int krank = up ? rank - nsplit : rank;
+  const int k_lo = krank * kslice, k_hi = min(K, k_lo + kslice);
   const int klen = max(k_hi - k_lo, 0);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -239,10 +299,11 @@ __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
   float* lnb = lnw + kslice;
   const int l = *layer_ptr;
   const float s = scales[l];
+  const float s2 = PAIR ? scales2[l] : 0.f;
 
   // this block's share of the tile's B x 64 outputs, and their epilogue
   // operands, requested now so they arrive during the weight stream
-  const int n_out = B * kCols, per = (n_out + nsplit - 1) / nsplit;
+  const int n_out = B * kCols, per = (n_out + nblk - 1) / nblk;
   const int o_lo = rank * per, o_hi = min(n_out, o_lo + per);
   float pre_b[kOut], pre_r[kOut];
 #pragma unroll
@@ -250,12 +311,12 @@ __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
     const int i = o_lo + threadIdx.x + t * kThreads;
     const int b = i / kCols, n = blockIdx.x * kCols + i % kCols;
     const bool ok = i < o_hi && n < N;
-    pre_b[t] = ok ? bias[(size_t)l * N + n] : 0.f;
+    pre_b[t] = ok && bias != nullptr ? bias[(size_t)l * N + n] : 0.f;
     pre_r[t] = ok && kResid ? __bfloat162float(resid[(size_t)b * N + n])
                             : 0.f;
   }
 
-  if (PRO == PRO_COPY) {
+  if (!kNorm) {
     // the slice of the input rows, transposed into ut
     const bf16* x = reinterpret_cast<const bf16*>(xin);
     const int vpr = klen / 8, nv = B * vpr;
@@ -282,15 +343,20 @@ __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
       }
     }
   } else {
+    const bool rms = PRO == PRO_RMS_BF16;
     stage_rows(reinterpret_cast<uint4*>(xs),
                reinterpret_cast<const uint4*>(xin),
                B * K * in_bytes<PRO>() / 16, reinterpret_cast<uint4*>(lnw),
                reinterpret_cast<const uint4*>(ln_w + (size_t)l * K + k_lo),
                klen / 4, reinterpret_cast<uint4*>(lnb),
-               reinterpret_cast<const uint4*>(ln_b + (size_t)l * K + k_lo),
-               klen / 4);
+               reinterpret_cast<const uint4*>(
+                   rms ? ln_w : ln_b + (size_t)l * K + k_lo),
+               rms ? 0 : klen / 4);
     __syncthreads();
-    if (PRO == PRO_LN_BF16)
+    if (PRO == PRO_RMS_BF16)
+      rms_norm_slice<MAXB>(reinterpret_cast<const bf16*>(xs), lnw, ut, B, K,
+                           k_lo, klen, eps);
+    else if (PRO == PRO_LN_BF16)
       layer_norm_slice<MAXB>(reinterpret_cast<const bf16*>(xs), lnw, lnb, ut,
                              B, K, k_lo, klen, eps);
     else
@@ -308,7 +374,7 @@ __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
     for (int c = 0; c < 8; ++c) acc[b][c] = 0.f;
 
   if (n0 < N) {
-    const bf16* Wl = W + (size_t)l * K * N + n0;
+    const bf16* Wl = (up ? W2 : W) + (size_t)l * K * N + n0;
     constexpr int kStep = kBatch * kRowGroups;
     uint4 cur[kBatch], nxt[kBatch];
     load_w_rows<kBatch>(cur, Wl, N, k_lo + rg, k_hi);
@@ -385,6 +451,11 @@ __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
       out[o] = __float2bfloat16(x1);
     } else if (EPI == EPI_GELU) {
       out[o] = __float2bfloat16(gelu_tanh(a * s + bn));
+    } else if (EPI == EPI_SWIGLU) {
+      float a2 = 0.f;
+      for (int q = nsplit; q < nblk; ++q)
+        a2 += cluster.map_shared_rank(part, q)[i];
+      out[o] = __float2bfloat16(silu_f32(a * s) * (a2 * s2));
     } else {
       out[o] = __float2bfloat16((pre_r[t] + a * s) + bn);
     }
@@ -394,32 +465,36 @@ __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
 
 // Splits K over a cluster of S blocks: the smallest power of two that puts
 // at least 160 blocks on the card (H100: 132 SMs, 2 blocks each), at most
-// kMaxSplit; each slice a multiple of 8 rows.
-inline int split_for(int n_tiles) {
+// kMaxSplit blocks a cluster; each slice a multiple of 8 rows. A paired
+// launch has two matrices, so twice the blocks a split.
+inline int split_for(int n_tiles, bool pair) {
+  const int mats = pair ? 2 : 1;
   int S = 1;
-  while (S < kMaxSplit && n_tiles * S < 160) S *= 2;
+  while (S * mats < kMaxSplit && n_tiles * S * mats < 160) S *= 2;
   return S;
 }
 
 template <int MAXB, int PRO>
 size_t matvec_smem(int B, int K, int kslice) {
+  const size_t rows = (size_t)B * K * in_bytes<PRO>();
   return (size_t)(kWarps + 1) * MAXB * kCols * sizeof(float) +
          (size_t)kslice * MAXB * sizeof(bf16) +
-         (PRO == PRO_COPY ? 0
-                          : (size_t)B * K * in_bytes<PRO>() +
-                                2 * (size_t)kslice * sizeof(float));
+         (PRO == PRO_COPY       ? 0
+          : PRO == PRO_RMS_BF16 ? rows + (size_t)kslice * sizeof(float)
+                                : rows + 2 * (size_t)kslice * sizeof(float));
 }
 
-template <int MAXB, int PRO, int EPI>
+template <int MAXB, int PRO, int EPI, bool PAIR>
 cudaError_t launch_matvec(const void* xin, const float* ln_w,
                           const float* ln_b, const bf16* W,
-                          const float* scales, const float* bias,
+                          const float* scales, const bf16* W2,
+                          const float* scales2, const float* bias,
                           const int* layer_ptr, const bf16* resid,
                           bf16* out, float* out_f32,
                           int B, int K, int N, float eps, cudaStream_t st) {
-  auto kern = stacked_matvec_kernel<MAXB, PRO, EPI>;
+  auto kern = stacked_matvec_kernel<MAXB, PRO, EPI, PAIR>;
   const int n_tiles = (N + kCols - 1) / kCols;
-  const int S = split_for(n_tiles);
+  const int S = split_for(n_tiles, PAIR);
   const int kslice = ((K + S - 1) / S + 7) / 8 * 8;
   const size_t smem = matvec_smem<MAXB, PRO>(B, K, kslice);
   // raise the kernel's dynamic shared-memory limit once per size, so a
@@ -431,83 +506,104 @@ cudaError_t launch_matvec(const void* xin, const float* ln_w,
     if (e != cudaSuccess) return e;
     granted = smem;
   }
+  const int cluster = S * (PAIR ? 2 : 1);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_tiles, S, 1);
+  cfg.gridDim = dim3(n_tiles, cluster, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = S;
+  attr[0].val.clusterDim.y = cluster;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, xin, ln_w, ln_b, W, scales, bias,
-                            layer_ptr, resid, out, out_f32, B, K, N, kslice,
-                            eps);
+  return cudaLaunchKernelEx(&cfg, kern, xin, ln_w, ln_b, W, scales, W2,
+                            scales2, bias, layer_ptr, resid, out, out_f32, B,
+                            K, N, kslice, eps);
 }
 
-template <int PRO, int EPI>
+template <int PRO, int EPI, bool PAIR = false>
 cudaError_t matvec(const void* xin, const float* ln_w, const float* ln_b,
                    const bf16* W, const float* scales, const float* bias,
                    const int* layer_ptr, const bf16* resid, bf16* out,
                    float* out_f32, int B, int K, int N, float eps,
-                   cudaStream_t st) {
+                   cudaStream_t st, const bf16* W2 = nullptr,
+                   const float* scales2 = nullptr) {
   if (B <= 8)
-    return launch_matvec<8, PRO, EPI>(xin, ln_w, ln_b, W, scales, bias,
-                                      layer_ptr, resid, out, out_f32, B, K,
-                                      N, eps, st);
-  return launch_matvec<16, PRO, EPI>(xin, ln_w, ln_b, W, scales, bias,
-                                     layer_ptr, resid, out, out_f32, B, K, N,
-                                     eps, st);
+    return launch_matvec<8, PRO, EPI, PAIR>(xin, ln_w, ln_b, W, scales, W2,
+                                            scales2, bias, layer_ptr, resid,
+                                            out, out_f32, B, K, N, eps, st);
+  return launch_matvec<16, PRO, EPI, PAIR>(xin, ln_w, ln_b, W, scales, W2,
+                                           scales2, bias, layer_ptr, resid,
+                                           out, out_f32, B, K, N, eps, st);
 }
 
 // ------------------------------------------------- paged decode attention
 
 constexpr int kAttnWarps = 8;
 constexpr int kAttnThreads = kAttnWarps * 32;
-constexpr int kHeadDim = 64;  // score: 2 lanes x 32 dims; P.V: 2 dims a lane
-constexpr int kGroup = 16;    // keys a warp takes per step, one a lane pair
 constexpr int kMaxRows = 8;   // R, query rows per KV head
 
-// One 16-key group of a slot's K/V rows, as one warp holds it: lane i has
-// K[key0 + i/2][32*(i%2) .. +32) and V[key0 + j][2i .. 2i+2) for all j.
+// One group of a slot's K/V rows, as one warp holds it, for head dim D:
+// kLanes = D/32 lanes own a key (32 dims each), so a group has 32/kLanes
+// keys; lane i has K[key0 + i/kLanes][32*(i%kLanes) .. +32) and
+// V[key0 + j][i*D/32 .. +D/32) for every key j of the group (D/64 words).
+template <int D>
 struct KVGroup {
+  static constexpr int kLanes = D / 32;
+  static constexpr int kKeys = 32 / kLanes;
+  static constexpr int kVWords = D / 64;
   uint4 k[4];
-  uint32_t v[kGroup];
+  uint32_t v[kKeys][kVWords];
 };
 
-__device__ __forceinline__ void load_group(KVGroup& g,
+template <int D>
+__device__ __forceinline__ void load_group(KVGroup<D>& g,
                                            const bf16* __restrict__ kpool,
                                            const bf16* __restrict__ vpool,
                                            size_t base, int lane) {
+  using G = KVGroup<D>;
   const uint4* kr = reinterpret_cast<const uint4*>(
-      kpool + base + (lane >> 1) * kHeadDim + (lane & 1) * 32);
+      kpool + base + (lane / G::kLanes) * D + (lane % G::kLanes) * 32);
 #pragma unroll
   for (int i = 0; i < 4; ++i) g.k[i] = __ldg(kr + i);
-  const uint32_t* vr = reinterpret_cast<const uint32_t*>(vpool + base) + lane;
+  const uint32_t* vr =
+      reinterpret_cast<const uint32_t*>(vpool + base) + lane * G::kVWords;
 #pragma unroll
-  for (int j = 0; j < kGroup; ++j) g.v[j] = __ldg(vr + j * (kHeadDim / 2));
+  for (int j = 0; j < G::kKeys; ++j) {
+    if constexpr (G::kVWords == 2) {
+      const uint2 t = __ldg(reinterpret_cast<const uint2*>(vr + j * (D / 2)));
+      g.v[j][0] = t.x;
+      g.v[j][1] = t.y;
+    } else {
+      g.v[j][0] = __ldg(vr + j * (D / 2));
+    }
+  }
 }
 
 // One block per (KV head, slot). Each warp walks the slot's live keys in
-// 16-key groups (g = warp, warp + 8, ...) with its own fp32 online
-// softmax for the R rows, loading the next group while it computes this
-// one; the block then merges the 8 partial (max, sum, acc) states.
+// groups (g = warp, warp + 8, ...) with its own fp32 online softmax for
+// the R rows, loading the next group while it computes this one; the
+// block then merges the 8 partial (max, sum, acc) states.
+template <int D>
 __global__ void __launch_bounds__(kAttnThreads) decode_attn_paged_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ kpool,
     const bf16* __restrict__ vpool, const int* __restrict__ pos_arr,
     const int* __restrict__ pt, const int* __restrict__ layer_ptr,
     bf16* __restrict__ out, int H, int R, int NB, int page,
     int maxp, int rows_per_step, float scale) {
-  __shared__ __align__(16) float qs[kMaxRows][kHeadDim];
+  using G = KVGroup<D>;
+  constexpr int kLanes = G::kLanes, kKeys = G::kKeys;
+  constexpr int kDims = D / 32;   // P.V dims a lane owns
+  __shared__ __align__(16) float qs[kMaxRows][D];
   __shared__ float part_m[kAttnWarps][kMaxRows];
   __shared__ float part_l[kAttnWarps][kMaxRows];
-  __shared__ float part_acc[kAttnWarps][kMaxRows][kHeadDim];
+  __shared__ float part_acc[kAttnWarps][kMaxRows][D];
   const int h = blockIdx.x, b = blockIdx.y;
   const int pos = pos_arr[b];
-  const int npair = R * kHeadDim;
+  const int npair = R * D;
   bf16* ob = out + (size_t)(b * H + h) * npair;
 
   // idle slot: zeros, and no page is touched (decode.py:959-961 — even a
@@ -522,38 +618,39 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_paged_kernel(
   // the table: the Pallas grid visits page p iff p*page <= pos + max_step
   const int max_step = rows_per_step > 0 ? R / rows_per_step - 1 : 0;
   const int n_keys = min(pos + max_step + 1, maxp * page);
-  const int n_groups = (n_keys + kGroup - 1) / kGroup;
+  const int n_groups = (n_keys + kKeys - 1) / kKeys;
 
   const bf16* qb = q + (size_t)(b * H + h) * npair;
   for (int i = threadIdx.x; i < npair; i += kAttnThreads)
-    qs[i / kHeadDim][i % kHeadDim] = __bfloat162float(qb[i]);
+    qs[i / D][i % D] = __bfloat162float(qb[i]);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int half = lane & 1;
-  const size_t page_elems = (size_t)page * kHeadDim;
+  const int sub = lane % kLanes;
+  const size_t page_elems = (size_t)page * D;
   const size_t layer_off = (size_t)l * NB * H * page_elems;
   const int* ptb = pt + (size_t)b * maxp;
   auto group_base = [&](int g) {
-    const int key0 = g * kGroup, p = key0 / page;   // page % 16 == 0
+    const int key0 = g * kKeys, p = key0 / page;   // page % 16 == 0
     return layer_off + ((size_t)ptb[p] * H + h) * page_elems +
-           (size_t)(key0 - p * page) * kHeadDim;
+           (size_t)(key0 - p * page) * D;
   };
 
-  float m[kMaxRows], lsum[kMaxRows], acc[kMaxRows][2];
+  float m[kMaxRows], lsum[kMaxRows], acc[kMaxRows][kDims];
 #pragma unroll
   for (int r = 0; r < kMaxRows; ++r) {
     m[r] = -1e30f;
     lsum[r] = 0.f;
-    acc[r][0] = acc[r][1] = 0.f;
+#pragma unroll
+    for (int d = 0; d < kDims; ++d) acc[r][d] = 0.f;
   }
-  KVGroup cur, nxt;
+  G cur, nxt;
   int g = warp;
-  if (g < n_groups) load_group(cur, kpool, vpool, group_base(g), lane);
+  if (g < n_groups) load_group<D>(cur, kpool, vpool, group_base(g), lane);
   for (; g < n_groups; g += kAttnWarps) {
     if (g + kAttnWarps < n_groups)
-      load_group(nxt, kpool, vpool, group_base(g + kAttnWarps), lane);
-    const int key = g * kGroup + (lane >> 1);
+      load_group<D>(nxt, kpool, vpool, group_base(g + kAttnWarps), lane);
+    const int key = g * kKeys + lane / kLanes;
     float kf[32];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -567,7 +664,7 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_paged_kernel(
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r) {
       if (r < R) {
-        const float4* qr = reinterpret_cast<const float4*>(&qs[r][half * 32]);
+        const float4* qr = reinterpret_cast<const float4*>(&qs[r][sub * 32]);
         float dot = 0.f;
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
@@ -577,30 +674,39 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_paged_kernel(
           dot = fmaf(qv.z, kf[4 * i + 2], dot);
           dot = fmaf(qv.w, kf[4 * i + 3], dot);
         }
-        dot += __shfl_xor_sync(kFull, dot, 1);
+#pragma unroll
+        for (int o = 1; o < kLanes; o <<= 1)
+          dot += __shfl_xor_sync(kFull, dot, o);
         const int lim = pos + (rows_per_step > 0 ? r / rows_per_step : 0);
         const bool valid = key <= lim;
         const float s = dot * scale;
         float gmax = valid ? s : -1e30f;
 #pragma unroll
-        for (int o = 2; o < 32; o <<= 1)
+        for (int o = kLanes; o < 32; o <<= 1)
           gmax = fmaxf(gmax, __shfl_xor_sync(kFull, gmax, o));
         const float m_new = fmaxf(m[r], gmax);
         const float alpha = __expf(m[r] - m_new);
         const float p = valid ? __expf(s - m_new) : 0.f;
-        lsum[r] = lsum[r] * alpha + warp_sum(half ? 0.f : p);
+        lsum[r] = lsum[r] * alpha + warp_sum(sub ? 0.f : p);
         // p is rounded to bf16 before the V product and summed unrounded,
         // as in the Pallas kernel
         const float pr = __bfloat162float(__float2bfloat16(p));
-        float a0 = acc[r][0] * alpha, a1 = acc[r][1] * alpha;
+        float a[kDims];
 #pragma unroll
-        for (int j = 0; j < kGroup; ++j) {
-          const float pj = __shfl_sync(kFull, pr, 2 * j);
-          a0 = fmaf(pj, __uint_as_float(cur.v[j] << 16), a0);
-          a1 = fmaf(pj, __uint_as_float(cur.v[j] & 0xffff0000u), a1);
+        for (int d = 0; d < kDims; ++d) a[d] = acc[r][d] * alpha;
+#pragma unroll
+        for (int j = 0; j < kKeys; ++j) {
+          const float pj = __shfl_sync(kFull, pr, j * kLanes);
+#pragma unroll
+          for (int w = 0; w < G::kVWords; ++w) {
+            a[2 * w] = fmaf(pj, __uint_as_float(cur.v[j][w] << 16), a[2 * w]);
+            a[2 * w + 1] =
+                fmaf(pj, __uint_as_float(cur.v[j][w] & 0xffff0000u),
+                     a[2 * w + 1]);
+          }
         }
-        acc[r][0] = a0;
-        acc[r][1] = a1;
+#pragma unroll
+        for (int d = 0; d < kDims; ++d) acc[r][d] = a[d];
         m[r] = m_new;
       }
     }
@@ -616,13 +722,14 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_paged_kernel(
         part_m[warp][r] = m[r];
         part_l[warp][r] = lsum[r];
       }
-      part_acc[warp][r][2 * lane] = acc[r][0];
-      part_acc[warp][r][2 * lane + 1] = acc[r][1];
+#pragma unroll
+      for (int d = 0; d < kDims; ++d)
+        part_acc[warp][r][kDims * lane + d] = acc[r][d];
     }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < npair; i += kAttnThreads) {
-    const int r = i / kHeadDim, d = i % kHeadDim;
+    const int r = i / D, d = i % D;
     float M = -1e30f;
 #pragma unroll
     for (int w = 0; w < kAttnWarps; ++w) M = fmaxf(M, part_m[w][r]);
@@ -641,15 +748,32 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_paged_kernel(
 
 extern "C" {
 
-// out [B, N] = LN(x) . W[layer] * s[layer] + b[layer]
+// out [B, N] = norm(x) . W[layer] * s[layer] (+ b[layer]); rms != 0 takes
+// RMSNorm (ln_w only, no bias: pass null ln_b and b)
 int dstpu_ln_qkv_stacked(const void* x, const void* ln_w, const void* ln_b,
                          const void* w, const void* s, const void* b,
                          const void* layer_ptr, void* out,
-                         int B, int E, int N, float eps, void* stream) {
+                         int B, int E, int N, int rms, float eps,
+                         void* stream) {
+  if (rms)
+    return (int)matvec<PRO_RMS_BF16, EPI_BIAS>(
+        x, (const float*)ln_w, nullptr, (const bf16*)w, (const float*)s,
+        nullptr, (const int*)layer_ptr, nullptr, (bf16*)out, nullptr, B, E,
+        N, eps, (cudaStream_t)stream);
   return (int)matvec<PRO_LN_BF16, EPI_BIAS>(
       x, (const float*)ln_w, (const float*)ln_b, (const bf16*)w,
       (const float*)s, (const float*)b, (const int*)layer_ptr, nullptr,
       (bf16*)out, nullptr, B, E, N, eps, (cudaStream_t)stream);
+}
+
+// out [B, N] = x . W[layer] * s[layer]
+int dstpu_matvec_stacked(const void* x, const void* w, const void* s,
+                         const void* layer_ptr, void* out, int B, int K,
+                         int N, void* stream) {
+  return (int)matvec<PRO_COPY, EPI_BIAS>(
+      x, nullptr, nullptr, (const bf16*)w, (const float*)s, nullptr,
+      (const int*)layer_ptr, nullptr, (bf16*)out, nullptr, B, K, N, 0.f,
+      (cudaStream_t)stream);
 }
 
 // Three launches on one stream: x1 (bf16 + fp32 copies), h, then out.
@@ -679,19 +803,48 @@ int dstpu_out_ffn_stacked(const void* ctx, const void* x, const void* wp,
       B, F, E, eps, st);
 }
 
-// head dim 64, R <= 8, page % 16 == 0 (the wrapper checks)
+// LLaMA's out_ffn with fuse_proj=False, two launches on one stream:
+// h = silu(RMS(x1).Wg.sg) * (RMS(x1).Wu.su), then out = x1 + h.Wd.sd
+int dstpu_out_ffn_glu_stacked(const void* x1, const void* ln_w,
+                              const void* wg, const void* sg,
+                              const void* wu, const void* su,
+                              const void* wd, const void* sd,
+                              const void* layer_ptr, void* h, void* out,
+                              int B, int E, int F, float eps, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* lp = (const int*)layer_ptr;
+  cudaError_t e = matvec<PRO_RMS_BF16, EPI_SWIGLU, true>(
+      x1, (const float*)ln_w, nullptr, (const bf16*)wg, (const float*)sg,
+      nullptr, lp, nullptr, (bf16*)h, nullptr, B, E, F, eps, st,
+      (const bf16*)wu, (const float*)su);
+  if (e != cudaSuccess) return (int)e;
+  return (int)matvec<PRO_COPY, EPI_RESID>(
+      h, nullptr, nullptr, (const bf16*)wd, (const float*)sd, nullptr, lp,
+      (const bf16*)x1, (bf16*)out, nullptr, B, F, E, eps, st);
+}
+
+// head dim D 64 or 128, R <= 8, page % 16 == 0 (the wrapper checks)
 int dstpu_decode_attention_paged(const void* q, const void* k_pool,
                                  const void* v_pool, const void* pos,
                                  const void* page_table,
                                  const void* layer_ptr, void* out, int B,
-                                 int H, int R, int NB, int page, int maxp,
-                                 int rows_per_step,
+                                 int H, int R, int D, int NB, int page,
+                                 int maxp, int rows_per_step,
                                  float scale, void* stream) {
   dim3 grid(H, B);
-  decode_attn_paged_kernel<<<grid, kAttnThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k_pool, (const bf16*)v_pool,
-      (const int*)pos, (const int*)page_table, (const int*)layer_ptr,
-      (bf16*)out, H, R, NB, page, maxp, rows_per_step, scale);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 64)
+    decode_attn_paged_kernel<64><<<grid, kAttnThreads, 0, st>>>(
+        (const bf16*)q, (const bf16*)k_pool, (const bf16*)v_pool,
+        (const int*)pos, (const int*)page_table, (const int*)layer_ptr,
+        (bf16*)out, H, R, NB, page, maxp, rows_per_step, scale);
+  else if (D == 128)
+    decode_attn_paged_kernel<128><<<grid, kAttnThreads, 0, st>>>(
+        (const bf16*)q, (const bf16*)k_pool, (const bf16*)v_pool,
+        (const int*)pos, (const int*)page_table, (const int*)layer_ptr,
+        (bf16*)out, H, R, NB, page, maxp, rows_per_step, scale);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,8 @@ Replaces ``deepspeed_tpu/ops/pallas/flash_attention.py:580``
 :122) and the recompute backward (``_flash_bwd`` :257 with
 ``_bwd_fused_kernel`` :192, and ``_flash_bwd_chunked`` :457 with
 ``_bwd_dq_kernel_chunked`` :367 and ``_bwd_dkv_kernel_chunked`` :405).
-The backward runs as two kernels, dk/dv and dq, each tiling any S. A
+The backward runs as two kernels, dk/dv and dq, each tiling any S. The
+forward takes head dim 64 (GPT-2) or 128 (LLaMA), the backward 64. A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -18,7 +19,8 @@ import torch
 from deepspeed_tpu_torch.ops.cuda import builder
 
 NEG_INF = -1e30
-HEAD_DIM = 64     # the kernels' head dim (GPT-2's)
+HEAD_DIM = 64              # the backward kernels' head dim (GPT-2's)
+FWD_HEAD_DIMS = (64, 128)  # the forward's: GPT-2's and LLaMA's
 ROADMAP_FLASH = ("ROADMAP.md queue 2, item \"flash attention: other head "
                  "dims and fp32\"")
 
@@ -206,7 +208,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """(o, lse) — see flash_attention_fwd_plain. On CUDA: bf16,
-    contiguous [B, H, S, 64] q and [B, Hkv, S, 64] k/v with H % Hkv == 0."""
+    contiguous [B, H, S, D] q and [B, Hkv, S, D] k/v with H % Hkv == 0,
+    D 64 or 128."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, scale)
     if q.device.type != "cuda":
@@ -230,10 +233,10 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_fwd: {name} must be "
                              f"contiguous")
-    if D != HEAD_DIM:
+    if D not in FWD_HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_attention_fwd: the CUDA kernel takes head dim "
-            f"{HEAD_DIM}, got {D} ({ROADMAP_FLASH})")
+            f"flash_attention_fwd: the CUDA kernel takes head dim 64 or "
+            f"128, got {D} ({ROADMAP_FLASH})")
     scale = _scale(scale, D)
     lib = builder.kernels()
     o = torch.empty_like(q)
@@ -241,7 +244,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     if S == 0:
         return o, lse
     lib.call("dstpu_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             o.data_ptr(), lse.data_ptr(), B * H, H, Hkv, S, scale,
+             o.data_ptr(), lse.data_ptr(), B * H, H, Hkv, S, D, scale,
              int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
     builder.launches["flash_attention_fwd"] += 1
     return o, lse

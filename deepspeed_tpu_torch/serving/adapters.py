@@ -1,13 +1,14 @@
-"""GPT-2 adapter for the continuous-batching serving engine.
+"""GPT-2 and LLaMA adapters for the continuous-batching serving engine.
 
 Port of ``deepspeed_tpu/serving/adapters.py`` (fp pool, bf16/fp32
-weights). Two kinds of device work per engine:
+weights; LLaMA's prefix sharing, ``verify`` and ``prefill_suffix`` are
+not ported). Two kinds of device work per engine:
 
 - ``tick``: decode steps over the whole slot set — per-slot positions,
   paged-attention reads through the page table, idle slots masked by
-  ``pos[b] < 0``. Each layer runs the three decode kernels
-  (``ln_qkv_stacked``, ``decode_attention_paged``, ``out_ffn_stacked``);
-  the new K/V rows are appended into the pool in place (row
+  ``pos[b] < 0``. Each layer runs the decode kernels
+  (``ln_qkv_stacked``, ``decode_attention_paged``, ``out_ffn_stacked``,
+  and for a large LLaMA ``matvec_stacked``); the new K/V rows are appended into the pool in place (row
   ``pos[b] % page`` of block ``page_table[b, pos[b] // page]``).
 - ``prefill``: one request's prompt pass at a pow2-bucketed padded
   length through the flash kernel, writing K/V (pad rows included)
@@ -24,12 +25,16 @@ import math
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.models import llama_inference
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config
 from deepspeed_tpu_torch.models.gpt2_inference import (block_forward,
                                                        layer_norm)
+from deepspeed_tpu_torch.models.llama import (LlamaConfig, rms_norm,
+                                              rope_angles)
 from deepspeed_tpu_torch.ops.attention import dot_product_attention
 from deepspeed_tpu_torch.ops.cuda.decode import (decode_attention_paged,
                                                  ln_qkv_stacked,
+                                                 matvec_stacked,
                                                  out_ffn_stacked)
 from deepspeed_tpu_torch.serving.paged_cache import (PagedCacheSpec,
                                                      PagedKVCache)
@@ -106,9 +111,32 @@ def sample_token(logits32, seed, idx, temperature):
     return int(tok[0])
 
 
-# ------------------------------------------------------------------ GPT-2
+# ---------------------------------------------------------------- adapters
 
-class GPT2ServingAdapter:
+class _PagedAdapter:
+    """What both families' adapters share: the config, weights and pool
+    geometry, the device, and the per-layer indices the kernels read."""
+
+    def __init__(self, cfg, params, spec: PagedCacheSpec, device,
+                 n_layers, kv_heads):
+        assert (spec.n_layers, spec.kv_heads, spec.head_dim) == \
+            (n_layers, kv_heads, cfg.head_dim)
+        self.cfg, self.spec, self.p = cfg, spec, params
+        self.device = torch.device(device)
+        # per-layer indices live on the device: a kernel reads its layer
+        # there, so the layer loop never syncs to the host
+        self._layer_ids = torch.arange(n_layers, dtype=torch.int32,
+                                       device=self.device)
+
+    def make_cache(self) -> PagedKVCache:
+        return PagedKVCache(self.spec, self.device)
+
+    def _as(self, a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype,
+                               device=self.device)
+
+
+class GPT2ServingAdapter(_PagedAdapter):
     """Paged serving over the port's stacked GPT-2 weights (see
     ``models/gpt2_inference.as_serving_params``)."""
 
@@ -117,28 +145,13 @@ class GPT2ServingAdapter:
         if not cfg.tie_word_embeddings or cfg.n_embd % cfg.n_head:
             raise ValueError("paged GPT-2 serving needs the tied-embedding "
                              "LM head and n_embd a multiple of n_head")
-        assert spec.n_layers == cfg.n_layer
-        assert spec.kv_heads == cfg.n_head
-        assert spec.head_dim == cfg.head_dim
-        self.cfg, self.spec, self.p = cfg, spec, params
-        self.device = torch.device(device)
-        L = cfg.n_layer
+        super().__init__(cfg, params, spec, device, cfg.n_layer, cfg.n_head)
         # bf16/fp32 stacks run the weight kernels with scale 1, as JAX does
-        self._ones = torch.ones(L, dtype=torch.float32, device=self.device)
-        # per-layer indices live on the device: a kernel reads its layer
-        # there, so the layer loop never syncs to the host
-        self._layer_ids = torch.arange(L, dtype=torch.int32,
-                                       device=self.device)
-
-    def make_cache(self) -> PagedKVCache:
-        return PagedKVCache(self.spec, self.device)
+        self._ones = torch.ones(cfg.n_layer, dtype=torch.float32,
+                                device=self.device)
 
     def max_prompt_len(self):
         return self.cfg.n_positions
-
-    def _as(self, a, dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dtype,
-                               device=self.device)
 
     def tick(self, pool, toks, pos, pt, seeds, idxs, temps, steps=1):
         """Run ``steps`` decode steps. ``toks``/``pos`` [B] and ``pt``
@@ -203,3 +216,124 @@ class GPT2ServingAdapter:
         u = layer_norm(x[0, int(length) - 1], p["ln_f_w"], p["ln_f_b"],
                        cfg.layer_norm_epsilon)
         return pool, (u @ p["wte"].T).float()
+
+
+# ------------------------------------------------------------------ LLaMA
+
+# the o-projection's branch (serving/adapters.py:806): a [E, E] weight of
+# at most this many bytes fuses into out_ffn_stacked; a larger one runs as
+# matvec_stacked + a residual add + out_ffn_stacked(fuse_proj=False)
+FUSED_PROJ_MAX_BYTES = 6 << 20
+
+
+def _rope_tables(pos, D, theta, dtype):
+    """RoPE tables [B, 1, D] in ``dtype`` at per-slot positions ``pos``
+    [B], made once a decode step for every layer: (cos | cos) and
+    (-sin | sin) of the angles of ``serving/adapters.py:692``
+    ``_rope_rows``, cast to the rows' dtype as JAX casts them."""
+    inv = 1.0 / (theta ** (torch.arange(0, D, 2, dtype=torch.float32,
+                                        device=pos.device) / D))
+    ang = pos.float()[:, None, None] * inv                # [B, 1, D//2]
+    cos, sin = torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+    return torch.cat([cos, cos], -1), torch.cat([-sin, sin], -1)
+
+
+def _rope_rows(x, cos2, sin2):
+    """RoPE on [B, Hx, D] rows (split halves x1 | x2) with
+    ``_rope_tables``: x * (cos | cos) + (x2 | x1) * (-sin | sin) rounds
+    where JAX's (x1*cos - x2*sin | x2*cos + x1*sin) does, bit for bit."""
+    half = x.shape[-1] // 2
+    return x * cos2 + torch.cat([x[..., half:], x[..., :half]], -1) * sin2
+
+
+class LlamaServingAdapter(_PagedAdapter):
+    """Paged serving over the port's packed LLaMA weights (see
+    ``models/llama_inference``). GQA: the pool holds Hkv heads and the
+    paged attention kernel takes rep = H/Hkv query rows per KV head."""
+
+    def __init__(self, cfg: LlamaConfig, params, spec: PagedCacheSpec,
+                 device):
+        if cfg.n_heads % cfg.kv_heads:
+            raise ValueError(f"{cfg.n_heads} heads are not a multiple of "
+                             f"{cfg.kv_heads} KV heads")
+        super().__init__(cfg, params, spec, device, cfg.n_layers,
+                         cfg.kv_heads)
+        self._w = {name: llama_inference._weights(params, name, cfg.n_layers)
+                   for name in ("qkv_w", "o_w", "gate_w", "up_w", "down_w")}
+
+    def max_prompt_len(self):
+        return self.cfg.max_seq_len
+
+    def fused_proj(self):
+        """True when the o-projection fuses into out_ffn_stacked."""
+        Wo = self.p["o_w"]
+        E = self.cfg.hidden_size
+        return E * E * Wo.element_size() <= FUSED_PROJ_MAX_BYTES
+
+    def tick(self, pool, toks, pos, pt, seeds, idxs, temps, steps=1):
+        """Run ``steps`` decode steps; see GPT2ServingAdapter.tick."""
+        cfg, p = self.cfg, self.p
+        E, H, Hkv, D = (cfg.hidden_size, cfg.n_heads, cfg.kv_heads,
+                        cfg.head_dim)
+        rep, eps = H // Hkv, cfg.rms_eps
+        (Wq, sq), (Wo, so), (Wg, sg), (Wu, su), (Wd, sd) = (
+            self._w[k] for k in ("qkv_w", "o_w", "gate_w", "up_w", "down_w"))
+        fused = self.fused_proj()
+        toks = self._as(toks, torch.long)
+        pos = self._as(pos, torch.int32)
+        pt = self._as(pt, torch.int32)
+        idxs = np.asarray(idxs)
+        kc, vc = pool
+        B = toks.shape[0]
+        out, logits32 = [], None
+        for t in range(steps):
+            x = p["embed"][toks]
+            blk_ids, rows = _gather_blocks(pt, pos, self.spec.page_size)
+            cos, sin = _rope_tables(pos, D, cfg.rope_theta, x.dtype)
+            for l in range(cfg.n_layers):
+                lid = self._layer_ids[l]
+                qkv = ln_qkv_stacked(x, p["norm1"], None, Wq, sq, None, lid,
+                                     eps=eps, norm="rms")
+                qk = _rope_rows(qkv[:, :(H + Hkv) * D].reshape(B, H + Hkv, D),
+                                cos, sin)
+                v3 = qkv[:, (H + Hkv) * D:].reshape(B, Hkv, D)
+                _append_rows(pool, l, blk_ids, rows, qk[:, H:], v3)
+                ctx = decode_attention_paged(
+                    qk[:, :H].reshape(B, Hkv, rep, D).contiguous(), kc, vc,
+                    pos, pt, lid, scale=1.0 / math.sqrt(D)).reshape(B, H * D)
+                if fused:
+                    x = out_ffn_stacked(
+                        ctx, x, Wo, so, None, p["norm2"], None, Wg, sg, None,
+                        Wd, sd, None, lid, act="swiglu", eps=eps,
+                        norm="rms", w1b_stack=Wu, s1b=su)
+                else:
+                    x1 = x + matvec_stacked(ctx, Wo, so, lid)
+                    x = out_ffn_stacked(
+                        None, x1, None, None, None, p["norm2"], None, Wg, sg,
+                        None, Wd, sd, None, lid, act="swiglu", eps=eps,
+                        norm="rms", w1b_stack=Wu, s1b=su, fuse_proj=False)
+            u = rms_norm(x, p["norm_scale"], eps)
+            logits = u @ p["head"].T
+            toks, logits32 = _pick_next(logits, seeds, idxs + t, temps)
+            out.append(toks)
+            pos = pos + 1
+        return pool, torch.stack(out), logits32
+
+    def prefill(self, pool, ids, length, pages):
+        """Prompt pass over ids [1, Sp]; see GPT2ServingAdapter.prefill.
+        The projections and the LM head are plain products (JAX leaves
+        them to XLA); attention is the flash kernel, GQA K/V unrepeated."""
+        cfg, p = self.cfg, self.p
+        ids = self._as(ids, torch.long)
+        pages = self._as(pages, torch.long)
+        Sp = ids.shape[1]
+        cos, sin = rope_angles(torch.arange(Sp, device=self.device),
+                               cfg.head_dim, cfg.rope_theta)
+        x = p["embed"][ids]
+        for l in range(cfg.n_layers):
+            x, k, v = llama_inference.block_forward(p, cfg, l, x, cos, sin,
+                                                    dot_product_attention)
+            _write_prompt_pages(pool, l, k[0], v[0], pages,
+                                self.spec.page_size)
+        u = rms_norm(x[0, int(length) - 1], p["norm_scale"], cfg.rms_eps)
+        return pool, (u @ p["head"].T).float()

@@ -150,8 +150,11 @@ def test_build_engine_defaults_to_cuda():
         serving.build_engine("gpt2", cfg, {}, config={"serving": SERVING})
     with pytest.raises(RuntimeError, match="device=\"cpu\""):
         init_params(cfg, seed=0)
+    # LLaMA serving is ported; its int8 weight trees are not
+    from deepspeed_tpu_torch.models.llama import llama_tiny
+    int8_tree = {"blk": {"qkv_w": {"kernel_q": np.zeros(1, np.int8)}}}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serving.build_engine("llama", cfg, {}, device="cpu")
+        serving.build_engine("llama", llama_tiny(), int8_tree, device="cpu")
 
 
 # --------------------------------------------------------------- end to end
