@@ -1,6 +1,6 @@
 """Chip smoke for deepspeed_tpu_torch: GPT-2 large and LLaMA-7B paged
-serving and GPT-2 large training on one NVIDIA GPU, through the
-hand-written CUDA kernels.
+serving (LLaMA in bf16 and in int8), LLaMA-7B's dense fast path and GPT-2
+large training on one NVIDIA GPU, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -40,6 +40,28 @@ Phases, one JSON line each, each with its wall ``seconds``:
                attention, also at LLaMA-3-8B's GQA geometry, and the
                head-dim-128 flash forward beside SDPA), then the same 16
                requests through 8 slots;
+   llama_int8_init, kernel, serve_llama_int8 — after the bf16 engine is
+               freed, the engine built with quantize_bits 8 (the seed-0
+               weights quantized to int8 codes on the card) and
+               kv_cache_bits 8 (the int8 pool): its int8 kernels (ln_qkv,
+               matvec_stacked, out_ffn, paged attention over the int8
+               pool, also at LLaMA-3-8B's GQA geometry, and kv_quant_int8
+               held bit for bit), then the same 16 requests, checked
+               against the fp32 dense pass over the int8 weights whose
+               decode steps attend over K/V rounded through the pool's
+               codes, with the decode step's floor counting int8 weights
+               and K/V rows;
+   kernel, generate_llama_int8 — ``llama_fast_generate`` over the same
+               int8 weights: the flash forward at its b8 prompt pass's
+               shape (B 8, S 2048, causal; its planted fault: every batch
+               element given element 0's K/V) beside SDPA,
+               decode_attention_stacked over an int8 and a bf16 cache of
+               8 rows at ctx 2048 (scales past the position NaN) and
+               kv_quant_int8 into the int8 cache; then b1 and b8 at ctx
+               2048 (prompts of 1968 tokens) timed as bench.py's
+               bench_llama_decode times them, decode tokens/s beside the
+               floor, the last row of each batch teacher-forced, and a
+               short b8 case over a bf16 cache (kv_cache_bits 0);
 4. kernel    — the flash kernels at the training shape (B=8, H=20,
                S=1024, D=64, causal): the forward (its planted fault:
                every batch element given element 0's K/V) beside SDPA,
@@ -63,15 +85,17 @@ Phases, one JSON line each, each with its wall ``seconds``:
                that the limit must reject.
 
 Each path counts its kernels' launches from 0 just before its run: each
-serve run for the decode kernels and the prefill forward, the train run
+serve run for the decode kernels and the prefill forward, the fast
+path's timed runs (and its bf16-cache run) for its kernels, the train run
 for the flash kernels. A kernel has a row for each path it runs on
-("serve", "serve_llama", "train"); each row of the kernels line is timed
+("serve", "serve_llama", "serve_llama_int8", "generate_llama",
+"generate_llama_kv0", "train"); each row of the kernels line is timed
 and bounded at its path's shapes and carries that path's launches.
 
 With ``--profile`` each serve is repeated under torch.profiler (device
 time by kernel name, the device's idle share, the torch ops' host time)
-and cProfile (the host's Python by function), and three train steps
-under torch.profiler.
+and cProfile (the host's Python by function), one b1 fast-path run and
+three train steps under torch.profiler.
 
 It then prints the nvidia-smi line, a ``kernels`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -95,6 +119,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak
+FP32_FLOP_PER_S = 67e12        # fp32 outside the tensor cores
 LAYER = 17
 # teacher-forced check: the plain logit of the engine's token may sit at
 # most this many bf16 units in the last place (of the position's top
@@ -104,8 +129,15 @@ LAYER = 17
 # that takes the runner-up fails.
 TF_ULPS = 3
 N_REQUESTS = 16
-# both serving paths: 8 slots of up to 64 pages of 16 tokens
+# every serving path: 8 slots of up to 64 pages of 16 tokens
 SERVING = {"slots": 8, "page_size": 16, "max_pages_per_slot": 64}
+# LLaMA's int8 serving: the weights quantized when the engine is built
+SERVING_INT8 = {**SERVING, "quantize_bits": 8, "kv_cache_bits": 8}
+# llama_fast_generate as bench.py's bench_llama_decode runs it: ctx 2048,
+# prompts of ctx - 80 tokens, decode tokens/s from t(68 new) - t(4 new);
+# and a short bf16-cache case
+GEN_CTX, GEN_BATCHES, GEN_SHORT, GEN_LONG = 2048, (1, 8), 4, 68
+GEN_KV0 = {"batch": 8, "prompt": 240, "new": 16}
 # LLaMA-7B's random weights: N(0, std) with std * sqrt(E) = 0.02 *
 # sqrt(1280), the pre-activation scale of GPT-2 large's init. At flax's
 # std 0.02 the random model's attention scores have a std of ~1.6, and
@@ -153,10 +185,11 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes, flops):
-    """(ms, what bounds it) for the least time the card could take."""
+def bound(nbytes, flops, rate=BF16_FLOP_PER_S):
+    """(ms, what bounds it) for the least time the card could take: the
+    bytes over the memory rate or the operations over ``rate``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -439,11 +472,51 @@ def kernel_phase(eng, cfg, gen):
     return results
 
 
+def kv_quant_fault(k, v):
+    """A planted fault of kv_quant_int8: codes truncated toward zero (a
+    float-to-int cast) instead of rounded."""
+    from deepspeed_tpu_torch.ops.cuda.decode import RCP_127
+    out = []
+    for t in (k, v):
+        tf = t.float()
+        sc = torch.clamp_min(tf.abs().amax(-1, keepdim=True) * RCP_127, 1e-12)
+        out += [torch.clamp(torch.trunc(tf / sc), -127, 127).to(torch.int8),
+                sc]
+    return out
+
+
+def kv_quant_row(results, path, k3, v3, write, read, timed, replaces):
+    """kv_quant_int8 at the path's shapes: ``write(lid)`` launches it into
+    the path's cache at layer ``lid``, ``read()`` returns the four slices
+    it wrote at LAYER, which must equal the plain version's codes and
+    scales bit for bit, beside the truncating fault; timed over the
+    layers, and bounded by the rows it reads and the codes and scales it
+    writes (about 5 fp32 operations a value)."""
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    write(torch.tensor(LAYER, dtype=torch.int32, device=k3.device))
+    want = dk.kv_quant_int8_plain(k3, v3)
+    fault = kv_quant_fault(k3, v3)
+    checks = [held("kv_quant_int8", g, w, f if f.dtype == torch.int8
+                   else None) for g, w, f in zip(read(), want, fault)]
+    ms, call_ms, plain_ms = timed(write,
+                                  lambda l: dk.kv_quant_int8_plain(k3, v3))
+    B, H, D = k3.shape
+    n = B * H * D
+    record(results, "kv_quant_int8", path, replaces, checks, ms, call_ms,
+           plain_ms, bound(2 * n * 2 + 2 * n + 2 * B * H * 4, 2 * n * 5,
+                           FP32_FLOP_PER_S),
+           [{"B": B, "H": H, "D": D, "held": "bit for bit"}],
+           "codes truncated toward zero instead of rounded")
+
+
 def llama_kernel_phase(eng, cfg, gen):
-    """The LLaMA-7B path's kernels at its shapes (8 slots, bf16, a
-    scattered page table, one idle slot), each against its plain version
-    and a planted fault; the paged kernel also at LLaMA-3-8B's GQA
-    geometry (8 KV heads, R = 4)."""
+    """The LLaMA-7B path's kernels at its shapes (8 slots, a scattered page
+    table, one idle slot), each against its plain version and a planted
+    fault; the paged kernel also at LLaMA-3-8B's GQA geometry (8 KV heads,
+    R = 4). On the bf16 engine (path serve_llama) the bf16 kernels and the
+    flash forward; on the int8 one (serve_llama_int8) their int8 variants
+    over the engine's codes and its int8 pool, refilled at random, and
+    kv_quant_int8."""
     from deepspeed_tpu_torch.ops.cuda import decode as dk
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import tolerance
@@ -456,9 +529,21 @@ def llama_kernel_phase(eng, cfg, gen):
     lids = ad._layer_ids
     (Wq, sq), (Wo, so), (Wg, sg), (Wu, su), (Wd, sd) = (
         ad._w[k] for k in ("qkv_w", "o_w", "gate_w", "up_w", "down_w"))
+    int8 = Wq.dtype == torch.int8
+    if int8 != (len(eng.cache.pool) == 4):
+        raise AssertionError("the int8 engine holds int8 weights and pool")
+    wb = Wq.element_size()                  # bytes of a weight
+    path = "serve_llama_int8" if int8 else "serve_llama"
+    key = ({"ln_qkv": "ln_qkv_stacked[int8]",
+            "matvec": "matvec_stacked[int8]",
+            "out_ffn": "out_ffn_stacked[swiglu,int8]",
+            "paged": "decode_attention_paged[int8]"} if int8 else
+           {"ln_qkv": "ln_qkv_stacked[rms]", "matvec": "matvec_stacked",
+            "out_ffn": "out_ffn_stacked[swiglu]",
+            "paged": "decode_attention_paged[d128]"})
+    weights = [{"weights": "int8"}] if int8 else [{}]
     eps = cfg.rms_eps
     cyc = itertools.cycle(range(L))   # stream every layer: L2 stays cold
-    path = "serve_llama"
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(
@@ -475,6 +560,16 @@ def llama_kernel_phase(eng, cfg, gen):
                 time_ms(lambda: kernel(lids[next(cyc)])),
                 time_ms(lambda: plain(next(cyc)), reps=10, inner=1))
 
+    def pool(shape):
+        """A random K or V pool of ``shape`` (with its scales if int8)."""
+        if not int8:
+            return (torch.randn(shape, generator=gen, device=dev)
+                    .to(cfg.dtype) * 0.5,)
+        return (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8),
+                torch.rand(shape[:3] + (1, shape[4]), generator=gen,
+                           device=dev) * 0.01 + 0.002)
+
     results = []
 
     # -- ln_qkv_stacked, RMSNorm: [8, 4096] . [32, 4096, 12288]
@@ -482,7 +577,7 @@ def llama_kernel_phase(eng, cfg, gen):
     x = rnd(B, E)
     f_w = at_layer(p["norm1"], Wq, sq)
     f_w[1][:, -32:] = 0                     # the last 32 weight rows
-    checks = [held("ln_qkv_stacked[rms]",
+    checks = [held(key["ln_qkv"],
                    dk.ln_qkv_stacked(x, p["norm1"], None, Wq, sq, None,
                                      lids[LAYER], eps=eps, norm="rms"),
                    dk.ln_qkv_stacked_plain(x, p["norm1"], None, Wq, sq, None,
@@ -496,31 +591,32 @@ def llama_kernel_phase(eng, cfg, gen):
                                           l, eps, "rms"))
     record(results, "ln_qkv_stacked", path,
            "deepspeed_tpu/ops/pallas/decode.py:496", checks, ms, call_ms,
-           plain_ms, bound(nbytes(x) + E * N * 2 + E * 4 + B * N * 2,
+           plain_ms, bound(nbytes(x) + E * N * wb + 4 + E * 4 + B * N * 2,
                            2 * B * E * N),
-           [{"B": B, "E": E, "N": N, "L": L, "norm": "rms"}],
-           f"the last 32 of the {E} weight rows dropped",
-           limit="ln_qkv_stacked[rms]")
+           [{"B": B, "E": E, "N": N, "L": L, "norm": "rms", **weights[0]}],
+           f"the last 32 of the {E} weight rows dropped", limit=key["ln_qkv"])
 
     # -- matvec_stacked: the o-projection, [8, 4096] . [32, 4096, 4096]
     ctx = rnd(B, H * D)
     f_o = at_layer(Wo, so)
     f_o[0][:, -32:] = 0
-    checks = [held("matvec_stacked",
+    checks = [held(key["matvec"],
                    dk.matvec_stacked(ctx, Wo, so, lids[LAYER]),
                    dk.matvec_stacked_plain(ctx, Wo, so, LAYER),
                    dk.matvec_stacked_plain(ctx, *f_o, 0))]
     ms, call_ms, plain_ms = timed(
         lambda lid: dk.matvec_stacked(ctx, Wo, so, lid),
         lambda l: dk.matvec_stacked_plain(ctx, Wo, so, l))
-    lib_ms = time_graph_ms(lambda i: torch.matmul(ctx, Wo[i]), n=L)
+    # one PyTorch call computes the bf16 product; none takes int8 codes
+    lib_ms = None if int8 else time_graph_ms(
+        lambda i: torch.matmul(ctx, Wo[i]), n=L)
     record(results, "matvec_stacked", path,
            "deepspeed_tpu/ops/pallas/decode.py:558", checks, ms, call_ms,
-           plain_ms, bound(nbytes(ctx) + H * D * E * 2 + B * E * 2,
+           plain_ms, bound(nbytes(ctx) + H * D * E * wb + 4 + B * E * 2,
                            2 * B * H * D * E),
-           [{"B": B, "K": H * D, "N": E, "L": L}],
+           [{"B": B, "K": H * D, "N": E, "L": L, **weights[0]}],
            f"the last 32 of the {H * D} weight rows dropped",
-           library_ms=lib_ms)
+           library_ms=lib_ms, limit=key["matvec"])
 
     # -- out_ffn_stacked, RMSNorm + SwiGLU, fuse_proj=False: two launches
     x1 = rnd(B, E)
@@ -530,7 +626,7 @@ def llama_kernel_phase(eng, cfg, gen):
     f_n2, f_g, f_sg, f_d, f_sd, f_u, f_su = at_layer(p["norm2"], Wg, sg, Wd,
                                                      sd, Wu, su)
     f_d[:, -32:] = 0                        # the last 32 rows of Wd
-    checks = [held("out_ffn_stacked[swiglu]",
+    checks = [held(key["out_ffn"],
                    dk.out_ffn_stacked(None, x1, *ffn, lids[LAYER], **kw),
                    dk.out_ffn_stacked_plain(None, x1, *ffn, LAYER, **kw),
                    dk.out_ffn_stacked_plain(
@@ -542,62 +638,107 @@ def llama_kernel_phase(eng, cfg, gen):
         lambda l: dk.out_ffn_stacked_plain(None, x1, *ffn, l, **kw))
     record(results, "out_ffn_stacked", path,
            "deepspeed_tpu/ops/pallas/decode.py:1000", checks, ms, call_ms,
-           plain_ms, bound(3 * E * Fd * 2 + E * 4 + 2 * B * E * 2,
+           plain_ms, bound(3 * E * Fd * wb + 3 * 4 + E * 4 + 2 * B * E * 2,
                            3 * 2 * B * E * Fd),
            [{"B": B, "E": E, "F": Fd, "act": "swiglu", "norm": "rms",
-             "fuse_proj": False, "launches_per_call": 2}],
+             "fuse_proj": False, "launches_per_call": 2, **weights[0]}],
            f"the last 32 of the {Fd} rows of Wd dropped",
-           limit="out_ffn_stacked[swiglu]")
+           limit=key["out_ffn"])
 
     # -- decode_attention_paged at head dim 128: the engine's pool (MHA,
-    # R = 1) and a LLaMA-3-8B-shaped pool (8 KV heads, R = 4)
-    kc, vc = eng.cache.pool
-    for t in (kc, vc):
+    # R = 1), refilled at random one layer at a time, and a
+    # LLaMA-3-8B-shaped pool (8 KV heads, R = 4)
+    nb, maxp, page = (eng.cache.num_blocks, eng.spec.max_pages_per_slot,
+                      eng.spec.page_size)
+
+    def fill(t):
+        """Random codes, scales or bf16 values into t."""
+        if t.dtype == torch.int8:
+            return t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                         device=dev, dtype=torch.int8))
+        if int8:                            # an int8 cache's scales
+            return t.copy_(torch.rand(t.shape, generator=gen, device=dev)
+                           * 0.01 + 0.002)
+        return t.copy_(torch.randn(t.shape, generator=gen, device=dev,
+                                   dtype=torch.float32).to(t.dtype) * 0.5)
+
+    def with_scales(cache):
+        """(k, v, {k_scale, v_scale}) of a pool tuple."""
+        if int8:
+            return cache[0], cache[2], dict(k_scale=cache[1],
+                                            v_scale=cache[3])
+        return cache[0], cache[1], {}
+    for t in eng.cache.pool:
         for layer in t:
-            layer.copy_(torch.randn(layer.shape, generator=gen, device=dev,
-                                    dtype=torch.float32).to(t.dtype) * 0.5)
-    maxp, page = eng.spec.max_pages_per_slot, eng.spec.page_size
+            fill(layer)
+    shape = (2, nb, 8, page, D)
+    gqa = tuple(fill(torch.empty(s_, dtype=dt, device=dev)) for s_, dt in (
+        ((shape, torch.int8), (shape[:3] + (1, page), torch.float32)) * 2
+        if int8 else ((shape, cfg.dtype),) * 2))
     pos_list = [511, 300, 17, 700, 100, 1000, 64, -1][:B]
-    perm = torch.randperm(eng.cache.num_blocks - 1, generator=gen,
-                          device=dev) + 1
+    perm = torch.randperm(nb - 1, generator=gen, device=dev) + 1
     pt = perm[:B * maxp].reshape(B, maxp).to(torch.int32).contiguous()
     pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     pos_fault = torch.where(pos >= page, pos // page * page - 1, pos)
-    kc8, vc8 = (torch.randn((2, eng.cache.num_blocks, 8, page, D),
-                            generator=gen, device=dev).to(cfg.dtype) * 0.5
-                for _ in range(2))
     checks, cases = [], []
-    for pools, hk, R, rps in (((kc, vc), Hkv, 1, None),
-                              ((kc8, vc8), 8, 4, None),
-                              ((kc8, vc8), 8, 4, 2)):
+    for cache, hk, R, rps in ((eng.cache.pool, Hkv, 1, None),
+                              (gqa, 8, 4, None), (gqa, 8, 4, 2)):
+        k_, v_, sc = with_scales(cache)
         q = rnd(B, hk, R, D)
         pos_r = pos.clamp(max=maxp * page - R) if rps else pos
-        got = dk.decode_attention_paged(q, *pools, pos_r, pt, lids[1],
-                                        rows_per_step=rps)
+        got = dk.decode_attention_paged(q, k_, v_, pos_r, pt, lids[1],
+                                        rows_per_step=rps, **sc)
         if torch.count_nonzero(got[B - 1]):
             raise AssertionError("idle slot output is not zero")
         fault = dk.decode_attention_paged_plain(
-            q, *pools, pos_fault, pt, 1) if rps is None else None
-        checks.append(held("decode_attention_paged[d128]", got,
+            q, k_, v_, pos_fault, pt, 1, **sc) if rps is None else None
+        checks.append(held(key["paged"], got,
                            dk.decode_attention_paged_plain(
-                               q, *pools, pos_r, pt, 1, rows_per_step=rps),
-                           fault))
+                               q, k_, v_, pos_r, pt, 1, rows_per_step=rps,
+                               **sc), fault))
         cases.append({"B": B, "Hkv": hk, "R": R, "D": D, "page": page,
-                      "rows_per_step": rps, "pos": pos_r.tolist()})
-    del kc8, vc8
+                      "rows_per_step": rps, "pos": pos_r.tolist(),
+                      "pool": "int8" if int8 else "bf16"})
+    del gqa
+    kc, vc, sc = with_scales(eng.cache.pool)
     q = rnd(B, Hkv, H // Hkv, D)
     ms, call_ms, plain_ms = timed(
-        lambda lid: dk.decode_attention_paged(q, kc, vc, pos, pt, lid),
-        lambda l: dk.decode_attention_paged_plain(q, kc, vc, pos, pt, l))
+        lambda lid: dk.decode_attention_paged(q, kc, vc, pos, pt, lid, **sc),
+        lambda l: dk.decode_attention_paged_plain(q, kc, vc, pos, pt, l,
+                                                  **sc))
+    # this run's data: the live K/V rows (codes and a scale each, if
+    # int8), q and out, pos, the live table entries
     live = sum(pp + 1 for pp in pos_list if pp >= 0)
     pages_read = sum(pp // page + 1 for pp in pos_list if pp >= 0)
+    row_bytes = D * kc.element_size() + (4 if int8 else 0)
     record(results, "decode_attention_paged", path,
            "deepspeed_tpu/ops/pallas/decode.py:931", checks, ms, call_ms,
            plain_ms,
-           bound(live * Hkv * D * 2 * 2 + 2 * nbytes(q) + nbytes(pos)
+           bound(live * Hkv * row_bytes * 2 + 2 * nbytes(q) + nbytes(pos)
                  + pages_read * 4, 4 * live * H * D), cases,
            "each live slot's last page dropped (R=1 and R=4)",
-           limit="decode_attention_paged[d128]")
+           limit=key["paged"])
+
+    if int8:
+        # -- kv_quant_int8: the tick's new K/V rows (column slices of the
+        # packed qkv output) into the pool at each slot's next row
+        qkv = rnd(B, N)
+        k3 = qkv[:, H * D:(H + Hkv) * D].view(B, Hkv, D)
+        v3 = qkv[:, (H + Hkv) * D:].view(B, Hkv, D)
+        blk = pt[:, 3].contiguous()
+        rows = (pos.clamp(min=0) % page).to(torch.int32)
+        ks, vs = sc["k_scale"], sc["v_scale"]
+        kv_quant_row(
+            results, path, k3, v3,
+            lambda lid: dk.kv_quant_int8(k3, v3, out=eng.cache.pool,
+                                         layer=lid, blocks=blk, rows=rows),
+            lambda: (kc[LAYER][blk, :, rows],
+                     ks[LAYER][blk, :, 0, rows][..., None],
+                     vc[LAYER][blk, :, rows],
+                     vs[LAYER][blk, :, 0, rows][..., None]),
+            timed, "deepspeed_tpu/ops/pallas/decode.py:279")
+        torch.cuda.synchronize()
+        return results
 
     # -- flash_attention_fwd at head dim 128: prefill buckets, GQA
     checks, cases, lse_err = [], [], 0.0
@@ -991,31 +1132,62 @@ def traffic(cfg, rs):
 
 
 def serve_geometry(eng, family):
-    """(model name, layers, KV heads, head dim, layer weight bytes, LM head
-    bytes, dense-forward oracle, expected launches per tick step by
-    kernel) of a serving engine."""
+    """(model name, layers, KV heads, head dim, bytes of one cached K and V
+    row of one layer, layer weight bytes, LM head bytes, dense-forward
+    oracle ``f(p, cfg, ids, prompt_len)``, expected launches per tick step
+    by kernel) of a serving engine; ``family`` "gpt2", "llama" or
+    "llama_int8" (int8 weights and pool)."""
     p, cfg = eng.adapter.p, eng.adapter.cfg
     if family == "gpt2":
-        from deepspeed_tpu_torch.models.gpt2_inference import dense_logits
+        from deepspeed_tpu_torch.models.gpt2_inference import \
+            dense_logits as dense_gpt2
+
+        def dense_logits(p, cfg, ids, S):
+            return dense_gpt2(p, cfg, ids)
         mats = ("attn_qkvw", "attn_ow", "inter_w", "output_w")
         name, L, Hkv, head = "gpt2_large", cfg.n_layer, cfg.n_head, "wte"
         per_step = ("ln_qkv_stacked", "decode_attention_paged",
                     "out_ffn_stacked")
+        row_bytes = 2 * Hkv * cfg.head_dim * 2
     else:
-        from deepspeed_tpu_torch.models.llama_inference import \
-            dense_logits as dense_bf16
+        from deepspeed_tpu_torch.models import llama_inference as li
+        int8 = family == "llama_int8"
 
-        def dense_logits(p, cfg, ids):
+        def dense_logits(p, cfg, ids, S):
             # fp32: a bf16 dense pass of 32 layers parts from the fp32 one
-            # by more than the paged decode does (LLAMA_INIT_STD)
-            return dense_bf16(p, cfg, ids, torch.float32)
-        mats = ("qkv_w", "o_w", "gate_w", "up_w", "down_w")
-        name, L, Hkv, head = "llama_7b", cfg.n_layers, cfg.kv_heads, "head"
+            # by more than the paged decode does (LLAMA_INIT_STD); over an
+            # int8 pool the decode steps attend over K/V rounded through
+            # its codes
+            return li.dense_logits(p, cfg, ids, torch.float32,
+                                   kv_quant_from=S if int8 else None)
+        mats = li.LAYER_MATS + tuple(m + li.SCALE for m in li.LAYER_MATS
+                                     if m + li.SCALE in p)
+        name = "llama_7b_int8" if int8 else "llama_7b"
+        L, Hkv, head = cfg.n_layers, cfg.kv_heads, "head"
         per_step = ("ln_qkv_stacked", "decode_attention_paged",
                     "out_ffn_stacked") + (
-            () if eng.adapter.fused_proj() else ("matvec_stacked",))
-    return (name, L, Hkv, cfg.head_dim, nbytes(*(p[m] for m in mats)),
-            nbytes(p[head]), dense_logits, per_step)
+            () if eng.adapter.fused_proj() else ("matvec_stacked",)) + (
+            ("kv_quant_int8",) if int8 else ())
+        # a row of K and of V: D codes and an fp32 scale each, or D bf16
+        row_bytes = 2 * Hkv * ((cfg.head_dim + 4) if int8
+                               else cfg.head_dim * 2)
+    return (name, L, Hkv, cfg.head_dim, row_bytes,
+            nbytes(*(p[m] for m in mats)), nbytes(p[head]), dense_logits,
+            per_step)
+
+
+def teacher_forced(rows, gen_tok):
+    """(largest logit gap, in bf16 units, and the positions where a
+    runner-up decoder would fail) of generated tokens ``gen_tok`` [n]
+    against oracle logits ``rows`` [n, V]: the gap of each token's logit
+    below the row's maximum, in bf16 units of the maximum."""
+    top2 = rows.topk(2, dim=-1).values
+    gap = top2[:, 0] - rows.gather(1, gen_tok[:, None])[:, 0]
+    spacing = top2[:, 0] - top2[:, 1]
+    # bf16 keeps 8 significant bits: a unit is 2**(exponent - 7)
+    ulp = torch.exp2(torch.floor(torch.log2(
+        top2[:, 0].abs().clamp_min(1e-30))) - 7)
+    return gap, spacing, ulp
 
 
 def serve_phase(eng, cfg, family):
@@ -1026,7 +1198,7 @@ def serve_phase(eng, cfg, family):
     launches."""
     import deepspeed_tpu_torch.serving as serving
     from deepspeed_tpu_torch.ops.cuda import builder
-    name, L, Hkv, D, w_layers, w_head, dense_logits, per_step = \
+    name, L, Hkv, D, row_bytes, w_layers, w_head, dense_logits, per_step = \
         serve_geometry(eng, family)
     rs = np.random.RandomState(0)
     # warm-up (cuBLAS handles, allocator) on a throwaway batcher
@@ -1065,7 +1237,7 @@ def serve_phase(eng, cfg, family):
     # of K and V in every layer); averaged over the run's steps
     kv_rows = sum(len(r.prompt) + k + 1 for r in res.values()
                   for k in range(len(r.generated) - 1))
-    kv_bytes = kv_rows * L * 2 * Hkv * D * 2
+    kv_bytes = kv_rows * L * row_bytes
     floor_ms = ((w_layers + w_head) * st["tick_steps"] + kv_bytes) \
         / st["tick_steps"] / HBM_BYTES_PER_S * 1e3
     # teacher-forced check: every request's tokens against a dense
@@ -1078,14 +1250,11 @@ def serve_phase(eng, cfg, family):
         r = res[rid]
         toks = r.tokens()
         S = len(r.prompt)
-        rows = dense_logits(eng.adapter.p, cfg, toks[:-1])[S - 1:]
+        rows = dense_logits(eng.adapter.p, cfg, toks[:-1], S)[S - 1:]
         gen_tok = torch.as_tensor(toks[S:], device=rows.device).long()
-        top2 = rows.topk(2, dim=-1).values
-        gaps.append(top2[:, 0] - rows.gather(1, gen_tok[:, None])[:, 0])
-        spacings.append(top2[:, 0] - top2[:, 1])
-        # bf16 keeps 8 significant bits: a unit is 2**(exponent - 7)
-        ulps.append(torch.exp2(torch.floor(torch.log2(
-            top2[:, 0].abs().clamp_min(1e-30))) - 7))
+        for acc, t in zip((gaps, spacings, ulps),
+                          teacher_forced(rows, gen_tok)):
+            acc.append(t)
     gap, spacing, ulp = torch.cat(gaps), torch.cat(spacings), torch.cat(ulps)
     worst = float(gap.max())
     worst_ulps = float((gap / ulp).max())
@@ -1097,7 +1266,8 @@ def serve_phase(eng, cfg, family):
         raise AssertionError("a runner-up decoder passes the teacher-forced "
                              "check")
     generated = sum(len(r.generated) for r in res.values())
-    emit({"phase": "serve" if family == "gpt2" else "serve_llama",
+    emit({"phase": {"gpt2": "serve", "llama": "serve_llama",
+                    "llama_int8": "serve_llama_int8"}[family],
           "model": name, "layers": L,
           "requests": N_REQUESTS, "slots": eng.spec.slots,
           "prefills": st["prefills"], "prefill_tokens": st["prefill_tokens"],
@@ -1115,8 +1285,11 @@ def serve_phase(eng, cfg, family):
           "floor_kv_bytes_per_step": kv_bytes / st["tick_steps"],
           "page_pool_occupancy_hwm": snap["page_pool"]["occupancy_hwm"],
           "launches": launches,
-          "teacher_forced_oracle": "bf16 dense" if family == "gpt2"
-          else "fp32 dense",
+          "teacher_forced_oracle": {
+              "gpt2": "bf16 dense", "llama": "fp32 dense",
+              "llama_int8": "fp32 dense over the int8 weights, K/V of "
+                            "decode steps rounded through the pool's "
+                            "codes"}[family],
           "teacher_forced_requests": len(res),
           "teacher_forced_positions": len(spacing),
           "teacher_forced_gap_limit_ulps": TF_ULPS,
@@ -1125,6 +1298,260 @@ def serve_phase(eng, cfg, family):
           "teacher_forced_not_plain_argmax": int((gap > 0).sum()),
           "plain_top2_spacing_median": float(spacing.median()),
           "runner_up_fault_rejected_at": n_fault_caught})
+    return launches
+
+
+def generate_kernel_rows(eng, cfg, gen):
+    """The dense fast path's kernels at its shapes: the flash forward of
+    its b8 prompt pass (path generate_llama); decode_attention_stacked
+    over int8 (generate_llama) and bf16 (generate_llama_kv0) caches of 8
+    rows at ctx 2048, and kv_quant_int8 into the int8 one, each against
+    its plain version and a planted fault. The int8 cache's scales past
+    the position are NaN: rows there must not reach the result."""
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import tolerance
+    dev = eng.adapter.device
+    L, H, Hkv, D = cfg.n_layers, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    B, Lc = max(GEN_BATCHES), GEN_CTX
+    results = []
+
+    # -- flash_attention_fwd as the b8 prompt pass runs it: prompts of
+    # GEN_CTX - 80 tokens padded to a multiple of 128, causal
+    S = -(-(GEN_CTX - 80) // 128) * 128
+    q, k, v = ((torch.randn(B, H, S, D, generator=gen, device=dev)
+                ).to(cfg.dtype) for _ in range(3))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+    # fault: every batch element attends to element 0's K/V, as a kernel
+    # that left the batch out of its K/V offset would
+    fault = fa.flash_attention_fwd_plain(q, k[:1].expand_as(k),
+                                         v[:1].expand_as(v), causal=True)[0]
+    checks = [held("flash_attention_fwd[d128]", o, o_ref, fault)]
+    lse_err = tolerance.check_lse(lse, lse_ref)
+    del o, lse, o_ref, lse_ref, fault
+    torch.cuda.empty_cache()
+    ms = time_graph_ms(lambda i: fa.flash_attention_fwd(q, k, v, causal=True),
+                       n=8)
+    call_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+                      reps=10, inner=3)
+    plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
+        q, k, v, causal=True), reps=5, inner=1)
+    lib_ms = time_graph_ms(
+        lambda i: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True), n=8)
+    record(results, "flash_attention_fwd", "generate_llama",
+           "deepspeed_tpu/ops/pallas/flash_attention.py:122", checks, ms,
+           call_ms, plain_ms,
+           bound(4 * B * H * S * D * 2 + B * H * S * 4,
+                 4 * B * H * D * S * (S + 1) // 2),
+           [{"B": B, "S": S, "H": H, "Hkv": H, "D": D, "causal": True}],
+           "every batch element given element 0's K/V", library_ms=lib_ms,
+           lse_err=lse_err, limit="flash_attention_fwd[d128]")
+    del q, k, v
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pos_i = GEN_CTX - 80 + GEN_LONG - 2          # the long run's last step
+    lids = eng.adapter._layer_ids
+    cyc = itertools.cycle(range(L))
+    pos = torch.tensor([pos_i], dtype=torch.int32, device=dev)
+
+    def timed(kernel, plain):
+        return (time_graph_ms(lambda i: kernel(lids[i]), n=L),
+                time_ms(lambda: kernel(lids[next(cyc)])),
+                time_ms(lambda: plain(next(cyc)), reps=5, inner=1))
+
+    shape = (L, B, Hkv, Lc, D)
+    codes = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(shape[:3] + (1, Lc), generator=gen, device=dev)
+              * 0.01 + 0.002 for _ in range(2)]
+    for sc in scales:
+        sc[..., pos_i + 1:] = float("nan")
+    q = (torch.randn(B, Hkv, H // Hkv, D, generator=gen, device=dev)
+         ).to(cfg.dtype)
+    kw = dict(k_scale=scales[0], v_scale=scales[1])
+    n = pos_i + 1
+    for name, kc, vc, kw, path, row_bytes, key in (
+            ("int8", codes[0], codes[1], kw, "generate_llama", D + 4,
+             "decode_attention_stacked[int8]"),
+            ("bf16", None, None, {}, "generate_llama_kv0", 2 * D,
+             "decode_attention_stacked")):
+        if kc is None:
+            del codes, scales
+            kc, vc = ((torch.randn(shape, generator=gen, device=dev,
+                                   dtype=torch.float32) * 0.5).to(cfg.dtype)
+                      for _ in range(2))
+        got = dk.decode_attention_stacked(q, kc, vc, pos, lids[LAYER], **kw)
+        if not torch.isfinite(got).all():
+            raise AssertionError("decode_attention_stacked read past pos")
+        checks = [held(key, got, dk.decode_attention_stacked_plain(
+            q, kc, vc, pos, LAYER, **kw), dk.decode_attention_stacked_plain(
+            q, kc, vc, pos - 16, LAYER, **kw))]
+        ms, call_ms, plain_ms = timed(
+            lambda lid: dk.decode_attention_stacked(q, kc, vc, pos, lid,
+                                                    **kw),
+            lambda l: dk.decode_attention_stacked_plain(q, kc, vc, pos, l,
+                                                        **kw))
+        lib_ms = None
+        if not kw:
+            qs = q.reshape(B, H, 1, D)
+            lib_ms = time_graph_ms(
+                lambda i: torch.nn.functional.scaled_dot_product_attention(
+                    qs, kc[i, :, :, :n], vc[i, :, :, :n]), n=L)
+        record(results, "decode_attention_stacked", path,
+               "deepspeed_tpu/ops/pallas/decode.py:643", checks, ms, call_ms,
+               plain_ms, bound(B * n * Hkv * row_bytes * 2 + 2 * nbytes(q)
+                               + 4, 4 * B * n * H * D),
+               [{"B": B, "Hkv": Hkv, "R": H // Hkv, "D": D, "L": Lc,
+                 "pos": pos_i, "cache": name}],
+               "the last 16 keys dropped", library_ms=lib_ms, limit=key)
+        if kw:
+            qkv = (torch.randn(B, (H + 2 * Hkv) * D, generator=gen,
+                               device=dev)).to(cfg.dtype)
+            k3 = qkv[:, H * D:(H + Hkv) * D].view(B, Hkv, D)
+            v3 = qkv[:, (H + Hkv) * D:].view(B, Hkv, D)
+            cache = (kc, kw["k_scale"], vc, kw["v_scale"])
+            kv_quant_row(
+                results, path, k3, v3,
+                lambda lid: dk.kv_quant_int8(k3, v3, out=cache, layer=lid,
+                                             rows=pos),
+                lambda: (kc[LAYER][:, :, pos_i],
+                         cache[1][LAYER][:, :, 0, pos_i][..., None],
+                         vc[LAYER][:, :, pos_i],
+                         cache[3][LAYER][:, :, 0, pos_i][..., None]),
+                timed, "deepspeed_tpu/ops/pallas/decode.py:279")
+        del kc, vc, kw
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return results
+
+
+def generate_phase(eng, cfg, profile=False):
+    """``llama_fast_generate`` over the int8 engine's weights, as bench.py's
+    bench_llama_decode times it: per batch size a warm-up, then the best
+    of 3 of t(68 new) - t(4 new) for 64 decode steps, beside the floor of
+    those steps (the int8 layer weights and the LM head read once a step,
+    plus the live int8 K/V rows and their scales); the last row of each
+    batch held by the teacher-forced check. Then a short bf16-cache case
+    (kv_cache_bits=0).
+    Returns {path: launches}."""
+    from deepspeed_tpu_torch.models import llama_inference as li
+    from deepspeed_tpu_torch.ops.cuda import builder
+    p = eng.adapter.p
+    name, L, Hkv, D, row_bytes, w_layers, w_head, dense_logits, _ = \
+        serve_geometry(eng, "llama_int8")
+    S = GEN_CTX - 80
+
+    def run(prompt, new, kv=8):
+        toks = li.llama_fast_generate(cfg, p, prompt, max_new_tokens=new,
+                                      max_out_tokens=GEN_CTX,
+                                      kv_cache_bits=kv)
+        int(toks[0, -1])                 # the bench's fence: read a token
+        return toks
+
+    steps = GEN_LONG - GEN_SHORT
+    # the timed steps run at positions S + GEN_SHORT - 1 .. S + GEN_LONG - 2
+    kv_rows = sum(S + k + 1 for k in range(GEN_SHORT - 1, GEN_LONG - 1))
+    torch.cuda.synchronize()
+    builder.launches.clear()             # count the main path's run only
+    cases, n_runs = [], 0
+    for bs in GEN_BATCHES:
+        prompt = np.random.RandomState(0).randint(
+            0, cfg.vocab_size, size=(bs, S)).astype(np.int32)
+        run(prompt, GEN_SHORT)
+        run(prompt, GEN_LONG)
+        best = math.inf
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(prompt, GEN_SHORT)
+            t_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            toks = run(prompt, GEN_LONG)
+            best = min(best, time.perf_counter() - t0 - t_s)
+        n_runs += 8
+        floor_s = (steps * (w_layers + w_head) + bs * kv_rows * L
+                   * row_bytes) / HBM_BYTES_PER_S
+        case = {"batch": bs, "prompt": S, "ctx": GEN_CTX,
+                "decode_tokens_per_s": bs * steps / best,
+                "ms_per_decode_step": best / steps * 1e3,
+                "floor_ms_per_step": floor_s / steps * 1e3,
+                "floor_tokens_per_s": bs * steps / floor_s}
+        if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError("token outside the vocabulary")
+        # the batch's last row: a fault in the batch's indexing shows there
+        ids = toks[bs - 1].tolist()
+        rows = dense_logits(p, cfg, ids[:-1], S)[S - 1:]
+        gap, spacing, ulp = teacher_forced(
+            rows, torch.as_tensor(ids[S:], device=rows.device))
+        case.update(teacher_forced_row=bs - 1,
+                    teacher_forced_max_gap_ulps=float((gap / ulp).max()),
+                    teacher_forced_positions=len(gap),
+                    runner_up_fault_rejected_at=int(
+                        (spacing > TF_ULPS * ulp).sum()))
+        del rows
+        if case["teacher_forced_max_gap_ulps"] > TF_ULPS:
+            raise AssertionError(f"fast path b{bs}: teacher-forced gap "
+                                 f"{case['teacher_forced_max_gap_ulps']}"
+                                 f" bf16 units > {TF_ULPS}")
+        if case["runner_up_fault_rejected_at"] == 0:
+            raise AssertionError("a runner-up decoder passes the fast "
+                                 "path's teacher-forced check")
+        cases.append(case)
+    launches = {"generate_llama": dict(builder.launches)}
+    decode_steps = len(GEN_BATCHES) * 4 * (GEN_SHORT - 1 + GEN_LONG - 1)
+    fused = li.fused_proj(cfg, p["o_w"])
+    per_step = ("ln_qkv_stacked", "kv_quant_int8", "decode_attention_stacked",
+                "out_ffn_stacked") + (() if fused else ("matvec_stacked",))
+    expect = {"flash_attention_fwd": L * n_runs,
+              **{k: L * decode_steps for k in per_step}}
+    if launches["generate_llama"] != expect:
+        raise AssertionError(f"fast path launches "
+                             f"{launches['generate_llama']} != {expect}")
+
+    # the bf16 cache: a short batch of 8
+    k0 = GEN_KV0
+    prompt = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, size=(k0["batch"], k0["prompt"])).astype(np.int32)
+    torch.cuda.synchronize()
+    builder.launches.clear()
+    toks = run(prompt, k0["new"], kv=0)
+    launches["generate_llama_kv0"] = dict(builder.launches)
+    want = L * (k0["new"] - 1)
+    if launches["generate_llama_kv0"].get("decode_attention_stacked") != want \
+            or "kv_quant_int8" in launches["generate_llama_kv0"]:
+        raise AssertionError(f"bf16-cache launches "
+                             f"{launches['generate_llama_kv0']}")
+    gaps = []
+    for row in toks.tolist():
+        rows = li.dense_logits(p, cfg, row[:-1], torch.float32)[
+            k0["prompt"] - 1:]
+        gap, _, ulp = teacher_forced(
+            rows, torch.as_tensor(row[k0["prompt"]:], device=rows.device))
+        gaps.append(float((gap / ulp).max()))
+    if max(gaps) > TF_ULPS:
+        raise AssertionError(f"bf16-cache fast path: teacher-forced gap "
+                             f"{max(gaps)} bf16 units > {TF_ULPS}")
+    line = {"phase": "generate_llama_int8", "model": name, "layers": L,
+            "kv_cache_bits": 8, "weights": "int8", "new_tokens_timed": steps,
+            "cases": cases, "launches": launches["generate_llama"],
+            "kv0": {**k0, "launches": launches["generate_llama_kv0"],
+                    "teacher_forced_max_gap_ulps": max(gaps)}}
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        prompt = np.random.RandomState(0).randint(
+            0, cfg.vocab_size, size=(1, S)).astype(np.int32)
+        torch.cuda.synchronize()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(prompt, GEN_LONG)
+            wall_s = time.perf_counter() - t0
+        busy = sum(e.device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        line["profile_b1"] = {"wall_s": wall_s, "device_busy_s": busy,
+                              "device_idle_share": 1.0 - busy / wall_s}
+    emit(line)
     return launches
 
 
@@ -1182,6 +1609,36 @@ def profile_phase(eng, cfg, model, reqs_seed=1):
                         for fn, st in rows]})
 
 
+def llama_int8_init(cfg):
+    """The int8 engine: seed-0 bf16 weights at LLAMA_INIT_STD quantized to
+    int8 codes when ``build_engine`` runs (quantize_bits 8), and the int8
+    pool (kv_cache_bits 8)."""
+    import deepspeed_tpu_torch.serving as serving
+    from deepspeed_tpu_torch.models.llama_inference import \
+        init_serving_params
+    params = init_serving_params(cfg, seed=0, device="cuda",
+                                 std=LLAMA_INIT_STD)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = serving.build_engine("llama", cfg, params,
+                               config={"serving": SERVING_INT8})
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    p = eng.adapter.p
+    emit({"phase": "llama_int8_init", "model": "llama_7b",
+          "params": cfg.num_params(), "init_std": LLAMA_INIT_STD,
+          "quantize_s": quant_s,
+          "weight_gb": sum(nbytes(t) for t in p.values()) / 1e9,
+          "int8_layer_weight_gb": sum(nbytes(t) for t in p.values()
+                                      if t.dtype == torch.int8) / 1e9,
+          "pool_gb": nbytes(*eng.cache.pool) / 1e9,
+          "pool_blocks": eng.cache.num_blocks,
+          "fused_proj": eng.adapter.fused_proj()})
+    return eng
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1220,6 +1677,16 @@ def main():
     launches["serve_llama"] = serve_phase(eng, lcfg, "llama")
     if profile:
         profile_phase(eng, lcfg, "llama_7b")
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    eng = llama_int8_init(lcfg)
+    kernels += llama_kernel_phase(eng, lcfg, gen)
+    launches["serve_llama_int8"] = serve_phase(eng, lcfg, "llama_int8")
+    if profile:
+        profile_phase(eng, lcfg, "llama_7b_int8")
+    kernels += generate_kernel_rows(eng, lcfg, gen)
+    launches.update(generate_phase(eng, lcfg, profile))
     del eng
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

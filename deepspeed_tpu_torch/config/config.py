@@ -36,8 +36,8 @@ _NOT_PORTED = ("prefix_cache", "speculative", "elastic", "autoscale",
                "disaggregation", "router")
 ROADMAP_SERVING = ("ROADMAP.md queue 2, item \"serving modules left out "
                    "of the first slice\"")
-ROADMAP_INT8 = ("ROADMAP.md queue 2, item \"int8 KV (kv_quant_int8 + the "
-                "int8 paged pool) and int8 weight codes\"")
+ROADMAP_INT8 = ("ROADMAP.md queue 2, item \"GPT-2 int8 serving (int8 "
+                "weight codes, the int8 KV pool and its fast path)\"")
 
 
 class DeepSpeedConfigError(ValueError):
@@ -111,12 +111,6 @@ class ServingConfig:
                 f"serving.num_blocks {self.num_blocks} cannot even hold "
                 f"one page per slot (+1 reserved trash block); need >= "
                 f"{self.slots + 1} (fully-provisioned: {min_blocks})")
-        for key, what in ((SERVING_KV_CACHE_BITS, "the int8 paged KV pool"),
-                          (SERVING_QUANTIZE_BITS, "int8 weight codes")):
-            if getattr(self, key) == 8:
-                raise NotImplementedError(
-                    f"serving.{key}: 8 ({what}) is not ported to "
-                    f"deepspeed_tpu_torch yet ({ROADMAP_INT8})")
 
 
 # -- training ----------------------------------------------------------------

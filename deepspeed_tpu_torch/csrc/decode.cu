@@ -1,14 +1,19 @@
 // Decode-tick (S=1) kernels for paged GPT-2 and LLaMA serving on Hopper
 // (sm_90a).
 //
-// Replaces four Pallas kernels of deepspeed_tpu/ops/pallas/decode.py:
+// Replaces seven Pallas kernels of deepspeed_tpu/ops/pallas/decode.py:
 //   ln_qkv_int8_stacked     (:432, kernel _ln_qkv_stacked_kernel :496)
 //   matvec_int8_stacked     (:523, kernel _matvec_stacked_kernel :558)
 //   out_ffn_int8_stacked    (:698, kernel _out_ffn_stacked_kernel :1000)
 //   decode_attention_paged  (:854, kernel _decode_attn_paged_kernel :931)
-// for bf16 activations and weights (int8 codes are a later slice): GPT-2's
-// LayerNorm/bias/gelu_tanh contract and LLaMA's RMSNorm/bias-free/SwiGLU
-// one, head dim 64 or 128, GQA query rows.
+//   kv_quant_int8           (:297, kernel _kv_quant_kernel :279)
+//   decode_attention_int8_stacked, decode_attention_fp_stacked
+//                           (:565, :794, kernel _decode_attn_stacked_kernel
+//                            :643)
+// for bf16 activations: GPT-2's LayerNorm/bias/gelu_tanh contract with bf16
+// weights, and LLaMA's RMSNorm/bias-free/SwiGLU one with bf16 weights or
+// int8 codes and per-layer scales; head dim 64 or 128, GQA query rows, a
+// bf16 KV cache or (head dim 128) an int8 one with per-row fp32 scales.
 //
 // What bounds them on the H100: bytes. At 8 slots a decode matvec does
 // 2*B = 16 flops per weight byte read, far below the ~295 flop/byte the
@@ -63,11 +68,39 @@
 //   D. GQA: the R query rows of a KV head share its stream. Splitting
 //   one slot over several blocks ("flash-decoding") is later work: a
 //   long slot still runs on one SM.
+// - int8 weight codes (LLaMA's quantized serving): a 128-byte line of an
+//   int8 row holds 128 columns, so the int8 matvec's column tile is 128
+//   and 16 lanes read a line, 8 bytes (8 columns) each: every load still
+//   takes whole lines and a lane keeps the same [MAXB x 8] accumulator;
+//   each thread keeps twice as many rows in flight, so the bytes in
+//   flight match the bf16 stream. A code converts to float exactly, the
+//   products accumulate in fp32 and the sum is multiplied by s[layer], as
+//   the Pallas kernels do (w.astype(bf16), a bf16 dot, then * s).
+// - The int8 KV cache (head dim 128): a key row is 128 bytes, so 2 lanes
+//   own a key (64 dims each, the same four 16-byte loads as bf16's 32) and
+//   a group holds 16 keys; a lane's 4 dims of a V row are one 32-bit word.
+//   The lane that owns a key also reads its two fp32 scales. The order of
+//   operations is the Pallas kernel's (decode.py:964-991): s = q.k * scale
+//   * ks[row], the softmax sum takes the unscaled p, P.V takes
+//   bf16(p * vs[row]).
+// - The contiguous layer-stacked cache [Lyr, B, H, L, D] of the dense fast
+//   path shares the paged kernel's body through its addressing: with no
+//   page table, slot b's keys are one "page" of L rows in block b, and one
+//   position (a device scalar, pos_stride 0) serves every slot. Only the
+//   groups up to pos are read, as the Pallas kernel skips blocks past it.
+// - kv_quant_int8: one warp per (slot, head, K or V) row: amax by warp
+//   shuffles, the scale amax * fl(1/127) as XLA compiles amax / 127.0, an
+//   IEEE division and rintf (round half to even, as jnp.round), so the
+//   codes and scales equal the plain version's bit for bit. It
+//   writes straight into the cache (pool block blk[b], row rows[b], or the
+//   stacked cache's position), which Mosaic could not (decode.py:281).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -109,11 +142,19 @@ __host__ __device__ constexpr int in_bytes() {
   return PRO == PRO_LN_F32 ? 4 : 2;
 }
 
-constexpr int kCols = 64;               // a block's column tile
-constexpr int kLanesPerRow = kCols / 8;  // 8 lanes x 16 B: one 128-byte line
-constexpr int kRowGroups = kThreads / kLanesPerRow;  // rows a block-wide step
 constexpr int kStageBatch = 8;           // 16-byte loads in flight a thread
 constexpr int kMaxSplit = 8;             // blocks a cluster (portable limit)
+
+// The weight stream's geometry for weight type TW: a lane reads 8 columns
+// of a W row (16 bytes of bf16, 8 of int8), so 8 or 16 lanes cover one
+// 128-byte line and a block's column tile is 64 or 128.
+template <typename TW>
+struct WGeom {
+  static constexpr int kLanes = sizeof(TW) == 2 ? 8 : 16;  // lanes a line
+  static constexpr int kCols = kLanes * 8;                 // a column tile
+  static constexpr int kRowGroups = kThreads / kLanes;     // rows a step
+  using Vec = typename std::conditional<sizeof(TW) == 2, uint4, uint2>::type;
+};
 
 // the 8 bf16 values of a 16-byte vector, as floats
 __device__ __forceinline__ void unpack8(const uint4 v, float f[8]) {
@@ -123,6 +164,22 @@ __device__ __forceinline__ void unpack8(const uint4 v, float f[8]) {
     f[2 * i] = __uint_as_float(w[i] << 16);
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
+}
+
+// the 4 int8 codes of a 32-bit word, as floats, exactly: byte c ^ 0x80 is
+// c + 128 in [0, 255], and 2^23 + (c + 128) - (2^23 + 128) = c
+__device__ __forceinline__ void unpack4_i8(uint32_t w, float f[4]) {
+  w ^= 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(0x4b000000u | ((w >> (8 * i)) & 0xffu)) -
+           8388736.f;
+}
+
+// the 8 int8 codes of an 8-byte vector, as floats
+__device__ __forceinline__ void unpack8(const uint2 v, float f[8]) {
+  unpack4_i8(v.x, f);
+  unpack4_i8(v.y, f + 4);
 }
 
 __device__ __forceinline__ void load8(const bf16* p, float f[8]) {
@@ -231,54 +288,60 @@ __device__ void rms_norm_slice(const bf16* __restrict__ x,
   }
 }
 
-// dst[j] = W row k0 + j * kRowGroups (16 bytes at the thread's columns),
-// or zeros at and past row k_hi: one predicated batch of loads.
-template <int NB>
-__device__ __forceinline__ void load_w_rows(uint4 (&dst)[NB],
-                                            const bf16* __restrict__ Wl,
-                                            int ncols, int k0, int k_hi) {
+// dst[j] = W row k0 + j * kRowGroups (the thread's 8 columns), or zeros at
+// and past row k_hi: one predicated batch of loads.
+template <int NB, typename TW>
+__device__ __forceinline__ void load_w_rows(
+    typename WGeom<TW>::Vec (&dst)[NB], const TW* __restrict__ Wl, int ncols,
+    int k0, int k_hi) {
+  using Vec = typename WGeom<TW>::Vec;
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
-    const int k = k0 + j * kRowGroups;
-    dst[j] = k < k_hi ? __ldg(reinterpret_cast<const uint4*>(
+    const int k = k0 + j * WGeom<TW>::kRowGroups;
+    dst[j] = k < k_hi ? __ldg(reinterpret_cast<const Vec*>(
                             Wl + (size_t)k * ncols))
-                      : make_uint4(0, 0, 0, 0);
+                      : Vec{};
   }
 }
 
 // out[b, n] = epilogue(sum_k u[b, k] * W[layer, k, n]), u = prologue(xin).
 //
-// Grid (N / 64 column tiles, S): the S blocks of a column tile form one
-// thread-block cluster and split K into S slices. In a block, 8 lanes
-// cover one 128-byte line of a W row (64 columns) and a warp 4 rows, so
-// every load takes whole lines; each thread keeps a [MAXB x 8] fp32
-// accumulator, streaming its rows kBatch at a time with the next batch
-// in flight. The block folds its warps through shared memory into a
-// [B x 64] partial; after a cluster barrier each block sums its share of
-// the outputs over the S partials (distributed shared memory, fixed order,
-// so the result does not depend on timing) and applies the epilogue.
-// PAIR (the SwiGLU gate/up launch): grid (N / 64, 2S), the cluster's
-// first S blocks stream W (gate, scales), the last S W2 (up, scales2).
+// Grid (N / kCols column tiles, S): the S blocks of a column tile form one
+// thread-block cluster and split K into S slices. In a block, kLanes lanes
+// cover one 128-byte line of a W row (kCols = 64 bf16 or 128 int8
+// columns), so every load takes whole lines; each thread keeps a [MAXB x
+// 8] fp32 accumulator, streaming its rows kBatch at a time with the next
+// batch in flight. The block folds its warps through shared memory into a
+// [B x kCols] partial; after a cluster barrier each block sums its share
+// of the outputs over the S partials (distributed shared memory, fixed
+// order, so the result does not depend on timing) and applies the
+// epilogue. PAIR (the SwiGLU gate/up launch): grid (N / kCols, 2S), the
+// cluster's first S blocks stream W (gate, scales), the last S W2 (up,
+// scales2).
 //
-// Shared memory: red [kWarps][MAXB][64] f32, part [MAXB][64] f32, ut
+// Shared memory: red [kWarps][MAXB][kCols] f32, part [MAXB][kCols] f32, ut
 // [kslice][MAXB] bf16 (u transposed: one 16-byte load gives a row's B
 // values) and, for a norm prologue, the whole input rows [B][K] and
 // the slice of ln_w (and ln_b for LayerNorm).
-template <int MAXB, int PRO, int EPI, bool PAIR>
+template <int MAXB, int PRO, int EPI, bool PAIR, typename TW>
 __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
     stacked_matvec_kernel(const void* __restrict__ xin,
                           const float* __restrict__ ln_w,
                           const float* __restrict__ ln_b,
-                          const bf16* __restrict__ W,
+                          const TW* __restrict__ W,
                           const float* __restrict__ scales,
-                          const bf16* __restrict__ W2,
+                          const TW* __restrict__ W2,
                           const float* __restrict__ scales2,
                           const float* __restrict__ bias,
                           const int* __restrict__ layer_ptr,
                           const bf16* __restrict__ resid,
                           bf16* __restrict__ out, float* __restrict__ out_f32,
                           int B, int K, int N, int kslice, float eps) {
-  constexpr int kBatch = MAXB <= 8 ? 4 : 2;
+  using G = WGeom<TW>;
+  constexpr int kCols = G::kCols, kLanesPerRow = G::kLanes;
+  constexpr int kRowGroups = G::kRowGroups;
+  // the same bytes in flight a thread for either weight type
+  constexpr int kBatch = (MAXB <= 8 ? 4 : 2) * (sizeof(TW) == 2 ? 1 : 2);
   constexpr int kOut = (MAXB * kCols + kThreads - 1) / kThreads;
   constexpr bool kResid = EPI == EPI_RESID_X1 || EPI == EPI_RESID;
   constexpr bool kNorm = PRO != PRO_COPY;
@@ -374,12 +437,13 @@ __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
     for (int c = 0; c < 8; ++c) acc[b][c] = 0.f;
 
   if (n0 < N) {
-    const bf16* Wl = (up ? W2 : W) + (size_t)l * K * N + n0;
+    const TW* Wl = (up ? W2 : W) + (size_t)l * K * N + n0;
     constexpr int kStep = kBatch * kRowGroups;
-    uint4 cur[kBatch], nxt[kBatch];
-    load_w_rows<kBatch>(cur, Wl, N, k_lo + rg, k_hi);
+    typename G::Vec cur[kBatch], nxt[kBatch];
+    load_w_rows<kBatch, TW>(cur, Wl, N, k_lo + rg, k_hi);
     for (int k0 = k_lo + rg; k0 < k_hi; k0 += kStep) {
-      if (k0 + kStep < k_hi) load_w_rows<kBatch>(nxt, Wl, N, k0 + kStep, k_hi);
+      if (k0 + kStep < k_hi)
+        load_w_rows<kBatch, TW>(nxt, Wl, N, k0 + kStep, k_hi);
 #pragma unroll
       for (int j = 0; j < kBatch; ++j) {
         const int k = k0 + j * kRowGroups;
@@ -474,29 +538,29 @@ inline int split_for(int n_tiles, bool pair) {
   return S;
 }
 
-template <int MAXB, int PRO>
+template <int MAXB, int PRO, typename TW>
 size_t matvec_smem(int B, int K, int kslice) {
   const size_t rows = (size_t)B * K * in_bytes<PRO>();
-  return (size_t)(kWarps + 1) * MAXB * kCols * sizeof(float) +
+  return (size_t)(kWarps + 1) * MAXB * WGeom<TW>::kCols * sizeof(float) +
          (size_t)kslice * MAXB * sizeof(bf16) +
          (PRO == PRO_COPY       ? 0
           : PRO == PRO_RMS_BF16 ? rows + (size_t)kslice * sizeof(float)
                                 : rows + 2 * (size_t)kslice * sizeof(float));
 }
 
-template <int MAXB, int PRO, int EPI, bool PAIR>
+template <int MAXB, int PRO, int EPI, bool PAIR, typename TW>
 cudaError_t launch_matvec(const void* xin, const float* ln_w,
-                          const float* ln_b, const bf16* W,
-                          const float* scales, const bf16* W2,
+                          const float* ln_b, const TW* W,
+                          const float* scales, const TW* W2,
                           const float* scales2, const float* bias,
                           const int* layer_ptr, const bf16* resid,
                           bf16* out, float* out_f32,
                           int B, int K, int N, float eps, cudaStream_t st) {
-  auto kern = stacked_matvec_kernel<MAXB, PRO, EPI, PAIR>;
-  const int n_tiles = (N + kCols - 1) / kCols;
+  auto kern = stacked_matvec_kernel<MAXB, PRO, EPI, PAIR, TW>;
+  const int n_tiles = (N + WGeom<TW>::kCols - 1) / WGeom<TW>::kCols;
   const int S = split_for(n_tiles, PAIR);
   const int kslice = ((K + S - 1) / S + 7) / 8 * 8;
-  const size_t smem = matvec_smem<MAXB, PRO>(B, K, kslice);
+  const size_t smem = matvec_smem<MAXB, PRO, TW>(B, K, kslice);
   // raise the kernel's dynamic shared-memory limit once per size, so a
   // launch inside CUDA-graph capture makes no attribute call
   static size_t granted = 48 * 1024;
@@ -524,62 +588,81 @@ cudaError_t launch_matvec(const void* xin, const float* ln_w,
                             K, N, kslice, eps);
 }
 
-template <int PRO, int EPI, bool PAIR = false>
+template <int PRO, int EPI, bool PAIR = false, typename TW = bf16>
 cudaError_t matvec(const void* xin, const float* ln_w, const float* ln_b,
-                   const bf16* W, const float* scales, const float* bias,
+                   const TW* W, const float* scales, const float* bias,
                    const int* layer_ptr, const bf16* resid, bf16* out,
                    float* out_f32, int B, int K, int N, float eps,
-                   cudaStream_t st, const bf16* W2 = nullptr,
+                   cudaStream_t st, const TW* W2 = nullptr,
                    const float* scales2 = nullptr) {
   if (B <= 8)
-    return launch_matvec<8, PRO, EPI, PAIR>(xin, ln_w, ln_b, W, scales, W2,
-                                            scales2, bias, layer_ptr, resid,
-                                            out, out_f32, B, K, N, eps, st);
-  return launch_matvec<16, PRO, EPI, PAIR>(xin, ln_w, ln_b, W, scales, W2,
-                                           scales2, bias, layer_ptr, resid,
-                                           out, out_f32, B, K, N, eps, st);
+    return launch_matvec<8, PRO, EPI, PAIR, TW>(
+        xin, ln_w, ln_b, W, scales, W2, scales2, bias, layer_ptr, resid, out,
+        out_f32, B, K, N, eps, st);
+  return launch_matvec<16, PRO, EPI, PAIR, TW>(
+      xin, ln_w, ln_b, W, scales, W2, scales2, bias, layer_ptr, resid, out,
+      out_f32, B, K, N, eps, st);
 }
 
-// ------------------------------------------------- paged decode attention
+// ------------------------------------------------------- decode attention
 
 constexpr int kAttnWarps = 8;
 constexpr int kAttnThreads = kAttnWarps * 32;
 constexpr int kMaxRows = 8;   // R, query rows per KV head
 
-// One group of a slot's K/V rows, as one warp holds it, for head dim D:
-// kLanes = D/32 lanes own a key (32 dims each), so a group has 32/kLanes
-// keys; lane i has K[key0 + i/kLanes][32*(i%kLanes) .. +32) and
-// V[key0 + j][i*D/32 .. +D/32) for every key j of the group (D/64 words).
-template <int D>
-struct KVGroup {
-  static constexpr int kLanes = D / 32;
+// One group of a slot's K/V rows, as one warp holds it, for head dim D and
+// a bf16 (Q8 false) or int8 (Q8 true) cache: kLanes lanes own a key,
+// kKDims dims each (32 bf16 or 64 int8 values: 64 bytes), so a group has
+// 32/kLanes keys; lane i has K[key0 + i/kLanes][kKDims*(i%kLanes) ..
+// +kKDims) and V[key0 + j][i*D/32 .. +D/32) for every key j of the group
+// (kVWords 32-bit words) and, int8, the two scales of key key0 + i/kLanes.
+template <bool Q8>
+struct KVScales {};
+template <>
+struct KVScales<true> {
+  float ks, vs;
+};
+
+template <int D, bool Q8>
+struct KVGroup : KVScales<Q8> {
+  static_assert(!Q8 || D == 128, "the int8 cache takes head dim 128");
+  using T = typename std::conditional<Q8, int8_t, bf16>::type;
+  static constexpr int kKDims = Q8 ? 64 : 32;
+  static constexpr int kLanes = D / kKDims;
   static constexpr int kKeys = 32 / kLanes;
-  static constexpr int kVWords = D / 64;
+  static constexpr int kVWords = D / 32 * (int)sizeof(T) / 4;
   uint4 k[4];
   uint32_t v[kKeys][kVWords];
 };
 
-template <int D>
-__device__ __forceinline__ void load_group(KVGroup<D>& g,
-                                           const bf16* __restrict__ kpool,
-                                           const bf16* __restrict__ vpool,
-                                           size_t base, int lane) {
-  using G = KVGroup<D>;
+// the group whose first key is row ``row`` of the [.., rows, D] cache
+template <int D, bool Q8>
+__device__ __forceinline__ void load_group(
+    KVGroup<D, Q8>& g, const typename KVGroup<D, Q8>::T* __restrict__ kc,
+    const typename KVGroup<D, Q8>::T* __restrict__ vc,
+    const float* __restrict__ ks, const float* __restrict__ vs, size_t row,
+    int lane) {
+  using G = KVGroup<D, Q8>;
+  constexpr int kRowWords = D * (int)sizeof(typename G::T) / 4;
   const uint4* kr = reinterpret_cast<const uint4*>(
-      kpool + base + (lane / G::kLanes) * D + (lane % G::kLanes) * 32);
+      kc + (row + lane / G::kLanes) * D + (lane % G::kLanes) * G::kKDims);
 #pragma unroll
   for (int i = 0; i < 4; ++i) g.k[i] = __ldg(kr + i);
   const uint32_t* vr =
-      reinterpret_cast<const uint32_t*>(vpool + base) + lane * G::kVWords;
+      reinterpret_cast<const uint32_t*>(vc + row * D) + lane * G::kVWords;
 #pragma unroll
   for (int j = 0; j < G::kKeys; ++j) {
     if constexpr (G::kVWords == 2) {
-      const uint2 t = __ldg(reinterpret_cast<const uint2*>(vr + j * (D / 2)));
+      const uint2 t = __ldg(reinterpret_cast<const uint2*>(vr + j * kRowWords));
       g.v[j][0] = t.x;
       g.v[j][1] = t.y;
     } else {
-      g.v[j][0] = __ldg(vr + j * (D / 2));
+      g.v[j][0] = __ldg(vr + j * kRowWords);
     }
+  }
+  if constexpr (Q8) {
+    g.ks = __ldg(ks + row + lane / G::kLanes);
+    g.vs = __ldg(vs + row + lane / G::kLanes);
   }
 }
 
@@ -587,22 +670,28 @@ __device__ __forceinline__ void load_group(KVGroup<D>& g,
 // groups (g = warp, warp + 8, ...) with its own fp32 online softmax for
 // the R rows, loading the next group while it computes this one; the
 // block then merges the 8 partial (max, sum, acc) states.
-template <int D>
-__global__ void __launch_bounds__(kAttnThreads) decode_attn_paged_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ kpool,
-    const bf16* __restrict__ vpool, const int* __restrict__ pos_arr,
+// Addressing: row ((l*NB + blk)*H + h)*page + key % page of the cache,
+// blk = pt[b][key / page] (the paged pool), or with no page table blk = b
+// and page = the cache length (the layer-stacked cache [Lyr, B, H, L, D]).
+// Slot b's position is pos_arr[b * pos_stride].
+template <int D, bool Q8>
+__global__ void __launch_bounds__(kAttnThreads) decode_attn_kernel(
+    const bf16* __restrict__ q, const typename KVGroup<D, Q8>::T* __restrict__ kc,
+    const typename KVGroup<D, Q8>::T* __restrict__ vc,
+    const float* __restrict__ ks, const float* __restrict__ vs,
+    const int* __restrict__ pos_arr, int pos_stride,
     const int* __restrict__ pt, const int* __restrict__ layer_ptr,
-    bf16* __restrict__ out, int H, int R, int NB, int page,
-    int maxp, int rows_per_step, float scale) {
-  using G = KVGroup<D>;
-  constexpr int kLanes = G::kLanes, kKeys = G::kKeys;
+    bf16* __restrict__ out, int H, int R, int NB, int page, int maxp,
+    int rows_per_step, float scale) {
+  using G = KVGroup<D, Q8>;
+  constexpr int kLanes = G::kLanes, kKeys = G::kKeys, kKDims = G::kKDims;
   constexpr int kDims = D / 32;   // P.V dims a lane owns
   __shared__ __align__(16) float qs[kMaxRows][D];
   __shared__ float part_m[kAttnWarps][kMaxRows];
   __shared__ float part_l[kAttnWarps][kMaxRows];
   __shared__ float part_acc[kAttnWarps][kMaxRows][D];
   const int h = blockIdx.x, b = blockIdx.y;
-  const int pos = pos_arr[b];
+  const int pos = pos_arr[b * pos_stride];
   const int npair = R * D;
   bf16* ob = out + (size_t)(b * H + h) * npair;
 
@@ -627,13 +716,11 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_paged_kernel(
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub = lane % kLanes;
-  const size_t page_elems = (size_t)page * D;
-  const size_t layer_off = (size_t)l * NB * H * page_elems;
-  const int* ptb = pt + (size_t)b * maxp;
-  auto group_base = [&](int g) {
+  const int* ptb = pt ? pt + (size_t)b * maxp : nullptr;
+  auto group_row = [&](int g) {
     const int key0 = g * kKeys, p = key0 / page;   // page % 16 == 0
-    return layer_off + ((size_t)ptb[p] * H + h) * page_elems +
-           (size_t)(key0 - p * page) * D;
+    const int blk = ptb ? ptb[p] : b;
+    return ((size_t)(l * NB + blk) * H + h) * page + (key0 - p * page);
   };
 
   float m[kMaxRows], lsum[kMaxRows], acc[kMaxRows][kDims];
@@ -646,40 +733,69 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_paged_kernel(
   }
   G cur, nxt;
   int g = warp;
-  if (g < n_groups) load_group<D>(cur, kpool, vpool, group_base(g), lane);
+  if (g < n_groups) load_group<D, Q8>(cur, kc, vc, ks, vs, group_row(g), lane);
   for (; g < n_groups; g += kAttnWarps) {
     if (g + kAttnWarps < n_groups)
-      load_group<D>(nxt, kpool, vpool, group_base(g + kAttnWarps), lane);
+      load_group<D, Q8>(nxt, kc, vc, ks, vs, group_row(g + kAttnWarps), lane);
     const int key = g * kKeys + lane / kLanes;
-    float kf[32];
+    // bf16: the lane's 32 dims of K as floats, each row's q.k taken in
+    // the row loop; int8: 64 dims, so each row's partial q.k is taken
+    // here, 16 dims a load, to keep the converted K out of registers
+    float kf[Q8 ? 1 : kKDims], dq[Q8 ? kMaxRows : 1];
+    if constexpr (Q8) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t w[4] = {cur.k[i].x, cur.k[i].y, cur.k[i].z, cur.k[i].w};
+      for (int r = 0; r < kMaxRows; ++r) dq[r] = 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        kf[8 * i + 2 * c] = __uint_as_float(w[c] << 16);
-        kf[8 * i + 2 * c + 1] = __uint_as_float(w[c] & 0xffff0000u);
+      for (int i = 0; i < 4; ++i) {
+        float kc[16];
+        unpack4_i8(cur.k[i].x, kc);
+        unpack4_i8(cur.k[i].y, kc + 4);
+        unpack4_i8(cur.k[i].z, kc + 8);
+        unpack4_i8(cur.k[i].w, kc + 12);
+#pragma unroll
+        for (int r = 0; r < kMaxRows; ++r) {
+          if (r < R) {
+            const float4* qr = reinterpret_cast<const float4*>(
+                &qs[r][sub * kKDims + i * 16]);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const float4 qv = qr[c];
+              dq[r] = fmaf(qv.x, kc[4 * c], dq[r]);
+              dq[r] = fmaf(qv.y, kc[4 * c + 1], dq[r]);
+              dq[r] = fmaf(qv.z, kc[4 * c + 2], dq[r]);
+              dq[r] = fmaf(qv.w, kc[4 * c + 3], dq[r]);
+            }
+          }
+        }
       }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) unpack8(cur.k[i], kf + 8 * i);
     }
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r) {
       if (r < R) {
-        const float4* qr = reinterpret_cast<const float4*>(&qs[r][sub * 32]);
-        float dot = 0.f;
+        float d = 0.f;
+        if constexpr (Q8) {
+          d = dq[r];
+        } else {
+          const float4* qr =
+              reinterpret_cast<const float4*>(&qs[r][sub * kKDims]);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float4 qv = qr[i];
-          dot = fmaf(qv.x, kf[4 * i], dot);
-          dot = fmaf(qv.y, kf[4 * i + 1], dot);
-          dot = fmaf(qv.z, kf[4 * i + 2], dot);
-          dot = fmaf(qv.w, kf[4 * i + 3], dot);
+          for (int i = 0; i < kKDims / 4; ++i) {
+            const float4 qv = qr[i];
+            d = fmaf(qv.x, kf[4 * i], d);
+            d = fmaf(qv.y, kf[4 * i + 1], d);
+            d = fmaf(qv.z, kf[4 * i + 2], d);
+            d = fmaf(qv.w, kf[4 * i + 3], d);
+          }
         }
 #pragma unroll
-        for (int o = 1; o < kLanes; o <<= 1)
-          dot += __shfl_xor_sync(kFull, dot, o);
+        for (int o = 1; o < kLanes; o <<= 1) d += __shfl_xor_sync(kFull, d, o);
         const int lim = pos + (rows_per_step > 0 ? r / rows_per_step : 0);
         const bool valid = key <= lim;
-        const float s = dot * scale;
+        float s = d * scale;
+        if constexpr (Q8) s = s * cur.ks;
         float gmax = valid ? s : -1e30f;
 #pragma unroll
         for (int o = kLanes; o < 32; o <<= 1)
@@ -688,25 +804,32 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_paged_kernel(
         const float alpha = __expf(m[r] - m_new);
         const float p = valid ? __expf(s - m_new) : 0.f;
         lsum[r] = lsum[r] * alpha + warp_sum(sub ? 0.f : p);
-        // p is rounded to bf16 before the V product and summed unrounded,
-        // as in the Pallas kernel
-        const float pr = __bfloat162float(__float2bfloat16(p));
+        // p (times the key's V scale) is rounded to bf16 before the V
+        // product and summed unrounded, as in the Pallas kernel
+        float pv = p;
+        if constexpr (Q8) pv = valid ? p * cur.vs : 0.f;
+        const float pr = __bfloat162float(__float2bfloat16(pv));
         float a[kDims];
 #pragma unroll
-        for (int d = 0; d < kDims; ++d) a[d] = acc[r][d] * alpha;
+        for (int e = 0; e < kDims; ++e) a[e] = acc[r][e] * alpha;
 #pragma unroll
         for (int j = 0; j < kKeys; ++j) {
           const float pj = __shfl_sync(kFull, pr, j * kLanes);
+          float vf[kDims];
+          if constexpr (Q8) {
+            unpack4_i8(cur.v[j][0], vf);
+          } else {
 #pragma unroll
-          for (int w = 0; w < G::kVWords; ++w) {
-            a[2 * w] = fmaf(pj, __uint_as_float(cur.v[j][w] << 16), a[2 * w]);
-            a[2 * w + 1] =
-                fmaf(pj, __uint_as_float(cur.v[j][w] & 0xffff0000u),
-                     a[2 * w + 1]);
+            for (int w = 0; w < G::kVWords; ++w) {
+              vf[2 * w] = __uint_as_float(cur.v[j][w] << 16);
+              vf[2 * w + 1] = __uint_as_float(cur.v[j][w] & 0xffff0000u);
+            }
           }
+#pragma unroll
+          for (int e = 0; e < kDims; ++e) a[e] = fmaf(pj, vf[e], a[e]);
         }
 #pragma unroll
-        for (int d = 0; d < kDims; ++d) acc[r][d] = a[d];
+        for (int e = 0; e < kDims; ++e) acc[r][e] = a[e];
         m[r] = m_new;
       }
     }
@@ -723,8 +846,8 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_paged_kernel(
         part_l[warp][r] = lsum[r];
       }
 #pragma unroll
-      for (int d = 0; d < kDims; ++d)
-        part_acc[warp][r][kDims * lane + d] = acc[r][d];
+      for (int e = 0; e < kDims; ++e)
+        part_acc[warp][r][kDims * lane + e] = acc[r][e];
     }
   }
   __syncthreads();
@@ -744,17 +867,99 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_paged_kernel(
   }
 }
 
+template <int D, bool Q8>
+cudaError_t launch_attn(const void* q, const void* k, const void* v,
+                        const void* ks, const void* vs, const void* pos,
+                        int pos_stride, const void* pt, const void* layer_ptr,
+                        void* out, int B, int H, int R, int NB, int page,
+                        int maxp, int rows_per_step, float scale,
+                        cudaStream_t st) {
+  using T = typename KVGroup<D, Q8>::T;
+  decode_attn_kernel<D, Q8><<<dim3(H, B), kAttnThreads, 0, st>>>(
+      (const bf16*)q, (const T*)k, (const T*)v, (const float*)ks,
+      (const float*)vs, (const int*)pos, pos_stride, (const int*)pt,
+      (const int*)layer_ptr, (bf16*)out, H, R, NB, page, maxp,
+      rows_per_step, scale);
+  return cudaGetLastError();
+}
+
+// ----------------------------------------------------------- kv_quant_int8
+
+// One warp per row t of the 2*B*H new K and V rows (K rows first); lane i
+// holds the C = D/32 values from i*C. The codes go to row ((l*NB + blk)*H
+// + h)*L + row of the [.., L, D] destination, the scale to the same index
+// of the [.., 1, L] scales; null layer, blocks or rows read as 0, b and 0.
+template <int C>
+__global__ void __launch_bounds__(256) kv_quant_kernel(
+    const bf16* __restrict__ k, const bf16* __restrict__ v, int k_stride,
+    int v_stride, int8_t* __restrict__ kq, float* __restrict__ ks,
+    int8_t* __restrict__ vq, float* __restrict__ vs,
+    const int* __restrict__ layer_ptr, const int* __restrict__ blocks,
+    const int* __restrict__ rows, int rows_stride, int B, int H, int NB,
+    int L) {
+  constexpr int D = 32 * C;
+  const int t = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (t >= 2 * B * H) return;
+  const bool is_v = t >= B * H;
+  const int bh = is_v ? t - B * H : t, b = bh / H, h = bh % H;
+  const bf16* src = (is_v ? v + (size_t)b * v_stride : k + (size_t)b * k_stride)
+                    + (size_t)h * D + lane * C;
+  float x[C], amax = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    x[c] = __bfloat162float(src[c]);
+    amax = fmaxf(amax, fabsf(x[c]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, o));
+  // XLA compiles amax / 127.0 as amax * fl(1/127); the codes take an IEEE
+  // division, rounded half to even as jnp.round(t / sc)
+  const float sc = fmaxf(amax * (1.f / 127.f), 1e-12f);
+  const int l = layer_ptr ? *layer_ptr : 0;
+  const int blk = blocks ? blocks[b] : b;
+  const int row = rows ? rows[b * rows_stride] : 0;
+  const size_t srow = ((size_t)(l * NB + blk) * H + h) * L + row;
+  int8_t* dst = (is_v ? vq : kq) + srow * D + lane * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    dst[c] = (int8_t)(int)fminf(fmaxf(rintf(x[c] / sc), -127.f), 127.f);
+  if (lane == 0) (is_v ? vs : ks)[srow] = sc;
+}
+
+template <typename TW>
+cudaError_t out_ffn_glu(const void* x1, const float* ln_w, const TW* wg,
+                        const float* sg, const TW* wu, const float* su,
+                        const TW* wd, const float* sd, const int* lp, bf16* h,
+                        bf16* out, int B, int E, int F, float eps,
+                        cudaStream_t st) {
+  cudaError_t e = matvec<PRO_RMS_BF16, EPI_SWIGLU, true, TW>(
+      x1, ln_w, nullptr, wg, sg, nullptr, lp, nullptr, h, nullptr, B, E, F,
+      eps, st, wu, su);
+  if (e != cudaSuccess) return e;
+  return matvec<PRO_COPY, EPI_RESID, false, TW>(
+      h, nullptr, nullptr, wd, sd, nullptr, lp, (const bf16*)x1, out,
+      nullptr, B, F, E, eps, st);
+}
+
 }  // namespace
 
 extern "C" {
 
 // out [B, N] = norm(x) . W[layer] * s[layer] (+ b[layer]); rms != 0 takes
-// RMSNorm (ln_w only, no bias: pass null ln_b and b)
+// RMSNorm (ln_w only, no bias: pass null ln_b and b); w8 != 0: W holds
+// int8 codes (RMSNorm only)
 int dstpu_ln_qkv_stacked(const void* x, const void* ln_w, const void* ln_b,
                          const void* w, const void* s, const void* b,
                          const void* layer_ptr, void* out,
-                         int B, int E, int N, int rms, float eps,
+                         int B, int E, int N, int rms, int w8, float eps,
                          void* stream) {
+  if (rms && w8)
+    return (int)matvec<PRO_RMS_BF16, EPI_BIAS, false, int8_t>(
+        x, (const float*)ln_w, nullptr, (const int8_t*)w, (const float*)s,
+        nullptr, (const int*)layer_ptr, nullptr, (bf16*)out, nullptr, B, E,
+        N, eps, (cudaStream_t)stream);
+  if (w8) return (int)cudaErrorInvalidValue;
   if (rms)
     return (int)matvec<PRO_RMS_BF16, EPI_BIAS>(
         x, (const float*)ln_w, nullptr, (const bf16*)w, (const float*)s,
@@ -766,10 +971,15 @@ int dstpu_ln_qkv_stacked(const void* x, const void* ln_w, const void* ln_b,
       (bf16*)out, nullptr, B, E, N, eps, (cudaStream_t)stream);
 }
 
-// out [B, N] = x . W[layer] * s[layer]
+// out [B, N] = x . W[layer] * s[layer]; w8 != 0: W holds int8 codes
 int dstpu_matvec_stacked(const void* x, const void* w, const void* s,
                          const void* layer_ptr, void* out, int B, int K,
-                         int N, void* stream) {
+                         int N, int w8, void* stream) {
+  if (w8)
+    return (int)matvec<PRO_COPY, EPI_BIAS, false, int8_t>(
+        x, nullptr, nullptr, (const int8_t*)w, (const float*)s, nullptr,
+        (const int*)layer_ptr, nullptr, (bf16*)out, nullptr, B, K, N, 0.f,
+        (cudaStream_t)stream);
   return (int)matvec<PRO_COPY, EPI_BIAS>(
       x, nullptr, nullptr, (const bf16*)w, (const float*)s, nullptr,
       (const int*)layer_ptr, nullptr, (bf16*)out, nullptr, B, K, N, 0.f,
@@ -804,45 +1014,83 @@ int dstpu_out_ffn_stacked(const void* ctx, const void* x, const void* wp,
 }
 
 // LLaMA's out_ffn with fuse_proj=False, two launches on one stream:
-// h = silu(RMS(x1).Wg.sg) * (RMS(x1).Wu.su), then out = x1 + h.Wd.sd
+// h = silu(RMS(x1).Wg.sg) * (RMS(x1).Wu.su), then out = x1 + h.Wd.sd;
+// w8 != 0: Wg, Wu and Wd hold int8 codes
 int dstpu_out_ffn_glu_stacked(const void* x1, const void* ln_w,
                               const void* wg, const void* sg,
                               const void* wu, const void* su,
                               const void* wd, const void* sd,
                               const void* layer_ptr, void* h, void* out,
-                              int B, int E, int F, float eps, void* stream) {
+                              int B, int E, int F, int w8, float eps,
+                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int* lp = (const int*)layer_ptr;
-  cudaError_t e = matvec<PRO_RMS_BF16, EPI_SWIGLU, true>(
-      x1, (const float*)ln_w, nullptr, (const bf16*)wg, (const float*)sg,
-      nullptr, lp, nullptr, (bf16*)h, nullptr, B, E, F, eps, st,
-      (const bf16*)wu, (const float*)su);
-  if (e != cudaSuccess) return (int)e;
-  return (int)matvec<PRO_COPY, EPI_RESID>(
-      h, nullptr, nullptr, (const bf16*)wd, (const float*)sd, nullptr, lp,
-      (const bf16*)x1, (bf16*)out, nullptr, B, F, E, eps, st);
+  if (w8)
+    return (int)out_ffn_glu<int8_t>(x1, (const float*)ln_w,
+                                    (const int8_t*)wg, (const float*)sg,
+                                    (const int8_t*)wu, (const float*)su,
+                                    (const int8_t*)wd, (const float*)sd, lp,
+                                    (bf16*)h, (bf16*)out, B, E, F, eps, st);
+  return (int)out_ffn_glu<bf16>(x1, (const float*)ln_w, (const bf16*)wg,
+                                (const float*)sg, (const bf16*)wu,
+                                (const float*)su, (const bf16*)wd,
+                                (const float*)sd, lp, (bf16*)h, (bf16*)out, B,
+                                E, F, eps, st);
 }
 
-// head dim D 64 or 128, R <= 8, page % 16 == 0 (the wrapper checks)
-int dstpu_decode_attention_paged(const void* q, const void* k_pool,
-                                 const void* v_pool, const void* pos,
-                                 const void* page_table,
-                                 const void* layer_ptr, void* out, int B,
-                                 int H, int R, int D, int NB, int page,
-                                 int maxp, int rows_per_step,
-                                 float scale, void* stream) {
-  dim3 grid(H, B);
+// q [B, H, R, D] bf16 over a bf16 cache (D 64 or 128) or an int8 one with
+// fp32 scales [.., 1, page] (D 128); R <= 8, page % 16 == 0. With a page
+// table [B, maxp] the cache is the pool [Lyr, NB, H, page, D]; without,
+// the stacked cache [Lyr, B, H, page, D] (maxp 1, NB = B). The wrapper
+// checks the geometry.
+int dstpu_decode_attention(const void* q, const void* k, const void* v,
+                           const void* k_scale, const void* v_scale,
+                           const void* pos, const void* page_table,
+                           const void* layer_ptr, void* out, int B, int H,
+                           int R, int D, int NB, int page, int maxp,
+                           int rows_per_step, int pos_stride, float scale,
+                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const bool q8 = k_scale != nullptr;
+  if (D == 64 && !q8)
+    return (int)launch_attn<64, false>(q, k, v, k_scale, v_scale, pos,
+                                       pos_stride, page_table, layer_ptr, out,
+                                       B, H, R, NB, page, maxp, rows_per_step,
+                                       scale, st);
+  if (D == 128 && !q8)
+    return (int)launch_attn<128, false>(q, k, v, k_scale, v_scale, pos,
+                                        pos_stride, page_table, layer_ptr,
+                                        out, B, H, R, NB, page, maxp,
+                                        rows_per_step, scale, st);
+  if (D == 128 && q8)
+    return (int)launch_attn<128, true>(q, k, v, k_scale, v_scale, pos,
+                                       pos_stride, page_table, layer_ptr, out,
+                                       B, H, R, NB, page, maxp, rows_per_step,
+                                       scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// int8 codes and fp32 scales of the new rows k [B, H, D] (row stride
+// k_stride elements) and v: into [NB, H, L, D] / [NB, H, 1, L] at layer
+// *layer_ptr, block blocks[b] (null: b) and row rows[b * rows_stride]
+// (null: 0). D 64 or 128.
+int dstpu_kv_quant_int8(const void* k, const void* v, void* kq, void* ks,
+                        void* vq, void* vs, const void* layer_ptr,
+                        const void* blocks, const void* rows, int B, int H,
+                        int D, int k_stride, int v_stride, int NB, int L,
+                        int rows_stride, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_blocks = (2 * B * H + 7) / 8;
   if (D == 64)
-    decode_attn_paged_kernel<64><<<grid, kAttnThreads, 0, st>>>(
-        (const bf16*)q, (const bf16*)k_pool, (const bf16*)v_pool,
-        (const int*)pos, (const int*)page_table, (const int*)layer_ptr,
-        (bf16*)out, H, R, NB, page, maxp, rows_per_step, scale);
+    kv_quant_kernel<2><<<n_blocks, 256, 0, st>>>(
+        (const bf16*)k, (const bf16*)v, k_stride, v_stride, (int8_t*)kq,
+        (float*)ks, (int8_t*)vq, (float*)vs, (const int*)layer_ptr,
+        (const int*)blocks, (const int*)rows, rows_stride, B, H, NB, L);
   else if (D == 128)
-    decode_attn_paged_kernel<128><<<grid, kAttnThreads, 0, st>>>(
-        (const bf16*)q, (const bf16*)k_pool, (const bf16*)v_pool,
-        (const int*)pos, (const int*)page_table, (const int*)layer_ptr,
-        (bf16*)out, H, R, NB, page, maxp, rows_per_step, scale);
+    kv_quant_kernel<4><<<n_blocks, 256, 0, st>>>(
+        (const bf16*)k, (const bf16*)v, k_stride, v_stride, (int8_t*)kq,
+        (float*)ks, (int8_t*)vq, (float*)vs, (const int*)layer_ptr,
+        (const int*)blocks, (const int*)rows, rows_stride, B, H, NB, L);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

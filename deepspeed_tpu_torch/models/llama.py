@@ -3,7 +3,8 @@
 Port of ``deepspeed_tpu/models/llama.py``: ``LlamaConfig`` (:41), the
 presets ``llama_tiny`` (:429), ``llama_7b`` (:437) and ``llama3_8b``
 (:444), ``rope_angles`` (:92), ``apply_rope`` (:100) and the RMSNorm
-arithmetic (:77-89). Serving reads the packed layer-stacked weights of
+arithmetic (:77-89); ``rope_tables``/``rope_rows`` rotate the decode
+ticks' single rows. Serving reads the packed layer-stacked weights of
 ``models/llama_inference.py``; the training model (``LlamaForCausalLM``)
 is not ported yet.
 """
@@ -85,6 +86,27 @@ def apply_rope(x, cos, sin):
     c = cos[None, None].to(x.dtype)
     s = sin[None, None].to(x.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def rope_tables(pos, D, theta, dtype):
+    """RoPE tables [B, 1, D] in ``dtype`` at per-row positions ``pos`` [B],
+    made once a decode step for every layer: (cos | cos) and (-sin | sin)
+    of ``rope_angles``, cast to the rows' dtype as JAX casts them."""
+    inv = 1.0 / (theta ** (torch.arange(0, D, 2, dtype=torch.float32,
+                                        device=pos.device) / D))
+    ang = pos.float()[:, None, None] * inv                # [B, 1, D//2]
+    cos, sin = torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+    return torch.cat([cos, cos], -1), torch.cat([-sin, sin], -1)
+
+
+def rope_rows(x, cos2, sin2):
+    """RoPE on [B, Hx, D] rows (split halves x1 | x2) with ``rope_tables``:
+    x * (cos | cos) + (x2 | x1) * (-sin | sin) rounds where JAX's (x1*cos -
+    x2*sin | x2*cos + x1*sin) does, bit for bit (the decode ticks'
+    ``_rope_rows`` of serving/adapters.py:692 and ``_rope_one`` of
+    models/llama_inference.py:130)."""
+    half = x.shape[-1] // 2
+    return x * cos2 + torch.cat([x[..., half:], x[..., :half]], -1) * sin2
 
 
 def rms_norm(x, w, eps):

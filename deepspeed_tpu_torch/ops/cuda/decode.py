@@ -1,11 +1,15 @@
 """Decode-tick kernels: CUDA (csrc/decode.cu) and their plain versions.
 
-Replaces four Pallas kernels of ``deepspeed_tpu/ops/pallas/decode.py``:
+Replaces seven Pallas kernels of ``deepspeed_tpu/ops/pallas/decode.py``:
 
-- ``ln_qkv_stacked``         ← ``ln_qkv_int8_stacked``    (:432, kernel :496)
-- ``matvec_stacked``         ← ``matvec_int8_stacked``    (:523, kernel :558)
-- ``out_ffn_stacked``        ← ``out_ffn_int8_stacked``   (:698, kernel :1000)
-- ``decode_attention_paged`` ← ``decode_attention_paged`` (:854, kernel :931)
+- ``ln_qkv_stacked``           ← ``ln_qkv_int8_stacked``    (:432, kernel :496)
+- ``matvec_stacked``           ← ``matvec_int8_stacked``    (:523, kernel :558)
+- ``out_ffn_stacked``          ← ``out_ffn_int8_stacked``   (:698, kernel :1000)
+- ``decode_attention_paged``   ← ``decode_attention_paged`` (:854, kernel :931)
+- ``kv_quant_int8``            ← ``kv_quant_int8``          (:297, kernel :279)
+- ``decode_attention_stacked`` ← ``decode_attention_int8_stacked`` (:565) and
+  ``decode_attention_fp_stacked`` (:794), kernel ``_decode_attn_stacked_kernel``
+  (:643)
 
 Layouts follow the JAX functions: weights are layer-stacked ``[L, in,
 out]`` and indexed at ``layer`` inside the kernel (on CUDA ``layer`` is
@@ -14,14 +18,16 @@ int); per-layer vectors are ``[L, n]`` (``[L, 1, n]`` is accepted);
 scales are ``[L]`` fp32. A CPU
 tensor takes the plain version, which implements every option of the
 JAX function; a CUDA tensor launches the kernel or raises. The CUDA
-kernels take bf16 activations and weights with norm parameters and biases
-in fp32, and the fp paged pool: GPT-2's contract (LayerNorm, biases,
-gelu_tanh, the fused out-projection) and LLaMA's (RMSNorm, no biases,
-SwiGLU with ``fuse_proj=False``, head dim 128, GQA rows).
+kernels take bf16 activations with norm parameters and biases in fp32:
+GPT-2's contract (LayerNorm, biases, gelu_tanh, the fused out-projection,
+bf16 weights, the bf16 paged pool) and LLaMA's (RMSNorm, no biases,
+SwiGLU with ``fuse_proj=False``, head dim 128, GQA rows; bf16 weights or
+int8 codes, a bf16 or int8 KV cache, paged or layer-stacked).
 """
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -37,6 +43,7 @@ MAX_SLOTS = 16          # the matvec kernels' register accumulator bound
 # 1024/D keys inside a page, at most 8 query rows per KV head
 ATTN_HEAD_DIMS, PAGE_MULTIPLE, MAX_ROWS = (64, 128), 16, 8
 MAX_SMEM = 227 * 1024   # shared memory one block may use on the H100
+INT8_HEAD_DIMS = (128,)  # the int8 cache's head dims on CUDA
 
 
 # ----------------------------------------------------------- plain versions
@@ -125,11 +132,53 @@ def out_ffn_stacked_plain(ctx, x, wp_stack, sp, bp, ln_w, ln_b, w1_stack,
     return y.to(dt)
 
 
+# XLA compiles the kv quantizers' ``amax / 127.0`` (decode.py:288,
+# adapters.py:66) as amax * fl(1/127): their scales are that product
+RCP_127 = float(np.float32(1) / np.float32(127))
+
+
+def quantize_rows(t):
+    """Symmetric int8 codes of every row of t [..., D] over its last axis:
+    (codes int8 [..., D], scale fp32 [..., 1]) with sc = max(amax * (1 /
+    127), 1e-12) and codes = clip(round(t / sc), -127, 127), an IEEE
+    division rounded half to even (``_kv_quant_kernel``; the prompt rows'
+    ``_quant_prompt_rows``)."""
+    tf = t.float()
+    sc = torch.clamp_min(tf.abs().amax(-1, keepdim=True) * RCP_127, 1e-12)
+    return torch.clamp(torch.round(tf / sc), -127, 127).to(torch.int8), sc
+
+
+def kv_quant_int8_plain(k, v):
+    """Per-(b, h) int8 codes of new K/V rows [B, H, D]: (k codes, k scale
+    fp32 [B, H, 1], v codes, v scale); see quantize_rows."""
+    return (*quantize_rows(k), *quantize_rows(v))
+
+
+def _attend(q, k, v, keep, scale, ks=None, vs=None):
+    """One slot's S=1 attention over its gathered rows: q [H, R, D], k/v
+    [H, K, D] (int8 codes or floats), keep [R, K], scales [H, K] or None.
+    The order of operations of ``_decode_attn_paged_kernel``: s = q.k *
+    scale (* ks), masked; the sum takes the unscaled p; P.V takes p (* vs)
+    rounded to q's dtype. Returns [H, R, D] in q's dtype."""
+    s = torch.einsum("hrd,hkd->hrk", q.float(), k.float()) * scale
+    if ks is not None:
+        s = s * ks.float()[:, None, :]
+    s = torch.where(keep[None], s, torch.full_like(s, -1e30))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    d = e.sum(-1, keepdim=True).clamp_min(1e-30)
+    if vs is not None:
+        e = e * vs.float()[:, None, :]
+    ctx = torch.einsum("hrk,hkd->hrd", e.to(q.dtype).float(), v.float()) / d
+    return ctx.to(q.dtype)
+
+
 def decode_attention_paged_plain(q, k_pool, v_pool, pos, page_table, layer,
-                                 scale=None, rows_per_step=None):
+                                 scale=None, rows_per_step=None,
+                                 k_scale=None, v_scale=None):
     """S=1 attention through a paged pool: q [B, H, R, D], pools [Lyr, NB,
-    H, page, D], pos [B] (< 0: idle slot, zeros), page_table [B, MAXP].
-    Row j masks keys at k_pos <= pos[b] + j // rows_per_step."""
+    H, page, D] (int8 codes with ``k_scale``/``v_scale`` [Lyr, NB, H, 1,
+    page] fp32, or floats), pos [B] (< 0: idle slot, zeros), page_table
+    [B, MAXP]. Row j masks keys at k_pos <= pos[b] + j // rows_per_step."""
     B, H, R, D = q.shape
     page = k_pool.shape[3]
     maxp = page_table.shape[1]
@@ -148,19 +197,38 @@ def decode_attention_paged_plain(q, k_pool, v_pool, pos, page_table, layer,
         n_live = min(maxp, (p + max_step) // page + 1)
         blocks = page_table[b, :n_live].long()
 
-        def fold(pool):                     # [n, H, page, D] → [H, n*page, D]
+        def fold(pool):                     # [n, H, page, X] → [H, n*page, X]
             return pool[l, blocks].transpose(0, 1).reshape(
-                H, n_live * page, D).float()
-        k, v = fold(k_pool), fold(v_pool)
-        s = torch.einsum("hrd,hkd->hrk", q[b].float(), k) * scale
+                H, n_live * page, -1)
         kpos = torch.arange(n_live * page, device=q.device)
         keep = kpos[None, :] <= (p + step)[:, None]          # [R, K]
-        s = torch.where(keep[None], s, torch.full_like(s, -1e30))
-        m = s.amax(-1, keepdim=True)
-        e = torch.exp(s - m)
-        d = e.sum(-1, keepdim=True).clamp_min(1e-30)
-        ctx = torch.einsum("hrk,hkd->hrd", e.to(q.dtype).float(), v) / d
-        out[b] = ctx.to(q.dtype)
+        ks = vs = None
+        if k_scale is not None:
+            ks = fold(k_scale.transpose(3, 4))[..., 0]
+            vs = fold(v_scale.transpose(3, 4))[..., 0]
+        out[b] = _attend(q[b], fold(k_pool), fold(v_pool), keep, scale, ks,
+                         vs)
+    return out
+
+
+def decode_attention_stacked_plain(q, k_stack, v_stack, pos, layer,
+                                   k_scale=None, v_scale=None, scale=None):
+    """S=1 attention over a contiguous layer-stacked cache: q [B, H, R, D]
+    (R GQA query rows per cache head), caches [Lyr, B, H, L, D] (int8 codes
+    with ``k_scale``/``v_scale`` [Lyr, B, H, 1, L] fp32, or floats), one
+    position ``pos`` for every row: keys 0..pos attend, the cache's tail
+    is never read (``_decode_attn_stacked_kernel``)."""
+    B, H, R, D = q.shape
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    l, n = int(layer), int(pos) + 1
+    keep = torch.ones(R, n, dtype=torch.bool, device=q.device)
+    out = torch.empty_like(q)
+    for b in range(B):
+        ks = vs = None
+        if k_scale is not None:
+            ks, vs = k_scale[l, b, :, 0, :n], v_scale[l, b, :, 0, :n]
+        out[b] = _attend(q[b], k_stack[l, b, :, :n], v_stack[l, b, :, :n],
+                         keep, scale, ks, vs)
     return out
 
 
@@ -170,9 +238,6 @@ def _check(fn, name, t, dtype, shape, device):
     if t.device != device:
         raise ValueError(f"{fn}: {name} is on {t.device}, not {device}")
     if t.dtype != dtype:
-        if dtype == torch.bfloat16 and t.dtype == torch.int8:
-            raise NotImplementedError(
-                f"{fn}: int8 {name} is not ported ({ROADMAP_INT8})")
         if dtype == torch.bfloat16 and t.dtype == torch.float32:
             raise NotImplementedError(
                 f"{fn}: the CUDA kernel takes bf16 {name}, got float32 "
@@ -198,17 +263,19 @@ def _split_for(n_tiles, pair=False):
     return S
 
 
-def matvec_smem(B, K, N, prologue, pair=False):
+def matvec_smem(B, K, N, prologue, pair=False, wbytes=2):
     """Shared memory of one block of a matvec launch over [K, N] weights
     (csrc/decode.cu, matvec_smem), with the launch's own K split: the fp32
-    reduction and partial over a 64-column tile, u transposed [kslice,
-    MAXB] bf16 and, for a norm prologue, the whole staged input rows and
-    the slice of the norm parameters. ``prologue``: "copy" (no norm),
-    "ln_bf16", "ln_f32" (fp32 rows) or "rms_bf16"."""
+    reduction and partial over a column tile (64 columns of bf16 weights,
+    128 of int8: ``wbytes`` 2 or 1), u transposed [kslice, MAXB] bf16 and,
+    for a norm prologue, the whole staged input rows and the slice of the
+    norm parameters. ``prologue``: "copy" (no norm), "ln_bf16", "ln_f32"
+    (fp32 rows) or "rms_bf16"."""
     maxb = 8 if B <= 8 else 16
-    S = _split_for(-(-N // 64), pair)
+    cols = 64 if wbytes == 2 else 128
+    S = _split_for(-(-N // cols), pair)
     kslice = -(-(-(-K // S)) // 8) * 8
-    smem = 9 * maxb * 64 * 4 + kslice * maxb * 2
+    smem = 9 * maxb * cols * 4 + kslice * maxb * 2
     if prologue == "copy":
         return smem
     row_bytes = 4 if prologue == "ln_f32" else 2
@@ -216,12 +283,12 @@ def matvec_smem(B, K, N, prologue, pair=False):
     return smem + B * K * row_bytes + n_par * kslice * 4
 
 
-def _check_launches(fn, B, launches):
+def _check_launches(fn, B, launches, wbytes=2):
     """Refuse a call before launching when one of its matvec launches
-    ``(what, K, N, prologue, pair)`` needs more shared memory than a
-    block may have."""
+    ``(what, K, N, prologue, pair)`` over ``wbytes``-byte weights needs
+    more shared memory than a block may have."""
     for what, K, N, prologue, pair in launches:
-        need = matvec_smem(B, K, N, prologue, pair)
+        need = matvec_smem(B, K, N, prologue, pair, wbytes)
         if need > MAX_SMEM:
             raise ValueError(
                 f"{fn}: the {what} launch needs {need} B of shared memory a "
@@ -234,14 +301,15 @@ def _vec(a, L):
     return a.reshape(L, -1)
 
 
-def _layer_ptr(fn, layer, device):
-    """Device pointer of the kernel's layer index: a one-element int32
-    tensor on the card, which the kernel reads there (no host sync)."""
-    if not isinstance(layer, torch.Tensor) or layer.device != device \
-            or layer.dtype != torch.int32 or layer.numel() != 1:
-        raise ValueError(f"{fn}: layer must be a one-element int32 tensor "
+def _scalar_ptr(fn, t, device, name="layer"):
+    """Device pointer of a scalar the kernel reads on the card (the layer
+    index, a position): a one-element int32 tensor there (no host
+    sync)."""
+    if not isinstance(t, torch.Tensor) or t.device != device \
+            or t.dtype != torch.int32 or t.numel() != 1:
+        raise ValueError(f"{fn}: {name} must be a one-element int32 tensor "
                          f"on {device}")
-    return layer.data_ptr()
+    return t.data_ptr()
 
 
 def _stream(device):
@@ -252,11 +320,23 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _weight_dtype(fn, w_stack, int8_ok):
+    """The weight type a launch streams: bf16, or int8 codes where the
+    contract takes them (LLaMA's); GPT-2's int8 codes raise."""
+    if w_stack.dtype != torch.int8:
+        return torch.bfloat16
+    if not int8_ok:
+        raise NotImplementedError(
+            f"{fn}: int8 weight codes on GPT-2's contract (LayerNorm, "
+            f"biases, gelu_tanh) are not ported ({ROADMAP_INT8})")
+    return torch.int8
+
+
 def ln_qkv_stacked(x, ln_w, ln_b, w_stack, s, b, layer, eps=1e-5,
                    norm="layer"):
     """LayerNorm (or RMSNorm) + packed projection over a layer-stacked
-    weight; see ln_qkv_stacked_plain. ``norm="rms"`` takes no ln_b or b
-    (pass None)."""
+    weight (bf16, or int8 codes with ``norm="rms"``); see
+    ln_qkv_stacked_plain. ``norm="rms"`` takes no ln_b or b (pass None)."""
     if x.device.type == "cpu":
         return ln_qkv_stacked_plain(x, ln_w, ln_b, w_stack, s, b, layer,
                                     eps, norm)
@@ -273,30 +353,32 @@ def ln_qkv_stacked(x, ln_w, ln_b, w_stack, s, b, layer, eps=1e-5,
     vecs = [("ln_w", _vec(ln_w, L), (L, E)), ("s", s, (L,))]
     if not rms:
         vecs += [("ln_b", _vec(ln_b, L), (L, E)), ("b", _vec(b, L), (L, N))]
+    wdt = _weight_dtype(fn, w_stack, rms)
     _check(fn, "x", x, torch.bfloat16, (B, E), dev)
-    _check(fn, "w_stack", w_stack, torch.bfloat16, (L, E, N), dev)
+    _check(fn, "w_stack", w_stack, wdt, (L, E, N), dev)
     for name, t, shp in vecs:
         _check(fn, name, t, torch.float32, shp, dev)
     if not 1 <= B <= MAX_SLOTS or E % 8 or N % 8:
         raise ValueError(f"{fn}: needs 1 <= B <= {MAX_SLOTS} and E, N "
                          f"multiples of 8, got B={B} E={E} N={N}")
     _check_launches(fn, B, [("projection", E, N,
-                             "rms_bf16" if rms else "ln_bf16", False)])
+                             "rms_bf16" if rms else "ln_bf16", False)],
+                    w_stack.element_size())
     v = {name: t for name, t, _ in vecs}
-    lp = _layer_ptr(fn, layer, dev)
+    lp = _scalar_ptr(fn, layer, dev)
     lib = builder.kernels()
     out = torch.empty((B, N), dtype=x.dtype, device=dev)
     lib.call("dstpu_ln_qkv_stacked", x.data_ptr(), v["ln_w"].data_ptr(),
              _ptr(v.get("ln_b")), w_stack.data_ptr(), s.data_ptr(),
              _ptr(v.get("b")), lp, out.data_ptr(), B, E, N, int(rms),
-             float(eps), _stream(dev))
+             int(wdt == torch.int8), float(eps), _stream(dev))
     builder.launches[fn] += 1
     return out
 
 
 def matvec_stacked(x, w_stack, s, layer):
     """x[B, K] · w_stack[layer] · s[layer] → [B, N], bias-free (LLaMA's
-    o-projection); see matvec_stacked_plain."""
+    o-projection; bf16 weights or int8 codes); see matvec_stacked_plain."""
     if x.device.type == "cpu":
         return matvec_stacked_plain(x, w_stack, s, layer)
     fn = "matvec_stacked"
@@ -305,18 +387,21 @@ def matvec_stacked(x, w_stack, s, layer):
     dev = x.device
     B, K = x.shape
     L, _, N = w_stack.shape
+    wdt = _weight_dtype(fn, w_stack, True)
     _check(fn, "x", x, torch.bfloat16, (B, K), dev)
-    _check(fn, "w_stack", w_stack, torch.bfloat16, (L, K, N), dev)
+    _check(fn, "w_stack", w_stack, wdt, (L, K, N), dev)
     _check(fn, "s", s, torch.float32, (L,), dev)
     if not 1 <= B <= MAX_SLOTS or K % 8 or N % 8:
         raise ValueError(f"{fn}: needs 1 <= B <= {MAX_SLOTS} and K, N "
                          f"multiples of 8, got B={B} K={K} N={N}")
-    _check_launches(fn, B, [("projection", K, N, "copy", False)])
-    lp = _layer_ptr(fn, layer, dev)
+    _check_launches(fn, B, [("projection", K, N, "copy", False)],
+                    w_stack.element_size())
+    lp = _scalar_ptr(fn, layer, dev)
     lib = builder.kernels()
     out = torch.empty((B, N), dtype=x.dtype, device=dev)
     lib.call("dstpu_matvec_stacked", x.data_ptr(), w_stack.data_ptr(),
-             s.data_ptr(), lp, out.data_ptr(), B, K, N, _stream(dev))
+             s.data_ptr(), lp, out.data_ptr(), B, K, N,
+             int(wdt == torch.int8), _stream(dev))
     builder.launches[fn] += 1
     return out
 
@@ -329,7 +414,8 @@ def out_ffn_stacked(ctx, x, wp_stack, sp, bp, ln_w, ln_b, w1_stack, s1,
     (``act="gelu_tanh"``, ``norm="layer"``, ``fuse_proj=True``; three
     launches) and LLaMA's (``act="swiglu"``, ``norm="rms"``,
     ``fuse_proj=False``: x is the post-residual x1 and ctx, wp_stack, sp
-    and bp are ignored, as in JAX; two launches)."""
+    and bp are ignored, as in JAX; two launches; bf16 weights or int8
+    codes, all three alike)."""
     if x.device.type == "cpu":
         return out_ffn_stacked_plain(ctx, x, wp_stack, sp, bp, ln_w, ln_b,
                                      w1_stack, s1, b1, w2_stack, s2, b2,
@@ -351,29 +437,31 @@ def out_ffn_stacked(ctx, x, wp_stack, sp, bp, ln_w, ln_b, w1_stack, s1,
     dev = x.device
     B, E = x.shape
     L, _, Fd = w1_stack.shape
+    wdt = _weight_dtype(fn, w1_stack, llama)
     _check(fn, "x", x, torch.bfloat16, (B, E), dev)
-    _check(fn, "w1_stack", w1_stack, torch.bfloat16, (L, E, Fd), dev)
-    _check(fn, "w2_stack", w2_stack, torch.bfloat16, (L, Fd, E), dev)
+    _check(fn, "w1_stack", w1_stack, wdt, (L, E, Fd), dev)
+    _check(fn, "w2_stack", w2_stack, wdt, (L, Fd, E), dev)
     if not 1 <= B <= MAX_SLOTS or E % 8 or Fd % 8:
         raise ValueError(f"{fn}: needs 1 <= B <= {MAX_SLOTS} and E, F "
                          f"multiples of 8, got B={B} E={E} F={Fd}")
-    lp = _layer_ptr(fn, layer, dev)
+    lp = _scalar_ptr(fn, layer, dev)
     h = torch.empty((B, Fd), dtype=x.dtype, device=dev)
     out = torch.empty((B, E), dtype=x.dtype, device=dev)
     if llama:
         ln_w = _vec(ln_w, L)
-        _check(fn, "w1b_stack", w1b_stack, torch.bfloat16, (L, E, Fd), dev)
+        _check(fn, "w1b_stack", w1b_stack, wdt, (L, E, Fd), dev)
         for name, t, shp in (("ln_w", ln_w, (L, E)), ("s1", s1, (L,)),
                              ("s1b", s1b, (L,)), ("s2", s2, (L,))):
             _check(fn, name, t, torch.float32, shp, dev)
         _check_launches(fn, B, [("gate/up", E, Fd, "rms_bf16", True),
-                                ("down", Fd, E, "copy", False)])
+                                ("down", Fd, E, "copy", False)],
+                        w1_stack.element_size())
         builder.kernels().call(
             "dstpu_out_ffn_glu_stacked", x.data_ptr(), ln_w.data_ptr(),
             w1_stack.data_ptr(), s1.data_ptr(),
             w1b_stack.data_ptr(), s1b.data_ptr(), w2_stack.data_ptr(),
             s2.data_ptr(), lp, h.data_ptr(), out.data_ptr(), B, E, Fd,
-            float(eps), _stream(dev))
+            int(wdt == torch.int8), float(eps), _stream(dev))
         builder.launches[fn] += 1
         return out
     vecs = {"sp": (sp, (L,)), "s1": (s1, (L,)), "s2": (s2, (L,)),
@@ -402,16 +490,38 @@ def out_ffn_stacked(ctx, x, wp_stack, sp, bp, ln_w, ln_b, w1_stack, s1,
     return out
 
 
+def _check_cache(fn, q, k, v, k_scale, v_scale, shape, sshape, dev):
+    """Check a bf16 cache pair, or an int8 one with its fp32 scales, and
+    the query for the attention kernel; returns whether it is int8."""
+    B, H, R, D = q.shape
+    q8 = k_scale is not None
+    if (v_scale is not None) != q8:
+        raise ValueError(f"{fn}: pass both k_scale and v_scale or neither")
+    _check(fn, "q", q, torch.bfloat16, (B, H, R, D), dev)
+    for name, t in (("k", k), ("v", v)):
+        _check(fn, name, t, torch.int8 if q8 else torch.bfloat16, shape, dev)
+    if q8:
+        _check(fn, "k_scale", k_scale, torch.float32, sshape, dev)
+        _check(fn, "v_scale", v_scale, torch.float32, sshape, dev)
+    if D not in (INT8_HEAD_DIMS if q8 else ATTN_HEAD_DIMS):
+        raise NotImplementedError(
+            f"{fn}: the CUDA kernel takes head dim "
+            f"{INT8_HEAD_DIMS if q8 else ATTN_HEAD_DIMS} for a "
+            f"{'int8' if q8 else 'bf16'} cache, got {D} "
+            f"({ROADMAP_DECODE_VARIANTS})")
+    if not 1 <= R <= MAX_ROWS:
+        raise ValueError(f"{fn}: needs 1 <= R <= {MAX_ROWS}, got R={R}")
+    return q8
+
+
 def decode_attention_paged(q, k_pool, v_pool, pos, page_table, layer,
                            k_scale=None, v_scale=None, scale=None,
                            rows_per_step=None):
     """S=1 attention through a paged pool; see
-    decode_attention_paged_plain. On CUDA: head dim 64 or 128, R <= 8
-    query rows per KV head (GQA or multi-query). ``k_scale``/``v_scale``
-    (the int8 pool) are not ported."""
+    decode_attention_paged_plain. On CUDA: R <= 8 query rows per KV head
+    (GQA or multi-query), head dim 64 or 128 over a bf16 pool, 128 over an
+    int8 pool (``k_scale``/``v_scale`` [Lyr, NB, H, 1, page] fp32)."""
     fn = "decode_attention_paged"
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(f"{fn}: the int8 pool ({ROADMAP_INT8})")
     B, H, R, D = q.shape
     if rows_per_step is not None and R % rows_per_step:
         raise ValueError(f"{fn}: R={R} is not a multiple of "
@@ -419,32 +529,145 @@ def decode_attention_paged(q, k_pool, v_pool, pos, page_table, layer,
     if q.device.type == "cpu":
         return decode_attention_paged_plain(q, k_pool, v_pool, pos,
                                             page_table, layer, scale,
-                                            rows_per_step)
+                                            rows_per_step, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
     dev = q.device
-    Lyr, NB, Hp, page, Dp = k_pool.shape
+    Lyr, NB, _, page, _ = k_pool.shape
     maxp = page_table.shape[1]
-    _check(fn, "q", q, torch.bfloat16, (B, H, R, D), dev)
-    _check(fn, "k_pool", k_pool, torch.bfloat16, (Lyr, NB, H, page, D), dev)
-    _check(fn, "v_pool", v_pool, torch.bfloat16, (Lyr, NB, H, page, D), dev)
+    _check_cache(fn, q, k_pool, v_pool, k_scale, v_scale,
+                 (Lyr, NB, H, page, D), (Lyr, NB, H, 1, page), dev)
     _check(fn, "pos", pos, torch.int32, (B,), dev)
     _check(fn, "page_table", page_table, torch.int32, (B, maxp), dev)
-    if D not in ATTN_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{fn}: the CUDA kernel takes head dim 64 or 128, got {D} "
-            f"({ROADMAP_DECODE_VARIANTS})")
-    if not 1 <= R <= MAX_ROWS or page % PAGE_MULTIPLE:
-        raise ValueError(f"{fn}: needs 1 <= R <= {MAX_ROWS} and page a "
-                         f"multiple of {PAGE_MULTIPLE}, got R={R} "
-                         f"page={page}")
+    if page % PAGE_MULTIPLE:
+        raise ValueError(f"{fn}: page must be a multiple of "
+                         f"{PAGE_MULTIPLE}, got {page}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    lp = _layer_ptr(fn, layer, dev)
+    lp = _scalar_ptr(fn, layer, dev)
     lib = builder.kernels()
     out = torch.empty_like(q)
-    lib.call("dstpu_decode_attention_paged", q.data_ptr(),
-             k_pool.data_ptr(), v_pool.data_ptr(), pos.data_ptr(),
+    lib.call("dstpu_decode_attention", q.data_ptr(), k_pool.data_ptr(),
+             v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), pos.data_ptr(),
              page_table.data_ptr(), lp, out.data_ptr(), B, H, R, D, NB,
-             page, maxp, int(rows_per_step or 0), scale, _stream(dev))
+             page, maxp, int(rows_per_step or 0), 1, scale, _stream(dev))
+    builder.launches[fn] += 1
+    return out
+
+
+def decode_attention_stacked(q, k_stack, v_stack, pos, layer, k_scale=None,
+                             v_scale=None, scale=None):
+    """S=1 attention over a contiguous layer-stacked cache [Lyr, B, H, L,
+    D] at one position for every row; see decode_attention_stacked_plain.
+    On CUDA: ``pos`` and ``layer`` are one-element int32 tensors on the
+    card (the decode loop never syncs to the host), R <= 8, L a multiple
+    of 16, head dim 64 or 128 over a bf16 cache, 128 over an int8 one.
+    The paged kernel's body runs it with slot b's keys as one page of L
+    rows in block b."""
+    fn = "decode_attention_stacked"
+    if q.device.type == "cpu":
+        return decode_attention_stacked_plain(q, k_stack, v_stack, pos,
+                                              layer, k_scale, v_scale, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {q.device}")
+    dev = q.device
+    B, H, R, D = q.shape
+    Lyr, _, _, L, _ = k_stack.shape
+    _check_cache(fn, q, k_stack, v_stack, k_scale, v_scale,
+                 (Lyr, B, H, L, D), (Lyr, B, H, 1, L), dev)
+    if L % PAGE_MULTIPLE:
+        raise ValueError(f"{fn}: the cache length must be a multiple of "
+                         f"{PAGE_MULTIPLE}, got {L}")
+    pp = _scalar_ptr(fn, pos, dev, "pos")
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    lp = _scalar_ptr(fn, layer, dev)
+    lib = builder.kernels()
+    out = torch.empty_like(q)
+    lib.call("dstpu_decode_attention", q.data_ptr(), k_stack.data_ptr(),
+             v_stack.data_ptr(), _ptr(k_scale), _ptr(v_scale), pp, None, lp,
+             out.data_ptr(), B, H, R, D, B, L, 1, 0, 0, scale, _stream(dev))
+    builder.launches[fn] += 1
+    return out
+
+
+def _rows_view(fn, t, B, H, D, dev):
+    """The batch stride of a [B, H, D] bf16 row tensor whose heads and dims
+    are contiguous (a column slice of the packed qkv output is)."""
+    if t.device != dev or t.dtype != torch.bfloat16 \
+            or tuple(t.shape) != (B, H, D) or t.stride()[1:] != (D, 1) \
+            or t.data_ptr() % 16 or t.stride(0) % 8:
+        raise ValueError(f"{fn}: new rows must be bf16 [{B}, {H}, {D}] on "
+                         f"{dev} with contiguous heads, 16-byte aligned")
+    return t.stride(0)
+
+
+def kv_quant_int8(k, v, out=None, layer=None, blocks=None, rows=None):
+    """int8 codes and fp32 scales of the new K/V rows k, v [B, H, D]; see
+    kv_quant_int8_plain.
+
+    With ``out=None`` returns (k codes, k scale [B, H, 1], v codes, v
+    scale), the JAX function's signature. With ``out = (k codes, k scale,
+    v codes, v scale)`` of a cache, writes them in place at layer
+    ``layer`` and returns ``out``:
+
+    - the paged pool ([Lyr, NB, H, page, D] codes, [Lyr, NB, H, 1, page]
+      scales): slot b's row goes to block ``blocks[b]``, row ``rows[b]``;
+    - the layer-stacked cache ([Lyr, B, H, L, D], [Lyr, B, H, 1, L]):
+      ``blocks=None``, and ``rows`` is the one position of every slot.
+
+    On CUDA ``layer``, ``blocks`` and ``rows`` are int32 tensors on the
+    card (``layer`` and a stacked ``rows`` of one element)."""
+    fn = "kv_quant_int8"
+    if k.device.type == "cpu":
+        codes = kv_quant_int8_plain(k, v)
+        if out is None:
+            return codes
+        l = int(layer)
+        b = torch.arange(k.shape[0]) if blocks is None else blocks.long()
+        r = rows.long().reshape(-1).expand(k.shape[0])
+        kq, ksc, vq, vsc = codes
+        for dst, val in zip(out, (kq, ksc[..., 0], vq, vsc[..., 0])):
+            if val.dim() == 3:
+                dst[l][b, :, r] = val
+            else:
+                dst[l][b, :, 0, r] = val
+        return out
+    if k.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {k.device}")
+    dev = k.device
+    B, H, D = k.shape
+    if D not in ATTN_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{fn}: the CUDA kernel takes head dim {ATTN_HEAD_DIMS}, got {D} "
+            f"({ROADMAP_DECODE_VARIANTS})")
+    k_stride = _rows_view(fn, k, B, H, D, dev)
+    v_stride = _rows_view(fn, v, B, H, D, dev)
+    if out is None:
+        out = (torch.empty((B, H, D), dtype=torch.int8, device=dev),
+               torch.empty((B, H, 1), dtype=torch.float32, device=dev),
+               torch.empty((B, H, D), dtype=torch.int8, device=dev),
+               torch.empty((B, H, 1), dtype=torch.float32, device=dev))
+        NB, L, lp, bp, rp, r_stride = B, 1, None, None, None, 0
+    else:
+        Lyr, NB, _, L, _ = out[0].shape
+        for name, t, dt, shp in (
+                ("k codes", out[0], torch.int8, (Lyr, NB, H, L, D)),
+                ("k scale", out[1], torch.float32, (Lyr, NB, H, 1, L)),
+                ("v codes", out[2], torch.int8, (Lyr, NB, H, L, D)),
+                ("v scale", out[3], torch.float32, (Lyr, NB, H, 1, L))):
+            _check(fn, name, t, dt, shp, dev)
+        lp = _scalar_ptr(fn, layer, dev)
+        if blocks is None:
+            if NB != B:
+                raise ValueError(f"{fn}: a stacked cache holds {NB} slots, "
+                                 f"the rows {B}")
+            rp, r_stride, bp = _scalar_ptr(fn, rows, dev, "rows"), 0, None
+        else:
+            _check(fn, "blocks", blocks, torch.int32, (B,), dev)
+            _check(fn, "rows", rows, torch.int32, (B,), dev)
+            rp, r_stride, bp = rows.data_ptr(), 1, blocks.data_ptr()
+    builder.kernels().call(
+        "dstpu_kv_quant_int8", k.data_ptr(), v.data_ptr(), out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(), lp, bp, rp,
+        B, H, D, k_stride, v_stride, NB, L, r_stride, _stream(dev))
     builder.launches[fn] += 1
     return out

@@ -24,6 +24,11 @@ LLaMA takes the packed serving weights (``models.llama_inference``)::
                                   init_serving_params(cfg, seed=0),
                                   config={"serving": {...}})
 
+LLaMA also serves int8: ``"quantize_bits": 8`` quantizes the weights to
+int8 codes with per-layer scales when the engine is built (an int8 tree
+is taken as it is) and ``"kv_cache_bits": 8`` holds the pool as int8
+codes with per-row scales. GPT-2 raises on either, naming ROADMAP.
+
 ``device=None`` means CUDA, and raises when there is no card; pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels.
 """
@@ -90,6 +95,9 @@ def build_engine(family: str, model_config, params, config=None,
             "the config's serving block sets enabled: false — drop the "
             "block (or flip the flag) to build a serving engine from it")
     spec = cache_spec_from_config(model_config, family, pd, **overrides)
+    qb = overrides.get("quantize_bits",
+                       ServingConfig({"serving": pd.get("serving") or {}})
+                       .quantize_bits)
     if family == "gpt2":
         if gpt2_inference.is_jax_tree(params):
             params = gpt2_inference.from_jax_params(params, model_config,
@@ -97,7 +105,7 @@ def build_engine(family: str, model_config, params, config=None,
         else:
             params = gpt2_inference.as_serving_params(params, model_config,
                                                       dev)
-        adapter = GPT2ServingAdapter(model_config, params, spec, dev)
+        adapter = GPT2ServingAdapter(model_config, params, spec, dev, qb)
     else:
         if llama_inference.is_jax_tree(params):
             params = llama_inference.from_jax_serving_params(
@@ -105,7 +113,7 @@ def build_engine(family: str, model_config, params, config=None,
         else:
             params = llama_inference.as_serving_params(params, model_config,
                                                        dev)
-        adapter = LlamaServingAdapter(model_config, params, spec, dev)
+        adapter = LlamaServingAdapter(model_config, params, spec, dev, qb)
     return ContinuousBatcher(adapter, registry=registry)
 
 

@@ -1,15 +1,18 @@
 """GPT-2 and LLaMA adapters for the continuous-batching serving engine.
 
-Port of ``deepspeed_tpu/serving/adapters.py`` (fp pool, bf16/fp32
-weights; LLaMA's prefix sharing, ``verify`` and ``prefill_suffix`` are
-not ported). Two kinds of device work per engine:
+Port of ``deepspeed_tpu/serving/adapters.py`` (GPT-2: the fp pool and
+bf16/fp32 weights; LLaMA: also int8 weight codes and the int8 pool;
+LLaMA's prefix sharing, ``verify`` and ``prefill_suffix`` are not
+ported). Two kinds of device work per engine:
 
 - ``tick``: decode steps over the whole slot set — per-slot positions,
   paged-attention reads through the page table, idle slots masked by
   ``pos[b] < 0``. Each layer runs the decode kernels
   (``ln_qkv_stacked``, ``decode_attention_paged``, ``out_ffn_stacked``,
-  and for a large LLaMA ``matvec_stacked``); the new K/V rows are appended into the pool in place (row
-  ``pos[b] % page`` of block ``page_table[b, pos[b] // page]``).
+  and for a large LLaMA ``matvec_stacked``); the new K/V rows are
+  appended into the pool in place (row ``pos[b] % page`` of block
+  ``page_table[b, pos[b] // page]``), into an int8 pool by
+  ``kv_quant_int8``.
 - ``prefill``: one request's prompt pass at a pow2-bucketed padded
   length through the flash kernel, writing K/V (pad rows included)
   straight into the slot's pages and returning last-position logits.
@@ -25,27 +28,36 @@ import math
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.config.config import ROADMAP_INT8
 from deepspeed_tpu_torch.models import llama_inference
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config
 from deepspeed_tpu_torch.models.gpt2_inference import (block_forward,
                                                        layer_norm)
 from deepspeed_tpu_torch.models.llama import (LlamaConfig, rms_norm,
-                                              rope_angles)
+                                              rope_angles, rope_rows,
+                                              rope_tables)
 from deepspeed_tpu_torch.ops.attention import dot_product_attention
 from deepspeed_tpu_torch.ops.cuda.decode import (decode_attention_paged,
+                                                 kv_quant_int8,
                                                  ln_qkv_stacked,
                                                  matvec_stacked,
-                                                 out_ffn_stacked)
+                                                 out_ffn_stacked,
+                                                 quantize_rows)
 from deepspeed_tpu_torch.serving.paged_cache import (PagedCacheSpec,
                                                      PagedKVCache)
 
 
 # ----------------------------------------------------------- pool writes
 
-def _append_rows(pool, l, blk_ids, rows, k3, v3):
-    """Write one new K/V row per slot ([B, H, D]) into layer ``l`` of the
-    pool at (block blk_ids[b], row rows[b]), in place. Idle slots arrive
-    pointed at the trash block, so the write is always legal."""
+def _append_rows(pool, l, lid, blk_ids, rows, k3, v3):
+    """Write one new K/V row per slot ([B, H, D]) into layer ``l`` (device
+    index ``lid``) of the pool at (block blk_ids[b], row rows[b]), in
+    place; into an int8 pool as kv_quant_int8's codes and scales. Idle
+    slots arrive pointed at the trash block, so the write is always
+    legal."""
+    if len(pool) == 4:
+        kv_quant_int8(k3, v3, out=pool, layer=lid, blocks=blk_ids, rows=rows)
+        return
     kc, vc = pool
     kc[l][blk_ids, :, rows] = k3.to(kc.dtype)
     vc[l][blk_ids, :, rows] = v3.to(vc.dtype)
@@ -53,28 +65,38 @@ def _append_rows(pool, l, blk_ids, rows, k3, v3):
 
 def _write_prompt_pages(pool, l, k, v, pages, page):
     """Blockify one layer's prompt K/V ([H, Sp, D], Sp = len(pages)*page)
-    and write the blocks into the pool at ``pages``, in place. Page-table
-    tails past the slot's allocation arrive as the trash block; duplicate
-    trash writes are harmless by construction."""
+    and write the blocks into the pool at ``pages``, in place; into an
+    int8 pool as per-(head, position) codes and scales
+    (``_quant_prompt_rows``). Page-table tails past the slot's allocation
+    arrive as the trash block; duplicate trash writes are harmless by
+    construction."""
     H, Sp, D = k.shape
     npg = pages.shape[0]
     assert npg * page == Sp, (Sp, npg, page)
-    kc, vc = pool
 
-    def to_blocks(t):                       # → [npg, H, page, D]
-        return t.reshape(H, npg, page, D).transpose(0, 1)
+    def to_blocks(t):                       # → [npg, H, page, X]
+        return t.reshape(H, npg, page, -1).transpose(0, 1)
+    if len(pool) == 4:
+        for t, codes, scales in ((k, pool[0], pool[1]),
+                                 (v, pool[2], pool[3])):
+            c, sc = quantize_rows(t)
+            codes[l][pages] = to_blocks(c)
+            scales[l][pages] = to_blocks(sc).transpose(2, 3)
+        return
+    kc, vc = pool
     kc[l][pages] = to_blocks(k).to(kc.dtype)
     vc[l][pages] = to_blocks(v).to(vc.dtype)
 
 
 def _gather_blocks(pt, pos, page):
-    """(block ids, row offsets) for appending each slot's next row. Idle
-    slots (pos < 0) resolve inside their all-trash table rows."""
+    """(block ids, row offsets) [B] int32 for appending each slot's next
+    row. Idle slots (pos < 0) resolve inside their all-trash table
+    rows."""
     maxp = pt.shape[1]
     idx = torch.clamp(torch.div(pos, page, rounding_mode="floor"),
                       0, maxp - 1).long()
-    blk_ids = pt.gather(1, idx[:, None])[:, 0].long()
-    rows = torch.remainder(pos, page).long()
+    blk_ids = pt.gather(1, idx[:, None])[:, 0].int()
+    rows = torch.remainder(pos, page).int()
     return blk_ids, rows
 
 
@@ -141,7 +163,14 @@ class GPT2ServingAdapter(_PagedAdapter):
     ``models/gpt2_inference.as_serving_params``)."""
 
     def __init__(self, cfg: GPT2Config, params, spec: PagedCacheSpec,
-                 device):
+                 device, quantize_bits=0):
+        for key, bits, what in (
+                ("kv_cache_bits", spec.kv_cache_bits, "the int8 KV pool"),
+                ("quantize_bits", quantize_bits, "int8 weight codes")):
+            if bits == 8:
+                raise NotImplementedError(
+                    f"serving.{key}: 8 ({what}) is not ported for GPT-2 "
+                    f"({ROADMAP_INT8})")
         if not cfg.tie_word_embeddings or cfg.n_embd % cfg.n_head:
             raise ValueError("paged GPT-2 serving needs the tied-embedding "
                              "LM head and n_embd a multiple of n_head")
@@ -182,7 +211,7 @@ class GPT2ServingAdapter(_PagedAdapter):
                 qh = qkv[:, :E].reshape(B, H, 1, D).contiguous()
                 k3 = qkv[:, E:2 * E].reshape(B, H, D)
                 v3 = qkv[:, 2 * E:].reshape(B, H, D)
-                _append_rows(pool, l, blk_ids, rows, k3, v3)
+                _append_rows(pool, l, lid, blk_ids, rows, k3, v3)
                 ctx = decode_attention_paged(qh, kc, vc, pos, pt, lid,
                                              scale=1.0 / math.sqrt(D))
                 x = out_ffn_stacked(
@@ -220,42 +249,23 @@ class GPT2ServingAdapter(_PagedAdapter):
 
 # ------------------------------------------------------------------ LLaMA
 
-# the o-projection's branch (serving/adapters.py:806): a [E, E] weight of
-# at most this many bytes fuses into out_ffn_stacked; a larger one runs as
-# matvec_stacked + a residual add + out_ffn_stacked(fuse_proj=False)
-FUSED_PROJ_MAX_BYTES = 6 << 20
-
-
-def _rope_tables(pos, D, theta, dtype):
-    """RoPE tables [B, 1, D] in ``dtype`` at per-slot positions ``pos``
-    [B], made once a decode step for every layer: (cos | cos) and
-    (-sin | sin) of the angles of ``serving/adapters.py:692``
-    ``_rope_rows``, cast to the rows' dtype as JAX casts them."""
-    inv = 1.0 / (theta ** (torch.arange(0, D, 2, dtype=torch.float32,
-                                        device=pos.device) / D))
-    ang = pos.float()[:, None, None] * inv                # [B, 1, D//2]
-    cos, sin = torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
-    return torch.cat([cos, cos], -1), torch.cat([-sin, sin], -1)
-
-
-def _rope_rows(x, cos2, sin2):
-    """RoPE on [B, Hx, D] rows (split halves x1 | x2) with
-    ``_rope_tables``: x * (cos | cos) + (x2 | x1) * (-sin | sin) rounds
-    where JAX's (x1*cos - x2*sin | x2*cos + x1*sin) does, bit for bit."""
-    half = x.shape[-1] // 2
-    return x * cos2 + torch.cat([x[..., half:], x[..., :half]], -1) * sin2
 
 
 class LlamaServingAdapter(_PagedAdapter):
     """Paged serving over the port's packed LLaMA weights (see
-    ``models/llama_inference``). GQA: the pool holds Hkv heads and the
-    paged attention kernel takes rep = H/Hkv query rows per KV head."""
+    ``models/llama_inference``): bf16/fp32 or int8 codes, a bf16/fp32 or
+    (``kv_cache_bits=8``) int8 pool. GQA: the pool holds Hkv heads and the
+    paged attention kernel takes rep = H/Hkv query rows per KV head.
+    ``quantize_bits=8`` quantizes fp weights when the adapter is built
+    (``serving/adapters.py:715-719``)."""
 
     def __init__(self, cfg: LlamaConfig, params, spec: PagedCacheSpec,
-                 device):
+                 device, quantize_bits=0):
         if cfg.n_heads % cfg.kv_heads:
             raise ValueError(f"{cfg.n_heads} heads are not a multiple of "
                              f"{cfg.kv_heads} KV heads")
+        if quantize_bits == 8 and not llama_inference.is_int8(params):
+            params = llama_inference.quantize_serving_params(params)
         super().__init__(cfg, params, spec, device, cfg.n_layers,
                          cfg.kv_heads)
         self._w = {name: llama_inference._weights(params, name, cfg.n_layers)
@@ -266,9 +276,7 @@ class LlamaServingAdapter(_PagedAdapter):
 
     def fused_proj(self):
         """True when the o-projection fuses into out_ffn_stacked."""
-        Wo = self.p["o_w"]
-        E = self.cfg.hidden_size
-        return E * E * Wo.element_size() <= FUSED_PROJ_MAX_BYTES
+        return llama_inference.fused_proj(self.cfg, self.p["o_w"])
 
     def tick(self, pool, toks, pos, pt, seeds, idxs, temps, steps=1):
         """Run ``steps`` decode steps; see GPT2ServingAdapter.tick."""
@@ -283,24 +291,27 @@ class LlamaServingAdapter(_PagedAdapter):
         pos = self._as(pos, torch.int32)
         pt = self._as(pt, torch.int32)
         idxs = np.asarray(idxs)
-        kc, vc = pool
+        kc, vc = pool[0], pool[len(pool) // 2]        # (k, [ks,] v, [vs])
+        scales = {"k_scale": pool[1], "v_scale": pool[3]} \
+            if len(pool) == 4 else {}
         B = toks.shape[0]
         out, logits32 = [], None
         for t in range(steps):
             x = p["embed"][toks]
             blk_ids, rows = _gather_blocks(pt, pos, self.spec.page_size)
-            cos, sin = _rope_tables(pos, D, cfg.rope_theta, x.dtype)
+            cos, sin = rope_tables(pos, D, cfg.rope_theta, x.dtype)
             for l in range(cfg.n_layers):
                 lid = self._layer_ids[l]
                 qkv = ln_qkv_stacked(x, p["norm1"], None, Wq, sq, None, lid,
                                      eps=eps, norm="rms")
-                qk = _rope_rows(qkv[:, :(H + Hkv) * D].reshape(B, H + Hkv, D),
-                                cos, sin)
+                qk = rope_rows(qkv[:, :(H + Hkv) * D].reshape(B, H + Hkv, D),
+                               cos, sin)
                 v3 = qkv[:, (H + Hkv) * D:].reshape(B, Hkv, D)
-                _append_rows(pool, l, blk_ids, rows, qk[:, H:], v3)
+                _append_rows(pool, l, lid, blk_ids, rows, qk[:, H:], v3)
                 ctx = decode_attention_paged(
                     qk[:, :H].reshape(B, Hkv, rep, D).contiguous(), kc, vc,
-                    pos, pt, lid, scale=1.0 / math.sqrt(D)).reshape(B, H * D)
+                    pos, pt, lid, scale=1.0 / math.sqrt(D),
+                    **scales).reshape(B, H * D)
                 if fused:
                     x = out_ffn_stacked(
                         ctx, x, Wo, so, None, p["norm2"], None, Wg, sg, None,
@@ -321,8 +332,9 @@ class LlamaServingAdapter(_PagedAdapter):
 
     def prefill(self, pool, ids, length, pages):
         """Prompt pass over ids [1, Sp]; see GPT2ServingAdapter.prefill.
-        The projections and the LM head are plain products (JAX leaves
-        them to XLA); attention is the flash kernel, GQA K/V unrepeated."""
+        The projections and the LM head are plain products on each
+        layer's dequantized weights (JAX leaves them to XLA); attention is
+        the flash kernel, GQA K/V unrepeated."""
         cfg, p = self.cfg, self.p
         ids = self._as(ids, torch.long)
         pages = self._as(pages, torch.long)
@@ -331,8 +343,9 @@ class LlamaServingAdapter(_PagedAdapter):
                                cfg.head_dim, cfg.rope_theta)
         x = p["embed"][ids]
         for l in range(cfg.n_layers):
-            x, k, v = llama_inference.block_forward(p, cfg, l, x, cos, sin,
-                                                    dot_product_attention)
+            x, k, v = llama_inference.block_forward(
+                llama_inference.layer_weights(p, l), cfg, x, cos, sin,
+                dot_product_attention)
             _write_prompt_pages(pool, l, k[0], v[0], pages,
                                 self.spec.page_size)
         u = rms_norm(x[0, int(length) - 1], p["norm_scale"], cfg.rms_eps)

@@ -5,7 +5,10 @@ Port of ``deepspeed_tpu/serving/paged_cache.py:47,69,537,548``
 
 - device side: a pair of ``[Lyr, num_blocks, H, page_size, D]`` K/V
   tensors on the engine's device, updated IN PLACE by prefill and tick —
-  the port's counterpart of the JAX engine's donated pool;
+  the port's counterpart of the JAX engine's donated pool. With
+  ``kv_cache_bits=8`` the pool is ``(k codes, k scale, v codes, v
+  scale)``: int8 ``[Lyr, NB, H, page, D]`` codes and fp32 ``[Lyr, NB, H,
+  1, page]`` per-row scales (the JAX pool, paged_cache.py:84-96);
 - host side: a LIFO free list of block ids and per-slot page tables
   ``[slots, max_pages_per_slot]`` int32. A request's pages are allocated
   on admission (prompt + max_new_tokens) and freed when it finishes.
@@ -34,7 +37,7 @@ class PagedCacheSpec:
     num_blocks: int = 0          # 0 → slots * max_pages_per_slot + 1
     max_pages_per_slot: int = 16
     slots: int = 8
-    kv_cache_bits: int = 0       # 0 = dtype storage (8 is not ported)
+    kv_cache_bits: int = 0       # 0 = dtype storage, 8 = int8 codes
     dtype: Any = torch.bfloat16
 
     def resolved_num_blocks(self) -> int:
@@ -48,19 +51,27 @@ class PagedCacheSpec:
 
 class PagedKVCache:
     """Device block pool + host page allocator for one model's caches.
-    ``pool`` is the ``(k, v)`` pair of device tensors."""
+    ``pool`` is the ``(k, v)`` pair of device tensors, or ``(k codes, k
+    scale, v codes, v scale)`` for an int8 pool."""
 
     def __init__(self, spec: PagedCacheSpec, device):
-        if spec.kv_cache_bits != 0:
-            raise NotImplementedError(
-                "kv_cache_bits 8 (the int8 paged pool) is not ported")
+        if spec.kv_cache_bits not in (0, 8):
+            raise ValueError(f"kv_cache_bits must be 0 or 8, got "
+                             f"{spec.kv_cache_bits}")
         self.spec = spec
         nb = spec.resolved_num_blocks()
         assert nb >= 2, "need at least one allocatable block past trash"
         shape = (spec.n_layers, nb, spec.kv_heads, spec.page_size,
                  spec.head_dim)
-        self.pool = (torch.zeros(shape, dtype=spec.dtype, device=device),
-                     torch.zeros(shape, dtype=spec.dtype, device=device))
+        if spec.kv_cache_bits == 8:
+            sshape = shape[:3] + (1, spec.page_size)
+            self.pool = tuple(
+                torch.zeros(s, dtype=dt, device=device)
+                for s, dt in ((shape, torch.int8), (sshape, torch.float32),
+                              (shape, torch.int8), (sshape, torch.float32)))
+        else:
+            self.pool = (torch.zeros(shape, dtype=spec.dtype, device=device),
+                         torch.zeros(shape, dtype=spec.dtype, device=device))
         self.num_blocks = nb
         # LIFO free list: recently-freed blocks are re-used first, which
         # is what the slot-reuse tests lean on to catch stale reads

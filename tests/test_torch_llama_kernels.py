@@ -7,7 +7,7 @@ variants: RMSNorm and bias-free projections, SwiGLU with both
 ``fuse_proj`` values, ``matvec_stacked``, head dim 128 with GQA query
 rows. The CUDA kernels are held against the plain versions on the card
 (``gpu`` marker). The matvec launches' shared-memory reckoning is checked
-at GPT-2 large, LLaMA-7B and LLaMA-3-8B widths.
+at GPT-2 large, LLaMA-7B (bf16 and int8 codes) and LLaMA-3-8B widths.
 """
 
 import importlib
@@ -163,6 +163,12 @@ SMEM = {
         ("o_proj", 4096, 4096, "copy", False): (34816, 69632),
         ("gate/up", 4096, 11008, "rms_bf16", True): (165888, 315392),
         ("down", 11008, 4096, "copy", False): (62464, 124928)},
+    # int8 codes: a 128-column tile (csrc/decode.cu WGeom<int8_t>)
+    "llama_7b_int8": {
+        ("ln_qkv", 4096, 12288, "rms_bf16", False): (143360, 278528),
+        ("o_proj", 4096, 4096, "copy", False): (45056, 90112),
+        ("gate/up", 4096, 11008, "rms_bf16", True): (184320, 352256),
+        ("down", 11008, 4096, "copy", False): (58880, 117760)},
     "llama3_8b": {
         ("ln_qkv", 4096, 6144, "rms_bf16", False): (124928, 241664),
         ("o_proj", 4096, 4096, "copy", False): (34816, 69632),
@@ -174,21 +180,22 @@ SMEM = {
 @pytest.mark.parametrize("model", sorted(SMEM))
 @pytest.mark.parametrize("slots", [8, 16])
 def test_matvec_smem_follows_each_launch(model, slots):
-    """Each launch is reckoned with its own K split and the rows it
-    stages, and exactly the launches over 227 KiB are refused."""
+    """Each launch is reckoned with its own K split, its column tile and
+    the rows it stages, and exactly the launches over 227 KiB are
+    refused."""
     i = 0 if slots == 8 else 1
+    wbytes = 1 if model.endswith("int8") else 2
     for (what, K, N, prologue, pair), want in SMEM[model].items():
-        got = matvec_smem(slots, K, N, prologue, pair)
+        got = matvec_smem(slots, K, N, prologue, pair, wbytes)
         assert got == want[i], (what, got, want[i])
+        launch = [(what, K, N, prologue, pair)]
         if got > decode.MAX_SMEM:
             with pytest.raises(ValueError, match="shared memory"):
-                decode._check_launches("t", slots, [(what, K, N, prologue,
-                                                     pair)])
+                decode._check_launches("t", slots, launch, wbytes)
         else:
-            decode._check_launches("t", slots, [(what, K, N, prologue,
-                                                 pair)])
-    # LLaMA serves 8 slots; at 16 its RMS-prologue launches do not fit,
-    # GPT-2 large's all do
+            decode._check_launches("t", slots, launch, wbytes)
+    # LLaMA serves 8 slots, bf16 or int8; at 16 its RMS-prologue launches
+    # do not fit, GPT-2 large's all do
     over = [k[0] for k, v in SMEM[model].items() if v[i] > decode.MAX_SMEM]
     assert over == ([] if slots == 8 or model == "gpt2_large"
                     else ["ln_qkv", "gate/up"])

@@ -17,8 +17,8 @@ import torch
 import deepspeed_tpu.serving as jserving
 import deepspeed_tpu_torch.serving as serving
 from deepspeed_tpu_torch.models import llama_inference
-from deepspeed_tpu_torch.models.llama import LlamaConfig
-from deepspeed_tpu_torch.serving import adapters
+from deepspeed_tpu_torch.models.llama import (LlamaConfig, rope_rows,
+                                              rope_tables)
 from deepspeed_tpu_torch.serving.paged_cache import padded_prefill_inputs
 from torch_port_common import assert_close, t32
 
@@ -64,7 +64,8 @@ def _port_engine(cfg, params):
 
 def test_llama_weight_bridge(jax_run):
     """The training tree and the packed tree carry across to the same
-    tensors; the port's packing equals JAX's; an int8 tree raises."""
+    tensors; the port's packing equals JAX's; an int8 tree carries across
+    as int8 codes and scales, never dequantized."""
     from deepspeed_tpu.models.llama_inference import \
         quantize_llama_serving_params
     jcfg, cfg, params, packed, *_ = jax_run
@@ -80,7 +81,13 @@ def test_llama_weight_bridge(jax_run):
         params["layers"]["blk"]["attn"]["k_proj"]["kernel"][1])
     q8 = jax.tree_util.tree_map(np.asarray,
                                 quantize_llama_serving_params(packed))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    c = llama_inference.from_jax_serving_params(q8, cfg, "cpu")
+    assert c["qkv_w"].dtype == torch.int8 and torch.equal(
+        c["qkv_w"], torch.tensor(q8["blk"]["qkv_w"]["kernel_q"]))
+    assert torch.equal(c["o_w_scale"],
+                       torch.tensor(q8["blk"]["o_w"]["kernel_scale"]))
+    q8["blk"]["up_w"] = packed["blk"]["up_w"]        # a mixed tree
+    with pytest.raises(ValueError, match="all five"):
         llama_inference.from_jax_serving_params(q8, cfg, "cpu")
 
 
@@ -106,7 +113,7 @@ def test_llama_greedy_tokens_match_jax_engine(jax_run, monkeypatch,
     at this width, where JAX takes the fused one."""
     _, cfg, _, packed, jeng, prompts, jres = jax_run
     if branch == "matvec":
-        monkeypatch.setattr(adapters, "FUSED_PROJ_MAX_BYTES", 0)
+        monkeypatch.setattr(llama_inference, "FUSED_PROJ_MAX_BYTES", 0)
     eng = _port_engine(cfg, packed)
     assert eng.adapter.fused_proj() == (branch == "fused")
     res = eng.serve([serving.Request(i, p, max_new_tokens=n)
@@ -155,7 +162,7 @@ def test_rope_rows_match_jax():
     rs = np.random.RandomState(5)
     x = rs.randn(5, 6, 128).astype(np.float32)
     pos = np.array([0, 7, 300, 1999, -1], np.int32)
-    got = adapters._rope_rows(t32(x), *adapters._rope_tables(
+    got = rope_rows(t32(x), *rope_tables(
         torch.from_numpy(pos), 128, 10000.0, torch.float32))
     assert_close(got, np.asarray(jrope(jnp.asarray(x), jnp.asarray(pos),
                                        10000.0)))
@@ -165,5 +172,5 @@ def test_rope_rows_match_jax():
     c, s = torch.cos(ang).to(xb.dtype), torch.sin(ang).to(xb.dtype)
     x1, x2 = xb[..., :64], xb[..., 64:]
     want = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1)
-    assert torch.equal(adapters._rope_rows(xb, *adapters._rope_tables(
+    assert torch.equal(rope_rows(xb, *rope_tables(
         torch.from_numpy(pos), 128, 10000.0, torch.bfloat16)), want)

@@ -135,9 +135,13 @@ def test_serving_config_block_validation():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingConfig({"serving": {sub: {}}})
     ServingConfig({"serving": {"prefix_cache": {"enabled": False}}})
+    # int8 serving is LLaMA's: the block takes it, a GPT-2 engine raises
+    _, cfg = _cfgs()
+    params = init_params(cfg, seed=0, device="cpu")
     for bits in ("kv_cache_bits", "quantize_bits"):
+        assert getattr(ServingConfig({"serving": {bits: 8}}), bits) == 8
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingConfig({"serving": {bits: 8}})
+            _port_engine(cfg, params, **{bits: 8})
 
 
 def test_build_engine_defaults_to_cuda():
@@ -150,11 +154,11 @@ def test_build_engine_defaults_to_cuda():
         serving.build_engine("gpt2", cfg, {}, config={"serving": SERVING})
     with pytest.raises(RuntimeError, match="device=\"cpu\""):
         init_params(cfg, seed=0)
-    # LLaMA serving is ported; its int8 weight trees are not
-    from deepspeed_tpu_torch.models.llama import llama_tiny
-    int8_tree = {"blk": {"qkv_w": {"kernel_q": np.zeros(1, np.int8)}}}
+    # LLaMA int8 serving is ported; GPT-2's int8 trees are not
+    int8_tree = {"wte": np.zeros((256, 128), np.float32), "h": {"blk": {
+        "attn_qkvw": {"kernel_q": np.zeros(1, np.int8)}}}}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serving.build_engine("llama", llama_tiny(), int8_tree, device="cpu")
+        serving.build_engine("gpt2", cfg, int8_tree, device="cpu")
 
 
 # --------------------------------------------------------------- end to end
