@@ -1,6 +1,7 @@
 """Chip smoke for deepspeed_tpu_torch: GPT-2 large and LLaMA-7B paged
-serving (LLaMA in bf16 and in int8), LLaMA-7B's dense fast path and GPT-2
-large training on one NVIDIA GPU, through the hand-written CUDA kernels.
+serving (each in bf16 and in int8), GPT-2 large ``generate()`` through
+the fused inference layer, LLaMA-7B's dense fast path and GPT-2 large
+training on one NVIDIA GPU, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -30,6 +31,29 @@ Phases, one JSON line each, each with its wall ``seconds``:
                LM head read once, plus the live K/V rows the step's
                slots attend over); a teacher-forced check of every
                request against a dense forward of the plain versions;
+   gpt2_generate_init, kernel, generate_gpt2 — after the serve engine is
+               freed, GPT-2 large at bench.py's bench_decode config (vocab
+               50304, ctx 2048, random weights from seed 0, quantized to
+               int8 codes on the card): the unstacked int8 kernels
+               (ln_qkv_int8, out_ffn_int8, decode_attention_int8 over an
+               int8 cache at ctx 2048 with the scales past the position
+               NaN, kv_quant_int8 into it; matvec_int8, which no model
+               calls: path null, no launches) and the fast route's stacked
+               kernels (ln_qkv_stacked, out_ffn_stacked and
+               decode_attention_stacked over the int8 codes and cache with
+               kv_quant_int8, and over the bf16 weights and a bf16 cache),
+               each held at B 1 and 8 and timed at its route's batch; then
+               generate()'s five cases timed as bench_decode times them
+               (b1 fast route bf16 and int8/int8, b1 and b8 per-token
+               route int8/int8, b8 bf16 weights with an int8 cache),
+               exact launches per path, the last row of each batch
+               teacher-forced against the fp32 dense oracle, and the
+               positions where the fast and per-token routes part;
+   gpt2_int8_init, kernel, serve_gpt2_int8 — the serve phase again with
+               quantize_bits 8 and kv_cache_bits 8: the int8 branches of
+               ln_qkv_stacked and out_ffn_stacked and paged attention over
+               the int8 pool at head dim 64, then the 16 requests, checked
+               against the fp32 int8 oracle;
    llama_init, kernel, serve_llama — the same for LLaMA-7B (E 4096, 32
                layers, 32 heads of 128, F 11008, vocab 32000, bf16,
                random weights from seed 0, LLAMA_INIT_STD) after the
@@ -86,16 +110,22 @@ Phases, one JSON line each, each with its wall ``seconds``:
 
 Each path counts its kernels' launches from 0 just before its run: each
 serve run for the decode kernels and the prefill forward, the fast
-path's timed runs (and its bf16-cache run) for its kernels, the train run
-for the flash kernels. A kernel has a row for each path it runs on
-("serve", "serve_llama", "serve_llama_int8", "generate_llama",
+path's timed runs (and its bf16-cache run) for its kernels, each
+generate() case's timed runs, the train run for the flash kernels. A
+kernel has a row for each path it runs on ("serve", "serve_gpt2_int8",
+"generate_gpt2", "generate_gpt2_bf16", "generate_gpt2_step",
+"serve_llama", "serve_llama_int8", "generate_llama",
 "generate_llama_kv0", "train"); each row of the kernels line is timed
-and bounded at its path's shapes and carries that path's launches.
+and bounded at its path's shapes and carries that path's launches
+(matvec_int8's row: no path, 0). "generate_gpt2_kv8" (bf16 weights, an
+int8 cache, B 8) runs decode_attention_int8 alone, at the shape of its
+generate_gpt2_step row; its launches are checked exactly in its case.
 
 With ``--profile`` each serve is repeated under torch.profiler (device
 time by kernel name, the device's idle share, the torch ops' host time)
-and cProfile (the host's Python by function), one b1 fast-path run and
-three train steps under torch.profiler.
+and cProfile (the host's Python by function), one b1 run of each fast
+path (LLaMA's, GPT-2's int8) and three train steps under
+torch.profiler.
 
 It then prints the nvidia-smi line, a ``kernels`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -131,13 +161,25 @@ TF_ULPS = 3
 N_REQUESTS = 16
 # every serving path: 8 slots of up to 64 pages of 16 tokens
 SERVING = {"slots": 8, "page_size": 16, "max_pages_per_slot": 64}
-# LLaMA's int8 serving: the weights quantized when the engine is built
+# int8 serving (both families): the weights quantized when the engine is
+# built, the int8 pool
 SERVING_INT8 = {**SERVING, "quantize_bits": 8, "kv_cache_bits": 8}
 # llama_fast_generate as bench.py's bench_llama_decode runs it: ctx 2048,
 # prompts of ctx - 80 tokens, decode tokens/s from t(68 new) - t(4 new);
 # and a short bf16-cache case
 GEN_CTX, GEN_BATCHES, GEN_SHORT, GEN_LONG = 2048, (1, 8), 4, 68
 GEN_KV0 = {"batch": 8, "prompt": 240, "new": 16}
+# GPT-2 large generate() at bench.py's bench_decode cases: (name, batch,
+# quantize_bits, kv_cache_bits, scan_decode, path): the default fast route
+# (the stacked kernels) in bf16 and int8/int8, and the per-token route
+# (the fused layer's unstacked int8 kernels; with bf16 weights and an
+# int8 cache decode_attention_int8 alone)
+GPT2_GEN_CASES = (
+    ("b1_bf16_fast", 1, 0, 0, True, "generate_gpt2_bf16"),
+    ("b1_int8_fast", 1, 8, 8, True, "generate_gpt2"),
+    ("b1_int8_step", 1, 8, 8, False, "generate_gpt2_step"),
+    ("b8_int8_step", 8, 8, 8, False, "generate_gpt2_step"),
+    ("b8_bf16w_kv8_step", 8, 0, 8, False, "generate_gpt2_kv8"))
 # LLaMA-7B's random weights: N(0, std) with std * sqrt(E) = 0.02 *
 # sqrt(1280), the pre-activation scale of GPT-2 large's init. At flax's
 # std 0.02 the random model's attention scores have a std of ~1.6, and
@@ -317,7 +359,10 @@ def phase_device():
 
 def kernel_phase(eng, cfg, gen):
     """Every kernel at the main path's shapes against its plain version,
-    and a planted fault of each against the same check."""
+    and a planted fault of each against the same check. On the int8
+    engine (path serve_gpt2_int8) the int8 branches of ln_qkv_stacked and
+    out_ffn_stacked over its codes, and paged attention over its int8
+    pool at head dim 64; the flash row is the bf16 engine's."""
     from deepspeed_tpu_torch.ops.cuda import decode as dk
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import tolerance
@@ -326,7 +371,19 @@ def kernel_phase(eng, cfg, gen):
     L, E, H, D, Fd = (cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.head_dim,
                       cfg.n_inner)
     B = eng.spec.slots
-    ones, lids = ad._ones, ad._layer_ids
+    lids = ad._layer_ids
+    (Wq, sq), (Wp, sp), (W1, s1), (W2, s2) = ad._w
+    int8 = Wq.dtype == torch.int8
+    if int8 != (len(eng.cache.pool) == 4):
+        raise AssertionError("the int8 engine holds int8 weights and pool")
+    wb = Wq.element_size()
+    path = "serve_gpt2_int8" if int8 else "serve"
+    key = ({"ln_qkv": "ln_qkv_stacked[ln,int8]",
+            "out_ffn": "out_ffn_stacked[int8]",
+            "paged": "decode_attention_paged[int8,d64]"} if int8 else
+           {"ln_qkv": "ln_qkv_stacked", "out_ffn": "out_ffn_stacked",
+            "paged": "decode_attention_paged"})
+    weights = {"weights": "int8"} if int8 else {}
     eps = cfg.layer_norm_epsilon
     cyc = itertools.cycle(range(L))   # stream every layer: L2 stays cold
 
@@ -342,12 +399,12 @@ def kernel_phase(eng, cfg, gen):
 
     # -- ln_qkv_stacked: [8, 1280] . [36, 1280, 3840]
     x = rnd(B, E)
-    qkv_args = (p["ln1_w"], p["ln1_b"], p["attn_qkvw"], ones, p["attn_qkvb"])
+    qkv_args = (p["ln1_w"], p["ln1_b"], Wq, sq, p["attn_qkvb"])
     got = dk.ln_qkv_stacked(x, *qkv_args, lids[LAYER], eps=eps)
     # fault: the last 32 weight rows (one row group of K) left out
     f_args = at_layer(*qkv_args)
     f_args[2][:, -32:] = 0
-    checks = [held("ln_qkv_stacked", got,
+    checks = [held(key["ln_qkv"], got,
                    dk.ln_qkv_stacked_plain(x, *qkv_args, LAYER, eps),
                    dk.ln_qkv_stacked_plain(x, *f_args, 0, eps))]
     ms = time_graph_ms(lambda i: dk.ln_qkv_stacked(x, *qkv_args, lids[i],
@@ -357,18 +414,32 @@ def kernel_phase(eng, cfg, gen):
     plain_ms = time_ms(lambda: dk.ln_qkv_stacked_plain(
         x, *qkv_args, next(cyc), eps), reps=20, inner=1)
     N = 3 * E
-    record(results, "ln_qkv_stacked", "serve",
+    record(results, "ln_qkv_stacked", path,
            "deepspeed_tpu/ops/pallas/decode.py:496",
            checks, ms, call_ms, plain_ms,
-           bound(nbytes(x) + E * N * 2 + 2 * E * 4 + N * 4 + B * N * 2,
-                 2 * B * E * N), [{"B": B, "E": E, "N": N, "L": L}],
-           "the last 32 of the 1280 weight rows dropped")
+           bound(nbytes(x) + E * N * wb + 4 + 2 * E * 4 + N * 4 + B * N * 2,
+                 2 * B * E * N), [{"B": B, "E": E, "N": N, "L": L,
+                                   **weights}],
+           "the last 32 of the 1280 weight rows dropped", limit=key["ln_qkv"])
 
-    # -- decode_attention_paged: scattered pages, one idle slot
-    kc, vc = eng.cache.pool
-    for t in (kc, vc):
-        t.copy_(torch.randn(t.shape, generator=gen, device=dev,
-                            dtype=torch.float32).to(t.dtype) * 0.5)
+    # -- decode_attention_paged: scattered pages, one idle slot; the
+    # pool refilled at random (int8: codes and per-row scales)
+    pool = eng.cache.pool
+    for t in pool:
+        for layer in t:
+            if t.dtype == torch.int8:
+                layer.copy_(torch.randint(-128, 128, layer.shape,
+                                          generator=gen, device=dev,
+                                          dtype=torch.int8))
+            elif int8:
+                layer.copy_(torch.rand(layer.shape, generator=gen,
+                                       device=dev) * 0.01 + 0.002)
+            else:
+                layer.copy_(torch.randn(layer.shape, generator=gen,
+                                        device=dev, dtype=torch.float32)
+                            .to(layer.dtype) * 0.5)
+    kc, vc = pool[0], pool[len(pool) // 2]
+    sc = {"k_scale": pool[1], "v_scale": pool[3]} if int8 else {}
     maxp, page = eng.spec.max_pages_per_slot, eng.spec.page_size
     pos_list = [511, 300, 17, 700, 100, 1000, 64, -1][:B]
     perm = torch.randperm(eng.cache.num_blocks - 1, generator=gen,
@@ -382,44 +453,47 @@ def kernel_phase(eng, cfg, gen):
         q = rnd(B, H, R, D)
         pos_r = pos.clamp(max=maxp * page - R) if R > 1 else pos
         got = dk.decode_attention_paged(q, kc, vc, pos_r, pt, lids[LAYER],
-                                        rows_per_step=rps)
+                                        rows_per_step=rps, **sc)
         if torch.count_nonzero(got[B - 1]):
             raise AssertionError("idle slot output is not zero")
         fault = dk.decode_attention_paged_plain(
-            q, kc, vc, pos_fault, pt, LAYER) if R == 1 else None
-        checks.append(held("decode_attention_paged", got,
+            q, kc, vc, pos_fault, pt, LAYER, **sc) if R == 1 else None
+        checks.append(held(key["paged"], got,
                            dk.decode_attention_paged_plain(
                                q, kc, vc, pos_r, pt, LAYER,
-                               rows_per_step=rps), fault))
+                               rows_per_step=rps, **sc), fault))
         cases.append({"B": B, "H": H, "R": R, "D": D, "page": page,
-                      "rows_per_step": rps, "pos": pos_r.tolist()})
+                      "rows_per_step": rps, "pos": pos_r.tolist(),
+                      "pool": "int8" if int8 else "bf16"})
     q = rnd(B, H, 1, D)
     ms = time_graph_ms(lambda i: dk.decode_attention_paged(q, kc, vc, pos, pt,
-                                                           lids[i]))
+                                                           lids[i], **sc))
     call_ms = time_ms(lambda: dk.decode_attention_paged(q, kc, vc, pos, pt,
-                                                        lids[next(cyc)]))
+                                                        lids[next(cyc)],
+                                                        **sc))
     plain_ms = time_ms(lambda: dk.decode_attention_paged_plain(
-        q, kc, vc, pos, pt, next(cyc)), reps=20, inner=1)
-    # this run's data: the live K/V rows, q and out, pos, live table rows
+        q, kc, vc, pos, pt, next(cyc), **sc), reps=20, inner=1)
+    # this run's data: the live K/V rows (codes and a scale each, if
+    # int8), q and out, pos, live table rows
     live = sum(pp + 1 for pp in pos_list if pp >= 0)
     pages_read = sum(pp // page + 1 for pp in pos_list if pp >= 0)
-    record(results, "decode_attention_paged", "serve",
+    row_bytes = D * kc.element_size() + (4 if int8 else 0)
+    record(results, "decode_attention_paged", path,
            "deepspeed_tpu/ops/pallas/decode.py:931", checks, ms, call_ms,
            plain_ms,
-           bound(live * H * D * 2 * 2 + 2 * nbytes(q) + nbytes(pos)
+           bound(live * H * row_bytes * 2 + 2 * nbytes(q) + nbytes(pos)
                  + pages_read * 4, 4 * live * H * D), cases,
-           "each live slot's last page dropped (R=1)")
+           "each live slot's last page dropped (R=1)", limit=key["paged"])
 
     # -- out_ffn_stacked: three launches per call
     ctx, x = rnd(B, E), rnd(B, E)
-    ffn = (p["attn_ow"], ones, p["attn_ob"], p["ln2_w"], p["ln2_b"],
-           p["inter_w"], ones, p["inter_b"], p["output_w"], ones,
-           p["output_b"])
+    ffn = (Wp, sp, p["attn_ob"], p["ln2_w"], p["ln2_b"], W1, s1,
+           p["inter_b"], W2, s2, p["output_b"])
     got = dk.out_ffn_stacked(ctx, x, *ffn, lids[LAYER], eps=eps)
     # fault: the last 64 rows of Wp (one K tile of launch (a)) left out
     f_ffn = at_layer(*ffn)
     f_ffn[0][:, -64:] = 0
-    checks = [held("out_ffn_stacked", got,
+    checks = [held(key["out_ffn"], got,
                    dk.out_ffn_stacked_plain(ctx, x, *ffn, LAYER, eps=eps),
                    dk.out_ffn_stacked_plain(ctx, x, *f_ffn, 0, eps=eps))]
     ms = time_graph_ms(lambda i: dk.out_ffn_stacked(ctx, x, *ffn, lids[i],
@@ -428,15 +502,19 @@ def kernel_phase(eng, cfg, gen):
                                                  lids[next(cyc)], eps=eps))
     plain_ms = time_ms(lambda: dk.out_ffn_stacked_plain(
         ctx, x, *ffn, next(cyc), eps=eps), reps=20, inner=1)
-    w_bytes = (E * E + 2 * E * Fd) * 2
+    w_bytes = (E * E + 2 * E * Fd) * wb + 3 * 4
     v_bytes = (6 * E + Fd) * 4
-    record(results, "out_ffn_stacked", "serve",
+    record(results, "out_ffn_stacked", path,
            "deepspeed_tpu/ops/pallas/decode.py:1000",
            checks, ms, call_ms, plain_ms,
            bound(w_bytes + v_bytes + 3 * B * E * 2,
                  2 * B * (E * E + 2 * E * Fd)),
-           [{"B": B, "E": E, "F": Fd, "launches_per_call": 3}],
-           "the last 64 of the 1280 rows of Wp dropped")
+           [{"B": B, "E": E, "F": Fd, "launches_per_call": 3, **weights}],
+           "the last 64 of the 1280 rows of Wp dropped",
+           limit=key["out_ffn"])
+    if int8:
+        torch.cuda.synchronize()
+        return results
 
     # -- flash_attention_fwd: prefill buckets, long S, GQA
     checks, cases, lse_err = [], [], 0.0
@@ -485,19 +563,24 @@ def kv_quant_fault(k, v):
     return out
 
 
-def kv_quant_row(results, path, k3, v3, write, read, timed, replaces):
+def kv_quant_row(results, path, k3, v3, write, read, timed, replaces,
+                 more=()):
     """kv_quant_int8 at the path's shapes: ``write(lid)`` launches it into
     the path's cache at layer ``lid``, ``read()`` returns the four slices
     it wrote at LAYER, which must equal the plain version's codes and
     scales bit for bit, beside the truncating fault; timed over the
     layers, and bounded by the rows it reads and the codes and scales it
-    writes (about 5 fp32 operations a value)."""
+    writes (about 5 fp32 operations a value). ``more``: further (k3, v3,
+    write, read) cases, held the same way but not timed."""
     from deepspeed_tpu_torch.ops.cuda import decode as dk
-    write(torch.tensor(LAYER, dtype=torch.int32, device=k3.device))
-    want = dk.kv_quant_int8_plain(k3, v3)
-    fault = kv_quant_fault(k3, v3)
-    checks = [held("kv_quant_int8", g, w, f if f.dtype == torch.int8
-                   else None) for g, w, f in zip(read(), want, fault)]
+    checks, cases = [], []
+    for k_, v_, write_, read_ in ((k3, v3, write, read), *more):
+        write_(torch.tensor(LAYER, dtype=torch.int32, device=k_.device))
+        want = dk.kv_quant_int8_plain(k_, v_)
+        fault = kv_quant_fault(k_, v_)
+        checks += [held("kv_quant_int8", g, w, f if f.dtype == torch.int8
+                        else None) for g, w, f in zip(read_(), want, fault)]
+        cases.append(dict(zip("BHD", k_.shape), held="bit for bit"))
     ms, call_ms, plain_ms = timed(write,
                                   lambda l: dk.kv_quant_int8_plain(k3, v3))
     B, H, D = k3.shape
@@ -505,8 +588,7 @@ def kv_quant_row(results, path, k3, v3, write, read, timed, replaces):
     record(results, "kv_quant_int8", path, replaces, checks, ms, call_ms,
            plain_ms, bound(2 * n * 2 + 2 * n + 2 * B * H * 4, 2 * n * 5,
                            FP32_FLOP_PER_S),
-           [{"B": B, "H": H, "D": D, "held": "bit for bit"}],
-           "codes truncated toward zero instead of rounded")
+           cases, "codes truncated toward zero instead of rounded")
 
 
 def llama_kernel_phase(eng, cfg, gen):
@@ -1135,20 +1217,30 @@ def serve_geometry(eng, family):
     """(model name, layers, KV heads, head dim, bytes of one cached K and V
     row of one layer, layer weight bytes, LM head bytes, dense-forward
     oracle ``f(p, cfg, ids, prompt_len)``, expected launches per tick step
-    by kernel) of a serving engine; ``family`` "gpt2", "llama" or
-    "llama_int8" (int8 weights and pool)."""
+    by kernel) of a serving engine; ``family`` "gpt2", "gpt2_int8",
+    "llama" or "llama_int8" (int8 weights and pool)."""
     p, cfg = eng.adapter.p, eng.adapter.cfg
-    if family == "gpt2":
+    if family in ("gpt2", "gpt2_int8"):
         from deepspeed_tpu_torch.models.gpt2_inference import \
             dense_logits as dense_gpt2
+        int8 = family == "gpt2_int8"
 
         def dense_logits(p, cfg, ids, S):
+            # int8: fp32 over the dequantized codes, the decode steps
+            # attending over K/V rounded through the pool's codes
+            if int8:
+                return dense_gpt2(p, cfg, ids, torch.float32,
+                                  kv_quant_from=S)
             return dense_gpt2(p, cfg, ids)
-        mats = ("attn_qkvw", "attn_ow", "inter_w", "output_w")
-        name, L, Hkv, head = "gpt2_large", cfg.n_layer, cfg.n_head, "wte"
+        mats = tuple(m + sfx for m in ("attn_qkvw", "attn_ow", "inter_w",
+                                        "output_w")
+                     for sfx in ("", "_scale") if m + sfx in p)
+        name = "gpt2_large_int8" if int8 else "gpt2_large"
+        L, Hkv, head = cfg.n_layer, cfg.n_head, "wte"
         per_step = ("ln_qkv_stacked", "decode_attention_paged",
-                    "out_ffn_stacked")
-        row_bytes = 2 * Hkv * cfg.head_dim * 2
+                    "out_ffn_stacked") + (("kv_quant_int8",) if int8 else ())
+        row_bytes = 2 * Hkv * ((cfg.head_dim + 4) if int8
+                               else cfg.head_dim * 2)
     else:
         from deepspeed_tpu_torch.models import llama_inference as li
         int8 = family == "llama_int8"
@@ -1266,7 +1358,8 @@ def serve_phase(eng, cfg, family):
         raise AssertionError("a runner-up decoder passes the teacher-forced "
                              "check")
     generated = sum(len(r.generated) for r in res.values())
-    emit({"phase": {"gpt2": "serve", "llama": "serve_llama",
+    emit({"phase": {"gpt2": "serve", "gpt2_int8": "serve_gpt2_int8",
+                    "llama": "serve_llama",
                     "llama_int8": "serve_llama_int8"}[family],
           "model": name, "layers": L,
           "requests": N_REQUESTS, "slots": eng.spec.slots,
@@ -1287,6 +1380,9 @@ def serve_phase(eng, cfg, family):
           "launches": launches,
           "teacher_forced_oracle": {
               "gpt2": "bf16 dense", "llama": "fp32 dense",
+              "gpt2_int8": "fp32 dense over the int8 weights, K/V of "
+                           "decode steps rounded through the pool's "
+                           "codes",
               "llama_int8": "fp32 dense over the int8 weights, K/V of "
                             "decode steps rounded through the pool's "
                             "codes"}[family],
@@ -1298,6 +1394,479 @@ def serve_phase(eng, cfg, family):
           "teacher_forced_not_plain_argmax": int((gap > 0).sum()),
           "plain_top2_spacing_median": float(spacing.median()),
           "runner_up_fault_rejected_at": n_fault_caught})
+    return launches
+
+
+def gpt2_generate_config():
+    """bench.py's bench_decode model: GPT-2 large at vocab 50304 and ctx
+    2048, bf16."""
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_large
+    return gpt2_large(vocab_size=TRAIN_VOCAB, n_positions=GEN_CTX,
+                      dtype=torch.bfloat16)
+
+
+def gpt2_generate_kernel_rows(p, p8, cfg, gen):
+    """generate()'s kernels at GPT-2 large's shapes, each against its plain
+    version and a planted fault, held at B 1 and 8. The per-token route's
+    (path generate_gpt2_step, timed at B 8 over the 36 layers of the int8
+    weights ``p8``): ln_qkv_int8, out_ffn_int8, decode_attention_int8 over
+    an int8 cache at ctx 2048, pos 2034, the scales past pos NaN, and
+    kv_quant_int8 into one layer of it; matvec_int8 (no model calls it, as
+    in JAX: path null, no launches); the fast route's, timed at its B 1:
+    ln_qkv_stacked, out_ffn_stacked and decode_attention_stacked over
+    ``p8`` and the int8 cache with kv_quant_int8 into it (generate_gpt2),
+    and over the bf16 weights ``p`` and a bf16 cache (generate_gpt2_bf16).
+    """
+    from deepspeed_tpu_torch.models import gpt2_inference as gi
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    dev = p8["wte"].device
+    L, E, H, D, Fd = (cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.head_dim,
+                      cfg.n_inner)
+    eps = cfg.layer_norm_epsilon
+    lids = torch.arange(L, dtype=torch.int32, device=dev)
+    cyc = itertools.cycle(range(L))
+    Bs = (1, 8)
+    B = Bs[-1]
+    results = []
+    s_ = {n: p8[n + "_scale"] for n in ("attn_qkvw", "attn_ow", "inter_w",
+                                        "output_w")}
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(
+            cfg.dtype)
+
+    def timed(kernel, plain):
+        """(graph-replay ms, eager ms, plain ms) of ``kernel(l, lid)`` and
+        ``plain(l)`` over the model's layers."""
+        def eager():
+            l = next(cyc)
+            kernel(l, lids[l])
+        return (time_graph_ms(lambda i: kernel(i, lids[i]), n=L),
+                time_ms(eager),
+                time_ms(lambda: plain(next(cyc)), reps=10, inner=1))
+
+    # -- ln_qkv_int8: LayerNorm + [B, 1280] . int8 [1280, 3840] + b
+    def qkv_args(l, w=None):
+        return (p8["ln1_w"][l], p8["ln1_b"][l],
+                p8["attn_qkvw"][l] if w is None else w, s_["attn_qkvw"][l],
+                p8["attn_qkvb"][l])
+    f_w = p8["attn_qkvw"][LAYER].clone()
+    f_w[-32:] = 0                           # the last 32 weight rows
+    checks, xs = [], {}
+    for b in Bs:
+        xs[b] = x = rnd(b, E)
+        checks.append(held("ln_qkv_int8",
+                           dk.ln_qkv_int8(x, *qkv_args(LAYER), eps=eps),
+                           dk.ln_qkv_int8_plain(x, *qkv_args(LAYER), eps),
+                           dk.ln_qkv_int8_plain(x, *qkv_args(LAYER, f_w),
+                                                eps)))
+    x = xs[B]
+    ms, call_ms, plain_ms = timed(
+        lambda l, lid: dk.ln_qkv_int8(x, *qkv_args(l), eps=eps),
+        lambda l: dk.ln_qkv_int8_plain(x, *qkv_args(l), eps))
+    N = 3 * E
+    record(results, "ln_qkv_int8", "generate_gpt2_step",
+           "deepspeed_tpu/ops/pallas/decode.py:225", checks, ms, call_ms,
+           plain_ms, bound(nbytes(x) + E * N + 4 + 2 * E * 4 + N * 4
+                           + B * N * 2, 2 * B * E * N),
+           [{"B": b, "E": E, "N": N, "weights": "int8"} for b in Bs],
+           "the last 32 of the 1280 weight rows dropped (B 1 and 8)")
+
+    # -- out_ffn_int8: three launches over int8 [1280, 1280], [1280, 5120],
+    # [5120, 1280]
+    def ffn_args(l, wp=None):
+        return (p8["attn_ow"][l] if wp is None else wp, s_["attn_ow"][l],
+                p8["attn_ob"][l], p8["ln2_w"][l], p8["ln2_b"][l],
+                p8["inter_w"][l], s_["inter_w"][l], p8["inter_b"][l],
+                p8["output_w"][l], s_["output_w"][l], p8["output_b"][l])
+    f_wp = p8["attn_ow"][LAYER].clone()
+    f_wp[-64:] = 0                          # the last 64 rows of Wp
+    checks, ctxs = [], {}
+    for b in Bs:
+        ctxs[b] = ctx = rnd(b, E)
+        x = xs[b]
+        checks.append(held("out_ffn_int8",
+                           dk.out_ffn_int8(ctx, x, *ffn_args(LAYER), eps=eps),
+                           dk.out_ffn_int8_plain(ctx, x, *ffn_args(LAYER),
+                                                 eps=eps),
+                           dk.out_ffn_int8_plain(ctx, x,
+                                                 *ffn_args(LAYER, f_wp),
+                                                 eps=eps)))
+    ctx, x = ctxs[B], xs[B]
+    ms, call_ms, plain_ms = timed(
+        lambda l, lid: dk.out_ffn_int8(ctx, x, *ffn_args(l), eps=eps),
+        lambda l: dk.out_ffn_int8_plain(ctx, x, *ffn_args(l), eps=eps))
+    record(results, "out_ffn_int8", "generate_gpt2_step",
+           "deepspeed_tpu/ops/pallas/decode.py:320", checks, ms, call_ms,
+           plain_ms, bound((E * E + 2 * E * Fd) + 3 * 4 + (6 * E + Fd) * 4
+                           + 3 * B * E * 2, 2 * B * (E * E + 2 * E * Fd)),
+           [{"B": b, "E": E, "F": Fd, "launches_per_call": 3,
+             "weights": "int8"} for b in Bs],
+           "the last 64 of the 1280 rows of Wp dropped (B 1 and 8)")
+
+    # -- matvec_int8: [B, 1280] . int8 [1280, 5120] + b, gelu_tanh
+    def mv_args(l, w=None):
+        return (p8["inter_w"][l] if w is None else w, s_["inter_w"][l],
+                p8["inter_b"][l])
+    f_w1 = p8["inter_w"][LAYER].clone()
+    f_w1[-32:] = 0
+    checks = []
+    for b in Bs:
+        x = xs[b]
+        checks.append(held("matvec_int8",
+                           dk.matvec_int8(x, *mv_args(LAYER), act="gelu_tanh"),
+                           dk.matvec_int8_plain(x, *mv_args(LAYER),
+                                                act="gelu_tanh"),
+                           dk.matvec_int8_plain(x, *mv_args(LAYER, f_w1),
+                                                act="gelu_tanh")))
+    x = xs[B]
+    ms, call_ms, plain_ms = timed(
+        lambda l, lid: dk.matvec_int8(x, *mv_args(l), act="gelu_tanh"),
+        lambda l: dk.matvec_int8_plain(x, *mv_args(l), act="gelu_tanh"))
+    record(results, "matvec_int8", None,
+           "deepspeed_tpu/ops/pallas/decode.py:63", checks, ms, call_ms,
+           plain_ms, bound(nbytes(x) + E * Fd + 4 + Fd * 4 + B * Fd * 2,
+                           2 * B * E * Fd),
+           [{"B": b, "K": E, "N": Fd, "act": "gelu_tanh", "weights": "int8"}
+            for b in Bs], "the last 32 of the 1280 weight rows dropped")
+
+    # -- decode_attention_int8 over one layer's [B, H, L, D] int8 cache
+    pos_i = GEN_CTX - 80 + GEN_LONG - 2          # the long run's last step
+    n = pos_i + 1
+    shape = (L, B, H, GEN_CTX, D)
+    kc, vc = (torch.randint(-128, 128, shape, generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(shape[:4], generator=gen, device=dev) * 0.01 + 0.002
+              for _ in range(2))
+    for t in (ks, vs):
+        t[..., n:] = float("nan")           # rows past pos must not be read
+    pos = torch.tensor([pos_i], dtype=torch.int32, device=dev)
+    checks, qs = [], {}
+    for b in Bs:
+        qs[b] = q = rnd(b, H, 1, D)
+        args = (kc[LAYER, :b], ks[LAYER, :b], vc[LAYER, :b], vs[LAYER, :b])
+        got = dk.decode_attention_int8(q, *args, pos)
+        if not torch.isfinite(got).all():
+            raise AssertionError("decode_attention_int8 read past pos")
+        checks.append(held("decode_attention_int8", got,
+                           dk.decode_attention_int8_plain(q, *args, pos_i),
+                           dk.decode_attention_int8_plain(q, *args,
+                                                          pos_i - 16)))
+    q = qs[B]
+    ms, call_ms, plain_ms = timed(
+        lambda l, lid: dk.decode_attention_int8(q, kc[l], ks[l], vc[l],
+                                                vs[l], pos),
+        lambda l: dk.decode_attention_int8_plain(q, kc[l], ks[l], vc[l],
+                                                 vs[l], pos_i))
+
+    def att_bound(b, row_bytes):
+        return bound(b * n * H * row_bytes * 2 + 2 * b * H * D * 2 + 4,
+                     4 * b * n * H * D)
+    record(results, "decode_attention_int8", "generate_gpt2_step",
+           "deepspeed_tpu/ops/pallas/decode.py:110", checks, ms, call_ms,
+           plain_ms, att_bound(B, D + 4),
+           [{"B": b, "H": H, "D": D, "L": GEN_CTX, "pos": pos_i}
+            for b in Bs], "the last 16 keys dropped (B 1 and 8)")
+
+    # -- kv_quant_int8 at head dim 64 as the per-token route runs it: into
+    # one layer's cache (no layer index)
+    def kv_case(b, stacks, lid):
+        """(k3, v3, write, read) of kv_quant_int8 into the first b batch
+        rows of ``stacks`` (k codes, k scale [.., 1, L], v codes, v
+        scale) at row pos_i: ``write(lid)`` at layer ``lid``, or into a
+        one-layer view (no layer index) when ``lid`` is None."""
+        qkv = rnd(b, 3 * E)
+        k3, v3 = qkv[:, E:2 * E].view(b, H, D), qkv[:, 2 * E:].view(b, H, D)
+        at = 0 if lid is None else LAYER
+        return (k3, v3,
+                lambda l: dk.kv_quant_int8(k3, v3, out=stacks,
+                                           layer=None if lid is None else l,
+                                           rows=pos),
+                lambda: tuple(t[at, :b, :, pos_i] if t.dtype == torch.int8
+                              else t[at, :b, :, :, pos_i] for t in stacks))
+    one = [tuple(t[LAYER:LAYER + 1, :b] for t in (kc, ks[..., None, :], vc,
+                                                  vs[..., None, :]))
+           for b in Bs]
+    cases = [kv_case(b, st, None) for b, st in zip(Bs, one)][::-1]
+    kv_quant_row(results, "generate_gpt2_step", *cases[0],
+                 lambda kernel, plain: timed(lambda l, lid: kernel(lid),
+                                             plain),
+                 "deepspeed_tpu/ops/pallas/decode.py:279", more=cases[1:])
+
+    # -- the fast route (B 1 in generate_gpt2 over the int8 codes and
+    # caches, in generate_gpt2_bf16 over the bf16 weights and cache), each
+    # row held at B 1 and 8 and timed at B 1: ln_qkv_stacked and
+    # out_ffn_stacked (GPT-2's int8 contract over the codes),
+    # decode_attention_stacked over the int8 cache above and a bf16 one,
+    # kv_quant_int8 into the int8 stacks
+    Bf = Bs[0]
+    lid_l = lids[LAYER]
+    ctxs = {b: rnd(b, E) for b in Bs}
+    k5, v5 = ks.unsqueeze(3), vs.unsqueeze(3)
+    kf, vf = (rnd(*shape, scale=0.5) for _ in range(2))
+    for w, path, int8 in ((p8, "generate_gpt2", True),
+                          (p, "generate_gpt2_bf16", False)):
+        (Wq, sq), (Wp, sp), (W1, s1), (W2, s2) = gi.weight_stacks(w)
+        wb = Wq.element_size()
+        key = ({"ln_qkv": "ln_qkv_stacked[ln,int8]",
+                "out_ffn": "out_ffn_stacked[int8]",
+                "attn": "decode_attention_stacked[int8,d64]"} if int8 else
+               {"ln_qkv": "ln_qkv_stacked", "out_ffn": "out_ffn_stacked",
+                "attn": "decode_attention_stacked"})
+        weights = "int8" if int8 else "bf16"
+        qkv_args = (w["ln1_w"], w["ln1_b"], Wq, sq, w["attn_qkvb"])
+        f_args = [t[LAYER:LAYER + 1].clone() for t in qkv_args]
+        f_args[2][:, -32:] = 0              # the last 32 weight rows
+        checks = [held(key["ln_qkv"],
+                       dk.ln_qkv_stacked(xs[b], *qkv_args, lid_l, eps=eps),
+                       dk.ln_qkv_stacked_plain(xs[b], *qkv_args, LAYER, eps),
+                       dk.ln_qkv_stacked_plain(xs[b], *f_args, 0, eps))
+                  for b in Bs]
+        x = xs[Bf]
+        ms, call_ms, plain_ms = timed(
+            lambda l, lid: dk.ln_qkv_stacked(x, *qkv_args, lid, eps=eps),
+            lambda l: dk.ln_qkv_stacked_plain(x, *qkv_args, l, eps))
+        record(results, "ln_qkv_stacked", path,
+               "deepspeed_tpu/ops/pallas/decode.py:496", checks, ms, call_ms,
+               plain_ms, bound(nbytes(x) + E * N * wb + 4 + 2 * E * 4
+                               + N * 4 + Bf * N * 2, 2 * Bf * E * N),
+               [{"B": b, "E": E, "N": N, "L": L, "weights": weights}
+                for b in Bs],
+               "the last 32 of the 1280 weight rows dropped (B 1 and 8)",
+               limit=key["ln_qkv"])
+
+        ffn = (Wp, sp, w["attn_ob"], w["ln2_w"], w["ln2_b"], W1, s1,
+               w["inter_b"], W2, s2, w["output_b"])
+        f_ffn = [t[LAYER:LAYER + 1].clone() for t in ffn]
+        f_ffn[0][:, -64:] = 0               # the last 64 rows of Wp
+        checks = [held(key["out_ffn"],
+                       dk.out_ffn_stacked(ctxs[b], xs[b], *ffn, lid_l,
+                                          eps=eps),
+                       dk.out_ffn_stacked_plain(ctxs[b], xs[b], *ffn, LAYER,
+                                                eps=eps),
+                       dk.out_ffn_stacked_plain(ctxs[b], xs[b], *f_ffn, 0,
+                                                eps=eps))
+                  for b in Bs]
+        ctx = ctxs[Bf]
+        ms, call_ms, plain_ms = timed(
+            lambda l, lid: dk.out_ffn_stacked(ctx, x, *ffn, lid, eps=eps),
+            lambda l: dk.out_ffn_stacked_plain(ctx, x, *ffn, l, eps=eps))
+        record(results, "out_ffn_stacked", path,
+               "deepspeed_tpu/ops/pallas/decode.py:1000", checks, ms,
+               call_ms, plain_ms,
+               bound((E * E + 2 * E * Fd) * wb + 3 * 4 + (6 * E + Fd) * 4
+                     + 3 * Bf * E * 2, 2 * Bf * (E * E + 2 * E * Fd)),
+               [{"B": b, "E": E, "F": Fd, "launches_per_call": 3,
+                 "weights": weights} for b in Bs],
+               "the last 64 of the 1280 rows of Wp dropped (B 1 and 8)",
+               limit=key["out_ffn"])
+
+        # the cache at B 1: the first batch row of the B-8 one, contiguous
+        full = (kc, vc, dict(k_scale=k5, v_scale=v5)) if int8 else \
+            (kf, vf, {})
+        first = (full[0][:, :Bf].contiguous(), full[1][:, :Bf].contiguous(),
+                 {k: t[:, :Bf].contiguous() for k, t in full[2].items()})
+        checks = []
+        for b, (kk, vv, kw) in zip(Bs, (first, full)):
+            qb = qs[b]
+            got = dk.decode_attention_stacked(qb, kk, vv, pos, lid_l, **kw)
+            if not torch.isfinite(got).all():
+                raise AssertionError("decode_attention_stacked read past pos")
+            checks.append(held(
+                key["attn"], got,
+                dk.decode_attention_stacked_plain(qb, kk, vv, pos, LAYER,
+                                                  **kw),
+                dk.decode_attention_stacked_plain(qb, kk, vv, pos - 16,
+                                                  LAYER, **kw)))
+        kk, vv, kw = first
+        q1 = qs[Bf]
+        ms, call_ms, plain_ms = timed(
+            lambda l, lid: dk.decode_attention_stacked(q1, kk, vv, pos, lid,
+                                                       **kw),
+            lambda l: dk.decode_attention_stacked_plain(q1, kk, vv, pos, l,
+                                                        **kw))
+        # SDPA computes the same function over a bf16 cache's live rows
+        lib_ms = None if int8 else time_graph_ms(
+            lambda i: torch.nn.functional.scaled_dot_product_attention(
+                q1, kk[i, :, :, :n], vv[i, :, :, :n]), n=L)
+        record(results, "decode_attention_stacked", path,
+               "deepspeed_tpu/ops/pallas/decode.py:643", checks, ms, call_ms,
+               plain_ms, att_bound(Bf, D + 4 if int8 else 2 * D),
+               [{"B": b, "Hkv": H, "R": 1, "D": D, "L": GEN_CTX,
+                 "pos": pos_i, "cache": weights} for b in Bs],
+               "the last 16 keys dropped (B 1 and 8)", library_ms=lib_ms,
+               limit=key["attn"])
+        if int8:
+            st1 = (first[0], first[2]["k_scale"], first[1],
+                   first[2]["v_scale"])
+            cases = [kv_case(b, st, lid_l)
+                     for b, st in zip(Bs, (st1, (kc, k5, vc, v5)))]
+            kv_quant_row(results, path, *cases[0],
+                         lambda kernel, plain: timed(
+                             lambda l, lid: kernel(lid), plain),
+                         "deepspeed_tpu/ops/pallas/decode.py:279",
+                         more=cases[1:])
+            del first, st1
+    del kc, vc, ks, vs, k5, v5, kf, vf
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results
+
+
+def gpt2_generate(gen, profile=False):
+    """GPT-2 large at bench_decode's config, random weights from seed 0
+    quantized on the card (quantize_gpt2_inference_params), generate()'s
+    kernel rows and its timed cases; returns (kernel rows, {path:
+    launches})."""
+    from deepspeed_tpu_torch.models import gpt2_inference as gi
+    from deepspeed_tpu_torch.models.gpt2 import init_params
+    cfg = gpt2_generate_config()
+    p = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p8 = gi.quantize_gpt2_inference_params(p)
+    torch.cuda.synchronize()
+    emit({"phase": "gpt2_generate_init", "model": "gpt2_large",
+          "vocab": cfg.vocab_size, "ctx": cfg.n_positions,
+          "params": cfg.num_params(),
+          "quantize_s": time.perf_counter() - t0,
+          "weight_gb": sum(nbytes(t) for t in p.values()) / 1e9,
+          "int8_weight_gb": sum(nbytes(t) for t in p8.values()) / 1e9,
+          "int8_layer_code_gb": sum(nbytes(t) for t in p8.values()
+                                    if t.dtype == torch.int8) / 1e9})
+    rows = gpt2_generate_kernel_rows(p, p8, cfg, gen)
+    launches = gpt2_generate_phase(p, p8, cfg, profile)
+    del p, p8
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def gpt2_generate_phase(p, p8, cfg, profile=False):
+    """``generate()`` at GPT-2 large as bench.py's bench_decode times it:
+    per case a warm-up, then the best of 3 of t(68 new) - t(4 new) for 64
+    decode steps, beside the floor of those steps (the layer weights and
+    the LM head read once a step, plus the live K/V rows); launches
+    counted per path, exactly (36 a decode step for each kernel of its
+    route); the last row of each batch teacher-forced against the fp32
+    dense oracle (over the int8 weights, every position attending over
+    K/V rounded through the int8 cache's codes where the cache is int8);
+    and the positions where the fast and per-token routes part at b1
+    int8. Returns {path: launches}."""
+    from deepspeed_tpu_torch.models import gpt2_inference as gi
+    from deepspeed_tpu_torch.ops.cuda import builder
+    L, H, D = cfg.n_layer, cfg.n_head, cfg.head_dim
+    S = GEN_CTX - 80
+    steps = GEN_LONG - GEN_SHORT
+    # the timed steps run at positions S + GEN_SHORT - 1 .. S + GEN_LONG - 2
+    kv_rows = sum(S + k + 1 for k in range(GEN_SHORT - 1, GEN_LONG - 1))
+    w_head = nbytes(p["wte"])
+    launches, cases, long_toks = {}, [], {}
+    for name, bs, qb, kv, scan, path in GPT2_GEN_CASES:
+        w = p8 if qb else p
+        w_layers = nbytes(*(t for k, t in w.items()
+                            if k not in ("wte", "wpe")))
+        row_bytes = 2 * H * ((D + 4) if kv else D * 2)
+        prompt = np.random.RandomState(0).randint(
+            0, cfg.vocab_size, size=(bs, S)).astype(np.int32)
+
+        def run(new):
+            toks = gi.generate(cfg, w, prompt, max_new_tokens=new,
+                               max_out_tokens=GEN_CTX, quantize_bits=qb,
+                               kv_cache_bits=kv, scan_decode=scan)
+            int(toks[0, -1])             # the bench's fence: read a token
+            return toks
+        torch.cuda.synchronize()
+        builder.launches.clear()         # count this case's runs only
+        run(GEN_SHORT)
+        run(GEN_LONG)
+        best = math.inf
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(GEN_SHORT)
+            t_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            toks = run(GEN_LONG)
+            best = min(best, time.perf_counter() - t0 - t_s)
+        got = dict(builder.launches)
+        decode_steps = 4 * (GEN_SHORT - 1 + GEN_LONG - 1)
+        if scan:            # the fast route: the stacked kernels
+            kernels = ("ln_qkv_stacked", "decode_attention_stacked",
+                       "out_ffn_stacked") + (("kv_quant_int8",) if kv else ())
+        elif qb:            # the fused int8 step
+            kernels = ("ln_qkv_int8", "kv_quant_int8",
+                       "decode_attention_int8", "out_ffn_int8")
+        else:               # the general path over an int8 cache
+            kernels = ("decode_attention_int8",)
+        expect = {k: L * decode_steps for k in kernels}
+        if got != expect:
+            raise AssertionError(f"generate {name}: launches {got} != "
+                                 f"{expect}")
+        acc = launches.setdefault(path, {})
+        for k, v in got.items():
+            acc[k] = acc.get(k, 0) + v
+        floor_s = (steps * (w_layers + w_head) + bs * kv_rows * L
+                   * row_bytes) / HBM_BYTES_PER_S
+        case = {"case": name, "batch": bs, "prompt": S, "ctx": GEN_CTX,
+                "weights": "int8" if qb else "bf16", "kv_cache_bits": kv,
+                "route": "fast" if scan else "per-token", "path": path,
+                "decode_tokens_per_s": bs * steps / best,
+                "ms_per_decode_step": best / steps * 1e3,
+                "floor_ms_per_step": floor_s / steps * 1e3,
+                "floor_tokens_per_s": bs * steps / floor_s,
+                "launches": got}
+        if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError("token outside the vocabulary")
+        # the batch's last row: a fault in the batch's indexing shows there
+        ids = toks[bs - 1].tolist()
+        rows = gi.dense_logits(w, cfg, ids[:-1], torch.float32,
+                               kv_quant_from=0 if kv else None)[S - 1:]
+        gap, spacing, ulp = teacher_forced(
+            rows, torch.as_tensor(ids[S:], device=rows.device))
+        del rows
+        case.update(teacher_forced_row=bs - 1,
+                    teacher_forced_max_gap_ulps=float((gap / ulp).max()),
+                    teacher_forced_positions=len(gap),
+                    runner_up_fault_rejected_at=int(
+                        (spacing > TF_ULPS * ulp).sum()))
+        if case["teacher_forced_max_gap_ulps"] > TF_ULPS:
+            raise AssertionError(f"generate {name}: teacher-forced gap "
+                                 f"{case['teacher_forced_max_gap_ulps']} "
+                                 f"bf16 units > {TF_ULPS}")
+        if case["runner_up_fault_rejected_at"] == 0:
+            raise AssertionError(f"generate {name}: a runner-up decoder "
+                                 f"passes the teacher-forced check")
+        long_toks[name] = toks
+        cases.append(case)
+        torch.cuda.empty_cache()
+    fast, step = long_toks["b1_int8_fast"], long_toks["b1_int8_step"]
+    line = {"phase": "generate_gpt2", "model": "gpt2_large",
+            "layers": L, "vocab": cfg.vocab_size, "new_tokens_timed": steps,
+            "cases": cases, "launches": launches,
+            "b1_int8_fast_vs_step_positions_differing":
+                int((fast[0, S:] != step[0, S:]).sum()),
+            "b1_int8_generated_positions": GEN_LONG}
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        prompt = np.random.RandomState(0).randint(
+            0, cfg.vocab_size, size=(1, S)).astype(np.int32)
+        for scan, key in ((True, "fast"), (False, "step")):
+            torch.cuda.synchronize()
+            with prof_ctx(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                toks = gi.generate(cfg, p8, prompt, max_new_tokens=GEN_LONG,
+                                   max_out_tokens=GEN_CTX, quantize_bits=8,
+                                   kv_cache_bits=8, scan_decode=scan)
+                int(toks[0, -1])
+                wall_s = time.perf_counter() - t0
+            busy = sum(e.device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       ) / 1e6
+            line[f"profile_b1_int8_{key}"] = {
+                "wall_s": wall_s, "device_busy_s": busy,
+                "device_idle_share": 1.0 - busy / wall_s}
+    emit(line)
     return launches
 
 
@@ -1662,6 +2231,25 @@ def main():
     del eng                       # free each serving engine before the next
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    kernels_g, launches_g = gpt2_generate(gen, profile)
+    kernels += kernels_g
+    launches.update(launches_g)
+    eng = serving.build_engine(
+        "gpt2", cfg, init_params(cfg, seed=0, device="cuda"),
+        config={"serving": SERVING_INT8})
+    emit({"phase": "gpt2_int8_init", "model": "gpt2_large",
+          "int8_layer_weight_gb": sum(nbytes(t) for t in eng.adapter.p.values()
+                                      if t.dtype == torch.int8) / 1e9,
+          "weight_gb": sum(nbytes(t) for t in eng.adapter.p.values()) / 1e9,
+          "pool_gb": nbytes(*eng.cache.pool) / 1e9,
+          "pool_blocks": eng.cache.num_blocks})
+    kernels += kernel_phase(eng, cfg, gen)
+    launches["serve_gpt2_int8"] = serve_phase(eng, cfg, "gpt2_int8")
+    if profile:
+        profile_phase(eng, cfg, "gpt2_large_int8")
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     lcfg = llama_7b()
     eng = serving.build_engine(
         "llama", lcfg, init_serving_params(lcfg, seed=0, device="cuda",
@@ -1699,6 +2287,8 @@ def main():
     grad_check_phase()
     launches["train"] = train_launches
     for row in kernels:
+        if row["path"] is None:      # matvec_int8: no model path calls it
+            continue
         row["launches"] = launches[row["path"]].get(row["name"], 0)
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on the "

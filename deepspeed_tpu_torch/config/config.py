@@ -36,8 +36,6 @@ _NOT_PORTED = ("prefix_cache", "speculative", "elastic", "autoscale",
                "disaggregation", "router")
 ROADMAP_SERVING = ("ROADMAP.md queue 2, item \"serving modules left out "
                    "of the first slice\"")
-ROADMAP_INT8 = ("ROADMAP.md queue 2, item \"GPT-2 int8 serving (int8 "
-                "weight codes, the int8 KV pool and its fast path)\"")
 
 
 class DeepSpeedConfigError(ValueError):

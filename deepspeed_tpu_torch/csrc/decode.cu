@@ -10,10 +10,17 @@
 //   decode_attention_int8_stacked, decode_attention_fp_stacked
 //                           (:565, :794, kernel _decode_attn_stacked_kernel
 //                            :643)
-// for bf16 activations: GPT-2's LayerNorm/bias/gelu_tanh contract with bf16
-// weights, and LLaMA's RMSNorm/bias-free/SwiGLU one with bf16 weights or
-// int8 codes and per-layer scales; head dim 64 or 128, GQA query rows, a
-// bf16 KV cache or (head dim 128) an int8 one with per-row fp32 scales.
+// and the four unstacked ones, which compute the stacked kernels' function
+// at one layer and run their device code with a one-layer view (a null
+// layer pointer reads as layer 0):
+//   matvec_int8             (:75, kernel _matvec_kernel :63)
+//   decode_attention_int8   (:163, kernel _decode_attn_kernel :110)
+//   ln_qkv_int8             (:245, kernel _ln_qkv_kernel :225)
+//   out_ffn_int8            (:359, kernel _out_ffn_kernel :320)
+// for bf16 activations: GPT-2's LayerNorm/bias/gelu_tanh contract and
+// LLaMA's RMSNorm/bias-free/SwiGLU one, each with bf16 weights or int8
+// codes and per-layer scales; head dim 64 or 128, GQA query rows, a bf16 KV
+// cache or an int8 one with per-row fp32 scales.
 //
 // What bounds them on the H100: bytes. At 8 slots a decode matvec does
 // 2*B = 16 flops per weight byte read, far below the ~295 flop/byte the
@@ -76,9 +83,12 @@
 //   flight match the bf16 stream. A code converts to float exactly, the
 //   products accumulate in fp32 and the sum is multiplied by s[layer], as
 //   the Pallas kernels do (w.astype(bf16), a bf16 dot, then * s).
-// - The int8 KV cache (head dim 128): a key row is 128 bytes, so 2 lanes
+// - The int8 KV cache: at head dim 128 a key row is 128 bytes, so 2 lanes
 //   own a key (64 dims each, the same four 16-byte loads as bf16's 32) and
 //   a group holds 16 keys; a lane's 4 dims of a V row are one 32-bit word.
+//   At head dim 64 a key row is 64 bytes: 2 lanes still own a key (32 dims,
+//   two 16-byte loads), so a group keeps 16 keys and a page of 16 rows
+//   holds whole groups; a lane's 2 dims of a V row are a 16-bit load.
 //   The lane that owns a key also reads its two fp32 scales. The order of
 //   operations is the Pallas kernel's (decode.py:964-991): s = q.k * scale
 //   * ks[row], the softmax sum takes the unscaled p, P.V takes
@@ -124,17 +134,23 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   return 0.5f * v * (1.f + tanhf(k0 * (v + 0.044715f * v * v * v)));
 }
 
+// jax.nn.gelu(approximate=False)
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+}
+
 // jax.nn.silu
 __device__ __forceinline__ float silu_f32(float v) {
   return v / (1.f + __expf(-v));
 }
 
 enum { PRO_COPY = 0, PRO_LN_BF16 = 1, PRO_LN_F32 = 2, PRO_RMS_BF16 = 3 };
-// EPI_BIAS: a*s (+ b); EPI_RESID: resid + a*s (+ b); EPI_SWIGLU (paired
-// gate/up launches only): silu(a_gate*s_gate) * (a_up*s_up). A null bias
-// adds nothing.
+// EPI_BIAS: a*s (+ b); EPI_RESID: resid + a*s (+ b); EPI_GELU /
+// EPI_GELU_ERF: gelu_tanh / gelu of a*s (+ b); EPI_SWIGLU (paired gate/up
+// launches only): silu(a_gate*s_gate) * (a_up*s_up). A null bias adds
+// nothing.
 enum { EPI_BIAS = 0, EPI_RESID_X1 = 1, EPI_GELU = 2, EPI_RESID = 3,
-       EPI_SWIGLU = 4 };
+       EPI_SWIGLU = 4, EPI_GELU_ERF = 5 };
 
 // bytes of one element of the kernel's input rows
 template <int PRO>
@@ -360,7 +376,7 @@ __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
   unsigned char* xs = reinterpret_cast<unsigned char*>(ut + kslice * MAXB);
   float* lnw = reinterpret_cast<float*>(xs + (size_t)B * K * in_bytes<PRO>());
   float* lnb = lnw + kslice;
-  const int l = *layer_ptr;
+  const int l = layer_ptr ? *layer_ptr : 0;
   const float s = scales[l];
   const float s2 = PAIR ? scales2[l] : 0.f;
 
@@ -515,6 +531,8 @@ __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
       out[o] = __float2bfloat16(x1);
     } else if (EPI == EPI_GELU) {
       out[o] = __float2bfloat16(gelu_tanh(a * s + bn));
+    } else if (EPI == EPI_GELU_ERF) {
+      out[o] = __float2bfloat16(gelu_erf(a * s + bn));
     } else if (EPI == EPI_SWIGLU) {
       float a2 = 0.f;
       for (int q = nsplit; q < nblk; ++q)
@@ -612,10 +630,12 @@ constexpr int kMaxRows = 8;   // R, query rows per KV head
 
 // One group of a slot's K/V rows, as one warp holds it, for head dim D and
 // a bf16 (Q8 false) or int8 (Q8 true) cache: kLanes lanes own a key,
-// kKDims dims each (32 bf16 or 64 int8 values: 64 bytes), so a group has
-// 32/kLanes keys; lane i has K[key0 + i/kLanes][kKDims*(i%kLanes) ..
-// +kKDims) and V[key0 + j][i*D/32 .. +D/32) for every key j of the group
-// (kVWords 32-bit words) and, int8, the two scales of key key0 + i/kLanes.
+// kKDims dims each (32 bf16 values, or 64 int8 at D 128 and 32 at D 64:
+// kKLoads 16-byte loads), so a group has 32/kLanes keys; lane i has
+// K[key0 + i/kLanes][kKDims*(i%kLanes) .. +kKDims) and V[key0 + j][i*D/32
+// .. +D/32) for every key j of the group (kVBytes bytes: one or two 32-bit
+// words, or at D 64 int8 a 16-bit half in the low bits of one) and, int8,
+// the two scales of key key0 + i/kLanes.
 template <bool Q8>
 struct KVScales {};
 template <>
@@ -625,13 +645,15 @@ struct KVScales<true> {
 
 template <int D, bool Q8>
 struct KVGroup : KVScales<Q8> {
-  static_assert(!Q8 || D == 128, "the int8 cache takes head dim 128");
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
   using T = typename std::conditional<Q8, int8_t, bf16>::type;
-  static constexpr int kKDims = Q8 ? 64 : 32;
+  static constexpr int kKDims = Q8 && D == 128 ? 64 : 32;
+  static constexpr int kKLoads = kKDims * (int)sizeof(T) / 16;
   static constexpr int kLanes = D / kKDims;
   static constexpr int kKeys = 32 / kLanes;
-  static constexpr int kVWords = D / 32 * (int)sizeof(T) / 4;
-  uint4 k[4];
+  static constexpr int kVBytes = D / 32 * (int)sizeof(T);
+  static constexpr int kVWords = kVBytes < 4 ? 1 : kVBytes / 4;
+  uint4 k[kKLoads];
   uint32_t v[kKeys][kVWords];
 };
 
@@ -647,17 +669,25 @@ __device__ __forceinline__ void load_group(
   const uint4* kr = reinterpret_cast<const uint4*>(
       kc + (row + lane / G::kLanes) * D + (lane % G::kLanes) * G::kKDims);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) g.k[i] = __ldg(kr + i);
-  const uint32_t* vr =
-      reinterpret_cast<const uint32_t*>(vc + row * D) + lane * G::kVWords;
+  for (int i = 0; i < G::kKLoads; ++i) g.k[i] = __ldg(kr + i);
+  if constexpr (G::kVBytes == 2) {
+    const unsigned short* vh =
+        reinterpret_cast<const unsigned short*>(vc + row * D) + lane;
 #pragma unroll
-  for (int j = 0; j < G::kKeys; ++j) {
-    if constexpr (G::kVWords == 2) {
-      const uint2 t = __ldg(reinterpret_cast<const uint2*>(vr + j * kRowWords));
-      g.v[j][0] = t.x;
-      g.v[j][1] = t.y;
-    } else {
-      g.v[j][0] = __ldg(vr + j * kRowWords);
+    for (int j = 0; j < G::kKeys; ++j) g.v[j][0] = __ldg(vh + j * (D / 2));
+  } else {
+    const uint32_t* vr =
+        reinterpret_cast<const uint32_t*>(vc + row * D) + lane * G::kVWords;
+#pragma unroll
+    for (int j = 0; j < G::kKeys; ++j) {
+      if constexpr (G::kVWords == 2) {
+        const uint2 t =
+            __ldg(reinterpret_cast<const uint2*>(vr + j * kRowWords));
+        g.v[j][0] = t.x;
+        g.v[j][1] = t.y;
+      } else {
+        g.v[j][0] = __ldg(vr + j * kRowWords);
+      }
     }
   }
   if constexpr (Q8) {
@@ -702,7 +732,7 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_kernel(
       ob[i] = __float2bfloat16(0.f);
     return;
   }
-  const int l = *layer_ptr;
+  const int l = layer_ptr ? *layer_ptr : 0;
   // keys past pos + max_step are masked for every row, as are pages past
   // the table: the Pallas grid visits page p iff p*page <= pos + max_step
   const int max_step = rows_per_step > 0 ? R / rows_per_step - 1 : 0;
@@ -739,14 +769,14 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_kernel(
       load_group<D, Q8>(nxt, kc, vc, ks, vs, group_row(g + kAttnWarps), lane);
     const int key = g * kKeys + lane / kLanes;
     // bf16: the lane's 32 dims of K as floats, each row's q.k taken in
-    // the row loop; int8: 64 dims, so each row's partial q.k is taken
-    // here, 16 dims a load, to keep the converted K out of registers
+    // the row loop; int8: 64 or 32 dims, so each row's partial q.k is
+    // taken here, 16 dims a load, to keep the converted K out of registers
     float kf[Q8 ? 1 : kKDims], dq[Q8 ? kMaxRows : 1];
     if constexpr (Q8) {
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r) dq[r] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < G::kKLoads; ++i) {
         float kc[16];
         unpack4_i8(cur.k[i].x, kc);
         unpack4_i8(cur.k[i].y, kc + 4);
@@ -817,7 +847,10 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_kernel(
           const float pj = __shfl_sync(kFull, pr, j * kLanes);
           float vf[kDims];
           if constexpr (Q8) {
-            unpack4_i8(cur.v[j][0], vf);
+            float w4[4];
+            unpack4_i8(cur.v[j][0], w4);
+#pragma unroll
+            for (int e = 0; e < kDims; ++e) vf[e] = w4[e];
           } else {
 #pragma unroll
             for (int w = 0; w < G::kVWords; ++w) {
@@ -927,6 +960,28 @@ __global__ void __launch_bounds__(256) kv_quant_kernel(
   if (lane == 0) (is_v ? vs : ks)[srow] = sc;
 }
 
+// GPT-2's out_ffn (fuse_proj, LayerNorm, gelu_tanh): three launches
+template <typename TW>
+cudaError_t out_ffn_gelu(const void* ctx, const void* x, const TW* wp,
+                         const float* sp, const float* bp, const float* ln_w,
+                         const float* ln_b, const TW* w1, const float* s1,
+                         const float* b1, const TW* w2, const float* s2,
+                         const float* b2, const int* lp, bf16* x1, float* x1f,
+                         bf16* h, bf16* out, int B, int E, int F, float eps,
+                         cudaStream_t st) {
+  cudaError_t e = matvec<PRO_COPY, EPI_RESID_X1, false, TW>(
+      ctx, nullptr, nullptr, wp, sp, bp, lp, (const bf16*)x, x1, x1f, B, E,
+      E, eps, st);
+  if (e != cudaSuccess) return e;
+  e = matvec<PRO_LN_F32, EPI_GELU, false, TW>(
+      x1f, ln_w, ln_b, w1, s1, b1, lp, nullptr, h, nullptr, B, E, F, eps,
+      st);
+  if (e != cudaSuccess) return e;
+  return matvec<PRO_COPY, EPI_RESID, false, TW>(
+      h, nullptr, nullptr, w2, s2, b2, lp, x1, out, nullptr, B, F, E, eps,
+      st);
+}
+
 template <typename TW>
 cudaError_t out_ffn_glu(const void* x1, const float* ln_w, const TW* wg,
                         const float* sg, const TW* wu, const float* su,
@@ -948,7 +1003,7 @@ extern "C" {
 
 // out [B, N] = norm(x) . W[layer] * s[layer] (+ b[layer]); rms != 0 takes
 // RMSNorm (ln_w only, no bias: pass null ln_b and b); w8 != 0: W holds
-// int8 codes (RMSNorm only)
+// int8 codes. A null layer_ptr reads layer 0 (ln_qkv_int8).
 int dstpu_ln_qkv_stacked(const void* x, const void* ln_w, const void* ln_b,
                          const void* w, const void* s, const void* b,
                          const void* layer_ptr, void* out,
@@ -959,7 +1014,11 @@ int dstpu_ln_qkv_stacked(const void* x, const void* ln_w, const void* ln_b,
         x, (const float*)ln_w, nullptr, (const int8_t*)w, (const float*)s,
         nullptr, (const int*)layer_ptr, nullptr, (bf16*)out, nullptr, B, E,
         N, eps, (cudaStream_t)stream);
-  if (w8) return (int)cudaErrorInvalidValue;
+  if (w8)
+    return (int)matvec<PRO_LN_BF16, EPI_BIAS, false, int8_t>(
+        x, (const float*)ln_w, (const float*)ln_b, (const int8_t*)w,
+        (const float*)s, (const float*)b, (const int*)layer_ptr, nullptr,
+        (bf16*)out, nullptr, B, E, N, eps, (cudaStream_t)stream);
   if (rms)
     return (int)matvec<PRO_RMS_BF16, EPI_BIAS>(
         x, (const float*)ln_w, nullptr, (const bf16*)w, (const float*)s,
@@ -986,31 +1045,52 @@ int dstpu_matvec_stacked(const void* x, const void* w, const void* s,
       (cudaStream_t)stream);
 }
 
-// Three launches on one stream: x1 (bf16 + fp32 copies), h, then out.
+// Three launches on one stream: x1 (bf16 + fp32 copies), h, then out;
+// w8 != 0: Wp, W1 and W2 hold int8 codes. A null layer_ptr reads layer 0
+// (out_ffn_int8).
 int dstpu_out_ffn_stacked(const void* ctx, const void* x, const void* wp,
                           const void* sp, const void* bp, const void* ln_w,
                           const void* ln_b, const void* w1, const void* s1,
                           const void* b1, const void* w2, const void* s2,
                           const void* b2, const void* layer_ptr,
                           void* x1, void* x1f, void* h,
-                          void* out, int B, int E, int F, float eps,
+                          void* out, int B, int E, int F, int w8, float eps,
                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int* lp = (const int*)layer_ptr;
-  cudaError_t e = matvec<PRO_COPY, EPI_RESID_X1>(
-      ctx, nullptr, nullptr, (const bf16*)wp, (const float*)sp,
-      (const float*)bp, lp, (const bf16*)x, (bf16*)x1,
-      (float*)x1f, B, E, E, eps, st);
-  if (e != cudaSuccess) return (int)e;
-  e = matvec<PRO_LN_F32, EPI_GELU>(
-      x1f, (const float*)ln_w, (const float*)ln_b, (const bf16*)w1,
-      (const float*)s1, (const float*)b1, lp, nullptr, (bf16*)h,
-      nullptr, B, E, F, eps, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)matvec<PRO_COPY, EPI_RESID>(
-      h, nullptr, nullptr, (const bf16*)w2, (const float*)s2,
-      (const float*)b2, lp, (const bf16*)x1, (bf16*)out, nullptr,
-      B, F, E, eps, st);
+  if (w8)
+    return (int)out_ffn_gelu<int8_t>(
+        ctx, x, (const int8_t*)wp, (const float*)sp, (const float*)bp,
+        (const float*)ln_w, (const float*)ln_b, (const int8_t*)w1,
+        (const float*)s1, (const float*)b1, (const int8_t*)w2,
+        (const float*)s2, (const float*)b2, lp, (bf16*)x1, (float*)x1f,
+        (bf16*)h, (bf16*)out, B, E, F, eps, st);
+  return (int)out_ffn_gelu<bf16>(
+      ctx, x, (const bf16*)wp, (const float*)sp, (const float*)bp,
+      (const float*)ln_w, (const float*)ln_b, (const bf16*)w1,
+      (const float*)s1, (const float*)b1, (const bf16*)w2, (const float*)s2,
+      (const float*)b2, lp, (bf16*)x1, (float*)x1f, (bf16*)h, (bf16*)out, B,
+      E, F, eps, st);
+}
+
+// out [B, N] = act(x . W * s + b) over int8 codes W [K, N] and one fp32
+// scale s on the card (matvec_int8); act 0: none, 1: gelu_tanh, 2: gelu
+int dstpu_matvec_int8(const void* x, const void* w, const void* s,
+                      const void* b, void* out, int B, int K, int N, int act,
+                      void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int8_t* wq = (const int8_t*)w;
+  if (act == 1)
+    return (int)matvec<PRO_COPY, EPI_GELU, false, int8_t>(
+        x, nullptr, nullptr, wq, (const float*)s, (const float*)b, nullptr,
+        nullptr, (bf16*)out, nullptr, B, K, N, 0.f, st);
+  if (act == 2)
+    return (int)matvec<PRO_COPY, EPI_GELU_ERF, false, int8_t>(
+        x, nullptr, nullptr, wq, (const float*)s, (const float*)b, nullptr,
+        nullptr, (bf16*)out, nullptr, B, K, N, 0.f, st);
+  return (int)matvec<PRO_COPY, EPI_BIAS, false, int8_t>(
+      x, nullptr, nullptr, wq, (const float*)s, (const float*)b, nullptr,
+      nullptr, (bf16*)out, nullptr, B, K, N, 0.f, st);
 }
 
 // LLaMA's out_ffn with fuse_proj=False, two launches on one stream:
@@ -1038,10 +1118,11 @@ int dstpu_out_ffn_glu_stacked(const void* x1, const void* ln_w,
                                 E, F, eps, st);
 }
 
-// q [B, H, R, D] bf16 over a bf16 cache (D 64 or 128) or an int8 one with
-// fp32 scales [.., 1, page] (D 128); R <= 8, page % 16 == 0. With a page
-// table [B, maxp] the cache is the pool [Lyr, NB, H, page, D]; without,
-// the stacked cache [Lyr, B, H, page, D] (maxp 1, NB = B). The wrapper
+// q [B, H, R, D] bf16 over a bf16 cache or an int8 one with fp32 scales
+// [.., 1, page], D 64 or 128; R <= 8, page % 16 == 0. With a page table
+// [B, maxp] the cache is the pool [Lyr, NB, H, page, D]; without, the
+// stacked cache [Lyr, B, H, page, D] (maxp 1, NB = B; a null layer_ptr
+// reads layer 0: decode_attention_int8's [B, H, L, D] cache). The wrapper
 // checks the geometry.
 int dstpu_decode_attention(const void* q, const void* k, const void* v,
                            const void* k_scale, const void* v_scale,
@@ -1062,6 +1143,11 @@ int dstpu_decode_attention(const void* q, const void* k, const void* v,
                                         pos_stride, page_table, layer_ptr,
                                         out, B, H, R, NB, page, maxp,
                                         rows_per_step, scale, st);
+  if (D == 64 && q8)
+    return (int)launch_attn<64, true>(q, k, v, k_scale, v_scale, pos,
+                                      pos_stride, page_table, layer_ptr, out,
+                                      B, H, R, NB, page, maxp, rows_per_step,
+                                      scale, st);
   if (D == 128 && q8)
     return (int)launch_attn<128, true>(q, k, v, k_scale, v_scale, pos,
                                        pos_stride, page_table, layer_ptr, out,

@@ -27,12 +27,13 @@ from deepspeed_tpu_torch.models.llama import (LlamaConfig, apply_rope,
                                               rope_rows, rope_tables)
 from deepspeed_tpu_torch.ops.attention import dot_product_attention
 from deepspeed_tpu_torch.ops.cuda.decode import (decode_attention_stacked,
-                                                 kv_quant_int8,
+                                                 fake_quant, kv_quant_int8,
                                                  ln_qkv_stacked,
                                                  matvec_stacked,
                                                  out_ffn_stacked,
                                                  quantize_rows)
 from deepspeed_tpu_torch.utils.device import resolve_device
+from deepspeed_tpu_torch.utils.sampling import pick_token
 
 # packed name → the training tree's (sub-block, leaf) under layers/blk
 _MATS = {"o_w": ("attn", "o_proj"), "gate_w": ("mlp", "gate_proj"),
@@ -249,12 +250,6 @@ def layer_weights(p, l, dtype=None):
     return w
 
 
-def _fake_quant(t):
-    """t rounded through the KV cache's int8 codes: codes * scale."""
-    codes, sc = quantize_rows(t)
-    return (codes.float() * sc).to(t.dtype)
-
-
 def block_forward(w, cfg: LlamaConfig, x, cos, sin, attention,
                   kv_quant_from=None):
     """One LLaMA block over full sequences x [B, S, E] with layer weights
@@ -281,7 +276,7 @@ def block_forward(w, cfg: LlamaConfig, x, cos, sin, attention,
     k = apply_rope(k, cos, sin).contiguous()
     ctx = attention(q, k, v, causal=True)
     if kv_quant_from is not None:
-        ctx_q = attention(q, _fake_quant(k), _fake_quant(v), causal=True)
+        ctx_q = attention(q, fake_quant(k), fake_quant(v), causal=True)
         late = torch.arange(S, device=x.device) >= kv_quant_from
         ctx = torch.where(late[:, None], ctx_q, ctx)
     x = x + ctx.transpose(1, 2).reshape(B, S, H * D) @ w["o_w"]
@@ -333,14 +328,6 @@ def _check_fast_decode(cfg: LlamaConfig, B, kv_cache_bits):
             f"config outside the fused fast-decode envelope (B={B}, "
             f"E={E}, packed qkv width {(H + 2 * Hkv) * D}, "
             f"F={cfg.intermediate_size}, kv_cache_bits={kv_cache_bits})")
-
-
-def _pick(logits, temperature, gen):
-    """Greedy argmax, or a sample from softmax(logits / t) with ``gen``."""
-    if not temperature or temperature <= 0:
-        return torch.argmax(logits, dim=-1)
-    probs = torch.softmax(logits.float() / max(float(temperature), 1e-6), -1)
-    return torch.multinomial(probs, 1, generator=gen)[:, 0]
 
 
 def _prompt_pass(p, cfg: LlamaConfig, ids, L_cache, cache_q8):
@@ -415,7 +402,7 @@ def llama_fast_generate(cfg: LlamaConfig, sparams, input_ids,
     gen = torch.Generator(device=dev).manual_seed(
         0 if rng is None else int(rng))
     logits, caches = _prompt_pass(p, cfg, ids, max_out, cache_q8)
-    tok = _pick(logits, temperature, gen)
+    tok = pick_token(logits, temperature, gen)
     out = [ids, tok[:, None]]
     if max_new_tokens > 1:
         out += [t[:, None] for t in _decode_loop(
@@ -483,6 +470,6 @@ def _decode_loop(p, cfg: LlamaConfig, caches, tok, start, steps,
                     None, Wd, sd, None, lid, act="swiglu", eps=eps,
                     norm="rms", w1b_stack=Wu, s1b=su, fuse_proj=False)
         logits = rms_norm(x, p["norm_scale"], eps) @ p["head"].T
-        tok = _pick(logits, temperature, gen)
+        tok = pick_token(logits, temperature, gen)
         offset = offset + 1
         yield tok

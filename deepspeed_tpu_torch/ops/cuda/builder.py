@@ -39,7 +39,8 @@ SIGNATURES = {
     "dstpu_flash_bwd_dq": [_P] * 7 + [_I, _I, _F, _I, _P],
     "dstpu_ln_qkv_stacked": [_P] * 8 + [_I] * 5 + [_F, _P],
     "dstpu_matvec_stacked": [_P] * 5 + [_I] * 4 + [_P],
-    "dstpu_out_ffn_stacked": [_P] * 18 + [_I, _I, _I, _F, _P],
+    "dstpu_out_ffn_stacked": [_P] * 18 + [_I] * 4 + [_F, _P],
+    "dstpu_matvec_int8": [_P] * 5 + [_I] * 4 + [_P],
     "dstpu_out_ffn_glu_stacked": [_P] * 11 + [_I] * 4 + [_F, _P],
     "dstpu_decode_attention": [_P] * 9 + [_I] * 9 + [_F, _P],
     "dstpu_kv_quant_int8": [_P] * 9 + [_I] * 8 + [_P],

@@ -1,6 +1,6 @@
 """Decode-tick kernels: CUDA (csrc/decode.cu) and their plain versions.
 
-Replaces seven Pallas kernels of ``deepspeed_tpu/ops/pallas/decode.py``:
+Replaces eleven Pallas kernels of ``deepspeed_tpu/ops/pallas/decode.py``:
 
 - ``ln_qkv_stacked``           ← ``ln_qkv_int8_stacked``    (:432, kernel :496)
 - ``matvec_stacked``           ← ``matvec_int8_stacked``    (:523, kernel :558)
@@ -10,6 +10,12 @@ Replaces seven Pallas kernels of ``deepspeed_tpu/ops/pallas/decode.py``:
 - ``decode_attention_stacked`` ← ``decode_attention_int8_stacked`` (:565) and
   ``decode_attention_fp_stacked`` (:794), kernel ``_decode_attn_stacked_kernel``
   (:643)
+- ``matvec_int8``, ``ln_qkv_int8``, ``out_ffn_int8``,
+  ``decode_attention_int8`` ← the unstacked kernels of the same names
+  (:75, :245, :359, :163): one layer's weights ``[in, out]`` and per-tensor
+  scales, an ``[B, H, L, D]`` cache. Each is its stacked counterpart at
+  one layer: the plain version calls the stacked one with a one-layer
+  view, and on CUDA the same device code runs with that view and layer 0.
 
 Layouts follow the JAX functions: weights are layer-stacked ``[L, in,
 out]`` and indexed at ``layer`` inside the kernel (on CUDA ``layer`` is
@@ -20,9 +26,10 @@ tensor takes the plain version, which implements every option of the
 JAX function; a CUDA tensor launches the kernel or raises. The CUDA
 kernels take bf16 activations with norm parameters and biases in fp32:
 GPT-2's contract (LayerNorm, biases, gelu_tanh, the fused out-projection,
-bf16 weights, the bf16 paged pool) and LLaMA's (RMSNorm, no biases,
-SwiGLU with ``fuse_proj=False``, head dim 128, GQA rows; bf16 weights or
-int8 codes, a bf16 or int8 KV cache, paged or layer-stacked).
+head dim 64) and LLaMA's (RMSNorm, no biases, SwiGLU with
+``fuse_proj=False``, head dim 128, GQA rows), each with bf16 weights or
+int8 codes and a bf16 or int8 KV cache, paged, layer-stacked or one
+layer's.
 """
 
 import math
@@ -31,7 +38,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.config.config import ROADMAP_INT8
 from deepspeed_tpu_torch.ops.cuda import builder
 
 ROADMAP_DECODE_VARIANTS = ("ROADMAP.md queue 2, item \"decode-kernel "
@@ -43,7 +49,9 @@ MAX_SLOTS = 16          # the matvec kernels' register accumulator bound
 # 1024/D keys inside a page, at most 8 query rows per KV head
 ATTN_HEAD_DIMS, PAGE_MULTIPLE, MAX_ROWS = (64, 128), 16, 8
 MAX_SMEM = 227 * 1024   # shared memory one block may use on the H100
-INT8_HEAD_DIMS = (128,)  # the int8 cache's head dims on CUDA
+INT8_HEAD_DIMS = (64, 128)  # the int8 cache's head dims on CUDA
+# matvec_int8's activations → the C entry point's act code
+ACTS = {None: 0, "gelu_tanh": 1, "gelu": 2}
 
 
 # ----------------------------------------------------------- plain versions
@@ -66,13 +74,28 @@ def _per_layer(a, l):
     return a.reshape(a.shape[0], -1)[l]
 
 
-def matvec_stacked_plain(x, w_stack, s, layer):
-    """x[B, K] · w_stack[layer] · s[layer] → [B, N] in x's dtype, bias-free
-    (``_matvec_stacked_kernel``)."""
+def _act(y, act):
+    """jax.nn.gelu(approximate=True) for "gelu_tanh", exact for "gelu"."""
+    if act == "gelu_tanh":
+        return F.gelu(y, approximate="tanh")
+    if act == "gelu":
+        return F.gelu(y)
+    if act is not None:
+        raise ValueError(f"act must be None, 'gelu_tanh' or 'gelu', got "
+                         f"{act!r}")
+    return y
+
+
+def matvec_stacked_plain(x, w_stack, s, layer, b=None, act=None):
+    """act(x[B, K] · w_stack[layer] · s[layer] (+ b[layer])) → [B, N] in
+    x's dtype, rounded once (``_matvec_stacked_kernel``; with a bias and
+    an activation, ``_matvec_kernel``)."""
     l = int(layer)
     dt = x.dtype
     y = (x.float() @ w_stack[l].to(dt).float()) * s[l].float()
-    return y.to(dt)
+    if b is not None:
+        y = y + _per_layer(b, l).float()
+    return _act(y, act).to(dt)
 
 
 def ln_qkv_stacked_plain(x, ln_w, ln_b, w_stack, s, b, layer, eps=1e-5,
@@ -121,10 +144,8 @@ def out_ffn_stacked_plain(ctx, x, wp_stack, sp, bp, ln_w, ln_b, w1_stack,
     if act == "swiglu":
         up = (u.float() @ w1b_stack[l].to(dt).float()) * s1b[l].float()
         h = F.silu(h) * up
-    elif act == "gelu_tanh":
-        h = F.gelu(h, approximate="tanh")
     else:
-        h = F.gelu(h)
+        h = _act(h, "gelu_tanh" if act == "gelu_tanh" else "gelu")
     acc = h.to(dt).float() @ w2_stack[l].to(dt).float()
     y = x1r.float() + acc * s2[l].float()
     if not rms:
@@ -146,6 +167,13 @@ def quantize_rows(t):
     tf = t.float()
     sc = torch.clamp_min(tf.abs().amax(-1, keepdim=True) * RCP_127, 1e-12)
     return torch.clamp(torch.round(tf / sc), -127, 127).to(torch.int8), sc
+
+
+def fake_quant(t):
+    """t rounded through the int8 KV cache's codes: codes * scale, in t's
+    dtype (the K/V an int8 cache serves)."""
+    codes, sc = quantize_rows(t)
+    return (codes.float() * sc).to(t.dtype)
 
 
 def kv_quant_int8_plain(k, v):
@@ -220,7 +248,7 @@ def decode_attention_stacked_plain(q, k_stack, v_stack, pos, layer,
     is never read (``_decode_attn_stacked_kernel``)."""
     B, H, R, D = q.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    l, n = int(layer), int(pos) + 1
+    l, n = int(layer), min(int(pos) + 1, k_stack.shape[3])
     keep = torch.ones(R, n, dtype=torch.bool, device=q.device)
     out = torch.empty_like(q)
     for b in range(B):
@@ -232,9 +260,62 @@ def decode_attention_stacked_plain(q, k_stack, v_stack, pos, layer,
     return out
 
 
+def _one(s, device):
+    """A per-tensor scale (a number or a one-element tensor) as the [1]
+    fp32 stack of one layer."""
+    return torch.as_tensor(s, dtype=torch.float32, device=device).reshape(1)
+
+
+def matvec_int8_plain(x, wq, scale, bias, act=None):
+    """act(x[B, E] · wq[E, N] · scale + bias) → [B, N] in x's dtype
+    (``_matvec_kernel``, decode.py:63): matvec_stacked_plain at one
+    layer."""
+    return matvec_stacked_plain(x, wq[None], _one(scale, x.device), 0,
+                                bias.reshape(1, -1), act)
+
+
+def ln_qkv_int8_plain(x, ln_w, ln_b, wq, s, b, eps=1e-5):
+    """LayerNorm(x)[B, E] rounded to x's dtype, · wq[E, N] · s + b → [B, N]
+    (``_ln_qkv_kernel``, decode.py:225): ln_qkv_stacked_plain at one
+    layer."""
+    return ln_qkv_stacked_plain(x, ln_w.reshape(1, -1), ln_b.reshape(1, -1),
+                                wq[None], _one(s, x.device),
+                                b.reshape(1, -1), 0, eps)
+
+
+def out_ffn_int8_plain(ctx, x, wp, sp, bp, ln_w, ln_b, w1, s1, b1, w2, s2,
+                       b2, act="gelu_tanh", eps=1e-5):
+    """x1 = x + ctx·wp·sp + bp (fp32 into the LayerNorm, rounded to x's
+    dtype for the last residual); y = x1 + act(LN(x1)·w1·s1 + b1)·w2·s2
+    + b2, h rounded before w2 (``_out_ffn_kernel``, decode.py:320):
+    out_ffn_stacked_plain at one layer."""
+    dev = x.device
+    return out_ffn_stacked_plain(
+        ctx, x, wp[None], _one(sp, dev), bp.reshape(1, -1),
+        ln_w.reshape(1, -1), ln_b.reshape(1, -1), w1[None], _one(s1, dev),
+        b1.reshape(1, -1), w2[None], _one(s2, dev), b2.reshape(1, -1), 0,
+        act, eps)
+
+
+def decode_attention_int8_plain(q, k_codes, k_scale, v_codes, v_scale, pos,
+                                scale=None):
+    """S=1 attention of q [B, H, 1, D] over one layer's int8 cache: codes
+    [B, H, L, D], scales [B, H, L] fp32, keys 0..pos (``_decode_attn_kernel``,
+    decode.py:110): decode_attention_stacked_plain at one layer. Scores
+    are q.k · ks · scale, the sum takes the unscaled p, P.V takes p · vs
+    rounded to q's dtype; keys past pos (and their scales) are never
+    read."""
+    return decode_attention_stacked_plain(
+        q, k_codes[None], v_codes[None], pos, 0, k_scale[None, :, :, None],
+        v_scale[None, :, :, None], scale)
+
+
 # ---------------------------------------------------------- CUDA wrappers
 
-def _check(fn, name, t, dtype, shape, device):
+def _check(fn, name, t, dtype, shape, device, align=16):
+    """t on ``device``, of ``dtype`` and ``shape``, contiguous and
+    ``align``-byte aligned (16 for what the kernels load in 16-byte
+    vectors; a per-layer scale, read as one float, needs 4)."""
     if t.device != device:
         raise ValueError(f"{fn}: {name} is on {t.device}, not {device}")
     if t.dtype != dtype:
@@ -248,8 +329,8 @@ def _check(fn, name, t, dtype, shape, device):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{fn}: {name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{fn}: {name} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{fn}: {name} must be {align}-byte aligned")
 
 
 def _split_for(n_tiles, pair=False):
@@ -320,16 +401,20 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _weight_dtype(fn, w_stack, int8_ok):
-    """The weight type a launch streams: bf16, or int8 codes where the
-    contract takes them (LLaMA's); GPT-2's int8 codes raise."""
-    if w_stack.dtype != torch.int8:
-        return torch.bfloat16
-    if not int8_ok:
-        raise NotImplementedError(
-            f"{fn}: int8 weight codes on GPT-2's contract (LayerNorm, "
-            f"biases, gelu_tanh) are not ported ({ROADMAP_INT8})")
-    return torch.int8
+def _weight_dtype(w_stack):
+    """The weight type a launch streams: int8 codes or bf16 (both
+    contracts take either)."""
+    return torch.int8 if w_stack.dtype == torch.int8 else torch.bfloat16
+
+
+def _scale_ptr(fn, name, s, device):
+    """Device pointer of a per-tensor scale: a one-element fp32 tensor on
+    the card."""
+    if not isinstance(s, torch.Tensor) or s.device != device \
+            or s.dtype != torch.float32 or s.numel() != 1:
+        raise ValueError(f"{fn}: {name} must be a one-element float32 "
+                         f"tensor on {device}")
+    return s.data_ptr()
 
 
 def ln_qkv_stacked(x, ln_w, ln_b, w_stack, s, b, layer, eps=1e-5,
@@ -343,6 +428,15 @@ def ln_qkv_stacked(x, ln_w, ln_b, w_stack, s, b, layer, eps=1e-5,
     fn = "ln_qkv_stacked"
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
+    out = _ln_qkv_launch(fn, x, ln_w, ln_b, w_stack, s, b,
+                         _scalar_ptr(fn, layer, x.device), eps, norm)
+    builder.launches[fn] += 1
+    return out
+
+
+def _ln_qkv_launch(fn, x, ln_w, ln_b, w_stack, s, b, lp, eps, norm):
+    """Check and launch ``dstpu_ln_qkv_stacked`` at layer pointer ``lp``
+    (None: layer 0)."""
     if norm not in ("layer", "rms"):
         raise ValueError(f"{fn}: norm must be 'layer' or 'rms', got "
                          f"{norm!r}")
@@ -350,10 +444,11 @@ def ln_qkv_stacked(x, ln_w, ln_b, w_stack, s, b, layer, eps=1e-5,
     dev = x.device
     B, E = x.shape
     L, _, N = w_stack.shape
-    vecs = [("ln_w", _vec(ln_w, L), (L, E)), ("s", s, (L,))]
+    _check(fn, "s", s, torch.float32, (L,), dev, align=4)
+    vecs = [("ln_w", _vec(ln_w, L), (L, E))]
     if not rms:
         vecs += [("ln_b", _vec(ln_b, L), (L, E)), ("b", _vec(b, L), (L, N))]
-    wdt = _weight_dtype(fn, w_stack, rms)
+    wdt = _weight_dtype(w_stack)
     _check(fn, "x", x, torch.bfloat16, (B, E), dev)
     _check(fn, "w_stack", w_stack, wdt, (L, E, N), dev)
     for name, t, shp in vecs:
@@ -365,14 +460,12 @@ def ln_qkv_stacked(x, ln_w, ln_b, w_stack, s, b, layer, eps=1e-5,
                              "rms_bf16" if rms else "ln_bf16", False)],
                     w_stack.element_size())
     v = {name: t for name, t, _ in vecs}
-    lp = _scalar_ptr(fn, layer, dev)
     lib = builder.kernels()
     out = torch.empty((B, N), dtype=x.dtype, device=dev)
     lib.call("dstpu_ln_qkv_stacked", x.data_ptr(), v["ln_w"].data_ptr(),
              _ptr(v.get("ln_b")), w_stack.data_ptr(), s.data_ptr(),
              _ptr(v.get("b")), lp, out.data_ptr(), B, E, N, int(rms),
              int(wdt == torch.int8), float(eps), _stream(dev))
-    builder.launches[fn] += 1
     return out
 
 
@@ -387,10 +480,10 @@ def matvec_stacked(x, w_stack, s, layer):
     dev = x.device
     B, K = x.shape
     L, _, N = w_stack.shape
-    wdt = _weight_dtype(fn, w_stack, True)
+    wdt = _weight_dtype(w_stack)
     _check(fn, "x", x, torch.bfloat16, (B, K), dev)
     _check(fn, "w_stack", w_stack, wdt, (L, K, N), dev)
-    _check(fn, "s", s, torch.float32, (L,), dev)
+    _check(fn, "s", s, torch.float32, (L,), dev, align=4)
     if not 1 <= B <= MAX_SLOTS or K % 8 or N % 8:
         raise ValueError(f"{fn}: needs 1 <= B <= {MAX_SLOTS} and K, N "
                          f"multiples of 8, got B={B} K={K} N={N}")
@@ -424,20 +517,16 @@ def out_ffn_stacked(ctx, x, wp_stack, sp, bp, ln_w, ln_b, w1_stack, s1,
     fn = "out_ffn_stacked"
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
-    gpt2 = (act, norm, fuse_proj) == ("gelu_tanh", "layer", True) \
-        and w1b_stack is None
-    llama = (act, norm, fuse_proj) == ("swiglu", "rms", False) \
-        and w1b_stack is not None
-    if not (gpt2 or llama):
-        raise NotImplementedError(
-            f"{fn}: the CUDA kernels take act='gelu_tanh', norm='layer', "
-            f"fuse_proj=True or act='swiglu', norm='rms', fuse_proj=False; "
-            f"got act={act!r} norm={norm!r} fuse_proj={fuse_proj} "
-            f"({ROADMAP_DECODE_VARIANTS})")
+    if _out_ffn_contract(fn, act, norm, fuse_proj, w1b_stack) == "gpt2":
+        out = _out_ffn_gelu_launch(fn, ctx, x, wp_stack, sp, bp, ln_w, ln_b,
+                                   w1_stack, s1, b1, w2_stack, s2, b2,
+                                   _scalar_ptr(fn, layer, x.device), eps)
+        builder.launches[fn] += 1
+        return out
     dev = x.device
     B, E = x.shape
     L, _, Fd = w1_stack.shape
-    wdt = _weight_dtype(fn, w1_stack, llama)
+    wdt = _weight_dtype(w1_stack)
     _check(fn, "x", x, torch.bfloat16, (B, E), dev)
     _check(fn, "w1_stack", w1_stack, wdt, (L, E, Fd), dev)
     _check(fn, "w2_stack", w2_stack, wdt, (L, Fd, E), dev)
@@ -447,46 +536,82 @@ def out_ffn_stacked(ctx, x, wp_stack, sp, bp, ln_w, ln_b, w1_stack, s1,
     lp = _scalar_ptr(fn, layer, dev)
     h = torch.empty((B, Fd), dtype=x.dtype, device=dev)
     out = torch.empty((B, E), dtype=x.dtype, device=dev)
-    if llama:
-        ln_w = _vec(ln_w, L)
-        _check(fn, "w1b_stack", w1b_stack, wdt, (L, E, Fd), dev)
-        for name, t, shp in (("ln_w", ln_w, (L, E)), ("s1", s1, (L,)),
-                             ("s1b", s1b, (L,)), ("s2", s2, (L,))):
-            _check(fn, name, t, torch.float32, shp, dev)
-        _check_launches(fn, B, [("gate/up", E, Fd, "rms_bf16", True),
-                                ("down", Fd, E, "copy", False)],
-                        w1_stack.element_size())
-        builder.kernels().call(
-            "dstpu_out_ffn_glu_stacked", x.data_ptr(), ln_w.data_ptr(),
-            w1_stack.data_ptr(), s1.data_ptr(),
-            w1b_stack.data_ptr(), s1b.data_ptr(), w2_stack.data_ptr(),
-            s2.data_ptr(), lp, h.data_ptr(), out.data_ptr(), B, E, Fd,
-            int(wdt == torch.int8), float(eps), _stream(dev))
-        builder.launches[fn] += 1
-        return out
-    vecs = {"sp": (sp, (L,)), "s1": (s1, (L,)), "s2": (s2, (L,)),
-            "bp": (_vec(bp, L), (L, E)), "ln_w": (_vec(ln_w, L), (L, E)),
+    ln_w = _vec(ln_w, L)
+    _check(fn, "w1b_stack", w1b_stack, wdt, (L, E, Fd), dev)
+    for name, t, shp in (("ln_w", ln_w, (L, E)), ("s1", s1, (L,)),
+                         ("s1b", s1b, (L,)), ("s2", s2, (L,))):
+        _check(fn, name, t, torch.float32, shp, dev)
+    _check_launches(fn, B, [("gate/up", E, Fd, "rms_bf16", True),
+                            ("down", Fd, E, "copy", False)],
+                    w1_stack.element_size())
+    builder.kernels().call(
+        "dstpu_out_ffn_glu_stacked", x.data_ptr(), ln_w.data_ptr(),
+        w1_stack.data_ptr(), s1.data_ptr(),
+        w1b_stack.data_ptr(), s1b.data_ptr(), w2_stack.data_ptr(),
+        s2.data_ptr(), lp, h.data_ptr(), out.data_ptr(), B, E, Fd,
+        int(wdt == torch.int8), float(eps), _stream(dev))
+    builder.launches[fn] += 1
+    return out
+
+
+def _out_ffn_contract(fn, act, norm, fuse_proj, w1b_stack):
+    """Which contract an out_ffn call on CUDA takes, "gpt2" or "llama";
+    raises NotImplementedError, naming ROADMAP, on any other (exact gelu
+    among them)."""
+    if (act, norm, fuse_proj) == ("gelu_tanh", "layer", True) \
+            and w1b_stack is None:
+        return "gpt2"
+    if (act, norm, fuse_proj) == ("swiglu", "rms", False) \
+            and w1b_stack is not None:
+        return "llama"
+    raise NotImplementedError(
+        f"{fn}: the CUDA kernels take act='gelu_tanh', norm='layer', "
+        f"fuse_proj=True or act='swiglu', norm='rms', fuse_proj=False; "
+        f"got act={act!r} norm={norm!r} fuse_proj={fuse_proj} "
+        f"({ROADMAP_DECODE_VARIANTS})")
+
+
+def _out_ffn_gelu_launch(fn, ctx, x, wp_stack, sp, bp, ln_w, ln_b, w1_stack,
+                         s1, b1, w2_stack, s2, b2, lp, eps):
+    """Check and launch GPT-2's out_ffn (``dstpu_out_ffn_stacked``, three
+    launches) at layer pointer ``lp`` (None: layer 0)."""
+    dev = x.device
+    B, E = x.shape
+    L, _, Fd = w1_stack.shape
+    wdt = _weight_dtype(w1_stack)
+    _check(fn, "x", x, torch.bfloat16, (B, E), dev)
+    _check(fn, "w1_stack", w1_stack, wdt, (L, E, Fd), dev)
+    _check(fn, "w2_stack", w2_stack, wdt, (L, Fd, E), dev)
+    if not 1 <= B <= MAX_SLOTS or E % 8 or Fd % 8:
+        raise ValueError(f"{fn}: needs 1 <= B <= {MAX_SLOTS} and E, F "
+                         f"multiples of 8, got B={B} E={E} F={Fd}")
+    scales = {"sp": sp, "s1": s1, "s2": s2}
+    for name, t in scales.items():
+        _check(fn, name, t, torch.float32, (L,), dev, align=4)
+    vecs = {"bp": (_vec(bp, L), (L, E)), "ln_w": (_vec(ln_w, L), (L, E)),
             "ln_b": (_vec(ln_b, L), (L, E)), "b1": (_vec(b1, L), (L, Fd)),
             "b2": (_vec(b2, L), (L, E))}
     _check(fn, "ctx", ctx, torch.bfloat16, (B, E), dev)
-    _check(fn, "wp_stack", wp_stack, torch.bfloat16, (L, E, E), dev)
+    _check(fn, "wp_stack", wp_stack, wdt, (L, E, E), dev)
     for name, (t, shp) in vecs.items():
         _check(fn, name, t, torch.float32, shp, dev)
     _check_launches(fn, B, [("out-projection", E, E, "copy", False),
                             ("up", E, Fd, "ln_f32", False),
-                            ("down", Fd, E, "copy", False)])
+                            ("down", Fd, E, "copy", False)],
+                    w1_stack.element_size())
+    h = torch.empty((B, Fd), dtype=x.dtype, device=dev)
+    out = torch.empty((B, E), dtype=x.dtype, device=dev)
     x1 = torch.empty((B, E), dtype=x.dtype, device=dev)
     x1f = torch.empty((B, E), dtype=torch.float32, device=dev)
-    v = {k: t for k, (t, _) in vecs.items()}
+    v = {**{k: t for k, (t, _) in vecs.items()}, **scales}
     builder.kernels().call(
         "dstpu_out_ffn_stacked", ctx.data_ptr(), x.data_ptr(),
         wp_stack.data_ptr(), v["sp"].data_ptr(), v["bp"].data_ptr(),
         v["ln_w"].data_ptr(), v["ln_b"].data_ptr(), w1_stack.data_ptr(),
         v["s1"].data_ptr(), v["b1"].data_ptr(), w2_stack.data_ptr(),
         v["s2"].data_ptr(), v["b2"].data_ptr(), lp, x1.data_ptr(),
-        x1f.data_ptr(), h.data_ptr(), out.data_ptr(), B, E, Fd, float(eps),
-        _stream(dev))
-    builder.launches[fn] += 1
+        x1f.data_ptr(), h.data_ptr(), out.data_ptr(), B, E, Fd,
+        int(wdt == torch.int8), float(eps), _stream(dev))
     return out
 
 
@@ -519,8 +644,8 @@ def decode_attention_paged(q, k_pool, v_pool, pos, page_table, layer,
                            rows_per_step=None):
     """S=1 attention through a paged pool; see
     decode_attention_paged_plain. On CUDA: R <= 8 query rows per KV head
-    (GQA or multi-query), head dim 64 or 128 over a bf16 pool, 128 over an
-    int8 pool (``k_scale``/``v_scale`` [Lyr, NB, H, 1, page] fp32)."""
+    (GQA or multi-query), head dim 64 or 128 over a bf16 pool or an int8
+    one (``k_scale``/``v_scale`` [Lyr, NB, H, 1, page] fp32)."""
     fn = "decode_attention_paged"
     B, H, R, D = q.shape
     if rows_per_step is not None and R % rows_per_step:
@@ -560,15 +685,26 @@ def decode_attention_stacked(q, k_stack, v_stack, pos, layer, k_scale=None,
     D] at one position for every row; see decode_attention_stacked_plain.
     On CUDA: ``pos`` and ``layer`` are one-element int32 tensors on the
     card (the decode loop never syncs to the host), R <= 8, L a multiple
-    of 16, head dim 64 or 128 over a bf16 cache, 128 over an int8 one.
-    The paged kernel's body runs it with slot b's keys as one page of L
-    rows in block b."""
+    of 16, head dim 64 or 128 over a bf16 or an int8 cache. The paged
+    kernel's body runs it with slot b's keys as one page of L rows in
+    block b."""
     fn = "decode_attention_stacked"
     if q.device.type == "cpu":
         return decode_attention_stacked_plain(q, k_stack, v_stack, pos,
                                               layer, k_scale, v_scale, scale)
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
+    out = _stacked_attention_launch(fn, q, k_stack, v_stack, pos,
+                                    _scalar_ptr(fn, layer, q.device),
+                                    k_scale, v_scale, scale)
+    builder.launches[fn] += 1
+    return out
+
+
+def _stacked_attention_launch(fn, q, k_stack, v_stack, pos, lp, k_scale,
+                              v_scale, scale):
+    """Check and launch ``dstpu_decode_attention`` over a layer-stacked
+    cache at layer pointer ``lp`` (None: layer 0)."""
     dev = q.device
     B, H, R, D = q.shape
     Lyr, _, _, L, _ = k_stack.shape
@@ -579,12 +715,116 @@ def decode_attention_stacked(q, k_stack, v_stack, pos, layer, k_scale=None,
                          f"{PAGE_MULTIPLE}, got {L}")
     pp = _scalar_ptr(fn, pos, dev, "pos")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    lp = _scalar_ptr(fn, layer, dev)
     lib = builder.kernels()
     out = torch.empty_like(q)
     lib.call("dstpu_decode_attention", q.data_ptr(), k_stack.data_ptr(),
              v_stack.data_ptr(), _ptr(k_scale), _ptr(v_scale), pp, None, lp,
              out.data_ptr(), B, H, R, D, B, L, 1, 0, 0, scale, _stream(dev))
+    return out
+
+
+# ------------------------------------------- the unstacked (one-layer) forms
+
+def _cuda_fn(fn, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {t.device}")
+    return t.device
+
+
+def matvec_int8(x, wq, scale, bias, act=None):
+    """act(x[B, E] · wq[E, N] · scale + bias) → [B, N]; see
+    matvec_int8_plain. On CUDA: int8 codes ``wq``, ``scale`` a
+    one-element fp32 tensor on the card, ``bias`` fp32 [N], ``act`` None,
+    "gelu_tanh" or "gelu" (exact), B <= 16."""
+    if x.device.type == "cpu":
+        return matvec_int8_plain(x, wq, scale, bias, act)
+    fn = "matvec_int8"
+    dev = _cuda_fn(fn, x)
+    if act not in ACTS:
+        raise ValueError(f"{fn}: act must be one of {list(ACTS)}, got "
+                         f"{act!r}")
+    if wq.dtype != torch.int8:
+        raise NotImplementedError(
+            f"{fn}: the CUDA kernel streams int8 codes, got {wq.dtype} "
+            f"weights ({ROADMAP_DECODE_VARIANTS})")
+    B, K = x.shape
+    N = wq.shape[1]
+    _check(fn, "x", x, torch.bfloat16, (B, K), dev)
+    _check(fn, "wq", wq, torch.int8, (K, N), dev)
+    _check(fn, "bias", bias, torch.float32, (N,), dev)
+    sp = _scale_ptr(fn, "scale", scale, dev)
+    if not 1 <= B <= MAX_SLOTS or K % 8 or N % 8:
+        raise ValueError(f"{fn}: needs 1 <= B <= {MAX_SLOTS} and E, N "
+                         f"multiples of 8, got B={B} E={K} N={N}")
+    _check_launches(fn, B, [("projection", K, N, "copy", False)], 1)
+    out = torch.empty((B, N), dtype=x.dtype, device=dev)
+    builder.kernels().call("dstpu_matvec_int8", x.data_ptr(), wq.data_ptr(),
+                           sp, bias.data_ptr(), out.data_ptr(), B, K, N,
+                           ACTS[act], _stream(dev))
+    builder.launches[fn] += 1
+    return out
+
+
+def ln_qkv_int8(x, ln_w, ln_b, wq, s, b, eps=1e-5):
+    """LayerNorm + packed projection over one layer's weights wq [E, N]
+    (int8 codes or bf16) · s + b; see ln_qkv_int8_plain. On CUDA ``s`` is
+    a one-element fp32 tensor on the card."""
+    if x.device.type == "cpu":
+        return ln_qkv_int8_plain(x, ln_w, ln_b, wq, s, b, eps)
+    fn = "ln_qkv_int8"
+    dev = _cuda_fn(fn, x)
+    _scale_ptr(fn, "s", s, dev)
+    out = _ln_qkv_launch(fn, x, ln_w.reshape(1, -1), ln_b.reshape(1, -1),
+                         wq[None], s.reshape(1), b.reshape(1, -1), None, eps,
+                         "layer")
+    builder.launches[fn] += 1
+    return out
+
+
+def out_ffn_int8(ctx, x, wp, sp, bp, ln_w, ln_b, w1, s1, b1, w2, s2, b2,
+                 act="gelu_tanh", eps=1e-5):
+    """Out-projection + residual + LayerNorm + FFN + residual over one
+    layer's weights (int8 codes or bf16) and per-tensor scales; see
+    out_ffn_int8_plain. On CUDA: act "gelu_tanh" (three launches), the
+    scales one-element fp32 tensors on the card."""
+    if x.device.type == "cpu":
+        return out_ffn_int8_plain(ctx, x, wp, sp, bp, ln_w, ln_b, w1, s1, b1,
+                                  w2, s2, b2, act, eps)
+    fn = "out_ffn_int8"
+    dev = _cuda_fn(fn, x)
+    _out_ffn_contract(fn, act, "layer", True, None)
+    for name, t in (("sp", sp), ("s1", s1), ("s2", s2)):
+        _scale_ptr(fn, name, t, dev)
+    out = _out_ffn_gelu_launch(
+        fn, ctx, x, wp[None], sp.reshape(1), bp.reshape(1, -1),
+        ln_w.reshape(1, -1), ln_b.reshape(1, -1), w1[None], s1.reshape(1),
+        b1.reshape(1, -1), w2[None], s2.reshape(1), b2.reshape(1, -1), None,
+        eps)
+    builder.launches[fn] += 1
+    return out
+
+
+def decode_attention_int8(q, k_codes, k_scale, v_codes, v_scale, pos,
+                          scale=None):
+    """S=1 attention of q [B, H, 1, D] over one layer's int8 cache (codes
+    [B, H, L, D], scales [B, H, L] fp32) at keys 0..pos; see
+    decode_attention_int8_plain. On CUDA ``pos`` is a one-element int32
+    tensor on the card, L a multiple of 16, head dim 64 or 128; blocks
+    past pos are not read."""
+    if q.device.type == "cpu":
+        return decode_attention_int8_plain(q, k_codes, k_scale, v_codes,
+                                           v_scale, pos, scale)
+    fn = "decode_attention_int8"
+    dev = _cuda_fn(fn, q)
+    B, H, S, D = q.shape
+    L = k_codes.shape[2]
+    if S != 1:
+        raise ValueError(f"{fn}: the decode kernel takes S=1, got S={S}")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _check(fn, name, t, torch.float32, (B, H, L), dev)
+    out = _stacked_attention_launch(
+        fn, q, k_codes[None], v_codes[None], pos, None,
+        k_scale.view(1, B, H, 1, L), v_scale.view(1, B, H, 1, L), scale)
     builder.launches[fn] += 1
     return out
 
@@ -607,7 +847,7 @@ def kv_quant_int8(k, v, out=None, layer=None, blocks=None, rows=None):
     With ``out=None`` returns (k codes, k scale [B, H, 1], v codes, v
     scale), the JAX function's signature. With ``out = (k codes, k scale,
     v codes, v scale)`` of a cache, writes them in place at layer
-    ``layer`` and returns ``out``:
+    ``layer`` (None: 0) and returns ``out``:
 
     - the paged pool ([Lyr, NB, H, page, D] codes, [Lyr, NB, H, 1, page]
       scales): slot b's row goes to block ``blocks[b]``, row ``rows[b]``;
@@ -621,7 +861,7 @@ def kv_quant_int8(k, v, out=None, layer=None, blocks=None, rows=None):
         codes = kv_quant_int8_plain(k, v)
         if out is None:
             return codes
-        l = int(layer)
+        l = 0 if layer is None else int(layer)
         b = torch.arange(k.shape[0]) if blocks is None else blocks.long()
         r = rows.long().reshape(-1).expand(k.shape[0])
         kq, ksc, vq, vsc = codes
@@ -655,7 +895,7 @@ def kv_quant_int8(k, v, out=None, layer=None, blocks=None, rows=None):
                 ("v codes", out[2], torch.int8, (Lyr, NB, H, L, D)),
                 ("v scale", out[3], torch.float32, (Lyr, NB, H, 1, L))):
             _check(fn, name, t, dt, shp, dev)
-        lp = _scalar_ptr(fn, layer, dev)
+        lp = None if layer is None else _scalar_ptr(fn, layer, dev)
         if blocks is None:
             if NB != B:
                 raise ValueError(f"{fn}: a stacked cache holds {NB} slots, "

@@ -24,10 +24,10 @@ LLaMA takes the packed serving weights (``models.llama_inference``)::
                                   init_serving_params(cfg, seed=0),
                                   config={"serving": {...}})
 
-LLaMA also serves int8: ``"quantize_bits": 8`` quantizes the weights to
-int8 codes with per-layer scales when the engine is built (an int8 tree
-is taken as it is) and ``"kv_cache_bits": 8`` holds the pool as int8
-codes with per-row scales. GPT-2 raises on either, naming ROADMAP.
+Both families also serve int8: ``"quantize_bits": 8`` quantizes the
+weights to int8 codes with per-layer scales when the engine is built (an
+int8 tree is taken as it is) and ``"kv_cache_bits": 8`` holds the pool as
+int8 codes with per-row scales.
 
 ``device=None`` means CUDA, and raises when there is no card; pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels.
@@ -80,9 +80,10 @@ def build_engine(family: str, model_config, params, config=None,
     """Build a ContinuousBatcher for ``family``:
 
     - ``"gpt2"``: ``params`` is the port's stacked weight dict
-      (``models.gpt2.init_params``) or a JAX GPT-2 tree of
-      numpy-convertible arrays (training, scan-stacked or unrolled, or
-      converted inference), carried across by
+      (``models.gpt2.init_params``, or its int8 codes from
+      ``models.gpt2_inference.quantize_gpt2_inference_params``) or a JAX
+      GPT-2 tree of numpy-convertible arrays (training, scan-stacked or
+      unrolled, or converted inference, fp or int8), carried across by
       ``models.gpt2_inference.from_jax_params``;
     - ``"llama"``: ``params`` is the port's packed weight dict
       (``models.llama_inference.init_serving_params``) or a JAX LLaMA

@@ -1,9 +1,9 @@
 """GPT-2 and LLaMA adapters for the continuous-batching serving engine.
 
-Port of ``deepspeed_tpu/serving/adapters.py`` (GPT-2: the fp pool and
-bf16/fp32 weights; LLaMA: also int8 weight codes and the int8 pool;
-LLaMA's prefix sharing, ``verify`` and ``prefill_suffix`` are not
-ported). Two kinds of device work per engine:
+Port of ``deepspeed_tpu/serving/adapters.py`` (both families: bf16/fp32
+weights or int8 weight codes, a bf16/fp32 pool or an int8 one; prefix
+sharing, ``verify`` and ``prefill_suffix`` are not ported). Two kinds of
+device work per engine:
 
 - ``tick``: decode steps over the whole slot set — per-slot positions,
   paged-attention reads through the page table, idle slots masked by
@@ -28,8 +28,7 @@ import math
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.config.config import ROADMAP_INT8
-from deepspeed_tpu_torch.models import llama_inference
+from deepspeed_tpu_torch.models import gpt2_inference, llama_inference
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config
 from deepspeed_tpu_torch.models.gpt2_inference import (block_forward,
                                                        layer_norm)
@@ -160,24 +159,22 @@ class _PagedAdapter:
 
 class GPT2ServingAdapter(_PagedAdapter):
     """Paged serving over the port's stacked GPT-2 weights (see
-    ``models/gpt2_inference.as_serving_params``)."""
+    ``models/gpt2_inference.as_serving_params``): bf16/fp32 or int8 codes
+    with one scale a layer, a bf16/fp32 or (``kv_cache_bits=8``) int8
+    pool. ``quantize_bits=8`` quantizes fp weights when the adapter is
+    built (``serving/adapters.py:251-255``)."""
 
     def __init__(self, cfg: GPT2Config, params, spec: PagedCacheSpec,
                  device, quantize_bits=0):
-        for key, bits, what in (
-                ("kv_cache_bits", spec.kv_cache_bits, "the int8 KV pool"),
-                ("quantize_bits", quantize_bits, "int8 weight codes")):
-            if bits == 8:
-                raise NotImplementedError(
-                    f"serving.{key}: 8 ({what}) is not ported for GPT-2 "
-                    f"({ROADMAP_INT8})")
         if not cfg.tie_word_embeddings or cfg.n_embd % cfg.n_head:
             raise ValueError("paged GPT-2 serving needs the tied-embedding "
                              "LM head and n_embd a multiple of n_head")
+        if quantize_bits == 8 and not gpt2_inference.is_int8(params):
+            params = gpt2_inference.quantize_gpt2_inference_params(params)
         super().__init__(cfg, params, spec, device, cfg.n_layer, cfg.n_head)
-        # bf16/fp32 stacks run the weight kernels with scale 1, as JAX does
-        self._ones = torch.ones(cfg.n_layer, dtype=torch.float32,
-                                device=self.device)
+        # ((stack, [L] scales) of qkv, o-projection, up, down): bf16/fp32
+        # stacks run with scale 1, as in JAX
+        self._w = gpt2_inference.weight_stacks(params)
 
     def max_prompt_len(self):
         return self.cfg.n_positions
@@ -189,37 +186,28 @@ class GPT2ServingAdapter(_PagedAdapter):
         Updates ``pool`` in place and returns (pool, tokens [steps, B],
         last-step logits [B, V] fp32)."""
         cfg, p = self.cfg, self.p
-        E, H, D = cfg.n_embd, cfg.n_head, cfg.head_dim
-        eps = cfg.layer_norm_epsilon
         toks = self._as(toks, torch.long)
         pos = self._as(pos, torch.int32)
         pt = self._as(pt, torch.int32)
         idxs = np.asarray(idxs)
-        ones = self._ones
-        kc, vc = pool
-        B = toks.shape[0]
+        kc, vc = pool[0], pool[len(pool) // 2]        # (k, [ks,] v, [vs])
+        scales = {"k_scale": pool[1], "v_scale": pool[3]} \
+            if len(pool) == 4 else {}
+        scale = 1.0 / math.sqrt(cfg.head_dim)
+
+        def attend(l, lid, qh, k3, v3):     # at this step's blk_ids, rows, pos
+            _append_rows(pool, l, lid, blk_ids, rows, k3, v3)
+            return decode_attention_paged(qh, kc, vc, pos, pt, lid,
+                                          scale=scale, **scales)
         out, logits32 = [], None
         for t in range(steps):
             x = p["wte"][toks] + p["wpe"][pos.clamp(0, cfg.n_positions - 1)
                                           .long()]
             blk_ids, rows = _gather_blocks(pt, pos, self.spec.page_size)
             for l in range(cfg.n_layer):
-                lid = self._layer_ids[l]
-                qkv = ln_qkv_stacked(x, p["ln1_w"], p["ln1_b"],
-                                     p["attn_qkvw"], ones, p["attn_qkvb"],
-                                     lid, eps=eps)
-                qh = qkv[:, :E].reshape(B, H, 1, D).contiguous()
-                k3 = qkv[:, E:2 * E].reshape(B, H, D)
-                v3 = qkv[:, 2 * E:].reshape(B, H, D)
-                _append_rows(pool, l, lid, blk_ids, rows, k3, v3)
-                ctx = decode_attention_paged(qh, kc, vc, pos, pt, lid,
-                                             scale=1.0 / math.sqrt(D))
-                x = out_ffn_stacked(
-                    ctx.reshape(B, E), x, p["attn_ow"], ones, p["attn_ob"],
-                    p["ln2_w"], p["ln2_b"], p["inter_w"], ones,
-                    p["inter_b"], p["output_w"], ones, p["output_b"], lid,
-                    act="gelu_tanh", eps=eps)
-            u = layer_norm(x, p["ln_f_w"], p["ln_f_b"], eps)
+                x = gpt2_inference.decode_layer(p, cfg, self._w, x, l,
+                                                self._layer_ids[l], attend)
+            u = layer_norm(x, p["ln_f_w"], p["ln_f_b"], cfg.layer_norm_epsilon)
             logits = u @ p["wte"].T
             toks, logits32 = _pick_next(logits, seeds, idxs + t, temps)
             out.append(toks)
@@ -230,7 +218,8 @@ class GPT2ServingAdapter(_PagedAdapter):
         """Prompt pass over ids [1, Sp] (Sp = len(pages) * page, zero
         padded past ``length``): writes every row of the bucket, pad rows
         included, into ``pages`` and returns (pool, fp32 logits [V] at
-        position length - 1)."""
+        position length - 1). int8 codes are dequantized one layer at a
+        time (the prefill's ``deq``)."""
         cfg, p = self.cfg, self.p
         ids = self._as(ids, torch.long)
         pages = self._as(pages, torch.long)

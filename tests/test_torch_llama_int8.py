@@ -518,13 +518,18 @@ def test_int8_kernel_limits_admit_rounding_and_reject_a_fault(key):
 
 
 def test_gpt2_contract_refuses_int8_weights_naming_roadmap():
-    """int8 codes stream on LLaMA's contract and stay refused on GPT-2's
-    (LayerNorm, biases, gelu_tanh), naming ROADMAP."""
+    """int8 codes stream on both contracts, GPT-2's (LayerNorm, biases,
+    gelu_tanh) as LLaMA's; with int8 weights as with bf16, GPT-2's
+    out_ffn still refuses exact gelu on CUDA, naming ROADMAP."""
     w8 = torch.zeros(1, 8, 8, dtype=torch.int8)
-    assert decode._weight_dtype("t", w8, True) == torch.int8
-    assert decode._weight_dtype("t", w8.bfloat16(), False) == torch.bfloat16
+    assert decode._weight_dtype(w8) == torch.int8
+    assert decode._weight_dtype(w8.bfloat16()) == torch.bfloat16
+    assert decode._out_ffn_contract("t", "gelu_tanh", "layer", True,
+                                    None) == "gpt2"
+    assert decode._out_ffn_contract("t", "swiglu", "rms", False,
+                                    w8) == "llama"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode._weight_dtype("t", w8, False)
+        decode._out_ffn_contract("t", "gelu", "layer", True, None)
 
 
 # ------------------------------------------------------------ on the card
@@ -642,5 +647,6 @@ def test_cuda_int8_weight_kernels_match_plain(cuda_device):
                            out_ffn_stacked(*args, _lid(dev), **kw),
                            out_ffn_stacked_plain(*args, LAYER, **kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ln_qkv_stacked(x, ln_w, ln_w, w, s, torch.zeros(3, N, device=dev),
-                       _lid(dev))
+        out_ffn_stacked(x, x, w[:, :, :E].contiguous(), s, ln_w, ln_w, ln_w,
+                        wg, s, torch.zeros(3, F, device=dev), wd, s, ln_w,
+                        _lid(dev), act="gelu")

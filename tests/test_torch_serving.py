@@ -135,13 +135,16 @@ def test_serving_config_block_validation():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingConfig({"serving": {sub: {}}})
     ServingConfig({"serving": {"prefix_cache": {"enabled": False}}})
-    # int8 serving is LLaMA's: the block takes it, a GPT-2 engine raises
+    # int8 serving: the block takes it, and a GPT-2 engine built with it
+    # holds int8 codes (quantize_bits) or an int8 pool (kv_cache_bits)
     _, cfg = _cfgs()
     params = init_params(cfg, seed=0, device="cpu")
     for bits in ("kv_cache_bits", "quantize_bits"):
         assert getattr(ServingConfig({"serving": {bits: 8}}), bits) == 8
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_engine(cfg, params, **{bits: 8})
+        eng = _port_engine(cfg, params, **{bits: 8})
+        assert (eng.adapter.p["attn_qkvw"].dtype == torch.int8) == (
+            bits == "quantize_bits")
+        assert len(eng.cache.pool) == (4 if bits == "kv_cache_bits" else 2)
 
 
 def test_build_engine_defaults_to_cuda():
@@ -154,10 +157,14 @@ def test_build_engine_defaults_to_cuda():
         serving.build_engine("gpt2", cfg, {}, config={"serving": SERVING})
     with pytest.raises(RuntimeError, match="device=\"cpu\""):
         init_params(cfg, seed=0)
-    # LLaMA int8 serving is ported; GPT-2's int8 trees are not
-    int8_tree = {"wte": np.zeros((256, 128), np.float32), "h": {"blk": {
-        "attn_qkvw": {"kernel_q": np.zeros(1, np.int8)}}}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # GPT-2's int8 trees carry across, all four layer matrices quantized
+    # or none: a half-quantized tree is refused
+    blk = {name: {"kernel": np.zeros(1, np.float32)}
+           for name in ("attn_qkvw", "attn_ow", "inter_w", "output_w")}
+    blk["attn_qkvw"] = {"kernel_q": np.zeros(1, np.int8)}
+    int8_tree = {"wte": np.zeros((256, 128), np.float32),
+                 "h": {"blk": blk}}
+    with pytest.raises(ValueError, match="all four layer matrices"):
         serving.build_engine("gpt2", cfg, int8_tree, device="cpu")
 
 
