@@ -1,7 +1,8 @@
 """Chip smoke for deepspeed_tpu_torch: GPT-2 large and LLaMA-7B paged
 serving (each in bf16 and in int8), GPT-2 large ``generate()`` through
-the fused inference layer, LLaMA-7B's dense fast path and GPT-2 large
-training on one NVIDIA GPU, through the hand-written CUDA kernels.
+the fused inference layer, LLaMA-7B's dense fast path, GPT-2 large
+training and BERT-large pretraining with block-sparse attention on one
+NVIDIA GPU, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -106,26 +107,60 @@ Phases, one JSON line each, each with its wall ``seconds``:
                gradients through the kernels against the same step
                through the plain versions, every leaf at a row-relative
                limit, and a planted fault (a k tile left out of dq)
-               that the limit must reject.
+               that the limit must reject;
+7. kernel, bert_kernels — the three block-sparse kernels (forward, dq,
+               dk/dv) at BERT's main shape (B 4, H 16, S 4096, D 64,
+               block 16, the per-head Fixed layout of the config below:
+               16 tables, density 0.262), a shared BigBird layout at
+               block 64 (one collapsed table) and a layout with an empty
+               row, each held against its plain version; a planted fault
+               each at the main shape (a k-block left out of one row's
+               table, a q-block out of one column's); timed there beside
+               the plain versions, SDPA over the layout expanded to a
+               boolean mask (forward; forward + backward for the
+               backward rows) and the port's dense non-causal flash
+               forward + backward (bench.py's bench_sparse_attention
+               comparison);
+8. train_bert_sparse — the GPT-2 engine freed, ``initialize`` of
+               BertForPreTraining at BERT-large's full width and depth
+               (E 1024, 24 layers, 16 heads of 64, vocab 30522; bf16
+               compute, fp32 masters, Adam lr 1e-4 as bench.py's
+               bench_bert) with DeepSpeed's documented sparse_attention
+               block (fixed, block 16, 4 local, 1 global, 4 patterns per
+               head) turned into the layout by config_to_sparsity +
+               sparse_config_for; seeded weights of 512 positions
+               extended to 4096 (extend_position_embedding); 2 warm-up +
+               10 timed ``train_batch`` steps on 4 x 4096 tokens with 15 %
+               MLM and NSP labels and no attention_mask: step time,
+               tokens and sequences/s, model TFLOP/s (6N per token plus
+               12·L·B·(active blocks)·block²·D of attention), MFU, peak
+               memory, every step's loss (finite, falling), and exactly
+               24 launches a step of each block-sparse kernel (none of
+               flash or of the masked-dense path);
+9. bert_grad_check — a 2-layer BERT of the same width and layout config
+               at 16 x 256 tokens: loss and every gradient leaf through
+               the kernels against the plain versions, and a planted
+               fault (the last k-block of every row left out of dq).
 
 Each path counts its kernels' launches from 0 just before its run: each
 serve run for the decode kernels and the prefill forward, the fast
 path's timed runs (and its bf16-cache run) for its kernels, each
-generate() case's timed runs, the train run for the flash kernels. A
-kernel has a row for each path it runs on ("serve", "serve_gpt2_int8",
-"generate_gpt2", "generate_gpt2_bf16", "generate_gpt2_step",
-"serve_llama", "serve_llama_int8", "generate_llama",
-"generate_llama_kv0", "train"); each row of the kernels line is timed
-and bounded at its path's shapes and carries that path's launches
-(matvec_int8's row: no path, 0). "generate_gpt2_kv8" (bf16 weights, an
+generate() case's timed runs, the train run for the flash kernels, the
+BERT train run for the block-sparse kernels. A kernel has a row for each
+path it runs on ("serve", "serve_gpt2_int8", "generate_gpt2",
+"generate_gpt2_bf16", "generate_gpt2_step", "serve_llama",
+"serve_llama_int8", "generate_llama", "generate_llama_kv0", "train",
+"train_bert_sparse"); each row of the kernels line is timed and bounded
+at its path's shapes and carries that path's launches (matvec_int8's
+row: no path, 0). "generate_gpt2_kv8" (bf16 weights, an
 int8 cache, B 8) runs decode_attention_int8 alone, at the shape of its
 generate_gpt2_step row; its launches are checked exactly in its case.
 
 With ``--profile`` each serve is repeated under torch.profiler (device
 time by kernel name, the device's idle share, the torch ops' host time)
 and cProfile (the host's Python by function), one b1 run of each fast
-path (LLaMA's, GPT-2's int8) and three train steps under
-torch.profiler.
+path (LLaMA's, GPT-2's int8), three train steps and three BERT steps
+under torch.profiler.
 
 It then prints the nvidia-smi line, a ``kernels`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -199,9 +234,36 @@ GRAD_RTOL = 3e-2
 # the same check's fp32 losses, relative: measured on an H100 1.2e-5
 # (11.07650 against 11.07636)
 LOSS_RTOL = 1e-3
+# the BERT grad check (2 layers at BERT-large's width, 16 x 256 tokens):
+# each row is measured against at least BERT_GRAD_FLOOR of its leaf's RMS
+# row norm, since the pooler's and the NSP head's kernels are sums of 16
+# outer products of one token's vectors, whose rows near 0 carry bf16
+# rounding at the size of the others. Measured on an H100 at this floor:
+# 0.066 at most (seq_relationship.kernel), 0.035 in the FFN kernels,
+# 0.013 median over 38 leaves; the planted fault 0.25 (attn_qkvw). At
+# GPT-2's floor 1e-3 the NSP kernel alone reached 0.36-0.39; with the
+# main path's 4096 tokens in one row the fault (one of 67 blocks a row)
+# fell under the error
+BERT_GRAD_FLOOR = 0.3
+BERT_GRAD_RTOL = 0.12
+# BERT-large pretraining with block-sparse attention: DeepSpeed's
+# documented sparse_attention example, bench.py's bench_bert optimizer
+# (Adam, lr 1e-4, bf16), positions 512 extended to 4096, 4 x 4096 tokens
+BERT_SPARSE = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
+               "num_local_blocks": 4, "num_global_blocks": 1,
+               "attention": "bidirectional",
+               "horizontal_global_attention": False,
+               "num_different_global_patterns": 4}
+BERT_BATCH, BERT_SEQ, BERT_POSITIONS = 4, 4096, 512
+BERT_WARMUP, BERT_STEPS = 2, 10
+BLOCKSPARSE_KERNELS = ("blocksparse_fwd", "blocksparse_bwd_dq",
+                       "blocksparse_bwd_dkv")
 # the train profile's kernel groups, by words in the kernel's name
 # (first match wins)
 TRAIN_KERNEL_GROUPS = (
+    ("blocksparse_dkv", ("bs_dkv",)),
+    ("blocksparse_dq", ("bs_dq",)),
+    ("blocksparse_fwd", ("bs_fwd",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv",)),
     ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("flash_fwd", ("flash_fwd",)),
@@ -306,6 +368,13 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _source(name):
+    """The CUDA source of a kernel, by its wrapper's name."""
+    if "flash" in name:
+        return "flash_attention"
+    return "blocksparse" if "blocksparse" in name else "decode"
+
+
 def record(results, name, path, replaces, checks, ms, call_ms, plain_ms,
            bound_ms_by, cases, fault, library_ms=None, lse_err=None,
            limit=None):
@@ -321,8 +390,7 @@ def record(results, name, path, replaces, checks, ms, call_ms, plain_ms,
     f_rel = min(c[2] for c in checks if c[2] is not None)
     results.append({
         "name": name, "path": path, "route": "cuda",
-        "source": f"deepspeed_tpu_torch/csrc/"
-                  f"{'flash_attention' if 'flash' in name else 'decode'}.cu",
+        "source": f"deepspeed_tpu_torch/csrc/{_source(name)}.cu",
         "replaces": replaces, "launches": 0, "max_abs_err": max(abs_errs),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms})
@@ -1168,7 +1236,7 @@ def grad_check_phase(n_layer=2):
                              f"({f_err[f_worst]:.3g}) passes the check")
 
 
-def train_profile_phase(engine, batch, steps=3):
+def train_profile_phase(engine, batch, steps=3, phase="train_profile"):
     """``--profile``: ``steps`` train steps under torch.profiler: device
     time by kernel name and the device's idle share of the window."""
     from torch.profiler import ProfilerActivity, profile
@@ -1190,7 +1258,7 @@ def train_profile_phase(engine, batch, steps=3):
         group = next((g for g, words in TRAIN_KERNEL_GROUPS
                       if any(w in key for w in words)), "other")
         groups[group] = groups.get(group, 0.0) + e.device_time_total
-    emit({"phase": "train_profile", "steps": steps, "wall_s": wall_s,
+    emit({"phase": phase, "steps": steps, "wall_s": wall_s,
           "device_busy_s": busy_us / 1e6,
           "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
           "groups_ms_per_step": {g: us / 1e3 / steps for g, us in
@@ -1201,6 +1269,414 @@ def train_profile_phase(engine, batch, steps=3):
                        / steps,
                        "share_of_busy": e.device_time_total / busy_us}
                       for e in top]})
+
+
+# ------------------------------------------------------ BERT, block-sparse
+
+def bert_ds_config(batch=BERT_BATCH):
+    """bench.py's bench_bert config (bf16, Adam lr 1e-4) with DeepSpeed's
+    documented sparse_attention block."""
+    return {"train_batch_size": batch, "bf16": {"enabled": True},
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+            "sparse_attention": dict(BERT_SPARSE), "steps_per_print": 1000}
+
+
+def bert_model_config(n_layer=24, positions=BERT_SEQ):
+    """BERT-large (bf16 compute) whose layout comes from the config's
+    sparse_attention block, as a user builds it: config_to_sparsity, then
+    sparse_config_for."""
+    from deepspeed_tpu_torch.config.config import SparseAttentionConfig
+    from deepspeed_tpu_torch.models.bert import bert_large
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils \
+        import SparseAttentionUtils
+    from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import \
+        config_to_sparsity
+    cfg = bert_large(dtype=torch.bfloat16, num_hidden_layers=n_layer,
+                     max_position_embeddings=positions)
+    layout = config_to_sparsity(SparseAttentionConfig(bert_ds_config()),
+                                cfg.num_attention_heads)
+    return SparseAttentionUtils.sparse_config_for(cfg, layout)
+
+
+def bert_weights(cfg, seed=0):
+    """Seeded weights of a 512-position model on the card, its position
+    table extended to cfg's by extend_position_embedding (the reference's
+    long-sequence recipe): a state dict for ``initialize``."""
+    from deepspeed_tpu_torch.models.bert import BertForPreTraining
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils \
+        import SparseAttentionUtils
+    small = BertForPreTraining(dataclasses.replace(
+        cfg, max_position_embeddings=BERT_POSITIONS), device="cuda")
+    small.reset_parameters(torch.Generator(device="cuda").manual_seed(seed))
+    return SparseAttentionUtils.extend_position_embedding(
+        small.state_dict(), cfg.max_position_embeddings)
+
+
+def bert_batch(cfg, batch=BERT_BATCH, seq=BERT_SEQ):
+    """bench_bert's batch at ``seq``: seeded ids, 15 % MLM labels, NSP
+    labels, zero token types and no attention_mask (so the kernels run),
+    on the card."""
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, cfg.vocab_size, size=(batch, seq)).astype(np.int32)
+    mlm = np.where(rs.rand(batch, seq) < 0.15, ids, -100).astype(np.int32)
+    nsp = rs.randint(0, 2, size=(batch,)).astype(np.int32)
+    return {k: torch.as_tensor(v, device="cuda") for k, v in (
+        ("input_ids", ids), ("token_type_ids", np.zeros_like(ids)),
+        ("mlm_labels", mlm), ("nsp_labels", nsp))}
+
+
+def bert_loss(model, batch):
+    from deepspeed_tpu_torch.models.bert import pretraining_loss
+    return pretraining_loss(
+        model(batch["input_ids"], None, batch["token_type_ids"]), batch)
+
+
+def drop_last(tables, line=None, transposed=False):
+    """``tables`` with the last listed block left out: of row (column, when
+    ``transposed``) ``line`` of table 0, or with ``line`` None of every
+    row (column) that lists more than one: a planted fault."""
+    field = "counts_t" if transposed else "counts"
+    counts = getattr(tables, field).clone()
+    if line is None:
+        counts -= (counts > 1).to(counts.dtype)
+    else:
+        counts[0, line] -= 1
+    return dataclasses.replace(tables, **{field: counts})
+
+
+def _fewest(counts):
+    """The row of a [TH, nb] count table's table 0 with the fewest (> 1)
+    listed blocks: where one block left out shows most."""
+    c = counts[0].clone()
+    c[c < 2] = c.max() + 1
+    return int(c.argmin())
+
+
+def bert_kernel_phase(gen):
+    """The three block-sparse kernels at the main path's shape (B 4, H 16,
+    S 4096, D 64, block 16, the per-head Fixed layout: 16 tables), a
+    shared BigBird layout at block 64 (one collapsed table) and a layout
+    with empty rows, each held against its plain version; planted faults
+    at the main shape (a k-block left out of one row's table for the
+    forward and dq, a q-block out of one column's for dk/dv); timed there
+    beside the plain versions, SDPA over the layout expanded to a boolean
+    mask and the port's dense non-causal flash forward + backward."""
+    from deepspeed_tpu_torch.ops.cuda import blocksparse as bs
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import tolerance
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention \
+        import _expand_layout_mask
+    from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import \
+        BigBirdSparsityConfig
+    cfg = bert_model_config()
+    B, H, S, D, block = BERT_BATCH, cfg.num_attention_heads, BERT_SEQ, 64, \
+        cfg.sparsity_config.block
+    main = cfg.sparsity_config.make_layout(S)
+    np.random.seed(0)
+    bigbird = BigBirdSparsityConfig(
+        num_heads=H, block=64, num_random_blocks=1,
+        num_sliding_window_blocks=3, num_global_blocks=1).make_layout(S)
+    empty = main[:2, :64, :64].copy()
+    empty[:, 5] = 0                                   # row 5 attends nothing
+    cases = (("main", main, block, B, H, S), ("bigbird_b64", bigbird, 64, 1,
+                                              H, S),
+             ("empty_row", empty, block, 1, 2, 1024))
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    checks = {name: [] for name in BLOCKSPARSE_KERNELS}
+    lse_err, info = 0.0, []
+    for label, layout, blk, b, h, s in cases:
+        tables = bs.layout_tables(layout, s, blk, h, "cuda")
+        q, k, v, do = (rnd(b * h, s, D) for _ in range(4))
+        o, lse = bs.blocksparse_fwd(q, k, v, tables)
+        o_p, lse_p = bs.blocksparse_fwd_plain(q, k, v, tables)
+        delta = (do.float() * o_p).sum(-1)
+        args = (q, k, v, do, lse_p, delta)
+        dq = bs.blocksparse_bwd_dq(*args, tables)
+        dk, dv = bs.blocksparse_bwd_dkv(*args, tables)
+        dq_p = bs.blocksparse_bwd_dq_plain(*args, tables)
+        dk_p, dv_p = bs.blocksparse_bwd_dkv_plain(*args, tables)
+        f_o = f_dq = f_dk = f_dv = None
+        if label == "main":
+            row, col = _fewest(tables.counts), _fewest(tables.counts_t)
+            f_o = bs.blocksparse_fwd_plain(q, k, v,
+                                           drop_last(tables, row))[0]
+            f_dq = bs.blocksparse_bwd_dq_plain(*args, drop_last(tables, row))
+            f_dk, f_dv = bs.blocksparse_bwd_dkv_plain(
+                *args, drop_last(tables, col, transposed=True))
+        checks["blocksparse_fwd"].append(held("blocksparse_fwd", o, o_p, f_o))
+        lse_err = max(lse_err, tolerance.check_lse(lse, lse_p,
+                                                   "blocksparse_fwd"))
+        checks["blocksparse_bwd_dq"].append(
+            held("blocksparse_bwd_dq", dq, dq_p, f_dq))
+        checks["blocksparse_bwd_dkv"] += [
+            held("blocksparse_bwd_dkv", dk, dk_p, f_dk),
+            held("blocksparse_bwd_dkv", dv, dv_p, f_dv)]
+        nb = s // blk
+        info.append({"case": label, "B": b, "H": h, "S": s, "D": D,
+                     "block": blk, "table_heads": tables.heads,
+                     "density": float(np.asarray(layout)[:, :nb, :nb].mean()),
+                     "max_blocks_a_row": int(tables.counts.max()),
+                     "max_blocks_a_column": int(tables.counts_t.max()),
+                     "empty_rows": int((tables.counts == 0).sum())})
+        del o, lse, o_p, lse_p, dq, dk, dv, dq_p, dk_p, dv_p, f_o, f_dq, \
+            f_dk, f_dv, q, k, v, do, delta, args
+        torch.cuda.empty_cache()
+
+    # timing at the main path's shape
+    tables = bs.layout_tables(main, S, block, H, "cuda")
+    q, k, v, do = (rnd(B * H, S, D) for _ in range(4))
+    o, lse = bs.blocksparse_fwd(q, k, v, tables)
+    delta = (do.float() * o).sum(-1)
+    args = (q, k, v, do, lse, delta, tables)
+    active = B * int(np.asarray(main).sum())          # (b, h, row, col) blocks
+    pair = block * block * D
+    io = nbytes(q, k, v)
+    rows = []
+    mask = _expand_layout_mask(main, block, S, "cuda")[None]
+    q4, k4, v4, do4 = (t.view(B, H, S, D) for t in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_fwd_ms = time_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask), reps=5,
+                          inner=2)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+    out = sdpa(qg, kg, vg, attn_mask=mask)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do4, retain_graph=True), reps=5, inner=2)
+    del out, qg, kg, vg
+    for name, fn, plain, flops, nbytes_, replaces, fault, lib in (
+            ("blocksparse_fwd", lambda: bs.blocksparse_fwd(q, k, v, tables),
+             lambda: bs.blocksparse_fwd_plain(q, k, v, tables),
+             4 * pair * active, io + nbytes(o, lse),
+             "deepspeed_tpu/ops/pallas/blocksparse.py:107",
+             "one k-block left out of one row's table", sdpa_fwd_ms),
+            ("blocksparse_bwd_dq", lambda: bs.blocksparse_bwd_dq(*args),
+             lambda: bs.blocksparse_bwd_dq_plain(*args),
+             4 * pair * active, io + nbytes(do, lse, delta, q),
+             "deepspeed_tpu/ops/pallas/blocksparse.py:187",
+             "one k-block left out of one row's table",
+             sdpa_fwd_ms + sdpa_bwd_ms),
+            ("blocksparse_bwd_dkv", lambda: bs.blocksparse_bwd_dkv(*args),
+             lambda: bs.blocksparse_bwd_dkv_plain(*args),
+             6 * pair * active, io + nbytes(do, lse, delta) + 2 * nbytes(o),
+             "deepspeed_tpu/ops/pallas/blocksparse.py:250",
+             "one q-block left out of one column's transposed table",
+             sdpa_fwd_ms + sdpa_bwd_ms)):
+        ms = time_graph_ms(lambda i, fn=fn: fn(), n=8, reps=5)
+        call_ms = time_ms(fn, reps=5, inner=4)
+        plain_ms = time_ms(plain, reps=3, inner=1, warmup=1)
+        record(rows, name, "train_bert_sparse", replaces, checks[name], ms,
+               call_ms, plain_ms, bound(nbytes_, flops), info, fault,
+               library_ms=lib, lse_err=lse_err if "fwd" in name else None)
+    del args, o, lse, delta, mask
+    torch.cuda.empty_cache()
+    # bench_sparse_attention's comparison: the port's dense non-causal
+    # flash forward + backward at the same shape
+    f_o, f_lse = fa.flash_attention_fwd(q4, k4, v4)
+    f_delta = (do4.float() * f_o.float()).sum(-1)
+    flash_ms = time_graph_ms(lambda i: fa.flash_attention_fwd(q4, k4, v4),
+                             n=4, reps=5) + sum(
+        time_graph_ms(lambda i, fn=fn: fn(q4, k4, v4, do4, f_lse, f_delta),
+                      n=4, reps=5)
+        for fn in (fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq))
+    sparse_ms = sum(row["ms"] for row in rows)
+    emit({"phase": "bert_kernels", "cases": info,
+          "sparse_fwd_bwd_us": sparse_ms * 1e3,
+          "dense_flash_us": flash_ms * 1e3,
+          "dense_over_sparse": flash_ms / sparse_ms,
+          "sdpa_masked_fwd_us": sdpa_fwd_ms * 1e3,
+          "sdpa_masked_fwd_bwd_us": (sdpa_fwd_ms + sdpa_bwd_ms) * 1e3})
+    del q, k, v, do, q4, k4, v4, do4, f_o, f_lse, f_delta
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_bert_sparse_phase(warmup=BERT_WARMUP, steps=BERT_STEPS):
+    """``initialize`` + ``train_batch`` of BertForPreTraining at BERT-large's
+    full width and depth, every layer's attention through the block-sparse
+    kernels; returns (engine, batch, the run's kernel launches)."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.bert import BertForPreTraining
+    from deepspeed_tpu_torch.ops.cuda import builder
+    cfg = bert_model_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, _, _, _ = ds.initialize(config=bert_ds_config(),
+                                    model=BertForPreTraining(cfg),
+                                    model_parameters=bert_weights(cfg),
+                                    loss_fn=bert_loss)
+    batch = bert_batch(cfg)
+    warm = [engine.train_batch(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    builder.launches.clear()             # count the main path's run only
+    t0 = time.perf_counter()
+    losses = [engine.train_batch(batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(builder.launches)
+    losses = [float(x) for x in torch.stack(warm + losses).cpu()]
+    timed = losses[warmup:]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite BERT loss: {losses}")
+    if not timed[-1] < timed[0]:
+        raise AssertionError(f"the BERT loss did not fall: {timed}")
+    L = cfg.num_hidden_layers
+    expect = {name: L * steps for name in BLOCKSPARSE_KERNELS}
+    if launches != expect:             # flash, the dense path: none
+        raise AssertionError(f"train_bert_sparse launch counts {launches} "
+                             f"!= {expect}")
+    layout = np.asarray(cfg.sparsity_config.make_layout(BERT_SEQ))
+    block = cfg.sparsity_config.block
+    n_params = sum(p.numel() for p in engine.module.parameters())
+    tokens = BERT_BATCH * BERT_SEQ
+    dense_flops = 6 * n_params * tokens
+    attn_flops = 12 * L * BERT_BATCH * int(layout.sum()) * block * block \
+        * cfg.hidden_size // cfg.num_attention_heads
+    flops = dense_flops + attn_flops
+    step_s = wall_s / steps
+    emit({"phase": "train_bert_sparse", "model": "bert_large", "layers": L,
+          "params": n_params, "batch": BERT_BATCH, "seq": BERT_SEQ,
+          "positions": f"{BERT_POSITIONS} extended to {BERT_SEQ}",
+          "sparse_attention": BERT_SPARSE,
+          "layout_density": float(layout.mean()),
+          "active_blocks_a_layer": int(layout.sum()),
+          "steps": steps, "warmup_steps": warmup,
+          "init_and_warmup_s": init_s, "step_ms": step_s * 1e3,
+          "tokens_per_s": tokens / step_s,
+          "sequences_per_s": BERT_BATCH / step_s,
+          "model_tflops_per_step": flops / 1e12,
+          "attention_tflops_per_step": attn_flops / 1e12,
+          "model_tflop_per_s": flops / step_s / 1e12,
+          "mfu": flops / step_s / BF16_FLOP_PER_S,
+          "step_floor_ms": flops / BF16_FLOP_PER_S * 1e3,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "launches_per_step":
+              {k: v / steps for k, v in launches.items()},
+          "losses": losses})
+    return engine, batch, launches
+
+
+class _PlainBlockSparse(torch.autograd.Function):
+    """Block-sparse attention through the kernels' plain versions, forward
+    and backward: the BERT grad check's reference. With ``drop`` the dq
+    pass leaves the last k-block of every row out: its planted fault."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, tables, drop):
+        from deepspeed_tpu_torch.ops.cuda import blocksparse as bs
+        o, lse = bs.blocksparse_fwd_plain(q, k, v, tables)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.tables, ctx.drop = tables, drop
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from deepspeed_tpu_torch.ops.cuda import blocksparse as bs
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = (do.float() * o).sum(-1)
+        do = do.to(q.dtype)
+        t = ctx.tables
+        dq = bs.blocksparse_bwd_dq_plain(q, k, v, do, lse, delta,
+                                         drop_last(t) if ctx.drop else t)
+        dk, dv = bs.blocksparse_bwd_dkv_plain(q, k, v, do, lse, delta, t)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+class PlainSparseAttention:
+    """A stand-in for a layer's ``SparseSelfAttention`` that runs
+    ``_PlainBlockSparse`` on the same layout."""
+
+    def __init__(self, op, drop=False):
+        self.op, self.drop = op, drop
+
+    def __call__(self, q, k, v, key_padding_mask=None, **_):
+        from deepspeed_tpu_torch.ops.cuda import blocksparse as bs
+        B, H, S, D = q.shape
+        block = self.op.sparsity_config.block
+        tables = bs.layout_tables(self.op.get_layout(S), S, block, H,
+                                  q.device)
+        flat = [t.reshape(B * H, S, D).contiguous() for t in (q, k, v)]
+        o = _PlainBlockSparse.apply(*flat, tables, self.drop)
+        return o.to(q.dtype).reshape(B, H, S, D)
+
+
+def bert_loss_and_grads(model, batch, plain=None):
+    """(loss, gradients) of one step of ``model``, every layer's sparse
+    attention swapped for ``PlainSparseAttention(op, drop=plain)`` unless
+    ``plain`` is None (the kernels)."""
+    layers = list(model.bert.encoder.layer)
+    ops = [layer.sparse for layer in layers]
+    if plain is not None:
+        for layer, op in zip(layers, ops):
+            layer.sparse = PlainSparseAttention(op, drop=plain)
+    try:
+        loss = bert_loss(model, batch)
+        grads = torch.autograd.grad(loss.float(), list(model.parameters()))
+    finally:
+        for layer, op in zip(layers, ops):
+            layer.sparse = op
+    return float(loss.detach()), grads
+
+
+def bert_grad_check_phase(n_layer=2, batch=16, seq=256):
+    """A 2-layer BERT of BERT-large's width with the same layout config,
+    ``batch`` sequences of ``seq`` tokens, as ``initialize`` holds it on
+    the card: one step's loss and gradients through the kernels against
+    the same step through their plain versions, every leaf at
+    BERT_GRAD_RTOL (rows measured against at least BERT_GRAD_FLOOR of
+    their leaf's RMS row norm) and the loss at LOSS_RTOL; then through a
+    planted fault (the last k-block of every row left out of dq), which
+    the same limit must reject."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.bert import BertForPreTraining
+    from deepspeed_tpu_torch.ops.cuda import tolerance
+    cfg = bert_model_config(n_layer)
+    engine, _, _, _ = ds.initialize(config=bert_ds_config(batch),
+                                    model=BertForPreTraining(cfg),
+                                    model_parameters=bert_weights(cfg),
+                                    loss_fn=bert_loss)
+    data = bert_batch(cfg, batch=batch, seq=seq)
+    model, names = engine.module, engine.param_names
+    loss_k, grads_k = bert_loss_and_grads(model, data)
+    loss_p, grads_p = bert_loss_and_grads(model, data, plain=False)
+    loss_f, grads_f = bert_loss_and_grads(model, data, plain=True)
+
+    def errs(grads):
+        return {name: tolerance.row_rel_err(g, w, floor=BERT_GRAD_FLOOR)
+                for name, g, w in zip(names, grads, grads_p)}
+
+    def top(e, n=6):
+        return dict(sorted(e.items(), key=lambda kv: -kv[1])[:n])
+    err, f_err = errs(grads_k), errs(grads_f)
+    worst = max(err, key=err.get)
+    f_worst = max(f_err, key=f_err.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    emit({"phase": "bert_grad_check", "layers": n_layer, "batch": batch,
+          "seq": seq, "leaves": len(err), "loss_kernels": loss_k,
+          "loss_plain": loss_p, "loss_rel_err": loss_rel,
+          "loss_limit": LOSS_RTOL, "max_row_rel_err": err[worst],
+          "worst_leaf": worst,
+          "median_row_rel_err": float(np.median(list(err.values()))),
+          "limit": BERT_GRAD_RTOL, "floor": BERT_GRAD_FLOOR,
+          "worst_leaves": top(err),
+          "fault": "the last k-block of every row left out of dq (plain "
+                   "versions)", "fault_worst_leaves": top(f_err),
+          "fault_loss": loss_f, "fault_max_row_rel_err": f_err[f_worst],
+          "fault_worst_leaf": f_worst,
+          "fault_leaves_rejected": sum(e > BERT_GRAD_RTOL
+                                       for e in f_err.values())})
+    if not err[worst] <= BERT_GRAD_RTOL:
+        raise AssertionError(f"BERT grad check: {worst} row-relative error "
+                             f"{err[worst]:.3g} > {BERT_GRAD_RTOL}")
+    if not loss_rel <= LOSS_RTOL:
+        raise AssertionError(f"BERT grad check: loss {loss_k} vs plain "
+                             f"{loss_p} ({loss_rel:.3g} > {LOSS_RTOL})")
+    if not f_err[f_worst] > BERT_GRAD_RTOL:
+        raise AssertionError(f"BERT grad check: a planted fault "
+                             f"({f_err[f_worst]:.3g}) passes the check")
 
 
 def traffic(cfg, rs):
@@ -2286,6 +2762,14 @@ def main():
     torch.cuda.empty_cache()
     grad_check_phase()
     launches["train"] = train_launches
+    torch.cuda.empty_cache()
+    kernels += bert_kernel_phase(gen)
+    engine, batch, launches["train_bert_sparse"] = train_bert_sparse_phase()
+    if profile:
+        train_profile_phase(engine, batch, phase="train_bert_sparse_profile")
+    del engine, batch
+    torch.cuda.empty_cache()
+    bert_grad_check_phase()
     for row in kernels:
         if row["path"] is None:      # matvec_int8: no model path calls it
             continue

@@ -4,7 +4,8 @@ The port's own copy of what it reads of
 ``deepspeed_tpu/config/config.py``: ``DeepSpeedConfig`` (the batch
 triangle, optimizer, scheduler, fp16/bf16, gradient clipping,
 ``data_types``, the ZeRO stage) and ``ServingConfig``, with the same keys,
-defaults and validation messages. Blocks and sub-blocks whose modules are
+defaults and validation messages, and ``SparseAttentionConfig``.
+Blocks and sub-blocks whose modules are
 not ported yet raise ``NotImplementedError`` naming the ROADMAP item
 instead of being dropped on the floor.
 """
@@ -111,6 +112,60 @@ class ServingConfig:
                 f"{self.slots + 1} (fully-provisioned: {min_blocks})")
 
 
+# sparse_attention block keys and defaults (deepspeed_tpu/config/
+# constants.py:261-292)
+SPARSE_ATTENTION = "sparse_attention"
+SPARSE_DEFAULTS = {
+    "mode": "fixed",
+    "block": 16,
+    "different_layout_per_head": False,
+    "num_local_blocks": 4,
+    "num_global_blocks": 1,
+    "attention": "bidirectional",
+    "horizontal_global_attention": False,
+    "num_different_global_patterns": 1,
+    "num_random_blocks": 0,
+    "local_window_blocks": [4],
+    "global_block_indices": [0],
+    "global_block_end_indices": None,
+    "num_sliding_window_blocks": 3,
+}
+
+
+class SparseAttentionConfig:
+    """``sparse_attention`` block: the kwargs of the layout generators
+    (``ops/sparse_attention/sparsity_config.config_to_sparsity`` turns it
+    into one). As in the JAX package the engine only parses it; a model
+    takes the layout through its own config
+    (``SparseAttentionUtils.sparse_config_for``)."""
+
+    def __init__(self, param_dict):
+        d = param_dict.get(SPARSE_ATTENTION, None)
+        self.enabled = d is not None
+        d = d or {}
+
+        def get(key, cast=None):
+            value = d.get(key, SPARSE_DEFAULTS[key])
+            return cast(value) if cast else value
+
+        self.mode = get("mode")
+        self.block = get("block", int)
+        self.different_layout_per_head = get("different_layout_per_head",
+                                             bool)
+        self.num_local_blocks = get("num_local_blocks", int)
+        self.num_global_blocks = get("num_global_blocks", int)
+        self.attention = get("attention")
+        self.horizontal_global_attention = get("horizontal_global_attention",
+                                               bool)
+        self.num_different_global_patterns = get(
+            "num_different_global_patterns", int)
+        self.num_random_blocks = get("num_random_blocks", int)
+        self.local_window_blocks = get("local_window_blocks")
+        self.global_block_indices = get("global_block_indices")
+        self.global_block_end_indices = get("global_block_end_indices")
+        self.num_sliding_window_blocks = get("num_sliding_window_blocks", int)
+
+
 # -- training ----------------------------------------------------------------
 
 TRAIN_BATCH_SIZE = "train_batch_size"
@@ -130,7 +185,6 @@ ROADMAP_HOOKS = ("ROADMAP.md queue 1, item \"Engine telemetry, watchdog, "
 ROADMAP_AUX = ("ROADMAP.md queue 1, item \"Auxiliary parity\"")
 ROADMAP_LAMB_SGD = ("ROADMAP.md queue 1, item \"LAMB and SGD\"")
 ROADMAP_PIPE = ("ROADMAP.md queue 1, item \"Pipeline\"")
-ROADMAP_LONG = ("ROADMAP.md queue 1, item \"Long context\"")
 
 
 def _present(d):
@@ -179,8 +233,6 @@ _TRAINING_NOT_PORTED = {
         ROADMAP_MULTI_RANK),
     "pipeline": (lambda pd: int((pd.get("pipeline") or {})
                                 .get("stages", 1)) > 1, ROADMAP_PIPE),
-    "sparse_attention": (lambda pd: pd.get("sparse_attention") is not None,
-                         ROADMAP_LONG),
     "mesh": (lambda pd: any(int((pd.get("mesh") or {}).get(k, 1)) > 1
                             for k in ("data", "model", "pipe", "seq",
                                       "expert")), ROADMAP_MULTI_RANK),
@@ -294,6 +346,7 @@ class DeepSpeedConfig:
             self.scheduler_params = sched.get("params", {})
 
         self.serving_config = ServingConfig(pd)
+        self.sparse_attention_config = SparseAttentionConfig(pd)
         self._set_batch_related_parameters()
         if self.fp16_enabled and self.bf16_enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")

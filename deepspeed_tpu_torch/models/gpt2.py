@@ -15,13 +15,14 @@ import dataclasses
 import math
 from typing import Any, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from deepspeed_tpu_torch.models.jax_bridge import JaxTreeBridge
 from deepspeed_tpu_torch.ops.attention import dot_product_attention
+from deepspeed_tpu_torch.ops.transformer.transformer import Dense, LayerNorm
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 ROADMAP_REMAT = ("ROADMAP.md queue 1, item \"Named remat policies, "
@@ -127,50 +128,15 @@ def init_params(cfg: GPT2Config, seed: int = 0, device=None):
 
 # -- the training model ------------------------------------------------------
 
-class Dense(nn.Module):
-    """flax ``nn.Dense`` with ``dtype``/``param_dtype``: an fp32 master
-    ``kernel [in, out]`` and ``bias``, input, kernel and bias cast to the
-    compute dtype for the product."""
-
-    def __init__(self, cfg, in_dim, features, std, device=None):
-        super().__init__()
-        self.cfg, self.std = cfg, std
-        self.kernel = nn.Parameter(torch.empty(
-            in_dim, features, dtype=cfg.param_dtype, device=device))
-        self.bias = nn.Parameter(torch.empty(
-            features, dtype=cfg.param_dtype, device=device))
-
-    def reset_parameters(self, generator):
-        with torch.no_grad():
-            self.kernel.normal_(0.0, self.std, generator=generator)
-            self.bias.zero_()
-
-    def forward(self, x):
-        dt = self.cfg.dtype
-        return F.linear(x.to(dt), self.kernel.to(dt).t(), self.bias.to(dt))
+def _dense(cfg, in_dim, features, std, device):
+    """flax ``nn.Dense``: fp32 master kernel and bias, the product in the
+    compute dtype."""
+    return Dense(in_dim, features, std, cfg.dtype, cfg.param_dtype, device)
 
 
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm``: statistics, scale and bias in fp32, the
-    result in the compute dtype."""
-
-    def __init__(self, cfg, device=None):
-        super().__init__()
-        self.cfg = cfg
-        self.scale = nn.Parameter(torch.empty(cfg.n_embd, dtype=cfg.param_dtype,
-                                              device=device))
-        self.bias = nn.Parameter(torch.empty(cfg.n_embd, dtype=cfg.param_dtype,
-                                             device=device))
-
-    def reset_parameters(self, generator=None):
-        with torch.no_grad():
-            self.scale.fill_(1.0)
-            self.bias.zero_()
-
-    def forward(self, x):
-        return F.layer_norm(x.float(), (self.cfg.n_embd,), self.scale.float(),
-                            self.bias.float(),
-                            self.cfg.layer_norm_epsilon).to(self.cfg.dtype)
+def _layer_norm(cfg, device):
+    return LayerNorm(cfg.n_embd, cfg.layer_norm_epsilon, cfg.dtype,
+                     cfg.param_dtype, device)
 
 
 class SelfAttention(nn.Module):
@@ -185,9 +151,9 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         E = cfg.n_embd
-        self.c_attn = Dense(cfg, E, 3 * E, 0.02, device=device)
-        self.c_proj = Dense(cfg, E, E, 0.02 / math.sqrt(2 * cfg.n_layer),
-                            device=device)
+        self.c_attn = _dense(cfg, E, 3 * E, 0.02, device)
+        self.c_proj = _dense(cfg, E, E, 0.02 / math.sqrt(2 * cfg.n_layer),
+                             device)
 
     def forward(self, x):
         cfg = self.cfg
@@ -204,9 +170,9 @@ class MLP(nn.Module):
     def __init__(self, cfg, device=None):
         super().__init__()
         E = cfg.n_embd
-        self.c_fc = Dense(cfg, E, 4 * E, 0.02, device=device)
-        self.c_proj = Dense(cfg, 4 * E, E, 0.02 / math.sqrt(2 * cfg.n_layer),
-                            device=device)
+        self.c_fc = _dense(cfg, E, 4 * E, 0.02, device)
+        self.c_proj = _dense(cfg, 4 * E, E, 0.02 / math.sqrt(2 * cfg.n_layer),
+                             device)
 
     def forward(self, x):
         return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
@@ -217,9 +183,9 @@ class Block(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        self.ln_1 = LayerNorm(cfg, device)
+        self.ln_1 = _layer_norm(cfg, device)
         self.attn = SelfAttention(cfg, device)
-        self.ln_2 = LayerNorm(cfg, device)
+        self.ln_2 = _layer_norm(cfg, device)
         self.mlp = MLP(cfg, device)
 
     def forward(self, x):
@@ -227,7 +193,7 @@ class Block(nn.Module):
         return x + self.mlp(self.ln_2(x))
 
 
-class GPT2LMHeadModel(nn.Module):
+class GPT2LMHeadModel(JaxTreeBridge, nn.Module):
     """GPT-2 with its tied LM head, flax's parameter names.
 
     ``forward(input_ids)`` gives logits in the compute dtype;
@@ -262,7 +228,7 @@ class GPT2LMHeadModel(nn.Module):
                                             dtype=cfg.param_dtype,
                                             device=device))
         self.h = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layer))
-        self.ln_f = LayerNorm(cfg, device)
+        self.ln_f = _layer_norm(cfg, device)
 
     def reset_parameters(self, generator):
         """The JAX init (gpt2.py:537-540, :264-331): wte N(0, 0.02), wpe
@@ -307,40 +273,9 @@ class GPT2LMHeadModel(nn.Module):
                 out[name] = (tuple(parts), None)
         return out
 
-    def jax_tree(self, tensors, scan_layers=None):
-        """Port tensors (``{name: tensor}`` in ``named_parameters`` order:
-        weights, gradients or Adam moments) → the JAX-named nested dict of
-        tensors, layer-stacked under ``h/blk`` when ``scan_layers``."""
-        root, stacks = {}, {}
-        for name, (path, layer) in self.jax_paths(scan_layers).items():
-            if layer is None:
-                _set_path(root, path, tensors[name])
-            else:
-                stacks.setdefault(path, {})[layer] = tensors[name]
-        for path, by_layer in stacks.items():
-            _set_path(root, path, torch.stack(
-                [by_layer[i] for i in range(len(by_layer))]))
-        return root
-
-    def from_jax_tree(self, tree):
-        """The JAX training tree (scan-stacked or unrolled, leaves numpy or
-        torch) → ``{port name: tensor}`` on the CPU, dtypes kept."""
-        scan = "h" in tree
-        out = {}
-        for name, (path, layer) in self.jax_paths(scan).items():
-            node = tree
-            for key in path:
-                node = node[key]
-            t = node if torch.is_tensor(node) else torch.from_numpy(
-                np.array(node))
-            out[name] = t if layer is None else t[layer]
-        return out
-
-
-def _set_path(root, path, value):
-    for key in path[:-1]:
-        root = root.setdefault(key, {})
-    root[path[-1]] = value
+    @staticmethod
+    def scan_tree(tree):
+        return "h" in tree
 
 
 def _chunk_nll(h, t, wte, ignore_index):

@@ -5,8 +5,8 @@ builds the host C++ libraries): every ``csrc/*.cu`` source is compiled by
 ``nvcc`` for ``sm_90a`` with a plain C interface, one ``nvcc`` per source
 started together, then linked into one shared library under
 ``csrc/build/<hash>/`` and loaded with ``ctypes``. The hash covers the
-sources and the flags, so an edited source rebuilds and an unchanged one
-loads the cached library. A failed build raises; nothing falls back.
+sources, the headers they share (``csrc/*.cuh``) and the flags, so an
+edited source rebuilds and an unchanged one loads the cached library. A failed build raises; nothing falls back.
 
 ``launches`` counts kernel launches by wrapper name: each wrapper adds
 one where it launches its kernel, and nowhere else.
@@ -44,6 +44,9 @@ SIGNATURES = {
     "dstpu_out_ffn_glu_stacked": [_P] * 11 + [_I] * 4 + [_F, _P],
     "dstpu_decode_attention": [_P] * 9 + [_I] * 9 + [_F, _P],
     "dstpu_kv_quant_int8": [_P] * 9 + [_I] * 8 + [_P],
+    "dstpu_bs_fwd": [_P] * 7 + [_I] * 5 + [_F, _P],
+    "dstpu_bs_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _P],
+    "dstpu_bs_bwd_dkv": [_P] * 10 + [_I] * 5 + [_F, _P],
 }
 
 
@@ -88,9 +91,14 @@ def _nvcc():
                        "of deepspeed_tpu_torch cannot be built")
 
 
+def headers():
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith(".cuh"))
+
+
 def source_hash(srcs=None):
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs or sources():
+    for path in (srcs or sources()) + headers():
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
     return h.hexdigest()[:16]

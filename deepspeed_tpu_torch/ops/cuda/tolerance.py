@@ -90,9 +90,13 @@ ROW_RTOL = {"ln_qkv_stacked": 2e-3, "out_ffn_stacked": 2e-3,
             "decode_attention_stacked[int8,d64]": 1e-2,
             "decode_attention_paged[int8,d64]": 1e-2,
             "matvec_int8": 2e-3, "ln_qkv_int8": 2e-3, "out_ffn_int8": 2e-3,
-            "decode_attention_int8": 1e-2}
+            "decode_attention_int8": 1e-2,
+            # block-sparse attention: the flash kernels' limits
+            "blocksparse_fwd": 1e-2, "blocksparse_bwd_dq": 2e-2,
+            "blocksparse_bwd_dkv": 2e-2}
 # least row norm, as a share of the RMS row norm, an error is measured on
-ROW_FLOOR = {"flash_attention_bwd_dkv": 1e-3, "flash_attention_bwd_dq": 1e-3}
+ROW_FLOOR = {"flash_attention_bwd_dkv": 1e-3, "flash_attention_bwd_dq": 1e-3,
+             "blocksparse_bwd_dq": 1e-3, "blocksparse_bwd_dkv": 1e-3}
 # flash's lse is fp32 on both sides: only the summation order differs
 LSE_ATOL = 1e-3
 
@@ -135,12 +139,11 @@ def check_kernel(name, got, want):
     return err
 
 
-def check_lse(got, want):
+def check_lse(got, want, name="flash_attention_fwd"):
     """Largest absolute lse error; raises AssertionError above
     LSE_ATOL."""
     err = float((got.float() - want.float()).abs().max()) \
         if got.numel() else 0.0
     if not err <= LSE_ATOL:
-        raise AssertionError(f"flash_attention_fwd: lse error {err:.3g} > "
-                             f"{LSE_ATOL}")
+        raise AssertionError(f"{name}: lse error {err:.3g} > {LSE_ATOL}")
     return err
