@@ -1,8 +1,9 @@
 """Chip smoke for deepspeed_tpu_torch: GPT-2 large and LLaMA-7B paged
 serving (each in bf16 and in int8), GPT-2 large ``generate()`` through
 the fused inference layer, LLaMA-7B's dense fast path, GPT-2 large
-training and BERT-large pretraining with block-sparse attention on one
-NVIDIA GPU, through the hand-written CUDA kernels.
+training, BERT-large pretraining with block-sparse attention and GPT-2
+large MoQ quantize-aware training on one NVIDIA GPU, through the
+hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -140,18 +141,49 @@ Phases, one JSON line each, each with its wall ``seconds``:
 9. bert_grad_check — a 2-layer BERT of the same width and layout config
                at 16 x 256 tokens: loss and every gradient leaf through
                the kernels against the plain versions, and a planted
-               fault (the last k-block of every row left out of dq).
+               fault (the last k-block of every row left out of dq);
+10. kernel (quantize) — the grouped quantize kernel on the MoQ paths'
+               shapes: c_fc [1280, 5120] fp32 in 8 groups at 15 and 8
+               bits, wte [50304, 1280] in 8 groups, a bf16 input, and
+               train_moq_sr's leaf set (wte, wpe and the stacked [36, .]
+               leaves, 8 groups, asymmetric); nearest bit for bit against
+               the plain version beside a planted fault (one scale over
+               the whole tensor; the last chunk left out of the
+               reduction); stochastic (symmetric 8 bits on c_fc,
+               asymmetric 15 bits on each leaf shape of train_moq_sr)
+               over 256 draws of values at known fractions of a step in
+               8 groups (codes floor or ceil, the summed error within 4
+               sigma; the fault u = 0.5 fails), and over every code
+               against the plain version's draws; each timed in place by
+               CUDA-graph replay, bounded by its bytes; then a whole
+               train_moq boundary: each of the 146 leaves bit for bit at
+               15 and 12 bits, then the 146 launches against 1.85 ms;
+11. train_moq — ``initialize`` of GPT-2 large in the unrolled layout with
+               DeepSpeed's MoQ tutorial block (start 16, target 8, 8
+               groups, symmetric, period cut to 6) and 2 + 10
+               ``train_batch`` steps: the bits JAX's Quantizer gives
+               (15 → 12), exactly 146 quantize launches a step and no
+               call of the plain version, each boundary's device time
+               (CUDA events) against its bound, step time, MFU, peak
+               memory; after the last step at most 2^12 values in every
+               group of wte, h.0 c_fc and h.35 mlp c_proj, and the bf16
+               copy equal to the masters;
+12. train_moq_sr — the scan layout (MoQ quantizes wte, wpe and the 8
+               stacked bias and LayerNorm leaves: 10 launches a step)
+               with asymmetric stochastic rounding, the blend (ratio 0.75
+               → 0) and progressive layer drop, 2 + 3 steps.
 
 Each path counts its kernels' launches from 0 just before its run: each
 serve run for the decode kernels and the prefill forward, the fast
 path's timed runs (and its bf16-cache run) for its kernels, each
 generate() case's timed runs, the train run for the flash kernels, the
-BERT train run for the block-sparse kernels. A kernel has a row for each
+BERT train run for the block-sparse kernels, each MoQ run's timed steps
+for quantize. A kernel has a row for each
 path it runs on ("serve", "serve_gpt2_int8", "generate_gpt2",
 "generate_gpt2_bf16", "generate_gpt2_step", "serve_llama",
 "serve_llama_int8", "generate_llama", "generate_llama_kv0", "train",
-"train_bert_sparse"); each row of the kernels line is timed and bounded
-at its path's shapes and carries that path's launches (matvec_int8's
+"train_bert_sparse", "train_moq", "train_moq_sr"); each row of the
+kernels line is timed and bounded at its path's shapes and carries that path's launches (matvec_int8's
 row: no path, 0). "generate_gpt2_kv8" (bf16 weights, an
 int8 cache, B 8) runs decode_attention_int8 alone, at the shape of its
 generate_gpt2_step row; its launches are checked exactly in its case.
@@ -160,7 +192,7 @@ With ``--profile`` each serve is repeated under torch.profiler (device
 time by kernel name, the device's idle share, the torch ops' host time)
 and cProfile (the host's Python by function), one b1 run of each fast
 path (LLaMA's, GPT-2's int8), three train steps and three BERT steps
-under torch.profiler.
+under torch.profiler, and three MoQ steps.
 
 It then prints the nvidia-smi line, a ``kernels`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -258,6 +290,25 @@ BERT_BATCH, BERT_SEQ, BERT_POSITIONS = 4, 4096, 512
 BERT_WARMUP, BERT_STEPS = 2, 10
 BLOCKSPARSE_KERNELS = ("blocksparse_fwd", "blocksparse_bwd_dq",
                        "blocksparse_bwd_dkv")
+# MoQ training: DeepSpeed's MoQ tutorial block (start 16 bits, target 8,
+# 8 groups, symmetric nearest) with its period cut from 400 to 6 so that
+# the precision falls within the run; the bits JAX's Quantizer gives at
+# each of the 2 + 10 steps
+MOQ = {"enabled": True,
+       "quantize_bits": {"start_bits": 16, "target_bits": 8},
+       "quantize_schedule": {"quantize_period": 6, "schedule_offset": 0},
+       "quantize_groups": 8,
+       "quantize_algo": {"q_type": "symmetric", "rounding": "nearest"}}
+MOQ_SCHEDULE = [15, 14, 14, 13, 13, 13, 13, 12, 12, 12, 12, 12]
+# the other variants with progressive layer drop (DeepSpeed's PLD
+# tutorial: theta 0.5, gamma 0.001) on the scan layout, 2 + 3 steps, the
+# blend ratio after each
+MOQ_SR_WARMUP, MOQ_SR_STEPS = 2, 3
+MOQ_SR_RATIOS = [0.75, 0.5, 0.25, 0.0, 0.0]
+PLD = {"enabled": True, "theta": 0.5, "gamma": 0.001}
+# stochastic rounding held statistically: draws of a vector at known
+# fractions of a step; the summed code error within SR_Z sigma of 0
+SR_DRAWS, SR_Z = 256, 4.0
 # the train profile's kernel groups, by words in the kernel's name
 # (first match wins)
 TRAIN_KERNEL_GROUPS = (
@@ -372,6 +423,8 @@ def _source(name):
     """The CUDA source of a kernel, by its wrapper's name."""
     if "flash" in name:
         return "flash_attention"
+    if name == "quantize":
+        return "quantize"
     return "blocksparse" if "blocksparse" in name else "decode"
 
 
@@ -2654,6 +2707,474 @@ def profile_phase(eng, cfg, model, reqs_seed=1):
                         for fn, st in rows]})
 
 
+# ------------------------------------------------------------ MoQ training
+
+def moq_ds_config(moq=None, **more):
+    """bench.py's GPT-2 large training config with a quantize_training
+    block (default: MOQ)."""
+    return dict(train_ds_config(), quantize_training=dict(moq or MOQ),
+                **more)
+
+
+def moq_sr_ds_config():
+    """MOQ's bits, period and offset with asymmetric stochastic rounding,
+    the blend with the unquantized weights (ratio falling by 0.25 a
+    boundary) and progressive layer drop."""
+    moq = dict(MOQ, quantize_algo={"q_type": "asymmetric",
+                                   "rounding": "stochastic"},
+               fp16_mixed_quantize={"enabled": True,
+                                    "quantize_change_ratio": 0.25})
+    return moq_ds_config(moq, progressive_layer_drop=dict(PLD))
+
+
+def moq_leaves(model):
+    """The leaves MoQ quantizes in ``model``'s JAX layout, [(path, names,
+    stacked)], and their element count."""
+    from deepspeed_tpu_torch.runtime.quantize import eligible_leaves
+    named = dict(model.named_parameters())
+    leaves = eligible_leaves(named, model.jax_paths())
+    return leaves, sum(named[n].numel() for _, names, _ in leaves
+                       for n in names)
+
+
+def moq_leaf_shapes(scan_layers):
+    """The shapes MoQ's kernel takes at a boundary of GPT-2 large in the
+    given layout, one a leaf (a stacked leaf as [L, .]), in leaf order;
+    the model is made on the meta device."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    with torch.device("meta"):
+        model = GPT2LMHeadModel(dataclasses.replace(
+            train_model_config(), scan_layers=scan_layers))
+    leaves, _ = moq_leaves(model)
+    return [((len(names),) if stacked else ()) +
+            tuple(model.get_parameter(names[0]).shape)
+            for _, names, stacked in leaves]
+
+
+def moq_groups(shape, groups=MOQ["quantize_groups"]):
+    """The Quantizer's groups for a leaf: q_groups where they divide it."""
+    return groups if math.prod(shape) % groups == 0 else 1
+
+
+def quantize_fault(x, bits, groups, sym, kind):
+    """A planted fault of quantize, made with the plain version: "scale",
+    one scale over the whole tensor; "chunk", the last chunk of each group
+    (the kernel's last block's) left out of the reduction."""
+    from deepspeed_tpu_torch.ops.cuda import quantize as cq
+    flat = x.reshape(groups, -1).float()
+    if kind == "scale":
+        scale, zero = cq.qparams_plain(flat.reshape(1, -1), bits, sym)
+    else:
+        nblk, chunk = cq.grid(groups, flat.shape[1])
+        scale, zero = cq.qparams_plain(flat[:, :(nblk - 1) * chunk], bits,
+                                       sym)
+    return cq.apply_plain(flat, scale, zero, bits).reshape(x.shape).to(
+        x.dtype)
+
+
+def hold_nearest(x, bits_list, groups, sym, fault):
+    """Nearest rounding of x at each of ``bits_list``: the kernel bit for
+    bit against the plain version, the planted fault ``fault``
+    (quantize_fault's kind) rejected; (max abs error, least fault
+    row-relative error)."""
+    from deepspeed_tpu_torch.ops.cuda import quantize as cq
+    errs, f_errs = [], []
+    for bits in bits_list:
+        got = cq.quantize(x, bits, groups, sym)
+        want = cq.quantize_plain(x, bits, groups, sym)
+        bad = quantize_fault(x, bits, groups, sym, fault)
+        abs_err, _, f_rel = held("quantize", got, want, bad)
+        errs.append(abs_err)
+        f_errs.append(f_rel)
+        del got, want, bad
+    return max(errs), min(f_errs)
+
+
+def sr_vector(bits, sym, shape, groups, full=False):
+    """x of ``shape`` in ``groups`` groups of n values at known fractions
+    (1/8, 1/4, 3/8) of a step above whole codes, each group's range
+    pinned by anchors at the extreme codes, on the card: (x [groups, n],
+    t = x / scale or (x - min) / scale). Group g is scaled by 2^-(g % 4):
+    each group has its own scale and the same t. The values sit on the
+    lowest 64 codes (|t| <= 64), or with ``full`` on every code (as many
+    as n holds): there t reaches 2^(bits - 1) or 2^bits, and fl(t + u)
+    rounds at t's ulp (2^-9 at t ~ 2^14), which biases floor(t + u) in
+    the kernel, the plain version and JAX's quantize_jnp alike."""
+    from deepspeed_tpu_torch.ops.cuda import quantize as cq
+    n = math.prod(shape) // groups
+    hi = cq.qrange(bits, sym)[1]
+    first = -hi if sym else 0.0
+    span = hi - first if full else min(hi - first, 64.0)
+    idx = torch.arange(n, device="cuda", dtype=torch.float64)
+    codes = first + torch.remainder(idx, span)
+    frac = torch.tensor([0.125, 0.25, 0.375], device="cuda",
+                        dtype=torch.float64)[(idx % 3).long()]
+    row = (codes + frac) * 2.0 ** -7
+    row[0], row[1] = hi * 2.0 ** -7, first * 2.0 ** -7
+    g_scale = 2.0 ** -torch.remainder(
+        torch.arange(groups, device="cuda", dtype=torch.float64), 4)
+    x = (g_scale[:, None] * row[None, :]).float()
+    scale, zero = cq.qparams_plain(x, bits, sym)
+    return x, (x / scale if sym else (x - zero) / scale)
+
+
+def sr_check(draw, bits, sym, shape, groups, full=False):
+    """Stochastic rounding over SR_DRAWS draws of sr_vector: (every code
+    floor(t) or ceil(t) in the code range, the summed code error, its
+    sigma, |mean code error|). Each code's error has mean 0 and variance
+    f (1 - f), f = t - floor(t), when t + u is exact."""
+    from deepspeed_tpu_torch.ops.cuda import quantize as cq
+    x, t = sr_vector(bits, sym, shape, groups, full)
+    scale, zero = cq.qparams_plain(x, bits, sym)
+    lo, hi = cq.qrange(bits, sym)
+    fl, ce = torch.floor(t), torch.ceil(t)
+    total = torch.zeros((), dtype=torch.float64, device="cuda")
+    ok = torch.ones((), dtype=torch.bool, device="cuda")
+    for _ in range(SR_DRAWS):
+        out = draw(x).float()
+        q = torch.round(out / scale if sym else (out - zero) / scale)
+        ok &= ((q == fl) | (q == ce)).all() & (q >= lo).all() & (q <= hi).all()
+        total += (q - t).double().sum()
+    f = (t - fl).double()
+    sigma = float((f * (1 - f)).sum().sqrt()) * SR_DRAWS ** 0.5
+    return bool(ok), float(total), sigma, \
+        abs(float(total)) / (SR_DRAWS * t.numel())
+
+
+def hold_stochastic(label, bits, sym, shape, groups, gen):
+    """Stochastic rounding of sr_vector at ``shape`` in ``groups`` groups
+    held statistically: every code floor(t) or ceil(t) and the summed
+    code error within SR_Z sigma of 0, the planted fault u = 0.5 beyond
+    it, and over every code the kernel's summed error within SR_Z sigma
+    of the plain version's; the row's checks."""
+    from deepspeed_tpu_torch.ops.cuda import quantize as cq
+
+    def kernel(v):
+        return cq.quantize(v, bits, groups, sym, True, gen)
+
+    def plain(v):
+        return cq.quantize_plain(v, bits, groups, sym, True, gen)
+
+    def nearest_fault(v):
+        scale, zero = cq.qparams_plain(v, bits, sym)
+        return cq.apply_plain(v, scale, zero, bits, torch.full_like(v, 0.5))
+    ok, total, sigma, mean_err = sr_check(kernel, bits, sym, shape, groups)
+    f_ok, f_total, _, _ = sr_check(nearest_fault, bits, sym, shape, groups)
+    full_ok, k_full, sigma_full, _ = sr_check(kernel, bits, sym, shape,
+                                              groups, True)
+    _, p_full, _, _ = sr_check(plain, bits, sym, shape, groups, True)
+    z, f_z = total / sigma, f_total / sigma
+    z_diff = (k_full - p_full) / (sigma_full * math.sqrt(2.0))
+    if not (ok and abs(z) <= SR_Z):
+        raise AssertionError(f"quantize {label}: stochastic rounding "
+                             f"fails its check (codes {ok}, z {z:.3g})")
+    if f_ok and abs(f_z) <= SR_Z:
+        raise AssertionError(f"quantize {label}: the planted fault "
+                             f"(u = 0.5) passes (z {f_z:.3g})")
+    if not (full_ok and abs(z_diff) <= SR_Z):
+        raise AssertionError(
+            f"quantize {label}: over every code the kernel's summed "
+            f"error parts from the plain version's (z {z_diff:.3g})")
+    return {"max_abs_err": mean_err, "held": "statistically",
+            "draws": SR_DRAWS, "codes_floor_or_ceil": ok and full_ok,
+            "z": z, "z_limit": SR_Z, "fault_z": f_z,
+            "z_every_code_kernel": k_full / sigma_full,
+            "z_every_code_plain": p_full / sigma_full,
+            "z_every_code_kernel_vs_plain": z_diff}
+
+
+def quantize_kernel_phase(gen):
+    """``quantize`` on the MoQ paths' shapes. Nearest rounding is held bit
+    for bit against the plain version beside a planted fault; stochastic
+    rounding statistically (the fault u = 0.5). Rows: c_fc [1280, 5120]
+    fp32 in 8 groups (15 and 8 bits), wte [50304, 1280] in 8 groups with
+    an outlier in the last chunk, a bf16 input, stochastic symmetric 8
+    bits; train_moq_sr's leaf set (the scan layout: wte, wpe and the
+    stacked [36, .] bias and LayerNorm leaves, 8 groups, asymmetric) at
+    each of its shapes, nearest and stochastic; each timed in place by
+    CUDA-graph replay. Then a whole train_moq boundary (GPT-2 large's 146
+    leaves of the unrolled layout, 8 groups): every leaf held bit for bit
+    at the run's first and last bits, then timed against its 1.85 ms
+    bound. No single PyTorch call computes the grouped scale and the
+    rounding (``torch.fake_quantize_per_channel_affine`` takes the scale
+    as an input): library_ms is null."""
+    from deepspeed_tpu_torch.ops.cuda import quantize as cq
+    from deepspeed_tpu_torch.ops.cuda import tolerance
+    replaces = "deepspeed_tpu/ops/pallas/quantize.py:109"
+    results = []
+    faults = {"scale": "one scale over the whole tensor",
+              "chunk": "the last chunk of each group left out of its "
+                       "reduction (an outlier placed there)",
+              "u": "u = 0.5 (nearest rounding, half up)"}
+
+    def rnd(shape, dtype=torch.float32):
+        return (0.02 * torch.randn(shape, generator=gen, device="cuda")).to(
+            dtype)
+
+    def row(path, label, x, groups, bits, sym, stochastic, checks, fault):
+        ms = time_graph_ms(lambda i: cq.quantize(
+            x, bits, groups, sym, stochastic, out=x))
+        call_ms = time_ms(lambda: cq.quantize(x, bits, groups, sym,
+                                              stochastic, out=x))
+        plain_ms = time_ms(lambda: cq.quantize_plain(
+            x, bits, groups, sym, stochastic), reps=5, inner=1)
+        # each element read and written once; ~10 fp32 operations
+        b_ms, b_by = bound(2 * nbytes(x), 10 * x.numel(), FP32_FLOP_PER_S)
+        results.append({
+            "name": "quantize", "path": path, "route": "cuda",
+            "source": "deepspeed_tpu_torch/csrc/quantize.cu",
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": checks["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+        emit({"phase": "kernel", "name": "quantize", "path": path,
+              "case": label, "shape": list(x.shape),
+              "dtype": str(x.dtype).replace("torch.", ""), "groups": groups,
+              "bits": bits, "sym": sym, "stochastic": stochastic,
+              "kernel_us": ms * 1e3, "call_us": call_ms * 1e3,
+              "plain_us": plain_ms * 1e3, "bound_us": b_ms * 1e3,
+              "bound_by": b_by, "pct_of_bound": 100.0 * b_ms / ms,
+              "library_us": None, "fault": faults[fault], **checks})
+
+    def nearest_row(path, label, x, groups, bits_list, sym, fault):
+        err, f_err = hold_nearest(x, bits_list, groups, sym, fault)
+        row(path, label, x, groups, bits_list[0], sym, False,
+            {"max_abs_err": err, "held": "bit for bit",
+             "bits_held": list(bits_list),
+             "row_rtol": tolerance.ROW_RTOL["quantize"],
+             "fault_row_rel_err": f_err}, fault)
+
+    cases = (("c_fc", (1280, 5120), torch.float32, (15, 8), "scale"),
+             ("wte", (50304, 1280), torch.float32, (15, 12), "chunk"),
+             ("c_fc_bf16", (1280, 5120), torch.bfloat16, (8,), "scale"))
+    for label, shape, dtype, bits_list, fault in cases:
+        x = rnd(shape, dtype)
+        if fault == "chunk":          # an outlier in the last chunk
+            x.view(-1)[-1] = 0.2
+        nearest_row("train_moq", label, x, moq_groups(shape), bits_list,
+                    True, fault)
+        del x
+    shape = (1280, 5120)
+    row("train_moq_sr", "c_fc_sr", rnd(shape), moq_groups(shape), 8, True,
+        True, hold_stochastic("c_fc_sr", 8, True, shape, moq_groups(shape),
+                              gen), "u")
+    # train_moq_sr's leaf set: asymmetric, at its run's first and last bits
+    sr_bits = (MOQ_SCHEDULE[0], MOQ_SCHEDULE[MOQ_SR_WARMUP + MOQ_SR_STEPS - 1])
+    for shape in dict.fromkeys(moq_leaf_shapes(scan_layers=True)):
+        label, groups = "x".join(map(str, shape)), moq_groups(shape)
+        nearest_row("train_moq_sr", f"sr_leaf_{label}", rnd(shape), groups,
+                    sr_bits, False, "scale")
+        row("train_moq_sr", f"sr_leaf_{label}_stochastic", rnd(shape),
+            groups, sr_bits[0], False, True,
+            hold_stochastic(label, sr_bits[0], False, shape, groups, gen),
+            "u")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # a whole boundary of train_moq: GPT-2 large's 146 leaves, each held
+    # at the run's first and last bits, then timed in place
+    shapes = moq_leaf_shapes(scan_layers=False)
+    tensors = [rnd(shape) for shape in shapes]
+    n_elems = sum(t.numel() for t in tensors)
+    moq_bits = (MOQ_SCHEDULE[0], MOQ_SCHEDULE[-1])
+    errs, f_errs = zip(*(hold_nearest(t, moq_bits, moq_groups(t.shape), True,
+                                      "scale") for t in tensors))
+
+    def one(i):
+        t = tensors[i]
+        cq.quantize(t, moq_bits[0], moq_groups(t.shape), True, out=t)
+    per_ms = time_graph_ms(one, n=len(tensors))
+    plain_ms = time_ms(lambda: [cq.quantize_plain(
+        t, moq_bits[0], moq_groups(t.shape)) for t in tensors],
+        reps=3, inner=1, warmup=1)
+    b_ms, b_by = bound(2 * 4 * n_elems, 10 * n_elems, FP32_FLOP_PER_S)
+    results.append({
+        "name": "quantize", "path": "train_moq", "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/quantize.cu",
+        "replaces": replaces, "launches": 0, "max_abs_err": max(errs),
+        "ms": per_ms * len(tensors), "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None})
+    emit({"phase": "kernel", "name": "quantize", "path": "train_moq",
+          "case": "boundary", "launches_a_boundary": len(tensors),
+          "elements": n_elems, "kernel_ms": per_ms * len(tensors),
+          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "pct_of_bound": 100.0 * b_ms / (per_ms * len(tensors)),
+          "max_abs_err": max(errs), "held": "bit for bit, every leaf",
+          "bits_held": list(moq_bits),
+          "row_rtol": tolerance.ROW_RTOL["quantize"],
+          "fault": faults["scale"], "fault_row_rel_err": min(f_errs)})
+    del tensors
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results
+
+
+def _run_moq(engine, batch, warmup, steps, each_step):
+    """``warmup + steps`` train_batch steps; ``each_step(i)`` after each.
+    Returns (losses, the timed steps' wall seconds, their launches,
+    quantize launches a step, MoQ boundaries' device ms, the plain
+    version's calls). The boundaries are timed between CUDA events
+    around ``_moq_boundary``; the plain version is counted by a wrapper
+    put in its place for the run."""
+    from deepspeed_tpu_torch.ops.cuda import builder
+    from deepspeed_tpu_torch.ops.cuda import quantize as cq
+    plain, plain_calls, events = cq.quantize_plain, [0], []
+
+    def counting(*a, **k):
+        plain_calls[0] += 1
+        return plain(*a, **k)
+    boundary = engine._moq_boundary
+
+    def timed_boundary(*a):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        boundary(*a)
+        end.record()
+        events.append((start, end))
+    cq.quantize_plain, engine._moq_boundary = counting, timed_boundary
+    losses, per_step = [], []
+    try:
+        for i in range(warmup + steps):
+            if i == warmup:
+                torch.cuda.synchronize()
+                builder.launches.clear()     # count the main path's run only
+                events.clear()
+                t0 = time.perf_counter()
+            n0 = builder.launches["quantize"]
+            losses.append(engine.train_batch(batch))
+            per_step.append(builder.launches["quantize"] - n0)
+            each_step(i)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        cq.quantize_plain = plain
+        del engine._moq_boundary
+    losses = [float(x) for x in torch.stack(losses).cpu()]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite MoQ training loss: {losses}")
+    boundary_ms = [s.elapsed_time(e) for s, e in events]
+    return (losses, wall_s, dict(builder.launches), per_step, boundary_ms,
+            plain_calls[0])
+
+
+def _check_compute_copy(engine):
+    """The bf16 compute copy equals the (quantized) masters cast to bf16."""
+    for name, p, m in zip(engine.param_names, engine.compute_params,
+                          engine.master):
+        if not torch.equal(p.data, m.to(p.dtype)):
+            raise AssertionError(f"{name}: the compute copy is not the "
+                                 f"masters cast to {p.dtype}")
+
+
+def train_moq_phase(warmup=TRAIN_WARMUP, steps=TRAIN_STEPS):
+    """``initialize`` + ``train_batch`` of GPT-2 large (the train phase's
+    model in the unrolled layout, where MoQ quantizes 146 leaves) with
+    MOQ: the schedule, 146 quantize launches every step and none of the
+    plain version, each boundary's device time against its bound; after
+    the last step every group of three sampled leaves holds at most 2^12
+    values and the compute copy is the masters in bf16."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    cfg = dataclasses.replace(train_model_config(), scan_layers=False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, _, _, _ = ds.initialize(config=moq_ds_config(),
+                                    model=GPT2LMHeadModel(cfg))
+    batch = train_batch_ids()
+    leaves, n_elems = moq_leaves(engine.module)
+    bits = []
+    losses, wall_s, launches, per_step, boundary_ms, plain_calls = _run_moq(
+        engine, batch, warmup, steps,
+        lambda i: bits.append(engine.quantizer.q_start_bits[0]))
+    init_s = time.perf_counter() - t0 - wall_s
+    if bits != MOQ_SCHEDULE:
+        raise AssertionError(f"MoQ bits {bits} != {MOQ_SCHEDULE}")
+    if per_step != [len(leaves)] * (warmup + steps) or len(leaves) != 146:
+        raise AssertionError(f"quantize launches a step {per_step}, "
+                             f"{len(leaves)} leaves (146 expected)")
+    expect = {"quantize": 146 * steps,
+              **{name: cfg.n_layer * steps for name in
+                 ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                  "flash_attention_bwd_dq")}}
+    if launches != expect or plain_calls:
+        raise AssertionError(f"train_moq launches {launches} != {expect}, "
+                             f"plain calls {plain_calls}")
+    named = dict(zip(engine.param_names, engine.master))
+    distinct = {}
+    for name in ("wte", "h.0.mlp.c_fc.kernel", "h.35.mlp.c_proj.kernel"):
+        m = named[name]
+        distinct[name] = max(int(torch.unique(g).numel())
+                             for g in m.reshape(8, -1))
+        if distinct[name] > 2 ** bits[-1]:
+            raise AssertionError(f"{name}: a group holds {distinct[name]} "
+                                 f"values at {bits[-1]} bits")
+    _check_compute_copy(engine)
+    b_ms = 8 * n_elems / HBM_BYTES_PER_S * 1e3
+    step_s = wall_s / steps
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = (6 * cfg.num_params() + 12 * cfg.n_layer * TRAIN_SEQ
+             * cfg.n_embd) * tokens
+    emit({"phase": "train_moq", "model": "gpt2_large", "layers": cfg.n_layer,
+          "layout": "unrolled", "quantize_training": MOQ,
+          "moq_leaves": len(leaves), "moq_elements": n_elems,
+          "steps": steps, "warmup_steps": warmup, "init_and_warmup_s": init_s,
+          "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+          "model_tflop_per_s": flops / step_s / 1e12,
+          "mfu": flops / step_s / BF16_FLOP_PER_S,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "boundary_device_ms": boundary_ms,
+          "boundary_device_ms_median": statistics.median(boundary_ms),
+          "boundary_bound_ms": b_ms,
+          "boundary_pct_of_bound": 100.0 * b_ms
+          / statistics.median(boundary_ms),
+          "bits": bits, "quantize_launches_a_step": per_step,
+          "plain_calls": plain_calls, "distinct_values_a_group": distinct,
+          "launches": launches, "losses": losses})
+    return engine, batch, launches
+
+
+def train_moq_sr_phase(warmup=MOQ_SR_WARMUP, steps=MOQ_SR_STEPS):
+    """The same model in the scan layout (JAX's default: the layer kernels
+    are 3-D stacked leaves; MoQ quantizes wte, wpe and the 8 stacked [36,
+    .] bias and LayerNorm leaves) with moq_sr_ds_config: asymmetric
+    stochastic rounding, the blend falling 0.75 → 0, PLD; exactly one
+    launch a leaf a boundary."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    cfg = train_model_config()
+    engine, _, _, _ = ds.initialize(config=moq_sr_ds_config(),
+                                    model=GPT2LMHeadModel(cfg))
+    batch = train_batch_ids()
+    leaves, n_elems = moq_leaves(engine.module)
+    ratios = []
+    losses, wall_s, launches, per_step, boundary_ms, plain_calls = _run_moq(
+        engine, batch, warmup, steps,
+        lambda i: ratios.append(engine.quantizer.quantize_real_ratio))
+    if ratios != MOQ_SR_RATIOS:
+        raise AssertionError(f"blend ratios {ratios} != {MOQ_SR_RATIOS}")
+    if per_step != [len(leaves)] * (warmup + steps) or plain_calls:
+        raise AssertionError(f"quantize launches a step {per_step} for "
+                             f"{len(leaves)} leaves, plain calls "
+                             f"{plain_calls}")
+    _check_compute_copy(engine)
+    step_s = wall_s / steps
+    emit({"phase": "train_moq_sr", "model": "gpt2_large",
+          "layers": cfg.n_layer, "layout": "scan",
+          "quantize_training": moq_sr_ds_config()["quantize_training"],
+          "progressive_layer_drop": PLD,
+          "moq_leaves": ["/".join(p) for p, _, _ in leaves],
+          "moq_elements": n_elems, "steps": steps, "warmup_steps": warmup,
+          "step_ms": step_s * 1e3,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+          "boundary_device_ms": boundary_ms, "ratios": ratios,
+          "quantize_launches_a_step": per_step, "launches": launches,
+          "keep_prob_last": float(engine.progressive_layer_drop.theta_at(
+              engine.global_step_t)),
+          "losses": losses})
+    return launches
+
+
 def llama_int8_init(cfg):
     """The int8 engine: seed-0 bf16 weights at LLAMA_INIT_STD quantized to
     int8 codes when ``build_engine`` runs (quantize_bits 8), and the int8
@@ -2770,6 +3291,14 @@ def main():
     del engine, batch
     torch.cuda.empty_cache()
     bert_grad_check_phase()
+    torch.cuda.empty_cache()
+    kernels += quantize_kernel_phase(gen)
+    engine, batch, launches["train_moq"] = train_moq_phase()
+    if profile:
+        train_profile_phase(engine, batch, phase="train_moq_profile")
+    del engine, batch
+    torch.cuda.empty_cache()
+    launches["train_moq_sr"] = train_moq_sr_phase()
     for row in kernels:
         if row["path"] is None:      # matvec_int8: no model path calls it
             continue

@@ -223,10 +223,6 @@ _TRAINING_NOT_PORTED = {
                                                     False)), ROADMAP_HOOKS),
     "flops_profiler": (lambda pd: _enabled(pd.get("flops_profiler")),
                        ROADMAP_AUX),
-    "progressive_layer_drop": (lambda pd: _enabled(
-        pd.get("progressive_layer_drop")), ROADMAP_AUX),
-    "quantize_training (MoQ)": (lambda pd: _enabled(
-        pd.get("quantize_training")), ROADMAP_AUX),
     "activation_checkpointing": (lambda pd: any(
         (pd.get("activation_checkpointing") or {}).get(k, False)
         for k in ("partition_activations", "cpu_checkpointing")),
@@ -260,6 +256,81 @@ def _zero_offload(pd):
         or bool(z.get("cpu_offload_params", False)) \
         or any((z.get(k) or {}).get("device", "none") not in (None, "none")
                for k in ("offload_optimizer", "offload_param"))
+
+
+# MoQ quantize-aware training and progressive layer drop: the keys and
+# defaults of deepspeed_tpu/config/constants.py:508-567
+QUANTIZE_TRAINING = "quantize_training"
+QUANTIZE_DEFAULTS = {
+    "enabled": False,
+    "start_bits": 16, "target_bits": 8,
+    "quantize_period": 1000, "schedule_offset": 1000,
+    "quantize_groups": 1,
+    "fp16_mixed_quantize": False, "quantize_change_ratio": 0.001,
+    "quantize_verbose": False, "quantizer_kernel": True,
+}
+EIGENVALUE_DEFAULTS = {
+    "enabled": False, "verbose": False, "max_iter": 100, "tol": 1e-2,
+    "stability": 1e-6, "gas_boundary_resolution": 1,
+    "layer_name": "bert.encoder.layer", "layer_num": 0,
+}
+PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
+PLD_DEFAULTS = {"enabled": False, "theta": 0.5, "gamma": 0.001}
+
+
+class QuantizeTrainingConfig:
+    """``quantize_training`` block (``config/config.py:604``): MoQ's
+    progressive bit reduction and its optional eigenvalue modulation."""
+
+    def __init__(self, param_dict):
+        d = param_dict.get(QUANTIZE_TRAINING, {})
+        D = QUANTIZE_DEFAULTS
+        self.enabled = bool(d.get("enabled", D["enabled"]))
+        bits = d.get("quantize_bits", {})
+        self.start_bits = int(bits.get("start_bits", D["start_bits"]))
+        self.target_bits = int(bits.get("target_bits", D["target_bits"]))
+        sched = d.get("quantize_schedule", {})
+        self.quantize_period = int(sched.get("quantize_period",
+                                             D["quantize_period"]))
+        self.schedule_offset = int(sched.get("schedule_offset",
+                                             D["schedule_offset"]))
+        self.groups = int(d.get("quantize_groups", D["quantize_groups"]))
+        algo = d.get("quantize_algo", {})
+        self.q_type = 1 if algo.get("q_type") == "asymmetric" else 0
+        self.q_rounding = 1 if algo.get("rounding") == "stochastic" else 0
+        mixed = d.get("fp16_mixed_quantize", {})
+        self.fp16_mixed_quantize = bool(mixed.get(
+            "enabled", D["fp16_mixed_quantize"]))
+        self.quantize_change_ratio = float(mixed.get(
+            "quantize_change_ratio", D["quantize_change_ratio"]))
+        self.verbose = bool(d.get("quantize_verbose",
+                                  D["quantize_verbose"]))
+        # read for compatibility: JAX, and the port, always run the kernel
+        self.quantizer_kernel = bool(d.get("quantizer_kernel",
+                                           D["quantizer_kernel"]))
+        ev = d.get("eigenvalue", {})
+        E = EIGENVALUE_DEFAULTS
+        self.eigenvalue_enabled = bool(ev.get("enabled", E["enabled"]))
+        self.eigenvalue_verbose = bool(ev.get("verbose", E["verbose"]))
+        self.eigenvalue_max_iter = int(ev.get("max_iter", E["max_iter"]))
+        self.eigenvalue_tol = float(ev.get("tol", E["tol"]))
+        self.eigenvalue_stability = float(ev.get("stability",
+                                                 E["stability"]))
+        self.eigenvalue_gas_boundary_resolution = int(ev.get(
+            "gas_boundary_resolution", E["gas_boundary_resolution"]))
+        self.eigenvalue_layer_name = str(ev.get("layer_name",
+                                                E["layer_name"]))
+        self.eigenvalue_layer_num = int(ev.get("layer_num", E["layer_num"]))
+
+
+class PLDConfig:
+    """``progressive_layer_drop`` block (``config/config.py:660``)."""
+
+    def __init__(self, param_dict):
+        d = param_dict.get(PROGRESSIVE_LAYER_DROP, {})
+        self.enabled = bool(d.get("enabled", PLD_DEFAULTS["enabled"]))
+        self.theta = float(d.get("theta", PLD_DEFAULTS["theta"]))
+        self.gamma = float(d.get("gamma", PLD_DEFAULTS["gamma"]))
 
 
 class DeepSpeedConfig:
@@ -347,6 +418,8 @@ class DeepSpeedConfig:
 
         self.serving_config = ServingConfig(pd)
         self.sparse_attention_config = SparseAttentionConfig(pd)
+        self.pld_config = PLDConfig(pd)
+        self.quantize_training_config = QuantizeTrainingConfig(pd)
         self._set_batch_related_parameters()
         if self.fp16_enabled and self.bf16_enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")

@@ -179,7 +179,10 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN GPT-2 block."""
+    """Pre-LN GPT-2 block. ``keep_prob`` is progressive layer drop's keep
+    probability (a float or a device scalar): x + keep * sublayer(x), keep
+    cast to x's dtype (gpt2.py:336-365). At the float 1.0 the product is
+    left out: x * 1 is x exactly."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -188,9 +191,13 @@ class Block(nn.Module):
         self.ln_2 = _layer_norm(cfg, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+    def forward(self, x, keep_prob=1.0):
+        if isinstance(keep_prob, float) and keep_prob == 1.0:
+            x = x + self.attn(self.ln_1(x))
+            return x + self.mlp(self.ln_2(x))
+        keep = torch.as_tensor(keep_prob, device=x.device).to(x.dtype)
+        x = x + keep * self.attn(self.ln_1(x))
+        return x + keep * self.mlp(self.ln_2(x))
 
 
 class GPT2LMHeadModel(JaxTreeBridge, nn.Module):
@@ -198,7 +205,8 @@ class GPT2LMHeadModel(JaxTreeBridge, nn.Module):
 
     ``forward(input_ids)`` gives logits in the compute dtype;
     ``forward(input_ids, labels)`` gives the mean next-token loss, through
-    ``chunked_lm_loss`` when ``cfg.loss_chunk > 0``. The
+    ``chunked_lm_loss`` when ``cfg.loss_chunk > 0``; ``keep_prob`` is
+    progressive layer drop's (``Block``). The
     parameters are made on ``device`` (default ``"meta"``: the engine
     places and initializes them, as the JAX engine calls ``model.init``);
     ``reset_parameters`` draws them from an explicit ``torch.Generator``
@@ -241,14 +249,14 @@ class GPT2LMHeadModel(JaxTreeBridge, nn.Module):
             if isinstance(m, (Dense, LayerNorm)):
                 m.reset_parameters(generator)
 
-    def forward(self, input_ids, labels=None):
+    def forward(self, input_ids, labels=None, keep_prob=1.0):
         cfg = self.config
         dt = cfg.dtype
         S = input_ids.shape[1]
         x = F.embedding(input_ids, self.wte).to(dt) + self.wpe[:S].to(dt)[None]
         for block in self.h:
-            x = checkpoint(block, x, use_reentrant=False) if cfg.remat \
-                else block(x)
+            x = checkpoint(block, x, keep_prob, use_reentrant=False) \
+                if cfg.remat else block(x, keep_prob)
         x = self.ln_f(x)
         if labels is not None and cfg.loss_chunk > 0:
             return chunked_lm_loss(x, self.wte.to(dt), labels, cfg.loss_chunk)

@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from deepspeed_tpu_torch.ops.cuda import first_order_only
 from deepspeed_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd, flash_attention_fwd)
 
@@ -20,7 +21,10 @@ class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with its recompute backward: the forward saves
     (q, k, v, o, lse) and the backward recomputes the scores from lse
     (``_flash_attention_fwd`` / ``_flash_attention_bwd``). On a CPU tensor
-    both halves run their plain versions."""
+    both halves run their plain versions. The backward is not itself
+    differentiable (lse and the kernels' outputs carry no graph): a
+    second derivative through it raises instead of dropping the
+    attention's second-order terms."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=False, scale=None):
@@ -30,6 +34,7 @@ class FlashAttentionFunction(torch.autograd.Function):
         return o
 
     @staticmethod
+    @first_order_only
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,

@@ -20,7 +20,7 @@ import math
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops.cuda import builder
+from deepspeed_tpu_torch.ops.cuda import builder, first_order_only
 
 NEG_INF = -1e30
 POS_INF = 1e30
@@ -330,7 +330,9 @@ class BlockSparseAttentionFunction(torch.autograd.Function):
     """[B·H, S, D] block-sparse attention with its recompute backward:
     the forward saves (q, k, v, o fp32, lse); the backward takes delta =
     rowsum(do·o) in fp32 (blocksparse.py:381) and runs the dq and dk/dv
-    passes. Its output is fp32; the caller casts it."""
+    passes. Its output is fp32; the caller casts it. Like
+    ``FlashAttentionFunction`` it is once differentiable: a second
+    derivative through it raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, tables, scale):
@@ -340,6 +342,7 @@ class BlockSparseAttentionFunction(torch.autograd.Function):
         return o
 
     @staticmethod
+    @first_order_only
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         delta = (do.float() * o).sum(-1)

@@ -47,6 +47,7 @@ SIGNATURES = {
     "dstpu_bs_fwd": [_P] * 7 + [_I] * 5 + [_F, _P],
     "dstpu_bs_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _P],
     "dstpu_bs_bwd_dkv": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "dstpu_quantize": [_P] * 4 + [_I] * 8 + [_F, _P],
 }
 
 

@@ -8,14 +8,17 @@ gradients (``_micro_loss_and_grads`` :2718), gradient accumulation in
 the clip coefficient folded into one ``grad_scale``, skip on fp16
 overflow, and ``global_step`` counted only on finite steps. Also
 ``train_batch`` (:2808), ``forward``/``backward``/``step`` (:3229-3281),
-``eval_batch`` and checkpoints.
+``eval_batch`` and checkpoints. Progressive layer drop feeds the model
+its keep probability, and MoQ (``runtime/quantize.py``) fake-quantizes
+the fp32 masters in place at each step boundary (``_moq_boundary``
+:3321), its eigenvalues (``runtime/eigenvalue.py``) on the CPU only.
 
 Where JAX casts fp32 parameters to bf16 inside the differentiated
 function (``data_types.grad_dtype: "bf16"``), the port keeps the model's
 parameters as the bf16 compute copy and the fp32 masters beside them (the
 reference DeepSpeed's fp16 engine shape): gradients come out bf16, and the
-copy is refreshed from the masters after each step. With fp32 gradients
-the model's parameters are the masters.
+copy is refreshed from the masters after each step (after MoQ, when it
+runs). With fp32 gradients the model's parameters are the masters.
 
 Counters that JAX keeps on the device (the step count the LR schedule
 reads, the loss scale) stay device tensors, so a step reads nothing back
@@ -33,13 +36,19 @@ import torch
 
 from deepspeed_tpu_torch.config.config import (ROADMAP_MULTI_RANK,
                                                DeepSpeedConfig)
+from deepspeed_tpu_torch.models.gpt2 import lm_loss
 from deepspeed_tpu_torch.ops.adam import FusedAdam
+from deepspeed_tpu_torch.ops.cuda import ROADMAP_SECOND_ORDER
 from deepspeed_tpu_torch.ops.optimizer import TorchOptimizer
 from deepspeed_tpu_torch.runtime import checkpointing as ckpt
 from deepspeed_tpu_torch.runtime import precision as prec
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+from deepspeed_tpu_torch.runtime.eigenvalue import Eigenvalue
 from deepspeed_tpu_torch.runtime.lr_schedules import (_Schedule,
                                                       get_lr_schedule)
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
+    ProgressiveLayerDrop
+from deepspeed_tpu_torch.runtime.quantize import Quantizer
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("deepspeed_tpu_torch")
@@ -114,6 +123,45 @@ class DeepSpeedEngine:
         else:
             self.lr_scheduler = None
 
+        self.progressive_layer_drop = None
+        pld = self._config.pld_config
+        if pld.enabled:
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                theta=pld.theta, gamma=pld.gamma)
+        self.quantizer = None
+        self.eigenvalue = None
+        qcfg = self._config.quantize_training_config
+        if qcfg.enabled:
+            self.quantizer = Quantizer(
+                q_target_bits=qcfg.target_bits,
+                q_start_bits=qcfg.start_bits,
+                q_period=qcfg.quantize_period,
+                q_offset=qcfg.schedule_offset,
+                q_groups=qcfg.groups,
+                q_mixed_fp16=qcfg.fp16_mixed_quantize,
+                q_change_ratio=qcfg.quantize_change_ratio,
+                q_type=qcfg.q_type,
+                q_rounding=qcfg.q_rounding,
+                q_verbose=qcfg.verbose,
+                q_eigenvalue=qcfg.eigenvalue_enabled,
+                layer_num=qcfg.eigenvalue_layer_num)
+            if qcfg.eigenvalue_enabled:
+                if self.device.type == "cuda":
+                    raise NotImplementedError(
+                        "quantize_training.eigenvalue needs a Hessian-vector "
+                        "product, a second derivative through the CUDA "
+                        "attention kernels, which they do not have; it runs "
+                        f"on the CPU ({ROADMAP_SECOND_ORDER})")
+                self.eigenvalue = Eigenvalue(
+                    verbose=qcfg.eigenvalue_verbose,
+                    max_iter=qcfg.eigenvalue_max_iter,
+                    tol=qcfg.eigenvalue_tol,
+                    stability=qcfg.eigenvalue_stability,
+                    gas_boundary_resolution=(
+                        qcfg.eigenvalue_gas_boundary_resolution),
+                    layer_name=qcfg.eigenvalue_layer_name,
+                    layer_num=max(qcfg.eigenvalue_layer_num, 1))
+
         self.training_dataloader = None
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(training_data)
@@ -129,7 +177,11 @@ class DeepSpeedEngine:
         self._last_lr = None
         self._last_grad_norm = None
         self._loss_fn = None
+        self._moq_batch = None
         self._init_state(model_parameters)
+        # MoQ's stochastic rounding and the eigenvalues' start vectors
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self._seed)
 
     # -- config accessors ----------------------------------------------------
     def train_batch_size(self):
@@ -208,42 +260,46 @@ class DeepSpeedEngine:
 
     # -- the loss ------------------------------------------------------------
     def _resolve_loss_fn(self):
-        """``_resolve_loss_fn`` (engine.py:1297): a user ``loss_fn`` takes
-        (model, batch, rng, keep_prob)[:n] (rng is None, keep_prob 1.0 in
-        the port); otherwise a dict batch with ``input_ids`` (+
-        ``labels``) is a next-token LM loss (fused into the model when it
-        takes ``labels`` and ``loss_chunk > 0``), a 2-tuple (x, y) is a
-        cross entropy (integer y) or a mean squared error, and a bare
-        array is an LM loss on itself."""
+        """``_resolve_loss_fn`` (engine.py:1297): the loss is
+        ``fn(model, batch, keep_prob)``. A user ``loss_fn`` takes (model,
+        batch, rng, keep_prob)[:n] (rng is None in the port); otherwise a
+        dict batch with ``input_ids`` (+ ``labels``) is a next-token LM
+        loss (fused into the model when it takes ``labels`` and
+        ``loss_chunk > 0``), a 2-tuple (x, y) is a cross entropy (integer
+        y) or a mean squared error, and a bare array is an LM loss on
+        itself. A model whose forward takes ``keep_prob`` gets it."""
         if self._loss_fn_user is not None:
             fn = self._loss_fn_user
             n = len(inspect.signature(fn).parameters)
-            return lambda model, batch: fn(*(model, batch, None, 1.0)[:n])
-        from deepspeed_tpu_torch.models.gpt2 import lm_loss
+            return lambda model, batch, keep_prob=1.0: fn(
+                *(model, batch, None, keep_prob)[:n])
         try:
             sig = inspect.signature(self.module.forward)
             fused = "labels" in sig.parameters and getattr(
                 getattr(self.module, "config", None), "loss_chunk", 0) > 0
+            takes_keep = "keep_prob" in sig.parameters
         except (TypeError, ValueError):
-            fused = False
+            fused = takes_keep = False
 
-        def lm(model, ids, labels):
-            if fused:
-                return model(ids, labels=labels)
-            return lm_loss(model(ids), labels)
+        def default_loss(model, batch, keep_prob=1.0):
+            kw = {"keep_prob": keep_prob} if takes_keep else {}
 
-        def default_loss(model, batch):
+            def lm(ids, labels):
+                if fused:
+                    return model(ids, labels=labels, **kw)
+                return lm_loss(model(ids, **kw), labels)
+
             if isinstance(batch, dict) and "input_ids" in batch:
-                return lm(model, batch["input_ids"],
+                return lm(batch["input_ids"],
                           batch.get("labels", batch["input_ids"]))
             if isinstance(batch, (tuple, list)) and len(batch) == 2:
                 x, y = batch
-                out = model(x)
+                out = model(x, **kw)
                 if not torch.is_floating_point(y):
                     logp = torch.log_softmax(out.float(), dim=-1)
                     return -logp.gather(-1, y.long()[..., None]).mean()
                 return torch.mean(torch.square(out.float() - y.float()))
-            return lm(model, batch, batch)
+            return lm(batch, batch)
         return default_loss
 
     def _to_device(self, batch):
@@ -255,7 +311,9 @@ class DeepSpeedEngine:
         in the compute parameters' dtype (bf16 with grad_dtype bf16)."""
         if self._loss_fn is None:
             self._loss_fn = self._resolve_loss_fn()
-        loss = self._loss_fn(self.module, micro_batch)
+        pld = self.progressive_layer_drop
+        keep = 1.0 if pld is None else pld.theta_at(self.global_step_t)
+        loss = self._loss_fn(self.module, micro_batch, keep)
         grads = torch.autograd.grad(
             (loss.float() * self.scaler["loss_scale"]), self.compute_params,
             allow_unused=True)
@@ -308,9 +366,10 @@ class DeepSpeedEngine:
 
     def _apply_grads(self, grads, loss):
         """Unscale, clip, step, scaler update in one pass of the update
-        (engine.py:1394). On an fp16 overflow the masters and the
-        optimizer state keep their values (``_tree_where``): the
-        optimizer folds the finite flag into its update."""
+        (engine.py:1394); the caller refreshes the compute copy. On an
+        fp16 overflow the masters and the optimizer state keep their
+        values (``_tree_where``): the optimizer folds the finite flag into
+        its update."""
         with torch.no_grad():
             inv = 1.0 / self.scaler["loss_scale"]
             finite = prec.grads_finite(grads) if self.precision.fp16 \
@@ -331,7 +390,6 @@ class DeepSpeedEngine:
                                              finite)
             self.global_step_t = self.global_step_t + finite.int()
             self.skipped_steps_t = self.skipped_steps_t + (~finite).int()
-            self._refresh_compute_params()
         return {"loss": loss, "grad_norm": grad_norm, "lr": lr,
                 "overflow": ~finite, "loss_scale": self.scaler["loss_scale"]}
 
@@ -367,6 +425,8 @@ class DeepSpeedEngine:
         del grads
         self.micro_steps += self.gradient_accumulation_steps()
         self._after_step(metrics)
+        self._moq_boundary(batch, metrics)
+        self._refresh_compute_params()
         return metrics["loss"]
 
     def forward(self, batch):
@@ -375,6 +435,7 @@ class DeepSpeedEngine:
         batch = self._to_device(batch)
         loss, grads = self._micro_loss_and_grads(batch)
         self._pending_micro = (loss, grads)
+        self._moq_batch = batch   # the last micro batch, for eigenvalues
         return loss
 
     __call__ = forward
@@ -406,6 +467,36 @@ class DeepSpeedEngine:
         self._pending_grads = None
         self._accum_loss = None
         self._after_step(metrics)
+        self._moq_boundary(self._moq_batch, metrics)
+        self._refresh_compute_params()
+
+    def _moq_boundary(self, batch, metrics):
+        """MoQ at an optimizer-step boundary (engine.py:3321): from
+        ``schedule_offset`` on, the quantizer's schedule step and the
+        fake quantization of the fp32 masters in place, one kernel launch
+        a JAX leaf; the eigenvalues first when the quantizer asks for
+        them. Without fp16 there is no overflow, so nothing is read back;
+        with fp16 the flag is, once a boundary, as in JAX."""
+        q = self.quantizer
+        if q is None or self.global_steps < \
+                self._config.quantize_training_config.schedule_offset:
+            return
+        jax_paths = self.module.jax_paths() \
+            if hasattr(self.module, "jax_paths") else None
+        eigenvalues = None
+        ev = self.eigenvalue
+        if ev is not None and batch is not None and \
+                q.any_precision_switch() and \
+                self.global_steps % ev.gas_boundary_resolution == 0:
+            self._refresh_compute_params()      # this step's weights
+            params = dict(zip(self.param_names, self.compute_params))
+            eigenvalues = ev.compute_layer_eigenvalues(
+                lambda: self._loss_fn(self.module, batch, 1.0).float(),
+                params, jax_paths, self.generator)
+        overflow = bool(metrics["overflow"]) if self.precision.fp16 \
+            else False
+        q.quantize_tree(self._named(self.master), jax_paths, overflow,
+                        eigenvalues, self.generator)
 
     def zero_grad(self):
         self._pending_grads = None

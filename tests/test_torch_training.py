@@ -466,8 +466,6 @@ def test_config_errors_carry_the_jax_messages(cfg):
     {"monitor": {}},
     {"monitor": {"watchdog": {"dump_dir": "/nonexistent"}}},
     {"profiling": {"trace_dir": "/nonexistent", "trace_steps": [1, 2]}},
-    {"progressive_layer_drop": {"enabled": True}},
-    {"quantize_training": {"enabled": True}},
     {"elasticity": {"enabled": True}},
 ])
 def test_config_blocks_not_ported_raise_naming_roadmap(block):
