@@ -1,9 +1,9 @@
 """Chip smoke for deepspeed_tpu_torch: GPT-2 large and LLaMA-7B paged
 serving (each in bf16 and in int8), GPT-2 large ``generate()`` through
 the fused inference layer, LLaMA-7B's dense fast path, GPT-2 large
-training, BERT-large pretraining with block-sparse attention and GPT-2
-large MoQ quantize-aware training on one NVIDIA GPU, through the
-hand-written CUDA kernels.
+training, BERT-large pretraining with block-sparse attention, GPT-2
+large MoQ quantize-aware training and GPT-2 large ZeRO-3 training over
+four ranks on one NVIDIA GPU, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -171,18 +171,44 @@ Phases, one JSON line each, each with its wall ``seconds``:
 12. train_moq_sr — the scan layout (MoQ quantizes wte, wpe and the 8
                stacked bias and LayerNorm leaves: 10 launches a step)
                with asymmetric stochastic rounding, the blend (ratio 0.75
-               → 0) and progressive layer drop, 2 + 3 steps.
+               → 0) and progressive layer drop, 2 + 3 steps;
+13. kernel, zero3_kernels — ag_matmul (forward and dx),
+               mm_rs_partial and mm_rs_reduce at GPT-2 large's four
+               projections cut into 4 shards, M 2048 (a rank's 2 x 1024
+               tokens), the four "peers" local tensors in this process:
+               every rank's output held against the plain version, a
+               planted fault each (a chunk read from the wrong rank, a
+               chunk written into its neighbour's slot), timed beside
+               torch.matmul; then the rows' summed times by kernel;
+14. zero3_grad_check, train_zero3_fused, train_zero3_ring — four ranks
+               started on the one card (``parallel.mesh.spawn``, gloo,
+               each rank's shards in a symmetric heap its peers map
+               through CUDA IPC): a 2-layer full-width model's gradients
+               through the fused kernels against their plain versions,
+               with a planted fault; then ``initialize(mesh=...)`` of
+               GPT-2 large under ZeRO stage 3 with ``stage3_prefetch``
+               and 2 + 4 ``train_batch`` steps of the train cell's batch
+               (2 x 1024 a rank), gathers ``fused_matmul`` then ``ring``:
+               step time, barriers a step and the host time in them,
+               each rank's peak memory and heap, launches a step a rank
+               against the design (432 ag_matmul, 144 of each
+               mm_rs kernel), losses finite, falling from the first
+               timed step, within 1e-2 of each other and of the one-card
+               train phase's. The ranks time-share the card: no
+               multi-GPU number.
 
 Each path counts its kernels' launches from 0 just before its run: each
 serve run for the decode kernels and the prefill forward, the fast
 path's timed runs (and its bf16-cache run) for its kernels, each
 generate() case's timed runs, the train run for the flash kernels, the
 BERT train run for the block-sparse kernels, each MoQ run's timed steps
-for quantize. A kernel has a row for each
+for quantize, rank 0's fused_matmul timed steps for the fused
+collective kernels. A kernel has a row for each
 path it runs on ("serve", "serve_gpt2_int8", "generate_gpt2",
 "generate_gpt2_bf16", "generate_gpt2_step", "serve_llama",
 "serve_llama_int8", "generate_llama", "generate_llama_kv0", "train",
-"train_bert_sparse", "train_moq", "train_moq_sr"); each row of the
+"train_bert_sparse", "train_moq", "train_moq_sr", "train_zero3_fused");
+each row of the
 kernels line is timed and bounded at its path's shapes and carries that path's launches (matvec_int8's
 row: no path, 0). "generate_gpt2_kv8" (bf16 weights, an
 int8 cache, B 8) runs decode_attention_int8 alone, at the shape of its
@@ -327,6 +353,34 @@ TRAIN_KERNEL_GROUPS = (
     ("elementwise", ("elementwise",)))
 
 
+# ZeRO-3 over four ranks sharing the one card (each rank's shards in a
+# symmetric heap its peers map through CUDA IPC): GPT-2 large, bf16, the
+# training cell's batch of 8 x 1024 cut into 2 x 1024 a rank, 2 + 4 steps
+# under stage3_prefetch_gather fused_matmul, then the same in ring mode
+# (the train cell's loss oscillates over its first five steps, 11.08 ..
+# 11.16, and falls from the sixth)
+ZERO3_RANKS, ZERO3_WARMUP, ZERO3_STEPS = 4, 2, 4
+ZERO3_KERNELS = ("ag_matmul", "mm_rs_partial", "mm_rs_reduce")
+# the four projections of a block: (leaf, in, out, the dim their stage-3
+# shard cuts in a layer's coordinates)
+ZERO3_LEAVES = (("attn.c_attn", 1280, 3840, 1), ("attn.c_proj", 1280, 1280, 0),
+                ("mlp.c_fc", 1280, 5120, 1), ("mlp.c_proj", 5120, 1280, 0))
+# the rank whose kernel calls are timed (its ring starts off chunk 0)
+ZERO3_TIMED_RANK = 1
+# fused_matmul's losses against ring mode's, and both against the one-card
+# train phase's first steps (same model, seed, batch and config): the
+# fused path rounds each projection to bf16 before its bias and sums dW
+# once in fp32, the ring path adds the bias inside the product and sums
+# the ranks' bf16 dW in fp32, one card sums the whole batch's dW: bf16
+# rounding apart, relative. Measured on an H100 over the 2 + 4 steps:
+# fused_matmul 1.06e-3 from ring and 9.9e-4 from one card, ring 7.6e-5
+# from one card; the planted fault (own_slot_only) 7.6e-2 (2.9e-3 at step
+# 2, 2.1e-2 at step 3)
+ZERO3_LOSS_RTOL = 3e-3
+# the one-card train phase's losses, for the ZeRO-3 runs to be held to
+TRAIN_LOSSES = []
+
+
 _CLOCK = [time.perf_counter()]
 
 
@@ -425,6 +479,8 @@ def _source(name):
         return "flash_attention"
     if name == "quantize":
         return "quantize"
+    if name in ZERO3_KERNELS:
+        return "fused_collective"
     return "blocksparse" if "blocksparse" in name else "decode"
 
 
@@ -984,6 +1040,16 @@ def train_kernel_phase(gen):
     fault and timed beside SDPA; the two backward kernels there, at
     S=8192 and not causal, with a planted fault each, timed beside SDPA's
     backward."""
+    return flash_rows(gen, TRAIN_BATCH, "train",
+                      ((1, 4, 8192, True), (1, 20, 1024, False)))
+
+
+def flash_rows(gen, batch, path, more_bwd_cases=()):
+    """The rows of the flash kernels on a training path whose attention
+    runs at (``batch``, H=20, S=1024, causal): the forward and the two
+    backward kernels held there against their plain versions with a
+    planted fault each (the backward also at ``more_bwd_cases``, (B, H,
+    S, causal)), timed there beside SDPA and its backward."""
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import tolerance
     dev = "cuda"
@@ -993,7 +1059,7 @@ def train_kernel_phase(gen):
             torch.bfloat16)
 
     results = []
-    B, H, S = TRAIN_BATCH, 20, TRAIN_SEQ
+    B, H, S = batch, 20, TRAIN_SEQ
     q, k, v = (rnd(B, H, S, 64) for _ in range(3))
     o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=True)
@@ -1011,7 +1077,7 @@ def train_kernel_phase(gen):
     lib_ms = time_graph_ms(
         lambda i: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True))
-    record(results, "flash_attention_fwd", "train",
+    record(results, "flash_attention_fwd", path,
            "deepspeed_tpu/ops/pallas/flash_attention.py:122", checks, ms,
            call_ms, plain_ms,
            bound(4 * B * H * S * 64 * 2 + B * H * S * 4,
@@ -1030,8 +1096,8 @@ def train_kernel_phase(gen):
         return q, k, v, do, lse, delta
 
     dkv_checks, dq_checks, cases = [], [], []
-    for B, H, S, causal in ((TRAIN_BATCH, 20, TRAIN_SEQ, True),
-                            (1, 4, 8192, True), (1, 20, 1024, False)):
+    for B, H, S, causal in ((batch, 20, TRAIN_SEQ, True),) + \
+            tuple(more_bwd_cases):
         q, k, v, do, lse, delta = inputs(B, H, S, causal)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
         dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
@@ -1059,7 +1125,7 @@ def train_kernel_phase(gen):
         del dk_p, dv_p, dq_p, fault_dk, fault_dv, fault_dq
         torch.cuda.empty_cache()
 
-    B, H, S = TRAIN_BATCH, 20, TRAIN_SEQ
+    B, H, S = batch, 20, TRAIN_SEQ
     q, k, v, do, lse, delta = inputs(B, H, S, True)
     args = (q, k, v, do, lse, delta, True)
     pairs = B * H * S * (S + 1) // 2             # causal (q, k) pairs
@@ -1084,14 +1150,15 @@ def train_kernel_phase(gen):
         call_ms = time_ms(lambda fn=fn: fn(*args))
         plain_ms = time_ms(lambda plain=plain: plain(*args), reps=10,
                            inner=1)
-        record(bwd_rows, name, "train", replaces, checks, ms, call_ms,
+        record(bwd_rows, name, path, replaces, checks, ms, call_ms,
                plain_ms, bound(in_bytes + out_bytes, n_mm * mm_flops), cases,
                fault, library_ms=lib_ms)
     # the whole backward (dq, dk, dv): 5 products of 2·S²·D a head when
     # each score tile is computed once, against SDPA's backward
     whole_ms, whole_by = bound(in_bytes + 3 * nbytes(q), 5 * mm_flops)
     both_ms = sum(row["ms"] for row in bwd_rows)
-    emit({"phase": "flash_backward", "B": B, "H": H, "S": S, "causal": True,
+    emit({"phase": "flash_backward", "path": path, "B": B, "H": H, "S": S,
+          "causal": True,
           "kernels_us": both_ms * 1e3, "bound_us": whole_ms * 1e3,
           "bound_by": whole_by, "pct_of_bound": 100.0 * whole_ms / both_ms,
           "sdpa_backward_us": lib_ms * 1e3})
@@ -1154,6 +1221,7 @@ def train_phase(n_layer=36, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS):
     wall_s = time.perf_counter() - t0
     launches = dict(builder.launches)
     losses = [float(x) for x in torch.stack(warm + losses).cpu()]
+    TRAIN_LOSSES[:] = losses
     timed = losses[warmup:]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -3175,6 +3243,460 @@ def train_moq_sr_phase(warmup=MOQ_SR_WARMUP, steps=MOQ_SR_STEPS):
     return launches
 
 
+# ------------------------------------------------------------ ZeRO-3, 4 ranks
+
+def zero3_kernel_phase(gen):
+    """The fused collective kernels in one process at the main path's
+    shapes: M = 2048 tokens (a rank's 2 x 1024), each of GPT-2 large's four
+    projections cut into 4 shards as stage 3 cuts it, the n = 4 "peers"
+    local tensors. For each projection the forward all-gather+matmul and
+    the transposed one of dx, every rank's output held against the plain
+    version (bf16, and fp32 output at the timed rank), and a planted fault
+    (one chunk read from the wrong rank); mm_rs_partial (its fault: each
+    chunk written into its neighbour's slot) and mm_rs_reduce (one peer's
+    slot read from the wrong rank) held for every rank, and the reduced
+    shards against one fp32 product over all ranks' tokens. Timed at rank
+    ZERO3_TIMED_RANK by CUDA-graph replay; library: torch.matmul over the
+    gathered W, and for mm_rs_partial torch.matmul of the same product
+    (one torch.matmul over all four ranks' tokens, which gives every
+    reduced shard at once, is printed beside it)."""
+    from deepspeed_tpu_torch.ops.cuda import fused_collective as k
+    from deepspeed_tpu_torch.ops.cuda import tolerance
+    n, R = ZERO3_RANKS, ZERO3_TIMED_RANK
+    M = TRAIN_BATCH * TRAIN_SEQ // n
+    path = "train_zero3_fused"
+    ag_rep = "deepspeed_tpu/ops/pallas/fused_collective.py:299"
+    rs_rep = "deepspeed_tpu/ops/pallas/fused_collective.py:491"
+    results = []
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device="cuda")) \
+            .to(torch.bfloat16)
+
+    for leaf, din, dout, d in ZERO3_LEAVES:
+        W = rnd(din, dout, scale=0.02)
+        shards = [t.contiguous() for t in W.chunk(n, dim=d)]
+        wrong = list(shards)
+        wrong[(R + 1) % n] = shards[(R + 2) % n]
+        for transpose in (False, True):
+            x = rnd(M, dout if transpose else din)
+            K, N, ck, _, contract, b_col = k.ag_matmul_geometry(
+                shards[0].shape, n, d, transpose)
+            checks = []
+            for r in range(n):
+                got = k.ag_matmul(x, shards, r, d, transpose)
+                want = k.ag_matmul_plain(x, shards, r, d, transpose)
+                fault = k.ag_matmul_plain(x, wrong, r, d, transpose) \
+                    if r == R else None
+                checks.append(held("ag_matmul", got, want, fault))
+            got = k.ag_matmul(x, shards, R, d, transpose, torch.float32)
+            want = k.ag_matmul_plain(x, shards, R, d, transpose,
+                                     torch.float32)
+            fp32_err = tolerance.check_kernel("ag_matmul[fp32]", got, want)
+            del got, want
+            ms = time_graph_ms(lambda i: k.ag_matmul(x, shards, R, d,
+                                                     transpose))
+            call_ms = time_ms(lambda: k.ag_matmul(x, shards, R, d, transpose))
+            plain_ms = time_ms(lambda: k.ag_matmul_plain(
+                x, shards, R, d, transpose), reps=5, inner=1)
+            w_full = W.t() if transpose else W
+            lib_ms = time_graph_ms(lambda i: torch.matmul(x, w_full))
+            record(results, "ag_matmul", path, ag_rep, checks, ms, call_ms,
+                   plain_ms, bound(nbytes(x, W) + M * N * 2, 2 * M * K * N),
+                   [{"leaf": leaf, "direction": "dx" if transpose else "y",
+                     "M": M, "K": K, "N": N, "chunk": ck,
+                     "contracting": contract, "transpose_w": transpose,
+                     "shard": list(shards[0].shape), "ranks": n,
+                     "fp32_out_row_rel_err": fp32_err}],
+                   "one chunk read from the wrong rank", library_ms=lib_ms)
+            del x
+        # matmul+reduce-scatter: each rank its own tokens
+        lhs = [rnd(M, din) for _ in range(n)]
+        rhs = [rnd(M, dout, scale=0.02) for _ in range(n)]
+        shard = din * dout // n
+        slots = [k.mm_rs_partial(lhs[r], rhs[r], d, n) for r in range(n)]
+        p_checks, r_checks = [], []
+        for r in range(n):
+            want = k.mm_rs_partial_plain(lhs[r], rhs[r], d, n)
+            fault = torch.roll(want, 1, dims=0) if r == R else None
+            p_checks.append(held("mm_rs_partial", slots[r], want, fault))
+            got = k.mm_rs_reduce(slots, r)
+            want = k.mm_rs_reduce_plain(slots, r)
+            fault = None
+            if r == R:
+                bad = list(slots)
+                bad[(R + 1) % n] = slots[(R + 2) % n]
+                fault = k.mm_rs_reduce_plain(bad, r)[None]
+            r_checks.append(held("mm_rs_reduce", got[None], want[None],
+                                 fault))
+        shape = (din // n, dout) if d == 0 else (din, dout // n)
+        reduced = torch.cat([k.mm_rs_reduce(slots, r).reshape(shape)
+                             for r in range(n)], dim=d)
+        l_all, r_all = torch.cat(lhs), torch.cat(rhs)
+        dense = l_all.float().t() @ r_all.float()
+        sum_err = tolerance.row_rel_err(reduced, dense)
+        del reduced, dense
+        out = torch.empty(n, shard, dtype=torch.float32, device="cuda")
+        ms = time_graph_ms(lambda i: k.mm_rs_partial(lhs[R], rhs[R], d, n,
+                                                     out=out))
+        call_ms = time_ms(lambda: k.mm_rs_partial(lhs[R], rhs[R], d, n,
+                                                  out=out))
+        plain_ms = time_ms(lambda: k.mm_rs_partial_plain(lhs[R], rhs[R], d,
+                                                         n), reps=5, inner=1)
+        lib_ms = time_graph_ms(lambda i: torch.matmul(lhs[R].t(), rhs[R]))
+        all_ms = time_graph_ms(lambda i: torch.matmul(l_all.t(), r_all),
+                               n=8)
+        case = {"leaf": leaf, "M": M, "K": din, "N": dout, "shard_dim": d,
+                "ranks": n, "reduced_vs_fp32_product_row_rel_err": sum_err,
+                "all_ranks_matmul_us": all_ms * 1e3}
+        record(results, "mm_rs_partial", path, rs_rep, p_checks, ms, call_ms,
+               plain_ms, bound(nbytes(lhs[R], rhs[R]) + 4 * din * dout,
+                               2 * M * din * dout), [case],
+               "each chunk written into its neighbour's slot",
+               library_ms=lib_ms)
+        red = torch.empty(shard, dtype=torch.float32, device="cuda")
+        ms = time_graph_ms(lambda i: k.mm_rs_reduce(slots, R, out=red))
+        call_ms = time_ms(lambda: k.mm_rs_reduce(slots, R, out=red))
+        plain_ms = time_ms(lambda: k.mm_rs_reduce_plain(slots, R), reps=5,
+                           inner=1)
+        record(results, "mm_rs_reduce", path, rs_rep, r_checks, ms, call_ms,
+               plain_ms, bound(4 * (n + 1) * shard, (n - 1) * shard,
+                               FP32_FLOP_PER_S), [case],
+               "one peer's slot read from the wrong rank")
+        del lhs, rhs, slots, out, red, l_all, r_all
+        torch.cuda.empty_cache()
+    emit({"phase": "zero3_kernels", "ranks": n, "M": M,
+          "rows": len(results),
+          "kernel_ms_by_name": {name: sum(r["ms"] for r in results
+                                          if r["name"] == name)
+                                for name in ZERO3_KERNELS},
+          "library_ms": sum(r["library_ms"] or 0.0 for r in results),
+          "max_abs_err": max(r["max_abs_err"] for r in results)})
+    return results
+
+
+def zero3_ds_config(mode):
+    """The training cell's config at ZeRO stage 3 with the prefetch
+    pipeline; the four projections stream (their shards are 0.8-3.1 MB,
+    above the 64 KiB min_shard_bytes) under fused_matmul. The default
+    persistence threshold (1e5) keeps the [36, 1280] biases and
+    LayerNorms, and ln_f, replicated."""
+    cfg = train_ds_config()
+    cfg["zero_optimization"] = {"stage": 3, "stage3_prefetch": True,
+                                "stage3_prefetch_gather": mode}
+    return cfg
+
+
+def zero3_grad_check(rank, world, n_layer=2):
+    """One step's gradients of a 2-layer model of GPT-2 large's width over
+    the ranks, through the kernels (backend auto) and through their plain
+    versions (backend lax), and through the plain versions with one chunk
+    read from the wrong rank; each leaf gathered whole and held row-
+    relative at GRAD_RTOL (floor 1e-3, as the one-card grad check). Rank 0
+    then holds the kernels' gradients against the same step of a one-rank
+    engine on the same weights, which catches what the kernels and their
+    plain versions share, with a planted fault: rank 1's shards not
+    scaled by 1/n."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    from deepspeed_tpu_torch.ops import fused_collective as fc
+    from deepspeed_tpu_torch.ops.cuda import tolerance
+    from deepspeed_tpu_torch.parallel import prefetch
+    from deepspeed_tpu_torch.parallel.mesh import Mesh, MeshConfig, make_mesh
+    mesh = make_mesh(MeshConfig(data=world))
+    engine, _, _, _ = ds.initialize(
+        config=zero3_ds_config("fused_matmul"), mesh=mesh,
+        model=GPT2LMHeadModel(train_model_config(n_layer)))
+    batch = train_batch_ids()
+    fn = engine._zero3_grads
+    cfg = engine._fused_cfg
+
+    def grads():
+        g, loss, _ = fn(batch)
+        full = {k: prefetch.gather_leaf(t, engine._entries[k], mesh)
+                for k, t in zip(engine.param_names, g)}
+        return float(loss), full
+    loss_k, got = grads()
+    engine._fused_cfg = dataclasses.replace(cfg, backend="lax")
+    loss_p, want = grads()
+    right = fc.peer_shards
+
+    def wrong_chunk(w_shard, m):
+        views = list(right(w_shard, m))
+        views[(m.rank + 1) % m.size] = views[(m.rank + 2) % m.size]
+        return views
+    fc.peer_shards = wrong_chunk
+    try:
+        loss_f, fault = grads()
+    finally:
+        fc.peer_shards = right
+    err = {k: tolerance.row_rel_err(got[k], want[k], floor=1e-3)
+           for k in want}
+    f_err = {k: tolerance.row_rel_err(fault[k], want[k], floor=1e-3)
+             for k in want}
+    weights = engine.gather_master()
+    one = {}
+    if rank == 0:
+        single, _, _, _ = ds.initialize(
+            config=train_ds_config(), model_parameters=weights,
+            model=GPT2LMHeadModel(train_model_config(n_layer)),
+            mesh=Mesh(1, 0, mesh.device), device=mesh.device)
+        loss_1, g1 = model_loss_and_grads(single.module,
+                                          batch["input_ids"])
+        g1 = dict(zip(single.param_names, g1))
+        scaled = {}
+        for k, g in got.items():
+            e = engine._entries[k]
+            scaled[k] = g
+            if e is not None:
+                scaled[k] = g.clone()
+                scaled[k].narrow(e[0], e[1], e[1]).mul_(world)
+        e1 = {k: tolerance.row_rel_err(got[k], g1[k], floor=1e-3)
+              for k in g1}
+        s1 = {k: tolerance.row_rel_err(scaled[k], g1[k], floor=1e-3)
+              for k in g1}
+        w1, sw = max(e1, key=e1.get), max(s1, key=s1.get)
+        one = {"one_card_loss": loss_1,
+               "vs_one_card_max_row_rel_err": e1[w1],
+               "vs_one_card_worst_leaf": w1,
+               "vs_one_card_median_row_rel_err":
+                   float(np.median(list(e1.values()))),
+               "scale_fault_max_row_rel_err": s1[sw],
+               "scale_fault_worst_leaf": sw}
+        del single, g1, scaled
+    engine.close()
+    worst, f_worst = max(err, key=err.get), max(f_err, key=f_err.get)
+    return {"layers": n_layer, "leaves": len(err), "loss_kernels": loss_k,
+            "loss_plain": loss_p, "fault_loss": loss_f,
+            "max_row_rel_err": err[worst], "worst_leaf": worst,
+            "median_row_rel_err": float(np.median(list(err.values()))),
+            "fault_max_row_rel_err": f_err[f_worst],
+            "fault_worst_leaf": f_worst,
+            "fault_leaves_rejected": sum(e > GRAD_RTOL
+                                         for e in f_err.values()), **one}
+
+
+def own_slot_only(reduce):
+    """``mm_rs_reduce`` with a planted fault: each rank sums its own
+    slot n times, so a streamed leaf's dW holds its own tokens alone."""
+    def faulty(views, rank, out=None):
+        return reduce([views[rank]] * len(views), rank, out=out)
+    return faulty
+
+
+def zero3_train(mode, world, n_layer, warmup, steps, fault=False):
+    """``initialize(mesh=...)`` of GPT-2 large and warmup + steps
+    ``train_batch`` on one rank of the world; what the rank saw. With
+    ``fault``, every mm_rs_reduce runs ``own_slot_only``."""
+    from deepspeed_tpu_torch.ops.cuda import fused_collective as k
+    right = k.mm_rs_reduce
+    if fault:
+        k.mm_rs_reduce = own_slot_only(right)
+    try:
+        return _zero3_train(mode, world, n_layer, warmup, steps)
+    finally:
+        k.mm_rs_reduce = right
+
+
+def _zero3_train(mode, world, n_layer, warmup, steps):
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    from deepspeed_tpu_torch.ops.cuda import builder
+    from deepspeed_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    mesh = make_mesh(MeshConfig(data=world))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, _, _, _ = ds.initialize(config=zero3_ds_config(mode), mesh=mesh,
+                                    model=GPT2LMHeadModel(
+                                        train_model_config(n_layer)))
+    batch = train_batch_ids()
+    warm = [engine.train_batch(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    builder.launches.clear()             # count the main path's run only
+    barriers, blocked_s = mesh.barriers, mesh.barrier_s
+    t0 = time.perf_counter()
+    losses = [engine.train_batch(batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(builder.launches)
+    blocked_s = mesh.barrier_s - blocked_s
+    barriers = mesh.barriers - barriers
+    t1 = time.perf_counter()
+    for _ in range(50):                  # barriers with nothing queued
+        mesh.barrier()
+    idle_barrier_ms = (time.perf_counter() - t1) / 50 * 1e3
+    lp, stats = engine._lp, engine.prefetch_live_param_stats()
+    gathered = set(lp.sharded_ids)
+    streamed = [engine._layer_leaves[i] for i in lp.fused]
+    out = {"losses": [float(x) for x in torch.stack(warm + losses).cpu()],
+           "init_and_warmup_s": init_s, "step_ms": wall_s / steps * 1e3,
+           "barriers_per_step": barriers / steps,
+           "barrier_wall_ms_per_step": blocked_s / steps * 1e3,
+           "idle_barrier_ms": idle_barrier_ms,
+           "launches": launches,
+           "peak_torch_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "heap_gb": getattr(mesh.heap, "nbytes", 0) / 1e9,
+           "streamed_leaves": streamed,
+           "streamed_leaves_gathered": [engine._layer_leaves[i]
+                                        for i in lp.fused if i in gathered],
+           "live_param_stats": stats}
+    engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero3_rank(rank, world, n_layer, warmup, steps):
+    """One rank of the ZeRO-3 phases: the 2-layer grad check, then the
+    fused_matmul and ring runs, then fused_matmul with own_slot_only."""
+    out = {"grad_check": zero3_grad_check(rank, world)}
+    for mode in ("fused_matmul", "ring"):
+        out[mode] = zero3_train(mode, world, n_layer, warmup, steps)
+    out["fault"] = zero3_train("fused_matmul", world, n_layer, warmup, steps,
+                               fault=True)
+    return out
+
+
+def zero3_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
+    """Four ranks on the one card (processes started by ``spawn``, joined
+    over gloo, their shards in each other's symmetric heaps): the 2-layer
+    grad check, then GPT-2 large trained under fused_matmul, under ring,
+    and under fused_matmul with a planted fault (``own_slot_only``).
+    Prints every reading, then checks the launches a step a rank against
+    the design (3 all-gather+matmuls a projection a layer: forward,
+    recomputed forward, dx; one matmul+reduce-scatter each; the flash
+    kernels as on one card, the forward twice), that no streamed leaf
+    rides the packed gather, losses finite and falling, fused_matmul's
+    and ring's losses within ZERO3_LOSS_RTOL of each other and of the
+    one-card train phase's, and the fault's beyond it. Returns rank 0's
+    fused run's launches."""
+    from deepspeed_tpu_torch.parallel.mesh import spawn
+    if not TRAIN_LOSSES:
+        raise AssertionError("the ZeRO-3 runs are held to the train "
+                             "phase's losses: run it first")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ranks = spawn(zero3_rank, ZERO3_RANKS, n_layer, warmup, steps,
+                  timeout=900.0)
+    g = ranks[0]["grad_check"]
+    emit({"phase": "zero3_grad_check", "ranks": ZERO3_RANKS,
+          "limit": GRAD_RTOL, "loss_limit": LOSS_RTOL,
+          "fault": "the plain versions with one chunk read from the wrong "
+                   "rank",
+          "scale_fault": "rank 1's shard gradients not scaled by 1/n",
+          **g})
+    # a step a rank: the forward and its recomputation run the flash
+    # forward and three all-gather+matmuls a projection, the backward dq,
+    # dk/dv and one matmul+reduce-scatter a projection, each layer
+    per_layer = 4 * n_layer
+    flash = {"flash_attention_fwd": 2 * n_layer * steps,
+             "flash_attention_bwd_dq": n_layer * steps,
+             "flash_attention_bwd_dkv": n_layer * steps}
+    expect = {"ag_matmul": 3 * per_layer * steps,
+              "mm_rs_partial": per_layer * steps,
+              "mm_rs_reduce": per_layer * steps, **flash}
+    want = {"fused_matmul": expect,
+            "ring": {k: (v if k in flash else 0) for k, v in expect.items()}}
+    runs = {m: ranks[0][m] for m in ("fused_matmul", "ring", "fault")}
+
+    def max_rel(losses, ref):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    vs_ring = max_rel(runs["fused_matmul"]["losses"], runs["ring"]["losses"])
+    one_card = {m: max_rel(run["losses"], TRAIN_LOSSES)
+                for m, run in runs.items()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for mode in ("fused_matmul", "ring"):
+        run = runs[mode]
+        emit({"phase": "train_zero3_fused" if mode == "fused_matmul"
+              else "train_zero3_ring", "model": "gpt2_large",
+              "layers": n_layer, "ranks": ZERO3_RANKS,
+              "gather": mode, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "rows_per_rank": TRAIN_BATCH // ZERO3_RANKS,
+              "warmup_steps": warmup, "steps": steps,
+              "step_ms": run["step_ms"],
+              "step_ms_by_rank": [rk[mode]["step_ms"] for rk in ranks],
+              "tokens_per_s": tokens / run["step_ms"] * 1e3,
+              "init_and_warmup_s": run["init_and_warmup_s"],
+              "barriers_per_step": run["barriers_per_step"],
+              "barrier_wall_ms_per_step": run["barrier_wall_ms_per_step"],
+              "idle_barrier_ms": run["idle_barrier_ms"],
+              "peak_torch_memory_gb_by_rank":
+                  [rk[mode]["peak_torch_memory_gb"] for rk in ranks],
+              "heap_gb_by_rank": [rk[mode]["heap_gb"] for rk in ranks],
+              "launches_per_step_per_rank":
+                  {k: v / steps for k, v in run["launches"].items()},
+              "launches_predicted_per_step_per_rank":
+                  {k: v / steps for k, v in want[mode].items()},
+              "streamed_leaves": run["streamed_leaves"],
+              "live_param_stats": run["live_param_stats"],
+              "losses": run["losses"],
+              "losses_vs_ring_max_rel": vs_ring if mode == "fused_matmul"
+              else None,
+              "losses_vs_one_card_max_rel": one_card[mode],
+              "one_card_losses": TRAIN_LOSSES[:len(run["losses"])],
+              "loss_rtol": ZERO3_LOSS_RTOL,
+              "fault": "fused_matmul with each rank's mm_rs_reduce summing "
+                       "its own slot alone" if mode == "fused_matmul"
+              else None,
+              "fault_losses": runs["fault"]["losses"]
+              if mode == "fused_matmul" else None,
+              "fault_vs_one_card_max_rel": one_card["fault"]
+              if mode == "fused_matmul" else None,
+              "note": "four ranks time-share one card and read their "
+                      "peers' shards from its own HBM: no multi-GPU "
+                      "number"})
+
+    if not g["max_row_rel_err"] <= GRAD_RTOL:
+        raise AssertionError(f"zero3 grad check: {g['worst_leaf']} "
+                             f"{g['max_row_rel_err']:.3g} > {GRAD_RTOL}")
+    if not abs(g["loss_kernels"] - g["loss_plain"]) <= \
+            LOSS_RTOL * abs(g["loss_plain"]):
+        raise AssertionError(f"zero3 grad check: losses {g['loss_kernels']}"
+                             f" vs {g['loss_plain']}")
+    if not g["fault_max_row_rel_err"] > GRAD_RTOL:
+        raise AssertionError("zero3 grad check: a planted fault passes")
+    if not g["vs_one_card_max_row_rel_err"] <= GRAD_RTOL:
+        raise AssertionError(f"zero3 grad check vs one card: "
+                             f"{g['vs_one_card_worst_leaf']} "
+                             f"{g['vs_one_card_max_row_rel_err']:.3g}")
+    if not abs(g["loss_kernels"] - g["one_card_loss"]) <= \
+            LOSS_RTOL * abs(g["one_card_loss"]):
+        raise AssertionError(f"zero3 grad check: loss {g['loss_kernels']} "
+                             f"vs one card's {g['one_card_loss']}")
+    if not g["scale_fault_max_row_rel_err"] > GRAD_RTOL:
+        raise AssertionError("zero3 grad check: the unscaled shard passes")
+    for r, rank in enumerate(ranks):
+        for mode in ("fused_matmul", "ring"):
+            run = rank[mode]
+            got = {k: run["launches"].get(k, 0) for k in
+                   set(expect) | set(run["launches"])}
+            if got != want[mode]:
+                raise AssertionError(f"rank {r} {mode}: launches {got} != "
+                                     f"{want[mode]}")
+            if run["streamed_leaves_gathered"]:
+                raise AssertionError(f"rank {r}: streamed leaves gathered "
+                                     f"{run['streamed_leaves_gathered']}")
+            if run["losses"] != ranks[0][mode]["losses"]:
+                raise AssertionError(f"rank {r} {mode}: losses differ")
+    for mode in ("fused_matmul", "ring"):
+        losses = runs[mode]["losses"]
+        timed = losses[warmup:]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{mode}: non-finite loss {losses}")
+        if not timed[-1] < timed[0]:
+            raise AssertionError(f"{mode}: the loss did not fall {timed}")
+        if not one_card[mode] <= ZERO3_LOSS_RTOL:
+            raise AssertionError(f"{mode}'s losses {losses} vs one card's "
+                                 f"{TRAIN_LOSSES}")
+    if not vs_ring <= ZERO3_LOSS_RTOL:
+        raise AssertionError(f"fused_matmul vs ring losses: {vs_ring:.3g}")
+    if not one_card["fault"] > ZERO3_LOSS_RTOL:
+        raise AssertionError(f"a planted fault passes the loss check: "
+                             f"{one_card['fault']:.3g}")
+    return runs["fused_matmul"]["launches"]
+
+
 def llama_int8_init(cfg):
     """The int8 engine: seed-0 bf16 weights at LLAMA_INIT_STD quantized to
     int8 codes when ``build_engine`` runs (quantize_bits 8), and the int8
@@ -3299,6 +3821,11 @@ def main():
     del engine, batch
     torch.cuda.empty_cache()
     launches["train_moq_sr"] = train_moq_sr_phase()
+    torch.cuda.empty_cache()
+    kernels += zero3_kernel_phase(gen)
+    kernels += flash_rows(gen, TRAIN_BATCH // ZERO3_RANKS,
+                          "train_zero3_fused")
+    launches["train_zero3_fused"] = zero3_train_phase()
     for row in kernels:
         if row["path"] is None:      # matvec_int8: no model path calls it
             continue

@@ -7,8 +7,9 @@ ported path is a hand-written CUDA kernel here (``csrc/*.cu``, wrapped in
 ``ops/cuda/``), each beside its plain PyTorch version. Entry points run
 on the card unless the caller passes ``device="cpu"``.
 
-Ported so far: GPT-2 paged serving (``serving.build_engine``) and
-single-device training (``initialize`` → ``engine.train_batch``)::
+Ported so far: GPT-2 paged serving (``serving.build_engine``),
+single-device training (``initialize`` → ``engine.train_batch``) and
+ZeRO-3 training over n ranks (``initialize(mesh=...)``)::
 
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_large
@@ -37,8 +38,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     config's; ``lr_scheduler`` an optional schedule ``step -> lr``.
     ``device`` is where the engine runs: ``None`` means cuda and raises
     without a card, ``"cpu"`` runs the plain versions of the kernels.
-    ``mesh`` and ``mpu`` describe more than one rank, which the port does
-    not run yet."""
+    ``mesh`` is a ``parallel.mesh.Mesh`` (``make_mesh(MeshConfig(data=n))``
+    in each of n processes of a ``torch.distributed`` gloo group): at
+    n > 1 the engine runs ZeRO stage 3 with ``stage3_prefetch``, each rank
+    on the mesh's device. ``mpu`` (a model-parallel unit) is not ported."""
     from deepspeed_tpu_torch.config.config import ROADMAP_MULTI_RANK
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
@@ -50,15 +53,16 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         raise ValueError(
             "DeepSpeed requires --deepspeed_config to specify configuration "
             "file")
-    if mesh is not None or mpu is not None:
+    if mpu is not None:
         raise NotImplementedError(
-            f"initialize(mesh=..., mpu=...): the port trains on one rank "
+            f"initialize(mpu=...): model parallelism is not ported; the "
+            f"port trains on one rank or over a data mesh "
             f"({ROADMAP_MULTI_RANK})")
     engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
                              model_parameters=model_parameters,
                              training_data=training_data,
                              lr_scheduler=lr_scheduler, collate_fn=collate_fn,
                              config=config, loss_fn=loss_fn, device=device,
-                             seed=rng)
+                             seed=rng, mesh=mesh)
     return engine, engine.optimizer, engine.training_dataloader, \
         engine.lr_scheduler

@@ -202,8 +202,9 @@ def _enabled(d):
 _TRAINING_NOT_PORTED = {
     "zero_optimization.offload_optimizer / offload_param / cpu_offload":
         (lambda pd: _zero_offload(pd), ROADMAP_OFFLOAD),
-    "zero_optimization.stage3_prefetch":
-        (lambda pd: bool(_zero(pd).get("stage3_prefetch", False)),
+    "zero_optimization.stage3_prefetch_gather 'fused' (XLA's own "
+    "collective schedule)":
+        (lambda pd: _zero(pd).get("stage3_prefetch_gather") == "fused",
          ROADMAP_STREAM),
     "comm.hierarchy":
         (lambda pd: _present((pd.get("comm") or {}).get("hierarchy")),
@@ -230,8 +231,8 @@ _TRAINING_NOT_PORTED = {
     "pipeline": (lambda pd: int((pd.get("pipeline") or {})
                                 .get("stages", 1)) > 1, ROADMAP_PIPE),
     "mesh": (lambda pd: any(int((pd.get("mesh") or {}).get(k, 1)) > 1
-                            for k in ("data", "model", "pipe", "seq",
-                                      "expert")), ROADMAP_MULTI_RANK),
+                            for k in ("model", "pipe", "seq", "expert")),
+             ROADMAP_MULTI_RANK),
 }
 
 # optimizer types the JAX engine builds and the port does not yet
@@ -256,6 +257,84 @@ def _zero_offload(pd):
         or bool(z.get("cpu_offload_params", False)) \
         or any((z.get(k) or {}).get("device", "none") not in (None, "none")
                for k in ("offload_optimizer", "offload_param"))
+
+
+# zero_optimization's stage-3 knobs (deepspeed_tpu/config/constants.py:
+# 199-238) and its collective_matmul sub-block
+ZERO_STAGE3_PREFETCH_GATHER_MODES = ("ring", "fused", "fused_matmul")
+CM_BACKEND_MODES = ("auto", "fused", "lax")
+ZERO_DEFAULTS = {"stage3_prefetch": False, "stage3_prefetch_gather": "ring",
+                 "stage3_param_persistence_threshold": 1e5,
+                 "stage3_max_live_parameters": 1e9,
+                 "stage3_prefetch_bucket_size": 5e7}
+CM_DEFAULTS = {"backend": "auto", "tile_m": 128, "min_shard_bytes": 1 << 16,
+               "vmem_budget_bytes": 8 << 20}
+
+
+class ZeroConfig:
+    """``zero_optimization``'s stage and stage-3 knobs, with JAX's
+    validation messages (``deepspeed_tpu/config/config.py:166-211``).
+    ``collective_matmul``'s ``tile_m`` and ``vmem_budget_bytes`` shape
+    the TPU kernel's grid and VMEM; the CUDA kernels' tiles are fixed, so
+    the port validates and keeps them."""
+
+    def __init__(self, param_dict):
+        z = _zero(param_dict)
+        D = ZERO_DEFAULTS
+        self.stage = int(z.get("stage", 0))
+        self.stage3_prefetch = bool(z.get("stage3_prefetch",
+                                          D["stage3_prefetch"]))
+        self.stage3_prefetch_gather = str(z.get(
+            "stage3_prefetch_gather", D["stage3_prefetch_gather"]))
+        if self.stage3_prefetch_gather not in \
+                ZERO_STAGE3_PREFETCH_GATHER_MODES:
+            raise DeepSpeedConfigError(
+                f"zero_optimization.stage3_prefetch_gather must be one of "
+                f"{ZERO_STAGE3_PREFETCH_GATHER_MODES}, got "
+                f"{self.stage3_prefetch_gather!r}")
+        cm = z.get("collective_matmul", {}) or {}
+        if not isinstance(cm, dict):
+            raise DeepSpeedConfigError(
+                f"zero_optimization.collective_matmul must be a dict of "
+                f"{{backend, tile_m, min_shard_bytes, vmem_budget_bytes}}, "
+                f"got {cm!r}")
+        self.collective_matmul_backend = str(cm.get("backend",
+                                                    CM_DEFAULTS["backend"]))
+        if self.collective_matmul_backend not in CM_BACKEND_MODES:
+            raise DeepSpeedConfigError(
+                f"zero_optimization.collective_matmul.backend must be one of "
+                f"{CM_BACKEND_MODES}, got "
+                f"{self.collective_matmul_backend!r}")
+        self.collective_matmul_tile_m = int(cm.get("tile_m",
+                                                   CM_DEFAULTS["tile_m"]))
+        self.collective_matmul_min_shard_bytes = int(cm.get(
+            "min_shard_bytes", CM_DEFAULTS["min_shard_bytes"]))
+        if self.collective_matmul_tile_m <= 0:
+            raise DeepSpeedConfigError(
+                f"zero_optimization.collective_matmul.tile_m must be "
+                f"positive, got {self.collective_matmul_tile_m}")
+        if self.collective_matmul_min_shard_bytes < 0:
+            raise DeepSpeedConfigError(
+                f"zero_optimization.collective_matmul.min_shard_bytes must "
+                f"be >= 0, got {self.collective_matmul_min_shard_bytes}")
+        self.collective_matmul_vmem_budget_bytes = int(cm.get(
+            "vmem_budget_bytes", CM_DEFAULTS["vmem_budget_bytes"]))
+        if self.collective_matmul_vmem_budget_bytes <= 0:
+            raise DeepSpeedConfigError(
+                f"zero_optimization.collective_matmul.vmem_budget_bytes "
+                f"must be positive, got "
+                f"{self.collective_matmul_vmem_budget_bytes}")
+        if self.stage3_prefetch and self.stage != 3:
+            raise DeepSpeedConfigError(
+                f"zero_optimization.stage3_prefetch requires stage 3, got "
+                f"stage {self.stage}")
+        self.param_persistence_threshold = int(z.get(
+            "stage3_param_persistence_threshold",
+            D["stage3_param_persistence_threshold"]))
+        self.max_live_parameters = int(z.get(
+            "stage3_max_live_parameters", D["stage3_max_live_parameters"]))
+        self.prefetch_bucket_size = int(z.get(
+            "stage3_prefetch_bucket_size", D["stage3_prefetch_bucket_size"]))
 
 
 # MoQ quantize-aware training and progressive layer drop: the keys and
@@ -335,9 +414,9 @@ class PLDConfig:
 
 class DeepSpeedConfig:
     """The training config — the port's copy of
-    ``deepspeed_tpu/config/config.py:1307`` for what the single-device
-    training path reads. ``world_size`` is the data-parallel world size
-    of the batch triangle (1: the port's engine runs one rank)."""
+    ``deepspeed_tpu/config/config.py:1307`` for what the port's training
+    paths read. ``world_size`` is the data-parallel world size of the
+    batch triangle; ``mesh.data``, when given, must equal it."""
 
     def __init__(self, config, world_size=1):
         pd = load_param_dict(config)
@@ -364,6 +443,12 @@ class DeepSpeedConfig:
             raise DeepSpeedConfigError(
                 f"invalid ZeRO stage {self.zero_optimization_stage}")
         self.zero_enabled = self.zero_optimization_stage > 0
+        self.zero_config = ZeroConfig(pd)
+        data = int((pd.get("mesh") or {}).get("data", 1))
+        if data > 1 and data != self.world_size:
+            raise DeepSpeedConfigError(
+                f"mesh.data {data} must equal the world size "
+                f"{self.world_size}")
 
         self.gradient_clipping = pd.get("gradient_clipping", 0.0)
 

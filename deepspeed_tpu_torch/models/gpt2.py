@@ -21,6 +21,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.models.jax_bridge import JaxTreeBridge
+from deepspeed_tpu_torch.ops import fused_collective as fc
 from deepspeed_tpu_torch.ops.attention import dot_product_attention
 from deepspeed_tpu_torch.ops.transformer.transformer import Dense, LayerNorm
 from deepspeed_tpu_torch.utils.device import resolve_device
@@ -128,10 +129,38 @@ def init_params(cfg: GPT2Config, seed: int = 0, device=None):
 
 # -- the training model ------------------------------------------------------
 
-def _dense(cfg, in_dim, features, std, device):
-    """flax ``nn.Dense``: fp32 master kernel and bias, the product in the
-    compute dtype."""
-    return Dense(in_dim, features, std, cfg.dtype, cfg.param_dtype, device)
+class CollectiveDense(Dense):
+    """``Dense`` whose product can fuse with the ZeRO-3 gather
+    (``CollectiveDense``, ``deepspeed_tpu/models/gpt2.py:153``). Outside a
+    ``gather_scope`` it is ``Dense`` exactly. Inside one (the prefetch
+    pipeline's ``fused_matmul`` layers) a shard-shaped kernel is this
+    rank's resting shard, and the product goes through
+    ``collective_matmul``: the gather fused into the GEMM, dW through
+    matmul+reduce-scatter; the bias is added after, as in JAX. A
+    full-shaped kernel takes the dense path even inside a scope."""
+
+    def __init__(self, in_dim, features, std, dtype, param_dtype,
+                 device=None):
+        super().__init__(in_dim, features, std, dtype, param_dtype, device)
+        self.in_dim, self.features = in_dim, features
+
+    def forward(self, x):
+        cfg = fc.gather_ctx()
+        if cfg is not None:
+            shard_dim = fc.infer_shard_dim(self.kernel.shape, self.in_dim,
+                                           self.features, cfg.axis_size)
+            if shard_dim is not None:
+                dt = self.dtype
+                y = fc.collective_matmul(
+                    x.to(dt), self.kernel.to(dt), shard_dim=shard_dim,
+                    axis_size=cfg.axis_size, cfg=cfg)
+                return y + self.bias.to(dt)
+        return super().forward(x)
+
+
+def _collective_dense(cfg, in_dim, features, std, device):
+    return CollectiveDense(in_dim, features, std, cfg.dtype, cfg.param_dtype,
+                           device)
 
 
 def _layer_norm(cfg, device):
@@ -151,9 +180,10 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         E = cfg.n_embd
-        self.c_attn = _dense(cfg, E, 3 * E, 0.02, device)
-        self.c_proj = _dense(cfg, E, E, 0.02 / math.sqrt(2 * cfg.n_layer),
-                             device)
+        self.c_attn = _collective_dense(cfg, E, 3 * E, 0.02, device)
+        self.c_proj = _collective_dense(cfg, E, E,
+                                        0.02 / math.sqrt(2 * cfg.n_layer),
+                                        device)
 
     def forward(self, x):
         cfg = self.cfg
@@ -170,9 +200,10 @@ class MLP(nn.Module):
     def __init__(self, cfg, device=None):
         super().__init__()
         E = cfg.n_embd
-        self.c_fc = _dense(cfg, E, 4 * E, 0.02, device)
-        self.c_proj = _dense(cfg, 4 * E, E, 0.02 / math.sqrt(2 * cfg.n_layer),
-                             device)
+        self.c_fc = _collective_dense(cfg, E, 4 * E, 0.02, device)
+        self.c_proj = _collective_dense(cfg, 4 * E, E,
+                                        0.02 / math.sqrt(2 * cfg.n_layer),
+                                        device)
 
     def forward(self, x):
         return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
@@ -261,6 +292,55 @@ class GPT2LMHeadModel(JaxTreeBridge, nn.Module):
         if labels is not None and cfg.loss_chunk > 0:
             return chunked_lm_loss(x, self.wte.to(dt), labels, cfg.loss_chunk)
         logits = torch.matmul(x, self.wte.to(dt).t())
+        return logits if labels is None else lm_loss(logits, labels)
+
+    # -- the layered-apply contract of the ZeRO-3 prefetch pipeline ----------
+
+    @property
+    def prefetch_layer_subtree(self):
+        """The layer-stacked subtree the engine's stage3_prefetch pipeline
+        drives layer by layer ("h": the blocks), or None when the model
+        offers none (gpt2.py:480: unrolled layers, dropout)."""
+        cfg = self.config
+        return "h" if cfg.scan_layers and cfg.dropout == 0 else None
+
+    def prefetch_layer_leaves(self):
+        """A block's parameter names, in the order the pipeline's leaves
+        take (``named_parameters`` of a block)."""
+        return [n for n, _ in self.h[0].named_parameters()]
+
+    @property
+    def collective_matmul_paths(self):
+        """The block leaves ``CollectiveDense`` consumes (gpt2.py:512): the
+        engine streams shards to these alone."""
+        return ("attn.c_attn.kernel", "attn.c_proj.kernel",
+                "mlp.c_fc.kernel", "mlp.c_proj.kernel")
+
+    def prefetch_apply(self, params, input_ids, layer_scan, keep_prob=1.0,
+                       labels=None):
+        """``forward`` with the blocks run through ``layer_scan(body, x,
+        params["h"])`` (gpt2.py:521): ``params`` holds the gathered outer
+        leaves by name and, under "h", one list of leaves a layer (in
+        ``prefetch_layer_leaves`` order); ``body(x, leaves)`` applies one
+        block with them. The engine passes the prefetch pipeline."""
+        cfg = self.config
+        dt = cfg.dtype
+        S = input_ids.shape[1]
+        x = F.embedding(input_ids, params["wte"]).to(dt) \
+            + params["wpe"][:S].to(dt)[None]
+        block, names = self.h[0], self.prefetch_layer_leaves()
+
+        def body(xc, leaves):
+            return torch.func.functional_call(block, dict(zip(names, leaves)),
+                                              (xc, keep_prob))
+        x = layer_scan(body, x, params["h"])
+        x = torch.func.functional_call(
+            self.ln_f, {"scale": params["ln_f.scale"],
+                        "bias": params["ln_f.bias"]}, (x,))
+        wte = params["wte"].to(dt)
+        if labels is not None and cfg.loss_chunk > 0:
+            return chunked_lm_loss(x, wte, labels, cfg.loss_chunk)
+        logits = torch.matmul(x, wte.t())
         return logits if labels is None else lm_loss(logits, labels)
 
     # -- the weight bridge ---------------------------------------------------

@@ -48,6 +48,15 @@ SIGNATURES = {
     "dstpu_bs_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _P],
     "dstpu_bs_bwd_dkv": [_P] * 10 + [_I] * 5 + [_F, _P],
     "dstpu_quantize": [_P] * 4 + [_I] * 8 + [_F, _P],
+    "dstpu_ag_matmul": [_P] * 3 + [_I] * 11 + [_P],
+    "dstpu_mm_rs_partial": [_P] * 3 + [_I] * 6 + [_P],
+    "dstpu_mm_rs_reduce": [_P, _P] + [_I] * 4 + [_P],
+    # the symmetric heap (parallel/symmetric_memory.py)
+    "dstpu_heap_alloc": [_I, _I, _P],
+    "dstpu_heap_free": [_I, _P],
+    "dstpu_ipc_get_handle": [_P, _P, _I],
+    "dstpu_ipc_open": [_I, _P, _P],
+    "dstpu_ipc_close": [_I, _P],
 }
 
 

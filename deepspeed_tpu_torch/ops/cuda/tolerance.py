@@ -96,7 +96,12 @@ ROW_RTOL = {"ln_qkv_stacked": 2e-3, "out_ffn_stacked": 2e-3,
             "blocksparse_bwd_dkv": 2e-2,
             # grouped fake quantization: bit for bit (every operation an
             # IEEE one rounded to nearest on both sides)
-            "quantize": 0.0}
+            "quantize": 0.0,
+            # the fused collective GEMMs: fp32 sums of exact bf16 products
+            # in another order (bf16 outputs may round a unit apart); the
+            # reduce adds the same fp32 values in the same order
+            "ag_matmul": 5e-3, "ag_matmul[fp32]": 1e-4,
+            "mm_rs_partial": 1e-4, "mm_rs_reduce": 0.0}
 # least row norm, as a share of the RMS row norm, an error is measured on
 ROW_FLOOR = {"flash_attention_bwd_dkv": 1e-3, "flash_attention_bwd_dq": 1e-3,
              "blocksparse_bwd_dq": 1e-3, "blocksparse_bwd_dkv": 1e-3}

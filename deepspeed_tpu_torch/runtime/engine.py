@@ -25,10 +25,24 @@ reads, the loss scale) stay device tensors, so a step reads nothing back
 to the host; the loss is read back only every ``steps_per_print`` steps,
 where the JAX engine reads it too. ZeRO stages 0-3 run at world size 1
 with nothing partitioned, as the JAX engine does on a 1-device mesh.
+
+At world size n > 1 (a ``parallel.mesh.Mesh`` of n ranks) the engine runs
+ZeRO stage 3 with ``stage3_prefetch``: the JAX engine's
+``_build_prefetch_train_fn`` (:2033). Each rank keeps its shard of every
+leaf the stage-3 specs cut (``runtime/zero/partition.py``) as fp32
+masters with its AdamW moments; the compute copy of the shards lives in
+the symmetric heap on the card (``parallel/symmetric_memory.py``). A step
+takes the rank's rows of the global batch, gathers the outer leaves once
+(custom backward: reduce-scatter), runs the blocks through the prefetch
+pipeline (``parallel/prefetch.py``; under ``fused_matmul`` the four
+projections stream through the fused kernels), scales the shard
+gradients (sums over the ranks) by 1/n, all-reduces the replicated
+leaves' gradients and the loss to their means, and updates the shards.
 """
 
 import inspect
 import logging
+import math
 import os
 
 import numpy as np
@@ -37,9 +51,14 @@ import torch
 from deepspeed_tpu_torch.config.config import (ROADMAP_MULTI_RANK,
                                                DeepSpeedConfig)
 from deepspeed_tpu_torch.models.gpt2 import lm_loss
+from deepspeed_tpu_torch.ops import fused_collective as fc
 from deepspeed_tpu_torch.ops.adam import FusedAdam
 from deepspeed_tpu_torch.ops.cuda import ROADMAP_SECOND_ORDER
 from deepspeed_tpu_torch.ops.optimizer import TorchOptimizer
+from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+from deepspeed_tpu_torch.parallel import overlap
+from deepspeed_tpu_torch.parallel import prefetch as prefetch_lib
+from deepspeed_tpu_torch.parallel.symmetric_memory import SymmetricHeap
 from deepspeed_tpu_torch.runtime import checkpointing as ckpt
 from deepspeed_tpu_torch.runtime import precision as prec
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
@@ -49,6 +68,8 @@ from deepspeed_tpu_torch.runtime.lr_schedules import (_Schedule,
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
     ProgressiveLayerDrop
 from deepspeed_tpu_torch.runtime.quantize import Quantizer
+from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartitioner
+from deepspeed_tpu_torch.telemetry.registry import MetricsRegistry
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("deepspeed_tpu_torch")
@@ -93,17 +114,26 @@ class DeepSpeedEngine:
     def __init__(self, args=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None, lr_scheduler=None,
                  collate_fn=None, config=None, loss_fn=None, device=None,
-                 seed=None):
-        world = _world_size()
-        if world > 1:
+                 seed=None, mesh=None):
+        if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
             raise NotImplementedError(
-                f"deepspeed_tpu_torch trains on one rank; world size is "
-                f"{world} ({ROADMAP_MULTI_RANK})")
-        self.device = resolve_device(device)
+                f"mesh must be a deepspeed_tpu_torch.parallel.mesh.Mesh (a "
+                f"torch.distributed world), got {type(mesh).__name__}; "
+                f"without one the port trains on one rank "
+                f"({ROADMAP_MULTI_RANK})")
+        if mesh is None and _world_size() > 1:
+            mesh = mesh_lib.make_mesh(device=device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        world = 1 if self.mesh is None else self.mesh.size
+        self.device = resolve_device(device) if self.mesh is None \
+            else self.mesh.device
         self.module = model
         self.collate_fn = collate_fn
         self._loss_fn_user = loss_fn
-        self._config = DeepSpeedConfig(config, world_size=1)
+        self._config = DeepSpeedConfig(config, world_size=world)
+        self.metrics = MetricsRegistry()
+        if self.mesh is not None:
+            self._check_world_path()
         self.precision = prec.PrecisionConfig.from_ds_config(self._config)
 
         if optimizer is None:
@@ -178,7 +208,10 @@ class DeepSpeedEngine:
         self._last_grad_norm = None
         self._loss_fn = None
         self._moq_batch = None
-        self._init_state(model_parameters)
+        if self.mesh is None:
+            self._init_state(model_parameters)
+        else:
+            self._init_zero3_state(model_parameters)
         # MoQ's stochastic rounding and the eigenvalues' start vectors
         self.generator = torch.Generator(device=self.device).manual_seed(
             self._seed)
@@ -215,12 +248,13 @@ class DeepSpeedEngine:
         return (self.micro_steps + 1) % self.gradient_accumulation_steps() == 0
 
     # -- state ---------------------------------------------------------------
-    def _init_state(self, model_parameters=None):
+    def _place_model(self, model_parameters=None):
         """Place the model on the device: its own weights, the given
         ``model_parameters`` (a state dict), or — for a model made on the
         meta device — fresh ones from ``reset_parameters`` and a seeded
-        generator, as the JAX engine calls ``model.init``. Then the fp32
-        masters, the optimizer state and the scaler."""
+        generator, as the JAX engine calls ``model.init``. Then the names,
+        the fp32 parameters (the masters to be), the scaler and the
+        counters."""
         model, dev = self.module, self.device
         on_meta = any(p.is_meta for p in model.parameters())
         if on_meta:
@@ -241,18 +275,27 @@ class DeepSpeedEngine:
             if p.dtype != torch.float32:
                 raise ValueError(f"parameter {n} is {p.dtype}: the engine "
                                  f"keeps fp32 master parameters")
-        self.master = [p.data for p in params]
         self._bf16_grads = self._config.grad_dtype == "bf16"
+        self.scaler = prec.init_scaler_state(self.precision, dev)
+        self.global_step_t = torch.zeros((), dtype=torch.int32, device=dev)
+        self.skipped_steps_t = torch.zeros((), dtype=torch.int32, device=dev)
+        return params
+
+    def _init_state(self, model_parameters=None):
+        """The placed model's fp32 masters, its compute copy (the model's
+        own parameters, bf16 with grad_dtype bf16) and the optimizer
+        state."""
+        params = self._place_model(model_parameters)
+        self.master = [p.data for p in params]
         if self._bf16_grads:
             for p in params:
                 p.data = p.data.to(torch.bfloat16)
         self.compute_params = params
         self.opt_state = self.optimizer.init(self.master)
-        self.scaler = prec.init_scaler_state(self.precision, dev)
-        self.global_step_t = torch.zeros((), dtype=torch.int32, device=dev)
-        self.skipped_steps_t = torch.zeros((), dtype=torch.int32, device=dev)
 
     def _refresh_compute_params(self):
+        if self.mesh is not None:
+            return self._refresh_zero3()
         if self._bf16_grads:
             with torch.no_grad():
                 torch._foreach_copy_([p.data for p in self.compute_params],
@@ -306,14 +349,17 @@ class DeepSpeedEngine:
         return _map(lambda x: torch.as_tensor(np.asarray(x)).to(self.device)
                     if not torch.is_tensor(x) else x.to(self.device), batch)
 
-    def _micro_loss_and_grads(self, micro_batch):
+    def _micro_loss_and_grads(self, micro_batch, loss_fn=None):
         """(loss, grads) of one micro batch: grads of loss × loss scale,
-        in the compute parameters' dtype (bf16 with grad_dtype bf16)."""
+        in the compute parameters' dtype (bf16 with grad_dtype bf16).
+        ``loss_fn(micro, keep_prob)``: the loss (default: the engine's
+        loss of the module)."""
         if self._loss_fn is None:
             self._loss_fn = self._resolve_loss_fn()
         pld = self.progressive_layer_drop
         keep = 1.0 if pld is None else pld.theta_at(self.global_step_t)
-        loss = self._loss_fn(self.module, micro_batch, keep)
+        loss = loss_fn(micro_batch, keep) if loss_fn is not None else \
+            self._loss_fn(self.module, micro_batch, keep)
         grads = torch.autograd.grad(
             (loss.float() * self.scaler["loss_scale"]), self.compute_params,
             allow_unused=True)
@@ -335,16 +381,19 @@ class DeepSpeedEngine:
                                       (i + 1) * (lead(x) // gas)], batch)
                 for i in range(gas)]
 
-    def _accumulate_grads(self, batch):
+    def _accumulate_grads(self, batch, loss_fn=None):
+        """(grads, loss) over gas micro batches of ``batch``: each micro
+        batch's grads in ``grad_accum_dtype``, divided by gas and summed;
+        ``loss_fn`` as ``_micro_loss_and_grads`` takes it."""
         gas = self.gradient_accumulation_steps()
         if gas == 1:
-            loss, grads = self._micro_loss_and_grads(batch)
+            loss, grads = self._micro_loss_and_grads(batch, loss_fn)
             return grads, loss
         acc_dtype = torch.bfloat16 if self._config.grad_accum_dtype == "bf16" \
             else torch.float32
         acc, acc_loss = None, torch.zeros((), device=self.device)
         for micro in self._split(batch, gas):
-            loss, grads = self._micro_loss_and_grads(micro)
+            loss, grads = self._micro_loss_and_grads(micro, loss_fn)
             part = torch._foreach_div([g.to(acc_dtype) for g in grads], gas)
             if acc is None:
                 acc = part
@@ -364,19 +413,23 @@ class DeepSpeedEngine:
         return torch.tensor(float(getattr(self.optimizer, "lr", 1e-3)),
                             dtype=torch.float32, device=self.device)
 
-    def _apply_grads(self, grads, loss):
+    def _apply_grads(self, grads, loss, sq_norm=None):
         """Unscale, clip, step, scaler update in one pass of the update
         (engine.py:1394); the caller refreshes the compute copy. On an
         fp16 overflow the masters and the optimizer state keep their
         values (``_tree_where``): the optimizer folds the finite flag into
-        its update."""
+        its update. ``sq_norm``: the global squared gradient norm, when
+        ``grads`` are one rank's shards."""
         with torch.no_grad():
             inv = 1.0 / self.scaler["loss_scale"]
             finite = prec.grads_finite(grads) if self.precision.fp16 \
                 else None
-            norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
-            grad_norm = torch.stack(norms).square().sum().sqrt() * inv \
-                if norms else torch.zeros((), device=self.device)
+            if sq_norm is not None:
+                grad_norm = sq_norm.sqrt() * inv
+            else:
+                norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
+                grad_norm = torch.stack(norms).square().sum().sqrt() * inv \
+                    if norms else torch.zeros((), device=self.device)
             gscale = inv
             clip = self._config.gradient_clipping
             if clip and clip > 0:
@@ -420,8 +473,12 @@ class DeepSpeedEngine:
             batch = _map_many(lambda *xs: np.concatenate(
                 [np.asarray(x) for x in xs]), micro)
         batch = self._to_device(batch)
-        grads, loss = self._accumulate_grads(batch)
-        metrics = self._apply_grads(grads, loss)
+        if self._prefetch_active():
+            grads, loss, sq_norm = self._zero3_grads(batch)
+        else:
+            grads, loss = self._accumulate_grads(batch)
+            sq_norm = None
+        metrics = self._apply_grads(grads, loss, sq_norm)
         del grads
         self.micro_steps += self.gradient_accumulation_steps()
         self._after_step(metrics)
@@ -432,6 +489,7 @@ class DeepSpeedEngine:
     def forward(self, batch):
         """Loss and gradients of one micro batch, kept for
         ``backward``/``step`` (engine.py:3229)."""
+        self._one_rank_only("forward/backward/step")
         batch = self._to_device(batch)
         loss, grads = self._micro_loss_and_grads(batch)
         self._pending_micro = (loss, grads)
@@ -442,6 +500,7 @@ class DeepSpeedEngine:
 
     def backward(self, loss=None):
         """Accumulate the kept micro gradients in fp32, divided by gas."""
+        self._one_rank_only("forward/backward/step")
         if self._pending_micro is None:
             raise AssertionError("forward() must precede backward()")
         mloss, grads = self._pending_micro
@@ -459,6 +518,7 @@ class DeepSpeedEngine:
 
     def step(self):
         """The optimizer step at a gradient-accumulation boundary."""
+        self._one_rank_only("forward/backward/step")
         if self.micro_steps % self.gradient_accumulation_steps() != 0:
             return
         if self._pending_grads is None:
@@ -498,11 +558,354 @@ class DeepSpeedEngine:
         q.quantize_tree(self._named(self.master), jax_paths, overflow,
                         eigenvalues, self.generator)
 
+    # -- ZeRO-3 with the prefetch pipeline at world size n --------------------
+    def _one_rank_only(self, what):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} at world size {self.mesh.size} is not ported; the "
+                f"port trains there through train_batch "
+                f"({ROADMAP_MULTI_RANK})")
+
+    def _check_world_path(self):
+        """What the n-rank path runs: ZeRO stage 3 with stage3_prefetch
+        (``_compute_prefetch`` :1971, whose fallbacks, the fused GSPMD
+        exchange, the port does not have), an elementwise optimizer, the
+        model's layered-apply contract, the default loss, bf16 or fp32."""
+        n, zc = self.mesh.size, self._config.zero_config
+        why = None
+        if zc.stage != 3 or not zc.stage3_prefetch:
+            why = (f"at world size {n} the port runs ZeRO stage 3 with "
+                   f"stage3_prefetch alone (got stage {zc.stage}, "
+                   f"stage3_prefetch {zc.stage3_prefetch})")
+        elif not (getattr(self.module, "prefetch_layer_subtree", None)
+                  and hasattr(self.module, "prefetch_apply")):
+            why = (f"{type(self.module).__name__} does not expose the "
+                   f"layered-apply contract (prefetch_apply + a "
+                   f"prefetch_layer_subtree)")
+        elif self._loss_fn_user is not None:
+            why = "a custom loss_fn drives the model itself"
+        elif self._config.fp16_enabled:
+            why = "fp16 loss scaling across ranks"
+        elif self._config.quantize_training_config.enabled:
+            why = "MoQ quantizes whole leaves, and a rank holds shards"
+        if why is not None:
+            raise NotImplementedError(f"{why}: not ported "
+                                      f"({ROADMAP_MULTI_RANK})")
+
+    def _prefetch_active(self):
+        """True when train_batch runs the stage-3 prefetch pipeline: a
+        world of more than one rank (``_prefetch_active`` :1960; at world
+        size 1 nothing is sharded and the plain path is the program)."""
+        return self.mesh is not None
+
+    def _init_zero3_state(self, model_parameters=None):
+        """The full model placed and initialized as on one rank, then cut
+        to this rank's shards: fp32 masters, AdamW moments and the
+        compute copy (in the symmetric heap on the card); the module keeps
+        no parameter storage."""
+        model, dev, mesh = self.module, self.device, self.mesh
+        n, rank = mesh.size, mesh.rank
+        zc = self._config.zero_config
+        self.master = [p.data for p in self._place_model(model_parameters)]
+        cdt = torch.bfloat16 if self._bf16_grads else torch.float32
+        sub = model.prefetch_layer_subtree
+        leaves = model.prefetch_layer_leaves()
+        L = len(getattr(model, sub))
+        named = dict(zip(self.param_names, self.master))
+        shapes = {}
+        for name in self.param_names:
+            if not name.startswith(sub + "."):
+                shapes[name] = tuple(named[name].shape)
+        for leaf in leaves:
+            shapes[f"{sub}/{leaf}"] = (L,) + tuple(
+                named[f"{sub}.0.{leaf}"].shape)
+        zero = ZeroPartitioner(n, 3, zc.param_persistence_threshold)
+        zero.layer_stacked_prefixes = (sub,)
+        plan = dict(zip(shapes, zero.explicit_shard_plan(shapes)))
+        self._layer_plan = [plan[f"{sub}/{leaf}"] for leaf in leaves]
+        self._outer_names = [k for k in shapes if "/" not in k]
+        self._layer_leaves, self._n_layer, self._subtree = leaves, L, sub
+        layer_meta = [torch.empty(shapes[f"{sub}/{leaf}"][:1] + tuple(
+            s // n if e is not None and d == e[0] else s
+            for d, s in enumerate(shapes[f"{sub}/{leaf}"]) if d > 0),
+            dtype=cdt, device="meta")
+            for leaf, e in zip(leaves, self._layer_plan)]
+        self._fused_ids, self._fused_cfg = self._select_fused_matmul_leaves(
+            layer_meta, self._layer_plan, zc.stage3_prefetch_gather, n, cdt)
+        self._lp = prefetch_lib.build_layer_plan(
+            layer_meta, self._layer_plan, n, self._fused_ids)
+
+        # each leaf's (dim, size) in its own coordinates
+        self._entries = {}
+        for name in self.param_names:
+            if name.startswith(sub + "."):
+                leaf = name.split(".", 2)[2]
+                e = self._lp.plan[leaves.index(leaf)]
+            else:
+                e = plan[name]
+            self._entries[name] = e
+
+        def shard_of(t, e):
+            if e is None:
+                return t.detach().clone()
+            d, size = e
+            return t.detach().narrow(d, rank * size, size).clone()
+        self.master = [shard_of(m, self._entries[k])
+                       for k, m in zip(self.param_names, self.master)]
+        self.compute_params = self._zero3_compute_copy(cdt)
+        for p in model.parameters():
+            p.data = torch.empty(0, dtype=p.dtype, device=dev)
+        self.opt_state = self.optimizer.init(self.master)
+        self._record_prefetch_stats(shapes, plan, cdt)
+        self._refresh_zero3()
+        self._zero3_grads = self._build_prefetch_train_fn()
+
+    def _zero3_compute_copy(self, cdt):
+        """The compute copy of every leaf: a rank's sharded leaves in the
+        symmetric heap on the card (a layer's packed group contiguous, so
+        its gather reads one region a peer; each streamed kernel a region
+        of its own), replicated leaves and the CPU's in plain tensors."""
+        mesh, n, sub = self.mesh, self.mesh.size, self._subtree
+        shard_shapes = {k: tuple(m.shape) for k, m in
+                        zip(self.param_names, self.master)}
+        if mesh.device.type != "cuda":
+            return [m.to(cdt, copy=True).requires_grad_()
+                    for m in self.master]
+        regions, packed = {}, {}
+        for name in self._outer_names:
+            if self._entries[name] is not None:
+                regions[name] = (shard_shapes[name], cdt)
+        for l in range(self._n_layer):
+            for g, (_, ids) in enumerate(self._lp.groups):
+                names = [f"{sub}.{l}.{self._layer_leaves[j]}" for j in ids]
+                numel = sum(math.prod(shard_shapes[k]) for k in names)
+                regions[f"{sub}.{l}/packed{g}"] = ((numel,), cdt)
+                packed[f"{sub}.{l}/packed{g}"] = names
+            for j in self._lp.fused:
+                name = f"{sub}.{l}.{self._layer_leaves[j]}"
+                regions[name] = (shard_shapes[name], cdt)
+        # the largest exchange: a full leaf's fp32 gradient (outer leaves,
+        # streamed kernels), a layer's packed group, or the replicated
+        # leaves' all-reduce
+        full = [math.prod(m.shape) * (n if self._entries[k] else 1)
+                for k, m in zip(self.param_names, self.master)]
+        groups = [n * math.prod(shape) for shape, _ in regions.values()]
+        repl = sum(f for f, k in zip(full, self.param_names)
+                   if self._entries[k] is None)
+        heap = SymmetricHeap(mesh, regions, 4 * max(full + groups + [repl]))
+        views = {}
+        for region, names in packed.items():
+            buf, off = heap.tensor(region), 0
+            for k in names:
+                m = math.prod(shard_shapes[k])
+                views[k] = buf[off:off + m].view(shard_shapes[k])
+                off += m
+        out = []
+        for k, m in zip(self.param_names, self.master):
+            if k in views:
+                t = views[k]
+            elif k in heap.regions:
+                t = heap.tensor(k)
+            else:
+                t = torch.empty(m.shape, dtype=cdt, device=m.device)
+            out.append(t.detach().requires_grad_())
+        return out
+
+    def _refresh_zero3(self):
+        """Masters → the compute copy; on the card a barrier, so that no
+        rank's next gather reads a peer's shard before it is written."""
+        with torch.no_grad():
+            for c, m in zip(self.compute_params, self.master):
+                c.copy_(m)
+        if self.mesh.heap is not None:
+            self.mesh.barrier()
+
+    def _select_fused_matmul_leaves(self, layer_leaves, layer_plan, mode, n,
+                                    cdt):
+        """Which block leaves stream through the fused kernels under
+        ``fused_matmul`` (``_select_fused_matmul_leaves`` :2420): sharded
+        [L, in, out] kernels the model declares ``CollectiveDense``-consumed
+        whose shard is at least ``collective_matmul.min_shard_bytes``;
+        every other sharded leaf rides the packed ring gather. Returns
+        (fused ids, CollectiveMatmulConfig), or ((), None)."""
+        if mode != "fused_matmul":
+            return (), None
+        zc = self._config.zero_config
+        model = self.module
+        paths = tuple(getattr(model, "collective_matmul_paths", ()))
+        if not paths:
+            logger.info(f"stage3_prefetch_gather=fused_matmul: "
+                        f"{type(model).__name__} declares no "
+                        f"collective-matmul leaves; the gather is the ring")
+            return (), None
+        min_bytes = zc.collective_matmul_min_shard_bytes
+        itemsize = torch.empty((), dtype=cdt).element_size()
+        fused, small, shape = [], 0, 0
+        for i, (leaf, e) in enumerate(zip(layer_leaves, layer_plan)):
+            if e is None:
+                continue
+            name = self._layer_leaves[i]
+            if leaf.dim() != 3 or not any(
+                    name == p or name.endswith("." + p) for p in paths):
+                shape += 1
+                continue
+            if math.prod(leaf.shape[1:]) * itemsize < min_bytes:
+                small += 1
+                continue
+            fused.append(i)
+        self.metrics.gauge("comm/zero3_prefetch/fused_leaves").set(len(fused))
+        self.metrics.gauge("comm/zero3_prefetch/ring_leaves").set(
+            small + shape)
+        if not fused:
+            logger.info(f"stage3_prefetch_gather=fused_matmul: no layer "
+                        f"leaf qualifies ({small} below min_shard_bytes="
+                        f"{min_bytes}, {shape} not a streamed kernel); the "
+                        f"gather is the ring")
+            return (), None
+        return tuple(fused), fc.CollectiveMatmulConfig(
+            axis_size=n, backend=zc.collective_matmul_backend, mesh=self.mesh)
+
+    def _record_prefetch_stats(self, shapes, plan, cdt):
+        """Live gathered-parameter accounting (``_record_prefetch_stats``
+        :2497): two layers' gathered leaves, the outer gathers and the
+        replicated leaves; a streamed kernel counts its ~2 live chunks."""
+        b = torch.empty((), dtype=cdt).element_size()
+        n, sub = self.mesh.size, self._subtree
+        per_layer = fused = persistent = outer = 0
+        for i, leaf in enumerate(self._layer_leaves):
+            shape = shapes[f"{sub}/{leaf}"]
+            full = math.prod(shape[1:])
+            if self._layer_plan[i] is None:
+                persistent += full * shape[0]
+            elif i in self._fused_ids:
+                fused += 2 * (full // n)
+            else:
+                per_layer += full
+        for name in self._outer_names:
+            full = math.prod(shapes[name])
+            if plan[name] is None:
+                persistent += full
+            else:
+                outer += full
+        self._prefetch_stats = {
+            "live_param_elements": 2 * per_layer + outer + persistent + fused,
+            "live_param_bytes": (2 * per_layer + outer + persistent
+                                 + fused) * b,
+            "per_layer_gather_bytes": per_layer * b,
+            "fused_stream_bytes": fused * b,
+            "fused_leaves_per_layer": len(self._fused_ids),
+            "outer_gather_bytes": outer * b,
+            "persistent_replicated_bytes": persistent * b,
+            "layers": self._n_layer}
+        max_live = self._config.zero_config.max_live_parameters
+        if max_live and self._prefetch_stats["live_param_elements"] > max_live:
+            logger.warning(
+                f"stage3_prefetch: the 2-layer double buffer holds "
+                f"{self._prefetch_stats['live_param_elements']} full-"
+                f"parameter elements live, above stage3_max_live_parameters"
+                f"={max_live}")
+
+    def prefetch_live_param_stats(self):
+        """The prefetch pipeline's live-parameter accounting (``:2024``):
+        peak gathered elements and bytes and their parts; None at world
+        size 1."""
+        return getattr(self, "_prefetch_stats", None)
+
+    def _build_prefetch_train_fn(self):
+        """The n-rank step's gradients (``_build_prefetch_train_fn``
+        :2033): ``fn(batch) -> (grads, loss, squared norm)``, fp32
+        gradients of this rank's shards (SUMS over the ranks scaled by
+        1/n) and of the replicated leaves (all-reduced means), the loss
+        the global mean. Each rank takes its rows of the global batch and
+        accumulates its micro batches as one rank does
+        (``_accumulate_grads``); the caller updates the shards."""
+        mesh, model = self.mesh, self.module
+        n, sub, L = mesh.size, self._subtree, self._n_layer
+        mode = self._config.zero_config.stage3_prefetch_gather
+        names, entries = self.param_names, self._entries
+        outer = self._outer_names
+        scan = prefetch_lib.make_prefetched_scan
+        gathered = {k: prefetch_lib.make_gathered_param(entries[k], mesh,
+                                                        mode)
+                    for k in outer if entries[k] is not None}
+        sharded = [i for i, k in enumerate(names) if entries[k] is not None]
+        repl = [i for i, k in enumerate(names) if entries[k] is None]
+
+        def micro_loss(micro, keep):
+            p = dict(zip(names, self.compute_params))
+            view = {k: gathered[k](p[k]) if k in gathered else p[k]
+                    for k in outer}
+            view[sub] = [[p[f"{sub}.{l}.{leaf}"]
+                          for leaf in self._layer_leaves] for l in range(L)]
+
+            def run_layers(body, x, h_shards):
+                return scan(body, self._layer_plan, mesh, mode,
+                            fused_ids=self._fused_ids,
+                            fused_cfg=self._fused_cfg)(x, h_shards)
+            if isinstance(micro, dict) and "input_ids" in micro:
+                ids, labels = micro["input_ids"], micro.get(
+                    "labels", micro["input_ids"])
+            else:
+                ids = labels = micro
+            return model.prefetch_apply(view, ids, run_layers,
+                                        keep_prob=keep, labels=labels)
+
+        def fn(batch):
+            local = _map(lambda x: x[mesh.rank * (x.shape[0] // n):
+                                     (mesh.rank + 1) * (x.shape[0] // n)],
+                         self._rows_divisible(batch, n))
+            grads, loss = self._accumulate_grads(local, micro_loss)
+            with torch.no_grad():
+                acc = [g.float() for g in grads]
+                for i in sharded:
+                    acc[i] = acc[i] * (1.0 / n)
+                for i, g in zip(repl, overlap.allreduce_leaves(
+                        [acc[i] for i in repl], mesh)):
+                    acc[i] = g
+                zero = torch.zeros((), device=self.device)
+                shard_sq = sum((acc[i].square().sum() for i in sharded), zero)
+                tot = overlap.all_reduce(torch.stack([loss, shard_sq]), mesh)
+                repl_sq = sum((acc[i].square().sum() for i in repl), zero)
+            return acc, tot[0] / n, tot[1] + repl_sq
+        return fn
+
+    def _rows_divisible(self, batch, n):
+        for x in _leaves(batch):
+            if x.shape[0] % n:
+                raise AssertionError(
+                    f"train_batch got leading dim {x.shape[0]} not "
+                    f"divisible by the {n} ranks")
+        return batch
+
+    def gather_master(self):
+        """Every leaf's fp32 master, gathered whole, by name, on the CPU
+        (collective: every rank calls it)."""
+        out = {}
+        for k, m in zip(self.param_names, self.master):
+            e = self._entries[k] if self.mesh is not None else None
+            full = m if e is None else prefetch_lib.gather_leaf(
+                m, e, self.mesh)
+            out[k] = full.detach().cpu()
+        return out
+
+    def close(self):
+        """Free the symmetric heap (collective at world size n > 1) and
+        drop the step function, whose closure refers back to the engine
+        (the cycle would keep the shards alive until a collection)."""
+        if self.mesh is None:
+            return
+        self._zero3_grads = None
+        if self.mesh.heap is not None:
+            self.compute_params = None
+            self.mesh.heap.close()
+
+
     def zero_grad(self):
         self._pending_grads = None
 
     def eval_batch(self, batch):
         """The model's output (logits) for the batch's inputs."""
+        self._one_rank_only("eval_batch")
         batch = self._to_device(batch)
         if isinstance(batch, dict):
             x = batch.get("input_ids", batch.get("inputs", batch.get("x")))
@@ -546,6 +949,7 @@ class DeepSpeedEngine:
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True):
+        self._one_rank_only("save_checkpoint")
         tag = tag or f"global_step{self.global_steps}"
         self.skipped_steps = int(self.skipped_steps_t)
         extra = {"global_steps": self.global_steps,
@@ -571,6 +975,7 @@ class DeepSpeedEngine:
                         load_optimizer_states=True,
                         load_lr_scheduler_states=True):
         """(tag, client_state), or (None, {}) when nothing is found."""
+        self._one_rank_only("load_checkpoint")
         want_opt = load_optimizer_states and not load_module_only
         loaded = ckpt.load_checkpoint(load_dir, tag, load_optimizer=want_opt)
         if loaded is None:
