@@ -23,7 +23,9 @@ Phases, one JSON line each, each with its wall ``seconds``:
                plain version's time, the least time the card could take
                (bytes over 3.35 TB/s or bf16 operations over 989 TFLOP/s,
                whichever is larger) and, for flash attention,
-               scaled_dot_product_attention's time;
+               scaled_dot_product_attention's time (the forward also at
+               S 8192, 4 heads: the long-sequence contract of the TPU's
+               chunked forward);
 3. serve    — ``serving.build_engine`` with GPT-2 large at full width and
                depth (random weights from seed 0) serving 16 greedy
                requests through 8 slots; every kernel's launch count over
@@ -179,7 +181,10 @@ Phases, one JSON line each, each with its wall ``seconds``:
                every rank's output held against the plain version, a
                planted fault each (a chunk read from the wrong rank, a
                chunk written into its neighbour's slot), timed beside
-               torch.matmul; then the rows' summed times by kernel;
+               torch.matmul and beside the mma.sync kernel of the shapes
+               TMA cannot describe (mma_us), with each row's tile walk
+               (tile, tiles, grid, waves); then the rows' summed times by
+               kernel, the mma.sync kernels' included;
 14. zero3_grad_check, train_zero3_fused, train_zero3_ring — four ranks
                started on the one card (``parallel.mesh.spawn``, gloo,
                each rank's shards in a symmetric heap its peers map
@@ -192,9 +197,10 @@ Phases, one JSON line each, each with its wall ``seconds``:
                step time, barriers a step and the host time in them,
                each rank's peak memory and heap, launches a step a rank
                against the design (432 ag_matmul, 144 of each
-               mm_rs kernel), losses finite, falling from the first
-               timed step, within 1e-2 of each other and of the one-card
-               train phase's. The ranks time-share the card: no
+               mm_rs kernel, all by the TMA kernels: 0 ag_matmul_mma and
+               0 mm_rs_partial_mma), losses finite, falling from the first
+               timed step, within ZERO3_LOSS_RTOL (3e-3) of each other and
+               of the one-card train phase's. The ranks time-share the card: no
                multi-GPU number.
 
 Each path counts its kernels' launches from 0 just before its run: each
@@ -361,6 +367,9 @@ TRAIN_KERNEL_GROUPS = (
 # 11.16, and falls from the sixth)
 ZERO3_RANKS, ZERO3_WARMUP, ZERO3_STEPS = 4, 2, 4
 ZERO3_KERNELS = ("ag_matmul", "mm_rs_partial", "mm_rs_reduce")
+# the mma.sync kernels that take the shapes TMA cannot describe: timed
+# beside the TMA kernels, launched 0 times on the main path
+ZERO3_MMA_KERNELS = ("ag_matmul_mma", "mm_rs_partial_mma")
 # the four projections of a block: (leaf, in, out, the dim their stage-3
 # shard cuts in a layer's coordinates)
 ZERO3_LEAVES = (("attn.c_attn", 1280, 3840, 1), ("attn.c_proj", 1280, 1280, 0),
@@ -707,6 +716,21 @@ def kernel_phase(eng, cfg, gen):
         lse_err = max(lse_err, tolerance.check_lse(lse, lse_ref))
         cases.append({"S": S, "H": Hq, "Hkv": Hkv, "causal": causal})
         del o_ref, lse_ref, fault
+    # the long case is also the row of _flash_fwd_chunked (the TPU's
+    # K/V-streamed forward for long S), whose contract this kernel covers:
+    # timed beside SDPA and the plain version, with its bound
+    S, Hq = 8192, 4
+    q, k, v = rnd(1, Hq, S, D), rnd(1, Hq, S, D), rnd(1, Hq, S, D)
+    next(c for c in cases if c["S"] == S).update({
+        "kernel_us": 1e3 * time_graph_ms(
+            lambda i: fa.flash_attention_fwd(q, k, v, causal=True), n=8),
+        "library_us": 1e3 * time_graph_ms(
+            lambda i: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True), n=8),
+        "plain_us": 1e3 * time_ms(lambda: fa.flash_attention_fwd_plain(
+            q, k, v, causal=True), reps=3, inner=1),
+        "bound_us": 1e3 * bound(4 * Hq * S * D * 2 + Hq * S * 4,
+                                4 * Hq * D * S * (S + 1) // 2)[0]})
     S = 1024
     q, k, v = rnd(1, H, S, D), rnd(1, H, S, D), rnd(1, H, S, D)
     ms = time_graph_ms(lambda i: fa.flash_attention_fwd(q, k, v, causal=True))
@@ -3251,15 +3275,21 @@ def zero3_kernel_phase(gen):
     projections cut into 4 shards as stage 3 cuts it, the n = 4 "peers"
     local tensors. For each projection the forward all-gather+matmul and
     the transposed one of dx, every rank's output held against the plain
-    version (bf16, and fp32 output at the timed rank), and a planted fault
-    (one chunk read from the wrong rank); mm_rs_partial (its fault: each
+    version (bf16, and fp32 output at the timed rank; three reruns equal
+    to the first bit for bit), and a planted fault (one chunk read from
+    the wrong rank); mm_rs_partial (its fault: each
     chunk written into its neighbour's slot) and mm_rs_reduce (one peer's
     slot read from the wrong rank) held for every rank, and the reduced
     shards against one fp32 product over all ranks' tokens. Timed at rank
     ZERO3_TIMED_RANK by CUDA-graph replay; library: torch.matmul over the
     gathered W, and for mm_rs_partial torch.matmul of the same product
     (one torch.matmul over all four ranks' tokens, which gives every
-    reduced shard at once, is printed beside it)."""
+    reduced shard at once, is printed beside it). Every main-path shape
+    takes the TMA kernel (``*_route``); each ag_matmul and mm_rs_partial
+    row also prints its tile walk (tile shape, tiles, grid, waves) and the
+    mma.sync kernel's time on the same inputs (``mma_us``, held against
+    the plain version at the timed rank), whose sums by name close the
+    phase line."""
     from deepspeed_tpu_torch.ops.cuda import fused_collective as k
     from deepspeed_tpu_torch.ops.cuda import tolerance
     n, R = ZERO3_RANKS, ZERO3_TIMED_RANK
@@ -3267,11 +3297,25 @@ def zero3_kernel_phase(gen):
     path = "train_zero3_fused"
     ag_rep = "deepspeed_tpu/ops/pallas/fused_collective.py:299"
     rs_rep = "deepspeed_tpu/ops/pallas/fused_collective.py:491"
-    results = []
+    results, mma_ms = [], {name: 0.0 for name in ZERO3_MMA_KERNELS}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=gen, device="cuda")) \
             .to(torch.bfloat16)
+
+    def repeats(name, fn):
+        """A kernel whose stage ring raced would give other bits on a
+        rerun: three reruns must equal the first call bit for bit."""
+        first = fn()
+        if not all(torch.equal(first, fn()) for _ in range(3)):
+            raise AssertionError(f"{name}: reruns differ from the first")
+
+    def walk(plan, mma_name, ms, mma_err):
+        mma_ms[mma_name] += ms
+        return {"tile": [plan.bm, plan.bn, plan.bk], "tiles": plan.tiles,
+                "grid": plan.grid, "waves": plan.waves, "mma_us": ms * 1e3,
+                "mma_row_rel_err": mma_err}
 
     for leaf, din, dout, d in ZERO3_LEAVES:
         W = rnd(din, dout, scale=0.02)
@@ -3282,6 +3326,9 @@ def zero3_kernel_phase(gen):
             x = rnd(M, dout if transpose else din)
             K, N, ck, _, contract, b_col = k.ag_matmul_geometry(
                 shards[0].shape, n, d, transpose)
+            if k.ag_matmul_route(x, shards, d, transpose) != "ag_matmul":
+                raise AssertionError(f"ag_matmul {leaf}: a main-path shape "
+                                     f"left the TMA kernel")
             checks = []
             for r in range(n):
                 got = k.ag_matmul(x, shards, r, d, transpose)
@@ -3289,6 +3336,8 @@ def zero3_kernel_phase(gen):
                 fault = k.ag_matmul_plain(x, wrong, r, d, transpose) \
                     if r == R else None
                 checks.append(held("ag_matmul", got, want, fault))
+            repeats("ag_matmul", lambda: k.ag_matmul(x, shards, R, d,
+                                                     transpose))
             got = k.ag_matmul(x, shards, R, d, transpose, torch.float32)
             want = k.ag_matmul_plain(x, shards, R, d, transpose,
                                      torch.float32)
@@ -3301,25 +3350,37 @@ def zero3_kernel_phase(gen):
                 x, shards, R, d, transpose), reps=5, inner=1)
             w_full = W.t() if transpose else W
             lib_ms = time_graph_ms(lambda i: torch.matmul(x, w_full))
+            mma_err = tolerance.check_kernel(
+                "ag_matmul", k.ag_matmul_mma(x, shards, R, d, transpose),
+                k.ag_matmul_plain(x, shards, R, d, transpose))
+            mma = time_graph_ms(lambda i: k.ag_matmul_mma(x, shards, R, d,
+                                                          transpose))
+            plan = k.tile_plan("ag", M, K, N, ck, n, R, contract, sms=sms)
             record(results, "ag_matmul", path, ag_rep, checks, ms, call_ms,
                    plain_ms, bound(nbytes(x, W) + M * N * 2, 2 * M * K * N),
                    [{"leaf": leaf, "direction": "dx" if transpose else "y",
                      "M": M, "K": K, "N": N, "chunk": ck,
                      "contracting": contract, "transpose_w": transpose,
                      "shard": list(shards[0].shape), "ranks": n,
-                     "fp32_out_row_rel_err": fp32_err}],
+                     "fp32_out_row_rel_err": fp32_err,
+                     **walk(plan, "ag_matmul_mma", mma, mma_err)}],
                    "one chunk read from the wrong rank", library_ms=lib_ms)
             del x
         # matmul+reduce-scatter: each rank its own tokens
         lhs = [rnd(M, din) for _ in range(n)]
         rhs = [rnd(M, dout, scale=0.02) for _ in range(n)]
         shard = din * dout // n
+        if k.mm_rs_partial_route(lhs[R], rhs[R], d, n) != "mm_rs_partial":
+            raise AssertionError(f"mm_rs_partial {leaf}: a main-path shape "
+                                 f"left the TMA kernel")
         slots = [k.mm_rs_partial(lhs[r], rhs[r], d, n) for r in range(n)]
         p_checks, r_checks = [], []
         for r in range(n):
             want = k.mm_rs_partial_plain(lhs[r], rhs[r], d, n)
             fault = torch.roll(want, 1, dims=0) if r == R else None
             p_checks.append(held("mm_rs_partial", slots[r], want, fault))
+            repeats("mm_rs_partial",
+                    lambda: k.mm_rs_partial(lhs[r], rhs[r], d, n))
             got = k.mm_rs_reduce(slots, r)
             want = k.mm_rs_reduce_plain(slots, r)
             fault = None
@@ -3346,12 +3407,20 @@ def zero3_kernel_phase(gen):
         lib_ms = time_graph_ms(lambda i: torch.matmul(lhs[R].t(), rhs[R]))
         all_ms = time_graph_ms(lambda i: torch.matmul(l_all.t(), r_all),
                                n=8)
+        mma_err = tolerance.check_kernel(
+            "mm_rs_partial", k.mm_rs_partial_mma(lhs[R], rhs[R], d, n),
+            k.mm_rs_partial_plain(lhs[R], rhs[R], d, n))
+        mma = time_graph_ms(lambda i: k.mm_rs_partial_mma(lhs[R], rhs[R], d,
+                                                          n, out=out))
+        plan = k.tile_plan("rs", M, din, dout, (din if d == 0 else dout) // n,
+                           n, shard_dim=d, sms=sms)
         case = {"leaf": leaf, "M": M, "K": din, "N": dout, "shard_dim": d,
                 "ranks": n, "reduced_vs_fp32_product_row_rel_err": sum_err,
                 "all_ranks_matmul_us": all_ms * 1e3}
         record(results, "mm_rs_partial", path, rs_rep, p_checks, ms, call_ms,
                plain_ms, bound(nbytes(lhs[R], rhs[R]) + 4 * din * dout,
-                               2 * M * din * dout), [case],
+                               2 * M * din * dout),
+               [dict(case, **walk(plan, "mm_rs_partial_mma", mma, mma_err))],
                "each chunk written into its neighbour's slot",
                library_ms=lib_ms)
         red = torch.empty(shard, dtype=torch.float32, device="cuda")
@@ -3367,9 +3436,9 @@ def zero3_kernel_phase(gen):
         torch.cuda.empty_cache()
     emit({"phase": "zero3_kernels", "ranks": n, "M": M,
           "rows": len(results),
-          "kernel_ms_by_name": {name: sum(r["ms"] for r in results
-                                          if r["name"] == name)
-                                for name in ZERO3_KERNELS},
+          "kernel_ms_by_name": {**{name: sum(r["ms"] for r in results
+                                             if r["name"] == name)
+                                   for name in ZERO3_KERNELS}, **mma_ms},
           "library_ms": sum(r["library_ms"] or 0.0 for r in results),
           "max_abs_err": max(r["max_abs_err"] for r in results)})
     return results
@@ -3595,7 +3664,8 @@ def zero3_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
              "flash_attention_bwd_dkv": n_layer * steps}
     expect = {"ag_matmul": 3 * per_layer * steps,
               "mm_rs_partial": per_layer * steps,
-              "mm_rs_reduce": per_layer * steps, **flash}
+              "mm_rs_reduce": per_layer * steps,
+              **{name: 0 for name in ZERO3_MMA_KERNELS}, **flash}
     want = {"fused_matmul": expect,
             "ring": {k: (v if k in flash else 0) for k, v in expect.items()}}
     runs = {m: ranks[0][m] for m in ("fused_matmul", "ring", "fault")}

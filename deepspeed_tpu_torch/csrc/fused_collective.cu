@@ -4,66 +4,92 @@
 // Replace the Pallas kernels of deepspeed_tpu/ops/pallas/fused_collective.py:
 // - _ag_matmul_fused (:299; pallas_calls :394 contracting, :480 column
 //   blocks): y = x @ all_gather(W shards) (or x @ W^T), the ring's chunks
-//   multiplied as they arrive. Here: ag_matmul_kernel.
-// - _mm_rs_fused (:491; pallas_call :595): this rank's shard of
-//   sum over ranks of lhs^T @ rhs, partial sums riding the ring. Here:
-//   mm_rs_partial_kernel, then mm_rs_reduce_kernel after a host barrier.
+//   multiplied as they arrive. Here: gemm_tma_kernel<BN, false, B_MN>
+//   (entry dstpu_gemm_tma).
+// - _mm_rs_fused (:491; pallas_call :595): this rank's shard of the sum
+//   over ranks of lhs^T @ rhs, partial sums riding the ring. Here: the
+//   partial lhs^T @ rhs of this rank into its [n, shard] slots,
+//   gemm_tma_kernel<BN, true, true> (dstpu_gemm_tma), then
+//   mm_rs_reduce_kernel after a host barrier.
 //
 // The TPU kernels move chunks between chips with in-kernel remote DMA and
 // a credit semaphore between neighbours. Here each rank's resting shards
 // live in a cudaMalloc'd heap that every peer maps through CUDA IPC
-// (parallel/symmetric_memory.py), and a kernel is handed the table of the
-// n peers' pointers to one region. No kernel waits on a flag another
-// process writes: the ranks may share one card, whose processes do not run
-// kernels at the same time, so a spin would never end. The phases are
-// ordered by host barriers instead (the shards are written before the
-// step's barrier; the partials of mm_rs before the barrier that precedes
-// mm_rs_reduce).
-//
-// ag_matmul_kernel. The GEMM's B operand is W (or W^T) assembled on the fly:
-// the tile loader resolves which rank owns each element, so the gather is
-// fused into the tile loads and no full W is ever written.
-// - CONTRACT: the shards cut the contracting dim (chunk c = rows
-//   [c*ck, c*ck + ck) of B). The k loop takes the chunks in JAX's ring
-//   order, the rank's own chunk first: c = (rank - s) mod n at step s
-//   (_ag_matmul_lax :204); a chunk's last tile is masked at its end, so
-//   any chunk width works.
-// - otherwise the shards cut the output dim (column block c of B); the
-//   owner of a column is resolved per 16-byte vector (per element when
-//   the widths are not multiples of 8).
-// - B_COL: B is read transposed from the shard (dx = dy @ W^T from the
-//   same resting shard: no transposed copy).
-// - output fp32 or bf16; M is bounded by checks in the kernel, not by a
-//   divisor rule, so any M works.
-// mm_rs_partial_kernel computes this rank's full [K, N] partial lhs^T @ rhs
-// (contracting over the tokens) and writes each element into the slot of
-// its destination chunk in this rank's heap slot region ([n, shard]); after
-// a barrier mm_rs_reduce_kernel has rank k sum slot k of every peer in
-// _mm_rs_lax's order (:245): the partial born on rank k+1 first, rank k's
-// own last. The caller casts the fp32 result to the parameter's dtype.
+// (parallel/symmetric_memory.py), and a kernel is handed the n peers'
+// pointers to one region. No kernel waits on a flag another process
+// writes: the ranks may share one card, whose processes do not run kernels
+// at the same time, so a spin would never end. Host barriers order the
+// phases instead (the shards are written before the step's barrier; the
+// partials of mm_rs before the barrier that precedes mm_rs_reduce).
 //
 // What bounds them on the H100: at GPT-2 large's shapes (M = 2048 tokens a
 // rank, [1280, 3840] .. [5120, 1280]) each GEMM is 6.7-26.8 GFLOP over
-// 14-41 MB: 1.7-2.3x above the ridge of 295 flop/byte, so the tensor cores.
+// 14-41 MB, 1.7-2.3x above the ridge of 295 flop/byte: the tensor cores.
 // mm_rs_reduce is bytes only (n + 1 shard-sized fp32 passes).
 //
-// What the design does about it, simply: 128x128 block tiles over 32-deep
-// k tiles, 8 warps of 64x32, bf16 mma.sync m16n8k16 with ldmatrix
-// fragments (csrc/mma.cuh; .trans where the contiguous dim of the operand
-// is not k), shared tiles padded against bank conflicts, a 3-stage
-// cp.async pipeline (two k tiles in flight while one multiplies; 60 KB of
-// dynamic shared memory, two blocks an SM), and the peer pointer table
-// copied into shared memory, where resolving a vector's owner indexes it.
-// Widths that are not multiples of 8 take element-wise loads
-// through registers instead of cp.async. wgmma, TMA and in-kernel
-// signalling are later work.
+// What gemm_tma_kernel does about it:
+// - Warp specialisation. 384 threads: warpgroup 0 is the producer (one
+//   thread issues TMA loads into a ring of 4-8 shared-memory stages, each
+//   guarded by a full and an empty mbarrier; it gives its registers away
+//   with setmaxnreg), warpgroups 1 and 2 the consumers: each owns 64 rows
+//   of a 128 x BN tile, runs wgmma m64nBNk16 on the stages that arrived
+//   and keeps its fp32 sum in registers. A stage holds BK = 64: one
+//   128-byte swizzled row of bf16, the swizzle TMA writes and wgmma reads
+//   (sm90.cuh). One product a stage is kept in flight (wait_group 1)
+//   before the stage is released.
+// - The gather lives in the producer: the host encodes one tensor map for
+//   x (or lhs) and one for each of the n peer shards (a __grid_constant__
+//   parameter). Contracting shards: the k loop walks the chunks in JAX's
+//   ring order, c = (rank - s) mod n (_ag_matmul_lax :204), the rank's own
+//   chunk first; k tile t of chunk c loads from chunk c's map, whose own
+//   bounds zero-fill a ragged chunk end (A's box then reads the next
+//   chunk's columns, which the zero rows of B cancel). Column-cut shards:
+//   the N tiles are laid out chunk by chunk, so that no tile straddles two
+//   owners and a tile picks its map once; the last tile of a chunk that
+//   BN does not divide is masked.
+// - Transposed operands without copies: wgmma reads either major order.
+//   B_COL (dx = dy @ W^T from the resting shard) loads the shard's tiles
+//   as stored (K-major B); a W shard [k, n] is MN-major B; mm_rs's A =
+//   lhs^T comes from the row-major [tokens, K] lhs as MN-major A and its B
+//   = rhs [tokens, N] as MN-major B.
+// - A persistent grid, one block an SM walking the tiles (tile = block +
+//   i * grid), so one tile's epilogue overlaps the next tile's loads. BN
+//   is picked per leaf from {256, 192, 128, 64} by the waves it takes
+//   (ops/cuda/fused_collective.py tile_plan, which the launch reads). At
+//   M 2048, 4 shards, 132 SMs:
+//     leaf, GEMM                        BN   tiles  waves
+//     ag c_attn y (N 3840, chunks 960)  256   256    1.94
+//     ag c_attn dx (N 1280, K 3840)     192   112    0.85
+//     ag attn c_proj y; dx              192   112    0.85; 128 0.97
+//     ag c_fc y; mlp c_proj dx          128   640    4.85
+//     ag c_fc dx; mlp c_proj y          192   112    0.85
+//     mm_rs c_attn (slots of 960)       192   200    1.52
+//     mm_rs attn c_proj                 128   100    0.76
+//     mm_rs c_fc; mlp c_proj            256   200    1.52
+//   (The attn c_proj products are wave-limited at any BN: 100-128 tiles.)
+// - The epilogue stages each warp's 16 rows a 128-byte slab at a time in
+//   shared memory and writes 16-byte vectors. Its addresses are
+//   out + chunk * o_chunk + row * ldo + column in chunk: the chunk is one
+//   a tile, so mm_rs's slot layout ([K, ck] slots under shard dim 1, row
+//   blocks of [K, N] under shard dim 0) costs no division.
+//
+// Shapes TMA cannot describe (a width or chunk not a multiple of 8, a base
+// not 16-byte aligned) go, by the wrapper's shape test, to this file's
+// mma.sync kernels (ag_matmul_kernel, mm_rs_partial_kernel; entries
+// dstpu_ag_matmul, dstpu_mm_rs_partial; launch counts ag_matmul_mma and
+// mm_rs_partial_mma): 128x128 tiles over 32-deep k steps, mma.sync
+// m16n8k16 with ldmatrix fragments (csrc/mma.cuh), a 3-stage cp.async
+// pipeline, and each 16-byte vector's owner resolved in the tile loader
+// (element loads where widths are not multiples of 8).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <string.h>
 
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -475,6 +501,285 @@ cudaError_t launch_ag_vec(const bf16* x, const Peers& w, void* out,
                                               ldb, rank, nranks, st);
 }
 
+
+// -- the TMA-fed, warp-specialised wgmma GEMM -------------------------------
+
+constexpr int TBM = 128, TBK = 64, TNT = 384;
+constexpr int SMEM_CAP = 232448;           // a block's dynamic shared memory
+constexpr int EPI_ROW = 160;               // staging row: 128 bytes + pad
+constexpr int EPI_BYTES = 8 * 16 * EPI_ROW;  // 8 consumer warps x 16 rows
+constexpr int BOX = TBK * 64 * 2;          // one [64][64] bf16 box, 8 KB
+
+template <int BN>
+struct TmaCfg {
+  static constexpr int A_BYTES = TBM * TBK * 2;
+  static constexpr int STAGE = A_BYTES + BN * TBK * 2;
+  static constexpr int FIT = (SMEM_CAP - 1024 - EPI_BYTES - 256) / STAGE;
+  static constexpr int STAGES = FIT > 8 ? 8 : FIT;
+  // 1024 for aligning the swizzled stages, 256 for the mbarriers
+  static constexpr int SMEM = 1024 + STAGES * STAGE + EPI_BYTES + 256;
+};
+
+struct TmaMaps {
+  CUtensorMap a;              // x [M, K], or lhs [tokens, K]
+  CUtensorMap b[MAX_RANKS];   // the n peers' shards, or rhs [tokens, N]
+};
+
+// the tile walk, as tile_plan (ops/cuda/fused_collective.py) lays it out
+struct GemmPlan {
+  int M;            // output rows (A's MN extent)
+  int m_tiles;      // ceil(M / TBM)
+  int nt_chunk;     // N tiles in each chunk of the N layout
+  int cw;           // a chunk's width in N (N itself when one chunk)
+  int tiles;        // m_tiles x chunks x nt_chunk
+  int k_chunks;     // contracting chunks walked in ring order (1: none)
+  int kpc;          // k tiles in each contracting chunk
+  int a_chunk;      // A's k offset from one contracting chunk to the next
+  int rank;
+  int b_by_chunk;   // N chunk c reads map c at local columns (else map 0
+                    // at c * cw)
+  int ldo;          // output row stride
+  long long o_chunk;  // output offset from one N chunk to the next
+  int out_f32;
+};
+
+// this warp's 16 rows of the tile, one 128-byte slab of columns at a time
+// through its shared staging rows, out in 16-byte vectors
+template <int BN, class OutT>
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
+                                           unsigned char* stage, OutT* out,
+                                           const GemmPlan& p, int row0,
+                                           int col0) {
+  constexpr int PER = 128 / (int)sizeof(OutT);  // columns a slab
+  constexpr int EV = 16 / (int)sizeof(OutT);    // elements a vector
+  const int lane = threadIdx.x & 31, r = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int slab = 0; slab < BN / PER; ++slab) {
+#pragma unroll
+    for (int jj = 0; jj < PER / 8; ++jj) {
+      const int j = slab * (PER / 8) + jj;
+      const int off = (jj * 8 + 2 * q) * (int)sizeof(OutT);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned char* dst = stage + (r + 8 * h) * EPI_ROW + off;
+        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if constexpr (sizeof(OutT) == 4)
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        else
+          *reinterpret_cast<uint32_t*>(dst) = pack_f32(v0, v1);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int v = lane; v < 16 * 8; v += 32) {
+      const int rr = v >> 3, cv = v & 7;
+      const int row = row0 + rr, col = col0 + slab * PER + cv * EV;
+      if (row < p.M && col < p.cw)
+        *reinterpret_cast<uint4*>(out + (size_t)row * p.ldo + col) =
+            *reinterpret_cast<const uint4*>(stage + rr * EPI_ROW + cv * 16);
+    }
+    __syncwarp();
+  }
+}
+
+// out [M, N-layout] = A [M, K] @ B [K, N], A and B fed by TMA from `maps`
+// along `p`'s walk. A_MN / B_MN: the operand is MN-major in memory (and in
+// its shared tiles).
+template <int BN, bool A_MN, bool B_MN>
+__global__ void __launch_bounds__(TNT, 1)
+    gemm_tma_kernel(const __grid_constant__ TmaMaps maps, const GemmPlan p,
+                    void* __restrict__ out) {
+  using C = TmaCfg<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      ((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  unsigned char* epi = smem + C::STAGES * C::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(epi + EPI_BYTES);
+  uint64_t* empty = full + C::STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);   // the producer's expect_tx arrival
+      sm90::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  const int T = p.k_chunks * p.kpc;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x != 0) return;
+    int s = 0;
+    uint32_t ph = 0;
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const int mt = tile % p.m_tiles, nt = tile / p.m_tiles;
+      const int c = nt / p.nt_chunk;
+      const int m0 = mt * TBM;
+      const int bn0 = (p.b_by_chunk ? 0 : c * p.cw) +
+                      (nt - c * p.nt_chunk) * BN;
+      for (int t = 0; t < T; ++t) {
+        const int step = t / p.kpc, kt = t - step * p.kpc;
+        // the ring's order: this rank's own chunk first
+        const int kc = (p.rank - step + p.k_chunks) % p.k_chunks;
+        const int ak = kc * p.a_chunk + kt * TBK, bk = kt * TBK;
+        const CUtensorMap* bmap =
+            &maps.b[p.k_chunks > 1 ? kc : (p.b_by_chunk ? c : 0)];
+        sm90::mbar_wait(&empty[s], ph ^ 1);
+        sm90::mbar_expect_tx(&full[s], C::STAGE);
+        unsigned char* sa = smem + s * C::STAGE;
+        unsigned char* sb = sa + C::A_BYTES;
+        if (A_MN) {
+          sm90::tma_load_2d(sa, &maps.a, m0, ak, &full[s]);
+          sm90::tma_load_2d(sa + BOX, &maps.a, m0 + 64, ak, &full[s]);
+        } else {
+          sm90::tma_load_2d(sa, &maps.a, ak, m0, &full[s]);
+        }
+        if (B_MN) {
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            sm90::tma_load_2d(sb + j * BOX, bmap, bn0 + 64 * j, bk,
+                              &full[s]);
+        } else {
+          sm90::tma_load_2d(sb, bmap, bk, bn0, &full[s]);
+        }
+        if (++s == C::STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<232>();
+    const int half = wg - 1;                  // rows half * 64 .. + 63
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    unsigned char* stage = epi + (half * 4 + warp) * 16 * EPI_ROW;
+    int s = 0;
+    uint32_t ph = 0;
+    float acc[BN / 2];
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const int mt = tile % p.m_tiles, nt = tile / p.m_tiles;
+      const int c = nt / p.nt_chunk;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      int prev = 0;
+      for (int t = 0; t < T; ++t) {
+        sm90::mbar_wait(&full[s], ph);
+        const unsigned char* sa =
+            smem + s * C::STAGE + half * (A_MN ? BOX : 64 * 128);
+        const unsigned char* sb = smem + s * C::STAGE + C::A_BYTES;
+        sm90::fence_regs(acc);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TBK / 16; ++kk) {
+          const uint64_t da = A_MN ? sm90::wgmma_desc(sa + kk * 2048, BOX, 1024)
+                                   : sm90::wgmma_desc(sa + kk * 32, 16, 1024);
+          const uint64_t db = B_MN ? sm90::wgmma_desc(sb + kk * 2048, BOX, 1024)
+                                   : sm90::wgmma_desc(sb + kk * 32, 16, 1024);
+          sm90::wgmma<BN, A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db);
+        }
+        sm90::wgmma_commit();
+        sm90::fence_regs(acc);
+        if (t > 0) {       // the previous stage's products are done
+          sm90::wgmma_wait<1>();
+          sm90::fence_regs(acc);
+          if (lane == 0) sm90::mbar_arrive(&empty[prev]);
+        }
+        prev = s;
+        if (++s == C::STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      if (lane == 0) sm90::mbar_arrive(&empty[prev]);
+      const int row0 = mt * TBM + half * 64 + warp * 16;
+      const int col0 = (nt - c * p.nt_chunk) * BN;
+      if (p.out_f32)
+        store_tile<BN>(acc, stage, static_cast<float*>(out) + c * p.o_chunk,
+                       p, row0, col0);
+      else
+        store_tile<BN>(acc, stage, static_cast<bf16*>(out) + c * p.o_chunk,
+                       p, row0, col0);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found through the runtime, so the
+// library links no driver library of its own
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// a row-major bf16 [rows, cols] matrix read in boxes of [box_rows][64],
+// 128-byte swizzled; the box reads zeros outside the matrix
+cudaError_t encode(CUtensorMap* map, const void* base, int rows, int cols,
+                   int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         const_cast<void*>(base), dims, strides, box, step,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BN, bool A_MN, bool B_MN>
+cudaError_t launch_tma_bn(const TmaMaps& maps, const GemmPlan& p, void* out,
+                          int grid, cudaStream_t st) {
+  auto kernel = gemm_tma_kernel<BN, A_MN, B_MN>;
+  static bool allowed = false;     // one attribute call a kernel a process
+  if (!allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TmaCfg<BN>::SMEM);
+    if (err != cudaSuccess) return err;
+    allowed = true;
+  }
+  kernel<<<grid, TNT, TmaCfg<BN>::SMEM, st>>>(maps, p, out);
+  return cudaGetLastError();
+}
+
+template <bool A_MN, bool B_MN>
+cudaError_t launch_tma(const TmaMaps& maps, const GemmPlan& p, void* out,
+                       int bn, int grid, cudaStream_t st) {
+  switch (bn) {
+    case 256: return launch_tma_bn<256, A_MN, B_MN>(maps, p, out, grid, st);
+    case 192: return launch_tma_bn<192, A_MN, B_MN>(maps, p, out, grid, st);
+    case 128: return launch_tma_bn<128, A_MN, B_MN>(maps, p, out, grid, st);
+    case 64: return launch_tma_bn<64, A_MN, B_MN>(maps, p, out, grid, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // y [M, N] = x [M, K] @ B, B assembled from the n ranks' shards (see the
@@ -515,6 +820,44 @@ extern "C" int dstpu_mm_rs_partial(const void* lhs, const void* rhs,
                   : (int)launch_partial<true, false>(l, r, o, M, K, N, ck, st);
   return shard1 ? (int)launch_partial<false, true>(l, r, o, M, K, N, ck, st)
                 : (int)launch_partial<false, false>(l, r, o, M, K, N, ck, st);
+}
+
+// out = A @ B by gemm_tma_kernel along the walk that tile_plan
+// (ops/cuda/fused_collective.py) laid out (M .. o_chunk: GemmPlan's
+// fields; bn, grid). A is the row-major bf16 [a_rows, a_cols] at `a`
+// (a_mn: MN-major, lhs^T of mm_rs; else x, K-major); B the `nmaps`
+// row-major bf16 [b_rows, b_cols] matrices whose device pointers
+// `b_table` holds (b_mn: [k, n]; else [n, k]). Every row 16-byte aligned
+// and every base 16-byte aligned: the wrapper's shape test.
+extern "C" int dstpu_gemm_tma(const void* a, int a_rows, int a_cols,
+                              int a_mn, const void* b_table, int nmaps,
+                              int b_rows, int b_cols, int b_mn, void* out,
+                              int out_f32, int M, int m_tiles, int nt_chunk,
+                              int cw, int tiles, int k_chunks, int kpc,
+                              int a_chunk, int rank, int b_by_chunk, int ldo,
+                              int o_chunk, int bn, int grid, void* stream) {
+  if (nmaps < 1 || nmaps > MAX_RANKS || k_chunks < 1 ||
+      k_chunks > nmaps || rank < 0 || rank >= k_chunks || M < 1 ||
+      tiles < 1 || grid < 1 || kpc < 1 || a_rows < 1 || a_cols < 1 ||
+      b_rows < 1 || b_cols < 1 || (a_mn && !b_mn) || m_tiles < 1 ||
+      nt_chunk < 1 || tiles % (m_tiles * nt_chunk) != 0 ||
+      (b_by_chunk && tiles / (m_tiles * nt_chunk) > nmaps))
+    return (int)cudaErrorInvalidValue;
+  const void* const* table = static_cast<const void* const*>(b_table);
+  TmaMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  cudaError_t err = encode(&maps.a, a, a_rows, a_cols, a_mn ? TBK : TBM);
+  for (int j = 0; j < nmaps && err == cudaSuccess; ++j)
+    err = encode(&maps.b[j], table[j], b_rows, b_cols, b_mn ? TBK : bn);
+  if (err != cudaSuccess) return (int)err;
+  const GemmPlan p = {M,     m_tiles, nt_chunk,   cw,  tiles,
+                      k_chunks, kpc,  a_chunk,    rank, b_by_chunk,
+                      ldo,   o_chunk, out_f32};
+  const int g = grid < tiles ? grid : tiles;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (a_mn) return (int)launch_tma<true, true>(maps, p, out, bn, g, st);
+  return b_mn ? (int)launch_tma<false, true>(maps, p, out, bn, g, st)
+              : (int)launch_tma<false, false>(maps, p, out, bn, g, st);
 }
 
 // out [shard] fp32 = sum of chunk `rank` of the n peers' slot regions

@@ -51,6 +51,8 @@ SIGNATURES = {
     "dstpu_ag_matmul": [_P] * 3 + [_I] * 11 + [_P],
     "dstpu_mm_rs_partial": [_P] * 3 + [_I] * 6 + [_P],
     "dstpu_mm_rs_reduce": [_P, _P] + [_I] * 4 + [_P],
+    "dstpu_gemm_tma": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P] + [_I] * 15
+    + [_P],
     # the symmetric heap (parallel/symmetric_memory.py)
     "dstpu_heap_alloc": [_I, _I, _P],
     "dstpu_heap_free": [_I, _P],

@@ -44,8 +44,12 @@ def train_modes(rank, world, cfgs, state, batches):
 def heap_kernels(rank, world):
     """Each kernel over a ``world``-rank symmetric heap on the card against
     its plain version: {case: (row-relative error, limit)}. Shards of one
-    seeded W (GPT-2-like widths, an uneven M, and 7-wide chunks that take
-    the element-wise loads), each rank's own x, lhs and rhs."""
+    seeded W (GPT-2-like widths and an uneven M, which take the TMA
+    kernels; 7-wide chunks, which take the mma.sync kernels' element-wise
+    loads), each rank's own x, lhs and rhs. Each call's launch name is
+    checked against the route its shapes take; the wide case also runs
+    the mma.sync kernels by name."""
+    from deepspeed_tpu_torch.ops.cuda import builder
     from deepspeed_tpu_torch.ops.cuda import fused_collective as k
     from deepspeed_tpu_torch.ops.cuda import tolerance
     from deepspeed_tpu_torch.parallel.mesh import MeshConfig, make_mesh
@@ -66,6 +70,16 @@ def heap_kernels(rank, world):
         return (0.1 * torch.randn(*shape, generator=gen, device=dev)).to(bf)
 
     errs = {}
+    route = {"wide": "", "uneven": "_mma"}
+
+    def launched(name, fn, *args):
+        before = dict(builder.launches)
+        out = fn(*args)
+        grew = {n for n, c in builder.launches.items()
+                if c != before.get(n, 0)}
+        if grew != {name}:
+            raise AssertionError(f"{name}: launched {sorted(grew)}")
+        return out
     for case, (M, K, N) in cases.items():
         W = rnd(K, N, gen=shared)
         for d in (0, 1):
@@ -77,16 +91,29 @@ def heap_kernels(rank, world):
                 x = rnd(M, N if transpose else K)
                 for out_dtype, limit in ((bf, "ag_matmul"),
                                          (torch.float32, "ag_matmul[fp32]")):
-                    got = k.ag_matmul(x, views, rank, d, transpose, out_dtype)
                     want = k.ag_matmul_plain(x, views, rank, d, transpose,
                                              out_dtype)
-                    errs[f"{limit} {case} dim{d} T{int(transpose)}"] = (
-                        tolerance.kernel_err(limit, got, want),
-                        tolerance.ROW_RTOL[limit])
+                    runs = [("ag_matmul" + route[case], k.ag_matmul)]
+                    if case == "wide":
+                        runs.append(("ag_matmul_mma", k.ag_matmul_mma))
+                    for name, fn in runs:
+                        got = launched(name, fn, x, views, rank, d,
+                                       transpose, out_dtype)
+                        errs[f"{limit} {name} {case} dim{d} "
+                             f"T{int(transpose)}"] = (
+                            tolerance.kernel_err(limit, got, want),
+                            tolerance.ROW_RTOL[limit])
             lhs, rhs = rnd(M, K), rnd(M, N)
             slot = heap.slot(K * N).view(world, K * N // world)
-            k.mm_rs_partial(lhs, rhs, d, world, out=slot)
             want = k.mm_rs_partial_plain(lhs, rhs, d, world)
+            if case == "wide":
+                launched("mm_rs_partial_mma", k.mm_rs_partial_mma, lhs, rhs,
+                         d, world, slot)
+                errs[f"mm_rs_partial_mma {case} dim{d}"] = (
+                    tolerance.kernel_err("mm_rs_partial", slot, want),
+                    tolerance.ROW_RTOL["mm_rs_partial"])
+            launched("mm_rs_partial" + route[case], k.mm_rs_partial, lhs, rhs,
+                     d, world, slot)
             errs[f"mm_rs_partial {case} dim{d}"] = (
                 tolerance.kernel_err("mm_rs_partial", slot, want),
                 tolerance.ROW_RTOL["mm_rs_partial"])
