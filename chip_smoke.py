@@ -25,7 +25,11 @@ Phases, one JSON line each, each with its wall ``seconds``:
                whichever is larger) and, for flash attention,
                scaled_dot_product_attention's time (the forward also at
                S 8192, 4 heads: the long-sequence contract of the TPU's
-               chunked forward);
+               chunked forward). The redesigned kernels' rows add three
+               reruns bit for bit and a variant on the same inputs: the
+               flash forward with the other setting of its warpgroups'
+               turns (``other_turns_us``), matvec_stacked's CUDA-core
+               kernel (``fma_us``, held to the same limit);
 3. serve    — ``serving.build_engine`` with GPT-2 large at full width and
                depth (random weights from seed 0) serving 16 greedy
                requests through 8 slots; every kernel's launch count over
@@ -493,15 +497,53 @@ def _source(name):
     return "blocksparse" if "blocksparse" in name else "decode"
 
 
+def bit_equal_reruns(name, fn):
+    """A kernel whose stage ring raced would give other bits on a rerun:
+    three reruns must equal the first call bit for bit."""
+    def outs():
+        got = fn()
+        return got if isinstance(got, tuple) else (got,)
+    first = outs()
+    for _ in range(3):
+        if not all(torch.equal(a, b) for a, b in zip(first, outs())):
+            raise AssertionError(f"{name}: reruns differ from the first")
+    return first
+
+
+def flash_variants(q, k, v, causal, n):
+    """What a flash forward row adds: three reruns bit for bit, and the
+    kernel with the other setting of its warpgroups' turns (``PINGPONG``
+    by head dim), equal to it bit for bit and timed the same way
+    (``turns``: the row's setting; ``other_turns_us``: the other's)."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+    def call(i=0):
+        return fa.flash_attention_fwd(q, k, v, causal=causal)
+    first = bit_equal_reruns("flash_attention_fwd", call)
+    D, keep = q.shape[-1], dict(fa.PINGPONG)
+    fa.PINGPONG = {**keep, D: not keep[D]}
+    try:
+        other = call()
+        ms = time_graph_ms(call, n=n)
+    finally:
+        fa.PINGPONG = keep
+    if not all(torch.equal(a, b) for a, b in zip(first, other)):
+        raise AssertionError("flash_attention_fwd: the kernel with the other "
+                             "turn setting differs")
+    return {"turns": keep[D], "other_turns_us": ms * 1e3,
+            "reruns_bit_equal": True}
+
+
 def record(results, name, path, replaces, checks, ms, call_ms, plain_ms,
            bound_ms_by, cases, fault, library_ms=None, lse_err=None,
-           limit=None):
+           limit=None, extra=None):
     """Append a kernel's row to ``results`` and print its kernel line.
     ``path`` is the main path ("serve", "serve_llama" or "train") whose
     shapes the row was timed and bounded at, and whose run its launches
     are counted in. ``checks``: (max abs error, row-relative error,
     planted fault's row-relative error or None) per case; ``limit``: the
-    key of the limit they were held to (default ``name``)."""
+    key of the limit they were held to (default ``name``); ``extra``:
+    more keys for the kernel line."""
     from deepspeed_tpu_torch.ops.cuda import tolerance
     b_ms, b_by = bound_ms_by
     abs_errs = [c[0] for c in checks] + ([] if lse_err is None else [lse_err])
@@ -522,7 +564,7 @@ def record(results, name, path, replaces, checks, ms, call_ms, plain_ms,
           "row_rel_err": max(c[1] for c in checks),
           "row_rtol": tolerance.ROW_RTOL[limit or name],
           "fault": fault, "fault_row_rel_err": f_rel,
-          "lse_abs_err": lse_err})
+          "lse_abs_err": lse_err, **(extra or {})})
 
 
 # ------------------------------------------------------------------ phases
@@ -722,6 +764,7 @@ def kernel_phase(eng, cfg, gen):
     S, Hq = 8192, 4
     q, k, v = rnd(1, Hq, S, D), rnd(1, Hq, S, D), rnd(1, Hq, S, D)
     next(c for c in cases if c["S"] == S).update({
+        **flash_variants(q, k, v, True, n=8),
         "kernel_us": 1e3 * time_graph_ms(
             lambda i: fa.flash_attention_fwd(q, k, v, causal=True), n=8),
         "library_us": 1e3 * time_graph_ms(
@@ -746,7 +789,8 @@ def kernel_phase(eng, cfg, gen):
            bound(4 * H * S * D * 2 + H * S * 4,
                  4 * H * D * S * (S + 1) // 2), cases,
            "the last 64-key tile dropped (S=1024, GQA, not causal)",
-           library_ms=lib_ms, lse_err=lse_err)
+           library_ms=lib_ms, lse_err=lse_err,
+           extra=flash_variants(q, k, v, True, n=36))
     torch.cuda.synchronize()
     return results
 
@@ -893,13 +937,24 @@ def llama_kernel_phase(eng, cfg, gen):
     # one PyTorch call computes the bf16 product; none takes int8 codes
     lib_ms = None if int8 else time_graph_ms(
         lambda i: torch.matmul(ctx, Wo[i]), n=L)
+    # the CUDA-core kernel on the same inputs, held to the same limit;
+    # reruns of the TMA kernel bit for bit
+    bit_equal_reruns("matvec_stacked",
+                     lambda: dk.matvec_stacked(ctx, Wo, so, lids[LAYER]))
+    fma_err = tolerance.check_kernel(
+        key["matvec"], dk.matvec_stacked_fma(ctx, Wo, so, lids[LAYER]),
+        dk.matvec_stacked_plain(ctx, Wo, so, LAYER))
+    mv_extra = {"fma_us": 1e3 * time_graph_ms(
+        lambda i: dk.matvec_stacked_fma(ctx, Wo, so, lids[i]), n=L),
+        "fma_row_rel_err": fma_err, "reruns_bit_equal": True,
+        "plan": dk.matvec_tma_plan(B, H * D, E, wb)._asdict()}
     record(results, "matvec_stacked", path,
            "deepspeed_tpu/ops/pallas/decode.py:558", checks, ms, call_ms,
            plain_ms, bound(nbytes(ctx) + H * D * E * wb + 4 + B * E * 2,
                            2 * B * H * D * E),
            [{"B": B, "K": H * D, "N": E, "L": L, **weights[0]}],
            f"the last 32 of the {H * D} weight rows dropped",
-           library_ms=lib_ms, limit=key["matvec"])
+           library_ms=lib_ms, limit=key["matvec"], extra=mv_extra)
 
     # -- out_ffn_stacked, RMSNorm + SwiGLU, fuse_proj=False: two launches
     x1 = rnd(B, E)
@@ -1053,7 +1108,8 @@ def llama_kernel_phase(eng, cfg, gen):
                  4 * H * D * S * (S + 1) // 2), cases,
            "the last 64-key tile dropped (S=1024, GQA, not causal)",
            library_ms=lib_ms, lse_err=lse_err,
-           limit="flash_attention_fwd[d128]")
+           limit="flash_attention_fwd[d128]",
+           extra=flash_variants(q, k, v, True, n=L))
     torch.cuda.synchronize()
     return results
 
@@ -1108,7 +1164,7 @@ def flash_rows(gen, batch, path, more_bwd_cases=()):
                  4 * B * H * 64 * S * (S + 1) // 2),
            [{"B": B, "S": S, "H": H, "Hkv": H, "causal": True}],
            "every batch element given element 0's K/V", library_ms=lib_ms,
-           lse_err=lse_err)
+           lse_err=lse_err, extra=flash_variants(q, k, v, True, n=36))
     del q, k, v
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2537,7 +2593,8 @@ def generate_kernel_rows(eng, cfg, gen):
                  4 * B * H * D * S * (S + 1) // 2),
            [{"B": B, "S": S, "H": H, "Hkv": H, "D": D, "causal": True}],
            "every batch element given element 0's K/V", library_ms=lib_ms,
-           lse_err=lse_err, limit="flash_attention_fwd[d128]")
+           lse_err=lse_err, limit="flash_attention_fwd[d128]",
+           extra=flash_variants(q, k, v, True, n=8))
     del q, k, v
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2622,7 +2679,8 @@ def generate_phase(eng, cfg, profile=False):
     bench_llama_decode times it: per batch size a warm-up, then the best
     of 3 of t(68 new) - t(4 new) for 64 decode steps, beside the floor of
     those steps (the int8 layer weights and the LM head read once a step,
-    plus the live int8 K/V rows and their scales); the last row of each
+    plus the live int8 K/V rows and their scales), and the best t(4 new)
+    itself (``t4_ms``: the prompt pass and 3 steps); the last row of each
     batch held by the teacher-forced check. Then a short bf16-cache case
     (kv_cache_bits=0).
     Returns {path: launches}."""
@@ -2651,11 +2709,12 @@ def generate_phase(eng, cfg, profile=False):
             0, cfg.vocab_size, size=(bs, S)).astype(np.int32)
         run(prompt, GEN_SHORT)
         run(prompt, GEN_LONG)
-        best = math.inf
+        best = best_t4 = math.inf
         for _ in range(3):
             t0 = time.perf_counter()
             run(prompt, GEN_SHORT)
             t_s = time.perf_counter() - t0
+            best_t4 = min(best_t4, t_s)
             t0 = time.perf_counter()
             toks = run(prompt, GEN_LONG)
             best = min(best, time.perf_counter() - t0 - t_s)
@@ -2663,6 +2722,8 @@ def generate_phase(eng, cfg, profile=False):
         floor_s = (steps * (w_layers + w_head) + bs * kv_rows * L
                    * row_bytes) / HBM_BYTES_PER_S
         case = {"batch": bs, "prompt": S, "ctx": GEN_CTX,
+                # bench.py's t(4 new): the prompt pass and 3 decode steps
+                "t4_ms": best_t4 * 1e3,
                 "decode_tokens_per_s": bs * steps / best,
                 "ms_per_decode_step": best / steps * 1e3,
                 "floor_ms_per_step": floor_s / steps * 1e3,

@@ -3,7 +3,8 @@
 //
 // Replaces seven Pallas kernels of deepspeed_tpu/ops/pallas/decode.py:
 //   ln_qkv_int8_stacked     (:432, kernel _ln_qkv_stacked_kernel :496)
-//   matvec_int8_stacked     (:523, kernel _matvec_stacked_kernel :558)
+//   matvec_int8_stacked     (:523, kernel _matvec_stacked_kernel :558;
+//                            here matvec_tma_kernel)
 //   out_ffn_int8_stacked    (:698, kernel _out_ffn_stacked_kernel :1000)
 //   decode_attention_paged  (:854, kernel _decode_attn_paged_kernel :931)
 //   kv_quant_int8           (:297, kernel _kv_quant_kernel :279)
@@ -83,6 +84,26 @@
 //   flight match the bf16 stream. A code converts to float exactly, the
 //   products accumulate in fp32 and the sum is multiplied by s[layer], as
 //   the Pallas kernels do (w.astype(bf16), a bf16 dot, then * s).
+// - matvec_stacked (LLaMA's o-projection) runs its own kernel,
+//   matvec_tma_kernel: the CUDA-core loop above spends 8 fp32 FMAs and an
+//   unpack on every weight at 8 slots, about 40 % (bf16) and 80 % (int8,
+//   before the unpack) of the card's fp32 issue at the byte rate, and
+//   keeps its weight stream in registers (~32 KiB in flight an SM). Here
+//   the operands are swapped, y^T [64 columns, slots] = W^T x^T, so the
+//   products are wgmma m64n8k16 (m64n16k16 for 9-16 slots) on the tensor
+//   cores: A is W's [64 k][64 n] box as stored (MN-major), B the slots'
+//   [N][64 k] box of x (K-major; slots past B are TMA's zeros). A
+//   producer warp streams both boxes by TMA from a 3-D map [L, K, N] at
+//   the layer read on the device, 8 stages a block (6 for int8), two
+//   blocks an SM: 128 KiB (96 KiB) in flight an SM; two consumer
+//   warpgroups take the stages in turn. int8 codes come as [64 k][128 n]
+//   boxes, half the bytes, which the consumers widen exactly into a
+//   swizzled bf16 stage (sm_90 has no 8-bit transposing ldmatrix); the
+//   sum is multiplied by s[layer]. K is split over a cluster as above,
+//   partials summed in a fixed order. Shapes TMA cannot describe (int8
+//   with N not a multiple of 16) take the CUDA-core kernel
+//   (matvec_stacked_fma). ln_qkv, out_ffn and matvec_int8 keep the
+//   CUDA-core loop, whose prologues and epilogues they need.
 // - The int8 KV cache: at head dim 128 a key row is 128 bytes, so 2 lanes
 //   own a key (64 dims each, the same four 16-byte loads as bf16's 32) and
 //   a group holds 16 keys; a lane's 4 dims of a V row are one 32-bit word.
@@ -106,11 +127,14 @@
 //   stacked cache's position), which Mosaic could not (decode.py:281).
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -622,6 +646,271 @@ cudaError_t matvec(const void* xin, const float* ln_w, const float* ln_b,
       out_f32, B, K, N, eps, st);
 }
 
+// ------------------------------- matvec_stacked: TMA-fed, on the tensor cores
+
+// y^T [column tile, slots] = W[layer]^T x^T per block: wgmma m64nNBk16 with
+// A = a [64 k][64 n] box of W (MN-major, as stored) and B = the [NB slots]
+// [64 k] box of x (K-major); NB is 8 (B <= 8) or 16. A block is two
+// consumer warpgroups (warps 0-7), which take the stages in turn, and one
+// producer warp (warp 8), whose lane 0 streams the K slice's W and x boxes
+// by TMA into a ring of stages. int8 codes: a stage holds a [64 k][128 n]
+// box of codes, which the consumers widen (exactly) into two swizzled bf16
+// boxes of their own before the product; two warpgroups keep two of these
+// chains (load, widen, product) going a block. The blocks of a column
+// tile split K as a cluster and sum their fp32 partials over distributed
+// shared memory in a fixed order.
+constexpr int MV_THREADS = 288;
+constexpr int MV_KB = 64;            // k rows a stage
+constexpr int MV_BOX = MV_KB * 128;  // one [64 k][128 bytes] box: 8 KB
+
+// shared memory of a block; ops/cuda/decode.py matvec_tma_plan mirrors it
+template <bool I8, int NB>
+struct MvCfg {
+  static constexpr int COLS = I8 ? 128 : 64;     // columns a block
+  static constexpr int STAGE = MV_BOX + NB * 128;  // W box, then x box
+  static constexpr int STAGES = I8 ? 6 : 8;
+  static constexpr int CVT = I8 ? 2 * 2 * MV_BOX : 0;  // two bf16 boxes a WG
+  static constexpr int PART = 2 * COLS * NB * 4;   // a partial a WG
+  static constexpr int SMEM = 1024 + STAGES * STAGE + CVT + PART + 256;
+};
+
+struct MvMaps {
+  CUtensorMap w;   // [L, K, N] bf16 or int8, boxes [64 k][128 bytes of n]
+  CUtensorMap x;   // [B, K] bf16, boxes [NB][64 k]
+};
+
+// 4 int8 codes -> 4 bf16 values (2 words), exactly: unpack4_i8's trick
+// (byte ^ 0x80 is c + 128, 2^23 + (c + 128) - (2^23 + 128) = c) with one
+// byte_perm a code, and a float that is an integer of at most 8 bits is a
+// bf16 in its upper half
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  w ^= 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(
+        __uint_as_float(__byte_perm(w, 0x4b000000u, 0x7440 + i)) -
+        8388736.f);
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632),
+                    __byte_perm(f[2], f[3], 0x7632));
+}
+
+// a warpgroup widens a stage's [64 k][128 n] codes into `cb`: two MN-major
+// [64 k][64 n] bf16 boxes, both in the 128-byte swizzle
+__device__ __forceinline__ void widen_stage(const unsigned char* st,
+                                            unsigned char* cb) {
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int idx = it * 128 + (threadIdx.x & 127);   // 512 16-byte chunks
+    const int k = idx >> 3, c = idx & 7, sw = k & 7;
+    const uint4 v = *reinterpret_cast<const uint4*>(st + k * 128 +
+                                                    ((c ^ sw) << 4));
+    const uint2 a = widen4(v.x), b = widen4(v.y), d = widen4(v.z),
+                e = widen4(v.w);
+    unsigned char* row = cb + (c >> 2) * MV_BOX + k * 128;
+    const int q = 2 * (c & 3);   // the two bf16 chunks of these 16 codes
+    *reinterpret_cast<uint4*>(row + ((q ^ sw) << 4)) =
+        make_uint4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<uint4*>(row + (((q + 1) ^ sw) << 4)) =
+        make_uint4(d.x, d.y, e.x, e.y);
+  }
+}
+
+// out [B, N] = bf16(x [B, K] . W[layer] [K, N] * s[layer]): grid (column
+// tiles, S), the S blocks of a tile one cluster, each over `kslice` rows
+template <bool I8, int NB>
+__global__ void __launch_bounds__(MV_THREADS, 2)
+    matvec_tma_kernel(const __grid_constant__ MvMaps maps,
+                      const float* __restrict__ scales,
+                      const int* __restrict__ layer_ptr,
+                      bf16* __restrict__ out, int B, int K, int N,
+                      int kslice) {
+  using C = MvCfg<I8, NB>;
+  constexpr int ST = C::STAGES, PARTS = C::COLS / 64;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), nsplit = (int)cluster.num_blocks();
+  const int k_lo = rank * kslice, k_hi = min(K, k_lo + kslice);
+  const int T = k_hi > k_lo ? (k_hi - k_lo + MV_KB - 1) / MV_KB : 0;
+  const int n0 = blockIdx.x * C::COLS;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* stages = reinterpret_cast<unsigned char*>(
+      ((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  unsigned char* cvt = stages + ST * C::STAGE;
+  float* part = reinterpret_cast<float*>(cvt + C::CVT);   // [2][COLS][NB]
+  uint64_t* full = reinterpret_cast<uint64_t*>(part + 2 * C::COLS * NB);
+  uint64_t* empty = full + ST;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      sm90::mbar_init(&full[s], 1);    // the producer's expect_tx
+      sm90::mbar_init(&empty[s], 4);   // lane 0 of each consuming warp
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  const int l = layer_ptr ? *layer_ptr : 0;
+  const float sl = scales[l];   // read now, used after the stream
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp == 8) {
+    if (lane == 0) {
+      sm90::tma_prefetch_map(&maps.w);
+      sm90::tma_prefetch_map(&maps.x);
+      for (int t = 0; t < T; ++t) {
+        const int s = t % ST, k = k_lo + t * MV_KB;
+        unsigned char* st = stages + s * C::STAGE;
+        sm90::mbar_wait(&empty[s], ((t / ST) & 1) ^ 1);
+        sm90::mbar_expect_tx(&full[s], C::STAGE);
+        sm90::tma_load_3d(st, &maps.w, n0, k, l, &full[s]);
+        sm90::tma_load_2d(st + MV_BOX, &maps.x, k, 0, &full[s]);
+      }
+    }
+  } else {
+    const int cw = warp >> 2, w4 = warp & 3;   // warpgroup, its warp
+    float acc[PARTS][NB / 2];
+#pragma unroll
+    for (int p = 0; p < PARTS; ++p)
+#pragma unroll
+      for (int i = 0; i < NB / 2; ++i) acc[p][i] = 0.f;
+    unsigned char* cb = cvt + cw * 2 * MV_BOX;
+    int prev = -1;
+    for (int t = cw; t < T; t += 2) {
+      const int s = t % ST;
+      const unsigned char* st = stages + s * C::STAGE;
+      sm90::mbar_wait(&full[s], (t / ST) & 1);
+      const unsigned char* a = st;
+      if (I8) {
+        widen_stage(st, cb);
+        sm90::fence_proxy_async();
+        sm90::bar_sync(1 + cw, 128);
+        a = cb;
+      }
+#pragma unroll
+      for (int p = 0; p < PARTS; ++p) sm90::fence_regs(acc[p]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < MV_KB / 16; ++kk) {
+        const uint64_t db = sm90::wgmma_desc(st + MV_BOX + kk * 32, 16, 1024);
+#pragma unroll
+        for (int p = 0; p < PARTS; ++p)
+          sm90::wgmma_ss<NB, 1, 0>(
+              acc[p],
+              sm90::wgmma_desc(a + p * MV_BOX + kk * 2048, MV_BOX, 1024), db,
+              1);
+      }
+      sm90::wgmma_commit();
+      if (I8) {
+        // the product has read the stage's x box: the stage is free. The
+        // widened boxes are rewritten next: every warp's part of this
+        // product must be done (a warp's wait covers its own part only)
+        sm90::wgmma_wait<0>();
+#pragma unroll
+        for (int p = 0; p < PARTS; ++p) sm90::fence_regs(acc[p]);
+        if (lane == 0) sm90::mbar_arrive(&empty[s]);
+        sm90::bar_sync(3 + cw, 128);
+      } else {
+        // the previous stage's product is done: that stage is free
+        sm90::wgmma_wait<1>();
+#pragma unroll
+        for (int p = 0; p < PARTS; ++p) sm90::fence_regs(acc[p]);
+        if (prev >= 0 && lane == 0) sm90::mbar_arrive(&empty[prev]);
+        prev = s;
+      }
+    }
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < PARTS; ++p) sm90::fence_regs(acc[p]);
+    // acc[p][4j + 2h + e]: column p * 64 + 16 w4 + lane / 4 + 8h, slot
+    // 8j + 2 (lane % 4) + e
+    const int g = lane >> 2, t4 = lane & 3;
+    float* mine = part + cw * C::COLS * NB;
+#pragma unroll
+    for (int p = 0; p < PARTS; ++p)
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = p * 64 + 16 * w4 + g + 8 * (e >> 1);
+          mine[n * NB + 8 * j + 2 * t4 + (e & 1)] = acc[p][4 * j + e];
+        }
+  }
+  cluster.sync();   // every block's partials are visible to the cluster
+
+  const int n_out = C::COLS * NB, per = (n_out + nsplit - 1) / nsplit;
+  for (int i = rank * per + threadIdx.x; i < min(n_out, (rank + 1) * per);
+       i += MV_THREADS) {
+    const int n = n0 + i / NB, b = i % NB;
+    if (b >= B || n >= N) continue;
+    float a = 0.f;
+    for (int q = 0; q < nsplit; ++q) {
+      const float* pq = cluster.map_shared_rank(part, q);
+      a += pq[i] + pq[C::COLS * NB + i];
+    }
+    out[(size_t)b * N + n] = __float2bfloat16(a * sl);
+  }
+  cluster.sync();   // no block leaves while another still reads its part
+}
+
+// the K split of a matvec_tma launch: the smallest power of two (at most
+// kMaxSplit, a portable cluster) that puts 1.5 blocks an SM on the card;
+// each slice a whole number of 64-row stages
+inline int mv_split(int n_tiles, int sms) {
+  int S = 1;
+  while (S < kMaxSplit && 2 * n_tiles * S < 3 * sms) S *= 2;
+  return S;
+}
+
+template <bool I8, int NB>
+cudaError_t launch_matvec_tma(const void* x, const void* w, const float* s,
+                              const int* lp, bf16* out, int B, int K, int N,
+                              int L, cudaStream_t st) {
+  using C = MvCfg<I8, NB>;
+  MvMaps maps;
+  const cuuint64_t wdims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)L};
+  const cuuint64_t wstr[2] = {(cuuint64_t)N * (I8 ? 1 : 2),
+                              (cuuint64_t)K * N * (I8 ? 1 : 2)};
+  const cuuint32_t wbox[3] = {I8 ? 128u : 64u, (cuuint32_t)MV_KB, 1};
+  cudaError_t e = sm90::encode_tiled(
+      &maps.w, I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, w, wdims, wstr, wbox);
+  if (e == cudaSuccess) e = sm90::encode_2d(&maps.x, x, B, K, NB);
+  if (e != cudaSuccess) return e;
+  auto kern = matvec_tma_kernel<I8, NB>;
+  static bool allowed = false;     // one attribute call a kernel a process
+  if (!allowed) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM);
+    if (e != cudaSuccess) return e;
+    allowed = true;
+  }
+  const int n_tiles = (N + C::COLS - 1) / C::COLS;
+  const int S = mv_split(n_tiles, sm90::sm_count());
+  const int kslice = ((K + S - 1) / S + MV_KB - 1) / MV_KB * MV_KB;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_tiles, S, 1);
+  cfg.blockDim = dim3(MV_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = S;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, maps, s, lp, out, B, K, N, kslice);
+}
+
+template <bool I8>
+cudaError_t matvec_tma(const void* x, const void* w, const float* s,
+                       const int* lp, bf16* out, int B, int K, int N, int L,
+                       cudaStream_t st) {
+  if (B <= 8)
+    return launch_matvec_tma<I8, 8>(x, w, s, lp, out, B, K, N, L, st);
+  return launch_matvec_tma<I8, 16>(x, w, s, lp, out, B, K, N, L, st);
+}
+
 // ------------------------------------------------------- decode attention
 
 constexpr int kAttnWarps = 8;
@@ -1030,19 +1319,33 @@ int dstpu_ln_qkv_stacked(const void* x, const void* ln_w, const void* ln_b,
       (bf16*)out, nullptr, B, E, N, eps, (cudaStream_t)stream);
 }
 
-// out [B, N] = x . W[layer] * s[layer]; w8 != 0: W holds int8 codes
+// out [B, N] = x . W[layer] * s[layer] over W [L, K, N]; w8 != 0: W holds
+// int8 codes. fma == 0: matvec_tma_kernel, which needs every base 16-byte
+// aligned and K, N multiples of 8 (of 16 for int8 codes: a row of codes is
+// then a multiple of 16 bytes); fma != 0: the CUDA-core kernel, which
+// takes every shape the wrapper takes
 int dstpu_matvec_stacked(const void* x, const void* w, const void* s,
                          const void* layer_ptr, void* out, int B, int K,
-                         int N, int w8, void* stream) {
+                         int N, int L, int w8, int fma, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!fma) {
+    if (B < 1 || B > 16 || K % 8 || N % (w8 ? 16 : 8) || L < 1)
+      return (int)cudaErrorInvalidValue;
+    return w8 ? (int)matvec_tma<true>(x, w, (const float*)s,
+                                      (const int*)layer_ptr, (bf16*)out, B,
+                                      K, N, L, st)
+              : (int)matvec_tma<false>(x, w, (const float*)s,
+                                       (const int*)layer_ptr, (bf16*)out, B,
+                                       K, N, L, st);
+  }
   if (w8)
     return (int)matvec<PRO_COPY, EPI_BIAS, false, int8_t>(
         x, nullptr, nullptr, (const int8_t*)w, (const float*)s, nullptr,
         (const int*)layer_ptr, nullptr, (bf16*)out, nullptr, B, K, N, 0.f,
-        (cudaStream_t)stream);
+        st);
   return (int)matvec<PRO_COPY, EPI_BIAS>(
       x, nullptr, nullptr, (const bf16*)w, (const float*)s, nullptr,
-      (const int*)layer_ptr, nullptr, (bf16*)out, nullptr, B, K, N, 0.f,
-      (cudaStream_t)stream);
+      (const int*)layer_ptr, nullptr, (bf16*)out, nullptr, B, K, N, 0.f, st);
 }
 
 // Three launches on one stream: x1 (bf16 + fp32 copies), h, then out;

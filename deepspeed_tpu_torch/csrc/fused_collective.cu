@@ -706,52 +706,6 @@ __global__ void __launch_bounds__(TNT, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, found through the runtime, so the
-// library links no driver library of its own
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-// a row-major bf16 [rows, cols] matrix read in boxes of [box_rows][64],
-// 128-byte swizzled; the box reads zeros outside the matrix
-cudaError_t encode(CUtensorMap* map, const void* base, int rows, int cols,
-                   int box_rows) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                         const_cast<void*>(base), dims, strides, box, step,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int BN, bool A_MN, bool B_MN>
 cudaError_t launch_tma_bn(const TmaMaps& maps, const GemmPlan& p, void* out,
                           int grid, cudaStream_t st) {
@@ -846,9 +800,11 @@ extern "C" int dstpu_gemm_tma(const void* a, int a_rows, int a_cols,
   const void* const* table = static_cast<const void* const*>(b_table);
   TmaMaps maps;
   memset(&maps, 0, sizeof(maps));
-  cudaError_t err = encode(&maps.a, a, a_rows, a_cols, a_mn ? TBK : TBM);
+  cudaError_t err =
+      sm90::encode_2d(&maps.a, a, a_rows, a_cols, a_mn ? TBK : TBM);
   for (int j = 0; j < nmaps && err == cudaSuccess; ++j)
-    err = encode(&maps.b[j], table[j], b_rows, b_cols, b_mn ? TBK : bn);
+    err = sm90::encode_2d(&maps.b[j], table[j], b_rows, b_cols,
+                          b_mn ? TBK : bn);
   if (err != cudaSuccess) return (int)err;
   const GemmPlan p = {M,     m_tiles, nt_chunk,   cw,  tiles,
                       k_chunks, kpc,  a_chunk,    rank, b_by_chunk,

@@ -34,11 +34,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # argtypes of every C entry point (all return cudaError_t as int)
 SIGNATURES = {
-    "dstpu_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    "dstpu_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
     "dstpu_flash_bwd_dkv": [_P] * 8 + [_I, _I, _F, _I, _P],
     "dstpu_flash_bwd_dq": [_P] * 7 + [_I, _I, _F, _I, _P],
     "dstpu_ln_qkv_stacked": [_P] * 8 + [_I] * 5 + [_F, _P],
-    "dstpu_matvec_stacked": [_P] * 5 + [_I] * 4 + [_P],
+    "dstpu_matvec_stacked": [_P] * 5 + [_I] * 6 + [_P],
     "dstpu_out_ffn_stacked": [_P] * 18 + [_I] * 4 + [_F, _P],
     "dstpu_matvec_int8": [_P] * 5 + [_I] * 4 + [_P],
     "dstpu_out_ffn_glu_stacked": [_P] * 11 + [_I] * 4 + [_F, _P],

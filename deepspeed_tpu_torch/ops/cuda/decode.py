@@ -32,6 +32,8 @@ int8 codes and a bf16 or int8 KV cache, paged, layer-stacked or one
 layer's.
 """
 
+import collections
+import functools
 import math
 
 import numpy as np
@@ -469,14 +471,53 @@ def _ln_qkv_launch(fn, x, ln_w, ln_b, w_stack, s, b, lp, eps, norm):
     return out
 
 
-def matvec_stacked(x, w_stack, s, layer):
-    """x[B, K] · w_stack[layer] · s[layer] → [B, N], bias-free (LLaMA's
-    o-projection; bf16 weights or int8 codes); see matvec_stacked_plain."""
-    if x.device.type == "cpu":
-        return matvec_stacked_plain(x, w_stack, s, layer)
-    fn = "matvec_stacked"
-    if x.device.type != "cuda":
-        raise ValueError(f"{fn}: unsupported device {x.device}")
+MvPlan = collections.namedtuple(
+    "MvPlan", "cols tiles split kslice grid threads stages smem in_flight")
+
+
+@functools.lru_cache(maxsize=None)
+def matvec_tma_plan(B, K, N, wbytes=2, sms=132):
+    """matvec_stacked's launch (csrc/decode.cu ``MvCfg``,
+    ``launch_matvec_tma``) over ``wbytes``-byte weights at ``sms`` SMs:
+    column tiles of 64 (bf16) or 128 (int8 codes), K split over a cluster
+    of the smallest power of two (at most 8) blocks that puts 1.5 blocks
+    an SM on the card, each slice whole 64-row stages; 288 threads (two
+    consumer warpgroups and a producer warp), 8 stages of a W box (8 KiB)
+    and an x box (8 or 16 slots x 128 B), 6 for int8, which adds two
+    widened bf16 boxes a warpgroup (32 KiB); then an fp32 partial [cols,
+    slots] a warpgroup and the mbarriers. ``in_flight``: the ring's
+    weight bytes of the blocks an SM holds at once (228 KiB of shared
+    memory an SM, 1 KiB of it reserved a block)."""
+    nb = 8 if B <= 8 else 16
+    cols = 64 if wbytes == 2 else 128
+    stages = 8 if wbytes == 2 else 6
+    tiles = -(-N // cols)
+    split = 1
+    while split < 8 and 2 * tiles * split < 3 * sms:
+        split *= 2
+    kslice = -(-(-(-K // split)) // 64) * 64
+    cvt = 0 if wbytes == 2 else 2 * 2 * 64 * 128
+    smem = (1024 + stages * (64 * 128 + nb * 128) + cvt + 2 * cols * nb * 4
+            + 256)
+    per_sm = min(233472 // (smem + 1024), -(-tiles * split // sms))
+    return MvPlan(cols, tiles, split, kslice, (tiles, split), 288, stages,
+                  smem, per_sm * stages * 64 * 128)
+
+
+def matvec_stacked_route(w_stack):
+    """Which kernel a CUDA ``matvec_stacked`` call takes: the TMA kernel
+    ("matvec_stacked") when TMA can describe the weights (a row of int8
+    codes a multiple of 16 bytes; bf16 rows already are, at N % 8 == 0),
+    else the CUDA-core kernel ("matvec_stacked_fma")."""
+    if w_stack.dtype == torch.int8 and w_stack.shape[-1] % 16:
+        return "matvec_stacked_fma"
+    return "matvec_stacked"
+
+
+def _matvec_stacked_launch(fn, x, w_stack, s, layer):
+    """Check and launch ``dstpu_matvec_stacked`` by the kernel ``fn``
+    names ("matvec_stacked": TMA; "matvec_stacked_fma": CUDA cores)."""
+    fma = fn == "matvec_stacked_fma"
     dev = x.device
     B, K = x.shape
     L, _, N = w_stack.shape
@@ -487,16 +528,41 @@ def matvec_stacked(x, w_stack, s, layer):
     if not 1 <= B <= MAX_SLOTS or K % 8 or N % 8:
         raise ValueError(f"{fn}: needs 1 <= B <= {MAX_SLOTS} and K, N "
                          f"multiples of 8, got B={B} K={K} N={N}")
-    _check_launches(fn, B, [("projection", K, N, "copy", False)],
-                    w_stack.element_size())
+    if fma:
+        _check_launches(fn, B, [("projection", K, N, "copy", False)],
+                        w_stack.element_size())
     lp = _scalar_ptr(fn, layer, dev)
     lib = builder.kernels()
     out = torch.empty((B, N), dtype=x.dtype, device=dev)
     lib.call("dstpu_matvec_stacked", x.data_ptr(), w_stack.data_ptr(),
-             s.data_ptr(), lp, out.data_ptr(), B, K, N,
-             int(wdt == torch.int8), _stream(dev))
+             s.data_ptr(), lp, out.data_ptr(), B, K, N, L,
+             int(wdt == torch.int8), int(fma), _stream(dev))
     builder.launches[fn] += 1
     return out
+
+
+def matvec_stacked(x, w_stack, s, layer):
+    """x[B, K] · w_stack[layer] · s[layer] → [B, N], bias-free (LLaMA's
+    o-projection; bf16 weights or int8 codes); see matvec_stacked_plain.
+    On CUDA the TMA kernel, or the CUDA-core one for a shape TMA cannot
+    describe (``matvec_stacked_route``), each counted by its own name."""
+    if x.device.type == "cpu":
+        return matvec_stacked_plain(x, w_stack, s, layer)
+    if x.device.type != "cuda":
+        raise ValueError(f"matvec_stacked: unsupported device {x.device}")
+    return _matvec_stacked_launch(matvec_stacked_route(w_stack), x, w_stack,
+                                  s, layer)
+
+
+def matvec_stacked_fma(x, w_stack, s, layer):
+    """matvec_stacked through the CUDA-core kernel (8 fp32 FMAs a weight,
+    the stream through registers), which takes every shape; on the main
+    path only for the shapes TMA cannot describe."""
+    if x.device.type != "cuda":
+        raise ValueError(f"matvec_stacked_fma: unsupported device "
+                         f"{x.device}")
+    return _matvec_stacked_launch("matvec_stacked_fma", x, w_stack, s,
+                                  layer)
 
 
 def out_ffn_stacked(ctx, x, wp_stack, sp, bp, ln_w, ln_b, w1_stack, s1,

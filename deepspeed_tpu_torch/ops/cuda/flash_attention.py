@@ -10,8 +10,15 @@ The backward runs as two kernels, dk/dv and dq, each tiling any S. The
 forward takes head dim 64 (GPT-2) or 128 (LLaMA), the backward 64. A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
+
+The forward is a persistent, TMA-fed, warp-specialised wgmma kernel
+(csrc/flash_attention.cu ``flash_fwd_tma_kernel``); ``fwd_geometry``,
+``fwd_walk`` and ``fwd_blocks`` mirror its launch (tiles, head groups,
+stages, shared memory, which block takes which tile).
 """
 
+import collections
+import functools
 import math
 
 import torch
@@ -23,6 +30,68 @@ HEAD_DIM = 64              # the backward kernels' head dim (GPT-2's)
 FWD_HEAD_DIMS = (64, 128)  # the forward's: GPT-2's and LLaMA's
 ROADMAP_FLASH = ("ROADMAP.md queue 2, item \"flash attention: other head "
                  "dims and fp32\"")
+# by head dim: the forward's consumer warpgroups take turns issuing their
+# products, so that one's softmax runs under the other's (on an H100 this
+# measured faster at D 64 and slower at D 128; chip_smoke.py times the
+# other setting on every row)
+PINGPONG = {64: True, 128: False}
+L2_GROUP_BYTES = 24 << 20   # the K/V bytes of the heads walked together
+
+FwdGeometry = collections.namedtuple(
+    "FwdGeometry",
+    "q_tile key_tile q_tiles group tiles grid threads k_stages v_stages "
+    "smem")
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_geometry(S, D, H, Hkv, B=1, sms=132):
+    """The forward's launch at head dim D (csrc/flash_attention.cu
+    ``FwdCfg``, ``launch_fwd``): 128-row q tiles (two consumer
+    warpgroups of 64 rows) over 128-key K/V tiles; a persistent grid of
+    min(tiles, SMs) blocks walking the q tiles x B*H tiles in groups of
+    ``group`` heads (all, if their K/V fit in 24 MiB of L2; else the most
+    that fit, rounded down to a multiple of grid / gcd(grid, q tiles) so
+    that a group spans whole rounds; in a group the q tiles longest
+    first), block b taking the rounds in a snake (``fwd_blocks``); 384
+    threads; K and V rings of 4 stages (D 64; at D 128 2 and 3); shared
+    memory = 1024 (alignment) + Q + O + the K and V stages + 256
+    (mbarriers)."""
+    if D not in FWD_HEAD_DIMS:
+        raise ValueError(f"fwd_geometry: head dim {D} is not 64 or 128")
+    q_tile = key_tile = 128
+    k_stages, v_stages = (4, 4) if D == 64 else (2, 3)
+    smem = (1024 + 2 * q_tile * D * 2
+            + (k_stages + v_stages) * key_tile * D * 2 + 256)
+    q_tiles = -(-S // q_tile)
+    tiles, grid = q_tiles * B * H, min(q_tiles * B * H, sms)
+    fit = L2_GROUP_BYTES // max(4 * S * D * Hkv // H, 1)
+    unit = grid // math.gcd(grid, q_tiles)
+    group = (B * H if fit >= B * H else fit // unit * unit if fit >= unit
+             else max(fit, 1))
+    return FwdGeometry(q_tile, key_tile, q_tiles, group, tiles, grid, 384,
+                       k_stages, v_stages, smem)
+
+
+def fwd_blocks(S, D, H, Hkv, B=1):
+    """The walk indices each block of the launch takes, in order
+    (``snake`` in csrc/flash_attention.cu): round r's index r * grid + b,
+    or r * grid + grid - 1 - b in odd rounds."""
+    g = fwd_geometry(S, D, H, Hkv, B)
+    return [[w for w in (r * g.grid + (g.grid - 1 - b if r % 2 else b)
+                         for r in range(-(-g.tiles // g.grid)))
+             if w < g.tiles] for b in range(g.grid)]
+
+
+def fwd_walk(S, D, H, Hkv, B=1):
+    """The (b*h, q tile) of each tile of the launch's walk, in walk
+    order (``fwd_tile`` in csrc/flash_attention.cu)."""
+    g = fwd_geometry(S, D, H, Hkv, B)
+    BH, walk = B * H, []
+    for w in range(g.tiles):
+        gi, j = divmod(w, g.group * g.q_tiles)
+        gsize = min(g.group, BH - gi * g.group)
+        walk.append((gi * g.group + j % gsize, g.q_tiles - 1 - j // gsize))
+    return walk
 
 
 def _scale(scale, D):
@@ -238,6 +307,9 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
             f"flash_attention_fwd: the CUDA kernel takes head dim 64 or "
             f"128, got {D} ({ROADMAP_FLASH})")
     scale = _scale(scale, D)
+    # TMA reads from 16-byte aligned bases: a view at an odd offset is
+    # copied into a fresh (aligned) tensor
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     lib = builder.kernels()
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -245,7 +317,8 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
         return o, lse
     lib.call("dstpu_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
              o.data_ptr(), lse.data_ptr(), B * H, H, Hkv, S, D, scale,
-             int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+             int(bool(causal)), int(PINGPONG[D]),
+             torch.cuda.current_stream(q.device).cuda_stream)
     builder.launches["flash_attention_fwd"] += 1
     return o, lse
 

@@ -3,8 +3,11 @@
 # chip_smoke.py runs from the old tree, this tree, this tree again (with
 # --profile) and the old tree again, so that drift of the card or the host
 # shows on both sides. Each run's output goes to chiprun_out/ab_*.log; a
-# summary of the flash kernel lines, the train line and the grad check is
-# printed per run, then the GPU unit tests of this tree.
+# summary is printed per run: the flash and matvec_stacked kernel lines
+# (with the variants a row carries: other_turns_us, fma_us), the train line,
+# the grad check, the serve lines' decode ms a step and the fast path's
+# t(4 new) and decode ms a step by batch; then tests/perf/torch_llama_t4.py
+# from each tree in turns, and the GPU unit tests of this tree.
 #
 #   bash tests/perf/torch_ab_compare.sh OLD_TREE
 #
@@ -27,11 +30,30 @@ for line in open(name):
         d = json.loads(line)
     except ValueError:
         continue
-    if d.get("phase") == "kernel" and "flash" in d["name"]:
+    if d.get("phase") == "kernel" and (
+            "flash" in d["name"] or d["name"] == "matvec_stacked"):
+        more = "".join(" %s=%.2f" % (k, d[k]) for k in
+                       ("other_turns_us", "fma_us", "library_us")
+                       if d.get(k) is not None)
         print(name, d["name"], d.get("path", ""),
-              "kernel_us=%.2f call_us=%.2f rel=%.3g fault=%.3g"
+              "kernel_us=%.2f call_us=%.2f rel=%.3g fault=%.3g%s"
               % (d["kernel_us"], d["call_us"], d["row_rel_err"],
-                 d["fault_row_rel_err"]))
+                 d["fault_row_rel_err"], more))
+        for c in d.get("cases", []):
+            if "kernel_us" in c:
+                print(name, d["name"], "S=%s" % c.get("S"),
+                      "kernel_us=%.2f library_us=%.2f" % (
+                          c["kernel_us"], c["library_us"]))
+    if d.get("phase") in ("serve", "serve_llama", "serve_llama_int8",
+                          "serve_gpt2_int8"):
+        print(name, d["phase"], "decode_ms_per_step=%.3f"
+              % d["ms_per_decode_step"])
+    if d.get("phase") == "generate_llama_int8":
+        for c in d["cases"]:
+            print(name, "generate_llama_int8 b%d" % c["batch"],
+                  "t4_ms=%s decode_ms_per_step=%.3f"
+                  % ("%.2f" % c["t4_ms"] if "t4_ms" in c else "n/a",
+                     c["ms_per_decode_step"]))
     if d.get("phase") == "train":
         print(name, "train step_ms=%.2f mfu=%.4f peak=%.2f"
               % (d["step_ms"], d["mfu"], d["peak_memory_gb"]))
@@ -50,6 +72,12 @@ python3 chip_smoke.py --profile > chiprun_out/ab_new2.log 2>&1
 summ chiprun_out/ab_new2.log
 (cd "$old" && python3 chip_smoke.py > "$here/chiprun_out/ab_old2.log" 2>&1)
 summ chiprun_out/ab_old2.log
+# the fast path's t(4 new) and decode ms a step at b8 and b1, which the old
+# tree's chip_smoke may not print: old, this, this, old
+for tree in "$old" "$here" "$here" "$old"; do
+  python3 tests/perf/torch_llama_t4.py --tree "$tree" 2>&1 | tail -2
+done
 python3 -m pytest --noconftest -p no:cacheprovider -m gpu \
   tests/test_torch_flash_backward.py tests/test_torch_flash_attention.py \
-  tests/test_torch_decode_kernels.py -q 2>&1 | tail -3
+  tests/test_torch_decode_kernels.py tests/test_torch_llama_kernels.py \
+  -q 2>&1 | tail -3

@@ -1,0 +1,144 @@
+"""Device times of the flash forward and matvec_stacked at the shapes of
+their kernel-table rows (PERF.md §6), beside their library calls, on one
+card: CUDA-graph replay as chip_smoke.py times them, random bf16 inputs
+from seed 0.
+
+    python3 tests/perf/torch_kernel_rows.py
+
+Flash forward: GPT-2 prefill (B 1, 20 heads, S 1024, D 64), GPT-2
+training (B 8), a ZeRO-3 rank (B 2), LLaMA-7B prefill (32 heads, D 128),
+the fast path's prompt pass (B 8, S 2048, D 128) and the long-S row (4
+heads, S 8192, D 64), all causal: the kernel (``us``; ``turns``: whether
+its warpgroups take turns), the other turn setting (``other_turns_us``),
+SDPA (``sdpa_us``).
+matvec_stacked: LLaMA-7B's o-projection [8, 4096] . [32, 4096, 4096],
+bf16 and int8 codes: the TMA kernel (``us``), the CUDA-core kernel
+(``fma_us``) and, bf16, torch.matmul (``matmul_us``). One JSON line a
+row, each with the card's name and power limit.
+
+    python3 tests/perf/torch_kernel_rows.py --sweep
+
+adds what separates a launch's fixed cost from its streaming cost:
+matvec_stacked over K 1024-8192 at N 4096 (bf16 and int8), and the flash
+forward over non-causal launches of ~1320 blocks whose blocks take 1, 2,
+4 or 8 key tiles (S 128 t, D 64 and 128).
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+
+from chip_smoke import bound, time_graph_ms  # noqa: E402
+from deepspeed_tpu_torch.ops.cuda import decode as dk  # noqa: E402
+from deepspeed_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
+
+FLASH_ROWS = (("gpt2_prefill", 1, 20, 1024, 64, 36),
+              ("gpt2_train", 8, 20, 1024, 64, 36),
+              ("zero3_rank", 2, 20, 1024, 64, 36),
+              ("llama7b_prefill", 1, 32, 1024, 128, 32),
+              ("fast_path_prompt", 8, 32, 2048, 128, 8),
+              ("long_s", 1, 4, 8192, 64, 8))
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    for name, B, H, S, D, n in FLASH_ROWS:
+        q, k, v = rnd(B, H, S, D), rnd(B, H, S, D), rnd(B, H, S, D)
+
+        def call(i=0):
+            return fa.flash_attention_fwd(q, k, v, causal=True)
+        us = 1e3 * time_graph_ms(call, n=n)
+        keep = dict(fa.PINGPONG)
+        fa.PINGPONG = {**keep, D: not keep[D]}
+        try:
+            other = 1e3 * time_graph_ms(call, n=n)
+        finally:
+            fa.PINGPONG = keep
+        sdpa = 1e3 * time_graph_ms(
+            lambda i: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True), n=n)
+        b_ms, _ = bound(4 * B * H * S * D * 2 + B * H * S * 4,
+                        4 * B * H * D * S * (S + 1) // 2)
+        print(json.dumps({"row": f"flash_attention_fwd {name}", "B": B,
+                          "H": H, "S": S, "D": D, "us": us,
+                          "turns": keep[D], "other_turns_us": other,
+                          "sdpa_us": sdpa,
+                          "bound_us": b_ms * 1e3,
+                          "pct_of_bound": 100 * b_ms * 1e3 / us,
+                          "card": card}), flush=True)
+        del q, k, v
+    L, B, E = 32, 8, 4096
+    x = rnd(B, E)
+    lids = [torch.tensor(i, dtype=torch.int32, device="cuda")
+            for i in range(L)]
+    s = torch.rand(L, generator=gen, device="cuda") * 0.01 + 0.002
+    for kind in ("bf16", "int8"):
+        if kind == "bf16":
+            w = rnd(L, E, E) * 0.02
+        else:
+            w = torch.randint(-127, 128, (L, E, E), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        us = 1e3 * time_graph_ms(lambda i: dk.matvec_stacked(x, w, s,
+                                                             lids[i]), n=L)
+        fma = 1e3 * time_graph_ms(lambda i: dk.matvec_stacked_fma(
+            x, w, s, lids[i]), n=L)
+        mm = None if kind == "int8" else 1e3 * time_graph_ms(
+            lambda i: torch.matmul(x, w[i]), n=L)
+        b_ms, _ = bound(B * E * 2 + E * E * w.element_size() + 4
+                        + B * E * 2, 2 * B * E * E)
+        print(json.dumps({"row": f"matvec_stacked {kind}", "B": B, "K": E,
+                          "N": E, "us": us, "fma_us": fma, "matmul_us": mm,
+                          "bound_us": b_ms * 1e3,
+                          "pct_of_bound": 100 * b_ms * 1e3 / us,
+                          "card": card}), flush=True)
+        del w
+    if "--sweep" not in sys.argv:
+        return
+    for kind in ("bf16", "int8"):
+        for K in (1024, 2048, 4096, 8192):
+            xk = rnd(B, K)
+            if kind == "bf16":
+                w = rnd(8, K, E) * 0.02
+            else:
+                w = torch.randint(-127, 128, (8, K, E), generator=gen,
+                                  device="cuda", dtype=torch.int8)
+            us = 1e3 * time_graph_ms(lambda i: dk.matvec_stacked(
+                xk, w, s[:8], lids[i % 8]), n=32)
+            print(json.dumps({"sweep": f"matvec_stacked {kind}", "K": K,
+                              "N": E, "us": us,
+                              "plan": dk.matvec_tma_plan(
+                                  B, K, E, w.element_size())._asdict(),
+                              "card": card}), flush=True)
+            del w
+    for D in (64, 128):
+        for t in (1, 2, 4, 8):
+            S, BH = 128 * t, 1320 // t
+            q, k, v = (rnd(1, BH, S, D) for _ in range(3))
+            us = 1e3 * time_graph_ms(lambda i: fa.flash_attention_fwd(
+                q, k, v, causal=False), n=8)
+            print(json.dumps({"sweep": "flash_attention_fwd", "D": D,
+                              "key_tiles_a_block": t, "blocks": t * BH,
+                              "S": S, "BH": BH, "us": us, "card": card}),
+                  flush=True)
+            del q, k, v
+
+
+if __name__ == "__main__":
+    main()

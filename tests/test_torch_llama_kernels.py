@@ -7,7 +7,8 @@ variants: RMSNorm and bias-free projections, SwiGLU with both
 ``fuse_proj`` values, ``matvec_stacked``, head dim 128 with GQA query
 rows. The CUDA kernels are held against the plain versions on the card
 (``gpu`` marker). The matvec launches' shared-memory reckoning is checked
-at GPT-2 large, LLaMA-7B (bf16 and int8 codes) and LLaMA-3-8B widths.
+at GPT-2 large, LLaMA-7B (bf16 and int8 codes) and LLaMA-3-8B widths,
+and so is matvec_stacked's TMA launch (tiles, split, stages, bytes).
 """
 
 import importlib
@@ -201,6 +202,60 @@ def test_matvec_smem_follows_each_launch(model, slots):
                     else ["ln_qkv", "gate/up"])
 
 
+# ------------------------------ matvec_stacked's TMA launch, mirrored
+
+# the o-projection [K, N] of each model: (cols, tiles, split, kslice,
+# stages) for bf16 weights and int8 codes (csrc/decode.cu MvCfg,
+# launch_matvec_tma at 132 SMs)
+MV_PLAN = {
+    ("gpt2_large", 2): (1280, 1280, (64, 20, 8, 192, 8)),
+    ("gpt2_large", 1): (1280, 1280, (128, 10, 8, 192, 6)),
+    ("llama_7b", 2): (4096, 4096, (64, 64, 4, 1024, 8)),
+    ("llama_7b", 1): (4096, 4096, (128, 32, 8, 512, 6)),
+    ("llama3_8b", 2): (4096, 4096, (64, 64, 4, 1024, 8)),
+    ("llama3_8b", 1): (4096, 4096, (128, 32, 8, 512, 6)),
+}
+# shared memory a block at 8 and 16 slots: the stages (a W box of 8 KiB
+# and an x box of 8 or 16 rows of 128 B), int8's two widened bf16 boxes a
+# warpgroup, an fp32 partial a warpgroup, 1024 of alignment and 256 of
+# mbarriers
+MV_SMEM = {2: (79104, 91392), 1: (97536, 111872)}
+
+
+@pytest.mark.parametrize("model,wbytes", sorted(MV_PLAN))
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 16])
+def test_matvec_tma_plan_follows_each_launch(model, wbytes, B):
+    K, N, want = MV_PLAN[(model, wbytes)]
+    p = decode.matvec_tma_plan(B, K, N, wbytes)
+    assert (p.cols, p.tiles, p.split, p.kslice, p.stages) == want
+    assert p.grid == (p.tiles, p.split) and p.threads == 288
+    assert p.smem == MV_SMEM[wbytes][0 if B <= 8 else 1]
+    # a cluster of at most 8 covers K in whole 64-row stages, each slice
+    # K / split rounded up to a stage
+    assert p.split in (1, 2, 4, 8) and p.kslice % 64 == 0
+    assert p.split * p.kslice >= K and p.kslice - 64 < -(-K // p.split)
+    # within a block's 227 KiB, and two blocks to an SM
+    assert p.smem <= decode.MAX_SMEM
+    assert 2 * (p.smem + 1024) <= 233472
+    if model != "gpt2_large":
+        # 1.5 blocks an SM or more, and at least 64 KiB in flight an SM
+        assert 2 * p.tiles * p.split >= 3 * 132
+        assert p.in_flight >= 64 * 1024
+
+
+@pytest.mark.parametrize("N,dtype,route", [
+    (4096, torch.bfloat16, "matvec_stacked"),
+    (1000, torch.bfloat16, "matvec_stacked"),
+    (4096, torch.int8, "matvec_stacked"),
+    (1008, torch.int8, "matvec_stacked"),
+    (1000, torch.int8, "matvec_stacked_fma")])
+def test_matvec_stacked_route(N, dtype, route):
+    """int8 codes take the TMA kernel when a row is a multiple of 16
+    bytes; otherwise the CUDA-core kernel, counted by its own name."""
+    assert decode.matvec_stacked_route(torch.zeros(1, 8, N, dtype=dtype)) \
+        == route
+
+
 # ------------------------------------------ the limits the kernels meet
 
 def _bf(*arrays):
@@ -381,3 +436,60 @@ def test_cuda_flash_d128_matches_plain(cuda_device, S, H, Hkv, causal):
     o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, causal=causal)
     tolerance.check_kernel("flash_attention_fwd[d128]", o, o_ref)
     tolerance.check_lse(lse, lse_ref)
+
+
+def _mv_inputs(dev, B, K, N, int8, L=3, seed=12):
+    rs = np.random.RandomState(seed + B)
+    x = _dev(rs.randn(B, K), dev)
+    if int8:
+        w = torch.from_numpy(rs.randint(-127, 128, (L, K, N)).astype(
+            np.int8)).to(dev)
+        s = _dev(0.002 * _scales(rs, L), dev, False)
+    else:
+        w, s = _dev(_w(rs, L, K, N), dev), _dev(_scales(rs, L), dev, False)
+    return x, w, s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,K", [(1, 1000), (3, 1000), (8, 1000), (9, 1000),
+                                 (16, 1000), (8, 6000), (16, 6000),
+                                 (8, 16384)])
+def test_cuda_matvec_tma_matches_plain(cuda_device, B, K, int8):
+    """K and N not multiples of the stage (64 rows) or the column tile (64,
+    or 128 for int8 codes): TMA's zeros fill the tails; at K 6000 and
+    16384 a block's slice has more stages than its ring, which wraps (2
+    and 5 times). Launched by the TMA
+    kernel alone, within the limit of its plain version, three reruns
+    equal bit for bit, and agreeing with the CUDA-core kernel."""
+    N = 1008 if int8 else 1000
+    x, w, s = _mv_inputs(cuda_device, B, K, N, int8)
+    lid = torch.tensor(LAYER, dtype=torch.int32, device=cuda_device)
+    n0 = dict(builder.launches)
+    got = matvec_stacked(x, w, s, lid)
+    torch.cuda.synchronize()
+    assert builder.launches["matvec_stacked"] == n0.get("matvec_stacked",
+                                                        0) + 1
+    assert builder.launches["matvec_stacked_fma"] == \
+        n0.get("matvec_stacked_fma", 0)
+    key = "matvec_stacked[int8]" if int8 else "matvec_stacked"
+    want = matvec_stacked_plain(x, w, s, LAYER)
+    tolerance.check_kernel(key, got, want)
+    for _ in range(3):
+        assert torch.equal(got, matvec_stacked(x, w, s, lid))
+    tolerance.check_kernel(key, decode.matvec_stacked_fma(x, w, s, lid),
+                           want)
+
+
+@pytest.mark.gpu
+def test_cuda_matvec_int8_rows_tma_cannot_describe(cuda_device):
+    """int8 codes of 1000 columns (rows of 1000 bytes) take the CUDA-core
+    kernel, counted as matvec_stacked_fma."""
+    x, w, s = _mv_inputs(cuda_device, 8, 512, 1000, True)
+    lid = torch.tensor(LAYER, dtype=torch.int32, device=cuda_device)
+    n0 = builder.launches["matvec_stacked_fma"]
+    got = matvec_stacked(x, w, s, lid)
+    torch.cuda.synchronize()
+    assert builder.launches["matvec_stacked_fma"] == n0 + 1
+    tolerance.check_kernel("matvec_stacked[int8]", got,
+                           matvec_stacked_plain(x, w, s, LAYER))
