@@ -97,11 +97,17 @@ Phases, one JSON line each, each with its wall ``seconds``:
 4. kernel    — the flash kernels at the training shape (B=8, H=20,
                S=1024, D=64, causal): the forward (its planted fault:
                every batch element given element 0's K/V) beside SDPA,
-               and the two backward kernels (dk/dv and dq), also at
-               S=8192 and not causal, beside a planted fault each (one
-               q tile's contribution dropped from dk/dv, one k tile from
-               dq) and SDPA's backward as the library time, and both
-               together against the whole backward's bound;
+               and the backward's two kernels (the delta reduction and
+               the single-pass dq/dk/dv kernel), also at S=8192 and not
+               causal, beside a planted fault each (the last q tile's
+               contribution dropped from dk/dv, the first key tile from
+               dq, one position's delta), three reruns bit for bit and
+               SDPA's backward (eager, and by CUDA-graph replay) as the
+               library time; a flash_backward line with the delta
+               expression the delta kernel replaces and the whole
+               backward against its bound; and the backward at LLaMA-7B's
+               training attention (B 2, 32 heads, S 2048, D 128, causal;
+               path null: no ported model trains at D 128 yet);
 5. train    — the serving engine freed, ``initialize`` of GPT-2 large
                (vocab 50304, 36 layers, bf16 compute, fp32 masters, bf16
                grads and exp_avg, AdamW, clipping 1.0, ZeRO stage 3 on one
@@ -326,6 +332,9 @@ BERT_BATCH, BERT_SEQ, BERT_POSITIONS = 4, 4096, 512
 BERT_WARMUP, BERT_STEPS = 2, 10
 BLOCKSPARSE_KERNELS = ("blocksparse_fwd", "blocksparse_bwd_dq",
                        "blocksparse_bwd_dkv")
+# the flash kernels a training step launches once a layer each
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+                 "flash_attention_bwd_delta")
 # MoQ training: DeepSpeed's MoQ tutorial block (start 16 bits, target 8,
 # 8 groups, symmetric nearest) with its period cut from 400 to 6 so that
 # the precision falls within the run; the bits JAX's Quantizer gives at
@@ -351,8 +360,8 @@ TRAIN_KERNEL_GROUPS = (
     ("blocksparse_dkv", ("bs_dkv",)),
     ("blocksparse_dq", ("bs_dq",)),
     ("blocksparse_fwd", ("bs_fwd",)),
-    ("flash_bwd_dkv", ("flash_bwd_dkv",)),
-    ("flash_bwd_dq", ("flash_bwd_dq",)),
+    ("flash_bwd_delta", ("flash_bwd_delta",)),
+    ("flash_bwd", ("flash_bwd",)),
     ("flash_fwd", ("flash_fwd",)),
     ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -1115,21 +1124,24 @@ def llama_kernel_phase(eng, cfg, gen):
 
 
 def train_kernel_phase(gen):
-    """The flash kernels at the training shape (B=8, H=20, S=1024,
+    """The flash kernels at the training shape (B=8, H=20, S=1024, D=64,
     causal): the forward, held against its plain version with a planted
-    fault and timed beside SDPA; the two backward kernels there, at
-    S=8192 and not causal, with a planted fault each, timed beside SDPA's
-    backward."""
-    return flash_rows(gen, TRAIN_BATCH, "train",
-                      ((1, 4, 8192, True), (1, 20, 1024, False)))
+    fault and timed beside SDPA; the backward's kernels there, at S=8192
+    and not causal, with a planted fault each, timed beside SDPA's
+    backward; and the backward at LLaMA-7B's training attention (B 2, 32
+    heads, S 2048, D 128, causal), a row no ported model path runs yet
+    (path null)."""
+    rows = flash_rows(gen, TRAIN_BATCH, "train",
+                      ((1, 4, 8192, 64, True), (1, 20, 1024, 64, False)))
+    return rows + flash_bwd_rows(gen, None, ((2, 32, 2048, 128, True),))
 
 
 def flash_rows(gen, batch, path, more_bwd_cases=()):
     """The rows of the flash kernels on a training path whose attention
-    runs at (``batch``, H=20, S=1024, causal): the forward and the two
-    backward kernels held there against their plain versions with a
+    runs at (``batch``, H=20, S=1024, D=64, causal): the forward and the
+    backward's kernels held there against their plain versions with a
     planted fault each (the backward also at ``more_bwd_cases``, (B, H,
-    S, causal)), timed there beside SDPA and its backward."""
+    S, D, causal)), timed there beside SDPA and its backward."""
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import tolerance
     dev = "cuda"
@@ -1169,83 +1181,123 @@ def flash_rows(gen, batch, path, more_bwd_cases=()):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    def inputs(B, H, S, causal):
-        q, k, v, do = (rnd(B, H, S, 64) for _ in range(4))
+    return results + flash_bwd_rows(
+        gen, path, ((batch, 20, TRAIN_SEQ, 64, True),) + tuple(more_bwd_cases))
+
+
+def flash_bwd_rows(gen, path, cases):
+    """The flash backward's two kernels, ``flash_attention_bwd`` (dq, dk
+    and dv, one pass) and ``flash_attention_bwd_delta``, held against their
+    plain versions at each of ``cases`` ((B, H, S, D, causal); the first
+    is ``path``'s own shape, where the rows are timed and bounded), each
+    beside a planted fault (the last 64-row q tile's contribution dropped
+    from dk and dv, the first 128-key tile from dq, one position's delta),
+    with three reruns bit for bit; then a flash_backward line: the kernel,
+    the delta kernel, the eager delta expression it replaces, the whole
+    backward (``flash_attention_bwd``: delta + kernel) against its bound
+    and SDPA's backward, eager and by CUDA-graph replay."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    dev = "cuda"
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def inputs(B, H, S, D, causal):
+        q, k, v, do = (rnd(B, H, S, D) for _ in range(4))
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-        delta = (do.float() * o.float()).sum(-1)
-        return q, k, v, do, lse, delta
+        return q, k, v, o, lse, do
 
-    dkv_checks, dq_checks, cases = [], [], []
-    for B, H, S, causal in ((batch, 20, TRAIN_SEQ, True),) + \
-            tuple(more_bwd_cases):
-        q, k, v, do, lse, delta = inputs(B, H, S, causal)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
-        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
-        dk_p, dv_p = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse,
-                                                      delta, causal)
-        dq_p = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
-                                               causal)
-        fault_dk = fault_dv = fault_dq = None
-        if len(cases) == 0:
-            # faults: the last q tile's contribution dropped from dk/dv,
-            # the first k tile dropped from dq
-            qf, dof = q.clone(), do.clone()
-            qf[:, :, -64:] = 0
-            dof[:, :, -64:] = 0
-            fault_dk, fault_dv = fa.flash_attention_bwd_dkv_plain(
-                qf, k, v, dof, lse, delta, causal)
-            kf = k.clone()
-            kf[:, :, :64] = 0
-            fault_dq = fa.flash_attention_bwd_dq_plain(q, kf, v, do, lse,
-                                                       delta, causal)
-        dkv_checks += [held("flash_attention_bwd_dkv", dk, dk_p, fault_dk),
-                       held("flash_attention_bwd_dkv", dv, dv_p, fault_dv)]
-        dq_checks.append(held("flash_attention_bwd_dq", dq, dq_p, fault_dq))
-        cases.append({"B": B, "H": H, "S": S, "D": 64, "causal": causal})
-        del dk_p, dv_p, dq_p, fault_dk, fault_dv, fault_dq
+    checks, delta_checks = [], []
+    for B, H, S, D, causal in cases:
+        q, k, v, o, lse, do = inputs(B, H, S, D, causal)
+        delta = fa.flash_attention_bwd_delta(o, do)
+        delta_p = fa.flash_attention_bwd_delta_plain(o, do)
+        delta_f = delta_p.clone()
+        delta_f[..., S // 2] = 0
+        delta_checks.append(held("flash_attention_bwd_delta", delta,
+                                 delta_p, delta_f))
+        args = (q, k, v, do, lse, delta_p, causal)
+        got = bit_equal_reruns("flash_attention_bwd",
+                               lambda: fa.flash_attention_bwd_kernel(*args))
+        want = fa.flash_attention_bwd_kernel_plain(*args)
+        qf, dof, kf = q.clone(), do.clone(), k.clone()
+        qf[:, :, -64:] = 0
+        dof[:, :, -64:] = 0
+        kf[:, :, :fa.BWD_KEY_TILE] = 0
+        _, fault_dk, fault_dv = fa.flash_attention_bwd_kernel_plain(
+            qf, k, v, dof, lse, delta_p, causal)
+        fault_dq = fa.flash_attention_bwd_kernel_plain(
+            q, kf, v, do, lse, delta_p, causal)[0]
+        checks += [held("flash_attention_bwd", g, w, f) for g, w, f in
+                   zip(got, want, (fault_dq, fault_dk, fault_dv))]
+        del got, want, fault_dq, fault_dk, fault_dv, qf, dof, kf
         torch.cuda.empty_cache()
+    info = [{"B": B, "H": H, "S": S, "D": D, "causal": c}
+            for B, H, S, D, c in cases]
 
-    B, H, S = batch, 20, TRAIN_SEQ
-    q, k, v, do, lse, delta = inputs(B, H, S, True)
-    args = (q, k, v, do, lse, delta, True)
-    pairs = B * H * S * (S + 1) // 2             # causal (q, k) pairs
-    mm_flops = 2 * pairs * 64                    # one [S, S] x D product
+    B, H, S, D, causal = cases[0]
+    q, k, v, o, lse, do = inputs(B, H, S, D, causal)
+    delta = fa.flash_attention_bwd_delta_plain(o, do)
+    args = (q, k, v, do, lse, delta, causal)
+    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
+    mm_flops = 2 * pairs * D                     # one [S, S] x D product
     in_bytes = nbytes(q, k, v, do, lse, delta)
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg,
-                                                           is_causal=True)
-    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
-                                                 retain_graph=True))
-    bwd_rows = []
-    for name, fn, plain, checks, n_mm, out_bytes, replaces, fault in (
-            ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv,
-             fa.flash_attention_bwd_dkv_plain, dkv_checks, 4,
-             2 * nbytes(k), "deepspeed_tpu/ops/pallas/flash_attention.py:405",
-             "the last 64-query tile's contribution dropped from dk and dv"),
-            ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq,
-             fa.flash_attention_bwd_dq_plain, dq_checks, 3, nbytes(q),
-             "deepspeed_tpu/ops/pallas/flash_attention.py:367",
-             "the first 64-key tile dropped from dq")):
-        ms = time_graph_ms(lambda i, fn=fn: fn(*args))
-        call_ms = time_ms(lambda fn=fn: fn(*args))
-        plain_ms = time_ms(lambda plain=plain: plain(*args), reps=10,
-                           inner=1)
-        record(bwd_rows, name, path, replaces, checks, ms, call_ms,
-               plain_ms, bound(in_bytes + out_bytes, n_mm * mm_flops), cases,
-               fault, library_ms=lib_ms)
-    # the whole backward (dq, dk, dv): 5 products of 2·S²·D a head when
-    # each score tile is computed once, against SDPA's backward
-    whole_ms, whole_by = bound(in_bytes + 3 * nbytes(q), 5 * mm_flops)
-    both_ms = sum(row["ms"] for row in bwd_rows)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=causal)
+    out = sdpa()
+    sdpa_ms = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                  retain_graph=True))
+    sdpa_graph_ms = None
+    for attempt in range(2):   # (a first capture can fail on a lazy init)
+        try:   # forward + backward captured in a graph, less the forward
+            sdpa_graph_ms = time_graph_ms(
+                lambda i: torch.autograd.grad(sdpa(), (qg, kg, vg), do),
+                n=8) - time_graph_ms(lambda i: sdpa(), n=8)
+            break
+        except RuntimeError as e:
+            print(f"SDPA's backward not captured: {e}", file=sys.stderr)
+    rows = []
+    ms = time_graph_ms(lambda i: fa.flash_attention_bwd_kernel(*args))
+    record(rows, "flash_attention_bwd", path,
+           "deepspeed_tpu/ops/pallas/flash_attention.py:192", checks, ms,
+           time_ms(lambda: fa.flash_attention_bwd_kernel(*args)),
+           time_ms(lambda: fa.flash_attention_bwd_kernel_plain(*args),
+                   reps=5, inner=1),
+           bound(in_bytes + 3 * nbytes(q), 5 * mm_flops), info,
+           "the last 64-row q tile's contribution dropped from dk and dv, "
+           "the first 128-key tile from dq", library_ms=sdpa_ms,
+           extra={"reruns_bit_equal": True,
+                  "sdpa_backward_graph_us":
+                      None if sdpa_graph_ms is None else sdpa_graph_ms * 1e3})
+    delta_ms = time_graph_ms(lambda i: fa.flash_attention_bwd_delta(o, do))
+    expr_ms = time_graph_ms(
+        lambda i: fa.flash_attention_bwd_delta_plain(o, do))
+    record(rows, "flash_attention_bwd_delta", path,
+           "deepspeed_tpu/ops/pallas/flash_attention.py:260", delta_checks,
+           delta_ms, time_ms(lambda: fa.flash_attention_bwd_delta(o, do)),
+           time_ms(lambda: fa.flash_attention_bwd_delta_plain(o, do)),
+           bound(2 * nbytes(o) + nbytes(delta), 2 * o.numel(),
+                 FP32_FLOP_PER_S), info, "one position's delta dropped",
+           extra={"plain_graph_us": expr_ms * 1e3})
+    whole_ms = time_graph_ms(
+        lambda i: fa.flash_attention_bwd(q, k, v, o, lse, do, causal))
+    b_ms, b_by = bound(in_bytes + 3 * nbytes(q), 5 * mm_flops)
     emit({"phase": "flash_backward", "path": path, "B": B, "H": H, "S": S,
-          "causal": True,
-          "kernels_us": both_ms * 1e3, "bound_us": whole_ms * 1e3,
-          "bound_by": whole_by, "pct_of_bound": 100.0 * whole_ms / both_ms,
-          "sdpa_backward_us": lib_ms * 1e3})
-    del out, qg, kg, vg
+          "D": D, "causal": causal, "kernel_us": ms * 1e3,
+          "delta_us": delta_ms * 1e3, "delta_expression_us": expr_ms * 1e3,
+          "whole_backward_us": whole_ms * 1e3, "bound_us": b_ms * 1e3,
+          "bound_by": b_by, "pct_of_bound": 100.0 * b_ms / whole_ms,
+          "sdpa_backward_us": sdpa_ms * 1e3,
+          "sdpa_backward_graph_us":
+              None if sdpa_graph_ms is None else sdpa_graph_ms * 1e3})
+    del out, qg, kg, vg, q, k, v, o, lse, do, delta
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return results + bwd_rows
+    return rows
 
 
 def train_model_config(n_layer=36):
@@ -1307,9 +1359,7 @@ def train_phase(n_layer=36, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not timed[-1] < timed[0]:
         raise AssertionError(f"the loss did not fall: {timed}")
-    expect = {name: n_layer * steps for name in
-              ("flash_attention_fwd", "flash_attention_bwd_dkv",
-               "flash_attention_bwd_dq")}
+    expect = {name: n_layer * steps for name in FLASH_KERNELS}
     if launches != expect:
         raise AssertionError(f"train launch counts {launches} != {expect}")
     step_s = wall_s / steps
@@ -1676,12 +1726,10 @@ def bert_kernel_phase(gen):
     # bench_sparse_attention's comparison: the port's dense non-causal
     # flash forward + backward at the same shape
     f_o, f_lse = fa.flash_attention_fwd(q4, k4, v4)
-    f_delta = (do4.float() * f_o.float()).sum(-1)
     flash_ms = time_graph_ms(lambda i: fa.flash_attention_fwd(q4, k4, v4),
-                             n=4, reps=5) + sum(
-        time_graph_ms(lambda i, fn=fn: fn(q4, k4, v4, do4, f_lse, f_delta),
-                      n=4, reps=5)
-        for fn in (fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq))
+                             n=4, reps=5) + time_graph_ms(
+        lambda i: fa.flash_attention_bwd(q4, k4, v4, f_o, f_lse, do4),
+        n=4, reps=5)
     sparse_ms = sum(row["ms"] for row in rows)
     emit({"phase": "bert_kernels", "cases": info,
           "sparse_fwd_bwd_us": sparse_ms * 1e3,
@@ -1689,7 +1737,7 @@ def bert_kernel_phase(gen):
           "dense_over_sparse": flash_ms / sparse_ms,
           "sdpa_masked_fwd_us": sdpa_fwd_ms * 1e3,
           "sdpa_masked_fwd_bwd_us": (sdpa_fwd_ms + sdpa_bwd_ms) * 1e3})
-    del q, k, v, do, q4, k4, v4, do4, f_o, f_lse, f_delta
+    del q, k, v, do, q4, k4, v4, do4, f_o, f_lse
     torch.cuda.empty_cache()
     return rows
 
@@ -3247,9 +3295,7 @@ def train_moq_phase(warmup=TRAIN_WARMUP, steps=TRAIN_STEPS):
         raise AssertionError(f"quantize launches a step {per_step}, "
                              f"{len(leaves)} leaves (146 expected)")
     expect = {"quantize": 146 * steps,
-              **{name: cfg.n_layer * steps for name in
-                 ("flash_attention_fwd", "flash_attention_bwd_dkv",
-                  "flash_attention_bwd_dq")}}
+              **{name: cfg.n_layer * steps for name in FLASH_KERNELS}}
     if launches != expect or plain_calls:
         raise AssertionError(f"train_moq launches {launches} != {expect}, "
                              f"plain calls {plain_calls}")
@@ -3717,12 +3763,13 @@ def zero3_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
           "scale_fault": "rank 1's shard gradients not scaled by 1/n",
           **g})
     # a step a rank: the forward and its recomputation run the flash
-    # forward and three all-gather+matmuls a projection, the backward dq,
-    # dk/dv and one matmul+reduce-scatter a projection, each layer
+    # forward and three all-gather+matmuls a projection, the backward its
+    # delta and dq/dk/dv kernels and one matmul+reduce-scatter a
+    # projection, each layer
     per_layer = 4 * n_layer
     flash = {"flash_attention_fwd": 2 * n_layer * steps,
-             "flash_attention_bwd_dq": n_layer * steps,
-             "flash_attention_bwd_dkv": n_layer * steps}
+             "flash_attention_bwd": n_layer * steps,
+             "flash_attention_bwd_delta": n_layer * steps}
     expect = {"ag_matmul": 3 * per_layer * steps,
               "mm_rs_partial": per_layer * steps,
               "mm_rs_reduce": per_layer * steps,

@@ -60,39 +60,77 @@
 // - TMA needs 16-byte aligned bases: the wrapper copies an input that is
 //   not (a view at an odd offset) into a fresh tensor.
 //
-// Flash-attention backward: two kernels, dk/dv and dq.
+// Flash-attention backward for Hopper (sm_90a): one single-pass kernel
+// (flash_bwd_tma_kernel, entry dstpu_flash_bwd) and the delta reduction
+// before it (flash_bwd_delta_kernel, entry dstpu_flash_bwd_delta).
 //
-// Replace the Pallas backward of the same file: _flash_bwd (:257) ->
-// _bwd_fused_kernel (:192), and the chunked long-S form _flash_bwd_chunked
-// (:457) -> _bwd_dkv_kernel_chunked (:405) and _bwd_dq_kernel_chunked
-// (:367). Both tile Q and K/V in 64-row tiles, so one design covers any S.
-// Per score tile they follow _bwd_ds_block (:96): fp32 scores,
-// p = exp(scale*q.k - lse), dp = do.v^T, ds = p*(dp - delta), with p and
-// ds rounded to bf16 before their products; delta = rowsum(do*o) comes in
-// from the wrapper, as it does in JAX (:260).
+// Replaces the Pallas backward of the same file: _flash_bwd (:257) ->
+// _bwd_fused_kernel (:192), whose structure it computes, and the chunked
+// long-S form _flash_bwd_chunked (:457) -> _bwd_dkv_kernel_chunked (:405)
+// and _bwd_dq_kernel_chunked (:367): K/V and Q stream in tiles for any S.
+// Per score tile it follows _bwd_ds_block (:96): fp32 scores,
+// p = exp(scale*q.k - lse), dp = do.v^T, ds = p*(dp - delta), p and ds
+// rounded to bf16 before their products. delta = rowsum(do*o) is computed
+// outside, as in JAX (:260), by the delta kernel: one pass over the two
+// bf16 tensors, 16 bytes a thread, fp32 sums.
 //
-// What bounds them: at GPT-2 large's training shape (B*H = 160, S = 1024,
-// D = 64, causal) dk/dv is 4 and dq 3 products of 2*S*S*D/2 flops per
-// head, ~43 and ~33 us of bf16 tensor-core time, against ~38 and ~31 us
-// of bytes: both are near the ridge.
+// What bounds it on the H100: the tensor cores. Each (q, key) pair of a
+// head costs 5 products of 2*D flops (S^T, dP^T, dV, dK, dQ) when its
+// score and exp are computed once; at GPT-2 large's training shape
+// (B*H = 160, S = 1024, D = 64, causal) that is 54 us of bf16 tensor time
+// against ~30 us of bytes. Around it: each q tile's Q and dO are read
+// again by every key tile's item, and each (q tile, key tile) pair adds a
+// 64 x D fp32 dq part in L2 (2 bytes a pair each at 128-key items); on an
+// H100 those two streams, not the products, set the kernel's time
+// (tests/perf/torch_kernel_ablate.py, PERF.md).
 //
 // What the design does about it:
-// - No atomics, deterministic: the dk/dv kernel owns a (b*h, 64-key tile)
-//   and loops over q tiles from the diagonal on; the dq kernel owns a
-//   (b*h, 64-query tile) and loops over k tiles up to the diagonal. Each
-//   recomputes the score tile the other needs (the fused single pass of
-//   _bwd_fused_kernel, which computes each exp once, is later work).
-// - The transposed products need no register transposes: the dk/dv kernel
-//   computes S^T = K.Q^T and dP^T = V.dO^T directly (4 warps x 16 keys,
-//   K and V held as A fragments), so P^T and dS^T come out in the
-//   accumulator layout that is the A layout of the next mma, exactly as P
-//   does in the forward; dO and Q are then read as B through
-//   ldmatrix.trans, the forward's V pattern.
-// - Masked diagonal tiles and the ragged tail (S not a multiple of 64) set
-//   p = 0 where the reference's -1e30 makes exp give 0, and zero-fill the
-//   rows past S.
-// - Causal blocks are issued longest first.
-
+// - One pass per (b*h, 128-key tile) work item: the scores and their exp
+//   are computed once (5 products a tile pair, where a split into a
+//   dk/dv and a dq kernel needs 7 and two exps). A block of 384 threads,
+//   one an SM (persistent), walks the items in groups of heads whose Q,
+//   dO and fp32 dq sums fit in half the L2 (24 MiB), in a group key tile
+//   by key tile across its heads, so under causal masking the longest
+//   items (key tile 0) come first; block b takes the walk's rounds in a
+//   snake, as the forward does. An item visits its q tiles from the last down to the
+//   diagonal (tiles above it are never loaded).
+// - Warpgroup 0: warp 0 loads by TMA the item's K and V tile once (3-D
+//   maps over [B*H, S, D]: rows past S read zeros) and, into a ring, the
+//   q tiles' Q and dO (64 rows), its 32 lanes copying the tile's lse and
+//   delta beside them (cp.async, completing on the same mbarrier); warps
+//   1 .. 3 write dQ (below). setmaxnreg hands their registers to the
+//   consumers.
+// - Warpgroups 1 and 2 own 64 keys each and keep dK and dV (64 x D fp32)
+//   in registers over the item. S^T = K Q^T and dP^T = V dO^T are wgmma
+//   m64n64 products with both operands K-major in shared memory, so P^T
+//   and dS^T come out in the accumulator layout, which is the A layout of
+//   dV += P^T dO and dK += dS^T Q (wgmma with A from registers; dO and Q
+//   are the MN-major B operands as stored, like V in the forward). Only
+//   the diagonal tiles and the ragged tails are masked, to the
+//   reference's -1e30 (p = 0).
+// - dQ = dS K: both warpgroups also write dS^T into a swizzled shared
+//   buffer ([128 keys][64 q], double-buffered), where it is the MN-major A
+//   operand; the q tile's dQ boxes of 64 columns are split between the
+//   warpgroups (box b of the block's t-th tile to warpgroup (t + b) % 2),
+//   so no partial is summed in registers. Each writes its fp32 box into
+//   one of 3 (D 64) or 2 (D 128) staging tiles, in its accumulator order.
+// - dq is fp32 and deterministic: a (b*h, q tile) has an fp32 accumulator
+//   in global memory and a counter (zeroed by the wrapper), and its key
+//   tiles add to it in ascending order. Warp 1 + s serves staging tile s:
+//   it waits until the counter equals its key tile, then the first key
+//   tile stores (no memset of the accumulators) and the others add by a
+//   bulk fp32 reduce; once the add is complete the counter is released
+//   (bulk operations are per thread, so the writers' adds overlap). The
+//   last contributor (the diagonal key tile under causal masking, else
+//   the last one) loads the sum back into its staging tile and its warp
+//   writes dq = scale * sum in bf16: no post-pass, and no consumer ever
+//   waits on another block. A wait only points to an item of smaller walk
+//   index, so the persistent grid cannot deadlock (ops/cuda/
+//   flash_attention.py bwd_dq_waits, CPU-tested); descending q tiles let
+//   a key tile's item follow its predecessor's step for step when both
+//   run at once.
+// - dK (times scale) and dV go out in bf16 from registers at the item's
+//   end, rows past S not written.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -103,234 +141,7 @@
 
 namespace {
 
-constexpr int BQ = 64;   // q rows per block (16 per warp)
-constexpr int BK = 64;   // keys per K/V tile
-constexpr int HD = 64;   // the backward kernels' head dim
-constexpr int NT = 128;  // threads per block
-
-// shared-memory row of a [64, D] tile, padded so fragment reads are
-// bank-conflict free
-template <int D>
-__host__ __device__ constexpr int srow() { return D + 8; }
 constexpr unsigned kFull = 0xffffffffu;
-
-template <int D>
-__device__ __forceinline__ uint32_t load_pair(const bf16* base, int row,
-                                              int col, int S) {
-  if (row >= S) return 0u;
-  return *reinterpret_cast<const uint32_t*>(base + (size_t)row * D + col);
-}
-
-// Fill a 64-row tile of shared memory from rows r0.. of a [S, D] head,
-// zero past S.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
-                                          int S) {
-  for (int i = threadIdx.x; i < 64 * D / 8; i += NT) {
-    const int row = i / (D / 8), c8 = i % (D / 8);
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + row < S)
-      val = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + row) * D) + c8);
-    *reinterpret_cast<uint4*>(dst + row * srow<D>() + c8 * 8) = val;
-  }
-}
-
-// A fragments (16 rows x D) of rows r0 (and r0 + 8) of a [S, D] head
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t f[D / 16][4],
-                                             const bf16* p, int r0, int t4,
-                                             int S) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    f[kk][0] = load_pair<D>(p, r0, kk * 16 + 2 * t4, S);
-    f[kk][1] = load_pair<D>(p, r0 + 8, kk * 16 + 2 * t4, S);
-    f[kk][2] = load_pair<D>(p, r0, kk * 16 + 8 + 2 * t4, S);
-    f[kk][3] = load_pair<D>(p, r0 + 8, kk * 16 + 8 + 2 * t4, S);
-  }
-}
-
-// acc[j] (16 x 8, j = 0..7) = A (16 x D) . T^T for a 64-row shared tile T
-// (rows are the product's n index): S = Q.K^T. One ldmatrix.x4 gives the
-// B fragments of two k steps.
-template <int D>
-__device__ __forceinline__ void mma_abt(float acc[8][4],
-                                        const uint32_t a[D / 16][4],
-                                        const bf16* t, int lane) {
-  const int r = lane % 8, m = lane / 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-    for (int kp = 0; kp < D / 32; ++kp) {
-      uint32_t b[4];
-      ldsm_x4(b, t + (j * 8 + r) * srow<D>() + kp * 32 + m * 8);
-      mma_bf16(acc[j], a[2 * kp], b);
-      mma_bf16(acc[j], a[2 * kp + 1], b + 2);
-    }
-  }
-}
-
-// out[dn] (16 x 8, dn = 0..D/8-1) += X (16 x 64, held as accumulators
-// x[j]) rounded to bf16, . T for a 64-row shared [64, D] tile T (rows are
-// the product's k index): O += P.V. One ldmatrix.x4.trans gives the B
-// fragments of two n blocks.
-template <int D>
-__device__ __forceinline__ void mma_xt(float out[D / 8][4],
-                                       const float x[8][4], const bf16* t,
-                                       int lane) {
-  const int r = lane % 8, m = lane / 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_f32(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_f32(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_f32(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_f32(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_t(b, t + (kk * 16 + (m & 1) * 8 + r) * srow<D>() +
-                       (2 * dp + (m >> 1)) * 8);
-      mma_bf16(out[2 * dp], a, b);
-      mma_bf16(out[2 * dp + 1], a, b + 2);
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* p, const float acc[D / 8][4],
-                                           int r0, int t4, int S, float mul0,
-                                           float mul1) {
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int col = dn * 8 + 2 * t4;
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(p + (size_t)r0 * D + col) =
-          pack_f32(acc[dn][0] * mul0, acc[dn][1] * mul0);
-    if (r0 + 8 < S)
-      *reinterpret_cast<uint32_t*>(p + (size_t)(r0 + 8) * D + col) =
-          pack_f32(acc[dn][2] * mul1, acc[dn][3] * mul1);
-  }
-}
-
-// dk, dv of one (b*h, 64-key tile): each warp owns 16 keys
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, float scale,
-    int causal) {
-  __shared__ __align__(16) bf16 qs[BQ * srow<HD>()];
-  __shared__ __align__(16) bf16 dos[BQ * srow<HD>()];
-  __shared__ float ls[BQ], dls[BQ];
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;   // causal: key tile 0 has the most q tiles
-  const size_t base = (size_t)bh * S * HD;
-  const float* lp = lse + (size_t)bh * S;
-  const float* dlp = delta + (size_t)bh * S;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int kr0 = k0 + warp * 16 + g;   // this thread's keys: kr0, kr0 + 8
-
-  uint32_t kf[4][4], vf[4][4];
-  load_a_frags<HD>(kf, k + base, kr0, t4, S);
-  load_a_frags<HD>(vf, v + base, kr0, t4, S);
-  float dkf[8][4], dvf[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dkf[j][e] = dvf[j][e] = 0.f;
-
-  const int n_qt = (S + BQ - 1) / BQ;
-  for (int qt = causal ? k0 / BQ : 0; qt < n_qt; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();
-    load_tile<HD>(qs, q + base, q0, S);
-    load_tile<HD>(dos, dout + base, q0, S);
-    if (threadIdx.x < BQ) {
-      const bool in = q0 + threadIdx.x < S;
-      ls[threadIdx.x] = in ? lp[q0 + threadIdx.x] : 0.f;
-      dls[threadIdx.x] = in ? dlp[q0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-
-    float pt[8][4], dst[8][4];      // P^T and dS^T: [16 keys x 64 queries]
-    mma_abt<HD>(pt, kf, qs, lane);     // S^T = K.Q^T
-    mma_abt<HD>(dst, vf, dos, lane);   // dP^T = V.dO^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t4 + (e & 1);
-        const int qi = q0 + c, key = e < 2 ? kr0 : kr0 + 8;
-        const bool ok = qi < S && key < S && (!causal || qi >= key);
-        const float p = ok ? __expf(pt[j][e] * scale - ls[c]) : 0.f;
-        pt[j][e] = p;
-        dst[j][e] = p * (dst[j][e] - dls[c]);
-      }
-    mma_xt<HD>(dvf, pt, dos, lane);    // dV += P^T.dO
-    mma_xt<HD>(dkf, dst, qs, lane);    // dK += dS^T.Q
-  }
-  store_rows<HD>(dk + base, dkf, kr0, t4, S, scale, scale);
-  store_rows<HD>(dv + base, dvf, kr0, t4, S, 1.f, 1.f);
-}
-
-// dq of one (b*h, 64-query tile): each warp owns 16 queries
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int S, float scale, int causal) {
-  __shared__ __align__(16) bf16 ks[BK * srow<HD>()];
-  __shared__ __align__(16) bf16 vs[BK * srow<HD>()];
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const size_t base = (size_t)bh * S * HD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-
-  uint32_t qf[4][4], df[4][4];
-  load_a_frags<HD>(qf, q + base, r0, t4, S);
-  load_a_frags<HD>(df, dout + base, r0, t4, S);
-  const float* lp = lse + (size_t)bh * S;
-  const float* dlp = delta + (size_t)bh * S;
-  const float l0 = r0 < S ? lp[r0] : 0.f, l1 = r1 < S ? lp[r1] : 0.f;
-  const float d0 = r0 < S ? dlp[r0] : 0.f, d1 = r1 < S ? dlp[r1] : 0.f;
-  float dqf[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqf[j][e] = 0.f;
-
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
-  const int n_kt = (kv_end + BK - 1) / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<HD>(ks, k + base, k0, S);
-    load_tile<HD>(vs, v + base, k0, S);
-    __syncthreads();
-
-    float sf[8][4], dsf[8][4];      // S and dS: [16 queries x 64 keys]
-    mma_abt<HD>(sf, qf, ks, lane);     // S = Q.K^T
-    mma_abt<HD>(dsf, df, vs, lane);    // dP = dO.V^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t4 + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        const bool ok = key < S && row < S && (!causal || key <= row);
-        const float p = ok ? __expf(sf[j][e] * scale - (e < 2 ? l0 : l1))
-                           : 0.f;
-        dsf[j][e] = p * (dsf[j][e] - (e < 2 ? d0 : d1));
-      }
-    mma_xt<HD>(dqf, dsf, ks, lane);    // dQ += dS.K
-  }
-  store_rows<HD>(dq + base, dqf, r0, t4, S, scale, scale);
-}
 
 // -- the forward: TMA-fed, warp-specialised wgmma ---------------------------
 
@@ -777,31 +588,567 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-}  // namespace
+// -- the backward: one pass, TMA-fed, warp-specialised wgmma ---------------
 
-extern "C" int dstpu_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                   const void* dout, const void* lse,
-                                   const void* delta, void* dk, void* dv,
-                                   int BH, int S, float scale, int causal,
-                                   void* stream) {
-  dim3 grid((S + BK - 1) / BK, BH);
-  flash_bwd_dkv_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, S, scale,
+constexpr int BQ = 64;          // q rows a q tile
+constexpr int BN = 128;         // keys a work item: two consumer warpgroups
+constexpr int B_THREADS = 384;
+// named barrier: both consumers' dS^T written
+constexpr int BAR_DS = 1;
+// registers a thread after setmaxnreg: warpgroup 0, the consumers
+constexpr int BWD_P_REGS = 40, BWD_C_REGS = 232;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// shared memory of the backward at head dim D: KVST (K, V) tile pairs,
+// QST (Q, dO) tile pairs, two dS^T buffers, DQST dQ staging tiles, QST
+// (lse, delta) rows of 64, then the mbarriers (256 bytes); every tile a
+// row
+// of D / 64 boxes of [rows][64], 1024-byte aligned. ops/cuda/
+// flash_attention.py bwd_geometry mirrors it.
+template <int D>
+struct BwdCfg {
+  static constexpr int DB = D / 64;
+  static constexpr int KV_BYTES = BN * D * 2;   // one K or V tile
+  static constexpr int QT_BYTES = BQ * D * 2;   // one Q or dO tile
+  static constexpr int DS_BYTES = BN * BQ * 2;  // dS^T, [128 keys][64 q]
+  static constexpr int DQ_BYTES = BQ * D * 4;   // a q tile's fp32 dQ part
+  static constexpr int LD_BYTES = 2 * BQ * 4;   // lse, delta
+  static constexpr int KVST = D == 64 ? 2 : 1, QST = D == 64 ? 4 : 2;
+  static constexpr int DQST = D == 64 ? 3 : 2;
+  static constexpr int SMEM = 1024 + KVST * 2 * KV_BYTES +
+                              QST * 2 * QT_BYTES + 2 * DS_BYTES +
+                              DQST * DQ_BYTES + QST * LD_BYTES + 256;
+};
+
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;   // [B*H, S, D] each
+};
+
+// p = exp(scale q.k - lse) and ds = p (dp - delta) in place over this
+// thread's part of a tile pair: s holds S^T (raw q.k), dp holds dP^T, both
+// [64 keys x 64 q] in the wgmma accumulator layout; lsd the q tile's lse
+// (0 .. 63) and delta (64 .. 127); c = scale * log2 e. MASK: p = 0 where the key
+// is past S, the query is past S, or (causal) the key is past the query.
+template <bool MASK>
+__device__ __forceinline__ void bwd_p_ds(float (&s)[32], float (&dp)[32],
+                                         const float* lsd, int key0, int q0,
+                                         int S, int causal, float c) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t4;
+    const float2 ls = *reinterpret_cast<const float2*>(lsd + col);
+    const float2 dl = *reinterpret_cast<const float2*>(lsd + BQ + col);
+    const float l0 = ls.x * LOG2E, l1 = ls.y * LOG2E;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * h + e;
+        float p = ex2(fmaf(s[x], c, -(e ? l1 : l0)));
+        if (MASK) {
+          const int key = key0 + 8 * h, q = q0 + col + e;
+          if (key >= S || q >= S || (causal && key > q)) p = 0.f;
+        }
+        s[x] = p;
+        dp[x] = p * (dp[x] - (e ? dl.y : dl.x));
+      }
+  }
+}
+
+// S^T = K Q^T and dP^T = V dO^T over warpgroup `half`'s 64 keys of the K
+// and V tiles (kb, vb) and a Q and dO tile (qb, dob): both operands
+// K-major, D / 16 k16 steps, 64-wide boxes of 128 (K/V) or 64 (Q/dO) rows
+template <int D>
+__device__ __forceinline__ void bwd_issue_sdp(float (&s)[32], float (&dp)[32],
+                                              const unsigned char* kb,
+                                              const unsigned char* vb,
+                                              const unsigned char* qb,
+                                              const unsigned char* dob,
+                                              int half) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off =
+        (kk / 4) * BN * BOX_ROW + 64 * half * BOX_ROW + (kk % 4) * 32;
+    const int qoff = (kk / 4) * BQ * BOX_ROW + (kk % 4) * 32;
+    sm90::wgmma_ss<64, 0, 0>(s, sm90::wgmma_desc(kb + off, 16, 1024),
+                             sm90::wgmma_desc(qb + qoff, 16, 1024), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off =
+        (kk / 4) * BN * BOX_ROW + 64 * half * BOX_ROW + (kk % 4) * 32;
+    const int qoff = (kk / 4) * BQ * BOX_ROW + (kk % 4) * 32;
+    sm90::wgmma_ss<64, 0, 0>(dp, sm90::wgmma_desc(vb + off, 16, 1024),
+                             sm90::wgmma_desc(dob + qoff, 16, 1024), kk > 0);
+  }
+}
+
+// dV += P^T dO and dK += dS^T Q: A from registers (4 k16 steps over the
+// 64 q), dO and Q MN-major ([64 q][64 d] boxes BQ * 128 bytes apart)
+template <int D>
+__device__ __forceinline__ void bwd_issue_dkv(float (&dk)[D / 2],
+                                              float (&dv)[D / 2],
+                                              uint32_t (&pf)[4][4],
+                                              uint32_t (&df)[4][4],
+                                              const unsigned char* qb,
+                                              const unsigned char* dob) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sm90::wgmma_rs<D, 1>(
+        dv, pf[kk], sm90::wgmma_desc(dob + kk * 2048, BQ * BOX_ROW, 1024), 1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sm90::wgmma_rs<D, 1>(
+        dk, df[kk], sm90::wgmma_desc(qb + kk * 2048, BQ * BOX_ROW, 1024), 1);
+}
+
+// a dQ box (64 q x 64 d) = dS K[:, box] over the 128 keys: A is dS^T
+// ([128 keys][64 q]) read MN-major, B the K tile's box, MN-major
+__device__ __forceinline__ void bwd_issue_dq(float (&dq)[32],
+                                             const unsigned char* dsb,
+                                             const unsigned char* kbox) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    sm90::wgmma_ss<64, 1, 1>(
+        dq, sm90::wgmma_desc(dsb + kk * 2048, 8192, 1024),
+        sm90::wgmma_desc(kbox + kk * 2048, BN * BOX_ROW, 1024), kk > 0);
+}
+
+// wait until the q tile's counter says key tiles 0 .. kt - 1 have added
+// their dq parts (the walk proves this finite; a wait that outlasts
+// seconds traps, a launch failure the wrapper raises, not a hang)
+__device__ __forceinline__ void wait_count(const int* cnt, int kt) {
+  for (long long n = 0; sm90::ld_acquire(cnt) != kt; ++n) {
+    if (n > (1LL << 26)) __trap();
+    __nanosleep(64);
+  }
+}
+
+// the walk's item w: heads in groups of `group` whose Q, dO and dq sums
+// stay in L2 together, in a group key tile by key tile across its heads,
+// so that under causal masking the longest items (key tile 0) come first
+// and an item's dq predecessor (the same head's previous key tile) is the
+// group's size earlier in the walk
+__device__ __forceinline__ void bwd_item(int w, int BH, int n_kt, int group,
+                                         int& bh, int& kt) {
+  const int gi = w / (group * n_kt), j = w - gi * group * n_kt;
+  const int gsize = min(group, BH - gi * group);
+  kt = j / gsize;
+  bh = gi * group + j - kt * gsize;
+}
+
+// dq [B*H, S, D], dk and dv [B*H, S, D] bf16 from q, k, v, do (maps), lse
+// and delta [B*H, S] fp32; dq_acc [B*H, q tiles, 64 * D] fp32 scratch and
+// counters [B*H, q tiles] int32, zero at launch. Persistent: block b takes
+// the walk's items (bwd_item, heads in groups of `group`) snake(0),
+// snake(1), ..
+template <int D>
+__global__ void __launch_bounds__(B_THREADS, 1)
+    flash_bwd_tma_kernel(const __grid_constant__ BwdMaps maps,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, float* __restrict__ dq_acc,
+                         int* __restrict__ counters, int BH, int S,
+                         int group, float scale, int causal) {
+  using C = BwdCfg<D>;
+  constexpr int DB = C::DB, KVST = C::KVST, QST = C::QST, DQST = C::DQST;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* kvs = reinterpret_cast<unsigned char*>(
+      ((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  unsigned char* qs = kvs + KVST * 2 * C::KV_BYTES;
+  unsigned char* dss = qs + QST * 2 * C::QT_BYTES;
+  unsigned char* dqs = dss + 2 * C::DS_BYTES;
+  float* lds = reinterpret_cast<float*>(dqs + DQST * C::DQ_BYTES);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(lds) + QST * C::LD_BYTES);
+  uint64_t* kv_empty = kv_full + KVST;
+  uint64_t* q_full = kv_empty + KVST;
+  uint64_t* q_empty = q_full + QST;
+  uint64_t* dq_full = q_empty + QST;
+  uint64_t* dq_empty = dq_full + DQST;
+  uint64_t* dq_sum = dq_empty + DQST;
+  static_assert((2 * (KVST + QST) + 3 * DQST) * 8 <= 256, "mbarriers");
+  const int n_qt = (S + BQ - 1) / BQ, n_kt = (S + BN - 1) / BN;
+  const int items = n_kt * BH;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < KVST; ++s) {
+      sm90::mbar_init(&kv_full[s], 1);    // the producer's expect_tx
+      sm90::mbar_init(&kv_empty[s], 8);   // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < QST; ++s) {
+      sm90::mbar_init(&q_full[s], 33);    // expect_tx + warp 0's copies
+      sm90::mbar_init(&q_empty[s], 8);
+    }
+    for (int s = 0; s < DQST; ++s) {
+      sm90::mbar_init(&dq_full[s], 8);    // lane 0 of each consumer warp
+      sm90::mbar_init(&dq_empty[s], 1);   // its dQ writer
+      sm90::mbar_init(&dq_sum[s], 1);     // its writer's expect_tx
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {
+    sm90::setmaxnreg_dec<BWD_P_REGS>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+    if (warp == 0) {
+      // the loads: K, V once an item; Q, dO, lse, delta a q tile
+      if (lane == 0) {
+        sm90::tma_prefetch_map(&maps.q);
+        sm90::tma_prefetch_map(&maps.k);
+        sm90::tma_prefetch_map(&maps.v);
+        sm90::tma_prefetch_map(&maps.dout);
+      }
+      int it = 0, kit = 0;
+      for (int r = 0; snake(r) < items; ++r, ++kit) {
+        int bh, kt;
+        bwd_item(snake(r), BH, n_kt, group, bh, kt);
+        const int ks_ = kit % KVST;
+        unsigned char* kb = kvs + ks_ * 2 * C::KV_BYTES;
+        if (lane == 0) {
+          sm90::mbar_wait(&kv_empty[ks_], ((kit / KVST) & 1) ^ 1);
+          sm90::mbar_expect_tx(&kv_full[ks_], 2 * C::KV_BYTES);
+#pragma unroll
+          for (int j = 0; j < DB; ++j) {
+            sm90::tma_load_3d(kb + j * BN * BOX_ROW, &maps.k, 64 * j,
+                              kt * BN, bh, &kv_full[ks_]);
+            sm90::tma_load_3d(kb + C::KV_BYTES + j * BN * BOX_ROW, &maps.v,
+                              64 * j, kt * BN, bh, &kv_full[ks_]);
+          }
+        }
+        for (int i = n_qt - 1; i >= (causal ? 2 * kt : 0); --i, ++it) {
+          const int st = it % QST;
+          unsigned char* qb = qs + st * 2 * C::QT_BYTES;
+          sm90::mbar_wait(&q_empty[st], ((it / QST) & 1) ^ 1);
+          if (lane == 0) {
+            sm90::mbar_expect_tx(&q_full[st], 2 * C::QT_BYTES);
+#pragma unroll
+            for (int j = 0; j < DB; ++j) {
+              sm90::tma_load_3d(qb + j * BQ * BOX_ROW, &maps.q, 64 * j,
+                                i * BQ, bh, &q_full[st]);
+              sm90::tma_load_3d(qb + C::QT_BYTES + j * BQ * BOX_ROW,
+                                &maps.dout, 64 * j, i * BQ, bh, &q_full[st]);
+            }
+          }
+          // lse and delta by asynchronous copies that complete on q_full
+          // too (zeros past S), so this warp never waits on their loads
+          float* ld = lds + st * (2 * BQ);
+          const size_t row = (size_t)bh * S;
+#pragma unroll
+          for (int e = lane; e < BQ; e += 32) {
+            const int q = i * BQ + e;
+            const size_t at = row + (q < S ? q : 0);
+            const uint32_t bytes = q < S ? 4 : 0;
+            sm90::cp_async_4(ld + e, lse + at, bytes);
+            sm90::cp_async_4(ld + BQ + e, delta + at, bytes);
+          }
+          sm90::cp_async_arrive(&q_full[st]);
+        }
+      }
+      return;
+    }
+    // warps 1 .. DQST: the dQ writers, warp 1 + s taking the (item, q
+    // tile) contributions that the consumers stage in tile s. Lane 0 adds
+    // the tile once the key tiles before it have added theirs (bulk
+    // operations are per thread, so the writers' adds are in flight
+    // together) and releases the counter as soon as its add is complete.
+    // The q tile's last contributor then loads the sum back into its
+    // staging tile and the warp writes dq = scale * sum in bf16.
+    if (warp > DQST) return;
+    const int s = warp - 1;
+    unsigned char* part = dqs + s * C::DQ_BYTES;
+    int dit = 0, sums = 0;
+    for (int r = 0; snake(r) < items; ++r) {
+      int bh, kt;
+      bwd_item(snake(r), BH, n_kt, group, bh, kt);
+      for (int i = n_qt - 1; i >= (causal ? 2 * kt : 0); --i, ++dit) {
+        if (dit % DQST != s) continue;
+        sm90::mbar_wait(&dq_full[s], (dit / DQST) & 1);
+        const bool last = kt == (causal ? i / 2 : n_kt - 1);
+        float* acc = dq_acc + ((size_t)bh * n_qt + i) * (BQ * D);
+        int* cnt = counters + (size_t)bh * n_qt + i;
+        if (lane == 0 && (kt > 0 || !last)) {
+          if (kt > 0) {
+            wait_count(cnt, kt);
+            sm90::fence_proxy_async_global();
+            sm90::bulk_reduce_add_f32(acc, part, C::DQ_BYTES);
+          } else {
+            sm90::bulk_store(acc, part, C::DQ_BYTES);
+          }
+          sm90::tma_store_commit();
+          sm90::bulk_wait();
+          if (last) {
+            sm90::mbar_expect_tx(&dq_sum[s], C::DQ_BYTES);
+            sm90::bulk_load(part, acc, C::DQ_BYTES, &dq_sum[s]);
+          } else {
+            __threadfence();
+            sm90::st_release(cnt, kt + 1);
+          }
+        }
+        if (last) {
+          if (kt > 0) sm90::mbar_wait(&dq_sum[s], sums++ & 1);
+          // float4 c of the tile is (box, warp, fragment j, lane) of the
+          // consumers' accumulators: rows 16 warp + lane / 4 (+ 8),
+          // columns 64 box + 8 j + 2 (lane % 4)
+          const float4* p4 = reinterpret_cast<const float4*>(part);
+          const size_t base = (size_t)bh * S + (size_t)i * BQ;
+          for (int c = lane; c < BQ * D / 4; c += 32) {
+            const float4 x = p4[c];
+            const int l = c & 31;
+            const int row = 16 * ((c >> 8) & 3) + (l >> 2);
+            const int col = 64 * (c >> 10) + 8 * ((c >> 5) & 7) + 2 * (l & 3);
+            if (i * BQ + row < S)
+              *reinterpret_cast<uint32_t*>(dq + (base + row) * D + col) =
+                  pack_f32(x.x * scale, x.y * scale);
+            if (i * BQ + row + 8 < S)
+              *reinterpret_cast<uint32_t*>(dq + (base + row + 8) * D + col) =
+                  pack_f32(x.z * scale, x.w * scale);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&dq_empty[s]);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<BWD_C_REGS>();
+  const int half = wg - 1;                 // keys k0 + 64 half ..
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float c = scale * LOG2E;
+  float dka[D / 2], dva[D / 2], sacc[32], dpa[32], dqa[32];
+  uint32_t pf[4][4], df[4][4];
+  int it = 0, kit = 0, dit = 0;
+  for (int r = 0; snake(r) < items; ++r, ++kit) {
+    int bh, kt;
+    bwd_item(snake(r), BH, n_kt, group, bh, kt);
+    const int i0 = causal ? 2 * kt : 0;
+    const int ks_ = kit % KVST;
+    const unsigned char* kb = kvs + ks_ * 2 * C::KV_BYTES;
+    const unsigned char* vb = kb + C::KV_BYTES;
+    const int key0 = kt * BN + 64 * half + 16 * warp + g;  // and key0 + 8
+    const bool tail_keys = (kt + 1) * BN > S;
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) dka[x] = dva[x] = 0.f;
+    sm90::mbar_wait(&kv_full[ks_], (kit / KVST) & 1);
+
+    for (int i = n_qt - 1; i >= i0; --i, ++it, ++dit) {
+      const int st = it % QST;
+      const unsigned char* qb = qs + st * 2 * C::QT_BYTES;
+      const unsigned char* dob = qb + C::QT_BYTES;
+      const int q0 = i * BQ;
+      sm90::mbar_wait(&q_full[st], (it / QST) & 1);
+
+      sm90::fence_regs(sacc);
+      sm90::fence_regs(dpa);
+      sm90::wgmma_fence();
+      bwd_issue_sdp<D>(sacc, dpa, kb, vb, qb, dob, half);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sacc);
+      sm90::fence_regs(dpa);
+
+      const float* lsd = lds + st * (2 * BQ);
+      if (tail_keys || (causal && i < i0 + 2) || q0 + BQ > S)
+        bwd_p_ds<true>(sacc, dpa, lsd, key0, q0, S, causal, c);
+      else
+        bwd_p_ds<false>(sacc, dpa, lsd, key0, q0, S, causal, c);
+      // P^T and dS^T in bf16 as A fragments (k16 step kk: q columns
+      // 16 kk .. + 15, accumulators 8 kk .. 8 kk + 7)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          pf[kk][x] = pack_f32(sacc[8 * kk + 2 * x], sacc[8 * kk + 2 * x + 1]);
+          df[kk][x] = pack_f32(dpa[8 * kk + 2 * x], dpa[8 * kk + 2 * x + 1]);
+        }
+
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        sm90::fence_regs(pf[kk]);
+        sm90::fence_regs(df[kk]);
+      }
+      sm90::fence_regs(dka);
+      sm90::fence_regs(dva);
+      sm90::wgmma_fence();
+      bwd_issue_dkv<D>(dka, dva, pf, df, qb, dob);
+      sm90::wgmma_commit();
+
+      // dS^T into its buffer: key row 64 half + 16 warp + g (+ 8), q
+      // chunk j swizzled with the row (rows r and r + 8 share r & 7)
+      // (buffers and dQ boxes alternate with the running tile count it,
+      // so consecutive tiles never share a buffer, across items too)
+      unsigned char* dsb = dss + (it & 1) * C::DS_BYTES;
+      unsigned char* drow = dsb + (64 * half + 16 * warp + g) * BOX_ROW +
+                            4 * t4;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int j = 2 * kk + (x >> 1);
+          *reinterpret_cast<uint32_t*>(drow + (x & 1) * 8 * BOX_ROW +
+                                       ((j ^ g) << 4)) = df[kk][x];
+        }
+      sm90::fence_proxy_async();
+      sm90::bar_sync(BAR_DS, 256);   // both halves of dS^T are written
+
+      // this warpgroup's dQ box of the tile, if any
+      const int qbox = (half + it) & 1;
+      if (qbox < DB) {
+        sm90::fence_regs(dqa);
+        sm90::wgmma_fence();
+        bwd_issue_dq(dqa, dsb, kb + qbox * BN * BOX_ROW);
+        sm90::wgmma_commit();
+      }
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        sm90::fence_regs(pf[kk]);
+        sm90::fence_regs(df[kk]);
+      }
+      sm90::fence_regs(dka);
+      sm90::fence_regs(dva);
+      sm90::fence_regs(dqa);
+      release(&q_empty[st]);
+      if (i == i0) release(&kv_empty[ks_]);
+
+      // the dQ box into the staging tile for the writer, in accumulator
+      // order: float4 j of lane l of warp w of box b at (b, w, j, l)
+      const int s = dit % DQST;
+      sm90::mbar_wait(&dq_empty[s], ((dit / DQST) & 1) ^ 1);
+      if (qbox < DB) {
+        float4* dst = reinterpret_cast<float4*>(dqs + s * C::DQ_BYTES) +
+                      qbox * 1024 + warp * 256 + lane;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          dst[32 * j] = make_float4(dqa[4 * j], dqa[4 * j + 1],
+                                    dqa[4 * j + 2], dqa[4 * j + 3]);
+        sm90::fence_proxy_async();
+      }
+      __syncwarp();
+      release(&dq_full[s]);
+    }
+
+    // dK = scale * sum dS^T Q and dV in bf16, rows past S not written
+    const size_t kbase = (size_t)bh * S;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key0 + 8 * h;
+      if (key >= S) continue;
+      bf16* dkr = dk + (kbase + key) * D + 2 * t4;
+      bf16* dvr = dv + (kbase + key) * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkr + 8 * j) =
+            pack_f32(dka[4 * j + 2 * h] * scale,
+                     dka[4 * j + 2 * h + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dvr + 8 * j) =
+            pack_f32(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// q, k, v, do [BH, S, D] as 3-D maps: a box past S reads zeros
+template <int D>
+cudaError_t encode_bwd(BwdMaps* maps, const void* q, const void* k,
+                       const void* v, const void* dout, int BH, int S) {
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint32_t box_q[3] = {64, BQ, 1}, box_kv[3] = {64, BN, 1};
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  cudaError_t e = sm90::encode_tiled(&maps->q, bf, 3, q, dims, strides, box_q);
+  if (e == cudaSuccess)
+    e = sm90::encode_tiled(&maps->k, bf, 3, k, dims, strides, box_kv);
+  if (e == cudaSuccess)
+    e = sm90::encode_tiled(&maps->v, bf, 3, v, dims, strides, box_kv);
+  if (e == cudaSuccess)
+    e = sm90::encode_tiled(&maps->dout, bf, 3, dout, dims, strides, box_q);
+  return e;
+}
+
+template <int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, bf16* dq, bf16* dk, bf16* dv,
+                       float* dq_acc, int* counters, int BH, int S,
+                       float scale, int causal, cudaStream_t st) {
+  BwdMaps maps;
+  cudaError_t e = encode_bwd<D>(&maps, q, k, v, dout, BH, S);
+  if (e != cudaSuccess) return e;
+  auto kernel = flash_bwd_tma_kernel<D>;
+  static bool allowed = false;     // one attribute call a kernel a process
+  if (!allowed) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             BwdCfg<D>::SMEM);
+    if (e != cudaSuccess) return e;
+    allowed = true;
+  }
+  // heads a group: all when their Q, dO, lse, delta and fp32 dq sums fit
+  // in L2_GROUP_BYTES, else the most that fit and are a multiple of
+  // unit = grid / gcd(grid, key tiles), so that a group spans whole rounds
+  // of the snake; unit heads if fewer fit but unit heads still fit in
+  // twice that (the L2), else as many as fit (ops/cuda/
+  // flash_attention.py bwd_geometry mirrors it)
+  const int n_kt = (S + BN - 1) / BN, items = n_kt * BH;
+  const int sms = sm90::sm_count(), grid = items < sms ? items : sms;
+  const long long head = 8LL * S * D + 8LL * S;
+  const long long fit = L2_GROUP_BYTES / head;
+  int a = grid, b = n_kt;
+  while (b) {
+    const int r = a % b;
+    a = b;
+    b = r;
+  }
+  const int unit = grid / a;
+  const int group = fit >= BH ? BH
+                    : fit >= unit ? (int)(fit / unit * unit)
+                    : unit * head <= 2 * L2_GROUP_BYTES ? unit
+                    : (int)(fit < 1 ? 1 : fit);
+  kernel<<<grid, B_THREADS, BwdCfg<D>::SMEM, st>>>(
+      maps, lse, delta, dq, dk, dv, dq_acc, counters, BH, S, group, scale,
       causal);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
 }
 
-extern "C" int dstpu_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                  const void* dout, const void* lse,
-                                  const void* delta, void* dq, int BH, int S,
-                                  float scale, int causal, void* stream) {
-  dim3 grid((S + BQ - 1) / BQ, BH);
-  flash_bwd_dq_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, S, scale, causal);
-  return (int)cudaGetLastError();
+// delta[r] = sum over d of do[r, d] o[r, d] in fp32, rows of D bf16: D / 8
+// threads a row, 16 bytes each, summed across them by shuffles
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_bwd_delta_kernel(const bf16* __restrict__ o,
+                           const bf16* __restrict__ dout,
+                           float* __restrict__ delta, long long rows) {
+  constexpr int T = D / 8;
+  const long long r =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / T;
+  const int part = threadIdx.x % T;
+  float sum = 0.f;
+  if (r < rows) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(o + r * D) + part);
+    const uint4 b =
+        __ldg(reinterpret_cast<const uint4*>(dout + r * D) + part);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float2 fa = __bfloat1622float2(a2[x]);
+      const float2 fb = __bfloat1622float2(b2[x]);
+      sum = fmaf(fa.x, fb.x, sum);
+      sum = fmaf(fa.y, fb.y, sum);
+    }
+  }
+#pragma unroll
+  for (int m = T / 2; m > 0; m >>= 1) sum += __shfl_xor_sync(kFull, sum, m);
+  if (r < rows && part == 0) delta[r] = sum;
 }
+
+}  // namespace
 
 // head dim D 64 or 128, every base 16-byte aligned (the wrapper checks);
 // pingpong != 0: the consumer warpgroups take turns issuing their products
@@ -824,4 +1171,49 @@ extern "C" int dstpu_flash_fwd(const void* q, const void* k, const void* v,
                     : (int)launch_fwd<128, false>(q, k, v, o, l, BH, H, Hkv,
                                                   S, scale, causal, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// head dim D 64 or 128; q, k, v, do [BH, S, D] bf16 with 16-byte aligned
+// bases, lse and delta [BH, S] fp32, dq_acc [BH, ceil(S / 64), 64 * D]
+// fp32 scratch, counters [BH, ceil(S / 64)] int32 zeroed (the wrapper
+// allocates them)
+extern "C" int dstpu_flash_bwd(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, void* dk,
+                               void* dv, void* dq_acc, void* counters, int BH,
+                               int S, int D, float scale, int causal,
+                               void* stream) {
+  if (BH < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  float* acc = static_cast<float*>(dq_acc);
+  int* cnt = static_cast<int*>(counters);
+  if (D == 64)
+    return (int)launch_bwd<64>(q, k, v, dout, l, dl, (bf16*)dq, (bf16*)dk,
+                               (bf16*)dv, acc, cnt, BH, S, scale, causal, st);
+  if (D == 128)
+    return (int)launch_bwd<128>(q, k, v, dout, l, dl, (bf16*)dq, (bf16*)dk,
+                                (bf16*)dv, acc, cnt, BH, S, scale, causal,
+                                st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// delta [rows] fp32 from o and do [rows, D] bf16 (16-byte aligned bases)
+extern "C" int dstpu_flash_bwd_delta(const void* o, const void* dout,
+                                     void* delta, int rows, int D,
+                                     void* stream) {
+  if (rows < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long threads = (long long)rows * (D / 8);
+  const int blocks = (int)((threads + 255) / 256);
+  if (D == 64)
+    flash_bwd_delta_kernel<64><<<blocks, 256, 0, st>>>(
+        (const bf16*)o, (const bf16*)dout, (float*)delta, rows);
+  else if (D == 128)
+    flash_bwd_delta_kernel<128><<<blocks, 256, 0, st>>>(
+        (const bf16*)o, (const bf16*)dout, (float*)delta, rows);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

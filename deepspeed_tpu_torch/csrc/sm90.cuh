@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tile loads
-// and stores, wgmma shared-memory descriptors and the bf16 m64nNk16
-// products (both operands from shared memory, or A from registers), named
-// barriers and the register hand-over between warpgroups (setmaxnreg);
-// and on the host the tensor-map encoder. Shared by the kernels that feed
+// and stores, 1-D bulk copies and fp32 bulk adds, 4-byte cp.async that
+// completes on an mbarrier, acquire/release flags in global memory, wgmma
+// shared-memory descriptors and the bf16 m64nNk16 products (both operands
+// from shared memory, or A from registers), named barriers and the
+// register hand-over between warpgroups (setmaxnreg); and on the host the
+// tensor-map encoder. Shared by the kernels that feed
 // wgmma from a TMA pipeline (fused_collective.cu, flash_attention.cu,
 // decode.cu).
 //
@@ -116,6 +118,83 @@ __device__ __forceinline__ void tma_store_commit() {
 // the committed stores have read their shared memory
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// shared memory -> `bytes` of global memory (a multiple of 16, both ends
+// 16-byte aligned), as a plain copy or an fp32 add into what is there
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                          uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst,
+                                                   const void* src,
+                                                   uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32"
+      " [%0], [%1], %2;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+// `bytes` of global memory -> shared memory (a multiple of 16, both ends
+// 16-byte aligned), completing its bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the committed bulk operations are complete: their writes are performed
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// 4 bytes global -> shared by this thread, asynchronously; zeros where
+// `bytes` is 0 (nothing is read). cp_async_arrive makes `bar` count one
+// arrival of its expected ones when this thread's copies have landed.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+// order this thread's generic-proxy accesses of global memory before its
+// later async-proxy (bulk) operations on it
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// a flag in global memory read with acquire / written with release
+// semantics at device scope
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {

@@ -35,8 +35,8 @@ _F = ctypes.c_float
 # argtypes of every C entry point (all return cudaError_t as int)
 SIGNATURES = {
     "dstpu_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
-    "dstpu_flash_bwd_dkv": [_P] * 8 + [_I, _I, _F, _I, _P],
-    "dstpu_flash_bwd_dq": [_P] * 7 + [_I, _I, _F, _I, _P],
+    "dstpu_flash_bwd": [_P] * 11 + [_I, _I, _I, _F, _I, _P],
+    "dstpu_flash_bwd_delta": [_P] * 3 + [_I, _I, _P],
     "dstpu_ln_qkv_stacked": [_P] * 8 + [_I] * 5 + [_F, _P],
     "dstpu_matvec_stacked": [_P] * 5 + [_I] * 6 + [_P],
     "dstpu_out_ffn_stacked": [_P] * 18 + [_I] * 4 + [_F, _P],

@@ -6,15 +6,19 @@ Replaces ``deepspeed_tpu/ops/pallas/flash_attention.py:580``
 :122) and the recompute backward (``_flash_bwd`` :257 with
 ``_bwd_fused_kernel`` :192, and ``_flash_bwd_chunked`` :457 with
 ``_bwd_dq_kernel_chunked`` :367 and ``_bwd_dkv_kernel_chunked`` :405).
-The backward runs as two kernels, dk/dv and dq, each tiling any S. The
-forward takes head dim 64 (GPT-2) or 128 (LLaMA), the backward 64. A
-CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+Both directions take head dim 64 (GPT-2) or 128 (LLaMA) and tile any S.
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises.
 
 The forward is a persistent, TMA-fed, warp-specialised wgmma kernel
 (csrc/flash_attention.cu ``flash_fwd_tma_kernel``); ``fwd_geometry``,
 ``fwd_walk`` and ``fwd_blocks`` mirror its launch (tiles, head groups,
-stages, shared memory, which block takes which tile).
+stages, shared memory, which block takes which tile). The backward is
+one pass of the same kind (``flash_bwd_tma_kernel``: each score tile and
+its exp computed once, dq summed in fp32 in a fixed order) after a delta
+reduction (``flash_bwd_delta_kernel``); ``bwd_geometry``, ``bwd_walk``,
+``bwd_blocks`` and ``bwd_dq_waits`` mirror its launch, and
+``flash_attention_bwd_kernel_tiles`` its arithmetic in its order.
 """
 
 import collections
@@ -26,8 +30,7 @@ import torch
 from deepspeed_tpu_torch.ops.cuda import builder
 
 NEG_INF = -1e30
-HEAD_DIM = 64              # the backward kernels' head dim (GPT-2's)
-FWD_HEAD_DIMS = (64, 128)  # the forward's: GPT-2's and LLaMA's
+HEAD_DIMS = (64, 128)   # the kernels' head dims: GPT-2's and LLaMA's
 ROADMAP_FLASH = ("ROADMAP.md queue 2, item \"flash attention: other head "
                  "dims and fp32\"")
 # by head dim: the forward's consumer warpgroups take turns issuing their
@@ -56,7 +59,7 @@ def fwd_geometry(S, D, H, Hkv, B=1, sms=132):
     threads; K and V rings of 4 stages (D 64; at D 128 2 and 3); shared
     memory = 1024 (alignment) + Q + O + the K and V stages + 256
     (mbarriers)."""
-    if D not in FWD_HEAD_DIMS:
+    if D not in HEAD_DIMS:
         raise ValueError(f"fwd_geometry: head dim {D} is not 64 or 128")
     q_tile = key_tile = 128
     k_stages, v_stages = (4, 4) if D == 64 else (2, 3)
@@ -92,6 +95,108 @@ def fwd_walk(S, D, H, Hkv, B=1):
         gsize = min(g.group, BH - gi * g.group)
         walk.append((gi * g.group + j % gsize, g.q_tiles - 1 - j // gsize))
     return walk
+
+
+BWD_Q_TILE, BWD_KEY_TILE = 64, 128   # the backward's q tile, work item
+BwdGeometry = collections.namedtuple(
+    "BwdGeometry",
+    "q_tile key_tile q_tiles key_tiles items group grid threads kv_stages "
+    "q_stages dq_stages smem")
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_geometry(S, D, H, B=1, sms=132):
+    """The backward's launch at head dim D over B*H full heads
+    (csrc/flash_attention.cu ``BwdCfg``, ``launch_bwd``): work items of
+    one head's 128 keys (two consumer warpgroups of 64), each over q
+    tiles of 64 rows; a persistent grid of min(items, SMs) blocks of 384
+    threads walking the items in groups of ``group`` heads (all, if their
+    Q, dO, lse, delta and fp32 dq sums, 8·S·D + 8·S bytes a head, fit in
+    24 MiB of L2; else the most that fit, rounded down to a multiple of
+    unit = grid / gcd(grid, key tiles) so that a group spans whole rounds;
+    unit heads when fewer fit but unit heads fit in 48 MiB; else as many
+    as fit); K/V stages 2 (D 64) or 1 (D 128), Q/dO stages 4 or 2, dQ
+    staging tiles 3 or 2; shared memory = 1024 (alignment) + the K/V, Q/dO, two
+    dS^T and dQ staging tiles + 512 bytes of lse and delta a Q/dO stage
+    + 256 (mbarriers)."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"bwd_geometry: head dim {D} is not 64 or 128")
+    kv_stages, q_stages, dq_stages = (2, 4, 3) if D == 64 else (1, 2, 2)
+    smem = (1024 + kv_stages * 2 * BWD_KEY_TILE * D * 2
+            + q_stages * 2 * BWD_Q_TILE * D * 2
+            + 2 * BWD_KEY_TILE * BWD_Q_TILE * 2
+            + dq_stages * BWD_Q_TILE * D * 4 + q_stages * 2 * BWD_Q_TILE * 4
+            + 256)
+    q_tiles, key_tiles = -(-S // BWD_Q_TILE), -(-S // BWD_KEY_TILE)
+    BH = B * H
+    items = key_tiles * BH
+    grid = min(items, sms)
+    head = 8 * S * D + 8 * S
+    fit = L2_GROUP_BYTES // head
+    unit = grid // math.gcd(grid, key_tiles)
+    group = (BH if fit >= BH else fit // unit * unit if fit >= unit
+             else unit if unit * head <= 2 * L2_GROUP_BYTES
+             else max(fit, 1))
+    return BwdGeometry(BWD_Q_TILE, BWD_KEY_TILE, q_tiles, key_tiles, items,
+                       group, grid, 384, kv_stages, q_stages, dq_stages,
+                       smem)
+
+
+def _bwd_first_q_tile(kt, causal):
+    """The first q tile a key tile's item visits: the diagonal one under
+    causal masking (the tiles above it see none of its keys), else 0."""
+    return 2 * kt if causal else 0
+
+
+def _bwd_last_key_tile(i, key_tiles, causal):
+    """The last key tile that adds to q tile i's dq: the diagonal one under
+    causal masking, else the last."""
+    return i // 2 if causal else key_tiles - 1
+
+
+def bwd_walk(S, D, H, B=1):
+    """The (b*h, key tile) of each item of the backward's walk, in walk
+    order (``bwd_item`` in csrc/flash_attention.cu): heads in groups of
+    ``group``, in a group key tile by key tile across its heads, so that
+    under causal masking a group's longest items come first."""
+    g = bwd_geometry(S, D, H, B)
+    BH, walk = B * H, []
+    for w in range(g.items):
+        gi, j = divmod(w, g.group * g.key_tiles)
+        gsize = min(g.group, BH - gi * g.group)
+        kt, r = divmod(j, gsize)
+        walk.append((gi * g.group + r, kt))
+    return walk
+
+
+def bwd_blocks(S, D, H, B=1):
+    """The walk indices each block of the backward's launch takes, in
+    order: the forward's snake over rounds of ``grid`` items."""
+    g = bwd_geometry(S, D, H, B)
+    return [[w for w in (r * g.grid + (g.grid - 1 - b if r % 2 else b)
+                         for r in range(-(-g.items // g.grid)))
+             if w < g.items] for b in range(g.grid)]
+
+
+def bwd_item_q_tiles(S, kt, causal):
+    """The q tiles a key tile's item visits."""
+    return -(-S // BWD_Q_TILE) - _bwd_first_q_tile(kt, causal)
+
+
+def bwd_dq_waits(S, D, H, B=1, causal=True):
+    """Every ordered wait of the backward's dQ writer, as (walk index of
+    the waiting item, walk index of the item waited on, b*h, q tile): the
+    contribution of key tile kt > 0 to a q tile waits until key tile
+    kt - 1 has added its own (the kernel's counter equals kt)."""
+    g = bwd_geometry(S, D, H, B)
+    index = {item: w for w, item in enumerate(bwd_walk(S, D, H, B))}
+    waits = []
+    for (bh, kt), w in index.items():
+        if kt == 0:
+            continue
+        for i in range(_bwd_first_q_tile(kt, causal), g.q_tiles):
+            waits.append((w, index[(bh, kt - 1)], bh, i))
+    return waits
 
 
 def _scale(scale, D):
@@ -135,28 +240,105 @@ def _bwd_p_ds(q, k, v, do, lse, delta, causal, scale):
     return p, p * (dp - delta[..., None])
 
 
-def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False,
-                                  scale=None):
-    """(dk, dv) of the dk/dv kernel in plain PyTorch, for full-head
-    [B, H, S, D] q, k, v, do and fp32 [B, H, S] lse, delta: p and ds
-    rounded to q's dtype before their products, dk = scale·dsᵀ·q,
-    dv = pᵀ·do, both in q's dtype."""
+def flash_attention_bwd_delta_plain(o, do):
+    """delta = rowsum(do·o) in fp32, [B, H, S] (flash_attention.py:260)."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_attention_bwd_delta(o, do):
+    """delta — see flash_attention_bwd_delta_plain. On CUDA: bf16,
+    contiguous [B, H, S, D] o and do, D 64 or 128; one pass over both."""
+    if o.device.type == "cpu":
+        return flash_attention_bwd_delta_plain(o, do)
+    if o.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_delta: unsupported device "
+                         f"{o.device}")
+    if do.shape != o.shape or do.device != o.device:
+        raise ValueError(f"flash_attention_bwd_delta: do {tuple(do.shape)} "
+                         f"on {do.device} vs o {tuple(o.shape)}")
+    B, H, S, D = o.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.dtype != torch.bfloat16:
+            raise NotImplementedError(
+                f"flash_attention_bwd_delta: the CUDA kernel takes bf16, "
+                f"got {name} {t.dtype} ({ROADMAP_FLASH})")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd_delta: {name} must be "
+                             f"contiguous")
+    if D not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd_delta: the CUDA kernel takes head dim 64 "
+            f"or 128, got {D} ({ROADMAP_FLASH})")
+    o, do = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (o, do))
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=o.device)
+    if delta.numel() == 0:
+        return delta
+    builder.kernels().call(
+        "dstpu_flash_bwd_delta", o.data_ptr(), do.data_ptr(),
+        delta.data_ptr(), B * H * S, D,
+        torch.cuda.current_stream(o.device).cuda_stream)
+    builder.launches["flash_attention_bwd_delta"] += 1
+    return delta
+
+
+def flash_attention_bwd_kernel_plain(q, k, v, do, lse, delta, causal=False,
+                                     scale=None):
+    """(dq, dk, dv) of the backward kernel in plain PyTorch over whole
+    score rows, for full-head [B, H, S, D] q, k, v, do and fp32 [B, H, S]
+    lse, delta: p and ds rounded to q's dtype before their products,
+    dq = scale·ds·k, dk = scale·dsᵀ·q, dv = pᵀ·do, each in q's dtype."""
     scale = _scale(scale, q.shape[-1])
     p, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale)
+    dsl = ds.to(q.dtype).float()
     dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), do.float())
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
-                      q.float()) * scale
-    return dk.to(q.dtype), dv.to(q.dtype)
+    dk = torch.matmul(dsl.transpose(-1, -2), q.float()) * scale
+    dq = torch.matmul(dsl, k.float()) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal=False,
-                                 scale=None):
-    """dq of the dq kernel in plain PyTorch: dq = scale·ds·k, ds rounded
-    to q's dtype before the product, dq in q's dtype."""
-    scale = _scale(scale, q.shape[-1])
-    _, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale)
-    return (torch.matmul(ds.to(q.dtype).float(), k.float()) * scale).to(
-        q.dtype)
+def flash_attention_bwd_kernel_tiles(q, k, v, do, lse, delta, causal=False,
+                                     scale=None):
+    """(dq, dk, dv) as the backward kernel computes them, tile by tile and
+    in its order: work items of BWD_KEY_TILE keys (a head's key tiles
+    ascending, as ``bwd_walk`` takes them), in each the q tiles of
+    BWD_Q_TILE rows from the last down to the diagonal; per tile pair p
+    and ds in fp32, rounded to q's dtype before the products; dk and dv
+    summed in fp32 over the item's q tiles; a q tile's dq summed over its
+    key tiles in ascending order, the first stored and each later one
+    added in fp32, the last contributor's sum scaled and cast
+    (``bwd_dq_waits``)."""
+    B, H, S, D = q.shape
+    scale, dt = _scale(scale, D), q.dtype
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    n_qt, n_kt = -(-S // BWD_Q_TILE), -(-S // BWD_KEY_TILE)
+    acc = [None] * n_qt
+    rows = torch.arange(S, device=q.device)
+    for kt in range(n_kt):
+        k0, k1 = kt * BWD_KEY_TILE, min(S, (kt + 1) * BWD_KEY_TILE)
+        kt_, vt = kf[:, :, k0:k1], vf[:, :, k0:k1]
+        dk_acc = torch.zeros(B, H, k1 - k0, D, device=q.device)
+        dv_acc = torch.zeros(B, H, k1 - k0, D, device=q.device)
+        for i in reversed(range(_bwd_first_q_tile(kt, causal), n_qt)):
+            q0, q1 = i * BWD_Q_TILE, min(S, (i + 1) * BWD_Q_TILE)
+            qt, dot = qf[:, :, q0:q1], dof[:, :, q0:q1]
+            s = torch.matmul(qt, kt_.transpose(-1, -2)) * scale
+            if causal:
+                keep = rows[q0:q1, None] >= rows[None, k0:k1]
+                s = s.masked_fill(~keep, NEG_INF)
+            p = torch.exp(s - lse[:, :, q0:q1, None])
+            dp = torch.matmul(dot, vt.transpose(-1, -2))
+            ds = p * (dp - delta[:, :, q0:q1, None])
+            pl, dsl = p.to(dt).float(), ds.to(dt).float()
+            dv_acc += torch.matmul(pl.transpose(-1, -2), dot)
+            dk_acc += torch.matmul(dsl.transpose(-1, -2), qt)
+            part = torch.matmul(dsl, kt_)
+            acc[i] = part if kt == 0 else acc[i] + part
+            if kt == _bwd_last_key_tile(i, n_kt, causal):
+                dq[:, :, q0:q1] = (acc[i] * scale).to(dt)
+        dk[:, :, k0:k1] = (dk_acc * scale).to(dt)
+        dv[:, :, k0:k1] = dv_acc.to(dt)
+    return dq, dk, dv
 
 
 def _check_bwd_args(name, q, k, v, do, lse, delta):
@@ -180,75 +362,63 @@ def _check_bwd_args(name, q, k, v, do, lse, delta):
             raise NotImplementedError(
                 f"{name}: the CUDA kernel takes bf16, got {t_name} {t.dtype} "
                 f"({ROADMAP_FLASH})")
-    if D != HEAD_DIM:
+    if D not in HEAD_DIMS:
         raise NotImplementedError(
-            f"{name}: the CUDA kernel takes head dim {HEAD_DIM}, got {D} "
+            f"{name}: the CUDA kernel takes head dim 64 or 128, got {D} "
             f"({ROADMAP_FLASH})")
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
-                            scale=None):
-    """(dk, dv) — see flash_attention_bwd_dkv_plain. On CUDA: bf16,
-    contiguous, head dim 64."""
+def flash_attention_bwd_kernel(q, k, v, do, lse, delta, causal=False,
+                               scale=None):
+    """(dq, dk, dv) — see flash_attention_bwd_kernel_plain. On CUDA: bf16,
+    contiguous, full-head [B, H, S, D] tensors, D 64 or 128; one launch
+    (counted as ``flash_attention_bwd``) with its fp32 dq accumulators and
+    their counters allocated here."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
-                                             scale)
+        return flash_attention_bwd_kernel_plain(q, k, v, do, lse, delta,
+                                                causal, scale)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_dkv: unsupported device "
+        raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
-    _check_bwd_args("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
+    _check_bwd_args("flash_attention_bwd", q, k, v, do, lse, delta)
     B, H, S, D = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if S == 0:
-        return dk, dv
+    # TMA reads from 16-byte aligned bases
+    q, k, v, do = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v, do))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    n_qt = -(-S // BWD_Q_TILE)
+    dq_acc = torch.empty(B * H * n_qt * BWD_Q_TILE * D, dtype=torch.float32,
+                         device=q.device)
+    counters = torch.zeros(B * H * n_qt, dtype=torch.int32, device=q.device)
     builder.kernels().call(
-        "dstpu_flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B * H, S, _scale(scale, D), int(bool(causal)),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    builder.launches["flash_attention_bwd_dkv"] += 1
-    return dk, dv
-
-
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
-                           scale=None):
-    """dq — see flash_attention_bwd_dq_plain. On CUDA: bf16, contiguous,
-    head dim 64."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
-                                            scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_dq: unsupported device "
-                         f"{q.device}")
-    _check_bwd_args("flash_attention_bwd_dq", q, k, v, do, lse, delta)
-    B, H, S, D = q.shape
-    dq = torch.empty_like(q)
-    if S == 0:
-        return dq
-    builder.kernels().call(
-        "dstpu_flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        "dstpu_flash_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        B * H, S, _scale(scale, D), int(bool(causal)),
+        dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(), counters.data_ptr(),
+        B * H, S, D, _scale(scale, D), int(bool(causal)),
         torch.cuda.current_stream(q.device).cuda_stream)
-    builder.launches["flash_attention_bwd_dq"] += 1
-    return dq
+    builder.launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
 
 
-def _bwd(q, k, v, o, lse, do, causal, scale, dkv_fn, dq_fn):
-    """The backward around its two kernels, as ``_flash_attention_bwd``
-    (flash_attention.py:543) wraps them: delta = rowsum(do·o) in fp32
+def _bwd(q, k, v, o, lse, do, causal, scale, delta_fn, kernel_fn):
+    """The backward around its kernel, as ``_flash_attention_bwd``
+    (flash_attention.py:543) wraps it: delta = rowsum(do·o) in fp32
     (:260), K/V repeated to the full heads for GQA and dk/dv summed back
     over the heads that share a KV head."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
+    if H % Hkv:
+        raise ValueError(f"flash_attention_bwd: {H} q heads are not a "
+                         f"multiple of {Hkv} kv heads")
     rep = H // Hkv
     if rep > 1:
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
     do = do.contiguous()
-    delta = (do.float() * o.float()).sum(-1)
-    dk, dv = dkv_fn(q, k, v, do, lse, delta, causal, scale)
-    dq = dq_fn(q, k, v, do, lse, delta, causal, scale)
+    delta = delta_fn(o, do)
+    dq, dk, dv = kernel_fn(q, k, v, do, lse, delta, causal, scale)
     if rep > 1:
         dk = dk.reshape(B, Hkv, rep, S, D).sum(2).to(dk.dtype)
         dv = dv.reshape(B, Hkv, rep, S, D).sum(2).to(dv.dtype)
@@ -257,22 +427,30 @@ def _bwd(q, k, v, o, lse, do, causal, scale, dkv_fn, dq_fn):
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None):
     """(dq, dk, dv) for [B, H, S, D] q, [B, Hkv, S, D] k/v, the forward's
-    o and lse, and the output cotangent do: the plain versions of both
-    kernels, every output in q's dtype."""
+    o and lse, and the output cotangent do: the plain versions of the
+    delta and the backward kernel, every output in q's dtype."""
     return _bwd(q, k, v, o, lse, do, causal, scale,
-                flash_attention_bwd_dkv_plain, flash_attention_bwd_dq_plain)
+                flash_attention_bwd_delta_plain,
+                flash_attention_bwd_kernel_plain)
+
+
+def flash_attention_bwd_tiles(q, k, v, o, lse, do, causal=False,
+                              scale=None):
+    """(dq, dk, dv) as flash_attention_bwd_plain, with the kernel's tile
+    order (flash_attention_bwd_kernel_tiles) in place of whole rows."""
+    return _bwd(q, k, v, o, lse, do, causal, scale,
+                flash_attention_bwd_delta_plain,
+                flash_attention_bwd_kernel_tiles)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
     """(dq, dk, dv) — see flash_attention_bwd_plain. A CPU tensor takes the
-    plain versions; a CUDA tensor launches both kernels or raises."""
+    plain versions; a CUDA tensor launches the delta kernel and the
+    backward kernel or raises."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
-    if q.shape[1] % k.shape[1]:
-        raise ValueError(f"flash_attention_bwd: {q.shape[1]} q heads are not "
-                         f"a multiple of {k.shape[1]} kv heads")
-    return _bwd(q, k, v, o, lse, do, causal, scale, flash_attention_bwd_dkv,
-                flash_attention_bwd_dq)
+    return _bwd(q, k, v, o, lse, do, causal, scale,
+                flash_attention_bwd_delta, flash_attention_bwd_kernel)
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
@@ -302,7 +480,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_fwd: {name} must be "
                              f"contiguous")
-    if D not in FWD_HEAD_DIMS:
+    if D not in HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention_fwd: the CUDA kernel takes head dim 64 or "
             f"128, got {D} ({ROADMAP_FLASH})")

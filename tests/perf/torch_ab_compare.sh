@@ -4,10 +4,13 @@
 # --profile) and the old tree again, so that drift of the card or the host
 # shows on both sides. Each run's output goes to chiprun_out/ab_*.log; a
 # summary is printed per run: the flash and matvec_stacked kernel lines
-# (with the variants a row carries: other_turns_us, fma_us), the train line,
-# the grad check, the serve lines' decode ms a step and the fast path's
-# t(4 new) and decode ms a step by batch; then tests/perf/torch_llama_t4.py
-# from each tree in turns, and the GPU unit tests of this tree.
+# (with the variants a row carries: other_turns_us, fma_us), the flash
+# backward lines (the old tree's two kernels, this tree's kernel, delta
+# and whole backward, beside SDPA's backward), the train line (the GPT-2
+# large step), the grad check, the serve lines' decode ms a step and the
+# fast path's t(4 new) and decode ms a step by batch; then
+# tests/perf/torch_llama_t4.py from each tree in turns, and the GPU unit
+# tests of this tree.
 #
 #   bash tests/perf/torch_ab_compare.sh OLD_TREE
 #
@@ -54,6 +57,14 @@ for line in open(name):
                   "t4_ms=%s decode_ms_per_step=%.3f"
                   % ("%.2f" % c["t4_ms"] if "t4_ms" in c else "n/a",
                      c["ms_per_decode_step"]))
+    if d.get("phase") == "flash_backward":
+        print(name, "flash_backward", d.get("path"), "S=%s D=%s" % (
+                  d.get("S"), d.get("D", 64)),
+              " ".join("%s=%.2f" % (k, d[k]) for k in (
+                  "kernels_us", "kernel_us", "delta_us",
+                  "delta_expression_us", "whole_backward_us", "bound_us",
+                  "sdpa_backward_us", "sdpa_backward_graph_us")
+                  if d.get(k) is not None))
     if d.get("phase") == "train":
         print(name, "train step_ms=%.2f mfu=%.4f peak=%.2f"
               % (d["step_ms"], d["mfu"], d["peak_memory_gb"]))

@@ -1,9 +1,11 @@
-"""Device times of the flash forward and matvec_stacked at the shapes of
-their kernel-table rows (PERF.md §6), beside their library calls, on one
-card: CUDA-graph replay as chip_smoke.py times them, random bf16 inputs
-from seed 0.
+"""Device times of the flash forward, the flash backward and
+matvec_stacked at the shapes of their kernel-table rows (PERF.md §6),
+beside their library calls, on one card: CUDA-graph replay as
+chip_smoke.py times them, random bf16 inputs from seed 0.
 
-    python3 tests/perf/torch_kernel_rows.py
+    python3 tests/perf/torch_kernel_rows.py [--bwd]
+
+(--bwd: the backward rows only.)
 
 Flash forward: GPT-2 prefill (B 1, 20 heads, S 1024, D 64), GPT-2
 training (B 8), a ZeRO-3 rank (B 2), LLaMA-7B prefill (32 heads, D 128),
@@ -11,6 +13,14 @@ the fast path's prompt pass (B 8, S 2048, D 128) and the long-S row (4
 heads, S 8192, D 64), all causal: the kernel (``us``; ``turns``: whether
 its warpgroups take turns), the other turn setting (``other_turns_us``),
 SDPA (``sdpa_us``).
+Flash backward: GPT-2 training (B 8, 20 heads, S 1024, D 64), a ZeRO-3
+rank (B 2), the long-S row (4 heads, S 8192), GPT-2 not causal (B 1) and
+LLaMA-7B's training attention (B 2, 32 heads, S 2048, D 128): the
+single-pass kernel (``us``), the delta kernel (``delta_us``), the eager
+delta expression it replaces (``delta_expression_us``), the whole
+backward (``whole_us``: delta + kernel, as a training step runs it), the
+bound of its 5 products and bytes, and SDPA's backward (``sdpa_us``:
+forward + backward in one graph, less the forward).
 matvec_stacked: LLaMA-7B's o-projection [8, 4096] . [32, 4096, 4096],
 bf16 and int8 codes: the TMA kernel (``us``), the CUDA-core kernel
 (``fma_us``) and, bf16, torch.matmul (``matmul_us``). One JSON line a
@@ -44,6 +54,50 @@ FLASH_ROWS = (("gpt2_prefill", 1, 20, 1024, 64, 36),
               ("llama7b_prefill", 1, 32, 1024, 128, 32),
               ("fast_path_prompt", 8, 32, 2048, 128, 8),
               ("long_s", 1, 4, 8192, 64, 8))
+# (name, B, H, S, D, causal, graph length)
+BWD_ROWS = (("gpt2_train", 8, 20, 1024, 64, True, 8),
+            ("zero3_rank", 2, 20, 1024, 64, True, 8),
+            ("long_s", 1, 4, 8192, 64, True, 4),
+            ("gpt2_not_causal", 1, 20, 1024, 64, False, 8),
+            ("llama7b_train", 2, 32, 2048, 128, True, 4))
+
+
+def bwd_rows(card, rnd):
+    """One JSON line a backward row (see the module's docstring)."""
+    for name, B, H, S, D, causal, n in BWD_ROWS:
+        q, k, v, do = (rnd(B, H, S, D) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        delta = fa.flash_attention_bwd_delta_plain(o, do)
+        args = (q, k, v, do, lse, delta, causal)
+        us = 1e3 * time_graph_ms(
+            lambda i: fa.flash_attention_bwd_kernel(*args), n=n)
+        delta_us = 1e3 * time_graph_ms(
+            lambda i: fa.flash_attention_bwd_delta(o, do), n=n)
+        expr_us = 1e3 * time_graph_ms(
+            lambda i: fa.flash_attention_bwd_delta_plain(o, do), n=n)
+        whole_us = 1e3 * time_graph_ms(
+            lambda i: fa.flash_attention_bwd(q, k, v, o, lse, do, causal),
+            n=n)
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=causal)
+        sdpa_us = 1e3 * (time_graph_ms(
+            lambda i: torch.autograd.grad(sdpa(), (qg, kg, vg), do), n=n)
+            - time_graph_ms(lambda i: sdpa(), n=n))
+        pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
+        b_ms, b_by = bound(8 * q.numel() + 2 * lse.numel() * 4
+                           + 6 * q.numel(), 5 * 2 * pairs * D)
+        print(json.dumps({"row": f"flash_attention_bwd {name}", "B": B,
+                          "H": H, "S": S, "D": D, "causal": causal,
+                          "us": us, "delta_us": delta_us,
+                          "delta_expression_us": expr_us,
+                          "whole_us": whole_us, "sdpa_us": sdpa_us,
+                          "bound_us": b_ms * 1e3, "bound_by": b_by,
+                          "pct_of_bound": 100 * b_ms * 1e3 / us,
+                          "card": card}), flush=True)
+        del q, k, v, do, o, lse, delta, qg, kg, vg
 
 
 def main():
@@ -59,6 +113,9 @@ def main():
         return torch.randn(*shape, generator=gen, device="cuda").to(
             torch.bfloat16)
 
+    bwd_rows(card, rnd)
+    if "--bwd" in sys.argv:
+        return
     for name, B, H, S, D, n in FLASH_ROWS:
         q, k, v = rnd(B, H, S, D), rnd(B, H, S, D), rnd(B, H, S, D)
 
