@@ -50,7 +50,10 @@ Phases, one JSON line each, each with its wall ``seconds``:
                kernels (ln_qkv_stacked, out_ffn_stacked and
                decode_attention_stacked over the int8 codes and cache with
                kv_quant_int8, and over the bf16 weights and a bf16 cache),
-               each held at B 1 and 8 and timed at its route's batch; then
+               each held at B 1 and 8 and timed at its route's batch, and
+               decode_pos_sweep: decode attention at pos 0, a page's edge,
+               every split boundary +-1 and the last key (stacked bf16
+               and int8 caches at B 1 and 8, paged pools); then
                generate()'s five cases timed as bench_decode times them
                (b1 fast route bf16 and int8/int8, b1 and b8 per-token
                route int8/int8, b8 bf16 weights with an int8 cache),
@@ -89,7 +92,9 @@ Phases, one JSON line each, each with its wall ``seconds``:
                element given element 0's K/V) beside SDPA,
                decode_attention_stacked over an int8 and a bf16 cache of
                8 rows at ctx 2048 (scales past the position NaN) and
-               kv_quant_int8 into the int8 cache; then b1 and b8 at ctx
+               kv_quant_int8 into the int8 cache, and decode_pos_sweep at
+               LLaMA-7B's widths (B 1, split 8 ways, and 8); then b1 and
+               b8 at ctx
                2048 (prompts of 1968 tokens) timed as bench.py's
                bench_llama_decode times them, decode tokens/s beside the
                floor, the last row of each batch teacher-forced, and a
@@ -519,6 +524,109 @@ def bit_equal_reruns(name, fn):
     return first
 
 
+def attn_plan(name, fn, q, capacity):
+    """What a decode attention row adds: the split plan its launch takes
+    at the card's SM count (``n_split`` blocks a (KV head, slot), one
+    cluster, of ``chunk`` keys each) and three reruns bit for bit (the
+    splits merge in a fixed order)."""
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    bit_equal_reruns(name, fn)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = dk.decode_split_plan(q.shape[0], q.shape[1], capacity, sms)
+    return {"n_split": plan.n_split, "chunk": plan.chunk,
+            "reruns_bit_equal": True}
+
+
+def pos_sweep(name, kernel, plain, q, capacity, key, nan_past=()):
+    """decode attention at pos 0, a page's last key and the next, every
+    split boundary +-1 of the launch's plan and the capacity's last key:
+    each held against its plain version at ``key``'s limit, finite where
+    ``nan_past`` (scale tensors) is NaN past pos, and rerun bit for bit.
+    ``kernel(pos)`` / ``plain(pos)`` take a one-element int32 tensor."""
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    from deepspeed_tpu_torch.ops.cuda import tolerance
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = dk.decode_split_plan(q.shape[0], q.shape[1], capacity, sms)
+    ps = {0, 15, 16, capacity - 1}
+    for s in range(1, plan.n_split):
+        ps |= {s * plan.chunk - 1, s * plan.chunk, s * plan.chunk + 1}
+    errs = []
+    for p_ in sorted(x for x in ps if 0 <= x < capacity):
+        keep = [t.clone() for t in nan_past]
+        for t in nan_past:
+            t[..., p_ + 1:] = float("nan")
+        pos = torch.tensor([p_], dtype=torch.int32, device=q.device)
+        got = kernel(pos)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: read past pos {p_}")
+        if not torch.equal(got, kernel(pos)):
+            raise AssertionError(f"{name}: a rerun differs at pos {p_}")
+        errs.append((p_, tolerance.check_kernel(key, got, plain(pos))))
+        for t, k in zip(nan_past, keep):
+            t.copy_(k)
+    return {"kernel": name, "limit": key, "n_split": plan.n_split,
+            "chunk": plan.chunk, "pos": [e[0] for e in errs],
+            "row_rel_err_max": max(e[1] for e in errs)}
+
+
+def random_cache(shape, int8, gen, dev):
+    """(k, v, scales) of a random cache [.., rows, D]: bf16 values, or
+    int8 codes with fp32 scales [.., 1, rows] as the kernels take them."""
+    if not int8:
+        return (*(torch.randn(shape, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(2)), {})
+    codes = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    sshape = shape[:-2] + (1, shape[-2])
+    return (*codes, {n: torch.rand(sshape, generator=gen, device=dev) * 0.01
+                     + 0.002 for n in ("k_scale", "v_scale")})
+
+
+def decode_pos_sweeps(dev, gen, label, H, R, D, Bs=(1, 8), L=GEN_CTX):
+    """The pos sweep of decode_attention_stacked over bf16 and int8 caches
+    (NaN scales past pos) at B in ``Bs``, and of decode_attention_paged
+    over a bf16 and an int8 pool of 8 slots (64 pages of 16, scattered;
+    slot b at pos + b), at one model's widths (``label``): one phase
+    line."""
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    rows = []
+    lid = torch.tensor(0, dtype=torch.int32, device=dev)
+    for B in Bs:
+        q = torch.randn(B, H, R, D, generator=gen, device=dev).to(
+            torch.bfloat16)
+        for int8 in (False, True):
+            kc, vc, kw = random_cache((1, B, H, L, D), int8, gen, dev)
+            key = "decode_attention_stacked" + ("[int8]" if int8 else "")
+            rows.append(dict(pos_sweep(
+                "decode_attention_stacked",
+                lambda pos: dk.decode_attention_stacked(q, kc, vc, pos, lid,
+                                                        **kw),
+                lambda pos: dk.decode_attention_stacked_plain(
+                    q, kc, vc, pos, 0, **kw), q, L, key,
+                tuple(kw.values())), B=B, cache="int8" if int8 else "bf16"))
+            del kc, vc, kw
+    B, page, maxp = 8, 16, 64
+    NB, cap = B * maxp + 1, maxp * page
+    pt = (torch.randperm(NB - 1, generator=gen, device=dev)[:B * maxp] + 1
+          ).reshape(B, maxp).to(torch.int32)
+    q = torch.randn(B, H, R, D, generator=gen, device=dev).to(torch.bfloat16)
+    step = torch.arange(B, dtype=torch.int32, device=dev)
+    for int8 in (False, True):
+        kc, vc, kw = random_cache((1, NB, H, page, D), int8, gen, dev)
+        rows.append(dict(pos_sweep(
+            "decode_attention_paged",
+            lambda pos: dk.decode_attention_paged(
+                q, kc, vc, (pos + step).clamp(max=cap - 1), pt, lid, **kw),
+            lambda pos: dk.decode_attention_paged_plain(
+                q, kc, vc, (pos + step).clamp(max=cap - 1), pt, 0, **kw),
+            q, cap, "decode_attention_paged" + ("[int8]" if int8 else "")),
+            B=B, pool="int8" if int8 else "bf16"))
+        del kc, vc, kw
+    emit({"phase": "decode_pos_sweep", "model": label, "H": H, "R": R,
+          "D": D, "L": L, "cases": rows})
+    torch.cuda.empty_cache()
+
+
 def flash_variants(q, k, v, causal, n):
     """What a flash forward row adds: three reruns bit for bit, and the
     kernel with the other setting of its warpgroups' turns (``PINGPONG``
@@ -720,7 +828,9 @@ def kernel_phase(eng, cfg, gen):
            plain_ms,
            bound(live * H * row_bytes * 2 + 2 * nbytes(q) + nbytes(pos)
                  + pages_read * 4, 4 * live * H * D), cases,
-           "each live slot's last page dropped (R=1)", limit=key["paged"])
+           "each live slot's last page dropped (R=1)", limit=key["paged"],
+           extra=attn_plan(key["paged"], lambda: dk.decode_attention_paged(
+               q, kc, vc, pos, pt, lids[LAYER], **sc), q, maxp * page))
 
     # -- out_ffn_stacked: three launches per call
     ctx, x = rnd(B, E), rnd(B, E)
@@ -1064,7 +1174,9 @@ def llama_kernel_phase(eng, cfg, gen):
            bound(live * Hkv * row_bytes * 2 + 2 * nbytes(q) + nbytes(pos)
                  + pages_read * 4, 4 * live * H * D), cases,
            "each live slot's last page dropped (R=1 and R=4)",
-           limit=key["paged"])
+           limit=key["paged"],
+           extra=attn_plan(key["paged"], lambda: dk.decode_attention_paged(
+               q, kc, vc, pos, pt, lids[1], **sc), q, maxp * page))
 
     if int8:
         # -- kv_quant_int8: the tick's new K/V rows (column slices of the
@@ -1718,9 +1830,15 @@ def bert_kernel_phase(gen):
         ms = time_graph_ms(lambda i, fn=fn: fn(), n=8, reps=5)
         call_ms = time_ms(fn, reps=5, inner=4)
         plain_ms = time_ms(plain, reps=3, inner=1, warmup=1)
+        extra = None
+        if name == "blocksparse_bwd_dkv":
+            # the work list the launch walks, and reruns bit for bit
+            extra = dict(tables.dkv_work().summary(), reruns_bit_equal=True)
+            bit_equal_reruns(name, fn)
         record(rows, name, "train_bert_sparse", replaces, checks[name], ms,
                call_ms, plain_ms, bound(nbytes_, flops), info, fault,
-               library_ms=lib, lse_err=lse_err if "fwd" in name else None)
+               library_ms=lib, lse_err=lse_err if "fwd" in name else None,
+               extra=extra)
     del args, o, lse, delta, mask
     torch.cuda.empty_cache()
     # bench_sparse_attention's comparison: the port's dense non-causal
@@ -2291,7 +2409,11 @@ def gpt2_generate_kernel_rows(p, p8, cfg, gen):
            "deepspeed_tpu/ops/pallas/decode.py:110", checks, ms, call_ms,
            plain_ms, att_bound(B, D + 4),
            [{"B": b, "H": H, "D": D, "L": GEN_CTX, "pos": pos_i}
-            for b in Bs], "the last 16 keys dropped (B 1 and 8)")
+            for b in Bs], "the last 16 keys dropped (B 1 and 8)",
+           extra=attn_plan("decode_attention_int8",
+                           lambda: dk.decode_attention_int8(
+                               q, kc[LAYER], ks[LAYER], vc[LAYER], vs[LAYER],
+                               pos), q, GEN_CTX))
 
     # -- kv_quant_int8 at head dim 64 as the per-token route runs it: into
     # one layer's cache (no layer index)
@@ -2420,7 +2542,11 @@ def gpt2_generate_kernel_rows(p, p8, cfg, gen):
                [{"B": b, "Hkv": H, "R": 1, "D": D, "L": GEN_CTX,
                  "pos": pos_i, "cache": weights} for b in Bs],
                "the last 16 keys dropped (B 1 and 8)", library_ms=lib_ms,
-               limit=key["attn"])
+               limit=key["attn"],
+               extra=attn_plan(key["attn"],
+                               lambda: dk.decode_attention_stacked(
+                                   q1, kk, vv, pos, lid_l, **kw), q1,
+                               GEN_CTX))
         if int8:
             st1 = (first[0], first[2]["k_scale"], first[1],
                    first[2]["v_scale"])
@@ -2435,6 +2561,7 @@ def gpt2_generate_kernel_rows(p, p8, cfg, gen):
     del kc, vc, ks, vs, k5, v5, kf, vf
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    decode_pos_sweeps(dev, gen, "gpt2_large", H, 1, D)
     return results
 
 
@@ -2700,7 +2827,9 @@ def generate_kernel_rows(eng, cfg, gen):
                                + 4, 4 * B * n * H * D),
                [{"B": B, "Hkv": Hkv, "R": H // Hkv, "D": D, "L": Lc,
                  "pos": pos_i, "cache": name}],
-               "the last 16 keys dropped", library_ms=lib_ms, limit=key)
+               "the last 16 keys dropped", library_ms=lib_ms, limit=key,
+               extra=attn_plan(key, lambda: dk.decode_attention_stacked(
+                   q, kc, vc, pos, lids[LAYER], **kw), q, Lc))
         if kw:
             qkv = (torch.randn(B, (H + 2 * Hkv) * D, generator=gen,
                                device=dev)).to(cfg.dtype)
@@ -2719,6 +2848,7 @@ def generate_kernel_rows(eng, cfg, gen):
         del kc, vc, kw
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    decode_pos_sweeps(dev, gen, "llama_7b", Hkv, H // Hkv, D, Bs=(1, B))
     return results
 
 

@@ -19,30 +19,51 @@
 // chip_smoke.py states counts each input once, which a kernel that
 // streams every active tile again cannot reach: the tiles come from L2.
 //
-// What the design does about it (simple and right first; speed is later
-// work):
+// What the design does about it (the forward and dq: simple and right
+// first; dk/dv: redesigned for Hopper):
 // - The TPU kernels' lane padding to 128, block-major copies, DMA
 //   semaphores and grouped-row union tables are Mosaic's constraints and
 //   are not carried over. A CUDA block reads its own row of the table.
-// - A block is 4 warps over 64 query rows (the dk/dv pass: 64 keys), each
-//   warp 16 rows held as mma.sync m16n8k16 A fragments in registers, as in
-//   flash_attention.cu. The warps that share a q-block row (a k-block
-//   column) form a group of WPR = min(block, 64) / 16 warps: at block 16
-//   each warp walks its own row's list, at block 32 pairs of warps, at 64
-//   and 128 all four. A group stages each [16 WPR, 64] K/V (Q/dO) tile of
-//   its active blocks in its own shared memory, synchronised by a named
-//   barrier of its own warps only, so groups of one block never wait for
-//   each other. A block of 128 is two tiles of 64; a q-block row of 128 is
-//   two thread blocks that walk the same list.
+// - Forward and dq: a block is 4 warps over 64 query rows, each warp 16
+//   rows held as mma.sync m16n8k16 A fragments in registers, as in
+//   flash_attention.cu. The warps that share a q-block row form a group
+//   of WPR = min(block, 64) / 16 warps: at block 16 each warp walks its
+//   own row's list, at block 32 pairs of warps, at 64 and 128 all four. A
+//   group stages each [16 WPR, 64] K/V tile of its active blocks in its
+//   own shared memory, synchronised by a named barrier of its own warps
+//   only. A block of 128 is two tiles of 64; a q-block row of 128 is two
+//   thread blocks that walk the same list.
+// - dk/dv (bs_dkv_tma_kernel): the transposed lists are badly unbalanced
+//   (DeepSpeed's Fixed layout at block 16: 64 of a head's 256 columns
+//   list all 256 q-blocks, the rest 4), and one warp a 16-key column left
+//   three of a block's four warps idle for 252 of 256 steps behind a
+//   chain of plain loads and barriers (4.9 % of the bound). So the host
+//   (ops/cuda/blocksparse.py DkvWork) cuts the work into 64-key tiles --
+//   up to 64 / block columns whose lists are the same (at block 16 four
+//   of the long columns), or half a column of 128 -- sorted longest first;
+//   a persistent grid of two blocks an SM walks that list. (Cutting the
+//   long tiles' lists into chunks whose fp32 partials are summed
+//   afterwards was measured slower at BERT-large's layer, at 1 and 4
+//   sequences: its longest tile is under a block's even share.) A
+//   producer warp gathers each 64-row q step (64 / block listed
+//   q-blocks, their lse and delta) box by box by TMA into a 4-stage
+//   ring, so loads run ahead of the products, and the tile's K and V
+//   into a 2-deep ring. One consumer warpgroup
+//   runs all four products on the tensor cores (wgmma m64n64k16, below):
+//   with 64 keys as M a Q/dO step is read once for four columns, not once
+//   a column.
 // - Every key of an active block is valid (S is a multiple of the block),
 //   so no element mask is needed: the online softmax of the forward and
-//   the p = exp(s - lse) of the backward run unmasked. A row with no
-//   active block gets o = 0 and lse = +1e30 (_bs_fwd_kernel :178-182), so
-//   the backward's exp(s - lse) would be 0; its loops run no step anyway.
-// - No atomics, deterministic: dq walks the rows' lists and dk/dv the
-//   columns' lists, as the Pallas backward splits them. dk/dv computes
-//   S^T = K.Q^T and dP^T = V.dO^T so that P^T and dS^T come out in the A
-//   layout of the next product, as flash_bwd_dkv_kernel does.
+//   the p = exp(s - lse) of the backward run unmasked (dk/dv masks only
+//   the q rows a short last step pads). A row with no active block gets
+//   o = 0 and lse = +1e30 (_bs_fwd_kernel :178-182), so the backward's
+//   exp(s - lse) is 0.
+// - No atomics on the outputs, deterministic: dq walks the rows' lists and
+//   dk/dv the columns' lists, as the Pallas backward splits them; one
+//   block computes a dk/dv tile whole, so a rerun is bit-equal. dk/dv
+//   computes S^T = K.Q^T and dP^T = V.dO^T so that P^T
+//   and dS^T come out in the A layout of the next product, as the flash
+//   backward does.
 // - o, dk and dv are written in fp32 (the Pallas outputs' type: backward's
 //   delta = rowsum(do * o) reads the unrounded o); dq in bf16.
 
@@ -51,6 +72,7 @@
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -337,68 +359,245 @@ __global__ void __launch_bounds__(NT) bs_dq_kernel(
   store_bf16(dq + base, dqf, at.row, at.t4, scale);
 }
 
-// dk, dv of 16 WPR keys over the q-blocks of their column's list
-template <int WPR>
-__global__ void __launch_bounds__(NT) bs_dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ counts_t, const int* __restrict__ rows_t,
-    int max_nnz_t, float* __restrict__ dk, float* __restrict__ dv, int TH,
-    int S, int block, float scale) {
-  constexpr int TQ = 16 * WPR, NJ = TQ / 8;
-  __shared__ __align__(16) bf16 qs[64 * SROW];
-  __shared__ __align__(16) bf16 dos[64 * SROW];
-  __shared__ float ls[64], dls[64];
-  const Place<WPR> at(TH);   // here: rows are keys, the line a column
-  if (at.grow >= S) return;
-  const int nb = S / block, c = at.grow / block;
-  const int nnz = counts_t[at.th * nb + c];
-  const int* list = rows_t + ((size_t)at.th * nb + c) * max_nnz_t;
-  const size_t base = (size_t)at.bh * S * HD;
-  const float* lp = lse + (size_t)at.bh * S;
-  const float* dlp = delta + (size_t)at.bh * S;
-  bf16* qt = qs + at.group * TQ * SROW;
-  bf16* dot = dos + at.group * TQ * SROW;
-  float* lt = ls + at.group * TQ;
-  float* dlt = dls + at.group * TQ;
+// ------------------------------------------------------ dk/dv (TMA, wgmma)
 
-  uint32_t kf[4][4], vf[4][4];
-  load_a_frags(kf, k + base, at.row, at.t4);
-  load_a_frags(vf, v + base, at.row, at.t4);
-  float dkf[8][4], dvf[8][4];
-  zero(dkf);
-  zero(dvf);
+constexpr int KT = 64;                      // keys a tile, q rows a step
+constexpr int TILE_BYTES = KT * 128;        // [64][64] bf16, 128B swizzle
+constexpr int DKV_NST = 4;                  // stages of the Q/dO ring
+constexpr int DKV_STAGE = 2 * TILE_BYTES + 1024;   // Q, dO, lse, delta
+constexpr int DKV_KVST = 2;                 // key tiles in flight
+constexpr int DKV_THREADS = 160;            // a consumer warpgroup + a warp
+constexpr int DKV_SMEM =
+    1024 + DKV_NST * DKV_STAGE + DKV_KVST * 2 * TILE_BYTES + 128;
+// a key tile (ops/cuda/blocksparse.py DkvWork): its table, key offset in
+// its column (block 128), columns (1 .. 64 / block, same q-block list),
+// the columns, the list's length
+constexpr int TILE_INTS = 8;
 
-  for (int j = 0; j < nnz; ++j) {
-    for (int q0 = list[j] * block, end = q0 + block; q0 < end; q0 += TQ) {
-      group_sync<WPR>(at.group);
-      load_tile<WPR>(qt, q + base, q0, at.gtid);
-      load_tile<WPR>(dot, dout + base, q0, at.gtid);
-      if (at.gtid < TQ) {
-        lt[at.gtid] = lp[q0 + at.gtid];
-        dlt[at.gtid] = dlp[q0 + at.gtid];
+struct DkvMaps {
+  CUtensorMap q, k, v, dout;   // [BH * S, 64] bf16, boxes [piece][64]
+};
+
+// One persistent block per SM pair walks the (tile, head) work list,
+// longest tiles first: a producer warp streams each tile's keys (K and V
+// of its columns, 64 keys) and its 64-row q steps (Q, dO, lse and delta
+// of the listed q-blocks, gathered box by box) by TMA into rings;
+// the consumer warpgroup computes S^T = K Q^T and dP^T = V dO^T (wgmma
+// m64n64k16, both operands K-major in shared memory), p^T = exp(scale
+// s - lse), dS^T = p^T (dP^T - delta), and dV += P^T dO, dK += dS^T Q
+// with P^T and dS^T rounded to bf16 as register A operands (dO and Q
+// MN-major as staged), then writes dk (times scale) and dv.
+__global__ void __launch_bounds__(DKV_THREADS) bs_dkv_tma_kernel(
+    const __grid_constant__ DkvMaps maps, const float* lse,
+    const float* delta, const int* __restrict__ rows_t,
+    const int* __restrict__ tiles, float* __restrict__ dk,
+    float* __restrict__ dv, int TH, int S, int block, int max_nnz_t,
+    int n_work, int rep, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* stages = smem;
+  unsigned char* kvs = smem + DKV_NST * DKV_STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(kvs + DKV_KVST * 2 *
+                                               TILE_BYTES);
+  uint64_t* empty = full + DKV_NST;
+  uint64_t* kv_full = empty + DKV_NST;
+  uint64_t* kv_empty = kv_full + DKV_KVST;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nb = S / block, piece = block < KT ? block : KT;
+  const int per = KT / piece;      // columns a tile, q-blocks a step
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DKV_NST; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 4);
+    }
+    for (int s = 0; s < DKV_KVST; ++s) {
+      sm90::mbar_init(&kv_full[s], 1);
+      sm90::mbar_init(&kv_empty[s], 4);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  // a tile's steps of 64 q rows: per q-blocks a step, or 2 a q-block
+  auto n_steps = [&](int nq) {
+    return block > KT ? 2 * nq : (nq + per - 1) / per;
+  };
+
+  if (warp == 4) {   // the producer warp: one lane issues
+    if (lane != 0) return;
+    sm90::tma_prefetch_map(&maps.q);
+    sm90::tma_prefetch_map(&maps.dout);
+    int it = 0, kvi = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+      const int* tile = tiles + (w / rep) * TILE_INTS;
+      const int th = tile[0], ncols = tile[2];
+      const int bh = (w % rep) * TH + th;
+      const int nq = tile[7], steps = n_steps(nq);
+      if (steps == 0) continue;
+      const int ks = kvi % DKV_KVST;
+      sm90::mbar_wait(&kv_empty[ks], ((kvi / DKV_KVST) & 1) ^ 1);
+      sm90::mbar_expect_tx(&kv_full[ks], 2 * TILE_BYTES);
+      unsigned char* kb = kvs + ks * 2 * TILE_BYTES;
+      for (int i = 0; i < per; ++i) {   // padding repeats the last column
+        const int col = tile[3 + (i < ncols ? i : ncols - 1)];
+        const int row = bh * S + col * block + tile[1];
+        sm90::tma_load_2d(kb + i * piece * 128, &maps.k, 0, row,
+                          &kv_full[ks]);
+        sm90::tma_load_2d(kb + TILE_BYTES + i * piece * 128, &maps.v, 0,
+                          row, &kv_full[ks]);
       }
-      group_sync<WPR>(at.group);
-
-      float pt[NJ][4], dst[NJ][4];     // P^T, dS^T: [16 keys x TQ queries]
-      mma_abt<NJ>(pt, kf, qt, at.lane);    // S^T = K.Q^T
-      mma_abt<NJ>(dst, vf, dot, at.lane);  // dP^T = V.dO^T
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = jj * 8 + 2 * at.t4 + (e & 1);
-          const float p = __expf(pt[jj][e] * scale - lt[col]);
-          pt[jj][e] = p;
-          dst[jj][e] = p * (dst[jj][e] - dlt[col]);
+      ++kvi;
+      const int* list = rows_t + ((size_t)th * nb + tile[3]) * max_nnz_t;
+      for (int s = 0; s < steps; ++s, ++it) {
+        const int st = it % DKV_NST;
+        sm90::mbar_wait(&empty[st], ((it / DKV_NST) & 1) ^ 1);
+        sm90::mbar_expect_tx(&full[st], 2 * TILE_BYTES + 2 * KT * 4);
+        unsigned char* qb = stages + st * DKV_STAGE;
+        float* lsd = reinterpret_cast<float*>(qb + 2 * TILE_BYTES);
+        for (int i = 0; i < per; ++i) {
+          int row;
+          if (block > KT) {
+            row = list[s / 2] * block + (s % 2) * KT;
+          } else {   // past the list: the first q-block again (masked)
+            const int qi = s * per + i;
+            row = list[qi < nq ? qi : 0] * block;
+          }
+          const int grow = bh * S + row;
+          sm90::tma_load_2d(qb + i * piece * 128, &maps.q, 0, grow,
+                            &full[st]);
+          sm90::tma_load_2d(qb + TILE_BYTES + i * piece * 128, &maps.dout,
+                            0, grow, &full[st]);
+          sm90::bulk_load(lsd + i * piece, lse + grow, piece * 4, &full[st]);
+          sm90::bulk_load(lsd + KT + i * piece, delta + grow, piece * 4,
+                          &full[st]);
         }
-      mma_xt<NJ>(dvf, pt, dot, at.lane);   // dV += P^T.dO
-      mma_xt<NJ>(dkf, dst, qt, at.lane);   // dK += dS^T.Q
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: warp w holds keys 16 w + g (+ 8) of the tile
+  const int g = lane / 4, t4 = lane % 4;
+  float dka[32], dva[32], sacc[32], dpa[32];
+  uint32_t pf[4][4], df[4][4];
+  int it = 0, kvi = 0;
+  for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+    const int* tile = tiles + (w / rep) * TILE_INTS;
+    const int th = tile[0], ncols = tile[2];
+    const int bh = (w % rep) * TH + th;
+    const int nq = tile[7], steps = n_steps(nq);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) dka[x] = dva[x] = 0.f;
+    if (steps > 0) {
+      const int ks = kvi % DKV_KVST;
+      const unsigned char* kb = kvs + ks * 2 * TILE_BYTES;
+      const unsigned char* vb = kb + TILE_BYTES;
+      sm90::mbar_wait(&kv_full[ks], (kvi / DKV_KVST) & 1);
+      for (int s = 0; s < steps; ++s, ++it) {
+        const int st = it % DKV_NST;
+        const unsigned char* qb = stages + st * DKV_STAGE;
+        const unsigned char* dob = qb + TILE_BYTES;
+        const float* lsd = reinterpret_cast<const float*>(qb + 2 * TILE_BYTES);
+        // q rows of this step that belong to the tile's list
+        const int valid =
+            block > KT ? KT : min(per, nq - s * per) * piece;
+        sm90::mbar_wait(&full[st], (it / DKV_NST) & 1);
+        sm90::fence_regs(sacc);
+        sm90::fence_regs(dpa);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          sm90::wgmma_ss<64, 0, 0>(sacc, sm90::wgmma_desc(kb + kk * 32, 16,
+                                                          1024),
+                                   sm90::wgmma_desc(qb + kk * 32, 16, 1024),
+                                   kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          sm90::wgmma_ss<64, 0, 0>(dpa, sm90::wgmma_desc(vb + kk * 32, 16,
+                                                         1024),
+                                   sm90::wgmma_desc(dob + kk * 32, 16, 1024),
+                                   kk > 0);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sacc);
+        sm90::fence_regs(dpa);
+        // p^T and dS^T: rows keys, columns q (8 j + 2 t4 + e)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * t4;
+          const float2 ls = *reinterpret_cast<const float2*>(lsd + col);
+          const float2 dl = *reinterpret_cast<const float2*>(lsd + KT + col);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int x = 4 * j + 2 * h + e;
+              const float p = col + e < valid
+                                  ? __expf(sacc[x] * scale - (e ? ls.y : ls.x))
+                                  : 0.f;
+              sacc[x] = p;
+              dpa[x] = p * (dpa[x] - (e ? dl.y : dl.x));
+            }
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            pf[kk][x] =
+                pack_f32(sacc[8 * kk + 2 * x], sacc[8 * kk + 2 * x + 1]);
+            df[kk][x] =
+                pack_f32(dpa[8 * kk + 2 * x], dpa[8 * kk + 2 * x + 1]);
+          }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          sm90::fence_regs(pf[kk]);
+          sm90::fence_regs(df[kk]);
+        }
+        sm90::fence_regs(dka);
+        sm90::fence_regs(dva);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          sm90::wgmma_rs<64, 1>(dva, pf[kk],
+                                sm90::wgmma_desc(dob + kk * 2048, 8192, 1024),
+                                1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          sm90::wgmma_rs<64, 1>(dka, df[kk],
+                                sm90::wgmma_desc(qb + kk * 2048, 8192, 1024),
+                                1);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dka);
+        sm90::fence_regs(dva);
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&empty[st]);
+      }
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&kv_empty[ks]);
+      ++kvi;
+    }
+
+    // the tile's keys: slot kr -> column kr / piece, row kr % piece
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kr = 16 * warp + g + 8 * h;
+      const int ci = kr / piece;
+      if (ci >= ncols) continue;
+      const size_t key =
+          (size_t)bh * S + tile[3 + ci] * block + tile[1] + kr % piece;
+      float* dkr = dk + key * 64 + 2 * t4;
+      float* dvr = dv + key * 64 + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<float2*>(dkr + 8 * j) =
+            make_float2(dka[4 * j + 2 * h] * scale,
+                        dka[4 * j + 2 * h + 1] * scale);
+        *reinterpret_cast<float2*>(dvr + 8 * j) =
+            make_float2(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
+      }
     }
   }
-  store_f32(dk + base, dkf, at.row, at.t4, scale, scale);
-  store_f32(dv + base, dvf, at.row, at.t4, 1.f, 1.f);
 }
 
 // warps a q-block row (k-block column) shares: 1, 2 or 4; 0 for a block
@@ -463,28 +662,41 @@ extern "C" int dstpu_bs_bwd_dq(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// counts_t, rows_t: the tables of the transposed layout; dk, dv fp32
-// [BH, S, 64]
+// rows_t: the transposed layout's q-block lists [TH, S / block,
+// max_nnz_t]; tiles int32 [n_tiles, 8] the work list in walk order
+// (ops/cuda/blocksparse.py DkvWork), walked for each of the BH / TH heads
+// of a table; dk, dv fp32 [BH, S, 64]
 extern "C" int dstpu_bs_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
-                                const void* delta, const void* counts_t,
-                                const void* rows_t, void* dk, void* dv,
+                                const void* delta, const void* rows_t,
+                                const void* tiles, void* dk, void* dv,
                                 int BH, int TH, int S, int block,
-                                int max_nnz_t, float scale, void* stream) {
-  const dim3 grid((S + 63) / 64, BH);
-  cudaStream_t st = (cudaStream_t)stream;
-#define BS_DKV(W)                                                            \
-  bs_dkv_kernel<W><<<grid, NT, 0, st>>>(                                     \
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,     \
-      (const float*)lse, (const float*)delta, (const int*)counts_t,          \
-      (const int*)rows_t, max_nnz_t, (float*)dk, (float*)dv, TH, S, block,   \
-      scale)
-  switch (group_warps(block)) {
-    case 1: BS_DKV(1); break;
-    case 2: BS_DKV(2); break;
-    case 4: BS_DKV(4); break;
-    default: return (int)cudaErrorInvalidValue;
+                                int max_nnz_t, int n_tiles, float scale,
+                                void* stream) {
+  if (group_warps(block) == 0 || TH <= 0 || BH % TH || S % block)
+    return (int)cudaErrorInvalidValue;
+  const int rep = BH / TH, n_work = n_tiles * rep;
+  if (n_work == 0) return (int)cudaSuccess;
+  DkvMaps maps;
+  const int rows = BH * S, box = block < KT ? block : KT;
+  cudaError_t e = sm90::encode_2d(&maps.q, q, rows, 64, box);
+  if (e == cudaSuccess) e = sm90::encode_2d(&maps.k, k, rows, 64, box);
+  if (e == cudaSuccess) e = sm90::encode_2d(&maps.v, v, rows, 64, box);
+  if (e == cudaSuccess) e = sm90::encode_2d(&maps.dout, dout, rows, 64, box);
+  if (e != cudaSuccess) return (int)e;
+  static bool allowed = false;     // one attribute call a process
+  if (!allowed) {
+    e = cudaFuncSetAttribute(bs_dkv_tma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DKV_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    allowed = true;
   }
-#undef BS_DKV
+  const int slots = 2 * sm90::sm_count();    // two blocks an SM
+  const int grid = n_work < slots ? n_work : slots;
+  bs_dkv_tma_kernel<<<grid, DKV_THREADS, DKV_SMEM, (cudaStream_t)stream>>>(
+      maps, (const float*)lse, (const float*)delta, (const int*)rows_t,
+      (const int*)tiles, (float*)dk, (float*)dv, TH, S, block, max_nnz_t,
+      n_work, rep, scale);
   return (int)cudaGetLastError();
 }

@@ -64,18 +64,55 @@
 // - The layer index (a one-element device int32) and the per-layer
 //   scales are read on the device, so a layer loop never syncs to the
 //   host.
-// - Paged attention: one block per (KV head, slot), reading page_table
-//   itself (there is no scalar prefetch). Its 8 warps split the slot's
-//   live keys in 16-key groups, each warp with its own fp32 online
-//   softmax, holding the next group's K/V in registers while it computes
-//   the current one (no shared-memory staging, no block barrier in the
-//   loop); the block merges the 8 states at the end. Head dim D is a
-//   template parameter: D/32 lanes own a key for the score (32 dims
-//   each), a lane owns D/32 dims of P.V, and a group holds 1024/D keys
-//   (16 at D 64, 8 at D 128), so a warp's K/V registers do not grow with
-//   D. GQA: the R query rows of a KV head share its stream. Splitting
-//   one slot over several blocks ("flash-decoding") is later work: a
-//   long slot still runs on one SM.
+// - Decode attention (paged pool, layer-stacked cache, one layer's int8
+//   cache) is a stream of the live K/V rows: 4 flops a byte at R = 1, so
+//   it is bound by bytes, and by how many are in flight. One block a
+//   (KV head, slot) put 20 blocks on the 132 SMs at GPT-2's b1, each
+//   streaming 2035 keys alone ("flash-decoding" fixes that): the grid is
+//   (KV head, slot, split), the wrapper picking the split count from B,
+//   H, the capacity and the SM count (never from pos, a device scalar:
+//   the loop never syncs to the host and replays as a CUDA graph) so
+//   that at least ~2 blocks an SM stream. A split past pos + max_step
+//   reads nothing; a slot's splits are one thread-block cluster (at most
+//   8, the portable size) and merge in split order through distributed
+//   shared memory, so a rerun is bit for bit the same. (A first version
+//   wrote the splits' states to global memory and merged them in the
+//   last block to arrive, found by a counter: at GPT-2's b1 that fence,
+//   atomic and round trip cost ~4.5 us of a ~13 us call.)
+//   Inside a block a producer warp fills a ring of 64-key stages by
+//   1-D bulk copies (cp.async.bulk) completing on mbarriers: a 16-key
+//   group lies inside one page, so its K rows, V rows and (int8) scales
+//   are one contiguous copy each (a stacked slot's stage: one copy each;
+//   a paged stage: one lane a group, the page table read 32 entries at a
+//   time ahead of the copies). Little's law: 3.35 TB/s x ~1 us of
+//   loaded latency is ~3.4 MB in flight on the card, ~25 KiB an SM; a
+//   block keeps up to its whole ring in flight (bf16 D 128: 2 or, one
+//   query row, 3 stages of 32 KiB, 3 or 2 blocks an SM, 192 KiB; bf16 D
+//   64 and int8 D 128: 4 of ~16 KiB, 3 blocks, ~200 KiB; int8 D 64: 4 of
+//   8.5 KiB), so the splits, not the ring, limit what is in flight at
+//   small B*H.
+//   Eight consumer warps, in sets that take the stages in turn (two sets
+//   of four on 16-key groups, so that a long split has twice the groups
+//   in computation that a 4-group stage gives; one set on 8-key groups),
+//   take one group each a stage, each with its own fp32 online softmax.
+//   GQA / multi-query rows run on the tensor cores: S^T [16 keys, 8
+//   rows] = K q^T by mma.sync m16n8k16 (the R <= 8 rows padded to N 8, D
+//   as K; int8 codes widened exactly to bf16 in registers and the key's
+//   scale applied to the score), then O^T [D, 8] += V^T P^T
+//   with P^T moved into the B layout by movmatrix. The operands are read
+//   from shared memory as 16-byte runs in an order both sides of a
+//   product share (kdim_base, vdim): the bulk copies cannot pad rows, and
+//   this keeps bank conflicts at 2-4 ways. p (times the V scale) is
+//   rounded to bf16 before the V product and summed unrounded, and row r
+//   masks keys past pos + r / rows_per_step, as in the Pallas kernels.
+//   One query row a KV head (MHA: GPT-2, LLaMA-7B) wastes 7/8 of the
+//   mma's N, so it takes the CUDA cores instead (2 or 4 lanes a key for
+//   the score, a lane's D / 32 head dims for P.V), in the arithmetic and
+//   order of the one-block-a-(head, slot) kernel this replaced: a slot
+//   of one split gives that kernel's bits. (The tensor-core path, as
+//   accurate against fp64 on random data, moved the LLaMA-7B int8
+//   serve's teacher-forced tokens onto another trajectory whose largest
+//   gap, 3.29 bf16 units, broke chip_smoke's 3-unit check.)
 // - int8 weight codes (LLaMA's quantized serving): a 128-byte line of an
 //   int8 row holds 128 columns, so the int8 matvec's column tile is 128
 //   and 16 lanes read a line, 8 bytes (8 columns) each: every load still
@@ -104,16 +141,9 @@
 //   with N not a multiple of 16) take the CUDA-core kernel
 //   (matvec_stacked_fma). ln_qkv, out_ffn and matvec_int8 keep the
 //   CUDA-core loop, whose prologues and epilogues they need.
-// - The int8 KV cache: at head dim 128 a key row is 128 bytes, so 2 lanes
-//   own a key (64 dims each, the same four 16-byte loads as bf16's 32) and
-//   a group holds 16 keys; a lane's 4 dims of a V row are one 32-bit word.
-//   At head dim 64 a key row is 64 bytes: 2 lanes still own a key (32 dims,
-//   two 16-byte loads), so a group keeps 16 keys and a page of 16 rows
-//   holds whole groups; a lane's 2 dims of a V row are a 16-bit load.
-//   The lane that owns a key also reads its two fp32 scales. The order of
-//   operations is the Pallas kernel's (decode.py:964-991): s = q.k * scale
-//   * ks[row], the softmax sum takes the unscaled p, P.V takes
-//   bf16(p * vs[row]).
+// - The int8 KV cache: the order of operations is the Pallas kernel's
+//   (decode.py:964-991): s = q.k * scale * ks[row], the softmax sum takes
+//   the unscaled p, P.V takes bf16(p * vs[row]).
 // - The contiguous layer-stacked cache [Lyr, B, H, L, D] of the dense fast
 //   path shares the paged kernel's body through its addressing: with no
 //   page table, slot b's keys are one "page" of L rows in block b, and one
@@ -913,296 +943,623 @@ cudaError_t matvec_tma(const void* x, const void* w, const float* s,
 
 // ------------------------------------------------------- decode attention
 
-constexpr int kAttnWarps = 8;
-constexpr int kAttnThreads = kAttnWarps * 32;
-constexpr int kMaxRows = 8;   // R, query rows per KV head
+constexpr int kAttnRows = 8;    // R <= 8 query rows a KV head: the mma's N
+constexpr int kAttnWarps = 8;   // consumer warps; one producer warp more
+constexpr int kAttnThreads = (kAttnWarps + 1) * 32;
+constexpr int kGroup = 16;      // keys a warp takes at a time: the mma's M
+constexpr int kStageGroups = 4; // 16-key groups (page pieces) a stage holds
+constexpr int kStageKeys = kStageGroups * kGroup;
+constexpr int kMaxSplits = 8;   // a slot's splits: one portable cluster
 
-// One group of a slot's K/V rows, as one warp holds it, for head dim D and
-// a bf16 (Q8 false) or int8 (Q8 true) cache: kLanes lanes own a key,
-// kKDims dims each (32 bf16 values, or 64 int8 at D 128 and 32 at D 64:
-// kKLoads 16-byte loads), so a group has 32/kLanes keys; lane i has
-// K[key0 + i/kLanes][kKDims*(i%kLanes) .. +kKDims) and V[key0 + j][i*D/32
-// .. +D/32) for every key j of the group (kVBytes bytes: one or two 32-bit
-// words, or at D 64 int8 a 16-bit half in the low bits of one) and, int8,
-// the two scales of key key0 + i/kLanes.
-template <bool Q8>
-struct KVScales {};
-template <>
-struct KVScales<true> {
-  float ks, vs;
-};
-
-template <int D, bool Q8>
-struct KVGroup : KVScales<Q8> {
+// A stage of the K/V ring for head dim D and a bf16 (Q8 false) or int8
+// cache: the K rows of its four 16-key groups, then their V rows, then
+// (int8) their 16 K scales and 16 V scales each. A group lies inside one
+// page (pages are multiples of 16 rows), so each part of it is one
+// contiguous run that one bulk copy fetches.
+template <int D, bool Q8, bool FMA>
+struct AttnCfg {
   static_assert(D == 64 || D == 128, "head dim 64 or 128");
   using T = typename std::conditional<Q8, int8_t, bf16>::type;
-  static constexpr int kKDims = Q8 && D == 128 ? 64 : 32;
-  static constexpr int kKLoads = kKDims * (int)sizeof(T) / 16;
-  static constexpr int kLanes = D / kKDims;
-  static constexpr int kKeys = 32 / kLanes;
-  static constexpr int kVBytes = D / 32 * (int)sizeof(T);
-  static constexpr int kVWords = kVBytes < 4 ? 1 : kVBytes / 4;
-  uint4 k[kKLoads];
-  uint32_t v[kKeys][kVWords];
+  static constexpr int ROW = D * (int)sizeof(T);
+  static constexpr int GROUP = kGroup * ROW;        // K (or V) of a group
+  static constexpr int SCALES = Q8 ? kGroup * 4 : 0;
+  static constexpr int GROUP_BYTES = 2 * GROUP + 2 * SCALES;
+  static constexpr int STAGE = kStageGroups * GROUP_BYTES;
+  // the keys a consumer warp takes at a time: 16 (the mma's M), or on
+  // the CUDA-core path (one query row) 32 / LANES, LANES lanes a key with
+  // KDIMS head dims each; a stage's GPS groups go to one set of GPS warps
+  // and the SETS sets take the stages in turn
+  static constexpr int KDIMS = Q8 && D == 128 ? 64 : 32;
+  static constexpr int LANES = D / KDIMS;
+  static constexpr int GK = FMA ? 32 / LANES : kGroup;
+  static constexpr int GPS = kStageKeys / GK;
+  static constexpr int SETS = kAttnWarps / GPS;
+  // with two sets an even count: each set then keeps to its own slots.
+  // (With an odd one a set's slot follows the other set's use of it, and
+  // a parity wait cannot tell whether that use's stage or its own has
+  // landed: one took the wrong stage, a double wait deadlocked.)
+  static constexpr int NST =
+      STAGE > 16 * 1024 + 1024 ? (SETS == 1 ? 3 : 2) : 4;
+  static_assert(NST % SETS == 0, "each slot serves one warp set");
+  static constexpr int RING = NST * STAGE;
+  // the block's merge reuses the ring: (m, l, acc[8][D]) of each warp
+  static_assert((kAttnWarps * kAttnRows * (D + 2) + 2 * kAttnRows +
+                 kAttnRows * D) * 4 <= RING,
+                "the warps' merge area and the block's state");
+  static constexpr int SMEM = RING + 2 * NST * 8 + 16;
+  static constexpr int KS = D / 16;    // k16 steps of a score, m16 tiles of P.V
+  // 32-bit words of V a thread reads of each of its 4 keys: D/8 dims
+  static constexpr int VW = Q8 ? D / 32 : D / 16;
 };
 
-// the group whose first key is row ``row`` of the [.., rows, D] cache
+// The first of the four head dims that a thread's A and B fragments take
+// at k16 step s of the score S^T = K q^T (lane l: t4 = l % 4). A score
+// sums over the dims, so the k16 steps may visit them in any order the
+// two operands share: thread (g, t4) reads 16-byte pieces t4, t4 + 4, ...
+// of its two K rows, which puts a quarter-warp's loads on two rows only
+// (at most a 2-way bank conflict, none at int8 head dim 64), and each
+// piece feeds 2 (bf16) or 4 (int8) steps: a0/a1 take dims base, base + 1
+// and a2/a3 base + 2, base + 3 of rows g and g + 8.
 template <int D, bool Q8>
-__device__ __forceinline__ void load_group(
-    KVGroup<D, Q8>& g, const typename KVGroup<D, Q8>::T* __restrict__ kc,
-    const typename KVGroup<D, Q8>::T* __restrict__ vc,
-    const float* __restrict__ ks, const float* __restrict__ vs, size_t row,
-    int lane) {
-  using G = KVGroup<D, Q8>;
-  constexpr int kRowWords = D * (int)sizeof(typename G::T) / 4;
-  const uint4* kr = reinterpret_cast<const uint4*>(
-      kc + (row + lane / G::kLanes) * D + (lane % G::kLanes) * G::kKDims);
-#pragma unroll
-  for (int i = 0; i < G::kKLoads; ++i) g.k[i] = __ldg(kr + i);
-  if constexpr (G::kVBytes == 2) {
-    const unsigned short* vh =
-        reinterpret_cast<const unsigned short*>(vc + row * D) + lane;
-#pragma unroll
-    for (int j = 0; j < G::kKeys; ++j) g.v[j][0] = __ldg(vh + j * (D / 2));
-  } else {
-    const uint32_t* vr =
-        reinterpret_cast<const uint32_t*>(vc + row * D) + lane * G::kVWords;
-#pragma unroll
-    for (int j = 0; j < G::kKeys; ++j) {
-      if constexpr (G::kVWords == 2) {
-        const uint2 t =
-            __ldg(reinterpret_cast<const uint2*>(vr + j * kRowWords));
-        g.v[j][0] = t.x;
-        g.v[j][1] = t.y;
-      } else {
-        g.v[j][0] = __ldg(vr + j * kRowWords);
-      }
-    }
-  }
-  if constexpr (Q8) {
-    g.ks = __ldg(ks + row + lane / G::kLanes);
-    g.vs = __ldg(vs + row + lane / G::kLanes);
-  }
+__device__ __forceinline__ int kdim_base(int s, int t4) {
+  if constexpr (Q8) return 16 * (t4 + 4 * (s / 4)) + 4 * (s % 4);
+  return 8 * (t4 + 4 * (s / 2)) + 4 * (s % 2);
 }
 
-// One block per (KV head, slot). Each warp walks the slot's live keys in
-// groups (g = warp, warp + 8, ...) with its own fp32 online softmax for
-// the R rows, loading the next group while it computes this one; the
-// block then merges the 8 partial (max, sum, acc) states.
+// The head dim of value t (0 .. D/8 - 1) of the D/8 that thread g owns in
+// P.V (O^T = V^T P^T, head dims as M): m16 tile j holds dims dim(2j) in
+// row g and dim(2j + 1) in row g + 8, so a thread reads each of its keys'
+// V values as one contiguous run (8 bf16 or 16 int8 at a time)
+template <int D, bool Q8>
+__device__ __forceinline__ int vdim(int g, int t) {
+  if constexpr (Q8) return (D / 8) * g + t;
+  return 64 * (t / 8) + 8 * g + t % 8;
+}
+
+__device__ __forceinline__ void mma_m16n8k16(float c[4], const uint32_t a[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the 8 x 8 b16 matrix a warp holds in the mma accumulator layout (lane l:
+// row l / 4, columns 2 (l % 4), + 1), transposed in the same layout
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One block per (KV head, slot, split of the keys): the split's keys
+// [split * chunk, ..) up to pos + max_step stream through a ring of
+// 64-key stages, filled by bulk copies from a producer warp; consumer warp
+// w takes the split's 16-key groups w, w + 8, ... (group w % 4 of every
+// other stage) with its own fp32 online softmax for the R rows on the
+// tensor cores. The warps' states merge in warp order; a slot's only live
+// split writes the output. Otherwise the slot's splits are one thread-
+// block cluster (grid z, at most 8): each leaves its (m, l, acc) in its
+// shared memory, and after a cluster barrier block z merges output
+// elements z, z + n_split, ... over the live splits' states in split
+// order, read through distributed shared memory (no workspace, no
+// atomics: a rerun is bit for bit the same).
 // Addressing: row ((l*NB + blk)*H + h)*page + key % page of the cache,
 // blk = pt[b][key / page] (the paged pool), or with no page table blk = b
 // and page = the cache length (the layer-stacked cache [Lyr, B, H, L, D]).
 // Slot b's position is pos_arr[b * pos_stride].
-template <int D, bool Q8>
+template <int D, bool Q8, bool FMA>
 __global__ void __launch_bounds__(kAttnThreads) decode_attn_kernel(
-    const bf16* __restrict__ q, const typename KVGroup<D, Q8>::T* __restrict__ kc,
-    const typename KVGroup<D, Q8>::T* __restrict__ vc,
-    const float* __restrict__ ks, const float* __restrict__ vs,
-    const int* __restrict__ pos_arr, int pos_stride,
+    const bf16* __restrict__ q, const typename AttnCfg<D, Q8, FMA>::T* kc,
+    const typename AttnCfg<D, Q8, FMA>::T* vc, const float* ks,
+    const float* vs, const int* __restrict__ pos_arr, int pos_stride,
     const int* __restrict__ pt, const int* __restrict__ layer_ptr,
     bf16* __restrict__ out, int H, int R, int NB, int page, int maxp,
-    int rows_per_step, float scale) {
-  using G = KVGroup<D, Q8>;
-  constexpr int kLanes = G::kLanes, kKeys = G::kKeys, kKDims = G::kKDims;
-  constexpr int kDims = D / 32;   // P.V dims a lane owns
-  __shared__ __align__(16) float qs[kMaxRows][D];
-  __shared__ float part_m[kAttnWarps][kMaxRows];
-  __shared__ float part_l[kAttnWarps][kMaxRows];
-  __shared__ float part_acc[kAttnWarps][kMaxRows][D];
-  const int h = blockIdx.x, b = blockIdx.y;
+    int rows_per_step, int chunk, float scale) {
+  using C = AttnCfg<D, Q8, FMA>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::RING);
+  uint64_t* empty = full + C::NST;
+  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int n_split = gridDim.z;
+  const int bh = b * H + h;
   const int pos = pos_arr[b * pos_stride];
   const int npair = R * D;
-  bf16* ob = out + (size_t)(b * H + h) * npair;
+  bf16* ob = out + (size_t)bh * npair;
 
   // idle slot: zeros, and no page is touched (decode.py:959-961 — even a
-  // multi-query window must not pull page 0 in)
+  // multi-query window must not pull page 0 in); every block of the
+  // cluster leaves here alike
   if (pos < 0) {
-    for (int i = threadIdx.x; i < npair; i += kAttnThreads)
-      ob[i] = __float2bfloat16(0.f);
+    if (split == 0)
+      for (int i = threadIdx.x; i < npair; i += kAttnThreads)
+        ob[i] = __float2bfloat16(0.f);
     return;
   }
-  const int l = layer_ptr ? *layer_ptr : 0;
   // keys past pos + max_step are masked for every row, as are pages past
-  // the table: the Pallas grid visits page p iff p*page <= pos + max_step
+  // the table: the Pallas grid visits page p iff p*page <= pos + max_step.
+  // A split that starts past them reads nothing; with one live split the
+  // others leave at once (the cluster takes no barrier then)
   const int max_step = rows_per_step > 0 ? R / rows_per_step - 1 : 0;
   const int n_keys = min(pos + max_step + 1, maxp * page);
-  const int n_groups = (n_keys + kKeys - 1) / kKeys;
-
-  const bf16* qb = q + (size_t)(b * H + h) * npair;
-  for (int i = threadIdx.x; i < npair; i += kAttnThreads)
-    qs[i / D][i % D] = __bfloat162float(qb[i]);
-  __syncthreads();
-
+  const int n_live = (n_keys + chunk - 1) / chunk;
+  if (n_live == 1 && split > 0) return;
+  // this block's (m[8], l[8], acc[R * D]) for the cluster's merge, past
+  // the warps' merge area in the (then idle) ring
+  float* res = reinterpret_cast<float*>(smem) + kAttnWarps * kAttnRows *
+                                                    (D + 2);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int sub = lane % kLanes;
-  const int* ptb = pt ? pt + (size_t)b * maxp : nullptr;
-  auto group_row = [&](int g) {
-    const int key0 = g * kKeys, p = key0 / page;   // page % 16 == 0
-    const int blk = ptb ? ptb[p] : b;
-    return ((size_t)(l * NB + blk) * H + h) * page + (key0 - p * page);
-  };
+  if (split < n_live) {
+    const int k0 = split * chunk, k1 = min(k0 + chunk, n_keys);
+    const int n_stages = (k1 - k0 + kStageKeys - 1) / kStageKeys;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < C::NST; ++s) {
+        sm90::mbar_init(&full[s], 1);        // the producer's expect_tx
+        sm90::mbar_init(&empty[s], C::GPS);  // its consumers' lane 0
+      }
+      sm90::mbar_fence_init();
+    }
+    __syncthreads();
 
-  float m[kMaxRows], lsum[kMaxRows], acc[kMaxRows][kDims];
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    m[r] = -1e30f;
-    lsum[r] = 0.f;
-#pragma unroll
-    for (int d = 0; d < kDims; ++d) acc[r][d] = 0.f;
-  }
-  G cur, nxt;
-  int g = warp;
-  if (g < n_groups) load_group<D, Q8>(cur, kc, vc, ks, vs, group_row(g), lane);
-  for (; g < n_groups; g += kAttnWarps) {
-    if (g + kAttnWarps < n_groups)
-      load_group<D, Q8>(nxt, kc, vc, ks, vs, group_row(g + kAttnWarps), lane);
-    const int key = g * kKeys + lane / kLanes;
-    // bf16: the lane's 32 dims of K as floats, each row's q.k taken in
-    // the row loop; int8: 64 or 32 dims, so each row's partial q.k is
-    // taken here, 16 dims a load, to keep the converted K out of registers
-    float kf[Q8 ? 1 : kKDims], dq[Q8 ? kMaxRows : 1];
-    if constexpr (Q8) {
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) dq[r] = 0.f;
-#pragma unroll
-      for (int i = 0; i < G::kKLoads; ++i) {
-        float kc[16];
-        unpack4_i8(cur.k[i].x, kc);
-        unpack4_i8(cur.k[i].y, kc + 4);
-        unpack4_i8(cur.k[i].z, kc + 8);
-        unpack4_i8(cur.k[i].w, kc + 12);
-#pragma unroll
-        for (int r = 0; r < kMaxRows; ++r) {
-          if (r < R) {
-            const float4* qr = reinterpret_cast<const float4*>(
-                &qs[r][sub * kKDims + i * 16]);
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const float4 qv = qr[c];
-              dq[r] = fmaf(qv.x, kc[4 * c], dq[r]);
-              dq[r] = fmaf(qv.y, kc[4 * c + 1], dq[r]);
-              dq[r] = fmaf(qv.z, kc[4 * c + 2], dq[r]);
-              dq[r] = fmaf(qv.w, kc[4 * c + 3], dq[r]);
-            }
+    if (warp == kAttnWarps) {   // the producer warp
+      const int l = layer_ptr ? *layer_ptr : 0;
+      const int* ptb = pt ? pt + (size_t)b * maxp : nullptr;
+      // the page table 32 entries at a time, one a lane, read ahead of
+      // the copies that need them (a dependent load a page would
+      // serialise the stream)
+      int pbase = -32, tab = 0;
+      for (int t = 0; t < n_stages; ++t) {
+        const int s = t % C::NST;
+        const int key = k0 + t * kStageKeys;
+        const int ng = min(kStageGroups, (k1 - key + kGroup - 1) / kGroup);
+        unsigned char* st = smem + s * C::STAGE;
+        if (ptb && (key + ng * kGroup - 1) / page >= pbase + 32) {
+          pbase = key / page;
+          tab = pbase + lane < maxp ? ptb[pbase + lane] : 0;
+        }
+        if (lane == 0) {
+          sm90::mbar_wait(&empty[s], ((t / C::NST) & 1) ^ 1);
+          sm90::mbar_expect_tx(&full[s], ng * C::GROUP_BYTES);
+        }
+        // the stacked cache: one copy each of K, V and the scales, by lane
+        // 0; a paged pool: lane g copies group g (its page's rows), so the
+        // small copies of a stage are issued together
+        __syncwarp();
+        const int g0 = ptb ? lane : 0;
+        const int kg = key + g0 * kGroup, p = kg / page;
+        const int blk = ptb ? __shfl_sync(kFull, tab, p - pbase) : b;
+        if (ptb ? lane < ng : lane == 0) {
+          const size_t row =
+              ((size_t)(l * NB + blk) * H + h) * page + (kg - p * page);
+          const int n = ptb ? 1 : ng;
+          sm90::bulk_load(st + g0 * C::GROUP, kc + row * D, n * C::GROUP,
+                          &full[s]);
+          sm90::bulk_load(st + (kStageGroups + g0) * C::GROUP, vc + row * D,
+                          n * C::GROUP, &full[s]);
+          if constexpr (Q8) {
+            unsigned char* sc = st + 2 * kStageGroups * C::GROUP;
+            sm90::bulk_load(sc + g0 * C::SCALES, ks + row, n * C::SCALES,
+                            &full[s]);
+            sm90::bulk_load(sc + (kStageGroups + g0) * C::SCALES, vs + row,
+                            n * C::SCALES, &full[s]);
           }
         }
       }
     } else {
+      // each warp leaves its (m, l, acc) here, in the (then idle) ring, for
+      // the block's merge; a warp that saw no key of a row holds m =
+      // -1e30, l = 0, acc = 0
+      float* wm = reinterpret_cast<float*>(smem);              // [8][8]
+      float* wl = wm + kAttnWarps * kAttnRows;                 // [8][8]
+      float* wacc = wl + kAttnWarps * kAttnRows;               // [8][8][D]
+      if constexpr (FMA) {
+        // the CUDA-core path (one query row): LANES lanes a key, KDIMS
+        // head dims each, for the score; a lane's D / 32 head dims for
+        // P.V, p broadcast by shuffles; the arithmetic and its order are
+        // those of the one-block-a-(head, slot) kernel this replaced, so
+        // a slot of one split gives its bits
+        using T = typename C::T;
+        constexpr int kL = C::LANES, kKD = C::KDIMS, kDims = D / 32;
+        const int sub = lane % kL;
+        float qv[kKD];
+        const bf16* qb = q + (size_t)bh * npair + sub * kKD;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) unpack8(cur.k[i], kf + 8 * i);
-    }
+        for (int i = 0; i < kKD; ++i) qv[i] = __bfloat162float(qb[i]);
+        float m = -1e30f, lsum = 0.f, acc[kDims];
 #pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) {
-      if (r < R) {
-        float d = 0.f;
-        if constexpr (Q8) {
-          d = dq[r];
-        } else {
-          const float4* qr =
-              reinterpret_cast<const float4*>(&qs[r][sub * kKDims]);
+        for (int e = 0; e < kDims; ++e) acc[e] = 0.f;
+        const int wg = warp % C::GPS;
+        for (int t = warp / C::GPS; t < n_stages; t += C::SETS) {
+          const int s = t % C::NST;
+          sm90::mbar_wait(&full[s], (t / C::NST) & 1);
+          const int kin = wg * C::GK;                 // in the stage
+          const int key0 = k0 + t * kStageKeys + kin;
+          if (key0 < k1) {
+            const unsigned char* st = smem + s * C::STAGE;
+            const T* kt = reinterpret_cast<const T*>(st) + kin * D;
+            const T* vt = reinterpret_cast<const T*>(st + kStageGroups *
+                                                     C::GROUP) + kin * D;
+            const float* sk = reinterpret_cast<const float*>(
+                st + 2 * kStageGroups * C::GROUP) + kin;
+            const float* sv = sk + kStageKeys;
+            const int kr = lane / kL;                // this lane's key
+            const uint4* kp = reinterpret_cast<const uint4*>(
+                kt + kr * D + sub * kKD);
+            float d = 0.f;
+            if constexpr (Q8) {
 #pragma unroll
-          for (int i = 0; i < kKDims / 4; ++i) {
-            const float4 qv = qr[i];
-            d = fmaf(qv.x, kf[4 * i], d);
-            d = fmaf(qv.y, kf[4 * i + 1], d);
-            d = fmaf(qv.z, kf[4 * i + 2], d);
-            d = fmaf(qv.w, kf[4 * i + 3], d);
+              for (int i = 0; i < kKD / 16; ++i) {
+                const uint4 w = kp[i];
+                float kf[16];
+                unpack4_i8(w.x, kf);
+                unpack4_i8(w.y, kf + 4);
+                unpack4_i8(w.z, kf + 8);
+                unpack4_i8(w.w, kf + 12);
+#pragma unroll
+                for (int c = 0; c < 16; ++c)
+                  d = fmaf(qv[16 * i + c], kf[c], d);
+              }
+            } else {
+              float kf[kKD];
+#pragma unroll
+              for (int i = 0; i < kKD / 8; ++i) unpack8(kp[i], kf + 8 * i);
+#pragma unroll
+              for (int c = 0; c < kKD; ++c) d = fmaf(qv[c], kf[c], d);
+            }
+#pragma unroll
+            for (int o = 1; o < kL; o <<= 1)
+              d += __shfl_xor_sync(kFull, d, o);
+            const int key = key0 + kr;
+            const bool valid = key <= pos;
+            float sc = d * scale;
+            if constexpr (Q8) sc = sc * sk[kr];
+            float gmax = valid ? sc : -1e30f;
+#pragma unroll
+            for (int o = kL; o < 32; o <<= 1)
+              gmax = fmaxf(gmax, __shfl_xor_sync(kFull, gmax, o));
+            const float m_new = fmaxf(m, gmax);
+            const float alpha = __expf(m - m_new);
+            const float p = valid ? __expf(sc - m_new) : 0.f;
+            lsum = lsum * alpha + warp_sum(sub ? 0.f : p);
+            // p (times the key's V scale) rounded to bf16 before P.V
+            float pv = p;
+            if constexpr (Q8) pv = valid ? p * sv[kr] : 0.f;
+            const float pr = __bfloat162float(__float2bfloat16(pv));
+            float a[kDims];
+#pragma unroll
+            for (int e = 0; e < kDims; ++e) a[e] = acc[e] * alpha;
+#pragma unroll
+            for (int j = 0; j < C::GK; ++j) {
+              const float pj = __shfl_sync(kFull, pr, j * kL);
+              float vf[4];
+              if constexpr (Q8) {
+                uint32_t w;
+                if constexpr (D == 128)
+                  w = reinterpret_cast<const uint32_t*>(vt + j * D)[lane];
+                else
+                  w = reinterpret_cast<const unsigned short*>(vt + j * D)
+                      [lane];
+                unpack4_i8(w, vf);
+              } else {
+#pragma unroll
+                for (int x = 0; x < kDims / 2; ++x) {
+                  const uint32_t w = reinterpret_cast<const uint32_t*>(
+                      vt + j * D)[lane * (kDims / 2) + x];
+                  vf[2 * x] = __uint_as_float(w << 16);
+                  vf[2 * x + 1] = __uint_as_float(w & 0xffff0000u);
+                }
+              }
+#pragma unroll
+              for (int e = 0; e < kDims; ++e) a[e] = fmaf(pj, vf[e], a[e]);
+            }
+#pragma unroll
+            for (int e = 0; e < kDims; ++e) acc[e] = a[e];
+            m = m_new;
           }
+          __syncwarp();
+          if (lane == 0) sm90::mbar_arrive(&empty[s]);
+        }
+        sm90::bar_sync(1, kAttnWarps * 32);
+        if (lane == 0) {
+          wm[warp * kAttnRows] = m;
+          wl[warp * kAttnRows] = lsum;
         }
 #pragma unroll
-        for (int o = 1; o < kLanes; o <<= 1) d += __shfl_xor_sync(kFull, d, o);
-        const int lim = pos + (rows_per_step > 0 ? r / rows_per_step : 0);
-        const bool valid = key <= lim;
-        float s = d * scale;
-        if constexpr (Q8) s = s * cur.ks;
-        float gmax = valid ? s : -1e30f;
+        for (int e = 0; e < kDims; ++e)
+          wacc[warp * kAttnRows * D + kDims * lane + e] = acc[e];
+      } else {
+        const int g = lane / 4, t4 = lane % 4;
+        // q^T as the score's B operand: row g's dims in kdim_base's order
+        uint32_t qf[C::KS][2];
+        const bf16* qb = q + (size_t)bh * npair;
 #pragma unroll
-        for (int o = kLanes; o < 32; o <<= 1)
-          gmax = fmaxf(gmax, __shfl_xor_sync(kFull, gmax, o));
-        const float m_new = fmaxf(m[r], gmax);
-        const float alpha = __expf(m[r] - m_new);
-        const float p = valid ? __expf(s - m_new) : 0.f;
-        lsum[r] = lsum[r] * alpha + warp_sum(sub ? 0.f : p);
-        // p (times the key's V scale) is rounded to bf16 before the V
-        // product and summed unrounded, as in the Pallas kernel
-        float pv = p;
-        if constexpr (Q8) pv = valid ? p * cur.vs : 0.f;
-        const float pr = __bfloat162float(__float2bfloat16(pv));
-        float a[kDims];
+        for (int s = 0; s < C::KS; ++s) {
+          uint2 v = make_uint2(0u, 0u);
+          if (g < R)
+            v = *reinterpret_cast<const uint2*>(qb + g * D +
+                                                kdim_base<D, Q8>(s, t4));
+          qf[s][0] = v.x;
+          qf[s][1] = v.y;
+        }
+        // this thread's rows r = 2 t4 + i: the key limit (-1: a padding row)
+        int lim[2];
 #pragma unroll
-        for (int e = 0; e < kDims; ++e) a[e] = acc[r][e] * alpha;
+        for (int i = 0; i < 2; ++i) {
+          const int r = 2 * t4 + i;
+          lim[i] = r < R ? pos + (rows_per_step > 0 ? r / rows_per_step : 0)
+                         : -1;
+        }
+        float m[2] = {-1e30f, -1e30f}, lsum[2] = {0.f, 0.f};
+        float acc[C::KS][4];
 #pragma unroll
-        for (int j = 0; j < kKeys; ++j) {
-          const float pj = __shfl_sync(kFull, pr, j * kLanes);
-          float vf[kDims];
-          if constexpr (Q8) {
-            float w4[4];
-            unpack4_i8(cur.v[j][0], w4);
+        for (int j = 0; j < C::KS; ++j)
 #pragma unroll
-            for (int e = 0; e < kDims; ++e) vf[e] = w4[e];
-          } else {
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+        const int wg = warp % C::GPS;
+        for (int t = warp / C::GPS; t < n_stages; t += C::SETS) {
+          const int s = t % C::NST;
+          sm90::mbar_wait(&full[s], (t / C::NST) & 1);
+          const int key = k0 + t * kStageKeys + wg * kGroup;
+          if (key < k1) {
+            const unsigned char* st = smem + s * C::STAGE;
+            const auto* kt = reinterpret_cast<const typename C::T*>(
+                st + wg * C::GROUP);
+            const auto* vt = reinterpret_cast<const typename C::T*>(
+                st + (kStageGroups + wg) * C::GROUP);
+            // S^T [16 keys, 8 rows] = K q^T, as two chains of products
+            float sc[4] = {0.f, 0.f, 0.f, 0.f}, sd[4] = {0.f, 0.f, 0.f, 0.f};
+            if constexpr (Q8) {
 #pragma unroll
-            for (int w = 0; w < G::kVWords; ++w) {
-              vf[2 * w] = __uint_as_float(cur.v[j][w] << 16);
-              vf[2 * w + 1] = __uint_as_float(cur.v[j][w] & 0xffff0000u);
+              for (int c = 0; c < D / 64; ++c) {
+                const uint4 ka = *reinterpret_cast<const uint4*>(
+                    kt + g * D + 16 * (t4 + 4 * c));
+                const uint4 kb = *reinterpret_cast<const uint4*>(
+                    kt + (g + 8) * D + 16 * (t4 + 4 * c));
+                const uint32_t wa[4] = {ka.x, ka.y, ka.z, ka.w};
+                const uint32_t wb[4] = {kb.x, kb.y, kb.z, kb.w};
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                  const uint2 xa = widen4(wa[j]), xb = widen4(wb[j]);
+                  const uint32_t a[4] = {xa.x, xb.x, xa.y, xb.y};
+                  mma_m16n8k16(j % 2 ? sd : sc, a, qf[4 * c + j][0],
+                               qf[4 * c + j][1]);
+                }
+              }
+            } else {
+#pragma unroll
+              for (int c = 0; c < D / 32; ++c) {
+                const uint4 ka = *reinterpret_cast<const uint4*>(
+                    kt + g * D + 8 * (t4 + 4 * c));
+                const uint4 kb = *reinterpret_cast<const uint4*>(
+                    kt + (g + 8) * D + 8 * (t4 + 4 * c));
+                const uint32_t a0[4] = {ka.x, kb.x, ka.y, kb.y};
+                const uint32_t a1[4] = {ka.z, kb.z, ka.w, kb.w};
+                mma_m16n8k16(sc, a0, qf[2 * c][0], qf[2 * c][1]);
+                mma_m16n8k16(sd, a1, qf[2 * c + 1][0], qf[2 * c + 1][1]);
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[e] += sd[e];
+            // sc[e]: key g + 8 (e / 2), row 2 t4 + e % 2
+            float ksc[2] = {1.f, 1.f}, vsc[2] = {1.f, 1.f};
+            if constexpr (Q8) {
+              const float* sk = reinterpret_cast<const float*>(
+                  st + 2 * kStageGroups * C::GROUP + wg * C::SCALES);
+              const float* sv = sk + kStageGroups * kGroup;
+              ksc[0] = sk[g];
+              ksc[1] = sk[g + 8];
+              vsc[0] = sv[g];
+              vsc[1] = sv[g + 8];
+            }
+            float p[4], alpha[2];
+            bool ok[4];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              float mx = -1e30f;
+#pragma unroll
+              for (int hk = 0; hk < 2; ++hk) {
+                const int e = 2 * hk + i;
+                ok[e] = key + g + 8 * hk <= lim[i];
+                float v = sc[e] * scale;
+                if constexpr (Q8) v = v * ksc[hk];
+                sc[e] = v;
+                if (ok[e]) mx = fmaxf(mx, v);
+              }
+              mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 4));
+              mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 8));
+              mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 16));
+              const float m_new = fmaxf(m[i], mx);
+              alpha[i] = __expf(m[i] - m_new);
+              m[i] = m_new;
+              p[i] = ok[i] ? __expf(sc[i] - m_new) : 0.f;
+              p[i + 2] = ok[i + 2] ? __expf(sc[i + 2] - m_new) : 0.f;
+              lsum[i] = lsum[i] * alpha[i] + (p[i] + p[i + 2]);
+            }
+            // P^T as the B operand of O^T += V^T P^T: p (times the key's V
+            // scale) rounded to bf16, as in the Pallas kernel, and transposed
+            // in registers
+            float pv[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              pv[e] = p[e];
+              if constexpr (Q8) pv[e] = ok[e] ? p[e] * vsc[e / 2] : 0.f;
+            }
+            const uint32_t b0 = movmatrix_t(pack_bf16(pv[0], pv[1]));
+            const uint32_t b1 = movmatrix_t(pack_bf16(pv[2], pv[3]));
+            // V^T's A fragments: keys 2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4 + 9 (k),
+            // this thread's head dims (m)
+            uint32_t vw[4][C::VW];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const int row = 2 * t4 + (kk & 1) + 8 * (kk >> 1);
+              if constexpr (Q8) {
+                const auto* vr = vt + row * D + (D / 8) * g;
+                if constexpr (D == 128) {
+                  const uint4 x = *reinterpret_cast<const uint4*>(vr);
+                  vw[kk][0] = x.x; vw[kk][1] = x.y; vw[kk][2] = x.z;
+                  vw[kk][3] = x.w;
+                } else {
+                  const uint2 x = *reinterpret_cast<const uint2*>(vr);
+                  vw[kk][0] = x.x; vw[kk][1] = x.y;
+                }
+              } else {
+#pragma unroll
+                for (int c = 0; c < D / 64; ++c) {
+                  const uint4 x = *reinterpret_cast<const uint4*>(
+                      vt + row * D + 64 * c + 8 * g);
+                  vw[kk][4 * c] = x.x; vw[kk][4 * c + 1] = x.y;
+                  vw[kk][4 * c + 2] = x.z; vw[kk][4 * c + 3] = x.w;
+                }
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < C::KS; ++j) {
+              acc[j][0] *= alpha[0];
+              acc[j][1] *= alpha[1];
+              acc[j][2] *= alpha[0];
+              acc[j][3] *= alpha[1];
+              uint32_t a[4];
+              if constexpr (Q8) {
+                const int w = j / 2;
+                const uint32_t sel = j % 2 ? 0x7362u : 0x5140u;
+                const uint2 x = widen4(__byte_perm(vw[0][w], vw[1][w], sel));
+                const uint2 y = widen4(__byte_perm(vw[2][w], vw[3][w], sel));
+                a[0] = x.x; a[1] = x.y; a[2] = y.x; a[3] = y.y;
+              } else {
+                a[0] = __byte_perm(vw[0][j], vw[1][j], 0x5410);
+                a[1] = __byte_perm(vw[0][j], vw[1][j], 0x7632);
+                a[2] = __byte_perm(vw[2][j], vw[3][j], 0x5410);
+                a[3] = __byte_perm(vw[2][j], vw[3][j], 0x7632);
+              }
+              mma_m16n8k16(acc[j], a, b0, b1);
             }
           }
-#pragma unroll
-          for (int e = 0; e < kDims; ++e) a[e] = fmaf(pj, vf[e], a[e]);
+          __syncwarp();
+          if (lane == 0) sm90::mbar_arrive(&empty[s]);
         }
 #pragma unroll
-        for (int e = 0; e < kDims; ++e) acc[r][e] = a[e];
-        m[r] = m_new;
-      }
-    }
-    cur = nxt;
-  }
+        for (int i = 0; i < 2; ++i) {
+          lsum[i] += __shfl_xor_sync(kFull, lsum[i], 4);
+          lsum[i] += __shfl_xor_sync(kFull, lsum[i], 8);
+          lsum[i] += __shfl_xor_sync(kFull, lsum[i], 16);
+        }
 
-  // merge the warps' states; a warp that saw no key holds m = -1e30 and
-  // weighs exp(-1e30 - M) = 0 (key 0 is valid for every row, so M is real)
+        sm90::bar_sync(1, kAttnWarps * 32);
 #pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    if (r < R) {
-      if (lane == 0) {
-        part_m[warp][r] = m[r];
-        part_l[warp][r] = lsum[r];
+        for (int i = 0; i < 2; ++i) {
+          const int r = 2 * t4 + i;
+          if (g == 0) {
+            wm[warp * kAttnRows + r] = m[i];
+            wl[warp * kAttnRows + r] = lsum[i];
+          }
+          float* wr = wacc + (warp * kAttnRows + r) * D;
+#pragma unroll
+          for (int j = 0; j < C::KS; ++j) {
+            wr[vdim<D, Q8>(g, 2 * j)] = acc[j][i];
+            wr[vdim<D, Q8>(g, 2 * j + 1)] = acc[j][2 + i];
+          }
+        }
       }
+      // the block's merge, in warp order
+      sm90::bar_sync(1, kAttnWarps * 32);
+      for (int i = threadIdx.x; i < npair; i += kAttnWarps * 32) {
+        const int r = i / D, d = i % D;
+        float M = -1e30f;
 #pragma unroll
-      for (int e = 0; e < kDims; ++e)
-        part_acc[warp][r][kDims * lane + e] = acc[r][e];
+        for (int w = 0; w < kAttnWarps; ++w)
+          M = fmaxf(M, wm[w * kAttnRows + r]);
+        float L = 0.f, A = 0.f;
+#pragma unroll
+        for (int w = 0; w < kAttnWarps; ++w) {
+          const float f = __expf(wm[w * kAttnRows + r] - M);
+          L = fmaf(f, wl[w * kAttnRows + r], L);
+          A = fmaf(f, wacc[(w * kAttnRows + r) * D + d], A);
+        }
+        if (n_live == 1) {
+          ob[i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+        } else {
+          res[2 * kAttnRows + i] = A;
+          if (d == 0) {
+            res[r] = M;
+            res[kAttnRows + r] = L;
+          }
+        }
+      }
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < npair; i += kAttnThreads) {
-    const int r = i / D, d = i % D;
-    float M = -1e30f;
+  if (n_live == 1) return;
+
+  // the cluster's merge: block `split` takes output elements split,
+  // split + n_split, ..., each over the live splits in split order
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();   // every live block's state is in its shared memory
+  for (int i = split + n_split * threadIdx.x; i < npair;
+       i += n_split * kAttnThreads) {
+    const int r = i / D;
+    float mv[kMaxSplits], M = -1e30f;
 #pragma unroll
-    for (int w = 0; w < kAttnWarps; ++w) M = fmaxf(M, part_m[w][r]);
+    for (int s = 0; s < kMaxSplits; ++s) {
+      mv[s] = s < n_live ? cluster.map_shared_rank(res, s)[r] : -1e30f;
+      M = fmaxf(M, mv[s]);
+    }
     float L = 0.f, A = 0.f;
 #pragma unroll
-    for (int w = 0; w < kAttnWarps; ++w) {
-      const float f = __expf(part_m[w][r] - M);
-      L = fmaf(f, part_l[w][r], L);
-      A = fmaf(f, part_acc[w][r][d], A);
+    for (int s = 0; s < kMaxSplits; ++s) {
+      if (s < n_live) {
+        const float* rs = cluster.map_shared_rank(res, s);
+        const float f = __expf(mv[s] - M);
+        L = fmaf(f, rs[kAttnRows + r], L);
+        A = fmaf(f, rs[2 * kAttnRows + i], A);
+      }
     }
     ob[i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
   }
+  cluster.sync();   // no block leaves while another still reads its state
 }
 
-template <int D, bool Q8>
+template <int D, bool Q8, bool FMA>
 cudaError_t launch_attn(const void* q, const void* k, const void* v,
                         const void* ks, const void* vs, const void* pos,
                         int pos_stride, const void* pt, const void* layer_ptr,
                         void* out, int B, int H, int R, int NB, int page,
-                        int maxp, int rows_per_step, float scale,
-                        cudaStream_t st) {
-  using T = typename KVGroup<D, Q8>::T;
-  decode_attn_kernel<D, Q8><<<dim3(H, B), kAttnThreads, 0, st>>>(
-      (const bf16*)q, (const T*)k, (const T*)v, (const float*)ks,
-      (const float*)vs, (const int*)pos, pos_stride, (const int*)pt,
-      (const int*)layer_ptr, (bf16*)out, H, R, NB, page, maxp,
-      rows_per_step, scale);
-  return cudaGetLastError();
+                        int maxp, int rows_per_step, int chunk, int n_split,
+                        float scale, cudaStream_t st) {
+  using C = AttnCfg<D, Q8, FMA>;
+  using T = typename C::T;
+  auto kern = decode_attn_kernel<D, Q8, FMA>;
+  static bool allowed = false;     // one attribute call a kernel a process
+  if (!allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return e;
+    allowed = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H, B, n_split);
+  cfg.blockDim = dim3(kAttnThreads, 1, 1);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = n_split;   // a slot's splits: one cluster
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, (const bf16*)q, (const T*)k,
+                            (const T*)v, (const float*)ks, (const float*)vs,
+                            (const int*)pos, pos_stride, (const int*)pt,
+                            (const int*)layer_ptr, (bf16*)out, H, R, NB, page,
+                            maxp, rows_per_step, chunk, scale);
 }
 
 // ----------------------------------------------------------- kv_quant_int8
@@ -1425,37 +1782,38 @@ int dstpu_out_ffn_glu_stacked(const void* x1, const void* ln_w,
 // [.., 1, page], D 64 or 128; R <= 8, page % 16 == 0. With a page table
 // [B, maxp] the cache is the pool [Lyr, NB, H, page, D]; without, the
 // stacked cache [Lyr, B, H, page, D] (maxp 1, NB = B; a null layer_ptr
-// reads layer 0: decode_attention_int8's [B, H, L, D] cache). The wrapper
+// reads layer 0: decode_attention_int8's [B, H, L, D] cache). The keys
+// are split into n_split <= 8 runs of chunk keys (a multiple of 16,
+// chunk * n_split >= maxp * page), a slot's runs one cluster. The wrapper
 // checks the geometry.
 int dstpu_decode_attention(const void* q, const void* k, const void* v,
                            const void* k_scale, const void* v_scale,
                            const void* pos, const void* page_table,
                            const void* layer_ptr, void* out, int B, int H,
                            int R, int D, int NB, int page, int maxp,
-                           int rows_per_step, int pos_stride, float scale,
-                           void* stream) {
+                           int rows_per_step, int pos_stride, int chunk,
+                           int n_split, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const bool q8 = k_scale != nullptr;
-  if (D == 64 && !q8)
-    return (int)launch_attn<64, false>(q, k, v, k_scale, v_scale, pos,
-                                       pos_stride, page_table, layer_ptr, out,
-                                       B, H, R, NB, page, maxp, rows_per_step,
-                                       scale, st);
-  if (D == 128 && !q8)
-    return (int)launch_attn<128, false>(q, k, v, k_scale, v_scale, pos,
-                                        pos_stride, page_table, layer_ptr,
-                                        out, B, H, R, NB, page, maxp,
-                                        rows_per_step, scale, st);
-  if (D == 64 && q8)
-    return (int)launch_attn<64, true>(q, k, v, k_scale, v_scale, pos,
-                                      pos_stride, page_table, layer_ptr, out,
-                                      B, H, R, NB, page, maxp, rows_per_step,
-                                      scale, st);
-  if (D == 128 && q8)
-    return (int)launch_attn<128, true>(q, k, v, k_scale, v_scale, pos,
-                                       pos_stride, page_table, layer_ptr, out,
-                                       B, H, R, NB, page, maxp, rows_per_step,
-                                       scale, st);
+  if (chunk <= 0 || chunk % kGroup || page % kGroup || n_split < 1 ||
+      n_split > kMaxSplits ||
+      (long long)chunk * n_split < (long long)maxp * page)
+    return (int)cudaErrorInvalidValue;
+  // one query row a KV head (MHA decode): the CUDA-core path
+#define DECODE_ATTN(DIM, Q8)                                                 \
+  return (int)(R == 1 ? launch_attn<DIM, Q8, true>(                          \
+                            q, k, v, k_scale, v_scale, pos, pos_stride,      \
+                            page_table, layer_ptr, out, B, H, R, NB, page,   \
+                            maxp, rows_per_step, chunk, n_split, scale, st)  \
+                      : launch_attn<DIM, Q8, false>(                         \
+                            q, k, v, k_scale, v_scale, pos, pos_stride,      \
+                            page_table, layer_ptr, out, B, H, R, NB, page,   \
+                            maxp, rows_per_step, chunk, n_split, scale, st))
+  if (D == 64 && !q8) DECODE_ATTN(64, false);
+  if (D == 128 && !q8) DECODE_ATTN(128, false);
+  if (D == 64 && q8) DECODE_ATTN(64, true);
+  if (D == 128 && q8) DECODE_ATTN(128, true);
+#undef DECODE_ATTN
   return (int)cudaErrorInvalidValue;
 }
 

@@ -31,6 +31,72 @@ ROADMAP_BS = ("ROADMAP.md queue 2, item \"block-sparse attention: masks, "
 # the plain versions gather the active blocks of this many bytes of rows
 # at a time
 PLAIN_CHUNK_BYTES = 1 << 30
+# the dk/dv kernel's key tile and q step (csrc/blocksparse.cu KT)
+DKV_TILE = 64
+
+DkvTile = collections.namedtuple("DkvTile", "table key_off cols nq")
+
+
+class DkvWork:
+    """The dk/dv kernel's work list over a layout's transposed tables
+    (csrc/blocksparse.cu ``bs_dkv_tma_kernel``). A key tile is 64 keys:
+    up to 64 / block columns of one table whose q-block lists are the same
+    (ascending columns, grouped by list), or half a column of 128 (key
+    offset 0 or 64); it walks that whole list in 64-row q steps (64 /
+    block q-blocks a step, or half a q-block of 128). ``order`` walks the
+    tiles longest first; every table's tiles run once for each of the
+    B·H / TH heads that read it."""
+
+    def __init__(self, counts_t, rows_t, block):
+        counts_t, rows_t = np.asarray(counts_t), np.asarray(rows_t)
+        self.block = int(block)
+        self.piece = min(self.block, DKV_TILE)
+        self.per = DKV_TILE // self.piece
+        offsets = range(0, self.block, DKV_TILE) \
+            if self.block > DKV_TILE else (0,)
+        tiles = []
+        for th in range(counts_t.shape[0]):
+            groups = {}
+            for c in range(counts_t.shape[1]):
+                lst = tuple(int(x) for x in rows_t[th, c, :counts_t[th, c]])
+                groups.setdefault(lst, []).append(c)
+            for lst, cols in sorted(groups.items(), key=lambda kv: kv[1][0]):
+                for i in range(0, len(cols), self.per):
+                    tiles += [DkvTile(th, off, tuple(cols[i:i + self.per]),
+                                      len(lst)) for off in offsets]
+        self.tiles = tiles
+        self.order = sorted(range(len(tiles)),
+                            key=lambda i: -self.steps(tiles[i].nq))
+        self.total_steps = sum(self.steps(t.nq) for t in tiles)
+        self._plans = {}
+
+    def steps(self, nq):
+        """The 64-row q steps of nq listed q-blocks."""
+        return 2 * nq if self.block > DKV_TILE else -(-nq // self.per)
+
+    def device_plan(self, device):
+        """The tiles in walk order as int32 [n, 8] (table, key offset,
+        columns, the 4 columns padded with the last, list length) on
+        ``device``, made once a device."""
+        key = str(device)
+        hit = self._plans.get(key)
+        if hit is None:
+            rows = []
+            for i in self.order:
+                t = self.tiles[i]
+                rows.append([t.table, t.key_off, len(t.cols),
+                             *(t.cols + (t.cols[-1],) * (4 - len(t.cols))),
+                             t.nq])
+            hit = self._plans[key] = torch.tensor(
+                rows, dtype=torch.int32, device=device).reshape(-1, 8)
+        return hit
+
+    def summary(self):
+        """The walk's size; ``chunk_steps`` None: no list is cut."""
+        return {"tiles": len(self.tiles), "steps": self.total_steps,
+                "longest_tile_steps": max(
+                    (self.steps(t.nq) for t in self.tiles), default=0),
+                "chunk_steps": None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +113,17 @@ class LayoutTables:
     counts_t: torch.Tensor
     rows_t: torch.Tensor
     block: int
+    _work: object = dataclasses.field(default=None, init=False, repr=False,
+                                      compare=False)
+
+    def dkv_work(self):
+        """The dk/dv kernel's ``DkvWork`` over these transposed tables,
+        made at the first call."""
+        if self._work is None:
+            object.__setattr__(self, "_work", DkvWork(
+                self.counts_t.cpu().numpy(), self.rows_t.cpu().numpy(),
+                self.block))
+        return self._work
 
     @property
     def heads(self):
@@ -215,6 +292,38 @@ def blocksparse_bwd_dkv_plain(q, k, v, do, lse, delta, tables, scale=None):
     return dk, dv
 
 
+def blocksparse_bwd_dkv_tiles(q, k, v, do, lse, delta, tables,
+                              scale=None):
+    """(dk, dv) fp32 as the dk/dv kernel's tiles compute them, in plain
+    PyTorch: each tile of ``tables.dkv_work()`` takes its 64 keys (its
+    columns, or half a column of 128) over its whole q-block list, p and
+    ds rounded to q's dtype before their products. Keys of no listed
+    q-block get 0."""
+    BH, S, D = q.shape
+    scale = _scale(scale, D)
+    work = tables.dkv_work()
+    rows_t = tables.rows_t.cpu()
+    dk = torch.zeros(BH, S, D, dtype=torch.float32)
+    dv = torch.zeros_like(dk)
+    block, piece = work.block, work.piece
+    for r in range(BH // tables.heads):
+        for i in work.order:
+            t = work.tiles[i]
+            bh = r * tables.heads + t.table
+            keys = torch.cat([c * block + t.key_off + torch.arange(piece)
+                              for c in t.cols])
+            qb = rows_t[t.table, t.cols[0], :t.nq].long()
+            rows = (qb[:, None] * block + torch.arange(block)).reshape(-1)
+            kb, vb = k[bh, keys].float(), v[bh, keys].float()
+            qg, dog = q[bh, rows].float(), do[bh, rows].float()
+            p = torch.exp(qg @ kb.T * scale - lse[bh, rows, None])
+            dp = dog @ vb.T
+            ds = p * (dp - delta[bh, rows, None])
+            dk[bh, keys] = (ds.to(q.dtype).float().T @ qg) * scale
+            dv[bh, keys] = p.to(q.dtype).float().T @ dog
+    return dk, dv
+
+
 def _check(name, tables, **tensors):
     q = tensors["q"]
     BH, S, D = q.shape
@@ -316,12 +425,14 @@ def blocksparse_bwd_dkv(q, k, v, do, lse, delta, tables, scale=None):
     dv = torch.empty_like(dk)
     if BH == 0 or S == 0:
         return dk, dv
+    tiles = tables.dkv_work().device_plan(q.device)
     builder.kernels().call(
         "dstpu_bs_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        tables.counts_t.data_ptr(), tables.rows_t.data_ptr(), dk.data_ptr(),
+        tables.rows_t.data_ptr(), tiles.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), BH, tables.heads, S, tables.block,
-        tables.rows_t.shape[-1], _scale(scale, D), _stream(q))
+        tables.rows_t.shape[-1], tiles.shape[0], _scale(scale, D),
+        _stream(q))
     builder.launches["blocksparse_bwd_dkv"] += 1
     return dk, dv
 

@@ -47,9 +47,17 @@ ROADMAP_DECODE_VARIANTS = ("ROADMAP.md queue 2, item \"decode-kernel "
 ROADMAP_FP32 = ("ROADMAP.md queue 2, item \"fp32 activations on the "
                 "CUDA decode kernels\"")
 MAX_SLOTS = 16          # the matvec kernels' register accumulator bound
-# the paged-attention kernel's geometry: D/32 lanes per key, groups of
-# 1024/D keys inside a page, at most 8 query rows per KV head
+# the attention kernel's geometry: 16-key groups inside a page (the
+# mma's M), at most 8 query rows per KV head (its N)
 ATTN_HEAD_DIMS, PAGE_MULTIPLE, MAX_ROWS = (64, 128), 16, 8
+# its consumer warps: warp w takes a split's 16-key groups w, w + 8, ...
+ATTN_WARPS = 8
+# the split plan: slots are split only while the (head, slot) pairs are
+# fewer than ATTN_SPLIT_BELOW an SM (measured on an H100: LLaMA-7B's b8,
+# 256 pairs, lost 4-11 % split in 2), then into enough to put
+# ATTN_BLOCKS_PER_SM blocks an SM on the card, at most ATTN_MAX_SPLITS (a
+# slot's splits are one cluster: 8, the portable size)
+ATTN_SPLIT_BELOW, ATTN_BLOCKS_PER_SM, ATTN_MAX_SPLITS = 1.5, 2, 8
 MAX_SMEM = 227 * 1024   # shared memory one block may use on the H100
 INT8_HEAD_DIMS = (64, 128)  # the int8 cache's head dims on CUDA
 # matvec_int8's activations → the C entry point's act code
@@ -310,6 +318,137 @@ def decode_attention_int8_plain(q, k_codes, k_scale, v_codes, v_scale, pos,
     return decode_attention_stacked_plain(
         q, k_codes[None], v_codes[None], pos, 0, k_scale[None, :, :, None],
         v_scale[None, :, :, None], scale)
+
+
+AttnPlan = collections.namedtuple("AttnPlan", "n_split chunk grid")
+
+
+def decode_split_plan(B, H, capacity, sms=132):
+    """How the attention kernel splits a slot's keys (csrc/decode.cu
+    ``decode_attn_kernel``): ``n_split`` runs of ``chunk`` keys (a multiple
+    of 16, so a split holds whole 16-key groups, each inside one page)
+    covering the ``capacity`` (L, or maxp * page): one run when the B * H
+    (KV head, slot) pairs reach ``ATTN_SPLIT_BELOW`` an SM, else the
+    longest even chunk that gives ``ATTN_BLOCKS_PER_SM`` blocks an SM (at
+    most ``ATTN_MAX_SPLITS``); grid (H, B, n_split). It reads the
+    capacity, never the position: pos lives on the card and the decode
+    loop replays as a CUDA graph."""
+    pairs, m, blocks = B * H, PAGE_MULTIPLE, ATTN_BLOCKS_PER_SM * sms
+    want = 1 if pairs >= ATTN_SPLIT_BELOW * sms else min(
+        math.ceil(blocks / pairs), ATTN_MAX_SPLITS)
+    n = want
+    while True:     # even splits of whole groups, at least want of them
+        chunk = -(-(-(-capacity // n)) // m) * m
+        if -(-capacity // chunk) >= want or chunk == m:
+            break
+        n += 1
+    while -(-capacity // chunk) > ATTN_MAX_SPLITS:
+        chunk += m
+    n = -(-capacity // chunk)
+    return AttnPlan(n, chunk, (H, B, n))
+
+
+def decode_attention_splits(q, k, v, pos, chunk, scale=None,
+                            rows_per_step=None, ks=None, vs=None):
+    """The attention kernel's arithmetic in its order, in plain PyTorch:
+    q [B, H, R, D] over each slot's keys k, v [B, H, cap, D] (gathered in
+    key order; int8 codes with ``ks``/``vs`` [B, H, cap] fp32, or floats),
+    pos a list of B ints (< 0: idle slot, zeros). Keys are split into runs
+    of ``chunk``; in a split, warp w of 8 takes the 16-key groups w, w +
+    8, ... (8-key groups for one query row over a bf16 cache at head dim
+    128, as the kernel's CUDA-core path does) with its own online softmax
+    (p, times the V scale, rounded to q's dtype before the V product), the
+    warps merge in warp order and the splits in split order; a split past
+    pos + max_step takes no part. Returns [B, H, R, D] in q's dtype."""
+    B, H, R, D = q.shape
+    cap = k.shape[2]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    max_step = 0 if rows_per_step is None else R // rows_per_step - 1
+    step = torch.zeros(R, dtype=torch.long) if rows_per_step is None \
+        else torch.arange(R) // rows_per_step
+    out = torch.zeros_like(q)
+    neg = torch.tensor(-1e30)
+    gk = 8 if (R == 1 and D == 128 and ks is None) else 16
+
+    def merge(parts):                   # [(m [H, R], l, acc [H, R, D])]
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        L = torch.zeros_like(M)
+        A = torch.zeros(H, R, D)
+        for m, l, a in parts:
+            f = torch.exp(m - M)
+            L, A = L + f * l, A + f[..., None] * a
+        return M, L, A
+
+    for b in range(B):
+        p = int(pos[b])
+        if p < 0:
+            continue
+        n_keys = min(p + max_step + 1, cap)
+        lim = p + step                                       # [R]
+        splits = []
+        for k0 in range(0, n_keys, chunk):
+            k1 = min(k0 + chunk, n_keys)
+            warps = []
+            for w in range(ATTN_WARPS):
+                m = torch.full((H, R), -1e30)
+                l, acc = torch.zeros(H, R), torch.zeros(H, R, D)
+                for g0 in range(k0 + gk * w, k1, gk * ATTN_WARPS):
+                    keys = torch.arange(g0, g0 + gk)
+                    s = torch.einsum("hrd,hkd->hrk", q[b].float(),
+                                     k[b, :, g0:g0 + gk].float()) * scale
+                    if ks is not None:
+                        s = s * ks[b, :, None, g0:g0 + gk].float()
+                    ok = (keys[None, :] <= lim[:, None])[None]   # [1, R, 16]
+                    m_new = torch.maximum(
+                        m, torch.where(ok, s, neg).amax(-1))
+                    alpha = torch.exp(m - m_new)
+                    e = torch.where(ok, torch.exp(s - m_new[..., None]), 0.)
+                    l = l * alpha + e.sum(-1)
+                    if vs is not None:
+                        e = torch.where(ok, e * vs[b, :, None, g0:g0 + gk]
+                                        .float(), 0.)
+                    acc = acc * alpha[..., None] + torch.einsum(
+                        "hrk,hkd->hrd", e.to(q.dtype).float(),
+                        v[b, :, g0:g0 + gk].float())
+                    m = m_new
+                warps.append((m, l, acc))
+            splits.append(merge(warps))
+        _, L, A = merge(splits)
+        out[b] = (A / L.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return out
+
+
+def decode_attention_paged_splits(q, k_pool, v_pool, pos, page_table, layer,
+                                  chunk, scale=None, rows_per_step=None,
+                                  k_scale=None, v_scale=None):
+    """decode_attention_splits over the paged pool: each slot's pages
+    gathered through its table row (every entry, trash included)."""
+    l = int(layer)
+    pt = page_table.long()
+    B, maxp = pt.shape
+    H, page = k_pool.shape[2], k_pool.shape[3]
+
+    def fold(pool):             # [B, maxp, H, page, X] → [B, H, cap, X]
+        return pool[l][pt].transpose(1, 2).reshape(B, H, maxp * page, -1)
+    ks = vs = None
+    if k_scale is not None:
+        ks = fold(k_scale.transpose(3, 4))[..., 0]
+        vs = fold(v_scale.transpose(3, 4))[..., 0]
+    return decode_attention_splits(q, fold(k_pool), fold(v_pool),
+                                   pos.tolist(), chunk, scale, rows_per_step,
+                                   ks, vs)
+
+
+def decode_attention_stacked_splits(q, k_stack, v_stack, pos, layer, chunk,
+                                    k_scale=None, v_scale=None, scale=None):
+    """decode_attention_splits over the layer-stacked cache at one
+    position for every slot."""
+    l, B = int(layer), q.shape[0]
+    ks = vs = None
+    if k_scale is not None:
+        ks, vs = k_scale[l][:, :, 0], v_scale[l][:, :, 0]
+    return decode_attention_splits(q, k_stack[l], v_stack[l],
+                                   [int(pos)] * B, chunk, scale, None, ks, vs)
 
 
 # ---------------------------------------------------------- CUDA wrappers
@@ -735,12 +874,9 @@ def decode_attention_paged(q, k_pool, v_pool, pos, page_table, layer,
                          f"{PAGE_MULTIPLE}, got {page}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     lp = _scalar_ptr(fn, layer, dev)
-    lib = builder.kernels()
-    out = torch.empty_like(q)
-    lib.call("dstpu_decode_attention", q.data_ptr(), k_pool.data_ptr(),
-             v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), pos.data_ptr(),
-             page_table.data_ptr(), lp, out.data_ptr(), B, H, R, D, NB,
-             page, maxp, int(rows_per_step or 0), 1, scale, _stream(dev))
+    out = _attention_call(q, k_pool, v_pool, k_scale, v_scale,
+                          pos.data_ptr(), page_table.data_ptr(), lp, NB,
+                          page, maxp, int(rows_per_step or 0), 1, scale)
     builder.launches[fn] += 1
     return out
 
@@ -781,11 +917,25 @@ def _stacked_attention_launch(fn, q, k_stack, v_stack, pos, lp, k_scale,
                          f"{PAGE_MULTIPLE}, got {L}")
     pp = _scalar_ptr(fn, pos, dev, "pos")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    lib = builder.kernels()
+    return _attention_call(q, k_stack, v_stack, k_scale, v_scale, pp, None,
+                           lp, B, L, 1, 0, 0, scale)
+
+
+def _attention_call(q, k, v, k_scale, v_scale, pos_ptr, pt_ptr, lp, NB,
+                    page, maxp, rows_per_step, pos_stride, scale):
+    """Launch ``dstpu_decode_attention`` on checked inputs with the split
+    plan of ``decode_split_plan`` at the card's SM count; returns the
+    output."""
+    dev = q.device
+    B, H, R, D = q.shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = decode_split_plan(B, H, maxp * page, sms)
     out = torch.empty_like(q)
-    lib.call("dstpu_decode_attention", q.data_ptr(), k_stack.data_ptr(),
-             v_stack.data_ptr(), _ptr(k_scale), _ptr(v_scale), pp, None, lp,
-             out.data_ptr(), B, H, R, D, B, L, 1, 0, 0, scale, _stream(dev))
+    builder.kernels().call(
+        "dstpu_decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _ptr(k_scale), _ptr(v_scale), pos_ptr, pt_ptr, lp, out.data_ptr(), B,
+        H, R, D, NB, page, maxp, rows_per_step, pos_stride, plan.chunk,
+        plan.n_split, scale, _stream(dev))
     return out
 
 

@@ -8,9 +8,11 @@
 # backward lines (the old tree's two kernels, this tree's kernel, delta
 # and whole backward, beside SDPA's backward), the train line (the GPT-2
 # large step), the grad check, the serve lines' decode ms a step and the
-# fast path's t(4 new) and decode ms a step by batch; then
-# tests/perf/torch_llama_t4.py from each tree in turns, and the GPU unit
-# tests of this tree.
+# fast path's t(4 new) and decode ms a step by batch, the decode-attention
+# and block-sparse kernel lines (with a decode row's split plan and the
+# dk/dv row's work list), the decode pos sweeps and the BERT sparse step;
+# then tests/perf/torch_llama_t4.py and torch_kernel_rows.py --decode --bs
+# from each tree in turns, and the GPU unit tests of this tree.
 #
 #   bash tests/perf/torch_ab_compare.sh OLD_TREE
 #
@@ -34,10 +36,14 @@ for line in open(name):
     except ValueError:
         continue
     if d.get("phase") == "kernel" and (
-            "flash" in d["name"] or d["name"] == "matvec_stacked"):
+            "flash" in d["name"] or d["name"] == "matvec_stacked"
+            or d["name"].startswith(("decode_attention", "blocksparse"))):
         more = "".join(" %s=%.2f" % (k, d[k]) for k in
                        ("other_turns_us", "fma_us", "library_us")
                        if d.get(k) is not None)
+        more += "".join(" %s=%s" % (k, d[k]) for k in
+                        ("n_split", "chunk", "tiles", "chunk_steps")
+                        if k in d)
         print(name, d["name"], d.get("path", ""),
               "kernel_us=%.2f call_us=%.2f rel=%.3g fault=%.3g%s"
               % (d["kernel_us"], d["call_us"], d["row_rel_err"],
@@ -68,6 +74,15 @@ for line in open(name):
     if d.get("phase") == "train":
         print(name, "train step_ms=%.2f mfu=%.4f peak=%.2f"
               % (d["step_ms"], d["mfu"], d["peak_memory_gb"]))
+    if d.get("phase") == "train_bert_sparse":
+        print(name, "train_bert_sparse step_ms=%.2f tokens_per_s=%.0f"
+              % (d["step_ms"], d["tokens_per_s"]))
+    if d.get("phase") == "bert_kernels":
+        print(name, "bert_kernels sparse_fwd_bwd_us=%.1f"
+              % d["sparse_fwd_bwd_us"])
+    if d.get("phase") == "decode_pos_sweep":
+        print(name, "decode_pos_sweep", d["model"], "max_rel=%.3g" % max(
+            c["row_rel_err_max"] for c in d["cases"]))
     if d.get("phase") == "grad_check":
         print(name, "grad_check", d["max_row_rel_err"])
     if d.get("ok"):
@@ -84,11 +99,17 @@ summ chiprun_out/ab_new2.log
 (cd "$old" && python3 chip_smoke.py > "$here/chiprun_out/ab_old2.log" 2>&1)
 summ chiprun_out/ab_old2.log
 # the fast path's t(4 new) and decode ms a step at b8 and b1, which the old
-# tree's chip_smoke may not print: old, this, this, old
+# tree's chip_smoke may not print, and the decode-attention and block-
+# sparse dk/dv rows of tests/perf/torch_kernel_rows.py with each tree's
+# kernels: old, this, this, old
 for tree in "$old" "$here" "$here" "$old"; do
   python3 tests/perf/torch_llama_t4.py --tree "$tree" 2>&1 | tail -2
+  python3 tests/perf/torch_kernel_rows.py --decode --bs --tree "$tree" \
+    2>&1 | grep '^{' | sed "s|^|$tree |"
 done
 python3 -m pytest --noconftest -p no:cacheprovider -m gpu \
   tests/test_torch_flash_backward.py tests/test_torch_flash_attention.py \
   tests/test_torch_decode_kernels.py tests/test_torch_llama_kernels.py \
+  tests/test_torch_llama_int8.py tests/test_torch_gpt2_inference.py \
+  tests/test_torch_sparse_attention.py tests/test_torch_bert.py \
   -q 2>&1 | tail -3

@@ -2,9 +2,10 @@
 backward and matvec_stacked rebuilt with parts switched off, timed beside
 the kernel as it is, on one card.
 
-    python3 tests/perf/torch_kernel_ablate.py [fwd] [bwd] [matvec]
+    python3 tests/perf/torch_kernel_ablate.py [fwd] [bwd] [matvec] [decode]
+        [bsdkv] [decode_rows] [decode_smoke]
 
-(default: all three).
+(default: all of them).
 
 Each variant is csrc/flash_attention.cu or csrc/decode.cu with text
 patches applied (every anchor must occur exactly once: the script raises
@@ -29,8 +30,22 @@ completes each stage without loading it), and the combinations
 ``loads_only``, ``products_only`` and ``sync_only``.
 matvec_stacked (LLaMA-7B's o-projection, [8, 4096] x [32, 4096, 4096],
 bf16 and int8 codes): ``no_epilogue`` (no cluster barrier, reduction or
-store), ``no_loads``, and both. One JSON line a time, with the card's
-name and power limit.
+store), ``no_loads``, and both. Decode attention (bf16 caches: GPT-2
+large's fast route at b1, LLaMA-7B's at b8, ctx 2048, pos 2034, and
+GPT-2's paged serve positions): ``no_combine`` (the splits' states left
+unmerged), ``loads_only`` (no products or softmax), ``products_only``
+(the producer completes each stage without loading it), ``sync_only``;
+then the kernel as it is under split plans of 1, 2 and 4 blocks an SM,
+split below 1.5 (head, slot) pairs an SM (the wrapper's rule) and
+always. Block-sparse dk/dv (BERT-large's layer, the Fixed layout at block
+16): ``loads_only`` (no products), ``products_only`` (the producer
+completes each stage without loading it), ``sync_only``; then the kernel
+at B 1 and on one head alone. ``decode_rows``: decode attention with 4
+or 8 query rows a KV head (GQA) at D 128 and 64, stacked and paged, bf16
+and int8, the kernel as it is. ``decode_smoke``: the LLaMA-7B b8 row of
+decode_attention_stacked under the conditions chip_smoke.py times it in
+(see decode_smoke_conditions).
+One JSON line a time, with the card's name and power limit.
 """
 
 import ctypes
@@ -40,6 +55,7 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -153,6 +169,58 @@ MV_PATCHES = {
 MV_VARIANTS = {"kernel": [], "no_epilogue": ["no_epilogue"],
                "no_loads": ["no_loads"],
                "no_epilogue_no_loads": ["no_epilogue", "no_loads"]}
+DECODE_PATCHES = {
+    "no_loads": [
+        ("          sm90::mbar_expect_tx(&full[s], ng * C::GROUP_BYTES);\n",
+         "          sm90::mbar_arrive(&full[s]);\n"),
+        ("        if (ptb ? lane < ng : lane == 0) {\n",
+         "        if (false) {\n")],
+    "no_products": [("          if (key < k1) {\n", "          if (false) {\n"),
+                    ("          if (key0 < k1) {\n",
+                     "          if (false) {\n")],
+    "no_combine": [("  if (n_live == 1) return;\n\n", "  return;\n\n")],
+}
+# (shape, B, KV heads, R, D, cache length or None for the paged pool)
+DECODE_ROWS_SHAPES = (("gqa_r4_b1", 1, 8, 4, 128, 2048),
+                      ("gqa_r4_b8", 8, 8, 4, 128, 2048),
+                      ("gqa_r4_paged", 8, 8, 4, 128, None),
+                      ("gqa_r8_b8", 8, 4, 8, 128, 2048),
+                      ("gqa_r4_d64_b8", 8, 5, 4, 64, 2048))
+DECODE_VARIANTS = {"kernel": [], "no_combine": ["no_combine"],
+                   "loads_only": ["no_products"],
+                   "products_only": ["no_loads"],
+                   "sync_only": ["no_loads", "no_products"]}
+BSDKV_PATCHES = {
+    "no_loads": [
+        ("      sm90::mbar_expect_tx(&kv_full[ks], 2 * TILE_BYTES);\n",
+         "      sm90::mbar_arrive(&kv_full[ks]);\n      ++kvi;\n"
+         "      for (int s = 0; s < steps; ++s, ++it) {\n"
+         "        const int st = it % DKV_NST;\n"
+         "        sm90::mbar_wait(&empty[st], ((it / DKV_NST) & 1) ^ 1);\n"
+         "        sm90::mbar_arrive(&full[st]);\n      }\n"
+         "      continue;\n")],
+    "no_products": [("      for (int s = 0; s < steps; ++s, ++it) {\n"
+                     "        const int st = it % DKV_NST;\n"
+                     "        const unsigned char* qb",
+                     "      for (int s = 0; s < steps; ++s, ++it) {\n"
+                     "        const int st = it % DKV_NST;\n"
+                     "        if (true) {\n"
+                     "          sm90::mbar_wait(&full[st], (it / DKV_NST) & 1);\n"
+                     "          __syncwarp();\n"
+                     "          if (lane == 0) sm90::mbar_arrive(&empty[st]);\n"
+                     "          continue;\n        }\n"
+                     "        const unsigned char* qb")],
+}
+BSDKV_VARIANTS = {"kernel": [], "loads_only": ["no_products"],
+                  "products_only": ["no_loads"],
+                  "sync_only": ["no_loads", "no_products"]}
+# (shape, B, KV heads, D, cache length or None for the paged pool, pos)
+DECODE_SHAPES = (("gpt2_b1", 1, 20, 64, 2048, 2034),
+                 ("llama7b_b8", 8, 32, 128, 2048, 2034),
+                 ("gpt2_serve_paged", 8, 20, 64, None, None))
+# the split plan's blocks an SM (split below 1.5 pairs an SM as the
+# wrapper does, and always), each timed on the kernel as it is
+DECODE_BLOCKS_PER_SM = (1, 2, 4)
 
 
 def build(src_name, patches, variants, tmp, entry):
@@ -189,6 +257,288 @@ def build(src_name, patches, variants, tmp, entry):
     return entries
 
 
+def bsdkv_ablation(entries, gen, stream, card):
+    """blocksparse_bwd_dkv at BERT-large's layer (H 16, S 4096, the Fixed
+    layout at block 16): each variant at B 4, then the kernel as it is at
+    B 1 and on one head of the layout alone (the fewest tiles)."""
+    from chip_smoke import bert_model_config
+    from deepspeed_tpu_torch.ops.cuda import blocksparse as bs
+    H, S, D = 16, 4096, 64
+    sp = bert_model_config().sparsity_config
+    np.random.seed(0)
+    full = sp.make_layout(S)
+
+    def timed(fn, B, heads, layout):
+        tables = bs.layout_tables(layout, S, sp.block, heads, "cuda")
+        q, k, v, do = (torch.randn(B * heads, S, D, generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = bs.blocksparse_fwd(q, k, v, tables)
+        delta = (do.float() * o).sum(-1)
+        dk, dv = torch.empty_like(o), torch.empty_like(o)
+        work = tables.dkv_work()
+        tiles = work.device_plan("cuda")
+
+        def call(i=0, fn=fn):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(),
+                     tables.rows_t.data_ptr(), tiles.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), B * heads, tables.heads,
+                     S, sp.block, tables.rows_t.shape[-1], tiles.shape[0],
+                     D ** -0.5, stream())
+            if err:
+                raise RuntimeError(f"cudaError_t {err}")
+        return work.summary(), 1e3 * time_graph_ms(call, n=8, reps=5)
+    for name, fn in entries.items():
+        work, us = timed(fn, 4, H, full)
+        print(json.dumps({"kernel": "blocksparse_bwd_dkv", "shape": "B4",
+                          "variant": name, "work": work, "us": us,
+                          "card": card}), flush=True)
+    for shape, B, heads, layout in (("B1", 1, H, full),
+                                    ("one_head", 1, 1, full[:1])):
+        work, us = timed(entries["kernel"], B, heads, layout)
+        print(json.dumps({"kernel": "blocksparse_bwd_dkv", "shape": shape,
+                          "variant": "kernel", "work": work, "us": us,
+                          "card": card}), flush=True)
+
+
+def decode_rows_ablation(gen, stream, card):
+    """decode_attention with R > 1 query rows a KV head (GQA, the kernel's
+    tensor-core path; bf16 and int8 caches) at the wrapper's split plan,
+    against the plain version (its error and its eager time), beside the
+    bound of the live rows' bytes and, over a bf16 stacked cache, SDPA
+    with ``enable_gqa`` over the live keys (graph-replayed)."""
+    from chip_smoke import time_ms
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = builder.kernels()
+    n = 32
+    lids = [torch.tensor(i, dtype=torch.int32, device="cuda")
+            for i in range(n)]
+    for shape, B, H, R, D, L in DECODE_ROWS_SHAPES:
+        q = torch.randn(B, H, R, D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        out = torch.empty_like(q)
+        if L is None:    # chip_smoke's serve positions, 64 pages of 16
+            page, maxp, NB = 16, 64, B * 64 + 1
+            pos = torch.tensor([511, 300, 17, 700, 100, 1000, 64, -1],
+                               dtype=torch.int32, device="cuda")
+            pt = (torch.randperm(NB - 1, generator=gen, device="cuda")
+                  [:B * maxp] + 1).reshape(B, maxp).to(torch.int32)
+            shape5, pt_ptr, stride = (n, NB, H, page, D), pt.data_ptr(), 1
+            live = int((pos + 1).clamp(min=0).sum())
+        else:
+            page, maxp, NB, p = L, 1, B, L - 14
+            pos = torch.tensor([p], dtype=torch.int32, device="cuda")
+            shape5, pt_ptr, stride = (n, B, H, L, D), None, 0
+            live = B * (p + 1)
+        plan = dk.decode_split_plan(B, H, maxp * page, sms)
+        for kind in ("bf16", "int8"):
+            if kind == "bf16":
+                kc, vc = (torch.randn(shape5, generator=gen, device="cuda")
+                          .to(torch.bfloat16) for _ in range(2))
+                kw = {}
+            else:
+                kc, vc = (torch.randint(-127, 128, shape5, generator=gen,
+                                        device="cuda", dtype=torch.int8)
+                          for _ in range(2))
+                kw = {k: torch.rand(shape5[:3] + (1, page), generator=gen,
+                                    device="cuda") * 0.01 + 0.002
+                      for k in ("k_scale", "v_scale")}
+            ks_ptr, vs_ptr = (_ptr_of(kw.get(k))
+                              for k in ("k_scale", "v_scale"))
+            def plain():
+                if L is None:
+                    return dk.decode_attention_paged_plain(q, kc, vc, pos,
+                                                           pt, 0, **kw)
+                return dk.decode_attention_stacked_plain(q, kc, vc, pos, 0,
+                                                         **kw)
+            ref = plain().float()
+            plain_us = 1e3 * time_ms(plain, reps=3, inner=1, warmup=1)
+            sdpa_us = None
+            if L is not None and not kw:
+                qs = q.reshape(B, H * R, 1, D)
+                try:
+                    sdpa_us = 1e3 * time_graph_ms(
+                        lambda i: torch.nn.functional
+                        .scaled_dot_product_attention(
+                            qs, kc[i, :, :, :p + 1], vc[i, :, :, :p + 1],
+                            enable_gqa=True), n=n)
+                except TypeError:      # a torch without enable_gqa
+                    sdpa_us = None
+            row = D * kc.element_size() + (4 if kw else 0)
+
+            def call(i):
+                lib.call("dstpu_decode_attention", q.data_ptr(),
+                         kc.data_ptr(), vc.data_ptr(), ks_ptr, vs_ptr,
+                         pos.data_ptr(), pt_ptr, lids[i].data_ptr(),
+                         out.data_ptr(), B, H, R, D, NB, page, maxp, 0,
+                         stride, plan.chunk, plan.n_split, D ** -0.5,
+                         stream())
+            call(0)
+            torch.cuda.synchronize()
+            print(json.dumps({"kernel": "decode_attention", "shape": shape,
+                              "cache": kind, "B": B, "H": H, "R": R, "D": D,
+                              "variant": "kernel", "plan": plan._asdict(),
+                              "max_abs_err": float(
+                                  (out.float() - ref).abs().max()),
+                              "us": 1e3 * time_graph_ms(call, n=n),
+                              "bound_us": 1e6 * live * H * row * 2 / 3.35e12,
+                              "plain_us": plain_us, "sdpa_us": sdpa_us,
+                              "card": card}), flush=True)
+            del kc, vc, kw
+
+
+def _ptr_of(t):
+    return None if t is None else t.data_ptr()
+
+
+def _clocks():
+    """The card's SM and memory clocks, temperature and power draw."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+
+
+def decode_smoke_conditions(gen, card):
+    """decode_attention_stacked at the fast path's b8 D 128 shape (32
+    layers of ctx 2048, pos 2034; bf16 and int8 caches) timed as
+    torch_kernel_rows.py times it (CUDA-graph replay) and eagerly as
+    chip_smoke's ``call_us`` (host launches between), with the card's
+    clocks and temperature: at the start of the process, after 20 s of
+    bf16 GEMMs, after 30 s idle, with chip_smoke's cache values (x 0.5),
+    beside 20 GB of other memory, and after chip_smoke's own
+    ``generate_kernel_rows`` (its rows print too) with the LLaMA-7B int8
+    engine built, to find what separates chip_smoke's row from the rows
+    script's."""
+    import itertools
+    import time
+    import chip_smoke as cs
+    from deepspeed_tpu_torch.models.llama import llama_7b
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    B, H, D, L, p, n = 8, 32, 128, 2048, 2034, 32
+    pos = torch.tensor([p], dtype=torch.int32, device="cuda")
+    lids = [torch.tensor(i, dtype=torch.int32, device="cuda")
+            for i in range(n)]
+
+    def rows(condition, scale=1.0):
+        q = torch.randn(B, H, 1, D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        shape = (n, B, H, L, D)
+        for kind in ("bf16", "int8"):
+            if kind == "bf16":
+                kc, vc = ((torch.randn(shape, generator=gen, device="cuda")
+                           * scale).to(torch.bfloat16) for _ in range(2))
+                kw = {}
+            else:
+                kc, vc = (torch.randint(-127, 128, shape, generator=gen,
+                                        device="cuda", dtype=torch.int8)
+                          for _ in range(2))
+                kw = {k: torch.rand(shape[:3] + (1, L), generator=gen,
+                                    device="cuda") * 0.01 + 0.002
+                      for k in ("k_scale", "v_scale")}
+            clocks = _clocks()
+            us = 1e3 * time_graph_ms(lambda i: dk.decode_attention_stacked(
+                q, kc, vc, pos, lids[i], **kw), n=n)
+            cyc = itertools.cycle(range(n))
+            eager = 1e3 * cs.time_ms(lambda: dk.decode_attention_stacked(
+                q, kc, vc, pos, lids[next(cyc)], **kw))
+            print(json.dumps({"kernel": "decode_attention_stacked",
+                              "shape": "llama7b_b8", "cache": kind,
+                              "condition": condition, "us": us,
+                              "eager_us": eager,
+                              "clocks_sm_mem_temp_power": clocks,
+                              "mem_allocated_gb":
+                                  torch.cuda.memory_allocated() / 1e9,
+                              "card": card}), flush=True)
+            del kc, vc, kw
+        torch.cuda.empty_cache()
+    rows("process_start")
+    a = torch.randn(8192, 8192, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 20:
+        for _ in range(50):
+            a @ a
+        torch.cuda.synchronize()
+    del a
+    rows("after_20s_gemm")
+    time.sleep(30)
+    rows("after_30s_idle")
+    rows("values_x0.5", 0.5)
+    filler = torch.ones(20 << 30, dtype=torch.uint8, device="cuda")
+    rows("beside_20GB")
+    del filler
+    torch.cuda.empty_cache()
+    cfg = llama_7b()
+    eng = cs.llama_int8_init(cfg)
+    cs.generate_kernel_rows(eng, cfg, gen)
+    rows("after_generate_kernel_rows_engine_built")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def decode_ablation(entries, gen, stream, card):
+    """decode_attention over bf16 caches: each variant at the split plan
+    the wrapper takes, then the kernel as it is at other plans' blocks an
+    SM (``ATTN_BLOCKS_PER_SM``)."""
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape, B, H, D, L, p in DECODE_SHAPES:
+        n = 32
+        q = torch.randn(B, H, 1, D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        out = torch.empty_like(q)
+        lids = [torch.tensor(i, dtype=torch.int32, device="cuda")
+                for i in range(n)]
+        if L is None:    # chip_smoke's serve positions, 64 pages of 16
+            page, maxp, NB = 16, 64, B * 64 + 1
+            pos = torch.tensor([511, 300, 17, 700, 100, 1000, 64, -1],
+                               dtype=torch.int32, device="cuda")
+            pt = (torch.randperm(NB - 1, generator=gen, device="cuda")
+                  [:B * maxp] + 1).reshape(B, maxp).to(torch.int32)
+            shape5, pt_ptr, stride = (n, NB, H, page, D), pt.data_ptr(), 1
+        else:
+            page, maxp, NB = L, 1, B
+            pos = torch.tensor([p], dtype=torch.int32, device="cuda")
+            shape5, pt_ptr, stride = (n, B, H, L, D), None, 0
+        kc, vc = (torch.randn(shape5, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        def timed(fn, plan):
+            def call(i, fn=fn):
+                err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), None,
+                         None, pos.data_ptr(), pt_ptr, lids[i].data_ptr(),
+                         out.data_ptr(), B, H, 1, D, NB, page, maxp, 0,
+                         stride, plan.chunk, plan.n_split, D ** -0.5,
+                         stream())
+                if err:
+                    raise RuntimeError(f"cudaError_t {err}")
+            return 1e3 * time_graph_ms(call, n=n)
+        plan = dk.decode_split_plan(B, H, maxp * page, sms)
+        for name, fn in entries.items():
+            print(json.dumps({"kernel": "decode_attention", "shape": shape,
+                              "variant": name, "plan": plan._asdict(),
+                              "us": timed(fn, plan), "card": card}),
+                  flush=True)
+        keep = dk.ATTN_BLOCKS_PER_SM, dk.ATTN_SPLIT_BELOW
+        try:
+            for below in (keep[1], float("inf")):
+                for per_sm in DECODE_BLOCKS_PER_SM:
+                    dk.ATTN_BLOCKS_PER_SM, dk.ATTN_SPLIT_BELOW = per_sm, below
+                    plan = dk.decode_split_plan(B, H, maxp * page, sms)
+                    print(json.dumps({"kernel": "decode_attention",
+                                      "shape": shape, "variant": "kernel",
+                                      "blocks_per_sm": per_sm,
+                                      "split_below": below,
+                                      "plan": plan._asdict(),
+                                      "us": timed(entries["kernel"], plan),
+                                      "card": card}), flush=True)
+        finally:
+            dk.ATTN_BLOCKS_PER_SM, dk.ATTN_SPLIT_BELOW = keep
+        del kc, vc
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -201,7 +551,7 @@ def main():
     def stream():   # the capturing stream inside a graph capture
         return torch.cuda.current_stream().cuda_stream
 
-    parts = sys.argv[1:] or ["fwd", "bwd", "matvec"]
+    parts = sys.argv[1:] or ["fwd", "bwd", "matvec", "decode"]
     with tempfile.TemporaryDirectory() as tmp:
         flash = (build("flash_attention.cu", FLASH_PATCHES, FLASH_VARIANTS,
                        tmp, "dstpu_flash_fwd") if "fwd" in parts else {})
@@ -209,6 +559,19 @@ def main():
                      "dstpu_flash_bwd") if "bwd" in parts else {})
         mv = (build("decode.cu", MV_PATCHES, MV_VARIANTS, tmp,
                     "dstpu_matvec_stacked") if "matvec" in parts else {})
+        if "bsdkv" in parts:
+            bsdkv_ablation(build("blocksparse.cu", BSDKV_PATCHES,
+                                 BSDKV_VARIANTS, tmp, "dstpu_bs_bwd_dkv"),
+                           gen, stream, card)
+        if "decode_rows" in parts:
+            decode_rows_ablation(gen, stream, card)
+        if "decode_smoke" in parts:
+            decode_smoke_conditions(gen, card)
+        if "decode" in parts:
+            decode_ablation(build("decode.cu", DECODE_PATCHES,
+                                  DECODE_VARIANTS, tmp,
+                                  "dstpu_decode_attention"), gen, stream,
+                            card)
         for shape, B, H, S, D in (("gpt2_train", 8, 20, 1024, 64),
                                   ("fast_path_prompt", 8, 32, 2048, 128)):
             q, k, v = (torch.randn(B, H, S, D, generator=gen, device="cuda")

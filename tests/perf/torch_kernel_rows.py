@@ -3,9 +3,12 @@ matvec_stacked at the shapes of their kernel-table rows (PERF.md §6),
 beside their library calls, on one card: CUDA-graph replay as
 chip_smoke.py times them, random bf16 inputs from seed 0.
 
-    python3 tests/perf/torch_kernel_rows.py [--bwd]
+    python3 tests/perf/torch_kernel_rows.py [--bwd] [--decode] [--bs]
+        [--tree DIR]
 
-(--bwd: the backward rows only.)
+(--bwd: the backward rows only; --decode, --bs: only the decode-attention
+rows or the block-sparse dk/dv rows; --tree DIR: the kernels of the
+checkout at DIR, for an A/B against another commit in one call.)
 
 Flash forward: GPT-2 prefill (B 1, 20 heads, S 1024, D 64), GPT-2
 training (B 8), a ZeRO-3 rank (B 2), LLaMA-7B prefill (32 heads, D 128),
@@ -23,8 +26,16 @@ bound of its 5 products and bytes, and SDPA's backward (``sdpa_us``:
 forward + backward in one graph, less the forward).
 matvec_stacked: LLaMA-7B's o-projection [8, 4096] . [32, 4096, 4096],
 bf16 and int8 codes: the TMA kernel (``us``), the CUDA-core kernel
-(``fma_us``) and, bf16, torch.matmul (``matmul_us``). One JSON line a
-row, each with the card's name and power limit.
+(``fma_us``) and, bf16, torch.matmul (``matmul_us``). Decode attention
+(--decode): decode_attention_stacked over bf16 and int8 caches at GPT-2
+large's fast route (20 heads, D 64) and LLaMA-7B's (32 heads, D 128), b1
+and b8, ctx 2048, pos 2034, with SDPA over the live keys (bf16), and
+decode_attention_paged over bf16 and int8 pools at 8 slots of 64 pages of
+16 (the serve phase's positions); each with the kernel's split plan.
+Block-sparse dk/dv (--bs): BERT-large's layer (B 4, H 16, S 4096, D 64)
+under DeepSpeed's Fixed layout at block 16 and a shared BigBird layout
+at block 64, with the work list's summary. One JSON line a row, each
+with the card's name and power limit.
 
     python3 tests/perf/torch_kernel_rows.py --sweep
 
@@ -39,12 +50,17 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
+if "--tree" in sys.argv:    # the kernels of another checkout, same rows
+    sys.path.insert(0, os.path.abspath(sys.argv[sys.argv.index("--tree")
+                                                + 1]))
 
-from chip_smoke import bound, time_graph_ms  # noqa: E402
+from chip_smoke import bert_model_config, bound, time_graph_ms  # noqa: E402
+from deepspeed_tpu_torch.ops.cuda import blocksparse as bs  # noqa: E402
 from deepspeed_tpu_torch.ops.cuda import decode as dk  # noqa: E402
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
 
@@ -100,6 +116,165 @@ def bwd_rows(card, rnd):
         del q, k, v, do, o, lse, delta, qg, kg, vg
 
 
+# (name, B, KV heads, R, D, cache length, pos, layers): the stacked rows
+# of PERF.md §6 (#10, #11): GPT-2 large's fast route at b1 and LLaMA-7B's
+# fast path at b8, ctx 2048, pos 2034
+STACKED_ROWS = (("gpt2_b1", 1, 20, 1, 64, 2048, 2034, 36),
+                ("gpt2_b8", 8, 20, 1, 64, 2048, 2034, 36),
+                ("llama7b_b1", 1, 32, 1, 128, 2048, 2034, 32),
+                ("llama7b_b8", 8, 32, 1, 128, 2048, 2034, 32))
+# (name, KV heads, D, layers): the paged rows (#3): 8 slots, 64 pages of
+# 16, the serve phase's positions (one slot idle)
+PAGED_ROWS = (("gpt2_serve", 20, 64, 36), ("llama7b_serve", 32, 128, 32))
+PAGED_POS = [511, 300, 17, 700, 100, 1000, 64, -1]
+
+
+def _plan(B, H, cap):
+    """The split plan, where the tree has one (the kernel before it had
+    none: one block a (head, slot))."""
+    plan = getattr(dk, "decode_split_plan", None)
+    if plan is None:
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return plan(B, H, cap, sms)._asdict()
+
+
+def decode_rows(card, rnd, gen):
+    """decode_attention_stacked (bf16 and int8 caches) and
+    decode_attention_paged (bf16 and int8 pools) at their table rows:
+    the kernel, SDPA over the live keys where it computes the same
+    function (bf16, R 1), the bound of the live rows' bytes."""
+    for name, B, H, R, D, L, p, n in STACKED_ROWS:
+        q = rnd(B, H, R, D)
+        pos = torch.tensor([p], dtype=torch.int32, device="cuda")
+        lids = [torch.tensor(i, dtype=torch.int32, device="cuda")
+                for i in range(n)]
+        for kind in ("bf16", "int8"):
+            shape = (n, B, H, L, D)
+            kw = {}
+            if kind == "bf16":
+                kc, vc = rnd(*shape), rnd(*shape)
+            else:
+                kc, vc = (torch.randint(-127, 128, shape, generator=gen,
+                                        device="cuda", dtype=torch.int8)
+                          for _ in range(2))
+                kw = {k: torch.rand(shape[:3] + (1, L), generator=gen,
+                                    device="cuda") * 0.01 + 0.002
+                      for k in ("k_scale", "v_scale")}
+            us = 1e3 * time_graph_ms(lambda i: dk.decode_attention_stacked(
+                q, kc, vc, pos, lids[i], **kw), n=n)
+            sdpa = None
+            if kind == "bf16":
+                qs = q.reshape(B, H * R, 1, D)
+                sdpa = 1e3 * time_graph_ms(
+                    lambda i: torch.nn.functional.scaled_dot_product_attention(
+                        qs, kc[i, :, :, :p + 1], vc[i, :, :, :p + 1]), n=n)
+            row = D * kc.element_size() + (4 if kw else 0)
+            b_ms, b_by = bound(B * (p + 1) * H * row * 2 + 2 * q.numel() * 2,
+                               4 * B * (p + 1) * H * R * D)
+            print(json.dumps({"row": f"decode_attention_stacked {name}",
+                              "cache": kind, "B": B, "H": H, "R": R, "D": D,
+                              "L": L, "pos": p, "us": us, "sdpa_us": sdpa,
+                              "bound_us": b_ms * 1e3, "bound_by": b_by,
+                              "pct_of_bound": 100 * b_ms * 1e3 / us,
+                              "plan": _plan(B, H, L), "card": card}),
+                  flush=True)
+            del kc, vc, kw
+    B, page, maxp = len(PAGED_POS), 16, 64
+    pos = torch.tensor(PAGED_POS, dtype=torch.int32, device="cuda")
+    live = sum(x + 1 for x in PAGED_POS if x >= 0)
+    for name, H, D, n in PAGED_ROWS:
+        NB = B * maxp + 1
+        pt = (torch.randperm(NB - 1, generator=gen, device="cuda")[:B * maxp]
+              + 1).reshape(B, maxp).to(torch.int32)
+        q = rnd(B, H, 1, D)
+        lids = [torch.tensor(i, dtype=torch.int32, device="cuda")
+                for i in range(n)]
+        for kind in ("bf16", "int8"):
+            shape = (n, NB, H, page, D)
+            kw = {}
+            if kind == "bf16":
+                kc, vc = rnd(*shape), rnd(*shape)
+            else:
+                kc, vc = (torch.randint(-127, 128, shape, generator=gen,
+                                        device="cuda", dtype=torch.int8)
+                          for _ in range(2))
+                kw = {k: torch.rand(shape[:3] + (1, page), generator=gen,
+                                    device="cuda") * 0.01 + 0.002
+                      for k in ("k_scale", "v_scale")}
+            us = 1e3 * time_graph_ms(lambda i: dk.decode_attention_paged(
+                q, kc, vc, pos, pt, lids[i], **kw), n=n)
+            row = D * kc.element_size() + (4 if kw else 0)
+            b_ms, b_by = bound(live * H * row * 2 + 2 * q.numel() * 2,
+                               4 * live * H * D)
+            print(json.dumps({"row": f"decode_attention_paged {name}",
+                              "pool": kind, "B": B, "H": H, "D": D,
+                              "pos": PAGED_POS, "us": us,
+                              "bound_us": b_ms * 1e3, "bound_by": b_by,
+                              "pct_of_bound": 100 * b_ms * 1e3 / us,
+                              "plan": _plan(B, H, maxp * page),
+                              "card": card}), flush=True)
+            del kc, vc, kw
+
+
+def bs_rows(card, rnd):
+    """blocksparse_bwd_dkv at BERT-large's sparse attention (B 4, H 16, S
+    4096, D 64, DeepSpeed's Fixed layout at block 16) and the shared
+    BigBird layout at block 64: the kernel, the bound of its 6 block^2 D
+    operations a listed (column, q-block) pair, the plain version
+    (eager) and SDPA's forward + backward over the layout expanded to a
+    boolean mask (eager, as chip_smoke.py times it)."""
+    from chip_smoke import time_ms
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention \
+        import _expand_layout_mask
+    from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import \
+        BigBirdSparsityConfig
+    B, H, S, D = 4, 16, 4096, 64
+    sparsity = bert_model_config().sparsity_config
+    np.random.seed(0)
+    layouts = (("fixed_b16", sparsity.make_layout(S), sparsity.block),
+               ("bigbird_b64", BigBirdSparsityConfig(
+                   num_heads=H, block=64, num_random_blocks=1,
+                   num_sliding_window_blocks=3, num_global_blocks=1)
+                .make_layout(S), 64))
+    for name, layout, block in layouts:
+        tables = bs.layout_tables(layout, S, block, H, "cuda")
+        q, k, v, do = (rnd(B * H, S, D) for _ in range(4))
+        o, lse = bs.blocksparse_fwd(q, k, v, tables)
+        delta = (do.float() * o).sum(-1)
+        args = (q, k, v, do, lse, delta, tables)
+        us = 1e3 * time_graph_ms(lambda i: bs.blocksparse_bwd_dkv(*args),
+                                 n=8, reps=5)
+        active = B * int(np.asarray(layout)[:, :S // block, :S // block]
+                         .sum()) * (H // np.asarray(layout).shape[0])
+        b_ms, b_by = bound(4 * q.numel() * 2 + 2 * lse.numel() * 4
+                           + 2 * q.numel() * 4, 6 * block * block * D
+                           * active)
+        work = None       # the tree before the work list has none
+        if hasattr(tables, "dkv_work"):
+            work = tables.dkv_work().summary()
+        plain_us = 1e3 * time_ms(lambda: bs.blocksparse_bwd_dkv_plain(*args),
+                                 reps=2, inner=1, warmup=1)
+        mask = _expand_layout_mask(layout, block, S, "cuda")[None]
+        q4, k4, v4, do4 = (t.view(B, H, S, D) for t in (q, k, v, do))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        fwd_ms = time_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask), reps=5,
+                         inner=2)
+        qg, kg, vg = (t.detach().clone().requires_grad_()
+                      for t in (q4, k4, v4))
+        out = sdpa(qg, kg, vg, attn_mask=mask)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do4, retain_graph=True), reps=5, inner=2)
+        print(json.dumps({"row": f"blocksparse_bwd_dkv {name}", "B": B,
+                          "H": H, "S": S, "D": D, "block": block, "us": us,
+                          "bound_us": b_ms * 1e3, "bound_by": b_by,
+                          "pct_of_bound": 100 * b_ms * 1e3 / us,
+                          "plain_us": plain_us,
+                          "sdpa_fwd_bwd_us": 1e3 * (fwd_ms + bwd_ms),
+                          "work": work, "card": card}), flush=True)
+        del q, k, v, do, o, lse, delta, args, mask, out, qg, kg, vg
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -113,6 +288,12 @@ def main():
         return torch.randn(*shape, generator=gen, device="cuda").to(
             torch.bfloat16)
 
+    if "--decode" in sys.argv or "--bs" in sys.argv:
+        if "--decode" in sys.argv:
+            decode_rows(card, rnd, gen)
+        if "--bs" in sys.argv:
+            bs_rows(card, rnd)
+        return
     bwd_rows(card, rnd)
     if "--bwd" in sys.argv:
         return

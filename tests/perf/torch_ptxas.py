@@ -5,8 +5,10 @@ shared memory, from ``nvcc -Xptxas=-v`` with the build's own flags.
 
 Compiles every ``csrc/*.cu`` into a scratch directory (the cached library
 is left alone) and prints, for each kernel whose mangled name contains one
-of NAME (default: the TMA-fed wgmma kernels, each head dim and variant
-of the flash kernels its own instantiation), ptxas's lines for it. Needs
+of NAME (default: the TMA- or bulk-copy-fed kernels, each head dim and
+variant its own instantiation: the flash kernels, matvec_stacked, the
+fused GEMMs, decode attention and block-sparse dk/dv), ptxas's lines for
+it. Needs
 ``nvcc``: run it on the machine with the card.
 """
 
@@ -22,7 +24,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 from deepspeed_tpu_torch.ops.cuda import builder  # noqa: E402
 
 DEFAULT = ("flash_fwd_tma_kernel", "flash_bwd_tma_kernel",
-           "matvec_tma_kernel", "gemm_tma_kernel")
+           "matvec_tma_kernel", "gemm_tma_kernel", "decode_attn_kernel",
+           "bs_dkv_tma_kernel")
 
 
 def main(names):

@@ -6,12 +6,14 @@ kernels are held against the plain versions on the card at bf16.
 """
 
 import importlib
+import math
 
 import numpy as np
 import pytest
 import torch
 
 from deepspeed_tpu_torch.ops.cuda import builder, tolerance
+from deepspeed_tpu_torch.ops.cuda import decode as dk
 from deepspeed_tpu_torch.ops.cuda.decode import (
     decode_attention_paged, decode_attention_paged_plain, ln_qkv_stacked,
     ln_qkv_stacked_plain, out_ffn_stacked, out_ffn_stacked_plain)
@@ -195,6 +197,132 @@ def test_row_rel_err_zero_rows_and_non_finite():
     assert tolerance.row_rel_err(got, want) == float("inf")
 
 
+# ----------------------------------- the attention kernel's split plan
+
+# (B, KV heads, capacity): GPT-2 large's fast route b1 and b8 at ctx 2048,
+# its paged serving (8 slots, 64 pages of 16), LLaMA-7B's fast path b1
+# and b8 and its paged serving, LLaMA-3-8B's GQA heads, and many slots
+PLAN_CASES = [(1, 20, 2048), (8, 20, 2048), (8, 20, 1024), (1, 32, 2048),
+              (8, 32, 2048), (8, 32, 1024), (8, 8, 2048), (64, 32, 4096),
+              (3, 2, 128), (1, 1, 16), (1, 1, 32768)]
+
+
+@pytest.mark.parametrize("B,H,cap", PLAN_CASES)
+@pytest.mark.parametrize("sms", [132, 114])
+def test_decode_split_plan_covers_the_capacity(B, H, cap, sms):
+    plan = dk.decode_split_plan(B, H, cap, sms)
+    assert plan.chunk % dk.PAGE_MULTIPLE == 0 and plan.chunk > 0
+    assert plan.n_split * plan.chunk >= cap > (plan.n_split - 1) * plan.chunk
+    assert plan.grid == (H, B, plan.n_split)
+    assert plan.n_split <= dk.ATTN_MAX_SPLITS
+    blocks = dk.ATTN_BLOCKS_PER_SM * sms
+    if B * H >= dk.ATTN_SPLIT_BELOW * sms:
+        assert plan.n_split == 1          # enough blocks without a split
+        return
+    # the blocks an SM (unless the splits are single groups), and not
+    # many more
+    want = math.ceil(blocks / (B * H))
+    want = min(want, dk.ATTN_MAX_SPLITS)
+    assert plan.n_split >= want or plan.chunk == dk.PAGE_MULTIPLE \
+        or -(-cap // (plan.chunk - dk.PAGE_MULTIPLE)) > dk.ATTN_MAX_SPLITS
+    assert plan.n_split <= want + want // 4 + 1
+    # even: the last split is no shorter than a group under the others
+    assert cap - (plan.n_split - 1) * plan.chunk > \
+        plan.chunk - plan.n_split * dk.PAGE_MULTIPLE
+
+
+def test_decode_split_plan_never_reads_pos():
+    """The plan is a function of the shapes and the card: its arguments
+    hold no position, so a decode loop can replay one launch as pos
+    moves."""
+    import inspect
+    assert list(inspect.signature(dk.decode_split_plan).parameters) == \
+        ["B", "H", "capacity", "sms"]
+    assert dk.decode_split_plan(1, 20, 2048) == (8, 256, (20, 1, 8))
+    assert dk.decode_split_plan(8, 32, 2048) == (1, 2048, (32, 8, 1))
+    assert dk.decode_split_plan(8, 20, 1024) == (2, 512, (20, 8, 2))
+    assert dk.decode_split_plan(8, 40, 1024).n_split == 1
+
+
+# the capacity and chunk of the split model's tests: splits of 32 keys
+# (two stages of 16-key groups in the last), pos at the boundaries
+SPLIT_CAP, SPLIT_CHUNK = 128, 48
+SPLIT_POS = [0, 15, 16, 47, 48, 49, 95, 96, 127]
+
+
+def _stacked_inputs(rs, int8, R, Lyr=2, B=2, Hkv=2, D=64):
+    q = (0.3 * rs.randn(B, Hkv, R, D)).astype(np.float32)
+    shape = (Lyr, B, Hkv, SPLIT_CAP, D)
+    if int8:
+        kc, vc = (rs.randint(-127, 128, shape).astype(np.int8)
+                  for _ in range(2))
+        ks, vs = ((0.5 + rs.rand(Lyr, B, Hkv, 1, SPLIT_CAP)).astype(
+            np.float32) * 0.01 for _ in range(2))
+        return q, kc, vc, ks, vs
+    kc, vc = (rs.randn(*shape).astype(np.float32) for _ in range(2))
+    return q, kc, vc, None, None
+
+
+@pytest.mark.parametrize("pos", SPLIT_POS)
+@pytest.mark.parametrize("int8,R,D", [(False, 1, 64), (False, 4, 64),
+                                      (True, 2, 64), (False, 1, 128),
+                                      (True, 1, 128)])
+def test_split_model_matches_pallas_stacked(pos, int8, R, D):
+    """The kernel's split-and-merge order, in plain PyTorch, against
+    decode_attention_fp_stacked / decode_attention_int8_stacked in
+    interpret mode at fp32: pos at 0, a page's last key, split
+    boundaries +-1 and the capacity's last key."""
+    jnp, jdec = _jax()
+    q, kc, vc, ks, vs = _stacked_inputs(np.random.RandomState(pos), int8, R,
+                                        D=D)
+    if int8:
+        want = jdec.decode_attention_int8_stacked(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(ks), jnp.asarray(vc),
+            jnp.asarray(vs), pos, 1)
+        got = dk.decode_attention_stacked_splits(
+            t32(q), torch.from_numpy(kc), torch.from_numpy(vc), pos, 1,
+            SPLIT_CHUNK, t32(ks), t32(vs))
+    else:
+        want = jdec.decode_attention_fp_stacked(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), pos, 1)
+        got = dk.decode_attention_stacked_splits(t32(q), t32(kc), t32(vc),
+                                                 pos, 1, SPLIT_CHUNK)
+    assert_close(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("rows_per_step,int8", [(None, False), (1, False),
+                                                (None, True)])
+def test_split_model_matches_pallas_paged(rows_per_step, int8):
+    """The same against decode_attention_paged: scattered pages, slots at
+    split boundaries +-1 and the last key, an idle slot, a multi-query
+    window."""
+    jnp, jdec = _jax()
+    rs = np.random.RandomState(7)
+    Lyr, NB, H, P, D, R, MAXP = 2, 12, 2, 16, 64, 2, 8
+    pos = np.array([0, 47, 48, 49, 125, -1, 15, 16], np.int32)
+    B = len(pos)
+    pt = rs.randint(1, NB, (B, MAXP)).astype(np.int32)
+    q = (0.3 * rs.randn(B, H, R, D)).astype(np.float32)
+    pools = [(0.3 * rs.randn(Lyr, NB, H, P, D)).astype(np.float32)
+             for _ in range(2)]
+    sc = {}
+    if int8:
+        pools = [rs.randint(-127, 128, p.shape).astype(np.int8)
+                 for p in pools]
+        sc = {n: (0.5 + rs.rand(Lyr, NB, H, 1, P)).astype(np.float32) * 0.01
+              for n in ("k_scale", "v_scale")}
+    want = np.asarray(jdec.decode_attention_paged(
+        jnp.asarray(q), jnp.asarray(pools[0]), jnp.asarray(pools[1]),
+        jnp.asarray(pos), jnp.asarray(pt), 1, rows_per_step=rows_per_step,
+        **{n: jnp.asarray(v) for n, v in sc.items()}))
+    got = dk.decode_attention_paged_splits(
+        t32(q), *(torch.from_numpy(p) for p in pools), torch.from_numpy(pos),
+        torch.from_numpy(pt), 1, SPLIT_CHUNK, rows_per_step=rows_per_step,
+        **{n: t32(v) for n, v in sc.items()})
+    assert_close(got, want)
+    assert torch.count_nonzero(got[5]) == 0      # the idle slot
+
+
 # ------------------------------------------------------------ on the card
 
 def _bf16(a, dev):
@@ -266,3 +394,106 @@ def test_cuda_paged_attention_matches_plain(cuda_device, R, rows_per_step,
     tolerance.check_kernel("decode_attention_paged", got,
                            decode_attention_paged_plain(
                                *args, 1, rows_per_step=rows_per_step))
+
+
+def _sweep(cap, plan):
+    """pos 0, a page's last key and the next, each split boundary +-1 and
+    the capacity's last key."""
+    ps = {0, 15, 16, cap - 1}
+    for s in range(1, plan.n_split):
+        ps |= {s * plan.chunk - 1, s * plan.chunk, s * plan.chunk + 1}
+    return sorted(p for p in ps if 0 <= p < cap)
+
+
+# (B, KV heads, R, D, capacity): GPT-2 large's fast route (b1, 20 heads)
+# and LLaMA-7B's (b8, 32 heads) at ctx 2048; LLaMA-3-8B's GQA rows
+SWEEP_SHAPES = [(1, 20, 1, 64, 2048), (1, 32, 1, 128, 2048),
+                (8, 32, 1, 128, 2048), (2, 8, 4, 128, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,R,D,L", SWEEP_SHAPES)
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_stacked_attention_pos_sweep(cuda_device, B, H, R, D, L, int8):
+    """decode_attention_stacked at pos on every split boundary +-1, a
+    page's edge and the last key, against the plain version; the int8
+    cache's scales past pos are NaN and must not reach the result; a
+    rerun is bit-equal."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(11)
+    shape = (2, B, H, L, D)
+    q = torch.randn(B, H, R, D, generator=g, device=dev).to(torch.bfloat16)
+    if int8:
+        kc, vc = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        sc = [torch.rand(shape[:3] + (1, L), generator=g, device=dev) * 0.01
+              + 0.002 for _ in range(2)]
+    else:
+        kc, vc = (torch.randn(shape, generator=g, device=dev)
+                  .to(torch.bfloat16) for _ in range(2))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = dk.decode_split_plan(B, H, L, sms)
+    layer = torch.tensor(1, dtype=torch.int32, device=dev)
+    name = "decode_attention_stacked" + ("[int8]" if int8 else "")
+    for p in _sweep(L, plan):
+        kw = {}
+        if int8:
+            k_s, v_s = (s.clone() for s in sc)
+            k_s[..., p + 1:] = float("nan")
+            v_s[..., p + 1:] = float("nan")
+            kw = dict(k_scale=k_s, v_scale=v_s)
+        pos = torch.tensor([p], dtype=torch.int32, device=dev)
+        n0 = builder.launches["decode_attention_stacked"]
+        got = dk.decode_attention_stacked(q, kc, vc, pos, layer, **kw)
+        again = dk.decode_attention_stacked(q, kc, vc, pos, layer, **kw)
+        torch.cuda.synchronize()
+        assert builder.launches["decode_attention_stacked"] == n0 + 2
+        assert torch.isfinite(got).all(), p
+        assert torch.equal(got, again), p
+        tolerance.check_kernel(name, got, dk.decode_attention_stacked_plain(
+            q, kc, vc, pos, 1, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,int8,R,rows_per_step", [
+    (64, False, 1, None), (128, False, 4, None), (64, True, 1, None),
+    (128, True, 4, 1), (64, False, 4, 2)])
+def test_cuda_paged_attention_pos_sweep(cuda_device, D, int8, R,
+                                        rows_per_step):
+    """decode_attention_paged over 64 scattered pages of 16 a slot (GPT-2
+    serving's pool) with slots at every split boundary +-1, the last key
+    and idle, against the plain version, rerun bit-equal."""
+    dev = cuda_device
+    rs = np.random.RandomState(12)
+    H, P, MAXP, Lyr = 4, 16, 64, 2
+    cap = MAXP * P
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pos_list = _sweep(cap, dk.decode_split_plan(16, H, cap, sms)) + [-1]
+    B = len(pos_list)
+    NB = B * MAXP + 1
+    pt = torch.from_numpy(rs.permutation(np.arange(1, NB))[:B * MAXP]
+                          .reshape(B, MAXP).astype(np.int32)).to(dev)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    q = torch.randn(B, H, R, D, generator=g, device=dev).to(torch.bfloat16)
+    shape = (Lyr, NB, H, P, D)
+    kw = {}
+    if int8:
+        kp, vp = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        kw = {n: torch.rand(shape[:3] + (1, P), generator=g, device=dev)
+              * 0.01 + 0.002 for n in ("k_scale", "v_scale")}
+    else:
+        kp, vp = (torch.randn(shape, generator=g, device=dev)
+                  .to(torch.bfloat16) for _ in range(2))
+    layer = torch.tensor(1, dtype=torch.int32, device=dev)
+    got = decode_attention_paged(q, kp, vp, pos, pt, layer,
+                                 rows_per_step=rows_per_step, **kw)
+    again = decode_attention_paged(q, kp, vp, pos, pt, layer,
+                                   rows_per_step=rows_per_step, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.count_nonzero(got[-1]) == 0
+    name = "decode_attention_paged" + ("[int8]" if int8 else "")
+    tolerance.check_kernel(name, got, decode_attention_paged_plain(
+        q, kp, vp, pos, pt, 1, rows_per_step=rows_per_step, **kw))

@@ -9,6 +9,7 @@ kernel against its plain version with a planted fault the same check
 must reject.
 """
 
+import collections
 import importlib
 
 import numpy as np
@@ -329,6 +330,143 @@ def test_sparse_self_attention_module_matches_jax():
     np.testing.assert_array_equal(top.get_layout(96), jop.get_layout(96))
 
 
+# ------------------------------------------ the dk/dv kernel's work list
+
+def _fixed_long_short(H=2, S=512, block=16):
+    """DeepSpeed's Fixed layout per head (the BERT cell's pattern at a
+    small S): every fourth column lists every q-block, the rest four."""
+    np.random.seed(0)
+    return tsc.FixedSparsityConfig(
+        num_heads=H, block=block, different_layout_per_head=True,
+        num_local_blocks=4, num_different_global_patterns=4).make_layout(S)
+
+
+# (layout, S, block, heads): DeepSpeed's Fixed layout per head (long and
+# short columns) and shared by the heads (one table), a shared BigBird
+# layout, at blocks 16-128 and 1-4 heads; empty rows and a column no row
+# attends
+WORK_CASES = [("fixed", 512, 16, 2), ("fixed", 512, 32, 2),
+              ("fixed", 512, 64, 2), ("fixed", 1024, 128, 2),
+              ("fixed", 1024, 16, 1), ("fixed", 256, 16, 4),
+              ("fixed", 768, 16, 3), ("fixed_shared", 512, 16, 2),
+              ("fixed_shared", 1024, 32, 4), ("bigbird", 1024, 64, 2),
+              ("bigbird", 1024, 128, 2), ("bigbird", 512, 16, 2),
+              ("bigbird", 512, 32, 1), ("bigbird", 2048, 128, 1),
+              ("empty", 64, 16, 1)]
+
+
+def _work_layout(kind, S, block, H):
+    if kind == "fixed":
+        return _fixed_long_short(H, S, block)
+    if kind == "fixed_shared":
+        np.random.seed(0)
+        return tsc.FixedSparsityConfig(
+            num_heads=H, block=block, num_local_blocks=4).make_layout(S)
+    if kind == "bigbird":
+        np.random.seed(0)
+        return tsc.BigBirdSparsityConfig(
+            num_heads=H, block=block, num_random_blocks=1,
+            num_sliding_window_blocks=3, num_global_blocks=1).make_layout(S)
+    return _empty_rows_layout()
+
+
+@pytest.mark.parametrize("kind,S,block,H", WORK_CASES)
+def test_dkv_work_covers_every_pair_once(kind, S, block, H):
+    """Every (column, q-block) pair of the transposed tables lands in
+    exactly one tile (once a 64-key half at block 128), tiles group
+    columns of one list only, every column, listed or not, is in one
+    tile, and the walk (the device plan's rows) takes the tiles longest
+    first."""
+    tables = bs.layout_tables(_work_layout(kind, S, block, H), S, block, H,
+                              "cpu")
+    work = tables.dkv_work()
+    counts_t, rows_t = tables.counts_t.numpy(), tables.rows_t.numpy()
+    halves = (0, 64) if block == 128 else (0,)
+    want = collections.Counter(
+        (th, c, off, int(r)) for th in range(tables.heads)
+        for c in range(counts_t.shape[1]) for off in halves
+        for r in rows_t[th, c, :counts_t[th, c]])
+    got = collections.Counter()
+    for t in work.tiles:
+        assert 1 <= len(t.cols) <= max(1, 64 // block)
+        for c in t.cols:
+            lst = rows_t[t.table, c, :counts_t[t.table, c]]
+            np.testing.assert_array_equal(
+                lst, rows_t[t.table, t.cols[0], :t.nq])
+            for r in lst:
+                got[(t.table, c, t.key_off, int(r))] += 1
+    assert got == want
+    cols = collections.Counter((t.table, c, t.key_off) for t in work.tiles
+                               for c in t.cols)
+    assert cols == collections.Counter(
+        (th, c, off) for th in range(tables.heads)
+        for c in range(counts_t.shape[1]) for off in halves)
+    assert sorted(work.order) == list(range(len(work.tiles)))
+    steps = [work.steps(work.tiles[i].nq) for i in work.order]
+    assert steps == sorted(steps, reverse=True)
+    assert work.total_steps == sum(steps)
+    plan = work.device_plan("cpu").tolist()
+    for row, i in zip(plan, work.order):
+        t = work.tiles[i]
+        assert row == [t.table, t.key_off, len(t.cols),
+                       *(t.cols + (t.cols[-1],) * (4 - len(t.cols))), t.nq]
+    assert work.device_plan("cpu") is work.device_plan("cpu")
+
+
+def test_dkv_work_at_bert_layout():
+    """The BERT cell's layout (16 heads, S 4096, DeepSpeed's Fixed layout
+    at block 16): 80 tiles a head, the 16 tiles of four long columns (256
+    q-blocks, 64 steps) walked first, and the longest tile under a
+    persistent block's even share of the steps even at one sequence
+    (2 blocks on each of 132 SMs), so no list needs cutting."""
+    from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import \
+        FixedSparsityConfig
+    np.random.seed(0)
+    layout = FixedSparsityConfig(
+        num_heads=16, block=16, different_layout_per_head=True,
+        num_local_blocks=4, num_global_blocks=1,
+        num_different_global_patterns=4).make_layout(4096)
+    tables = bs.layout_tables(layout, 4096, 16, 16, "cpu")
+    work = tables.dkv_work()
+    assert tables.dkv_work() is work
+    assert work.summary() == {"tiles": 1280, "steps": 17408,
+                              "longest_tile_steps": 64, "chunk_steps": None}
+    first = [work.tiles[i] for i in work.order[:256]]
+    assert all(len(t.cols) == 4 and t.nq == 256 for t in first)
+    assert work.steps(work.tiles[work.order[256]].nq) < 64
+    assert 64 <= work.total_steps / (2 * 132)
+
+
+@pytest.mark.parametrize("kind,S,block,H", WORK_CASES)
+def test_chunked_dkv_matches_pallas_vjp(kind, S, block, H):
+    """The kernel's dk/dv tile by tile (each tile over its whole list)
+    against ``_bs_bwd`` in interpret mode at fp32 2e-5, on layouts with
+    long and short columns, shared tables, empty rows and an unattended
+    column."""
+    jnp = _jax("jax.numpy")
+    jbs = _jax("deepspeed_tpu.ops.pallas.blocksparse")
+    B, D = 1, 16
+    layout = _work_layout(kind, S, block, H)
+    q, k, v = _qkv(B, H, S, D, seed=2)
+    do = np.random.RandomState(3).randn(B, H, S, D).astype(np.float32)
+    flat = [a.reshape(B * H, S, D) for a in (q, k, v, do)]
+    jt = _jax_tables(layout, H)
+    scale = 1.0 / np.sqrt(D)
+    o_j, lse_j = jbs._bs_fwd(*(jnp.asarray(a) for a in flat[:3]), jt, scale,
+                             block, True)
+    _, dk_j, dv_j = jbs._bs_bwd(*(jnp.asarray(a) for a in flat[:3]), o_j,
+                                lse_j, jnp.asarray(flat[3]), jt, scale,
+                                block, True)
+    tables = bs.layout_tables(layout, S, block, H, "cpu")
+    o = np.asarray(o_j)
+    delta = t32((flat[3] * o).sum(-1))
+    dk, dv = bs.blocksparse_bwd_dkv_tiles(
+        *(t32(a) for a in flat[:3]), t32(flat[3]),
+        t32(np.array(lse_j)[..., 0]), delta, tables, scale)
+    assert_close(dk, np.asarray(dk_j))
+    assert_close(dv, np.asarray(dv_j))
+
+
 def _drop_last(tables, line, transposed=False):
     """The tables with the last listed block of row (or, transposed,
     column) ``line`` of table 0 left out: a planted fault."""
@@ -447,6 +585,34 @@ def test_cuda_kernels_match_plain(cuda_device, kind, block, B, H, S):
         for name, want, fault in faults:
             with pytest.raises(AssertionError, match="row-relative"):
                 tolerance.check_kernel(name, fault, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block,S", [(16, 4096), (32, 1024), (128, 1024)])
+@pytest.mark.parametrize("heads", ["per_head", "one_head"])
+def test_cuda_dkv_tiles_match_plain(cuda_device, block, S, heads):
+    """blocksparse_bwd_dkv over DeepSpeed's Fixed layout per head (long
+    and short columns), four heads of their own tables or one head alone
+    (the fewest tiles a launch walks): against the plain version, and a
+    rerun bit-equal."""
+    B, H = 2, 4
+    layout = _fixed_long_short(H, S, block)
+    if heads == "one_head":
+        B, H, layout = 1, 1, layout[:1]
+    tables = bs.layout_tables(layout, S, block, H, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v, do = (torch.randn(B * H, S, 64, generator=gen,
+                               device=cuda_device).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = bs.blocksparse_fwd_plain(q, k, v, tables)
+    delta = (do.float() * o).sum(-1)
+    args = (q, k, v, do, lse, delta, tables)
+    dk, dv = bs.blocksparse_bwd_dkv(*args)
+    dk2, dv2 = bs.blocksparse_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    for got, want in zip((dk, dv), bs.blocksparse_bwd_dkv_plain(*args)):
+        tolerance.check_kernel("blocksparse_bwd_dkv", got, want)
 
 
 @pytest.mark.gpu
