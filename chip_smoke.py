@@ -138,7 +138,10 @@ Phases, one JSON line each, each with its wall ``seconds``:
                boolean mask (forward; forward + backward for the
                backward rows) and the port's dense non-causal flash
                forward + backward (bench.py's bench_sparse_attention
-               comparison);
+               comparison); each row with its work list's size (tiles,
+               steps, the longest tile's steps) and three reruns bit for
+               bit; bounds of 4, 6 and 8 block²·D flops a listed block
+               pair (2, 3 and 4 products);
 8. train_bert_sparse — the GPT-2 engine freed, ``initialize`` of
                BertForPreTraining at BERT-large's full width and depth
                (E 1024, 24 layers, 16 heads of 64, vocab 30522; bf16
@@ -363,8 +366,10 @@ SR_DRAWS, SR_Z = 256, 4.0
 # (first match wins)
 TRAIN_KERNEL_GROUPS = (
     ("blocksparse_dkv", ("bs_dkv",)),
-    ("blocksparse_dq", ("bs_dq",)),
-    ("blocksparse_fwd", ("bs_fwd",)),
+    ("blocksparse_dq", ("bs_rows_tma_kernel<true>",
+                        "bs_rows_tma_kernelILb1")),
+    ("blocksparse_fwd", ("bs_rows_tma_kernel<false>",
+                         "bs_rows_tma_kernelILb0")),
     ("flash_bwd_delta", ("flash_bwd_delta",)),
     ("flash_bwd", ("flash_bwd",)),
     ("flash_fwd", ("flash_fwd",)),
@@ -1796,6 +1801,8 @@ def bert_kernel_phase(gen):
     delta = (do.float() * o).sum(-1)
     args = (q, k, v, do, lse, delta, tables)
     active = B * int(np.asarray(main).sum())          # (b, h, row, col) blocks
+    # flops a listed block pair: 2 block^2 D a product; the forward's 2
+    # (S, P V), dq's 3 (S, dP, dQ), dk/dv's 4 (S^T, dP^T, dV, dK)
     pair = block * block * D
     io = nbytes(q, k, v)
     rows = []
@@ -1817,24 +1824,24 @@ def bert_kernel_phase(gen):
              "one k-block left out of one row's table", sdpa_fwd_ms),
             ("blocksparse_bwd_dq", lambda: bs.blocksparse_bwd_dq(*args),
              lambda: bs.blocksparse_bwd_dq_plain(*args),
-             4 * pair * active, io + nbytes(do, lse, delta, q),
+             6 * pair * active, io + nbytes(do, lse, delta, q),
              "deepspeed_tpu/ops/pallas/blocksparse.py:187",
              "one k-block left out of one row's table",
              sdpa_fwd_ms + sdpa_bwd_ms),
             ("blocksparse_bwd_dkv", lambda: bs.blocksparse_bwd_dkv(*args),
              lambda: bs.blocksparse_bwd_dkv_plain(*args),
-             6 * pair * active, io + nbytes(do, lse, delta) + 2 * nbytes(o),
+             8 * pair * active, io + nbytes(do, lse, delta) + 2 * nbytes(o),
              "deepspeed_tpu/ops/pallas/blocksparse.py:250",
              "one q-block left out of one column's transposed table",
              sdpa_fwd_ms + sdpa_bwd_ms)):
         ms = time_graph_ms(lambda i, fn=fn: fn(), n=8, reps=5)
         call_ms = time_ms(fn, reps=5, inner=4)
         plain_ms = time_ms(plain, reps=3, inner=1, warmup=1)
-        extra = None
-        if name == "blocksparse_bwd_dkv":
-            # the work list the launch walks, and reruns bit for bit
-            extra = dict(tables.dkv_work().summary(), reruns_bit_equal=True)
-            bit_equal_reruns(name, fn)
+        # the work list the launch walks, and reruns bit for bit
+        work = tables.dkv_work() if name == "blocksparse_bwd_dkv" \
+            else tables.row_work()
+        extra = dict(work.summary(), reruns_bit_equal=True)
+        bit_equal_reruns(name, fn)
         record(rows, name, "train_bert_sparse", replaces, checks[name], ms,
                call_ms, plain_ms, bound(nbytes_, flops), info, fault,
                library_ms=lib, lse_err=lse_err if "fwd" in name else None,

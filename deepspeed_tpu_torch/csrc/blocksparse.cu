@@ -11,59 +11,67 @@
 // attend to it). th = bh % TH: TH = H tables, or 1 when every head shares
 // one layout.
 //
-// What bounds them on the H100: per active (row, column) block pair the
-// forward does 4 * block^2 * 64 flops over one [block, 64] K and V tile
-// (2 * block * 64 * 2 bytes); at block 16 that is 64 flops a byte, under
-// the ridge of ~295, so each kernel is bound by the bytes it streams, and
-// at block 16 by how many small tiles it can keep in flight. The bound
-// chip_smoke.py states counts each input once, which a kernel that
-// streams every active tile again cannot reach: the tiles come from L2.
+// What bounds them on the H100: per listed (row, column) block pair the
+// forward computes 2 products of block^2 * 64 multiply-adds (S, P.V), dq 3
+// (S, dP, dQ) and dk/dv 4 (S^T, dP^T, dV, dK), 4, 6 and 8 block^2 * 64
+// flops, over one [block, 64] K and V tile (or Q and dO). Each key tile is
+// read once for each row tile that lists it, out of L2; at 64 rows a tile
+// that is 128 flops a byte of L2 traffic. Beside the tensor cores, every
+// score takes one exp on the SFU (16 a clock an SM): at head dim 64 the
+// exps of a 64 x 64 step take as long as its two forward products.
 //
-// What the design does about it (the forward and dq: simple and right
-// first; dk/dv: redesigned for Hopper):
+// What the design does about it:
 // - The TPU kernels' lane padding to 128, block-major copies, DMA
 //   semaphores and grouped-row union tables are Mosaic's constraints and
-//   are not carried over. A CUDA block reads its own row of the table.
-// - Forward and dq: a block is 4 warps over 64 query rows, each warp 16
-//   rows held as mma.sync m16n8k16 A fragments in registers, as in
-//   flash_attention.cu. The warps that share a q-block row form a group
-//   of WPR = min(block, 64) / 16 warps: at block 16 each warp walks its
-//   own row's list, at block 32 pairs of warps, at 64 and 128 all four. A
-//   group stages each [16 WPR, 64] K/V tile of its active blocks in its
-//   own shared memory, synchronised by a named barrier of its own warps
-//   only. A block of 128 is two tiles of 64; a q-block row of 128 is two
-//   thread blocks that walk the same list.
+//   are not carried over.
+// - The host (ops/cuda/blocksparse.py TileWork) cuts the work into 64-row
+//   tiles: up to 64 / block lines (q-block rows for the forward and dq,
+//   k-block columns for dk/dv) of one table whose lists are the same, or
+//   half a line of 128, sorted longest first; a persistent grid walks that
+//   list (tile by tile, each over the B*H / TH heads that read its table,
+//   so blocks that run together share a head's K/V in L2). At BERT's
+//   layout (Fixed, block 16, S 4096) every q-block row lists 67 k-blocks
+//   and four consecutive rows share a list: 1024 full tiles of 17 steps.
+// - Forward and dq (bs_rows_tma_kernel<DQ>): a producer warp gathers the
+//   tile's Q (dq: and dO, lse, delta) once, box by box by TMA, into a
+//   double-buffered slot, and each step's 64 keys of K and V (64 / block
+//   listed k-blocks, or half a k-block of 128) into a ring of stages; the
+//   padded boxes of a short last step are read out of bounds (zeros) and
+//   their scores masked. A consumer warpgroup owns the tile's 64 rows:
+//   S = Q K^T (and dP = dO V^T) by wgmma m64n64k16 from shared memory,
+//   both operands K-major; then P (dS) is rounded to bf16 in registers as
+//   the A operand of O += P V (dQ += dS K), V (K) MN-major as staged. Each
+//   step issues the next step's S (and dP) together with this step's P V
+//   (dQ), and runs the next step's softmax (exp and dS) while that
+//   product is in flight, as flash_attention.cu's forward does.
+// - What chose it (an H100 at 700 W, BERT-large's layer: B 4, H 16, S
+//   4096, the Fixed layout at block 16; tests/perf/torch_kernel_ablate.py
+//   bsrows, µs forward / dq): this kernel 260 / 344, with loads alone 178
+//   / 249, products alone 226 / 310, sync alone 48 / 54; 128-key steps
+//   644 / 864 (n128 scores, a 2-deep ring, dq spills); the forward at two
+//   blocks an SM 331, dq at three 608 (spills at 128 registers, also
+//   with its dS moved after the dQ product: 558); two consumer
+//   warpgroups a block taking turns, each on its own tile, 566 / 583.
+//   So one consumer warpgroup a block, three blocks an SM for the
+//   forward (120 registers) and two for dq (168).
 // - dk/dv (bs_dkv_tma_kernel): the transposed lists are badly unbalanced
 //   (DeepSpeed's Fixed layout at block 16: 64 of a head's 256 columns
-//   list all 256 q-blocks, the rest 4), and one warp a 16-key column left
-//   three of a block's four warps idle for 252 of 256 steps behind a
-//   chain of plain loads and barriers (4.9 % of the bound). So the host
-//   (ops/cuda/blocksparse.py DkvWork) cuts the work into 64-key tiles --
-//   up to 64 / block columns whose lists are the same (at block 16 four
-//   of the long columns), or half a column of 128 -- sorted longest first;
-//   a persistent grid of two blocks an SM walks that list. (Cutting the
-//   long tiles' lists into chunks whose fp32 partials are summed
-//   afterwards was measured slower at BERT-large's layer, at 1 and 4
-//   sequences: its longest tile is under a block's even share.) A
-//   producer warp gathers each 64-row q step (64 / block listed
-//   q-blocks, their lse and delta) box by box by TMA into a 4-stage
-//   ring, so loads run ahead of the products, and the tile's K and V
-//   into a 2-deep ring. One consumer warpgroup
-//   runs all four products on the tensor cores (wgmma m64n64k16, below):
-//   with 64 keys as M a Q/dO step is read once for four columns, not once
-//   a column.
+//   list all 256 q-blocks, the rest 4), so the same work list over the
+//   transposed tables sorts its 64-key tiles longest first. A producer
+//   warp gathers each 64-row q step (Q, dO, lse and delta of 64 / block
+//   listed q-blocks) by TMA into a 4-stage ring and the tile's K and V
+//   into a 2-deep ring. One consumer warpgroup runs all four products on
+//   the tensor cores (wgmma m64n64k16): with 64 keys as M a Q/dO step is
+//   read once for four columns.
 // - Every key of an active block is valid (S is a multiple of the block),
-//   so no element mask is needed: the online softmax of the forward and
-//   the p = exp(s - lse) of the backward run unmasked (dk/dv masks only
-//   the q rows a short last step pads). A row with no active block gets
-//   o = 0 and lse = +1e30 (_bs_fwd_kernel :178-182), so the backward's
-//   exp(s - lse) is 0.
-// - No atomics on the outputs, deterministic: dq walks the rows' lists and
-//   dk/dv the columns' lists, as the Pallas backward splits them; one
-//   block computes a dk/dv tile whole, so a rerun is bit-equal. dk/dv
-//   computes S^T = K.Q^T and dP^T = V.dO^T so that P^T
-//   and dS^T come out in the A layout of the next product, as the flash
-//   backward does.
+//   so only the padding of a tile's last step is masked. A row with no
+//   active block gets o = 0 and lse = +1e30 (_bs_fwd_kernel :178-182), so
+//   the backward's exp(s - lse) is 0, and dq = 0.
+// - No atomics on the outputs, deterministic: the forward and dq walk the
+//   rows' lists and dk/dv the columns' lists, as the Pallas kernels split
+//   them; one block computes a tile whole, so a rerun is bit-equal. dk/dv
+//   computes S^T = K.Q^T and dP^T = V.dO^T so that P^T and dS^T come out
+//   in the A layout of the next product, as the flash backward does.
 // - o, dk and dv are written in fp32 (the Pallas outputs' type: backward's
 //   delta = rowsum(do * o) reads the unrounded o); dq in bf16.
 
@@ -76,303 +84,417 @@
 
 namespace {
 
-constexpr int HD = 64;          // head dim
-constexpr int SROW = HD + 8;    // padded shared-memory row: conflict-free
-constexpr int NT = 128;         // 4 warps, 64 rows (or keys) a block
-constexpr unsigned kFull = 0xffffffffu;
 constexpr float POS_INF = 1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int KT = 64;                      // rows (keys) a tile
+constexpr int TILE_BYTES = KT * 128;        // [64][64] bf16, 128B swizzle
+// a tile (ops/cuda/blocksparse.py TileWork): its table, row (key) offset
+// in its lines (block 128), lines (1 .. 64 / block, one list), the lines,
+// the list's length
+constexpr int TILE_INTS = 8;
 
-// The WPR warps of group `group` meet here (named barrier 1 + group; bar 0
-// is __syncthreads'): the tile in shared memory is complete, or free.
-template <int WPR>
-__device__ __forceinline__ void group_sync(int group) {
-  if (WPR == 1)
-    __syncwarp();
-  else
-    asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "r"(32 * WPR)
-                 : "memory");
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// rows r0 .. r0 + 16 WPR - 1 of a [S, 64] head into a padded shared tile,
-// by the group's 32 WPR threads
-template <int WPR>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
-                                          int gtid) {
-  for (int i = gtid; i < 16 * WPR * HD / 8; i += 32 * WPR) {
-    const int row = i / (HD / 8), c8 = i % (HD / 8);
-    *reinterpret_cast<uint4*>(dst + row * SROW + c8 * 8) = __ldg(
-        reinterpret_cast<const uint4*>(src + (size_t)(r0 + row) * HD) + c8);
-  }
-}
+// ------------------------------------------ forward and dq (TMA, wgmma)
 
-// A fragments (16 rows x 64) of rows r and r + 8 of a [S, 64] head
-__device__ __forceinline__ void load_a_frags(uint32_t f[4][4], const bf16* p,
-                                             int r, int t4) {
-  const uint32_t* p0 = reinterpret_cast<const uint32_t*>(p + (size_t)r * HD);
-  const uint32_t* p1 =
-      reinterpret_cast<const uint32_t*>(p + (size_t)(r + 8) * HD);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    f[kk][0] = p0[kk * 8 + t4];
-    f[kk][1] = p1[kk * 8 + t4];
-    f[kk][2] = p0[kk * 8 + 4 + t4];
-    f[kk][3] = p1[kk * 8 + 4 + t4];
-  }
-}
+constexpr int RW_KN = 64;                   // keys a step
+constexpr int RW_THREADS = 160;             // a consumer warpgroup + a warp
+constexpr int RW_KV_BYTES = RW_KN * 128;    // K or V of a step
 
-// acc[j] (16 x 8, j < NJ) = A (16 x 64) . T^T for an (8 NJ)-row shared tile
-// T whose rows are the product's n index: S = Q.K^T
-template <int NJ>
-__device__ __forceinline__ void mma_abt(float acc[NJ][4],
-                                        const uint32_t a[4][4], const bf16* t,
-                                        int lane) {
-  const int r = lane % 8, m = lane / 8;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-    for (int kp = 0; kp < 2; ++kp) {
-      uint32_t b[4];
-      ldsm_x4(b, t + (j * 8 + r) * SROW + kp * 32 + m * 8);
-      mma_bf16(acc[j], a[2 * kp], b);
-      mma_bf16(acc[j], a[2 * kp + 1], b + 2);
-    }
-  }
-}
-
-// out[dn] (16 x 8, dn < 8) += X (16 x 8 NJ, held as accumulators x[j])
-// rounded to bf16, . T for an (8 NJ)-row shared [., 64] tile T whose rows
-// are the product's k index: O += P.V
-template <int NJ>
-__device__ __forceinline__ void mma_xt(float out[8][4], const float x[NJ][4],
-                                       const bf16* t, int lane) {
-  const int r = lane % 8, m = lane / 8;
-#pragma unroll
-  for (int kk = 0; kk < NJ / 2; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_f32(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_f32(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_f32(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_f32(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_t(b, t + (kk * 16 + (m & 1) * 8 + r) * SROW +
-                       (2 * dp + (m >> 1)) * 8);
-      mma_bf16(out[2 * dp], a, b);
-      mma_bf16(out[2 * dp + 1], a, b + 2);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float acc[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-}
-
-// rows r and r + 8 of a [S, 64] fp32 head from accumulators, times mul
-__device__ __forceinline__ void store_f32(float* p, const float acc[8][4],
-                                          int r, int t4, float mul0,
-                                          float mul1) {
-#pragma unroll
-  for (int dn = 0; dn < 8; ++dn) {
-    const int col = dn * 8 + 2 * t4;
-    *reinterpret_cast<float2*>(p + (size_t)r * HD + col) =
-        make_float2(acc[dn][0] * mul0, acc[dn][1] * mul0);
-    *reinterpret_cast<float2*>(p + (size_t)(r + 8) * HD + col) =
-        make_float2(acc[dn][2] * mul1, acc[dn][3] * mul1);
-  }
-}
-
-// The same rows in bf16
-__device__ __forceinline__ void store_bf16(bf16* p, const float acc[8][4],
-                                           int r, int t4, float mul) {
-#pragma unroll
-  for (int dn = 0; dn < 8; ++dn) {
-    const int col = dn * 8 + 2 * t4;
-    *reinterpret_cast<uint32_t*>(p + (size_t)r * HD + col) =
-        pack_f32(acc[dn][0] * mul, acc[dn][1] * mul);
-    *reinterpret_cast<uint32_t*>(p + (size_t)(r + 8) * HD + col) =
-        pack_f32(acc[dn][2] * mul, acc[dn][3] * mul);
-  }
-}
-
-// Where a warp and its group sit: the block's 64 rows (keys) start at
-// blockIdx.x * 64; group `group` of WPR warps owns 16 WPR of them, all in
-// one q-block row (k-block column) `line` of the table.
-template <int WPR>
-struct Place {
-  int warp, lane, g, t4, group, gtid, row, grow, bh, th;
-  __device__ explicit Place(int TH) {
-    warp = threadIdx.x / 32;
-    lane = threadIdx.x % 32;
-    g = lane / 4;
-    t4 = lane % 4;
-    group = warp / WPR;
-    gtid = threadIdx.x - group * 32 * WPR;
-    row = blockIdx.x * 64 + warp * 16 + g;   // this thread's rows: row, +8
-    grow = blockIdx.x * 64 + group * 16 * WPR;
-    bh = blockIdx.y;
-    th = bh % TH;
-  }
+// blocks an SM and K/V stages: the forward's consumer (120 registers)
+// fits three blocks of 3 stages, dq's (168) two of 4. Shared memory: two
+// Q slots (Q; dq: dO, then lse and delta of the tile's 64 rows), the
+// K/V stages (K, then V), the mbarriers (Q full / empty of each slot,
+// then each stage's full / empty).
+template <bool DQ>
+struct RowCfg {
+  static constexpr int CTAS = DQ ? 2 : 3;
+  static constexpr int NST = DQ ? 4 : 3;
+  static constexpr int Q_SLOT = DQ ? 2 * TILE_BYTES + 1024 : TILE_BYTES;
+  static constexpr int BARS = 4 + 2 * NST;
+  static constexpr int SMEM =
+      1024 + 2 * Q_SLOT + NST * 2 * RW_KV_BYTES + BARS * 8;
 };
 
-template <int WPR>
-__global__ void __launch_bounds__(NT) bs_fwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const int* __restrict__ counts,
-    const int* __restrict__ cols, int max_nnz, float* __restrict__ o,
-    float* __restrict__ lse, int TH, int S, int block, float scale) {
-  constexpr int TK = 16 * WPR, NJ = TK / 8;
-  __shared__ __align__(16) bf16 ks[64 * SROW];
-  __shared__ __align__(16) bf16 vs[64 * SROW];
-  const Place<WPR> at(TH);
-  if (at.grow >= S) return;   // the ragged end: whole groups only
-  const int nb = S / block, r = at.grow / block;
-  const int nnz = counts[at.th * nb + r];
-  const int* list = cols + ((size_t)at.th * nb + r) * max_nnz;
-  const size_t base = (size_t)at.bh * S * HD;
-  bf16* kt = ks + at.group * TK * SROW;
-  bf16* vt = vs + at.group * TK * SROW;
+struct RowMaps {
+  CUtensorMap q, k, v, dout;   // [BH * S, 64] bf16, boxes [piece][64]
+};
 
-  uint32_t qf[4][4];
-  load_a_frags(qf, q + base, at.row, at.t4);
-  float of[8][4];
-  zero(of);
-  float m0 = -1e30f, m1 = -1e30f, l0 = 0.f, l1 = 0.f;
+// work item w: tile w / rep of the list, for head (w % rep) * TH + table,
+// in steps of RW_KN keys of its list's blocks
+struct RowItem {
+  const int* tile;
+  int bh, steps;
+};
 
-  for (int j = 0; j < nnz; ++j) {
-    for (int k0 = list[j] * block, end = k0 + block; k0 < end; k0 += TK) {
-      group_sync<WPR>(at.group);
-      load_tile<WPR>(kt, k + base, k0, at.gtid);
-      load_tile<WPR>(vt, v + base, k0, at.gtid);
-      group_sync<WPR>(at.group);
-
-      float sf[NJ][4];
-      mma_abt<NJ>(sf, qf, kt, at.lane);   // S = Q.K^T
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sf[jj][e] *= scale;
-          if (e < 2) mx0 = fmaxf(mx0, sf[jj][e]);
-          else mx1 = fmaxf(mx1, sf[jj][e]);
-        }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
-      const float a0 = __expf(m0 - mx0), a1 = __expf(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = __expf(sf[jj][e] - (e < 2 ? mx0 : mx1));
-          sf[jj][e] = p;
-          if (e < 2) ps0 += p;
-          else ps1 += p;
-        }
-      l0 = l0 * a0 + ps0;
-      l1 = l1 * a1 + ps1;
-#pragma unroll
-      for (int dn = 0; dn < 8; ++dn) {
-        of[dn][0] *= a0;
-        of[dn][1] *= a0;
-        of[dn][2] *= a1;
-        of[dn][3] *= a1;
-      }
-      mma_xt<NJ>(of, sf, vt, at.lane);    // O += P.V
-    }
-  }
-
-  l0 += __shfl_xor_sync(kFull, l0, 1);
-  l0 += __shfl_xor_sync(kFull, l0, 2);
-  l1 += __shfl_xor_sync(kFull, l1, 1);
-  l1 += __shfl_xor_sync(kFull, l1, 2);
-  // nnz == 0: l = 0, o = 0, lse = +1e30
-  store_f32(o + base, of, at.row, at.t4, l0 > 0.f ? 1.f / l0 : 0.f,
-            l1 > 0.f ? 1.f / l1 : 0.f);
-  if (at.t4 == 0) {
-    float* lp = lse + (size_t)at.bh * S;
-    lp[at.row] = l0 > 0.f ? m0 + logf(l0) : POS_INF;
-    lp[at.row + 8] = l1 > 0.f ? m1 + logf(l1) : POS_INF;
-  }
+__device__ __forceinline__ RowItem row_item(const int* tiles, int w,
+                                            int rep, int TH, int block) {
+  RowItem it;
+  it.tile = tiles + (w / rep) * TILE_INTS;
+  it.bh = (w % rep) * TH + it.tile[0];
+  it.steps = (it.tile[7] * block + RW_KN - 1) / RW_KN;
+  return it;
 }
 
-// dq of 16 WPR query rows over their row's active k-blocks
-template <int WPR>
-__global__ void __launch_bounds__(NT) bs_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ counts, const int* __restrict__ cols, int max_nnz,
-    bf16* __restrict__ dq, int TH, int S, int block, float scale) {
-  constexpr int TK = 16 * WPR, NJ = TK / 8;
-  __shared__ __align__(16) bf16 ks[64 * SROW];
-  __shared__ __align__(16) bf16 vs[64 * SROW];
-  const Place<WPR> at(TH);
-  if (at.grow >= S) return;
-  const int nb = S / block, r = at.grow / block;
-  const int nnz = counts[at.th * nb + r];
-  const int* list = cols + ((size_t)at.th * nb + r) * max_nnz;
-  const size_t base = (size_t)at.bh * S * HD;
-  bf16* kt = ks + at.group * TK * SROW;
-  bf16* vt = vs + at.group * TK * SROW;
-
-  uint32_t qf[4][4], df[4][4];
-  load_a_frags(qf, q + base, at.row, at.t4);
-  load_a_frags(df, dout + base, at.row, at.t4);
-  const float* lp = lse + (size_t)at.bh * S;
-  const float* dlp = delta + (size_t)at.bh * S;
-  const float ls0 = lp[at.row], ls1 = lp[at.row + 8];
-  const float d0 = dlp[at.row], d1 = dlp[at.row + 8];
-  float dqf[8][4];
-  zero(dqf);
-
-  for (int j = 0; j < nnz; ++j) {
-    for (int k0 = list[j] * block, end = k0 + block; k0 < end; k0 += TK) {
-      group_sync<WPR>(at.group);
-      load_tile<WPR>(kt, k + base, k0, at.gtid);
-      load_tile<WPR>(vt, v + base, k0, at.gtid);
-      group_sync<WPR>(at.group);
-
-      float sf[NJ][4], dsf[NJ][4];
-      mma_abt<NJ>(sf, qf, kt, at.lane);    // S = Q.K^T
-      mma_abt<NJ>(dsf, df, vt, at.lane);   // dP = dO.V^T
+// S = A B^T over head dim 64: 4 k16 steps, both operands K-major (64 rows
+// of A, N rows of B)
+template <int N>
+__device__ __forceinline__ void rw_issue_abt(float (&acc)[N / 2],
+                                             const unsigned char* a,
+                                             const unsigned char* b) {
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj)
+  for (int kk = 0; kk < 4; ++kk)
+    sm90::wgmma_ss<N, 0, 0>(acc, sm90::wgmma_desc(a + kk * 32, 16, 1024),
+                            sm90::wgmma_desc(b + kk * 32, 16, 1024), kk > 0);
+}
+
+// acc (64 x 64) += X B for X (64 x N) from registers and B an N-row [keys]
+// [64] stage tile read MN-major: O += P V, dQ += dS K
+template <int N>
+__device__ __forceinline__ void rw_issue_xb(float (&acc)[32],
+                                            uint32_t (&x)[N / 16][4],
+                                            const unsigned char* b) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = __expf(sf[jj][e] * scale - (e < 2 ? ls0 : ls1));
-          dsf[jj][e] = p * (dsf[jj][e] - (e < 2 ? d0 : d1));
+  for (int kk = 0; kk < N / 16; ++kk)
+    sm90::wgmma_rs<64, 1>(acc, x[kk],
+                          sm90::wgmma_desc(b + kk * 2048, N * 128, 1024), 1);
+}
+
+// the accumulator x (64 x N) rounded to bf16 as A operands (k16 step kk:
+// columns 16 kk .. + 15, accumulators 8 kk .. 8 kk + 7)
+template <int N>
+__device__ __forceinline__ void rw_pack(uint32_t (&x)[N / 16][4],
+                                        const float (&acc)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[kk][i] = pack_f32(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void rw_fence(uint32_t (&x)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) sm90::fence_regs(x[kk]);
+}
+
+// One step's online softmax for this thread's rows over the S accumulator
+// s (raw q.k), in place: keys at or past `valid` (the padding of a short
+// last step) to -1e30, the running max m (raw units), alpha = the old
+// sum's rescale, s = exp(scale (s - m)) and the partial sums l (c = scale
+// log2 e)
+template <int N>
+__device__ __forceinline__ void rw_softmax(float (&s)[N / 2], float (&m)[2],
+                                           float (&l)[2], float (&alpha)[2],
+                                           int valid, float c) {
+  const int t4 = threadIdx.x & 3;
+  if (valid < N) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * t4 + (e & 1) >= valid) s[4 * j + e] = -1e30f;
+  }
+  float mx0 = m[0], mx1 = m[1];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
+  alpha[0] = ex2((m[0] - mx0) * c);
+  alpha[1] = ex2((m[1] - mx1) * c);
+  m[0] = mx0;
+  m[1] = mx1;
+  const float mc0 = mx0 * c, mc1 = mx1 * c;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    s[4 * j] = ex2(fmaf(s[4 * j], c, -mc0));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], c, -mc0));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], c, -mc1));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], c, -mc1));
+    ps0 += s[4 * j] + s[4 * j + 1];
+    ps1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l[0] = l[0] * alpha[0] + ps0;
+  l[1] = l[1] * alpha[1] + ps1;
+}
+
+// One step's dS for this thread's rows, in place in dp: p = exp(scale s -
+// lse) (ls = lse log2 e, 0 at keys at or past `valid`), dS = p (dp -
+// delta)
+template <int N>
+__device__ __forceinline__ void rw_ds(const float (&s)[N / 2],
+                                      float (&dp)[N / 2], const float (&ls)[2],
+                                      const float (&dl)[2], int valid,
+                                      float c) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const float p = 8 * j + 2 * t4 + (e & 1) < valid
+                          ? ex2(fmaf(s[4 * j + e], c, -ls[h]))
+                          : 0.f;
+      dp[4 * j + e] = p * (dp[4 * j + e] - dl[h]);
+    }
+}
+
+__device__ __forceinline__ void rw_release(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) sm90::mbar_arrive(bar);
+}
+
+// The forward (DQ false: o fp32 and lse) or dq (DQ true: bf16, from lse
+// and delta) of the row work list, persistent: block b takes work items
+// b, b + gridDim.x, ..; its producer warp loads each item's Q slot, then
+// its steps into the ring, and its consumer warpgroup computes the item.
+template <bool DQ>
+__global__ void __launch_bounds__(RW_THREADS, RowCfg<DQ>::CTAS)
+    bs_rows_tma_kernel(const __grid_constant__ RowMaps maps, float* lse,
+                       const float* delta, const int* __restrict__ cols,
+                       const int* __restrict__ tiles, float* __restrict__ o,
+                       bf16* __restrict__ dq, int TH, int S, int block,
+                       int max_nnz, int n_work, int rep, float scale) {
+  using C = RowCfg<DQ>;
+  constexpr int NST = C::NST;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* stages = smem + 2 * C::Q_SLOT;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(stages +
+                                                 NST * 2 * RW_KV_BYTES);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_full + 4;
+  uint64_t* empty = full + NST;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nb = S / block, piece = block < KT ? block : KT;
+  const int rows = rep * TH * S;        // past the last row: a box of zeros
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      sm90::mbar_init(&q_full[i], 1);
+      sm90::mbar_init(&q_empty[i], 4);
+    }
+    for (int i = 0; i < NST; ++i) {
+      sm90::mbar_init(&full[i], 1);
+      sm90::mbar_init(&empty[i], 4);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {   // the producer warp: one lane issues
+    if (lane != 0) return;
+    sm90::tma_prefetch_map(&maps.q);
+    sm90::tma_prefetch_map(&maps.k);
+    sm90::tma_prefetch_map(&maps.v);
+    if (DQ) sm90::tma_prefetch_map(&maps.dout);
+    int qi = 0, it = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+      const RowItem item = row_item(tiles, w, rep, TH, block);
+      if (item.steps == 0) continue;
+      const int* t = item.tile;
+      // the tile's rows: Q (dq: dO, lse, delta), box by box
+      const int slot = qi % 2, per = KT / piece, nl = t[2];
+      sm90::mbar_wait(&q_empty[slot], ((qi / 2) & 1) ^ 1);
+      sm90::mbar_expect_tx(&q_full[slot], (DQ ? 2 : 1) * TILE_BYTES +
+                                              (DQ ? 2 * nl * piece * 4 : 0));
+      unsigned char* qb = smem + slot * C::Q_SLOT;
+      float* lsd = reinterpret_cast<float*>(qb + 2 * TILE_BYTES);
+      for (int i = 0; i < per; ++i) {
+        const int row = i < nl ? item.bh * S + t[3 + i] * block + t[1] : rows;
+        sm90::tma_load_2d(qb + i * piece * 128, &maps.q, 0, row,
+                          &q_full[slot]);
+        if (DQ) {
+          sm90::tma_load_2d(qb + TILE_BYTES + i * piece * 128, &maps.dout, 0,
+                            row, &q_full[slot]);
+          if (i < nl) {
+            sm90::bulk_load(lsd + i * piece, lse + row, piece * 4,
+                            &q_full[slot]);
+            sm90::bulk_load(lsd + KT + i * piece, delta + row, piece * 4,
+                            &q_full[slot]);
+          }
         }
-      mma_xt<NJ>(dqf, dsf, kt, at.lane);   // dQ += dS.K
+      }
+      ++qi;
+      // the steps: RW_KN keys of the list's blocks, box by box
+      const int* list = cols + ((size_t)t[0] * nb + t[3]) * max_nnz;
+      for (int r = 0; r < item.steps; ++r, ++it) {
+        const int st = it % NST;
+        sm90::mbar_wait(&empty[st], ((it / NST) & 1) ^ 1);
+        sm90::mbar_expect_tx(&full[st], 2 * RW_KV_BYTES);
+        unsigned char* kb = stages + st * 2 * RW_KV_BYTES;
+        for (int i = 0; i < RW_KN / piece; ++i) {
+          const int key = r * RW_KN + i * piece;   // in the list's keys
+          const int j = key / block;
+          const int row =
+              j < t[7] ? item.bh * S + list[j] * block + key % block : rows;
+          sm90::tma_load_2d(kb + i * piece * 128, &maps.k, 0, row, &full[st]);
+          sm90::tma_load_2d(kb + RW_KV_BYTES + i * piece * 128, &maps.v, 0,
+                            row, &full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: warp w holds rows 16 w + g (+ 8) of a tile
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = 16 * warp + g;
+  const float cs = scale * LOG2E;
+  float acc[32], sacc[RW_KN / 2];
+  float dpa[RW_KN / 2];
+  uint32_t x[RW_KN / 16][4];
+  int qi = 0, it = 0;
+  for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+    const RowItem me = row_item(tiles, w, rep, TH, block);
+    const int steps = me.steps;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, alpha[2];
+    float ls[2], dl[2];
+    if (steps > 0) {
+      const int slot = qi % 2;
+      const unsigned char* qa = smem + slot * C::Q_SLOT;
+      const unsigned char* da = qa + TILE_BYTES;
+      // keys of the last step that belong to the list
+      const int last = me.tile[7] * block - (steps - 1) * RW_KN;
+      sm90::mbar_wait(&q_full[slot], (qi / 2) & 1);
+      if (DQ) {
+        const float* lsd = reinterpret_cast<const float*>(qa + 2 * TILE_BYTES);
+        ls[0] = lsd[r0] * LOG2E;
+        ls[1] = lsd[r0 + 8] * LOG2E;
+        dl[0] = lsd[KT + r0];
+        dl[1] = lsd[KT + r0 + 8];
+      }
+      const unsigned char* kb0 = stages + (it % NST) * 2 * RW_KV_BYTES;
+      sm90::mbar_wait(&full[it % NST], (it / NST) & 1);
+      sm90::fence_regs(sacc);
+      if (DQ) sm90::fence_regs(dpa);
+      sm90::wgmma_fence();
+      rw_issue_abt<RW_KN>(sacc, qa, kb0);
+      if (DQ) rw_issue_abt<RW_KN>(dpa, da, kb0 + RW_KV_BYTES);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sacc);
+      if (DQ) {
+        sm90::fence_regs(dpa);
+        rw_ds<RW_KN>(sacc, dpa, ls, dl, steps == 1 ? last : RW_KN, cs);
+        rw_pack<RW_KN>(x, dpa);
+      } else {
+        rw_softmax<RW_KN>(sacc, m, l, alpha, steps == 1 ? last : RW_KN, cs);
+        rw_pack<RW_KN>(x, sacc);
+      }
+      // step j: the products of step j + 1's scores issued with step j's
+      // P V (dS K); step j + 1's softmax (dS) runs while that is in flight
+      for (int j = 0; j < steps; ++j, ++it) {
+        const bool more = j + 1 < steps;
+        const int s0 = it % NST, s1 = (it + 1) % NST;
+        const unsigned char* kb = stages + s0 * 2 * RW_KV_BYTES;
+        const unsigned char* kn = stages + s1 * 2 * RW_KV_BYTES;
+        if (more) sm90::mbar_wait(&full[s1], ((it + 1) / NST) & 1);
+        sm90::fence_regs(acc);
+        sm90::fence_regs(sacc);
+        if (DQ) sm90::fence_regs(dpa);
+        rw_fence<RW_KN>(x);
+        sm90::wgmma_fence();
+        if (more) {
+          rw_issue_abt<RW_KN>(sacc, qa, kn);
+          if (DQ) rw_issue_abt<RW_KN>(dpa, da, kn + RW_KV_BYTES);
+          sm90::wgmma_commit();
+        }
+        // O += P V (V of step j), dQ += dS K (K of step j)
+        rw_issue_xb<RW_KN>(acc, x, DQ ? kb : kb + RW_KV_BYTES);
+        sm90::wgmma_commit();
+        const int valid = j + 2 == steps ? last : RW_KN;
+        if (more) {
+          sm90::wgmma_wait<1>();
+          sm90::fence_regs(sacc);
+          if (DQ) {
+            sm90::fence_regs(dpa);
+            rw_ds<RW_KN>(sacc, dpa, ls, dl, valid, cs);
+          } else {
+            rw_softmax<RW_KN>(sacc, m, l, alpha, valid, cs);
+          }
+        }
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+        rw_fence<RW_KN>(x);
+        rw_release(&empty[s0]);
+        if (more) {
+          if (DQ) {
+            rw_pack<RW_KN>(x, dpa);
+          } else {
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+              acc[4 * jj] *= alpha[0];
+              acc[4 * jj + 1] *= alpha[0];
+              acc[4 * jj + 2] *= alpha[1];
+              acc[4 * jj + 3] *= alpha[1];
+            }
+            rw_pack<RW_KN>(x, sacc);
+          }
+        }
+      }
+      rw_release(&q_empty[slot]);
+      ++qi;
+    }
+
+    // the tile's rows: slot rr -> line rr / piece, row rr % piece
+    const int* t = me.tile;
+    if (!DQ) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(kFull, l[h], 1);
+        l[h] += __shfl_xor_sync(kFull, l[h], 2);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = r0 + 8 * h, li = rr / piece;
+      if (li >= t[2]) continue;
+      const size_t row =
+          (size_t)me.bh * S + t[3 + li] * block + t[1] + rr % piece;
+      if (DQ) {
+        bf16* dr = dq + row * 64 + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(dr + 8 * j) =
+              pack_f32(acc[4 * j + 2 * h] * scale,
+                       acc[4 * j + 2 * h + 1] * scale);
+      } else {
+        // a row of no block: l = 0, o = 0, lse = +1e30
+        const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+        float* orow = o + row * 64 + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(
+              acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+        if (t4 == 0)
+          lse[row] = l[h] > 0.f ? m[h] * scale + logf(l[h]) : POS_INF;
+      }
     }
   }
-  store_bf16(dq + base, dqf, at.row, at.t4, scale);
 }
 
 // ------------------------------------------------------ dk/dv (TMA, wgmma)
 
-constexpr int KT = 64;                      // keys a tile, q rows a step
-constexpr int TILE_BYTES = KT * 128;        // [64][64] bf16, 128B swizzle
 constexpr int DKV_NST = 4;                  // stages of the Q/dO ring
 constexpr int DKV_STAGE = 2 * TILE_BYTES + 1024;   // Q, dO, lse, delta
 constexpr int DKV_KVST = 2;                 // key tiles in flight
 constexpr int DKV_THREADS = 160;            // a consumer warpgroup + a warp
 constexpr int DKV_SMEM =
     1024 + DKV_NST * DKV_STAGE + DKV_KVST * 2 * TILE_BYTES + 128;
-// a key tile (ops/cuda/blocksparse.py DkvWork): its table, key offset in
-// its column (block 128), columns (1 .. 64 / block, same q-block list),
-// the columns, the list's length
-constexpr int TILE_INTS = 8;
 
 struct DkvMaps {
   CUtensorMap q, k, v, dout;   // [BH * S, 64] bf16, boxes [piece][64]
@@ -600,72 +722,81 @@ __global__ void __launch_bounds__(DKV_THREADS) bs_dkv_tma_kernel(
   }
 }
 
-// warps a q-block row (k-block column) shares: 1, 2 or 4; 0 for a block
-// the kernels do not take
-int group_warps(int block) {
-  switch (block) {
-    case 16: return 1;
-    case 32: return 2;
-    case 64:
-    case 128: return 4;
-    default: return 0;
+// the blocks the kernels take
+bool block_ok(int block) {
+  return block == 16 || block == 32 || block == 64 || block == 128;
+}
+
+// the row walk's launch: out is o (fp32) for the forward, dq (bf16) for
+// dq, whose lse and delta are inputs
+template <bool DQ>
+int launch_rows(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                const void* cols, const void* tiles, void* out, int BH,
+                int TH, int S, int block, int max_nnz, int n_tiles,
+                float scale, cudaStream_t st) {
+  if (!block_ok(block) || TH <= 0 || BH % TH || S % block)
+    return (int)cudaErrorInvalidValue;
+  const int rep = BH / TH, n_work = n_tiles * rep;
+  if (n_work == 0) return (int)cudaSuccess;
+  RowMaps maps;
+  const int rows = BH * S, box = block < KT ? block : KT;
+  cudaError_t e = sm90::encode_2d(&maps.q, q, rows, 64, box);
+  if (e == cudaSuccess) e = sm90::encode_2d(&maps.k, k, rows, 64, box);
+  if (e == cudaSuccess) e = sm90::encode_2d(&maps.v, v, rows, 64, box);
+  if (e == cudaSuccess && DQ)
+    e = sm90::encode_2d(&maps.dout, dout, rows, 64, box);
+  if (e != cudaSuccess) return (int)e;
+  static bool allowed = false;     // one attribute call a process
+  if (!allowed) {
+    e = cudaFuncSetAttribute(bs_rows_tma_kernel<DQ>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             RowCfg<DQ>::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    allowed = true;
   }
+  const int slots = RowCfg<DQ>::CTAS * sm90::sm_count();
+  const int grid = n_work < slots ? n_work : slots;
+  bs_rows_tma_kernel<DQ><<<grid, RW_THREADS, RowCfg<DQ>::SMEM, st>>>(
+      maps, (float*)lse, (const float*)delta, (const int*)cols,
+      (const int*)tiles, DQ ? nullptr : (float*)out,
+      DQ ? (bf16*)out : nullptr, TH, S, block, max_nnz, n_work, rep, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v bf16 [BH, S, 64]; counts int32 [TH, S / block], cols int32
-// [TH, S / block, max_nnz]; o fp32 [BH, S, 64], lse fp32 [BH, S]. S a
-// multiple of block (the wrapper checks both).
+// q, k, v bf16 [BH, S, 64]; cols int32 [TH, S / block, max_nnz] the rows'
+// k-block lists; tiles int32 [n_tiles, 8] the row work list in walk order
+// (ops/cuda/blocksparse.py TileWork), walked for each of the BH / TH heads
+// of a table; o fp32 [BH, S, 64], lse fp32 [BH, S]. S a multiple of block
+// (the wrapper checks both).
 extern "C" int dstpu_bs_fwd(const void* q, const void* k, const void* v,
-                            const void* counts, const void* cols, void* o,
+                            const void* cols, const void* tiles, void* o,
                             void* lse, int BH, int TH, int S, int block,
-                            int max_nnz, float scale, void* stream) {
-  const dim3 grid((S + 63) / 64, BH);
-  cudaStream_t st = (cudaStream_t)stream;
-#define BS_FWD(W)                                                            \
-  bs_fwd_kernel<W><<<grid, NT, 0, st>>>(                                     \
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)counts,    \
-      (const int*)cols, max_nnz, (float*)o, (float*)lse, TH, S, block,    \
-      scale)
-  switch (group_warps(block)) {
-    case 1: BS_FWD(1); break;
-    case 2: BS_FWD(2); break;
-    case 4: BS_FWD(4); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef BS_FWD
-  return (int)cudaGetLastError();
+                            int max_nnz, int n_tiles, float scale,
+                            void* stream) {
+  return launch_rows<false>(q, k, v, nullptr, lse, nullptr, cols, tiles, o,
+                            BH, TH, S, block, max_nnz, n_tiles, scale,
+                            (cudaStream_t)stream);
 }
 
-// dq bf16 [BH, S, 64]; lse, delta fp32 [BH, S]
+// dq bf16 [BH, S, 64]; lse, delta fp32 [BH, S]; the rest as dstpu_bs_fwd
 extern "C" int dstpu_bs_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
-                               const void* delta, const void* counts,
-                               const void* cols, void* dq, int BH, int TH,
-                               int S, int block, int max_nnz, float scale,
-                               void* stream) {
-  const dim3 grid((S + 63) / 64, BH);
-  cudaStream_t st = (cudaStream_t)stream;
-#define BS_DQ(W)                                                             \
-  bs_dq_kernel<W><<<grid, NT, 0, st>>>(                                      \
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,     \
-      (const float*)lse, (const float*)delta, (const int*)counts,            \
-      (const int*)cols, max_nnz, (bf16*)dq, TH, S, block, scale)
-  switch (group_warps(block)) {
-    case 1: BS_DQ(1); break;
-    case 2: BS_DQ(2); break;
-    case 4: BS_DQ(4); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef BS_DQ
-  return (int)cudaGetLastError();
+                               const void* delta, const void* cols,
+                               const void* tiles, void* dq, int BH, int TH,
+                               int S, int block, int max_nnz, int n_tiles,
+                               float scale, void* stream) {
+  return launch_rows<true>(q, k, v, dout, lse, delta, cols, tiles, dq, BH,
+                           TH, S, block, max_nnz, n_tiles, scale,
+                           (cudaStream_t)stream);
 }
 
 // rows_t: the transposed layout's q-block lists [TH, S / block,
-// max_nnz_t]; tiles int32 [n_tiles, 8] the work list in walk order
-// (ops/cuda/blocksparse.py DkvWork), walked for each of the BH / TH heads
-// of a table; dk, dv fp32 [BH, S, 64]
+// max_nnz_t]; tiles int32 [n_tiles, 8] the dk/dv work list in walk order
+// (ops/cuda/blocksparse.py TileWork over the transposed tables), walked
+// for each of the BH / TH heads of a table; dk, dv fp32 [BH, S, 64]
 extern "C" int dstpu_bs_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, const void* rows_t,
@@ -673,7 +804,7 @@ extern "C" int dstpu_bs_bwd_dkv(const void* q, const void* k, const void* v,
                                 int BH, int TH, int S, int block,
                                 int max_nnz_t, int n_tiles, float scale,
                                 void* stream) {
-  if (group_warps(block) == 0 || TH <= 0 || BH % TH || S % block)
+  if (!block_ok(block) || TH <= 0 || BH % TH || S % block)
     return (int)cudaErrorInvalidValue;
   const int rep = BH / TH, n_work = n_tiles * rep;
   if (n_work == 0) return (int)cudaSuccess;

@@ -31,72 +31,77 @@ ROADMAP_BS = ("ROADMAP.md queue 2, item \"block-sparse attention: masks, "
 # the plain versions gather the active blocks of this many bytes of rows
 # at a time
 PLAIN_CHUNK_BYTES = 1 << 30
-# the dk/dv kernel's key tile and q step (csrc/blocksparse.cu KT)
-DKV_TILE = 64
+# rows (keys) a tile of a work list, and q rows a dk/dv step
+# (csrc/blocksparse.cu KT); keys a step of the forward and dq (RW_KN)
+WORK_TILE = 64
+ROW_STEP = 64
 
-DkvTile = collections.namedtuple("DkvTile", "table key_off cols nq")
+Tile = collections.namedtuple("Tile", "table off lines n")
 
 
-class DkvWork:
-    """The dk/dv kernel's work list over a layout's transposed tables
-    (csrc/blocksparse.cu ``bs_dkv_tma_kernel``). A key tile is 64 keys:
-    up to 64 / block columns of one table whose q-block lists are the same
-    (ascending columns, grouped by list), or half a column of 128 (key
-    offset 0 or 64); it walks that whole list in 64-row q steps (64 /
-    block q-blocks a step, or half a q-block of 128). ``order`` walks the
-    tiles longest first; every table's tiles run once for each of the
-    B·H / TH heads that read it."""
+class TileWork:
+    """A kernel's work list over a layout's tables: the forward and dq
+    walk the row tables (``counts``, ``cols``: lines are q-block rows),
+    dk/dv the transposed ones (``counts_t``, ``rows_t``: lines are k-block
+    columns). A tile is 64 rows (keys): up to 64 / block lines of one
+    table whose lists are the same (ascending, grouped by list), or half a
+    line of 128 (offset 0 or 64); every line is in one tile, an empty one
+    too. A tile walks its whole list of n blocks in ``step``-row steps
+    (``step`` / block listed blocks a step, or part of a block of 128).
+    ``order`` walks the tiles longest first; every table's tiles run once
+    for each of the B·H / TH heads that read it (csrc/blocksparse.cu
+    ``bs_rows_tma_kernel``, ``bs_dkv_tma_kernel``)."""
 
-    def __init__(self, counts_t, rows_t, block):
-        counts_t, rows_t = np.asarray(counts_t), np.asarray(rows_t)
-        self.block = int(block)
-        self.piece = min(self.block, DKV_TILE)
-        self.per = DKV_TILE // self.piece
-        offsets = range(0, self.block, DKV_TILE) \
-            if self.block > DKV_TILE else (0,)
+    def __init__(self, counts, lists, block, step=WORK_TILE):
+        counts, lists = np.asarray(counts), np.asarray(lists)
+        self.block, self.step = int(block), int(step)
+        self.piece = min(self.block, WORK_TILE)
+        per = WORK_TILE // self.piece
+        offsets = range(0, self.block, WORK_TILE) \
+            if self.block > WORK_TILE else (0,)
         tiles = []
-        for th in range(counts_t.shape[0]):
+        for th in range(counts.shape[0]):
             groups = {}
-            for c in range(counts_t.shape[1]):
-                lst = tuple(int(x) for x in rows_t[th, c, :counts_t[th, c]])
-                groups.setdefault(lst, []).append(c)
-            for lst, cols in sorted(groups.items(), key=lambda kv: kv[1][0]):
-                for i in range(0, len(cols), self.per):
-                    tiles += [DkvTile(th, off, tuple(cols[i:i + self.per]),
-                                      len(lst)) for off in offsets]
+            for line in range(counts.shape[1]):
+                lst = tuple(int(x) for x in lists[th, line, :counts[th, line]])
+                groups.setdefault(lst, []).append(line)
+            for lst, lines in sorted(groups.items(), key=lambda kv: kv[1][0]):
+                for i in range(0, len(lines), per):
+                    tiles += [Tile(th, off, tuple(lines[i:i + per]),
+                                   len(lst)) for off in offsets]
         self.tiles = tiles
         self.order = sorted(range(len(tiles)),
-                            key=lambda i: -self.steps(tiles[i].nq))
-        self.total_steps = sum(self.steps(t.nq) for t in tiles)
+                            key=lambda i: -self.steps(tiles[i].n))
+        steps = [self.steps(t.n) for t in tiles]
+        self.total_steps = sum(steps)
+        self._summary = {"tiles": len(tiles), "steps": self.total_steps,
+                         "longest_tile_steps": max(steps, default=0)}
         self._plans = {}
 
-    def steps(self, nq):
-        """The 64-row q steps of nq listed q-blocks."""
-        return 2 * nq if self.block > DKV_TILE else -(-nq // self.per)
+    def steps(self, n):
+        """The steps of a list of n blocks."""
+        return -(-n * self.block // self.step)
 
     def device_plan(self, device):
-        """The tiles in walk order as int32 [n, 8] (table, key offset,
-        columns, the 4 columns padded with the last, list length) on
-        ``device``, made once a device."""
+        """The tiles in walk order as int32 [n, 8] (table, offset, lines,
+        the 4 lines padded with the last, list length) on ``device``, made
+        once a device."""
         key = str(device)
         hit = self._plans.get(key)
         if hit is None:
             rows = []
             for i in self.order:
                 t = self.tiles[i]
-                rows.append([t.table, t.key_off, len(t.cols),
-                             *(t.cols + (t.cols[-1],) * (4 - len(t.cols))),
-                             t.nq])
+                rows.append([t.table, t.off, len(t.lines),
+                             *(t.lines + (t.lines[-1],) * (4 - len(t.lines))),
+                             t.n])
             hit = self._plans[key] = torch.tensor(
                 rows, dtype=torch.int32, device=device).reshape(-1, 8)
         return hit
 
     def summary(self):
-        """The walk's size; ``chunk_steps`` None: no list is cut."""
-        return {"tiles": len(self.tiles), "steps": self.total_steps,
-                "longest_tile_steps": max(
-                    (self.steps(t.nq) for t in self.tiles), default=0),
-                "chunk_steps": None}
+        """The walk's size: tiles, steps, the longest tile's steps."""
+        return dict(self._summary)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,17 +118,24 @@ class LayoutTables:
     counts_t: torch.Tensor
     rows_t: torch.Tensor
     block: int
-    _work: object = dataclasses.field(default=None, init=False, repr=False,
-                                      compare=False)
+    _works: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
+
+    def row_work(self):
+        """The forward's and dq's ``TileWork`` over the row tables."""
+        return self._work("rows", self.counts, self.cols, ROW_STEP)
 
     def dkv_work(self):
-        """The dk/dv kernel's ``DkvWork`` over these transposed tables,
-        made at the first call."""
-        if self._work is None:
-            object.__setattr__(self, "_work", DkvWork(
-                self.counts_t.cpu().numpy(), self.rows_t.cpu().numpy(),
-                self.block))
-        return self._work
+        """The dk/dv kernel's ``TileWork`` over the transposed tables."""
+        return self._work("columns", self.counts_t, self.rows_t, WORK_TILE)
+
+    def _work(self, kind, counts, lists, step):
+        """A work list, made at its first use and kept."""
+        hit = self._works.get(kind)
+        if hit is None:
+            hit = self._works[kind] = TileWork(
+                counts.cpu().numpy(), lists.cpu().numpy(), self.block, step)
+        return hit
 
     @property
     def heads(self):
@@ -292,6 +304,88 @@ def blocksparse_bwd_dkv_plain(q, k, v, do, lse, delta, tables, scale=None):
     return dk, dv
 
 
+def _tile_rows(t, block, piece):
+    """The rows (keys) of tile ``t``'s lines, in tile order."""
+    return torch.cat([line * block + t.off + torch.arange(piece)
+                      for line in t.lines])
+
+
+def _list_keys(lists, t, block):
+    """The rows (keys) of tile ``t``'s list, in list order."""
+    lst = lists[t.table, t.lines[0], :t.n].long()
+    return (lst[:, None] * block + torch.arange(block)).reshape(-1)
+
+
+def blocksparse_fwd_tiles(q, k, v, tables, scale=None):
+    """(o fp32, lse fp32) as the forward kernel's tiles compute them, in
+    plain PyTorch: each tile of ``tables.row_work()`` takes its rows over
+    its whole k-block list in the kernel's steps of keys, an online
+    softmax in fp32 (running max, rescaled sums), p rounded to q's dtype
+    before the V product. Rows of no listed block get o = 0 and lse =
+    +1e30."""
+    BH, S, D = q.shape
+    scale = _scale(scale, D)
+    work = tables.row_work()
+    cols = tables.cols.cpu()
+    o = torch.zeros(BH, S, D, dtype=torch.float32)
+    lse = torch.full((BH, S), POS_INF, dtype=torch.float32)
+    for r in range(BH // tables.heads):
+        for i in work.order:
+            t = work.tiles[i]
+            if t.n == 0:
+                continue
+            bh = r * tables.heads + t.table
+            rows, keys = _tile_rows(t, work.block, work.piece), \
+                _list_keys(cols, t, work.block)
+            qt = q[bh, rows].float()
+            m = torch.full((len(rows), 1), NEG_INF)
+            l = torch.zeros(len(rows), 1)
+            acc = torch.zeros(len(rows), D)
+            for k0 in range(0, len(keys), work.step):
+                kk = keys[k0:k0 + work.step]
+                s = qt @ k[bh, kk].float().T * scale
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + p.to(q.dtype).float() @ v[bh, kk].float()
+                m = m_new
+            o[bh, rows] = acc / l
+            lse[bh, rows] = (m + torch.log(l))[:, 0]
+    return o, lse
+
+
+def blocksparse_bwd_dq_tiles(q, k, v, do, lse, delta, tables, scale=None):
+    """dq in q's dtype as the dq kernel's tiles compute it, in plain
+    PyTorch: each tile of ``tables.row_work()`` sums over its whole
+    k-block list in the kernel's steps of keys, p = exp(scale·q·k - lse),
+    ds = p·(do·v - delta) rounded to q's dtype before the K product, dq =
+    scale·ds·k. Rows of no listed block get 0."""
+    BH, S, D = q.shape
+    scale = _scale(scale, D)
+    work = tables.row_work()
+    cols = tables.cols.cpu()
+    dq = torch.zeros(BH, S, D, dtype=torch.float32)
+    for r in range(BH // tables.heads):
+        for i in work.order:
+            t = work.tiles[i]
+            if t.n == 0:
+                continue
+            bh = r * tables.heads + t.table
+            rows, keys = _tile_rows(t, work.block, work.piece), \
+                _list_keys(cols, t, work.block)
+            qt, dot = q[bh, rows].float(), do[bh, rows].float()
+            acc = torch.zeros(len(rows), D)
+            for k0 in range(0, len(keys), work.step):
+                kk = keys[k0:k0 + work.step]
+                kb = k[bh, kk].float()
+                p = torch.exp(qt @ kb.T * scale - lse[bh, rows, None])
+                ds = p * (dot @ v[bh, kk].float().T - delta[bh, rows, None])
+                acc = acc + ds.to(q.dtype).float() @ kb
+            dq[bh, rows] = acc * scale
+    return dq.to(q.dtype)
+
+
 def blocksparse_bwd_dkv_tiles(q, k, v, do, lse, delta, tables,
                               scale=None):
     """(dk, dv) fp32 as the dk/dv kernel's tiles compute them, in plain
@@ -305,15 +399,12 @@ def blocksparse_bwd_dkv_tiles(q, k, v, do, lse, delta, tables,
     rows_t = tables.rows_t.cpu()
     dk = torch.zeros(BH, S, D, dtype=torch.float32)
     dv = torch.zeros_like(dk)
-    block, piece = work.block, work.piece
     for r in range(BH // tables.heads):
         for i in work.order:
             t = work.tiles[i]
             bh = r * tables.heads + t.table
-            keys = torch.cat([c * block + t.key_off + torch.arange(piece)
-                              for c in t.cols])
-            qb = rows_t[t.table, t.cols[0], :t.nq].long()
-            rows = (qb[:, None] * block + torch.arange(block)).reshape(-1)
+            keys = _tile_rows(t, work.block, work.piece)
+            rows = _list_keys(rows_t, t, work.block)
             kb, vb = k[bh, keys].float(), v[bh, keys].float()
             qg, dog = q[bh, rows].float(), do[bh, rows].float()
             p = torch.exp(qg @ kb.T * scale - lse[bh, rows, None])
@@ -381,11 +472,12 @@ def blocksparse_fwd(q, k, v, tables, scale=None):
     lse = torch.empty(BH, S, dtype=torch.float32, device=q.device)
     if BH == 0 or S == 0:
         return o, lse
+    tiles = tables.row_work().device_plan(q.device)
     builder.kernels().call(
         "dstpu_bs_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        tables.counts.data_ptr(), tables.cols.data_ptr(), o.data_ptr(),
+        tables.cols.data_ptr(), tiles.data_ptr(), o.data_ptr(),
         lse.data_ptr(), BH, tables.heads, S, tables.block,
-        tables.cols.shape[-1], _scale(scale, D), _stream(q))
+        tables.cols.shape[-1], tiles.shape[0], _scale(scale, D), _stream(q))
     builder.launches["blocksparse_fwd"] += 1
     return o, lse
 
@@ -402,12 +494,13 @@ def blocksparse_bwd_dq(q, k, v, do, lse, delta, tables, scale=None):
     dq = torch.empty_like(q)
     if BH == 0 or S == 0:
         return dq
+    tiles = tables.row_work().device_plan(q.device)
     builder.kernels().call(
         "dstpu_bs_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        tables.counts.data_ptr(), tables.cols.data_ptr(), dq.data_ptr(), BH,
+        tables.cols.data_ptr(), tiles.data_ptr(), dq.data_ptr(), BH,
         tables.heads, S, tables.block, tables.cols.shape[-1],
-        _scale(scale, D), _stream(q))
+        tiles.shape[0], _scale(scale, D), _stream(q))
     builder.launches["blocksparse_bwd_dq"] += 1
     return dq
 

@@ -44,8 +44,8 @@ SIGNATURES = {
     "dstpu_out_ffn_glu_stacked": [_P] * 11 + [_I] * 4 + [_F, _P],
     "dstpu_decode_attention": [_P] * 9 + [_I] * 11 + [_F, _P],
     "dstpu_kv_quant_int8": [_P] * 9 + [_I] * 8 + [_P],
-    "dstpu_bs_fwd": [_P] * 7 + [_I] * 5 + [_F, _P],
-    "dstpu_bs_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _P],
+    "dstpu_bs_fwd": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "dstpu_bs_bwd_dq": [_P] * 9 + [_I] * 6 + [_F, _P],
     "dstpu_bs_bwd_dkv": [_P] * 10 + [_I] * 6 + [_F, _P],
     "dstpu_quantize": [_P] * 4 + [_I] * 8 + [_F, _P],
     "dstpu_ag_matmul": [_P] * 3 + [_I] * 11 + [_P],

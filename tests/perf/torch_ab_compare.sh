@@ -9,8 +9,9 @@
 # and whole backward, beside SDPA's backward), the train line (the GPT-2
 # large step), the grad check, the serve lines' decode ms a step and the
 # fast path's t(4 new) and decode ms a step by batch, the decode-attention
-# and block-sparse kernel lines (with a decode row's split plan and the
-# dk/dv row's work list), the decode pos sweeps and the BERT sparse step;
+# and block-sparse kernel lines (the forward, dq and dk/dv, with a decode
+# row's split plan and a block-sparse row's work list), the decode pos
+# sweeps and the BERT sparse step;
 # then tests/perf/torch_llama_t4.py and torch_kernel_rows.py --decode --bs
 # from each tree in turns, and the GPU unit tests of this tree.
 #
@@ -42,7 +43,7 @@ for line in open(name):
                        ("other_turns_us", "fma_us", "library_us")
                        if d.get(k) is not None)
         more += "".join(" %s=%s" % (k, d[k]) for k in
-                        ("n_split", "chunk", "tiles", "chunk_steps")
+                        ("n_split", "chunk", "tiles", "steps")
                         if k in d)
         print(name, d["name"], d.get("path", ""),
               "kernel_us=%.2f call_us=%.2f rel=%.3g fault=%.3g%s"

@@ -3,7 +3,7 @@ backward and matvec_stacked rebuilt with parts switched off, timed beside
 the kernel as it is, on one card.
 
     python3 tests/perf/torch_kernel_ablate.py [fwd] [bwd] [matvec] [decode]
-        [bsdkv] [decode_rows] [decode_smoke]
+        [bsdkv] [bsrows] [decode_rows] [decode_smoke]
 
 (default: all of them).
 
@@ -40,7 +40,13 @@ split below 1.5 (head, slot) pairs an SM (the wrapper's rule) and
 always. Block-sparse dk/dv (BERT-large's layer, the Fixed layout at block
 16): ``loads_only`` (no products), ``products_only`` (the producer
 completes each stage without loading it), ``sync_only``; then the kernel
-at B 1 and on one head alone. ``decode_rows``: decode attention with 4
+at B 1 and on one head alone. Block-sparse forward and dq (``bsrows``,
+the same layer): ``loads_only``, ``products_only``, ``sync_only`` as for
+dk/dv, the kernel with the other keys a step (64 or 128,
+``other_step``) and with the other blocks an SM (the forward 2 with 4
+K/V stages, dq 3 with 3: ``other_blocks``); then the kernel and
+``other_step`` at B 1, on one head alone and at the shared BigBird
+layout at block 64. ``decode_rows``: decode attention with 4
 or 8 query rows a KV head (GQA) at D 128 and 64, stacked and paged, bf16
 and int8, the kernel as it is. ``decode_smoke``: the LLaMA-7B b8 row of
 decode_attention_stacked under the conditions chip_smoke.py times it in
@@ -214,6 +220,45 @@ BSDKV_PATCHES = {
 BSDKV_VARIANTS = {"kernel": [], "loads_only": ["no_products"],
                   "products_only": ["no_loads"],
                   "sync_only": ["no_loads", "no_products"]}
+BSROWS_PATCHES = {
+    "no_loads": [
+        ("        sm90::mbar_expect_tx(&full[st], 2 * RW_KV_BYTES);\n",
+         "        sm90::mbar_arrive(&full[st]);\n        continue;\n")],
+    "no_products": [
+        ("    if (steps > 0) {\n      const int slot = qi % 2;\n",
+         "    if (steps > 0 && true) {\n"
+         "      const int slot = qi % 2;\n"
+         "      sm90::mbar_wait(&q_full[slot], (qi / 2) & 1);\n"
+         "      for (int j = 0; j < steps; ++j, ++it) {\n"
+         "        sm90::mbar_wait(&full[it % NST], (it / NST) & 1);\n"
+         "        rw_release(&empty[it % NST]);\n      }\n"
+         "      rw_release(&q_empty[slot]);\n      ++qi;\n"
+         "    } else if (steps > 0) {\n      const int slot = qi % 2;\n")],
+    # the forward two blocks an SM with 4 K/V stages, dq three with 3
+    "other_blocks": [
+        ("  static constexpr int CTAS = DQ ? 2 : 3;",
+         "  static constexpr int CTAS = DQ ? 3 : 2;"),
+        ("  static constexpr int NST = DQ ? 4 : 3;",
+         "  static constexpr int NST = DQ ? 3 : 4;")],
+    # dq's dS after its dQ product, not under it (fewer live registers),
+    # three blocks an SM with 3 K/V stages
+    "dq_serial": [
+        ("            rw_ds<RW_KN>(sacc, dpa, ls, dl, valid, cs);\n"
+         "          } else {\n",
+         "          } else {\n"),
+        ("            rw_pack<RW_KN>(x, dpa);\n          } else {\n",
+         "            rw_ds<RW_KN>(sacc, dpa, ls, dl, valid, cs);\n"
+         "            rw_pack<RW_KN>(x, dpa);\n          } else {\n"),
+        ("  static constexpr int CTAS = DQ ? 2 : 3;",
+         "  static constexpr int CTAS = 3;"),
+        ("  static constexpr int NST = DQ ? 4 : 3;",
+         "  static constexpr int NST = 3;")],
+}
+BSROWS_VARIANTS = {"kernel": [], "loads_only": ["no_products"],
+                   "products_only": ["no_loads"],
+                   "sync_only": ["no_loads", "no_products"],
+                   "other_step": ["step"], "other_blocks": ["other_blocks"],
+                   "dq_serial": ["dq_serial"]}
 # (shape, B, KV heads, D, cache length or None for the paged pool, pos)
 DECODE_SHAPES = (("gpt2_b1", 1, 20, 64, 2048, 2034),
                  ("llama7b_b8", 8, 32, 128, 2048, 2034),
@@ -225,7 +270,8 @@ DECODE_BLOCKS_PER_SM = (1, 2, 4)
 
 def build(src_name, patches, variants, tmp, entry):
     """{variant: the library's C entry ``entry``} for each variant of one
-    source."""
+    source ({variant: {name: entry}} for a tuple of names)."""
+    names = (entry,) if isinstance(entry, str) else tuple(entry)
     with open(os.path.join(builder.CSRC, src_name)) as f:
         text = f.read()
     procs = {}
@@ -237,7 +283,7 @@ def build(src_name, patches, variants, tmp, entry):
                     raise RuntimeError(f"{src_name}: the anchor of {key!r} "
                                        f"is not in the source once")
                 src = src.replace(old, new)
-        path = os.path.join(tmp, f"{entry}_{name}_{src_name}")
+        path = os.path.join(tmp, f"{names[0]}_{name}_{src_name}")
         with open(path, "w") as f:
             f.write(src)
         lib = path + ".so"
@@ -250,10 +296,12 @@ def build(src_name, patches, variants, tmp, entry):
         out, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed on {name} {src_name}:\n{out}")
-        fn = getattr(ctypes.CDLL(lib), entry)
-        fn.argtypes = builder.SIGNATURES[entry]
-        fn.restype = ctypes.c_int
-        entries[name] = fn
+        dll, fns = ctypes.CDLL(lib), {}
+        for e in names:
+            fns[e] = getattr(dll, e)
+            fns[e].argtypes = builder.SIGNATURES[e]
+            fns[e].restype = ctypes.c_int
+        entries[name] = fns[entry] if isinstance(entry, str) else fns
     return entries
 
 
@@ -300,6 +348,88 @@ def bsdkv_ablation(entries, gen, stream, card):
         print(json.dumps({"kernel": "blocksparse_bwd_dkv", "shape": shape,
                           "variant": "kernel", "work": work, "us": us,
                           "card": card}), flush=True)
+
+
+def bsrows_variants(tmp):
+    """The forward and dq kernel variants: BSROWS_VARIANTS, where "step"
+    switches the keys a step (RW_KN) between 64 and 128, from whichever
+    the source has (at 128 keys a ring of 2 stages: 3 or 4 of 32 KB do
+    not fit beside the Q slots at the blocks an SM the source sets)."""
+    with open(os.path.join(builder.CSRC, "blocksparse.cu")) as f:
+        text = f.read()
+    a, b = (64, 128) if "constexpr int RW_KN = 64;" in text else (128, 64)
+    patches = dict(BSROWS_PATCHES, step=[
+        (f"constexpr int RW_KN = {a};", f"constexpr int RW_KN = {b};"),
+        ("  static constexpr int NST = DQ ? 4 : 3;",
+         "  static constexpr int NST = 2;")])
+    return build("blocksparse.cu", patches, BSROWS_VARIANTS, tmp,
+                 ("dstpu_bs_fwd", "dstpu_bs_bwd_dq"))
+
+
+def bsrows_ablation(entries, gen, stream, card):
+    """blocksparse_fwd and blocksparse_bwd_dq at BERT-large's layer (H 16,
+    S 4096, the Fixed layout at block 16): each variant at B 4, then the
+    kernel as it is at B 1, on one head of the layout alone and at the
+    shared BigBird layout at block 64 (B 4)."""
+    from chip_smoke import bert_model_config
+    from deepspeed_tpu_torch.ops.cuda import blocksparse as bs
+    from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import \
+        BigBirdSparsityConfig
+    H, S, D = 16, 4096, 64
+    sp = bert_model_config().sparsity_config
+    np.random.seed(0)
+    full = sp.make_layout(S)
+    bigbird = BigBirdSparsityConfig(
+        num_heads=H, block=64, num_random_blocks=1,
+        num_sliding_window_blocks=3, num_global_blocks=1).make_layout(S)
+
+    def timed(fns, B, heads, layout, block):
+        tables = bs.layout_tables(layout, S, block, heads, "cuda")
+        q, k, v, do = (torch.randn(B * heads, S, D, generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = bs.blocksparse_fwd_plain(q, k, v, tables)
+        delta = (do.float() * o).sum(-1)
+        dq = torch.empty_like(q)
+        work = tables.row_work()
+        tiles = work.device_plan("cuda")
+        common = (B * heads, tables.heads, S, block, tables.cols.shape[-1],
+                  tiles.shape[0], D ** -0.5)
+
+        def fwd(i=0):
+            err = fns["dstpu_bs_fwd"](
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                tables.cols.data_ptr(), tiles.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), *common, stream())
+            if err:
+                raise RuntimeError(f"cudaError_t {err}")
+
+        def dqf(i=0):
+            err = fns["dstpu_bs_bwd_dq"](
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), tables.cols.data_ptr(),
+                tiles.data_ptr(), dq.data_ptr(), *common, stream())
+            if err:
+                raise RuntimeError(f"cudaError_t {err}")
+        dq_us = 1e3 * time_graph_ms(dqf, n=8, reps=5)   # lse stays plain's
+        fwd_us = 1e3 * time_graph_ms(fwd, n=8, reps=5)
+        return work.summary(), fwd_us, dq_us
+    for name, fns in entries.items():
+        work, fwd_us, dq_us = timed(fns, 4, H, full, sp.block)
+        print(json.dumps({"kernel": "blocksparse_fwd/bwd_dq", "shape": "B4",
+                          "variant": name, "work": work, "fwd_us": fwd_us,
+                          "dq_us": dq_us, "card": card}), flush=True)
+    for shape, B, heads, layout, block in (
+            ("B1", 1, H, full, sp.block), ("one_head", 1, 1, full[:1],
+                                           sp.block),
+            ("bigbird_b64", 4, H, bigbird, 64)):
+        for name in ("kernel", "other_step"):
+            work, fwd_us, dq_us = timed(entries[name], B, heads, layout,
+                                        block)
+            print(json.dumps({"kernel": "blocksparse_fwd/bwd_dq",
+                              "shape": shape, "variant": name, "work": work,
+                              "fwd_us": fwd_us, "dq_us": dq_us,
+                              "card": card}), flush=True)
 
 
 def decode_rows_ablation(gen, stream, card):
@@ -563,6 +693,8 @@ def main():
             bsdkv_ablation(build("blocksparse.cu", BSDKV_PATCHES,
                                  BSDKV_VARIANTS, tmp, "dstpu_bs_bwd_dkv"),
                            gen, stream, card)
+        if "bsrows" in parts:
+            bsrows_ablation(bsrows_variants(tmp), gen, stream, card)
         if "decode_rows" in parts:
             decode_rows_ablation(gen, stream, card)
         if "decode_smoke" in parts:

@@ -7,7 +7,7 @@ chip_smoke.py times them, random bf16 inputs from seed 0.
         [--tree DIR]
 
 (--bwd: the backward rows only; --decode, --bs: only the decode-attention
-rows or the block-sparse dk/dv rows; --tree DIR: the kernels of the
+rows or the block-sparse rows; --tree DIR: the kernels of the
 checkout at DIR, for an A/B against another commit in one call.)
 
 Flash forward: GPT-2 prefill (B 1, 20 heads, S 1024, D 64), GPT-2
@@ -32,10 +32,11 @@ large's fast route (20 heads, D 64) and LLaMA-7B's (32 heads, D 128), b1
 and b8, ctx 2048, pos 2034, with SDPA over the live keys (bf16), and
 decode_attention_paged over bf16 and int8 pools at 8 slots of 64 pages of
 16 (the serve phase's positions); each with the kernel's split plan.
-Block-sparse dk/dv (--bs): BERT-large's layer (B 4, H 16, S 4096, D 64)
-under DeepSpeed's Fixed layout at block 16 and a shared BigBird layout
-at block 64, with the work list's summary. One JSON line a row, each
-with the card's name and power limit.
+Block-sparse (--bs): the forward, dq and dk/dv at BERT-large's layer (B
+4, H 16, S 4096, D 64) under DeepSpeed's Fixed layout at block 16 and a
+shared BigBird layout at block 64, beside SDPA over the expanded layout,
+with each work list's summary. One JSON line a row, each with the card's
+name and power limit.
 
     python3 tests/perf/torch_kernel_rows.py --sweep
 
@@ -218,12 +219,15 @@ def decode_rows(card, rnd, gen):
 
 
 def bs_rows(card, rnd):
-    """blocksparse_bwd_dkv at BERT-large's sparse attention (B 4, H 16, S
-    4096, D 64, DeepSpeed's Fixed layout at block 16) and the shared
-    BigBird layout at block 64: the kernel, the bound of its 6 block^2 D
-    operations a listed (column, q-block) pair, the plain version
-    (eager) and SDPA's forward + backward over the layout expanded to a
-    boolean mask (eager, as chip_smoke.py times it)."""
+    """The block-sparse kernels at BERT-large's sparse attention (B 4, H
+    16, S 4096, D 64, DeepSpeed's Fixed layout at block 16) and at the
+    shared BigBird layout at block 64: blocksparse_fwd, blocksparse_bwd_dq
+    and blocksparse_bwd_dkv, each beside the bound of its products (2, 3
+    and 4 products of 2 block^2 D flops a listed block pair: 4, 6 and 8
+    block^2 D) and bytes, its plain version (eager), SDPA over the layout
+    expanded to a boolean mask (eager, as chip_smoke.py times it: the
+    forward beside the forward, forward + backward beside each backward
+    pass) and its work list's summary (None on a tree without one)."""
     from chip_smoke import time_ms
     from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention \
         import _expand_layout_mask
@@ -243,18 +247,10 @@ def bs_rows(card, rnd):
         o, lse = bs.blocksparse_fwd(q, k, v, tables)
         delta = (do.float() * o).sum(-1)
         args = (q, k, v, do, lse, delta, tables)
-        us = 1e3 * time_graph_ms(lambda i: bs.blocksparse_bwd_dkv(*args),
-                                 n=8, reps=5)
         active = B * int(np.asarray(layout)[:, :S // block, :S // block]
                          .sum()) * (H // np.asarray(layout).shape[0])
-        b_ms, b_by = bound(4 * q.numel() * 2 + 2 * lse.numel() * 4
-                           + 2 * q.numel() * 4, 6 * block * block * D
-                           * active)
-        work = None       # the tree before the work list has none
-        if hasattr(tables, "dkv_work"):
-            work = tables.dkv_work().summary()
-        plain_us = 1e3 * time_ms(lambda: bs.blocksparse_bwd_dkv_plain(*args),
-                                 reps=2, inner=1, warmup=1)
+        pair = block * block * D
+        bf, f32 = q.numel() * 2, lse.numel() * 4
         mask = _expand_layout_mask(layout, block, S, "cuda")[None]
         q4, k4, v4, do4 = (t.view(B, H, S, D) for t in (q, k, v, do))
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -265,13 +261,31 @@ def bs_rows(card, rnd):
         out = sdpa(qg, kg, vg, attn_mask=mask)
         bwd_ms = time_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), do4, retain_graph=True), reps=5, inner=2)
-        print(json.dumps({"row": f"blocksparse_bwd_dkv {name}", "B": B,
-                          "H": H, "S": S, "D": D, "block": block, "us": us,
-                          "bound_us": b_ms * 1e3, "bound_by": b_by,
-                          "pct_of_bound": 100 * b_ms * 1e3 / us,
-                          "plain_us": plain_us,
-                          "sdpa_fwd_bwd_us": 1e3 * (fwd_ms + bwd_ms),
-                          "work": work, "card": card}), flush=True)
+        for kernel, fn, plain, flops, nbytes_, work, lib_ms in (
+                ("blocksparse_fwd", lambda: bs.blocksparse_fwd(q, k, v, tables),
+                 lambda: bs.blocksparse_fwd_plain(q, k, v, tables),
+                 4 * pair * active, 3 * bf + 2 * bf + f32, "row_work",
+                 fwd_ms),
+                ("blocksparse_bwd_dq", lambda: bs.blocksparse_bwd_dq(*args),
+                 lambda: bs.blocksparse_bwd_dq_plain(*args),
+                 6 * pair * active, 5 * bf + 2 * f32, "row_work",
+                 fwd_ms + bwd_ms),
+                ("blocksparse_bwd_dkv", lambda: bs.blocksparse_bwd_dkv(*args),
+                 lambda: bs.blocksparse_bwd_dkv_plain(*args),
+                 8 * pair * active, 4 * bf + 2 * f32 + 4 * bf, "dkv_work",
+                 fwd_ms + bwd_ms)):
+            us = 1e3 * time_graph_ms(lambda i, fn=fn: fn(), n=8, reps=5)
+            b_ms, b_by = bound(nbytes_, flops)
+            summary = getattr(tables, work)().summary() \
+                if hasattr(tables, work) else None
+            plain_us = 1e3 * time_ms(plain, reps=2, inner=1, warmup=1)
+            print(json.dumps({"row": f"{kernel} {name}", "B": B, "H": H,
+                              "S": S, "D": D, "block": block, "us": us,
+                              "bound_us": b_ms * 1e3, "bound_by": b_by,
+                              "pct_of_bound": 100 * b_ms * 1e3 / us,
+                              "plain_us": plain_us,
+                              "sdpa_us": 1e3 * lib_ms,
+                              "work": summary, "card": card}), flush=True)
         del q, k, v, do, o, lse, delta, args, mask, out, qg, kg, vg
 
 

@@ -7,7 +7,8 @@ Compiles every ``csrc/*.cu`` into a scratch directory (the cached library
 is left alone) and prints, for each kernel whose mangled name contains one
 of NAME (default: the TMA- or bulk-copy-fed kernels, each head dim and
 variant its own instantiation: the flash kernels, matvec_stacked, the
-fused GEMMs, decode attention and block-sparse dk/dv), ptxas's lines for
+fused GEMMs, decode attention, the block-sparse forward and dq, and
+dk/dv), ptxas's lines for
 it. Needs
 ``nvcc``: run it on the machine with the card.
 """
@@ -25,7 +26,7 @@ from deepspeed_tpu_torch.ops.cuda import builder  # noqa: E402
 
 DEFAULT = ("flash_fwd_tma_kernel", "flash_bwd_tma_kernel",
            "matvec_tma_kernel", "gemm_tma_kernel", "decode_attn_kernel",
-           "bs_dkv_tma_kernel")
+           "bs_rows_tma_kernel", "bs_dkv_tma_kernel")
 
 
 def main(names):

@@ -371,46 +371,65 @@ def _work_layout(kind, S, block, H):
 
 
 @pytest.mark.parametrize("kind,S,block,H", WORK_CASES)
-def test_dkv_work_covers_every_pair_once(kind, S, block, H):
-    """Every (column, q-block) pair of the transposed tables lands in
-    exactly one tile (once a 64-key half at block 128), tiles group
-    columns of one list only, every column, listed or not, is in one
-    tile, and the walk (the device plan's rows) takes the tiles longest
-    first."""
+@pytest.mark.parametrize("direction", ["rows", "columns"])
+def test_work_covers_every_pair_once(direction, kind, S, block, H):
+    """Every (line, listed block) pair of the row tables (the forward's and
+    dq's work list) or of the transposed tables (dk/dv's) lands in exactly
+    one tile (once a 64-row half at block 128), tiles group lines of one
+    list only, every line, listed or not, is in one tile, and the walk
+    (the device plan's rows) takes the tiles longest first."""
     tables = bs.layout_tables(_work_layout(kind, S, block, H), S, block, H,
                               "cpu")
-    work = tables.dkv_work()
-    counts_t, rows_t = tables.counts_t.numpy(), tables.rows_t.numpy()
+    if direction == "rows":
+        work = tables.row_work()
+        counts, lists = tables.counts.numpy(), tables.cols.numpy()
+    else:
+        work = tables.dkv_work()
+        counts, lists = tables.counts_t.numpy(), tables.rows_t.numpy()
     halves = (0, 64) if block == 128 else (0,)
     want = collections.Counter(
         (th, c, off, int(r)) for th in range(tables.heads)
-        for c in range(counts_t.shape[1]) for off in halves
-        for r in rows_t[th, c, :counts_t[th, c]])
+        for c in range(counts.shape[1]) for off in halves
+        for r in lists[th, c, :counts[th, c]])
     got = collections.Counter()
     for t in work.tiles:
-        assert 1 <= len(t.cols) <= max(1, 64 // block)
-        for c in t.cols:
-            lst = rows_t[t.table, c, :counts_t[t.table, c]]
+        assert 1 <= len(t.lines) <= max(1, 64 // block)
+        for c in t.lines:
+            lst = lists[t.table, c, :counts[t.table, c]]
             np.testing.assert_array_equal(
-                lst, rows_t[t.table, t.cols[0], :t.nq])
+                lst, lists[t.table, t.lines[0], :t.n])
             for r in lst:
-                got[(t.table, c, t.key_off, int(r))] += 1
+                got[(t.table, c, t.off, int(r))] += 1
     assert got == want
-    cols = collections.Counter((t.table, c, t.key_off) for t in work.tiles
-                               for c in t.cols)
-    assert cols == collections.Counter(
+    lines = collections.Counter((t.table, c, t.off) for t in work.tiles
+                                for c in t.lines)
+    assert lines == collections.Counter(
         (th, c, off) for th in range(tables.heads)
-        for c in range(counts_t.shape[1]) for off in halves)
+        for c in range(counts.shape[1]) for off in halves)
     assert sorted(work.order) == list(range(len(work.tiles)))
-    steps = [work.steps(work.tiles[i].nq) for i in work.order]
+    steps = [work.steps(work.tiles[i].n) for i in work.order]
     assert steps == sorted(steps, reverse=True)
     assert work.total_steps == sum(steps)
+    assert work.step == (bs.ROW_STEP if direction == "rows" else 64)
     plan = work.device_plan("cpu").tolist()
     for row, i in zip(plan, work.order):
         t = work.tiles[i]
-        assert row == [t.table, t.key_off, len(t.cols),
-                       *(t.cols + (t.cols[-1],) * (4 - len(t.cols))), t.nq]
+        assert row == [t.table, t.off, len(t.lines),
+                       *(t.lines + (t.lines[-1],) * (4 - len(t.lines))), t.n]
     assert work.device_plan("cpu") is work.device_plan("cpu")
+
+
+def _bert_tables():
+    """The BERT cell's tables: 16 heads, S 4096, DeepSpeed's Fixed layout
+    at block 16 per head."""
+    from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import \
+        FixedSparsityConfig
+    np.random.seed(0)
+    layout = FixedSparsityConfig(
+        num_heads=16, block=16, different_layout_per_head=True,
+        num_local_blocks=4, num_global_blocks=1,
+        num_different_global_patterns=4).make_layout(4096)
+    return bs.layout_tables(layout, 4096, 16, 16, "cpu")
 
 
 def test_dkv_work_at_bert_layout():
@@ -419,30 +438,40 @@ def test_dkv_work_at_bert_layout():
     q-blocks, 64 steps) walked first, and the longest tile under a
     persistent block's even share of the steps even at one sequence
     (2 blocks on each of 132 SMs), so no list needs cutting."""
-    from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import \
-        FixedSparsityConfig
-    np.random.seed(0)
-    layout = FixedSparsityConfig(
-        num_heads=16, block=16, different_layout_per_head=True,
-        num_local_blocks=4, num_global_blocks=1,
-        num_different_global_patterns=4).make_layout(4096)
-    tables = bs.layout_tables(layout, 4096, 16, 16, "cpu")
+    tables = _bert_tables()
     work = tables.dkv_work()
     assert tables.dkv_work() is work
     assert work.summary() == {"tiles": 1280, "steps": 17408,
-                              "longest_tile_steps": 64, "chunk_steps": None}
+                              "longest_tile_steps": 64}
     first = [work.tiles[i] for i in work.order[:256]]
-    assert all(len(t.cols) == 4 and t.nq == 256 for t in first)
-    assert work.steps(work.tiles[work.order[256]].nq) < 64
+    assert all(len(t.lines) == 4 and t.n == 256 for t in first)
+    assert work.steps(work.tiles[work.order[256]].n) < 64
     assert 64 <= work.total_steps / (2 * 132)
 
 
+def test_row_work_at_bert_layout():
+    """The same layout's rows: every q-block row lists 67 k-blocks and
+    four consecutive rows share a list, so the forward and dq walk 1024
+    full tiles of 4 q-blocks (64 a head), each 17 steps of 64 keys (the
+    last 48 keys and 16 of padding): 17,408 steps a table walk."""
+    tables = _bert_tables()
+    work = tables.row_work()
+    assert tables.row_work() is work and work.step == 64
+    assert bool((tables.counts == 67).all())
+    assert work.summary() == {"tiles": 1024, "steps": 17408,
+                              "longest_tile_steps": 17}
+    for t in work.tiles:
+        assert len(t.lines) == 4 and t.n == 67 and t.off == 0
+        assert t.lines == tuple(range(t.lines[0], t.lines[0] + 4))
+
+
 @pytest.mark.parametrize("kind,S,block,H", WORK_CASES)
-def test_chunked_dkv_matches_pallas_vjp(kind, S, block, H):
-    """The kernel's dk/dv tile by tile (each tile over its whole list)
-    against ``_bs_bwd`` in interpret mode at fp32 2e-5, on layouts with
-    long and short columns, shared tables, empty rows and an unattended
-    column."""
+def test_tiles_match_pallas_vjp(kind, S, block, H):
+    """The kernels' arithmetic tile by tile (each tile over its whole
+    list, in the kernels' steps) against ``_bs_fwd`` and ``_bs_bwd`` in
+    interpret mode at fp32 2e-5: the forward's o and lse, dq, and dk/dv,
+    on layouts with long and short lines, shared tables, empty rows and
+    an unattended column."""
     jnp = _jax("jax.numpy")
     jbs = _jax("deepspeed_tpu.ops.pallas.blocksparse")
     B, D = 1, 16
@@ -454,15 +483,22 @@ def test_chunked_dkv_matches_pallas_vjp(kind, S, block, H):
     scale = 1.0 / np.sqrt(D)
     o_j, lse_j = jbs._bs_fwd(*(jnp.asarray(a) for a in flat[:3]), jt, scale,
                              block, True)
-    _, dk_j, dv_j = jbs._bs_bwd(*(jnp.asarray(a) for a in flat[:3]), o_j,
-                                lse_j, jnp.asarray(flat[3]), jt, scale,
-                                block, True)
+    dq_j, dk_j, dv_j = jbs._bs_bwd(*(jnp.asarray(a) for a in flat[:3]), o_j,
+                                   lse_j, jnp.asarray(flat[3]), jt, scale,
+                                   block, True)
     tables = bs.layout_tables(layout, S, block, H, "cpu")
+    tq, tk, tv, tdo = (t32(a) for a in flat)
+    o, lse = bs.blocksparse_fwd_tiles(tq, tk, tv, tables, scale)
+    assert_close(o, np.asarray(o_j))
+    assert_close(lse, np.asarray(lse_j)[..., 0])
     o = np.asarray(o_j)
     delta = t32((flat[3] * o).sum(-1))
-    dk, dv = bs.blocksparse_bwd_dkv_tiles(
-        *(t32(a) for a in flat[:3]), t32(flat[3]),
-        t32(np.array(lse_j)[..., 0]), delta, tables, scale)
+    lse = t32(np.array(lse_j)[..., 0])
+    dq = bs.blocksparse_bwd_dq_tiles(tq, tk, tv, tdo, lse, delta, tables,
+                                     scale)
+    assert_close(dq, np.asarray(dq_j))
+    dk, dv = bs.blocksparse_bwd_dkv_tiles(tq, tk, tv, tdo, lse, delta,
+                                          tables, scale)
     assert_close(dk, np.asarray(dk_j))
     assert_close(dv, np.asarray(dv_j))
 
@@ -613,6 +649,38 @@ def test_cuda_dkv_tiles_match_plain(cuda_device, block, S, heads):
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     for got, want in zip((dk, dv), bs.blocksparse_bwd_dkv_plain(*args)):
         tolerance.check_kernel("blocksparse_bwd_dkv", got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block,S", [(16, 4096), (32, 1024), (128, 1024)])
+@pytest.mark.parametrize("heads", ["per_head", "one_head"])
+def test_cuda_row_tiles_match_plain(cuda_device, block, S, heads):
+    """blocksparse_fwd and blocksparse_bwd_dq over DeepSpeed's Fixed
+    layout per head, four heads of their own tables or one head alone
+    (the fewest tiles a launch walks): against the plain versions at
+    their limits, and a rerun bit-equal."""
+    B, H = 2, 4
+    layout = _fixed_long_short(H, S, block)
+    if heads == "one_head":
+        B, H, layout = 1, 1, layout[:1]
+    tables = bs.layout_tables(layout, S, block, H, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, do = (torch.randn(B * H, S, 64, generator=gen,
+                               device=cuda_device).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = bs.blocksparse_fwd(q, k, v, tables)
+    o2, lse2 = bs.blocksparse_fwd(q, k, v, tables)
+    o_p, lse_p = bs.blocksparse_fwd_plain(q, k, v, tables)
+    delta = (do.float() * o_p).sum(-1)
+    args = (q, k, v, do, lse_p, delta, tables)
+    dq, dq2 = bs.blocksparse_bwd_dq(*args), bs.blocksparse_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(dq, dq2)
+    tolerance.check_kernel("blocksparse_fwd", o, o_p)
+    tolerance.check_lse(lse, lse_p, "blocksparse_fwd")
+    tolerance.check_kernel("blocksparse_bwd_dq", dq,
+                           bs.blocksparse_bwd_dq_plain(*args))
 
 
 @pytest.mark.gpu
