@@ -529,6 +529,38 @@ def bit_equal_reruns(name, fn):
     return first
 
 
+def proj_extra(name, fn, B, wb, launches, matmul=None, n=36):
+    """What a decode projection row adds: three reruns bit for bit (the
+    cluster sums its partials in a fixed order) and the launch plan of
+    each of the call's launches ``(K, N, prologue[, pair])`` over
+    ``wb``-byte weights at B slots and the card's SM count; and, where
+    ``matmul(i)`` is given (the LLaMA-7B bf16 rows), the device time of
+    torch.matmul of the bare projection(s) at layer i, a yardstick of the
+    weight stream alone (not the table's library column: no PyTorch call
+    computes the norm, the products and the epilogue)."""
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    bit_equal_reruns(name, fn)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    extra = {"reruns_bit_equal": True,
+             "plan": [dk.matvec_tma_plan(B, K, N, wb, sms, *rest)._asdict()
+                      for K, N, *rest in launches]}
+    if matmul is not None:
+        extra["matmul_us"] = 1e3 * time_graph_ms(matmul, n=n)
+    return extra
+
+
+def gpt2_ffn_launches(E, F):
+    """GPT-2's out_ffn launches (K, N, prologue): x1, h, out."""
+    return [(E, E, "copy"), (E, F, "ln_f32"), (F, E, "copy")]
+
+
+def llama_ffn_launches(E, F, wb):
+    """LLaMA's out_ffn launches over ``wb``-byte weights: the paired
+    gate/up, then down."""
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    return [(E, F, "rms_bf16", dk.GLU_PAIRING[wb]), (F, E, "copy")]
+
+
 def attn_plan(name, fn, q, capacity):
     """What a decode attention row adds: the split plan its launch takes
     at the card's SM count (``n_split`` blocks a (KV head, slot), one
@@ -770,7 +802,11 @@ def kernel_phase(eng, cfg, gen):
            bound(nbytes(x) + E * N * wb + 4 + 2 * E * 4 + N * 4 + B * N * 2,
                  2 * B * E * N), [{"B": B, "E": E, "N": N, "L": L,
                                    **weights}],
-           "the last 32 of the 1280 weight rows dropped", limit=key["ln_qkv"])
+           "the last 32 of the 1280 weight rows dropped", limit=key["ln_qkv"],
+           extra=proj_extra("ln_qkv_stacked",
+                            lambda: dk.ln_qkv_stacked(x, *qkv_args,
+                                                      lids[LAYER], eps=eps),
+                            B, wb, [(E, N, "ln_bf16")]))
 
     # -- decode_attention_paged: scattered pages, one idle slot; the
     # pool refilled at random (int8: codes and per-row scales)
@@ -863,7 +899,11 @@ def kernel_phase(eng, cfg, gen):
                  2 * B * (E * E + 2 * E * Fd)),
            [{"B": B, "E": E, "F": Fd, "launches_per_call": 3, **weights}],
            "the last 64 of the 1280 rows of Wp dropped",
-           limit=key["out_ffn"])
+           limit=key["out_ffn"],
+           extra=proj_extra("out_ffn_stacked",
+                            lambda: dk.out_ffn_stacked(ctx, x, *ffn,
+                                                       lids[LAYER], eps=eps),
+                            B, wb, gpt2_ffn_launches(E, Fd)))
     if int8:
         torch.cuda.synchronize()
         return results
@@ -1040,12 +1080,45 @@ def llama_kernel_phase(eng, cfg, gen):
                                       eps=eps, norm="rms"),
         lambda l: dk.ln_qkv_stacked_plain(x, p["norm1"], None, Wq, sq, None,
                                           l, eps, "rms"))
+    qkv_extra = proj_extra(
+        "ln_qkv_stacked",
+        lambda: dk.ln_qkv_stacked(x, p["norm1"], None, Wq, sq, None,
+                                  lids[LAYER], eps=eps, norm="rms"),
+        B, wb, [(E, N, "rms_bf16")],
+        None if int8 else (lambda i: torch.matmul(x, Wq[i])), L)
     record(results, "ln_qkv_stacked", path,
            "deepspeed_tpu/ops/pallas/decode.py:496", checks, ms, call_ms,
            plain_ms, bound(nbytes(x) + E * N * wb + 4 + E * 4 + B * N * 2,
                            2 * B * E * N),
            [{"B": B, "E": E, "N": N, "L": L, "norm": "rms", **weights[0]}],
-           f"the last 32 of the {E} weight rows dropped", limit=key["ln_qkv"])
+           f"the last 32 of the {E} weight rows dropped", limit=key["ln_qkv"],
+           extra=qkv_extra)
+    # -- the same at 16 slots (no served configuration: path null), held
+    # against the plain version with the same fault, and timed
+    x16 = rnd(16, E)
+    checks = [held(key["ln_qkv"],
+                   dk.ln_qkv_stacked(x16, p["norm1"], None, Wq, sq, None,
+                                     lids[LAYER], eps=eps, norm="rms"),
+                   dk.ln_qkv_stacked_plain(x16, p["norm1"], None, Wq, sq,
+                                           None, LAYER, eps, "rms"),
+                   dk.ln_qkv_stacked_plain(x16, f_w[0], None, f_w[1], f_w[2],
+                                           None, 0, eps, "rms"))]
+    ms, call_ms, plain_ms = timed(
+        lambda lid: dk.ln_qkv_stacked(x16, p["norm1"], None, Wq, sq, None,
+                                      lid, eps=eps, norm="rms"),
+        lambda l: dk.ln_qkv_stacked_plain(x16, p["norm1"], None, Wq, sq,
+                                          None, l, eps, "rms"))
+    record(results, "ln_qkv_stacked", None,
+           "deepspeed_tpu/ops/pallas/decode.py:496", checks, ms, call_ms,
+           plain_ms, bound(nbytes(x16) + E * N * wb + 4 + E * 4
+                           + 16 * N * 2, 2 * 16 * E * N),
+           [{"B": 16, "E": E, "N": N, "L": L, "norm": "rms", **weights[0]}],
+           f"the last 32 of the {E} weight rows dropped", limit=key["ln_qkv"],
+           extra=proj_extra(
+               "ln_qkv_stacked",
+               lambda: dk.ln_qkv_stacked(x16, p["norm1"], None, Wq, sq, None,
+                                         lids[LAYER], eps=eps, norm="rms"),
+               16, wb, [(E, N, "rms_bf16")]))
 
     # -- matvec_stacked: the o-projection, [8, 4096] . [32, 4096, 4096]
     ctx = rnd(B, H * D)
@@ -1098,6 +1171,14 @@ def llama_kernel_phase(eng, cfg, gen):
     ms, call_ms, plain_ms = timed(
         lambda lid: dk.out_ffn_stacked(None, x1, *ffn, lid, **kw),
         lambda l: dk.out_ffn_stacked_plain(None, x1, *ffn, l, **kw))
+    h8 = rnd(B, Fd)
+    ffn_extra = proj_extra(
+        "out_ffn_stacked",
+        lambda: dk.out_ffn_stacked(None, x1, *ffn, lids[LAYER], **kw),
+        B, wb, llama_ffn_launches(E, Fd, wb),
+        None if int8 else (lambda i: (torch.matmul(x1, Wg[i]),
+                                      torch.matmul(x1, Wu[i]),
+                                      torch.matmul(h8, Wd[i]))), L)
     record(results, "out_ffn_stacked", path,
            "deepspeed_tpu/ops/pallas/decode.py:1000", checks, ms, call_ms,
            plain_ms, bound(3 * E * Fd * wb + 3 * 4 + E * 4 + 2 * B * E * 2,
@@ -1105,7 +1186,32 @@ def llama_kernel_phase(eng, cfg, gen):
            [{"B": B, "E": E, "F": Fd, "act": "swiglu", "norm": "rms",
              "fuse_proj": False, "launches_per_call": 2, **weights[0]}],
            f"the last 32 of the {Fd} rows of Wd dropped",
-           limit=key["out_ffn"])
+           limit=key["out_ffn"], extra=ffn_extra)
+    # -- the same at 16 slots (path null)
+    x16 = rnd(16, E)
+    checks = [held(key["out_ffn"],
+                   dk.out_ffn_stacked(None, x16, *ffn, lids[LAYER], **kw),
+                   dk.out_ffn_stacked_plain(None, x16, *ffn, LAYER, **kw),
+                   dk.out_ffn_stacked_plain(
+                       None, x16, None, None, None, f_n2, None, f_g, f_sg,
+                       None, f_d, f_sd, None, 0,
+                       **dict(kw, w1b_stack=f_u, s1b=f_su)))]
+    ms, call_ms, plain_ms = timed(
+        lambda lid: dk.out_ffn_stacked(None, x16, *ffn, lid, **kw),
+        lambda l: dk.out_ffn_stacked_plain(None, x16, *ffn, l, **kw))
+    record(results, "out_ffn_stacked", None,
+           "deepspeed_tpu/ops/pallas/decode.py:1000", checks, ms, call_ms,
+           plain_ms, bound(3 * E * Fd * wb + 3 * 4 + E * 4 + 2 * 16 * E * 2,
+                           3 * 2 * 16 * E * Fd),
+           [{"B": 16, "E": E, "F": Fd, "act": "swiglu", "norm": "rms",
+             "fuse_proj": False, "launches_per_call": 2, **weights[0]}],
+           f"the last 32 of the {Fd} rows of Wd dropped",
+           limit=key["out_ffn"],
+           extra=proj_extra(
+               "out_ffn_stacked",
+               lambda: dk.out_ffn_stacked(None, x16, *ffn, lids[LAYER], **kw),
+               16, wb, llama_ffn_launches(E, Fd, wb)))
+    del x16, h8
 
     # -- decode_attention_paged at head dim 128: the engine's pool (MHA,
     # R = 1), refilled at random one layer at a time, and a
@@ -2320,7 +2426,11 @@ def gpt2_generate_kernel_rows(p, p8, cfg, gen):
            plain_ms, bound(nbytes(x) + E * N + 4 + 2 * E * 4 + N * 4
                            + B * N * 2, 2 * B * E * N),
            [{"B": b, "E": E, "N": N, "weights": "int8"} for b in Bs],
-           "the last 32 of the 1280 weight rows dropped (B 1 and 8)")
+           "the last 32 of the 1280 weight rows dropped (B 1 and 8)",
+           extra=proj_extra("ln_qkv_int8",
+                            lambda: dk.ln_qkv_int8(x, *qkv_args(LAYER),
+                                                   eps=eps),
+                            B, 1, [(E, N, "ln_bf16")]))
 
     # -- out_ffn_int8: three launches over int8 [1280, 1280], [1280, 5120],
     # [5120, 1280]
@@ -2352,7 +2462,11 @@ def gpt2_generate_kernel_rows(p, p8, cfg, gen):
                            + 3 * B * E * 2, 2 * B * (E * E + 2 * E * Fd)),
            [{"B": b, "E": E, "F": Fd, "launches_per_call": 3,
              "weights": "int8"} for b in Bs],
-           "the last 64 of the 1280 rows of Wp dropped (B 1 and 8)")
+           "the last 64 of the 1280 rows of Wp dropped (B 1 and 8)",
+           extra=proj_extra("out_ffn_int8",
+                            lambda: dk.out_ffn_int8(ctx, x, *ffn_args(LAYER),
+                                                    eps=eps),
+                            B, 1, gpt2_ffn_launches(E, Fd)))
 
     # -- matvec_int8: [B, 1280] . int8 [1280, 5120] + b, gelu_tanh
     def mv_args(l, w=None):
@@ -2378,7 +2492,11 @@ def gpt2_generate_kernel_rows(p, p8, cfg, gen):
            plain_ms, bound(nbytes(x) + E * Fd + 4 + Fd * 4 + B * Fd * 2,
                            2 * B * E * Fd),
            [{"B": b, "K": E, "N": Fd, "act": "gelu_tanh", "weights": "int8"}
-            for b in Bs], "the last 32 of the 1280 weight rows dropped")
+            for b in Bs], "the last 32 of the 1280 weight rows dropped",
+           extra=proj_extra("matvec_int8",
+                            lambda: dk.matvec_int8(x, *mv_args(LAYER),
+                                                   act="gelu_tanh"),
+                            B, 1, [(E, Fd, "copy")]))
 
     # -- decode_attention_int8 over one layer's [B, H, L, D] int8 cache
     pos_i = GEN_CTX - 80 + GEN_LONG - 2          # the long run's last step
@@ -2487,7 +2605,11 @@ def gpt2_generate_kernel_rows(p, p8, cfg, gen):
                [{"B": b, "E": E, "N": N, "L": L, "weights": weights}
                 for b in Bs],
                "the last 32 of the 1280 weight rows dropped (B 1 and 8)",
-               limit=key["ln_qkv"])
+               limit=key["ln_qkv"],
+               extra=proj_extra("ln_qkv_stacked",
+                                lambda: dk.ln_qkv_stacked(x, *qkv_args,
+                                                          lid_l, eps=eps),
+                                Bf, wb, [(E, N, "ln_bf16")]))
 
         ffn = (Wp, sp, w["attn_ob"], w["ln2_w"], w["ln2_b"], W1, s1,
                w["inter_b"], W2, s2, w["output_b"])
@@ -2513,7 +2635,11 @@ def gpt2_generate_kernel_rows(p, p8, cfg, gen):
                [{"B": b, "E": E, "F": Fd, "launches_per_call": 3,
                  "weights": weights} for b in Bs],
                "the last 64 of the 1280 rows of Wp dropped (B 1 and 8)",
-               limit=key["out_ffn"])
+               limit=key["out_ffn"],
+               extra=proj_extra("out_ffn_stacked",
+                                lambda: dk.out_ffn_stacked(ctx, x, *ffn,
+                                                           lid_l, eps=eps),
+                                Bf, wb, gpt2_ffn_launches(E, Fd)))
 
         # the cache at B 1: the first batch row of the B-8 one, contiguous
         full = (kc, vc, dict(k_scale=k5, v_scale=v5)) if int8 else \

@@ -3,8 +3,7 @@
 //
 // Replaces seven Pallas kernels of deepspeed_tpu/ops/pallas/decode.py:
 //   ln_qkv_int8_stacked     (:432, kernel _ln_qkv_stacked_kernel :496)
-//   matvec_int8_stacked     (:523, kernel _matvec_stacked_kernel :558;
-//                            here matvec_tma_kernel)
+//   matvec_int8_stacked     (:523, kernel _matvec_stacked_kernel :558)
 //   out_ffn_int8_stacked    (:698, kernel _out_ffn_stacked_kernel :1000)
 //   decode_attention_paged  (:854, kernel _decode_attn_paged_kernel :931)
 //   kv_quant_int8           (:297, kernel _kv_quant_kernel :279)
@@ -30,40 +29,67 @@
 // is a stream of the live K/V rows.
 //
 // What the design does about it:
+// - Every projection (ln_qkv, the out_ffn launches, matvec_stacked,
+//   matvec_int8) is one kernel body, proj_tma_kernel, over a prologue
+//   (PRO_*) and an epilogue (EPI_*). Its operands are swapped, y^T [64
+//   columns, slots] = W^T u^T, so the products are wgmma m64n8k16
+//   (m64n16k16 for 9-16 slots) on the tensor cores: A is W's [64 k][64 n]
+//   box as stored (MN-major), B the slots' [NB][64 k] box of u (K-major;
+//   slots past B are zeros). A producer warp streams the W boxes by TMA
+//   from a 3-D map [L, K, N] at the layer read on the device into a ring
+//   of stages, starting as soon as the ring's barriers exist (W does not
+//   depend on u); two consumer warpgroups take the stages in turn. int8
+//   codes come as [64 k][128 n] boxes, half the bytes, which the
+//   consumers widen exactly into a swizzled bf16 stage (sm_90 has no
+//   8-bit transposing ldmatrix); the sum is multiplied by s[layer], as
+//   the Pallas kernels do (w.astype(bf16), a bf16 dot, then * s). (The
+//   CUDA-core loop it replaced spent 8 fp32 FMAs and an unpack on every
+//   weight at 8 slots, about 40 % (bf16) and 80 % (int8) of the card's fp32
+//   issue at the byte rate, and kept its stream in registers; it remains
+//   only as matvec_stacked_fma, for int8 rows TMA cannot describe.)
 // - The TPU kernels carry state across a sequential grid in VMEM scratch
-//   (LN once at grid step 0, an fp32 accumulator revisited by every F
-//   tile). CUDA blocks run in no order, so a matvec block owns a 64-column
-//   tile and a slice of K outright, recomputes the tiny LayerNorm
-//   prologue itself (8 x 1280 values), and the blocks that share a tile
-//   form a thread-block cluster that sums their partials through
-//   distributed shared memory, in a fixed order.
-// - A load that takes only a 32- or 64-byte piece of a 128-byte line
-//   holds an SM's weight stream far below its share of the bandwidth
-//   (clock64 phases on an H100), so 8 lanes read one whole line of a W
-//   row, K is split over up to 8 blocks so at least
-//   160 blocks stream, each thread keeps its next batch of rows in flight
-//   during the current one's FMAs, and u sits transposed in shared memory
-//   (one 16-byte load gives a row's 8 batch values).
-// - Round trips are counted too: the input rows and the layer's LayerNorm
-//   parameters come in one batch of 16-byte loads, and the epilogue's
-//   bias and residual are requested before the weight stream.
-// - out_ffn needs the whole x1 row before its LayerNorm and the whole F
-//   row before W2, so it is three launches of one templated matvec:
-//   (a) x1 = x + ctx.Wp.sp + bp, (b) h = gelu_tanh(LN(x1).W1.s1 + b1),
-//   (c) y = x1 + h.W2.s2 + b2; a block holds only its K slice of h.
-//   Rounding points follow the Pallas kernel: x1, u and h are rounded to
-//   bf16, every product accumulates in fp32.
-// - LLaMA (fuse_proj=False, the large-E path): x arrives as the bf16 x1
-//   (o_proj ran as matvec_stacked), so (a) is skipped. (b) streams the
-//   gate and up tiles together as the Pallas kernel does (decode.py:709):
-//   the blocks of a column tile's gate half and of its up half form one
-//   cluster, each streams its own matrix, and the epilogue takes both
-//   sums from distributed shared memory: h = silu(u.Wg.sg) * (u.Wu.su).
-//   Its RMSNorm prologue stages the bf16 x1 rows (8 x 4096 x 2 B = 64 KiB
-//   at LLaMA-7B); fp32 rows would not leave room for u at 8 slots.
-// - The layer index (a one-element device int32) and the per-layer
-//   scales are read on the device, so a layer loop never syncs to the
-//   host.
+//   (the norm once at grid step 0, an fp32 accumulator revisited by every
+//   F tile). CUDA blocks run in no order, so a block owns a column tile
+//   and a slice of K outright, and the blocks that share a tile form a
+//   thread-block cluster that sums their partials through distributed
+//   shared memory in a fixed order (no atomics: a rerun is bit-equal).
+//   As many clusters as two blocks an SM hold walk the column tiles
+//   (persistent): the producer streams the next tile's W while the
+//   consumers finish a tile's partials, so a tile's cluster barriers and
+//   epilogue hide under the stream. The cluster barriers are split into
+//   arrive and wait; the producer arrives a tile late and never waits on
+//   the consumers of the tile it streams. The split, ring depth (even: a
+//   slot then always serves one of the two consumer warpgroups) and the
+//   cluster count are chosen on the host from the shapes and the SM count
+//   (never from a device scalar, so a layer loop replays as a CUDA graph;
+//   ops/cuda/decode.py matvec_tma_plan).
+// - A norm prologue (LayerNorm or RMSNorm) stages no input row: each
+//   row's statistic is computed by one warp straight from global memory
+//   (L2 after the first block), in the replaced prologue's two-pass order and
+//   arithmetic, by one block of the cluster for its share of the rows
+//   and read by the others over distributed shared memory; then the
+//   consumers write the block's K slice of u, rounded to bf16 as the
+//   Pallas kernels round it, into the swizzled B boxes while the W ring
+//   fills. A copy prologue loads its x (or h) boxes by TMA with each
+//   stage. So 16 LLaMA-7B slots fit: the slice of u is NB x kslice x 2 B.
+// - out_ffn needs the whole x1 row before its norm and the whole F row
+//   before W2, so it is three launches (GPT-2): (a) x1 = x + ctx.Wp.sp +
+//   bp, (b) h = gelu_tanh(LN(x1).W1.s1 + b1), (c) y = x1 + h.W2.s2 + b2;
+//   or two (LLaMA, fuse_proj=False, x arrives as the bf16 x1): (b) h =
+//   silu(RMS(x1).Wg.sg) * (RMS(x1).Wu.su), the gate and up tiles of a
+//   column tile streamed by one cluster, (c) y = x1 + h.Wd.sd. Rounding
+//   points follow the Pallas kernel: x1, u and h are rounded to bf16,
+//   every product accumulates in fp32; the epilogue's bias and residual
+//   are requested before the weight stream.
+// - What chose it (an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6): at
+//   LLaMA-7B's 8 slots the CUDA-core loop took 106 / 96 us (ln_qkv
+//   bf16 / int8) and 249 / 263 (out_ffn); this template 56 / 51 and
+//   128 / 104. Non-persistent blocks paid ~20 us of fixed time in three
+//   waves; bf16 gate/up streams both boxes a block (126 against 134 us
+//   split over the cluster), int8 splits the cluster (both boxes and
+//   their widened copies fit one block an SM: 134 against 102). What
+//   bounds it now: the W stream at 1.4-2.3 TB/s (a box is 64 rows of 128
+//   bytes, 12-24 KB apart) over a floor of handshakes and barriers.
 // - Decode attention (paged pool, layer-stacked cache, one layer's int8
 //   cache) is a stream of the live K/V rows: 4 flops a byte at R = 1, so
 //   it is bound by bytes, and by how many are in flight. One block a
@@ -113,34 +139,6 @@
 //   accurate against fp64 on random data, moved the LLaMA-7B int8
 //   serve's teacher-forced tokens onto another trajectory whose largest
 //   gap, 3.29 bf16 units, broke chip_smoke's 3-unit check.)
-// - int8 weight codes (LLaMA's quantized serving): a 128-byte line of an
-//   int8 row holds 128 columns, so the int8 matvec's column tile is 128
-//   and 16 lanes read a line, 8 bytes (8 columns) each: every load still
-//   takes whole lines and a lane keeps the same [MAXB x 8] accumulator;
-//   each thread keeps twice as many rows in flight, so the bytes in
-//   flight match the bf16 stream. A code converts to float exactly, the
-//   products accumulate in fp32 and the sum is multiplied by s[layer], as
-//   the Pallas kernels do (w.astype(bf16), a bf16 dot, then * s).
-// - matvec_stacked (LLaMA's o-projection) runs its own kernel,
-//   matvec_tma_kernel: the CUDA-core loop above spends 8 fp32 FMAs and an
-//   unpack on every weight at 8 slots, about 40 % (bf16) and 80 % (int8,
-//   before the unpack) of the card's fp32 issue at the byte rate, and
-//   keeps its weight stream in registers (~32 KiB in flight an SM). Here
-//   the operands are swapped, y^T [64 columns, slots] = W^T x^T, so the
-//   products are wgmma m64n8k16 (m64n16k16 for 9-16 slots) on the tensor
-//   cores: A is W's [64 k][64 n] box as stored (MN-major), B the slots'
-//   [N][64 k] box of x (K-major; slots past B are TMA's zeros). A
-//   producer warp streams both boxes by TMA from a 3-D map [L, K, N] at
-//   the layer read on the device, 8 stages a block (6 for int8), two
-//   blocks an SM: 128 KiB (96 KiB) in flight an SM; two consumer
-//   warpgroups take the stages in turn. int8 codes come as [64 k][128 n]
-//   boxes, half the bytes, which the consumers widen exactly into a
-//   swizzled bf16 stage (sm_90 has no 8-bit transposing ldmatrix); the
-//   sum is multiplied by s[layer]. K is split over a cluster as above,
-//   partials summed in a fixed order. Shapes TMA cannot describe (int8
-//   with N not a multiple of 16) take the CUDA-core kernel
-//   (matvec_stacked_fma). ln_qkv, out_ffn and matvec_int8 keep the
-//   CUDA-core loop, whose prologues and epilogues they need.
 // - The int8 KV cache: the order of operations is the Pallas kernel's
 //   (decode.py:964-991): s = q.k * scale * ks[row], the softmax sum takes
 //   the unscaled p, P.V takes bf16(p * vs[row]).
@@ -161,6 +159,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -198,22 +197,24 @@ __device__ __forceinline__ float silu_f32(float v) {
   return v / (1.f + __expf(-v));
 }
 
+// PRO_COPY: u = x (bf16, by TMA); PRO_LN_BF16 / PRO_LN_F32: u =
+// bf16(LayerNorm(x) * w + b) over bf16 / fp32 rows; PRO_RMS_BF16: u =
+// bf16(x * rsqrt(mean(x^2) + eps) * w)
 enum { PRO_COPY = 0, PRO_LN_BF16 = 1, PRO_LN_F32 = 2, PRO_RMS_BF16 = 3 };
-// EPI_BIAS: a*s (+ b); EPI_RESID: resid + a*s (+ b); EPI_GELU /
-// EPI_GELU_ERF: gelu_tanh / gelu of a*s (+ b); EPI_SWIGLU (paired gate/up
-// launches only): silu(a_gate*s_gate) * (a_up*s_up). A null bias adds
-// nothing.
+// EPI_BIAS: a*s (+ b); EPI_RESID: resid + a*s (+ b); EPI_RESID_X1: the
+// same, also written in fp32; EPI_GELU / EPI_GELU_ERF: gelu_tanh / gelu
+// of a*s (+ b); EPI_SWIGLU (paired gate/up launches only):
+// silu(a_gate*s_gate) * (a_up*s_up). A null bias adds nothing.
 enum { EPI_BIAS = 0, EPI_RESID_X1 = 1, EPI_GELU = 2, EPI_RESID = 3,
        EPI_SWIGLU = 4, EPI_GELU_ERF = 5 };
+// the gate/up pairing: PAIR_SPLIT, the cluster's first half streams the
+// gate matrix and its second half the up matrix; PAIR_BOTH, every block
+// streams both boxes of its columns and K slice, two accumulators
+enum { PAIR_NONE = 0, PAIR_SPLIT = 1, PAIR_BOTH = 2 };
 
-// bytes of one element of the kernel's input rows
-template <int PRO>
-__host__ __device__ constexpr int in_bytes() {
-  return PRO == PRO_LN_F32 ? 4 : 2;
-}
-
-constexpr int kStageBatch = 8;           // 16-byte loads in flight a thread
 constexpr int kMaxSplit = 8;             // blocks a cluster (portable limit)
+
+// ------------------------------------ matvec_stacked_fma: the CUDA cores
 
 // The weight stream's geometry for weight type TW: a lane reads 8 columns
 // of a W row (16 bytes of bf16, 8 of int8), so 8 or 16 lanes cover one
@@ -252,110 +253,16 @@ __device__ __forceinline__ void unpack8(const uint2 v, float f[8]) {
   unpack4_i8(v.y, f + 4);
 }
 
-__device__ __forceinline__ void load8(const bf16* p, float f[8]) {
-  unpack8(*reinterpret_cast<const uint4*>(p), f);
+// 8 values at p (16-byte aligned) from global memory, as floats
+__device__ __forceinline__ void ldg8(const bf16* p, float f[8]) {
+  unpack8(__ldg(reinterpret_cast<const uint4*>(p)), f);
 }
 
-__device__ __forceinline__ void load8(const float* p, float f[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
+__device__ __forceinline__ void ldg8(const float* p, float f[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
   f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
-// Copies three runs of 16-byte vectors from global to shared memory as one
-// index space. Each thread issues kStageBatch loads before its first
-// store, so a prologue costs about one memory latency, not one per vector.
-__device__ __forceinline__ void stage_rows(
-    uint4* d0, const uint4* __restrict__ s0, int n0, uint4* d1,
-    const uint4* __restrict__ s1, int n1, uint4* d2,
-    const uint4* __restrict__ s2, int n2) {
-  const int total = n0 + n1 + n2;
-  for (int base = threadIdx.x; base < total; base += kStageBatch * kThreads) {
-    uint4 r[kStageBatch];
-#pragma unroll
-    for (int j = 0; j < kStageBatch; ++j) {
-      const int i = base + j * kThreads;
-      if (i < n0) r[j] = __ldg(s0 + i);
-      else if (i < n0 + n1) r[j] = __ldg(s1 + (i - n0));
-      else if (i < total) r[j] = __ldg(s2 + (i - n0 - n1));
-    }
-#pragma unroll
-    for (int j = 0; j < kStageBatch; ++j) {
-      const int i = base + j * kThreads;
-      if (i < n0) d0[i] = r[j];
-      else if (i < n0 + n1) d1[i - n0] = r[j];
-      else if (i < total) d2[i - n0 - n1] = r[j];
-    }
-  }
-}
-
-// ut[kk][b] = bf16(LayerNorm(x[b]) * w + b) at k = k_lo + kk of the block's
-// K slice (kk < klen). One warp per row; the statistics take the whole
-// staged row, two-pass as in _ln (decode.py:217); w, b are the staged
-// slice of the layer's parameters.
-template <int MAXB, typename Tin>
-__device__ void layer_norm_slice(const Tin* __restrict__ x,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ b,
-                                 bf16* __restrict__ ut, int B, int K,
-                                 int k_lo, int klen, float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < B; r += kWarps) {
-    const Tin* xr = x + (size_t)r * K;
-    float f[8], s = 0.f;
-    for (int k = lane * 8; k < K; k += 256) {
-      load8(xr + k, f);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s += f[i];
-    }
-    const float mu = warp_sum(s) / K;
-    float v = 0.f;
-    for (int k = lane * 8; k < K; k += 256) {
-      load8(xr + k, f);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v += (f[i] - mu) * (f[i] - mu);
-    }
-    const float rstd = rsqrtf(warp_sum(v) / K + eps);
-    for (int kk = lane * 8; kk < klen; kk += 256) {
-      float g[8], h[8];
-      load8(xr + k_lo + kk, f);
-      load8(w + kk, g);
-      load8(b + kk, h);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        ut[(kk + i) * MAXB + r] =
-            __float2bfloat16((f[i] - mu) * rstd * g[i] + h[i]);
-    }
-  }
-}
-
-// ut[kk][b] = bf16(x[b] * rsqrt(mean(x[b]^2) + eps) * w) at k = k_lo + kk,
-// as _rms (decode.py:425): fp32 mean of squares over the whole staged row.
-template <int MAXB>
-__device__ void rms_norm_slice(const bf16* __restrict__ x,
-                               const float* __restrict__ w,
-                               bf16* __restrict__ ut, int B, int K, int k_lo,
-                               int klen, float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < B; r += kWarps) {
-    const bf16* xr = x + (size_t)r * K;
-    float f[8], s = 0.f;
-    for (int k = lane * 8; k < K; k += 256) {
-      load8(xr + k, f);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s += f[i] * f[i];
-    }
-    const float rstd = rsqrtf(warp_sum(s) / K + eps);
-    for (int kk = lane * 8; kk < klen; kk += 256) {
-      float g[8];
-      load8(xr + k_lo + kk, f);
-      load8(w + kk, g);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        ut[(kk + i) * MAXB + r] = __float2bfloat16(f[i] * rstd * g[i]);
-    }
-  }
 }
 
 // dst[j] = W row k0 + j * kRowGroups (the thread's 8 columns), or zeros at
@@ -374,7 +281,8 @@ __device__ __forceinline__ void load_w_rows(
   }
 }
 
-// out[b, n] = epilogue(sum_k u[b, k] * W[layer, k, n]), u = prologue(xin).
+// out[b, n] = bf16(sum_k x[b, k] * W[layer, k, n] * s[layer]): the
+// CUDA-core stream, kept for the int8 rows TMA cannot describe (N % 16).
 //
 // Grid (N / kCols column tiles, S): the S blocks of a column tile form one
 // thread-block cluster and split K into S slices. In a block, kLanes lanes
@@ -384,117 +292,62 @@ __device__ __forceinline__ void load_w_rows(
 // batch in flight. The block folds its warps through shared memory into a
 // [B x kCols] partial; after a cluster barrier each block sums its share
 // of the outputs over the S partials (distributed shared memory, fixed
-// order, so the result does not depend on timing) and applies the
-// epilogue. PAIR (the SwiGLU gate/up launch): grid (N / kCols, 2S), the
-// cluster's first S blocks stream W (gate, scales), the last S W2 (up,
-// scales2).
+// order) and scales them.
 //
 // Shared memory: red [kWarps][MAXB][kCols] f32, part [MAXB][kCols] f32, ut
-// [kslice][MAXB] bf16 (u transposed: one 16-byte load gives a row's B
-// values) and, for a norm prologue, the whole input rows [B][K] and
-// the slice of ln_w (and ln_b for LayerNorm).
-template <int MAXB, int PRO, int EPI, bool PAIR, typename TW>
+// [kslice][MAXB] bf16 (x transposed: one 16-byte load gives a row's B
+// values).
+template <int MAXB, typename TW>
 __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
-    stacked_matvec_kernel(const void* __restrict__ xin,
-                          const float* __restrict__ ln_w,
-                          const float* __restrict__ ln_b,
+    stacked_matvec_kernel(const bf16* __restrict__ x,
                           const TW* __restrict__ W,
                           const float* __restrict__ scales,
-                          const TW* __restrict__ W2,
-                          const float* __restrict__ scales2,
-                          const float* __restrict__ bias,
                           const int* __restrict__ layer_ptr,
-                          const bf16* __restrict__ resid,
-                          bf16* __restrict__ out, float* __restrict__ out_f32,
-                          int B, int K, int N, int kslice, float eps) {
+                          bf16* __restrict__ out, int B, int K, int N,
+                          int kslice) {
   using G = WGeom<TW>;
   constexpr int kCols = G::kCols, kLanesPerRow = G::kLanes;
   constexpr int kRowGroups = G::kRowGroups;
+  constexpr int kStageBatch = 8;   // 16-byte loads in flight a thread
   // the same bytes in flight a thread for either weight type
   constexpr int kBatch = (MAXB <= 8 ? 4 : 2) * (sizeof(TW) == 2 ? 1 : 2);
-  constexpr int kOut = (MAXB * kCols + kThreads - 1) / kThreads;
-  constexpr bool kResid = EPI == EPI_RESID_X1 || EPI == EPI_RESID;
-  constexpr bool kNorm = PRO != PRO_COPY;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), nblk = (int)cluster.num_blocks();
-  const int nsplit = PAIR ? nblk / 2 : nblk;     // blocks a matrix
-  const bool up = PAIR && rank >= nsplit;        // this block streams W2
-  const int krank = up ? rank - nsplit : rank;
-  const int k_lo = krank * kslice, k_hi = min(K, k_lo + kslice);
+  const int k_lo = rank * kslice, k_hi = min(K, k_lo + kslice);
   const int klen = max(k_hi - k_lo, 0);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* red = reinterpret_cast<float*>(smem_raw);  // [kWarps][MAXB][kCols]
   float* part = red + kWarps * MAXB * kCols;         // [MAXB][kCols]
   bf16* ut = reinterpret_cast<bf16*>(part + MAXB * kCols);  // [kslice][MAXB]
-  unsigned char* xs = reinterpret_cast<unsigned char*>(ut + kslice * MAXB);
-  float* lnw = reinterpret_cast<float*>(xs + (size_t)B * K * in_bytes<PRO>());
-  float* lnb = lnw + kslice;
   const int l = layer_ptr ? *layer_ptr : 0;
   const float s = scales[l];
-  const float s2 = PAIR ? scales2[l] : 0.f;
-
-  // this block's share of the tile's B x 64 outputs, and their epilogue
-  // operands, requested now so they arrive during the weight stream
   const int n_out = B * kCols, per = (n_out + nblk - 1) / nblk;
   const int o_lo = rank * per, o_hi = min(n_out, o_lo + per);
-  float pre_b[kOut], pre_r[kOut];
-#pragma unroll
-  for (int t = 0; t < kOut; ++t) {
-    const int i = o_lo + threadIdx.x + t * kThreads;
-    const int b = i / kCols, n = blockIdx.x * kCols + i % kCols;
-    const bool ok = i < o_hi && n < N;
-    pre_b[t] = ok && bias != nullptr ? bias[(size_t)l * N + n] : 0.f;
-    pre_r[t] = ok && kResid ? __bfloat162float(resid[(size_t)b * N + n])
-                            : 0.f;
-  }
 
-  if (!kNorm) {
-    // the slice of the input rows, transposed into ut
-    const bf16* x = reinterpret_cast<const bf16*>(xin);
-    const int vpr = klen / 8, nv = B * vpr;
-    for (int base = threadIdx.x; base < nv; base += kStageBatch * kThreads) {
-      uint4 r[kStageBatch];
+  // the slice of the input rows, transposed into ut
+  const int vpr = klen / 8, nv = B * vpr;
+  for (int base = threadIdx.x; base < nv; base += kStageBatch * kThreads) {
+    uint4 r[kStageBatch];
 #pragma unroll
-      for (int j = 0; j < kStageBatch; ++j) {
-        const int i = base + j * kThreads;
-        if (i < nv)
-          r[j] = __ldg(reinterpret_cast<const uint4*>(
-              x + (size_t)(i / vpr) * K + k_lo + (i % vpr) * 8));
-      }
+    for (int j = 0; j < kStageBatch; ++j) {
+      const int i = base + j * kThreads;
+      if (i < nv)
+        r[j] = __ldg(reinterpret_cast<const uint4*>(
+            x + (size_t)(i / vpr) * K + k_lo + (i % vpr) * 8));
+    }
 #pragma unroll
-      for (int j = 0; j < kStageBatch; ++j) {
-        const int i = base + j * kThreads;
-        if (i < nv) {
-          const int b = i / vpr, kk = (i % vpr) * 8;
-          const uint32_t wd[4] = {r[j].x, r[j].y, r[j].z, r[j].w};
+    for (int j = 0; j < kStageBatch; ++j) {
+      const int i = base + j * kThreads;
+      if (i < nv) {
+        const int b = i / vpr, kk = (i % vpr) * 8;
+        const uint32_t wd[4] = {r[j].x, r[j].y, r[j].z, r[j].w};
 #pragma unroll
-          for (int c = 0; c < 8; ++c)
-            ut[(kk + c) * MAXB + b] = __ushort_as_bfloat16(
-                (unsigned short)(wd[c >> 1] >> (16 * (c & 1))));
-        }
+        for (int c = 0; c < 8; ++c)
+          ut[(kk + c) * MAXB + b] = __ushort_as_bfloat16(
+              (unsigned short)(wd[c >> 1] >> (16 * (c & 1))));
       }
     }
-  } else {
-    const bool rms = PRO == PRO_RMS_BF16;
-    stage_rows(reinterpret_cast<uint4*>(xs),
-               reinterpret_cast<const uint4*>(xin),
-               B * K * in_bytes<PRO>() / 16, reinterpret_cast<uint4*>(lnw),
-               reinterpret_cast<const uint4*>(ln_w + (size_t)l * K + k_lo),
-               klen / 4, reinterpret_cast<uint4*>(lnb),
-               reinterpret_cast<const uint4*>(
-                   rms ? ln_w : ln_b + (size_t)l * K + k_lo),
-               rms ? 0 : klen / 4);
-    __syncthreads();
-    if (PRO == PRO_RMS_BF16)
-      rms_norm_slice<MAXB>(reinterpret_cast<const bf16*>(xs), lnw, ut, B, K,
-                           k_lo, klen, eps);
-    else if (PRO == PRO_LN_BF16)
-      layer_norm_slice<MAXB>(reinterpret_cast<const bf16*>(xs), lnw, lnb, ut,
-                             B, K, k_lo, klen, eps);
-    else
-      layer_norm_slice<MAXB>(reinterpret_cast<const float*>(xs), lnw, lnb,
-                             ut, B, K, k_lo, klen, eps);
   }
   __syncthreads();
 
@@ -507,7 +360,7 @@ __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
     for (int c = 0; c < 8; ++c) acc[b][c] = 0.f;
 
   if (n0 < N) {
-    const TW* Wl = (up ? W2 : W) + (size_t)l * K * N + n0;
+    const TW* Wl = W + (size_t)l * K * N + n0;
     constexpr int kStep = kBatch * kRowGroups;
     typename G::Vec cur[kBatch], nxt[kBatch];
     load_w_rows<kBatch, TW>(cur, Wl, N, k_lo + rg, k_hi);
@@ -522,7 +375,9 @@ __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
           unpack8(cur[j], w);
 #pragma unroll
           for (int b0 = 0; b0 < MAXB; b0 += 8)
-            load8(ut + (k - k_lo) * MAXB + b0, ub + b0);
+            unpack8(*reinterpret_cast<const uint4*>(ut + (k - k_lo) * MAXB +
+                                                    b0),
+                    ub + b0);
 #pragma unroll
           for (int b = 0; b < MAXB; ++b) {
             if (b < B) {
@@ -568,71 +423,41 @@ __global__ void __launch_bounds__(kThreads, MAXB <= 8 ? 2 : 1)
   }
   cluster.sync();  // every block's partial is visible to the cluster
 
-#pragma unroll
-  for (int t = 0; t < kOut; ++t) {
-    const int i = o_lo + threadIdx.x + t * kThreads;
+  for (int i = o_lo + threadIdx.x; i < o_hi; i += kThreads) {
     const int b = i / kCols, n = blockIdx.x * kCols + i % kCols;
-    if (i >= o_hi || n >= N) continue;
+    if (n >= N) continue;
     float a = 0.f;
-    for (int q = 0; q < nsplit; ++q) a += cluster.map_shared_rank(part, q)[i];
-    const float bn = pre_b[t];
-    const size_t o = (size_t)b * N + n;
-    if (EPI == EPI_BIAS) {
-      out[o] = __float2bfloat16(a * s + bn);
-    } else if (EPI == EPI_RESID_X1) {
-      const float x1 = pre_r[t] + (a * s + bn);
-      out_f32[o] = x1;
-      out[o] = __float2bfloat16(x1);
-    } else if (EPI == EPI_GELU) {
-      out[o] = __float2bfloat16(gelu_tanh(a * s + bn));
-    } else if (EPI == EPI_GELU_ERF) {
-      out[o] = __float2bfloat16(gelu_erf(a * s + bn));
-    } else if (EPI == EPI_SWIGLU) {
-      float a2 = 0.f;
-      for (int q = nsplit; q < nblk; ++q)
-        a2 += cluster.map_shared_rank(part, q)[i];
-      out[o] = __float2bfloat16(silu_f32(a * s) * (a2 * s2));
-    } else {
-      out[o] = __float2bfloat16((pre_r[t] + a * s) + bn);
-    }
+    for (int q = 0; q < nblk; ++q) a += cluster.map_shared_rank(part, q)[i];
+    out[(size_t)b * N + n] = __float2bfloat16(a * s);
   }
   cluster.sync();  // no block leaves while another still reads its part
 }
 
 // Splits K over a cluster of S blocks: the smallest power of two that puts
 // at least 160 blocks on the card (H100: 132 SMs, 2 blocks each), at most
-// kMaxSplit blocks a cluster; each slice a multiple of 8 rows. A paired
-// launch has two matrices, so twice the blocks a split.
-inline int split_for(int n_tiles, bool pair) {
-  const int mats = pair ? 2 : 1;
+// kMaxSplit blocks a cluster; each slice a multiple of 8 rows.
+inline int fma_split(int n_tiles) {
   int S = 1;
-  while (S * mats < kMaxSplit && n_tiles * S * mats < 160) S *= 2;
+  while (S < kMaxSplit && n_tiles * S < 160) S *= 2;
   return S;
 }
 
-template <int MAXB, int PRO, typename TW>
-size_t matvec_smem(int B, int K, int kslice) {
-  const size_t rows = (size_t)B * K * in_bytes<PRO>();
+// shared memory of a block; ops/cuda/decode.py fma_smem mirrors it
+template <int MAXB, typename TW>
+size_t fma_smem(int kslice) {
   return (size_t)(kWarps + 1) * MAXB * WGeom<TW>::kCols * sizeof(float) +
-         (size_t)kslice * MAXB * sizeof(bf16) +
-         (PRO == PRO_COPY       ? 0
-          : PRO == PRO_RMS_BF16 ? rows + (size_t)kslice * sizeof(float)
-                                : rows + 2 * (size_t)kslice * sizeof(float));
+         (size_t)kslice * MAXB * sizeof(bf16);
 }
 
-template <int MAXB, int PRO, int EPI, bool PAIR, typename TW>
-cudaError_t launch_matvec(const void* xin, const float* ln_w,
-                          const float* ln_b, const TW* W,
-                          const float* scales, const TW* W2,
-                          const float* scales2, const float* bias,
-                          const int* layer_ptr, const bf16* resid,
-                          bf16* out, float* out_f32,
-                          int B, int K, int N, float eps, cudaStream_t st) {
-  auto kern = stacked_matvec_kernel<MAXB, PRO, EPI, PAIR, TW>;
+template <int MAXB, typename TW>
+cudaError_t launch_fma(const bf16* x, const TW* W, const float* scales,
+                       const int* layer_ptr, bf16* out, int B, int K, int N,
+                       cudaStream_t st) {
+  auto kern = stacked_matvec_kernel<MAXB, TW>;
   const int n_tiles = (N + WGeom<TW>::kCols - 1) / WGeom<TW>::kCols;
-  const int S = split_for(n_tiles, PAIR);
+  const int S = fma_split(n_tiles);
   const int kslice = ((K + S - 1) / S + 7) / 8 * 8;
-  const size_t smem = matvec_smem<MAXB, PRO, TW>(B, K, kslice);
+  const size_t smem = fma_smem<MAXB, TW>(kslice);
   // raise the kernel's dynamic shared-memory limit once per size, so a
   // launch inside CUDA-graph capture makes no attribute call
   static size_t granted = 48 * 1024;
@@ -642,71 +467,79 @@ cudaError_t launch_matvec(const void* xin, const float* ln_w,
     if (e != cudaSuccess) return e;
     granted = smem;
   }
-  const int cluster = S * (PAIR ? 2 : 1);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_tiles, cluster, 1);
+  cfg.gridDim = dim3(n_tiles, S, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.y = S;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, xin, ln_w, ln_b, W, scales, W2,
-                            scales2, bias, layer_ptr, resid, out, out_f32, B,
-                            K, N, kslice, eps);
+  return cudaLaunchKernelEx(&cfg, kern, x, W, scales, layer_ptr, out, B, K,
+                            N, kslice);
 }
 
-template <int PRO, int EPI, bool PAIR = false, typename TW = bf16>
-cudaError_t matvec(const void* xin, const float* ln_w, const float* ln_b,
-                   const TW* W, const float* scales, const float* bias,
-                   const int* layer_ptr, const bf16* resid, bf16* out,
-                   float* out_f32, int B, int K, int N, float eps,
-                   cudaStream_t st, const TW* W2 = nullptr,
-                   const float* scales2 = nullptr) {
-  if (B <= 8)
-    return launch_matvec<8, PRO, EPI, PAIR, TW>(
-        xin, ln_w, ln_b, W, scales, W2, scales2, bias, layer_ptr, resid, out,
-        out_f32, B, K, N, eps, st);
-  return launch_matvec<16, PRO, EPI, PAIR, TW>(
-      xin, ln_w, ln_b, W, scales, W2, scales2, bias, layer_ptr, resid, out,
-      out_f32, B, K, N, eps, st);
-}
+// ------------------------- the projections: TMA-fed, on the tensor cores
 
-// ------------------------------- matvec_stacked: TMA-fed, on the tensor cores
-
-// y^T [column tile, slots] = W[layer]^T x^T per block: wgmma m64nNBk16 with
+// y^T [column tile, slots] = W[layer]^T u^T per block: wgmma m64nNBk16 with
 // A = a [64 k][64 n] box of W (MN-major, as stored) and B = the [NB slots]
-// [64 k] box of x (K-major); NB is 8 (B <= 8) or 16. A block is two
+// [64 k] box of u (K-major); NB is 8 (B <= 8) or 16. A block is two
 // consumer warpgroups (warps 0-7), which take the stages in turn, and one
-// producer warp (warp 8), whose lane 0 streams the K slice's W and x boxes
-// by TMA into a ring of stages. int8 codes: a stage holds a [64 k][128 n]
-// box of codes, which the consumers widen (exactly) into two swizzled bf16
-// boxes of their own before the product; two warpgroups keep two of these
-// chains (load, widen, product) going a block. The blocks of a column
-// tile split K as a cluster and sum their fp32 partials over distributed
-// shared memory in a fixed order.
+// producer warp (warp 8), whose lane 0 streams the K slice's W boxes (and
+// a copy prologue's x boxes) by TMA into a ring of stages. int8 codes: a
+// stage holds a [64 k][128 n] box of codes, which the consumers widen
+// (exactly) into two swizzled bf16 boxes of their own before the product;
+// two warpgroups keep two of these chains (load, widen, product) going a
+// block. The blocks of a column tile split K as a cluster and sum their
+// fp32 partials over distributed shared memory in a fixed order.
 constexpr int MV_THREADS = 288;
 constexpr int MV_KB = 64;            // k rows a stage
 constexpr int MV_BOX = MV_KB * 128;  // one [64 k][128 bytes] box: 8 KB
+constexpr int MV_BAR_U = 5;          // named barriers: u, then the partial
+constexpr int MV_BAR_PART = 6;
 
-// shared memory of a block; ops/cuda/decode.py matvec_tma_plan mirrors it
-template <bool I8, int NB>
-struct MvCfg {
-  static constexpr int COLS = I8 ? 128 : 64;     // columns a block
-  static constexpr int STAGE = MV_BOX + NB * 128;  // W box, then x box
-  static constexpr int STAGES = I8 ? 6 : 8;
-  static constexpr int CVT = I8 ? 2 * 2 * MV_BOX : 0;  // two bf16 boxes a WG
-  static constexpr int PART = 2 * COLS * NB * 4;   // a partial a WG
-  static constexpr int SMEM = 1024 + STAGES * STAGE + CVT + PART + 256;
+// Shared memory of a block (ops/cuda/decode.py matvec_tma_plan mirrors
+// it): 1024 of alignment slack, `stages` stages (MATS W boxes, then a copy
+// prologue's x box), the slice of u (a norm prologue: NB x kslice bf16 in
+// [NB][64 k] boxes), int8's two widened bf16 boxes a warpgroup, the
+// block's fp32 partial [MATS][COLS][NB], two mbarriers a stage and the
+// rows' statistics.
+template <bool I8, int NB, int PRO, int PAIR>
+struct ProjCfg {
+  static constexpr int MATS = PAIR == PAIR_BOTH ? 2 : 1;  // W boxes a stage
+  static constexpr bool NORM = PRO != PRO_COPY;
+  static constexpr int COLS = I8 ? 128 : 64;          // columns a block
+  static constexpr int PARTS = COLS / 64;             // m64 tiles of them
+  static constexpr int STAGE = MATS * MV_BOX + (NORM ? 0 : NB * 128);
+  static constexpr int CVT = I8 ? 2 * 2 * MV_BOX : 0;
+  static constexpr int PART = MATS * COLS * NB;       // floats
+  static constexpr int U_BOX = NB * 128;              // [NB][64 k] bf16
+  static size_t smem(int kslice, int stages) {
+    return 1024 + (size_t)stages * STAGE + (NORM ? kslice / MV_KB * U_BOX : 0)
+           + CVT + PART * 4 + 16 * (size_t)stages + 8 * NB;
+  }
 };
 
-struct MvMaps {
-  CUtensorMap w;   // [L, K, N] bf16 or int8, boxes [64 k][128 bytes of n]
-  CUtensorMap x;   // [B, K] bf16, boxes [NB][64 k]
+struct ProjParams {
+  CUtensorMap w;    // [L, K, N] bf16 or int8, boxes [64 k][128 bytes of n]
+  CUtensorMap w2;   // the up matrix of a paired launch, the same boxes
+  CUtensorMap x;    // [B, K] bf16, boxes [NB][64 k] (copy prologue)
+  const void* xin;  // a norm prologue's rows [B, K], bf16 or fp32
+  const float* ln_w;      // [L, K]
+  const float* ln_b;      // [L, K] (LayerNorm)
+  const float* scales;    // [L]
+  const float* scales2;   // [L] (the up matrix)
+  const float* bias;      // [L, N] or null
+  const int* layer_ptr;   // null: layer 0
+  const bf16* resid;      // [B, N] (EPI_RESID*)
+  bf16* out;              // [B, N]
+  float* out_f32;         // [B, N] (EPI_RESID_X1)
+  int B, K, N, kslice, stages;
+  float eps;
 };
 
 // 4 int8 codes -> 4 bf16 values (2 words), exactly: unpack4_i8's trick
@@ -746,30 +579,185 @@ __device__ __forceinline__ void widen_stage(const unsigned char* st,
   }
 }
 
-// out [B, N] = bf16(x [B, K] . W[layer] [K, N] * s[layer]): grid (column
-// tiles, S), the S blocks of a tile one cluster, each over `kslice` rows
-template <bool I8, int NB>
+// (mean, rstd) of row xr [K] by one warp, in the order and arithmetic of
+// the row-staging prologue it replaced (a row's statistic keeps its
+// bits): lane j sums the 8-value runs at 8j, 8j + 256, ..., then a
+// butterfly. LayerNorm takes two passes as _ln (decode.py:217); RMSNorm
+// (mean 0) the mean of squares as _rms (:425).
+template <bool RMS, typename Tin>
+__device__ __forceinline__ float2 row_stats(const Tin* __restrict__ xr, int K,
+                                            float eps) {
+  const int lane = threadIdx.x & 31;
+  float f[8], s = 0.f;
+  if (RMS) {
+#pragma unroll 4
+    for (int k = lane * 8; k < K; k += 256) {
+      ldg8(xr + k, f);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s += f[i] * f[i];
+    }
+    return make_float2(0.f, rsqrtf(warp_sum(s) / K + eps));
+  }
+#pragma unroll 4
+  for (int k = lane * 8; k < K; k += 256) {
+    ldg8(xr + k, f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s += f[i];
+  }
+  const float mu = warp_sum(s) / K;
+  float v = 0.f;
+#pragma unroll 4
+  for (int k = lane * 8; k < K; k += 256) {
+    ldg8(xr + k, f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v += (f[i] - mu) * (f[i] - mu);
+  }
+  return make_float2(mu, rsqrtf(warp_sum(v) / K + eps));
+}
+
+// 8 values of a row in registers as loaded (16 bytes of bf16, 32 of fp32),
+// so a batch of loads in flight costs few registers
+template <typename T>
+struct Vec8 {
+  uint4 v;
+  __device__ __forceinline__ void load(const T* p) {
+    v = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void get(float f[8]) const { unpack8(v, f); }
+};
+
+template <>
+struct Vec8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ void get(float f[8]) const {
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  }
+};
+
+// The consumers (threads 0-255) write u = bf16(norm(x)) at the block's K
+// slice [k_lo, k_lo + kslice) into `u`: box t = kk / 64 at u + t * NB *
+// 128, row b at b * 128, its 16-byte chunk c at (c ^ b % 8) * 16 (the
+// 128-byte swizzle TMA gives a copy prologue's x box); rows past B and k
+// past K are zeros. stat[b] = (mean, rstd) of row b.
+template <int NB, int PRO>
+__device__ __forceinline__ void norm_slice(const ProjParams& p,
+                                           const float2* stat,
+                                           unsigned char* u, int l,
+                                           int k_lo) {
+  using Tin = typename std::conditional<PRO == PRO_LN_F32, float, bf16>::type;
+  constexpr bool RMS = PRO == PRO_RMS_BF16;
+  constexpr int kB = 2;   // chunks in flight a thread
+  const int ch = p.kslice / 8, total = NB * ch;
+  const Tin* x = reinterpret_cast<const Tin*>(p.xin);
+  const float* w = p.ln_w + (size_t)l * p.K;
+  const float* bb = RMS ? nullptr : p.ln_b + (size_t)l * p.K;
+  for (int base = threadIdx.x; base < total; base += kB * kThreads) {
+    Vec8<Tin> xv[kB];
+    Vec8<float> gv[kB], hv[kB];
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      const int i = base + j * kThreads, r = i / ch;
+      const int k = k_lo + (i % ch) * 8;
+      if (i < total && r < p.B && k < p.K) {
+        xv[j].load(x + (size_t)r * p.K + k);
+        gv[j].load(w + k);
+        if constexpr (!RMS) hv[j].load(bb + k);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      const int i = base + j * kThreads, r = i / ch, c = i % ch;
+      const int k = k_lo + c * 8;
+      if (i >= total) break;
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (r < p.B && k < p.K) {
+        const float mu = stat[r].x, rstd = stat[r].y;
+        float f[8], g[8], h[8], o[8];
+        xv[j].get(f);
+        gv[j].get(g);
+        if constexpr (!RMS) hv[j].get(h);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if constexpr (RMS)
+            o[e] = f[e] * rstd * g[e];
+          else
+            o[e] = (f[e] - mu) * rstd * g[e] + h[e];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 t2 = __floats2bfloat162_rn(o[2 * e],
+                                                          o[2 * e + 1]);
+          v[e] = *reinterpret_cast<const uint32_t*>(&t2);
+        }
+      }
+      *reinterpret_cast<uint4*>(u + (c >> 3) * (NB * 128) + r * 128 +
+                                (((c & 7) ^ (r & 7)) << 4)) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// d = one k16 step's product of the MN-major [64 k][64 n] box at `a` (A:
+// its k16 rows) and the K-major u box of descriptor db, a fresh sum
+template <int NB>
+__device__ __forceinline__ void mv_product(float (&d)[NB / 2],
+                                           const unsigned char* a,
+                                           uint64_t db) {
+  sm90::wgmma_ss<NB, 1, 0>(d, sm90::wgmma_desc(a, MV_BOX, 1024), db, 0);
+}
+
+// acc += s in fp32, round to nearest, once the product that wrote s is done
+template <int P, int R>
+__device__ __forceinline__ void add_sums(float (&acc)[P][R],
+                                         float (&s)[P][R]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    sm90::fence_regs(s[p]);
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[p][i] += s[p][i];
+  }
+}
+
+// out [B, N] = EPI(PRO(x) [B, K] . W[layer] [K, N] * s[layer]): grid
+// (clusters, S x (PAIR_SPLIT ? 2 : 1)), each block over `kslice` rows of
+// K; cluster c walks the column tiles c, c + gridDim.x, ... (persistent:
+// the W stream runs on across tiles while the consumers finish a tile)
+template <bool I8, int NB, int PRO, int EPI, int PAIR>
 __global__ void __launch_bounds__(MV_THREADS, 2)
-    matvec_tma_kernel(const __grid_constant__ MvMaps maps,
-                      const float* __restrict__ scales,
-                      const int* __restrict__ layer_ptr,
-                      bf16* __restrict__ out, int B, int K, int N,
-                      int kslice) {
-  using C = MvCfg<I8, NB>;
-  constexpr int ST = C::STAGES, PARTS = C::COLS / 64;
+    proj_tma_kernel(const __grid_constant__ ProjParams p) {
+  using C = ProjCfg<I8, NB, PRO, PAIR>;
+  constexpr int MATS = C::MATS, PARTS = C::PARTS, COLS = C::COLS;
+  constexpr bool NORM = C::NORM;
+  constexpr bool kResid = EPI == EPI_RESID_X1 || EPI == EPI_RESID;
+  // the outputs a consumer thread finishes (a block's share of COLS x NB)
+  constexpr int kOut = (COLS * NB + kThreads - 1) / kThreads;
+  constexpr int KSTEPS = MV_KB / 16;                  // k16 steps a stage
+  constexpr int NBUF = I8 && NB == 16 ? 1 : 2;        // step sums in flight
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), nsplit = (int)cluster.num_blocks();
-  const int k_lo = rank * kslice, k_hi = min(K, k_lo + kslice);
+  const int rank = (int)cluster.block_rank(), nblk = (int)cluster.num_blocks();
+  const int nsplit = PAIR == PAIR_SPLIT ? nblk / 2 : nblk;  // K slices
+  const bool up = PAIR == PAIR_SPLIT && rank >= nsplit;     // streams w2
+  const int k_lo = (up ? rank - nsplit : rank) * p.kslice;
+  const int k_hi = min(p.K, k_lo + p.kslice);
   const int T = k_hi > k_lo ? (k_hi - k_lo + MV_KB - 1) / MV_KB : 0;
-  const int n0 = blockIdx.x * C::COLS;
+  const int ST = p.stages;     // even: a slot always serves one warpgroup
+  const int n_tiles = (p.N + COLS - 1) / COLS;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* stages = reinterpret_cast<unsigned char*>(
       ((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
-  unsigned char* cvt = stages + ST * C::STAGE;
-  float* part = reinterpret_cast<float*>(cvt + C::CVT);   // [2][COLS][NB]
-  uint64_t* full = reinterpret_cast<uint64_t*>(part + 2 * C::COLS * NB);
+  unsigned char* u = stages + (size_t)ST * C::STAGE;
+  unsigned char* cvt = u + (NORM ? p.kslice / MV_KB * C::U_BOX : 0);
+  float* part = reinterpret_cast<float*>(cvt + C::CVT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(part + C::PART);
   uint64_t* empty = full + ST;
+  float2* stat = reinterpret_cast<float2*>(empty + ST);   // [NB]
+  const int l = p.layer_ptr ? *p.layer_ptr : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
       sm90::mbar_init(&full[s], 1);    // the producer's expect_tx
@@ -778,167 +766,392 @@ __global__ void __launch_bounds__(MV_THREADS, 2)
     sm90::mbar_fence_init();
   }
   __syncthreads();
-  const int l = layer_ptr ? *layer_ptr : 0;
-  const float sl = scales[l];   // read now, used after the stream
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (warp == 8) {
+    // the producer: W first (it does not depend on u). The cluster
+    // barriers are the statistics' (a norm prologue), then two a tile: A
+    // (its partials are written) and B (they have been read; the
+    // consumers arrive after reading and wait before they write the next
+    // tile's). The producer takes part in each, a thread alternating
+    // arrive and wait, a tile late: at the start of tile i (and after the
+    // last) it arrives at B of tile i - 2 and at A of tile i - 1, whose
+    // stages it has all issued; so the stream runs on across the
+    // barriers
+    bool pending = false;
+    auto phase = [&]() {
+      if (pending) sm90::cluster_wait();
+      sm90::cluster_arrive();
+      pending = true;
+    };
+    if (NORM) phase();
+    int i = 0;                   // tiles issued
+    const CUtensorMap* wm = up ? &p.w2 : &p.w;
     if (lane == 0) {
-      sm90::tma_prefetch_map(&maps.w);
-      sm90::tma_prefetch_map(&maps.x);
-      for (int t = 0; t < T; ++t) {
-        const int s = t % ST, k = k_lo + t * MV_KB;
-        unsigned char* st = stages + s * C::STAGE;
-        sm90::mbar_wait(&empty[s], ((t / ST) & 1) ^ 1);
-        sm90::mbar_expect_tx(&full[s], C::STAGE);
-        sm90::tma_load_3d(st, &maps.w, n0, k, l, &full[s]);
-        sm90::tma_load_2d(st + MV_BOX, &maps.x, k, 0, &full[s]);
-      }
+      sm90::tma_prefetch_map(wm);
+      if (MATS == 2) sm90::tma_prefetch_map(&p.w2);
+      if (!NORM) sm90::tma_prefetch_map(&p.x);
     }
-  } else {
-    const int cw = warp >> 2, w4 = warp & 3;   // warpgroup, its warp
-    float acc[PARTS][NB / 2];
-#pragma unroll
-    for (int p = 0; p < PARTS; ++p)
-#pragma unroll
-      for (int i = 0; i < NB / 2; ++i) acc[p][i] = 0.f;
-    unsigned char* cb = cvt + cw * 2 * MV_BOX;
-    int prev = -1;
-    for (int t = cw; t < T; t += 2) {
-      const int s = t % ST;
-      const unsigned char* st = stages + s * C::STAGE;
-      sm90::mbar_wait(&full[s], (t / ST) & 1);
-      const unsigned char* a = st;
-      if (I8) {
-        widen_stage(st, cb);
-        sm90::fence_proxy_async();
-        sm90::bar_sync(1 + cw, 128);
-        a = cb;
-      }
-#pragma unroll
-      for (int p = 0; p < PARTS; ++p) sm90::fence_regs(acc[p]);
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < MV_KB / 16; ++kk) {
-        const uint64_t db = sm90::wgmma_desc(st + MV_BOX + kk * 32, 16, 1024);
-#pragma unroll
-        for (int p = 0; p < PARTS; ++p)
-          sm90::wgmma_ss<NB, 1, 0>(
-              acc[p],
-              sm90::wgmma_desc(a + p * MV_BOX + kk * 2048, MV_BOX, 1024), db,
-              1);
-      }
-      sm90::wgmma_commit();
-      if (I8) {
-        // the product has read the stage's x box: the stage is free. The
-        // widened boxes are rewritten next: every warp's part of this
-        // product must be done (a warp's wait covers its own part only)
-        sm90::wgmma_wait<0>();
-#pragma unroll
-        for (int p = 0; p < PARTS; ++p) sm90::fence_regs(acc[p]);
-        if (lane == 0) sm90::mbar_arrive(&empty[s]);
-        sm90::bar_sync(3 + cw, 128);
-      } else {
-        // the previous stage's product is done: that stage is free
-        sm90::wgmma_wait<1>();
-#pragma unroll
-        for (int p = 0; p < PARTS; ++p) sm90::fence_regs(acc[p]);
-        if (prev >= 0 && lane == 0) sm90::mbar_arrive(&empty[prev]);
-        prev = s;
-      }
-    }
-    sm90::wgmma_wait<0>();
-#pragma unroll
-    for (int p = 0; p < PARTS; ++p) sm90::fence_regs(acc[p]);
-    // acc[p][4j + 2h + e]: column p * 64 + 16 w4 + lane / 4 + 8h, slot
-    // 8j + 2 (lane % 4) + e
-    const int g = lane >> 2, t4 = lane & 3;
-    float* mine = part + cw * C::COLS * NB;
-#pragma unroll
-    for (int p = 0; p < PARTS; ++p)
-#pragma unroll
-      for (int j = 0; j < NB / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int n = p * 64 + 16 * w4 + g + 8 * (e >> 1);
-          mine[n * NB + 8 * j + 2 * t4 + (e & 1)] = acc[p][4 * j + e];
+    int g = 0;                   // stages issued, over the block's tiles
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+      if (i >= 2) phase();       // B of tile i - 2
+      if (i >= 1) phase();       // A of tile i - 1
+      const int n0 = tile * COLS;
+      for (int t = 0; t < T; ++t, ++g) {
+        if (lane == 0) {
+          const int s = g % ST, k = k_lo + t * MV_KB;
+          unsigned char* st = stages + (size_t)s * C::STAGE;
+          sm90::mbar_wait(&empty[s], ((g / ST) & 1) ^ 1);
+          sm90::mbar_expect_tx(&full[s], C::STAGE);
+          sm90::tma_load_3d(st, wm, n0, k, l, &full[s]);
+          if (MATS == 2)
+            sm90::tma_load_3d(st + MV_BOX, &p.w2, n0, k, l, &full[s]);
+          if (!NORM)
+            sm90::tma_load_2d(st + MATS * MV_BOX, &p.x, k, 0, &full[s]);
         }
-  }
-  cluster.sync();   // every block's partials are visible to the cluster
-
-  const int n_out = C::COLS * NB, per = (n_out + nsplit - 1) / nsplit;
-  for (int i = rank * per + threadIdx.x; i < min(n_out, (rank + 1) * per);
-       i += MV_THREADS) {
-    const int n = n0 + i / NB, b = i % NB;
-    if (b >= B || n >= N) continue;
-    float a = 0.f;
-    for (int q = 0; q < nsplit; ++q) {
-      const float* pq = cluster.map_shared_rank(part, q);
-      a += pq[i] + pq[C::COLS * NB + i];
+      }
+      __syncwarp();
     }
-    out[(size_t)b * N + n] = __float2bfloat16(a * sl);
+    if (i >= 2) phase();         // B of tile i - 2
+    phase();                     // A of the last tile
+    phase();                     // B of the last tile
+    sm90::cluster_wait();
+  } else {
+    const int tid = threadIdx.x;   // 0..255
+    const float sl = p.scales[l];
+    const float sl2 = PAIR != PAIR_NONE ? p.scales2[l] : 0.f;
+    if constexpr (NORM) {
+      // the statistics of rows rank, rank + nblk, ...: one warp a row
+      using Tin =
+          typename std::conditional<PRO == PRO_LN_F32, float, bf16>::type;
+      for (int r = rank + warp * nblk; r < p.B; r += kWarps * nblk) {
+        const float2 ms = row_stats<PRO == PRO_RMS_BF16>(
+            reinterpret_cast<const Tin*>(p.xin) + (size_t)r * p.K, p.K,
+            p.eps);
+        if (lane == 0) stat[r] = ms;
+      }
+      sm90::cluster_arrive();
+      sm90::cluster_wait();          // every row's statistic is computed
+      // the other rows' statistics from the blocks that computed them
+      // (slot r is read remotely only in block r % nblk)
+      if (tid < p.B && tid % nblk != rank)
+        stat[tid] = *cluster.map_shared_rank(stat + tid, tid % nblk);
+      sm90::bar_sync(MV_BAR_U, kThreads);
+      norm_slice<NB, PRO>(p, stat, u, l, k_lo);
+      sm90::fence_proxy_async();     // u is read by the async proxy
+      sm90::bar_sync(MV_BAR_U, kThreads);
+    }
+
+    const int cw = warp >> 2, w4 = warp & 3;   // warpgroup, its warp
+    const int g4 = lane >> 2, t4 = lane & 3;
+    unsigned char* cb = cvt + cw * 2 * MV_BOX;
+    // this block's share of a tile's COLS x NB outputs (index n * NB + b)
+    const int n_out = COLS * NB, per = (n_out + nblk - 1) / nblk;
+    const int o_lo = rank * per, o_hi = min(n_out, o_lo + per);
+    int g0 = 0;                  // stages taken
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, g0 += T) {
+      const int n0 = tile * COLS;
+      // the epilogue's operands, requested into L2 now so they arrive
+      // during the weight stream, and read in the epilogue (registers are
+      // the scarce resource at two blocks an SM: 96 a thread)
+#pragma unroll
+      for (int t = 0; t < kOut; ++t) {
+        const int i = o_lo + tid + t * kThreads;
+        const int b = i % NB, n = n0 + i / NB;
+        if (i < o_hi && b < p.B && n < p.N) {
+          if (p.bias != nullptr)
+            sm90::prefetch_l2(p.bias + (size_t)l * p.N + n);
+          if (kResid) sm90::prefetch_l2(p.resid + (size_t)b * p.N + n);
+        }
+      }
+      // acc: the tile's sums; sacc: one k16 step's, a fresh sum of the
+      // tensor cores, added to acc in fp32 rounded to nearest (the tensor
+      // cores truncate as they accumulate: sums over a whole K slice, or
+      // over a 64-row stage, put LLaMA-7B serving's teacher-forced gaps
+      // past 3 units; PERF.md §6). Two sacc buffers let a step's product
+      // run while the previous step's sums are added (one for int8 codes
+      // at 16 slots: their registers)
+      float acc[MATS][PARTS][NB / 2], sacc[NBUF][MATS][PARTS][NB / 2];
+#pragma unroll
+      for (int m = 0; m < MATS; ++m)
+#pragma unroll
+        for (int q = 0; q < PARTS; ++q)
+#pragma unroll
+          for (int i = 0; i < NB / 2; ++i) acc[m][q][i] = 0.f;
+      // warpgroup cw takes the stages g with g % 2 == cw
+      for (int t = (g0 & 1) == cw ? 0 : 1; t < T; t += 2) {
+        const int g = g0 + t, s = g % ST;
+        const unsigned char* st = stages + (size_t)s * C::STAGE;
+        const unsigned char* xb =
+            NORM ? u + (size_t)t * C::U_BOX : st + MATS * MV_BOX;
+        sm90::mbar_wait(&full[s], (g / ST) & 1);
+        if constexpr (I8) {
+          // one box of codes at a time through the warpgroup's bf16 boxes
+#pragma unroll
+          for (int m = 0; m < MATS; ++m) {
+            widen_stage(st + m * MV_BOX, cb);
+            sm90::fence_proxy_async();
+            sm90::bar_sync(1 + cw, 128);
+#pragma unroll
+            for (int kk = 0; kk < KSTEPS; ++kk) {
+              const uint64_t db = sm90::wgmma_desc(xb + kk * 32, 16, 1024);
+              float(&cur)[PARTS][NB / 2] = sacc[kk % NBUF][m];
+#pragma unroll
+              for (int q = 0; q < PARTS; ++q) sm90::fence_regs(cur[q]);
+              sm90::wgmma_fence();
+#pragma unroll
+              for (int q = 0; q < PARTS; ++q)
+                mv_product<NB>(cur[q], cb + q * MV_BOX + kk * 2048, db);
+              sm90::wgmma_commit();
+              if constexpr (NBUF == 1) {
+                sm90::wgmma_wait<0>();
+                add_sums(acc[m], cur);
+              } else if (kk > 0) {
+                sm90::wgmma_wait<1>();   // the previous step's sums
+                add_sums(acc[m], sacc[(kk - 1) % NBUF][m]);
+              }
+            }
+            if constexpr (NBUF == 2) {
+              sm90::wgmma_wait<0>();
+              add_sums(acc[m], sacc[(KSTEPS - 1) % NBUF][m]);
+            }
+            // the widened boxes are rewritten next: every warp's part of
+            // this product must be done (a warp's wait covers its own
+            // part only); after the last box the stage is free
+            if (m == MATS - 1 && lane == 0) sm90::mbar_arrive(&empty[s]);
+            sm90::bar_sync(3 + cw, 128);
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < KSTEPS; ++kk) {
+            const uint64_t db = sm90::wgmma_desc(xb + kk * 32, 16, 1024);
+            float(&cur)[MATS][PARTS][NB / 2] = sacc[kk % NBUF];
+#pragma unroll
+            for (int m = 0; m < MATS; ++m) sm90::fence_regs(cur[m][0]);
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int m = 0; m < MATS; ++m)
+              mv_product<NB>(cur[m][0], st + m * MV_BOX + kk * 2048, db);
+            sm90::wgmma_commit();
+            if constexpr (NBUF == 1) {
+              sm90::wgmma_wait<0>();
+#pragma unroll
+              for (int m = 0; m < MATS; ++m) add_sums(acc[m], cur[m]);
+            } else if (kk > 0) {
+              sm90::wgmma_wait<1>();     // the previous step's sums
+#pragma unroll
+              for (int m = 0; m < MATS; ++m)
+                add_sums(acc[m], sacc[(kk - 1) % NBUF][m]);
+            }
+          }
+          if constexpr (NBUF == 2) {
+            sm90::wgmma_wait<0>();
+#pragma unroll
+            for (int m = 0; m < MATS; ++m)
+              add_sums(acc[m], sacc[(KSTEPS - 1) % NBUF][m]);
+          }
+          // the stage's products are done: the stage is free (the other
+          // warpgroup's products run meanwhile; carrying the last product
+          // into the next stage, freeing the stage later, was slower:
+          // PERF.md §6)
+          if (lane == 0) sm90::mbar_arrive(&empty[s]);
+        }
+      }
+      // acc[m][q][4j + 2h + e]: column q * 64 + 16 w4 + lane / 4 + 8h,
+      // slot 8j + 2 (lane % 4) + e. Warpgroup 1 stores its partial,
+      // warpgroup 0 adds its own to it: the block's partial is wg0 + wg1,
+      // written once every block has read the last tile's (B)
+      if (tile != (int)blockIdx.x) sm90::cluster_wait();
+      if (cw == 1) {
+#pragma unroll
+        for (int m = 0; m < MATS; ++m)
+#pragma unroll
+          for (int q = 0; q < PARTS; ++q)
+#pragma unroll
+            for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int n = q * 64 + 16 * w4 + g4 + 8 * (e >> 1);
+                part[(m * COLS + n) * NB + 8 * j + 2 * t4 + (e & 1)] =
+                    acc[m][q][4 * j + e];
+              }
+      }
+      sm90::bar_sync(MV_BAR_PART, kThreads);
+      if (cw == 0) {
+#pragma unroll
+        for (int m = 0; m < MATS; ++m)
+#pragma unroll
+          for (int q = 0; q < PARTS; ++q)
+#pragma unroll
+            for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int n = q * 64 + 16 * w4 + g4 + 8 * (e >> 1);
+                float* d =
+                    part + (m * COLS + n) * NB + 8 * j + 2 * t4 + (e & 1);
+                *d = acc[m][q][4 * j + e] + *d;
+              }
+      }
+      sm90::cluster_arrive();
+      sm90::cluster_wait();   // A: every block's partial of the tile is written
+
+#pragma unroll 2
+      for (int t = 0; t < kOut; ++t) {
+        const int i = o_lo + tid + t * kThreads;
+        const int b = i % NB, n = n0 + i / NB;
+        if (i >= o_hi || b >= p.B || n >= p.N) continue;
+        // the operands prefetched into L2 above
+        const float bn =
+            p.bias != nullptr ? p.bias[(size_t)l * p.N + n] : 0.f;
+        const float rs =
+            kResid ? __bfloat162float(p.resid[(size_t)b * p.N + n]) : 0.f;
+        float a = 0.f, a2 = 0.f;
+        if constexpr (PAIR == PAIR_SPLIT) {
+          for (int q = 0; q < nsplit; ++q)
+            a += cluster.map_shared_rank(part, q)[i];
+          for (int q = nsplit; q < nblk; ++q)
+            a2 += cluster.map_shared_rank(part, q)[i];
+        } else {
+          for (int q = 0; q < nblk; ++q) {
+            const float* pq = cluster.map_shared_rank(part, q);
+            a += pq[i];
+            if (PAIR == PAIR_BOTH) a2 += pq[COLS * NB + i];
+          }
+        }
+        const size_t o = (size_t)b * p.N + n;
+        if constexpr (EPI == EPI_BIAS) {
+          p.out[o] = __float2bfloat16(a * sl + bn);
+        } else if constexpr (EPI == EPI_RESID_X1) {
+          const float x1 = rs + (a * sl + bn);
+          p.out_f32[o] = x1;
+          p.out[o] = __float2bfloat16(x1);
+        } else if constexpr (EPI == EPI_GELU) {
+          p.out[o] = __float2bfloat16(gelu_tanh(a * sl + bn));
+        } else if constexpr (EPI == EPI_GELU_ERF) {
+          p.out[o] = __float2bfloat16(gelu_erf(a * sl + bn));
+        } else if constexpr (EPI == EPI_SWIGLU) {
+          p.out[o] = __float2bfloat16(silu_f32(a * sl) * (a2 * sl2));
+        } else {
+          p.out[o] = __float2bfloat16((rs + a * sl) + bn);
+        }
+      }
+      sm90::cluster_arrive();   // B: this block has read the partials
+    }
+    // no block leaves while another still reads its shared memory
+    sm90::cluster_wait();
   }
-  cluster.sync();   // no block leaves while another still reads its part
 }
 
-// the K split of a matvec_tma launch: the smallest power of two (at most
-// kMaxSplit, a portable cluster) that puts 1.5 blocks an SM on the card;
-// each slice a whole number of 64-row stages
-inline int mv_split(int n_tiles, int sms) {
-  int S = 1;
-  while (S < kMaxSplit && 2 * n_tiles * S < 3 * sms) S *= 2;
-  return S;
-}
+// A launch's plan, chosen on the host (ops/cuda/decode.py matvec_tma_plan):
+// the K split (blocks a matrix in a cluster), the ring's stages (even)
+// and the clusters, which walk the column tiles
+struct ProjPlan {
+  int split, stages, clusters;
+};
 
-template <bool I8, int NB>
-cudaError_t launch_matvec_tma(const void* x, const void* w, const float* s,
-                              const int* lp, bf16* out, int B, int K, int N,
-                              int L, cudaStream_t st) {
-  using C = MvCfg<I8, NB>;
-  MvMaps maps;
-  const cuuint64_t wdims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)L};
-  const cuuint64_t wstr[2] = {(cuuint64_t)N * (I8 ? 1 : 2),
-                              (cuuint64_t)K * N * (I8 ? 1 : 2)};
+template <bool I8, int NB, int PRO, int EPI, int PAIR>
+cudaError_t launch_proj_nb(ProjParams& p, const void* w, const void* w2,
+                           const void* x, int L, ProjPlan plan,
+                           cudaStream_t st) {
+  using C = ProjCfg<I8, NB, PRO, PAIR>;
+  const int mats = PAIR == PAIR_SPLIT ? 2 : 1;   // blocks a K slice
+  const int n_tiles = (p.N + C::COLS - 1) / C::COLS;
+  if (plan.split < 1 || plan.split * mats > kMaxSplit || plan.stages < 2 ||
+      (plan.split & (plan.split - 1)) || plan.stages % 2 ||
+      plan.clusters < 1 || plan.clusters > n_tiles)
+    return cudaErrorInvalidValue;
+  p.kslice = ((p.K + plan.split - 1) / plan.split + MV_KB - 1) / MV_KB *
+             MV_KB;
+  p.stages = plan.stages;
+  const size_t smem = C::smem(p.kslice, plan.stages);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  const cuuint64_t wdims[3] = {(cuuint64_t)p.N, (cuuint64_t)p.K,
+                               (cuuint64_t)L};
+  const int wb = I8 ? 1 : 2;
+  const cuuint64_t wstr[2] = {(cuuint64_t)p.N * wb,
+                              (cuuint64_t)p.K * p.N * wb};
   const cuuint32_t wbox[3] = {I8 ? 128u : 64u, (cuuint32_t)MV_KB, 1};
-  cudaError_t e = sm90::encode_tiled(
-      &maps.w, I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      3, w, wdims, wstr, wbox);
-  if (e == cudaSuccess) e = sm90::encode_2d(&maps.x, x, B, K, NB);
+  const CUtensorMapDataType wt = I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  cudaError_t e =
+      sm90::encode_tiled_cached(&p.w, wt, 3, w, wdims, wstr, wbox);
+  if (e == cudaSuccess && PAIR != PAIR_NONE)
+    e = sm90::encode_tiled_cached(&p.w2, wt, 3, w2, wdims, wstr, wbox);
+  if (e == cudaSuccess && PRO == PRO_COPY) {
+    const cuuint64_t xdims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.B};
+    const cuuint64_t xstr[1] = {(cuuint64_t)p.K * 2};
+    const cuuint32_t xbox[2] = {64, (cuuint32_t)NB};
+    e = sm90::encode_tiled_cached(&p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                  x, xdims, xstr, xbox);
+  }
   if (e != cudaSuccess) return e;
-  auto kern = matvec_tma_kernel<I8, NB>;
+  auto kern = proj_tma_kernel<I8, NB, PRO, EPI, PAIR>;
   static bool allowed = false;     // one attribute call a kernel a process
   if (!allowed) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::SMEM);
+                             232448);
     if (e != cudaSuccess) return e;
     allowed = true;
   }
-  const int n_tiles = (N + C::COLS - 1) / C::COLS;
-  const int S = mv_split(n_tiles, sm90::sm_count());
-  const int kslice = ((K + S - 1) / S + MV_KB - 1) / MV_KB * MV_KB;
+  const int cluster = plan.split * mats;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_tiles, S, 1);
+  cfg.gridDim = dim3(plan.clusters, cluster, 1);
   cfg.blockDim = dim3(MV_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = S;
+  attr[0].val.clusterDim.y = cluster;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, maps, s, lp, out, B, K, N, kslice);
+  return cudaLaunchKernelEx(&cfg, kern, p);
 }
 
-template <bool I8>
-cudaError_t matvec_tma(const void* x, const void* w, const float* s,
-                       const int* lp, bf16* out, int B, int K, int N, int L,
-                       cudaStream_t st) {
-  if (B <= 8)
-    return launch_matvec_tma<I8, 8>(x, w, s, lp, out, B, K, N, L, st);
-  return launch_matvec_tma<I8, 16>(x, w, s, lp, out, B, K, N, L, st);
+// The launch at the slot width of B (8 or 16), over bf16 weights or int8
+// codes; TMA needs every base 16-byte aligned and K, N multiples of 8 (N
+// of 16 for int8 codes: a row of codes is then a multiple of 16 bytes)
+template <int PRO, int EPI, int PAIR = PAIR_NONE>
+cudaError_t launch_proj(ProjParams p, bool i8, const void* w, const void* w2,
+                        const void* x, int L, ProjPlan plan,
+                        cudaStream_t st) {
+  if (p.B < 1 || p.B > 16 || p.K % 8 || p.N % (i8 ? 16 : 8) || L < 1)
+    return cudaErrorInvalidValue;
+  if (i8) {
+    // int8 codes pair by splitting the cluster: both boxes a stage, with
+    // the widened copies, fit no two blocks an SM (and ran 1.3x slower at
+    // one block an SM; PERF.md)
+    if constexpr (PAIR == PAIR_BOTH) return cudaErrorInvalidValue;
+    else
+      return p.B <= 8
+                 ? launch_proj_nb<true, 8, PRO, EPI, PAIR>(p, w, w2, x, L,
+                                                           plan, st)
+                 : launch_proj_nb<true, 16, PRO, EPI, PAIR>(p, w, w2, x, L,
+                                                            plan, st);
+  }
+  return p.B <= 8
+             ? launch_proj_nb<false, 8, PRO, EPI, PAIR>(p, w, w2, x, L, plan,
+                                                        st)
+             : launch_proj_nb<false, 16, PRO, EPI, PAIR>(p, w, w2, x, L, plan,
+                                                         st);
+}
+
+// a ProjParams with the fields every launch sets
+inline ProjParams proj_params(const void* xin, const float* scales,
+                              const float* bias, const int* layer_ptr,
+                              bf16* out, int B, int K, int N) {
+  ProjParams p;
+  memset(&p, 0, sizeof(p));
+  p.xin = xin;
+  p.scales = scales;
+  p.bias = bias;
+  p.layer_ptr = layer_ptr;
+  p.out = out;
+  p.B = B;
+  p.K = K;
+  p.N = N;
+  return p;
 }
 
 // ------------------------------------------------------- decode attention
@@ -1607,175 +1820,163 @@ __global__ void __launch_bounds__(256) kv_quant_kernel(
 }
 
 // GPT-2's out_ffn (fuse_proj, LayerNorm, gelu_tanh): three launches
-template <typename TW>
-cudaError_t out_ffn_gelu(const void* ctx, const void* x, const TW* wp,
-                         const float* sp, const float* bp, const float* ln_w,
-                         const float* ln_b, const TW* w1, const float* s1,
-                         const float* b1, const TW* w2, const float* s2,
-                         const float* b2, const int* lp, bf16* x1, float* x1f,
-                         bf16* h, bf16* out, int B, int E, int F, float eps,
+cudaError_t out_ffn_gelu(bool i8, const void* ctx, const void* x,
+                         const void* wp, const float* sp, const float* bp,
+                         const float* ln_w, const float* ln_b, const void* w1,
+                         const float* s1, const float* b1, const void* w2,
+                         const float* s2, const float* b2, const int* lp,
+                         bf16* x1, float* x1f, bf16* h, bf16* out, int B,
+                         int E, int F, int L, const int* plan, float eps,
                          cudaStream_t st) {
-  cudaError_t e = matvec<PRO_COPY, EPI_RESID_X1, false, TW>(
-      ctx, nullptr, nullptr, wp, sp, bp, lp, (const bf16*)x, x1, x1f, B, E,
-      E, eps, st);
+  ProjParams pa = proj_params(nullptr, sp, bp, lp, x1, B, E, E);
+  pa.resid = (const bf16*)x;
+  pa.out_f32 = x1f;
+  cudaError_t e = launch_proj<PRO_COPY, EPI_RESID_X1>(
+      pa, i8, wp, nullptr, ctx, L, {plan[0], plan[1], plan[2]}, st);
   if (e != cudaSuccess) return e;
-  e = matvec<PRO_LN_F32, EPI_GELU, false, TW>(
-      x1f, ln_w, ln_b, w1, s1, b1, lp, nullptr, h, nullptr, B, E, F, eps,
-      st);
+  ProjParams pb = proj_params(x1f, s1, b1, lp, h, B, E, F);
+  pb.ln_w = ln_w;
+  pb.ln_b = ln_b;
+  pb.eps = eps;
+  e = launch_proj<PRO_LN_F32, EPI_GELU>(pb, i8, w1, nullptr, nullptr, L,
+                                        {plan[3], plan[4], plan[5]}, st);
   if (e != cudaSuccess) return e;
-  return matvec<PRO_COPY, EPI_RESID, false, TW>(
-      h, nullptr, nullptr, w2, s2, b2, lp, x1, out, nullptr, B, F, E, eps,
-      st);
-}
-
-template <typename TW>
-cudaError_t out_ffn_glu(const void* x1, const float* ln_w, const TW* wg,
-                        const float* sg, const TW* wu, const float* su,
-                        const TW* wd, const float* sd, const int* lp, bf16* h,
-                        bf16* out, int B, int E, int F, float eps,
-                        cudaStream_t st) {
-  cudaError_t e = matvec<PRO_RMS_BF16, EPI_SWIGLU, true, TW>(
-      x1, ln_w, nullptr, wg, sg, nullptr, lp, nullptr, h, nullptr, B, E, F,
-      eps, st, wu, su);
-  if (e != cudaSuccess) return e;
-  return matvec<PRO_COPY, EPI_RESID, false, TW>(
-      h, nullptr, nullptr, wd, sd, nullptr, lp, (const bf16*)x1, out,
-      nullptr, B, F, E, eps, st);
+  ProjParams pc = proj_params(nullptr, s2, b2, lp, out, B, F, E);
+  pc.resid = x1;
+  return launch_proj<PRO_COPY, EPI_RESID>(pc, i8, w2, nullptr, h, L,
+                                          {plan[6], plan[7], plan[8]}, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// out [B, N] = norm(x) . W[layer] * s[layer] (+ b[layer]); rms != 0 takes
-// RMSNorm (ln_w only, no bias: pass null ln_b and b); w8 != 0: W holds
-// int8 codes. A null layer_ptr reads layer 0 (ln_qkv_int8).
+// out [B, N] = norm(x) . W[layer] * s[layer] (+ b[layer]) over W [L, E, N];
+// rms != 0 takes RMSNorm (ln_w only, no bias: pass null ln_b and b); w8 !=
+// 0: W holds int8 codes. A null layer_ptr reads layer 0 (ln_qkv_int8).
+// plan: the launch's (split, stages, clusters), a host array
+// (ops/cuda/decode.py matvec_tma_plan)
 int dstpu_ln_qkv_stacked(const void* x, const void* ln_w, const void* ln_b,
                          const void* w, const void* s, const void* b,
-                         const void* layer_ptr, void* out,
-                         int B, int E, int N, int rms, int w8, float eps,
-                         void* stream) {
-  if (rms && w8)
-    return (int)matvec<PRO_RMS_BF16, EPI_BIAS, false, int8_t>(
-        x, (const float*)ln_w, nullptr, (const int8_t*)w, (const float*)s,
-        nullptr, (const int*)layer_ptr, nullptr, (bf16*)out, nullptr, B, E,
-        N, eps, (cudaStream_t)stream);
-  if (w8)
-    return (int)matvec<PRO_LN_BF16, EPI_BIAS, false, int8_t>(
-        x, (const float*)ln_w, (const float*)ln_b, (const int8_t*)w,
-        (const float*)s, (const float*)b, (const int*)layer_ptr, nullptr,
-        (bf16*)out, nullptr, B, E, N, eps, (cudaStream_t)stream);
+                         const void* layer_ptr, void* out, int B, int E,
+                         int N, int L, int rms, int w8, const void* plan,
+                         float eps, void* stream) {
+  ProjParams p = proj_params(x, (const float*)s, (const float*)b,
+                             (const int*)layer_ptr, (bf16*)out, B, E, N);
+  p.ln_w = (const float*)ln_w;
+  p.ln_b = (const float*)ln_b;
+  p.eps = eps;
+  const int* pl = (const int*)plan;
+  const ProjPlan pp = {pl[0], pl[1], pl[2]};
+  cudaStream_t st = (cudaStream_t)stream;
   if (rms)
-    return (int)matvec<PRO_RMS_BF16, EPI_BIAS>(
-        x, (const float*)ln_w, nullptr, (const bf16*)w, (const float*)s,
-        nullptr, (const int*)layer_ptr, nullptr, (bf16*)out, nullptr, B, E,
-        N, eps, (cudaStream_t)stream);
-  return (int)matvec<PRO_LN_BF16, EPI_BIAS>(
-      x, (const float*)ln_w, (const float*)ln_b, (const bf16*)w,
-      (const float*)s, (const float*)b, (const int*)layer_ptr, nullptr,
-      (bf16*)out, nullptr, B, E, N, eps, (cudaStream_t)stream);
+    return (int)launch_proj<PRO_RMS_BF16, EPI_BIAS>(p, w8, w, nullptr,
+                                                    nullptr, L, pp, st);
+  return (int)launch_proj<PRO_LN_BF16, EPI_BIAS>(p, w8, w, nullptr, nullptr,
+                                                 L, pp, st);
 }
 
 // out [B, N] = x . W[layer] * s[layer] over W [L, K, N]; w8 != 0: W holds
-// int8 codes. fma == 0: matvec_tma_kernel, which needs every base 16-byte
-// aligned and K, N multiples of 8 (of 16 for int8 codes: a row of codes is
-// then a multiple of 16 bytes); fma != 0: the CUDA-core kernel, which
-// takes every shape the wrapper takes
+// int8 codes. fma == 0: proj_tma_kernel at the plan (split, stages,
+// clusters: a host array), which needs every base 16-byte aligned and K, N
+// multiples of 8 (of 16 for int8 codes); fma != 0: the CUDA-core kernel,
+// which takes every shape the wrapper takes (plan unused)
 int dstpu_matvec_stacked(const void* x, const void* w, const void* s,
                          const void* layer_ptr, void* out, int B, int K,
-                         int N, int L, int w8, int fma, void* stream) {
+                         int N, int L, int w8, int fma, const void* plan,
+                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (!fma) {
-    if (B < 1 || B > 16 || K % 8 || N % (w8 ? 16 : 8) || L < 1)
-      return (int)cudaErrorInvalidValue;
-    return w8 ? (int)matvec_tma<true>(x, w, (const float*)s,
-                                      (const int*)layer_ptr, (bf16*)out, B,
-                                      K, N, L, st)
-              : (int)matvec_tma<false>(x, w, (const float*)s,
-                                       (const int*)layer_ptr, (bf16*)out, B,
-                                       K, N, L, st);
-  }
-  if (w8)
-    return (int)matvec<PRO_COPY, EPI_BIAS, false, int8_t>(
-        x, nullptr, nullptr, (const int8_t*)w, (const float*)s, nullptr,
-        (const int*)layer_ptr, nullptr, (bf16*)out, nullptr, B, K, N, 0.f,
-        st);
-  return (int)matvec<PRO_COPY, EPI_BIAS>(
-      x, nullptr, nullptr, (const bf16*)w, (const float*)s, nullptr,
-      (const int*)layer_ptr, nullptr, (bf16*)out, nullptr, B, K, N, 0.f, st);
+  const int* pl = (const int*)plan;
+  if (!fma)
+    return (int)launch_proj<PRO_COPY, EPI_BIAS>(
+        proj_params(nullptr, (const float*)s, nullptr,
+                    (const int*)layer_ptr, (bf16*)out, B, K, N),
+        w8, w, nullptr, x, L, {pl[0], pl[1], pl[2]}, st);
+  if (B < 1 || B > 16) return (int)cudaErrorInvalidValue;
+#define FMA_LAUNCH(MAXB, TW)                                                \
+  return (int)launch_fma<MAXB, TW>((const bf16*)x, (const TW*)w,           \
+                                   (const float*)s, (const int*)layer_ptr, \
+                                   (bf16*)out, B, K, N, st)
+  if (w8 && B <= 8) FMA_LAUNCH(8, int8_t);
+  if (w8) FMA_LAUNCH(16, int8_t);
+  if (B <= 8) FMA_LAUNCH(8, bf16);
+  FMA_LAUNCH(16, bf16);
+#undef FMA_LAUNCH
 }
 
 // Three launches on one stream: x1 (bf16 + fp32 copies), h, then out;
 // w8 != 0: Wp, W1 and W2 hold int8 codes. A null layer_ptr reads layer 0
-// (out_ffn_int8).
+// (out_ffn_int8). plan: (split, stages, clusters) of each launch, in order
 int dstpu_out_ffn_stacked(const void* ctx, const void* x, const void* wp,
                           const void* sp, const void* bp, const void* ln_w,
                           const void* ln_b, const void* w1, const void* s1,
                           const void* b1, const void* w2, const void* s2,
                           const void* b2, const void* layer_ptr,
                           void* x1, void* x1f, void* h,
-                          void* out, int B, int E, int F, int w8, float eps,
-                          void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int* lp = (const int*)layer_ptr;
-  if (w8)
-    return (int)out_ffn_gelu<int8_t>(
-        ctx, x, (const int8_t*)wp, (const float*)sp, (const float*)bp,
-        (const float*)ln_w, (const float*)ln_b, (const int8_t*)w1,
-        (const float*)s1, (const float*)b1, (const int8_t*)w2,
-        (const float*)s2, (const float*)b2, lp, (bf16*)x1, (float*)x1f,
-        (bf16*)h, (bf16*)out, B, E, F, eps, st);
-  return (int)out_ffn_gelu<bf16>(
-      ctx, x, (const bf16*)wp, (const float*)sp, (const float*)bp,
-      (const float*)ln_w, (const float*)ln_b, (const bf16*)w1,
-      (const float*)s1, (const float*)b1, (const bf16*)w2, (const float*)s2,
-      (const float*)b2, lp, (bf16*)x1, (float*)x1f, (bf16*)h, (bf16*)out, B,
-      E, F, eps, st);
+                          void* out, int B, int E, int F, int L, int w8,
+                          const void* plan, float eps, void* stream) {
+  return (int)out_ffn_gelu(
+      w8, ctx, x, wp, (const float*)sp, (const float*)bp, (const float*)ln_w,
+      (const float*)ln_b, w1, (const float*)s1, (const float*)b1, w2,
+      (const float*)s2, (const float*)b2, (const int*)layer_ptr, (bf16*)x1,
+      (float*)x1f, (bf16*)h, (bf16*)out, B, E, F, L, (const int*)plan, eps,
+      (cudaStream_t)stream);
 }
 
 // out [B, N] = act(x . W * s + b) over int8 codes W [K, N] and one fp32
 // scale s on the card (matvec_int8); act 0: none, 1: gelu_tanh, 2: gelu
 int dstpu_matvec_int8(const void* x, const void* w, const void* s,
                       const void* b, void* out, int B, int K, int N, int act,
-                      void* stream) {
+                      const void* plan_, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int8_t* wq = (const int8_t*)w;
+  const ProjParams p = proj_params(nullptr, (const float*)s, (const float*)b,
+                                   nullptr, (bf16*)out, B, K, N);
+  const int* pl = (const int*)plan_;
+  const ProjPlan plan = {pl[0], pl[1], pl[2]};
   if (act == 1)
-    return (int)matvec<PRO_COPY, EPI_GELU, false, int8_t>(
-        x, nullptr, nullptr, wq, (const float*)s, (const float*)b, nullptr,
-        nullptr, (bf16*)out, nullptr, B, K, N, 0.f, st);
+    return (int)launch_proj<PRO_COPY, EPI_GELU>(p, true, w, nullptr, x, 1,
+                                                plan, st);
   if (act == 2)
-    return (int)matvec<PRO_COPY, EPI_GELU_ERF, false, int8_t>(
-        x, nullptr, nullptr, wq, (const float*)s, (const float*)b, nullptr,
-        nullptr, (bf16*)out, nullptr, B, K, N, 0.f, st);
-  return (int)matvec<PRO_COPY, EPI_BIAS, false, int8_t>(
-      x, nullptr, nullptr, wq, (const float*)s, (const float*)b, nullptr,
-      nullptr, (bf16*)out, nullptr, B, K, N, 0.f, st);
+    return (int)launch_proj<PRO_COPY, EPI_GELU_ERF>(p, true, w, nullptr, x,
+                                                    1, plan, st);
+  return (int)launch_proj<PRO_COPY, EPI_BIAS>(p, true, w, nullptr, x, 1,
+                                              plan, st);
 }
 
 // LLaMA's out_ffn with fuse_proj=False, two launches on one stream:
 // h = silu(RMS(x1).Wg.sg) * (RMS(x1).Wu.su), then out = x1 + h.Wd.sd;
-// w8 != 0: Wg, Wu and Wd hold int8 codes
+// w8 != 0: Wg, Wu and Wd hold int8 codes. plan: (split, stages, clusters)
+// of each launch; pair: the gate/up pairing (PAIR_SPLIT or PAIR_BOTH)
 int dstpu_out_ffn_glu_stacked(const void* x1, const void* ln_w,
                               const void* wg, const void* sg,
                               const void* wu, const void* su,
                               const void* wd, const void* sd,
                               const void* layer_ptr, void* h, void* out,
-                              int B, int E, int F, int w8, float eps,
+                              int B, int E, int F, int L, int w8,
+                              const void* plan, int pair, float eps,
                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const int* pl = (const int*)plan;
   const int* lp = (const int*)layer_ptr;
-  if (w8)
-    return (int)out_ffn_glu<int8_t>(x1, (const float*)ln_w,
-                                    (const int8_t*)wg, (const float*)sg,
-                                    (const int8_t*)wu, (const float*)su,
-                                    (const int8_t*)wd, (const float*)sd, lp,
-                                    (bf16*)h, (bf16*)out, B, E, F, eps, st);
-  return (int)out_ffn_glu<bf16>(x1, (const float*)ln_w, (const bf16*)wg,
-                                (const float*)sg, (const bf16*)wu,
-                                (const float*)su, (const bf16*)wd,
-                                (const float*)sd, lp, (bf16*)h, (bf16*)out, B,
-                                E, F, eps, st);
+  ProjParams pa = proj_params(x1, (const float*)sg, nullptr, lp, (bf16*)h, B,
+                              E, F);
+  pa.ln_w = (const float*)ln_w;
+  pa.scales2 = (const float*)su;
+  pa.eps = eps;
+  cudaError_t e =
+      pair == PAIR_BOTH
+          ? launch_proj<PRO_RMS_BF16, EPI_SWIGLU, PAIR_BOTH>(
+                pa, w8, wg, wu, nullptr, L, {pl[0], pl[1], pl[2]}, st)
+      : pair == PAIR_SPLIT
+          ? launch_proj<PRO_RMS_BF16, EPI_SWIGLU, PAIR_SPLIT>(
+                pa, w8, wg, wu, nullptr, L, {pl[0], pl[1], pl[2]}, st)
+          : cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
+  ProjParams pb = proj_params(nullptr, (const float*)sd, nullptr, lp,
+                              (bf16*)out, B, F, E);
+  pb.resid = (const bf16*)x1;
+  return (int)launch_proj<PRO_COPY, EPI_RESID>(pb, w8, wd, nullptr, h, L,
+                                               {pl[3], pl[4], pl[5]}, st);
 }
 
 // q [B, H, R, D] bf16 over a bf16 cache or an int8 one with fp32 scales

@@ -2,9 +2,10 @@
 // and stores, 1-D bulk copies and fp32 bulk adds, 4-byte cp.async that
 // completes on an mbarrier, acquire/release flags in global memory, wgmma
 // shared-memory descriptors and the bf16 m64nNk16 products (both operands
-// from shared memory, or A from registers), named barriers and the
-// register hand-over between warpgroups (setmaxnreg); and on the host the
-// tensor-map encoder. Shared by the kernels that feed
+// from shared memory, or A from registers), named barriers, the cluster
+// barrier in halves and the register hand-over between warpgroups
+// (setmaxnreg); and on the host the
+// tensor-map encoder and its cache. Shared by the kernels that feed
 // wgmma from a TMA pipeline (fused_collective.cu, flash_attention.cu,
 // decode.cu).
 //
@@ -22,6 +23,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace sm90 {
 
@@ -197,6 +199,11 @@ __device__ __forceinline__ void st_release(int* p, int v) {
                : "memory");
 }
 
+// bring the line holding p into L2 (no register is written)
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
@@ -216,6 +223,17 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// the thread-block cluster's barrier in two halves, so a thread may arrive
+// early and wait later (each thread alternates arrive and wait); release /
+// acquire order the cluster's shared-memory writes before the wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // -- warpgroups ------------------------------------------------------------
@@ -580,6 +598,56 @@ inline cudaError_t encode_tiled(CUtensorMap* map, CUtensorMapDataType type,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// encode_tiled through a small cache of each host thread's last maps: a
+// map is a function of its arguments alone, and a decode step asks for the
+// map of the same weight stack in every layer (on a host-bound step the
+// CUDA driver's encoding is part of the step's time)
+inline cudaError_t encode_tiled_cached(CUtensorMap* map,
+                                       CUtensorMapDataType type, int rank,
+                                       const void* base,
+                                       const cuuint64_t* dims,
+                                       const cuuint64_t* strides,
+                                       const cuuint32_t* box) {
+  struct Key {
+    const void* base;
+    cuuint64_t dims[3], strides[2];
+    cuuint32_t box[3];
+    int type, rank;
+  };
+  struct Entry {
+    CUtensorMap map;
+    Key key;
+  };
+  constexpr int kEntries = 64;
+  static thread_local Entry cache[kEntries];
+  static thread_local int used = 0, next = 0;
+  if (rank < 1 || rank > 3) return cudaErrorInvalidValue;
+  Key k;
+  memset(&k, 0, sizeof(k));     // the padding too: keys compare as bytes
+  k.base = base;
+  k.type = (int)type;
+  k.rank = rank;
+  for (int i = 0; i < rank; ++i) {
+    k.dims[i] = dims[i];
+    k.box[i] = box[i];
+    if (i > 0) k.strides[i - 1] = strides[i - 1];
+  }
+  for (int i = 0; i < used; ++i)
+    if (cache[i].key.base == base &&
+        memcmp(&cache[i].key, &k, sizeof(k)) == 0) {
+      *map = cache[i].map;
+      return cudaSuccess;
+    }
+  const cudaError_t e = encode_tiled(map, type, rank, base, dims, strides,
+                                     box);
+  if (e != cudaSuccess) return e;
+  cache[next].map = *map;
+  cache[next].key = k;
+  next = (next + 1) % kEntries;
+  if (used < kEntries) ++used;
+  return cudaSuccess;
 }
 
 // a row-major bf16 [rows, cols] matrix in boxes of [box_rows][64]

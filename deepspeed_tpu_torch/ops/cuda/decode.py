@@ -30,9 +30,17 @@ head dim 64) and LLaMA's (RMSNorm, no biases, SwiGLU with
 ``fuse_proj=False``, head dim 128, GQA rows), each with bf16 weights or
 int8 codes and a bf16 or int8 KV cache, paged, layer-stacked or one
 layer's.
+
+The projections (``ln_qkv*``, ``out_ffn*``, ``matvec_stacked``,
+``matvec_int8``) are one TMA-fed wgmma kernel over a prologue and an
+epilogue (csrc/decode.cu ``proj_tma_kernel``), launched at the plan of
+``matvec_tma_plan``; ``matvec_stacked_fma`` keeps the CUDA-core kernel
+for int8 rows TMA cannot describe (N % 16 != 0), which the other
+projections refuse.
 """
 
 import collections
+import ctypes
 import functools
 import math
 
@@ -46,7 +54,7 @@ ROADMAP_DECODE_VARIANTS = ("ROADMAP.md queue 2, item \"decode-kernel "
                            "variants off the served paths\"")
 ROADMAP_FP32 = ("ROADMAP.md queue 2, item \"fp32 activations on the "
                 "CUDA decode kernels\"")
-MAX_SLOTS = 16          # the matvec kernels' register accumulator bound
+MAX_SLOTS = 16          # the projections' wgmma N (8 or 16 slots)
 # the attention kernel's geometry: 16-key groups inside a page (the
 # mma's M), at most 8 query rows per KV head (its N)
 ATTN_HEAD_DIMS, PAGE_MULTIPLE, MAX_ROWS = (64, 128), 16, 8
@@ -474,48 +482,20 @@ def _check(fn, name, t, dtype, shape, device, align=16):
         raise ValueError(f"{fn}: {name} must be {align}-byte aligned")
 
 
-def _split_for(n_tiles, pair=False):
-    """The K split of a matvec launch (csrc/decode.cu, split_for): the
-    smallest power of two S that puts at least 160 blocks on the card, at
-    most 8 blocks a cluster; a paired gate/up launch has two matrices."""
-    mats = 2 if pair else 1
-    S = 1
-    while S * mats < 8 and n_tiles * S * mats < 160:
-        S *= 2
-    return S
-
-
-def matvec_smem(B, K, N, prologue, pair=False, wbytes=2):
-    """Shared memory of one block of a matvec launch over [K, N] weights
-    (csrc/decode.cu, matvec_smem), with the launch's own K split: the fp32
-    reduction and partial over a column tile (64 columns of bf16 weights,
-    128 of int8: ``wbytes`` 2 or 1), u transposed [kslice, MAXB] bf16 and,
-    for a norm prologue, the whole staged input rows and the slice of the
-    norm parameters. ``prologue``: "copy" (no norm), "ln_bf16", "ln_f32"
-    (fp32 rows) or "rms_bf16"."""
+def fma_smem(B, K, N, wbytes=2):
+    """Shared memory of one block of the CUDA-core matvec
+    (``matvec_stacked_fma``; csrc/decode.cu ``fma_smem`` with
+    ``fma_split``): the fp32 reduction and partial over a column tile (64
+    columns of bf16 weights, 128 of int8: ``wbytes`` 2 or 1) and x
+    transposed [kslice, MAXB] bf16, K split over the smallest power of two
+    (at most 8) blocks that puts 160 on the card."""
     maxb = 8 if B <= 8 else 16
     cols = 64 if wbytes == 2 else 128
-    S = _split_for(-(-N // cols), pair)
+    tiles, S = -(-N // cols), 1
+    while S < 8 and tiles * S < 160:
+        S *= 2
     kslice = -(-(-(-K // S)) // 8) * 8
-    smem = 9 * maxb * cols * 4 + kslice * maxb * 2
-    if prologue == "copy":
-        return smem
-    row_bytes = 4 if prologue == "ln_f32" else 2
-    n_par = 1 if prologue == "rms_bf16" else 2
-    return smem + B * K * row_bytes + n_par * kslice * 4
-
-
-def _check_launches(fn, B, launches, wbytes=2):
-    """Refuse a call before launching when one of its matvec launches
-    ``(what, K, N, prologue, pair)`` over ``wbytes``-byte weights needs
-    more shared memory than a block may have."""
-    for what, K, N, prologue, pair in launches:
-        need = matvec_smem(B, K, N, prologue, pair, wbytes)
-        if need > MAX_SMEM:
-            raise ValueError(
-                f"{fn}: the {what} launch needs {need} B of shared memory a "
-                f"block at B={B} slots, K={K}, N={N} (at most {MAX_SMEM}; "
-                f"{ROADMAP_DECODE_VARIANTS})")
+    return 9 * maxb * cols * 4 + kslice * maxb * 2
 
 
 def _vec(a, L):
@@ -597,50 +577,158 @@ def _ln_qkv_launch(fn, x, ln_w, ln_b, w_stack, s, b, lp, eps, norm):
     if not 1 <= B <= MAX_SLOTS or E % 8 or N % 8:
         raise ValueError(f"{fn}: needs 1 <= B <= {MAX_SLOTS} and E, N "
                          f"multiples of 8, got B={B} E={E} N={N}")
-    _check_launches(fn, B, [("projection", E, N,
-                             "rms_bf16" if rms else "ln_bf16", False)],
-                    w_stack.element_size())
+    _tma_describes(fn, N, wdt)
+    plan = _plans(fn, B, [("projection", E, N,
+                           "rms_bf16" if rms else "ln_bf16", None)],
+                  w_stack.element_size(), dev)
     v = {name: t for name, t, _ in vecs}
     lib = builder.kernels()
     out = torch.empty((B, N), dtype=x.dtype, device=dev)
     lib.call("dstpu_ln_qkv_stacked", x.data_ptr(), v["ln_w"].data_ptr(),
              _ptr(v.get("ln_b")), w_stack.data_ptr(), s.data_ptr(),
-             _ptr(v.get("b")), lp, out.data_ptr(), B, E, N, int(rms),
-             int(wdt == torch.int8), float(eps), _stream(dev))
+             _ptr(v.get("b")), lp, out.data_ptr(), B, E, N, L, int(rms),
+             int(wdt == torch.int8), plan, float(eps), _stream(dev))
     return out
 
 
 MvPlan = collections.namedtuple(
-    "MvPlan", "cols tiles split kslice grid threads stages smem in_flight")
+    "MvPlan", "cols tiles split kslice grid threads stages smem in_flight "
+    "prologue pair cluster clusters rounds blocks wave_fill")
+
+# proj_tma_kernel's launch rule (csrc/decode.cu): a block streams at least
+# MV_MIN_KSLICE rows of K (3 stages) unless K is not split, and a cluster
+# that walks more than one column tile at least MV_ROUND_KSLICE (64 KiB of
+# weights: 128 bytes a row, bf16 or int8), so that its ring streams on
+# through a tile's epilogue; the ring holds an even number of stages (a
+# slot then always serves one of the two consumer warpgroups), from
+# MV_MIN_STAGES to MV_MAX_STAGES, and two blocks share an SM (228 KiB of
+# shared memory, 1 KiB reserved a block)
+MV_MIN_KSLICE, MV_ROUND_KSLICE = 192, 512
+MV_MIN_STAGES, MV_MAX_STAGES = 4, 8
+MV_BLOCK_SMEM = 233472 // 2 - 1024
+PROLOGUES = ("copy", "ln_bf16", "ln_f32", "rms_bf16")
+# the gate/up launch's pairing (csrc/decode.cu PAIR_SPLIT / PAIR_BOTH) by
+# weight bytes: bf16 blocks stream both boxes of their columns (faster at
+# LLaMA-7B, 8 and 16 slots), int8 ones split the cluster (both boxes and
+# their widened copies fit no two blocks an SM); PERF.md §6
+PAIRS = {None: 0, "split": 1, "both": 2}
+GLU_PAIRING = {2: "both", 1: "split"}
+
+
+def proj_smem(B, kslice, stages, wbytes=2, prologue="copy", pair=None):
+    """Shared memory of one block of ``proj_tma_kernel`` (csrc/decode.cu
+    ``ProjCfg::smem``): 1024 of alignment slack; ``stages`` stages of the
+    W boxes (two a stage when ``pair="both"``) and a copy prologue's x box
+    (NB rows of 128 B); a norm prologue's slice of u (NB x kslice bf16);
+    int8's two widened bf16 boxes a warpgroup; the fp32 partial [boxes,
+    cols, NB]; two mbarriers a stage and NB row statistics."""
+    nb = 8 if B <= 8 else 16
+    cols = 64 if wbytes == 2 else 128
+    mats = 2 if pair == "both" else 1
+    norm = prologue != "copy"
+    stage = mats * 8192 + (0 if norm else nb * 128)
+    u = kslice // 64 * nb * 128 if norm else 0
+    cvt = 4 * 8192 if wbytes == 1 else 0
+    return (1024 + stages * stage + u + cvt + mats * cols * nb * 4
+            + 16 * stages + 8 * nb)
 
 
 @functools.lru_cache(maxsize=None)
-def matvec_tma_plan(B, K, N, wbytes=2, sms=132):
-    """matvec_stacked's launch (csrc/decode.cu ``MvCfg``,
-    ``launch_matvec_tma``) over ``wbytes``-byte weights at ``sms`` SMs:
-    column tiles of 64 (bf16) or 128 (int8 codes), K split over a cluster
-    of the smallest power of two (at most 8) blocks that puts 1.5 blocks
-    an SM on the card, each slice whole 64-row stages; 288 threads (two
-    consumer warpgroups and a producer warp), 8 stages of a W box (8 KiB)
-    and an x box (8 or 16 slots x 128 B), 6 for int8, which adds two
-    widened bf16 boxes a warpgroup (32 KiB); then an fp32 partial [cols,
-    slots] a warpgroup and the mbarriers. ``in_flight``: the ring's
-    weight bytes of the blocks an SM holds at once (228 KiB of shared
-    memory an SM, 1 KiB of it reserved a block)."""
-    nb = 8 if B <= 8 else 16
+def matvec_tma_plan(B, K, N, wbytes=2, sms=132, prologue="copy",
+                    pair=None):
+    """The launch of ``proj_tma_kernel`` over [K, N] weights of ``wbytes``
+    bytes (2 bf16, 1 int8 codes) at ``sms`` SMs, for a prologue (``copy``
+    or a norm: ``ln_bf16``, ``ln_f32``, ``rms_bf16``) and a gate/up
+    ``pair`` ("split": the cluster's halves stream the two matrices;
+    "both": every block streams both). Column tiles of 64 (bf16) or 128 (int8); K split over S blocks
+    a matrix, S x (2 if split) of them one cluster (at most 8), each slice
+    whole 64-row stages; 288 threads; ``clusters`` clusters, as many as
+    two blocks an SM hold (at most one a tile), walk the tiles in
+    ``rounds``. Among the splits whose block fits two to an SM with an
+    even ring of at least ``MV_MIN_STAGES`` stages and streams enough
+    rows (``MV_MIN_KSLICE``, ``MV_ROUND_KSLICE`` over several rounds), the
+    one whose blocks keep the most of the wave's slots busy over its
+    rounds (``wave_fill``: tiles x cluster over rounds x slots), the
+    smaller on a tie. The ring takes as many stages as fit, at most
+    ``MV_MAX_STAGES``. None when no split fits. ``in_flight``: the ring's
+    weight bytes of the blocks an SM holds at once. Shapes and the SM
+    count only, never a device scalar: a layer loop replays as a CUDA
+    graph."""
+    if prologue not in PROLOGUES or pair not in PAIRS:
+        raise ValueError(f"prologue {prologue!r} / pair {pair!r}")
     cols = 64 if wbytes == 2 else 128
-    stages = 8 if wbytes == 2 else 6
-    tiles = -(-N // cols)
-    split = 1
-    while split < 8 and 2 * tiles * split < 3 * sms:
-        split *= 2
-    kslice = -(-(-(-K // split)) // 64) * 64
-    cvt = 0 if wbytes == 2 else 2 * 2 * 64 * 128
-    smem = (1024 + stages * (64 * 128 + nb * 128) + cvt + 2 * cols * nb * 4
-            + 256)
-    per_sm = min(233472 // (smem + 1024), -(-tiles * split // sms))
-    return MvPlan(cols, tiles, split, kslice, (tiles, split), 288, stages,
-                  smem, per_sm * stages * 64 * 128)
+    mats = 2 if pair == "both" else 1
+    per_tile = 2 if pair == "split" else 1
+    tiles, slots = -(-N // cols), 2 * sms
+    best = None
+    for split in (1, 2, 4, 8):
+        cluster = split * per_tile
+        if cluster > 8:
+            break
+        kslice = -(-(-(-K // split)) // 64) * 64
+        clusters = min(tiles, slots // cluster)
+        rounds = -(-tiles // clusters)
+        if split > 1 and kslice < (MV_ROUND_KSLICE if rounds > 1
+                                   else MV_MIN_KSLICE):
+            continue
+        fixed = proj_smem(B, kslice, 0, wbytes, prologue, pair)
+        stage = proj_smem(B, kslice, 1, wbytes, prologue, pair) - fixed
+        stages = min(MV_MAX_STAGES, (MV_BLOCK_SMEM - fixed) // stage) // 2 * 2
+        if stages < MV_MIN_STAGES:
+            continue
+        fill = tiles * cluster / (rounds * slots)
+        if best is None or fill > best[0]:
+            best = (fill, split, kslice, stages, clusters, rounds)
+    if best is None:
+        return None
+    fill, split, kslice, stages, clusters, rounds = best
+    cluster = split * per_tile
+    blocks = clusters * cluster
+    per_sm = min(2, -(-blocks // sms))
+    return MvPlan(cols, tiles, split, kslice, (clusters, cluster), 288,
+                  stages, proj_smem(B, kslice, stages, wbytes, prologue,
+                                    pair),
+                  per_sm * stages * mats * 8192, prologue, pair,
+                  cluster, clusters, rounds, blocks, fill)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plans(fn, B, launches, wbytes, device):
+    """The plan of each of a call's launches ``(what, K, N, prologue,
+    pair)`` at the card's SM count, as a flat host int array
+    (split, stages, clusters, ...) for the C entry point; refuses the call
+    before launching when a launch fits no plan."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _plan_array(fn, B, tuple(launches), wbytes, _sm_count(index))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_array(fn, B, launches, wbytes, sms):
+    """_plans' array, made once a call shape (the C entry only reads it):
+    a decode step's host time is part of its latency"""
+    flat = []
+    for what, K, N, prologue, pair in launches:
+        plan = matvec_tma_plan(B, K, N, wbytes, sms, prologue, pair)
+        if plan is None:
+            raise ValueError(
+                f"{fn}: the {what} launch fits no plan of two blocks an SM "
+                f"at B={B} slots, K={K}, N={N} ({ROADMAP_DECODE_VARIANTS})")
+        flat += [plan.split, plan.stages, plan.clusters]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def _tma_describes(fn, N, wdt):
+    """Refuse int8 codes whose rows TMA cannot describe (N % 16 != 0): the
+    norm and epilogue launches have no CUDA-core kernel."""
+    if wdt == torch.int8 and N % 16:
+        raise ValueError(
+            f"{fn}: int8 codes need output widths that are multiples of 16, "
+            f"got {N} ({ROADMAP_DECODE_VARIANTS})")
 
 
 def matvec_stacked_route(w_stack):
@@ -668,14 +756,22 @@ def _matvec_stacked_launch(fn, x, w_stack, s, layer):
         raise ValueError(f"{fn}: needs 1 <= B <= {MAX_SLOTS} and K, N "
                          f"multiples of 8, got B={B} K={K} N={N}")
     if fma:
-        _check_launches(fn, B, [("projection", K, N, "copy", False)],
-                        w_stack.element_size())
+        need = fma_smem(B, K, N, w_stack.element_size())
+        if need > MAX_SMEM:
+            raise ValueError(
+                f"{fn}: the CUDA-core kernel needs {need} B of shared memory "
+                f"a block at B={B} slots, K={K}, N={N} (at most {MAX_SMEM}; "
+                f"{ROADMAP_DECODE_VARIANTS})")
+        plan = None
+    else:
+        plan = _plans(fn, B, [("projection", K, N, "copy", None)],
+                      w_stack.element_size(), dev)
     lp = _scalar_ptr(fn, layer, dev)
     lib = builder.kernels()
     out = torch.empty((B, N), dtype=x.dtype, device=dev)
     lib.call("dstpu_matvec_stacked", x.data_ptr(), w_stack.data_ptr(),
              s.data_ptr(), lp, out.data_ptr(), B, K, N, L,
-             int(wdt == torch.int8), int(fma), _stream(dev))
+             int(wdt == torch.int8), int(fma), plan, _stream(dev))
     builder.launches[fn] += 1
     return out
 
@@ -722,12 +818,22 @@ def out_ffn_stacked(ctx, x, wp_stack, sp, bp, ln_w, ln_b, w1_stack, s1,
     fn = "out_ffn_stacked"
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
+    lp = _scalar_ptr(fn, layer, x.device)
     if _out_ffn_contract(fn, act, norm, fuse_proj, w1b_stack) == "gpt2":
         out = _out_ffn_gelu_launch(fn, ctx, x, wp_stack, sp, bp, ln_w, ln_b,
-                                   w1_stack, s1, b1, w2_stack, s2, b2,
-                                   _scalar_ptr(fn, layer, x.device), eps)
-        builder.launches[fn] += 1
-        return out
+                                   w1_stack, s1, b1, w2_stack, s2, b2, lp,
+                                   eps)
+    else:
+        out = _out_ffn_glu_launch(fn, x, ln_w, w1_stack, s1, w1b_stack, s1b,
+                                  w2_stack, s2, lp, eps)
+    builder.launches[fn] += 1
+    return out
+
+
+def _out_ffn_glu_launch(fn, x, ln_w, w1_stack, s1, w1b_stack, s1b,
+                        w2_stack, s2, lp, eps):
+    """Check and launch LLaMA's out_ffn (``dstpu_out_ffn_glu_stacked``,
+    two launches) at layer pointer ``lp``."""
     dev = x.device
     B, E = x.shape
     L, _, Fd = w1_stack.shape
@@ -738,24 +844,26 @@ def out_ffn_stacked(ctx, x, wp_stack, sp, bp, ln_w, ln_b, w1_stack, s1,
     if not 1 <= B <= MAX_SLOTS or E % 8 or Fd % 8:
         raise ValueError(f"{fn}: needs 1 <= B <= {MAX_SLOTS} and E, F "
                          f"multiples of 8, got B={B} E={E} F={Fd}")
-    lp = _scalar_ptr(fn, layer, dev)
-    h = torch.empty((B, Fd), dtype=x.dtype, device=dev)
-    out = torch.empty((B, E), dtype=x.dtype, device=dev)
     ln_w = _vec(ln_w, L)
     _check(fn, "w1b_stack", w1b_stack, wdt, (L, E, Fd), dev)
     for name, t, shp in (("ln_w", ln_w, (L, E)), ("s1", s1, (L,)),
                          ("s1b", s1b, (L,)), ("s2", s2, (L,))):
         _check(fn, name, t, torch.float32, shp, dev)
-    _check_launches(fn, B, [("gate/up", E, Fd, "rms_bf16", True),
-                            ("down", Fd, E, "copy", False)],
-                    w1_stack.element_size())
+    _tma_describes(fn, Fd, wdt)
+    _tma_describes(fn, E, wdt)
+    pair = GLU_PAIRING[w1_stack.element_size()]
+    plan = _plans(fn, B, [("gate/up", E, Fd, "rms_bf16", pair),
+                          ("down", Fd, E, "copy", None)],
+                  w1_stack.element_size(), dev)
+    h = torch.empty((B, Fd), dtype=x.dtype, device=dev)
+    out = torch.empty((B, E), dtype=x.dtype, device=dev)
     builder.kernels().call(
         "dstpu_out_ffn_glu_stacked", x.data_ptr(), ln_w.data_ptr(),
         w1_stack.data_ptr(), s1.data_ptr(),
         w1b_stack.data_ptr(), s1b.data_ptr(), w2_stack.data_ptr(),
-        s2.data_ptr(), lp, h.data_ptr(), out.data_ptr(), B, E, Fd,
-        int(wdt == torch.int8), float(eps), _stream(dev))
-    builder.launches[fn] += 1
+        s2.data_ptr(), lp, h.data_ptr(), out.data_ptr(), B, E, Fd, L,
+        int(wdt == torch.int8), plan, PAIRS[pair], float(eps),
+        _stream(dev))
     return out
 
 
@@ -800,10 +908,12 @@ def _out_ffn_gelu_launch(fn, ctx, x, wp_stack, sp, bp, ln_w, ln_b, w1_stack,
     _check(fn, "wp_stack", wp_stack, wdt, (L, E, E), dev)
     for name, (t, shp) in vecs.items():
         _check(fn, name, t, torch.float32, shp, dev)
-    _check_launches(fn, B, [("out-projection", E, E, "copy", False),
-                            ("up", E, Fd, "ln_f32", False),
-                            ("down", Fd, E, "copy", False)],
-                    w1_stack.element_size())
+    _tma_describes(fn, Fd, wdt)
+    _tma_describes(fn, E, wdt)
+    plan = _plans(fn, B, [("out-projection", E, E, "copy", None),
+                          ("up", E, Fd, "ln_f32", None),
+                          ("down", Fd, E, "copy", None)],
+                  w1_stack.element_size(), dev)
     h = torch.empty((B, Fd), dtype=x.dtype, device=dev)
     out = torch.empty((B, E), dtype=x.dtype, device=dev)
     x1 = torch.empty((B, E), dtype=x.dtype, device=dev)
@@ -815,8 +925,8 @@ def _out_ffn_gelu_launch(fn, ctx, x, wp_stack, sp, bp, ln_w, ln_b, w1_stack,
         v["ln_w"].data_ptr(), v["ln_b"].data_ptr(), w1_stack.data_ptr(),
         v["s1"].data_ptr(), v["b1"].data_ptr(), w2_stack.data_ptr(),
         v["s2"].data_ptr(), v["b2"].data_ptr(), lp, x1.data_ptr(),
-        x1f.data_ptr(), h.data_ptr(), out.data_ptr(), B, E, Fd,
-        int(wdt == torch.int8), float(eps), _stream(dev))
+        x1f.data_ptr(), h.data_ptr(), out.data_ptr(), B, E, Fd, L,
+        int(wdt == torch.int8), plan, float(eps), _stream(dev))
     return out
 
 
@@ -972,11 +1082,12 @@ def matvec_int8(x, wq, scale, bias, act=None):
     if not 1 <= B <= MAX_SLOTS or K % 8 or N % 8:
         raise ValueError(f"{fn}: needs 1 <= B <= {MAX_SLOTS} and E, N "
                          f"multiples of 8, got B={B} E={K} N={N}")
-    _check_launches(fn, B, [("projection", K, N, "copy", False)], 1)
+    _tma_describes(fn, N, torch.int8)
+    plan = _plans(fn, B, [("projection", K, N, "copy", None)], 1, dev)
     out = torch.empty((B, N), dtype=x.dtype, device=dev)
     builder.kernels().call("dstpu_matvec_int8", x.data_ptr(), wq.data_ptr(),
                            sp, bias.data_ptr(), out.data_ptr(), B, K, N,
-                           ACTS[act], _stream(dev))
+                           ACTS[act], plan, _stream(dev))
     builder.launches[fn] += 1
     return out
 

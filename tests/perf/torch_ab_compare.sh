@@ -3,17 +3,20 @@
 # chip_smoke.py runs from the old tree, this tree, this tree again (with
 # --profile) and the old tree again, so that drift of the card or the host
 # shows on both sides. Each run's output goes to chiprun_out/ab_*.log; a
-# summary is printed per run: the flash and matvec_stacked kernel lines
-# (with the variants a row carries: other_turns_us, fma_us), the flash
+# summary is printed per run: the flash and decode-projection kernel lines
+# (ln_qkv*, out_ffn*, matvec*: slots, weights, bound and the torch.matmul
+# yardstick; the variants a row carries: other_turns_us, fma_us), the flash
 # backward lines (the old tree's two kernels, this tree's kernel, delta
 # and whole backward, beside SDPA's backward), the train line (the GPT-2
 # large step), the grad check, the serve lines' decode ms a step and the
-# fast path's t(4 new) and decode ms a step by batch, the decode-attention
+# fast path's t(4 new) and decode ms a step by batch, GPT-2's generate()
+# cases' decode ms a step, the decode-attention
 # and block-sparse kernel lines (the forward, dq and dk/dv, with a decode
 # row's split plan and a block-sparse row's work list), the decode pos
 # sweeps and the BERT sparse step;
 # then tests/perf/torch_llama_t4.py and torch_kernel_rows.py --decode --bs
-# from each tree in turns, and the GPU unit tests of this tree.
+# from each tree in turns (whole lines in chiprun_out/ab_t4_N.log and
+# ab_rows_N.log), and the GPU unit tests of this tree.
 #
 #   bash tests/perf/torch_ab_compare.sh OLD_TREE
 #
@@ -37,11 +40,17 @@ for line in open(name):
     except ValueError:
         continue
     if d.get("phase") == "kernel" and (
-            "flash" in d["name"] or d["name"] == "matvec_stacked"
-            or d["name"].startswith(("decode_attention", "blocksparse"))):
+            "flash" in d["name"] or d["name"].startswith((
+                "matvec", "ln_qkv", "out_ffn", "decode_attention",
+                "blocksparse"))):
         more = "".join(" %s=%.2f" % (k, d[k]) for k in
-                       ("other_turns_us", "fma_us", "library_us")
+                       ("other_turns_us", "fma_us", "library_us",
+                        "matmul_us", "bound_us")
                        if d.get(k) is not None)
+        if d["name"].startswith(("matvec", "ln_qkv", "out_ffn")):
+            more += " B=%s %s" % (
+                "/".join(str(c.get("B")) for c in d.get("cases", [])),
+                (d.get("cases") or [{}])[0].get("weights", "bf16"))
         more += "".join(" %s=%s" % (k, d[k]) for k in
                         ("n_split", "chunk", "tiles", "steps")
                         if k in d)
@@ -58,6 +67,10 @@ for line in open(name):
                           "serve_gpt2_int8"):
         print(name, d["phase"], "decode_ms_per_step=%.3f"
               % d["ms_per_decode_step"])
+    if d.get("phase") == "generate_gpt2":
+        for c in d["cases"]:
+            print(name, "generate_gpt2", c["case"],
+                  "decode_ms_per_step=%.3f" % c["ms_per_decode_step"])
     if d.get("phase") == "generate_llama_int8":
         for c in d["cases"]:
             print(name, "generate_llama_int8 b%d" % c["batch"],
@@ -103,10 +116,15 @@ summ chiprun_out/ab_old2.log
 # tree's chip_smoke may not print, and the decode-attention and block-
 # sparse dk/dv rows of tests/perf/torch_kernel_rows.py with each tree's
 # kernels: old, this, this, old
+turn=0
 for tree in "$old" "$here" "$here" "$old"; do
-  python3 tests/perf/torch_llama_t4.py --tree "$tree" 2>&1 | tail -2
+  turn=$((turn + 1))
+  python3 tests/perf/torch_llama_t4.py --tree "$tree" \
+    > chiprun_out/ab_t4_$turn.log 2>&1
+  tail -2 chiprun_out/ab_t4_$turn.log
   python3 tests/perf/torch_kernel_rows.py --decode --bs --tree "$tree" \
-    2>&1 | grep '^{' | sed "s|^|$tree |"
+    2>&1 | grep '^{' | sed "s|^|$tree |" > chiprun_out/ab_rows_$turn.log
+  cut -c1-200 chiprun_out/ab_rows_$turn.log
 done
 python3 -m pytest --noconftest -p no:cacheprovider -m gpu \
   tests/test_torch_flash_backward.py tests/test_torch_flash_attention.py \

@@ -1,9 +1,10 @@
 """Where a redesigned kernel's time goes: the flash forward, the flash
-backward and matvec_stacked rebuilt with parts switched off, timed beside
-the kernel as it is, on one card.
+backward, the decode projections, decode attention and the block-sparse
+kernels rebuilt with parts switched off, timed beside the kernel as it
+is, on one card.
 
-    python3 tests/perf/torch_kernel_ablate.py [fwd] [bwd] [matvec] [decode]
-        [bsdkv] [bsrows] [decode_rows] [decode_smoke]
+    python3 tests/perf/torch_kernel_ablate.py [fwd] [bwd] [mvrows] [decode]
+        [mvhost] [bsdkv] [bsrows] [decode_rows] [decode_smoke]
 
 (default: all of them).
 
@@ -28,9 +29,17 @@ part but writes no dq), ``no_bulk`` (the writers store or add nothing),
 ``no_products`` (none of the five products), ``no_loads`` (the producer
 completes each stage without loading it), and the combinations
 ``loads_only``, ``products_only`` and ``sync_only``.
-matvec_stacked (LLaMA-7B's o-projection, [8, 4096] x [32, 4096, 4096],
-bf16 and int8 codes): ``no_epilogue`` (no cluster barrier, reduction or
-store), ``no_loads``, and both. Decode attention (bf16 caches: GPT-2
+``mvrows``: the decode projections (csrc/decode.cu proj_tma_kernel) at
+LLaMA-7B's four rows (ln_qkv_stacked and out_ffn_stacked, bf16 and int8
+codes, 8 slots): ``loads_only`` (no prologue, widening or products),
+``products_only`` (the producer completes each stage without loading
+it), ``prologue_only`` (the norm's statistics and u alone),
+``widen_only`` (int8: the widening alone), ``sync_only``; then out_ffn
+under the other gate/up pairing and both rows at 16 slots, as they are,
+and matvec_stacked at LLaMA-7B's o-projection at B 1 and 8 in every
+variant (see mvrows_ablation). ``mvhost``: the host's time a call (ctypes, plan,
+tensor maps, launch; no device wait) of the three LLaMA-7B bf16 entries
+at 8 slots, with the tensor-map cache and without (``no_map_cache``). Decode attention (bf16 caches: GPT-2
 large's fast route at b1, LLaMA-7B's at b8, ctx 2048, pos 2034, and
 GPT-2's paged serve positions): ``no_combine`` (the splits' states left
 unmerged), ``loads_only`` (no products or softmax), ``products_only``
@@ -162,19 +171,31 @@ BWD_VARIANTS = {
     "sync_only": ["no_loads", "no_math", "no_products", "no_dq_writer",
                   "no_dq_wait"]}
 MV_PATCHES = {
-    "no_epilogue": [(
-        "  cluster.sync();   // every block's partials are visible to the "
-        "cluster\n",
-        "  return;\n")],
     "no_loads": [(
-        "        sm90::mbar_expect_tx(&full[s], C::STAGE);\n"
-        "        sm90::tma_load_3d(st, &maps.w, n0, k, l, &full[s]);\n"
-        "        sm90::tma_load_2d(st + MV_BOX, &maps.x, k, 0, &full[s]);\n",
-        "        sm90::mbar_arrive(&full[s]);\n")],
+        "          sm90::mbar_expect_tx(&full[s], C::STAGE);\n",
+        "          sm90::mbar_arrive(&full[s]);\n          continue;\n")],
+    "no_products": [(
+        "  sm90::wgmma_ss<NB, 1, 0>(d, sm90::wgmma_desc(a, MV_BOX, 1024), db, "
+        "0);\n", "")],
+    # the tensor maps encoded by the CUDA driver at every launch
+    "no_map_cache": [("#include \"sm90.cuh\"\n",
+                      "#include \"sm90.cuh\"\n"
+                      "#define encode_tiled_cached encode_tiled\n")],
+    "no_widen": [("            widen_stage(st + m * MV_BOX, cb);\n", "")],
+    "no_prologue": [
+        ("      for (int r = rank + warp * nblk; r < p.B; r += kWarps * nblk) {\n",
+         "      for (int r = p.B; r < p.B; r += kWarps * nblk) {\n"),
+        ("      norm_slice<NB, PRO>(p, stat, u, l, k_lo);\n", "")],
 }
-MV_VARIANTS = {"kernel": [], "no_epilogue": ["no_epilogue"],
-               "no_loads": ["no_loads"],
-               "no_epilogue_no_loads": ["no_epilogue", "no_loads"]}
+MV_VARIANTS = {
+    "kernel": [], "loads_only": ["no_products", "no_widen", "no_prologue"],
+    "products_only": ["no_loads", "no_widen", "no_prologue"],
+    "prologue_only": ["no_loads", "no_products", "no_widen"],
+    "widen_only": ["no_loads", "no_products", "no_prologue"],
+    "sync_only": ["no_loads", "no_products", "no_widen", "no_prologue"],
+    "no_map_cache": ["no_map_cache"]}
+MV_ENTRIES = ("dstpu_ln_qkv_stacked", "dstpu_out_ffn_glu_stacked",
+              "dstpu_matvec_stacked")
 DECODE_PATCHES = {
     "no_loads": [
         ("          sm90::mbar_expect_tx(&full[s], ng * C::GROUP_BYTES);\n",
@@ -669,6 +690,176 @@ def decode_ablation(entries, gen, stream, card):
         del kc, vc
 
 
+def mvrows_ablation(entries, gen, stream, card):
+    """LLaMA-7B's four projection rows (``ln_qkv_stacked`` [8, 4096] x
+    [32, 4096, 12288] and ``out_ffn_stacked``'s gate/up and down launches,
+    F 11008; bf16 and int8 codes), each variant of ``MV_VARIANTS`` over
+    the 32 layers at the wrapper's plan; then the bf16 out_ffn rows as
+    they are under the other gate/up pairing ("split"; int8 takes "split"
+    only: "both" fits no plan of two blocks an SM), both rows at 16
+    slots, and matvec_stacked ([B, 4096] x [32, 4096, 4096], B 1 and 8)
+    in each variant."""
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    L, E, N, F = 32, 4096, 12288, 11008
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lids = [torch.tensor(i, dtype=torch.int32, device="cuda")
+            for i in range(L)]
+    ln_w = 1 + 0.1 * torch.randn(L, E, generator=gen, device="cuda")
+    eps = 1e-6
+
+    def weights(K, N_, w8):
+        if w8:
+            return torch.randint(-127, 128, (L, K, N_), generator=gen,
+                                 device="cuda", dtype=torch.int8)
+        return (torch.randn(L, K, N_, generator=gen, device="cuda")
+                * 0.0112).to(torch.bfloat16)
+
+    def plan_of(B, K, N_, wb, pro, pair):
+        """(split, stages, clusters) of the wrapper's plan"""
+        plan = dk.matvec_tma_plan(B, K, N_, wb, sms, pro, pair)
+        return (plan.split, plan.stages, plan.clusters)
+
+    def emit(row, name, us, **more):
+        print(json.dumps({"kernel": row, "variant": name, "us": us,
+                          **more, "card": card}), flush=True)
+
+    for kind in ("bf16", "int8"):
+        w8, wb = kind == "int8", 1 if kind == "int8" else 2
+        s = (torch.rand(L, generator=gen, device="cuda") * 0.002 + 0.001
+             if w8 else torch.ones(L, device="cuda"))
+        wq = weights(E, N, w8)
+        for B in (8, 16):
+            x = torch.randn(B, E, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            out = torch.empty(B, N, dtype=torch.bfloat16, device="cuda")
+            plan = plan_of(B, E, N, wb, "rms_bf16", None)
+            arr = (ctypes.c_int * 3)(*plan)
+            for name, fns in entries.items():
+                if B == 16 and name != "kernel":
+                    continue
+
+                def call(i, fn=fns["dstpu_ln_qkv_stacked"]):
+                    err = fn(x.data_ptr(), ln_w.data_ptr(), None,
+                             wq.data_ptr(), s.data_ptr(), None,
+                             lids[i].data_ptr(), out.data_ptr(), B, E, N, L,
+                             1, int(w8), arr, eps, stream())
+                    if err:
+                        raise RuntimeError(f"{name}: cudaError_t {err}")
+                emit(f"ln_qkv_stacked {kind}", name,
+                     1e3 * time_graph_ms(call, n=L), B=B, plan=list(plan))
+        del wq
+        wg, wu, wd = weights(E, F, w8), weights(E, F, w8), weights(F, E, w8)
+        for B in (8, 16):
+            x = torch.randn(B, E, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            h = torch.empty(B, F, dtype=torch.bfloat16, device="cuda")
+            out = torch.empty(B, E, dtype=torch.bfloat16, device="cuda")
+            for pair in ("split", "both") if wb == 2 else ("split",):
+                gu = plan_of(B, E, F, wb, "rms_bf16", pair)
+                dn = plan_of(B, F, E, wb, "copy", None)
+                arr = (ctypes.c_int * 6)(*gu, *dn)
+                for name, fns in entries.items():
+                    if (B == 16 or pair != dk.GLU_PAIRING[wb]) \
+                            and name != "kernel":
+                        continue
+
+                    def call(i, fn=fns["dstpu_out_ffn_glu_stacked"]):
+                        err = fn(x.data_ptr(), ln_w.data_ptr(),
+                                 wg.data_ptr(), s.data_ptr(), wu.data_ptr(),
+                                 s.data_ptr(), wd.data_ptr(), s.data_ptr(),
+                                 lids[i].data_ptr(), h.data_ptr(),
+                                 out.data_ptr(), B, E, F, L, int(w8), arr,
+                                 dk.PAIRS[pair], eps, stream())
+                        if err:
+                            raise RuntimeError(f"{name}: cudaError_t {err}")
+                    emit(f"out_ffn_stacked {kind}", name,
+                         1e3 * time_graph_ms(call, n=L), B=B, pair=pair,
+                         gate_up=list(gu), down=list(dn))
+        del wg, wu, wd
+        wo = weights(E, E, w8)
+        for B in (1, 8):
+            x = torch.randn(B, E, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            out = torch.empty(B, E, dtype=torch.bfloat16, device="cuda")
+            plan = plan_of(B, E, E, wb, "copy", None)
+            arr = (ctypes.c_int * 3)(*plan)
+            for name, fns in entries.items():
+                def call(i, fn=fns["dstpu_matvec_stacked"]):
+                    err = fn(x.data_ptr(), wo.data_ptr(), s.data_ptr(),
+                             lids[i].data_ptr(), out.data_ptr(), B, E, E, L,
+                             int(w8), 0, arr, stream())
+                    if err:
+                        raise RuntimeError(f"{name}: cudaError_t {err}")
+                emit(f"matvec_stacked {kind}", name,
+                     1e3 * time_graph_ms(call, n=L), B=B, plan=list(plan))
+        del wo
+        torch.cuda.empty_cache()
+
+
+def mvhost(entries, gen, stream, card):
+    """Host microseconds a call of dstpu_ln_qkv_stacked,
+    dstpu_out_ffn_glu_stacked and dstpu_matvec_stacked at LLaMA-7B's bf16
+    shapes, 8 slots, each variant: the best of 9 runs of 256 eager calls
+    (8 over each of the 32 layers) with no device wait between them (the
+    queue stays below its depth), then one synchronize; the variants take
+    turns run by run."""
+    import time
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    L, E, N, F, B = 32, 4096, 12288, 11008, 8
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lids = [torch.tensor(i, dtype=torch.int32, device="cuda")
+            for i in range(L)]
+    ln_w = torch.ones(L, E, device="cuda")
+    s = torch.ones(L, device="cuda")
+
+    def w(*shape):
+        return torch.zeros(*shape, device="cuda", dtype=torch.bfloat16)
+
+    def plan(*launches):
+        flat = []
+        for K, N_, pro, pair in launches:
+            p = dk.matvec_tma_plan(B, K, N_, 2, sms, pro, pair)
+            flat += [p.split, p.stages, p.clusters]
+        return (ctypes.c_int * len(flat))(*flat)
+
+    wq, wg, wu, wd, wo = w(L, E, N), w(L, E, F), w(L, E, F), w(L, F, E), \
+        w(L, E, E)
+    x, h = w(B, E), w(B, F)
+    out_n, out_e = w(B, N), w(B, E)
+    pq = plan((E, N, "rms_bf16", None))
+    pf = plan((E, F, "rms_bf16", dk.GLU_PAIRING[2]), (F, E, "copy", None))
+    po = plan((E, E, "copy", None))
+    calls = {
+        "ln_qkv_stacked": lambda f, i: f["dstpu_ln_qkv_stacked"](
+            x.data_ptr(), ln_w.data_ptr(), None, wq.data_ptr(), s.data_ptr(),
+            None, lids[i].data_ptr(), out_n.data_ptr(), B, E, N, L, 1, 0, pq,
+            1e-6, stream()),
+        "out_ffn_stacked": lambda f, i: f["dstpu_out_ffn_glu_stacked"](
+            x.data_ptr(), ln_w.data_ptr(), wg.data_ptr(), s.data_ptr(),
+            wu.data_ptr(), s.data_ptr(), wd.data_ptr(), s.data_ptr(),
+            lids[i].data_ptr(), h.data_ptr(), out_e.data_ptr(), B, E, F, L,
+            0, pf, dk.PAIRS[dk.GLU_PAIRING[2]], 1e-6, stream()),
+        "matvec_stacked": lambda f, i: f["dstpu_matvec_stacked"](
+            x.data_ptr(), wo.data_ptr(), s.data_ptr(), lids[i].data_ptr(),
+            out_e.data_ptr(), B, E, E, L, 0, 0, po, stream())}
+    for row, call in calls.items():
+        best = dict.fromkeys(entries, float("inf"))
+        for _ in range(9):
+            for name, fns in entries.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for r in range(8):
+                    for i in range(L):
+                        if call(fns, i):
+                            raise RuntimeError(f"{row} {name}: launch")
+                best[name] = min(best[name],
+                                 (time.perf_counter() - t0) / (8 * L))
+                torch.cuda.synchronize()
+        for name, t in best.items():
+            print(json.dumps({"host_us_a_call": row, "variant": name,
+                              "us": t * 1e6, "card": card}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -681,14 +872,22 @@ def main():
     def stream():   # the capturing stream inside a graph capture
         return torch.cuda.current_stream().cuda_stream
 
-    parts = sys.argv[1:] or ["fwd", "bwd", "matvec", "decode"]
+    parts = sys.argv[1:] or ["fwd", "bwd", "mvrows", "decode"]
     with tempfile.TemporaryDirectory() as tmp:
         flash = (build("flash_attention.cu", FLASH_PATCHES, FLASH_VARIANTS,
                        tmp, "dstpu_flash_fwd") if "fwd" in parts else {})
         bwd = (build("flash_attention.cu", BWD_PATCHES, BWD_VARIANTS, tmp,
                      "dstpu_flash_bwd") if "bwd" in parts else {})
-        mv = (build("decode.cu", MV_PATCHES, MV_VARIANTS, tmp,
-                    "dstpu_matvec_stacked") if "matvec" in parts else {})
+        if "mvrows" in parts:
+            mvrows_ablation(build("decode.cu", MV_PATCHES,
+                                  {k: v for k, v in MV_VARIANTS.items()
+                                   if k != "no_map_cache"}, tmp,
+                                  MV_ENTRIES), gen, stream, card)
+        if "mvhost" in parts:
+            mvhost(build("decode.cu", MV_PATCHES,
+                         {k: MV_VARIANTS[k]
+                          for k in ("kernel", "no_map_cache")}, tmp,
+                         MV_ENTRIES), gen, stream, card)
         if "bsdkv" in parts:
             bsdkv_ablation(build("blocksparse.cu", BSDKV_PATCHES,
                                  BSDKV_VARIANTS, tmp, "dstpu_bs_bwd_dkv"),
@@ -750,29 +949,6 @@ def main():
                                   "us": 1e3 * time_graph_ms(call, n=8),
                                   "card": card}), flush=True)
             del q, k, v, do, o, lse, delta, dq, dk, dv, acc
-        L, B, E = 32, 8, 4096
-        x = torch.randn(B, E, generator=gen, device="cuda").to(torch.bfloat16)
-        s = torch.rand(L, generator=gen, device="cuda") * 0.01 + 0.002
-        lids = [torch.tensor(i, dtype=torch.int32, device="cuda")
-                for i in range(L)]
-        out = torch.empty(B, E, dtype=torch.bfloat16, device="cuda")
-        for kind in ("bf16", "int8") if mv else ():
-            w = ((torch.randn(L, E, E, generator=gen, device="cuda") * 0.02)
-                 .to(torch.bfloat16) if kind == "bf16" else
-                 torch.randint(-127, 128, (L, E, E), generator=gen,
-                               device="cuda", dtype=torch.int8))
-            for name, fn in mv.items():
-                def call(i, fn=fn):
-                    err = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(),
-                             lids[i].data_ptr(), out.data_ptr(), B, E, E, L,
-                             int(kind == "int8"), 0, stream())
-                    if err:
-                        raise RuntimeError(f"{name}: cudaError_t {err}")
-                print(json.dumps({"kernel": f"matvec_stacked {kind}",
-                                  "variant": name,
-                                  "us": 1e3 * time_graph_ms(call, n=L),
-                                  "card": card}), flush=True)
-            del w
 
 
 if __name__ == "__main__":

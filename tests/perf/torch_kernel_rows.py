@@ -6,9 +6,10 @@ chip_smoke.py times them, random bf16 inputs from seed 0.
     python3 tests/perf/torch_kernel_rows.py [--bwd] [--decode] [--bs]
         [--tree DIR]
 
-(--bwd: the backward rows only; --decode, --bs: only the decode-attention
-rows or the block-sparse rows; --tree DIR: the kernels of the
-checkout at DIR, for an A/B against another commit in one call.)
+(--bwd: the backward rows only; --decode, --bs: only the decode rows
+(projections and attention) or the block-sparse rows; --tree DIR: the
+kernels of the checkout at DIR, for an A/B against another commit in one
+call.)
 
 Flash forward: GPT-2 prefill (B 1, 20 heads, S 1024, D 64), GPT-2
 training (B 8), a ZeRO-3 rank (B 2), LLaMA-7B prefill (32 heads, D 128),
@@ -26,8 +27,9 @@ bound of its 5 products and bytes, and SDPA's backward (``sdpa_us``:
 forward + backward in one graph, less the forward).
 matvec_stacked: LLaMA-7B's o-projection [8, 4096] . [32, 4096, 4096],
 bf16 and int8 codes: the TMA kernel (``us``), the CUDA-core kernel
-(``fma_us``) and, bf16, torch.matmul (``matmul_us``). Decode attention
-(--decode): decode_attention_stacked over bf16 and int8 caches at GPT-2
+(``fma_us``) and, bf16, torch.matmul (``matmul_us``). Decode projections
+(--decode): see proj_rows. Decode attention (--decode):
+decode_attention_stacked over bf16 and int8 caches at GPT-2
 large's fast route (20 heads, D 64) and LLaMA-7B's (32 heads, D 128), b1
 and b8, ctx 2048, pos 2034, with SDPA over the live keys (bf16), and
 decode_attention_paged over bf16 and int8 pools at 8 slots of 64 pages of
@@ -218,6 +220,157 @@ def decode_rows(card, rnd, gen):
             del kc, vc, kw
 
 
+def _weights(rnd, gen, kind, *shape):
+    """Random bf16 weights (std 0.0112) or int8 codes of ``shape``."""
+    if kind == "bf16":
+        return rnd(*shape) * 0.0112
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int8)
+
+
+def _proj_plans(B, wb, launches):
+    """Each launch's plan (K, N, prologue[, pair]) where the
+    tree has the projection template (the CUDA-core kernel before it had
+    none)."""
+    if not hasattr(dk, "proj_smem"):
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return [dk.matvec_tma_plan(B, K, N, wb, sms, *rest)._asdict()
+            for K, N, *rest in launches]
+
+
+def proj_rows(card, rnd, gen):
+    """The decode projections at their table rows: LLaMA-7B's
+    ln_qkv_stacked ([B, 4096] . [32, 4096, 12288], RMSNorm) and
+    out_ffn_stacked (SwiGLU, F 11008, two launches) at 1, 8 and 16 slots,
+    bf16 and int8 codes, with torch.matmul of the bare projection(s) as a
+    yardstick of the weight stream (bf16); GPT-2 large's ln_qkv_stacked
+    and out_ffn_stacked (LayerNorm, biases, three launches) at B 1 and 8,
+    bf16 and int8, its per-token ln_qkv_int8 / out_ffn_int8 and
+    matvec_int8 (gelu_tanh) at B 8, and matvec_stacked at LLaMA-7B's
+    o-projection at B 1 and 8; each with its bound and launch plan. A launch the tree
+    refuses prints its error."""
+    def emit(row, us, b, **more):
+        b_ms, b_by = b
+        print(json.dumps({"row": row, "us": us, "bound_us": b_ms * 1e3,
+                          "bound_by": b_by,
+                          "pct_of_bound": None if us is None
+                          else 100 * b_ms * 1e3 / us, **more,
+                          "card": card}), flush=True)
+
+    def timed(fn, n):
+        try:
+            return 1e3 * time_graph_ms(fn, n=n), None
+        except ValueError as e:
+            return None, str(e)
+
+    L, E, N, F = 32, 4096, 12288, 11008
+    lids = [torch.tensor(i, dtype=torch.int32, device="cuda")
+            for i in range(36)]
+    s = torch.rand(36, generator=gen, device="cuda") * 0.002 + 0.001
+    ln = 1 + 0.1 * torch.randn(L, E, generator=gen, device="cuda")
+    for kind in ("bf16", "int8"):
+        wb = 2 if kind == "bf16" else 1
+        wq = _weights(rnd, gen, kind, L, E, N)
+        for B in (1, 8, 16):
+            x = rnd(B, E)
+            us, err = timed(lambda i: dk.ln_qkv_stacked(
+                x, ln, None, wq, s[:L], None, lids[i], eps=1e-6,
+                norm="rms"), L)
+            mm = None if kind == "int8" else 1e3 * time_graph_ms(
+                lambda i: torch.matmul(x, wq[i]), n=L)
+            emit(f"ln_qkv_stacked llama7b {kind}", us,
+                 bound(B * E * 2 + E * N * wb + 4 + E * 4 + B * N * 2,
+                       2 * B * E * N), B=B, matmul_us=mm, error=err,
+                 plan=_proj_plans(B, wb, [(E, N, "rms_bf16")]))
+        del wq
+        wg, wu = (_weights(rnd, gen, kind, L, E, F) for _ in range(2))
+        wd = _weights(rnd, gen, kind, L, F, E)
+        for B in (1, 8, 16):
+            x, h = rnd(B, E), rnd(B, F)
+            ffn = (None, None, None, ln, None, wg, s[:L], None, wd, s[:L],
+                   None)
+            us, err = timed(lambda i: dk.out_ffn_stacked(
+                None, x, *ffn, lids[i], act="swiglu", eps=1e-6, norm="rms",
+                w1b_stack=wu, s1b=s[:L], fuse_proj=False), L)
+            mm = None if kind == "int8" else 1e3 * time_graph_ms(
+                lambda i: (torch.matmul(x, wg[i]), torch.matmul(x, wu[i]),
+                           torch.matmul(h, wd[i])), n=L)
+            pair = getattr(dk, "GLU_PAIRING", {}).get(wb)
+            emit(f"out_ffn_stacked llama7b {kind}", us,
+                 bound(3 * E * F * wb + 3 * 4 + E * 4 + 2 * B * E * 2,
+                       6 * B * E * F), B=B, matmul_us=mm, error=err,
+                 plan=_proj_plans(B, wb, [(E, F, "rms_bf16", pair),
+                                          (F, E, "copy")]))
+        del wg, wu, wd
+        wo = _weights(rnd, gen, kind, L, E, E)
+        for B in (1, 8):
+            x = rnd(B, E)
+            us, err = timed(lambda i: dk.matvec_stacked(x, wo, s[:L],
+                                                        lids[i]), L)
+            emit(f"matvec_stacked llama7b {kind}", us,
+                 bound(B * E * 2 + E * E * wb + 4 + B * E * 2,
+                       2 * B * E * E),
+                 B=B, error=err, plan=_proj_plans(B, wb, [(E, E, "copy")]))
+        del wo
+        torch.cuda.empty_cache()
+    L, E, F = 36, 1280, 5120
+    N = 3 * E
+    f32 = {k: torch.randn(L, n, generator=gen, device="cuda") * 0.1
+           for k, n in (("ln_b", E), ("bq", N), ("bp", E), ("ln2_b", E),
+                        ("b1", F), ("b2", E))}
+    lw = 1 + 0.1 * torch.randn(L, E, generator=gen, device="cuda")
+    for kind in ("bf16", "int8"):
+        wb = 2 if kind == "bf16" else 1
+        wq, wp = (_weights(rnd, gen, kind, L, E, n) for n in (N, E))
+        w1, w2 = _weights(rnd, gen, kind, L, E, F), _weights(rnd, gen, kind,
+                                                             L, F, E)
+        ffn = (wp, s, f32["bp"], lw, f32["ln2_b"], w1, s, f32["b1"], w2, s,
+               f32["b2"])
+        for B in (1, 8):
+            x, ctx = rnd(B, E), rnd(B, E)
+            us, err = timed(lambda i: dk.ln_qkv_stacked(
+                x, lw, f32["ln_b"], wq, s, f32["bq"], lids[i]), L)
+            emit(f"ln_qkv_stacked gpt2 {kind}", us,
+                 bound(B * E * 2 + E * N * wb + 4 + 2 * E * 4 + N * 4
+                       + B * N * 2, 2 * B * E * N), B=B, error=err,
+                 plan=_proj_plans(B, wb, [(E, N, "ln_bf16")]))
+            us, err = timed(lambda i: dk.out_ffn_stacked(ctx, x, *ffn,
+                                                         lids[i]), L)
+            emit(f"out_ffn_stacked gpt2 {kind}", us,
+                 bound((E * E + 2 * E * F) * wb + 12 + (6 * E + F) * 4
+                       + 3 * B * E * 2, 2 * B * (E * E + 2 * E * F)),
+                 B=B, error=err,
+                 plan=_proj_plans(B, wb, [(E, E, "copy"),
+                                          (E, F, "ln_f32"),
+                                          (F, E, "copy")]))
+        if kind == "int8":
+            B = 8
+            x, ctx = rnd(B, E), rnd(B, E)
+            one = {k: t[0] for k, t in f32.items()}
+            us, err = timed(lambda i: dk.ln_qkv_int8(
+                x, lw[i], one["ln_b"], wq[i], s[i:i + 1], one["bq"]), L)
+            emit("ln_qkv_int8 gpt2", us,
+                 bound(B * E * 2 + E * N + 4 + 2 * E * 4 + N * 4
+                       + B * N * 2, 2 * B * E * N), B=B, error=err)
+            us, err = timed(lambda i: dk.out_ffn_int8(
+                ctx, x, wp[i], s[i:i + 1], one["bp"], lw[i], one["ln2_b"],
+                w1[i], s[i:i + 1], one["b1"], w2[i], s[i:i + 1],
+                one["b2"]), L)
+            emit("out_ffn_int8 gpt2", us,
+                 bound((E * E + 2 * E * F) + 12 + (6 * E + F) * 4
+                       + 3 * B * E * 2, 2 * B * (E * E + 2 * E * F)),
+                 B=B, error=err)
+            us, err = timed(lambda i: dk.matvec_int8(
+                x, w1[i], s[i:i + 1], one["b1"], act="gelu_tanh"), L)
+            emit("matvec_int8 gpt2", us,
+                 bound(B * E * 2 + E * F + 4 + F * 4 + B * F * 2,
+                       2 * B * E * F), B=B, error=err,
+                 plan=_proj_plans(B, 1, [(E, F, "copy")]))
+        del wq, wp, w1, w2, ffn
+        torch.cuda.empty_cache()
+
+
 def bs_rows(card, rnd):
     """The block-sparse kernels at BERT-large's sparse attention (B 4, H
     16, S 4096, D 64, DeepSpeed's Fixed layout at block 16) and at the
@@ -304,6 +457,7 @@ def main():
 
     if "--decode" in sys.argv or "--bs" in sys.argv:
         if "--decode" in sys.argv:
+            proj_rows(card, rnd, gen)
             decode_rows(card, rnd, gen)
         if "--bs" in sys.argv:
             bs_rows(card, rnd)

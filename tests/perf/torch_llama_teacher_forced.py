@@ -1,7 +1,7 @@
 """Where a LLaMA-7B paged serve's tokens part from a dense forward.
 
     python3 tests/perf/torch_llama_teacher_forced.py [--layers N]
-        [--std S] [--plain]
+        [--std S] [--plain] [--int8]
 
 Serves chip_smoke.py's 16 greedy requests (the same draw) through LLaMA-7B (random
 weights from seed 0, 8 slots) on one GPU through the CUDA kernels and,
@@ -16,7 +16,11 @@ maximum (in units of the bf16 last place of that maximum) and how many
 positions took another token than the dense argmax. If the plain-version
 engine parts from the bf16 dense forward as far as the kernel engine
 does, the gap is the arithmetic's (bf16 rounding of a paged decode
-against a dense pass), not the kernels'.
+against a dense pass), not the kernels'. ``--int8`` serves chip_smoke's
+int8 engine instead (int8 weight codes and pool, ``llama_int8_init``, at
+``LLAMA_INIT_STD``); its dense forwards run over the codes, the decode
+steps attending over K/V rounded through the pool's codes (chip_smoke's
+int8 oracle is the fp32 one).
 """
 
 import argparse
@@ -41,7 +45,7 @@ def gaps(res, oracle):
         r = res[rid]
         toks = r.tokens()
         S = len(r.prompt)
-        rows = oracle(toks[:-1])[S - 1:].float()
+        rows = oracle(toks[:-1], S)[S - 1:].float()
         gen = torch.as_tensor(toks[S:], device=rows.device).long()
         top = rows.max(-1).values
         gap = top - rows.gather(1, gen[:, None])[:, 0]
@@ -72,19 +76,28 @@ def main():
                          "LLAMA_INIT_STD)")
     ap.add_argument("--plain", action="store_true",
                     help="also serve through the plain versions")
+    ap.add_argument("--int8", action="store_true",
+                    help="serve the int8 engine (int8 codes and pool)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     cfg = dataclasses.replace(llama_7b(), n_layers=args.layers)
-    eng = serving.build_engine(
-        "llama", cfg, init_serving_params(cfg, seed=0, device="cuda",
-                                          std=args.std),
-        config={"serving": chip_smoke.SERVING})
+    if args.int8:
+        eng = chip_smoke.llama_int8_init(cfg)
+    else:
+        eng = serving.build_engine(
+            "llama", cfg, init_serving_params(cfg, seed=0, device="cuda",
+                                              std=args.std),
+            config={"serving": chip_smoke.SERVING})
     p = eng.adapter.p
-    oracles = {"bf16_dense": lambda ids: dense_logits(p, cfg, ids),
-               "fp32_dense": lambda ids: dense_logits(p, cfg, ids,
-                                                      torch.float32)}
+
+    def q8(S):
+        return S if args.int8 else None
+    oracles = {"bf16_dense": lambda ids, S: dense_logits(
+                   p, cfg, ids, kv_quant_from=q8(S)),
+               "fp32_dense": lambda ids, S: dense_logits(
+                   p, cfg, ids, torch.float32, kv_quant_from=q8(S))}
     plain = {"ln_qkv_stacked": dk.ln_qkv_stacked_plain,
              "matvec_stacked": dk.matvec_stacked_plain,
              "out_ffn_stacked": dk.out_ffn_stacked_plain,
@@ -103,7 +116,8 @@ def main():
         rs.randint(0, cfg.vocab_size, 40)   # chip_smoke's warm-up prompt
         res = main_b.serve(chip_smoke.traffic(cfg, rs))
         line = {"run": run, "layers": cfg.n_layers,
-                "std": args.std,
+                "std": chip_smoke.LLAMA_INIT_STD if args.int8 else args.std,
+                "int8": args.int8,
                 "device": torch.cuda.get_device_name(0)}
         for name, oracle in oracles.items():
             line[name] = gaps(res, oracle)

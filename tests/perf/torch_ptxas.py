@@ -6,7 +6,8 @@ shared memory, from ``nvcc -Xptxas=-v`` with the build's own flags.
 Compiles every ``csrc/*.cu`` into a scratch directory (the cached library
 is left alone) and prints, for each kernel whose mangled name contains one
 of NAME (default: the TMA- or bulk-copy-fed kernels, each head dim and
-variant its own instantiation: the flash kernels, matvec_stacked, the
+variant its own instantiation: the flash kernels, the decode projections
+(every prologue, epilogue, pairing, weight type and slot width), the
 fused GEMMs, decode attention, the block-sparse forward and dq, and
 dk/dv), ptxas's lines for
 it. Needs
@@ -25,7 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 from deepspeed_tpu_torch.ops.cuda import builder  # noqa: E402
 
 DEFAULT = ("flash_fwd_tma_kernel", "flash_bwd_tma_kernel",
-           "matvec_tma_kernel", "gemm_tma_kernel", "decode_attn_kernel",
+           "proj_tma_kernel", "gemm_tma_kernel", "decode_attn_kernel",
            "bs_rows_tma_kernel", "bs_dkv_tma_kernel")
 
 

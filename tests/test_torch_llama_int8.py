@@ -622,31 +622,43 @@ def test_cuda_stacked_attention_matches_plain(cuda_device, int8, R, D):
         q, kc, vc, pos, LAYER, **kw))
 
 
+# (B, E, N, F): the first widths, LLaMA-7B's at 1, 8 and 16 slots, and
+# widths that are not multiples of the 128-column tile or the 64-row stage
+INT8_GPU = [(8, 1024, 1536, 2816), (1, 4096, 12288, 11008),
+            (8, 4096, 12288, 11008), (16, 4096, 12288, 11008),
+            (9, 528, 1008, 1008)]
+
+
 @pytest.mark.gpu
-def test_cuda_int8_weight_kernels_match_plain(cuda_device):
+@pytest.mark.parametrize("B,E,N,F", INT8_GPU)
+def test_cuda_int8_weight_kernels_match_plain(cuda_device, B, E, N, F):
     dev = cuda_device
     rs = np.random.RandomState(10)
-    B, E, N, F = 8, 1024, 1536, 2816
+    L = 3          # LAYER, the layer on the device, is a middle one
     x = _dev(rs.randn(B, E), dev)
-    ln_w = _dev(1 + 0.1 * rs.randn(3, E), dev, torch.float32)
-    w = torch.from_numpy(_codes(rs, 3, E, N)).to(dev)
-    s = _dev(_scales(rs, 3) * 1e-3, dev, torch.float32)
+    ln_w = _dev(1 + 0.1 * rs.randn(L, E), dev, torch.float32)
+    w = torch.from_numpy(_codes(rs, L, E, N)).to(dev)
+    s = _dev(_scales(rs, L) * 1e-3, dev, torch.float32)
+    lid = _lid(dev)
+    got = ln_qkv_stacked(x, ln_w, None, w, s, None, lid, norm="rms")
     tolerance.check_kernel(
-        "ln_qkv_stacked[int8]",
-        ln_qkv_stacked(x, ln_w, None, w, s, None, _lid(dev), norm="rms"),
+        "ln_qkv_stacked[int8]", got,
         ln_qkv_stacked_plain(x, ln_w, None, w, s, None, LAYER, norm="rms"))
+    assert torch.equal(got, ln_qkv_stacked(x, ln_w, None, w, s, None, lid,
+                                           norm="rms"))
+    wo = w[:, :, :E].contiguous()
     tolerance.check_kernel("matvec_stacked[int8]",
-                           matvec_stacked(x, w[:, :, :E].contiguous(), s,
-                                          _lid(dev)),
-                           matvec_stacked_plain(x, w[:, :, :E], s, LAYER))
-    wg, wu = (torch.from_numpy(_codes(rs, 3, E, F)).to(dev) for _ in range(2))
-    wd = torch.from_numpy(_codes(rs, 3, F, E)).to(dev)
+                           matvec_stacked(x, wo, s, lid),
+                           matvec_stacked_plain(x, wo, s, LAYER))
+    wg, wu = (torch.from_numpy(_codes(rs, L, E, F)).to(dev) for _ in range(2))
+    wd = torch.from_numpy(_codes(rs, L, F, E)).to(dev)
     args = (None, x, None, None, None, ln_w, None, wg, s, None, wd, s, None)
     kw = dict(act="swiglu", norm="rms", w1b_stack=wu, s1b=s, fuse_proj=False)
-    tolerance.check_kernel("out_ffn_stacked[swiglu,int8]",
-                           out_ffn_stacked(*args, _lid(dev), **kw),
+    got = out_ffn_stacked(*args, lid, **kw)
+    tolerance.check_kernel("out_ffn_stacked[swiglu,int8]", got,
                            out_ffn_stacked_plain(*args, LAYER, **kw))
+    assert torch.equal(got, out_ffn_stacked(*args, lid, **kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out_ffn_stacked(x, x, w[:, :, :E].contiguous(), s, ln_w, ln_w, ln_w,
-                        wg, s, torch.zeros(3, F, device=dev), wd, s, ln_w,
-                        _lid(dev), act="gelu")
+        out_ffn_stacked(x, x, wo, s, ln_w, ln_w, ln_w,
+                        wg, s, torch.zeros(L, F, device=dev), wd, s, ln_w,
+                        lid, act="gelu")
