@@ -168,30 +168,37 @@ Phases, one JSON line each, each with its wall ``seconds``:
                train_moq_sr's leaf set (wte, wpe and the stacked [36, .]
                leaves, 8 groups, asymmetric); nearest bit for bit against
                the plain version beside a planted fault (one scale over
-               the whole tensor; the last chunk left out of the
-               reduction); stochastic (symmetric 8 bits on c_fc,
+               the whole tensor; the last R tile of each group left out
+               of the reduction); stochastic (symmetric 8 bits on c_fc,
                asymmetric 15 bits on each leaf shape of train_moq_sr)
                over 256 draws of values at known fractions of a step in
                8 groups (codes floor or ceil, the summed error within 4
                sigma; the fault u = 0.5 fails), and over every code
                against the plain version's draws; each timed in place by
                CUDA-graph replay, bounded by its bytes; then a whole
-               train_moq boundary: each of the 146 leaves bit for bit at
-               15 and 12 bits, then the 146 launches against 1.85 ms;
+               train_moq boundary as ONE launch over the table of its 146
+               leaves: each leaf bit for bit at 15 and 12 bits (both
+               faults, an outlier at each group's end), timed against
+               1.85 ms beside one copy_ of the same bytes and its host
+               time; and a whole train_moq_sr boundary as one launch (10
+               leaves, the stacked ones as 36 pieces, the blend at 0.75):
+               bit for bit with nearest rounding, timed stochastic;
 11. train_moq — ``initialize`` of GPT-2 large in the unrolled layout with
                DeepSpeed's MoQ tutorial block (start 16, target 8, 8
                groups, symmetric, period cut to 6) and 2 + 10
                ``train_batch`` steps: the bits JAX's Quantizer gives
-               (15 → 12), exactly 146 quantize launches a step and no
-               call of the plain version, each boundary's device time
-               (CUDA events) against its bound, step time, MFU, peak
-               memory; after the last step at most 2^12 values in every
-               group of wte, h.0 c_fc and h.35 mlp c_proj, and the bf16
-               copy equal to the masters;
+               (15 → 12), exactly 1 quantize launch a step (146 leaves)
+               and no call of the plain version, each boundary's device
+               time (CUDA events) against its bound and host time, step
+               time, MFU, peak memory; after the last step at most 2^12
+               values in every group of wte, h.0 c_fc and h.35 mlp
+               c_proj, and the bf16 copy equal to the masters;
 12. train_moq_sr — the scan layout (MoQ quantizes wte, wpe and the 8
-               stacked bias and LayerNorm leaves: 10 launches a step)
-               with asymmetric stochastic rounding, the blend (ratio 0.75
-               → 0) and progressive layer drop, 2 + 3 steps;
+               stacked bias and LayerNorm leaves: 1 launch a step over
+               their 290 pieces) with asymmetric stochastic rounding, the
+               blend (ratio 0.75 → 0) inside the kernel and progressive
+               layer drop, 2 + 3 steps, each boundary's device time
+               against its bound and host time;
 13. kernel, zero3_kernels — ag_matmul (forward and dx),
                mm_rs_partial and mm_rs_reduce at GPT-2 large's four
                projections cut into 4 shards, M 2048 (a rank's 2 x 1024
@@ -3201,18 +3208,24 @@ def moq_leaves(model):
                        for n in names)
 
 
-def moq_leaf_shapes(scan_layers):
-    """The shapes MoQ's kernel takes at a boundary of GPT-2 large in the
-    given layout, one a leaf (a stacked leaf as [L, .]), in leaf order;
-    the model is made on the meta device."""
+def moq_leaf_pieces(scan_layers):
+    """The shapes of the pieces of each leaf MoQ's kernel takes at a
+    boundary of GPT-2 large in the given layout, in leaf order (a stacked
+    leaf: its L layer tensors); the model is made on the meta device."""
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
     with torch.device("meta"):
         model = GPT2LMHeadModel(dataclasses.replace(
             train_model_config(), scan_layers=scan_layers))
     leaves, _ = moq_leaves(model)
-    return [((len(names),) if stacked else ()) +
-            tuple(model.get_parameter(names[0]).shape)
-            for _, names, stacked in leaves]
+    return [[tuple(model.get_parameter(n).shape) for n in names]
+            for _, names, _ in leaves]
+
+
+def moq_leaf_shapes(scan_layers):
+    """The shape of each leaf of ``moq_leaf_pieces`` (a stacked leaf as
+    [L, .])."""
+    return [((len(p),) if len(p) > 1 else ()) + p[0]
+            for p in moq_leaf_pieces(scan_layers)]
 
 
 def moq_groups(shape, groups=MOQ["quantize_groups"]):
@@ -3222,18 +3235,65 @@ def moq_groups(shape, groups=MOQ["quantize_groups"]):
 
 def quantize_fault(x, bits, groups, sym, kind):
     """A planted fault of quantize, made with the plain version: "scale",
-    one scale over the whole tensor; "chunk", the last chunk of each group
-    (the kernel's last block's) left out of the reduction."""
+    one scale over the whole tensor; "chunk", the last R tile of each
+    group (of the kernel's work list for x as one leaf) left out of the
+    reduction."""
     from deepspeed_tpu_torch.ops.cuda import quantize as cq
     flat = x.reshape(groups, -1).float()
     if kind == "scale":
         scale, zero = cq.qparams_plain(flat.reshape(1, -1), bits, sym)
     else:
-        nblk, chunk = cq.grid(groups, flat.shape[1])
-        scale, zero = cq.qparams_plain(flat[:, :(nblk - 1) * chunk], bits,
-                                       sym)
+        wl = cq.work_list([([x.numel()], x.element_size(), groups)])
+        r = wl.kind == 0
+        o = np.lexsort((wl.start[r], wl.group[r]))
+        g, st, ct = wl.group[r][o], wl.start[r][o], wl.count[r][o]
+        last = np.append(g[1:] != g[:-1], True)
+        mask = torch.zeros(x.numel(), dtype=torch.bool, device=x.device)
+        for s0, c in zip(st[last].tolist(), ct[last].tolist()):
+            mask[s0:s0 + c] = True
+        m = mask.view(groups, -1)
+        # the left-out elements take the mean of the rest of their group,
+        # which moves neither its min nor its max
+        fill = flat.masked_fill(m, 0.0).sum(-1, keepdim=True) / (~m).sum(
+            -1, keepdim=True)
+        scale, zero = cq.qparams_plain(torch.where(m, fill, flat), bits, sym)
     return cq.apply_plain(flat, scale, zero, bits).reshape(x.shape).to(
         x.dtype)
+
+
+def hold_table(table, sym, ratio=None, faults=("scale",)):
+    """One ``quantize_leaves`` launch over ``table`` into fresh outputs:
+    every leaf bit for bit against ``quantize_leaves_plain``, and each
+    planted fault of ``faults`` (quantize_fault's kinds, then the blend)
+    rejected on every leaf; (max abs error, least fault row-relative
+    error)."""
+    from deepspeed_tpu_torch.ops.cuda import builder
+    from deepspeed_tpu_torch.ops.cuda import quantize as cq
+    outs = [[torch.empty_like(p) for p in pieces] for pieces, _, _ in table]
+    n0 = builder.launches["quantize"]
+    cq.quantize_leaves(table, sym, ratio=ratio, outs=outs)
+    if builder.launches["quantize"] - n0 != 1:
+        raise AssertionError(f"quantize_leaves over {len(table)} leaves: "
+                             f"{builder.launches['quantize'] - n0} launches")
+    errs, f_errs = [], []
+    for (pieces, bits, groups), dst in zip(table, outs):
+        x = torch.cat([p.reshape(-1) for p in pieces])
+        want = torch.cat([w.reshape(-1) for w in cq.quantize_leaves_plain(
+            [(pieces, bits, groups)], sym, ratio=ratio,
+            outs=[[torch.empty_like(p) for p in pieces]])[0]])
+        got = torch.cat([d.reshape(-1) for d in dst]).view(groups, -1)
+        want = want.view(groups, -1)
+        for fault in faults:
+            bad = quantize_fault(x, bits, groups, sym, fault)
+            if ratio is not None:
+                bad = x * ratio + bad * (1.0 - ratio)
+            abs_err, _, f_rel = held("quantize", got, want,
+                                     bad.view(groups, -1))
+            errs.append(abs_err)
+            f_errs.append(f_rel)
+        del x, want, got, bad
+    del outs
+    return max(errs), min(f_errs)
 
 
 def hold_nearest(x, bits_list, groups, sym, fault):
@@ -3362,13 +3422,16 @@ def quantize_kernel_phase(gen):
     bound. No single PyTorch call computes the grouped scale and the
     rounding (``torch.fake_quantize_per_channel_affine`` takes the scale
     as an input): library_ms is null."""
+    from deepspeed_tpu_torch.ops.cuda import builder
     from deepspeed_tpu_torch.ops.cuda import quantize as cq
     from deepspeed_tpu_torch.ops.cuda import tolerance
     replaces = "deepspeed_tpu/ops/pallas/quantize.py:109"
     results = []
     faults = {"scale": "one scale over the whole tensor",
-              "chunk": "the last chunk of each group left out of its "
+              "chunk": "the last R tile of each group left out of its "
                        "reduction (an outlier placed there)",
+              "tile": "the last R tile of each group left out of its "
+                      "reduction (an outlier at each group's end)",
               "u": "u = 0.5 (nearest rounding, half up)"}
 
     def rnd(shape, dtype=torch.float32):
@@ -3435,54 +3498,137 @@ def quantize_kernel_phase(gen):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # a whole boundary of train_moq: GPT-2 large's 146 leaves, each held
-    # at the run's first and last bits, then timed in place
+    # a whole boundary of train_moq: GPT-2 large's 146 leaves in one
+    # launch, each held at the run's first and last bits, then timed in
+    # place; an outlier at each group's end, in its last R tile, of
+    # another size in each group (so that one scale for all is wrong)
     shapes = moq_leaf_shapes(scan_layers=False)
     tensors = [rnd(shape) for shape in shapes]
+    for t in tensors:
+        groups = moq_groups(t.shape)
+        t.view(groups, -1)[:, -1] = 0.1 * torch.arange(
+            1, groups + 1, device=t.device, dtype=t.dtype)
     n_elems = sum(t.numel() for t in tensors)
     moq_bits = (MOQ_SCHEDULE[0], MOQ_SCHEDULE[-1])
-    errs, f_errs = zip(*(hold_nearest(t, moq_bits, moq_groups(t.shape), True,
-                                      "scale") for t in tensors))
-
-    def one(i):
-        t = tensors[i]
-        cq.quantize(t, moq_bits[0], moq_groups(t.shape), True, out=t)
-    per_ms = time_graph_ms(one, n=len(tensors))
-    plain_ms = time_ms(lambda: [cq.quantize_plain(
-        t, moq_bits[0], moq_groups(t.shape)) for t in tensors],
-        reps=3, inner=1, warmup=1)
+    errs, f_errs = zip(*(hold_table(
+        [([t], bits, moq_groups(t.shape)) for t in tensors], True,
+        faults=("scale", "chunk")) for bits in moq_bits))
+    table = [([t], moq_bits[0], moq_groups(t.shape)) for t in tensors]
+    n0 = builder.launches["quantize"]
+    cq.quantize_leaves(table, True)
+    launches = builder.launches["quantize"] - n0
+    if launches != 1:
+        raise AssertionError(f"a train_moq boundary took {launches} launches")
+    ms = time_graph_ms(lambda i: cq.quantize_leaves(table, True), n=4)
+    call_ms = time_ms(lambda: cq.quantize_leaves(table, True), reps=10,
+                      inner=1)
+    host_us = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cq.quantize_leaves(table, True)
+        host_us.append((time.perf_counter() - t0) * 1e6)
+    plain_ms = time_ms(lambda: cq.quantize_leaves_plain(table, True),
+                       reps=3, inner=1, warmup=1)
     b_ms, b_by = bound(2 * 4 * n_elems, 10 * n_elems, FP32_FLOP_PER_S)
+    # what one read-and-write pass over the boundary's bytes reaches here
+    src = torch.empty(n_elems, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = time_graph_ms(lambda i: dst.copy_(src), n=4)
+    del src, dst
     results.append({
         "name": "quantize", "path": "train_moq", "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/quantize.cu",
         "replaces": replaces, "launches": 0, "max_abs_err": max(errs),
-        "ms": per_ms * len(tensors), "plain_ms": plain_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None})
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None})
     emit({"phase": "kernel", "name": "quantize", "path": "train_moq",
-          "case": "boundary", "launches_a_boundary": len(tensors),
-          "elements": n_elems, "kernel_ms": per_ms * len(tensors),
+          "case": "boundary", "leaves": len(tensors),
+          "launches_a_boundary": launches, "elements": n_elems,
+          "kernel_ms": ms, "call_ms": call_ms,
+          "host_us_median": statistics.median(host_us),
           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-          "pct_of_bound": 100.0 * b_ms / (per_ms * len(tensors)),
+          "pct_of_bound": 100.0 * b_ms / ms, "copy_ms": copy_ms,
+          "work_list": work_list_summary(table),
           "max_abs_err": max(errs), "held": "bit for bit, every leaf",
           "bits_held": list(moq_bits),
           "row_rtol": tolerance.ROW_RTOL["quantize"],
+          "fault": [faults["scale"], faults["tile"]],
+          "fault_row_rel_err": min(f_errs)})
+    del tensors, table
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # a whole boundary of train_moq_sr: its 10 leaves (each stacked leaf
+    # its 36 layer tensors) in one launch, asymmetric, blended at 0.75:
+    # held bit for bit with nearest rounding at its run's first and last
+    # bits, then timed in place with stochastic rounding
+    table = []
+    for shapes in moq_leaf_pieces(scan_layers=True):
+        pieces = [rnd(shape) for shape in shapes]
+        table.append((pieces, sr_bits[0], moq_groups(
+            (sum(p.numel() for p in pieces),))))
+    n_elems = sum(p.numel() for pieces, _, _ in table for p in pieces)
+    errs, f_errs = zip(*(hold_table(
+        [(pieces, bits, groups) for pieces, _, groups in table], False,
+        ratio=MOQ_SR_RATIOS[0]) for bits in sr_bits))
+    ms = time_graph_ms(lambda i: cq.quantize_leaves(
+        table, False, True, MOQ_SR_RATIOS[0]), n=8)
+    plain_ms = time_ms(lambda: cq.quantize_leaves_plain(
+        table, False, True, MOQ_SR_RATIOS[0]), reps=3, inner=1, warmup=1)
+    b_ms, b_by = bound(2 * 4 * n_elems, 10 * n_elems, FP32_FLOP_PER_S)
+    results.append({
+        "name": "quantize", "path": "train_moq_sr", "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/quantize.cu",
+        "replaces": replaces, "launches": 0, "max_abs_err": max(errs),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None})
+    emit({"phase": "kernel", "name": "quantize", "path": "train_moq_sr",
+          "case": "boundary", "leaves": len(table),
+          "pieces": sum(len(pieces) for pieces, _, _ in table),
+          "elements": n_elems, "stochastic": True,
+          "ratio": MOQ_SR_RATIOS[0], "kernel_ms": ms, "plain_ms": plain_ms,
+          "bound_ms": b_ms, "bound_by": b_by,
+          "pct_of_bound": 100.0 * b_ms / ms,
+          "work_list": work_list_summary(table),
+          "max_abs_err": max(errs),
+          "held": "bit for bit, every leaf, nearest rounding with the blend",
+          "bits_held": list(sr_bits),
+          "row_rtol": tolerance.ROW_RTOL["quantize"],
           "fault": faults["scale"], "fault_row_rel_err": min(f_errs)})
-    del tensors
+    del table
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return results
 
 
+def work_list_summary(table):
+    """The work list of one launch over ``table``: tiles, windows, and
+    the largest group in MB."""
+    from deepspeed_tpu_torch.ops.cuda import quantize as cq
+    wl = cq.work_list([([p.numel() for p in pieces],
+                        pieces[0].element_size(), groups)
+                       for pieces, _, groups in table])
+    return {"tiles": int(len(wl.kind)), "groups": int(len(wl.need)),
+            "windows": int(wl.window.max()) + 1,
+            "largest_group_mb": float(wl.group_bytes.max()) / 1e6,
+            "tile_bytes": cq.TILE_BYTES, "window_bytes": cq.WINDOW_BYTES,
+            "lag_tiles": cq.LAG_TILES,
+            "blocks_a_sm": cq.BLOCKS_PER_SM}
+
+
 def _run_moq(engine, batch, warmup, steps, each_step):
     """``warmup + steps`` train_batch steps; ``each_step(i)`` after each.
     Returns (losses, the timed steps' wall seconds, their launches,
-    quantize launches a step, MoQ boundaries' device ms, the plain
-    version's calls). The boundaries are timed between CUDA events
-    around ``_moq_boundary``; the plain version is counted by a wrapper
-    put in its place for the run."""
+    quantize launches a step, MoQ boundaries' device ms, their host µs,
+    the plain version's calls). The boundaries are timed between CUDA
+    events around ``_moq_boundary`` (device) and by the host's clock
+    around the same call (host: what it takes to enqueue, no
+    synchronize); the plain version is counted by a wrapper put in its
+    place for the run."""
     from deepspeed_tpu_torch.ops.cuda import builder
     from deepspeed_tpu_torch.ops.cuda import quantize as cq
-    plain, plain_calls, events = cq.quantize_plain, [0], []
+    plain, plain_calls, events, host_us = cq.quantize_plain, [0], [], []
 
     def counting(*a, **k):
         plain_calls[0] += 1
@@ -3493,7 +3639,9 @@ def _run_moq(engine, batch, warmup, steps, each_step):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        t0 = time.perf_counter()
         boundary(*a)
+        host_us.append((time.perf_counter() - t0) * 1e6)
         end.record()
         events.append((start, end))
     cq.quantize_plain, engine._moq_boundary = counting, timed_boundary
@@ -3504,6 +3652,7 @@ def _run_moq(engine, batch, warmup, steps, each_step):
                 torch.cuda.synchronize()
                 builder.launches.clear()     # count the main path's run only
                 events.clear()
+                host_us.clear()
                 t0 = time.perf_counter()
             n0 = builder.launches["quantize"]
             losses.append(engine.train_batch(batch))
@@ -3519,7 +3668,7 @@ def _run_moq(engine, batch, warmup, steps, each_step):
         raise AssertionError(f"non-finite MoQ training loss: {losses}")
     boundary_ms = [s.elapsed_time(e) for s, e in events]
     return (losses, wall_s, dict(builder.launches), per_step, boundary_ms,
-            plain_calls[0])
+            host_us, plain_calls[0])
 
 
 def _check_compute_copy(engine):
@@ -3534,8 +3683,9 @@ def _check_compute_copy(engine):
 def train_moq_phase(warmup=TRAIN_WARMUP, steps=TRAIN_STEPS):
     """``initialize`` + ``train_batch`` of GPT-2 large (the train phase's
     model in the unrolled layout, where MoQ quantizes 146 leaves) with
-    MOQ: the schedule, 146 quantize launches every step and none of the
-    plain version, each boundary's device time against its bound; after
+    MOQ: the schedule, one quantize launch every step (its 146 leaves in
+    one table) and no call of the plain version, each boundary's device
+    time against its bound and its host time; after
     the last step every group of three sampled leaves holds at most 2^12
     values and the compute copy is the masters in bf16."""
     import deepspeed_tpu_torch as ds
@@ -3548,16 +3698,18 @@ def train_moq_phase(warmup=TRAIN_WARMUP, steps=TRAIN_STEPS):
     batch = train_batch_ids()
     leaves, n_elems = moq_leaves(engine.module)
     bits = []
-    losses, wall_s, launches, per_step, boundary_ms, plain_calls = _run_moq(
+    (losses, wall_s, launches, per_step, boundary_ms, host_us,
+     plain_calls) = _run_moq(
         engine, batch, warmup, steps,
         lambda i: bits.append(engine.quantizer.q_start_bits[0]))
     init_s = time.perf_counter() - t0 - wall_s
     if bits != MOQ_SCHEDULE:
         raise AssertionError(f"MoQ bits {bits} != {MOQ_SCHEDULE}")
-    if per_step != [len(leaves)] * (warmup + steps) or len(leaves) != 146:
-        raise AssertionError(f"quantize launches a step {per_step}, "
-                             f"{len(leaves)} leaves (146 expected)")
-    expect = {"quantize": 146 * steps,
+    if per_step != [1] * (warmup + steps) or len(leaves) != 146:
+        raise AssertionError(f"quantize launches a step {per_step} (1 "
+                             f"expected), {len(leaves)} leaves (146 "
+                             f"expected)")
+    expect = {"quantize": steps,
               **{name: cfg.n_layer * steps for name in FLASH_KERNELS}}
     if launches != expect or plain_calls:
         raise AssertionError(f"train_moq launches {launches} != {expect}, "
@@ -3590,6 +3742,8 @@ def train_moq_phase(warmup=TRAIN_WARMUP, steps=TRAIN_STEPS):
           "boundary_bound_ms": b_ms,
           "boundary_pct_of_bound": 100.0 * b_ms
           / statistics.median(boundary_ms),
+          "boundary_host_us": host_us,
+          "boundary_host_us_median": statistics.median(host_us),
           "bits": bits, "quantize_launches_a_step": per_step,
           "plain_calls": plain_calls, "distinct_values_a_group": distinct,
           "launches": launches, "losses": losses})
@@ -3601,7 +3755,9 @@ def train_moq_sr_phase(warmup=MOQ_SR_WARMUP, steps=MOQ_SR_STEPS):
     are 3-D stacked leaves; MoQ quantizes wte, wpe and the 8 stacked [36,
     .] bias and LayerNorm leaves) with moq_sr_ds_config: asymmetric
     stochastic rounding, the blend falling 0.75 → 0, PLD; exactly one
-    launch a leaf a boundary."""
+    quantize launch a boundary (the 10 leaves, the stacked ones as their
+    36 layer tensors, and the blend in one table), each boundary's device
+    time against its bound and its host time."""
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
     cfg = train_model_config()
@@ -3610,17 +3766,19 @@ def train_moq_sr_phase(warmup=MOQ_SR_WARMUP, steps=MOQ_SR_STEPS):
     batch = train_batch_ids()
     leaves, n_elems = moq_leaves(engine.module)
     ratios = []
-    losses, wall_s, launches, per_step, boundary_ms, plain_calls = _run_moq(
+    (losses, wall_s, launches, per_step, boundary_ms, host_us,
+     plain_calls) = _run_moq(
         engine, batch, warmup, steps,
         lambda i: ratios.append(engine.quantizer.quantize_real_ratio))
     if ratios != MOQ_SR_RATIOS:
         raise AssertionError(f"blend ratios {ratios} != {MOQ_SR_RATIOS}")
-    if per_step != [len(leaves)] * (warmup + steps) or plain_calls:
+    if per_step != [1] * (warmup + steps) or plain_calls:
         raise AssertionError(f"quantize launches a step {per_step} for "
-                             f"{len(leaves)} leaves, plain calls "
-                             f"{plain_calls}")
+                             f"{len(leaves)} leaves (1 expected), plain "
+                             f"calls {plain_calls}")
     _check_compute_copy(engine)
     step_s = wall_s / steps
+    b_ms = 8 * n_elems / HBM_BYTES_PER_S * 1e3
     emit({"phase": "train_moq_sr", "model": "gpt2_large",
           "layers": cfg.n_layer, "layout": "scan",
           "quantize_training": moq_sr_ds_config()["quantize_training"],
@@ -3629,7 +3787,14 @@ def train_moq_sr_phase(warmup=MOQ_SR_WARMUP, steps=MOQ_SR_STEPS):
           "moq_elements": n_elems, "steps": steps, "warmup_steps": warmup,
           "step_ms": step_s * 1e3,
           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
-          "boundary_device_ms": boundary_ms, "ratios": ratios,
+          "boundary_device_ms": boundary_ms,
+          "boundary_device_ms_median": statistics.median(boundary_ms),
+          "boundary_bound_ms": b_ms,
+          "boundary_pct_of_bound": 100.0 * b_ms
+          / statistics.median(boundary_ms),
+          "boundary_host_us": host_us,
+          "boundary_host_us_median": statistics.median(host_us),
+          "ratios": ratios,
           "quantize_launches_a_step": per_step, "launches": launches,
           "keep_prob_last": float(engine.progressive_layer_drop.theta_at(
               engine.global_step_t)),

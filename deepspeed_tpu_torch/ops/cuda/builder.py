@@ -47,7 +47,8 @@ SIGNATURES = {
     "dstpu_bs_fwd": [_P] * 7 + [_I] * 6 + [_F, _P],
     "dstpu_bs_bwd_dq": [_P] * 9 + [_I] * 6 + [_F, _P],
     "dstpu_bs_bwd_dkv": [_P] * 10 + [_I] * 6 + [_F, _P],
-    "dstpu_quantize": [_P] * 4 + [_I] * 8 + [_F, _P],
+    "dstpu_quantize_leaves": [_P, _I, _P, _P, _I, _P] + [_I] * 3
+    + [_F, _F, _I, _P],
     "dstpu_ag_matmul": [_P] * 3 + [_I] * 11 + [_P],
     "dstpu_mm_rs_partial": [_P] * 3 + [_I] * 6 + [_P],
     "dstpu_mm_rs_reduce": [_P, _P] + [_I] * 4 + [_P],

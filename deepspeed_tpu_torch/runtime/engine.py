@@ -175,6 +175,9 @@ class DeepSpeedEngine:
                 q_verbose=qcfg.verbose,
                 q_eigenvalue=qcfg.eigenvalue_enabled,
                 layer_num=qcfg.eigenvalue_layer_num)
+            # the model's JAX paths, made once: the boundary's leaves
+            self._moq_jax_paths = self.module.jax_paths() \
+                if hasattr(self.module, "jax_paths") else None
             if qcfg.eigenvalue_enabled:
                 if self.device.type == "cuda":
                     raise NotImplementedError(
@@ -534,15 +537,15 @@ class DeepSpeedEngine:
         """MoQ at an optimizer-step boundary (engine.py:3321): from
         ``schedule_offset`` on, the quantizer's schedule step and the
         fake quantization of the fp32 masters in place, one kernel launch
-        a JAX leaf; the eigenvalues first when the quantizer asks for
-        them. Without fp16 there is no overflow, so nothing is read back;
-        with fp16 the flag is, once a boundary, as in JAX."""
+        over the table of every eligible JAX leaf; the eigenvalues first
+        when the quantizer asks for them. Without fp16 there is no
+        overflow, so nothing is read back; with fp16 the flag is, once a
+        boundary, as in JAX."""
         q = self.quantizer
         if q is None or self.global_steps < \
                 self._config.quantize_training_config.schedule_offset:
             return
-        jax_paths = self.module.jax_paths() \
-            if hasattr(self.module, "jax_paths") else None
+        jax_paths = self._moq_jax_paths
         eigenvalues = None
         ev = self.eigenvalue
         if ev is not None and batch is not None and \

@@ -10,20 +10,22 @@ for statement.
 
 ``quantize_tree`` takes the model's named tensors (the engine's fp32
 masters) and quantizes the eligible ones in place with the grouped
-kernel (``ops/cuda/quantize.py``: one launch a JAX leaf). Eligible, as in
-JAX, is a floating leaf that is 2-D in the JAX tree of the model's
-layout (``jax_paths``): under the unrolled layout the embeddings and the
-four kernels of each layer; under the scan layout, where a layer kernel
-is one 3-D leaf stacked over the layers, the embeddings and the
-layer-stacked [L, ·] biases and LayerNorm parameters, each quantized as
-one tensor over its L layers (stacked for the launch, then copied back).
+kernel (``ops/cuda/quantize.py`` ``quantize_leaves``: one launch a
+boundary over a table of every eligible leaf, the blend inside it).
+Eligible, as in JAX, is a floating leaf that is 2-D in the JAX tree of
+the model's layout (``jax_paths``): under the unrolled layout the
+embeddings and the four kernels of each layer; under the scan layout,
+where a layer kernel is one 3-D leaf stacked over the layers, the
+embeddings and the layer-stacked [L, ·] biases and LayerNorm parameters,
+each one leaf of the table whose pieces are its L layer tensors, its
+groups running over their concatenation.
 """
 
 import logging
 
 import torch
 
-from deepspeed_tpu_torch.ops.quantizer import quantize
+from deepspeed_tpu_torch.ops.cuda.quantize import quantize_leaves
 
 logger = logging.getLogger("deepspeed_tpu_torch")
 
@@ -92,6 +94,7 @@ class Quantizer:
         self.q_eigenvalue = q_eigenvalue
         self.qsteps = 0
         self.quantize_real_ratio = 1.0
+        self._leaves = None
 
     # -- schedule ---------------------------------------------------------
 
@@ -143,6 +146,17 @@ class Quantizer:
                     return min(int(tok), self.layer_num - 1)
         return 0
 
+    def _eligible(self, named, jax_paths):
+        """``eligible_leaves`` as [(names, layer index)], kept from the
+        last boundary while the names and the ``jax_paths`` object are the
+        same (an engine passes the same ones every boundary)."""
+        key = (tuple(named), id(jax_paths))
+        if self._leaves is None or self._leaves[0] != key:
+            self._leaves = (key, jax_paths, [
+                (names, self._layer_index([str(k) for k in path]))
+                for path, names, _ in eligible_leaves(named, jax_paths)])
+        return self._leaves[2]
+
     def advance(self, overflow=False, eigenvalues=None):
         """The schedule's step at one boundary; False when the boundary
         quantizes nothing (an overflow step without the mixed blend)."""
@@ -167,31 +181,20 @@ class Quantizer:
         leaf). Returns the names of the tensors it quantized."""
         if not self.advance(overflow, eigenvalues):
             return []
-        sym = self.q_type == 0
-        stochastic = self.q_rounding == 1
-        blend = self.q_mixed_fp16 and self.quantize_real_ratio > 0
-        r = self.quantize_real_ratio
-        changed = []
-        for path, names, stacked in eligible_leaves(named, jax_paths):
-            tensors = [named[n] for n in names]
-            bits = self.q_start_bits[self._layer_index(
-                [str(k) for k in path])]
+        table, changed = [], []
+        for names, layer in self._eligible(named, jax_paths):
+            bits = self.q_start_bits[layer]
             if bits >= 16:
                 continue
-            arr = torch.stack(tensors) if stacked else tensors[0]
-            groups = self.q_groups if arr.numel() % self.q_groups == 0 \
-                else 1
-            with torch.no_grad():
-                if blend:
-                    q = quantize(arr, bits=bits, groups=groups, sym=sym,
-                                 stochastic=stochastic, generator=generator)
-                    q.mul_(1.0 - r)
-                    arr.mul_(r).add_(q)
-                else:
-                    quantize(arr, bits=bits, groups=groups, sym=sym,
-                             stochastic=stochastic, generator=generator,
-                             out=arr)
-                if stacked:
-                    torch._foreach_copy_(tensors, list(arr.unbind(0)))
+            pieces = [named[n] for n in names]
+            groups = self.q_groups \
+                if sum(p.numel() for p in pieces) % self.q_groups == 0 else 1
+            table.append((pieces, bits, groups))
             changed += names
+        blend = self.q_mixed_fp16 and self.quantize_real_ratio > 0
+        with torch.no_grad():
+            quantize_leaves(table, sym=self.q_type == 0,
+                            stochastic=self.q_rounding == 1,
+                            ratio=self.quantize_real_ratio if blend else None,
+                            generator=generator)
         return changed

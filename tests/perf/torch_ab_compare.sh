@@ -13,17 +13,20 @@
 # cases' decode ms a step, the decode-attention
 # and block-sparse kernel lines (the forward, dq and dk/dv, with a decode
 # row's split plan and a block-sparse row's work list), the decode pos
-# sweeps and the BERT sparse step;
+# sweeps and the BERT sparse step, the quantize kernel lines and the MoQ
+# train lines (step, each boundary's device and host time);
 # then tests/perf/torch_llama_t4.py and torch_kernel_rows.py --decode --bs
 # from each tree in turns (whole lines in chiprun_out/ab_t4_N.log and
-# ab_rows_N.log), and the GPU unit tests of this tree.
+# ab_rows_N.log), or with `moq` tests/perf/torch_moq_boundary.py
+# (ab_moq_N.log), and the GPU unit tests of this tree.
 #
-#   bash tests/perf/torch_ab_compare.sh OLD_TREE
+#   bash tests/perf/torch_ab_compare.sh OLD_TREE [moq]
 #
 # OLD_TREE is a directory inside this tree that .gitignore lists (e.g.
 # build/pre_change), holding `git archive` of the commit to compare with.
 set -u
-old=${1:?usage: torch_ab_compare.sh OLD_TREE}
+old=${1:?usage: torch_ab_compare.sh OLD_TREE [moq]}
+turns=${2:-decode}
 here=$(pwd)
 mkdir -p chiprun_out
 summ() {
@@ -88,6 +91,22 @@ for line in open(name):
     if d.get("phase") == "train":
         print(name, "train step_ms=%.2f mfu=%.4f peak=%.2f"
               % (d["step_ms"], d["mfu"], d["peak_memory_gb"]))
+    if d.get("phase") == "kernel" and d["name"] == "quantize":
+        t = d.get("kernel_us")
+        print(name, "quantize", d["path"], d["case"],
+              ("kernel_us=%.2f" % t) if t is not None else
+              "kernel_ms=%.4f" % d["kernel_ms"],
+              "pct_of_bound=%.1f" % d["pct_of_bound"],
+              " ".join("%s=%.4g" % (k, d[k]) for k in (
+                  "call_us", "call_ms", "copy_ms", "host_us_median",
+                  "launches_a_boundary") if d.get(k) is not None))
+    if d.get("phase") in ("train_moq", "train_moq_sr"):
+        ms = d["boundary_device_ms"]
+        print(name, d["phase"], "step_ms=%.2f" % d["step_ms"],
+              "boundary_device_ms median=%.4f min=%.4f max=%.4f" % (
+                  sorted(ms)[len(ms) // 2], min(ms), max(ms)),
+              "host_us_median=%s" % d.get("boundary_host_us_median"),
+              "launches_a_step=%s" % d["quantize_launches_a_step"][-1])
     if d.get("phase") == "train_bert_sparse":
         print(name, "train_bert_sparse step_ms=%.2f tokens_per_s=%.0f"
               % (d["step_ms"], d["tokens_per_s"]))
@@ -119,6 +138,12 @@ summ chiprun_out/ab_old2.log
 turn=0
 for tree in "$old" "$here" "$here" "$old"; do
   turn=$((turn + 1))
+  if [ "$turns" = moq ]; then
+    python3 tests/perf/torch_moq_boundary.py --tree "$tree" \
+      > chiprun_out/ab_moq_$turn.log 2>&1
+    cut -c1-400 chiprun_out/ab_moq_$turn.log
+    continue
+  fi
   python3 tests/perf/torch_llama_t4.py --tree "$tree" \
     > chiprun_out/ab_t4_$turn.log 2>&1
   tail -2 chiprun_out/ab_t4_$turn.log
@@ -131,4 +156,4 @@ python3 -m pytest --noconftest -p no:cacheprovider -m gpu \
   tests/test_torch_decode_kernels.py tests/test_torch_llama_kernels.py \
   tests/test_torch_llama_int8.py tests/test_torch_gpt2_inference.py \
   tests/test_torch_sparse_attention.py tests/test_torch_bert.py \
-  -q 2>&1 | tail -3
+  tests/test_torch_quantize.py -q 2>&1 | tail -3

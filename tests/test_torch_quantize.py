@@ -126,15 +126,160 @@ def test_zero_and_nan_groups_match_pallas(sym):
     _bits_equal(got[[0, 1, 3]], want[[0, 1, 3]])
 
 
-def test_grid_covers_every_group_in_aligned_chunks():
-    """The kernel's (blocks a group, chunk): chunks of a multiple of 8
-    elements, every block non-empty, the last one ending the group."""
-    for groups, n in ((1, 64_389_120), (8, 614_400), (8, 163_840), (1, 7),
-                      (3, 2049), (5000, 16), (1, 1)):
-        nblk, chunk = cq.grid(groups, n)
-        assert chunk % cq.CHUNK_ALIGN == 0 and nblk >= 1
-        assert (nblk - 1) * chunk < n <= nblk * chunk
-        assert groups * nblk <= max(cq.TARGET_BLOCKS, groups) + groups
+# -- the table of leaves and its work list -------------------------------------
+
+def _random_table(seed):
+    """[(piece numels, element bytes, groups)]: 1-5 pieces a leaf (some
+    empty), 1-8 groups, fp32 or bf16 element sizes."""
+    rs = np.random.RandomState(seed)
+    leaves = []
+    for _ in range(rs.randint(1, 7)):
+        groups = int(rs.choice([1, 2, 3, 8]))
+        total = groups * int(rs.randint(1, 400))
+        cuts = np.sort(rs.randint(0, total + 1, rs.randint(0, 5)))
+        numels = np.diff(np.concatenate([[0], cuts, [total]])).tolist()
+        leaves.append((numels, int(rs.choice([2, 4])), groups))
+    return leaves
+
+
+def _tickets_hold(leaves, wl, tile_bytes, window_bytes):
+    """The work list's properties: every element of every group in
+    exactly one R tile and one A tile; no tile straddles a piece or a
+    group; every A tile after all R tiles of its group; windows of
+    consecutive whole groups within the budget (or one group)."""
+    numel, esize, leaf_off, n, g0 = [], [], [], [], []
+    g = 0
+    for numels, es, groups in leaves:
+        off = np.concatenate([[0], np.cumsum(numels)[:-1]])
+        for k, m in enumerate(numels):
+            numel.append(m)
+            esize.append(es)
+            leaf_off.append(int(off[k]))
+            n.append(sum(numels) // groups)
+            g0.append(g)
+        g += groups
+    numel, esize, leaf_off, n, g0 = map(np.asarray, (numel, esize, leaf_off,
+                                                     n, g0))
+    p, st, ct = wl.piece, wl.start, wl.count
+    assert (ct >= 1).all() and (ct * esize[p] <= tile_bytes).all()
+    assert (st >= 0).all() and (st + ct <= numel[p]).all()
+    first = (leaf_off[p] + st) // n[p]
+    assert (first == (leaf_off[p] + st + ct - 1) // n[p]).all()
+    assert (wl.group == g0[p] + first).all()
+    for kind in (0, 1):
+        sel = wl.kind == kind
+        o = np.lexsort((st[sel], p[sel]))
+        ps, ss, cs = p[sel][o], st[sel][o], ct[sel][o]
+        for piece in range(len(numel)):
+            here = ps == piece
+            ends = np.concatenate([[0], (ss + cs)[here]])
+            assert (ss[here] == ends[:-1]).all()
+            assert ends[-1] == numel[piece]
+    pos = np.arange(len(wl.kind))
+    last_r = np.full(g, -1)
+    np.maximum.at(last_r, wl.group[wl.kind == 0], pos[wl.kind == 0])
+    first_a = np.full(g, len(pos))
+    np.minimum.at(first_a, wl.group[wl.kind == 1], pos[wl.kind == 1])
+    assert (last_r < first_a).all() and (last_r >= 0).all()
+    assert (wl.need == np.bincount(wl.group[wl.kind == 0],
+                                   minlength=g)).all()
+    assert wl.window[0] == 0 and set(np.diff(wl.window)) <= {0, 1}
+    for w in range(int(wl.window.max()) + 1):
+        in_w = wl.window == w
+        assert in_w.sum() == 1 or wl.group_bytes[in_w].sum() <= window_bytes
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("lag", [0, 3, 10 ** 9])
+def test_work_list_covers_each_element_once_in_order(seed, lag):
+    """Random tables, small tiles and windows: the ticket order's
+    properties hold whatever the lag (10^9: each window's A tiles after
+    all of the next window's R tiles)."""
+    leaves = _random_table(seed)
+    tile_bytes, window_bytes = 64 * (1 + seed % 3), 900
+    wl = cq.work_list(leaves, tile_bytes, window_bytes, lag)
+    _tickets_hold(leaves, wl, tile_bytes, window_bytes)
+
+
+def test_work_list_at_the_moq_boundary_shapes():
+    """GPT-2 large's leaf shapes at the module's constants: wte's 32 MB
+    groups are windows of their own, c_fc's groups share windows, each
+    window's A tiles trail the next window's R tiles by LAG_TILES."""
+    wte, c_fc = 50304 * 1280, 1280 * 5120
+    leaves = [([wte], 4, 8), ([c_fc], 4, 8), ([1280] * 36, 4, 8),
+              ([c_fc], 2, 8)]
+    wl = cq.work_list(leaves)
+    _tickets_hold(leaves, wl, cq.TILE_BYTES, cq.WINDOW_BYTES)
+    assert (wl.window[:8] == np.arange(8)).all()
+    assert len(set(wl.window[8:16].tolist())) < 8
+    # the first A tile of window 0 follows window 0's R tiles and
+    # LAG_TILES + 1 of window 1's (a tie goes to the R tile); a 32 MB
+    # group's A tiles run from its last R tile back
+    a0 = int(np.argmax(wl.kind == 1))
+    r_before = int((wl.kind[:a0] == 0).sum())
+    assert r_before == int(wl.need[0]) + cq.LAG_TILES + 1
+    a = np.nonzero((wl.kind == 1) & (wl.group == 0))[0]
+    assert (np.diff(wl.start[a]) < 0).all()
+
+
+def test_launch_split_keeps_table_order_and_counts():
+    """Past ``max_tickets`` a table splits between leaves, in order."""
+    assert cq.launch_split([3, 1, 4, 1, 5], max_tickets=10) == [
+        (0, 2), (2, 4), (4, 5)]
+    assert cq.launch_split([3, 1, 4]) == [(0, 3)]
+    with pytest.raises(NotImplementedError, match="tickets"):
+        cq.launch_split([3, 9], max_tickets=10)
+
+
+def _jax_leaf(pieces, **kw):
+    jnp = importlib.import_module("jax.numpy")
+    leaf = np.stack(pieces) if len(pieces) > 1 else pieces[0]
+    return np.array(_jq().quantize(jnp.asarray(leaf), **kw)).reshape(-1)
+
+
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("groups", [1, 8])
+@pytest.mark.parametrize("bits", [4, 8, 15])
+def test_quantize_leaves_plain_matches_jax_leaf_for_leaf(bits, groups, sym):
+    """A table of an unstacked [16, 64] leaf and a stacked [3, 64] leaf
+    given as its three pieces: each leaf bit for bit JAX's ``quantize``
+    of the whole leaf (tolerance 0), in place and into outputs."""
+    flat = [_x((16, 64), seed=bits)]
+    stacked = [_x((64,), seed=bits + k, scale=0.01 * (k + 1))
+               for k in range(3)]
+    table = [([torch.from_numpy(a.copy()) for a in flat], bits, groups),
+             ([torch.from_numpy(a.copy()) for a in stacked], bits, groups)]
+    outs = [[torch.empty_like(p) for p in pieces] for pieces, _, _ in table]
+    cq.quantize_leaves(table, sym=sym, outs=outs)
+    cq.quantize_leaves(table, sym=sym)
+    for (pieces, _, _), dst, src in zip(table, outs, (flat, stacked)):
+        want = _jax_leaf(src, bits=bits, groups=groups, sym=sym)
+        _bits_equal(torch.cat([p.reshape(-1) for p in pieces]), want)
+        _bits_equal(torch.cat([d.reshape(-1) for d in dst]), want)
+
+
+@pytest.mark.parametrize("r", [0.75, 0.5, 0.3, 1.0 / 3.0])
+def test_blend_epilogue_is_the_three_ops_bit_for_bit(r):
+    """The kernel's blend, fl(fl(x·fp32(r)) + fl(q·fp32(1 - r))) in fp32
+    (numpy here), equals the torch sequence q.mul_(1 - r),
+    x.mul_(r).add_(q) and JAX's r * x + (1.0 - r) * q bit for bit, and
+    ``quantize_leaves_plain``'s blend is that of a quantized q."""
+    jnp = importlib.import_module("jax.numpy")
+    x = _x((64, 32), seed=7)
+    q = _x((64, 32), seed=8)
+    epilogue = x * np.float32(r) + q * np.float32(1.0 - r)
+    assert epilogue.dtype == np.float32
+    tq_, tx = torch.from_numpy(q.copy()), torch.from_numpy(x.copy())
+    tq_.mul_(1.0 - r)
+    tx.mul_(r).add_(tq_)
+    _bits_equal(tx, epilogue)
+    _bits_equal(np.asarray(r * jnp.asarray(x) + (1.0 - r) * jnp.asarray(q)),
+                epilogue)
+    table = [([torch.from_numpy(x.copy())], 8, 4)]
+    cq.quantize_leaves(table, sym=True, ratio=r)
+    qx = cq.quantize_plain(torch.from_numpy(x), 8, 4).numpy()
+    _bits_equal(table[0][0][0], x * np.float32(r)
+                + qx * np.float32(1.0 - r))
 
 
 def sr_input(bits, sym, fracs=(0.125, 0.25, 0.375)):
@@ -263,3 +408,130 @@ def test_cuda_stochastic_rounding_is_unbiased(cuda_device):
         ok, z = sr_stats(draws, x, t, 4, sym)
         assert ok and abs(z) <= 4.0, z
         assert not torch.equal(draws[0], draws[1])
+
+
+def _table(device, gen, sizes):
+    """A table [(pieces, bits, groups)] on ``device``: ``sizes`` is
+    [(piece shapes, dtype, bits, groups, offset)]; a piece with offset 1
+    starts one element past an allocation (not 16-byte aligned)."""
+    table = []
+    for shapes, dtype, bits, groups, off in sizes:
+        pieces = []
+        for shape in shapes:
+            n = int(np.prod(shape))
+            buf = (0.02 * torch.randn(n + off, generator=gen,
+                                      device=device)).to(dtype)
+            pieces.append(buf[off:].view(shape))
+        table.append((pieces, bits, groups))
+    return table
+
+
+def _mixed_sizes(big):
+    """Unaligned pieces, groups smaller than a tile, a stacked leaf of 36
+    pieces, a group larger than a window (``big``), fp32 and bf16."""
+    return [([(1000, 1283)], torch.float32, 8, 1, 1),
+            ([(37, 999)], torch.float32, 6, 3, 1),
+            ([(64, 64)], torch.float32, 8, 64, 0),
+            ([(1280,)] * 36, torch.float32, 15, 8, 0),
+            ([(515, 130)], torch.bfloat16, 13, 5, 1),
+            ([(4096, 1024)], torch.bfloat16, 8, 2, 0),
+            ([(3, 7, 5), (11,), (0,), (4,)], torch.float32, 4, 1, 1),
+            ([(big,)], torch.float32, 12, 1, 0)]
+
+
+def _leaf_equal(leaf, got, sym, ratio=None):
+    pieces, bits, groups = leaf
+    want = cq.quantize_leaves_plain(
+        [leaf], sym, ratio=ratio,
+        outs=[[torch.empty_like(p) for p in pieces]])[0]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (tuple(pieces[0].shape), bits, groups)
+
+
+@pytest.mark.gpu
+def test_cuda_leaves_mixed_table_bit_for_bit(cuda_device, monkeypatch):
+    """One launch over a mixed table, symmetric and asymmetric, into
+    outputs and in place: every leaf bit for bit the plain version's.
+    Also with windows of 1 MB and a lag of 0, so that many windows
+    follow each other and A tiles trail closely."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    big = 6 << 20          # 24 MB of fp32 in one group
+    table = _table(cuda_device, gen, _mixed_sizes(big))
+    for window, lag in ((None, None), (1 << 20, 0)):
+        if window:
+            monkeypatch.setattr(cq, "WINDOW_BYTES", window)
+            monkeypatch.setattr(cq, "LAG_TILES", lag)
+        for sym in (True, False):
+            outs = [[torch.empty_like(p) for p in pieces]
+                    for pieces, _, _ in table]
+            n0 = builder.launches["quantize"]
+            cq.quantize_leaves(table, sym, outs=outs)
+            torch.cuda.synchronize()
+            assert builder.launches["quantize"] == n0 + 1
+            for leaf, got in zip(table, outs):
+                _leaf_equal(leaf, got, sym)
+    # in place
+    inplace = [([p.clone() for p in pieces], bits, groups)
+               for pieces, bits, groups in table]
+    cq.quantize_leaves(inplace, False)
+    for leaf, (got, _, _) in zip(table, inplace):
+        _leaf_equal(leaf, got, False)
+
+
+@pytest.mark.gpu
+def test_cuda_leaves_zero_and_nan_groups(cuda_device):
+    """In one table: an all-zero group comes back zero, a NaN makes its
+    own group NaN and no other, the other leaves bit for bit."""
+    x = torch.from_numpy(_x((4, 4096), seed=5)).to(cuda_device)
+    x[1] = 0.0
+    x[2, 3001] = float("nan")
+    y = torch.from_numpy(_x((8, 1000), seed=6)).to(cuda_device)
+    for sym in (True, False):
+        table = [([x], 8, 4), ([y], 8, 2)]
+        outs = [[torch.empty_like(x)], [torch.empty_like(y)]]
+        cq.quantize_leaves(table, sym, outs=outs)
+        got = outs[0][0]
+        want = cq.quantize_plain(x, 8, 4, sym)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.isnan(got[2]).all() and (got[1] == 0).all()
+        assert torch.equal(got[[0, 1, 3]], want[[0, 1, 3]])
+        assert torch.equal(outs[1][0], cq.quantize_plain(y, 8, 2, sym))
+
+
+@pytest.mark.gpu
+def test_cuda_leaves_blend_bit_for_bit(cuda_device):
+    """The blend inside the kernel, fp32 and bf16, symmetric and not, at
+    the ratios MoQ's schedule takes: bit for bit the plain sequence."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    table = _table(cuda_device, gen, _mixed_sizes(1 << 16))
+    for ratio in (0.75, 0.5, 0.25, 0.3):
+        for sym in (True, False):
+            outs = [[torch.empty_like(p) for p in pieces]
+                    for pieces, _, _ in table]
+            cq.quantize_leaves(table, sym, ratio=ratio, outs=outs)
+            for leaf, got in zip(table, outs):
+                _leaf_equal(leaf, got, sym, ratio)
+
+
+@pytest.mark.gpu
+def test_cuda_leaves_stochastic_per_leaf(cuda_device):
+    """Stochastic rounding over a table of four leaves (one of them
+    stacked as 16 pieces) held per leaf: codes floor(t) or ceil(t), the
+    summed error within 4 sigma over 256 draws; the same values in
+    two leaves (each its own seed) and in two draws come out apart."""
+    for sym in (True, False):
+        x, t = sr_input(4, sym)
+        x, t = x.to(cuda_device), t.to(cuda_device)
+        draws = [[] for _ in range(4)]
+        gen = torch.Generator(device=cuda_device).manual_seed(2)
+        for _ in range(256):
+            table = [([x.clone()], 4, 1), (list(x.clone().unbind(0)), 4, 1),
+                     ([x.clone()], 4, 1), ([x.clone()], 4, 1)]
+            cq.quantize_leaves(table, sym, True, generator=gen)
+            for k, (pieces, _, _) in enumerate(table):
+                draws[k].append(torch.stack(pieces).reshape(16, 64))
+        for ds in draws:
+            ok, z = sr_stats(ds, x, t, 4, sym)
+            assert ok and abs(z) <= 4.0, z
+            assert not torch.equal(ds[0], ds[1])
+        assert not torch.equal(draws[0][0], draws[2][0])
