@@ -406,6 +406,10 @@ ZERO3_LEAVES = (("attn.c_attn", 1280, 3840, 1), ("attn.c_proj", 1280, 1280, 0),
                 ("mlp.c_fc", 1280, 5120, 1), ("mlp.c_proj", 5120, 1280, 0))
 # the rank whose kernel calls are timed (its ring starts off chunk 0)
 ZERO3_TIMED_RANK = 1
+# a GPT-2 large layer's packed group under fused_matmul: the c_attn and
+# c_fc biases' shards ([36, 3840] and [36, 5120] are cut at the default
+# persistence threshold, the [36, 1280] leaves stay replicated)
+ZERO3_GROUP = (3840 + 5120) // 4
 # fused_matmul's losses against ring mode's, and both against the one-card
 # train phase's first steps (same model, seed, batch and config): the
 # fused path rounds each projection to bf16 before its bias and sums dW
@@ -858,16 +862,33 @@ def kernel_phase(eng, cfg, gen):
         cases.append({"B": B, "H": H, "R": R, "D": D, "page": page,
                       "rows_per_step": rps, "pos": pos_r.tolist(),
                       "pool": "int8" if int8 else "bf16"})
+    # the main path's call: the tick's new K/V rows (column slices of the
+    # packed qkv output) appended by the attention call itself
     q = rnd(B, H, 1, D)
-    ms = time_graph_ms(lambda i: dk.decode_attention_paged(q, kc, vc, pos, pt,
-                                                           lids[i], **sc))
-    call_ms = time_ms(lambda: dk.decode_attention_paged(q, kc, vc, pos, pt,
-                                                        lids[next(cyc)],
-                                                        **sc))
-    plain_ms = time_ms(lambda: dk.decode_attention_paged_plain(
-        q, kc, vc, pos, pt, next(cyc), **sc), reps=20, inner=1)
+    qkv = rnd(B, 3 * E)
+    k3, v3 = qkv[:, E:2 * E].view(B, H, D), qkv[:, 2 * E:].view(B, H, D)
+
+    def attend(l, fold=True):
+        rows = dict(new_k=k3, new_v=v3) if fold else {}
+        return dk.decode_attention_paged(q, kc, vc, pos, pt, lids[l], **sc,
+                                         **rows)
+    slots, blk, row = paged_rows(pos, pt, page)
+    check, fold, ms, _ = fold_extra(
+        attend, lambda: dk.decode_attention_paged_plain(q, kc, vc, pos, pt,
+                                                        LAYER, **sc),
+        key["paged"], k3, v3, pool, blk, row, slots, n=L)
+    checks.append(check)
+    cases.append({"B": B, "H": H, "R": 1, "D": D, "page": page,
+                  "pos": pos_list, "new_rows": True})
+    call_ms = time_ms(lambda: attend(next(cyc)))
+
+    def plain():
+        l = next(cyc)
+        dk.paged_append_plain(kc, vc, pos, pt, l, k3, v3, **sc)
+        dk.decode_attention_paged_plain(q, kc, vc, pos, pt, l, **sc)
+    plain_ms = time_ms(plain, reps=20, inner=1)
     # this run's data: the live K/V rows (codes and a scale each, if
-    # int8), q and out, pos, live table rows
+    # int8), q and out, pos, live table rows, and the append's rows
     live = sum(pp + 1 for pp in pos_list if pp >= 0)
     pages_read = sum(pp // page + 1 for pp in pos_list if pp >= 0)
     row_bytes = D * kc.element_size() + (4 if int8 else 0)
@@ -875,10 +896,11 @@ def kernel_phase(eng, cfg, gen):
            "deepspeed_tpu/ops/pallas/decode.py:931", checks, ms, call_ms,
            plain_ms,
            bound(live * H * row_bytes * 2 + 2 * nbytes(q) + nbytes(pos)
-                 + pages_read * 4, 4 * live * H * D), cases,
+                 + pages_read * 4 + append_bytes(len(slots), H, D, pool),
+                 4 * live * H * D), cases,
            "each live slot's last page dropped (R=1)", limit=key["paged"],
-           extra=attn_plan(key["paged"], lambda: dk.decode_attention_paged(
-               q, kc, vc, pos, pt, lids[LAYER], **sc), q, maxp * page))
+           extra={**fold, **attn_plan(key["paged"], lambda: attend(LAYER),
+                                      q, maxp * page)})
 
     # -- out_ffn_stacked: three launches per call
     ctx, x = rnd(B, E), rnd(B, E)
@@ -979,6 +1001,90 @@ def kv_quant_fault(k, v):
     return out
 
 
+def written(cache, blk, row):
+    """What a cache holds at LAYER, block (or slot) ``blk[i]``, row
+    ``row[i]``: (k codes, k scale [n, H, 1], v codes, v scale) of an int8
+    cache ([Lyr, NB, H, L, D] codes, [Lyr, NB, H, 1, L] scales), (k rows,
+    v rows) of a bf16 one."""
+    if len(cache) == 4:
+        kc, ks, vc, vs = cache
+        return [kc[LAYER][blk, :, row], ks[LAYER][blk, :, 0, row][..., None],
+                vc[LAYER][blk, :, row], vs[LAYER][blk, :, 0, row][..., None]]
+    return [cache[0][LAYER][blk, :, row], cache[1][LAYER][blk, :, row]]
+
+
+def paged_rows(pos, pt, page):
+    """(live slots, their blocks, their rows) of a paged append: block
+    pt[b, min(pos // page, maxp - 1)], row pos % page."""
+    live = (pos >= 0).nonzero()[:, 0]
+    p = pos.long().clamp(min=0)
+    blk = pt.gather(1, (p // page).clamp(max=pt.shape[1] - 1)[:, None])[:, 0]
+    return live, blk.long()[live], (p % page)[live]
+
+
+def fold_extra(attend, plain_out, key, k3, v3, cache, blk, row, live,
+               n=36):
+    """The folded cache append at a decode attention row: ``attend(l,
+    fold)`` calls the row's attention at layer ``l`` (an int), with its
+    new K/V rows k3, v3 [B, H, D] (column slices of a packed qkv output,
+    as the decode paths pass them) when ``fold``. Once at LAYER: the
+    output held at ``key``
+    against ``plain_out()`` (the plain version over the cache after the
+    write), and what landed at (``blk``, ``row``) for the ``live`` slots
+    held bit for bit ("kv_append", limit 0) against kv_quant_int8_plain
+    of those rows over an int8 cache (the rows themselves over a bf16
+    one) beside a planted fault (codes truncated toward zero; bf16: the K
+    and V rows swapped); the call launches no kv_quant_int8. Returns (the
+    output's check, the extra keys, ms with the fold, ms without) by
+    graph replay over ``n`` layers, the faster of two turns each."""
+    from deepspeed_tpu_torch.ops.cuda import builder
+    from deepspeed_tpu_torch.ops.cuda import decode as dk
+    n0 = builder.launches["kv_quant_int8"]
+    got = attend(LAYER, True)
+    torch.cuda.synchronize()
+    if builder.launches["kv_quant_int8"] != n0:
+        raise AssertionError("the folded append launched kv_quant_int8")
+    check = held(key, got, plain_out())
+    kl, vl = k3[live], v3[live]
+    if len(cache) == 4:
+        want = dk.kv_quant_int8_plain(kl, vl)
+        faults = [f if f.dtype == torch.int8 else None
+                  for f in kv_quant_fault(kl, vl)]
+        fault = "codes truncated toward zero instead of rounded"
+    else:
+        want, faults = (kl, vl), (vl, kl)
+        fault = "the K and V rows swapped"
+    checks = [held("kv_append", g, w, f)
+              for g, w, f in zip(written(cache, blk, row), want, faults)]
+    # with and without, twice in turns: the first graph timed after other
+    # GPU work can run slow (PERF.md §7), so each side keeps its faster
+    times = {True: [], False: []}
+    for _ in range(2):
+        for fold in (True, False):
+            times[fold].append(time_graph_ms(lambda i: attend(i, fold), n=n))
+    ms, ms_no = min(times[True]), min(times[False])
+    return check, {
+        "append": "int8 codes and scales" if len(cache) == 4
+        else "bf16 rows", "append_slots": int(live.numel()),
+        "append_held": "bit for bit",
+        "append_max_abs_err": max(c[0] for c in checks),
+        "append_row_rel_err": max(c[1] for c in checks),
+        "append_fault": fault,
+        "append_fault_row_rel_err": min(c[2] for c in checks
+                                        if c[2] is not None),
+        "append_kv_quant_int8_launches": 0,
+        "no_fold_us": ms_no * 1e3, "fold_cost_us": (ms - ms_no) * 1e3}, \
+        ms, ms_no
+
+
+def append_bytes(n, H, D, cache):
+    """The bytes the folded append moves: ``n`` live slots' new bf16 K and
+    V rows of H heads read, their codes and scales (or bf16 rows)
+    written."""
+    out = D * cache[0].element_size() + (4 if len(cache) == 4 else 0)
+    return 2 * n * H * (D * 2 + out)
+
+
 def kv_quant_row(results, path, k3, v3, write, read, timed, replaces,
                  more=()):
     """kv_quant_int8 at the path's shapes: ``write(lid)`` launches it into
@@ -987,7 +1093,10 @@ def kv_quant_row(results, path, k3, v3, write, read, timed, replaces,
     scales bit for bit, beside the truncating fault; timed over the
     layers, and bounded by the rows it reads and the codes and scales it
     writes (about 5 fp32 operations a value). ``more``: further (k3, v3,
-    write, read) cases, held the same way but not timed."""
+    write, read) cases, held the same way but not timed. ``path`` is the
+    decode path whose shapes these are; the row's path is null: every
+    decode path appends inside its attention call (``fold_extra``) and
+    launches the kernel no time."""
     from deepspeed_tpu_torch.ops.cuda import decode as dk
     checks, cases = [], []
     for k_, v_, write_, read_ in ((k3, v3, write, read), *more):
@@ -1001,10 +1110,11 @@ def kv_quant_row(results, path, k3, v3, write, read, timed, replaces,
                                   lambda l: dk.kv_quant_int8_plain(k3, v3))
     B, H, D = k3.shape
     n = B * H * D
-    record(results, "kv_quant_int8", path, replaces, checks, ms, call_ms,
+    record(results, "kv_quant_int8", None, replaces, checks, ms, call_ms,
            plain_ms, bound(2 * n * 2 + 2 * n + 2 * B * H * 4, 2 * n * 5,
                            FP32_FLOP_PER_S),
-           cases, "codes truncated toward zero instead of rounded")
+           [dict(c, shapes_of=path) for c in cases],
+           "codes truncated toward zero instead of rounded")
 
 
 def llama_kernel_phase(eng, cfg, gen):
@@ -1275,14 +1385,36 @@ def llama_kernel_phase(eng, cfg, gen):
                       "rows_per_step": rps, "pos": pos_r.tolist(),
                       "pool": "int8" if int8 else "bf16"})
     del gqa
+    # the main path's call: the tick's new K/V rows (column slices of the
+    # packed qkv output, as the adapter passes them after RoPE) appended
+    # by the attention call itself
     kc, vc, sc = with_scales(eng.cache.pool)
     q = rnd(B, Hkv, H // Hkv, D)
-    ms, call_ms, plain_ms = timed(
-        lambda lid: dk.decode_attention_paged(q, kc, vc, pos, pt, lid, **sc),
-        lambda l: dk.decode_attention_paged_plain(q, kc, vc, pos, pt, l,
-                                                  **sc))
+    qkv = rnd(B, N)
+    k3 = qkv[:, H * D:(H + Hkv) * D].view(B, Hkv, D)
+    v3 = qkv[:, (H + Hkv) * D:].view(B, Hkv, D)
+
+    def attend(l, fold=True):
+        rows = dict(new_k=k3, new_v=v3) if fold else {}
+        return dk.decode_attention_paged(q, kc, vc, pos, pt, lids[l], **sc,
+                                         **rows)
+    slots, blk, row = paged_rows(pos, pt, page)
+    check, fold, ms, _ = fold_extra(
+        attend, lambda: dk.decode_attention_paged_plain(q, kc, vc, pos, pt,
+                                                        LAYER, **sc),
+        key["paged"], k3, v3, eng.cache.pool, blk, row, slots, n=L)
+    checks.append(check)
+    cases.append({"B": B, "Hkv": Hkv, "R": H // Hkv, "D": D, "page": page,
+                  "pos": pos_list, "new_rows": True})
+    call_ms = time_ms(lambda: attend(next(cyc)))
+
+    def plain():
+        l = next(cyc)
+        dk.paged_append_plain(kc, vc, pos, pt, l, k3, v3, **sc)
+        dk.decode_attention_paged_plain(q, kc, vc, pos, pt, l, **sc)
+    plain_ms = time_ms(plain, reps=10, inner=1)
     # this run's data: the live K/V rows (codes and a scale each, if
-    # int8), q and out, pos, the live table entries
+    # int8), q and out, pos, the live table entries, the append's rows
     live = sum(pp + 1 for pp in pos_list if pp >= 0)
     pages_read = sum(pp // page + 1 for pp in pos_list if pp >= 0)
     row_bytes = D * kc.element_size() + (4 if int8 else 0)
@@ -1290,18 +1422,18 @@ def llama_kernel_phase(eng, cfg, gen):
            "deepspeed_tpu/ops/pallas/decode.py:931", checks, ms, call_ms,
            plain_ms,
            bound(live * Hkv * row_bytes * 2 + 2 * nbytes(q) + nbytes(pos)
-                 + pages_read * 4, 4 * live * H * D), cases,
+                 + pages_read * 4
+                 + append_bytes(len(slots), Hkv, D, eng.cache.pool),
+                 4 * live * H * D), cases,
            "each live slot's last page dropped (R=1 and R=4)",
            limit=key["paged"],
-           extra=attn_plan(key["paged"], lambda: dk.decode_attention_paged(
-               q, kc, vc, pos, pt, lids[1], **sc), q, maxp * page))
+           extra={**fold, **attn_plan(key["paged"], lambda: attend(1), q,
+                                      maxp * page)})
 
     if int8:
-        # -- kv_quant_int8: the tick's new K/V rows (column slices of the
-        # packed qkv output) into the pool at each slot's next row
-        qkv = rnd(B, N)
-        k3 = qkv[:, H * D:(H + Hkv) * D].view(B, Hkv, D)
-        v3 = qkv[:, (H + Hkv) * D:].view(B, Hkv, D)
+        # -- kv_quant_int8 alone (the JAX signature; no decode path
+        # launches it): the tick's new K/V rows into the pool at each
+        # slot's next row
         blk = pt[:, 3].contiguous()
         rows = (pos.clamp(min=0) % page).to(torch.int32)
         ks, vs = sc["k_scale"], sc["v_scale"]
@@ -2201,7 +2333,7 @@ def serve_geometry(eng, family):
         name = "gpt2_large_int8" if int8 else "gpt2_large"
         L, Hkv, head = cfg.n_layer, cfg.n_head, "wte"
         per_step = ("ln_qkv_stacked", "decode_attention_paged",
-                    "out_ffn_stacked") + (("kv_quant_int8",) if int8 else ())
+                    "out_ffn_stacked")
         row_bytes = 2 * Hkv * ((cfg.head_dim + 4) if int8
                                else cfg.head_dim * 2)
     else:
@@ -2221,8 +2353,7 @@ def serve_geometry(eng, family):
         L, Hkv, head = cfg.n_layers, cfg.kv_heads, "head"
         per_step = ("ln_qkv_stacked", "decode_attention_paged",
                     "out_ffn_stacked") + (
-            () if eng.adapter.fused_proj() else ("matvec_stacked",)) + (
-            ("kv_quant_int8",) if int8 else ())
+            () if eng.adapter.fused_proj() else ("matvec_stacked",))
         # a row of K and of V: D codes and an fp32 scale each, or D bf16
         row_bytes = 2 * Hkv * ((cfg.head_dim + 4) if int8
                                else cfg.head_dim * 2)
@@ -2527,25 +2658,48 @@ def gpt2_generate_kernel_rows(p, p8, cfg, gen):
                            dk.decode_attention_int8_plain(q, *args, pos_i),
                            dk.decode_attention_int8_plain(q, *args,
                                                           pos_i - 16)))
+    # the per-token step's call: its new K/V rows (column slices of the
+    # packed qkv output) appended by the attention call at pos
     q = qs[B]
-    ms, call_ms, plain_ms = timed(
-        lambda l, lid: dk.decode_attention_int8(q, kc[l], ks[l], vc[l],
-                                                vs[l], pos),
-        lambda l: dk.decode_attention_int8_plain(q, kc[l], ks[l], vc[l],
-                                                 vs[l], pos_i))
 
-    def att_bound(b, row_bytes):
-        return bound(b * n * H * row_bytes * 2 + 2 * b * H * D * 2 + 4,
-                     4 * b * n * H * D)
+    def new_rows(b):
+        qkv = rnd(b, 3 * E)
+        return qkv[:, E:2 * E].view(b, H, D), qkv[:, 2 * E:].view(b, H, D)
+    k3, v3 = new_rows(B)
+
+    def attend(l, fold=True):
+        rows = dict(new_k=k3, new_v=v3) if fold else {}
+        return dk.decode_attention_int8(q, kc[l], ks[l], vc[l], vs[l], pos,
+                                        **rows)
+    every = torch.arange(B, device=dev)
+    check, fold, ms, _ = fold_extra(
+        attend, lambda: dk.decode_attention_int8_plain(
+            q, kc[LAYER], ks[LAYER], vc[LAYER], vs[LAYER], pos_i),
+        "decode_attention_int8", k3, v3,
+        (kc, ks.unsqueeze(3), vc, vs.unsqueeze(3)), every,
+        torch.full_like(every, pos_i), every, n=L)
+    checks.append(check)
+    call_ms = time_ms(lambda: attend(next(cyc)))
+
+    def plain():
+        l = next(cyc)
+        dk.stacked_append_plain(kc[l][None], vc[l][None], pos, 0, k3, v3,
+                                ks[l][None, :, :, None],
+                                vs[l][None, :, :, None])
+        dk.decode_attention_int8_plain(q, kc[l], ks[l], vc[l], vs[l], pos_i)
+    plain_ms = time_ms(plain, reps=10, inner=1)
+
+    def att_bound(b, row_bytes, cache):
+        return bound(b * n * H * row_bytes * 2 + 2 * b * H * D * 2 + 4
+                     + append_bytes(b, H, D, cache), 4 * b * n * H * D)
     record(results, "decode_attention_int8", "generate_gpt2_step",
            "deepspeed_tpu/ops/pallas/decode.py:110", checks, ms, call_ms,
-           plain_ms, att_bound(B, D + 4),
+           plain_ms, att_bound(B, D + 4, (kc, ks, vc, vs)),
            [{"B": b, "H": H, "D": D, "L": GEN_CTX, "pos": pos_i}
-            for b in Bs], "the last 16 keys dropped (B 1 and 8)",
-           extra=attn_plan("decode_attention_int8",
-                           lambda: dk.decode_attention_int8(
-                               q, kc[LAYER], ks[LAYER], vc[LAYER], vs[LAYER],
-                               pos), q, GEN_CTX))
+            for b in Bs] + [{"B": B, "new_rows": True}],
+           "the last 16 keys dropped (B 1 and 8)",
+           extra={**fold, **attn_plan("decode_attention_int8",
+                                      lambda: attend(LAYER), q, GEN_CTX)})
 
     # -- kv_quant_int8 at head dim 64 as the per-token route runs it: into
     # one layer's cache (no layer index)
@@ -2665,28 +2819,44 @@ def gpt2_generate_kernel_rows(p, p8, cfg, gen):
                                                   **kw),
                 dk.decode_attention_stacked_plain(qb, kk, vv, pos - 16,
                                                   LAYER, **kw)))
+        # the fast loop's call: the step's new K/V rows appended by the
+        # attention call at pos
         kk, vv, kw = first
         q1 = qs[Bf]
-        ms, call_ms, plain_ms = timed(
-            lambda l, lid: dk.decode_attention_stacked(q1, kk, vv, pos, lid,
-                                                       **kw),
-            lambda l: dk.decode_attention_stacked_plain(q1, kk, vv, pos, l,
-                                                        **kw))
+        k1, v1 = new_rows(Bf)
+        cache = (kk, kw["k_scale"], vv, kw["v_scale"]) if int8 else (kk, vv)
+
+        def attend(l, fold=True):
+            rows = dict(new_k=k1, new_v=v1) if fold else {}
+            return dk.decode_attention_stacked(q1, kk, vv, pos, lids[l],
+                                               **kw, **rows)
+        one = torch.arange(Bf, device=dev)
+        check, fold, ms, _ = fold_extra(
+            attend, lambda: dk.decode_attention_stacked_plain(
+                q1, kk, vv, pos, LAYER, **kw), key["attn"], k1, v1, cache,
+            one, torch.full_like(one, pos_i), one, n=L)
+        checks.append(check)
+        call_ms = time_ms(lambda: attend(next(cyc)))
+
+        def plain():
+            l = next(cyc)
+            dk.stacked_append_plain(kk, vv, pos, l, k1, v1, **kw)
+            dk.decode_attention_stacked_plain(q1, kk, vv, pos, l, **kw)
+        plain_ms = time_ms(plain, reps=10, inner=1)
         # SDPA computes the same function over a bf16 cache's live rows
         lib_ms = None if int8 else time_graph_ms(
             lambda i: torch.nn.functional.scaled_dot_product_attention(
                 q1, kk[i, :, :, :n], vv[i, :, :, :n]), n=L)
         record(results, "decode_attention_stacked", path,
                "deepspeed_tpu/ops/pallas/decode.py:643", checks, ms, call_ms,
-               plain_ms, att_bound(Bf, D + 4 if int8 else 2 * D),
+               plain_ms, att_bound(Bf, D + 4 if int8 else 2 * D, cache),
                [{"B": b, "Hkv": H, "R": 1, "D": D, "L": GEN_CTX,
-                 "pos": pos_i, "cache": weights} for b in Bs],
+                 "pos": pos_i, "cache": weights} for b in Bs]
+               + [{"B": Bf, "new_rows": True}],
                "the last 16 keys dropped (B 1 and 8)", library_ms=lib_ms,
                limit=key["attn"],
-               extra=attn_plan(key["attn"],
-                               lambda: dk.decode_attention_stacked(
-                                   q1, kk, vv, pos, lid_l, **kw), q1,
-                               GEN_CTX))
+               extra={**fold, **attn_plan(key["attn"], lambda: attend(LAYER),
+                                          q1, GEN_CTX)})
         if int8:
             st1 = (first[0], first[2]["k_scale"], first[1],
                    first[2]["v_scale"])
@@ -2782,12 +2952,14 @@ def gpt2_generate_phase(p, p8, cfg, profile=False):
             best = min(best, time.perf_counter() - t0 - t_s)
         got = dict(builder.launches)
         decode_steps = 4 * (GEN_SHORT - 1 + GEN_LONG - 1)
+        # the new K/V rows go into the cache inside the attention launch:
+        # no route launches kv_quant_int8
         if scan:            # the fast route: the stacked kernels
             kernels = ("ln_qkv_stacked", "decode_attention_stacked",
-                       "out_ffn_stacked") + (("kv_quant_int8",) if kv else ())
+                       "out_ffn_stacked")
         elif qb:            # the fused int8 step
-            kernels = ("ln_qkv_int8", "kv_quant_int8",
-                       "decode_attention_int8", "out_ffn_int8")
+            kernels = ("ln_qkv_int8", "decode_attention_int8",
+                       "out_ffn_int8")
         else:               # the general path over an int8 cache
             kernels = ("decode_attention_int8",)
         expect = {k: L * decode_steps for k in kernels}
@@ -2950,11 +3122,31 @@ def generate_kernel_rows(eng, cfg, gen):
         checks = [held(key, got, dk.decode_attention_stacked_plain(
             q, kc, vc, pos, LAYER, **kw), dk.decode_attention_stacked_plain(
             q, kc, vc, pos - 16, LAYER, **kw))]
-        ms, call_ms, plain_ms = timed(
-            lambda lid: dk.decode_attention_stacked(q, kc, vc, pos, lid,
-                                                    **kw),
-            lambda l: dk.decode_attention_stacked_plain(q, kc, vc, pos, l,
-                                                        **kw))
+        # the fast loop's call: the step's new K/V rows (column slices of
+        # the packed qkv output) appended by the attention call at pos
+        qkv = (torch.randn(B, (H + 2 * Hkv) * D, generator=gen,
+                           device=dev)).to(cfg.dtype)
+        k3 = qkv[:, H * D:(H + Hkv) * D].view(B, Hkv, D)
+        v3 = qkv[:, (H + Hkv) * D:].view(B, Hkv, D)
+        cache = (kc, kw["k_scale"], vc, kw["v_scale"]) if kw else (kc, vc)
+
+        def attend(l, fold=True):
+            rows = dict(new_k=k3, new_v=v3) if fold else {}
+            return dk.decode_attention_stacked(q, kc, vc, pos, lids[l], **kw,
+                                               **rows)
+        every = torch.arange(B, device=dev)
+        check, fold, ms, _ = fold_extra(
+            attend, lambda: dk.decode_attention_stacked_plain(
+                q, kc, vc, pos, LAYER, **kw), key, k3, v3, cache, every,
+            torch.full_like(every, pos_i), every, n=L)
+        checks.append(check)
+        call_ms = time_ms(lambda: attend(next(cyc)))
+
+        def plain():
+            l = next(cyc)
+            dk.stacked_append_plain(kc, vc, pos, l, k3, v3, **kw)
+            dk.decode_attention_stacked_plain(q, kc, vc, pos, l, **kw)
+        plain_ms = time_ms(plain, reps=5, inner=1)
         lib_ms = None
         if not kw:
             qs = q.reshape(B, H, 1, D)
@@ -2964,18 +3156,14 @@ def generate_kernel_rows(eng, cfg, gen):
         record(results, "decode_attention_stacked", path,
                "deepspeed_tpu/ops/pallas/decode.py:643", checks, ms, call_ms,
                plain_ms, bound(B * n * Hkv * row_bytes * 2 + 2 * nbytes(q)
-                               + 4, 4 * B * n * H * D),
+                               + 4 + append_bytes(B, Hkv, D, cache),
+                               4 * B * n * H * D),
                [{"B": B, "Hkv": Hkv, "R": H // Hkv, "D": D, "L": Lc,
-                 "pos": pos_i, "cache": name}],
+                 "pos": pos_i, "cache": name, "new_rows": True}],
                "the last 16 keys dropped", library_ms=lib_ms, limit=key,
-               extra=attn_plan(key, lambda: dk.decode_attention_stacked(
-                   q, kc, vc, pos, lids[LAYER], **kw), q, Lc))
+               extra={**fold, **attn_plan(key, lambda: attend(LAYER), q,
+                                          Lc)})
         if kw:
-            qkv = (torch.randn(B, (H + 2 * Hkv) * D, generator=gen,
-                               device=dev)).to(cfg.dtype)
-            k3 = qkv[:, H * D:(H + Hkv) * D].view(B, Hkv, D)
-            v3 = qkv[:, (H + Hkv) * D:].view(B, Hkv, D)
-            cache = (kc, kw["k_scale"], vc, kw["v_scale"])
             kv_quant_row(
                 results, path, k3, v3,
                 lambda lid: dk.kv_quant_int8(k3, v3, out=cache, layer=lid,
@@ -2985,7 +3173,7 @@ def generate_kernel_rows(eng, cfg, gen):
                          vc[LAYER][:, :, pos_i],
                          cache[3][LAYER][:, :, 0, pos_i][..., None]),
                 timed, "deepspeed_tpu/ops/pallas/decode.py:279")
-        del kc, vc, kw
+        del kc, vc, kw, cache
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     decode_pos_sweeps(dev, gen, "llama_7b", Hkv, H // Hkv, D, Bs=(1, B))
@@ -3070,7 +3258,7 @@ def generate_phase(eng, cfg, profile=False):
     launches = {"generate_llama": dict(builder.launches)}
     decode_steps = len(GEN_BATCHES) * 4 * (GEN_SHORT - 1 + GEN_LONG - 1)
     fused = li.fused_proj(cfg, p["o_w"])
-    per_step = ("ln_qkv_stacked", "kv_quant_int8", "decode_attention_stacked",
+    per_step = ("ln_qkv_stacked", "decode_attention_stacked",
                 "out_ffn_stacked") + (() if fused else ("matvec_stacked",))
     expect = {"flash_attention_fwd": L * n_runs,
               **{k: L * decode_steps for k in per_step}}
@@ -3107,19 +3295,27 @@ def generate_phase(eng, cfg, profile=False):
             "kv0": {**k0, "launches": launches["generate_llama_kv0"],
                     "teacher_forced_max_gap_ulps": max(gaps)}}
     if profile:
+        # b1 and b8 under torch.profiler: the device's idle share of the
+        # run (prompt pass and GEN_LONG - 1 decode steps) and the wall
+        # time a decode step beside its device time, the host's share
         from torch.profiler import ProfilerActivity, profile as prof_ctx
-        prompt = np.random.RandomState(0).randint(
-            0, cfg.vocab_size, size=(1, S)).astype(np.int32)
-        torch.cuda.synchronize()
-        with prof_ctx(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run(prompt, GEN_LONG)
-            wall_s = time.perf_counter() - t0
-        busy = sum(e.device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
-        line["profile_b1"] = {"wall_s": wall_s, "device_busy_s": busy,
-                              "device_idle_share": 1.0 - busy / wall_s}
+        for bs in (1, max(GEN_BATCHES)):
+            prompt = np.random.RandomState(0).randint(
+                0, cfg.vocab_size, size=(bs, S)).astype(np.int32)
+            run(prompt, GEN_SHORT)
+            torch.cuda.synchronize()
+            with prof_ctx(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run(prompt, GEN_LONG)
+                wall_s = time.perf_counter() - t0
+            busy = sum(e.device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       ) / 1e6
+            line[f"profile_b{bs}"] = {
+                "wall_s": wall_s, "device_busy_s": busy,
+                "device_idle_share": 1.0 - busy / wall_s,
+                "decode_steps": GEN_LONG - 1}
     emit(line)
     return launches
 
@@ -3815,7 +4011,11 @@ def zero3_kernel_phase(gen):
     the wrong rank); mm_rs_partial (its fault: each
     chunk written into its neighbour's slot) and mm_rs_reduce (one peer's
     slot read from the wrong rank) held for every rank, and the reduced
-    shards against one fp32 product over all ranks' tokens. Timed at rank
+    shards against one fp32 product over all ranks' tokens. The partials
+    go where the ZeRO-3 backward puts them: into the columns of a layer's
+    exchange region [n, run] (``parallel/overlap.py`` ReduceScatterBatch),
+    beside the packed group's flat gradient; then one mm_rs_reduce launch
+    reduces the layer (``zero3_layer_reduce``). Timed at rank
     ZERO3_TIMED_RANK by CUDA-graph replay; library: torch.matmul over the
     gathered W, and for mm_rs_partial torch.matmul of the same product
     (one torch.matmul over all four ranks' tokens, which gives every
@@ -3827,9 +4027,17 @@ def zero3_kernel_phase(gen):
     phase line."""
     from deepspeed_tpu_torch.ops.cuda import fused_collective as k
     from deepspeed_tpu_torch.ops.cuda import tolerance
+    from deepspeed_tpu_torch.parallel import overlap
     n, R = ZERO3_RANKS, ZERO3_TIMED_RANK
     M = TRAIN_BATCH * TRAIN_SEQ // n
     path = "train_zero3_fused"
+    # the layer's exchange region, as the backward's batch lays it out:
+    # the four streamed leaves, then the packed group
+    sizes = [din * dout // n for _, din, dout, _ in ZERO3_LEAVES] + \
+        [ZERO3_GROUP]
+    offs = [overlap.batch_run(sizes[:i]) for i in range(len(sizes))]
+    run = overlap.batch_run(sizes)
+    regions = [torch.zeros(n, run, device="cuda") for _ in range(n)]
     ag_rep = "deepspeed_tpu/ops/pallas/fused_collective.py:299"
     rs_rep = "deepspeed_tpu/ops/pallas/fused_collective.py:491"
     results, mma_ms = [], {name: 0.0 for name in ZERO3_MMA_KERNELS}
@@ -3852,7 +4060,7 @@ def zero3_kernel_phase(gen):
                 "grid": plan.grid, "waves": plan.waves, "mma_us": ms * 1e3,
                 "mma_row_rel_err": mma_err}
 
-    for leaf, din, dout, d in ZERO3_LEAVES:
+    for (leaf, din, dout, d), off in zip(ZERO3_LEAVES, offs):
         W = rnd(din, dout, scale=0.02)
         shards = [t.contiguous() for t in W.chunk(n, dim=d)]
         wrong = list(shards)
@@ -3901,38 +4109,33 @@ def zero3_kernel_phase(gen):
                      **walk(plan, "ag_matmul_mma", mma, mma_err)}],
                    "one chunk read from the wrong rank", library_ms=lib_ms)
             del x
-        # matmul+reduce-scatter: each rank its own tokens
+        # matmul+reduce-scatter: each rank its own tokens, its partials
+        # into its region's columns for this leaf (slots a row apart)
         lhs = [rnd(M, din) for _ in range(n)]
         rhs = [rnd(M, dout, scale=0.02) for _ in range(n)]
         shard = din * dout // n
-        if k.mm_rs_partial_route(lhs[R], rhs[R], d, n) != "mm_rs_partial":
+        cols = [reg[:, off:off + shard] for reg in regions]
+        if k.mm_rs_partial_route(lhs[R], rhs[R], d, n, cols[R]) != \
+                "mm_rs_partial":
             raise AssertionError(f"mm_rs_partial {leaf}: a main-path shape "
                                  f"left the TMA kernel")
-        slots = [k.mm_rs_partial(lhs[r], rhs[r], d, n) for r in range(n)]
-        p_checks, r_checks = [], []
+        p_checks = []
         for r in range(n):
+            k.mm_rs_partial(lhs[r], rhs[r], d, n, out=cols[r])
             want = k.mm_rs_partial_plain(lhs[r], rhs[r], d, n)
             fault = torch.roll(want, 1, dims=0) if r == R else None
-            p_checks.append(held("mm_rs_partial", slots[r], want, fault))
+            p_checks.append(held("mm_rs_partial", cols[r], want, fault))
             repeats("mm_rs_partial",
-                    lambda: k.mm_rs_partial(lhs[r], rhs[r], d, n))
-            got = k.mm_rs_reduce(slots, r)
-            want = k.mm_rs_reduce_plain(slots, r)
-            fault = None
-            if r == R:
-                bad = list(slots)
-                bad[(R + 1) % n] = slots[(R + 2) % n]
-                fault = k.mm_rs_reduce_plain(bad, r)[None]
-            r_checks.append(held("mm_rs_reduce", got[None], want[None],
-                                 fault))
+                    lambda: k.mm_rs_partial(lhs[r], rhs[r], d, n,
+                                            out=cols[r]).clone())
         shape = (din // n, dout) if d == 0 else (din, dout // n)
-        reduced = torch.cat([k.mm_rs_reduce(slots, r).reshape(shape)
+        reduced = torch.cat([k.mm_rs_reduce_plain(cols, r).reshape(shape)
                              for r in range(n)], dim=d)
         l_all, r_all = torch.cat(lhs), torch.cat(rhs)
         dense = l_all.float().t() @ r_all.float()
         sum_err = tolerance.row_rel_err(reduced, dense)
         del reduced, dense
-        out = torch.empty(n, shard, dtype=torch.float32, device="cuda")
+        out = cols[R]
         ms = time_graph_ms(lambda i: k.mm_rs_partial(lhs[R], rhs[R], d, n,
                                                      out=out))
         call_ms = time_ms(lambda: k.mm_rs_partial(lhs[R], rhs[R], d, n,
@@ -3945,12 +4148,14 @@ def zero3_kernel_phase(gen):
         mma_err = tolerance.check_kernel(
             "mm_rs_partial", k.mm_rs_partial_mma(lhs[R], rhs[R], d, n),
             k.mm_rs_partial_plain(lhs[R], rhs[R], d, n))
+        mma_out = torch.empty(n, shard, device="cuda")
         mma = time_graph_ms(lambda i: k.mm_rs_partial_mma(lhs[R], rhs[R], d,
-                                                          n, out=out))
+                                                          n, out=mma_out))
         plan = k.tile_plan("rs", M, din, dout, (din if d == 0 else dout) // n,
-                           n, shard_dim=d, sms=sms)
+                           n, shard_dim=d, sms=sms, slot=run)
         case = {"leaf": leaf, "M": M, "K": din, "N": dout, "shard_dim": d,
-                "ranks": n, "reduced_vs_fp32_product_row_rel_err": sum_err,
+                "ranks": n, "region_offset": off, "region_run": run,
+                "reduced_vs_fp32_product_row_rel_err": sum_err,
                 "all_ranks_matmul_us": all_ms * 1e3}
         record(results, "mm_rs_partial", path, rs_rep, p_checks, ms, call_ms,
                plain_ms, bound(nbytes(lhs[R], rhs[R]) + 4 * din * dout,
@@ -3958,17 +4163,15 @@ def zero3_kernel_phase(gen):
                [dict(case, **walk(plan, "mm_rs_partial_mma", mma, mma_err))],
                "each chunk written into its neighbour's slot",
                library_ms=lib_ms)
-        red = torch.empty(shard, dtype=torch.float32, device="cuda")
-        ms = time_graph_ms(lambda i: k.mm_rs_reduce(slots, R, out=red))
-        call_ms = time_ms(lambda: k.mm_rs_reduce(slots, R, out=red))
-        plain_ms = time_ms(lambda: k.mm_rs_reduce_plain(slots, R), reps=5,
-                           inner=1)
-        record(results, "mm_rs_reduce", path, rs_rep, r_checks, ms, call_ms,
-               plain_ms, bound(4 * (n + 1) * shard, (n - 1) * shard,
-                               FP32_FLOP_PER_S), [case],
-               "one peer's slot read from the wrong rank")
-        del lhs, rhs, slots, out, red, l_all, r_all
+        del lhs, rhs, mma_out, l_all, r_all
         torch.cuda.empty_cache()
+    # the packed group's flat gradients into their columns
+    for reg in regions:
+        reg[:, offs[-1]:offs[-1] + ZERO3_GROUP].copy_(torch.randn(
+            n, ZERO3_GROUP, generator=gen, device="cuda"))
+    zero3_layer_reduce(results, regions, offs, sizes, run, rs_rep)
+    del regions
+    torch.cuda.empty_cache()
     emit({"phase": "zero3_kernels", "ranks": n, "M": M,
           "rows": len(results),
           "kernel_ms_by_name": {**{name: sum(r["ms"] for r in results
@@ -3977,6 +4180,81 @@ def zero3_kernel_phase(gen):
           "library_ms": sum(r["library_ms"] or 0.0 for r in results),
           "max_abs_err": max(r["max_abs_err"] for r in results)})
     return results
+
+
+def zero3_layer_reduce(results, regions, offs, sizes, run, replaces):
+    """mm_rs_reduce as the ZeRO-3 backward's batch runs it: one launch a
+    layer over the n ranks' [n, run] exchange regions (``regions``, the
+    "peers", in rank order), into each entry's output in its dtype (the
+    four streamed leaves' dW bf16, the packed group fp32). Held for every
+    rank bit for bit against mm_rs_reduce_plain cast to each output's
+    dtype, one peer's region read from the wrong rank as the timed
+    rank's fault; and in ring mode's layout (the packed group alone,
+    every leaf in it: one fp32 entry over the same elements). Timed at
+    ZERO3_TIMED_RANK by graph replay; library: torch.sum(x, 0) over the
+    rank's n chunk rows gathered into one local [n, run] buffer (the same
+    sums, perhaps in another order: a time only); bound: each element
+    read from every peer once and written once in its dtype."""
+    from deepspeed_tpu_torch.ops.cuda import fused_collective as k
+    n, R = ZERO3_RANKS, ZERO3_TIMED_RANK
+    dtypes = [torch.bfloat16] * len(ZERO3_LEAVES) + [torch.float32]
+
+    def table():
+        return [(off, torch.empty(m, dtype=dt, device="cuda"))
+                for off, m, dt in zip(offs, sizes, dtypes)]
+
+    def flat(outs):
+        return torch.cat([t.float() for _, t in outs])[None]
+    checks = []
+    for r in range(n):
+        got = k.mm_rs_reduce(regions, r, outs=table())
+        want = k.mm_rs_reduce_fill(k.mm_rs_reduce_plain(regions, r), table())
+        fault = None
+        if r == R:
+            bad = list(regions)
+            bad[(R + 1) % n] = regions[(R + 2) % n]
+            fault = flat(k.mm_rs_reduce_fill(k.mm_rs_reduce_plain(bad, r),
+                                             table()))
+        checks.append(held("mm_rs_reduce", flat(got), flat(want), fault))
+    total = offs[-1] + sizes[-1]
+    ring = [(0, torch.empty(total, device="cuda"))]
+    ring_want = k.mm_rs_reduce_fill(
+        k.mm_rs_reduce_plain(regions, R),
+        [(0, torch.empty(total, device="cuda"))])
+    checks.append(held("mm_rs_reduce", flat(k.mm_rs_reduce(
+        regions, R, outs=ring)), flat(ring_want)))
+    outs = table()
+    ms = time_graph_ms(lambda i: k.mm_rs_reduce(regions, R, outs=outs))
+    call_ms = time_ms(lambda: k.mm_rs_reduce(regions, R, outs=outs))
+    ring_ms = time_graph_ms(lambda i: k.mm_rs_reduce(regions, R, outs=ring))
+    plain_ms = time_ms(lambda: k.mm_rs_reduce_fill(
+        k.mm_rs_reduce_plain(regions, R), outs), reps=5, inner=1)
+    x = torch.stack([regions[(R + 1 + j) % n][R] for j in range(n)])
+    lib_ms = time_graph_ms(lambda i: torch.sum(x, 0))
+    elems = sum(sizes)
+    out_bytes = sum(m * torch.empty((), dtype=dt).element_size()
+                    for m, dt in zip(sizes, dtypes))
+    ring_bound = bound(4 * (n + 1) * total, (n - 1) * total,
+                       FP32_FLOP_PER_S)[0]
+    names = [leaf for leaf, *_ in ZERO3_LEAVES] + ["packed_group"]
+    record(results, "mm_rs_reduce", "train_zero3_fused", replaces, checks,
+           ms, call_ms, plain_ms,
+           bound(4 * n * elems + out_bytes, (n - 1) * elems,
+                 FP32_FLOP_PER_S),
+           [{"layer": "gpt2_large", "ranks": n, "run": run,
+             "entries": [{"leaf": name, "offset": off, "elements": m,
+                          "dtype": str(dt).replace("torch.", "")}
+                         for name, off, m, dt in zip(names, offs, sizes,
+                                                     dtypes)],
+             "held": "bit for bit, every rank"},
+            {"layout": "ring: the packed group alone, one fp32 entry",
+             "elements": total, "held": "bit for bit",
+             "ring_us": ring_ms * 1e3, "ring_bound_us": ring_bound * 1e3,
+             "ring_pct_of_bound": 100.0 * ring_bound / ring_ms}],
+           "one peer's region read from the wrong rank", library_ms=lib_ms,
+           extra={"launches_per_layer": 1,
+                  "library": "torch.sum(x, 0) over the n chunk rows in one "
+                             "local [n, run] buffer"})
 
 
 def zero3_ds_config(mode):
@@ -4082,9 +4360,9 @@ def zero3_grad_check(rank, world, n_layer=2):
 
 def own_slot_only(reduce):
     """``mm_rs_reduce`` with a planted fault: each rank sums its own
-    slot n times, so a streamed leaf's dW holds its own tokens alone."""
-    def faulty(views, rank, out=None):
-        return reduce([views[rank]] * len(views), rank, out=out)
+    region n times, so a layer's dW holds its own tokens alone."""
+    def faulty(views, rank, **kw):
+        return reduce([views[rank]] * len(views), rank, **kw)
     return faulty
 
 
@@ -4192,15 +4470,16 @@ def zero3_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
           **g})
     # a step a rank: the forward and its recomputation run the flash
     # forward and three all-gather+matmuls a projection, the backward its
-    # delta and dq/dk/dv kernels and one matmul+reduce-scatter a
-    # projection, each layer
+    # delta and dq/dk/dv kernels and one matmul+reduce-scatter partial a
+    # projection, each layer; one mm_rs_reduce a layer reduces the layer's
+    # batch in both modes
     per_layer = 4 * n_layer
     flash = {"flash_attention_fwd": 2 * n_layer * steps,
              "flash_attention_bwd": n_layer * steps,
-             "flash_attention_bwd_delta": n_layer * steps}
+             "flash_attention_bwd_delta": n_layer * steps,
+             "mm_rs_reduce": n_layer * steps}
     expect = {"ag_matmul": 3 * per_layer * steps,
               "mm_rs_partial": per_layer * steps,
-              "mm_rs_reduce": per_layer * steps,
               **{name: 0 for name in ZERO3_MMA_KERNELS}, **flash}
     want = {"fused_matmul": expect,
             "ring": {k: (v if k in flash else 0) for k, v in expect.items()}}
@@ -4243,7 +4522,7 @@ def zero3_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
               "one_card_losses": TRAIN_LOSSES[:len(run["losses"])],
               "loss_rtol": ZERO3_LOSS_RTOL,
               "fault": "fused_matmul with each rank's mm_rs_reduce summing "
-                       "its own slot alone" if mode == "fused_matmul"
+                       "its own region alone" if mode == "fused_matmul"
               else None,
               "fault_losses": runs["fault"]["losses"]
               if mode == "fused_matmul" else None,
@@ -4297,6 +4576,15 @@ def zero3_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
                                  f"{TRAIN_LOSSES}")
     if not vs_ring <= ZERO3_LOSS_RTOL:
         raise AssertionError(f"fused_matmul vs ring losses: {vs_ring:.3g}")
+    # one barrier a layer in the backward, in both modes: the modes'
+    # exchanges differ only inside the layer batches
+    for r, rank in enumerate(ranks):
+        if rank["fused_matmul"]["barriers_per_step"] != \
+                rank["ring"]["barriers_per_step"]:
+            raise AssertionError(
+                f"rank {r}: fused_matmul takes "
+                f"{rank['fused_matmul']['barriers_per_step']} barriers a "
+                f"step, ring {rank['ring']['barriers_per_step']}")
     if not one_card["fault"] > ZERO3_LOSS_RTOL:
         raise AssertionError(f"a planted fault passes the loss check: "
                              f"{one_card['fault']:.3g}")
@@ -4432,9 +4720,18 @@ def main():
     kernels += flash_rows(gen, TRAIN_BATCH // ZERO3_RANKS,
                           "train_zero3_fused")
     launches["train_zero3_fused"] = zero3_train_phase()
+    decode_paths = [p_ for p_ in launches if p_.startswith(("serve",
+                                                            "generate"))]
+    for p_ in decode_paths:
+        if launches[p_].get("kv_quant_int8", 0):
+            raise AssertionError(f"kv_quant_int8 launched on the {p_} path: "
+                                 f"the attention call appends the rows")
+    emit({"phase": "kv_quant_int8_launches",
+          "by_path": {p_: launches[p_].get("kv_quant_int8", 0)
+                      for p_ in decode_paths}})
     for row in kernels:
-        if row["path"] is None:      # matvec_int8: no model path calls it
-            continue
+        if row["path"] is None:      # matvec_int8, kv_quant_int8: no model
+            continue                 # path launches them
         row["launches"] = launches[row["path"]].get(row["name"], 0)
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on the "

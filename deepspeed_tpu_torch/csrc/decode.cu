@@ -153,6 +153,17 @@
 //   codes and scales equal the plain version's bit for bit. It
 //   writes straight into the cache (pool block blk[b], row rows[b], or the
 //   stacked cache's position), which Mosaic could not (decode.py:281).
+//   The decode paths run it inside the attention kernel instead, as the
+//   cache append (new_k / new_v): a launch a layer saved, and on a bf16
+//   cache the two row copies. In the one block whose split holds the
+//   write row, consumer warp 0 quantizes (or copies) the K and V rows in
+//   the same arithmetic at its start, while the first stages are in
+//   flight, fences the async proxy and arrives on a barrier that the
+//   producer waits on before it bulk-copies the stage holding the row.
+//   (The producer writing the row itself, just before that stage, put
+//   the append's ~1 us chain on the last stage's path: 1.14 us more a
+//   call on an H100 at LLaMA-7B's b8 int8 fast path.) The standalone
+//   kernel stays for the JAX signature (codes and scales returned).
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -1199,7 +1210,8 @@ struct AttnCfg {
   static_assert((kAttnWarps * kAttnRows * (D + 2) + 2 * kAttnRows +
                  kAttnRows * D) * 4 <= RING,
                 "the warps' merge area and the block's state");
-  static constexpr int SMEM = RING + 2 * NST * 8 + 16;
+  // the ring's full and empty barriers, then the append's
+  static constexpr int SMEM = RING + (2 * NST + 1) * 8 + 16;
   static constexpr int KS = D / 16;    // k16 steps of a score, m16 tiles of P.V
   // 32-bit words of V a thread reads of each of its 4 keys: D/8 dims
   static constexpr int VW = Q8 ? D / 32 : D / 16;
@@ -1271,16 +1283,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Slot b's position is pos_arr[b * pos_stride].
 template <int D, bool Q8, bool FMA>
 __global__ void __launch_bounds__(kAttnThreads) decode_attn_kernel(
-    const bf16* __restrict__ q, const typename AttnCfg<D, Q8, FMA>::T* kc,
-    const typename AttnCfg<D, Q8, FMA>::T* vc, const float* ks,
-    const float* vs, const int* __restrict__ pos_arr, int pos_stride,
+    const bf16* __restrict__ q, typename AttnCfg<D, Q8, FMA>::T* kc,
+    typename AttnCfg<D, Q8, FMA>::T* vc, float* ks, float* vs,
+    const int* __restrict__ pos_arr, int pos_stride,
     const int* __restrict__ pt, const int* __restrict__ layer_ptr,
-    bf16* __restrict__ out, int H, int R, int NB, int page, int maxp,
+    const bf16* __restrict__ nk, const bf16* __restrict__ nv, int nk_stride,
+    int nv_stride, bf16* __restrict__ out, int H, int R, int NB, int page,
+    int maxp,
     int rows_per_step, int chunk, float scale) {
   using C = AttnCfg<D, Q8, FMA>;
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::RING);
   uint64_t* empty = full + C::NST;
+  uint64_t* appended = empty + C::NST;
   const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int n_split = gridDim.z;
   const int bh = b * H + h;
@@ -1318,13 +1333,75 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_kernel(
         sm90::mbar_init(&full[s], 1);        // the producer's expect_tx
         sm90::mbar_init(&empty[s], C::GPS);  // its consumers' lane 0
       }
+      sm90::mbar_init(appended, 1);          // consumer warp 0's lane 0
       sm90::mbar_fence_init();
     }
     __syncthreads();
+    const int l = layer_ptr ? *layer_ptr : 0;
+    const int* ptb = pt ? pt + (size_t)b * maxp : nullptr;
+    // the cache append (nk: the slot's new K rows, this head's at nk + b *
+    // nk_stride + h * D; nv likewise): the row goes to block pt[b][min(pos
+    // / page, maxp - 1)], row pos % page of a paged pool, or row min(pos,
+    // L - 1) of a stacked cache (as dynamic_update_slice clamps). The
+    // block whose split holds that key writes it: consumer warp 0 at its
+    // start, while the first stages are in flight; the producer waits for
+    // it before it copies the stage that holds the row (stage wstage). No
+    // other block reads the row.
+    int wstage = -1;
+    size_t wrow = 0;
+    if (nk && (warp == 0 || warp == kAttnWarps)) {
+      int wkey, wblk = b;
+      if (ptb) {
+        const int p = min(pos / page, maxp - 1);
+        wblk = ptb[p];
+        wkey = p * page + pos % page;
+      } else {
+        wkey = min(pos, page - 1);
+      }
+      if (wkey >= k0 && wkey < k1) {
+        wstage = (wkey - k0) / kStageKeys;
+        wrow = ((size_t)(l * NB + wblk) * H + h) * page + (wkey % page);
+      }
+    }
+    if (warp == 0 && wstage >= 0) {
+      // kv_quant_kernel's arithmetic for an int8 cache (amax * fl(1/127),
+      // an IEEE division, rintf: the same codes and scale), the rows as
+      // they are for a bf16 one; then the proxy fence, so that the bulk
+      // copy (the async proxy) sees these generic-proxy writes
+      constexpr int kC = D / 32;           // a lane's head dims of the row
+      const size_t head = (size_t)h * D + lane * kC;
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        const bf16* src = kv ? nv + (size_t)b * nv_stride + head
+                             : nk + (size_t)b * nk_stride + head;
+        typename C::T* dst = (kv ? vc : kc) + wrow * D + lane * kC;
+        if constexpr (Q8) {
+          float x[kC], amax = 0.f;
+#pragma unroll
+          for (int c = 0; c < kC; ++c) {
+            x[c] = __bfloat162float(src[c]);
+            amax = fmaxf(amax, fabsf(x[c]));
+          }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, o));
+          const float sc = fmaxf(amax * (1.f / 127.f), 1e-12f);
+#pragma unroll
+          for (int c = 0; c < kC; ++c)
+            dst[c] = (int8_t)(int)fminf(fmaxf(rintf(x[c] / sc), -127.f),
+                                        127.f);
+          if (lane == 0) (kv ? vs : ks)[wrow] = sc;
+        } else {
+#pragma unroll
+          for (int c = 0; c < kC; ++c) dst[c] = src[c];
+        }
+      }
+      sm90::fence_proxy_async_global();
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(appended);
+    }
 
     if (warp == kAttnWarps) {   // the producer warp
-      const int l = layer_ptr ? *layer_ptr : 0;
-      const int* ptb = pt ? pt + (size_t)b * maxp : nullptr;
       // the page table 32 entries at a time, one a lane, read ahead of
       // the copies that need them (a dependent load a page would
       // serialise the stream)
@@ -1334,6 +1411,10 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_kernel(
         const int key = k0 + t * kStageKeys;
         const int ng = min(kStageGroups, (k1 - key + kGroup - 1) / kGroup);
         unsigned char* st = smem + s * C::STAGE;
+        if (t == wstage) {            // the append has landed
+          if (lane == 0) sm90::mbar_wait(appended, 0);
+          __syncwarp();
+        }
         if (ptb && (key + ng * kGroup - 1) / page >= pbase + 32) {
           pbase = key / page;
           tab = pbase + lane < maxp ? ptb[pbase + lane] : 0;
@@ -1740,9 +1821,10 @@ __global__ void __launch_bounds__(kAttnThreads) decode_attn_kernel(
 }
 
 template <int D, bool Q8, bool FMA>
-cudaError_t launch_attn(const void* q, const void* k, const void* v,
-                        const void* ks, const void* vs, const void* pos,
-                        int pos_stride, const void* pt, const void* layer_ptr,
+cudaError_t launch_attn(const void* q, void* k, void* v, void* ks, void* vs,
+                        const void* pos, int pos_stride, const void* pt,
+                        const void* layer_ptr, const void* nk,
+                        const void* nv, int nk_stride, int nv_stride,
                         void* out, int B, int H, int R, int NB, int page,
                         int maxp, int rows_per_step, int chunk, int n_split,
                         float scale, cudaStream_t st) {
@@ -1768,11 +1850,12 @@ cudaError_t launch_attn(const void* q, const void* k, const void* v,
   attr[0].val.clusterDim.z = n_split;   // a slot's splits: one cluster
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, (const bf16*)q, (const T*)k,
-                            (const T*)v, (const float*)ks, (const float*)vs,
-                            (const int*)pos, pos_stride, (const int*)pt,
-                            (const int*)layer_ptr, (bf16*)out, H, R, NB, page,
-                            maxp, rows_per_step, chunk, scale);
+  return cudaLaunchKernelEx(&cfg, kern, (const bf16*)q, (T*)k, (T*)v,
+                            (float*)ks, (float*)vs, (const int*)pos,
+                            pos_stride, (const int*)pt, (const int*)layer_ptr,
+                            (const bf16*)nk, (const bf16*)nv, nk_stride,
+                            nv_stride, (bf16*)out, H, R, NB, page, maxp,
+                            rows_per_step, chunk, scale);
 }
 
 // ----------------------------------------------------------- kv_quant_int8
@@ -1985,31 +2068,40 @@ int dstpu_out_ffn_glu_stacked(const void* x1, const void* ln_w,
 // stacked cache [Lyr, B, H, page, D] (maxp 1, NB = B; a null layer_ptr
 // reads layer 0: decode_attention_int8's [B, H, L, D] cache). The keys
 // are split into n_split <= 8 runs of chunk keys (a multiple of 16,
-// chunk * n_split >= maxp * page), a slot's runs one cluster. The wrapper
-// checks the geometry.
-int dstpu_decode_attention(const void* q, const void* k, const void* v,
-                           const void* k_scale, const void* v_scale,
-                           const void* pos, const void* page_table,
-                           const void* layer_ptr, void* out, int B, int H,
-                           int R, int D, int NB, int page, int maxp,
+// chunk * n_split >= maxp * page), a slot's runs one cluster. With new_k
+// and new_v ([B, H, D] bf16, batch strides k_stride and v_stride
+// elements, heads and dims contiguous) the kernel
+// first appends each live slot's new row at its position (one row a
+// slot: the R rows one step). The wrapper checks the geometry.
+int dstpu_decode_attention(const void* q, void* k, void* v, void* k_scale,
+                           void* v_scale, const void* pos,
+                           const void* page_table, const void* layer_ptr,
+                           const void* new_k, const void* new_v,
+                           int k_stride, int v_stride, void* out, int B,
+                           int H, int R,
+                           int D, int NB, int page, int maxp,
                            int rows_per_step, int pos_stride, int chunk,
                            int n_split, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const bool q8 = k_scale != nullptr;
   if (chunk <= 0 || chunk % kGroup || page % kGroup || n_split < 1 ||
       n_split > kMaxSplits ||
-      (long long)chunk * n_split < (long long)maxp * page)
+      (long long)chunk * n_split < (long long)maxp * page ||
+      (new_k != nullptr) != (new_v != nullptr) ||
+      (new_k != nullptr && rows_per_step > 0 && R / rows_per_step > 1))
     return (int)cudaErrorInvalidValue;
   // one query row a KV head (MHA decode): the CUDA-core path
 #define DECODE_ATTN(DIM, Q8)                                                 \
   return (int)(R == 1 ? launch_attn<DIM, Q8, true>(                          \
                             q, k, v, k_scale, v_scale, pos, pos_stride,      \
-                            page_table, layer_ptr, out, B, H, R, NB, page,   \
-                            maxp, rows_per_step, chunk, n_split, scale, st)  \
+                            page_table, layer_ptr, new_k, new_v, k_stride,   \
+                            v_stride, out, B, H, R, NB, page, maxp,          \
+                            rows_per_step, chunk, n_split, scale, st)        \
                       : launch_attn<DIM, Q8, false>(                         \
                             q, k, v, k_scale, v_scale, pos, pos_stride,      \
-                            page_table, layer_ptr, out, B, H, R, NB, page,   \
-                            maxp, rows_per_step, chunk, n_split, scale, st))
+                            page_table, layer_ptr, new_k, new_v, k_stride,   \
+                            v_stride, out, B, H, R, NB, page, maxp,          \
+                            rows_per_step, chunk, n_split, scale, st))
   if (D == 64 && !q8) DECODE_ATTN(64, false);
   if (D == 128 && !q8) DECODE_ATTN(128, false);
   if (D == 64 && q8) DECODE_ATTN(64, true);

@@ -8,9 +8,13 @@
 //   (entry dstpu_gemm_tma).
 // - _mm_rs_fused (:491; pallas_call :595): this rank's shard of the sum
 //   over ranks of lhs^T @ rhs, partial sums riding the ring. Here: the
-//   partial lhs^T @ rhs of this rank into its [n, shard] slots,
+//   partial lhs^T @ rhs of this rank into its n slots,
 //   gemm_tma_kernel<BN, true, true> (dstpu_gemm_tma), then
-//   mm_rs_reduce_kernel after a host barrier.
+//   mm_rs_reduce_kernel after a host barrier. In the ZeRO-3 backward a
+//   layer's partials (and its packed groups' flat gradients) share one
+//   exchange region [n, run], slot c of every leaf in region row c, and
+//   one barrier and one mm_rs_reduce_kernel launch reduce them all
+//   (parallel/overlap.py ReduceScatterBatch).
 //
 // The TPU kernels move chunks between chips with in-kernel remote DMA and
 // a credit semaphore between neighbours. Here each rank's resting shards
@@ -25,7 +29,8 @@
 // What bounds them on the H100: at GPT-2 large's shapes (M = 2048 tokens a
 // rank, [1280, 3840] .. [5120, 1280]) each GEMM is 6.7-26.8 GFLOP over
 // 14-41 MB, 1.7-2.3x above the ridge of 295 flop/byte: the tensor cores.
-// mm_rs_reduce is bytes only (n + 1 shard-sized fp32 passes).
+// mm_rs_reduce is bytes only: n fp32 reads of the run and one write of
+// each element in its leaf's dtype.
 //
 // What gemm_tma_kernel does about it:
 // - Warp specialisation. 384 threads: warpgroup 0 is the producer (one
@@ -69,9 +74,10 @@
 //   (The attn c_proj products are wave-limited at any BN: 100-128 tiles.)
 // - The epilogue stages each warp's 16 rows a 128-byte slab at a time in
 //   shared memory and writes 16-byte vectors. Its addresses are
-//   out + chunk * o_chunk + row * ldo + column in chunk: the chunk is one
-//   a tile, so mm_rs's slot layout ([K, ck] slots under shard dim 1, row
-//   blocks of [K, N] under shard dim 0) costs no division.
+//   out + chunk * o_chunk + row * ldo + column in chunk, the chunk one a
+//   tile; mm_rs under shard dim 0 cuts the rows instead (row chunks of rc
+//   rows, r_chunk apart), so its slots ([K, ck] under shard dim 1, [ck,
+//   N] row blocks under shard dim 0) may lie a region row apart.
 //
 // Shapes TMA cannot describe (a width or chunk not a multiple of 8, a base
 // not 16-byte aligned) go, by the wrapper's shape test, to this file's
@@ -87,6 +93,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 #include "mma.cuh"
 #include "sm90.cuh"
@@ -345,7 +353,7 @@ template <bool VEC, bool SHARD1>
 __global__ void __launch_bounds__(NT, 2)
     mm_rs_partial_kernel(const bf16* __restrict__ lhs,
                          const bf16* __restrict__ rhs, float* __restrict__ out,
-                         int M, int K, int N, int ck) {
+                         int M, int K, int N, int ck, long long slot) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sA = reinterpret_cast<bf16*>(smem_raw);
   bf16* sB = sA + STAGES * TILE_ELEMS;
@@ -384,8 +392,8 @@ __global__ void __launch_bounds__(NT, 2)
   }
 
   // element (i, j) of the [K, N] partial goes to the slot of its
-  // destination chunk: shard dim 0 makes the slots the row blocks of [K, N]
-  // itself; shard dim 1 stores column block c as slot c, [K, ck]
+  // destination chunk, slot c at c * slot: shard dim 0 makes slot c the
+  // row block c of [K, N], [ck, N]; shard dim 1 column block c, [K, ck]
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -402,46 +410,163 @@ __global__ void __launch_bounds__(NT, 2)
           size_t o;
           if (SHARD1) {
             const int c = jj / ck;
-            o = (size_t)c * K * ck + (size_t)i * ck + (jj - c * ck);
+            o = (size_t)c * slot + (size_t)i * ck + (jj - c * ck);
           } else {
-            o = (size_t)i * N + jj;
+            const int c = i / ck;
+            o = (size_t)c * slot + (size_t)(i - c * ck) * N + jj;
           }
           out[o] = acc[mi][ni][2 * h + e];
         }
       }
 }
 
-// out[e] = sum over s = 1..n of slot (rank + s) mod n, chunk `rank`: the
-// partial born on rank+1 first, this rank's own last
-template <bool VEC>
-__global__ void mm_rs_reduce_kernel(PeersF s, float* __restrict__ out,
-                                    long long shard, int rank, int nranks) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long base = (long long)rank * shard;
-  if (VEC) {
-    const long long n4 = shard / 4;
-    for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-         e < n4; e += stride) {
-      float4 acc = reinterpret_cast<const float4*>(
-          s.p[(rank + 1) % nranks] + base)[e];
-      for (int j = 2; j <= nranks; ++j) {
-        const float4 v = reinterpret_cast<const float4*>(
-            s.p[(rank + j) % nranks] + base)[e];
-        acc.x += v.x;
-        acc.y += v.y;
-        acc.z += v.z;
-        acc.w += v.w;
-      }
-      reinterpret_cast<float4*>(out)[e] = acc;
-    }
+// The destinations of one reduce: entry i takes elements [off, off + len)
+// of the reduced run, written at ptr as fp32 (f32) or bf16 (rounded to
+// nearest even, as a cast does). Entries lie in increasing order and do
+// not overlap; the run's elements between them (alignment padding) are
+// neither read nor written.
+constexpr int MAX_OUTS = 16;
+struct ReduceOut {
+  long long off, len;
+  void* ptr;
+  int f32;
+};
+struct ReduceOuts {
+  ReduceOut e[MAX_OUTS];
+  int n;
+};
+
+__device__ __forceinline__ void store4(void* ptr, long long i, int f32,
+                                       float4 v) {
+  if (f32) {
+    reinterpret_cast<float4*>(ptr)[i] = v;
   } else {
-    for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-         e < shard; e += stride) {
-      float acc = s.p[(rank + 1) % nranks][base + e];
-      for (int j = 2; j <= nranks; ++j)
-        acc += s.p[(rank + j) % nranks][base + e];
-      out[e] = acc;
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    reinterpret_cast<uint2*>(ptr)[i] =
+        make_uint2(*reinterpret_cast<uint32_t*>(&lo),
+                   *reinterpret_cast<uint32_t*>(&hi));
+  }
+}
+
+// The entry holding unit u (W elements) of the run: the cursor ``i`` only
+// moves forward, as a thread's units increase. -1 when u lies in the
+// padding before entry i; outs.n past the last entry.
+template <int W>
+__device__ __forceinline__ int entry_of(const ReduceOuts& outs, int& i,
+                                        long long u) {
+  while (i < outs.n && u * W >= outs.e[i].off + outs.e[i].len) ++i;
+  if (i == outs.n) return i;
+  return u * W < outs.e[i].off ? -1 : i;
+}
+
+// units a thread takes an iteration of the reduce, a grid's width apart:
+// at GPT-2 large's layer on an H100 four beat one, two, three, six and
+// eight (more bytes in flight a thread, until registers cut occupancy)
+constexpr int kReduceUnits = 4;
+
+// Row `rank` of the NR peers' [NR, run] fp32 regions summed, element by
+// element, in the ring's order: the partial born on rank+1 first, this
+// rank's own last (overlap.ring_order_sum). One grid-stride pass over the
+// run (16-byte loads and stores when VEC: every offset, length and
+// pointer a multiple of 4 elements), each element read once from each
+// peer and written once, at its entry's pointer in the entry's dtype. A
+// thread takes kReduceUnits units an iteration and issues all their loads
+// before it adds: kReduceUnits * NR 16-byte loads in flight a thread, at
+// the occupancy the launch fills the card with.
+template <int NR, bool VEC>
+__global__ void __launch_bounds__(256)
+    mm_rs_reduce_kernel(PeersF s, const __grid_constant__ ReduceOuts outs,
+                        long long run, int rank) {
+  using V = typename std::conditional<VEC, float4, float>::type;
+  constexpr int W = VEC ? 4 : 1, U = kReduceUnits;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long n_units = run / W;
+  const V* src[NR];
+#pragma unroll
+  for (int j = 0; j < NR; ++j)
+    src[j] = reinterpret_cast<const V*>(s.p[(rank + 1 + j) % NR] +
+                                        (long long)rank * run);
+  int cur[U];
+#pragma unroll
+  for (int k = 0; k < U; ++k) cur[k] = 0;
+  for (long long u0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       u0 < n_units; u0 += U * stride) {
+    int e[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const long long u = u0 + k * stride;
+      e[k] = u < n_units ? entry_of<W>(outs, cur[k], u) : outs.n;
     }
+    if (e[0] == outs.n) break;
+    V v[U][NR];
+#pragma unroll
+    for (int k = 0; k < U; ++k)
+#pragma unroll
+      for (int j = 0; j < NR; ++j)
+        if (e[k] >= 0 && e[k] < outs.n)
+          v[k][j] = __ldcs(src[j] + u0 + k * stride);
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      if (e[k] < 0 || e[k] >= outs.n) continue;
+      V acc = v[k][0];
+#pragma unroll
+      for (int j = 1; j < NR; ++j) {
+        if constexpr (VEC) {
+          acc.x += v[k][j].x;
+          acc.y += v[k][j].y;
+          acc.z += v[k][j].z;
+          acc.w += v[k][j].w;
+        } else {
+          acc += v[k][j];
+        }
+      }
+      const ReduceOut& o = outs.e[e[k]];
+      const long long at = u0 + k * stride - o.off / W;
+      if constexpr (VEC) {
+        store4(o.ptr, at, o.f32, acc);
+      } else if (o.f32) {
+        static_cast<float*>(o.ptr)[at] = acc;
+      } else {
+        static_cast<bf16*>(o.ptr)[at] = __float2bfloat16_rn(acc);
+      }
+    }
+  }
+}
+
+template <int NR, bool VEC>
+cudaError_t launch_reduce(const PeersF& s, const ReduceOuts& outs,
+                          long long run, int rank, long long units,
+                          cudaStream_t st) {
+  auto kernel = mm_rs_reduce_kernel<NR, VEC>;
+  static int per_sm = 0;        // resident blocks an SM, asked once
+  if (per_sm == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, 256, 0);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) per_sm = 1;
+  }
+  const long long most = (long long)per_sm * sm90::sm_count();
+  const long long want = units / (256 * kReduceUnits) + 1;
+  kernel<<<(int)(want < most ? want : most), 256, 0, st>>>(s, outs, run,
+                                                           rank);
+  return cudaGetLastError();
+}
+
+template <bool VEC>
+cudaError_t launch_reduce_n(int nranks, const PeersF& s,
+                            const ReduceOuts& outs, long long run, int rank,
+                            long long units, cudaStream_t st) {
+  switch (nranks) {
+    case 1: return launch_reduce<1, VEC>(s, outs, run, rank, units, st);
+    case 2: return launch_reduce<2, VEC>(s, outs, run, rank, units, st);
+    case 3: return launch_reduce<3, VEC>(s, outs, run, rank, units, st);
+    case 4: return launch_reduce<4, VEC>(s, outs, run, rank, units, st);
+    case 5: return launch_reduce<5, VEC>(s, outs, run, rank, units, st);
+    case 6: return launch_reduce<6, VEC>(s, outs, run, rank, units, st);
+    case 7: return launch_reduce<7, VEC>(s, outs, run, rank, units, st);
+    case 8: return launch_reduce<8, VEC>(s, outs, run, rank, units, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -455,12 +580,13 @@ cudaError_t allow_smem(Kernel kernel) {
 
 template <bool VEC, bool SHARD1>
 cudaError_t launch_partial(const bf16* l, const bf16* r, float* o, int M,
-                           int K, int N, int ck, cudaStream_t st) {
+                           int K, int N, int ck, long long slot,
+                           cudaStream_t st) {
   auto kernel = mm_rs_partial_kernel<VEC, SHARD1>;
   const cudaError_t err = allow_smem(kernel);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM);
-  kernel<<<grid, NT, SMEM_BYTES, st>>>(l, r, o, M, K, N, ck);
+  kernel<<<grid, NT, SMEM_BYTES, st>>>(l, r, o, M, K, N, ck, slot);
   return cudaGetLastError();
 }
 
@@ -541,6 +667,8 @@ struct GemmPlan {
   int ldo;          // output row stride
   long long o_chunk;  // output offset from one N chunk to the next
   int out_f32;
+  int rc;           // rows a row chunk (0: the rows are one run)
+  long long r_chunk;  // output offset from one row chunk to the next
 };
 
 // this warp's 16 rows of the tile, one 128-byte slab of columns at a time
@@ -553,6 +681,17 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
   constexpr int PER = 128 / (int)sizeof(OutT);  // columns a slab
   constexpr int EV = 16 / (int)sizeof(OutT);    // elements a vector
   const int lane = threadIdx.x & 31, r = lane >> 2, q = lane & 3;
+  // the output offsets of the 4 rows this lane stores (rows lane / 8 + 4 k
+  // of the warp's 16), worked out once a tile: a row chunk costs a
+  // division
+  size_t ro[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int row = row0 + (lane >> 3) + 4 * k;
+    ro[k] = p.rc ? (size_t)(row / p.rc) * p.r_chunk +
+                       (size_t)(row % p.rc) * p.ldo
+                 : (size_t)row * p.ldo;
+  }
 #pragma unroll
   for (int slab = 0; slab < BN / PER; ++slab) {
 #pragma unroll
@@ -571,11 +710,11 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
     }
     __syncwarp();
 #pragma unroll
-    for (int v = lane; v < 16 * 8; v += 32) {
-      const int rr = v >> 3, cv = v & 7;
+    for (int k = 0; k < 4; ++k) {
+      const int rr = (lane >> 3) + 4 * k, cv = lane & 7;
       const int row = row0 + rr, col = col0 + slab * PER + cv * EV;
       if (row < p.M && col < p.cw)
-        *reinterpret_cast<uint4*>(out + (size_t)row * p.ldo + col) =
+        *reinterpret_cast<uint4*>(out + ro[k] + col) =
             *reinterpret_cast<const uint4*>(stage + rr * EPI_ROW + cv * 16);
     }
     __syncwarp();
@@ -760,20 +899,29 @@ extern "C" int dstpu_ag_matmul(const void* x, const void* shards, void* out,
                                          st);
 }
 
-// out: this rank's [n, shard] fp32 slot region; lhs [M, K], rhs [M, N]
+// out: this rank's n fp32 slots of K * N / n elements, slot c at out +
+// c * slot (slot >= the shard: the slots of a layer's exchange region lie
+// one region row apart); lhs [M, K], rhs [M, N]
 extern "C" int dstpu_mm_rs_partial(const void* lhs, const void* rhs,
                                    void* out, int M, int K, int N, int ck,
-                                   int shard1, int vec, void* stream) {
-  if (M < 1 || K < 1 || N < 1 || ck < 1) return (int)cudaErrorInvalidValue;
+                                   int shard1, int vec, int slot,
+                                   void* stream) {
+  if (M < 1 || K < 1 || N < 1 || ck < 1 ||
+      (long long)slot < (long long)K * N / ((shard1 ? N : K) / ck))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const bf16* l = static_cast<const bf16*>(lhs);
   const bf16* r = static_cast<const bf16*>(rhs);
   float* o = static_cast<float*>(out);
   if (vec)
-    return shard1 ? (int)launch_partial<true, true>(l, r, o, M, K, N, ck, st)
-                  : (int)launch_partial<true, false>(l, r, o, M, K, N, ck, st);
-  return shard1 ? (int)launch_partial<false, true>(l, r, o, M, K, N, ck, st)
-                : (int)launch_partial<false, false>(l, r, o, M, K, N, ck, st);
+    return shard1
+               ? (int)launch_partial<true, true>(l, r, o, M, K, N, ck, slot, st)
+               : (int)launch_partial<true, false>(l, r, o, M, K, N, ck, slot,
+                                                  st);
+  return shard1
+             ? (int)launch_partial<false, true>(l, r, o, M, K, N, ck, slot, st)
+             : (int)launch_partial<false, false>(l, r, o, M, K, N, ck, slot,
+                                                 st);
 }
 
 // out = A @ B by gemm_tma_kernel along the walk that tile_plan
@@ -789,13 +937,15 @@ extern "C" int dstpu_gemm_tma(const void* a, int a_rows, int a_cols,
                               int out_f32, int M, int m_tiles, int nt_chunk,
                               int cw, int tiles, int k_chunks, int kpc,
                               int a_chunk, int rank, int b_by_chunk, int ldo,
-                              int o_chunk, int bn, int grid, void* stream) {
+                              int o_chunk, int rc, int r_chunk, int bn,
+                              int grid, void* stream) {
   if (nmaps < 1 || nmaps > MAX_RANKS || k_chunks < 1 ||
       k_chunks > nmaps || rank < 0 || rank >= k_chunks || M < 1 ||
       tiles < 1 || grid < 1 || kpc < 1 || a_rows < 1 || a_cols < 1 ||
       b_rows < 1 || b_cols < 1 || (a_mn && !b_mn) || m_tiles < 1 ||
       nt_chunk < 1 || tiles % (m_tiles * nt_chunk) != 0 ||
-      (b_by_chunk && tiles / (m_tiles * nt_chunk) > nmaps))
+      (b_by_chunk && tiles / (m_tiles * nt_chunk) > nmaps) || rc < 0 ||
+      r_chunk < 0)
     return (int)cudaErrorInvalidValue;
   const void* const* table = static_cast<const void* const*>(b_table);
   TmaMaps maps;
@@ -806,9 +956,9 @@ extern "C" int dstpu_gemm_tma(const void* a, int a_rows, int a_cols,
     err = sm90::encode_2d(&maps.b[j], table[j], b_rows, b_cols,
                           b_mn ? TBK : bn);
   if (err != cudaSuccess) return (int)err;
-  const GemmPlan p = {M,     m_tiles, nt_chunk,   cw,  tiles,
-                      k_chunks, kpc,  a_chunk,    rank, b_by_chunk,
-                      ldo,   o_chunk, out_f32};
+  const GemmPlan p = {M,       m_tiles, nt_chunk, cw,      tiles,
+                      k_chunks, kpc,     a_chunk,  rank,    b_by_chunk,
+                      ldo,     o_chunk, out_f32,  rc,      r_chunk};
   const int g = grid < tiles ? grid : tiles;
   cudaStream_t st = (cudaStream_t)stream;
   if (a_mn) return (int)launch_tma<true, true>(maps, p, out, bn, g, st);
@@ -816,27 +966,45 @@ extern "C" int dstpu_gemm_tma(const void* a, int a_rows, int a_cols,
               : (int)launch_tma<false, false>(maps, p, out, bn, g, st);
 }
 
-// out [shard] fp32 = sum of chunk `rank` of the n peers' slot regions
-extern "C" int dstpu_mm_rs_reduce(const void* slots, void* out, int shard,
-                                  int rank, int nranks, int vec,
+// Row `rank` of the n peers' [n, run] fp32 regions (`slots`: a host array
+// of their n device pointers) summed in the ring's order into n_outs
+// destinations: out_ptrs[i] (a host array of device pointers) takes
+// elements [meta[3i], meta[3i] + meta[3i + 1]) of the run, as fp32 when
+// meta[3i + 2] is 1, else as bf16. vec: every offset, length and pointer
+// a multiple of 16 bytes' worth, the 16-byte path.
+extern "C" int dstpu_mm_rs_reduce(const void* slots, int nranks, int rank,
+                                  int run, const void* out_ptrs,
+                                  const void* meta, int n_outs, int vec,
                                   void* stream) {
   if (nranks < 1 || nranks > MAX_RANKS || rank < 0 || rank >= nranks ||
-      shard < 1)
+      run < 1 || n_outs < 1 || n_outs > MAX_OUTS)
     return (int)cudaErrorInvalidValue;
   const void* const* table = static_cast<const void* const*>(slots);
   PeersF s;
   for (int j = 0; j < MAX_RANKS; ++j)
     s.p[j] = j < nranks ? static_cast<const float*>(table[j]) : nullptr;
-  const long long work = vec ? shard / 4 : shard;
-  const int blocks = (int)(work / 256 + 1 < 1056 ? work / 256 + 1 : 1056);
+  ReduceOuts outs;
+  memset(&outs, 0, sizeof(outs));
+  outs.n = n_outs;
+  const int* m = static_cast<const int*>(meta);
+  void* const* ptrs = static_cast<void* const*>(out_ptrs);
+  long long end = 0, work = 0;
+  for (int i = 0; i < n_outs; ++i) {
+    outs.e[i] = {m[3 * i], m[3 * i + 1], ptrs[i], m[3 * i + 2]};
+    if (outs.e[i].off < end || outs.e[i].len < 1 ||
+        outs.e[i].off + outs.e[i].len > run)
+      return (int)cudaErrorInvalidValue;
+    end = outs.e[i].off + outs.e[i].len;
+    work += outs.e[i].len;
+  }
+  // a grid that fills the card at the kernel's occupancy, or
+  // kReduceUnits units of work a thread, whichever is smaller
+  const long long units = vec ? work / 4 : work;
   cudaStream_t st = (cudaStream_t)stream;
-  if (vec)
-    mm_rs_reduce_kernel<true><<<blocks, 256, 0, st>>>(
-        s, static_cast<float*>(out), shard, rank, nranks);
-  else
-    mm_rs_reduce_kernel<false><<<blocks, 256, 0, st>>>(
-        s, static_cast<float*>(out), shard, rank, nranks);
-  return (int)cudaGetLastError();
+  return vec ? (int)launch_reduce_n<true>(nranks, s, outs, run, rank, units,
+                                          st)
+             : (int)launch_reduce_n<false>(nranks, s, outs, run, rank, units,
+                                           st);
 }
 
 // -- the symmetric heap: cudaMalloc'd memory shared through CUDA IPC ---------

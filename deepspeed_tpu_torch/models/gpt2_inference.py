@@ -24,8 +24,7 @@ from deepspeed_tpu_torch.models.gpt2 import GPT2Config, param_shapes
 from deepspeed_tpu_torch.ops.cuda.decode import (MAX_SLOTS,
                                                  ROADMAP_DECODE_VARIANTS,
                                                  decode_attention_stacked,
-                                                 fake_quant, kv_quant_int8,
-                                                 ln_qkv_stacked,
+                                                 fake_quant, ln_qkv_stacked,
                                                  out_ffn_stacked)
 from deepspeed_tpu_torch.ops.transformer.inference import (
     SCALE, WEIGHTS, DeepSpeedInferenceConfig, DeepSpeedTransformerInference,
@@ -381,9 +380,9 @@ def _fast_decode(p, cfg: GPT2Config, cache: KVCache, tok, start, steps,
     gpt2_inference.py:301-446): ``steps`` decode steps from position
     ``start`` over the layer-stacked cache; the position is a device
     scalar, so the loop does not sync to the host (except to sample).
-    Each layer is ``decode_layer``, whose attention writes the new K/V
-    rows into the cache (kv_quant_int8 into an int8 one) and runs
-    decode_attention_stacked. Yields each step's tokens [B]."""
+    Each layer is ``decode_layer``, whose attention is
+    decode_attention_stacked writing the new K/V rows into the cache first
+    (int8 codes into an int8 one). Yields each step's tokens [B]."""
     dev = tok.device
     L_cache = cache.length
     w = weight_stacks(p)
@@ -393,22 +392,19 @@ def _fast_decode(p, cfg: GPT2Config, cache: KVCache, tok, start, steps,
     scale = 1.0 / float(np.sqrt(cfg.head_dim))
     nan = torch.tensor(float("nan"), dtype=p["wte"].dtype, device=dev)
 
-    def attend(l, lid, qh, k3, v3):         # at this step's row and offset
+    def attend(l, lid, qh, k3, v3):         # at this step's offset
+        # the kernel writes the new rows at min(offset, L_cache - 1) first
         if cache.q8:
-            kv_quant_int8(k3, v3, out=stacks, layer=lid, rows=row)
             return decode_attention_stacked(
                 qh, stacks[0], stacks[2], offset, lid, k_scale=stacks[1],
-                v_scale=stacks[3], scale=scale)
-        cache.k[l].index_copy_(2, row.long(), k3[:, :, None])
-        cache.v[l].index_copy_(2, row.long(), v3[:, :, None])
+                v_scale=stacks[3], scale=scale, new_k=k3, new_v=v3)
         return decode_attention_stacked(qh, cache.k, cache.v, offset, lid,
-                                        scale=scale)
+                                        scale=scale, new_k=k3, new_v=v3)
     for _ in range(steps):
         x = p["wte"][tok] + p["wpe"][offset.clamp(
             max=cfg.n_positions - 1).long()]
         # overflow: a clamped row write would serve stale context; poison
         x = torch.where(offset >= L_cache, nan, x)
-        row = offset.clamp(max=L_cache - 1)
         for l in range(cfg.n_layer):
             x = decode_layer(p, cfg, w, x, l, lids[l], attend)
         logits = layer_norm(x, p["ln_f_w"], p["ln_f_b"],

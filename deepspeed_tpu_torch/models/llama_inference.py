@@ -27,8 +27,7 @@ from deepspeed_tpu_torch.models.llama import (LlamaConfig, apply_rope,
                                               rope_rows, rope_tables)
 from deepspeed_tpu_torch.ops.attention import dot_product_attention
 from deepspeed_tpu_torch.ops.cuda.decode import (decode_attention_stacked,
-                                                 fake_quant, kv_quant_int8,
-                                                 ln_qkv_stacked,
+                                                 fake_quant, ln_qkv_stacked,
                                                  matvec_stacked,
                                                  out_ffn_stacked,
                                                  quantize_rows)
@@ -415,8 +414,9 @@ def _decode_loop(p, cfg: LlamaConfig, caches, tok, start, steps,
     """``fast_scan`` (models/llama_inference.py:259-347): ``steps`` decode
     steps from position ``start``; the position is a device scalar, so
     the loop does not sync to the host (except to sample). Each layer:
-    ln_qkv_stacked, RoPE, the new K/V rows into the cache (kv_quant_int8
-    into an int8 cache), decode_attention_stacked, and the o-projection +
+    ln_qkv_stacked, RoPE, decode_attention_stacked writing the new K/V
+    rows into the cache first (int8 codes into an int8 cache, at
+    min(offset, L - 1)), and the o-projection +
     FFN through out_ffn_stacked (with matvec_stacked first past
     ``fused_proj``). Yields each step's tokens [B]."""
     dev = tok.device
@@ -446,17 +446,14 @@ def _decode_loop(p, cfg: LlamaConfig, caches, tok, start, steps,
             k3 = qk[:, H:]
             v3 = qkv[:, (H + Hkv) * D:].reshape(B, Hkv, D)
             qg = qk[:, :H].reshape(B, Hkv, rep, D).contiguous()
-            if cache_q8:
-                kv_quant_int8(k3, v3, out=caches, layer=lid, rows=offset)
-                ctx = decode_attention_stacked(
-                    qg, caches[0], caches[2], offset, lid,
-                    k_scale=caches[1], v_scale=caches[3], scale=scale)
-            else:
-                kc, vc = caches
-                kc[l].index_copy_(2, offset.long(), k3[:, :, None])
-                vc[l].index_copy_(2, offset.long(), v3[:, :, None])
-                ctx = decode_attention_stacked(qg, kc, vc, offset, lid,
-                                               scale=scale)
+            # the new rows go into the cache inside the attention kernel,
+            # at min(offset, L_cache - 1) as dynamic_update_slice clamps
+            # the write (int8 codes and scales into an int8 cache)
+            scales = {"k_scale": caches[1], "v_scale": caches[3]} \
+                if cache_q8 else {}
+            ctx = decode_attention_stacked(
+                qg, caches[0], caches[len(caches) // 2], offset, lid,
+                scale=scale, new_k=k3, new_v=v3, **scales)
             ctx = ctx.reshape(B, H * D)
             if fused:
                 x = out_ffn_stacked(

@@ -42,7 +42,8 @@ SIGNATURES = {
     "dstpu_out_ffn_stacked": [_P] * 18 + [_I] * 5 + [_P, _F, _P],
     "dstpu_matvec_int8": [_P] * 5 + [_I] * 4 + [_P, _P],
     "dstpu_out_ffn_glu_stacked": [_P] * 11 + [_I] * 5 + [_P, _I, _F, _P],
-    "dstpu_decode_attention": [_P] * 9 + [_I] * 11 + [_F, _P],
+    "dstpu_decode_attention": [_P] * 10 + [_I, _I, _P] + [_I] * 11
+    + [_F, _P],
     "dstpu_kv_quant_int8": [_P] * 9 + [_I] * 8 + [_P],
     "dstpu_bs_fwd": [_P] * 7 + [_I] * 6 + [_F, _P],
     "dstpu_bs_bwd_dq": [_P] * 9 + [_I] * 6 + [_F, _P],
@@ -50,9 +51,9 @@ SIGNATURES = {
     "dstpu_quantize_leaves": [_P, _I, _P, _P, _I, _P] + [_I] * 3
     + [_F, _F, _I, _P],
     "dstpu_ag_matmul": [_P] * 3 + [_I] * 11 + [_P],
-    "dstpu_mm_rs_partial": [_P] * 3 + [_I] * 6 + [_P],
-    "dstpu_mm_rs_reduce": [_P, _P] + [_I] * 4 + [_P],
-    "dstpu_gemm_tma": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P] + [_I] * 15
+    "dstpu_mm_rs_partial": [_P] * 3 + [_I] * 7 + [_P],
+    "dstpu_mm_rs_reduce": [_P, _I, _I, _I, _P, _P, _I, _I, _P],
+    "dstpu_gemm_tma": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P] + [_I] * 17
     + [_P],
     # the symmetric heap (parallel/symmetric_memory.py)
     "dstpu_heap_alloc": [_I, _I, _P],

@@ -31,6 +31,11 @@ head dim 64) and LLaMA's (RMSNorm, no biases, SwiGLU with
 int8 codes and a bf16 or int8 KV cache, paged, layer-stacked or one
 layer's.
 
+The attention wrappers take the step's new K/V rows (``new_k``,
+``new_v``) and append them into the cache inside the attention kernel
+(an int8 cache in ``kv_quant_int8``'s arithmetic, bit for bit): the decode
+paths launch no ``kv_quant_int8`` and copy no rows of their own.
+
 The projections (``ln_qkv*``, ``out_ffn*``, ``matvec_stacked``,
 ``matvec_int8``) are one TMA-fed wgmma kernel over a prologue and an
 epilogue (csrc/decode.cu ``proj_tma_kernel``), launched at the plan of
@@ -954,19 +959,110 @@ def _check_cache(fn, q, k, v, k_scale, v_scale, shape, sshape, dev):
     return q8
 
 
+def _scatter_rows(out, values, layer, blocks, rows):
+    """Each slot's rows ``values`` (one [B, H, X] tensor each; a [B, H, 1]
+    scale goes to a [.., 1, L] destination) into ``out`` at layer
+    ``layer`` (None: 0), block ``blocks[b]`` (None: b) and row ``rows[b]``
+    (or one row for every slot)."""
+    B = values[0].shape[0]
+    l = 0 if layer is None else int(layer)
+    b = torch.arange(B, device=values[0].device) if blocks is None \
+        else blocks.long()
+    r = rows.long().reshape(-1).expand(B)
+    for dst, val in zip(out, values):
+        if dst.shape[-2] == 1 and val.shape[-1] == 1:
+            dst[l][b, :, 0, r] = val[..., 0].to(dst.dtype)
+        else:
+            dst[l][b, :, r] = val.to(dst.dtype)
+
+
+def _append_plain(k, v, k_scale, v_scale, new_k, new_v, layer, blocks,
+                  rows):
+    """The cache append the attention kernel folds in, in plain PyTorch:
+    slot b's new rows [B, H, D] into layer ``layer`` at block ``blocks[b]``
+    (None: slot b of a stacked cache), row ``rows[b]`` (or one row for
+    every slot); into an int8 cache as kv_quant_int8_plain's codes and
+    scales, else the rows as they are."""
+    if k_scale is not None:
+        _scatter_rows((k, k_scale, v, v_scale),
+                      kv_quant_int8_plain(new_k, new_v), layer, blocks, rows)
+    else:
+        _scatter_rows((k, v), (new_k, new_v), layer, blocks, rows)
+
+
+def paged_append_plain(k_pool, v_pool, pos, page_table, layer, new_k, new_v,
+                       k_scale=None, v_scale=None):
+    """The paged pool's append: each live slot's row (pos[b] >= 0) at row
+    pos % page of block page_table[b, min(pos // page, maxp - 1)]; idle
+    slots write nothing."""
+    page, maxp = k_pool.shape[3], page_table.shape[1]
+    live = pos >= 0
+    if not bool(live.any()):
+        return
+    p = pos[live].long()
+    blocks = page_table[live].gather(
+        1, torch.clamp(p // page, max=maxp - 1)[:, None])[:, 0]
+    _append_plain(k_pool, v_pool, k_scale, v_scale, new_k[live], new_v[live],
+                  layer, blocks, p % page)
+
+
+def stacked_append_plain(k_stack, v_stack, pos, layer, new_k, new_v,
+                         k_scale=None, v_scale=None):
+    """The layer-stacked cache's append: every slot's row at min(pos, L -
+    1), where dynamic_update_slice clamps the write."""
+    row = torch.tensor([min(int(pos), k_stack.shape[3] - 1)],
+                       device=new_k.device)
+    _append_plain(k_stack, v_stack, k_scale, v_scale, new_k, new_v, layer,
+                  None, row)
+
+
+def _folds(fn, new_k, new_v, R=1, rows_per_step=None):
+    """Whether a call appends new rows: both given (or neither), and one
+    row a slot (the R query rows one step: rows_per_step None or R)."""
+    if (new_k is None) != (new_v is None):
+        raise ValueError(f"{fn}: pass both new_k and new_v or neither")
+    if new_k is not None and rows_per_step is not None \
+            and R // rows_per_step > 1:
+        raise NotImplementedError(
+            f"{fn}: the folded cache append takes one new row a slot, not "
+            f"{R // rows_per_step} (R={R}, rows_per_step={rows_per_step}; "
+            f"{ROADMAP_DECODE_VARIANTS})")
+    return new_k is not None
+
+
+def _new_rows(fn, q, new_k, new_v, rows_per_step=None):
+    """Check the folded append's rows against q [B, H, R, D] on the card;
+    returns (new_k pointer, new_v pointer, their batch strides), nulls
+    without."""
+    if not _folds(fn, new_k, new_v, q.shape[2], rows_per_step):
+        return None, None, 0, 0
+    B, H, _, D = q.shape
+    return (new_k.data_ptr(), new_v.data_ptr(),
+            _rows_view(fn, new_k, B, H, D, q.device),
+            _rows_view(fn, new_v, B, H, D, q.device))
+
+
 def decode_attention_paged(q, k_pool, v_pool, pos, page_table, layer,
                            k_scale=None, v_scale=None, scale=None,
-                           rows_per_step=None):
+                           rows_per_step=None, new_k=None, new_v=None):
     """S=1 attention through a paged pool; see
     decode_attention_paged_plain. On CUDA: R <= 8 query rows per KV head
     (GQA or multi-query), head dim 64 or 128 over a bf16 pool or an int8
-    one (``k_scale``/``v_scale`` [Lyr, NB, H, 1, page] fp32)."""
+    one (``k_scale``/``v_scale`` [Lyr, NB, H, 1, page] fp32).
+
+    With ``new_k``/``new_v`` ([B, H, D] bf16, each slot's new rows after
+    RoPE) the kernel first appends them (``paged_append_plain``: an int8
+    pool takes kv_quant_int8's codes and scales) and then attends over
+    them; one new row a slot (rows_per_step None or R)."""
     fn = "decode_attention_paged"
     B, H, R, D = q.shape
     if rows_per_step is not None and R % rows_per_step:
         raise ValueError(f"{fn}: R={R} is not a multiple of "
                          f"rows_per_step={rows_per_step}")
     if q.device.type == "cpu":
+        if _folds(fn, new_k, new_v, R, rows_per_step):
+            paged_append_plain(k_pool, v_pool, pos, page_table, layer,
+                               new_k, new_v, k_scale, v_scale)
         return decode_attention_paged_plain(q, k_pool, v_pool, pos,
                                             page_table, layer, scale,
                                             rows_per_step, k_scale, v_scale)
@@ -984,37 +1080,44 @@ def decode_attention_paged(q, k_pool, v_pool, pos, page_table, layer,
                          f"{PAGE_MULTIPLE}, got {page}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     lp = _scalar_ptr(fn, layer, dev)
+    fold = _new_rows(fn, q, new_k, new_v, rows_per_step)
     out = _attention_call(q, k_pool, v_pool, k_scale, v_scale,
                           pos.data_ptr(), page_table.data_ptr(), lp, NB,
-                          page, maxp, int(rows_per_step or 0), 1, scale)
+                          page, maxp, int(rows_per_step or 0), 1, scale,
+                          fold)
     builder.launches[fn] += 1
     return out
 
 
 def decode_attention_stacked(q, k_stack, v_stack, pos, layer, k_scale=None,
-                             v_scale=None, scale=None):
+                             v_scale=None, scale=None, new_k=None,
+                             new_v=None):
     """S=1 attention over a contiguous layer-stacked cache [Lyr, B, H, L,
     D] at one position for every row; see decode_attention_stacked_plain.
     On CUDA: ``pos`` and ``layer`` are one-element int32 tensors on the
     card (the decode loop never syncs to the host), R <= 8, L a multiple
     of 16, head dim 64 or 128 over a bf16 or an int8 cache. The paged
     kernel's body runs it with slot b's keys as one page of L rows in
-    block b."""
+    block b. With ``new_k``/``new_v`` ([B, H, D] bf16) the kernel first
+    appends them at row min(pos, L - 1) (``stacked_append_plain``)."""
     fn = "decode_attention_stacked"
     if q.device.type == "cpu":
+        if _folds(fn, new_k, new_v):
+            stacked_append_plain(k_stack, v_stack, pos, layer, new_k, new_v,
+                                 k_scale, v_scale)
         return decode_attention_stacked_plain(q, k_stack, v_stack, pos,
                                               layer, k_scale, v_scale, scale)
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
     out = _stacked_attention_launch(fn, q, k_stack, v_stack, pos,
                                     _scalar_ptr(fn, layer, q.device),
-                                    k_scale, v_scale, scale)
+                                    k_scale, v_scale, scale, new_k, new_v)
     builder.launches[fn] += 1
     return out
 
 
 def _stacked_attention_launch(fn, q, k_stack, v_stack, pos, lp, k_scale,
-                              v_scale, scale):
+                              v_scale, scale, new_k=None, new_v=None):
     """Check and launch ``dstpu_decode_attention`` over a layer-stacked
     cache at layer pointer ``lp`` (None: layer 0)."""
     dev = q.device
@@ -1028,13 +1131,16 @@ def _stacked_attention_launch(fn, q, k_stack, v_stack, pos, lp, k_scale,
     pp = _scalar_ptr(fn, pos, dev, "pos")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     return _attention_call(q, k_stack, v_stack, k_scale, v_scale, pp, None,
-                           lp, B, L, 1, 0, 0, scale)
+                           lp, B, L, 1, 0, 0, scale,
+                           _new_rows(fn, q, new_k, new_v))
 
 
 def _attention_call(q, k, v, k_scale, v_scale, pos_ptr, pt_ptr, lp, NB,
-                    page, maxp, rows_per_step, pos_stride, scale):
+                    page, maxp, rows_per_step, pos_stride, scale,
+                    fold=(None, None, 0, 0)):
     """Launch ``dstpu_decode_attention`` on checked inputs with the split
-    plan of ``decode_split_plan`` at the card's SM count; returns the
+    plan of ``decode_split_plan`` at the card's SM count (``fold``: the
+    new rows' pointers and batch strides, ``_new_rows``); returns the
     output."""
     dev = q.device
     B, H, R, D = q.shape
@@ -1043,9 +1149,9 @@ def _attention_call(q, k, v, k_scale, v_scale, pos_ptr, pt_ptr, lp, NB,
     out = torch.empty_like(q)
     builder.kernels().call(
         "dstpu_decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        _ptr(k_scale), _ptr(v_scale), pos_ptr, pt_ptr, lp, out.data_ptr(), B,
-        H, R, D, NB, page, maxp, rows_per_step, pos_stride, plan.chunk,
-        plan.n_split, scale, _stream(dev))
+        _ptr(k_scale), _ptr(v_scale), pos_ptr, pt_ptr, lp, *fold,
+        out.data_ptr(), B, H, R, D, NB, page, maxp, rows_per_step,
+        pos_stride, plan.chunk, plan.n_split, scale, _stream(dev))
     return out
 
 
@@ -1132,16 +1238,22 @@ def out_ffn_int8(ctx, x, wp, sp, bp, ln_w, ln_b, w1, s1, b1, w2, s2, b2,
 
 
 def decode_attention_int8(q, k_codes, k_scale, v_codes, v_scale, pos,
-                          scale=None):
+                          scale=None, new_k=None, new_v=None):
     """S=1 attention of q [B, H, 1, D] over one layer's int8 cache (codes
     [B, H, L, D], scales [B, H, L] fp32) at keys 0..pos; see
     decode_attention_int8_plain. On CUDA ``pos`` is a one-element int32
     tensor on the card, L a multiple of 16, head dim 64 or 128; blocks
-    past pos are not read."""
+    past pos are not read. With ``new_k``/``new_v`` ([B, H, D] bf16) the
+    kernel first writes their int8 codes and scales at row min(pos, L -
+    1), as kv_quant_int8 does."""
+    fn = "decode_attention_int8"
     if q.device.type == "cpu":
+        if _folds(fn, new_k, new_v):
+            stacked_append_plain(k_codes[None], v_codes[None], pos, 0,
+                                 new_k, new_v, k_scale[None, :, :, None],
+                                 v_scale[None, :, :, None])
         return decode_attention_int8_plain(q, k_codes, k_scale, v_codes,
                                            v_scale, pos, scale)
-    fn = "decode_attention_int8"
     dev = _cuda_fn(fn, q)
     B, H, S, D = q.shape
     L = k_codes.shape[2]
@@ -1151,7 +1263,8 @@ def decode_attention_int8(q, k_codes, k_scale, v_codes, v_scale, pos,
         _check(fn, name, t, torch.float32, (B, H, L), dev)
     out = _stacked_attention_launch(
         fn, q, k_codes[None], v_codes[None], pos, None,
-        k_scale.view(1, B, H, 1, L), v_scale.view(1, B, H, 1, L), scale)
+        k_scale.view(1, B, H, 1, L), v_scale.view(1, B, H, 1, L), scale,
+        new_k, new_v)
     builder.launches[fn] += 1
     return out
 
@@ -1188,15 +1301,7 @@ def kv_quant_int8(k, v, out=None, layer=None, blocks=None, rows=None):
         codes = kv_quant_int8_plain(k, v)
         if out is None:
             return codes
-        l = 0 if layer is None else int(layer)
-        b = torch.arange(k.shape[0]) if blocks is None else blocks.long()
-        r = rows.long().reshape(-1).expand(k.shape[0])
-        kq, ksc, vq, vsc = codes
-        for dst, val in zip(out, (kq, ksc[..., 0], vq, vsc[..., 0])):
-            if val.dim() == 3:
-                dst[l][b, :, r] = val
-            else:
-                dst[l][b, :, 0, r] = val
+        _scatter_rows(out, codes, layer, blocks, rows)
         return out
     if k.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {k.device}")

@@ -4,7 +4,9 @@ versions.
 
 Replace ``deepspeed_tpu/ops/pallas/fused_collective.py``:
 ``_ag_matmul_fused`` (:299) as ``ag_matmul``, and ``_mm_rs_fused`` (:491)
-as ``mm_rs_partial`` followed, after a barrier, by ``mm_rs_reduce``. The
+as ``mm_rs_partial`` followed, after a barrier, by ``mm_rs_reduce``
+(which reduces a whole ZeRO-3 layer's exchange region in one launch:
+``parallel/overlap.py`` ``ReduceScatterBatch``). The
 contract is the pointer table: a function takes the list of the n ranks'
 shards in rank order, as this process sees them (its own tensor and the
 peers' views of the symmetric heap on the card; gathered copies over gloo
@@ -39,6 +41,8 @@ import torch
 from deepspeed_tpu_torch.ops.cuda import builder
 
 MAX_RANKS = 8
+MAX_OUTS = 16          # destinations one mm_rs_reduce launch writes
+VEC_ELEMS = 4          # fp32 elements a 16-byte vector holds
 # the TMA kernel's tile: rows, k depth, and the widths it is built for
 TILE_M, TILE_K = 128, 64
 TILE_N_CHOICES = (256, 192, 128, 64)
@@ -160,7 +164,9 @@ class TilePlan:
     is ``k_chunks`` contracting chunks of ``kpc`` tiles, taken in ring order
     from ``rank``'s own. Chunk c of the N layout writes at ``c * o_chunk``
     with row stride ``ldo`` (ag_matmul: column block c of [M, N]; mm_rs
-    shard dim 1: slot c, [K, ck]; a single chunk: [M, N] itself)."""
+    shard dim 1: slot c, [K, ck]; a single chunk: [M, N] itself). With
+    ``rc``, output row i writes at ``(i // rc) * r_chunk + (i % rc) *
+    ldo`` instead (mm_rs shard dim 0: slot c holds rows c * ck ..)."""
     bm: int
     bn: int
     bk: int
@@ -177,6 +183,8 @@ class TilePlan:
     ldo: int
     o_chunk: int
     sms: int
+    rc: int = 0         # rows a row chunk (0: the rows are one run)
+    r_chunk: int = 0    # output offset from one row chunk to the next
 
     @property
     def tiles(self):
@@ -229,12 +237,14 @@ def _pick_bn(m_tiles, chunks, cw, sms):
 
 @functools.lru_cache(maxsize=512)
 def tile_plan(kind, M, K, N, ck, n, rank=0, contract=False, shard_dim=0,
-              sms=H100_SMS):
+              sms=H100_SMS, slot=None):
     """The TMA kernel's walk of one GEMM on a card of ``sms`` SMs. ``kind``
     "ag": x [M, K] @ B [K, N] for ``ag_matmul`` (``ck``, ``contract`` as
     ``ag_matmul_geometry`` gives them; ``rank`` starts the ring). "rs":
     lhs [M, K]^T @ rhs [M, N] for ``mm_rs_partial``, cut on ``shard_dim``
-    into n slots of ``ck``. The launch reads every field."""
+    into n slots of ``ck``, ``slot`` elements apart (default: the shard,
+    K * N / n). The launch reads every field."""
+    rc = r_chunk = 0
     if kind == "ag":
         out_rows, ldo = M, N
         if contract:
@@ -246,11 +256,12 @@ def tile_plan(kind, M, K, N, ck, n, rank=0, contract=False, shard_dim=0,
     elif kind == "rs":
         out_rows, k_chunks, kpc, a_chunk, b_by_chunk = K, 1, \
             _cdiv(M, TILE_K), 0, False
-        rank = 0
+        rank, slot = 0, slot or K * N // n
         if shard_dim == 1:      # slot c: column block c of [K, N], [K, ck]
-            chunks, cw, ldo, o_chunk = N // ck, ck, ck, K * ck
-        else:                   # the slots are row blocks of [K, N] itself
+            chunks, cw, ldo, o_chunk = N // ck, ck, ck, slot
+        else:                   # slot c: row block c of [K, N], [ck, N]
             chunks, cw, ldo, o_chunk = 1, N, N, 0
+            rc, r_chunk = ck, slot
     else:
         raise ValueError(f"tile_plan: kind is 'ag' or 'rs', got {kind!r}")
     m_tiles = _cdiv(out_rows, TILE_M)
@@ -258,7 +269,8 @@ def tile_plan(kind, M, K, N, ck, n, rank=0, contract=False, shard_dim=0,
     return TilePlan(bm=TILE_M, bn=bn, bk=TILE_K, M=out_rows, m_tiles=m_tiles,
                     chunks=chunks, cw=cw, nt_chunk=_cdiv(cw, bn),
                     k_chunks=k_chunks, kpc=kpc, a_chunk=a_chunk, rank=rank,
-                    b_by_chunk=b_by_chunk, ldo=ldo, o_chunk=o_chunk, sms=sms)
+                    b_by_chunk=b_by_chunk, ldo=ldo, o_chunk=o_chunk, sms=sms,
+                    rc=rc, r_chunk=r_chunk)
 
 
 def tma_ok(widths, tensors):
@@ -276,13 +288,22 @@ def ag_matmul_route(x, shards, shard_dim, transpose_w=False):
         else "ag_matmul_mma"
 
 
+def _slot(out, shard):
+    """The distance between ``out``'s slots: its row stride when it is
+    the [n, shard] view of an exchange region's columns, else the
+    shard."""
+    return out.stride(0) if out is not None and out.dim() == 2 \
+        and out.shape[0] > 1 else shard
+
+
 def mm_rs_partial_route(lhs, rhs, shard_dim, n, out=None):
     """The launch name ``mm_rs_partial`` takes: "mm_rs_partial" (the TMA
     kernel) or "mm_rs_partial_mma"."""
     K, N = lhs.shape[1], rhs.shape[1]
     ck = (K if shard_dim == 0 else N) // n
     tensors = (lhs, rhs) if out is None else (lhs, rhs, out)
-    return "mm_rs_partial" if tma_ok((K, N, ck), tensors) \
+    return "mm_rs_partial" if tma_ok((K, N, ck, _slot(out, K * N // n)),
+                                     tensors) \
         else "mm_rs_partial_mma"
 
 
@@ -301,7 +322,7 @@ def _launch_tma(a, a_mn, bs, b_mn, out, plan):
         out.data_ptr(), int(out.dtype == torch.float32), plan.M,
         plan.m_tiles, plan.nt_chunk, plan.cw, plan.tiles, plan.k_chunks,
         plan.kpc, plan.a_chunk, plan.rank, int(plan.b_by_chunk), plan.ldo,
-        plan.o_chunk, plan.bn, plan.grid,
+        plan.o_chunk, plan.rc, plan.r_chunk, plan.bn, plan.grid,
         torch.cuda.current_stream(a.device).cuda_stream)
 
 
@@ -405,17 +426,23 @@ def _rs_operands(fn, lhs, rhs, shard_dim, n, out):
     shard = K * N // n
     if out is None:
         out = torch.empty(n, shard, dtype=torch.float32, device=lhs.device)
-    elif out.dtype != torch.float32 or out.numel() != n * shard \
-            or not out.is_contiguous() or out.device != lhs.device:
-        raise ValueError(f"{fn}: out must be a contiguous fp32 [{n}, "
-                         f"{shard}] on {lhs.device}")
+    elif out.dim() != 2 and out.is_contiguous() and out.numel() == n * shard:
+        out = out.view(n, shard)
+    if out.dtype != torch.float32 or tuple(out.shape) != (n, shard) \
+            or out.stride(1) != 1 or _slot(out, shard) < shard \
+            or out.device != lhs.device:
+        raise ValueError(f"{fn}: out must be fp32 [{n}, {shard}] on "
+                         f"{lhs.device}, each slot contiguous, the slots "
+                         f"apart by at least a shard")
     return M, K, N, cut // n, out
 
 
 def mm_rs_partial(lhs, rhs, shard_dim, n, out=None):
     """This rank's partials of lhs^T @ rhs ([M, K] and [M, N], contracting
     over the M tokens), cut on ``shard_dim`` into n destination chunks:
-    [n, shard] fp32, into ``out`` (the rank's slot region) when given. On
+    [n, shard] fp32, into ``out`` when given (the rank's slot region, or
+    the [n, shard] columns of a layer's [n, run] exchange region, whose
+    slots lie a region row apart). On
     CUDA: bf16 lhs and rhs; the TMA kernel where ``mm_rs_partial_route``
     says so, else the mma.sync kernel (counted as ``mm_rs_partial_mma``)."""
     if lhs.device.type == "cpu":
@@ -440,44 +467,87 @@ def _mm_rs_partial_cuda(fn, lhs, rhs, shard_dim, n, out):
         return out.zero_()
     if fn == "mm_rs_partial":
         fn = mm_rs_partial_route(lhs, rhs, shard_dim, n, out)
+    slot = _slot(out, K * N // n)
     if fn == "mm_rs_partial":
         plan = tile_plan("rs", M, K, N, ck, n, shard_dim=int(shard_dim),
-                         sms=_sms(lhs.device.index))
+                         sms=_sms(lhs.device.index), slot=slot)
         _launch_tma(lhs, True, [rhs], True, out, plan)
     else:
         vec = K % 8 == 0 and N % 8 == 0 and _aligned(lhs, rhs)
         builder.kernels().call(
             "dstpu_mm_rs_partial", lhs.data_ptr(), rhs.data_ptr(),
             out.data_ptr(), M, K, N, ck, int(shard_dim == 1), int(vec),
-            torch.cuda.current_stream(lhs.device).cuda_stream)
+            slot, torch.cuda.current_stream(lhs.device).cuda_stream)
     builder.launches[fn] += 1
     return out
 
 
-def mm_rs_reduce(slots, rank, out=None):
-    """Chunk ``rank`` summed over the n ranks' partials (``slots``, each
-    [n, shard] fp32, rank order; the peers' views of their slot regions on
-    the card): [shard] fp32."""
+def mm_rs_reduce_fill(reduced, outs):
+    """Write ``reduced`` (a [run] fp32 result) into ``outs``, a list of
+    (offset, tensor): each tensor takes the run's elements from its
+    offset, cast to its dtype (what the kernel writes). Returns ``outs``."""
+    for off, t in outs:
+        t.copy_(reduced[off:off + t.numel()].view(t.shape))
+    return outs
+
+
+def mm_rs_reduce(slots, rank, out=None, outs=None):
+    """Row ``rank`` summed over the n ranks' [n, run] fp32 regions
+    (``slots``, rank order; the peers' views of their slot regions on the
+    card), rank+1's first and this rank's own last: [run] fp32, into
+    ``out`` when given. With ``outs``, a list of (offset, tensor) in
+    increasing offsets, the sum goes there instead, each tensor taking the
+    run's elements from its offset in its own dtype (fp32 or bf16), and
+    ``outs`` is returned: one launch for a whole ZeRO-3 layer's
+    reduce-scatters. Elements no tensor takes are not read."""
     fn = "mm_rs_reduce"
     if slots[0].device.type == "cpu":
         result = mm_rs_reduce_plain(slots, rank)
+        if outs is not None:
+            return mm_rs_reduce_fill(result, outs)
         return result if out is None else out.copy_(result)
     if slots[0].device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {slots[0].device}")
-    _check_peers(fn, slots, torch.float32, slots[0].device)
+    dev = slots[0].device
+    _check_peers(fn, slots, torch.float32, dev)
     n = len(slots)
     if slots[0].shape[0] != n:
-        raise ValueError(f"{fn}: each slot region must be [{n}, shard]")
-    shard = slots[0][0].numel()
-    if out is None:
-        out = torch.empty(shard, dtype=torch.float32, device=slots[0].device)
-    elif out.dtype != torch.float32 or out.numel() != shard \
-            or not out.is_contiguous():
-        raise ValueError(f"{fn}: out must be a contiguous fp32 [{shard}]")
-    vec = shard % 4 == 0 and _aligned(out, *slots)
+        raise ValueError(f"{fn}: each slot region must be [{n}, run]")
+    run = slots[0][0].numel()
+    if outs is None:
+        if out is None:
+            out = torch.empty(run, dtype=torch.float32, device=dev)
+        elif out.dtype != torch.float32 or out.numel() != run \
+                or not out.is_contiguous():
+            raise ValueError(f"{fn}: out must be a contiguous fp32 [{run}]")
+        table = [(0, out)]
+    else:
+        table = list(outs)
+    if not 1 <= len(table) <= MAX_OUTS:
+        raise NotImplementedError(f"{fn}: one launch writes 1 to "
+                                  f"{MAX_OUTS} destinations, got "
+                                  f"{len(table)}")
+    end = 0
+    for off, t in table:
+        if t.device != dev or t.dtype not in (torch.float32, torch.bfloat16) \
+                or not t.is_contiguous() or off < end \
+                or off + t.numel() > run or t.numel() < 1:
+            raise ValueError(f"{fn}: each destination must be a contiguous "
+                             f"fp32 or bf16 tensor on {dev} inside the "
+                             f"run, in increasing offsets without overlap")
+        end = off + t.numel()
+    if n * run >= 2 ** 31:
+        raise NotImplementedError(f"{fn}: the CUDA kernel takes regions "
+                                  f"of fewer than 2^31 elements")
+    vec = run % VEC_ELEMS == 0 and _aligned(*slots) and all(
+        off % VEC_ELEMS == 0 and t.numel() % VEC_ELEMS == 0
+        and t.data_ptr() % 16 == 0 for off, t in table)
+    meta = (ctypes.c_int * (3 * len(table)))(*[
+        v for off, t in table
+        for v in (off, t.numel(), int(t.dtype == torch.float32))])
     builder.kernels().call(
-        "dstpu_mm_rs_reduce", _table(slots), out.data_ptr(), shard,
-        int(rank), n, int(vec),
-        torch.cuda.current_stream(out.device).cuda_stream)
+        "dstpu_mm_rs_reduce", _table(slots), n, int(rank), run,
+        _table([t for _, t in table]), meta, len(table), int(vec),
+        torch.cuda.current_stream(dev).cuda_stream)
     builder.launches[fn] += 1
-    return out
+    return out if outs is None else outs

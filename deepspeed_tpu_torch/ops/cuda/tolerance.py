@@ -93,6 +93,9 @@ ROW_RTOL = {"ln_qkv_stacked": 2e-3, "out_ffn_stacked": 2e-3,
             "decode_attention_stacked": 1e-2,
             "decode_attention_stacked[int8]": 1e-2,
             "kv_quant_int8": 0.0,
+            # what the attention kernel's folded append writes into the
+            # cache (int8 codes and scales, or the bf16 rows): bit for bit
+            "kv_append": 0.0,
             # GPT-2's int8 contract (LayerNorm, biases, gelu_tanh, fused
             # o-projection), the int8 cache at head dim 64, and the
             # unstacked kernels, which run the stacked kernels' code

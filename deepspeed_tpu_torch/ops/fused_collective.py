@@ -30,6 +30,7 @@ import torch
 
 from deepspeed_tpu_torch.config.config import ROADMAP_STREAM
 from deepspeed_tpu_torch.ops.cuda import fused_collective as kernels
+from deepspeed_tpu_torch.parallel import overlap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,26 +159,46 @@ def all_gather_matmul(x, w_shard, *, shard_dim, axis_size=1,
     return y.reshape(lead + (y.shape[-1],))
 
 
-def matmul_reduce_scatter(lhs, rhs, *, shard_dim, axis_size=1, cfg=None):
+def matmul_reduce_scatter(lhs, rhs, *, shard_dim, axis_size=1, cfg=None,
+                          out_dtype=None, shard=None):
     """This rank's shard of the sum over the ranks of ``lhs^T @ rhs``
-    (lhs [..., K], rhs [..., N]): fp32 [K/n, N] (shard_dim 0) or
-    [K, N/n] (shard_dim 1), SUMMED, not meaned."""
+    (lhs [..., K], rhs [..., N]): [K/n, N] (shard_dim 0) or [K, N/n]
+    (shard_dim 1), SUMMED, not meaned, in ``out_dtype`` (default fp32).
+
+    Inside an open ``overlap.ReduceScatterBatch`` (the ZeRO-3 backward's
+    layer batch) the partials go into the batch's columns for ``shard``
+    (the resting shard whose gradient this is) and the result comes back
+    unfilled: the batch's close fills it, with the layer's other
+    reduce-scatters, after one barrier. Outside a batch the exchange is
+    its own: a slot, a barrier, a reduce."""
     n = int(axis_size)
     l2, r2 = _as_2d(lhs).contiguous(), _as_2d(rhs).contiguous()
+    out_dtype = out_dtype or torch.float32
     if n == 1:
-        return l2.float().t() @ r2.float()
+        return (l2.float().t() @ r2.float()).to(out_dtype)
     cfg, backend = _resolve(cfg)
     mesh = _world(cfg, n)
     K, N = l2.shape[1], r2.shape[1]
     shape = (K // n, N) if shard_dim == 0 else (K, N // n)
-    shard = K * N // n
+    batch = overlap.active_batch()
+    if batch is not None:
+        if shard is None:
+            raise ValueError("matmul_reduce_scatter inside a reduce-scatter "
+                             "batch needs the resting shard it reduces for")
+        key = overlap.shard_key(shard)
+        cols = batch.columns(key)
+        if backend == "fused":
+            kernels.mm_rs_partial(l2, r2, shard_dim, n, out=cols)
+        else:
+            cols.copy_(kernels.mm_rs_partial_plain(l2, r2, shard_dim, n))
+        return batch.defer(key, shape, out_dtype)
     if mesh.heap is None:
         part = kernels.mm_rs_partial(l2, r2, shard_dim, n) \
             if backend == "fused" else \
             kernels.mm_rs_partial_plain(l2, r2, shard_dim, n)
         slots = mesh.all_gather(part)
     else:
-        slot = mesh.heap.slot(n * shard).view(n, shard)
+        slot = mesh.heap.slot(K * N).view(n, K * N // n)
         if backend == "fused":
             kernels.mm_rs_partial(l2, r2, shard_dim, n, out=slot)
         else:
@@ -186,7 +207,7 @@ def matmul_reduce_scatter(lhs, rhs, *, shard_dim, axis_size=1, cfg=None):
         slots = mesh.heap.peer_views(slot)
     out = kernels.mm_rs_reduce(slots, mesh.rank) if backend == "fused" \
         else kernels.mm_rs_reduce_plain(slots, mesh.rank)
-    return out.reshape(shape)
+    return out.reshape(shape).to(out_dtype)
 
 
 class _CollectiveMatmul(torch.autograd.Function):
@@ -208,9 +229,13 @@ class _CollectiveMatmul(torch.autograd.Function):
         dx = all_gather_matmul(dy, w_shard, shard_dim=shard_dim,
                                axis_size=axis_size, transpose_w=True,
                                cfg=cfg, out_dtype=x.dtype)
+        # dW in the shard's dtype from the start: inside the layer's
+        # reduce-scatter batch it is filled only at the batch's close, so
+        # nothing (no cast) may read it before
         dw = matmul_reduce_scatter(x, dy, shard_dim=shard_dim,
-                                   axis_size=axis_size, cfg=cfg)
-        return dx.reshape(x.shape), dw.to(w_shard.dtype), None, None, None
+                                   axis_size=axis_size, cfg=cfg,
+                                   out_dtype=w_shard.dtype, shard=w_shard)
+        return dx.reshape(x.shape), dw, None, None, None
 
 
 def collective_matmul(x, w_shard, *, shard_dim, axis_size=1, cfg=None):

@@ -20,8 +20,10 @@ Routes, as JAX takes them:
 
 - with ``quantize_bits=8, kv_cache_bits=8`` a decode step (S == 1, no
   mask, B <= 8, ``quantize_groups`` 1, E and F multiples of 128) runs
-  four kernels a layer: ``ln_qkv_int8``, ``kv_quant_int8`` (into the
-  cache in place), ``decode_attention_int8`` and ``out_ffn_int8``;
+  three kernels a layer: ``ln_qkv_int8``, ``decode_attention_int8``
+  (which writes the new rows' int8 codes into the cache in place first,
+  kv_quant_int8's arithmetic inside the attention kernel) and
+  ``out_ffn_int8``;
 - otherwise the general path: dense products (int8 codes dequantized
   first, as ``QuantDense`` does) and ``_attend``, which over an int8
   cache at S == 1 (no mask, B <= 8) runs ``decode_attention_int8`` and
@@ -42,8 +44,8 @@ from torch import nn
 
 from deepspeed_tpu_torch.ops.attention import dot_product_attention
 from deepspeed_tpu_torch.ops.cuda.decode import (decode_attention_int8,
-                                                 kv_quant_int8, ln_qkv_int8,
-                                                 out_ffn_int8, quantize_rows)
+                                                 ln_qkv_int8, out_ffn_int8,
+                                                 quantize_rows)
 
 ROADMAP_MOE = "ROADMAP.md queue 1, item \"Remaining models\""
 ROADMAP_TP = "ROADMAP.md queue 1, item \"Multi-GPU ZeRO-3 stream\""
@@ -266,9 +268,11 @@ class DeepSpeedTransformerInference(nn.Module):
 
     def _decode_step_fused(self, x, w, cache):
         """The int8 serving step (``_decode_step_fused``, inference.py:234):
-        ln_qkv_int8, kv_quant_int8 writing the new rows into the cache at
-        ``cache.index``, decode_attention_int8 over rows 0..index, and
-        out_ffn_int8. Past the cache's end x is NaN, as in JAX."""
+        ln_qkv_int8, decode_attention_int8 writing the new rows' int8
+        codes into the cache at ``cache.index`` (kv_quant_int8's
+        arithmetic, inside the attention kernel) and attending over rows
+        0..index, and out_ffn_int8. Past the cache's end x is NaN, as in
+        JAX."""
         cfg = self.config
         B, _, E = x.shape
         H, D, L = cfg.heads, cfg.head_dim, cache.length
@@ -279,18 +283,13 @@ class DeepSpeedTransformerInference(nn.Module):
         qkv = ln_qkv_int8(x2, w["ln1_w"], w["ln1_b"], w["attn_qkvw"],
                           w["attn_qkvw" + SCALE].reshape(1), w["attn_qkvb"],
                           eps=eps)
-        k3 = qkv[:, E:2 * E].view(B, H, D)
-        v3 = qkv[:, 2 * E:].view(B, H, D)
-        # the write lands at min(start, L - 1), as dynamic_update_slice
-        # clamps it
-        kv_quant_int8(k3, v3, out=(cache.k[None], cache.k_scale[None, :, :,
-                                                                  None],
-                                   cache.v[None],
-                                   cache.v_scale[None, :, :, None]),
-                      rows=torch.clamp(start, max=L - 1))
+        # the kernel writes the new rows' codes and scales at min(start,
+        # L - 1) first, as dynamic_update_slice clamps the write
         ctx = decode_attention_int8(
-            qkv[:, :E].reshape(B, H, 1, D).contiguous(), cache.k, cache.k_scale, cache.v,
-            cache.v_scale, start, scale=1.0 / math.sqrt(D))
+            qkv[:, :E].reshape(B, H, 1, D).contiguous(), cache.k,
+            cache.k_scale, cache.v, cache.v_scale, start,
+            scale=1.0 / math.sqrt(D), new_k=qkv[:, E:2 * E].view(B, H, D),
+            new_v=qkv[:, 2 * E:].view(B, H, D))
         y = out_ffn_int8(
             ctx.reshape(B, E), x2, w["attn_ow"], w["attn_ow" + SCALE].reshape(1),
             w["attn_ob"], w["ln2_w"], w["ln2_b"], w["inter_w"],

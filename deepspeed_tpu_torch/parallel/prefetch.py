@@ -17,7 +17,10 @@ parameters are live at a time. The backward (a ``torch.autograd.Function``)
 runs in reverse: it re-gathers layer i-1 while it recomputes layer i
 under ``enable_grad`` from the saved layer input (full remat, the same
 memory shape as the reference's post-backward release), takes layer i's
-gradients, and reduce-scatters the packed ones, one exchange a group.
+gradients, and reduce-scatters them as one exchange a layer
+(``overlap.ReduceScatterBatch``): the streamed leaves' partials and the
+packed groups' flat gradients share the layer's exchange region, and one
+barrier and one reduce launch serve them all.
 
 ``mode="fused_matmul"``: the ``fused_ids`` leaves skip the packed gather;
 the body gets their resting shards inside ``gather_scope(fused_cfg)``, and
@@ -174,9 +177,13 @@ def _unpack_layer_full(gathered, shard_shapes, lp):
     return out
 
 
-def _scatter_layer_grads(grads_by_id, shard_shapes, lp, mesh):
+def _scatter_layer_grads(grads_by_id, shard_shapes, lp, mesh, batch=None):
     """Full per-layer gradients → fp32 shard SUMS {id: tensor}, packed so
-    that a layer costs one reduce-scatter a group."""
+    that a layer costs one reduce-scatter a group; inside the layer's
+    ``batch`` the packed flats go into its columns instead and the shards
+    come back unfilled, views of what its close fills."""
+    if batch is not None:
+        return _batch_layer_grads(grads_by_id, shard_shapes, lp, batch)
     out = {}
     for _, ids in lp.groups:
         parts = [_chunks_from_full(grads_by_id[i].float(), lp.plan[i][0],
@@ -190,6 +197,49 @@ def _scatter_layer_grads(grads_by_id, shard_shapes, lp, mesh):
             out[i] = shard[off:off + m].reshape(shape)
             off += m
     return out
+
+
+def _batch_layer_grads(grads_by_id, shard_shapes, lp, batch):
+    out = {}
+    for g, (_, ids) in enumerate(lp.groups):
+        cols, off = batch.columns(("group", g)), 0
+        for i in ids:
+            shape = tuple(shard_shapes[i])
+            m = math.prod(shape or (1,))
+            cols[:, off:off + m].view((lp.n,) + shape).copy_(
+                _chunks_from_full(grads_by_id[i], lp.plan[i][0], lp.n))
+            off += m
+        shard, off = batch.defer(("group", g), (off,)), 0
+        for i in ids:
+            shape = tuple(shard_shapes[i])
+            m = math.prod(shape or (1,))
+            out[i] = shard[off:off + m].reshape(shape)
+            off += m
+    return out
+
+
+def _layer_numels(lp, shard_shapes):
+    """Each streamed leaf's shard size, then each packed group's: a layer's
+    reduce-scatter batch in layout order."""
+    def numel(i):
+        return math.prod(tuple(shard_shapes[i]) or (1,))
+    return [numel(j) for j in lp.fused] + \
+        [sum(numel(i) for i in ids) for _, ids in lp.groups]
+
+
+def layer_reduce_sizes(lp, shard_shapes, fused_shards):
+    """The layer's reduce-scatter batch layout: {key: numel}, each streamed
+    leaf (``fused_shards`` {id: its resting shard}) by ``shard_key``, then
+    each packed group."""
+    keys = [overlap.shard_key(fused_shards[j]) for j in lp.fused] + \
+        [("group", g) for g in range(len(lp.groups))]
+    return dict(zip(keys, _layer_numels(lp, shard_shapes)))
+
+
+def layer_exchange_numel(lp, shard_shapes, n):
+    """Elements of a layer's exchange region, [n, run]: what an exchange
+    slot of the heap must hold for the backward's batch."""
+    return n * overlap.batch_run(_layer_numels(lp, shard_shapes))
 
 
 class _Gathers:
@@ -271,12 +321,22 @@ class _PrefetchedScan(torch.autograd.Function):
             with torch.enable_grad(), \
                     fc.gather_scope(cfg if lp.fused else None):
                 y = body(x_i, lt)
-            d = torch.autograd.grad(y, [x_i] + lt, dy, allow_unused=True)
-            dy = d[0]
-            d_leaves = [torch.zeros_like(t) if g is None else g
-                        for g, t in zip(d[1:], lt)]
-            shards = _scatter_layer_grads(
-                {j: d_leaves[j] for j in sharded}, shapes, lp, mesh)
+            # the layer's reduce-scatters (the streamed leaves' dW and the
+            # packed groups) as one exchange: one barrier a layer
+            sizes = layer_reduce_sizes(lp, shapes, {j: lt[j]
+                                                    for j in lp.fused})
+            plain = cfg is not None and cfg.backend == "lax"
+            with overlap.reduce_scatter_batch(mesh, sizes, plain) as batch:
+                d = torch.autograd.grad(y, [x_i] + lt, dy,
+                                        allow_unused=True)
+                batch.check_returned({overlap.shard_key(lt[j]): d[1 + j]
+                                      for j in lp.fused})
+                dy = d[0]
+                d_leaves = [torch.zeros_like(t) if g is None else g
+                            for g, t in zip(d[1:], lt)]
+                shards = _scatter_layer_grads(
+                    {j: d_leaves[j] for j in sharded}, shapes, lp, mesh,
+                    batch)
             for j in range(nleaf):
                 grads[i * nleaf + j] = shards.get(j, d_leaves[j])
             g_cur = g_prev

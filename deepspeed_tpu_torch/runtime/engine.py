@@ -687,15 +687,17 @@ class DeepSpeedEngine:
             for j in self._lp.fused:
                 name = f"{sub}.{l}.{self._layer_leaves[j]}"
                 regions[name] = (shard_shapes[name], cdt)
-        # the largest exchange: a full leaf's fp32 gradient (outer leaves,
-        # streamed kernels), a layer's packed group, or the replicated
-        # leaves' all-reduce
+        # the largest exchange: a full leaf's fp32 gradient (outer leaves),
+        # a layer's backward batch (its streamed leaves' partials and
+        # packed groups), or the replicated leaves' all-reduce
         full = [math.prod(m.shape) * (n if self._entries[k] else 1)
                 for k, m in zip(self.param_names, self.master)]
-        groups = [n * math.prod(shape) for shape, _ in regions.values()]
+        layer = prefetch_lib.layer_exchange_numel(
+            self._lp, [shard_shapes[f"{sub}.0.{leaf}"]
+                       for leaf in self._layer_leaves], n)
         repl = sum(f for f, k in zip(full, self.param_names)
                    if self._entries[k] is None)
-        heap = SymmetricHeap(mesh, regions, 4 * max(full + groups + [repl]))
+        heap = SymmetricHeap(mesh, regions, 4 * max(full + [layer, repl]))
         views = {}
         for region, names in packed.items():
             buf, off = heap.tensor(region), 0

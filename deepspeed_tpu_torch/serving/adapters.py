@@ -9,10 +9,11 @@ device work per engine:
   paged-attention reads through the page table, idle slots masked by
   ``pos[b] < 0``. Each layer runs the decode kernels
   (``ln_qkv_stacked``, ``decode_attention_paged``, ``out_ffn_stacked``,
-  and for a large LLaMA ``matvec_stacked``); the new K/V rows are
-  appended into the pool in place (row ``pos[b] % page`` of block
-  ``page_table[b, pos[b] // page]``), into an int8 pool by
-  ``kv_quant_int8``.
+  and for a large LLaMA ``matvec_stacked``); the attention kernel first
+  appends each live slot's new K/V rows into the pool in place (row
+  ``pos[b] % page`` of block ``page_table[b, pos[b] // page]``; into an
+  int8 pool as kv_quant_int8's codes and scales); idle slots write
+  nothing.
 - ``prefill``: one request's prompt pass at a pow2-bucketed padded
   length through the flash kernel, writing K/V (pad rows included)
   straight into the slot's pages and returning last-position logits.
@@ -37,7 +38,6 @@ from deepspeed_tpu_torch.models.llama import (LlamaConfig, rms_norm,
                                               rope_tables)
 from deepspeed_tpu_torch.ops.attention import dot_product_attention
 from deepspeed_tpu_torch.ops.cuda.decode import (decode_attention_paged,
-                                                 kv_quant_int8,
                                                  ln_qkv_stacked,
                                                  matvec_stacked,
                                                  out_ffn_stacked,
@@ -47,20 +47,6 @@ from deepspeed_tpu_torch.serving.paged_cache import (PagedCacheSpec,
 
 
 # ----------------------------------------------------------- pool writes
-
-def _append_rows(pool, l, lid, blk_ids, rows, k3, v3):
-    """Write one new K/V row per slot ([B, H, D]) into layer ``l`` (device
-    index ``lid``) of the pool at (block blk_ids[b], row rows[b]), in
-    place; into an int8 pool as kv_quant_int8's codes and scales. Idle
-    slots arrive pointed at the trash block, so the write is always
-    legal."""
-    if len(pool) == 4:
-        kv_quant_int8(k3, v3, out=pool, layer=lid, blocks=blk_ids, rows=rows)
-        return
-    kc, vc = pool
-    kc[l][blk_ids, :, rows] = k3.to(kc.dtype)
-    vc[l][blk_ids, :, rows] = v3.to(vc.dtype)
-
 
 def _write_prompt_pages(pool, l, k, v, pages, page):
     """Blockify one layer's prompt K/V ([H, Sp, D], Sp = len(pages)*page)
@@ -85,18 +71,6 @@ def _write_prompt_pages(pool, l, k, v, pages, page):
     kc, vc = pool
     kc[l][pages] = to_blocks(k).to(kc.dtype)
     vc[l][pages] = to_blocks(v).to(vc.dtype)
-
-
-def _gather_blocks(pt, pos, page):
-    """(block ids, row offsets) [B] int32 for appending each slot's next
-    row. Idle slots (pos < 0) resolve inside their all-trash table
-    rows."""
-    maxp = pt.shape[1]
-    idx = torch.clamp(torch.div(pos, page, rounding_mode="floor"),
-                      0, maxp - 1).long()
-    blk_ids = pt.gather(1, idx[:, None])[:, 0].int()
-    rows = torch.remainder(pos, page).int()
-    return blk_ids, rows
 
 
 # --------------------------------------------------------------- sampling
@@ -195,15 +169,14 @@ class GPT2ServingAdapter(_PagedAdapter):
             if len(pool) == 4 else {}
         scale = 1.0 / math.sqrt(cfg.head_dim)
 
-        def attend(l, lid, qh, k3, v3):     # at this step's blk_ids, rows, pos
-            _append_rows(pool, l, lid, blk_ids, rows, k3, v3)
+        def attend(l, lid, qh, k3, v3):     # at this step's pos
             return decode_attention_paged(qh, kc, vc, pos, pt, lid,
-                                          scale=scale, **scales)
+                                          scale=scale, new_k=k3, new_v=v3,
+                                          **scales)
         out, logits32 = [], None
         for t in range(steps):
             x = p["wte"][toks] + p["wpe"][pos.clamp(0, cfg.n_positions - 1)
                                           .long()]
-            blk_ids, rows = _gather_blocks(pt, pos, self.spec.page_size)
             for l in range(cfg.n_layer):
                 x = gpt2_inference.decode_layer(p, cfg, self._w, x, l,
                                                 self._layer_ids[l], attend)
@@ -287,7 +260,6 @@ class LlamaServingAdapter(_PagedAdapter):
         out, logits32 = [], None
         for t in range(steps):
             x = p["embed"][toks]
-            blk_ids, rows = _gather_blocks(pt, pos, self.spec.page_size)
             cos, sin = rope_tables(pos, D, cfg.rope_theta, x.dtype)
             for l in range(cfg.n_layers):
                 lid = self._layer_ids[l]
@@ -296,11 +268,10 @@ class LlamaServingAdapter(_PagedAdapter):
                 qk = rope_rows(qkv[:, :(H + Hkv) * D].reshape(B, H + Hkv, D),
                                cos, sin)
                 v3 = qkv[:, (H + Hkv) * D:].reshape(B, Hkv, D)
-                _append_rows(pool, l, lid, blk_ids, rows, qk[:, H:], v3)
                 ctx = decode_attention_paged(
                     qk[:, :H].reshape(B, Hkv, rep, D).contiguous(), kc, vc,
-                    pos, pt, lid, scale=1.0 / math.sqrt(D),
-                    **scales).reshape(B, H * D)
+                    pos, pt, lid, scale=1.0 / math.sqrt(D), new_k=qk[:, H:],
+                    new_v=v3, **scales).reshape(B, H * D)
                 if fused:
                     x = out_ffn_stacked(
                         ctx, x, Wo, so, None, p["norm2"], None, Wg, sg, None,

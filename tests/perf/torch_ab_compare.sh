@@ -1,8 +1,10 @@
 #!/usr/bin/env bash
 # A/B comparison of two trees of the PyTorch port on one card, in one call:
 # chip_smoke.py runs from the old tree, this tree, this tree again (with
-# --profile) and the old tree again, so that drift of the card or the host
-# shows on both sides. Each run's output goes to chiprun_out/ab_*.log; a
+# --profile) and the old tree again (with --profile), so that drift of the
+# card or the host shows on both sides and each tree has one profiled run
+# (the host's share of a decode step). Each run's output goes to
+# chiprun_out/ab_*.log; a
 # summary is printed per run: the flash and decode-projection kernel lines
 # (ln_qkv*, out_ffn*, matvec*: slots, weights, bound and the torch.matmul
 # yardstick; the variants a row carries: other_turns_us, fma_us), the flash
@@ -10,7 +12,10 @@
 # and whole backward, beside SDPA's backward), the train line (the GPT-2
 # large step), the grad check, the serve lines' decode ms a step and the
 # fast path's t(4 new) and decode ms a step by batch, GPT-2's generate()
-# cases' decode ms a step, the decode-attention
+# cases' decode ms a step, the profiled runs' idle share and host time
+# by path, the ZeRO-3 lines (step, barriers a step and their host time,
+# mm_rs_reduce's kernel line), the decode-attention (with the folded
+# append's cost where the tree has it)
 # and block-sparse kernel lines (the forward, dq and dk/dv, with a decode
 # row's split plan and a block-sparse row's work list), the decode pos
 # sweeps and the BERT sparse step, the quantize kernel lines and the MoQ
@@ -18,7 +23,8 @@
 # then tests/perf/torch_llama_t4.py and torch_kernel_rows.py --decode --bs
 # from each tree in turns (whole lines in chiprun_out/ab_t4_N.log and
 # ab_rows_N.log), or with `moq` tests/perf/torch_moq_boundary.py
-# (ab_moq_N.log), and the GPU unit tests of this tree.
+# (ab_moq_N.log), and the GPU unit tests of this tree (the fused
+# collective's start two ranks on the card).
 #
 #   bash tests/perf/torch_ab_compare.sh OLD_TREE [moq]
 #
@@ -45,10 +51,11 @@ for line in open(name):
     if d.get("phase") == "kernel" and (
             "flash" in d["name"] or d["name"].startswith((
                 "matvec", "ln_qkv", "out_ffn", "decode_attention",
-                "blocksparse"))):
+                "blocksparse", "mm_rs", "kv_quant"))):
         more = "".join(" %s=%.2f" % (k, d[k]) for k in
                        ("other_turns_us", "fma_us", "library_us",
-                        "matmul_us", "bound_us")
+                        "matmul_us", "bound_us", "no_fold_us",
+                        "fold_cost_us", "pct_of_bound")
                        if d.get(k) is not None)
         if d["name"].startswith(("matvec", "ln_qkv", "out_ffn")):
             more += " B=%s %s" % (
@@ -118,6 +125,26 @@ for line in open(name):
             c["row_rel_err_max"] for c in d["cases"]))
     if d.get("phase") == "grad_check":
         print(name, "grad_check", d["max_row_rel_err"])
+    if d.get("phase") in ("train_zero3_fused", "train_zero3_ring"):
+        print(name, d["phase"], "step_ms=%.2f" % d["step_ms"],
+              "barriers_per_step=%s" % d["barriers_per_step"],
+              "barrier_wall_ms_per_step=%.2f" % d["barrier_wall_ms_per_step"],
+              "mm_rs_reduce_a_step=%s" % d[
+                  "launches_per_step_per_rank"].get("mm_rs_reduce"))
+    if d.get("phase") == "profile":
+        print(name, "profile", d["model"], "wall_s=%.4f busy_s=%.4f "
+              "idle=%.4f tick_steps=%d" % (
+                  d["wall_s"], d["device_busy_s"], d["device_idle_share"],
+                  d["tick_steps"]))
+    if d.get("phase") == "host_profile":
+        print(name, "host_profile", d["model"], "wall_s=%.4f tick_steps=%d"
+              % (d["wall_s"], d["tick_steps"]))
+    if d.get("phase") == "generate_llama_int8":
+        for k in ("profile_b1", "profile_b8"):
+            if k in d:
+                print(name, "generate_llama_int8", k, json.dumps(d[k]))
+    if d.get("phase") == "kv_quant_int8_launches":
+        print(name, "kv_quant_int8_launches", d["by_path"])
     if d.get("ok"):
         ok = True
 print(name, "ok" if ok else "FAILED")
@@ -129,7 +156,8 @@ python3 chip_smoke.py > chiprun_out/ab_new1.log 2>&1
 summ chiprun_out/ab_new1.log
 python3 chip_smoke.py --profile > chiprun_out/ab_new2.log 2>&1
 summ chiprun_out/ab_new2.log
-(cd "$old" && python3 chip_smoke.py > "$here/chiprun_out/ab_old2.log" 2>&1)
+(cd "$old" && python3 chip_smoke.py --profile \
+   > "$here/chiprun_out/ab_old2.log" 2>&1)
 summ chiprun_out/ab_old2.log
 # the fast path's t(4 new) and decode ms a step at b8 and b1, which the old
 # tree's chip_smoke may not print, and the decode-attention and block-
@@ -156,4 +184,5 @@ python3 -m pytest --noconftest -p no:cacheprovider -m gpu \
   tests/test_torch_decode_kernels.py tests/test_torch_llama_kernels.py \
   tests/test_torch_llama_int8.py tests/test_torch_gpt2_inference.py \
   tests/test_torch_sparse_attention.py tests/test_torch_bert.py \
-  tests/test_torch_quantize.py -q 2>&1 | tail -3
+  tests/test_torch_quantize.py tests/test_torch_fused_collective.py -q \
+  2>&1 | tail -3

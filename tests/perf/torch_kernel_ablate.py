@@ -523,7 +523,8 @@ def decode_rows_ablation(gen, stream, card):
                 lib.call("dstpu_decode_attention", q.data_ptr(),
                          kc.data_ptr(), vc.data_ptr(), ks_ptr, vs_ptr,
                          pos.data_ptr(), pt_ptr, lids[i].data_ptr(),
-                         out.data_ptr(), B, H, R, D, NB, page, maxp, 0,
+                         None, None, 0, 0, out.data_ptr(), B, H, R, D, NB,
+                         page, maxp, 0,
                          stride, plan.chunk, plan.n_split, D ** -0.5,
                          stream())
             call(0)
@@ -660,7 +661,8 @@ def decode_ablation(entries, gen, stream, card):
             def call(i, fn=fn):
                 err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), None,
                          None, pos.data_ptr(), pt_ptr, lids[i].data_ptr(),
-                         out.data_ptr(), B, H, 1, D, NB, page, maxp, 0,
+                         None, None, 0, 0, out.data_ptr(), B, H, 1, D, NB,
+                         page, maxp, 0,
                          stride, plan.chunk, plan.n_split, D ** -0.5,
                          stream())
                 if err:

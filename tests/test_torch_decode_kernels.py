@@ -323,6 +323,166 @@ def test_split_model_matches_pallas_paged(rows_per_step, int8):
     assert torch.count_nonzero(got[5]) == 0      # the idle slot
 
 
+# ------------------------------------- the folded cache append (new_k)
+
+def _jax_append_stacked(caches, k3, v3, pos, layer):
+    """The JAX fast loops' append (``models/llama_inference.py:290-301``):
+    kv_quant_int8's codes and scales into an int8 cache, the rows into an
+    fp one, by dynamic_update_slice at (layer, 0, 0, pos), which clamps
+    pos to L - 1."""
+    jax = importlib.import_module("jax")
+    jnp, jdec = _jax()
+    dus = jax.lax.dynamic_update_slice
+    B, H, _ = k3.shape
+    k3, v3 = jnp.asarray(k3), jnp.asarray(v3)
+    if len(caches) == 4:
+        kc, ks, vc, vs = map(jnp.asarray, caches)
+        kq, ksc, vq, vsc = jdec.kv_quant_int8(k3, v3)
+        return (dus(kc, kq[None, :, :, None, :], (layer, 0, 0, pos, 0)),
+                dus(ks, ksc.reshape(1, B, H, 1, 1), (layer, 0, 0, 0, pos)),
+                dus(vc, vq[None, :, :, None, :], (layer, 0, 0, pos, 0)),
+                dus(vs, vsc.reshape(1, B, H, 1, 1), (layer, 0, 0, 0, pos)))
+    kc, vc = map(jnp.asarray, caches)
+    return (dus(kc, k3[None, :, :, None, :], (layer, 0, 0, pos, 0)),
+            dus(vc, v3[None, :, :, None, :], (layer, 0, 0, pos, 0)))
+
+
+@pytest.mark.parametrize("pos", [5, SPLIT_CAP - 1, SPLIT_CAP,
+                                 SPLIT_CAP + 3])
+@pytest.mark.parametrize("int8,R,D", [(False, 1, 64), (True, 1, 64),
+                                      (False, 4, 128), (True, 4, 128)])
+def test_folded_append_stacked_matches_jax(pos, int8, R, D):
+    """decode_attention_stacked with new_k/new_v: the cache it leaves
+    equals the JAX loop's append (kv_quant_int8 + dynamic_update_slice,
+    bit for bit; at pos >= L the write lands on row L - 1) and the port's
+    two separate calls (kv_quant_int8 or the rows' copy, then the
+    attention), and its output equals the JAX attention over that cache
+    at 2e-5 and the separate calls' bit for bit."""
+    jnp, jdec = _jax()
+    rs = np.random.RandomState(100 + pos)
+    q, kc, vc, ks, vs = _stacked_inputs(rs, int8, R, D=D)
+    B, Hkv = q.shape[:2]
+    k3, v3 = (rs.randn(B, Hkv, D).astype(np.float32) for _ in range(2))
+    caches = (kc, ks, vc, vs) if int8 else (kc, vc)
+    want_caches = _jax_append_stacked(caches, k3, v3, pos, 1)
+    if int8:
+        want = jdec.decode_attention_int8_stacked(
+            jnp.asarray(q), want_caches[0], want_caches[1], want_caches[2],
+            want_caches[3], pos, 1)
+    else:
+        want = jdec.decode_attention_fp_stacked(
+            jnp.asarray(q), want_caches[0], want_caches[1], pos, 1)
+    got_caches = [torch.from_numpy(c.copy()) for c in caches]
+    sc = dict(k_scale=got_caches[1], v_scale=got_caches[3]) if int8 else {}
+    kk, vv = got_caches[0], got_caches[len(caches) // 2]
+    pos_t = torch.tensor([pos], dtype=torch.int32)
+    got = dk.decode_attention_stacked(t32(q), kk, vv, pos_t, 1,
+                                      new_k=t32(k3), new_v=t32(v3), **sc)
+    for g, w in zip(got_caches, want_caches):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert_close(got, np.asarray(want))
+    # the separate calls the fold replaces
+    sep = [torch.from_numpy(c.copy()) for c in caches]
+    row = torch.tensor([min(pos, SPLIT_CAP - 1)], dtype=torch.int32)
+    if int8:
+        dk.kv_quant_int8(t32(k3), t32(v3), out=tuple(sep), layer=1, rows=row)
+        sc = dict(k_scale=sep[1], v_scale=sep[3])
+    else:
+        sep[0][1].index_copy_(2, row.long(), t32(k3)[:, :, None])
+        sep[1][1].index_copy_(2, row.long(), t32(v3)[:, :, None])
+    alone = dk.decode_attention_stacked(t32(q), sep[0], sep[len(sep) // 2],
+                                        pos_t, 1, **sc)
+    assert all(torch.equal(a, b) for a, b in zip(sep, got_caches))
+    assert torch.equal(alone, got)
+
+
+@pytest.mark.parametrize("int8,R,D", [(False, 2, 64), (True, 1, 64),
+                                      (True, 4, 128)])
+def test_folded_append_paged_matches_jax(int8, R, D):
+    """decode_attention_paged with new_k/new_v over scattered pages: each
+    live slot's row lands where the JAX adapter's ``_append_rows`` puts
+    it (block page_table[b, pos // page], row pos % page; codes and
+    scales bit for bit), the output equals the JAX paged attention over
+    that pool at 2e-5, and the idle slot (pos -1) writes nothing: JAX
+    writes its row into the trash block 0, which the port leaves as it
+    was (no test reads the trash block's contents)."""
+    jax = importlib.import_module("jax")
+    jnp, jdec = _jax()
+    from deepspeed_tpu.serving.adapters import _append_rows, _gather_blocks
+    rs = np.random.RandomState(21)
+    q, kp, vp, pos, pt = _paged_inputs(rs, R=R, D=D, H=2)
+    B, H = q.shape[:2]
+    pos = np.array([31, 16, -1], np.int32)       # a page's last row, first
+    pt[2] = 0                   # an idle slot's table is all trash
+    k3, v3 = (rs.randn(B, H, D).astype(np.float32) for _ in range(2))
+    pool = (kp, vp)
+    sc = {}
+    if int8:
+        pool = (rs.randint(-127, 128, kp.shape).astype(np.int8),
+                (0.5 + rs.rand(*kp.shape[:3], 1, kp.shape[3])).astype(
+                    np.float32) * 0.01,
+                rs.randint(-127, 128, vp.shape).astype(np.int8),
+                (0.5 + rs.rand(*vp.shape[:3], 1, vp.shape[3])).astype(
+                    np.float32) * 0.01)
+    blk, rows = _gather_blocks(jnp.asarray(pt), jnp.asarray(pos), 16)
+    want_pool = _append_rows(tuple(map(jnp.asarray, pool)), int8, 1, blk,
+                             rows, jnp.asarray(k3), jnp.asarray(v3))
+    jsc = dict(k_scale=want_pool[1], v_scale=want_pool[3]) if int8 else {}
+    want = jdec.decode_attention_paged(
+        jnp.asarray(q), want_pool[0], want_pool[len(pool) // 2],
+        jnp.asarray(pos), jnp.asarray(pt), 1, **jsc)
+    got_pool = [torch.from_numpy(p.copy()) for p in pool]
+    if int8:
+        sc = dict(k_scale=got_pool[1], v_scale=got_pool[3])
+    got = decode_attention_paged(
+        t32(q), got_pool[0], got_pool[len(pool) // 2],
+        torch.from_numpy(pos), torch.from_numpy(pt), 1, new_k=t32(k3),
+        new_v=t32(v3), **sc)
+    assert_close(got, np.asarray(want))
+    assert torch.count_nonzero(got[2]) == 0
+    for g, w, before in zip(got_pool, want_pool, pool):
+        w = np.asarray(w)
+        np.testing.assert_array_equal(g.numpy()[:, 1:], w[:, 1:])
+        np.testing.assert_array_equal(g.numpy()[:, 0], before[:, 0])
+    assert not np.array_equal(np.asarray(want_pool[0])[:, 0], pool[0][:, 0])
+    if R > 1:
+        with pytest.raises(NotImplementedError, match="one new row a slot"):
+            decode_attention_paged(
+                t32(q), got_pool[0], got_pool[len(pool) // 2],
+                torch.from_numpy(pos), torch.from_numpy(pt), 1,
+                new_k=t32(k3), new_v=t32(v3), rows_per_step=1, **sc)
+    with pytest.raises(ValueError, match="both new_k and new_v"):
+        decode_attention_paged(t32(q), got_pool[0], got_pool[len(pool) // 2],
+                               torch.from_numpy(pos), torch.from_numpy(pt),
+                               1, new_k=t32(k3), **sc)
+
+
+def test_folded_append_one_layer_int8_matches_the_separate_calls():
+    """decode_attention_int8 (the per-token layer's one-layer cache) with
+    new_k/new_v writes kv_quant_int8's codes and scales at min(pos, L -
+    1), as the step wrote them before with its own call, and attends
+    over them."""
+    rs = np.random.RandomState(31)
+    B, H, L, D = 2, 3, 32, 64
+    q = t32(0.3 * rs.randn(B, H, 1, D))
+    k3, v3 = (t32(rs.randn(B, H, D)) for _ in range(2))
+    for pos in (7, L - 1, L + 2):
+        kc, vc = (torch.from_numpy(rs.randint(-127, 128, (B, H, L, D))
+                                   .astype(np.int8)) for _ in range(2))
+        ks, vs = (t32((0.5 + rs.rand(B, H, L)) * 0.01) for _ in range(2))
+        sep = [t.clone() for t in (kc, ks, vc, vs)]
+        p = torch.tensor([pos], dtype=torch.int32)
+        got = dk.decode_attention_int8(q, kc, ks, vc, vs, p, new_k=k3,
+                                       new_v=v3)
+        row = torch.tensor([min(pos, L - 1)], dtype=torch.int32)
+        dk.kv_quant_int8(k3, v3, out=(sep[0][None], sep[1][None, :, :, None],
+                                      sep[2][None], sep[3][None, :, :, None]),
+                         rows=row)
+        want = dk.decode_attention_int8(q, *sep, p)
+        assert all(torch.equal(a, b) for a, b in zip((kc, ks, vc, vs), sep))
+        assert torch.equal(got, want)
+
+
 # ------------------------------------------------------------ on the card
 
 def _bf16(a, dev):
@@ -497,3 +657,133 @@ def test_cuda_paged_attention_pos_sweep(cuda_device, D, int8, R,
     name = "decode_attention_paged" + ("[int8]" if int8 else "")
     tolerance.check_kernel(name, got, decode_attention_paged_plain(
         q, kp, vp, pos, pt, 1, rows_per_step=rows_per_step, **kw))
+
+
+# (D, KV heads, R, int8): GPT-2 large's heads, LLaMA-7B's, LLaMA-3-8B's
+# GQA rows, over both caches
+FOLD_CASES = [(64, 20, 1, True), (128, 32, 1, True), (128, 8, 4, True),
+              (64, 20, 1, False), (128, 8, 4, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("D,H,R,int8", FOLD_CASES)
+def test_cuda_folded_append_matches_the_separate_calls(cuda_device, paged,
+                                                       D, H, R, int8):
+    """The attention kernel with new_k/new_v against the two launches it
+    replaces on the same inputs (kv_quant_int8 into the cache, or the
+    rows' copy, then the attention): the caches bit for bit (an int8
+    cache's codes and scales also equal kv_quant_int8_plain's at the
+    written row), the output bit for bit, kv_quant_int8 never launched by
+    the fold. The new rows are views with their own batch strides, as the
+    decode paths pass them. Stacked: pos at a page's edge, a split
+    boundary, the last row and past the end (the write clamps to L - 1).
+    Paged: scattered pages, an idle slot (the fold writes nothing; the
+    separate call wrote into the trash block)."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(17)
+    L, Lyr, layer_i = 1024, 2, 1
+    layer = torch.tensor(layer_i, dtype=torch.int32, device=dev)
+
+    def rows(B):
+        """K from the RoPE'd [B, R H + H, D] rows, V a column slice of the
+        packed qkv [B, (R + 2) H D], as LLaMA's tick passes them (their
+        batch strides differ)."""
+        qk = torch.randn(B, R * H + H, D, generator=g, device=dev) \
+            .to(torch.bfloat16)
+        qkv = torch.randn(B, (R + 2) * H * D, generator=g, device=dev) \
+            .to(torch.bfloat16)
+        return qk[:, R * H:], qkv[:, (R + 1) * H * D:].view(B, H, D)
+
+    def cache(shape, sshape):
+        if int8:
+            return [torch.randint(-127, 128, shape, generator=g, device=dev,
+                                  dtype=torch.int8),
+                    torch.rand(sshape, generator=g, device=dev) * 0.01 + 2e-3,
+                    torch.randint(-127, 128, shape, generator=g, device=dev,
+                                  dtype=torch.int8),
+                    torch.rand(sshape, generator=g, device=dev) * 0.01 + 2e-3]
+        return [torch.randn(shape, generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(2)]
+
+    def call(c, q, pos, extra, **fold):
+        sc = dict(k_scale=c[1], v_scale=c[3]) if int8 else {}
+        if paged:
+            return dk.decode_attention_paged(q, c[0], c[len(c) // 2], pos,
+                                             extra, layer, **sc, **fold)
+        return dk.decode_attention_stacked(q, c[0], c[len(c) // 2], pos,
+                                           layer, **sc, **fold)
+
+    if paged:
+        P, MAXP = 16, 64
+        pos_list = [17, 16, 1023, 512, -1, 0, 255, 900]
+        B = len(pos_list)
+        NB = B * MAXP + 1
+        rs = np.random.RandomState(3)
+        pt = torch.from_numpy(rs.permutation(np.arange(1, NB))[:B * MAXP]
+                              .reshape(B, MAXP).astype(np.int32)).to(dev)
+        pt[4] = 0                               # the idle slot: all trash
+        cases = [(torch.tensor(pos_list, dtype=torch.int32, device=dev),
+                  pt)]
+        shape, sshape = (Lyr, NB, H, P, D), (Lyr, NB, H, 1, P)
+    else:
+        B = 2 if R > 1 else 8
+        cases = [(torch.tensor([p], dtype=torch.int32, device=dev), None)
+                 for p in (15, 16, 511, L - 1, L + 3)]
+        shape, sshape = (Lyr, B, H, L, D), (Lyr, B, H, 1, L)
+    for pos, pt in cases:
+        q = torch.randn(B, H, R, D, generator=g, device=dev) \
+            .to(torch.bfloat16)
+        k3, v3 = rows(B)
+        base = cache(shape, sshape)
+        sep = [t.clone() for t in base]
+        fold = [t.clone() for t in base]
+        if paged:
+            live = pos >= 0
+            p = pos.long().clamp(min=0)
+            blk = pt.gather(1, torch.clamp(p // 16, max=MAXP - 1)[:, None]
+                            )[:, 0].int()
+            row = (p % 16).int()
+            blk = torch.where(live, blk, torch.zeros_like(blk))
+            if int8:
+                dk.kv_quant_int8(k3, v3, out=tuple(sep), layer=layer,
+                                 blocks=blk, rows=row)
+            else:
+                sep[0][layer_i][blk.long(), :, row.long()] = k3
+                sep[1][layer_i][blk.long(), :, row.long()] = v3
+        else:
+            row = pos.clamp(max=L - 1)
+            if int8:
+                dk.kv_quant_int8(k3, v3, out=tuple(sep), layer=layer,
+                                 rows=row)
+            else:
+                sep[0][layer_i].index_copy_(2, row.long(), k3[:, :, None])
+                sep[1][layer_i].index_copy_(2, row.long(), v3[:, :, None])
+        want = call(sep, q, pos, pt)
+        n0 = dict(builder.launches)
+        got = call(fold, q, pos, pt, new_k=k3, new_v=v3)
+        torch.cuda.synchronize()
+        grew = {n: c - n0.get(n, 0) for n, c in builder.launches.items()
+                if c != n0.get(n, 0)}
+        assert grew == {"decode_attention_" +
+                        ("paged" if paged else "stacked"): 1}, grew
+        if paged:
+            # the separate call wrote the idle slot's row into the trash
+            # block, which the fold leaves alone
+            for s, f, b in zip(sep, fold, base):
+                s[:, 0] = b[:, 0]
+                assert torch.equal(f[:, 0], b[:, 0])
+        for s, f in zip(sep, fold):
+            assert torch.equal(s, f), (pos.tolist(), s.dtype)
+        assert torch.equal(got, want), pos.tolist()
+        if int8:
+            kq, ks, vq, vs = dk.kv_quant_int8_plain(k3, v3)
+            live = (pos >= 0).nonzero()[:, 0] if paged else \
+                torch.arange(B, device=dev)
+            for b in live.tolist():
+                bb, r = (int(blk[b]), int(row[b])) if paged else \
+                    (b, int(row))
+                assert torch.equal(fold[0][layer_i, bb, :, r], kq[b])
+                assert torch.equal(fold[2][layer_i, bb, :, r], vq[b])
+                assert torch.equal(fold[1][layer_i, bb, :, 0, r], ks[b, :, 0])
+                assert torch.equal(fold[3][layer_i, bb, :, 0, r], vs[b, :, 0])

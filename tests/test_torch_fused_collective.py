@@ -281,7 +281,8 @@ def _box(t, r0, c0, rows, cols):
 def _emulate(plan, load_a, load_b, out_numel):
     """The TMA kernel's walk in torch: every tile's fp32 sum over the k
     steps in the plan's order, written where its epilogue writes (chunk c
-    at c * o_chunk, row stride ldo, columns inside the chunk only)."""
+    at c * o_chunk, row stride ldo, or row chunks of rc rows r_chunk
+    apart; columns inside the chunk only)."""
     out = torch.full((out_numel,), float("nan"))
     n_tiles, k_steps = plan.n_tiles(), plan.k_tiles()
     for i in range(plan.tiles):
@@ -293,7 +294,9 @@ def _emulate(plan, load_a, load_b, out_numel):
             acc += load_a(mt * plan.bm, a_k0) @ load_b(owner, b_k0, b_n0)
         rows = torch.arange(mt * plan.bm, min((mt + 1) * plan.bm, plan.M))
         cols = torch.arange(width)
-        idx = c * plan.o_chunk + rows[:, None] * plan.ldo + col0 + cols
+        at = rows * plan.ldo if not plan.rc else \
+            rows // plan.rc * plan.r_chunk + rows % plan.rc * plan.ldo
+        idx = c * plan.o_chunk + at[:, None] + col0 + cols
         out[idx.reshape(-1)] = acc[:len(rows), :width].reshape(-1)
     return out
 
@@ -314,16 +317,20 @@ def _emulate_ag(x, shards, rank, shard_dim, transpose_w, sms):
     return out.reshape(x.shape[0], N)
 
 
-def _emulate_rs(lhs, rhs, shard_dim, n, sms):
+def _emulate_rs(lhs, rhs, shard_dim, n, sms, slot=None):
+    """The partials' walk into n slots ``slot`` elements apart (default:
+    back to back): [n, slot] with the slots' tails NaN."""
     M, K = lhs.shape
     N = rhs.shape[1]
     ck = (K if shard_dim == 0 else N) // n
-    plan = k.tile_plan("rs", M, K, N, ck, n, shard_dim=shard_dim, sms=sms)
+    slot = slot or K * N // n
+    plan = k.tile_plan("rs", M, K, N, ck, n, shard_dim=shard_dim, sms=sms,
+                       slot=slot)
     out = _emulate(
         plan, lambda m0, k0: _box(lhs, k0, m0, plan.bk, plan.bm).t(),
         lambda owner, b_k0, b_n0: _box(rhs, b_k0, b_n0, plan.bk, plan.bn),
-        K * N)
-    return out.reshape(n, K * N // n)
+        n * slot)
+    return out.reshape(n, slot)
 
 
 @pytest.mark.parametrize("n,M,K,N", [(2, 9, 144, 200), (4, 5, 72 * 4, 48),
@@ -397,6 +404,149 @@ def test_tile_plan_walk_mm_rs_matches_plain_and_jax_lax(n, M, K, N,
     want = np.asarray(g(jnp.asarray(lhs.numpy()), jnp.asarray(rhs.numpy())))
     np.testing.assert_allclose(got.numpy(), want, atol=FP32_ATOL,
                                rtol=FP32_RTOL)
+
+
+@pytest.mark.parametrize("n,M,K,N", [(2, 70, 144, 200), (4, 9, 48, 56 * 4)])
+@pytest.mark.parametrize("shard_dim", [0, 1])
+def test_tile_plan_walk_mm_rs_into_a_layer_region(n, M, K, N, shard_dim):
+    """The partials written into a layer's exchange region (the slots a
+    region row apart, at a column offset): each slot's columns equal the
+    plain version's slot, nothing else in the row is written, and the
+    wrapper (the CPU's plain version) fills the same columns."""
+    rng = np.random.RandomState(7)
+    lhs = torch.from_numpy(rng.randn(M, K).astype(np.float32) * 0.1)
+    rhs = torch.from_numpy(rng.randn(M, N).astype(np.float32) * 0.1)
+    shard, off = K * N // n, 64
+    run = off + shard + 40
+    want = k.mm_rs_partial_plain(lhs, rhs, shard_dim, n)
+    for sms in (1, 132):
+        rows = _emulate_rs(lhs, rhs, shard_dim, n, sms, slot=run)
+        np.testing.assert_allclose(rows[:, :shard].numpy(), want.numpy(),
+                                   atol=FP32_ATOL, rtol=FP32_RTOL)
+        assert torch.isnan(rows[:, shard:]).all()
+    region = torch.full((n, run), float("nan"))
+    got = k.mm_rs_partial(lhs, rhs, shard_dim, n,
+                          out=region[:, off:off + shard])
+    assert got.data_ptr() == region[:, off:].data_ptr()
+    assert torch.equal(region[:, off:off + shard], want)
+    assert torch.isnan(region[:, :off]).all()
+    assert torch.isnan(region[:, off + shard:]).all()
+    plan = k.tile_plan("rs", M, K, N, (K if shard_dim == 0 else N) // n, n,
+                       shard_dim=shard_dim, slot=run)
+    assert (plan.o_chunk, plan.rc, plan.r_chunk) == (
+        (run, 0, 0) if shard_dim == 1 else (0, K // n, run))
+    # what the TMA route needs of the slot distance: 16-byte rows
+    bf = torch.bfloat16
+    l16, r16 = torch.zeros(8, 64, dtype=bf), torch.zeros(8, 32, dtype=bf)
+    wide = torch.zeros(4, 600)
+    assert k.mm_rs_partial_route(l16, r16, 0, 4, wide[:, :512]) == \
+        "mm_rs_partial"
+    odd = torch.zeros(4, 602)
+    assert k.mm_rs_partial_route(l16, r16, 0, 4, odd[:, :512]) == \
+        "mm_rs_partial_mma"
+
+
+def test_mm_rs_reduce_writes_each_destination_in_its_dtype():
+    """One reduce over [n, run] regions into a table of destinations: each
+    takes its columns' ring-order sum in its own dtype (bf16 rounded to
+    nearest even, as a cast), the gaps between them are not read (NaN
+    there stays out of every result), and the table's order and bounds are
+    checked."""
+    n, run = 4, 200
+    rng = np.random.RandomState(8)
+    regions = [torch.from_numpy(rng.randn(n, run).astype(np.float32))
+               for _ in range(n)]
+    for reg in regions:
+        reg[:, 60:64] = float("nan")
+    for rank in range(n):
+        full = k.mm_rs_reduce_plain([r[:, :60] for r in regions], rank)
+        tail = k.mm_rs_reduce_plain([r[:, 64:] for r in regions], rank)
+        a = torch.empty(6, 10, dtype=torch.bfloat16)
+        b = torch.empty(136)
+        got = k.mm_rs_reduce(regions, rank, outs=[(0, a), (64, b)])
+        assert got[0][1] is a and got[1][1] is b
+        assert torch.equal(a, full.to(torch.bfloat16).view(6, 10))
+        assert torch.equal(b, tail)
+    bf = torch.empty(8, dtype=torch.bfloat16)
+    assert k.mm_rs_reduce(regions, 0, outs=[(10, bf)])[0][1] is bf
+    assert torch.equal(
+        bf, k.mm_rs_reduce_plain(regions, 0)[10:18].to(torch.bfloat16))
+
+
+def _deferred_case(how):
+    """A resting shard whose dW, inside a layer batch, autograd sums with
+    another use of the shard ("summed") or casts ("cast": the backward
+    hands back another dtype than the shard's)."""
+    from deepspeed_tpu_torch.parallel import overlap
+    from deepspeed_tpu_torch.parallel.mesh import Mesh
+    class Alone(Mesh):          # every "peer" holds this rank's tensors
+        def all_gather(self, t):
+            return [t] * self.size
+
+    n, M, K, N = 2, 4, 8, 6
+    mesh = Alone(n, 0, "cpu")
+    cfg = fc.CollectiveMatmulConfig(axis_size=n, mesh=mesh)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(M, K, generator=gen)
+    w = torch.randn(K // n, N, generator=gen).requires_grad_()
+    dy = torch.randn(M, N, generator=gen)
+
+    class WrongDtype(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, w_shard):
+            return w_shard * 1.0
+
+        @staticmethod
+        def backward(ctx, g):
+            return fc.matmul_reduce_scatter(
+                x, dy, shard_dim=0, axis_size=n, cfg=cfg,
+                out_dtype=torch.float64, shard=w)
+
+    sizes = {overlap.shard_key(w): w.numel()}
+    with overlap.reduce_scatter_batch(mesh, sizes) as batch:
+        if how == "summed":
+            y = fc.collective_matmul(x, w, shard_dim=0, axis_size=n,
+                                     cfg=cfg)
+            loss = (y * dy).sum() + w.sum()
+        else:
+            loss = WrongDtype.apply(w).sum()
+        g, = torch.autograd.grad(loss, [w])
+        assert overlap.shard_key(w) in batch.outs
+        batch.check_returned({overlap.shard_key(w): g})
+
+
+@pytest.mark.parametrize("how", ["summed", "cast"])
+def test_a_deferred_output_that_autograd_summed_or_cast_raises(how):
+    """Inside a layer batch dW comes back unfilled until the batch closes;
+    autograd summing it with another gradient, or casting it, reads it
+    unfilled. The check after autograd returns sees that the returned
+    gradient is not the deferred tensor and raises (and the batch never
+    closes, so no exchange starts)."""
+    with pytest.raises(RuntimeError, match="summed or cast"):
+        _deferred_case(how)
+
+
+def test_matmul_reduce_scatter_in_a_batch_needs_its_shard_and_an_entry():
+    from deepspeed_tpu_torch.parallel import overlap
+    from deepspeed_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh(2, 0, "cpu")
+    cfg = fc.CollectiveMatmulConfig(axis_size=2, mesh=mesh)
+    x, dy = torch.zeros(4, 8), torch.zeros(4, 6)
+    w = torch.zeros(4, 6)
+    with pytest.raises(ValueError, match="resting shard"):
+        with overlap.reduce_scatter_batch(mesh, {}):
+            fc.matmul_reduce_scatter(x, dy, shard_dim=0, axis_size=2,
+                                     cfg=cfg)
+    with pytest.raises(KeyError, match="names every leaf"):
+        with overlap.reduce_scatter_batch(mesh, {("group", 0): 8}):
+            fc.matmul_reduce_scatter(x, dy, shard_dim=0, axis_size=2,
+                                     cfg=cfg, shard=w)
+    # the layout: entries at multiples of 64 elements, in order
+    b = overlap.ReduceScatterBatch(mesh, {"a": 3, "b": 64, "c": 65})
+    assert b.entries == {"a": (0, 3), "b": (64, 64), "c": (128, 65)}
+    assert b.run == 256 == overlap.batch_run([3, 64, 65])
+    assert tuple(b.columns("b").shape) == (2, 64)
+    assert b.columns("b").stride() == (256, 1)
 
 
 @pytest.mark.parametrize("n", [2, 4, 8])
@@ -512,3 +662,19 @@ def test_kernels_over_a_two_rank_heap_match_plain(cuda_device):  # noqa: F811
     for rank_errs in spawn(w.heap_kernels, 2):
         for name, (err, limit) in rank_errs.items():
             assert err <= limit, (name, err, limit)
+
+
+@pytest.mark.gpu
+def test_layer_batch_over_a_two_rank_heap_matches_plain(cuda_device):  # noqa: F811
+    """Two ranks on the card close one layer batch (streamed leaves' bf16
+    dW by both partial kernels, a packed group's fp32 flat): one
+    mm_rs_reduce launch writes every entry bit for bit as
+    mm_rs_reduce_plain over the same regions, cast to the entry's dtype."""
+    import torch_zero3_worker as w
+    from deepspeed_tpu_torch.ops.cuda import builder
+    from deepspeed_tpu_torch.parallel.mesh import spawn
+    builder.kernels()                 # build once before the ranks start
+    for errs, launched in spawn(w.heap_layer_batch, 2):
+        assert launched == {"mm_rs_reduce": 1}, launched
+        for name, (equal, dtype) in errs.items():
+            assert equal, (name, dtype)

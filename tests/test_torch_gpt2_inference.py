@@ -464,8 +464,10 @@ def test_generate_matches_jax(model_case, jax_tokens, monkeypatch, qb, kv,
 def test_generate_takes_jax_routes(model_case, monkeypatch):
     """Which kernels each route calls, counted through the modules' names:
     the fast loop the stacked kernels, the per-token loop with int8
-    weights and cache the four unstacked ones per layer per step, with
-    bf16 weights and an int8 cache decode_attention_int8 alone."""
+    weights and cache the three unstacked ones per layer per step, with
+    bf16 weights and an int8 cache decode_attention_int8 alone. The new
+    K/V rows go into the cache inside the attention call (its folded
+    append), so no route calls kv_quant_int8 itself."""
     from deepspeed_tpu_torch.models import gpt2_inference as gi
     from deepspeed_tpu_torch.ops.transformer import inference as inf
     _, cfg, tree, q8, prompt = model_case
@@ -478,19 +480,20 @@ def test_generate_takes_jax_routes(model_case, monkeypatch):
             calls[name] = calls.get(name, 0) + 1
             return real(*a, **kw)
         monkeypatch.setattr(mod, name, counted)
-    for name in ("ln_qkv_int8", "kv_quant_int8", "decode_attention_int8",
-                 "out_ffn_int8"):
+    for name in ("ln_qkv_int8", "decode_attention_int8", "out_ffn_int8"):
         count(inf, name)
-    for name in ("ln_qkv_stacked", "kv_quant_int8",
-                 "decode_attention_stacked", "out_ffn_stacked"):
+    for name in ("ln_qkv_stacked", "decode_attention_stacked",
+                 "out_ffn_stacked"):
         count(gi, name)
+    assert not hasattr(inf, "kv_quant_int8") and \
+        not hasattr(gi, "kv_quant_int8")
     steps = cfg.n_layer * (NEW - 1)
     for qb, kv, scan, want in (
-            (8, 8, False, {"ln_qkv_int8": steps, "kv_quant_int8": steps,
+            (8, 8, False, {"ln_qkv_int8": steps,
                            "decode_attention_int8": steps,
                            "out_ffn_int8": steps}),
             (0, 8, False, {"decode_attention_int8": steps}),
-            (8, 8, True, {"ln_qkv_stacked": steps, "kv_quant_int8": steps,
+            (8, 8, True, {"ln_qkv_stacked": steps,
                           "decode_attention_stacked": steps,
                           "out_ffn_stacked": steps}),
             (0, 0, True, {"ln_qkv_stacked": steps,
@@ -539,6 +542,58 @@ def test_prompt_pass_matches_jax(model_case, qb, kv):
     else:
         assert_close(cache.k, jc["cached_key"])
         assert_close(cache.v, jc["cached_value"])
+
+
+def test_fused_step_appends_at_the_clamped_row_as_jax(model_case):
+    """The per-token int8 step (ln_qkv_int8, decode_attention_int8 with
+    its folded append, out_ffn_int8) at cache_index L - 1 and then L, past
+    the cache's end: both steps' rows land on row L - 1 (the second's from
+    the NaN-poisoned x), where JAX's decode_step (kv_quant_int8 and
+    dynamic_update_slice) puts them. The caches against JAX's after both
+    steps: codes within one unit and scales at 2e-5 on every row before L
+    - 1 (the prompt's rows, whose K/V differ in their last fp32 bits),
+    the first step's logits at the serving tests' 1e-4 (those rows' rare
+    code one unit apart moves them by ~1e-5), row L - 1's scales NaN on
+    both
+    sides (the codes of NaN rows are implementation-defined on each
+    side)."""
+    jax, jnp, _ = _jax()
+    from deepspeed_tpu.models.gpt2_inference import _compiled_steps
+    from deepspeed_tpu_torch.models import gpt2_inference as gi
+    jcfg, cfg, tree, q8, prompt = model_case
+    prompt_pass, decode_step, _ = _compiled_steps(jcfg, CTX, 8, 1, 8, 1)
+    jl, jc = prompt_pass(q8, prompt)
+    jc = _np_tree(jc)
+    blk = jc["h"]["blk"]
+    blk["cache_index"] = np.full_like(blk["cache_index"], CTX - 1)
+    p = gi.serving_params(q8, cfg, "cpu", 8)
+    model = gi.GPT2InferenceModel(cfg, p, CTX, 8, 1, 8)
+    cache = model.make_cache(2)
+    model(torch.from_numpy(prompt).long(), cache)
+    cache.index.fill_(CTX - 1)
+    tok = np.asarray(jnp.argmax(jl, axis=-1)).astype(np.int32)
+    for step in range(2):
+        jl, jc = decode_step(q8, jc, jnp.asarray(tok), jnp.asarray(
+            CTX - 1 + step, jnp.int32))
+        logits = model(torch.from_numpy(tok).long()[:, None], cache,
+                       position_offset=CTX - 1 + step)[:, -1]
+        if step == 0:
+            assert_close(logits, np.asarray(jl), atol=1e-4, rtol=1e-4)
+            tok = np.asarray(jnp.argmax(jl, axis=-1)).astype(np.int32)
+        else:
+            assert torch.isnan(logits).all() and np.isnan(
+                np.asarray(jl)).all()
+    jc = _np_tree(jc)["h"]["blk"]
+    for got, key in ((cache.k, "cached_key_q8"),
+                     (cache.v, "cached_value_q8")):
+        diff = np.abs(got[..., :CTX - 1, :].numpy().astype(int)
+                      - jc[key][..., :CTX - 1, :].astype(int))
+        assert diff.max() <= 1 and (diff > 0).mean() < 1e-3, key
+    for got, key in ((cache.k_scale, "key_scale"),
+                     (cache.v_scale, "value_scale")):
+        assert_close(got[..., :CTX - 1], jc[key][..., :CTX - 1])
+        assert torch.isnan(got[..., CTX - 1]).all()
+        assert np.isnan(jc[key][..., CTX - 1]).all()
 
 
 @pytest.mark.parametrize("S", [1, 5])

@@ -150,6 +150,54 @@ def test_kv_quant_writes_into_paged_pool_and_stacked_cache():
     assert int(torch.count_nonzero(got[2])) == int(torch.count_nonzero(vq))
 
 
+@pytest.mark.parametrize("kv", [0, 8])
+def test_fast_loop_clamps_its_cache_write_past_the_end(trees, kv):
+    """The fast loop's decode steps at offsets L - 1 and L (past the
+    cache's end, which ``llama_fast_generate`` never reaches: it asserts
+    S + max_new_tokens <= max_out): the second step's x is NaN and its
+    K/V rows land on row L - 1, where JAX's dynamic_update_slice clamps
+    them, and nowhere past it. The caches against JAX's ``fast_scan``
+    over the same prompts: every row before L - 1 at 2e-5 (int8 codes
+    within one unit, as the prompt-pass test counts them: the K/V rows
+    differ in their last fp32 bits by summation order), row L - 1 NaN on
+    both sides (its int8 codes of NaN rows are implementation-defined on
+    each side and not compared)."""
+    jax, jnp, _ = _jax()
+    from deepspeed_tpu.models.llama_inference import _fast_fns
+    jcfg, cfg, packed, _, _, prompts = trees
+    L, S = 32, 8
+    ids = np.stack([prompts[0][:S], prompts[1][:S]])
+    prompt, fast_scan = _fast_fns(jcfg, L, False, kv == 8)
+    logits, jcaches = prompt(packed, jnp.asarray(ids))
+    first = jnp.argmax(logits, axis=-1)
+    _, jcaches = fast_scan(
+        {k: v for k, v in packed.items() if k != "blk"}, packed["blk"],
+        jcaches, first, 2, jnp.asarray(L - 1, jnp.int32),
+        jax.random.split(jax.random.PRNGKey(0), 2), jnp.float32(0.0))
+    p = llama_inference.from_jax_serving_params(packed, cfg, "cpu")
+    _, caches = llama_inference._prompt_pass(p, cfg, torch.from_numpy(ids)
+                                             .long(), L, kv == 8)
+    tok = torch.from_numpy(np.array(first)).long()
+    list(llama_inference._decode_loop(p, cfg, caches, tok, L - 1, 2, 0.0,
+                                      torch.Generator()))
+    for got, want in zip(caches, jcaches):
+        want = np.asarray(want)
+        rows = 3 if got.dim() == 5 and got.shape[3] == L else 4
+        last = [slice(None)] * got.dim()
+        last[rows] = slice(L - 1, L)
+        head = [slice(None)] * got.dim()
+        head[rows] = slice(0, L - 1)
+        g, w = got.numpy()[tuple(head)], want[tuple(head)]
+        if got.dtype == torch.int8:
+            diff = np.abs(g.astype(np.int32) - w.astype(np.int32))
+            assert diff.max() <= 1 and (diff > 0).mean() < 1e-2
+        else:
+            assert_close(g, w)
+        if got.dtype != torch.int8:
+            assert np.isnan(got.numpy()[tuple(last)]).all()
+            assert np.isnan(want[tuple(last)]).all()
+
+
 def _paged_int8(rs, Lyr=2, NB=9, Hkv=2, P=16, D=128, B=3, R=4, MAXP=4):
     pools = (_codes(rs, Lyr, NB, Hkv, P, D), _scales(rs, Lyr, NB, Hkv, 1, P)
              * 0.01, _codes(rs, Lyr, NB, Hkv, P, D),

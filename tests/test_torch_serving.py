@@ -217,6 +217,62 @@ def test_prefill_logits_and_pages_match_jax(jax_run):
         atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+def test_tick_appends_into_the_pool_as_jax_does(jax_run, int8):
+    """One decode tick after a prefill, slot 0 live and slot 1 idle (its
+    table all trash): the attention call appends slot 0's new K/V rows
+    (int8 codes and scales into an int8 pool) where the JAX tick's
+    ``_append_rows`` puts them, so the pools agree on every block but the
+    trash block at the prefill test's 1e-4, as do the logits; the idle
+    slot writes nothing (JAX writes its row into the trash block, whose
+    contents no test reads), so the port's trash block is as the prefill
+    left it."""
+    jcfg, cfg, params, _, prompts, _ = jax_run
+    kw = {"kv_cache_bits": 8, "quantize_bits": 8} if int8 else {}
+    jeng = jserving.build_engine("gpt2", jcfg, params,
+                                 config={"serving": {**SERVING, **kw}})
+    eng = _port_engine(cfg, params, **kw)
+    P = SERVING["page_size"]
+    prompt = prompts[1]
+    S = len(prompt)
+    pages = [4, 2]
+    ids, page_vec = padded_prefill_inputs(prompt, pages, P, 128 // P)
+    jpool, jlogits = jeng.adapter.prefill(
+        jeng.adapter.make_cache().pool, jnp.asarray(ids),
+        jnp.asarray(S, jnp.int32), jnp.asarray(page_vec))
+    pool, _ = eng.adapter.prefill(eng.cache.pool, ids, S, page_vec)
+    before = [t.clone() for t in pool]
+    maxp = SERVING["max_pages_per_slot"]
+    pt = np.full((2, maxp), TRASH_BLOCK, np.int32)
+    pt[0, :2] = pages
+    tok = np.array([int(np.argmax(np.asarray(jlogits))), 0], np.int32)
+    pos = np.array([S, -1], np.int32)
+    zeros = np.zeros(2, np.int32)
+    jpool, jtoks, jl = jeng.adapter.tick(
+        jpool, jnp.asarray(tok), jnp.asarray(pos), jnp.asarray(pt),
+        jnp.asarray(zeros), jnp.asarray(zeros), jnp.zeros(2, jnp.float32))
+    pool, toks, logits = eng.adapter.tick(
+        pool, tok, pos, pt, zeros, zeros, np.zeros(2, np.float32))
+    np.testing.assert_allclose(logits[0].numpy(), np.asarray(jl)[0],
+                               atol=1e-4, rtol=1e-4)
+    assert int(toks[0, 0]) == int(np.asarray(jtoks)[0, 0])
+    keep = [b for b in range(pool[0].shape[1]) if b != TRASH_BLOCK]
+    for mine, theirs, old in zip(pool, jpool, before):
+        theirs = np.asarray(theirs)
+        if mine.dtype == torch.int8:
+            diff = np.abs(mine[:, keep].numpy().astype(np.int32)
+                          - theirs[:, keep].astype(np.int32))
+            assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+        else:
+            np.testing.assert_allclose(mine[:, keep].numpy(),
+                                       theirs[:, keep], atol=1e-4,
+                                       rtol=1e-4)
+        assert torch.equal(mine[:, TRASH_BLOCK], old[:, TRASH_BLOCK])
+    # the new row is the tick's: row S % P of page pt[0, S // P] changed
+    assert not torch.equal(pool[0][:, pages[S // P], :, S % P],
+                           before[0][:, pages[S // P], :, S % P])
+
+
 def test_eos_frees_slot_early(jax_run):
     _, cfg, params, *_ = jax_run
     p = np.random.RandomState(7).randint(0, 256, size=(9,)).astype(np.int32)

@@ -285,3 +285,26 @@ def test_n_rank_trajectories_match_the_jax_stage3_baseline(n):
     for rank_result in results[1:]:
         for mode, (losses, _, _, _, _) in rank_result.items():
             assert losses == results[0][mode][0]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_layer_batch_matches_the_unbatched_backward_bit_for_bit(n):
+    """The backward's layer batch (the streamed leaves' partials and the
+    packed groups in one exchange region, one exchange and one reduce a
+    layer) gives every shard gradient bit for bit as the backward that
+    exchanged each reduce-scatter on its own, in both gather modes; one
+    batch closes with an exchange a layer, and the step makes (k - 1)
+    fewer exchanges a layer, k the reduce-scatters a layer took before
+    (the four streamed leaves and the packed group under fused_matmul;
+    the packed group alone under ring)."""
+    cfgs = [(m, _port_cfg(m)) for m in ("ring", "fused_matmul")]
+    batch = {"input_ids": torch.from_numpy(_batches()[0]["input_ids"])}
+    results = spawn(worker.batch_vs_unbatched, n, cfgs, batch)
+    for rank_result in results:
+        for mode, (equal, batched, unbatched, closes, L, fused,
+                   groups) in rank_result.items():
+            assert equal, mode
+            assert fused == (4 if mode == "fused_matmul" else 0), mode
+            assert groups == 1, mode
+            assert closes == L, mode
+            assert unbatched - batched == L * (fused + groups - 1), mode
