@@ -1,9 +1,10 @@
 """Chip smoke for deepspeed_tpu_torch: GPT-2 large and LLaMA-7B paged
 serving (each in bf16 and in int8), GPT-2 large ``generate()`` through
 the fused inference layer, LLaMA-7B's dense fast path, GPT-2 large
-training, BERT-large pretraining with block-sparse attention, GPT-2
-large MoQ quantize-aware training and GPT-2 large ZeRO-3 training over
-four ranks on one NVIDIA GPU, through the hand-written CUDA kernels.
+training, LLaMA-7B training at half depth and its ``llama_generate``,
+BERT-large pretraining with block-sparse attention, GPT-2 large MoQ
+quantize-aware training and GPT-2 large ZeRO-3 training over four ranks
+on one NVIDIA GPU, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -110,9 +111,7 @@ Phases, one JSON line each, each with its wall ``seconds``:
                SDPA's backward (eager, and by CUDA-graph replay) as the
                library time; a flash_backward line with the delta
                expression the delta kernel replaces and the whole
-               backward against its bound; and the backward at LLaMA-7B's
-               training attention (B 2, 32 heads, S 2048, D 128, causal;
-               path null: no ported model trains at D 128 yet);
+               backward against its bound;
 5. train    — the serving engine freed, ``initialize`` of GPT-2 large
                (vocab 50304, 36 layers, bf16 compute, fp32 masters, bf16
                grads and exp_avg, AdamW, clipping 1.0, ZeRO stage 3 on one
@@ -126,7 +125,35 @@ Phases, one JSON line each, each with its wall ``seconds``:
                through the plain versions, every leaf at a row-relative
                limit, and a planted fault (a k tile left out of dq)
                that the limit must reject;
-7. kernel, bert_kernels — the three block-sparse kernels (forward, dq,
+7. kernel, train_llama, llama_generate, llama_grad_check — the flash
+               kernels' rows again at LLaMA-7B's training attention (B 4,
+               32 heads, S 2048, D 128, causal; path train_llama); then
+               ``initialize`` of LlamaForCausalLM at LLaMA-7B's width
+               (E 4096, 32 heads of 128, F 11008, vocab 32000) cut to
+               LLAMA_LAYERS (16) layers, full-block remat, chunked loss
+               over the untied head, the train config above, and 2
+               warm-up + 10 timed ``train_batch`` steps on one seeded
+               batch of 4 x 2048: step time, tokens/s, model TFLOP/s
+               ((6·N' + 12·L·S·E)·tokens, N' without the embedding
+               table), MFU, the floor, peak memory, every loss (finite,
+               falling) and exactly 2·L flash forward launches a step (the
+               recompute runs the forward again) and L of each backward
+               kernel; ``llama_generate`` (B 1, a 32-token prompt, 16
+               greedy new tokens: no hand-written kernel, plain PyTorch
+               as JAX's dot_generals) with the trained model, every token
+               teacher-forced within TF_ULPS against the same weights'
+               bf16 forward without the cache, and, after the engine is
+               freed, with a fresh 16-layer model at LLAMA_INIT_STD, held
+               also against its fp32 forward (the gaps against the flash
+               forward printed beside), and its tokens/s; then the GPT-2
+               grad check's comparison at 2
+               layers of LLaMA-7B's width (2 x 2048) and of LLaMA-3-8B's
+               (GQA: 8 KV heads, F 14336, vocab 128256; 1 x 2048), each
+               with its planted fault, every leaf at GRAD_RTOL but the
+               untied lm_head (LLAMA_LEAF_RTOL), and what the
+               GQA backward's repeat-and-sum costs at LLaMA-3-8B's
+               attention;
+8. kernel, bert_kernels — the three block-sparse kernels (forward, dq,
                dk/dv) at BERT's main shape (B 4, H 16, S 4096, D 64,
                block 16, the per-head Fixed layout of the config below:
                16 tables, density 0.262), a shared BigBird layout at
@@ -142,7 +169,7 @@ Phases, one JSON line each, each with its wall ``seconds``:
                steps, the longest tile's steps) and three reruns bit for
                bit; bounds of 4, 6 and 8 block²·D flops a listed block
                pair (2, 3 and 4 products);
-8. train_bert_sparse — the GPT-2 engine freed, ``initialize`` of
+9. train_bert_sparse — the GPT-2 engine freed, ``initialize`` of
                BertForPreTraining at BERT-large's full width and depth
                (E 1024, 24 layers, 16 heads of 64, vocab 30522; bf16
                compute, fp32 masters, Adam lr 1e-4 as bench.py's
@@ -158,11 +185,11 @@ Phases, one JSON line each, each with its wall ``seconds``:
                memory, every step's loss (finite, falling), and exactly
                24 launches a step of each block-sparse kernel (none of
                flash or of the masked-dense path);
-9. bert_grad_check — a 2-layer BERT of the same width and layout config
+10. bert_grad_check — a 2-layer BERT of the same width and layout config
                at 16 x 256 tokens: loss and every gradient leaf through
                the kernels against the plain versions, and a planted
                fault (the last k-block of every row left out of dq);
-10. kernel (quantize) — the grouped quantize kernel on the MoQ paths'
+11. kernel (quantize) — the grouped quantize kernel on the MoQ paths'
                shapes: c_fc [1280, 5120] fp32 in 8 groups at 15 and 8
                bits, wte [50304, 1280] in 8 groups, a bf16 input, and
                train_moq_sr's leaf set (wte, wpe and the stacked [36, .]
@@ -183,7 +210,7 @@ Phases, one JSON line each, each with its wall ``seconds``:
                time; and a whole train_moq_sr boundary as one launch (10
                leaves, the stacked ones as 36 pieces, the blend at 0.75):
                bit for bit with nearest rounding, timed stochastic;
-11. train_moq — ``initialize`` of GPT-2 large in the unrolled layout with
+12. train_moq — ``initialize`` of GPT-2 large in the unrolled layout with
                DeepSpeed's MoQ tutorial block (start 16, target 8, 8
                groups, symmetric, period cut to 6) and 2 + 10
                ``train_batch`` steps: the bits JAX's Quantizer gives
@@ -193,13 +220,13 @@ Phases, one JSON line each, each with its wall ``seconds``:
                time, MFU, peak memory; after the last step at most 2^12
                values in every group of wte, h.0 c_fc and h.35 mlp
                c_proj, and the bf16 copy equal to the masters;
-12. train_moq_sr — the scan layout (MoQ quantizes wte, wpe and the 8
+13. train_moq_sr — the scan layout (MoQ quantizes wte, wpe and the 8
                stacked bias and LayerNorm leaves: 1 launch a step over
                their 290 pieces) with asymmetric stochastic rounding, the
                blend (ratio 0.75 → 0) inside the kernel and progressive
                layer drop, 2 + 3 steps, each boundary's device time
                against its bound and host time;
-13. kernel, zero3_kernels — ag_matmul (forward and dx),
+14. kernel, zero3_kernels — ag_matmul (forward and dx),
                mm_rs_partial and mm_rs_reduce at GPT-2 large's four
                projections cut into 4 shards, M 2048 (a rank's 2 x 1024
                tokens), the four "peers" local tensors in this process:
@@ -210,7 +237,7 @@ Phases, one JSON line each, each with its wall ``seconds``:
                TMA cannot describe (mma_us), with each row's tile walk
                (tile, tiles, grid, waves); then the rows' summed times by
                kernel, the mma.sync kernels' included;
-14. zero3_grad_check, train_zero3_fused, train_zero3_ring — four ranks
+15. zero3_grad_check, train_zero3_fused, train_zero3_ring — four ranks
                started on the one card (``parallel.mesh.spawn``, gloo,
                each rank's shards in a symmetric heap its peers map
                through CUDA IPC): a 2-layer full-width model's gradients
@@ -231,14 +258,15 @@ Phases, one JSON line each, each with its wall ``seconds``:
 Each path counts its kernels' launches from 0 just before its run: each
 serve run for the decode kernels and the prefill forward, the fast
 path's timed runs (and its bf16-cache run) for its kernels, each
-generate() case's timed runs, the train run for the flash kernels, the
-BERT train run for the block-sparse kernels, each MoQ run's timed steps
-for quantize, rank 0's fused_matmul timed steps for the fused
+generate() case's timed runs, the train runs (GPT-2's, LLaMA's) for the
+flash kernels, the BERT train run for the block-sparse kernels, each MoQ
+run's timed steps for quantize, rank 0's fused_matmul timed steps for the fused
 collective kernels. A kernel has a row for each
 path it runs on ("serve", "serve_gpt2_int8", "generate_gpt2",
 "generate_gpt2_bf16", "generate_gpt2_step", "serve_llama",
 "serve_llama_int8", "generate_llama", "generate_llama_kv0", "train",
-"train_bert_sparse", "train_moq", "train_moq_sr", "train_zero3_fused");
+"train_llama", "train_bert_sparse", "train_moq", "train_moq_sr",
+"train_zero3_fused");
 each row of the
 kernels line is timed and bounded at its path's shapes and carries that path's launches (matvec_int8's
 row: no path, 0). "generate_gpt2_kv8" (bf16 weights, an
@@ -248,8 +276,8 @@ generate_gpt2_step row; its launches are checked exactly in its case.
 With ``--profile`` each serve is repeated under torch.profiler (device
 time by kernel name, the device's idle share, the torch ops' host time)
 and cProfile (the host's Python by function), one b1 run of each fast
-path (LLaMA's, GPT-2's int8), three train steps and three BERT steps
-under torch.profiler, and three MoQ steps.
+path (LLaMA's, GPT-2's int8), three train steps, three LLaMA train
+steps and three BERT steps under torch.profiler, and three MoQ steps.
 
 It then prints the nvidia-smi line, a ``kernels`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -316,6 +344,14 @@ GPT2_GEN_CASES = (
 LLAMA_INIT_STD = 0.02 * math.sqrt(1280 / 4096)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_VOCAB = 8, 1024, 50304
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# LLaMA-7B training at its full width and half its depth: 32 -> 16 layers,
+# as its training state (fp32 masters, bf16 compute copy, grads and
+# exp_avg, fp32 exp_avg_sq: 14 bytes a parameter) takes ~94 GB at 32 and
+# ~49 GB at 16 of the card's 80; 4 x 2048 tokens, full-block remat, the
+# loss in chunks of 2048 tokens over the untied head
+LLAMA_BATCH, LLAMA_SEQ, LLAMA_LAYERS, LLAMA_LOSS_CHUNK = 4, 2048, 16, 2048
+# llama_generate with the trained model: B 1, a 32-token prompt, 16 new
+LLAMA_GEN_PROMPT, LLAMA_GEN_NEW = 32, 16
 # full-width 2-layer gradient check: row-relative limit per leaf, kernels
 # against plain versions (both bf16 end to end); measured on an H100
 # 9.0e-3 at most (wpe), 6.4e-3 median over the 28 leaves
@@ -323,6 +359,15 @@ GRAD_RTOL = 3e-2
 # the same check's fp32 losses, relative: measured on an H100 1.2e-5
 # (11.07650 against 11.07636)
 LOSS_RTOL = 1e-3
+# the LLaMA grad checks (2 layers at LLaMA-7B's width, 2 x 2048 tokens;
+# at LLaMA-3-8B's, GQA, 1 x 2048) hold every leaf at GRAD_RTOL but the
+# untied lm_head, which has its own limit: measured on an H100 0.0318 and
+# 0.0356 there (the rows of the ~3/4 of the vocabulary absent from the
+# labels are sums of p·x over the tokens, small beside the others, where
+# the hidden states' bf16 differences show at full size); every other
+# leaf within 0.0211; medians 0.0131 and 0.0133; the planted fault 0.600
+# and 0.630 (q_proj)
+LLAMA_LEAF_RTOL = {"lm_head": 5e-2}
 # the BERT grad check (2 layers at BERT-large's width, 16 x 256 tokens):
 # each row is measured against at least BERT_GRAD_FLOOR of its leaf's RMS
 # row norm, since the pooler's and the NSP head's kernels are sums of 16
@@ -1490,17 +1535,15 @@ def train_kernel_phase(gen):
     causal): the forward, held against its plain version with a planted
     fault and timed beside SDPA; the backward's kernels there, at S=8192
     and not causal, with a planted fault each, timed beside SDPA's
-    backward; and the backward at LLaMA-7B's training attention (B 2, 32
-    heads, S 2048, D 128, causal), a row no ported model path runs yet
-    (path null)."""
-    rows = flash_rows(gen, TRAIN_BATCH, "train",
+    backward."""
+    return flash_rows(gen, TRAIN_BATCH, "train",
                       ((1, 4, 8192, 64, True), (1, 20, 1024, 64, False)))
-    return rows + flash_bwd_rows(gen, None, ((2, 32, 2048, 128, True),))
 
 
-def flash_rows(gen, batch, path, more_bwd_cases=()):
+def flash_rows(gen, batch, path, more_bwd_cases=(), H=20, S=TRAIN_SEQ,
+               D=64):
     """The rows of the flash kernels on a training path whose attention
-    runs at (``batch``, H=20, S=1024, D=64, causal): the forward and the
+    runs at (``batch``, ``H``, ``S``, ``D``, causal): the forward and the
     backward's kernels held there against their plain versions with a
     planted fault each (the backward also at ``more_bwd_cases``, (B, H,
     S, D, causal)), timed there beside SDPA and its backward."""
@@ -1513,8 +1556,8 @@ def flash_rows(gen, batch, path, more_bwd_cases=()):
             torch.bfloat16)
 
     results = []
-    B, H, S = batch, 20, TRAIN_SEQ
-    q, k, v = (rnd(B, H, S, 64) for _ in range(3))
+    B = batch
+    q, k, v = (rnd(B, H, S, D) for _ in range(3))
     o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=True)
     # fault: every batch element attends to element 0's K/V, as a kernel
@@ -1534,9 +1577,9 @@ def flash_rows(gen, batch, path, more_bwd_cases=()):
     record(results, "flash_attention_fwd", path,
            "deepspeed_tpu/ops/pallas/flash_attention.py:122", checks, ms,
            call_ms, plain_ms,
-           bound(4 * B * H * S * 64 * 2 + B * H * S * 4,
-                 4 * B * H * 64 * S * (S + 1) // 2),
-           [{"B": B, "S": S, "H": H, "Hkv": H, "causal": True}],
+           bound(4 * B * H * S * D * 2 + B * H * S * 4,
+                 4 * B * H * D * S * (S + 1) // 2),
+           [{"B": B, "S": S, "H": H, "Hkv": H, "D": D, "causal": True}],
            "every batch element given element 0's K/V", library_ms=lib_ms,
            lse_err=lse_err, extra=flash_variants(q, k, v, True, n=36))
     del q, k, v
@@ -1544,7 +1587,7 @@ def flash_rows(gen, batch, path, more_bwd_cases=()):
     torch.cuda.empty_cache()
 
     return results + flash_bwd_rows(
-        gen, path, ((batch, 20, TRAIN_SEQ, 64, True),) + tuple(more_bwd_cases))
+        gen, path, ((batch, H, S, D, True),) + tuple(more_bwd_cases))
 
 
 def flash_bwd_rows(gen, path, cases):
@@ -1613,6 +1656,7 @@ def flash_bwd_rows(gen, path, cases):
     out = sdpa()
     sdpa_ms = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
                                                   retain_graph=True))
+    del out          # its graph, kept alive, breaks the capture below
     sdpa_graph_ms = None
     for attempt in range(2):   # (a first capture can fail on a lazy init)
         try:   # forward + backward captured in a graph, less the forward
@@ -1656,7 +1700,7 @@ def flash_bwd_rows(gen, path, cases):
           "sdpa_backward_us": sdpa_ms * 1e3,
           "sdpa_backward_graph_us":
               None if sdpa_graph_ms is None else sdpa_graph_ms * 1e3})
-    del out, qg, kg, vg, q, k, v, o, lse, do, delta
+    del qg, kg, vg, q, k, v, o, lse, do, delta
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return rows
@@ -1785,9 +1829,10 @@ def plain_attention(drop_dq_tile=False):
 def model_loss_and_grads(model, ids, attention=None):
     """(loss, gradients) of one step of ``model`` on ``ids`` (its
     next-token loss, as ``train_batch`` takes it), with every block's
-    attention function swapped for ``attention`` (None: the model's
-    own, the kernels)."""
-    blocks = [block.attn for block in model.h]
+    attention function (a module's ``attention``: GPT-2's
+    ``SelfAttention``, ``LlamaAttention``) swapped for ``attention``
+    (None: the model's own, the kernels)."""
+    blocks = [m for m in model.modules() if hasattr(type(m), "attention")]
     if attention is not None:
         for attn in blocks:
             attn.attention = attention
@@ -1800,20 +1845,16 @@ def model_loss_and_grads(model, ids, attention=None):
     return float(loss.detach()), grads
 
 
-def grad_check_phase(n_layer=2):
-    """A 2-layer model of GPT-2 large's width, as ``initialize`` holds it
-    on the card (bf16 compute copy): one step's gradients through the
-    kernels against the same step through their plain versions, every
-    leaf at GRAD_RTOL and the losses at LOSS_RTOL; then through a planted
-    fault (the first 64-key tile left out of dq), which the same limit
-    must reject."""
-    import deepspeed_tpu_torch as ds
-    from deepspeed_tpu_torch.models import gpt2
+def grad_errors(engine, ids, leaf_limits=None):
+    """One step of ``engine``'s model on ``ids`` (its bf16 compute copy)
+    through the kernels, through their plain versions and through a
+    planted fault (the first 64-key tile left out of dq, plain versions):
+    the losses and each leaf's row-relative error against the plain
+    versions' gradients, the line's numbers (``check_grads`` holds each
+    leaf to its limit: ``leaf_limits``' where it names the leaf, else
+    GRAD_RTOL)."""
     from deepspeed_tpu_torch.ops.cuda import tolerance
-    engine, _, _, _ = ds.initialize(
-        config=train_ds_config(),
-        model=gpt2.GPT2LMHeadModel(train_model_config(n_layer)))
-    ids = train_batch_ids()["input_ids"]
+    leaf_limits = leaf_limits or {}
     model, names = engine.module, engine.param_names
     loss_k, grads_k = model_loss_and_grads(model, ids)
     loss_p, grads_p = model_loss_and_grads(model, ids, plain_attention())
@@ -1824,29 +1865,309 @@ def grad_check_phase(n_layer=2):
         return {name: tolerance.row_rel_err(g, w, floor=1e-3)
                 for name, g, w in zip(names, grads, grads_p)}
     err, f_err = errs(grads_k), errs(grads_f)
+    lim = {name: leaf_limits.get(name, GRAD_RTOL) for name in names}
+    share = {name: e / lim[name] for name, e in err.items()}
+    f_share = {name: e / lim[name] for name, e in f_err.items()}
     worst = max(err, key=err.get)
-    f_worst = max(f_err, key=f_err.get)
+    held = max(share, key=share.get)
+    f_worst = max(f_share, key=f_share.get)
+    rest = [e for name, e in err.items() if name not in leaf_limits]
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    emit({"phase": "grad_check", "layers": n_layer, "leaves": len(err),
-          "loss_kernels": loss_k, "loss_plain": loss_p,
-          "loss_rel_err": loss_rel, "loss_limit": LOSS_RTOL,
-          "max_row_rel_err": err[worst], "worst_leaf": worst,
-          "median_row_rel_err": float(np.median(list(err.values()))),
-          "limit": GRAD_RTOL,
-          "fault": "the first 64-key tile left out of dq (plain versions)",
-          "fault_loss": loss_f, "fault_max_row_rel_err": f_err[f_worst],
-          "fault_worst_leaf": f_worst,
-          "fault_leaves_rejected": sum(e > GRAD_RTOL
-                                       for e in f_err.values())})
-    if not err[worst] <= GRAD_RTOL:
-        raise AssertionError(f"grad check: {worst} row-relative error "
-                             f"{err[worst]:.3g} > {GRAD_RTOL}")
-    if not loss_rel <= LOSS_RTOL:
-        raise AssertionError(f"grad check: loss {loss_k} vs plain {loss_p} "
-                             f"({loss_rel:.3g} > {LOSS_RTOL})")
-    if not f_err[f_worst] > GRAD_RTOL:
+    line = {"leaves": len(err), "loss_kernels": loss_k, "loss_plain": loss_p,
+            "loss_rel_err": loss_rel, "loss_limit": LOSS_RTOL,
+            "max_row_rel_err": err[worst], "worst_leaf": worst,
+            "median_row_rel_err": float(np.median(list(err.values()))),
+            "limit": GRAD_RTOL, "leaf_limits": dict(leaf_limits),
+            "max_row_rel_err_at_limit": max(rest),
+            "leaf_rel_err": {name: err[name] for name in leaf_limits},
+            "max_share_of_limit": share[held], "nearest_limit_leaf": held,
+            "fault": "the first 64-key tile left out of dq (plain versions)",
+            "fault_loss": loss_f, "fault_max_row_rel_err": f_err[f_worst],
+            "fault_worst_leaf": f_worst,
+            "fault_max_share_of_limit": f_share[f_worst],
+            "fault_leaf_rel_err": {name: f_err[name] for name in leaf_limits},
+            "fault_leaves_rejected": sum(s > 1 for s in f_share.values()),
+            "top_leaves": dict(sorted(err.items(),
+                                      key=lambda kv: -kv[1])[:6])}
+    return line
+
+
+def check_grads(line):
+    """Raise unless ``grad_errors``' line holds: every leaf within its
+    limit, the losses within LOSS_RTOL, the planted fault beyond a leaf's
+    limit."""
+    if not line["max_share_of_limit"] <= 1.0:
+        leaf = line["nearest_limit_leaf"]
+        raise AssertionError(
+            f"grad check: {leaf} row-relative error over its limit "
+            f"{line['leaf_limits'].get(leaf, line['limit'])} "
+            f"({line['max_share_of_limit']:.3g} of it)")
+    if not line["loss_rel_err"] <= LOSS_RTOL:
+        raise AssertionError(f"grad check: loss {line['loss_kernels']} vs "
+                             f"plain {line['loss_plain']} "
+                             f"({line['loss_rel_err']:.3g} > {LOSS_RTOL})")
+    if not line["fault_max_share_of_limit"] > 1.0:
         raise AssertionError(f"grad check: a planted fault "
-                             f"({f_err[f_worst]:.3g}) passes the check")
+                             f"({line['fault_max_row_rel_err']:.3g}) passes "
+                             f"the check")
+
+
+def grad_check_phase(n_layer=2):
+    """A 2-layer model of GPT-2 large's width, as ``initialize`` holds it
+    on the card (bf16 compute copy): one step's gradients through the
+    kernels against the same step through their plain versions, every
+    leaf at GRAD_RTOL and the losses at LOSS_RTOL; then through a planted
+    fault (the first 64-key tile left out of dq), which the same limit
+    must reject."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import gpt2
+    engine, _, _, _ = ds.initialize(
+        config=train_ds_config(),
+        model=gpt2.GPT2LMHeadModel(train_model_config(n_layer)))
+    line = grad_errors(engine, train_batch_ids()["input_ids"])
+    emit({"phase": "grad_check", "layers": n_layer, **line})
+    check_grads(line)
+
+
+# ------------------------------------------------------- LLaMA training
+
+def llama_train_config(n_layers=LLAMA_LAYERS):
+    """LLaMA-7B's width at ``n_layers`` layers, full-block remat, the loss
+    in chunks of LLAMA_LOSS_CHUNK tokens over the untied head."""
+    from deepspeed_tpu_torch.models.llama import llama_7b
+    return llama_7b(n_layers=n_layers, remat=True,
+                    loss_chunk=LLAMA_LOSS_CHUNK)
+
+
+def llama_ds_config(batch=LLAMA_BATCH):
+    """The GPT-2 train config (bf16 compute, fp32 masters, bf16 grads and
+    exp_avg, AdamW, clipping 1.0, ZeRO stage 3 on one rank) at ``batch``
+    sequences a step."""
+    return dict(train_ds_config(), train_batch_size=batch)
+
+
+def llama_batch_ids(cfg, batch=LLAMA_BATCH, seq=LLAMA_SEQ, seed=0):
+    ids = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, size=(batch, seq)).astype(np.int32)
+    return {"input_ids": torch.as_tensor(ids, device="cuda")}
+
+
+def llama_flops_per_token(cfg, seq):
+    """The model FLOPs a token of a training step: 6·N' + 12·L·S·E, N'
+    every parameter but the embedding table (a lookup does no products);
+    the remat recompute is not counted."""
+    n = cfg.num_params() - cfg.vocab_size * cfg.hidden_size
+    return 6 * n + 12 * cfg.n_layers * seq * cfg.hidden_size
+
+
+def train_llama_phase(warmup=TRAIN_WARMUP, steps=TRAIN_STEPS):
+    """``initialize`` + ``train_batch`` of LlamaForCausalLM at LLaMA-7B's
+    width and LLAMA_LAYERS layers; returns (engine, batch, the run's
+    kernel launches). Under full-block remat the flash forward runs twice
+    a layer a step (the backward recomputes each block), the backward's
+    two kernels once."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.cuda import builder
+    cfg = llama_train_config()
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, _, _, _ = ds.initialize(config=llama_ds_config(),
+                                    model=LlamaForCausalLM(cfg))
+    batch = llama_batch_ids(cfg)
+    warm = [engine.train_batch(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    builder.launches.clear()             # count the main path's run only
+    t0 = time.perf_counter()
+    losses = [engine.train_batch(batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(builder.launches)
+    losses = [float(x) for x in torch.stack(warm + losses).cpu()]
+    timed = losses[warmup:]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite LLaMA training loss: {losses}")
+    if not timed[-1] < timed[0]:
+        raise AssertionError(f"the LLaMA loss did not fall: {timed}")
+    expect = {"flash_attention_fwd": 2 * L * steps,
+              "flash_attention_bwd": L * steps,
+              "flash_attention_bwd_delta": L * steps}
+    if launches != expect:
+        raise AssertionError(f"train_llama launch counts {launches} != "
+                             f"{expect}")
+    step_s = wall_s / steps
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+    flops = llama_flops_per_token(cfg, LLAMA_SEQ) * tokens
+    emit({"phase": "train_llama", "model": "llama_7b", "layers": L,
+          "reduced": "depth 32 -> 16", "hidden": cfg.hidden_size,
+          "heads": cfg.n_heads, "kv_heads": cfg.kv_heads,
+          "head_dim": cfg.head_dim, "ffn": cfg.intermediate_size,
+          "vocab": cfg.vocab_size, "params": cfg.num_params(),
+          "batch": LLAMA_BATCH, "seq": LLAMA_SEQ, "remat": cfg.remat,
+          "loss_chunk": cfg.loss_chunk, "steps": steps,
+          "warmup_steps": warmup, "init_and_warmup_s": init_s,
+          "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+          "model_tflops_per_step": flops / 1e12,
+          "model_tflop_per_s": flops / step_s / 1e12,
+          "mfu": flops / step_s / BF16_FLOP_PER_S,
+          "step_floor_ms": flops / BF16_FLOP_PER_S * 1e3,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "launches_per_step":
+              {k: v / steps for k, v in launches.items()},
+          "losses": losses})
+    return engine, batch, launches
+
+
+def llama_init_model(cfg, seed=0):
+    """LlamaForCausalLM at ``cfg`` on the card in bf16, as the serving
+    phases' LLaMA: seed-``seed`` weights, every matrix and table N(0,
+    LLAMA_INIT_STD), the RMSNorm scales 1."""
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    model = LlamaForCausalLM(cfg, device="cuda")
+    model.reset_parameters(torch.Generator(device="cuda").manual_seed(seed))
+    with torch.no_grad():
+        for p_ in model.parameters():
+            if p_.dim() == 2:                 # reset_parameters' N(0, 0.02)
+                p_.mul_(LLAMA_INIT_STD / 0.02)
+    return model.to(torch.bfloat16)
+
+
+def llama_generate_phase(model, state):
+    """``llama_generate`` with ``model`` (bf16 weights; ``state`` names
+    them: "trained", train_llama's compute copy, or "init",
+    ``llama_init_model``'s): B 1, a seeded LLAMA_GEN_PROMPT-token prompt,
+    LLAMA_GEN_NEW greedy tokens, timed after a first run that must give
+    the same tokens. Each new token is teacher-forced against full
+    forwards of the same weights without the cache: within TF_ULPS bf16
+    units of the position's top logit of the bf16 forward with plain
+    attention (the arithmetic generate runs, so this holds the cache's
+    indexing alone), and with the "init" weights also of an fp32 forward
+    (the serving phases' oracle: at LLAMA_INIT_STD bf16 rounding stays
+    within TF_ULPS of it, where the trained weights amplify it past that);
+    a runner-up decoder rejected. The gap against the bf16 forward
+    through the flash kernels is printed beside. The path runs no
+    hand-written kernel (JAX computes it in plain dot_generals): it
+    launches none."""
+    from deepspeed_tpu_torch.models.llama import (LlamaForCausalLM,
+                                                  llama_generate)
+    from deepspeed_tpu_torch.ops.cuda import builder
+    cfg = model.config
+    prompt = llama_batch_ids(cfg, 1, LLAMA_GEN_PROMPT, seed=1)["input_ids"]
+    builder.launches.clear()
+    first = llama_generate(model, prompt, LLAMA_GEN_NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = llama_generate(model, prompt, LLAMA_GEN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if not torch.equal(first, toks):
+        raise AssertionError(f"llama_generate ({state}): two runs differ")
+    if dict(builder.launches):
+        raise AssertionError(f"llama_generate launched kernels: "
+                             f"{dict(builder.launches)}")
+    S = LLAMA_GEN_PROMPT
+    gen_tok = toks[0, S:].long()
+    ctx = toks[:, :-1]
+
+    def forward(dtype, use_flash, weights):
+        m = LlamaForCausalLM(dataclasses.replace(
+            cfg, dtype=dtype, use_flash=use_flash, remat=False,
+            loss_chunk=0))
+        with torch.no_grad():
+            return torch.func.functional_call(m, weights, (ctx,))[
+                0, S - 1:].float()
+    named = dict(model.named_parameters())
+    gaps, caught = {}, {}
+    for key, dtype, use_flash in (("plain_bf16", cfg.dtype, False),
+                                  ("flash_bf16", cfg.dtype, None),
+                                  ("plain_fp32", torch.float32, False)):
+        weights = named if dtype == cfg.dtype else {
+            n: p_.detach().float() for n, p_ in named.items()}
+        rows = forward(dtype, use_flash, weights)
+        del weights
+        gap, spacing, ulp = teacher_forced(rows, gen_tok)
+        gaps[key] = float((gap / ulp).max())
+        caught[key] = int((spacing > TF_ULPS * ulp).sum())
+        del rows
+    gated = ("plain_bf16",) + (("plain_fp32",) if state == "init" else ())
+    emit({"phase": "llama_generate", "model": "llama_7b", "weights": state,
+          "init_std": LLAMA_INIT_STD if state == "init" else None,
+          "layers": cfg.n_layers, "batch": 1, "prompt": S,
+          "new_tokens": LLAMA_GEN_NEW, "generate_s": gen_s,
+          "tokens_per_s": LLAMA_GEN_NEW / gen_s,
+          "tokens": toks[0, S:].tolist(),
+          "teacher_forced_max_gap_ulps": gaps["plain_bf16"],
+          "fp32_forward_max_gap_ulps": gaps["plain_fp32"],
+          "flash_forward_max_gap_ulps": gaps["flash_bf16"],
+          "gated_oracles": list(gated), "limit_ulps": TF_ULPS,
+          "runner_up_fault_rejected_at": {k: caught[k] for k in gated},
+          "launches": {}})
+    for key in gated:
+        if gaps[key] > TF_ULPS:
+            raise AssertionError(f"llama_generate ({state}): teacher-forced "
+                                 f"gap against the {key} forward "
+                                 f"{gaps[key]} bf16 units > {TF_ULPS}")
+        if caught[key] == 0:
+            raise AssertionError(f"llama_generate ({state}): a runner-up "
+                                 f"decoder passes the {key} check")
+    torch.cuda.empty_cache()
+
+
+def llama_grad_check_phase():
+    """``grad_errors`` at 2 layers of LLaMA-7B's width (MHA, 2 x 2048
+    tokens) and of LLaMA-3-8B's (GQA: 8 KV heads, the backward repeating
+    K/V and summing dk/dv back; 1 x 2048), each as ``initialize`` holds it
+    (bf16 compute copy), with the remat and chunked loss of train_llama."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, llama3_8b
+    cases = []
+    for name, cfg, batch in (
+            ("llama_7b", llama_train_config(2), 2),
+            ("llama3_8b", llama3_8b(n_layers=2, remat=True,
+                                    loss_chunk=LLAMA_LOSS_CHUNK), 1)):
+        engine, _, _, _ = ds.initialize(config=llama_ds_config(batch),
+                                        model=LlamaForCausalLM(cfg))
+        ids = llama_batch_ids(cfg, batch)["input_ids"]
+        cases.append({"model": name, "layers": cfg.n_layers,
+                      "kv_heads": cfg.kv_heads, "batch": batch,
+                      "seq": LLAMA_SEQ,
+                      **grad_errors(engine, ids, LLAMA_LEAF_RTOL)})
+        del engine, ids
+        torch.cuda.empty_cache()
+    emit({"phase": "llama_grad_check", "cases": cases,
+          "gqa_backward": gqa_backward_cost()})
+    for line in cases:
+        check_grads(line)
+
+
+def gqa_backward_cost(B=1, H=32, Hkv=8, S=LLAMA_SEQ, D=128):
+    """What GQA's repeat-and-sum costs the flash backward at LLaMA-3-8B's
+    attention: ``flash_attention_bwd`` with K/V at Hkv heads (repeated to
+    H heads, dk/dv summed back over the heads sharing one) against the
+    same call on K/V already at H heads (the kernel and its delta alone,
+    the products a backward accumulating dk/dv over the shared heads
+    would do), each by CUDA-graph replay."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    q, do = rnd(B, H, S, D), rnd(B, H, S, D)
+    k, v = rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    kf, vf = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    gqa_ms = time_graph_ms(
+        lambda i: fa.flash_attention_bwd(q, k, v, o, lse, do, True), n=8)
+    mha_ms = time_graph_ms(
+        lambda i: fa.flash_attention_bwd(q, kf, vf, o, lse, do, True), n=8)
+    return {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
+            "gqa_backward_us": gqa_ms * 1e3,
+            "kv_at_full_heads_us": mha_ms * 1e3,
+            "repeat_and_sum_us": (gqa_ms - mha_ms) * 1e3,
+            "repeat_and_sum_share": (gqa_ms - mha_ms) / gqa_ms}
 
 
 def train_profile_phase(engine, batch, steps=3, phase="train_profile"):
@@ -4699,6 +5020,18 @@ def main():
     torch.cuda.empty_cache()
     grad_check_phase()
     launches["train"] = train_launches
+    torch.cuda.empty_cache()
+    kernels += flash_rows(gen, LLAMA_BATCH, "train_llama", H=32, S=LLAMA_SEQ,
+                          D=128)
+    engine, batch, launches["train_llama"] = train_llama_phase()
+    llama_generate_phase(engine.module, "trained")
+    if profile:
+        train_profile_phase(engine, batch, phase="train_llama_profile")
+    del engine, batch
+    torch.cuda.empty_cache()
+    llama_generate_phase(llama_init_model(llama_train_config()), "init")
+    torch.cuda.empty_cache()
+    llama_grad_check_phase()
     torch.cuda.empty_cache()
     kernels += bert_kernel_phase(gen)
     engine, batch, launches["train_bert_sparse"] = train_bert_sparse_phase()

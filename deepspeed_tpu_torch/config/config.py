@@ -180,6 +180,7 @@ ROADMAP_OFFLOAD = ("ROADMAP.md queue 1, item \"ZeRO-Offload / Infinity on "
 ROADMAP_MULTI_RANK = ("ROADMAP.md queue 1, item \"ZeRO stages over "
                       "torch.distributed\"")
 ROADMAP_STREAM = ("ROADMAP.md queue 1, item \"Multi-GPU ZeRO-3 stream\"")
+ROADMAP_LONG_CONTEXT = "ROADMAP.md queue 1, item \"Long context\""
 ROADMAP_HOOKS = ("ROADMAP.md queue 1, item \"Engine telemetry, watchdog, "
                  "elastic and fault-tolerance hooks\"")
 ROADMAP_AUX = ("ROADMAP.md queue 1, item \"Auxiliary parity\"")

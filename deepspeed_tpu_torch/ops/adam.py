@@ -5,9 +5,9 @@ Port of ``deepspeed_tpu/ops/adam.py`` (``FusedAdam`` :22, ``Adam``
 ``moment_dtype`` ("fp32" or "bf16"), ``exp_avg_sq`` always fp32, bias
 correction with ``count = step + 1``, and the engine's loss-scale inverse
 times clip coefficient folded into one ``grad_scale`` read. The update
-runs as ``torch._foreach_*`` ops over all leaves; ``torch.optim.AdamW``
-is not used, as its bf16 moment rounding and its decay order differ from
-the reference.
+runs as ``torch._foreach_*`` ops over groups of leaves;
+``torch.optim.AdamW`` is not used, as its bf16 moment rounding and its
+decay order differ from the reference.
 """
 
 import dataclasses
@@ -55,31 +55,48 @@ class FusedAdam(TorchOptimizer):
         bool device tensor, or None) False makes the step a no-op that
         leaves params and state bit for bit as they were: the gradients
         are zeroed, the betas and lr become 1 and 0, and the step count
-        stays."""
+        stays. The leaves are updated in groups of at most
+        ``GROUP_ELEMENTS`` elements (a larger leaf alone), so the fp32
+        temporaries stay a group's size; every operation is elementwise,
+        so the grouping changes no bit."""
         lr = self.lr if lr is None else lr
         beta1, beta2 = self.betas
         count = state["step"] + 1
+        bc1 = bc2 = None
         if self.bias_correction:
             cf = count.float()
             bc1 = 1.0 - torch.pow(beta1, cf)
             bc2 = 1.0 - torch.pow(beta2, cf)
+        if finite is not None:
+            keep = finite.float()
+            beta1_t = torch.where(finite, beta1, 1.0)
+            beta2_t = torch.where(finite, beta2, 1.0)
+            lr = lr * keep
+        else:
+            keep, beta1_t, beta2_t = None, beta1, beta2
+        for idx in _groups(params):
+            self._step_group([params[i] for i in idx],
+                             [grads[i] for i in idx],
+                             [state["exp_avg"][i] for i in idx],
+                             [state["exp_avg_sq"][i] for i in idx],
+                             lr, grad_scale, keep, beta1_t, beta2_t, bc1,
+                             bc2)
+        state["step"] = count if finite is None else torch.where(
+            finite, count, state["step"])
+
+    def _step_group(self, params, grads, exp_avg, v, lr, grad_scale, keep,
+                    beta1_t, beta2_t, bc1, bc2):
+        beta1, beta2 = self.betas
         g = [x.float() for x in grads]
         if grad_scale is not None:
             torch._foreach_mul_(g, grad_scale)
         if self.weight_decay != 0.0 and not self.adam_w_mode:
             torch._foreach_add_(g, params, alpha=self.weight_decay)
-        if finite is not None:
-            keep = finite.float()
+        if keep is not None:
             for x in g:
                 x.nan_to_num_(0.0, 0.0, 0.0)
             torch._foreach_mul_(g, keep)
-            beta1_t = torch.where(finite, beta1, 1.0)
-            beta2_t = torch.where(finite, beta2, 1.0)
-            lr = lr * keep
-        else:
-            beta1_t, beta2_t = beta1, beta2
-        m = [x.float() for x in state["exp_avg"]]
-        v = state["exp_avg_sq"]
+        m = [x.float() for x in exp_avg]
         torch._foreach_mul_(m, beta1_t)
         torch._foreach_add_(m, g, alpha=1.0 - beta1)
         torch._foreach_mul_(v, beta2_t)
@@ -100,9 +117,29 @@ class FusedAdam(TorchOptimizer):
         torch._foreach_mul_(update, lr)
         torch._foreach_sub_(params, update)
         if self.moment_dtype == "bf16":
-            torch._foreach_copy_(state["exp_avg"], m)
-        state["step"] = count if finite is None else torch.where(
-            finite, count, state["step"])
+            torch._foreach_copy_(exp_avg, m)
+
+
+# the most elements a group of leaves updates at once: its fp32 scratch
+# (the gradients, the first moment, the denominator and the update) is 4
+# x 4 bytes an element, 2 GiB at this size, where all the leaves of a
+# 3.5B-parameter model at once would take 56 GB
+GROUP_ELEMENTS = 1 << 27
+
+
+def _groups(params):
+    """Consecutive index groups of ``params`` of at most GROUP_ELEMENTS
+    elements each (a larger leaf alone)."""
+    out, cur, n = [], [], 0
+    for i, p in enumerate(params):
+        if cur and n + p.numel() > GROUP_ELEMENTS:
+            out.append(cur)
+            cur, n = [], 0
+        cur.append(i)
+        n += p.numel()
+    if cur:
+        out.append(cur)
+    return out
 
 
 @dataclasses.dataclass

@@ -83,17 +83,19 @@ class Dense(nn.Module):
     """flax ``nn.Dense`` with ``dtype``/``param_dtype``: a master ``kernel
     [in, out]`` and ``bias``; input, kernel and bias cast to ``dtype`` for
     the product. ``std`` None is flax's default kernel init (lecun normal:
-    a normal truncated at 2 sigma, variance 1 / in)."""
+    a normal truncated at 2 sigma, variance 1 / in). ``use_bias=False`` is
+    flax's ``use_bias=False``: no ``bias`` parameter at all."""
 
     def __init__(self, in_dim, features, std, dtype, param_dtype,
-                 device=None):
+                 device=None, use_bias=True):
         super().__init__()
         self.std, self.dtype = std, dtype
         self.kernel = nn.Parameter(torch.empty(in_dim, features,
                                                dtype=param_dtype,
                                                device=device))
-        self.bias = nn.Parameter(torch.empty(features, dtype=param_dtype,
-                                             device=device))
+        self.bias = nn.Parameter(torch.empty(
+            features, dtype=param_dtype, device=device)) if use_bias \
+            else None
 
     def reset_parameters(self, generator):
         with torch.no_grad():
@@ -105,11 +107,13 @@ class Dense(nn.Module):
                                       2 * std, generator=generator)
             else:
                 self.kernel.normal_(0.0, self.std, generator=generator)
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x):
         dt = self.dtype
-        return F.linear(x.to(dt), self.kernel.to(dt).t(), self.bias.to(dt))
+        return F.linear(x.to(dt), self.kernel.to(dt).t(),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 class LayerNorm(nn.Module):

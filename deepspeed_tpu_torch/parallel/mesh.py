@@ -25,7 +25,8 @@ import traceback
 import torch
 import torch.distributed as dist
 
-from deepspeed_tpu_torch.config.config import ROADMAP_MULTI_RANK
+from deepspeed_tpu_torch.config.config import (ROADMAP_LONG_CONTEXT,
+                                               ROADMAP_MULTI_RANK)
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 DATA_AXIS = "data"
@@ -100,6 +101,11 @@ def rank_device(rank, device=None):
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
+# the ROADMAP item that ports each refused axis (seq: ring / Ulysses)
+_AXIS_ROADMAP = {"model": ROADMAP_MULTI_RANK, "pipe": ROADMAP_MULTI_RANK,
+                 "seq": ROADMAP_LONG_CONTEXT, "expert": ROADMAP_MULTI_RANK}
+
+
 def make_mesh(config=None, device=None):
     """The world this process joined (``torch.distributed`` initialized,
     gloo) as a ``Mesh`` of ``config.data`` ranks. Only the data axis is
@@ -110,7 +116,7 @@ def make_mesh(config=None, device=None):
         if getattr(config, axis) > 1:
             raise NotImplementedError(
                 f"mesh axis {axis}={getattr(config, axis)} is not ported; "
-                f"the port runs a data axis alone ({ROADMAP_MULTI_RANK})")
+                f"the port runs a data axis alone ({_AXIS_ROADMAP[axis]})")
     world = dist.get_world_size() if dist.is_initialized() else 1
     if config.data != world:
         raise ValueError(f"mesh data={config.data} must equal the "

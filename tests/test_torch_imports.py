@@ -36,7 +36,9 @@ def test_port_sources_import_no_jax():
 
 def test_port_imports_with_jax_poisoned():
     """Every module of the port, and chip_smoke without running its
-    main, import in a process where jax and deepspeed_tpu cannot."""
+    main, import in a process where jax and deepspeed_tpu cannot; there
+    the LLaMA training model takes a step through ``initialize`` and
+    ``llama_generate`` runs."""
     mods = _modules() + ["chip_smoke"]
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'flax', 'deepspeed_tpu'):\n"
@@ -44,6 +46,16 @@ def test_port_imports_with_jax_poisoned():
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            "import torch\n"
+            "import deepspeed_tpu_torch as dst\n"
+            "from deepspeed_tpu_torch.models import llama\n"
+            "model = llama.LlamaForCausalLM(llama.llama_tiny(remat=True,\n"
+            "                                                loss_chunk=8))\n"
+            "eng = dst.initialize(config={'train_batch_size': 2},\n"
+            "                     model=model, device='cpu')[0]\n"
+            "ids = torch.randint(0, 512, (2, 12))\n"
+            "assert torch.isfinite(eng.train_batch({'input_ids': ids}))\n"
+            "assert llama.llama_generate(model, ids, 3).shape == (2, 15)\n"
             "print('OK', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -312,6 +312,41 @@ def test_adam_finite_flag_keeps_or_skips_the_step(moment_dtype, adam_w_mode):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("moment_dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("finite", [None, True, False])
+def test_adam_leaf_groups_change_no_bit(monkeypatch, moment_dtype, finite):
+    """FusedAdam updates its leaves in groups of at most GROUP_ELEMENTS
+    elements (its fp32 scratch a group's size): a group a leaf, or two
+    leaves a group, gives the one-group step bit for bit, the step count
+    included."""
+    from deepspeed_tpu_torch.ops import adam
+    opt = adam.FusedAdam(lr=1e-2, weight_decay=0.1, moment_dtype=moment_dtype)
+    rs = np.random.RandomState(1)
+    shapes = [(8, 16), (16,), (4, 4), (3,)]
+    grads = [torch.from_numpy(rs.randn(*s).astype(np.float32))
+             .to(torch.bfloat16) for s in shapes]
+    flag = None if finite is None else torch.tensor(finite)
+
+    def run(group):
+        monkeypatch.setattr(adam, "GROUP_ELEMENTS", group)
+        params = [torch.from_numpy(np.random.RandomState(2).randn(*s)
+                                   .astype(np.float32)) for s in shapes]
+        state = opt.init(params)
+        for _ in range(2):
+            opt.step(params, grads, state, torch.tensor(3e-3),
+                     grad_scale=torch.tensor(0.5), finite=flag)
+        return params + state["exp_avg"] + state["exp_avg_sq"] \
+            + [state["step"]]
+    assert adam._groups([torch.empty(s) for s in shapes]) == [[0, 1, 2, 3]]
+    one = run(1 << 27)
+    monkeypatch.setattr(adam, "GROUP_ELEMENTS", 144)
+    assert adam._groups([torch.empty(s) for s in shapes]) == [[0, 1],
+                                                             [2, 3]]
+    for group in (1, 144):
+        for a, b in zip(one, run(group)):
+            assert torch.equal(a, b)
+
+
 def test_checkpoint_needs_the_weight_bridge(tmp_path):
     """A model without ``jax_tree``/``from_jax_tree`` cannot be written
     in the JAX checkpoint format: save and load raise, and nothing is
