@@ -2,16 +2,22 @@
 serving (each in bf16 and in int8), GPT-2 large ``generate()`` through
 the fused inference layer, LLaMA-7B's dense fast path, GPT-2 large
 training, LLaMA-7B training at half depth and its ``llama_generate``,
-BERT-large pretraining with block-sparse attention, GPT-2 large MoQ
-quantize-aware training and GPT-2 large ZeRO-3 training over four ranks
-on one NVIDIA GPU, through the hand-written CUDA kernels.
+LLaMA-7B training at all 32 layers with ZeRO-Offload, GPT-2 large with
+ZeRO-Infinity's NVMe tiers, BERT-large pretraining with block-sparse
+attention, GPT-2 large MoQ quantize-aware training and GPT-2 large
+ZeRO-3 training over four ranks on one NVIDIA GPU, through the
+hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each, each with its wall ``seconds``:
 
 1. device   — the card (nvidia-smi name and power limit), CUDA version,
-               and the time to build the kernels from ``csrc/*.cu``;
+               and the time to build the kernels from ``csrc/*.cu``
+               and the host libraries (``csrc/{cpu_adam,aio}.cpp``, g++);
+               the host's memory and cores, the NVMe directory's
+               filesystem and free space, the aio backend, and the
+               pinned copy rates of 1 GiB each way and both at once;
 2. kernels  — each CUDA kernel at the main path's shapes (GPT-2 large
                widths, bf16, layer 17, a scattered page table, one idle
                slot) held against its plain PyTorch version on the card
@@ -153,6 +159,20 @@ Phases, one JSON line each, each with its wall ``seconds``:
                untied lm_head (LLAMA_LEAF_RTOL), and what the
                GQA backward's repeat-and-sum costs at LLaMA-3-8B's
                attention;
+   train_llama_offload, train_llama_offload_host, offload_parity,
+   train_nvme — all 32 layers of LLaMA-7B (4 x 2048, remat) with the
+               optimizer state off the card: the streamed tier (67.4 GB
+               pinned, the update streamed through the card) and the
+               host runner (80.9 GB, the native SIMD Adam), warm-up and
+               timed steps (2L / L / L flash launches a step), step ms,
+               MFU, each step's fwd+bwd and update device ms (CUDA
+               events) with host seconds beside them, the transfer bound,
+               device peak and host GB; both tiers' losses and each
+               master leaf's update against the device optimizer's at 2
+               layers, beside a planted fault (one leaf at twice the
+               lr); GPT-2 large with its moments and parameters on the
+               host's disk (a fresh temporary directory), its losses
+               against the train phase's first ones;
 8. kernel, bert_kernels — the three block-sparse kernels (forward, dq,
                dk/dv) at BERT's main shape (B 4, H 16, S 4096, D 64,
                block 16, the per-head Fixed layout of the config below:
@@ -287,13 +307,17 @@ with code 2 before doing anything.
 
 import cProfile
 import dataclasses
+import gc
 import itertools
 import json
 import math
+import os
 import pstats
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -350,6 +374,20 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 # ~49 GB at 16 of the card's 80; 4 x 2048 tokens, full-block remat, the
 # loss in chunks of 2048 tokens over the untied head
 LLAMA_BATCH, LLAMA_SEQ, LLAMA_LAYERS, LLAMA_LOSS_CHUNK = 4, 2048, 16, 2048
+# LLaMA-7B training with the optimizer state off the card (ZeRO-Offload):
+# all 32 layers. The card keeps the bf16 parameters and gradients (~27 GB)
+# and the remat activations; the streamed tier pins 10 bytes a parameter
+# in host memory (67.4 GB: fp32 master, bf16 exp_avg, fp32 exp_avg_sq),
+# the host runner keeps 12 (80.9 GB, fp32 moments) of the host's ~106 GB
+LLAMA_OFFLOAD_LAYERS, LLAMA_OFFLOAD_REDUCED = 32, "none"
+# ZeRO-Infinity on GPT-2 large: the moments and the parameters on the
+# disk of the card's host (a fresh temporary directory), 1 + NVME_STEPS
+# steps against the train phase's first ones; O_DIRECT asked for (a
+# filesystem that refuses it latches the run to buffered I/O, and the
+# line says so)
+NVME_STEPS = 2
+NVME_AIO = {"block_size": 1 << 20, "queue_depth": 8, "thread_count": 8,
+            "o_direct": True}
 # llama_generate with the trained model: B 1, a 32-token prompt, 16 new
 LLAMA_GEN_PROMPT, LLAMA_GEN_NEW = 32, 16
 # full-width 2-layer gradient check: row-relative limit per leaf, kernels
@@ -780,19 +818,34 @@ def record(results, name, path, replaces, checks, ms, call_ms, plain_ms,
 # ------------------------------------------------------------------ phases
 
 def phase_device():
+    """The card, the kernels' build, the host libraries' build (the
+    native SIMD Adam and the aio handle, with g++), the host (memory,
+    cores, the NVMe directory's filesystem and free space) and the
+    pinned copy rates of a 1 GiB tensor each way. Returns (the
+    nvidia-smi lines, the rates)."""
     from deepspeed_tpu_torch.ops.cuda import builder
+    from deepspeed_tpu_torch.ops.native import aio, cpu_adam
+    from deepspeed_tpu_torch.ops.native import builder as native_builder
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     lib = builder.kernels()
+    cpu_adam.load()
+    aio.load()
+    rates = pinned_rates()
     info = {"phase": "device", "nvidia_smi": smi,
             "kind": torch.cuda.get_device_name(0),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernel_build_s": lib.build_s, "built": lib.built,
-            "library": lib.path}
+            "library": lib.path,
+            "native_build_s": dict(native_builder.build_seconds),
+            "aio_backend": aio.AsyncIOHandle().backend,
+            **host_info(tempfile.gettempdir()),
+            "pinned_h2d_gb_s": rates["h2d"], "pinned_d2h_gb_s": rates["d2h"],
+            "pinned_duplex_gb_s": rates["duplex"]}
     emit(info)
-    return smi
+    return smi, rates
 
 
 def kernel_phase(eng, cfg, gen):
@@ -2168,6 +2221,443 @@ def gqa_backward_cost(B=1, H=32, Hkv=8, S=LLAMA_SEQ, D=128):
             "kv_at_full_heads_us": mha_ms * 1e3,
             "repeat_and_sum_us": (gqa_ms - mha_ms) * 1e3,
             "repeat_and_sum_share": (gqa_ms - mha_ms) / gqa_ms}
+
+
+# ------------------------------------------------------- ZeRO-Offload
+
+def host_info(nvme_dir):
+    """The host the card sits in: memory (/proc/meminfo), cores, and the
+    NVMe tier's directory: its filesystem (/proc/mounts) and free space."""
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                mem[key] = int(value.split()[0]) * 1024 / 1e9
+    path = os.path.realpath(nvme_dir)
+    fs, mount = None, ""
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, point, kind = line.split()[:3]
+            if (path == point or path.startswith(point.rstrip("/") + "/")) \
+                    and len(point) > len(mount):
+                fs, mount = kind, point
+    usage = shutil.disk_usage(nvme_dir)
+    return {"mem_total_gb": mem["MemTotal"],
+            "mem_available_gb": mem["MemAvailable"],
+            "cpu_count": os.cpu_count(), "nvme_dir": nvme_dir,
+            "nvme_fs": fs, "nvme_mount": mount,
+            "nvme_free_gb": usage.free / 1e9}
+
+
+def pinned_rates(nbytes=1 << 30, reps=10, warm=3):
+    """The best of ``reps`` host-to-card and card-to-host copies of
+    ``nbytes``, and of both at once on two streams (their bytes
+    together), in GB/s (CUDA events). Each direction has its own pinned
+    and device buffers, and every probe runs ``warm`` times untimed
+    first."""
+    h_in, h_out = (torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                   for _ in range(2))
+    d_in, d_out = (torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+                   for _ in range(2))
+    streams = [torch.cuda.Stream() for _ in range(2)]
+
+    def duplex():
+        cur = torch.cuda.current_stream()
+        for st in streams:
+            st.wait_stream(cur)
+        for st, (dst, src) in zip(streams, ((d_in, h_in), (h_out, d_out))):
+            with torch.cuda.stream(st):
+                dst.copy_(src, non_blocking=True)
+        for st in streams:
+            cur.wait_stream(st)
+    rates = {}
+    for name, fn, moved in (
+            ("h2d", lambda: d_in.copy_(h_in, non_blocking=True), nbytes),
+            ("d2h", lambda: h_out.copy_(d_out, non_blocking=True), nbytes),
+            ("duplex", duplex, 2 * nbytes)):
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        best = math.inf
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3)
+        rates[name] = moved / best / 1e9
+    del h_in, h_out, d_in, d_out
+    torch.cuda.empty_cache()
+    return rates
+
+
+def free_host_caches():
+    """Return the caching host allocator's pinned blocks to the system
+    (earlier phases' staging), before a phase that needs the host's
+    memory."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+
+
+def offload_ds_config(offload, batch=LLAMA_BATCH):
+    """train_llama's config with ``offload`` as its offload_optimizer
+    block."""
+    cfg = llama_ds_config(batch)
+    cfg["zero_optimization"] = dict(cfg["zero_optimization"],
+                                    offload_optimizer=offload)
+    return cfg
+
+
+def offload_timed_run(engine, batch, warmup, budget_s, max_steps):
+    """Warm-up steps, then timed steps while they fit ``budget_s`` (at
+    least 2, at most ``max_steps``); the timed run's launches counted
+    from 0. Returns (losses, timed steps, wall seconds, launches, the
+    per-step device and host times of the two phases)."""
+    from deepspeed_tpu_torch.ops.cuda import builder
+    t0 = time.perf_counter()
+    warm = [engine.train_batch(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / warmup
+    steps = max(2, min(max_steps, int(budget_s / step_s)))
+    builder.launches.clear()             # count the main path's run only
+    marks, timed = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        timed.append(engine.train_batch(batch))
+        marks.append(engine.offload_marks)
+        if getattr(engine._host_runner, "last_adam_s", None) is not None:
+            marks[-1] = marks[-1] + (engine._host_runner.last_adam_s,)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(builder.launches)
+    per_step = []
+    for m in marks:
+        (e0, h0), (e1, h1), (e2, h2) = m[:3]
+        per_step.append({"fwd_bwd_ms": e0.elapsed_time(e1),
+                         "update_ms": e1.elapsed_time(e2),
+                         "fwd_bwd_host_s": h1 - h0,
+                         "update_host_s": h2 - h1,
+                         **({"cpu_adam_s": m[3]} if len(m) > 3 else {})})
+    losses = [float(x) for x in torch.stack(warm + timed).cpu()]
+    return losses, steps, wall_s, launches, per_step
+
+
+def check_losses(name, losses, warmup):
+    timed = losses[warmup:]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    if not timed[-1] < timed[0]:
+        raise AssertionError(f"{name}: the loss did not fall: {timed}")
+
+
+def train_llama_offload_phase(rates, stream="auto", warmup=2, budget_s=20.0,
+                              max_steps=10):
+    """``initialize`` + ``train_batch`` of LlamaForCausalLM at LLaMA-7B's
+    width and all LLAMA_OFFLOAD_LAYERS layers with the optimizer state
+    off the card: the streamed tier (``stream`` auto: fp32 master, bf16
+    exp_avg and fp32 exp_avg_sq in pinned host memory, the update on the
+    card) or the host runner (``stream`` host: fp32 master and moments
+    in host memory, the native SIMD step on the host's cores). The
+    transfer bound is the bytes moved each way (the streamed tier's
+    state; the host runner's bf16 gradients and parameters) over the
+    one-way pinned rates of ``rates``: the slower direction alone, a
+    floor whatever the copies overlap. Both directions' bytes over the
+    duplex rate are printed beside it, unchecked (the probe's duplex
+    rate is not a ceiling); an update under the bound fails the
+    phase."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    host = stream == "host"
+    name = "train_llama_offload_host" if host else "train_llama_offload"
+    free_host_caches()
+    cfg = llama_train_config(LLAMA_OFFLOAD_LAYERS)
+    L = cfg.n_layers
+    offload = {"device": "cpu", "stream": stream}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, _, _, _ = ds.initialize(config=offload_ds_config(offload),
+                                    model=LlamaForCausalLM(cfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    runner = engine._host_runner
+    batch = llama_batch_ids(cfg)
+    losses, steps, wall_s, launches, per_step = offload_timed_run(
+        engine, batch, warmup, budget_s, max_steps)
+    check_losses(name, losses, warmup)
+    expect = {"flash_attention_fwd": 2 * L * steps,
+              "flash_attention_bwd": L * steps,
+              "flash_attention_bwd_delta": L * steps}
+    if launches != expect:
+        raise AssertionError(f"{name} launch counts {launches} != {expect}")
+    step_s = wall_s / steps
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+    flops = llama_flops_per_token(cfg, LLAMA_SEQ) * tokens
+    n_params = cfg.num_params()
+    line = {"phase": name, "model": "llama_7b", "layers": L,
+            "reduced": LLAMA_OFFLOAD_REDUCED, "tier": type(runner).__name__,
+            "stream": stream, "params": n_params, "batch": LLAMA_BATCH,
+            "seq": LLAMA_SEQ, "remat": cfg.remat,
+            "loss_chunk": cfg.loss_chunk, "steps": steps,
+            "warmup_steps": warmup, "init_s": init_s,
+            "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "model_tflops_per_step": flops / 1e12,
+            "mfu": flops / step_s / BF16_FLOP_PER_S,
+            "step_floor_ms": flops / BF16_FLOP_PER_S * 1e3,
+            "device_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "host_state_gb": runner.host_bytes / 1e9,
+            "per_step": per_step,
+            "fwd_bwd_ms": statistics.median(s["fwd_bwd_ms"]
+                                            for s in per_step),
+            "update_ms": statistics.median(s["update_ms"] for s in per_step),
+            "launches": launches, "launches_per_step":
+                {k: v / steps for k, v in launches.items()},
+            "losses": losses}
+    if host:
+        line["cpu_adam_s"] = statistics.median(s["cpu_adam_s"]
+                                               for s in per_step)
+        line["cpu_adam_threads"] = runner.native.num_threads()
+        # the gradients in (bf16) and the parameters out (bf16)
+        moved = 2 * n_params
+    else:
+        line["pinned_host_gb"] = runner.host_bytes / 1e9
+        line["pin_touch_s"] = runner.init_s["touch_s"]
+        line["pin_register_s"] = runner.init_s["register_s"]
+        line["groups"] = len(runner.groups)
+        moved = runner.host_bytes       # each way: master, m, v
+    line["bytes_each_way"] = moved
+    line["pinned_gb_s"] = dict(rates)
+    line["transfer_bound_ms"] = max(moved / rates["h2d"],
+                                    moved / rates["d2h"]) / 1e6
+    line["transfer_duplex_ms"] = 2 * moved / rates["duplex"] / 1e6
+    line["transfer_serial_ms"] = (moved / rates["h2d"]
+                                  + moved / rates["d2h"]) / 1e6
+    line["transfer_bound_over_update_ms"] = \
+        line["transfer_bound_ms"] / line["update_ms"]
+    emit(line)
+    if not min(s["update_ms"]
+               for s in per_step) >= line["transfer_bound_ms"]:
+        raise AssertionError(f"{name}: an update beat its transfer bound "
+                             f"({line['transfer_bound_ms']:.1f} ms)")
+    engine.close()
+    del engine, runner, batch
+    free_host_caches()
+    return launches
+
+
+def host_step_updates(cfg, batch, steps):
+    """The host runner's native step and the device optimizer's FusedAdam
+    with fp32 moments, stepped from the same masters with the same
+    gradients: ``steps`` steps of the device engine at LLaMA-7B's width,
+    each step's gradients (from the engine's compute copy) handed to the
+    host runner first and then to the engine's own update. Returns the
+    leaf names and the (host, device) updates, after less before."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.config.config import ZeroOffloadConfig
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.runtime.zero.offload import HostOffloadOptimizer
+    ds_cfg = llama_ds_config(2)
+    ds_cfg["optimizer"] = dict(ds_cfg["optimizer"], params=dict(
+        ds_cfg["optimizer"]["params"], moment_dtype="fp32"))
+    engine, _, _, _ = ds.initialize(config=ds_cfg,
+                                    model=LlamaForCausalLM(cfg))
+    before = [m.detach().cpu().clone()
+              for m in engine.gather_master().values()]
+    runner = HostOffloadOptimizer(
+        engine.master, engine.optimizer,
+        ZeroOffloadConfig({"device": "cpu", "stream": "host"}),
+        device="cuda")
+    out = [torch.empty_like(p.data) for p in engine.compute_params]
+    for _ in range(steps):
+        grads, loss = engine._accumulate_grads(batch)
+        with torch.no_grad():
+            _, coef = engine._clip_coefficient(grads)
+            runner.step_streamed(grads, float(engine._lr()),
+                                 grad_scale=float(coef), params=out)
+        engine._apply_grads(grads, loss)
+        engine._refresh_compute_params()
+    host = [a - b for a, b in zip(runner.master_leaves(), before)]
+    dev = [m.detach().cpu() - b
+           for m, b in zip(engine.gather_master().values(), before)]
+    names = engine.param_names
+    runner.close()
+    engine.close()
+    del engine, runner, out
+    free_host_caches()
+    return names, host, dev
+
+
+def offload_parity_phase(steps=3, fault_leaf="layers.0.attn.q_proj.kernel",
+                         coarse=(2.0,), fine=(2.0, 1.01)):
+    """LLaMA-7B's width at 2 layers, one seed, ``steps`` steps on three
+    engines: the device optimizer, the streamed tier and the host runner.
+    Their losses at LOSS_RTOL of the device engine's; each master leaf's
+    update (after less before) at OFFLOAD_UPDATE_RTOL: the streamed
+    tier's against the device engine's bit for bit, the host runner's
+    trajectory (fp32 moments, against the device engine's bf16 exp_avg)
+    loosely. Then the host runner's step alone against FusedAdam with
+    fp32 moments on the same gradients (``host_step_updates``) at the
+    ``host_step`` limit. Planted faults, one leaf's update at ``fine``
+    times the lr (``coarse`` for the host runner's trajectory), must
+    fail each check."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.cuda import tolerance
+    cfg = llama_train_config(2)
+    batch = llama_batch_ids(cfg, 2)
+    runs = {}
+    for tier, offload in (("device", None), ("streamed", {"device": "cpu"}),
+                          ("host", {"device": "cpu", "stream": "host"})):
+        ds_cfg = llama_ds_config(2) if offload is None \
+            else offload_ds_config(offload, 2)
+        engine, _, _, _ = ds.initialize(config=ds_cfg,
+                                        model=LlamaForCausalLM(cfg))
+        names = engine.param_names
+
+        def masters():
+            return [m.detach().cpu().clone()
+                    for m in engine.gather_master().values()]
+        before = masters()
+        losses = [float(engine.train_batch(batch)) for _ in range(steps)]
+        after = masters()
+        runs[tier] = (losses, [a - b for a, b in zip(after, before)])
+        engine.close()
+        del engine
+        free_host_caches()
+    ref_losses, ref_upd = runs["device"]
+    fault_i = names.index(fault_leaf)
+
+    def check(upd, ref, limit, faults):
+        def errs(u):
+            return {n: tolerance.row_rel_err(a, r,
+                                             tolerance.OFFLOAD_UPDATE_FLOOR)
+                    for n, a, r in zip(names, u, ref)}
+        e = errs(upd)
+        worst = max(e, key=e.get)
+        fault_errs = {}
+        for f in faults:
+            bad = list(upd)
+            bad[fault_i] = f * upd[fault_i]
+            fault_errs[f"{fault_leaf} at {f} x lr"] = errs(bad)[fault_leaf]
+        return {"max_update_row_rel_err": e[worst], "worst_leaf": worst,
+                "median_update_row_rel_err": float(np.median(
+                    list(e.values()))),
+                "faults": fault_errs, "update_limit": limit}
+    cases = {}
+    for tier in ("streamed", "host"):
+        losses, upd = runs[tier]
+        cases[tier] = dict(
+            check(upd, ref_upd, tolerance.OFFLOAD_UPDATE_RTOL[tier],
+                  coarse if tier == "host" else fine),
+            losses=losses, loss_rel_err=max(
+                abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)))
+    step_names, host_upd, dev_upd = host_step_updates(cfg, batch, steps)
+    assert step_names == names
+    cases["host_step"] = check(host_upd, dev_upd,
+                               tolerance.OFFLOAD_UPDATE_RTOL["host_step"],
+                               fine)
+    emit({"phase": "offload_parity", "model": "llama_7b", "layers": 2,
+          "batch": 2, "seq": LLAMA_SEQ, "steps": steps,
+          "device_losses": ref_losses, "loss_limit": LOSS_RTOL,
+          "update_floor": tolerance.OFFLOAD_UPDATE_FLOOR, "tiers": cases})
+    for tier, c in cases.items():
+        if "losses" in c and not c["loss_rel_err"] <= LOSS_RTOL:
+            raise AssertionError(f"offload_parity: {tier} losses "
+                                 f"{c['losses']} vs {ref_losses}")
+        if not c["max_update_row_rel_err"] <= c["update_limit"]:
+            raise AssertionError(
+                f"offload_parity: {tier} update of {c['worst_leaf']} off by "
+                f"{c['max_update_row_rel_err']:.3g}")
+        for fault, err in c["faults"].items():
+            if not err > c["update_limit"]:
+                raise AssertionError(f"offload_parity: {tier}: a planted "
+                                     f"fault ({fault}: {err:.3g}) passes "
+                                     f"the check")
+
+
+def train_nvme_phase(warmup=1, steps=NVME_STEPS):
+    """GPT-2 large (the train phase's model, config, seed and batch) with
+    the Adam moments and the parameters on NVMe (ZeRO-Infinity): the
+    host runner's SIMD step streams each leaf's moments through the aio
+    handles, the parameters are parked between steps and stream back
+    before the forward. The directory is a fresh temporary one, removed
+    at the end; the disk must hold the moments and the parameters. The
+    losses are held at LOSS_RTOL of the train phase's first steps."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    free_host_caches()
+    cfg = train_model_config()
+    n = cfg.num_params()
+    need = n * 8 + n * 2          # fp32 moments, bf16 parameters
+    nvme = tempfile.mkdtemp(prefix="dstpu_nvme_")
+    try:
+        info = host_info(nvme)
+        if info["nvme_free_gb"] * 1e9 < 1.2 * need:
+            raise AssertionError(
+                f"train_nvme: {nvme} has {info['nvme_free_gb']:.1f} GB free, "
+                f"the tier needs {need / 1e9:.1f} GB")
+        swap = {"device": "nvme", "nvme_path": nvme}
+        ds_cfg = dict(train_ds_config(), aio=NVME_AIO)
+        ds_cfg["zero_optimization"] = dict(
+            ds_cfg["zero_optimization"], offload_optimizer=swap,
+            offload_param=dict(swap, pipeline_write=True))
+        t0 = time.perf_counter()
+        engine, _, _, _ = ds.initialize(config=ds_cfg,
+                                        model=GPT2LMHeadModel(cfg))
+        init_s = time.perf_counter() - t0
+        batch = train_batch_ids()
+        reg = engine.metrics
+        warm = [engine.train_batch(batch) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        engine.take_swap_stall_s()
+        read0 = reg.counter("swap/bytes_read").value
+        written0 = reg.counter("swap/bytes_written").value
+        t0 = time.perf_counter()
+        timed = [engine.train_batch(batch) for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        stall_s = engine.take_swap_stall_s()
+        read = reg.counter("swap/bytes_read").value - read0
+        written = reg.counter("swap/bytes_written").value - written0
+        handle = engine._host_runner.swapper.handle
+        losses = [float(x) for x in torch.stack(warm + timed).cpu()]
+        ref = TRAIN_LOSSES[:len(losses)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        step_s = wall_s / steps
+        emit({"phase": "train_nvme", "model": "gpt2_large",
+              "layers": cfg.n_layer, "params": n,
+              "reduced": f"steps {TRAIN_WARMUP} + {TRAIN_STEPS} -> "
+                         f"{warmup} + {steps}",
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "aio": NVME_AIO,
+              "aio_backend": handle.backend,
+              "o_direct": handle.direct_active, **info,
+              "moments_gb": n * 8 / 1e9, "params_gb": n * 2 / 1e9,
+              "init_s": init_s, "steps": steps, "warmup_steps": warmup,
+              "step_ms": step_s * 1e3,
+              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+              "swap_stall_s_per_step": stall_s / steps,
+              "read_gb_per_step": read / steps / 1e9,
+              "written_gb_per_step": written / steps / 1e9,
+              "read_gb_s": read / wall_s / 1e9,
+              "write_gb_s": written / wall_s / 1e9,
+              "losses": losses, "train_losses": ref,
+              "loss_rel_err": rel, "loss_limit": LOSS_RTOL})
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train_nvme: non-finite loss: {losses}")
+        if not rel <= LOSS_RTOL:
+            raise AssertionError(f"train_nvme: losses {losses} vs the train "
+                                 f"phase's {ref} ({rel:.3g} > {LOSS_RTOL})")
+        engine.close()
+        del engine
+    finally:
+        shutil.rmtree(nvme, ignore_errors=True)
+    free_host_caches()
 
 
 def train_profile_phase(engine, batch, steps=3, phase="train_profile"):
@@ -4952,7 +5442,7 @@ def main():
     from deepspeed_tpu_torch.models.llama_inference import \
         init_serving_params
     profile = "--profile" in sys.argv[1:]
-    smi = phase_device()
+    smi, rates = phase_device()
     cfg = gpt2_large(dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(0)
     eng = serving.build_engine(
@@ -5033,6 +5523,11 @@ def main():
     torch.cuda.empty_cache()
     llama_grad_check_phase()
     torch.cuda.empty_cache()
+    launches["train_llama_offload"] = train_llama_offload_phase(rates)
+    launches["train_llama_offload_host"] = train_llama_offload_phase(
+        rates, stream="host")
+    offload_parity_phase()
+    train_nvme_phase()
     kernels += bert_kernel_phase(gen)
     engine, batch, launches["train_bert_sparse"] = train_bert_sparse_phase()
     if profile:

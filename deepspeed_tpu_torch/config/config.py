@@ -201,8 +201,18 @@ def _enabled(d):
 # block → (is it on in this param dict?, ROADMAP item): everything the
 # JAX engine reads that the port's engine does not run yet
 _TRAINING_NOT_PORTED = {
-    "zero_optimization.offload_optimizer / offload_param / cpu_offload":
-        (lambda pd: _zero_offload(pd), ROADMAP_OFFLOAD),
+    "zero_optimization.offload_param device 'cpu' (parameters resting in "
+    "pinned host memory, streamed to the card a layer at a time)":
+        (lambda pd: _zero_offload_param(pd) == "cpu", ROADMAP_OFFLOAD),
+    "zero_optimization.offload_param.stream_segments (the ZeRO-Infinity "
+    "segment-streamed engine)":
+        (lambda pd: int((_zero(pd).get("offload_param") or {}).get(
+            "stream_segments", 0) or 0) > 0, ROADMAP_OFFLOAD),
+    "zero_optimization.offload_param device 'nvme' without "
+    "offload_optimizer (parameters parked while the device optimizer "
+    "holds its masters)":
+        (lambda pd: _zero_offload_param(pd) == "nvme"
+         and not _zero_offload_optimizer(pd), ROADMAP_OFFLOAD),
     "zero_optimization.stage3_prefetch_gather 'fused' (XLA's own "
     "collective schedule)":
         (lambda pd: _zero(pd).get("stage3_prefetch_gather") == "fused",
@@ -241,8 +251,7 @@ _OPTIMIZERS_NOT_PORTED = {"lamb": ROADMAP_LAMB_SGD,
                           "fusedlamb": ROADMAP_LAMB_SGD,
                           "sgd": ROADMAP_LAMB_SGD,
                           "onebitadam": ROADMAP_STREAM,
-                          "onebitlamb": ROADMAP_STREAM,
-                          "cpuadam": ROADMAP_OFFLOAD}
+                          "onebitlamb": ROADMAP_STREAM}
 
 
 def _zero(pd):
@@ -252,12 +261,20 @@ def _zero(pd):
     return z or {}
 
 
-def _zero_offload(pd):
+def _zero_offload_param(pd):
+    """The offload_param device ("none", "cpu" or "nvme"), the legacy
+    ``cpu_offload_params`` flag included."""
     z = _zero(pd)
-    return bool(z.get("cpu_offload", False)) \
-        or bool(z.get("cpu_offload_params", False)) \
-        or any((z.get(k) or {}).get("device", "none") not in (None, "none")
-               for k in ("offload_optimizer", "offload_param"))
+    device = (z.get("offload_param") or {}).get("device") or "none"
+    if device == "none" and z.get("cpu_offload_params", False):
+        return "cpu"
+    return device
+
+
+def _zero_offload_optimizer(pd):
+    z = _zero(pd)
+    return ((z.get("offload_optimizer") or {}).get("device") or "none") \
+        != "none" or bool(z.get("cpu_offload", False))
 
 
 # zero_optimization's stage-3 knobs (deepspeed_tpu/config/constants.py:
@@ -270,6 +287,80 @@ ZERO_DEFAULTS = {"stage3_prefetch": False, "stage3_prefetch_gather": "ring",
                  "stage3_prefetch_bucket_size": 5e7}
 CM_DEFAULTS = {"backend": "auto", "tile_m": 128, "min_shard_bytes": 1 << 16,
                "vmem_budget_bytes": 8 << 20}
+
+
+OFFLOAD_DEVICES = ("none", "cpu", "nvme")
+
+
+class ZeroOffloadConfig:
+    """``offload_param`` / ``offload_optimizer``, with JAX's keys,
+    defaults and messages (``deepspeed_tpu/config/config.py:29-87``):
+    ``device`` (none, cpu, nvme), ``nvme_path``, ``buffer_count``, the
+    swappers' ``pipeline_read`` / ``pipeline_write`` / ``fsync``, and
+    ``stream`` (offload_optimizer only: "auto" and "device" update on the
+    card with the state in pinned host memory, "host" runs the native
+    SIMD step), ``stream_segments`` (offload_param only)."""
+
+    def __init__(self, d, role="optimizer"):
+        d = d or {}
+        self.device = d.get("device", "none") or "none"
+        if self.device not in OFFLOAD_DEVICES:
+            raise DeepSpeedConfigError(
+                f"offload device must be one of {OFFLOAD_DEVICES}, got "
+                f"{self.device!r}")
+        self.nvme_path = d.get("nvme_path", None)
+        self.buffer_count = int(d.get("buffer_count", 5))
+        self.pipeline_read = bool(d.get("pipeline_read", False))
+        self.pipeline_write = bool(d.get("pipeline_write", False))
+        self.fsync = bool(d.get("fsync", False))
+        if self.buffer_count < 1:
+            raise DeepSpeedConfigError(
+                f"offload buffer_count must be >= 1, got {self.buffer_count}")
+        self.stream = str(d.get("stream", "auto"))
+        self.stream_segments = int(d.get("stream_segments", 0))
+        if role != "optimizer":
+            if "stream" in d:
+                raise DeepSpeedConfigError(
+                    "'stream' applies to offload_optimizer only (the param "
+                    "tier is pinned_host/NVMe residency, not a step mode)")
+        elif self.stream_segments:
+            raise DeepSpeedConfigError(
+                "'stream_segments' applies to offload_param only")
+        elif self.stream not in ("auto", "device", "host"):
+            raise DeepSpeedConfigError(
+                f"offload stream must be auto|device|host, got "
+                f"{self.stream!r}")
+
+    @property
+    def enabled(self):
+        return self.device != "none"
+
+
+class AioConfig:
+    """``aio`` block (``deepspeed_tpu/config/config.py:668``): the async
+    I/O handles' knobs and ``o_direct``."""
+
+    def __init__(self, param_dict):
+        import mmap
+        d = param_dict.get("aio", {}) or {}
+        self.block_size = int(d.get("block_size", 1048576))
+        self.queue_depth = int(d.get("queue_depth", 8))
+        self.thread_count = int(d.get("thread_count", 1))
+        self.single_submit = bool(d.get("single_submit", False))
+        self.overlap_events = bool(d.get("overlap_events", True))
+        o_direct = d.get("o_direct", False)
+        if not isinstance(o_direct, bool):
+            raise DeepSpeedConfigError(
+                f"aio.o_direct must be a bool, got {o_direct!r}")
+        self.o_direct = o_direct
+        if self.block_size <= 0:
+            raise DeepSpeedConfigError(
+                f"aio.block_size must be positive, got {self.block_size}")
+        if self.o_direct and self.block_size % mmap.PAGESIZE:
+            raise DeepSpeedConfigError(
+                f"aio.o_direct requires aio.block_size to be a multiple of "
+                f"the page size ({mmap.PAGESIZE}); got {self.block_size} — "
+                f"O_DIRECT transfer lengths must stay aligned")
 
 
 class ZeroConfig:
@@ -336,6 +427,39 @@ class ZeroConfig:
             "stage3_max_live_parameters", D["stage3_max_live_parameters"]))
         self.prefetch_bucket_size = int(z.get(
             "stage3_prefetch_bucket_size", D["stage3_prefetch_bucket_size"]))
+        # the offload tiers (config.py:136-148): the legacy flat flags
+        # switch the blocks on
+        self.offload_param = ZeroOffloadConfig(z.get("offload_param"),
+                                               role="param")
+        self.offload_optimizer = ZeroOffloadConfig(z.get("offload_optimizer"))
+        if z.get("cpu_offload", False) and not self.offload_optimizer.enabled:
+            self.offload_optimizer.device = "cpu"
+        if z.get("cpu_offload_params", False) \
+                and not self.offload_param.enabled:
+            self.offload_param.device = "cpu"
+        self.overlap_comm = bool(z.get("overlap_comm", False))
+        self.reduce_bucket_size = int(z.get("reduce_bucket_size", 5e8))
+        if self.overlap_comm and not self.offload_optimizer.enabled \
+                and self.reduce_bucket_size <= 0:
+            raise DeepSpeedConfigError(
+                f"zero_optimization.reduce_bucket_size must be positive "
+                f"when overlap_comm is on, got {self.reduce_bucket_size}")
+        for role, c in (("offload_optimizer", self.offload_optimizer),
+                        ("offload_param", self.offload_param)):
+            if c.device == "nvme" and not c.nvme_path:
+                raise DeepSpeedConfigError(
+                    f"{role} device=nvme requires nvme_path")
+        if self.offload_optimizer.stream == "device" and \
+                self.offload_optimizer.device == "nvme":
+            raise DeepSpeedConfigError(
+                "offload_optimizer stream='device' supports device='cpu' "
+                "with Adam/AdamW only (NVMe state and LAMB run on the host "
+                "runner)")
+        if (self.offload_optimizer.enabled or self.offload_param.enabled) \
+                and self.stage3_prefetch:
+            raise NotImplementedError(
+                f"the offload tiers with stage3_prefetch are not ported "
+                f"({ROADMAP_MULTI_RANK})")
 
 
 # MoQ quantize-aware training and progressive layer drop: the keys and
@@ -445,6 +569,12 @@ class DeepSpeedConfig:
                 f"invalid ZeRO stage {self.zero_optimization_stage}")
         self.zero_enabled = self.zero_optimization_stage > 0
         self.zero_config = ZeroConfig(pd)
+        self.aio_config = AioConfig(pd)
+        if self.world_size > 1 and (self.zero_config.offload_optimizer.enabled
+                                    or self.zero_config.offload_param.enabled):
+            raise NotImplementedError(
+                f"the offload tiers at world size {self.world_size} are not "
+                f"ported ({ROADMAP_MULTI_RANK})")
         data = int((pd.get("mesh") or {}).get("data", 1))
         if data > 1 and data != self.world_size:
             raise DeepSpeedConfigError(

@@ -146,3 +146,18 @@ def _groups(params):
 class Adam(FusedAdam):
     """Plain Adam (L2 decay)."""
     adam_w_mode: bool = False
+
+
+@dataclasses.dataclass
+class DeepSpeedCPUAdam(FusedAdam):
+    """Host-resident Adam for ZeRO-Offload (``deepspeed_tpu/ops/adam.py:
+    120``): the optimizer type ``cpuadam``. It loads the native SIMD
+    library (``csrc/cpu_adam.cpp``) when made, and raises when that
+    cannot be built (the JAX class falls back to numpy). The offload
+    runners step it on the host; without offload the engine runs it as
+    ``FusedAdam``, as the JAX engine does."""
+
+    def __post_init__(self):
+        super().__post_init__()
+        from deepspeed_tpu_torch.ops.native import cpu_adam
+        cpu_adam.load()

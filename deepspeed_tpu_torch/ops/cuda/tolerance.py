@@ -120,6 +120,27 @@ ROW_FLOOR = {"flash_attention_bwd": 1e-3,
              "blocksparse_bwd_dq": 1e-3, "blocksparse_bwd_dkv": 1e-3}
 # flash's lse is fp32 on both sides: only the summation order differs
 LSE_ATOL = 1e-3
+# an offload tier's update of each fp32 master leaf (master after the
+# steps less master before) against the device optimizer's on the same
+# model, seed and batches, row-relative with rows measured against at
+# least OFFLOAD_UPDATE_FLOOR of the leaf's RMS row norm (rows that only
+# weight decay moves are ~1e-6 of the others, and their few-ulp updates
+# round differently on the host), by check. "streamed": the streamed
+# tier runs the device optimizer's own arithmetic on the same gradients,
+# bit for bit (0.0 on an H100, LLaMA-7B's width at 2 layers, 3 steps).
+# "host": the host runner's trajectory, fp32 moments against the device
+# engine's bf16 exp_avg, each engine on its own gradients; the loss
+# falling 11.19 -> 3.92 -> 0.20 over those steps carries the moments'
+# difference into the next gradients: 0.0275 at most, 0.0207 median, so
+# this limit only catches gross faults (twice the lr reads 1.0).
+# "host_step": the host runner's native step against FusedAdam with
+# fp32 moments on the same gradients each step; they part only in the
+# rounding of each fp32 update (an ulp of the master is ~1e-5 of a
+# 1e-4 step) and of the decay-only rows: 6.8e-4 at most (embed_tokens),
+# 8.7e-6 median on an H100 at the same shapes; one leaf at 1.01 x the
+# lr reads 1.0e-2 (the trajectory check above reads it 0.025).
+OFFLOAD_UPDATE_RTOL = {"streamed": 0.0, "host": 0.1, "host_step": 4e-3}
+OFFLOAD_UPDATE_FLOOR = 1e-3
 
 
 def row_rel_err(got, want, floor=0.0):

@@ -44,15 +44,17 @@ import inspect
 import logging
 import math
 import os
+import time
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.config.config import (ROADMAP_MULTI_RANK,
+                                               ROADMAP_OFFLOAD,
                                                DeepSpeedConfig)
 from deepspeed_tpu_torch.models.gpt2 import lm_loss
 from deepspeed_tpu_torch.ops import fused_collective as fc
-from deepspeed_tpu_torch.ops.adam import FusedAdam
+from deepspeed_tpu_torch.ops.adam import DeepSpeedCPUAdam, FusedAdam
 from deepspeed_tpu_torch.ops.cuda import ROADMAP_SECOND_ORDER
 from deepspeed_tpu_torch.ops.optimizer import TorchOptimizer
 from deepspeed_tpu_torch.parallel import mesh as mesh_lib
@@ -78,10 +80,11 @@ logger = logging.getLogger("deepspeed_tpu_torch")
 def _build_optimizer(name, params_dict):
     p = dict(params_dict or {})
     name = (name or "adam").lower()
-    if name not in ("adam", "adamw", "fusedadam"):
+    if name not in ("adam", "adamw", "fusedadam", "cpuadam"):
         raise ValueError(f"Unknown optimizer type {name}")
     adam_w = True if name == "adamw" else p.pop("adam_w_mode", True)
-    opt = FusedAdam(lr=p.pop("lr", 1e-3),
+    cls = DeepSpeedCPUAdam if name == "cpuadam" else FusedAdam
+    opt = cls(lr=p.pop("lr", 1e-3),
                     betas=tuple(p.pop("betas", (0.9, 0.999))),
                     eps=p.pop("eps", 1e-8),
                     weight_decay=p.pop("weight_decay", 0.0),
@@ -195,6 +198,22 @@ class DeepSpeedEngine:
                     layer_name=qcfg.eigenvalue_layer_name,
                     layer_num=max(qcfg.eigenvalue_layer_num, 1))
 
+        # ZeRO-Offload (engine.py:412): the fp32 masters and the moments on
+        # the host or NVMe, the compute copy on the card; the parameters
+        # themselves on NVMe between steps with offload_param nvme
+        zc = self._config.zero_config
+        self._offload_cfg = zc.offload_optimizer
+        self._param_offload_nvme = zc.offload_param.device == "nvme"
+        self._host_runner = None
+        self._param_swapper = None
+        self._params_parked = False
+        self._parked_via_push = False
+        self.offload_marks = None
+        if self._offload_cfg.enabled and qcfg.enabled:
+            raise NotImplementedError(
+                f"quantize_training with the offload tiers is not ported: "
+                f"MoQ quantizes the masters on the card ({ROADMAP_OFFLOAD})")
+
         self.training_dataloader = None
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(training_data)
@@ -289,6 +308,8 @@ class DeepSpeedEngine:
         own parameters, bf16 with grad_dtype bf16) and the optimizer
         state."""
         params = self._place_model(model_parameters)
+        if self._offload_cfg.enabled:
+            return self._init_offload_state(params)
         self.master = [p.data for p in params]
         if self._bf16_grads:
             for p in params:
@@ -299,6 +320,8 @@ class DeepSpeedEngine:
     def _refresh_compute_params(self):
         if self.mesh is not None:
             return self._refresh_zero3()
+        if self._host_runner is not None:
+            return      # the offload step writes the compute copy itself
         if self._bf16_grads:
             with torch.no_grad():
                 torch._foreach_copy_([p.data for p in self.compute_params],
@@ -416,6 +439,35 @@ class DeepSpeedEngine:
         return torch.tensor(float(getattr(self.optimizer, "lr", 1e-3)),
                             dtype=torch.float32, device=self.device)
 
+    def _clip_coefficient(self, grads, sq_norm=None):
+        """(global gradient norm, unscaled; the one coefficient that
+        unscales and clips). ``sq_norm``: the global squared norm of the
+        scaled gradients, when the caller has it (one rank's shards, or
+        host gradients summed on the host)."""
+        inv = 1.0 / self.scaler["loss_scale"]
+        if sq_norm is None:
+            norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
+            sq_norm = torch.stack(norms).square().sum() if norms \
+                else torch.zeros((), device=self.device)
+        grad_norm = torch.as_tensor(sq_norm, dtype=torch.float32,
+                                    device=self.device).sqrt() * inv
+        coef = inv
+        clip = self._config.gradient_clipping
+        if clip and clip > 0:
+            coef = inv * torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
+        return grad_norm, coef
+
+    def _end_update(self, loss, grad_norm, lr, finite):
+        """The loss scaler's update and the step counters after an update
+        (``finite`` False: a skipped fp16 step); returns the metrics."""
+        if finite is None:
+            finite = torch.ones((), dtype=torch.bool, device=self.device)
+        self.scaler = prec.update_scaler(self.scaler, self.precision, finite)
+        self.global_step_t = self.global_step_t + finite.int()
+        self.skipped_steps_t = self.skipped_steps_t + (~finite).int()
+        return {"loss": loss, "grad_norm": grad_norm, "lr": lr,
+                "overflow": ~finite, "loss_scale": self.scaler["loss_scale"]}
+
     def _apply_grads(self, grads, loss, sq_norm=None):
         """Unscale, clip, step, scaler update in one pass of the update
         (engine.py:1394); the caller refreshes the compute copy. On an
@@ -424,30 +476,13 @@ class DeepSpeedEngine:
         its update. ``sq_norm``: the global squared gradient norm, when
         ``grads`` are one rank's shards."""
         with torch.no_grad():
-            inv = 1.0 / self.scaler["loss_scale"]
             finite = prec.grads_finite(grads) if self.precision.fp16 \
                 else None
-            if sq_norm is not None:
-                grad_norm = sq_norm.sqrt() * inv
-            else:
-                norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
-                grad_norm = torch.stack(norms).square().sum().sqrt() * inv \
-                    if norms else torch.zeros((), device=self.device)
-            gscale = inv
-            clip = self._config.gradient_clipping
-            if clip and clip > 0:
-                gscale = inv * torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
+            grad_norm, gscale = self._clip_coefficient(grads, sq_norm)
             lr = self._lr()
             self.optimizer.step(self.master, grads, self.opt_state, lr,
                                 grad_scale=gscale, finite=finite)
-            if finite is None:
-                finite = torch.ones((), dtype=torch.bool, device=self.device)
-            self.scaler = prec.update_scaler(self.scaler, self.precision,
-                                             finite)
-            self.global_step_t = self.global_step_t + finite.int()
-            self.skipped_steps_t = self.skipped_steps_t + (~finite).int()
-        return {"loss": loss, "grad_norm": grad_norm, "lr": lr,
-                "overflow": ~finite, "loss_scale": self.scaler["loss_scale"]}
+            return self._end_update(loss, grad_norm, lr, finite)
 
     def _after_step(self, metrics):
         self.global_steps += 1
@@ -476,23 +511,28 @@ class DeepSpeedEngine:
             batch = _map_many(lambda *xs: np.concatenate(
                 [np.asarray(x) for x in xs]), micro)
         batch = self._to_device(batch)
-        if self._prefetch_active():
-            grads, loss, sq_norm = self._zero3_grads(batch)
+        if self._host_runner is not None:
+            metrics = self._offload_train_batch(batch)
         else:
-            grads, loss = self._accumulate_grads(batch)
-            sq_norm = None
-        metrics = self._apply_grads(grads, loss, sq_norm)
-        del grads
+            if self._prefetch_active():
+                grads, loss, sq_norm = self._zero3_grads(batch)
+            else:
+                grads, loss = self._accumulate_grads(batch)
+                sq_norm = None
+            metrics = self._apply_grads(grads, loss, sq_norm)
+            del grads
         self.micro_steps += self.gradient_accumulation_steps()
         self._after_step(metrics)
         self._moq_boundary(batch, metrics)
         self._refresh_compute_params()
+        self._park_params()
         return metrics["loss"]
 
     def forward(self, batch):
         """Loss and gradients of one micro batch, kept for
         ``backward``/``step`` (engine.py:3229)."""
         self._one_rank_only("forward/backward/step")
+        self._ensure_params_resident()
         batch = self._to_device(batch)
         loss, grads = self._micro_loss_and_grads(batch)
         self._pending_micro = (loss, grads)
@@ -526,12 +566,18 @@ class DeepSpeedEngine:
             return
         if self._pending_grads is None:
             raise AssertionError("backward() must precede step()")
-        metrics = self._apply_grads(self._pending_grads, self._accum_loss)
+        if self._host_runner is not None:
+            metrics = self._offload_apply_grads(self._pending_grads,
+                                                self._accum_loss)
+        else:
+            metrics = self._apply_grads(self._pending_grads,
+                                        self._accum_loss)
         self._pending_grads = None
         self._accum_loss = None
         self._after_step(metrics)
         self._moq_boundary(self._moq_batch, metrics)
         self._refresh_compute_params()
+        self._park_params()
 
     def _moq_boundary(self, batch, metrics):
         """MoQ at an optimizer-step boundary (engine.py:3321): from
@@ -560,6 +606,230 @@ class DeepSpeedEngine:
             else False
         q.quantize_tree(self._named(self.master), jax_paths, overflow,
                         eigenvalues, self.generator)
+
+    # -- ZeRO-Offload and the NVMe parameter tier ----------------------------
+    def _make_offload_runner(self, masters):
+        """The offload tier (``_make_offload_runner`` :751): the streamed
+        tier (state in pinned host memory, the update on the card) for
+        ``device: cpu`` with ``stream`` auto or device; the host runner
+        (the native SIMD step) for ``stream: "host"`` and for NVMe
+        moments."""
+        from deepspeed_tpu_torch.runtime.zero.offload import \
+            HostOffloadOptimizer
+        from deepspeed_tpu_torch.runtime.zero.offload_stream import \
+            StreamedOffloadOptimizer
+        cfg = self._offload_cfg
+        if cfg.device == "cpu" and cfg.stream != "host":
+            return StreamedOffloadOptimizer(masters, self.optimizer,
+                                            self.device)
+        return HostOffloadOptimizer(masters, self.optimizer, cfg,
+                                    self._config.aio_config, self.device,
+                                    registry=self.metrics)
+
+    def _offload_streamed(self):
+        from deepspeed_tpu_torch.runtime.zero.offload_stream import \
+            StreamedOffloadOptimizer
+        return isinstance(self._host_runner, StreamedOffloadOptimizer)
+
+    def _init_offload_state(self, params):
+        """The fp32 masters and the moments leave the card (:796); the
+        card keeps the compute copy (bf16 with grad_dtype bf16, else
+        fp32) and no optimizer state."""
+        self._host_runner = self._make_offload_runner(
+            [p.data for p in params])
+        self.master = None
+        if self._bf16_grads:
+            for p in params:
+                p.data = p.data.to(torch.bfloat16)
+        self.compute_params = params
+        self.opt_state = {}
+        if self._param_offload_nvme:
+            # the first park writes the files, after the first step
+            self._param_swapper = self._make_param_swapper()
+
+    def _make_param_swapper(self):
+        from deepspeed_tpu_torch.runtime.swap_tensor.swapper import \
+            PartitionedParamSwapper
+        pc = self._config.zero_config.offload_param
+        return PartitionedParamSwapper(
+            pc.nvme_path, self._config.aio_config,
+            pipeline_read=pc.pipeline_read, pipeline_write=pc.pipeline_write,
+            buffer_count=pc.buffer_count, registry=self.metrics,
+            fsync=pc.fsync)
+
+    def _param_swap_order(self):
+        """The order the parked leaves stream back in (``_param_swap_order``
+        :849): the leaves outside the layer stack (the embeddings first)
+        in model order, then the layers' leaves in order; any
+        permutation is correct."""
+        def inner(name):
+            parts = name.split(".")
+            return len(parts) > 2 and parts[1].isdigit()
+        names = self.param_names
+        return [i for i, n in enumerate(names) if not inner(n)] + \
+            [i for i, n in enumerate(names) if inner(n)]
+
+    def _ensure_params_resident(self):
+        """Parked parameters stream back to the card before anything
+        reads them (``_ensure_params_resident`` :886)."""
+        if not self._params_parked:
+            return
+        t0 = time.perf_counter()
+        leaves = self._param_swapper.swap_in_device(
+            self.device, order=self._param_swap_order())
+        for p, t in zip(self.compute_params, leaves):
+            p.data = t
+        self._params_parked = False
+        self.metrics.histogram("swap/unpark_s").observe(
+            time.perf_counter() - t0)
+
+    def _park_params(self):
+        """The updated parameters to NVMe and their card memory freed
+        (``_park_params`` :908); when the host runner wrote them straight
+        to the write-behind queue, only the stale card copies go."""
+        if self._param_swapper is None or self._params_parked:
+            return
+        t0 = time.perf_counter()
+        if self._parked_via_push:
+            self._parked_via_push = False
+        else:
+            self._param_swapper.swap_out_device(
+                [p.data for p in self.compute_params])
+        for p in self.compute_params:
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        self._params_parked = True
+        self.metrics.histogram("swap/park_s").observe(
+            time.perf_counter() - t0)
+
+    def take_swap_stall_s(self):
+        """Host seconds blocked on NVMe since the last call, both
+        swappers."""
+        stall = 0.0
+        for sw in (self._param_swapper,
+                   getattr(self._host_runner, "swapper", None)):
+            if sw is not None:
+                stall += sw.take_stall_s()
+        return stall
+
+    def _mark(self, stream=None):
+        """A timing mark: a CUDA event on ``stream`` (the current one by
+        default), with the host clock beside it, or None off the card."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        return ev, time.perf_counter()
+
+    def _offload_train_batch(self, batch):
+        """The offload step (``_host_offload_step`` :3012): gradients
+        accumulated on the card, then the offload update. With
+        ``overlap_comm`` and gas > 1 the host runner takes each micro
+        batch's gradients to the host while the next one computes."""
+        self._ensure_params_resident()
+        gas = self.gradient_accumulation_steps()
+        m0 = self._mark()
+        if gas > 1 and self._config.zero_config.overlap_comm \
+                and not self._offload_streamed():
+            grads, loss, finite, sq = self._offload_overlapped_grads(
+                batch, gas)
+        else:
+            grads, loss = self._accumulate_grads(batch)
+            finite = sq = None
+        m1 = self._mark()
+        metrics = self._offload_apply_grads(grads, loss, finite, sq)
+        if m0 is not None:
+            # the update ends when its last state copy reaches the host
+            self.offload_marks = (m0, m1, self._mark(
+                getattr(self._host_runner, "store_stream", None)))
+        return metrics
+
+    def _offload_overlapped_grads(self, batch, gas):
+        """``_host_offload_step_overlapped`` (:3047): while the card
+        computes micro batch k + 1, micro k's gradients copy to the host
+        on a side stream (page-locked staging, two sets) and fold into
+        fp32 host accumulators (each times 1/gas). Returns (host
+        gradients, loss, finite, squared norm), the norm on the host."""
+        inv = 1.0 / gas
+        on_card = self.device.type == "cuda"
+        acc, losses, pending = None, [], None
+        if on_card:
+            d2h = torch.cuda.Stream(self.device)
+            staging = getattr(self, "_ovl_staging", None)
+            if staging is None:
+                staging = self._ovl_staging = [
+                    [torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                     for p in self.compute_params] for _ in range(2)]
+
+        def fold(item):
+            nonlocal acc
+            host, landed, _ = item
+            if landed is not None:
+                landed.synchronize()
+            part = [g.float() * inv for g in host]
+            if acc is None:
+                acc = part
+            else:
+                for a, g in zip(acc, part):
+                    a += g
+
+        with torch.no_grad():
+            for k, micro in enumerate(self._split(batch, gas)):
+                with torch.enable_grad():
+                    loss_k, grads_k = self._micro_loss_and_grads(micro)
+                losses.append(loss_k)
+                if on_card:
+                    d2h.wait_stream(torch.cuda.current_stream(self.device))
+                    host = staging[k % 2]
+                    with torch.cuda.stream(d2h):
+                        for h, g in zip(host, grads_k):
+                            h.copy_(g, non_blocking=True)
+                        landed = torch.cuda.Event()
+                        landed.record(d2h)
+                    item = (host, landed, grads_k)
+                else:
+                    item = (grads_k, None, grads_k)
+                if pending is not None:
+                    fold(pending)     # overlaps micro k on the card
+                pending = item
+            fold(pending)
+            loss = sum(float(x) for x in losses) / gas
+            sq = sum(float(torch.dot(a.view(-1), a.view(-1))) for a in acc)
+        finite = math.isfinite(sq) if self.precision.fp16 else True
+        return acc, torch.tensor(loss, device=self.device), finite, sq
+
+    def _offload_apply_grads(self, grads, loss, finite=None, sq_norm=None):
+        """The offload update (``_host_apply_grads`` :3114). Under fp16
+        the finite check is read back before any gradient leaves the card,
+        and an overflow skips the step; the loss-scale inverse and the
+        clip coefficient fold into one coefficient, read with the
+        gradients. The streamed tier keeps the norm, the coefficient and
+        the lr on the card (no read-back); the host runner reads them.
+        With the NVMe parameter tier and ``pipeline_write`` the host
+        runner's updated leaves go straight to the write-behind queue."""
+        dev = self.device
+        with torch.no_grad():
+            if finite is None:
+                finite = bool(prec.grads_finite(grads)) \
+                    if self.precision.fp16 else True
+            fin_t = torch.tensor(finite, device=dev)
+            lr = self._lr()
+            if not finite:
+                return self._end_update(loss, torch.zeros((), device=dev),
+                                        lr, fin_t)
+            norm, coef = self._clip_coefficient(grads, sq_norm)
+            params = [p.data for p in self.compute_params]
+            if self._offload_streamed():
+                self._host_runner.step(grads, params, lr, grad_scale=coef)
+            else:
+                park = None
+                sw = self._param_swapper
+                if sw is not None and sw.pipeline_write:
+                    park = sw.write_behind
+                    self._parked_via_push = True
+                self._host_runner.step_streamed(
+                    grads, float(lr), grad_scale=float(coef), params=params,
+                    park=park)
+            return self._end_update(loss, norm, lr, fin_t)
 
     # -- ZeRO-3 with the prefetch pipeline at world size n --------------------
     def _one_rank_only(self, what):
@@ -886,7 +1156,9 @@ class DeepSpeedEngine:
         """Every leaf's fp32 master, gathered whole, by name, on the CPU
         (collective: every rank calls it)."""
         out = {}
-        for k, m in zip(self.param_names, self.master):
+        masters = self._host_runner.master_leaves() \
+            if self._host_runner is not None else self.master
+        for k, m in zip(self.param_names, masters):
             e = self._entries[k] if self.mesh is not None else None
             full = m if e is None else prefetch_lib.gather_leaf(
                 m, e, self.mesh)
@@ -896,8 +1168,15 @@ class DeepSpeedEngine:
     def close(self):
         """Free the symmetric heap (collective at world size n > 1) and
         drop the step function, whose closure refers back to the engine
-        (the cycle would keep the shards alive until a collection)."""
+        (the cycle would keep the shards alive until a collection); on
+        one rank, free the offload tier's host state and swap files."""
         if self.mesh is None:
+            if self._param_swapper is not None:
+                self._param_swapper.release()
+                self._param_swapper = None
+            if self._host_runner is not None:
+                self._host_runner.close()
+                self._host_runner = None
             return
         self._zero3_grads = None
         if self.mesh.heap is not None:
@@ -911,6 +1190,7 @@ class DeepSpeedEngine:
     def eval_batch(self, batch):
         """The model's output (logits) for the batch's inputs."""
         self._one_rank_only("eval_batch")
+        self._ensure_params_resident()
         batch = self._to_device(batch)
         if isinstance(batch, dict):
             x = batch.get("input_ids", batch.get("inputs", batch.get("x")))
@@ -964,11 +1244,21 @@ class DeepSpeedEngine:
                  "client_state": client_state or {}}
         if isinstance(self.lr_scheduler, _Schedule):
             extra["lr_scheduler"] = self.lr_scheduler.state_dict()
-        opt = {k: (self._tree(v) if k in
-                   self.optimizer.param_like_state_fields else v.cpu())
-               for k, v in self.opt_state.items()}
+        if self._host_runner is not None:
+            # the fp32 masters and moments from the host, not the compute
+            # copy on the card (engine.py:3900)
+            masters = self._host_runner.master_leaves()
+            sd = self._host_runner.state_dict()
+            opt = {"step": torch.tensor(sd["step"], dtype=torch.int32),
+                   "exp_avg": self._tree(sd["exp_avg"]),
+                   "exp_avg_sq": self._tree(sd["exp_avg_sq"])}
+        else:
+            masters = self.master
+            opt = {k: (self._tree(v) if k in
+                       self.optimizer.param_like_state_fields else v.cpu())
+                   for k, v in self.opt_state.items()}
         ckpt.save_checkpoint(save_dir, tag, {
-            "params": self._tree(self.master), "opt_state": opt,
+            "params": self._tree(masters), "opt_state": opt,
             "scaler": {k: v.cpu() for k, v in self.scaler.items()},
             "global_step": self.global_step_t.cpu(),
             "skipped_steps": self.skipped_steps_t.cpu()}, extra,
@@ -989,17 +1279,21 @@ class DeepSpeedEngine:
             return None, {}
         state, extra = loaded
         dev = self.device
-        with torch.no_grad():
-            for m, t in zip(self.master, self._untree(state["params"])):
-                m.copy_(t)
-            if want_opt:
-                for k, v in state["opt_state"].items():
-                    if k in self.optimizer.param_like_state_fields:
-                        for cur, t in zip(self.opt_state[k], self._untree(v)):
-                            cur.copy_(t)
-                    else:
-                        self.opt_state[k] = v.to(dev)
-            self._refresh_compute_params()
+        if self._host_runner is not None:
+            self._adopt_loaded_state_offload(state, want_opt)
+        else:
+            with torch.no_grad():
+                for m, t in zip(self.master, self._untree(state["params"])):
+                    m.copy_(t)
+                if want_opt:
+                    for k, v in state["opt_state"].items():
+                        if k in self.optimizer.param_like_state_fields:
+                            for cur, t in zip(self.opt_state[k],
+                                              self._untree(v)):
+                                cur.copy_(t)
+                        else:
+                            self.opt_state[k] = v.to(dev)
+                self._refresh_compute_params()
         self.scaler = {k: v.to(dev) for k, v in state["scaler"].items()}
         self.global_step_t = state["global_step"].to(dev)
         self.skipped_steps_t = state["skipped_steps"].to(dev)
@@ -1013,6 +1307,27 @@ class DeepSpeedEngine:
             self.lr_scheduler.load_state_dict(extra["lr_scheduler"])
         return tag or ckpt.read_latest_tag(load_dir), \
             extra.get("client_state", {})
+
+    def _adopt_loaded_state_offload(self, state, want_opt):
+        """``_adopt_loaded_state_offload`` (:4282): the loaded fp32
+        masters (and, when loaded, the moments and Adam's count) into the
+        offload tier, and the compute copy made from the masters on the
+        card; a parked tier is marked resident on the loaded weights (the
+        next park rewrites its files)."""
+        masters = self._untree(state["params"])
+        runner = self._host_runner
+        runner.load_master_leaves(masters)
+        opt = state.get("opt_state") or {}
+        if want_opt and opt:
+            runner.load_state_dict({
+                "step": int(opt["step"]),
+                "exp_avg": self._untree(opt["exp_avg"]),
+                "exp_avg_sq": self._untree(opt["exp_avg_sq"])})
+        with torch.no_grad():
+            for p, m in zip(self.compute_params, masters):
+                p.data = m.to(self.device, p.dtype)
+        self._params_parked = False
+        self._parked_via_push = False
 
 
 def _leaves(tree):

@@ -57,7 +57,10 @@ def main():
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    for line in c.phase_device():
+    smi = c.phase_device()    # a tree with the offload phases gives
+    if isinstance(smi, tuple):  # (lines, pinned rates)
+        smi = smi[0]
+    for line in smi:
         print(line, flush=True)
     engine, batch, _ = c.train_phase()
     ms = adam_step_ms(engine)

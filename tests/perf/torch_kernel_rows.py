@@ -22,7 +22,8 @@ rank (B 2), the long-S row (4 heads, S 8192), GPT-2 not causal (B 1) and
 LLaMA-7B's training attention (B 2, 32 heads, S 2048, D 128): the
 single-pass kernel (``us``), the delta kernel (``delta_us``), the eager
 delta expression it replaces (``delta_expression_us``), the whole
-backward (``whole_us``: delta + kernel, as a training step runs it), the
+backward (``whole_us``: delta + kernel, as a training step runs it), its
+plain version (``plain_us``: eager, the median of 3 calls), the
 bound of its 5 products and bytes, and SDPA's backward (``sdpa_us``:
 forward + backward in one graph, less the forward).
 matvec_stacked: LLaMA-7B's o-projection [8, 4096] . [32, 4096, 4096],
@@ -62,7 +63,8 @@ if "--tree" in sys.argv:    # the kernels of another checkout, same rows
     sys.path.insert(0, os.path.abspath(sys.argv[sys.argv.index("--tree")
                                                 + 1]))
 
-from chip_smoke import bert_model_config, bound, time_graph_ms  # noqa: E402
+from chip_smoke import (bert_model_config, bound, time_graph_ms,  # noqa: E402
+                        time_ms)
 from deepspeed_tpu_torch.ops.cuda import blocksparse as bs  # noqa: E402
 from deepspeed_tpu_torch.ops.cuda import decode as dk  # noqa: E402
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
@@ -97,6 +99,10 @@ def bwd_rows(card, rnd):
         whole_us = 1e3 * time_graph_ms(
             lambda i: fa.flash_attention_bwd(q, k, v, o, lse, do, causal),
             n=n)
+        plain_us = 1e3 * time_ms(
+            lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                 causal=causal),
+            reps=3, inner=1, warmup=1)
         qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
 
         def sdpa():
@@ -112,7 +118,8 @@ def bwd_rows(card, rnd):
                           "H": H, "S": S, "D": D, "causal": causal,
                           "us": us, "delta_us": delta_us,
                           "delta_expression_us": expr_us,
-                          "whole_us": whole_us, "sdpa_us": sdpa_us,
+                          "whole_us": whole_us, "plain_us": plain_us,
+                          "sdpa_us": sdpa_us,
                           "bound_us": b_ms * 1e3, "bound_by": b_by,
                           "pct_of_bound": 100 * b_ms * 1e3 / us,
                           "card": card}), flush=True)

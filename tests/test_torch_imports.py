@@ -82,3 +82,74 @@ def test_ctypes_signatures_match_c_entry_points():
                      .replace(" ", "") for a in params.split(",")]
             found[name] = [ctype[t] for t in types]
     assert found == SIGNATURES
+
+
+def test_offload_tiers_run_with_jax_poisoned(tmp_path):
+    """The offload modules, the native libraries' bindings and the
+    swappers stand alone too: with jax and deepspeed_tpu poisoned, the
+    streamed tier, the host runner with NVMe moments and the NVMe
+    parameter tier each take a step, and a checkpoint round-trips."""
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'deepspeed_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "import torch\n"
+            "import deepspeed_tpu_torch as dst\n"
+            "from deepspeed_tpu_torch.models import gpt2\n"
+            f"nvme = {str(tmp_path)!r}\n"
+            "tiers = [{'offload_optimizer': {'device': 'cpu'}},\n"
+            "         {'offload_optimizer': {'device': 'nvme',\n"
+            "                                'nvme_path': nvme}},\n"
+            "         {'offload_optimizer': {'device': 'cpu',\n"
+            "                                'stream': 'host'},\n"
+            "          'offload_param': {'device': 'nvme',\n"
+            "                            'nvme_path': nvme}}]\n"
+            "ids = torch.randint(0, 512, (2, 12))\n"
+            "for zero in tiers:\n"
+            "    cfg = {'train_batch_size': 2, 'optimizer': {'type': 'cpuadam'},\n"
+            "           'zero_optimization': dict(stage=2, **zero)}\n"
+            "    model = gpt2.GPT2LMHeadModel(gpt2.gpt2_tiny())\n"
+            "    eng = dst.initialize(config=cfg, model=model, device='cpu')[0]\n"
+            "    assert torch.isfinite(eng.train_batch({'input_ids': ids}))\n"
+            "    eng.save_checkpoint(nvme + '/ckpt')\n"
+            "    eng.load_checkpoint(nvme + '/ckpt')\n"
+            "    assert torch.isfinite(eng.train_batch({'input_ids': ids}))\n"
+            "    eng.close()\n"
+            "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("OK")
+
+
+def test_native_ctypes_signatures_match_c_entry_points():
+    """Every C entry point of csrc/cpu_adam.cpp and csrc/aio.cpp that the
+    bindings call has argtypes of its parameters' count and kinds."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops.native import aio, cpu_adam
+    kinds = {ctypes.c_void_p: "ptr", ctypes.c_char_p: "ptr",
+             ctypes.c_int64: "i64", ctypes.c_int: "int",
+             ctypes.c_float: "float"}
+    libs = {"cpu_adam.cpp": cpu_adam.load().lib, "aio.cpp": aio.load()}
+    entry = re.compile(r"^\w[\w\s\*]*?\b((?:ds|aio)_\w+)\(([^)]*)\)\s*\{",
+                       re.M)
+    checked = 0
+    for src, lib in libs.items():
+        text = (PKG / "csrc" / src).read_text()
+        for name, params in entry.findall(text):
+            fn = getattr(lib, name)
+            if fn.argtypes is None:
+                continue
+            want = []
+            for a in re.sub(r"//[^\n]*", "", params).split(","):
+                a = a.strip()
+                if not a:
+                    continue
+                want.append("ptr" if "*" in a else
+                            {"int64_t": "i64", "int": "int",
+                             "float": "float"}[a.replace("const ", "")
+                                               .split()[0]])
+            assert [kinds[t] for t in fn.argtypes] == want, name
+            checked += 1
+    assert checked >= 15

@@ -1,0 +1,411 @@
+"""deepspeed_tpu_torch's ZeRO-Offload tiers vs the JAX engine's, on the CPU.
+
+The same GPT-2 tiny weights (the JAX model's init, carried across by the
+port's bridge) and the same seeded batches go through ``initialize`` +
+``train_batch`` of both packages with the same config, at each tier: the
+streamed tier (state in host memory, the update on the device), the host
+runner (``stream: "host"``, the native SIMD step), NVMe moments (plain
+and write-behind), the NVMe parameter tier, ``overlap_comm`` with gas 4,
+fp16 with its unscale and its overflow skip, and the ``cpuadam`` type;
+5 steps each, held at the JAX package's own tolerances
+(tests/test_offload.py). Then checkpoints across the two packages both
+ways, and the refusals that stay.
+"""
+
+import glob
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu as dstpu
+import deepspeed_tpu_torch as dst
+from deepspeed_tpu.models import gpt2 as jgpt2
+from deepspeed_tpu_torch.config.config import DeepSpeedConfig
+from deepspeed_tpu_torch.models import gpt2 as tgpt2
+from deepspeed_tpu_torch.runtime.zero.offload import HostOffloadOptimizer
+from deepspeed_tpu_torch.runtime.zero.offload_stream import \
+    StreamedOffloadOptimizer
+from torch_port_common import assert_close
+
+VOCAB, SEQ = 512, 16
+# JAX's own bounds: offload against the device optimizer and across tiers
+# (tests/test_offload.py:175-190, :471-530)
+LOSS_RTOL, OVERLAP_RTOL, FP16_RTOL = 1e-3, 2e-3, 2e-2
+
+
+def _np32(tree):
+    return jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), tree)
+
+
+def _params():
+    model = jgpt2.GPT2LMHeadModel(jgpt2.gpt2_tiny(dtype=jnp.float32))
+    return model.init(jax.random.PRNGKey(0),
+                      jnp.zeros((1, SEQ), jnp.int32))["params"]
+
+
+def _one_device_mesh():
+    from deepspeed_tpu.parallel.mesh import MeshConfig, make_mesh
+    return make_mesh(MeshConfig(data=1), devices=jax.devices()[:1])
+
+
+def _config(offload=None, param=None, **over):
+    cfg = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+           "steps_per_print": 100, "gradient_clipping": 1.0,
+           "optimizer": {"type": "AdamW",
+                         "params": {"lr": 3e-3, "weight_decay": 0.01}},
+           "scheduler": {"type": "WarmupDecayLR",
+                         "params": {"total_num_steps": 10,
+                                    "warmup_num_steps": 2,
+                                    "warmup_max_lr": 3e-3,
+                                    "warmup_type": "linear"}},
+           "zero_optimization": {"stage": 2}}
+    if offload is not None:
+        cfg["zero_optimization"]["offload_optimizer"] = offload
+    if param is not None:
+        cfg["zero_optimization"]["offload_param"] = param
+    cfg.update(over)
+    return cfg
+
+
+def _jax_engine(cfg, params):
+    model = jgpt2.GPT2LMHeadModel(jgpt2.gpt2_tiny(dtype=jnp.float32))
+    engine, _, _, _ = dstpu.initialize(config=cfg, model=model,
+                                       model_parameters=params,
+                                       mesh=_one_device_mesh())
+    return engine
+
+
+def _port_engine(cfg, params):
+    model = tgpt2.GPT2LMHeadModel(tgpt2.gpt2_tiny(dtype=torch.float32))
+    sd = model.from_jax_tree(_np32(params))
+    engine, _, _, _ = dst.initialize(config=cfg, model=model,
+                                     model_parameters=sd, device="cpu")
+    return engine
+
+
+def _batches(n, batch=4, first=0):
+    return [{"input_ids": np.random.RandomState(first + i).randint(
+        0, VOCAB, size=(batch, SEQ)).astype(np.int32)} for i in range(n)]
+
+
+def _port_masters(te):
+    return dict(zip(te.param_names, te._host_runner.master_leaves()))
+
+
+def _jax_masters(te, je):
+    return te.module.from_jax_tree(_np32(je._host_runner.params_tree()))
+
+
+def _run_both(cfg, steps=5, batch=4, rtol=LOSS_RTOL, port_cfg=None):
+    """Both engines over ``steps`` batches, the losses held at ``rtol``;
+    ``port_cfg`` (default ``cfg``) gives the port its own swap paths (both
+    packages name their swap directories by the process id)."""
+    params = _params()
+    je = _jax_engine(cfg, params)
+    te = _port_engine(port_cfg or cfg, params)
+    for b in _batches(steps, batch):
+        lj = float(je.train_batch(b))
+        lt = float(te.train_batch(b))
+        assert lt == pytest.approx(lj, rel=rtol)
+    assert te.global_steps == je.global_steps == steps
+    return je, te
+
+
+def _nvme(path, **kw):
+    path.mkdir(exist_ok=True)
+    return dict({"device": "nvme", "nvme_path": str(path)}, **kw)
+
+
+def _both(make, tmp_path):
+    """(JAX config, port config) from ``make(path)``, on two paths."""
+    return make(tmp_path / "jax"), make(tmp_path / "port")
+
+
+@pytest.mark.parametrize("tier", ["streamed", "host", "nvme",
+                                  "nvme_pipeline_write"])
+def test_offload_tier_trajectory_matches_jax_engine(tier, tmp_path):
+    """5 steps of AdamW with gas 2, clipping and WarmupDecayLR on each
+    optimizer tier: losses at JAX's offload bound, the fp32 masters at
+    fp32 2e-5 (both sides run the same arithmetic on the same gradients),
+    the right runner and no optimizer state on the device."""
+    make = {"streamed": lambda p: _config({"device": "cpu"}),
+            "host": lambda p: _config({"device": "cpu", "stream": "host"}),
+            "nvme": lambda p: _config(_nvme(p)),
+            "nvme_pipeline_write": lambda p: _config(_nvme(
+                p, pipeline_write=True, buffer_count=2))}[tier]
+    cfg_j, cfg_t = _both(make, tmp_path)
+    je, te = _run_both(cfg_j, port_cfg=cfg_t)
+    want_cls = StreamedOffloadOptimizer if tier == "streamed" \
+        else HostOffloadOptimizer
+    assert isinstance(te._host_runner, want_cls)
+    assert te.opt_state == {} and te.master is None
+    want = _jax_masters(te, je)
+    for name, m in _port_masters(te).items():
+        assert_close(m, want[name], atol=2e-5, rtol=2e-5)
+    if tier.startswith("nvme"):
+        files = glob.glob(str(tmp_path) + "/port/optimizer_swap_*/*.swp")
+        assert len(files) == 2 * len(te.param_names)
+        assert te.take_swap_stall_s() >= 0.0
+    te.close()
+
+
+@pytest.mark.parametrize("optimizer_tier", ["streamed", "host_push",
+                                            "host_write_behind"])
+def test_nvme_parameter_tier_matches_jax_engine(optimizer_tier, tmp_path):
+    """offload_param nvme: the parameters rest in swap files between steps
+    (the module holds no parameter storage), stream back before the next
+    forward, and the trajectory is JAX's. The host runner with
+    pipeline_write parks the SIMD step's output straight to the
+    write-behind queue."""
+    make = {
+        "streamed": lambda p: _config({"device": "cpu"}, _nvme(p)),
+        "host_push": lambda p: _config({"device": "cpu", "stream": "host"},
+                                       _nvme(p)),
+        "host_write_behind": lambda p: _config(
+            {"device": "cpu", "stream": "host"},
+            _nvme(p, pipeline_write=True, pipeline_read=True,
+                  buffer_count=3)),
+    }[optimizer_tier]
+    cfg_j, cfg_t = _both(make, tmp_path)
+    je, te = _run_both(cfg_j, port_cfg=cfg_t)
+    assert te._params_parked
+    assert all(p.numel() == 0 for p in te.module.parameters())
+    files = glob.glob(str(tmp_path) + "/port/param_swap_*/*.swp")
+    assert len(files) == len(te.param_names)
+    logits = te.eval_batch(_batches(1)[0])          # unparks
+    assert not te._params_parked and torch.isfinite(logits).all()
+    te.close()
+
+
+def test_overlap_comm_gas4_matches_jax_engine():
+    """overlap_comm with gas 4 on the host runner: each micro batch's
+    gradients fold into fp32 host accumulators while the next computes;
+    the trajectory is the JAX engine's on the same path."""
+    cfg = _config({"device": "cpu", "stream": "host"},
+                  train_batch_size=8, gradient_accumulation_steps=4)
+    cfg["zero_optimization"]["overlap_comm"] = True
+    _run_both(cfg, batch=8, rtol=OVERLAP_RTOL)
+
+
+def test_fp16_offload_matches_jax_and_skips_overflow():
+    """fp16 with a loss scale of 256: both tiers unscale before the step
+    (a 256x update would diverge at once) and track the JAX engine; an
+    inf in the batch skips the step, keeps every master bit, and halves
+    the scale."""
+    for offload in ({"device": "cpu"}, {"device": "cpu", "stream": "host"}):
+        cfg = _config(offload, fp16={"enabled": True,
+                                     "initial_scale_power": 8,
+                                     "hysteresis": 1})
+        _, te = _run_both(cfg, rtol=FP16_RTOL)
+        before = [m.clone() for m in te._host_runner.master_leaves()]
+        count = te._host_runner.step_count
+        scale = te.loss_scale
+        bad = {"input_ids": _batches(1)[0]["input_ids"]}
+        with torch.no_grad():
+            te.compute_params[0].data[0, 0] = float("inf")
+        te.train_batch(bad)
+        assert te.loss_scale == scale / 2
+        assert te._host_runner.step_count == count
+        assert int(te.skipped_steps_t) == 1
+        for a, b in zip(before, te._host_runner.master_leaves()):
+            assert torch.equal(a, b)
+
+
+def test_cpuadam_type_offloads_and_trains_without_offload():
+    """``cpuadam`` builds DeepSpeedCPUAdam: with offload the host runner
+    steps it as the JAX engine does; without, it runs as FusedAdam."""
+    from deepspeed_tpu_torch.ops.adam import DeepSpeedCPUAdam
+    opt = {"type": "CPUAdam", "params": {"lr": 3e-3, "weight_decay": 0.01}}
+    _, te = _run_both(_config({"device": "cpu", "stream": "host"},
+                              optimizer=opt))
+    assert isinstance(te.optimizer, DeepSpeedCPUAdam)
+    _run_both(_config(optimizer=opt), steps=3, rtol=2e-5)
+
+
+@pytest.mark.parametrize("stream", ["auto", "host"])
+def test_forward_backward_step_equals_train_batch(stream):
+    """forward/backward/step on an offload engine take the offload update
+    at the accumulation boundary: the same masters as train_batch."""
+    cfg = _config({"device": "cpu", "stream": stream})
+    e1, e2 = _port_engine(cfg, _params()), _port_engine(cfg, _params())
+    for b in _batches(2):
+        ids = b["input_ids"]
+        e1.train_batch(b)
+        for i in range(2):
+            loss = e2.forward({"input_ids": ids[i * 2:(i + 1) * 2]})
+            e2.backward(loss)
+            e2.step()
+    assert e1.global_steps == e2.global_steps == 2
+    for a, b in zip(e1._host_runner.master_leaves(),
+                    e2._host_runner.master_leaves()):
+        assert_close(a, b)
+
+
+def test_streamed_unit_split_matches_whole_leaves():
+    """Leaves cut into row units of at most unit_bytes and packed into
+    groups give the whole-leaf step bit for bit."""
+    from deepspeed_tpu_torch.ops.adam import FusedAdam
+    from deepspeed_tpu_torch.runtime.zero import offload_stream as os_
+    rs = np.random.RandomState(0)
+    shapes = [(37, 8), (5,), (64, 3), (1, 9)]
+    masters = [torch.from_numpy(rs.randn(*s).astype(np.float32))
+               for s in shapes]
+    grads = [torch.from_numpy(rs.randn(*s).astype(np.float32))
+             for s in shapes]
+    opt = FusedAdam(lr=1e-2, weight_decay=0.1, moment_dtype="bf16")
+    outs = []
+    for unit_bytes in (1 << 20, 256):
+        run = os_.StreamedOffloadOptimizer(masters, opt, "cpu",
+                                           unit_bytes=unit_bytes)
+        params = [m.clone() for m in masters]
+        for _ in range(3):
+            run.step([g.clone() for g in grads], params, torch.tensor(3e-3),
+                     torch.tensor(0.5))
+        outs.append((run, params))
+    (whole, p0), (split, p1) = outs
+    assert len(whole.units) == 4 and len(whole.groups) == 1
+    assert len(split.units) > 4 and len(split.groups) > 1
+    assert [u.split for u in split.units[:4]] == [True] * 4
+    for a, b in zip(p0 + whole.master_leaves(), p1 + split.master_leaves()):
+        assert torch.equal(a, b)
+    sd0, sd1 = whole.state_dict(), split.state_dict()
+    for k in ("exp_avg", "exp_avg_sq"):
+        for a, b in zip(sd0[k], sd1[k]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tier", ["streamed", "host"])
+def test_jax_offload_checkpoint_resumes_in_the_port(tier, tmp_path):
+    """A JAX offload engine's checkpoint (fp32 masters, moments, step
+    count) resumes in the port's offload engine and continues the JAX
+    trajectory."""
+    offload = {"device": "cpu"} if tier == "streamed" \
+        else {"device": "cpu", "stream": "host"}
+    cfg, params = _config(offload), _params()
+    je = _jax_engine(cfg, params)
+    for b in _batches(3):
+        je.train_batch(b)
+    je.save_checkpoint(str(tmp_path), tag="t3")
+    te = _port_engine(cfg, _params())
+    te.load_checkpoint(str(tmp_path), tag="t3")
+    assert te._host_runner.step_count == 3 and te.global_steps == 3
+    for b in _batches(2, first=3):
+        assert float(te.train_batch(b)) == pytest.approx(
+            float(je.train_batch(b)), rel=LOSS_RTOL)
+    want = _jax_masters(te, je)
+    for name, m in _port_masters(te).items():
+        assert_close(m, want[name], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("tier", ["streamed", "nvme"])
+def test_port_offload_checkpoint_loads_in_the_jax_engine(tier, tmp_path):
+    """The port's offload checkpoint is the JAX format: the JAX offload
+    engine loads it and both continue the same trajectory; the port's
+    own engine restores it too."""
+    cfg = _config({"device": "cpu"}) if tier == "streamed" \
+        else _config(_nvme(tmp_path / "port"))
+    # the JAX engine loads into its streamed tier: its NVMe runner, rebuilt
+    # at load, loses its pid-named swap directory to the finalizer of the
+    # runner it replaces (ROADMAP §3)
+    cfg_j = _config({"device": "cpu"})
+    te = _port_engine(cfg, _params())
+    for b in _batches(3):
+        te.train_batch(b)
+    te.save_checkpoint(str(tmp_path / "ckpt"), tag="t3")
+    je = _jax_engine(cfg_j, _params())
+    je.load_checkpoint(str(tmp_path / "ckpt"), tag="t3")
+    for b in _batches(2, first=3):
+        lj = float(je.train_batch(b))
+        assert float(te.train_batch(b)) == pytest.approx(lj, rel=LOSS_RTOL)
+    want = _jax_masters(te, je)
+    for name, m in _port_masters(te).items():
+        assert_close(m, want[name], atol=2e-5, rtol=2e-5)
+
+
+def test_port_checkpoint_restores_the_port_engine_exactly(tmp_path):
+    cfg = _config({"device": "cpu"})
+    te = _port_engine(cfg, _params())
+    for b in _batches(3):
+        te.train_batch(b)
+    te.save_checkpoint(str(tmp_path), tag="t3")
+    te2 = _port_engine(cfg, _params())
+    te2.load_checkpoint(str(tmp_path), tag="t3")
+    for b in _batches(2, first=3):
+        assert float(te2.train_batch(b)) == float(te.train_batch(b))
+    for a, b in zip(te._host_runner.master_leaves(),
+                    te2._host_runner.master_leaves()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("zero, match", [
+    ({"offload_param": {"device": "cpu"}}, "ROADMAP.md queue 1, item "
+     "\"ZeRO-Offload / Infinity on one H100\""),
+    ({"cpu_offload_params": True}, "ZeRO-Offload / Infinity"),
+    ({"offload_param": {"device": "nvme", "nvme_path": "/x",
+                        "stream_segments": 2},
+      "offload_optimizer": {"device": "cpu"}}, "ZeRO-Offload / Infinity"),
+    ({"offload_param": {"device": "nvme", "nvme_path": "/x"}},
+     "ZeRO-Offload / Infinity"),
+    ({"stage": 3, "stage3_prefetch": True,
+      "offload_optimizer": {"device": "cpu"}}, "ZeRO stages over "
+     "torch.distributed"),
+])
+def test_refusals_that_stay_name_roadmap(zero, match):
+    cfg = {"train_batch_size": 8, "zero_optimization": dict(
+        {"stage": 2}, **zero)}
+    with pytest.raises(NotImplementedError, match=match):
+        DeepSpeedConfig(cfg)
+
+
+def test_offload_refusals_at_world_size_and_with_moq():
+    cfg = {"train_batch_size": 8, "zero_optimization": {
+        "stage": 3, "offload_optimizer": {"device": "cpu"}}}
+    with pytest.raises(NotImplementedError, match="ZeRO stages over"):
+        DeepSpeedConfig(cfg, world_size=2)
+    cfg = _config({"device": "cpu"}, quantize_training={"enabled": True})
+    with pytest.raises(NotImplementedError, match="ZeRO-Offload / Infinity"):
+        _port_engine(cfg, _params())
+
+
+@pytest.mark.parametrize("zero, match", [
+    ({"offload_optimizer": {"device": "nvme"}},
+     "offload_optimizer device=nvme requires nvme_path"),
+    ({"offload_param": {"device": "nvme"},
+      "offload_optimizer": {"device": "cpu"}},
+     "offload_param device=nvme requires nvme_path"),
+    ({"offload_optimizer": {"device": "nvme", "nvme_path": "/x",
+                            "stream": "device"}},
+     "stream='device' supports device='cpu'"),
+    ({"offload_optimizer": {"device": "cpu", "stream": "sideways"}},
+     "offload stream must be auto|device|host"),
+    ({"offload_optimizer": {"device": "cpu", "stream_segments": 2}},
+     "'stream_segments' applies to offload_param only"),
+    ({"offload_optimizer": {"device": "cpu", "buffer_count": 0}},
+     "buffer_count must be >= 1"),
+])
+def test_offload_config_errors_carry_the_jax_messages(zero, match):
+    cfg = {"train_batch_size": 8, "zero_optimization": dict(
+        {"stage": 2}, **zero)}
+    with pytest.raises(ValueError, match=match):
+        DeepSpeedConfig(cfg)
+
+
+def test_aio_config_matches_jax():
+    from deepspeed_tpu.config.config import DeepSpeedConfig as JConfig
+    for aio in ({}, {"block_size": 8192, "queue_depth": 4,
+                     "thread_count": 3, "o_direct": True}):
+        cfg = {"train_batch_size": 8, "aio": aio}
+        j, t = JConfig(cfg).aio_config, DeepSpeedConfig(cfg).aio_config
+        for key in ("block_size", "queue_depth", "thread_count",
+                    "single_submit", "overlap_events", "o_direct"):
+            assert getattr(t, key) == getattr(j, key), key
+    for bad in ({"o_direct": 1}, {"block_size": 0},
+                {"o_direct": True, "block_size": 1000}):
+        with pytest.raises(ValueError) as want:
+            JConfig({"train_batch_size": 8, "aio": bad})
+        with pytest.raises(ValueError) as got:
+            DeepSpeedConfig({"train_batch_size": 8, "aio": bad})
+        assert str(got.value) == str(want.value)
