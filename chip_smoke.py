@@ -173,6 +173,19 @@ Phases, one JSON line each, each with its wall ``seconds``:
                lr); GPT-2 large with its moments and parameters on the
                host's disk (a fresh temporary directory), its losses
                against the train phase's first ones;
+   kernel, train_infinity, infinity_restore, infinity_parity, nvme_xl,
+   param_offload — the flash rows at the ZeRO-Infinity path's shape
+               (B 4, H 32, S 1024, D 128); bench.py's 6.25B GPT-2 (E
+               4096, 30 layers) through the InfinityEngine, its state
+               pinned in host memory and its bf16 parameters on the
+               disk, 6 segments, 1 + 3 steps (2L / L / L flash launches
+               a step, each step against its transfer bound); a fresh
+               engine restored from the parked files; 2 layers at K 1
+               against K 2 and against the main engine's first update,
+               with planted faults; 10.64B bf16 leaves parked under
+               O_DIRECT and twice re-streamed (host RSS growth under 1
+               GiB); GPT-2 large with offload_param cpu and nvme, bit
+               for bit against the plain engine;
 8. kernel, bert_kernels — the three block-sparse kernels (forward, dq,
                dk/dv) at BERT's main shape (B 4, H 16, S 4096, D 64,
                block 16, the per-head Fixed layout of the config below:
@@ -388,6 +401,15 @@ LLAMA_OFFLOAD_LAYERS, LLAMA_OFFLOAD_REDUCED = 32, "none"
 NVME_STEPS = 2
 NVME_AIO = {"block_size": 1 << 20, "queue_depth": 8, "thread_count": 8,
             "o_direct": True}
+# ZeRO-Infinity, the JAX package's scale proof (bench.py:1370
+# bench_infinity_6b): GPT-2 at E 4096, 30 layers, 32 heads (6.25B), its
+# state pinned in host memory (fp32 master, bf16 exp_avg, fp32
+# exp_avg_sq: 62.5 GB), the bf16 parameters on the disk, 6 segments of 5
+# layers, 4 x 1024 tokens, 1 + INF_STEPS steps, at full depth
+INF_E, INF_LAYERS, INF_HEADS, INF_SEGMENTS = 4096, 30, 32, 6
+INF_BATCH, INF_SEQ, INF_STEPS = 4, 1024, 3
+# nvme_xl (bench.py:1905): GPT-2 leaf shapes at E 5120 and 33 layers
+XL_E, XL_LAYERS = 5120, 33
 # llama_generate with the trained model: B 1, a 32-token prompt, 16 new
 LLAMA_GEN_PROMPT, LLAMA_GEN_NEW = 32, 16
 # full-width 2-layer gradient check: row-relative limit per leaf, kernels
@@ -2658,6 +2680,470 @@ def train_nvme_phase(warmup=1, steps=NVME_STEPS):
     finally:
         shutil.rmtree(nvme, ignore_errors=True)
     free_host_caches()
+
+
+# ------------------------------------------------ ZeRO-Infinity, 6.25B GPT-2
+
+def infinity_model_config(n_layer=INF_LAYERS):
+    """bench.py's ``bench_infinity_6b`` model (bench.py:1402-1406): GPT-2
+    at E 4096 and 32 heads, vocab 50304, bf16 activations and
+    parameters, remat, the loss in chunks of 2048."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    return GPT2Config(vocab_size=TRAIN_VOCAB, n_positions=INF_SEQ,
+                      n_embd=INF_E, n_layer=n_layer, n_head=INF_HEADS,
+                      dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                      scan_layers=True, remat=True, loss_chunk=2048)
+
+
+def infinity_ds_config(nvme):
+    """bench.py's Infinity config (bench.py:1412-1420), O_DIRECT asked
+    for."""
+    return {"train_batch_size": INF_BATCH,
+            "zero_optimization": {
+                "stage": 3,
+                "offload_param": {"device": "nvme", "nvme_path": nvme,
+                                  "stream_segments": INF_SEGMENTS},
+                "offload_optimizer": {"device": "cpu"}},
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+            "aio": NVME_AIO}
+
+
+def infinity_batch():
+    ids = np.random.RandomState(0).randint(
+        0, TRAIN_VOCAB, size=(INF_BATCH, INF_SEQ)).astype(np.int32)
+    return {"input_ids": torch.as_tensor(ids, device="cuda")}
+
+
+def rss_gb():
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return 0.0
+
+
+def train_infinity_phase(rates, nvme, warmup=1, steps=INF_STEPS):
+    """``initialize`` + ``train_batch`` of the InfinityEngine on
+    bench_infinity_6b's model and config at full width and depth: the
+    tiled init, the state pinned in host memory, the bf16 parameters
+    written to ``nvme``, ``warmup`` + ``steps`` steps. The transfer
+    bound is the bytes a step moves each way over the one-way pinned
+    rates of ``rates`` (the slower direction alone); a step under it
+    fails the phase, as a non-finite or not falling loss does. Returns
+    (the engine, the batch, the timed run's launches, the losses)."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    from deepspeed_tpu_torch.ops.cuda import builder
+    from deepspeed_tpu_torch.runtime.zero.infinity import tiled_gpt2_init
+    free_host_caches()
+    cfg = infinity_model_config()
+    n = cfg.num_params()
+    info = host_info(nvme)
+    if info["nvme_free_gb"] * 1e9 < 1.2 * 2 * n:
+        raise AssertionError(f"train_infinity: {nvme} has "
+                             f"{info['nvme_free_gb']:.1f} GB free, the "
+                             f"parameters take {2 * n / 1e9:.1f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = tiled_gpt2_init(cfg, seed=0)
+    tree_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine, _, _, _ = ds.initialize(config=infinity_ds_config(nvme),
+                                    model=GPT2LMHeadModel(cfg),
+                                    model_parameters=tree)
+    init_s = time.perf_counter() - t0
+    del tree
+    batch = infinity_batch()
+    losses = [engine.train_batch(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    builder.launches.clear()             # count the main path's run only
+    per_step = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m0, m1, m2 = engine.step_marks
+        per_step.append({"step_ms": wall * 1e3,
+                         "fwd_ms": m0.elapsed_time(m1),
+                         "bwd_update_ms": m1.elapsed_time(m2)})
+    launches = dict(builder.launches)
+    check_losses("train_infinity", losses, warmup)
+    L = cfg.n_layer
+    expect = {"flash_attention_fwd": 2 * L * steps,
+              "flash_attention_bwd": L * steps,
+              "flash_attention_bwd_delta": L * steps}
+    if launches != expect:
+        raise AssertionError(f"train_infinity launch counts {launches} != "
+                             f"{expect}")
+    moved = engine.transfer_bytes()
+    bound_ms = max(moved["h2d"] / rates["h2d"],
+                   moved["d2h"] / rates["d2h"]) / 1e6
+    step_ms = statistics.median(s["step_ms"] for s in per_step)
+    tokens = INF_BATCH * INF_SEQ
+    flops = (6 * n + 12 * L * INF_SEQ * cfg.n_embd) * tokens
+    emit({"phase": "train_infinity", "model": "gpt2_6.25b",
+          "source": "bench.py:1402 bench_infinity_6b", "reduced": "none",
+          "params": n, "n_embd": cfg.n_embd, "layers": L,
+          "heads": cfg.n_head, "segments": engine.K, "batch": INF_BATCH,
+          "seq": INF_SEQ, "param_dtype": "bf16", "moment_dtype": "bf16",
+          **info, "o_direct": engine._swapper.handle.direct_active,
+          "pinned_gb": engine.host_bytes / 1e9,
+          "params_on_disk_gb": engine.params_on_disk_bytes() / 1e9,
+          "init_tree_s": tree_s, "init_s": init_s, **engine.init_s,
+          "device_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "steps": steps, "warmup_steps": warmup, "per_step": per_step,
+          "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+          "fwd_ms": statistics.median(s["fwd_ms"] for s in per_step),
+          "bwd_update_ms": statistics.median(s["bwd_update_ms"]
+                                             for s in per_step),
+          "model_tflops_per_step": flops / 1e12,
+          "mfu": flops / (step_ms / 1e3) / BF16_FLOP_PER_S,
+          "h2d_gb_per_step": moved["h2d"] / 1e9,
+          "d2h_gb_per_step": moved["d2h"] / 1e9,
+          "pinned_gb_s": dict(rates), "transfer_bound_ms": bound_ms,
+          "transfer_duplex_ms": (moved["h2d"] + moved["d2h"])
+          / rates["duplex"] / 1e6,
+          "step_over_bound": step_ms / bound_ms,
+          "launches": launches, "launches_per_step":
+              {k: v / steps for k, v in launches.items()},
+          "losses": losses})
+    if not min(s["step_ms"] for s in per_step) >= bound_ms:
+        raise AssertionError(f"train_infinity: a step beat its transfer "
+                             f"bound ({bound_ms:.1f} ms)")
+    return engine, batch, launches, losses
+
+
+def infinity_restore_phase(engine, batch, losses, nvme):
+    """``park_to_nvme`` of the trained engine, then a fresh engine built
+    with ``restore_params=True`` from the durable files (the moments
+    restart at zero): its next loss must be below the run's first."""
+    from deepspeed_tpu_torch.config.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.zero.infinity import InfinityEngine
+    cfg = engine.cfg
+    t0 = time.perf_counter()
+    engine.park_to_nvme()
+    park_s = time.perf_counter() - t0
+    disk = engine.params_on_disk_bytes()
+    engine.close()
+    del engine
+    free_host_caches()
+    aio = DeepSpeedConfig({"train_batch_size": INF_BATCH,
+                           "aio": NVME_AIO}).aio_config
+    t0 = time.perf_counter()
+    fresh = InfinityEngine(cfg, None, segments=INF_SEGMENTS, nvme_path=nvme,
+                           lr=1e-4, restore_params=True, aio_config=aio)
+    build_s = time.perf_counter() - t0
+    loss = fresh.train_batch(batch)
+    emit({"phase": "infinity_restore", "model": "gpt2_6.25b",
+          "params_on_disk_gb": disk / 1e9, "park_s": park_s,
+          "write_gb_s": disk / park_s / 1e9, "build_s": build_s,
+          **fresh.init_s,
+          "read_gb_s": disk / fresh.init_s["restore_s"] / 1e9,
+          "o_direct": fresh._swapper.handle.direct_active,
+          "first_loss": losses[0], "last_loss": losses[-1],
+          "restored_next_loss": loss})
+    if not (math.isfinite(loss) and loss < losses[0]):
+        raise AssertionError(f"infinity_restore: the restored engine's loss "
+                             f"{loss} is not below the first {losses[0]}")
+    fresh.release()
+    fresh.close()
+    del fresh
+    free_host_caches()
+
+
+def infinity_parity_phase(steps=3, fault_leaf="h.0.attn.c_attn.kernel",
+                          faults=(2.0, 1.01)):
+    """The Infinity engine at 2 layers of the 6.25B model's width, fp32
+    moments, ``steps`` steps on the tiled weights and one batch. K = 1
+    against K = 2: losses bit for bit, each master leaf's update (after
+    less before) at ``INFINITY_UPDATE_RTOL["segments"]`` (0). Against the
+    main engine's device FusedAdam (fp32 moments, no clipping, bf16
+    compute copy): each leaf's first update, from the same weights, at
+    ``INFINITY_UPDATE_RTOL`` and the losses at LOSS_RTOL; the leaves'
+    errors after ``steps`` steps are printed (their trajectories part
+    from step 2: wte's gradient sums in fp32 in one, bf16 in the other).
+    One leaf's update at each of ``faults`` times the lr must fail both
+    checks."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    from deepspeed_tpu_torch.ops.cuda import tolerance
+    from deepspeed_tpu_torch.runtime.zero.infinity import (InfinityEngine,
+                                                           tiled_gpt2_init)
+    cfg = infinity_model_config(2)
+    tree = tiled_gpt2_init(cfg, seed=0)
+    batch = infinity_batch()
+    bridge = GPT2LMHeadModel(cfg)
+    before = {k: v.float() for k, v in bridge.from_jax_tree(tree).items()}
+
+    def run(step, masters):
+        losses, upd = [], {}
+        for i in range(steps):
+            losses.append(step())
+            if i in (0, steps - 1):
+                upd[i + 1] = {n: m - before[n] for n, m in masters().items()}
+        return losses, upd
+    runs = {}
+    for k in (1, 2):
+        eng = InfinityEngine(cfg, tree, segments=k, lr=1e-4,
+                             moment_dtype="fp32")
+        runs[k] = run(lambda: eng.train_batch(batch),
+                      lambda: bridge.from_jax_tree(eng.params_tree()))
+        eng.close()
+        del eng
+    main_cfg = dataclasses.replace(cfg, param_dtype=torch.float32)
+    engine, _, _, _ = ds.initialize(
+        config={"train_batch_size": INF_BATCH, "bf16": {"enabled": True},
+                "data_types": {"grad_dtype": "bf16"},
+                "optimizer": {"type": "AdamW", "params": {
+                    "lr": 1e-4, "moment_dtype": "fp32"}},
+                "steps_per_print": 1000},
+        model=GPT2LMHeadModel(main_cfg),
+        model_parameters={n: v for n, v in before.items()})
+    runs["main"] = run(lambda: float(engine.train_batch(batch)),
+                       engine.gather_master)
+    engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    names = list(before)
+
+    def errors(upd, ref):
+        return {n: tolerance.row_rel_err(upd[n], ref[n],
+                                         tolerance.OFFLOAD_UPDATE_FLOOR)
+                for n in names}
+
+    def check(upd, ref, limit_of):
+        errs = errors(upd, ref)
+        bad = {n: e for n, e in errs.items() if not e <= limit_of(n)}
+        fault_errs = {}
+        for f in faults:
+            e = tolerance.row_rel_err(f * upd[fault_leaf], ref[fault_leaf],
+                                      tolerance.OFFLOAD_UPDATE_FLOOR)
+            fault_errs[f"{fault_leaf} at {f} x lr"] = e
+            if not e > limit_of(fault_leaf):
+                raise AssertionError(f"infinity_parity: a planted fault "
+                                     f"({f} x lr: {e:.3g}) passes")
+        worst = max(errs, key=errs.get)
+        return {"max_update_row_rel_err": errs[worst], "worst_leaf": worst,
+                "median_update_row_rel_err": float(np.median(
+                    list(errs.values()))),
+                "errors": errs, "faults": fault_errs, "over_limit": bad}
+    lim = tolerance.INFINITY_UPDATE_RTOL
+    k_check = check(runs[2][1][steps], runs[1][1][steps],
+                    lambda n: lim["segments"])
+    m_check = check(runs[2][1][1], runs["main"][1][1],
+                    lambda n: lim.get(n, lim["default"]))
+    trajectory = errors(runs[2][1][steps], runs["main"][1][steps])
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(runs[2][0], runs["main"][0]))
+    emit({"phase": "infinity_parity", "model": "gpt2_6.25b", "layers": 2,
+          "batch": INF_BATCH, "seq": INF_SEQ, "steps": steps,
+          "losses_k1": runs[1][0], "losses_k2": runs[2][0],
+          "losses_main": runs["main"][0], "loss_rel_err": loss_err,
+          "loss_limit": LOSS_RTOL, "limits": lim,
+          "update_floor": tolerance.OFFLOAD_UPDATE_FLOOR,
+          "k1_vs_k2": k_check, "first_update_vs_main": m_check,
+          "after_steps_vs_main": trajectory})
+    if runs[1][0] != runs[2][0] or k_check["over_limit"]:
+        raise AssertionError(f"infinity_parity: K = 1 and K = 2 differ: "
+                             f"{k_check['over_limit']}")
+    if m_check["over_limit"] or not loss_err <= LOSS_RTOL:
+        raise AssertionError(f"infinity_parity: off the main engine: "
+                             f"{m_check['over_limit']}, losses {loss_err}")
+    free_host_caches()
+
+
+def nvme_xl_phase(nvme):
+    """bench.py's ``nvme_xl`` scale leg (bench.py:1905-2050): a 10.64B
+    bf16 leaf set (GPT-2 shapes at E 5120 and 33 layers, the embedding
+    tiled by rows: 142 leaves) parked through a generator under
+    O_DIRECT, one pattern buffer in hand, then streamed back twice
+    through ``swap_in_stream`` with each leaf's stamp and a sampled
+    window checked. Host RSS growth must stay under 1 GiB."""
+    from deepspeed_tpu_torch.config.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.ops.native import aio as aio_lib
+    from deepspeed_tpu_torch.runtime.swap_tensor.swapper import \
+        PartitionedParamSwapper
+    E, L = XL_E, XL_LAYERS
+    shapes = []
+    for _ in range(L):
+        shapes += [(E, 3 * E), (E, E), (E, 4 * E), (4 * E, E)]
+    rows = TRAIN_VOCAB
+    while rows > 0:
+        shapes.append((min(rows, E), E))
+        rows -= min(rows, E)
+    total = sum(math.prod(s) for s in shapes)
+    total_bytes = 2 * total
+    if shutil.disk_usage(nvme).free < 1.15 * total_bytes:
+        raise AssertionError(f"nvme_xl: {nvme} has "
+                             f"{shutil.disk_usage(nvme).free / 1e9:.1f} GB "
+                             f"free, the leaves take {total_bytes / 1e9:.1f}")
+    most = max(math.prod(s) for s in shapes) * 2
+    pat = aio_lib.aligned_empty(most)
+    noise = torch.frombuffer(bytearray(np.random.RandomState(7).bytes(
+        1 << 20)), dtype=torch.uint8)
+    for a in range(0, most, 1 << 20):
+        pat[a:a + (1 << 20)] = noise[:most - a]
+    off = 1 << 16
+    window = pat[off:off + 4096].clone()
+
+    def gen():
+        for i, s in enumerate(shapes):
+            nb = math.prod(s) * 2
+            pat[:8] = torch.frombuffer(bytearray(int(i).to_bytes(
+                8, "little")), dtype=torch.uint8)
+            yield pat[:nb].view(torch.bfloat16).view(s)
+
+    aio = DeepSpeedConfig({"train_batch_size": 1,
+                           "aio": NVME_AIO}).aio_config
+    sw = PartitionedParamSwapper(nvme, aio, pipeline_read=True,
+                                 buffer_count=4)
+    rss0 = rss_gb()
+    rss_max = [rss0]
+    t0 = time.perf_counter()
+    sw.write_all(gen())
+    write_s = time.perf_counter() - t0
+    disk = sum(os.path.getsize(sw._path(i)) for i in range(len(shapes)))
+
+    def stream_pass():
+        t0 = time.perf_counter()
+        ok = 0
+        for i, view in sw.swap_in_stream():
+            raw = view.view(torch.uint8).reshape(-1)
+            stamp = int.from_bytes(bytes(raw[:8].tolist()), "little")
+            ok += int(stamp == i and torch.equal(raw[off:off + 4096],
+                                                 window))
+            rss_max[0] = max(rss_max[0], rss_gb())
+        return time.perf_counter() - t0, ok
+
+    pass1_s, ok1 = stream_pass()
+    pass2_s, ok2 = stream_pass()
+    growth = rss_max[0] - rss0
+    line = {"phase": "nvme_xl", "source": "bench.py:1905 bench_nvme_xl",
+            "params_b": total / 1e9, "leaves": len(shapes), "layers": L,
+            "n_embd": E, "dtype": "bf16", "disk_gb": disk / 1e9,
+            "o_direct": sw.handle.direct_active,
+            "aio_backend": sw.handle.backend, "write_s": write_s,
+            "write_gb_s": disk / write_s / 1e9, "pass1_s": pass1_s,
+            "pass2_s": pass2_s, "read_gb_s": [disk / pass1_s / 1e9,
+                                              disk / pass2_s / 1e9],
+            "verified": [ok1, ok2], "staging_slots": len(sw._staging),
+            "rss_before_gb": rss0, "rss_growth_gb": growth,
+            "rss_growth_limit_gb": 2 ** 30 / 1e9}
+    sw.release()
+    emit(line)
+    if ok1 != len(shapes) or ok2 != len(shapes):
+        raise AssertionError(f"nvme_xl: {ok1}, {ok2} of {len(shapes)} "
+                             f"leaves came back whole")
+    if not growth < 2 ** 30 / 1e9:
+        raise AssertionError(f"nvme_xl: host RSS grew {growth:.2f} GB")
+
+
+def param_offload_phase(nvme, steps=3, nvme_steps=2):
+    """GPT-2 large (the train phase's model, config, seed and batch) with
+    ``offload_param: {device: cpu}`` and the device optimizer, 1 +
+    ``steps`` steps: the fp32 masters rest in the pinned arena between
+    steps and the card frees them. The park is a copy, so losses and
+    masters equal the plain engine's bit for bit. Then ``nvme_steps``
+    steps of ``offload_param: {device: nvme}`` without offload_optimizer
+    (the masters in swap files), losses equal to the train phase's; the
+    GB read and written are the steps' after the first (the first reads
+    nothing)."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    free_host_caches()
+    cfg = train_model_config()
+    batch = train_batch_ids()
+    n = steps + 1
+
+    def run(param, count):
+        ds_cfg = train_ds_config()
+        if param is not None:
+            ds_cfg["zero_optimization"] = dict(ds_cfg["zero_optimization"],
+                                               offload_param=param)
+            ds_cfg["aio"] = NVME_AIO
+        engine, _, _, _ = ds.initialize(config=ds_cfg,
+                                        model=GPT2LMHeadModel(cfg))
+        losses, allocated = [], []
+        for _ in range(count):
+            losses.append(float(engine.train_batch(batch)))
+            torch.cuda.synchronize()
+            allocated.append(torch.cuda.memory_allocated() / 1e9)
+        return engine, losses, allocated
+
+    engine, plain_losses, plain_alloc = run(None, n)
+    plain = engine.gather_master()
+    engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    engine, losses, alloc = run({"device": "cpu"}, n)
+    park_ms, unpark_ms = engine._param_host.last_ms()
+    pinned = engine._param_host.nbytes
+    parked = engine._params_parked
+    masters = engine.gather_master()
+    equal = all(torch.equal(masters[k], plain[k]) for k in plain)
+    engine.close()
+    del engine, masters, plain
+    torch.cuda.empty_cache()
+    engine, nv_losses, nv_alloc = run({"device": "nvme", "nvme_path": nvme},
+                                      1)
+    reg = engine.metrics
+    read0 = reg.counter("swap/bytes_read").value
+    written0 = reg.counter("swap/bytes_written").value
+    for _ in range(nvme_steps - 1):      # each unparks, then parks
+        nv_losses.append(float(engine.train_batch(batch)))
+    read = reg.counter("swap/bytes_read").value - read0
+    written = reg.counter("swap/bytes_written").value - written0
+    direct = engine._param_swapper.handle.direct_active
+    engine.close()
+    del engine
+    free_host_caches()
+    ref = TRAIN_LOSSES[:n]
+    emit({"phase": "param_offload", "model": "gpt2_large",
+          "layers": cfg.n_layer, "params": cfg.num_params(),
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps,
+          "warmup_steps": 1, "pinned_gb": pinned / 1e9,
+          "park_ms": park_ms, "unpark_ms": unpark_ms,
+          "allocated_gb_between_steps": alloc,
+          "plain_allocated_gb_between_steps": plain_alloc,
+          "losses": losses, "plain_losses": plain_losses,
+          "train_losses": ref, "masters_bit_equal": equal,
+          "nvme_losses": nv_losses, "nvme_o_direct": direct,
+          "nvme_allocated_gb_between_steps": nv_alloc,
+          "nvme_read_gb_per_step": read / (nvme_steps - 1) / 1e9,
+          "nvme_written_gb_per_step": written / (nvme_steps - 1) / 1e9})
+    if not (parked and equal and losses == plain_losses
+            and losses == ref):
+        raise AssertionError(f"param_offload: the pinned tier's run is not "
+                             f"the plain one's ({losses} vs "
+                             f"{plain_losses}, {ref}; masters equal "
+                             f"{equal})")
+    if nv_losses != ref[:nvme_steps]:
+        raise AssertionError(f"param_offload: the NVMe tier's losses "
+                             f"{nv_losses} vs the train phase's {ref}")
+
+
+def infinity_phases(rates):
+    """train_infinity, infinity_restore, infinity_parity, nvme_xl and
+    param_offload (after the train phase, whose losses it is held to),
+    each with a fresh temporary directory on the host's disk, removed
+    after; returns train_infinity's launches."""
+    base = tempfile.mkdtemp(prefix="dstpu_infinity_")
+    try:
+        def fresh(name):
+            path = os.path.join(base, name)
+            os.makedirs(path)
+            return path
+        nvme = fresh("infinity")
+        engine, batch, launches, losses = train_infinity_phase(rates, nvme)
+        infinity_restore_phase(engine, batch, losses, nvme)
+        del engine
+        infinity_parity_phase()
+        nvme_xl_phase(fresh("xl"))
+        param_offload_phase(fresh("param"))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return launches
 
 
 def train_profile_phase(engine, batch, steps=3, phase="train_profile"):
@@ -5528,6 +6014,9 @@ def main():
         rates, stream="host")
     offload_parity_phase()
     train_nvme_phase()
+    kernels += flash_rows(gen, INF_BATCH, "train_infinity", H=INF_HEADS,
+                          S=INF_SEQ, D=INF_E // INF_HEADS)
+    launches["train_infinity"] = infinity_phases(rates)
     kernels += bert_kernel_phase(gen)
     engine, batch, launches["train_bert_sparse"] = train_bert_sparse_phase()
     if profile:

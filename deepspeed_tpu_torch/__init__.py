@@ -8,8 +8,10 @@ ported path is a hand-written CUDA kernel here (``csrc/*.cu``, wrapped in
 on the card unless the caller passes ``device="cpu"``.
 
 Ported so far: GPT-2 paged serving (``serving.build_engine``),
-single-device training (``initialize`` → ``engine.train_batch``) and
-ZeRO-3 training over n ranks (``initialize(mesh=...)``)::
+single-device training (``initialize`` → ``engine.train_batch``), with
+the ZeRO-Offload tiers and, for ``offload_param.stream_segments > 0``,
+the ZeRO-Infinity engine (``runtime/zero/infinity.py``), and ZeRO-3
+training over n ranks (``initialize(mesh=...)``)::
 
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_large
@@ -41,7 +43,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``mesh`` is a ``parallel.mesh.Mesh`` (``make_mesh(MeshConfig(data=n))``
     in each of n processes of a ``torch.distributed`` gloo group): at
     n > 1 the engine runs ZeRO stage 3 with ``stage3_prefetch``, each rank
-    on the mesh's device. ``mpu`` (a model-parallel unit) is not ported."""
+    on the mesh's device. ``mpu`` (a model-parallel unit) is not ported.
+    A config with ``zero_optimization.offload_param.stream_segments > 0``
+    gives the ZeRO-Infinity engine (``runtime/zero/infinity.py``) and
+    ``(engine, None, None, None)``, as JAX's ``initialize`` does;
+    ``model_parameters`` is then the JAX tree (or a state dict)."""
     from deepspeed_tpu_torch.config.config import ROADMAP_MULTI_RANK
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
@@ -53,6 +59,35 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         raise ValueError(
             "DeepSpeed requires --deepspeed_config to specify configuration "
             "file")
+    segments = _stream_segments(config)
+    if segments:
+        # the ZeRO-Infinity segment-streamed engine (JAX __init__.py:
+        # 126-159): it builds its Adam step and tied-LM loss itself
+        unsupported = {
+            "optimizer": optimizer, "training_data": training_data,
+            "lr_scheduler": lr_scheduler, "mpu": mpu,
+            "collate_fn": collate_fn, "loss_fn": loss_fn}
+        bad = [k for k, v in unsupported.items() if v is not None]
+        if bad:
+            raise ValueError(
+                "offload_param.stream_segments selects the ZeRO-Infinity "
+                f"segment-streamed engine, which does not accept {bad}; "
+                "it builds its Adam/AdamW step and tied-LM loss from the "
+                "config (runtime/zero/infinity.py)")
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                f"the ZeRO-Infinity engine runs on one rank "
+                f"({ROADMAP_MULTI_RANK})")
+        from deepspeed_tpu_torch.config.config import DeepSpeedConfig
+        from deepspeed_tpu_torch.runtime.zero.infinity import \
+            InfinityEngine
+        parsed = config if isinstance(config, DeepSpeedConfig) \
+            else DeepSpeedConfig(config)
+        engine = InfinityEngine.from_config(
+            model, parsed, model_parameters=model_parameters,
+            device=device)
+        return engine, engine.optimizer, engine.training_dataloader, \
+            engine.lr_scheduler
     if mpu is not None:
         raise NotImplementedError(
             f"initialize(mpu=...): model parallelism is not ported; the "
@@ -66,3 +101,18 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                              seed=rng, mesh=mesh)
     return engine, engine.optimizer, engine.training_dataloader, \
         engine.lr_scheduler
+
+
+def _stream_segments(config):
+    """``offload_param.stream_segments`` of the raw config (a path, a
+    dict or a parsed config), read before a full parse, as JAX's
+    ``initialize`` does."""
+    from deepspeed_tpu_torch.config.config import (DeepSpeedConfig,
+                                                   load_param_dict)
+    if isinstance(config, DeepSpeedConfig):
+        return config.zero_config.offload_param.stream_segments
+    zero = load_param_dict(config).get("zero_optimization", {})
+    if not isinstance(zero, dict):
+        return 0
+    return int((zero.get("offload_param") or {}).get("stream_segments", 0)
+               or 0)

@@ -186,6 +186,11 @@ ROADMAP_HOOKS = ("ROADMAP.md queue 1, item \"Engine telemetry, watchdog, "
 ROADMAP_AUX = ("ROADMAP.md queue 1, item \"Auxiliary parity\"")
 ROADMAP_LAMB_SGD = ("ROADMAP.md queue 1, item \"LAMB and SGD\"")
 ROADMAP_PIPE = ("ROADMAP.md queue 1, item \"Pipeline\"")
+# what JAX's InfinityEngine silently ignores, logged as a fault of the
+# reference
+ROADMAP_INFINITY = ("ROADMAP.md section 3, \"JAX's InfinityEngine ignores "
+                    "gradient_clipping, fp16, gradient accumulation and the "
+                    "scheduler\"")
 
 
 def _present(d):
@@ -201,18 +206,6 @@ def _enabled(d):
 # block → (is it on in this param dict?, ROADMAP item): everything the
 # JAX engine reads that the port's engine does not run yet
 _TRAINING_NOT_PORTED = {
-    "zero_optimization.offload_param device 'cpu' (parameters resting in "
-    "pinned host memory, streamed to the card a layer at a time)":
-        (lambda pd: _zero_offload_param(pd) == "cpu", ROADMAP_OFFLOAD),
-    "zero_optimization.offload_param.stream_segments (the ZeRO-Infinity "
-    "segment-streamed engine)":
-        (lambda pd: int((_zero(pd).get("offload_param") or {}).get(
-            "stream_segments", 0) or 0) > 0, ROADMAP_OFFLOAD),
-    "zero_optimization.offload_param device 'nvme' without "
-    "offload_optimizer (parameters parked while the device optimizer "
-    "holds its masters)":
-        (lambda pd: _zero_offload_param(pd) == "nvme"
-         and not _zero_offload_optimizer(pd), ROADMAP_OFFLOAD),
     "zero_optimization.stage3_prefetch_gather 'fused' (XLA's own "
     "collective schedule)":
         (lambda pd: _zero(pd).get("stage3_prefetch_gather") == "fused",
@@ -259,22 +252,6 @@ def _zero(pd):
     if isinstance(z, bool):   # legacy "zero_optimization": true == stage 1
         return {"stage": 1 if z else 0}
     return z or {}
-
-
-def _zero_offload_param(pd):
-    """The offload_param device ("none", "cpu" or "nvme"), the legacy
-    ``cpu_offload_params`` flag included."""
-    z = _zero(pd)
-    device = (z.get("offload_param") or {}).get("device") or "none"
-    if device == "none" and z.get("cpu_offload_params", False):
-        return "cpu"
-    return device
-
-
-def _zero_offload_optimizer(pd):
-    z = _zero(pd)
-    return ((z.get("offload_optimizer") or {}).get("device") or "none") \
-        != "none" or bool(z.get("cpu_offload", False))
 
 
 # zero_optimization's stage-3 knobs (deepspeed_tpu/config/constants.py:

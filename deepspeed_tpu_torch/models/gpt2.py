@@ -241,7 +241,9 @@ class GPT2LMHeadModel(JaxTreeBridge, nn.Module):
     parameters are made on ``device`` (default ``"meta"``: the engine
     places and initializes them, as the JAX engine calls ``model.init``);
     ``reset_parameters`` draws them from an explicit ``torch.Generator``
-    with the JAX init."""
+    with the JAX init. ``param_dtype`` other than fp32 is for the
+    ZeRO-Infinity engine, which keeps its own fp32 masters; the main
+    engine refuses it where it places the parameters."""
 
     def __init__(self, config: GPT2Config, device="meta"):
         super().__init__()
@@ -256,9 +258,6 @@ class GPT2LMHeadModel(JaxTreeBridge, nn.Module):
         if not cfg.tie_word_embeddings:
             raise NotImplementedError(
                 f"an untied LM head is not ported ({ROADMAP_REMAT})")
-        if cfg.param_dtype != torch.float32:
-            raise NotImplementedError("GPT2LMHeadModel keeps fp32 master "
-                                      "parameters (param_dtype=float32)")
         E = cfg.n_embd
         self.wte = nn.Parameter(torch.empty(cfg.vocab_size, E,
                                             dtype=cfg.param_dtype,
@@ -296,6 +295,13 @@ class GPT2LMHeadModel(JaxTreeBridge, nn.Module):
 
     # -- the layered-apply contract of the ZeRO-3 prefetch pipeline ----------
 
+    def block_apply(self, x, leaves, keep_prob=1.0):
+        """One block over ``leaves`` ({block parameter name: tensor}, the
+        names of ``prefetch_layer_leaves``) instead of its own
+        parameters: the layer body of the prefetch pipeline and of the
+        ZeRO-Infinity segments."""
+        return torch.func.functional_call(self.h[0], leaves, (x, keep_prob))
+
     @property
     def prefetch_layer_subtree(self):
         """The layer-stacked subtree the engine's stage3_prefetch pipeline
@@ -328,11 +334,10 @@ class GPT2LMHeadModel(JaxTreeBridge, nn.Module):
         S = input_ids.shape[1]
         x = F.embedding(input_ids, params["wte"]).to(dt) \
             + params["wpe"][:S].to(dt)[None]
-        block, names = self.h[0], self.prefetch_layer_leaves()
+        names = self.prefetch_layer_leaves()
 
         def body(xc, leaves):
-            return torch.func.functional_call(block, dict(zip(names, leaves)),
-                                              (xc, keep_prob))
+            return self.block_apply(xc, dict(zip(names, leaves)), keep_prob)
         x = layer_scan(body, x, params["h"])
         x = torch.func.functional_call(
             self.ln_f, {"scale": params["ln_f.scale"],

@@ -141,6 +141,21 @@ LSE_ATOL = 1e-3
 # lr reads 1.0e-2 (the trajectory check above reads it 0.025).
 OFFLOAD_UPDATE_RTOL = {"streamed": 0.0, "host": 0.1, "host_step": 4e-3}
 OFFLOAD_UPDATE_FLOOR = 1e-3
+# the ZeRO-Infinity engine's first update of each fp32 master leaf (from
+# the same tiled weights and batch) against the main engine's device
+# FusedAdam (fp32 moments, no clipping), at the OFFLOAD_UPDATE_FLOOR; the
+# limits were set before the first run: the segments run the same kernels
+# on the same bf16 weights and the rows the same arithmetic, so every
+# leaf but wte is expected bit for bit; wte's gradient is the head's plus
+# the embedding's, summed in fp32 by the Infinity engine (as JAX's) and
+# in bf16 by autograd in the main engine. That first run held the updates
+# after 3 steps instead, where the two trajectories have parted (block
+# leaves 1.0e-3-1.06e-2, c_attn's bias 0.15-0.20: its key third has a
+# zero gradient in exact arithmetic, and Adam scales the rounding noise
+# up to the lr), as far apart as a 1.01 x lr fault: on an H100, 2 layers
+# at the 6.25B model's width. "segments": K = 1 against K = 2 after the
+# 3 steps, bit for bit.
+INFINITY_UPDATE_RTOL = {"default": 1e-3, "wte": 5e-2, "segments": 0.0}
 
 
 def row_rel_err(got, want, floor=0.0):

@@ -200,16 +200,18 @@ class DeepSpeedEngine:
 
         # ZeRO-Offload (engine.py:412): the fp32 masters and the moments on
         # the host or NVMe, the compute copy on the card; the parameters
-        # themselves on NVMe between steps with offload_param nvme
+        # themselves in pinned host memory or on NVMe between steps with
+        # offload_param cpu or nvme (engine.py:188-219)
         zc = self._config.zero_config
         self._offload_cfg = zc.offload_optimizer
-        self._param_offload_nvme = zc.offload_param.device == "nvme"
         self._host_runner = None
         self._param_swapper = None
+        self._param_host = None
         self._params_parked = False
         self._parked_via_push = False
         self.offload_marks = None
-        if self._offload_cfg.enabled and qcfg.enabled:
+        if (self._offload_cfg.enabled or zc.offload_param.enabled) \
+                and qcfg.enabled:
             raise NotImplementedError(
                 f"quantize_training with the offload tiers is not ported: "
                 f"MoQ quantizes the masters on the card ({ROADMAP_OFFLOAD})")
@@ -309,13 +311,22 @@ class DeepSpeedEngine:
         state."""
         params = self._place_model(model_parameters)
         if self._offload_cfg.enabled:
-            return self._init_offload_state(params)
-        self.master = [p.data for p in params]
-        if self._bf16_grads:
-            for p in params:
-                p.data = p.data.to(torch.bfloat16)
-        self.compute_params = params
-        self.opt_state = self.optimizer.init(self.master)
+            self._init_offload_state(params)
+        else:
+            self.master = [p.data for p in params]
+            if self._bf16_grads:
+                for p in params:
+                    p.data = p.data.to(torch.bfloat16)
+            self.compute_params = params
+            self.opt_state = self.optimizer.init(self.master)
+        # the first park fills the parameter tier, after the first step
+        tier = self._config.zero_config.offload_param.device
+        if tier == "nvme":
+            self._param_swapper = self._make_param_swapper()
+        elif tier == "cpu":
+            from deepspeed_tpu_torch.runtime.zero.pinned import \
+                HostParamRest
+            self._param_host = HostParamRest(self.device)
 
     def _refresh_compute_params(self):
         if self.mesh is not None:
@@ -511,6 +522,7 @@ class DeepSpeedEngine:
             batch = _map_many(lambda *xs: np.concatenate(
                 [np.asarray(x) for x in xs]), micro)
         batch = self._to_device(batch)
+        self._ensure_params_resident()
         if self._host_runner is not None:
             metrics = self._offload_train_batch(batch)
         else:
@@ -643,9 +655,6 @@ class DeepSpeedEngine:
                 p.data = p.data.to(torch.bfloat16)
         self.compute_params = params
         self.opt_state = {}
-        if self._param_offload_nvme:
-            # the first park writes the files, after the first step
-            self._param_swapper = self._make_param_swapper()
 
     def _make_param_swapper(self):
         from deepspeed_tpu_torch.runtime.swap_tensor.swapper import \
@@ -669,14 +678,32 @@ class DeepSpeedEngine:
         return [i for i, n in enumerate(names) if not inner(n)] + \
             [i for i, n in enumerate(names) if inner(n)]
 
+    def _rest_tensors(self):
+        """What the parameter tier holds between steps: the compute copy
+        when an offload tier keeps the masters, else the fp32 masters
+        (the compute copy is their cast)."""
+        if self._host_runner is not None:
+            return [p.data for p in self.compute_params]
+        return self.master
+
     def _ensure_params_resident(self):
-        """Parked parameters stream back to the card before anything
-        reads them (``_ensure_params_resident`` :886)."""
+        """Parked parameters come back to the card before anything reads
+        them (``_ensure_params_resident`` :886): from NVMe through the
+        swapper's read window, or from the pinned arena on its copy
+        stream. Without an offload tier they are the masters, and the
+        compute copy is made from them again."""
         if not self._params_parked:
             return
         t0 = time.perf_counter()
-        leaves = self._param_swapper.swap_in_device(
-            self.device, order=self._param_swap_order())
+        if self._param_swapper is not None:
+            leaves = self._param_swapper.swap_in_device(
+                self.device, order=self._param_swap_order())
+        else:
+            leaves = self._param_host.unpark()
+        if self._host_runner is None:
+            self.master = leaves
+            if self._bf16_grads:
+                leaves = [m.to(torch.bfloat16) for m in leaves]
         for p, t in zip(self.compute_params, leaves):
             p.data = t
         self._params_parked = False
@@ -684,19 +711,24 @@ class DeepSpeedEngine:
             time.perf_counter() - t0)
 
     def _park_params(self):
-        """The updated parameters to NVMe and their card memory freed
-        (``_park_params`` :908); when the host runner wrote them straight
-        to the write-behind queue, only the stale card copies go."""
-        if self._param_swapper is None or self._params_parked:
+        """The updated parameters to NVMe or the pinned arena and their
+        card memory freed (``_park_params`` :908); when the host runner
+        wrote them straight to the write-behind queue, only the stale card
+        copies go."""
+        if self._params_parked or (self._param_swapper is None
+                                   and self._param_host is None):
             return
         t0 = time.perf_counter()
         if self._parked_via_push:
             self._parked_via_push = False
+        elif self._param_swapper is not None:
+            self._param_swapper.swap_out_device(self._rest_tensors())
         else:
-            self._param_swapper.swap_out_device(
-                [p.data for p in self.compute_params])
+            self._param_host.park(self._rest_tensors())
         for p in self.compute_params:
             p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        if self._host_runner is None:
+            self.master = None
         self._params_parked = True
         self.metrics.histogram("swap/park_s").observe(
             time.perf_counter() - t0)
@@ -725,7 +757,6 @@ class DeepSpeedEngine:
         accumulated on the card, then the offload update. With
         ``overlap_comm`` and gas > 1 the host runner takes each micro
         batch's gradients to the host while the next one computes."""
-        self._ensure_params_resident()
         gas = self.gradient_accumulation_steps()
         m0 = self._mark()
         if gas > 1 and self._config.zero_config.overlap_comm \
@@ -1156,6 +1187,8 @@ class DeepSpeedEngine:
         """Every leaf's fp32 master, gathered whole, by name, on the CPU
         (collective: every rank calls it)."""
         out = {}
+        if self.mesh is None:
+            self._ensure_params_resident()
         masters = self._host_runner.master_leaves() \
             if self._host_runner is not None else self.master
         for k, m in zip(self.param_names, masters):
@@ -1174,6 +1207,9 @@ class DeepSpeedEngine:
             if self._param_swapper is not None:
                 self._param_swapper.release()
                 self._param_swapper = None
+            if self._param_host is not None:
+                self._param_host.close()
+                self._param_host = None
             if self._host_runner is not None:
                 self._host_runner.close()
                 self._host_runner = None
@@ -1235,6 +1271,7 @@ class DeepSpeedEngine:
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True):
         self._one_rank_only("save_checkpoint")
+        self._ensure_params_resident()
         tag = tag or f"global_step{self.global_steps}"
         self.skipped_steps = int(self.skipped_steps_t)
         extra = {"global_steps": self.global_steps,
@@ -1279,6 +1316,9 @@ class DeepSpeedEngine:
             return None, {}
         state, extra = loaded
         dev = self.device
+        # the loaded weights replace resident ones; the next park writes
+        # the tier from them (engine.py:4040)
+        self._ensure_params_resident()
         if self._host_runner is not None:
             self._adopt_loaded_state_offload(state, want_opt)
         else:

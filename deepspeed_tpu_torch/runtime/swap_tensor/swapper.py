@@ -6,7 +6,8 @@ double-buffered ``prefetch``), ``_StagingArena`` (staging buffers from one
 ``ContiguousMemoryAllocator``), ``PartitionedParamSwapper`` (the
 ZeRO-Infinity parameter tier: compute-dtype leaves rest in one file each
 and stream disk → staging → device around each step, with a sliding
-read window, write-behind parking and its byte cache) and
+read window, write-behind parking and its byte cache; ``swap_in_stream``
+yields them on the host through the window alone) and
 ``OptimizerStateSwapper`` (Adam moments on NVMe: prefetch, fetch, store,
 store-behind).
 
@@ -429,6 +430,22 @@ class PartitionedParamSwapper:
         self._wbusy.clear()
         self._pending.clear()
 
+    @property
+    def has_pending_writes(self):
+        return bool(self._pending)
+
+    def staged_leaf(self, i):
+        """``(value, source)`` for parked leaf ``i``: a view of its
+        write-behind cache buffer (``"cache"``; valid until the next
+        park reuses the pool) or its file's path (``"file"``). Call
+        ``drain_writes`` first while ``has_pending_writes``: a pending
+        file is not whole yet."""
+        c = self._cache.get(i)
+        if c is not None:
+            idx, nbytes = c
+            return self._view(self._wpool[idx][:nbytes], i), "cache"
+        return self._path(i), "file"
+
     def _stage(self, slot, nbytes):
         need = self.handle.io_nbytes(nbytes)
         buf = self._staging[slot]
@@ -501,6 +518,46 @@ class PartitionedParamSwapper:
                     self._staging[(gi * group + j) % slots], i))
                 self._count("swap/bytes_read", self._leaf_nbytes(i))
         return outs
+
+    def swap_in_stream(self, order=None):
+        """The read schedule as a generator: ``(i, host view)`` in
+        ``order`` (default: every leaf), through the same window of
+        staging slots as ``swap_in_device`` and nothing else, so host
+        memory stays at the window whatever the model's size. A view
+        aliases its slot and is valid until the window moves past it:
+        use or copy it before taking the next ``len(_staging) // 2``
+        items. The whole window reads from disk (a pending write is
+        drained first)."""
+        n = len(self.meta)
+        order = list(order) if order is not None else list(range(n))
+        if not order:
+            return
+        if self._pending.intersection(order):
+            self.drain_writes()
+        self._readahead(order)
+        slots = len(self._staging)
+        group = max(1, slots // 2)
+        groups = [order[k:k + group] for k in range(0, len(order), group)]
+        fds = {}
+
+        def submit(gi):
+            for j, i in enumerate(groups[gi]):
+                buf = self._stage((gi * group + j) % slots,
+                                  self._leaf_nbytes(i))
+                fds[i] = self.handle.open(self._path(i), False)
+                self.handle.async_pread(buf, fds[i])
+
+        submit(0)
+        for gi, g in enumerate(groups):
+            self._timed_wait(self.handle)
+            for i in g:
+                self.handle.close(fds.pop(i))
+            if gi + 1 < len(groups):
+                submit(gi + 1)     # the next group's reads overlap the use
+            for j, i in enumerate(g):
+                self._count("swap/bytes_read", self._leaf_nbytes(i))
+                yield i, self._view(self._staging[(gi * group + j) % slots],
+                                    i)
 
     def swap_out_device(self, leaves, write_behind=None):
         """Leaves (device or host) → disk: synchronous writes, or

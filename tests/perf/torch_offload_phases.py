@@ -1,17 +1,26 @@
 """chip_smoke.py's ZeRO-Offload phases alone, on the card.
 
-    python3 tests/perf/torch_offload_phases.py [--only streamed,host,parity,nvme]
+    python3 tests/perf/torch_offload_phases.py \
+        [--only streamed,host,parity,nvme,infinity,nvme_xl,param_offload]
 
 Runs chip_smoke's device phase (the card, the builds, the host and the
 pinned copy rates), then ``train_llama_offload`` (the streamed tier),
 ``train_llama_offload_host`` (the native SIMD step), ``offload_parity``
-and ``train_nvme`` (GPT-2 large with the moments and the parameters on
+``train_nvme`` (GPT-2 large with the moments and the parameters on
 the disk; the GPT-2 train phase runs first, 2 + 10 steps, for the losses
-it is held to). Each prints its chip_smoke line; ``--only`` picks some.
+it is held to), the ZeRO-Infinity phases (``infinity``: the flash rows
+at its shape, ``train_infinity`` on the 6.25B GPT-2, ``infinity_restore``
+and ``infinity_parity``), ``nvme_xl`` (10.64B bf16 through
+``swap_in_stream``) and ``param_offload`` (GPT-2 large with
+``offload_param`` cpu, then nvme without offload_optimizer; after the
+train phase too). Each prints its chip_smoke line; ``--only`` picks
+some.
 """
 
 import os
+import shutil
 import sys
+import tempfile
 import traceback
 
 import torch
@@ -21,7 +30,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 
 import chip_smoke as c  # noqa: E402
 
-PHASES = ("streamed", "host", "parity", "nvme")
+PHASES = ("streamed", "host", "parity", "nvme", "infinity", "nvme_xl",
+          "param_offload")
 
 
 def main():
@@ -33,15 +43,43 @@ def main():
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
     smi, rates = c.phase_device()
 
+    def train_losses():
+        if not c.TRAIN_LOSSES:
+            engine, _, _ = c.train_phase()
+            del engine
+            c.free_host_caches()
+
     def nvme():
-        engine, _, _ = c.train_phase()
-        del engine
-        c.free_host_caches()
+        train_losses()
         c.train_nvme_phase()
+
+    def in_dir(fn, *args):
+        def run():
+            path = tempfile.mkdtemp(prefix="dstpu_phase_")
+            try:
+                fn(*args, path)
+            finally:
+                shutil.rmtree(path, ignore_errors=True)
+        return run
+
+    def infinity(path):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        c.flash_rows(gen, c.INF_BATCH, "train_infinity", H=c.INF_HEADS,
+                     S=c.INF_SEQ, D=c.INF_E // c.INF_HEADS)
+        engine, batch, _, losses = c.train_infinity_phase(rates, path)
+        c.infinity_restore_phase(engine, batch, losses, path)
+        del engine
+        c.infinity_parity_phase()
+
+    def param_offload(path):
+        train_losses()
+        c.param_offload_phase(path)
     runs = {"streamed": lambda: c.train_llama_offload_phase(rates),
             "host": lambda: c.train_llama_offload_phase(rates,
                                                         stream="host"),
-            "parity": c.offload_parity_phase, "nvme": nvme}
+            "parity": c.offload_parity_phase, "nvme": nvme,
+            "infinity": in_dir(infinity), "nvme_xl": in_dir(c.nvme_xl_phase),
+            "param_offload": in_dir(param_offload)}
     failed = []
     for name in PHASES:
         if name not in only:

@@ -37,8 +37,8 @@ def test_port_sources_import_no_jax():
 def test_port_imports_with_jax_poisoned():
     """Every module of the port, and chip_smoke without running its
     main, import in a process where jax and deepspeed_tpu cannot; there
-    the LLaMA training model takes a step through ``initialize`` and
-    ``llama_generate`` runs."""
+    the LLaMA training model takes a step through ``initialize``,
+    ``llama_generate`` runs and the ZeRO-Infinity engine takes a step."""
     mods = _modules() + ["chip_smoke"]
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'flax', 'deepspeed_tpu'):\n"
@@ -56,6 +56,13 @@ def test_port_imports_with_jax_poisoned():
             "ids = torch.randint(0, 512, (2, 12))\n"
             "assert torch.isfinite(eng.train_batch({'input_ids': ids}))\n"
             "assert llama.llama_generate(model, ids, 3).shape == (2, 15)\n"
+            "from deepspeed_tpu_torch.models import gpt2\n"
+            "from deepspeed_tpu_torch.runtime.zero import infinity\n"
+            "cfg = gpt2.gpt2_tiny(dtype=torch.float32)\n"
+            "inf = infinity.InfinityEngine(\n"
+            "    cfg, infinity.gpt2_client_init(cfg), device='cpu',\n"
+            "    segments=2)\n"
+            "assert inf.train_batch({'input_ids': ids}) > 0\n"
             "print('OK', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -64,7 +71,8 @@ def test_port_imports_with_jax_poisoned():
     assert proc.stdout.startswith("OK")
     assert {"deepspeed_tpu_torch.models.llama",
             "deepspeed_tpu_torch.models.llama_inference",
-            "deepspeed_tpu_torch.serving.adapters"} <= set(mods)
+            "deepspeed_tpu_torch.serving.adapters",
+            "deepspeed_tpu_torch.runtime.zero.infinity"} <= set(mods)
     assert len(mods) >= 17
 
 

@@ -5,7 +5,9 @@ port's bridge) and the same seeded batches go through ``initialize`` +
 ``train_batch`` of both packages with the same config, at each tier: the
 streamed tier (state in host memory, the update on the device), the host
 runner (``stream: "host"``, the native SIMD step), NVMe moments (plain
-and write-behind), the NVMe parameter tier, ``overlap_comm`` with gas 4,
+and write-behind), the NVMe parameter tier (with an offload tier, and
+with the device optimizer), the pinned parameter tier (``offload_param``
+cpu, with and without an offload tier), ``overlap_comm`` with gas 4,
 fp16 with its unscale and its overflow skip, and the ``cpuadam`` type;
 5 steps each, held at the JAX package's own tolerances
 (tests/test_offload.py). Then checkpoints across the two packages both
@@ -180,6 +182,82 @@ def test_nvme_parameter_tier_matches_jax_engine(optimizer_tier, tmp_path):
     te.close()
 
 
+def _jax_param_masters(te, je):
+    je._ensure_params_resident()          # a parked JAX engine's too
+    return te.module.from_jax_tree(_np32(jax.device_get(je.state.params)))
+
+
+@pytest.mark.parametrize("param, offload", [
+    ({"device": "cpu"}, None), ("legacy", None),
+    ({"device": "cpu"}, {"device": "cpu"}), ("legacy", {"device": "cpu"}),
+    ({"device": "cpu"}, "nvme")])
+def test_cpu_parameter_tier_matches_jax_engine(param, offload, tmp_path):
+    """offload_param cpu (or the legacy cpu_offload_params): between steps
+    the parameters rest in the host arena, the module holds no parameter
+    storage (nor the engine its masters, with the device optimizer), and
+    they come back before the next forward. JAX's engine makes the tier a
+    no-op off a TPU, so the parked run must give its trajectory: at fp32
+    2e-5 with the device optimizer, at JAX's offload bound with an
+    offload tier (streamed, or NVMe moments)."""
+    def make(path):
+        cfg = _config(_nvme(path) if offload == "nvme" else offload,
+                      None if param == "legacy" else param)
+        if param == "legacy":
+            cfg["zero_optimization"]["cpu_offload_params"] = True
+        return cfg
+    cfg_j, cfg_t = _both(make, tmp_path)
+    je, te = _run_both(cfg_j, port_cfg=cfg_t,
+                       rtol=2e-5 if offload is None else LOSS_RTOL)
+    assert te._params_parked and te._param_host.nbytes > 0
+    assert all(p.numel() == 0 for p in te.module.parameters())
+    if offload is None:
+        assert te.master is None
+        want = _jax_param_masters(te, je)
+        masters = te.gather_master()          # unparks
+    else:
+        want = _jax_masters(te, je)
+        masters = _port_masters(te)
+    for name, m in masters.items():
+        assert_close(m, want[name], atol=2e-5, rtol=2e-5)
+    logits = te.eval_batch(_batches(1)[0])
+    assert not te._params_parked and torch.isfinite(logits).all()
+    te.close()
+
+
+def test_nvme_parameter_tier_with_the_device_optimizer(tmp_path):
+    """offload_param nvme without offload_optimizer: the device optimizer
+    keeps its moments on the device, and its fp32 masters rest in the
+    swap files between steps (JAX parks its fp32 params). The trajectory
+    is JAX's at fp32 2e-5; a checkpoint saved while parked loads in the
+    other package, and both continue on one trajectory."""
+    cfg_j, cfg_t = _both(lambda p: _config(param=_nvme(p)), tmp_path)
+    je, te = _run_both(cfg_j, port_cfg=cfg_t, rtol=2e-5)
+    assert te._params_parked and te.master is None
+    assert te.opt_state["exp_avg"][0].numel() > 0
+    sw = te._param_swapper
+    assert [sw.meta[i][1] for i in sw.meta] == [torch.float32] * len(
+        te.param_names)
+    want = _jax_param_masters(te, je)
+    for name, m in te.gather_master().items():
+        assert_close(m, want[name], atol=2e-5, rtol=2e-5)
+    te.train_batch(_batches(1, first=5)[0])          # parked again
+    je.train_batch(_batches(1, first=5)[0])
+    assert te._params_parked
+    te.save_checkpoint(str(tmp_path / "ckpt_t"), tag="t6")
+    je.save_checkpoint(str(tmp_path / "ckpt_j"), tag="t6")
+    jb = _jax_engine(_config(param=_nvme(tmp_path / "jb")), _params())
+    jb.load_checkpoint(str(tmp_path / "ckpt_t"), tag="t6")
+    tb = _port_engine(_config(param=_nvme(tmp_path / "tb")), _params())
+    tb.load_checkpoint(str(tmp_path / "ckpt_j"), tag="t6")
+    for b in _batches(2, first=6):
+        want = float(je.train_batch(b))
+        for e in (te, jb, tb):
+            assert float(e.train_batch(b)) == pytest.approx(want, rel=2e-5)
+    assert tb._params_parked
+    te.close()
+    tb.close()
+
+
 def test_overlap_comm_gas4_matches_jax_engine():
     """overlap_comm with gas 4 on the host runner: each micro batch's
     gradients fold into fp32 host accumulators while the next computes;
@@ -340,24 +418,52 @@ def test_port_checkpoint_restores_the_port_engine_exactly(tmp_path):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("zero, match", [
-    ({"offload_param": {"device": "cpu"}}, "ROADMAP.md queue 1, item "
-     "\"ZeRO-Offload / Infinity on one H100\""),
-    ({"cpu_offload_params": True}, "ZeRO-Offload / Infinity"),
-    ({"offload_param": {"device": "nvme", "nvme_path": "/x",
-                        "stream_segments": 2},
-      "offload_optimizer": {"device": "cpu"}}, "ZeRO-Offload / Infinity"),
-    ({"offload_param": {"device": "nvme", "nvme_path": "/x"}},
-     "ZeRO-Offload / Infinity"),
+def _infinity_config(**over):
+    cfg = _config(**over)
+    cfg["zero_optimization"] = {
+        "stage": 3, "offload_optimizer": {"device": "cpu"},
+        "offload_param": {"device": "cpu", "stream_segments": 2}}
+    return cfg
+
+
+def _llama_model():
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
+    return LlamaForCausalLM(llama_tiny())
+
+
+@pytest.mark.parametrize("build, error, match", [
+    # offload_param at world size > 1 (the ZeRO stages over ranks)
+    (lambda: DeepSpeedConfig({"train_batch_size": 8, "zero_optimization": {
+        "stage": 3, "offload_param": {"device": "cpu"}}}, world_size=2),
+     NotImplementedError, "ZeRO stages over torch.distributed"),
+    # MoQ with the parameter tier
+    (lambda: _port_engine(_config(param={"device": "cpu"},
+                                  quantize_training={"enabled": True}),
+                          _params()),
+     NotImplementedError, "ZeRO-Offload / Infinity"),
+    # what JAX's InfinityEngine would silently ignore
+    (lambda: _port_engine(_infinity_config(), _params()),
+     NotImplementedError, "gradient_clipping with offload_param"),
+    # the Infinity engine streams GPT-2 alone
+    (lambda: dst.initialize(config=_infinity_config(gradient_clipping=0.0,
+                                                    scheduler=None),
+                            model=_llama_model(), device="cpu"),
+     ValueError, "streams GPT-2"),
     ({"stage": 3, "stage3_prefetch": True,
-      "offload_optimizer": {"device": "cpu"}}, "ZeRO stages over "
-     "torch.distributed"),
+      "offload_optimizer": {"device": "cpu"}}, NotImplementedError,
+     "ZeRO stages over torch.distributed"),
 ])
-def test_refusals_that_stay_name_roadmap(zero, match):
-    cfg = {"train_batch_size": 8, "zero_optimization": dict(
-        {"stage": 2}, **zero)}
-    with pytest.raises(NotImplementedError, match=match):
-        DeepSpeedConfig(cfg)
+def test_refusals_that_stay_name_roadmap(build, error, match):
+    """What still raises around the offload tiers: the tiers at world
+    size > 1 or with stage3_prefetch (ROADMAP item 4), MoQ with them
+    (item 3), and the Infinity engine given what JAX's ignores or a model
+    it does not stream."""
+    with pytest.raises(error, match=match):
+        if callable(build):
+            build()
+        else:
+            DeepSpeedConfig({"train_batch_size": 8, "zero_optimization":
+                             dict({"stage": 2}, **build)})
 
 
 def test_offload_refusals_at_world_size_and_with_moq():

@@ -489,8 +489,8 @@ def test_config_errors_carry_the_jax_messages(cfg):
 
 
 @pytest.mark.parametrize("block", [
-    {"zero_optimization": {"stage": 2, "offload_param": {
-        "device": "cpu"}}},
+    {"zero_optimization": {"stage": 3, "stage3_prefetch": True,
+                           "offload_param": {"device": "cpu"}}},
     {"zero_optimization": {"stage": 3, "stage3_prefetch": True,
                            "stage3_prefetch_gather": "fused"}},
     {"comm": {"hierarchy": {"slow_axis": 2}}},
