@@ -287,6 +287,32 @@ Phases, one JSON line each, each with its wall ``seconds``:
                timed step, within ZERO3_LOSS_RTOL (3e-3) of each other and
                of the one-card train phase's. The ranks time-share the card: no
                multi-GPU number.
+16. kernel, zero2_kernels — mm_rs_reduce as the ZeRO stage 0-2 bucket
+               stream runs it: the first and the last bucket of GPT-2
+               large's default plan (``plan_buckets``, reduce_bucket_size
+               5e8, four ranks: 498.6M and 275.5M elements), the four
+               "peers" local [4, run] fp32 regions in this process, every
+               rank's chunk held bit for bit against mm_rs_reduce_plain
+               with a planted fault (one peer's region read from the
+               wrong rank), timed beside its bound and torch.sum over the
+               same rows; the flash rows at B 2 are train_zero3_fused's,
+               the same shapes, carried to path "train_zero2";
+17. train_zero2, zero2_restore — four ranks on the one card:
+               ``initialize(mesh=...)`` of GPT-2 large at ZeRO stage 2
+               with overlap_comm and the default bucket, the train cell's
+               model, config and batch (2 x 1024 a rank), 2 + 4 steps:
+               step time and its split (exchange, update, gather), the
+               barriers a step and the host time in them, buckets a
+               step, each rank's peak memory and heap, launches a step a
+               rank against the design (one mm_rs_reduce a bucket, 0
+               calls of its plain version, the flash kernels as on one
+               card), losses finite, falling from the first timed step,
+               within ZERO3_LOSS_RTOL of train_zero3_ring's and of the
+               one-card train phase's, and a planted fault
+               (own_slot_only) beyond it; then a save at four ranks,
+               loaded by fresh four-rank engines whose next loss must
+               equal the uninterrupted run's bit for bit, and by one
+               rank, within ZERO3_LOSS_RTOL.
 
 Each path counts its kernels' launches from 0 just before its run: each
 serve run for the decode kernels and the prefill forward, the fast
@@ -294,12 +320,13 @@ path's timed runs (and its bf16-cache run) for its kernels, each
 generate() case's timed runs, the train runs (GPT-2's, LLaMA's) for the
 flash kernels, the BERT train run for the block-sparse kernels, each MoQ
 run's timed steps for quantize, rank 0's fused_matmul timed steps for the fused
-collective kernels. A kernel has a row for each
+collective kernels, rank 0's stage-2 timed steps for mm_rs_reduce and
+the flash kernels on "train_zero2". A kernel has a row for each
 path it runs on ("serve", "serve_gpt2_int8", "generate_gpt2",
 "generate_gpt2_bf16", "generate_gpt2_step", "serve_llama",
 "serve_llama_int8", "generate_llama", "generate_llama_kv0", "train",
 "train_llama", "train_bert_sparse", "train_moq", "train_moq_sr",
-"train_zero3_fused");
+"train_zero3_fused", "train_zero2");
 each row of the
 kernels line is timed and bounded at its path's shapes and carries that path's launches (matvec_int8's
 row: no path, 0). "generate_gpt2_kv8" (bf16 weights, an
@@ -527,6 +554,13 @@ ZERO3_GROUP = (3840 + 5120) // 4
 ZERO3_LOSS_RTOL = 3e-3
 # the one-card train phase's losses, for the ZeRO-3 runs to be held to
 TRAIN_LOSSES = []
+# ZeRO stage 2 over the same four ranks: the train cell's config at stage
+# 2 with overlap_comm and the default reduce_bucket_size (5e8 elements),
+# which cuts GPT-2 large's 774.1M parameters, in the model's order, into
+# two buckets (498.6M, 275.5M); held to train_zero3_ring's losses (and
+# the one-card train phase's) at ZERO3_LOSS_RTOL
+ZERO2_BUCKET = int(5e8)
+ZERO3_RING_LOSSES = []
 
 
 _CLOCK = [time.perf_counter()]
@@ -5885,7 +5919,332 @@ def zero3_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
     if not one_card["fault"] > ZERO3_LOSS_RTOL:
         raise AssertionError(f"a planted fault passes the loss check: "
                              f"{one_card['fault']:.3g}")
+    ZERO3_RING_LOSSES[:] = runs["ring"]["losses"]
     return runs["fused_matmul"]["launches"]
+
+
+def zero2_kernel_phase(gen):
+    """mm_rs_reduce as the bucket stream of ZeRO stages 0-2 runs it on
+    the card: one launch a bucket over the n ranks' [n, padded / n] fp32
+    regions, row ``rank`` of each summed into the rank's chunk. At the
+    first and the last bucket of GPT-2 large's default plan (the engine's
+    ``plan_buckets`` over the model's leaves in order, ZERO2_BUCKET,
+    ZERO3_RANKS ranks), the four "peers" local tensors in this process:
+    every rank's chunk held bit for bit against mm_rs_reduce_plain, one
+    peer's region read from the wrong rank as the timed rank's fault.
+    Timed at ZERO3_TIMED_RANK by graph replay; library: torch.sum(x, 0)
+    over the rank's n rows in one [n, run] buffer; bound: n·run·4 bytes
+    read and run·4 written at 3.35 TB/s. The row is the first (larger)
+    bucket's; the last bucket's numbers are its second case."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    from deepspeed_tpu_torch.ops.cuda import fused_collective as k
+    from deepspeed_tpu_torch.parallel import overlap
+    n, R = ZERO3_RANKS, ZERO3_TIMED_RANK
+    shapes = [p.shape for p in
+              GPT2LMHeadModel(train_model_config()).parameters()]
+    buckets = overlap.plan_buckets(shapes, ZERO2_BUCKET, n)
+    checks, cases, timed = [], [], []
+    for which, b in (("first", buckets[0]), ("last", buckets[-1])):
+        run = b.padded // n
+        regions = [torch.randn(n, run, generator=gen, device="cuda")
+                   for _ in range(n)]
+        for r in range(n):
+            got = k.mm_rs_reduce(regions, r)
+            want = k.mm_rs_reduce_plain(regions, r)
+            fault = None
+            if r == R:
+                bad = list(regions)
+                bad[(R + 1) % n] = regions[(R + 2) % n]
+                fault = k.mm_rs_reduce_plain(bad, r)[None]
+            checks.append(held("mm_rs_reduce", got[None], want[None], fault))
+            del got, want, fault
+        out = torch.empty(run, device="cuda")
+        ms = time_graph_ms(lambda i: k.mm_rs_reduce(regions, R, out=out),
+                           n=8)
+        call_ms = time_ms(lambda: k.mm_rs_reduce(regions, R, out=out),
+                          reps=10, inner=3)
+        plain_ms = time_ms(lambda: k.mm_rs_reduce_plain(regions, R),
+                           reps=5, inner=1)
+        x = torch.stack([regions[(R + 1 + j) % n][R] for j in range(n)])
+        lib_ms = time_graph_ms(lambda i: torch.sum(x, 0), n=8)
+        bnd = bound(4 * (n + 1) * run, (n - 1) * run, FP32_FLOP_PER_S)
+        timed.append((ms, call_ms, plain_ms, lib_ms, bnd))
+        cases.append({"bucket": which, "leaves": len(b.leaf_ids),
+                      "elements": b.numel, "padded": b.padded, "run": run,
+                      "ranks": n, "kernel_us": ms * 1e3,
+                      "call_us": call_ms * 1e3, "plain_us": plain_ms * 1e3,
+                      "library_us": lib_ms * 1e3, "bound_us": bnd[0] * 1e3,
+                      "pct_of_bound": 100.0 * bnd[0] / ms,
+                      "held": "bit for bit, every rank"})
+        del regions, x, out
+        torch.cuda.empty_cache()
+    results = []
+    ms, call_ms, plain_ms, lib_ms, bnd = timed[0]
+    record(results, "mm_rs_reduce", "train_zero2",
+           "deepspeed_tpu/ops/pallas/fused_collective.py:491", checks, ms,
+           call_ms, plain_ms, bnd, cases,
+           "one peer's region read from the wrong rank", library_ms=lib_ms,
+           extra={"launches_per_bucket": 1, "buckets": len(buckets),
+                  "library": "torch.sum(x, 0) over the n chunk rows in one "
+                             "local [n, run] buffer"})
+    emit({"phase": "zero2_kernels", "ranks": n, "bucket_elems": ZERO2_BUCKET,
+          "buckets": [{"leaves": len(b.leaf_ids), "elements": b.numel,
+                       "padded": b.padded} for b in buckets],
+          "max_abs_err": max(c[0] for c in checks)})
+    return results
+
+
+def zero2_ds_config(stage=2):
+    """The training cell's config at ZeRO stage 2 (or ``stage``) with
+    overlap_comm and the default bucket."""
+    cfg = train_ds_config()
+    cfg["zero_optimization"] = {"stage": stage, "overlap_comm": True,
+                                "reduce_bucket_size": ZERO2_BUCKET}
+    return cfg
+
+
+def _zero2_engine(n_layer, mesh, stage=2):
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    engine, _, _, _ = ds.initialize(config=zero2_ds_config(stage), mesh=mesh,
+                                    model=GPT2LMHeadModel(
+                                        train_model_config(n_layer)))
+    return engine
+
+
+def zero2_train(rank, world, n_layer, warmup, steps, ckpt_dir=None,
+                fault=False, stage=2):
+    """One rank of ``train_zero2``: ``initialize(mesh=...)`` of GPT-2
+    large at ZeRO ``stage`` (2), warmup + steps ``train_batch`` (the
+    launches and the plain reduce's calls counted over the timed steps,
+    each step's CUDA-event split read after them); with ``ckpt_dir`` then
+    ``zero2_restore``'s rank: save, the uninterrupted next step, and a
+    fresh engine loading the save and taking the same step. With
+    ``fault`` every mm_rs_reduce runs ``own_slot_only``."""
+    from deepspeed_tpu_torch.ops.cuda import builder
+    from deepspeed_tpu_torch.ops.cuda import fused_collective as k
+    from deepspeed_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    mesh = make_mesh(MeshConfig(data=world))
+    right, right_plain = k.mm_rs_reduce, k.mm_rs_reduce_plain
+    plain_calls = [0]
+
+    def counted_plain(*a, **kw):
+        plain_calls[0] += 1
+        return right_plain(*a, **kw)
+    k.mm_rs_reduce_plain = counted_plain
+    if fault:
+        k.mm_rs_reduce = own_slot_only(right)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = _zero2_engine(n_layer, mesh, stage)
+        batch = train_batch_ids()
+        warm = [engine.train_batch(batch) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        builder.launches.clear()          # count the main path's run only
+        plain_calls[0] = 0
+        barriers, blocked_s = mesh.barriers, mesh.barrier_s
+        marks, losses = [], []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            losses.append(engine.train_batch(batch))
+            marks.append(engine.world_marks)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches, plain = dict(builder.launches), plain_calls[0]
+        split = {name: statistics.median(
+            m[i][0].elapsed_time(m[i + 1][0]) for m in marks)
+            for i, name in enumerate(("exchange_ms", "update_ms",
+                                      "gather_ms"))}
+        out = {"losses": [float(x) for x in torch.stack(warm + losses).cpu()],
+               "init_and_warmup_s": init_s, "step_ms": wall_s / steps * 1e3,
+               "split_ms": split,
+               "barriers_per_step": (mesh.barriers - barriers) / steps,
+               "barrier_wall_ms_per_step":
+                   (mesh.barrier_s - blocked_s) / steps * 1e3,
+               "buckets_per_step": len(engine._buckets),
+               "launches": launches, "plain_reduce_calls": plain,
+               "peak_torch_memory_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "heap_gb": mesh.heap.nbytes / 1e9,
+               "moment_slices": sum(e is not None for e in engine._plan),
+               "leaves": len(engine._plan)}
+        if ckpt_dir is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.save_checkpoint(ckpt_dir, tag="zero2")
+            out["save_s"] = time.perf_counter() - t0
+            out["next_loss"] = float(engine.train_batch(batch))
+            engine.close()
+            del engine
+            torch.cuda.empty_cache()
+            fresh = _zero2_engine(n_layer, mesh)
+            t0 = time.perf_counter()
+            fresh.load_checkpoint(ckpt_dir, tag="zero2")
+            torch.cuda.synchronize()
+            out["load_s"] = time.perf_counter() - t0
+            out["resumed_loss"] = float(fresh.train_batch(batch))
+            engine = fresh
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        k.mm_rs_reduce, k.mm_rs_reduce_plain = right, right_plain
+
+
+def zero2_rank(rank, world, n_layer, warmup, steps, ckpt_dir):
+    """One rank of the stage-2 phases: the run with its save and resume,
+    the run with the planted fault, and the same steps at stage 1."""
+    return {"run": zero2_train(rank, world, n_layer, warmup, steps,
+                               ckpt_dir),
+            "fault": zero2_train(rank, world, n_layer, warmup, steps,
+                                 fault=True),
+            "stage1": zero2_train(rank, world, n_layer, warmup, steps,
+                                  stage=1)}
+
+
+def zero2_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
+    """Four ranks on the one card at ZeRO stage 2 (``train_zero2``): every
+    reading printed, then the launches a step a rank against the design
+    (one mm_rs_reduce a bucket, no call of its plain version, the flash
+    forward, delta and backward once a layer: remat is off), losses
+    finite, falling, the same on every rank, within ZERO3_LOSS_RTOL of
+    train_zero3_ring's and the one-card train phase's, the planted
+    fault's beyond it. Then ``zero2_restore``: the four-rank save
+    resumed by fresh four-rank engines, bit for bit, and by one rank in
+    this process, within ZERO3_LOSS_RTOL. Stage 1 runs the same exchange
+    and the same moment slices: its losses must equal stage 2's bit for
+    bit. Returns rank 0's launches."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    from deepspeed_tpu_torch.parallel.mesh import spawn
+    if not (TRAIN_LOSSES and ZERO3_RING_LOSSES):
+        raise AssertionError("train_zero2 is held to the train phase's and "
+                             "train_zero3_ring's losses: run them first")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ckpt_dir = tempfile.mkdtemp(prefix="zero2_")
+    try:
+        ranks = spawn(zero2_rank, ZERO3_RANKS, n_layer, warmup, steps,
+                      ckpt_dir, timeout=900.0)
+        run, fault, stage1 = (ranks[0][k]
+                              for k in ("run", "fault", "stage1"))
+        cfg = train_model_config(n_layer)
+        engine, _, _, _ = ds.initialize(config=zero2_ds_config(),
+                                        model=GPT2LMHeadModel(cfg))
+        t0 = time.perf_counter()
+        engine.load_checkpoint(ckpt_dir, tag="zero2")
+        torch.cuda.synchronize()
+        one_load_s = time.perf_counter() - t0
+        one_rank_loss = float(engine.train_batch(train_batch_ids()))
+        del engine
+        torch.cuda.empty_cache()
+        ckpt_gb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                      os.walk(ckpt_dir) for f in fs) / 1e9
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def max_rel(losses, ref):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    vs_one = max_rel(run["losses"], TRAIN_LOSSES)
+    vs_ring = max_rel(run["losses"], ZERO3_RING_LOSSES)
+    fault_vs_one = max_rel(fault["losses"], TRAIN_LOSSES)
+    buckets = run["buckets_per_step"]
+    want = {"mm_rs_reduce": buckets * steps,
+            **{name: n_layer * steps for name in FLASH_KERNELS}}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit({"phase": "train_zero2", "model": "gpt2_large", "layers": n_layer,
+          "ranks": ZERO3_RANKS, "zero_stage": 2, "overlap_comm": True,
+          "bucket_elems": ZERO2_BUCKET, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "rows_per_rank": TRAIN_BATCH // ZERO3_RANKS,
+          "warmup_steps": warmup, "steps": steps,
+          "step_ms": run["step_ms"],
+          "step_ms_by_rank": [rk["run"]["step_ms"] for rk in ranks],
+          "tokens_per_s": tokens / run["step_ms"] * 1e3,
+          "split_ms": run["split_ms"],
+          "split_ms_by_rank": [rk["run"]["split_ms"] for rk in ranks],
+          "init_and_warmup_s": run["init_and_warmup_s"],
+          "barriers_per_step": run["barriers_per_step"],
+          "barrier_wall_ms_per_step": run["barrier_wall_ms_per_step"],
+          "buckets_per_step": buckets,
+          "moment_slices": run["moment_slices"], "leaves": run["leaves"],
+          "peak_torch_memory_gb_by_rank":
+              [rk["run"]["peak_torch_memory_gb"] for rk in ranks],
+          "heap_gb_by_rank": [rk["run"]["heap_gb"] for rk in ranks],
+          "launches_per_step_per_rank":
+              {k: v / steps for k, v in run["launches"].items()},
+          "launches_predicted_per_step_per_rank":
+              {k: v / steps for k, v in want.items()},
+          "plain_reduce_calls_by_rank":
+              [rk["run"]["plain_reduce_calls"] for rk in ranks],
+          "losses": run["losses"],
+          "one_card_losses": TRAIN_LOSSES[:len(run["losses"])],
+          "zero3_ring_losses": ZERO3_RING_LOSSES[:len(run["losses"])],
+          "losses_vs_one_card_max_rel": vs_one,
+          "losses_vs_zero3_ring_max_rel": vs_ring,
+          "loss_rtol": ZERO3_LOSS_RTOL,
+          "fault": "each rank's mm_rs_reduce summing its own region alone",
+          "fault_losses": fault["losses"],
+          "fault_vs_one_card_max_rel": fault_vs_one,
+          "stage1_step_ms": stage1["step_ms"],
+          "stage1_losses": stage1["losses"],
+          "note": "four ranks time-share one card and read their peers' "
+                  "regions from its own HBM: no multi-GPU number"})
+    emit({"phase": "zero2_restore", "ranks": ZERO3_RANKS,
+          "checkpoint_gb": ckpt_gb,
+          "save_s_by_rank": [rk["run"]["save_s"] for rk in ranks],
+          "load_s_by_rank": [rk["run"]["load_s"] for rk in ranks],
+          "next_loss": run["next_loss"],
+          "resumed_loss_by_rank": [rk["run"]["resumed_loss"]
+                                   for rk in ranks],
+          "one_rank_loss": one_rank_loss, "one_rank_load_s": one_load_s,
+          "one_rank_rel": abs(one_rank_loss - run["next_loss"])
+          / abs(run["next_loss"]), "loss_rtol": ZERO3_LOSS_RTOL})
+
+    for r, rank in enumerate(ranks):
+        got = {k: rank["run"]["launches"].get(k, 0) for k in
+               set(want) | set(rank["run"]["launches"])}
+        if got != want:
+            raise AssertionError(f"train_zero2 rank {r}: launches {got} != "
+                                 f"{want}")
+        if rank["run"]["plain_reduce_calls"]:
+            raise AssertionError(f"train_zero2 rank {r}: the plain reduce "
+                                 f"ran {rank['run']['plain_reduce_calls']} "
+                                 f"times")
+        if rank["run"]["losses"] != run["losses"]:
+            raise AssertionError(f"train_zero2 rank {r}: losses differ")
+        if rank["run"]["resumed_loss"] != run["next_loss"]:
+            raise AssertionError(
+                f"zero2_restore rank {r}: resumed loss "
+                f"{rank['run']['resumed_loss']!r} != the uninterrupted "
+                f"{run['next_loss']!r}")
+    if stage1["losses"] != run["losses"] or stage1["launches"] != want:
+        raise AssertionError(f"train_zero2 at stage 1: losses "
+                             f"{stage1['losses']} (stage 2's "
+                             f"{run['losses']}), launches "
+                             f"{stage1['launches']}")
+    losses, timed = run["losses"], run["losses"][warmup:]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_zero2: non-finite loss {losses}")
+    if not timed[-1] < timed[0]:
+        raise AssertionError(f"train_zero2: the loss did not fall {timed}")
+    if not vs_one <= ZERO3_LOSS_RTOL:
+        raise AssertionError(f"train_zero2 losses {losses} vs one card's "
+                             f"{TRAIN_LOSSES}: {vs_one:.3g}")
+    if not vs_ring <= ZERO3_LOSS_RTOL:
+        raise AssertionError(f"train_zero2 losses {losses} vs "
+                             f"train_zero3_ring's {ZERO3_RING_LOSSES}: "
+                             f"{vs_ring:.3g}")
+    if not fault_vs_one > ZERO3_LOSS_RTOL:
+        raise AssertionError(f"train_zero2: a planted fault passes the loss "
+                             f"check: {fault_vs_one:.3g}")
+    if not abs(one_rank_loss - run["next_loss"]) <= \
+            ZERO3_LOSS_RTOL * abs(run["next_loss"]):
+        raise AssertionError(f"zero2_restore: one rank's loss "
+                             f"{one_rank_loss} vs {run['next_loss']}")
+    return run["launches"]
 
 
 def llama_int8_init(cfg):
@@ -6037,6 +6396,15 @@ def main():
     kernels += flash_rows(gen, TRAIN_BATCH // ZERO3_RANKS,
                           "train_zero3_fused")
     launches["train_zero3_fused"] = zero3_train_phase()
+    torch.cuda.empty_cache()
+    kernels += zero2_kernel_phase(gen)
+    # the flash kernels on the stage-2 path run at train_zero3_fused's
+    # shapes (B 2 a rank, H 20, S 1024, D 64): the rows held and timed
+    # there are this path's too
+    kernels += [dict(row, path="train_zero2") for row in kernels
+                if row["path"] == "train_zero3_fused"
+                and row["name"] in FLASH_KERNELS]
+    launches["train_zero2"] = zero2_train_phase()
     decode_paths = [p_ for p_ in launches if p_.startswith(("serve",
                                                             "generate"))]
     for p_ in decode_paths:

@@ -341,8 +341,12 @@ class AioConfig:
 
 
 class ZeroConfig:
-    """``zero_optimization``'s stage and stage-3 knobs, with JAX's
-    validation messages (``deepspeed_tpu/config/config.py:166-211``).
+    """``zero_optimization``'s stage, bucket and stage-3 knobs, with JAX's
+    validation messages (``deepspeed_tpu/config/config.py:106-211``).
+    ``overlap_reduce`` is validated with JAX's message and
+    ``allgather_bucket_size`` is accepted, both for parity and both
+    ignored: the n-rank bucket stream runs the ring form whatever they
+    say (JAX's keys tune XLA's collectives on TPU interconnects).
     ``collective_matmul``'s ``tile_m`` and ``vmem_budget_bytes`` shape
     the TPU kernel's grid and VMEM; the CUDA kernels' tiles are fixed, so
     the port validates and keeps them."""
@@ -416,6 +420,11 @@ class ZeroConfig:
             self.offload_param.device = "cpu"
         self.overlap_comm = bool(z.get("overlap_comm", False))
         self.reduce_bucket_size = int(z.get("reduce_bucket_size", 5e8))
+        overlap_reduce = str(z.get("overlap_reduce", "ring"))
+        if overlap_reduce not in ("ring", "fused"):
+            raise DeepSpeedConfigError(
+                f"zero_optimization.overlap_reduce must be 'ring' or "
+                f"'fused', got {overlap_reduce!r}")
         if self.overlap_comm and not self.offload_optimizer.enabled \
                 and self.reduce_bucket_size <= 0:
             raise DeepSpeedConfigError(

@@ -31,6 +31,7 @@ class FusedAdam(TorchOptimizer):
     moment_dtype: str = "fp32"
 
     param_like_state_fields = ("exp_avg", "exp_avg_sq")
+    elementwise_update = True
 
     def __post_init__(self):
         if self.amsgrad:

@@ -23,6 +23,10 @@ class TorchOptimizer:
     #: state fields with one tensor per parameter (the checkpoint maps
     #: them through the model's bridge like the parameters)
     param_like_state_fields = ()
+    #: whether the update of an element reads that element's gradient and
+    #: state alone, so a rank may step a slice of a leaf (ZeRO stages 1-2
+    #: at world size n); a per-tensor statistic (LAMB's trust ratio) is not
+    elementwise_update = False
 
     def init(self, params):
         raise NotImplementedError

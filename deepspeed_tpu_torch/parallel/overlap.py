@@ -1,8 +1,10 @@
 """Ring collectives over the data axis: ``ring_reduce_scatter`` and
 ``ring_all_gather`` (``deepspeed_tpu/parallel/overlap.py:119``, ``:147``),
-the mean all-reduce that ``bucketed_allreduce`` (``:196``) gives
-replicated leaves, and ``ReduceScatterBatch``, which runs a ZeRO-3
-layer's reduce-scatters as one exchange.
+the bucket stream of ZeRO stages 0-2 (``plan_buckets`` :67,
+``bucketed_allreduce`` :196, in its ring form only) and the all-gather
+of the updated slices after their sharded update, the mean all-reduce
+of ZeRO-3's replicated leaves, and ``ReduceScatterBatch``, which runs a
+ZeRO-3 layer's reduce-scatters as one exchange.
 
 JAX's schedule: chunk k of a buffer lands on rank k, and its
 reduce-scatter sum starts with the partial of rank k+1 and ends with rank
@@ -16,7 +18,10 @@ read with plain torch ops; on the CPU the buffers travel over gloo.
 """
 
 import contextlib
+import dataclasses
+import math
 import threading
+from typing import Tuple
 
 import torch
 
@@ -88,8 +93,8 @@ def all_reduce(buf, mesh, mean=False):
 
 def allreduce_leaves(leaves, mesh, mean=True):
     """Gradients of replicated leaves, packed into one fp32 buffer,
-    all-reduced (the mean by default), unpacked in their own shapes:
-    ``bucketed_allreduce`` with one bucket."""
+    all-reduced in rank order (the mean by default), unpacked in their
+    own shapes."""
     if not leaves or mesh.size == 1:
         return list(leaves)
     flat = torch.cat([g.float().reshape(-1) for g in leaves])
@@ -99,6 +104,204 @@ def allreduce_leaves(leaves, mesh, mean=True):
         out.append(red[off:off + g.numel()].reshape(g.shape))
         off += g.numel()
     return out
+
+
+# -- the bucket stream of ZeRO stages 0-2 -------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Bucket:
+    """A run of whole leaves exchanged together: ``leaf_ids`` index the
+    leaf list, ``sizes`` are their element counts, ``padded`` the
+    exchange length (the total rounded up to a multiple of the ranks;
+    the padding is zeros and reaches no leaf)."""
+    leaf_ids: Tuple[int, ...]
+    sizes: Tuple[int, ...]
+    padded: int
+
+    @property
+    def numel(self):
+        return int(sum(self.sizes))
+
+
+def plan_buckets(shapes, bucket_elems, axis_size):
+    """Greedy whole-leaf packing of ``shapes`` (in order) into buckets of
+    about ``bucket_elems`` elements: a bucket closes when the next leaf
+    would take it past the budget, so a leaf larger than the budget gets
+    a bucket of its own, and the last bucket holds what is left."""
+    bucket_elems = max(int(bucket_elems), 1)
+    buckets, ids, sizes, acc = [], [], [], 0
+    for i, shape in enumerate(shapes):
+        n = math.prod(tuple(shape) or (1,))
+        if ids and acc + n > bucket_elems:
+            buckets.append(_close_bucket(ids, sizes, axis_size))
+            ids, sizes, acc = [], [], 0
+        ids.append(i)
+        sizes.append(n)
+        acc += n
+    if ids:
+        buckets.append(_close_bucket(ids, sizes, axis_size))
+    return buckets
+
+
+def _close_bucket(ids, sizes, axis_size):
+    total = int(sum(sizes))
+    padded = -(-total // axis_size) * axis_size
+    return Bucket(tuple(ids), tuple(sizes), padded)
+
+
+def _pack_bucket(leaves, bucket, out=None):
+    """The bucket's leaves flattened into one fp32 buffer of ``padded``
+    elements (``out``, or a new tensor), the tail zeroed."""
+    if out is None:
+        out = torch.empty(bucket.padded, dtype=torch.float32,
+                          device=leaves[bucket.leaf_ids[0]].device)
+    off = 0
+    for i, sz in zip(bucket.leaf_ids, bucket.sizes):
+        out[off:off + sz].copy_(leaves[i].reshape(-1))
+        off += sz
+    out[off:].zero_()
+    return out
+
+
+def _unpack_bucket(flat, metas, bucket, out, dtype=None):
+    """Each leaf's elements of ``flat``, in the leaf's shape and dtype
+    (``metas[i]``: (shape, dtype)), or in ``dtype``."""
+    off = 0
+    for i, sz in zip(bucket.leaf_ids, bucket.sizes):
+        shape, leaf_dtype = metas[i]
+        out[i] = flat[off:off + sz].view(shape).to(dtype or leaf_dtype)
+        off += sz
+
+
+def _bucket_region(leaves, bucket, mesh):
+    """This rank's bucket as an [n, padded / n] fp32 region: a heap slot
+    on the card (written, then a barrier, so the peers may read it), a
+    tensor on the CPU."""
+    n = mesh.size
+    if mesh.heap is None:
+        return _pack_bucket(leaves, bucket).view(n, -1)
+    region = mesh.heap.slot(bucket.padded).view(n, -1)
+    _pack_bucket(leaves, bucket, region.view(-1))
+    mesh.barrier()
+    return region
+
+
+def _bucket_reduce_scatter(region, mesh):
+    """This rank's chunk of the bucket, summed over the ranks in the
+    ring's order: one ``mm_rs_reduce`` launch over the peers' views of
+    their regions on the card, its plain version over the regions
+    gathered by gloo on the CPU."""
+    if mesh.heap is None:
+        parts = mesh.all_gather(region)
+    else:
+        parts = mesh.heap.peer_views(region)
+    return kernels.mm_rs_reduce(parts, mesh.rank)
+
+
+def _bucket_all_gather(region, chunk, mesh):
+    """The reduced chunks of every rank in rank order, [padded] fp32. On
+    the card the chunk goes into row ``rank`` of this rank's region,
+    which no peer reads during the reduce (rank c reads row c of every
+    region), then a barrier, then each rank's row of its own region is
+    read; the next write of this slot comes two exchanges later, after
+    a barrier every peer's reads precede."""
+    if mesh.heap is None:
+        return torch.cat(mesh.all_gather(chunk))
+    region[mesh.rank].copy_(chunk)
+    mesh.barrier()
+    views = mesh.heap.peer_views(region)
+    return torch.cat([views[j][j] for j in range(mesh.size)])
+
+
+def bucket_stream(leaves, mesh, buckets, mean=True, dtype=None,
+                  consume=False):
+    """The bucket exchange one bucket at a time: yields (bucket, {leaf
+    id: the reduced leaf}) in plan order (see ``bucketed_allreduce``),
+    each leaf in its dtype or in ``dtype`` (the engine's fp32, as JAX's
+    leaves are after its accumulation). With ``consume`` each bucket's
+    entries of ``leaves`` are set to None once packed, so the local
+    gradients go as the stream goes; a reduced leaf is a view of its
+    bucket's buffer, which lives while a view does."""
+    n = mesh.size
+    metas = [(t.shape, t.dtype) for t in leaves]
+    for bucket in buckets:
+        if n == 1:
+            yield bucket, {i: leaves[i].to(dtype or leaves[i].dtype)
+                           for i in bucket.leaf_ids}
+            continue
+        region = _bucket_region(leaves, bucket, mesh)
+        if consume:
+            for i in bucket.leaf_ids:
+                leaves[i] = None
+        chunk = _bucket_reduce_scatter(region, mesh)
+        flat = _bucket_all_gather(region, chunk, mesh)
+        if mean:
+            flat.mul_(1.0 / n)
+        out = {}
+        _unpack_bucket(flat, metas, bucket, out, dtype)
+        yield bucket, out
+
+
+def bucketed_allreduce(leaves, mesh, bucket_elems, mean=True, buckets=None):
+    """The leaves (each rank's local gradients) summed over the ranks, or
+    their mean, as a stream of bucket exchanges (``:196``'s ring mode):
+    each bucket packed into fp32, reduce-scattered in the ring's order
+    and all-gathered, then times 1/n, and unpacked into each leaf's shape
+    and dtype. ``buckets``: the plan, when the
+    caller keeps it (default ``plan_buckets`` of the leaves). Returns the
+    list of reduced leaves."""
+    if not leaves or mesh.size == 1:
+        return list(leaves)
+    if buckets is None:
+        buckets = plan_buckets([t.shape for t in leaves], bucket_elems,
+                               mesh.size)
+    out = [None] * len(leaves)
+    for _, reduced in bucket_stream(leaves, mesh, buckets, mean):
+        for i, t in reduced.items():
+            out[i] = t
+    return out
+
+
+def all_gather_slices(leaves, plan, mesh, buckets):
+    """After a sharded update: every leaf ``i`` with ``plan[i] = (dim,
+    size)`` holds this rank's updated slice ``[rank * size, (rank + 1) *
+    size)`` on ``dim``; fill the other ranks' slices from theirs, in
+    place (JAX's tiled ``all_gather`` of the slices). One exchange a
+    bucket of ``buckets`` (the gradient plan's grouping of the leaves),
+    the slices packed in leaf order; leaves with no plan entry are
+    whole on every rank and not exchanged."""
+    n, rank = mesh.size, mesh.rank
+    if n == 1:
+        return leaves
+    for bucket in buckets:
+        ids = [i for i in bucket.leaf_ids if plan[i] is not None]
+        if not ids:
+            continue
+        own = [leaves[i].narrow(plan[i][0], rank * plan[i][1], plan[i][1])
+               for i in ids]
+        total = sum(t.numel() for t in own)
+        dtype = own[0].dtype
+        if mesh.heap is None:
+            buf = torch.cat([t.reshape(-1) for t in own])
+            parts = mesh.all_gather(buf)
+        else:
+            buf = mesh.heap.slot(total, dtype)
+            off = 0
+            for t in own:
+                buf[off:off + t.numel()].view(t.shape).copy_(t)
+                off += t.numel()
+            mesh.barrier()
+            parts = mesh.heap.peer_views(buf)
+        for j, part in enumerate(parts):
+            if j == rank:
+                continue
+            off = 0
+            for i, t in zip(ids, own):
+                d, size = plan[i]
+                leaves[i].narrow(d, j * size, size).copy_(
+                    part[off:off + t.numel()].view(t.shape))
+                off += t.numel()
+    return leaves
 
 
 # -- a layer's reduce-scatters as one exchange ---------------------------------

@@ -1,26 +1,38 @@
-"""Checkpoint save/load in the JAX package's single-process format.
+"""Checkpoint save/load in the JAX package's per-process format.
 
-Port of ``deepspeed_tpu/runtime/checkpointing.py`` for one rank: tag
-directories, the ``latest`` pointer file and the staged two-rename
-``commit_dir_swap`` (:255). A tag directory holds
+Port of ``deepspeed_tpu/runtime/checkpointing.py``: tag directories, the
+``latest`` pointer file and the staged two-rename ``commit_dir_swap``
+(:255). A tag directory holds, per rank r,
 
-  - ``model_states_shard_0.npz``  — the param tree's pieces,
-  - ``optim_states_shard_0.npz``  — optimizer state, scaler, counters,
-  - ``shard_index_0.json``        — for every piece: its tree path, npz
+  - ``model_states_shard_{r}.npz``  — the rank's pieces of the param tree,
+  - ``optim_states_shard_{r}.npz``  — of the optimizer state, scaler and
+    counters,
+  - ``shard_index_{r}.json``        — for every piece: its tree path, npz
     key, global shape, dtype string and index window,
-  - ``meta.json``                 — counters, scheduler and client state.
+
+and (rank 0) ``meta.json`` (counters, scheduler and client state, the
+world size). A leaf is a tensor (written whole, by rank 0) or ``Pieces``:
+the windows of a global leaf that the rank owns (its shards; a
+replicated leaf's whole window at rank 0 alone, JAX's replica 0). At
+world size n the ranks write into the staging directory that rank 0
+made, and rank 0 commits it after a barrier, once every rank's files are
+there (:280).
 
 Pieces are raw bytes (npz cannot carry bfloat16) with the dtype in the
 index (:113-139). Reading takes the union of every ``shard_index_*.json``
-and assembles each leaf's window with numpy on bytes, then views them
-through ``torch.uint8`` as the stored dtype, so no ``ml_dtypes`` is needed.
-Tree paths are the JAX names (the model's bridge maps them), so a
+and assembles any window of a leaf from the pieces that cover it, with
+numpy on bytes viewed through ``torch.uint8`` as the stored dtype (no
+``ml_dtypes``), so a save at n ranks restores at another n or on one
+rank. Tree paths are the JAX names (the model's bridge maps them), so a
 checkpoint the JAX engine wrote resumes here and this one resumes there.
 """
+
+import dataclasses
 
 import json
 import os
 import shutil
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -64,23 +76,39 @@ def _to_bytes(t):
         else np.zeros(0, np.uint8)
 
 
-def _save_trees(ckpt_dir, trees):
-    """trees: {file stem: nested dict of tensors}. One piece per leaf, the
-    whole window, as rank 0 of a one-process JAX save writes it."""
+@dataclasses.dataclass
+class Pieces:
+    """The windows of one global leaf that a rank writes: ``shape`` and
+    ``dtype`` of the leaf, ``windows`` a list of (start index, tensor)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    windows: List[tuple] = dataclasses.field(default_factory=list)
+
+
+def _save_trees(ckpt_dir, trees, rank=0):
+    """trees: {file stem: nested dict of tensors or ``Pieces``}: a tensor
+    is one piece, the whole window; ``Pieces`` one piece a window."""
     index = {}
     for stem, tree in trees.items():
         pieces = {}
         for path, leaf in _walk(tree):
-            key = f"{path}//0"
-            pieces[key] = _to_bytes(leaf)
+            if not isinstance(leaf, Pieces):
+                leaf = Pieces(tuple(leaf.shape), leaf.dtype,
+                              [((0,) * leaf.dim(), leaf)])
+            entries = []
+            for j, (start, t) in enumerate(leaf.windows):
+                key = f"{path}//{j}"
+                pieces[key] = _to_bytes(t)
+                entries.append({"key": key, "start": list(start),
+                                "stop": [a + b for a, b in
+                                         zip(start, t.shape)]})
             index[f"{stem}:{path}"] = {
-                "file": f"{stem}_shard_0.npz",
+                "file": f"{stem}_shard_{rank}.npz",
                 "shape": list(leaf.shape),
-                "dtype": _DTYPE_NAMES[leaf.dtype],
-                "pieces": [{"key": key, "start": [0] * leaf.dim(),
-                            "stop": list(leaf.shape)}]}
-        np.savez(os.path.join(ckpt_dir, f"{stem}_shard_0.npz"), **pieces)
-    with open(os.path.join(ckpt_dir, "shard_index_0.json"), "w") as f:
+                "dtype": _DTYPE_NAMES[leaf.dtype], "pieces": entries}
+        np.savez(os.path.join(ckpt_dir, f"{stem}_shard_{rank}.npz"),
+                 **pieces)
+    with open(os.path.join(ckpt_dir, f"shard_index_{rank}.json"), "w") as f:
         json.dump(index, f)
 
 
@@ -90,7 +118,7 @@ class ShardedCheckpoint:
     def __init__(self, ckpt_dir):
         self.ckpt_dir = ckpt_dir
         self.leaves = {}   # "stem:path" -> {shape, dtype, pieces}
-        self._files = {}
+        self._files, self._cache, self._cached_leaf = {}, {}, None
         names = sorted(f for f in os.listdir(ckpt_dir)
                        if f.startswith("shard_index_") and f.endswith(".json"))
         if not names:
@@ -107,34 +135,61 @@ class ShardedCheckpoint:
     def close(self):
         for f in self._files.values():
             f.close()
-        self._files = {}
+        self._files, self._cache, self._cached_leaf = {}, {}, None
 
     def _piece(self, file, key):
-        if file not in self._files:
-            self._files[file] = np.load(os.path.join(self.ckpt_dir, file),
-                                        allow_pickle=False)
-        return self._files[file][key]
+        """A piece's bytes; the pieces of the last leaf read stay cached,
+        so reading a stacked leaf's layers one by one loads each piece
+        once."""
+        if (file, key) not in self._cache:
+            if file not in self._files:
+                self._files[file] = np.load(
+                    os.path.join(self.ckpt_dir, file), allow_pickle=False)
+            self._cache[(file, key)] = self._files[file][key]
+        return self._cache[(file, key)]
+
+    def paths(self, stem):
+        """The nested dict of the tree's leaf paths (leaves True)."""
+        pre = f"{stem}:"
+        return _unflatten({full[len(pre):]: True for full in self.leaves
+                           if full.startswith(pre)})
 
     def read(self, full):
-        """One whole leaf as a CPU tensor of its stored dtype, assembled
-        from whichever pieces cover it (bytes, trailing axis of itemsize)."""
+        """One whole leaf as a CPU tensor of its stored dtype."""
+        shape = self.leaves[full]["shape"]
+        return self.window(full, (0,) * len(shape), shape)
+
+    def window(self, full, start, stop):
+        """The window [start, stop) of a leaf as a CPU tensor of its stored
+        dtype, assembled from whichever pieces overlap it (bytes, a
+        trailing axis of itemsize)."""
+        if full != self._cached_leaf:
+            self._cache, self._cached_leaf = {}, full
         info = self.leaves[full]
-        shape, dtype = info["shape"], _TORCH_DTYPES[info["dtype"]]
+        dtype = _TORCH_DTYPES[info["dtype"]]
         item = torch.empty((), dtype=dtype).element_size()
-        out = np.empty(list(shape) + [item], np.uint8)
+        dims = [b - a for a, b in zip(start, stop)]
+        out = np.empty(dims + [item], np.uint8)
         filled = 0
         for p in info["pieces"]:
-            dims = [b - a for a, b in zip(p["start"], p["stop"])]
-            src = np.asarray(self._piece(p["file"], p["key"]), np.uint8)
-            out[tuple(slice(a, b) for a, b in zip(p["start"], p["stop"]))] = \
-                src.reshape(dims + [item])
-            filled += int(np.prod(dims))
-        if filled != int(np.prod(shape)):
+            lo = [max(a, pa) for a, pa in zip(start, p["start"])]
+            hi = [min(b, pb) for b, pb in zip(stop, p["stop"])]
+            if any(a >= b for a, b in zip(lo, hi)):
+                continue
+            pdims = [b - a for a, b in zip(p["start"], p["stop"])]
+            src = np.asarray(self._piece(p["file"], p["key"]),
+                             np.uint8).reshape(pdims + [item])
+            out[tuple(slice(a - s, b - s) for a, b, s in
+                      zip(lo, hi, start))] = \
+                src[tuple(slice(a - s, b - s) for a, b, s in
+                          zip(lo, hi, p["start"]))]
+            filled += int(np.prod([b - a for a, b in zip(lo, hi)]))
+        if filled != int(np.prod(dims)):
             raise IOError(
                 f"checkpoint leaf {full} assembled {filled} of "
-                f"{int(np.prod(shape))} elements: shard files in "
+                f"{int(np.prod(dims))} elements: shard files in "
                 f"{self.ckpt_dir} are missing or duplicated")
-        return torch.from_numpy(out).view(dtype).reshape(shape)
+        return torch.from_numpy(out).view(dtype).reshape(dims)
 
     def tree(self, stem, skip=()):
         pre = f"{stem}:"
@@ -157,27 +212,40 @@ def commit_dir_swap(stage_dir, final_dir):
 
 
 def save_checkpoint(save_dir, tag, state, extra, save_latest=True,
-                    zero_stage=0):
+                    zero_stage=0, mesh=None):
     """``state``: {"params", "opt_state", "scaler", "global_step",
-    "skipped_steps"} with JAX-named nested dicts of tensors."""
+    "skipped_steps"} with JAX-named nested dicts of tensors or ``Pieces``
+    (this rank's; an entry a rank does not write is left out). ``mesh``:
+    the world, when every rank of it calls this (collective)."""
+    rank = 0 if mesh is None else mesh.rank
     final_dir = os.path.join(save_dir, str(tag))
     ckpt_dir = final_dir + ".saving"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if rank == 0:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        os.makedirs(ckpt_dir, exist_ok=True)
+    if mesh is not None:
+        mesh.barrier()
     _save_trees(ckpt_dir, {
         "model_states": {"params": state["params"]},
         "optim_states": {k: state[k] for k in
                          ("opt_state", "scaler", "global_step",
-                          "skipped_steps")}})
-    meta = dict(extra)
-    meta["zero_stage"] = zero_stage
-    meta["world_size"] = 1
-    with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
-        json.dump(meta, f, default=str)
-    commit_dir_swap(ckpt_dir, final_dir)
-    if save_latest:
-        with open(os.path.join(save_dir, LATEST_FILE), "w") as f:
-            f.write(str(tag))
+                          "skipped_steps") if k in state}}, rank)
+    # the commit waits for every rank's files, and no rank goes on (to a
+    # load of this tag, say) before the commit
+    if mesh is not None:
+        mesh.barrier()
+    if rank == 0:
+        meta = dict(extra)
+        meta["zero_stage"] = zero_stage
+        meta["world_size"] = 1 if mesh is None else mesh.size
+        with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
+            json.dump(meta, f, default=str)
+        commit_dir_swap(ckpt_dir, final_dir)
+        if save_latest:
+            with open(os.path.join(save_dir, LATEST_FILE), "w") as f:
+                f.write(str(tag))
+    if mesh is not None:
+        mesh.barrier()
 
 
 def read_latest_tag(load_dir):
@@ -213,19 +281,29 @@ def _load_meta(ckpt_dir):
     return meta
 
 
-def load_checkpoint(load_dir, tag=None, load_optimizer=True):
-    """({params, opt_state, scaler, global_step, skipped_steps} as nested
-    dicts of CPU tensors, meta), or None when there is nothing to load.
-    ``load_optimizer=False`` skips the optimizer state's bytes."""
+def open_checkpoint(load_dir, tag=None):
+    """(a ``ShardedCheckpoint`` reader over the tag's directory, its meta),
+    or None when there is nothing to load; the caller closes the
+    reader."""
     if tag is None:
         tag = read_latest_tag(load_dir)
         if tag is None:
             return None
     ckpt_dir = resolve_ckpt_dir(load_dir, tag)
     try:
-        reader = ShardedCheckpoint(ckpt_dir)
+        return ShardedCheckpoint(ckpt_dir), _load_meta(ckpt_dir)
     except (FileNotFoundError, NotADirectoryError):
         return None
+
+
+def load_checkpoint(load_dir, tag=None, load_optimizer=True):
+    """({params, opt_state, scaler, global_step, skipped_steps} as nested
+    dicts of CPU tensors, meta), or None when there is nothing to load.
+    ``load_optimizer=False`` skips the optimizer state's bytes."""
+    opened = open_checkpoint(load_dir, tag)
+    if opened is None:
+        return None
+    reader, meta = opened
     try:
         state = reader.tree("model_states")
         state.update(reader.tree(
@@ -233,4 +311,4 @@ def load_checkpoint(load_dir, tag=None, load_optimizer=True):
     finally:
         reader.close()
     state.setdefault("opt_state", {})
-    return state, _load_meta(ckpt_dir)
+    return state, meta

@@ -26,8 +26,26 @@ to the host; the loss is read back only every ``steps_per_print`` steps,
 where the JAX engine reads it too. ZeRO stages 0-3 run at world size 1
 with nothing partitioned, as the JAX engine does on a 1-device mesh.
 
-At world size n > 1 (a ``parallel.mesh.Mesh`` of n ranks) the engine runs
-ZeRO stage 3 with ``stage3_prefetch``: the JAX engine's
+At world size n > 1 (a ``parallel.mesh.Mesh`` of n ranks) ZeRO stages 0-2
+run the JAX engine's explicit form of them, ``_build_overlap_train_fn``
+(:1840) in its ring form, whatever ``overlap_comm`` and
+``overlap_reduce`` say: JAX runs ``overlap_comm: false`` on its fused
+GSPMD exchange and ``overlap_reduce: "fused"`` on ``lax.psum``, which
+compute the same function (they tune XLA's collectives on TPU
+interconnects), and the port has this one form of it. Each rank holds the fp32 masters and the
+compute copy whole (replicated), and the AdamW moments of its slice of
+every leaf (``ZeroPartitioner.explicit_shard_plan``; a leaf the moment
+specs leave whole steps whole on every rank). A step takes the rank's
+rows of the global batch, accumulates its local gradients over the micro
+batches, exchanges them as a stream of buckets (``parallel/overlap.py``
+``bucket_stream``: on the card one ``mm_rs_reduce`` launch a bucket over
+the peers' heap regions), takes the loss mean, the fp16 finite check,
+the global norm and the clip coefficient, steps the rank's slices,
+all-gathers the updated slices back into the masters and refreshes the
+compute copy. ``forward``/``backward``/``step``, ``eval_batch`` and the
+per-rank checkpoints run there too.
+
+ZeRO stage 3 at world size n needs ``stage3_prefetch``: the JAX engine's
 ``_build_prefetch_train_fn`` (:2033). Each rank keeps its shard of every
 leaf the stage-3 specs cut (``runtime/zero/partition.py``) as fp32
 masters with its AdamW moments; the compute copy of the shards lives in
@@ -147,6 +165,15 @@ class DeepSpeedEngine:
         else:
             raise TypeError("optimizer must be a deepspeed_tpu_torch "
                             "TorchOptimizer (ops/adam.py FusedAdam)")
+        if self.mesh is not None and not getattr(
+                self.optimizer, "elementwise_update", False):
+            # JAX falls back to its GSPMD exchange here, which the port
+            # does not have
+            raise NotImplementedError(
+                f"{type(self.optimizer).__name__} is not elementwise: the "
+                f"per-rank ZeRO update slices leaves, which breaks its "
+                f"per-tensor statistics; not ported at world size "
+                f"{self.mesh.size} ({ROADMAP_MULTI_RANK})")
         if lr_scheduler is not None:
             self.lr_scheduler = lr_scheduler
         elif self._config.scheduler_name:
@@ -232,10 +259,13 @@ class DeepSpeedEngine:
         self._last_grad_norm = None
         self._loss_fn = None
         self._moq_batch = None
+        self.world_marks = None
         if self.mesh is None:
             self._init_state(model_parameters)
-        else:
+        elif self._prefetch_active():
             self._init_zero3_state(model_parameters)
+        else:
+            self._init_world_state(model_parameters)
         # MoQ's stochastic rounding and the eigenvalues' start vectors
         self.generator = torch.Generator(device=self.device).manual_seed(
             self._seed)
@@ -313,11 +343,7 @@ class DeepSpeedEngine:
         if self._offload_cfg.enabled:
             self._init_offload_state(params)
         else:
-            self.master = [p.data for p in params]
-            if self._bf16_grads:
-                for p in params:
-                    p.data = p.data.to(torch.bfloat16)
-            self.compute_params = params
+            self._keep_masters(params)
             self.opt_state = self.optimizer.init(self.master)
         # the first park fills the parameter tier, after the first step
         tier = self._config.zero_config.offload_param.device
@@ -328,8 +354,18 @@ class DeepSpeedEngine:
                 HostParamRest
             self._param_host = HostParamRest(self.device)
 
+    def _keep_masters(self, params):
+        """The placed parameters' fp32 data become the masters; the
+        parameters themselves the compute copy (bf16 with grad_dtype
+        bf16, else the masters)."""
+        self.master = [p.data for p in params]
+        if self._bf16_grads:
+            for p in params:
+                p.data = p.data.to(torch.bfloat16)
+        self.compute_params = params
+
     def _refresh_compute_params(self):
-        if self.mesh is not None:
+        if self._prefetch_active():
             return self._refresh_zero3()
         if self._host_runner is not None:
             return      # the offload step writes the compute copy itself
@@ -437,7 +473,7 @@ class DeepSpeedEngine:
             else:
                 torch._foreach_add_(acc, part)
             acc_loss = acc_loss + loss / gas
-        return acc, acc_loss
+        return list(acc), acc_loss
 
     # -- the update ----------------------------------------------------------
     def _lr(self):
@@ -525,6 +561,10 @@ class DeepSpeedEngine:
         self._ensure_params_resident()
         if self._host_runner is not None:
             metrics = self._offload_train_batch(batch)
+        elif self.mesh is not None and not self._prefetch_active():
+            grads, loss = self._accumulate_grads(self._rank_rows(batch))
+            metrics = self._world_apply_grads(grads, loss)
+            del grads
         else:
             if self._prefetch_active():
                 grads, loss, sq_norm = self._zero3_grads(batch)
@@ -542,32 +582,43 @@ class DeepSpeedEngine:
 
     def forward(self, batch):
         """Loss and gradients of one micro batch, kept for
-        ``backward``/``step`` (engine.py:3229)."""
+        ``backward``/``step`` (engine.py:3229). At world size n the rank
+        takes its rows of the micro batch and keeps its local gradients;
+        the loss returned is the mean over the ranks, the micro batch's
+        loss as JAX returns it."""
         self._one_rank_only("forward/backward/step")
         self._ensure_params_resident()
         batch = self._to_device(batch)
-        loss, grads = self._micro_loss_and_grads(batch)
-        self._pending_micro = (loss, grads)
+        if self.mesh is None:
+            loss, grads = self._micro_loss_and_grads(batch)
+            self._pending_micro = (loss, grads, loss)
+        else:
+            loss, grads = self._micro_loss_and_grads(self._rank_rows(batch))
+            mean = overlap.all_reduce(loss.reshape(1), self.mesh,
+                                      mean=True)[0]
+            self._pending_micro = (loss, grads, mean)
+            loss = mean
         self._moq_batch = batch   # the last micro batch, for eigenvalues
         return loss
 
     __call__ = forward
 
     def backward(self, loss=None):
-        """Accumulate the kept micro gradients in fp32, divided by gas."""
+        """Accumulate the kept micro gradients in fp32, divided by gas (at
+        world size n the rank's local ones: ``step`` exchanges them)."""
         self._one_rank_only("forward/backward/step")
         if self._pending_micro is None:
             raise AssertionError("forward() must precede backward()")
-        mloss, grads = self._pending_micro
+        local, grads, mloss = self._pending_micro
         self._pending_micro = None
         gas = self.gradient_accumulation_steps()
         scaled = torch._foreach_div([g.float() for g in grads], gas)
         if self._pending_grads is None:
             self._pending_grads = scaled
-            self._accum_loss = mloss / gas
+            self._accum_loss = local / gas
         else:
             torch._foreach_add_(self._pending_grads, scaled)
-            self._accum_loss = self._accum_loss + mloss / gas
+            self._accum_loss = self._accum_loss + local / gas
         self.micro_steps += 1
         return loss if loss is not None else mloss
 
@@ -581,6 +632,9 @@ class DeepSpeedEngine:
         if self._host_runner is not None:
             metrics = self._offload_apply_grads(self._pending_grads,
                                                 self._accum_loss)
+        elif self.mesh is not None:
+            metrics = self._world_apply_grads(self._pending_grads,
+                                              self._accum_loss)
         else:
             metrics = self._apply_grads(self._pending_grads,
                                         self._accum_loss)
@@ -862,46 +916,150 @@ class DeepSpeedEngine:
                     park=park)
             return self._end_update(loss, norm, lr, fin_t)
 
-    # -- ZeRO-3 with the prefetch pipeline at world size n --------------------
+    # -- ZeRO stages 0-2 at world size n ------------------------------------
     def _one_rank_only(self, what):
-        if self.mesh is not None:
+        if self._prefetch_active():
             raise NotImplementedError(
-                f"{what} at world size {self.mesh.size} is not ported; the "
-                f"port trains there through train_batch "
-                f"({ROADMAP_MULTI_RANK})")
+                f"{what} on the ZeRO-3 prefetch path at world size "
+                f"{self.mesh.size} is not ported; it trains there through "
+                f"train_batch ({ROADMAP_MULTI_RANK})")
 
     def _check_world_path(self):
-        """What the n-rank path runs: ZeRO stage 3 with stage3_prefetch
-        (``_compute_prefetch`` :1971, whose fallbacks, the fused GSPMD
-        exchange, the port does not have), an elementwise optimizer, the
-        model's layered-apply contract, the default loss, bf16 or fp32."""
+        """What the n-rank paths run. Stages 0-2: any model, a user
+        ``loss_fn``, fp16 or bf16 (``_compute_overlap_comm`` :1798); the
+        optimizer must be elementwise (checked once it is built). Stage 3:
+        ``stage3_prefetch`` (``_compute_prefetch`` :1971, whose fallback,
+        the fused GSPMD exchange, the port does not have), the model's
+        layered-apply contract, the default loss, bf16 or fp32. MoQ and
+        its eigenvalues quantize whole leaves on one rank: refused."""
         n, zc = self.mesh.size, self._config.zero_config
         why = None
-        if zc.stage != 3 or not zc.stage3_prefetch:
-            why = (f"at world size {n} the port runs ZeRO stage 3 with "
-                   f"stage3_prefetch alone (got stage {zc.stage}, "
-                   f"stage3_prefetch {zc.stage3_prefetch})")
+        if self._config.quantize_training_config.enabled:
+            why = (f"MoQ (quantize_training, its eigenvalues) at world size "
+                   f"{n}")
+        elif zc.stage < 3:
+            pass
+        elif not zc.stage3_prefetch:
+            why = (f"ZeRO stage 3 at world size {n} without stage3_prefetch "
+                   f"(the port runs stage 3 through the prefetch pipeline "
+                   f"alone)")
         elif not (getattr(self.module, "prefetch_layer_subtree", None)
                   and hasattr(self.module, "prefetch_apply")):
             why = (f"{type(self.module).__name__} does not expose the "
                    f"layered-apply contract (prefetch_apply + a "
                    f"prefetch_layer_subtree)")
         elif self._loss_fn_user is not None:
-            why = "a custom loss_fn drives the model itself"
+            why = "a custom loss_fn on the ZeRO-3 prefetch path"
         elif self._config.fp16_enabled:
-            why = "fp16 loss scaling across ranks"
-        elif self._config.quantize_training_config.enabled:
-            why = "MoQ quantizes whole leaves, and a rank holds shards"
+            why = "fp16 loss scaling on the ZeRO-3 prefetch path"
         if why is not None:
             raise NotImplementedError(f"{why}: not ported "
                                       f"({ROADMAP_MULTI_RANK})")
 
     def _prefetch_active(self):
         """True when train_batch runs the stage-3 prefetch pipeline: a
-        world of more than one rank (``_prefetch_active`` :1960; at world
-        size 1 nothing is sharded and the plain path is the program)."""
-        return self.mesh is not None
+        world of more than one rank at ZeRO stage 3 (``_prefetch_active``
+        :1960; at world size 1 nothing is sharded and the plain path is
+        the program; stages 0-2 run the bucket stream)."""
+        return self.mesh is not None and \
+            self._config.zero_optimization_stage == 3
 
+    def _rank_rows(self, batch):
+        """This rank's rows of the global batch: the r-th of n equal
+        parts of every leaf's leading dimension."""
+        n, r = self.mesh.size, self.mesh.rank
+        return _map(lambda x: x[r * (x.shape[0] // n):
+                                (r + 1) * (x.shape[0] // n)],
+                    self._rows_divisible(batch, n))
+
+    def _init_world_state(self, model_parameters=None):
+        """ZeRO stages 0-2 at world size n (``_build_overlap_train_fn``
+        :1840): the model placed and initialized as on one rank (the
+        same seed on every rank, so the same weights), the fp32 masters
+        and the compute copy whole, the moments of this rank's slices
+        (``explicit_shard_plan`` of the moment specs; the persistence
+        threshold is stage 3's alone, as in JAX), the bucket plan over the
+        leaves in order, and on the card a symmetric heap whose two
+        exchange slots hold the largest bucket."""
+        mesh, zc = self.mesh, self._config.zero_config
+        n = mesh.size
+        self._keep_masters(self._place_model(model_parameters))
+        shapes = {k: tuple(m.shape) for k, m in
+                  zip(self.param_names, self.master)}
+        self._plan = ZeroPartitioner(n, zc.stage).explicit_shard_plan(shapes)
+        self._entries = {k: None for k in self.param_names}
+        self._moment_entries = dict(zip(self.param_names, self._plan))
+        self.opt_state = self.optimizer.init(
+            self._own_slices(self.master))
+        total = sum(m.numel() for m in self.master)
+        bucket = zc.reduce_bucket_size if zc.reduce_bucket_size > 0 \
+            else total
+        self._buckets = overlap.plan_buckets(
+            [m.shape for m in self.master], bucket, n)
+        if mesh.device.type == "cuda":
+            SymmetricHeap(mesh, {}, 4 * max(b.padded for b in self._buckets))
+
+    def _own_slices(self, tensors, plan=None):
+        """This rank's slice of each leaf (a view; whole where the plan,
+        default the engine's, has no entry)."""
+        r = self.mesh.rank
+        return [t if e is None else t.narrow(e[0], r * e[1], e[1])
+                for t, e in zip(tensors, self._plan if plan is None
+                                else plan)]
+
+    def _world_apply_grads(self, grads, loss):
+        """The n-rank update of stages 0-2 (``_build_overlap_train_fn``'s
+        step): ``grads`` are this rank's local gradients (of the loss
+        times the loss scale; the list is consumed bucket by bucket) and
+        ``loss`` its local loss. The bucket stream gives every rank the
+        fp32 mean gradients (JAX's leaves are fp32 after its
+        accumulation); of each bucket the rank keeps its leaves' norms,
+        their finite flags and its slices, and lets the rest go. Then the
+        loss mean, the global norm and the one coefficient that unscales
+        and clips, the optimizer step on this rank's slices, and the
+        updated slices all-gathered back into the masters. On an fp16
+        overflow every rank sees the same non-finite mean and skips. On
+        the card ``world_marks`` keeps CUDA events at the step's four
+        points (start, exchanged, updated, gathered)."""
+        mesh = self.mesh
+        marks = [self._mark()]
+        fp16 = self.precision.fp16
+        if not isinstance(grads, list):
+            grads = list(grads)
+        with torch.no_grad():
+            norms, own, flags = [None] * len(grads), [None] * len(grads), []
+            for bucket, reduced in overlap.bucket_stream(
+                    grads, mesh, self._buckets, dtype=torch.float32,
+                    consume=True):
+                ids = bucket.leaf_ids
+                leaves = [reduced[i] for i in ids]
+                for i, t in zip(ids, torch._foreach_norm(
+                        leaves, 2, dtype=torch.float32)):
+                    norms[i] = t
+                if fp16:
+                    flags.append(prec.grads_finite(leaves))
+                for i, t in zip(ids, self._own_slices(
+                        leaves, [self._plan[i] for i in ids])):
+                    own[i] = t.clone()
+                del reduced, leaves
+            loss = overlap.all_reduce(loss.reshape(1), mesh, mean=True)[0]
+            marks.append(self._mark())
+            finite = torch.stack(flags).all() if fp16 else None
+            sq_norm = torch.stack(norms).square().sum()
+            grad_norm, gscale = self._clip_coefficient(own, sq_norm)
+            lr = self._lr()
+            self.optimizer.step(self._own_slices(self.master), own,
+                                self.opt_state, lr, grad_scale=gscale,
+                                finite=finite)
+            del own
+            marks.append(self._mark())
+            overlap.all_gather_slices(self.master, self._plan, mesh,
+                                      self._buckets)
+            marks.append(self._mark())
+        self.world_marks = None if marks[0] is None else marks
+        return self._end_update(loss, grad_norm, lr, finite)
+
+    # -- ZeRO-3 with the prefetch pipeline at world size n --------------------
     def _init_zero3_state(self, model_parameters=None):
         """The full model placed and initialized as on one rank, then cut
         to this rank's shards: fp32 masters, AdamW moments and the
@@ -925,7 +1083,8 @@ class DeepSpeedEngine:
                 named[f"{sub}.0.{leaf}"].shape)
         zero = ZeroPartitioner(n, 3, zc.param_persistence_threshold)
         zero.layer_stacked_prefixes = (sub,)
-        plan = dict(zip(shapes, zero.explicit_shard_plan(shapes)))
+        plan = dict(zip(shapes, zero.explicit_shard_plan(
+            shapes, zero.param_specs(shapes))))
         self._layer_plan = [plan[f"{sub}/{leaf}"] for leaf in leaves]
         self._outer_names = [k for k in shapes if "/" not in k]
         self._layer_leaves, self._n_layer, self._subtree = leaves, L, sub
@@ -959,6 +1118,7 @@ class DeepSpeedEngine:
         self.compute_params = self._zero3_compute_copy(cdt)
         for p in model.parameters():
             p.data = torch.empty(0, dtype=p.dtype, device=dev)
+        self._moment_entries = self._entries
         self.opt_state = self.optimizer.init(self.master)
         self._record_prefetch_stats(shapes, plan, cdt)
         self._refresh_zero3()
@@ -1157,10 +1317,8 @@ class DeepSpeedEngine:
                                         keep_prob=keep, labels=labels)
 
         def fn(batch):
-            local = _map(lambda x: x[mesh.rank * (x.shape[0] // n):
-                                     (mesh.rank + 1) * (x.shape[0] // n)],
-                         self._rows_divisible(batch, n))
-            grads, loss = self._accumulate_grads(local, micro_loss)
+            grads, loss = self._accumulate_grads(self._rank_rows(batch),
+                                                 micro_loss)
             with torch.no_grad():
                 acc = [g.float() for g in grads]
                 for i in sharded:
@@ -1185,7 +1343,8 @@ class DeepSpeedEngine:
 
     def gather_master(self):
         """Every leaf's fp32 master, gathered whole, by name, on the CPU
-        (collective: every rank calls it)."""
+        (collective on the ZeRO-3 path: every rank calls it; stages 0-2
+        hold the masters whole)."""
         out = {}
         if self.mesh is None:
             self._ensure_params_resident()
@@ -1216,7 +1375,8 @@ class DeepSpeedEngine:
             return
         self._zero3_grads = None
         if self.mesh.heap is not None:
-            self.compute_params = None
+            if self._prefetch_active():
+                self.compute_params = None
             self.mesh.heap.close()
 
 
@@ -1224,7 +1384,9 @@ class DeepSpeedEngine:
         self._pending_grads = None
 
     def eval_batch(self, batch):
-        """The model's output (logits) for the batch's inputs."""
+        """The model's output (logits) for the batch's inputs (at world
+        size n, stages 0-2, the whole batch's on every rank: the
+        parameters are replicated)."""
         self._one_rank_only("eval_batch")
         self._ensure_params_resident()
         batch = self._to_device(batch)
@@ -1270,7 +1432,8 @@ class DeepSpeedEngine:
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True):
-        self._one_rank_only("save_checkpoint")
+        """Write the tag's directory (``engine.py:3891``); at world size n
+        collective, each rank writing the pieces it owns."""
         self._ensure_params_resident()
         tag = tag or f"global_step{self.global_steps}"
         self.skipped_steps = int(self.skipped_steps_t)
@@ -1281,6 +1444,12 @@ class DeepSpeedEngine:
                  "client_state": client_state or {}}
         if isinstance(self.lr_scheduler, _Schedule):
             extra["lr_scheduler"] = self.lr_scheduler.state_dict()
+        if self.mesh is not None:
+            ckpt.save_checkpoint(save_dir, tag, self._world_state(), extra,
+                                 save_latest=save_latest,
+                                 zero_stage=self.zero_optimization_stage(),
+                                 mesh=self.mesh)
+            return True
         if self._host_runner is not None:
             # the fp32 masters and moments from the host, not the compute
             # copy on the card (engine.py:3900)
@@ -1306,15 +1475,36 @@ class DeepSpeedEngine:
     def load_checkpoint(self, load_dir, tag=None, load_module_only=False,
                         load_optimizer_states=True,
                         load_lr_scheduler_states=True):
-        """(tag, client_state), or (None, {}) when nothing is found."""
-        self._one_rank_only("load_checkpoint")
+        """(tag, client_state), or (None, {}) when nothing is found. At
+        world size n each rank reads the windows it holds from the union
+        of the shard files, whatever world wrote them."""
         want_opt = load_optimizer_states and not load_module_only
-        loaded = ckpt.load_checkpoint(load_dir, tag, load_optimizer=want_opt)
-        if loaded is None:
-            logger.warning(f"Unable to find checkpoint in {load_dir}, "
-                           f"tag={tag}")
-            return None, {}
-        state, extra = loaded
+        if self.mesh is not None:
+            opened = ckpt.open_checkpoint(load_dir, tag)
+            if opened is None:
+                logger.warning(f"Unable to find checkpoint in {load_dir}, "
+                               f"tag={tag}")
+                return None, {}
+            reader, extra = opened
+            try:
+                state = self._adopt_world_state(reader, want_opt)
+            finally:
+                reader.close()
+        else:
+            loaded = ckpt.load_checkpoint(load_dir, tag,
+                                          load_optimizer=want_opt)
+            if loaded is None:
+                logger.warning(f"Unable to find checkpoint in {load_dir}, "
+                               f"tag={tag}")
+                return None, {}
+            state, extra = loaded
+            self._adopt_loaded_state(state, want_opt)
+        return self._adopt_counters(state, extra, load_lr_scheduler_states,
+                                    tag or ckpt.read_latest_tag(load_dir))
+
+    def _adopt_loaded_state(self, state, want_opt):
+        """One rank: the loaded trees (``ckpt.load_checkpoint``) into the
+        masters, the optimizer state and the compute copy."""
         dev = self.device
         # the loaded weights replace resident ones; the next park writes
         # the tier from them (engine.py:4040)
@@ -1334,6 +1524,11 @@ class DeepSpeedEngine:
                         else:
                             self.opt_state[k] = v.to(dev)
                 self._refresh_compute_params()
+
+    def _adopt_counters(self, state, extra, load_lr, tag):
+        """The scaler, the device and host counters and the scheduler
+        from a loaded checkpoint; returns (tag, client_state)."""
+        dev = self.device
         self.scaler = {k: v.to(dev) for k, v in state["scaler"].items()}
         self.global_step_t = state["global_step"].to(dev)
         self.skipped_steps_t = state["skipped_steps"].to(dev)
@@ -1341,12 +1536,107 @@ class DeepSpeedEngine:
         self.micro_steps = extra.get("micro_steps", 0)
         self.global_samples = extra.get("global_samples", 0)
         self.skipped_steps = extra.get("skipped_steps", 0)
-        if load_lr_scheduler_states and isinstance(self.lr_scheduler,
-                                                   _Schedule) \
+        if load_lr and isinstance(self.lr_scheduler, _Schedule) \
                 and "lr_scheduler" in extra:
             self.lr_scheduler.load_state_dict(extra["lr_scheduler"])
-        return tag or ckpt.read_latest_tag(load_dir), \
-            extra.get("client_state", {})
+        return tag, extra.get("client_state", {})
+
+    # -- checkpoints at world size n (``checkpointing.py:280``, ``:369``) ----
+    def _world_pieces(self, tensors, entries):
+        """This rank's pieces of ``tensors`` (what the rank holds of each
+        leaf: the whole leaf where its entry is None, else its shard
+        ``(dim, size)``) as the JAX-named tree of ``ckpt.Pieces``: a
+        shard's window at its offset in the global leaf, a whole leaf
+        from rank 0 alone (JAX's replica 0); a layer of a layer-stacked
+        leaf is its [1, ...] window."""
+        n, r = self.mesh.size, self.mesh.rank
+        paths = self._bridge().jax_paths()
+        depth = {}
+        for path, layer in paths.values():
+            if layer is not None:
+                depth[path] = max(depth.get(path, 0), layer + 1)
+        root = {}
+        for name, t in zip(self.param_names, tensors):
+            path, layer = paths[name]
+            e = entries[name]
+            if e is None and r != 0:
+                continue
+            shape, start = list(t.shape), [0] * t.dim()
+            if e is not None:
+                shape[e[0]], start[e[0]] = e[1] * n, r * e[1]
+            win = t.detach().cpu()
+            if layer is not None:
+                shape, start = [depth[path]] + shape, [layer] + start
+                win = win[None]
+            node = root
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            leaf = node.setdefault(path[-1], ckpt.Pieces(tuple(shape),
+                                                         t.dtype))
+            leaf.windows.append((tuple(start), win))
+        return root
+
+    def _world_state(self):
+        """The state trees this rank writes: the masters' and the moments'
+        pieces (the moments cut as the moment specs cut them); the
+        optimizer's counters, the scaler and the step counters from
+        rank 0 alone."""
+        like = self.optimizer.param_like_state_fields
+        opt = {k: self._world_pieces(v, self._moment_entries)
+               for k, v in self.opt_state.items() if k in like}
+        state = {"params": self._world_pieces(self.master, self._entries),
+                 "opt_state": opt}
+        if self.mesh.rank == 0:
+            opt.update({k: v.cpu() for k, v in self.opt_state.items()
+                        if k not in like})
+            state.update(scaler={k: v.cpu() for k, v in self.scaler.items()},
+                         global_step=self.global_step_t.cpu(),
+                         skipped_steps=self.skipped_steps_t.cpu())
+        return state
+
+    def _adopt_world_state(self, reader, want_opt):
+        """Each leaf's window this rank holds (whole, or its shard) read
+        from ``reader`` into the masters and, with ``want_opt``, the
+        moments, the compute copy refreshed; the checkpoint's layer
+        layout (stacked or unrolled) from its tree. Leaves are read path
+        by path, so a stacked leaf's pieces load once. Returns the small
+        trees (scaler, counters)."""
+        r, bridge = self.mesh.rank, self._bridge()
+        paths = bridge.jax_paths(bridge.scan_tree(
+            reader.paths("model_states")["params"]))
+        order = sorted(range(len(self.param_names)),
+                       key=lambda i: paths[self.param_names[i]][0])
+
+        def fill(prefix, tensors, entries):
+            for i in order:
+                name, t = self.param_names[i], tensors[i]
+                path, layer = paths[name]
+                start, stop = [0] * t.dim(), list(t.shape)
+                e = entries[name]
+                if e is not None:
+                    start[e[0]], stop[e[0]] = r * e[1], (r + 1) * e[1]
+                if layer is not None:
+                    start, stop = [layer] + start, [layer + 1] + stop
+                w = reader.window(f"{prefix}/{'/'.join(path)}", start, stop)
+                t.copy_(w[0] if layer is not None else w)
+
+        like = self.optimizer.param_like_state_fields
+        with torch.no_grad():
+            fill("model_states:params", self.master, self._entries)
+            if want_opt:
+                for k in self.opt_state:
+                    if k in like:
+                        fill(f"optim_states:opt_state/{k}",
+                             self.opt_state[k], self._moment_entries)
+                    else:
+                        self.opt_state[k] = reader.read(
+                            f"optim_states:opt_state/{k}").to(self.device)
+            self._refresh_compute_params()
+        small = reader.paths("optim_states")
+        return {"scaler": {k: reader.read(f"optim_states:scaler/{k}")
+                           for k in small["scaler"]},
+                "global_step": reader.read("optim_states:global_step"),
+                "skipped_steps": reader.read("optim_states:skipped_steps")}
 
     def _adopt_loaded_state_offload(self, state, want_opt):
         """``_adopt_loaded_state_offload`` (:4282): the loaded fp32

@@ -1,7 +1,9 @@
-"""ZeRO stage 3's shard choice, for the port.
+"""ZeRO's shard choice, for the port.
 
 Port of ``deepspeed_tpu/runtime/zero/partition.py``: ``shard_spec_for_leaf``
-(:41) and the stage-3 part of ``ZeroPartitioner`` (:69). A leaf is cut on
+(:41) and ``ZeroPartitioner`` (:69): stage 3 cuts parameters at rest,
+stage 2 and up cuts gradients, stage 1 and up the optimizer's moments,
+each with the same data-axis rule. A leaf is cut on
 the data axis along its largest free dimension that the axis size
 divides; on a tie the lower dimension wins (Python's sort is stable with
 ``reverse=True``, as JAX's is). A leaf below ``min_size`` elements, or
@@ -64,10 +66,11 @@ def plan_from_specs(shapes, specs, axis_name, n):
 
 
 class ZeroPartitioner:
-    """Stage-3 resting specs for a dict of leaf shapes ({name: shape}).
-    Names are '/'-joined paths; a name whose first part is in
+    """Data-axis specs for a dict of leaf shapes ({name: shape}) at a ZeRO
+    stage. Names are '/'-joined paths; a name whose first part is in
     ``layer_stacked_prefixes`` is a layer-stacked leaf ([L, ...]) whose
-    layer dimension is never cut."""
+    layer dimension is never cut. The JAX engine passes the persistence
+    threshold at stage 3 alone (``engine.py:213``); its callers do too."""
 
     def __init__(self, dp, stage, param_persistence_threshold=0):
         if not 0 <= stage <= 3:
@@ -83,15 +86,30 @@ class ZeroPartitioner:
         return shard_spec_for_leaf(shape, self.dp, min_size=self.min_size,
                                    exclude_dims=exclude)
 
-    def param_specs(self, shapes):
-        """Stage 3 shards parameters at rest; stages 0-2 keep them whole."""
-        if self.stage < 3:
+    def _specs(self, shapes, from_stage):
+        if self.stage < from_stage:
             return {k: (None,) * len(s) for k, s in shapes.items()}
         return {k: self._zero_spec(k, s) for k, s in shapes.items()}
 
+    def param_specs(self, shapes):
+        """Stage 3 shards parameters at rest; stages 0-2 keep them whole."""
+        return self._specs(shapes, 3)
+
+    def grad_specs(self, shapes):
+        """Stage >= 2: gradients sharded (a reduce-scatter); else whole."""
+        return self._specs(shapes, 2)
+
+    def opt_param_like_specs(self, shapes):
+        """Stage >= 1: the moments sharded as stage-3 parameters are."""
+        return self._specs(shapes, 1)
+
     def explicit_shard_plan(self, shapes, specs=None):
-        """[(dim, shard_size) or None] aligned with ``shapes``' order."""
-        specs = self.param_specs(shapes) if specs is None else specs
+        """[(dim, shard_size) or None] aligned with ``shapes``' order: the
+        slice of each leaf whose update a rank owns (its moment shard),
+        None for a leaf every rank updates whole (``:180``). ``specs``
+        overrides the moment specs (the stage-3 prefetch path passes its
+        parameter specs, so the plan is the resting layout)."""
+        specs = self.opt_param_like_specs(shapes) if specs is None else specs
         return plan_from_specs(list(shapes.values()),
                                [specs[k] for k in shapes], DATA_AXIS,
                                self.dp)

@@ -166,14 +166,17 @@ def test_what_the_n_rank_path_does_not_run_raises_naming_roadmap():
     with pytest.raises(DeepSpeedConfigError, match="mesh.data 4"):
         DeepSpeedConfig({"train_batch_size": 8, "mesh": {"data": 4}},
                         world_size=2)
-    # a world of two ranks without stage-3 prefetch: the engine refuses
-    # before any collective
+    # a world of two ranks at stage 3 without prefetch, or with MoQ at
+    # stage 2: the engine refuses before any collective
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models import gpt2
-    for z in ({"stage": 3}, {"stage": 2}):
+    moq = {"enabled": True, "quantize_bits": {"start_bits": 16,
+                                              "target_bits": 8}}
+    for cfg in ({"zero_optimization": {"stage": 3}},
+                {"zero_optimization": {"stage": 2},
+                 "quantize_training": moq}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            ds.initialize(config={"train_batch_size": 8,
-                                  "zero_optimization": z},
+            ds.initialize(config=dict(cfg, train_batch_size=8),
                           model=gpt2.GPT2LMHeadModel(gpt2.gpt2_tiny()),
                           mesh=Mesh(2, 0, "cpu"))
 
@@ -279,7 +282,8 @@ def test_n_rank_trajectories_match_the_jax_stage3_baseline(n):
         assert stats["fused_leaves_per_layer"] == (4 if fused else 0), mode
         assert stats["layers"] == 2
         assert (stats["fused_stream_bytes"] > 0) == fused
-        # checkpoints at world size n are not ported: they raise
+        # forward/backward/step on the prefetch path are not ported: they
+        # raise
         assert refused, mode
     # every rank reports the same all-reduced losses
     for rank_result in results[1:]:

@@ -9,8 +9,9 @@ def train_modes(rank, world, cfgs, state, batches):
     """For each (mode, ds_config) in ``cfgs``: the tiny GPT-2 from the
     ``state`` dict (numpy), ``train_batch`` over ``batches``; returns
     {mode: (losses, gathered fp32 params by name (rank 0), stats, whether
-    save_checkpoint refused, whether the closed engine was freed at its
-    last reference)}."""
+    forward refused (forward/backward/step are not ported on the prefetch
+    path), whether the closed engine was freed at its last
+    reference)}."""
     import weakref
 
     import deepspeed_tpu_torch as ds
@@ -29,7 +30,7 @@ def train_modes(rank, world, cfgs, state, batches):
         full = engine.gather_master()
         stats = dict(engine.prefetch_live_param_stats())
         try:
-            engine.save_checkpoint("unused")
+            engine.forward(batches[0])
             refused = False
         except NotImplementedError:
             refused = True
