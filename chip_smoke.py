@@ -5,8 +5,8 @@ training, LLaMA-7B training at half depth and its ``llama_generate``,
 LLaMA-7B training at all 32 layers with ZeRO-Offload, GPT-2 large with
 ZeRO-Infinity's NVMe tiers, BERT-large pretraining with block-sparse
 attention, GPT-2 large MoQ quantize-aware training and GPT-2 large
-ZeRO-3 training over four ranks on one NVIDIA GPU, through the
-hand-written CUDA kernels.
+ZeRO-3, ZeRO-2 and ZeRO-Offload training over four ranks on one NVIDIA
+GPU, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -313,6 +313,26 @@ Phases, one JSON line each, each with its wall ``seconds``:
                loaded by fresh four-rank engines whose next loss must
                equal the uninterrupted run's bit for bit, and by one
                rank, within ZERO3_LOSS_RTOL.
+18. train_zero2_offload, zero2_offload_restore — train_zero2's run with
+               ``offload_optimizer: {"device": "cpu"}`` (the streamed
+               tier: each rank's fp32 master, bf16 exp_avg and fp32
+               exp_avg_sq slices in pinned host memory, the update on
+               the card): step time, its split (exchange, update, gather)
+               and the update's device time on its h2d, Adam and d2h
+               streams, barriers, launches a step a rank, pinned and
+               peak device GB a rank, and the transfer bound (the four
+               ranks' state bytes each way over the slower one-way pinned
+               rate) under the update-and-gather window, each rank's
+               bytes under its update; losses bit for bit as
+               train_zero2's, and a planted fault (each rank's tier
+               built on the next rank's master slices) off them; then
+               ``stream: "host"`` and NVMe moments (a temporary
+               directory, one pid-named swap directory a rank) at
+               ZERO2_TIER_LAYERS layers, 1 + 2 steps each, within
+               LOSS_RTOL of the streamed tier's losses at that depth; a save at four ranks resumed by fresh four-rank
+               offload engines (bit for bit), by four-rank engines on
+               the device optimizer, and by one rank with the streamed
+               tier, both within ZERO3_LOSS_RTOL.
 
 Each path counts its kernels' launches from 0 just before its run: each
 serve run for the decode kernels and the prefill forward, the fast
@@ -321,12 +341,13 @@ generate() case's timed runs, the train runs (GPT-2's, LLaMA's) for the
 flash kernels, the BERT train run for the block-sparse kernels, each MoQ
 run's timed steps for quantize, rank 0's fused_matmul timed steps for the fused
 collective kernels, rank 0's stage-2 timed steps for mm_rs_reduce and
-the flash kernels on "train_zero2". A kernel has a row for each
+the flash kernels on "train_zero2" (and on "train_zero2_offload"). A
+kernel has a row for each
 path it runs on ("serve", "serve_gpt2_int8", "generate_gpt2",
 "generate_gpt2_bf16", "generate_gpt2_step", "serve_llama",
 "serve_llama_int8", "generate_llama", "generate_llama_kv0", "train",
 "train_llama", "train_bert_sparse", "train_moq", "train_moq_sr",
-"train_zero3_fused", "train_zero2");
+"train_zero3_fused", "train_zero2", "train_zero2_offload");
 each row of the
 kernels line is timed and bounded at its path's shapes and carries that path's launches (matvec_int8's
 row: no path, 0). "generate_gpt2_kv8" (bf16 weights, an
@@ -561,6 +582,16 @@ TRAIN_LOSSES = []
 # the one-card train phase's) at ZERO3_LOSS_RTOL
 ZERO2_BUCKET = int(5e8)
 ZERO3_RING_LOSSES = []
+# train_zero2's losses (its offload run is held to them bit for bit: the
+# streamed tier runs FusedAdam's arithmetic on the same slices, and a cast
+# then gathered compute copy equals a gathered then cast one) and each
+# rank's peak memory and heap
+ZERO2 = {}
+# train_zero2_offload's host-runner and NVMe runs, and the streamed run
+# they are held to, at a quarter of GPT-2 large's depth (at 36 layers the
+# NVMe tier alone takes ~14 s a step on the 9p /tmp: 6.2 GB of moments
+# read and written)
+ZERO2_TIER_LAYERS = 9
 
 
 _CLOCK = [time.perf_counter()]
@@ -6220,6 +6251,9 @@ def zero2_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
                 f"zero2_restore rank {r}: resumed loss "
                 f"{rank['run']['resumed_loss']!r} != the uninterrupted "
                 f"{run['next_loss']!r}")
+    ZERO2.update(losses=run["losses"],
+                 peak_gb=[rk["run"]["peak_torch_memory_gb"] for rk in ranks],
+                 heap_gb=[rk["run"]["heap_gb"] for rk in ranks])
     if stage1["losses"] != run["losses"] or stage1["launches"] != want:
         raise AssertionError(f"train_zero2 at stage 1: losses "
                              f"{stage1['losses']} (stage 2's "
@@ -6243,6 +6277,345 @@ def zero2_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
     if not abs(one_rank_loss - run["next_loss"]) <= \
             ZERO3_LOSS_RTOL * abs(run["next_loss"]):
         raise AssertionError(f"zero2_restore: one rank's loss "
+                             f"{one_rank_loss} vs {run['next_loss']}")
+    return run["launches"]
+
+
+def zero2_offload_ds_config(offload):
+    """train_zero2's config with ``offload`` as its offload_optimizer."""
+    cfg = zero2_ds_config()
+    cfg["zero_optimization"] = dict(cfg["zero_optimization"],
+                                    offload_optimizer=offload)
+    return cfg
+
+
+def neighbour_slices(engine, tensors, plan=None):
+    """The planted fault's ``_own_slices``: the slices of rank (r + 1) %
+    n in place of rank r's."""
+    r = (engine.mesh.rank + 1) % engine.mesh.size
+    return [t if e is None else t.narrow(e[0], r * e[1], e[1])
+            for t, e in zip(tensors, engine._plan if plan is None
+                            else plan)]
+
+
+def _zero2_offload_engine(n_layer, mesh, offload, fault=False):
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    right = DeepSpeedEngine._own_slices
+    if fault:                  # the tier takes the next rank's masters
+        DeepSpeedEngine._own_slices = neighbour_slices
+    try:
+        cfg = zero2_offload_ds_config(offload) if offload is not None \
+            else zero2_ds_config()
+        engine, _, _, _ = ds.initialize(config=cfg, mesh=mesh,
+                                        model=GPT2LMHeadModel(
+                                            train_model_config(n_layer)))
+    finally:
+        DeepSpeedEngine._own_slices = right
+    return engine
+
+
+def zero2_offload_run(mesh, n_layer, offload, warmup, steps, fault=False):
+    """``train_batch`` warmup + steps times on a fresh offload engine;
+    the launches, the plain reduce's calls, barriers and each step's
+    marks over the timed steps. Returns (the engine, its readings)."""
+    from deepspeed_tpu_torch.ops.cuda import builder
+    from deepspeed_tpu_torch.ops.cuda import fused_collective as fc
+    right_plain, plain_calls = fc.mm_rs_reduce_plain, [0]
+
+    def counted_plain(*a, **kw):
+        plain_calls[0] += 1
+        return right_plain(*a, **kw)
+    free_host_caches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = _zero2_offload_engine(n_layer, mesh, offload, fault)
+    runner = engine._host_runner
+    batch = train_batch_ids()
+    warm = [engine.train_batch(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    streamed = hasattr(runner, "span_ms")
+    if streamed:
+        runner.timed = True
+    builder.launches.clear()          # count the main path's run only
+    fc.mm_rs_reduce_plain = counted_plain
+    barriers, blocked_s = mesh.barriers, mesh.barrier_s
+    marks, spans, losses = [], [], []
+    try:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            losses.append(engine.train_batch(batch))
+            marks.append(engine.world_marks)
+            if streamed:
+                spans.append(runner.span_ms())
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        fc.mm_rs_reduce_plain = right_plain
+    if streamed:
+        runner.timed = False
+    split = [{name: m[i][0].elapsed_time(m[i + 1][0]) for i, name in
+              enumerate(("exchange_ms", "update_ms", "gather_ms"))}
+             for m in marks]
+    for s_, m in zip(split, marks):
+        s_["update_and_gather_ms"] = m[1][0].elapsed_time(m[3][0])
+    out = {"losses": [float(x) for x in torch.stack(warm + losses).cpu()],
+           "tier": type(runner).__name__,
+           "init_and_warmup_s": init_s, "step_ms": wall_s / steps * 1e3,
+           "split_ms": {k: statistics.median(s_[k] for s_ in split)
+                        for k in split[0]},
+           "update_ms_min": min(s_["update_ms"] for s_ in split),
+           "update_and_gather_ms_min": min(s_["update_and_gather_ms"]
+                                           for s_ in split),
+           "barriers_per_step": (mesh.barriers - barriers) / steps,
+           "barrier_wall_ms_per_step":
+               (mesh.barrier_s - blocked_s) / steps * 1e3,
+           "launches": dict(builder.launches),
+           "plain_reduce_calls": plain_calls[0],
+           "buckets_per_step": len(engine._buckets),
+           "host_state_gb": runner.host_bytes / 1e9,
+           "peak_torch_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "heap_gb": mesh.heap.nbytes / 1e9}
+    if streamed:
+        out["update_stream_ms"] = {k: statistics.median(s_[k] for s_ in
+                                                        spans)
+                                   for k in spans[0]}
+        out["groups"] = len(runner.groups)
+    return engine, out
+
+
+def zero2_offload_rank(rank, world, n_layer, warmup, steps, ckpt_dir,
+                       nvme_dir, tier_layers, tier_steps):
+    """One rank of the offload phases: the streamed tier's run with its
+    save, the uninterrupted next step, the save resumed by a fresh
+    offload engine and by the device optimizer; the planted fault; at
+    ``tier_layers`` the streamed tier, the host runner and NVMe moments
+    (1 + ``tier_steps`` steps)."""
+    from deepspeed_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    mesh = make_mesh(MeshConfig(data=world))
+    batch = train_batch_ids()
+    engine, run = zero2_offload_run(mesh, n_layer, {"device": "cpu"},
+                                    warmup, steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.save_checkpoint(ckpt_dir, tag="offload")
+    run["save_s"] = time.perf_counter() - t0
+    run["next_loss"] = float(engine.train_batch(batch))
+    engine.close()
+    del engine
+    out = {"run": run}
+    for name, offload in (("resumed", {"device": "cpu"}),
+                          ("resumed_device", None)):
+        free_host_caches()
+        fresh = _zero2_offload_engine(n_layer, mesh, offload)
+        t0 = time.perf_counter()
+        fresh.load_checkpoint(ckpt_dir, tag="offload")
+        torch.cuda.synchronize()
+        run[f"{name}_load_s"] = time.perf_counter() - t0
+        run[f"{name}_loss"] = float(fresh.train_batch(batch))
+        fresh.close()
+        del fresh
+    for name, offload, depth, n_steps in (
+            ("fault", {"device": "cpu"}, n_layer, 1),
+            ("streamed_cut", {"device": "cpu"}, tier_layers, tier_steps),
+            ("host", {"device": "cpu", "stream": "host"}, tier_layers,
+             tier_steps),
+            ("nvme", {"device": "nvme", "nvme_path": nvme_dir}, tier_layers,
+             tier_steps)):
+        engine, out[name] = zero2_offload_run(mesh, depth, offload, 1,
+                                              n_steps, name == "fault")
+        if name == "nvme":
+            here = engine._host_runner.swapper.swapper.dir
+            out[name]["swap_dir"] = os.path.basename(here)
+            out[name]["swap_dirs"] = sorted(os.listdir(nvme_dir))
+            out[name]["swap_gb"] = sum(
+                os.path.getsize(os.path.join(here, f))
+                for f in os.listdir(here)) / 1e9
+            mesh.barrier()            # every rank has listed the path
+        engine.close()
+        del engine
+    free_host_caches()
+    return out
+
+
+def zero2_offload_phase(rates, n_layer=36, warmup=ZERO3_WARMUP,
+                        steps=ZERO3_STEPS, tier_steps=2):
+    """``train_zero2_offload`` and ``zero2_offload_restore``: four ranks
+    on the one card at train_zero2's config with the optimizer state off
+    the card (see the module docstring, phase 18). Returns rank 0's
+    launches on the streamed tier's run."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    from deepspeed_tpu_torch.parallel.mesh import spawn
+    if not ZERO2:
+        raise AssertionError("train_zero2_offload is held to train_zero2's "
+                             "losses: run it first")
+    torch.cuda.synchronize()
+    free_host_caches()
+    ckpt_dir = tempfile.mkdtemp(prefix="zero2_offload_")
+    nvme_dir = tempfile.mkdtemp(prefix="zero2_offload_nvme_")
+    try:
+        tier_layers = min(n_layer, ZERO2_TIER_LAYERS)
+        ranks = spawn(zero2_offload_rank, ZERO3_RANKS, n_layer, warmup,
+                      steps, ckpt_dir, nvme_dir, tier_layers, tier_steps,
+                      timeout=600.0)
+        run = ranks[0]["run"]
+        free_host_caches()
+        engine, _, _, _ = ds.initialize(
+            config=zero2_offload_ds_config({"device": "cpu"}),
+            model=GPT2LMHeadModel(train_model_config(n_layer)))
+        t0 = time.perf_counter()
+        engine.load_checkpoint(ckpt_dir, tag="offload")
+        torch.cuda.synchronize()
+        one_load_s = time.perf_counter() - t0
+        one_rank_loss = float(engine.train_batch(train_batch_ids()))
+        engine.close()
+        del engine
+        free_host_caches()
+        ckpt_gb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                      os.walk(ckpt_dir) for f in fs) / 1e9
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(nvme_dir, ignore_errors=True)
+
+    def max_rel(losses, ref):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    fault_rel = max_rel(ranks[0]["fault"]["losses"], ZERO2["losses"])
+    cut = ranks[0]["streamed_cut"]
+    tiers = {k: max_rel(ranks[0][k]["losses"], cut["losses"])
+             for k in ("host", "nvme")}
+    want = {"mm_rs_reduce": run["buckets_per_step"] * steps,
+            **{name: n_layer * steps for name in FLASH_KERNELS}}
+    # the transfer bound: every rank's state each way over the slower
+    # one-way rate; the four ranks' windows overlap, so the world's bytes
+    # bound the update-and-gather window (its gather's first barrier waits
+    # for every rank's last copy), a rank's own bytes its update
+    slow = min(rates["h2d"], rates["d2h"])
+    world_bytes = sum(rk["run"]["host_state_gb"] for rk in ranks) * 1e9
+    bound_ms = world_bytes / slow / 1e6
+    rank_bound_ms = [rk["run"]["host_state_gb"] * 1e9 / slow / 1e6
+                     for rk in ranks]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit({"phase": "train_zero2_offload", "model": "gpt2_large",
+          "layers": n_layer, "ranks": ZERO3_RANKS, "zero_stage": 2,
+          "offload_optimizer": {"device": "cpu"}, "tier": run["tier"],
+          "bucket_elems": ZERO2_BUCKET, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "rows_per_rank": TRAIN_BATCH // ZERO3_RANKS,
+          "warmup_steps": warmup, "steps": steps,
+          "step_ms": run["step_ms"],
+          "step_ms_by_rank": [rk["run"]["step_ms"] for rk in ranks],
+          "tokens_per_s": tokens / run["step_ms"] * 1e3,
+          "split_ms": run["split_ms"],
+          "split_ms_by_rank": [rk["run"]["split_ms"] for rk in ranks],
+          "update_stream_ms": run["update_stream_ms"],
+          "groups": run["groups"],
+          "init_and_warmup_s": run["init_and_warmup_s"],
+          "barriers_per_step": run["barriers_per_step"],
+          "barrier_wall_ms_per_step": run["barrier_wall_ms_per_step"],
+          "launches_per_step_per_rank":
+              {k: v / steps for k, v in run["launches"].items()},
+          "pinned_gb_by_rank": [rk["run"]["host_state_gb"] for rk in ranks],
+          "pinned_gb_total": world_bytes / 1e9,
+          "peak_torch_memory_gb_by_rank":
+              [rk["run"]["peak_torch_memory_gb"] for rk in ranks],
+          "heap_gb_by_rank": [rk["run"]["heap_gb"] for rk in ranks],
+          "train_zero2_peak_gb_by_rank": ZERO2["peak_gb"],
+          "train_zero2_heap_gb_by_rank": ZERO2["heap_gb"],
+          "pinned_gb_s": dict(rates),
+          "transfer_bound_ms": bound_ms,
+          "update_and_gather_ms_min": run["update_and_gather_ms_min"],
+          "rank_transfer_bound_ms": rank_bound_ms,
+          "update_ms_min_by_rank": [rk["run"]["update_ms_min"]
+                                    for rk in ranks],
+          "plain_reduce_calls_by_rank":
+              [rk["run"]["plain_reduce_calls"] for rk in ranks],
+          "losses": run["losses"], "train_zero2_losses": ZERO2["losses"],
+          "bit_equal_to_train_zero2": run["losses"] == ZERO2["losses"],
+          "fault": "each rank's tier built on rank (r + 1) % n's master "
+                   "slices",
+          "fault_losses": ranks[0]["fault"]["losses"],
+          "fault_vs_train_zero2_max_rel": fault_rel,
+          "host_tier": {k: ranks[0]["host"][k] for k in
+                        ("tier", "losses", "step_ms", "split_ms",
+                         "host_state_gb", "peak_torch_memory_gb")},
+          "nvme_tier": {k: ranks[0]["nvme"][k] for k in
+                        ("tier", "losses", "step_ms", "split_ms",
+                         "host_state_gb", "swap_gb", "swap_dirs")},
+          "tier_layers": tier_layers, "tier_steps": f"1 + {tier_steps}",
+          "reduced": f"host and NVMe tiers at {tier_layers} of {n_layer} "
+                     f"layers and 1 + {tier_steps} steps, held to the "
+                     f"streamed tier at the same depth",
+          "streamed_tier_cut": {k: cut[k] for k in
+                                ("losses", "step_ms", "split_ms")},
+          "tiers_vs_streamed_max_rel": tiers, "tier_rtol": LOSS_RTOL,
+          "note": "four ranks time-share one card and its host link"})
+    emit({"phase": "zero2_offload_restore", "ranks": ZERO3_RANKS,
+          "checkpoint_gb": ckpt_gb,
+          "save_s_by_rank": [rk["run"]["save_s"] for rk in ranks],
+          "next_loss": run["next_loss"],
+          "resumed_loss_by_rank": [rk["run"]["resumed_loss"]
+                                   for rk in ranks],
+          "device_optimizer_loss_by_rank":
+              [rk["run"]["resumed_device_loss"] for rk in ranks],
+          "device_optimizer_rel": abs(run["resumed_device_loss"]
+                                      - run["next_loss"])
+          / abs(run["next_loss"]),
+          "one_rank_loss": one_rank_loss, "one_rank_load_s": one_load_s,
+          "one_rank_rel": abs(one_rank_loss - run["next_loss"])
+          / abs(run["next_loss"]), "loss_rtol": ZERO3_LOSS_RTOL})
+
+    for r, rank in enumerate(ranks):
+        got = rank["run"]["launches"]
+        if got != want or got.get("mm_rs_reduce", 0) <= 0:
+            raise AssertionError(f"train_zero2_offload rank {r}: launches "
+                                 f"{got} != {want}")
+        if rank["run"]["plain_reduce_calls"]:
+            raise AssertionError(f"train_zero2_offload rank {r}: the plain "
+                                 f"reduce ran")
+        if rank["run"]["losses"] != run["losses"]:
+            raise AssertionError(f"train_zero2_offload rank {r}: losses "
+                                 f"differ")
+        if rank["run"]["resumed_loss"] != run["next_loss"]:
+            raise AssertionError(
+                f"zero2_offload_restore rank {r}: resumed loss "
+                f"{rank['run']['resumed_loss']!r} != the uninterrupted "
+                f"{run['next_loss']!r}")
+        if not abs(rank["run"]["resumed_device_loss"] - run["next_loss"]) \
+                <= ZERO3_LOSS_RTOL * abs(run["next_loss"]):
+            raise AssertionError(
+                f"zero2_offload_restore rank {r}: the device optimizer's "
+                f"loss {rank['run']['resumed_device_loss']} vs "
+                f"{run['next_loss']}")
+        if not rank["run"]["update_ms_min"] >= rank_bound_ms[r]:
+            raise AssertionError(f"train_zero2_offload rank {r}: an update "
+                                 f"beat its transfer bound "
+                                 f"({rank_bound_ms[r]:.1f} ms)")
+        if rank["nvme"]["swap_dir"] not in rank["nvme"]["swap_dirs"] or \
+                len(rank["nvme"]["swap_dirs"]) != ZERO3_RANKS:
+            raise AssertionError(f"train_zero2_offload rank {r}: swap "
+                                 f"directories {rank['nvme']['swap_dirs']}")
+    if run["losses"] != ZERO2["losses"]:
+        raise AssertionError(f"train_zero2_offload losses {run['losses']} "
+                             f"!= train_zero2's {ZERO2['losses']}")
+    if not fault_rel > ZERO3_LOSS_RTOL:
+        raise AssertionError(f"train_zero2_offload: a planted fault passes "
+                             f"the loss check: {fault_rel:.3g}")
+    for k, rel in tiers.items():
+        if not (all(np.isfinite(ranks[0][k]["losses"]))
+                and rel <= LOSS_RTOL):
+            raise AssertionError(f"train_zero2_offload {k}: losses "
+                                 f"{ranks[0][k]['losses']} vs the streamed "
+                                 f"tier's {cut['losses']} ({rel:.3g} > "
+                                 f"{LOSS_RTOL})")
+    if not run["update_and_gather_ms_min"] >= bound_ms:
+        raise AssertionError(f"train_zero2_offload: an update and gather "
+                             f"beat the four ranks' transfer bound "
+                             f"({bound_ms:.1f} ms)")
+    if not abs(one_rank_loss - run["next_loss"]) <= \
+            ZERO3_LOSS_RTOL * abs(run["next_loss"]):
+        raise AssertionError(f"zero2_offload_restore: one rank's loss "
                              f"{one_rank_loss} vs {run['next_loss']}")
     return run["launches"]
 
@@ -6405,6 +6778,11 @@ def main():
                 if row["path"] == "train_zero3_fused"
                 and row["name"] in FLASH_KERNELS]
     launches["train_zero2"] = zero2_train_phase()
+    torch.cuda.empty_cache()
+    # the offload run takes train_zero2's kernels at its shapes
+    kernels += [dict(row, path="train_zero2_offload") for row in kernels
+                if row["path"] == "train_zero2"]
+    launches["train_zero2_offload"] = zero2_offload_phase(rates)
     decode_paths = [p_ for p_ in launches if p_.startswith(("serve",
                                                             "generate"))]
     for p_ in decode_paths:

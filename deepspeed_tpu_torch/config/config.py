@@ -556,11 +556,20 @@ class DeepSpeedConfig:
         self.zero_enabled = self.zero_optimization_stage > 0
         self.zero_config = ZeroConfig(pd)
         self.aio_config = AioConfig(pd)
-        if self.world_size > 1 and (self.zero_config.offload_optimizer.enabled
-                                    or self.zero_config.offload_param.enabled):
+        # the optimizer tiers run at world size n on each rank's slices at
+        # stages 0-2; the parameter tier is ZeRO-Infinity's, a stage-3
+        # feature
+        zc = self.zero_config
+        if self.world_size > 1 and zc.offload_param.enabled:
             raise NotImplementedError(
-                f"the offload tiers at world size {self.world_size} are not "
-                f"ported ({ROADMAP_MULTI_RANK})")
+                f"the parameter tier (offload_param) at world size "
+                f"{self.world_size} is not ported ({ROADMAP_MULTI_RANK})")
+        if self.world_size > 1 and zc.offload_optimizer.enabled \
+                and self.zero_optimization_stage == 3:
+            raise NotImplementedError(
+                f"the offload tiers at world size {self.world_size} run at "
+                f"ZeRO stages 0-2; at stage 3 they are not ported "
+                f"({ROADMAP_MULTI_RANK})")
         data = int((pd.get("mesh") or {}).get("data", 1))
         if data > 1 and data != self.world_size:
             raise DeepSpeedConfigError(

@@ -45,6 +45,21 @@ all-gathers the updated slices back into the masters and refreshes the
 compute copy. ``forward``/``backward``/``step``, ``eval_batch`` and the
 per-rank checkpoints run there too.
 
+ZeRO-Offload at world size n (stages 0-2, ``offload_optimizer``; the
+reference's CPU Adam on each rank's partition, ``zero/stage2.py:747-925``):
+each rank's offload tier (``_make_offload_runner``) holds the fp32
+masters and the moments of the rank's slices (whole at stage 0) in pinned
+host memory or on NVMe, and the card keeps the compute copy whole. The
+bucket stream, the norms, the finite flags and the clip coefficient run
+as above; the tier steps the rank's fp32 mean-gradient slices and writes
+the rank's slices of the compute copy, and the compute copy's slices are
+all-gathered (half the bytes of the fp32 masters under bf16). Gradients
+accumulate on the card over the micro batches before the one stream; the
+per-micro copy of gradients to the host under ``overlap_comm``
+(``_offload_overlapped_grads``) runs at world size 1 alone. Checkpoints
+keep the per-rank windows, the masters cut as the moments are, so a save
+restores into either optimizer at any world size.
+
 ZeRO stage 3 at world size n needs ``stage3_prefetch``: the JAX engine's
 ``_build_prefetch_train_fn`` (:2033). Each rank keeps its shard of every
 leaf the stage-3 specs cut (``runtime/zero/partition.py``) as fp32
@@ -559,12 +574,12 @@ class DeepSpeedEngine:
                 [np.asarray(x) for x in xs]), micro)
         batch = self._to_device(batch)
         self._ensure_params_resident()
-        if self._host_runner is not None:
-            metrics = self._offload_train_batch(batch)
-        elif self.mesh is not None and not self._prefetch_active():
+        if self.mesh is not None and not self._prefetch_active():
             grads, loss = self._accumulate_grads(self._rank_rows(batch))
             metrics = self._world_apply_grads(grads, loss)
             del grads
+        elif self._host_runner is not None:
+            metrics = self._offload_train_batch(batch)
         else:
             if self._prefetch_active():
                 grads, loss, sq_norm = self._zero3_grads(batch)
@@ -629,12 +644,12 @@ class DeepSpeedEngine:
             return
         if self._pending_grads is None:
             raise AssertionError("backward() must precede step()")
-        if self._host_runner is not None:
-            metrics = self._offload_apply_grads(self._pending_grads,
-                                                self._accum_loss)
-        elif self.mesh is not None:
+        if self.mesh is not None:
             metrics = self._world_apply_grads(self._pending_grads,
                                               self._accum_loss)
+        elif self._host_runner is not None:
+            metrics = self._offload_apply_grads(self._pending_grads,
+                                                self._accum_loss)
         else:
             metrics = self._apply_grads(self._pending_grads,
                                         self._accum_loss)
@@ -697,16 +712,20 @@ class DeepSpeedEngine:
             StreamedOffloadOptimizer
         return isinstance(self._host_runner, StreamedOffloadOptimizer)
 
-    def _init_offload_state(self, params):
+    def _init_offload_state(self, params, masters=None):
         """The fp32 masters and the moments leave the card (:796); the
-        card keeps the compute copy (bf16 with grad_dtype bf16, else
-        fp32) and no optimizer state."""
+        card keeps the compute copy (bf16 with grad_dtype bf16, fp16
+        under fp16, as JAX keeps it in the compute dtype, else fp32) and
+        no optimizer state. ``masters``: what the tier keeps (a rank's
+        slices at world size n), default every leaf whole."""
         self._host_runner = self._make_offload_runner(
-            [p.data for p in params])
+            [p.data for p in params] if masters is None else masters)
         self.master = None
-        if self._bf16_grads:
+        cdt = torch.bfloat16 if self._bf16_grads else \
+            torch.float16 if self.precision.fp16 else None
+        if cdt is not None:
             for p in params:
-                p.data = p.data.to(torch.bfloat16)
+                p.data = p.data.to(cdt)
         self.compute_params = params
         self.opt_state = {}
 
@@ -882,7 +901,8 @@ class DeepSpeedEngine:
         finite = math.isfinite(sq) if self.precision.fp16 else True
         return acc, torch.tensor(loss, device=self.device), finite, sq
 
-    def _offload_apply_grads(self, grads, loss, finite=None, sq_norm=None):
+    def _offload_apply_grads(self, grads, loss, finite=None, sq_norm=None,
+                             params=None):
         """The offload update (``_host_apply_grads`` :3114). Under fp16
         the finite check is read back before any gradient leaves the card,
         and an overflow skips the step; the loss-scale inverse and the
@@ -890,7 +910,9 @@ class DeepSpeedEngine:
         gradients. The streamed tier keeps the norm, the coefficient and
         the lr on the card (no read-back); the host runner reads them.
         With the NVMe parameter tier and ``pipeline_write`` the host
-        runner's updated leaves go straight to the write-behind queue."""
+        runner's updated leaves go straight to the write-behind queue.
+        ``params``: where the updated leaves go (a rank's slices of the
+        compute copy at world size n), default the compute copy."""
         dev = self.device
         with torch.no_grad():
             if finite is None:
@@ -902,7 +924,8 @@ class DeepSpeedEngine:
                 return self._end_update(loss, torch.zeros((), device=dev),
                                         lr, fin_t)
             norm, coef = self._clip_coefficient(grads, sq_norm)
-            params = [p.data for p in self.compute_params]
+            if params is None:
+                params = [p.data for p in self.compute_params]
             if self._offload_streamed():
                 self._host_runner.step(grads, params, lr, grad_scale=coef)
             else:
@@ -983,19 +1006,25 @@ class DeepSpeedEngine:
         exchange slots hold the largest bucket."""
         mesh, zc = self.mesh, self._config.zero_config
         n = mesh.size
-        self._keep_masters(self._place_model(model_parameters))
-        shapes = {k: tuple(m.shape) for k, m in
-                  zip(self.param_names, self.master)}
+        params = self._place_model(model_parameters)
+        shapes = {k: tuple(p.shape) for k, p in zip(self.param_names, params)}
         self._plan = ZeroPartitioner(n, zc.stage).explicit_shard_plan(shapes)
         self._entries = {k: None for k in self.param_names}
         self._moment_entries = dict(zip(self.param_names, self._plan))
-        self.opt_state = self.optimizer.init(
-            self._own_slices(self.master))
-        total = sum(m.numel() for m in self.master)
+        if self._offload_cfg.enabled:
+            # the rank's slices of the masters and their moments go to
+            # the rank's offload tier
+            self._init_offload_state(
+                params, self._own_slices([p.data for p in params]))
+        else:
+            self._keep_masters(params)
+            self.opt_state = self.optimizer.init(
+                self._own_slices(self.master))
+        total = sum(p.numel() for p in params)
         bucket = zc.reduce_bucket_size if zc.reduce_bucket_size > 0 \
             else total
         self._buckets = overlap.plan_buckets(
-            [m.shape for m in self.master], bucket, n)
+            [p.shape for p in params], bucket, n)
         if mesh.device.type == "cuda":
             SymmetricHeap(mesh, {}, 4 * max(b.padded for b in self._buckets))
 
@@ -1017,10 +1046,14 @@ class DeepSpeedEngine:
         their finite flags and its slices, and lets the rest go. Then the
         loss mean, the global norm and the one coefficient that unscales
         and clips, the optimizer step on this rank's slices, and the
-        updated slices all-gathered back into the masters. On an fp16
-        overflow every rank sees the same non-finite mean and skips. On
-        the card ``world_marks`` keeps CUDA events at the step's four
-        points (start, exchanged, updated, gathered)."""
+        updated slices all-gathered back into the masters. With an
+        offload tier the tier steps the slices and writes the rank's
+        slices of the compute copy, which are all-gathered in place of the
+        masters. On an fp16 overflow every rank sees the same non-finite
+        mean and skips. On the card ``world_marks`` keeps CUDA events at
+        the step's four points (start, exchanged, updated, gathered); with
+        the streamed tier the update ends when its last state copy
+        reaches the host, and the gather waits for it."""
         mesh = self.mesh
         marks = [self._mark()]
         fp16 = self.precision.fp16
@@ -1046,18 +1079,34 @@ class DeepSpeedEngine:
             marks.append(self._mark())
             finite = torch.stack(flags).all() if fp16 else None
             sq_norm = torch.stack(norms).square().sum()
-            grad_norm, gscale = self._clip_coefficient(own, sq_norm)
-            lr = self._lr()
-            self.optimizer.step(self._own_slices(self.master), own,
-                                self.opt_state, lr, grad_scale=gscale,
-                                finite=finite)
+            runner, store = self._host_runner, None
+            if runner is None:
+                grad_norm, gscale = self._clip_coefficient(own, sq_norm)
+                lr = self._lr()
+                self.optimizer.step(self._own_slices(self.master), own,
+                                    self.opt_state, lr, grad_scale=gscale,
+                                    finite=finite)
+                metrics = self._end_update(loss, grad_norm, lr, finite)
+                gathered = self.master
+            else:
+                # every rank reads the same flag: all skip, or none
+                stepped = bool(finite) if fp16 else True
+                compute = [p.data for p in self.compute_params]
+                metrics = self._offload_apply_grads(
+                    own, loss, stepped, sq_norm,
+                    params=self._own_slices(compute))
+                gathered = compute if stepped else None
+                store = getattr(runner, "store_stream", None)
             del own
-            marks.append(self._mark())
-            overlap.all_gather_slices(self.master, self._plan, mesh,
-                                      self._buckets)
+            marks.append(self._mark(store))
+            if store is not None:
+                torch.cuda.current_stream(self.device).wait_stream(store)
+            if gathered is not None:
+                overlap.all_gather_slices(gathered, self._plan, mesh,
+                                          self._buckets)
             marks.append(self._mark())
         self.world_marks = None if marks[0] is None else marks
-        return self._end_update(loss, grad_norm, lr, finite)
+        return metrics
 
     # -- ZeRO-3 with the prefetch pipeline at world size n --------------------
     def _init_zero3_state(self, model_parameters=None):
@@ -1343,17 +1392,26 @@ class DeepSpeedEngine:
 
     def gather_master(self):
         """Every leaf's fp32 master, gathered whole, by name, on the CPU
-        (collective on the ZeRO-3 path: every rank calls it; stages 0-2
-        hold the masters whole)."""
+        (collective on the ZeRO-3 path and with an offload tier at world
+        size n: every rank calls it; the device optimizer at stages 0-2
+        holds the masters whole)."""
         out = {}
         if self.mesh is None:
             self._ensure_params_resident()
-        masters = self._host_runner.master_leaves() \
-            if self._host_runner is not None else self.master
+        runner = self._host_runner
+        masters = runner.master_leaves() if runner is not None \
+            else self.master
         for k, m in zip(self.param_names, masters):
-            e = self._entries[k] if self.mesh is not None else None
-            full = m if e is None else prefetch_lib.gather_leaf(
-                m, e, self.mesh)
+            if self.mesh is None:
+                full = m
+            elif runner is not None:
+                e = self._moment_entries[k]
+                full = m if e is None else torch.cat(
+                    self.mesh.all_gather(m.cpu()), dim=e[0])
+            else:
+                e = self._entries[k]
+                full = m if e is None else prefetch_lib.gather_leaf(
+                    m, e, self.mesh)
             out[k] = full.detach().cpu()
         return out
 
@@ -1361,7 +1419,11 @@ class DeepSpeedEngine:
         """Free the symmetric heap (collective at world size n > 1) and
         drop the step function, whose closure refers back to the engine
         (the cycle would keep the shards alive until a collection); on
-        one rank, free the offload tier's host state and swap files."""
+        one rank, free the offload tier's host state and swap files (at
+        world size n each rank its own)."""
+        if self._host_runner is not None:
+            self._host_runner.close()
+            self._host_runner = None
         if self.mesh is None:
             if self._param_swapper is not None:
                 self._param_swapper.release()
@@ -1369,9 +1431,6 @@ class DeepSpeedEngine:
             if self._param_host is not None:
                 self._param_host.close()
                 self._param_host = None
-            if self._host_runner is not None:
-                self._host_runner.close()
-                self._host_runner = None
             return
         self._zero3_grads = None
         if self.mesh.heap is not None:
@@ -1578,17 +1637,28 @@ class DeepSpeedEngine:
 
     def _world_state(self):
         """The state trees this rank writes: the masters' and the moments'
-        pieces (the moments cut as the moment specs cut them); the
+        pieces (the moments cut as the moment specs cut them; with an
+        offload tier the masters too, from the tier's slices); the
         optimizer's counters, the scaler and the step counters from
         rank 0 alone."""
-        like = self.optimizer.param_like_state_fields
-        opt = {k: self._world_pieces(v, self._moment_entries)
-               for k, v in self.opt_state.items() if k in like}
-        state = {"params": self._world_pieces(self.master, self._entries),
-                 "opt_state": opt}
+        runner = self._host_runner
+        if runner is not None:
+            sd = runner.state_dict()
+            small = {"step": torch.tensor(sd["step"], dtype=torch.int32)}
+            opt = {k: self._world_pieces(sd[k], self._moment_entries)
+                   for k in ("exp_avg", "exp_avg_sq")}
+            params = self._world_pieces(runner.master_leaves(),
+                                        self._moment_entries)
+        else:
+            like = self.optimizer.param_like_state_fields
+            small = {k: v.cpu() for k, v in self.opt_state.items()
+                     if k not in like}
+            opt = {k: self._world_pieces(v, self._moment_entries)
+                   for k, v in self.opt_state.items() if k in like}
+            params = self._world_pieces(self.master, self._entries)
+        state = {"params": params, "opt_state": opt}
         if self.mesh.rank == 0:
-            opt.update({k: v.cpu() for k, v in self.opt_state.items()
-                        if k not in like})
+            opt.update(small)
             state.update(scaler={k: v.cpu() for k, v in self.scaler.items()},
                          global_step=self.global_step_t.cpu(),
                          skipped_steps=self.skipped_steps_t.cpu())
@@ -1622,21 +1692,44 @@ class DeepSpeedEngine:
 
         like = self.optimizer.param_like_state_fields
         with torch.no_grad():
-            fill("model_states:params", self.master, self._entries)
-            if want_opt:
-                for k in self.opt_state:
+            if self._host_runner is not None:
+                self._adopt_world_offload(reader, want_opt, fill)
+            else:
+                fill("model_states:params", self.master, self._entries)
+                for k in self.opt_state if want_opt else ():
                     if k in like:
                         fill(f"optim_states:opt_state/{k}",
                              self.opt_state[k], self._moment_entries)
                     else:
                         self.opt_state[k] = reader.read(
                             f"optim_states:opt_state/{k}").to(self.device)
-            self._refresh_compute_params()
+                self._refresh_compute_params()
         small = reader.paths("optim_states")
         return {"scaler": {k: reader.read(f"optim_states:scaler/{k}")
                            for k in small["scaler"]},
                 "global_step": reader.read("optim_states:global_step"),
                 "skipped_steps": reader.read("optim_states:skipped_steps")}
+
+    def _adopt_world_offload(self, reader, want_opt, fill):
+        """World size n with an offload tier: every leaf's master read
+        whole (the compute copy is its cast, the tier takes the rank's
+        slices of it) and, with ``want_opt``, the rank's moment slices and
+        Adam's count into the tier (``fill(prefix, tensors, entries)``
+        reads windows into CPU tensors)."""
+        runner = self._host_runner
+        whole = [torch.empty(p.shape) for p in self.compute_params]
+        fill("model_states:params", whole, self._entries)
+        mine = self._own_slices(whole)
+        runner.load_master_leaves(mine)
+        if want_opt:
+            sd = {"step": int(reader.read("optim_states:opt_state/step"))}
+            for k in ("exp_avg", "exp_avg_sq"):
+                sd[k] = [torch.empty(t.shape) for t in mine]
+                fill(f"optim_states:opt_state/{k}", sd[k],
+                     self._moment_entries)
+            runner.load_state_dict(sd)
+        for p, m in zip(self.compute_params, whole):
+            p.data.copy_(m)
 
     def _adopt_loaded_state_offload(self, state, want_opt):
         """``_adopt_loaded_state_offload`` (:4282): the loaded fp32

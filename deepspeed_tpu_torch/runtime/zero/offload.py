@@ -123,17 +123,19 @@ class HostOffloadOptimizer:
         """One step from ``grads`` (device or host tensors, fp32 or bf16;
         fp16 is widened) with ``grad_scale`` folded into the read. The
         updated leaves go to ``params`` (the compute copy on the card, in
-        its dtype) or, with ``park(i, host_tensor)``, to the caller (the
-        NVMe parameter tier's write-behind)."""
+        its dtype: fp32, bf16 or fp16; a leaf may be a strided view, a
+        rank's slice on a dim other than 0) or, with ``park(i,
+        host_tensor)``, to the caller (the NVMe parameter tier's
+        write-behind)."""
         self.step_count += 1
         h = self._hyper()
         n = len(self.master)
         grads = [g.detach() if g.dtype != torch.float16 else g.detach().float()
                  for g in grads]
         out_dtype = params[0].dtype if params is not None else torch.bfloat16
-        if out_dtype not in (torch.float32, torch.bfloat16):
+        if out_dtype not in (torch.float32, torch.bfloat16, torch.float16):
             raise ValueError(f"compute dtype {out_dtype}: the host runner "
-                             f"writes fp32 or bf16 parameters")
+                             f"writes fp32, bf16 or fp16 parameters")
         on_card = self.cuda and grads[0].is_cuda
         slots = self._staging(grads, out_dtype)
         if on_card:
@@ -177,7 +179,7 @@ class HostOffloadOptimizer:
                 h["adamw_mode"], h["bias_correction"], grad_scale=grad_scale,
                 params_bf16=out if out_dtype == torch.bfloat16 else None)
             adam_s += time.perf_counter() - t0
-            if out_dtype == torch.float32:
+            if out_dtype != torch.bfloat16:
                 out.copy_(p)
             if self.swapper is not None:
                 self.swapper.store(i, m, v)
@@ -185,10 +187,11 @@ class HostOffloadOptimizer:
                 park(i, out.view(self.shapes[i]))
             elif on_card:
                 with torch.cuda.stream(h2d):
-                    params[i].view(-1).copy_(out, non_blocking=True)
+                    params[i].copy_(out.view(self.shapes[i]),
+                                    non_blocking=True)
                     freed[s].record(h2d)
             else:
-                params[i].view(-1).copy_(out)
+                params[i].copy_(out.view(self.shapes[i]))
             if i + SLOTS < n:
                 fetch(i + SLOTS)
         if on_card:

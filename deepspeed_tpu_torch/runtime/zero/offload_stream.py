@@ -103,9 +103,11 @@ class StreamedOffloadOptimizer:
     ``step(grads, params, lr, grad_scale)`` updates the state and writes
     the updated parameters into ``params`` (the resident compute copy,
     any float dtype); ``lr`` and ``grad_scale`` may be device tensors,
-    so a step reads nothing back. ``master_leaves``, ``state_dict`` and
-    ``load_state_dict`` give and take whole fp32 leaves on the CPU (they
-    synchronize)."""
+    so a step reads nothing back. At world size n ``masters`` and
+    ``params`` are a rank's slices, views that may be strided (a slice
+    on a dim other than 0): the copies in and out take them as views.
+    ``master_leaves``, ``state_dict`` and ``load_state_dict`` give and
+    take whole fp32 leaves on the CPU (they synchronize)."""
 
     def __init__(self, masters, optimizer, device, unit_bytes=UNIT_BYTES):
         if not isinstance(optimizer, FusedAdam):
@@ -151,6 +153,10 @@ class StreamedOffloadOptimizer:
             self._streams = [torch.cuda.Stream(dev) for _ in range(3)]
             self._events = {k: [torch.cuda.Event() for _ in range(2)]
                             for k in ("loaded", "computed", "stored")}
+        # with ``timed`` set, each step keeps timing events around every
+        # group's copies in, update and copies out (``spans``)
+        self.timed = False
+        self.spans = None
         logger.info(
             f"StreamedOffloadOptimizer: {len(self.shapes)} leaves -> "
             f"{len(self.units)} units in {len(self.groups)} groups; "
@@ -201,6 +207,29 @@ class StreamedOffloadOptimizer:
         return torch.cuda.stream(self._streams[i]) if self.cuda \
             else contextlib.nullcontext()
 
+    def _span(self, kind, i):
+        """A (start, end) pair of timing events on stream ``i`` around the
+        block, kept in ``spans[kind]`` when the step is timed."""
+        if not (self.timed and self.cuda):
+            return contextlib.nullcontext()
+
+        @contextlib.contextmanager
+        def span():
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            pair[0].record(self._streams[i])
+            yield
+            pair[1].record(self._streams[i])
+            self.spans[kind].append(pair)
+        return span()
+
+    def span_ms(self):
+        """The last timed step's device milliseconds on each stream,
+        summed over the groups: {"h2d", "adam", "d2h"} (they overlap);
+        synchronizes."""
+        self._sync()
+        return {k: sum(a.elapsed_time(b) for a, b in pairs)
+                for k, pairs in self.spans.items()}
+
     def step(self, grads, params, lr, grad_scale=None):
         opt = self.optimizer
         self.step_count += 1
@@ -218,6 +247,7 @@ class StreamedOffloadOptimizer:
             comp.wait_stream(cur)     # the gradients, lr, scale, bc
             h2d.wait_stream(d2h)      # last step's state is back on host
             ev = self._events
+        self.spans = {"h2d": [], "adam": [], "d2h": []}
         with torch.no_grad():
             for k, g in enumerate(self.groups):
                 s = k % len(self._slots)
@@ -227,9 +257,10 @@ class StreamedOffloadOptimizer:
                 with self._stream(0):
                     if self.cuda and k >= 2:
                         h2d.wait_event(ev["stored"][s])
-                    dp.copy_(self._master[lo:hi], non_blocking=True)
-                    dm.copy_(self._m.tensor[lo:hi], non_blocking=True)
-                    dv.copy_(self._v[lo:hi], non_blocking=True)
+                    with self._span("h2d", 0):
+                        dp.copy_(self._master[lo:hi], non_blocking=True)
+                        dm.copy_(self._m.tensor[lo:hi], non_blocking=True)
+                        dv.copy_(self._v[lo:hi], non_blocking=True)
                     if self.cuda:
                         ev["loaded"][s].record(h2d)
                 with self._stream(1):
@@ -244,18 +275,20 @@ class StreamedOffloadOptimizer:
                         views[1].append(self._slice(grads[u.leaf], u))
                         views[2].append(dm[a:b].view(shape))
                         views[3].append(dv[a:b].view(shape))
-                    opt._step_group(*views, lr, grad_scale, None, beta1,
-                                    beta2, bc1, bc2)
-                    for u, p32 in zip(g, views[0]):
-                        self._slice(params[u.leaf], u).copy_(p32)
+                    with self._span("adam", 1):
+                        opt._step_group(*views, lr, grad_scale, None, beta1,
+                                        beta2, bc1, bc2)
+                        for u, p32 in zip(g, views[0]):
+                            self._slice(params[u.leaf], u).copy_(p32)
                     if self.cuda:
                         ev["computed"][s].record(comp)
                 with self._stream(2):
                     if self.cuda:
                         d2h.wait_event(ev["computed"][s])
-                    self._master[lo:hi].copy_(dp, non_blocking=True)
-                    self._m.tensor[lo:hi].copy_(dm, non_blocking=True)
-                    self._v[lo:hi].copy_(dv, non_blocking=True)
+                    with self._span("d2h", 2):
+                        self._master[lo:hi].copy_(dp, non_blocking=True)
+                        self._m.tensor[lo:hi].copy_(dm, non_blocking=True)
+                        self._v[lo:hi].copy_(dv, non_blocking=True)
                     if self.cuda:
                         ev["stored"][s].record(d2h)
         if self.cuda:

@@ -166,6 +166,50 @@ def test_n_rank_stage2_step_and_checkpoint_run_with_jax_poisoned(tmp_path):
     assert proc.stdout.startswith("OK")
 
 
+def test_n_rank_offload_step_and_checkpoint_run_with_jax_poisoned(tmp_path):
+    """A gloo world of 2 ranks at ZeRO stage 2 with the optimizer state on
+    the host (the streamed tier) and with NVMe moments (the host runner)
+    takes its steps, saves per-rank checkpoints and resumes from them,
+    with jax and deepspeed_tpu poisoned in the parent and in every
+    rank."""
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'deepspeed_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "import numpy as np, torch\n"
+            "from deepspeed_tpu_torch.models import gpt2\n"
+            "from deepspeed_tpu_torch.parallel.mesh import spawn\n"
+            "import torch_zero_offload_worker as w\n"
+            "kw = {'dtype': torch.float32}\n"
+            "m = gpt2.GPT2LMHeadModel(gpt2.gpt2_tiny(**kw), device='cpu')\n"
+            "m.reset_parameters(torch.Generator().manual_seed(0))\n"
+            "state = {k: v.detach().numpy() for k, v in\n"
+            "         m.state_dict().items()}\n"
+            f"d = {str(tmp_path)!r}\n"
+            "def cfg(offload):\n"
+            "    return {'train_batch_size': 4, 'zero_optimization': {\n"
+            "        'stage': 2, 'reduce_bucket_size': 5000,\n"
+            "        'offload_optimizer': offload}}\n"
+            "ids = [{'input_ids': np.random.RandomState(i).randint(\n"
+            "    0, 512, (4, 8))} for i in range(3)]\n"
+            "nvme = {'device': 'nvme', 'nvme_path': d + '/nvme'}\n"
+            "out = spawn(w.poisoned_jobs, 2, [\n"
+            "    ('save_and_resume', cfg({'device': 'cpu'}), state, ids[:2],\n"
+            "     ids[2], d + '/ckpt', kw),\n"
+            "    ('save_and_resume', cfg(nvme), state, ids[:2], ids[2],\n"
+            "     d + '/ckpt_nvme', kw)])\n"
+            "for losses, want, got, files in out[0]:\n"
+            "    assert all(np.isfinite(losses)) and got == want, out\n"
+            "    assert 'shard_index_1.json' in files, files\n"
+            "print('OK')\n")
+    os.makedirs(tmp_path / "nvme")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO), str(REPO / "tests")]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("OK")
+
+
 def test_native_ctypes_signatures_match_c_entry_points():
     """Every C entry point of csrc/cpu_adam.cpp and csrc/aio.cpp that the
     bindings call has argtypes of its parameters' count and kinds."""

@@ -355,8 +355,9 @@ def test_zero_config_bucket_knobs_carry_the_jax_messages():
 
 def test_what_stages_0_2_do_not_run_at_world_n_raises_naming_roadmap():
     """MoQ at world n, a non-elementwise optimizer: refused before any
-    collective, naming the ROADMAP item; the offload tiers at world n in
-    the config."""
+    collective, naming the ROADMAP item; in the config, the parameter
+    tier at world n and the optimizer tier with stage3_prefetch (the
+    optimizer tiers at stages 0-2 run at world n)."""
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.config.config import DeepSpeedConfig
     from deepspeed_tpu_torch.models import gpt2
@@ -375,10 +376,11 @@ def test_what_stages_0_2_do_not_run_at_world_n_raises_naming_roadmap():
         ds.initialize(config=_cfg(2), optimizer=Layerwise(),
                       model=gpt2.GPT2LMHeadModel(gpt2.gpt2_tiny()),
                       mesh=Mesh(2, 0, "cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        DeepSpeedConfig(_cfg(2, zero_optimization={
-            "stage": 2, "offload_optimizer": {"device": "cpu"}}),
-            world_size=2)
+    for zero in ({"stage": 2, "offload_param": {"device": "cpu"}},
+                 {"stage": 3, "stage3_prefetch": True,
+                  "offload_optimizer": {"device": "cpu"}}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+            DeepSpeedConfig(_cfg(2, zero_optimization=zero), world_size=2)
 
 
 # -- the bucket stream -------------------------------------------------------

@@ -1,6 +1,7 @@
 """chip_smoke.py's ZeRO stage 0-2 phases alone, on the card.
 
     python3 tests/torch_zero2_phases.py [--layers L] [--skip-zero3]
+                                        [--offload]
 
 Runs chip_smoke's device phase, the one-card GPT-2 train phase (2 + 10
 steps: the losses the stage-2 run is held to), then train_zero3_ring's
@@ -9,8 +10,11 @@ it is held to; ``--skip-zero3`` holds the stage-2 run to the one-card
 losses alone, for a quicker check), then ``zero2_kernels`` (mm_rs_reduce
 at the default plan's first and last bucket) and ``train_zero2`` /
 ``zero2_restore`` (four ranks at ZeRO stage 2, save, resume at four and
-at one). ``--layers`` cuts the depth of every run (a quick first call).
-Each prints its chip_smoke line.
+at one). With ``--offload`` then ``train_zero2_offload`` /
+``zero2_offload_restore`` (the same four ranks with the optimizer state
+in pinned host memory or on NVMe, held to train_zero2's losses).
+``--layers`` cuts the depth of every run (a quick first call). Each
+prints its chip_smoke line.
 """
 
 import os
@@ -37,7 +41,7 @@ def main():
     layers = 36
     if "--layers" in sys.argv:
         layers = int(sys.argv[sys.argv.index("--layers") + 1])
-    c.phase_device()
+    _, rates = c.phase_device()
     engine, _, _ = c.train_phase(n_layer=layers)
     del engine
     torch.cuda.empty_cache()
@@ -56,6 +60,12 @@ def main():
     launches = c.zero2_train_phase(n_layer=layers)
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)
+    if "--offload" in sys.argv:
+        torch.cuda.empty_cache()
+        launches = c.zero2_offload_phase(rates, n_layer=layers)
+        rows += [dict(row, path="train_zero2_offload",
+                      launches=launches.get(row["name"], 0))
+                 for row in rows]
     c.emit({"kernels": rows})
     return 0
 
