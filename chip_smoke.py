@@ -163,8 +163,11 @@ Phases, one JSON line each, each with its wall ``seconds``:
    train_nvme — all 32 layers of LLaMA-7B (4 x 2048, remat) with the
                optimizer state off the card: the streamed tier (67.4 GB
                pinned, the update streamed through the card) and the
-               host runner (80.9 GB, the native SIMD Adam), warm-up and
-               timed steps (2L / L / L flash launches a step), step ms,
+               host runner (80.9 GB, the native SIMD Adam), 2 warm-up
+               steps and the timed steps that fit 10 s (at least 2; 20
+               s before the ZeRO-3 gather phases were added: the
+               streamed tier's 6 timed steps are now 3), 2L / L / L
+               flash launches a step, step ms,
                MFU, each step's fwd+bwd and update device ms (CUDA
                events) with host seconds beside them, the transfer bound,
                device peak and host GB; both tiers' losses and each
@@ -333,6 +336,34 @@ Phases, one JSON line each, each with its wall ``seconds``:
                offload engines (bit for bit), by four-rank engines on
                the device optimizer, and by one rank with the streamed
                tier, both within ZERO3_LOSS_RTOL.
+19. kernel, zero3_llama_kernels, train_zero3_gather, train_zero3_llama,
+    zero3_gather_restore, train_zero3_gather_offload — ZeRO stage 3 off
+               the prefetch pipeline (the gather path: each rank's
+               compute-copy shards all-gathered whole at a step's start,
+               the model's own forward and backward, train_zero2's bucket
+               stream, the rank's shards stepped): first the flash rows at
+               LLaMA's B 1 a rank (32 heads, S 2048, D 128) and
+               mm_rs_reduce at LLaMA's bucket plan (ZERO3_LLAMA_BUCKET);
+               then, in train_zero2's world after its runs, the train cell
+               at stage 3 with stage3_prefetch off, 2 + 4 steps: step ms
+               and its split (gather, fwd+bwd, exchange, update),
+               barriers, launches a step a rank (one mm_rs_reduce a
+               bucket, the flash kernels as on one card), peak GB and heap
+               beside train_zero2's, losses bit for bit as train_zero2's
+               (else within ZERO3_LOSS_RTOL) and within it of
+               train_zero3_ring's, and a planted fault (each rank's shard
+               gathered into its neighbour's place) beyond it; the save
+               resumed by fresh four-rank gather engines (bit for bit), by
+               four-rank prefetch engines and by one rank (within
+               ZERO3_LOSS_RTOL); LLaMA-7B's width at ZERO3_LLAMA_LAYERS
+               layers (LlamaForCausalLM has no layered-apply contract), 1 x
+               2048 a rank, 1 + 2 steps at stage 3 and at stage 2, losses
+               finite, falling and within ZERO3_LOSS_RTOL of each other;
+               and in the offload world the streamed tier with
+               stage3_prefetch on (which falls back), 1 + 2 steps: the
+               update's stream ms, pinned GB, the transfer bound under
+               the update-and-gather window, losses bit for bit as
+               train_zero2_offload's first steps (else within LOSS_RTOL).
 
 Each path counts its kernels' launches from 0 just before its run: each
 serve run for the decode kernels and the prefill forward, the fast
@@ -341,13 +372,16 @@ generate() case's timed runs, the train runs (GPT-2's, LLaMA's) for the
 flash kernels, the BERT train run for the block-sparse kernels, each MoQ
 run's timed steps for quantize, rank 0's fused_matmul timed steps for the fused
 collective kernels, rank 0's stage-2 timed steps for mm_rs_reduce and
-the flash kernels on "train_zero2" (and on "train_zero2_offload"). A
+the flash kernels on "train_zero2" (and on "train_zero2_offload"), rank
+0's gather-path timed steps on "train_zero3_gather",
+"train_zero3_gather_offload" and "train_zero3_llama". A
 kernel has a row for each
 path it runs on ("serve", "serve_gpt2_int8", "generate_gpt2",
 "generate_gpt2_bf16", "generate_gpt2_step", "serve_llama",
 "serve_llama_int8", "generate_llama", "generate_llama_kv0", "train",
 "train_llama", "train_bert_sparse", "train_moq", "train_moq_sr",
-"train_zero3_fused", "train_zero2", "train_zero2_offload");
+"train_zero3_fused", "train_zero2", "train_zero2_offload",
+"train_zero3_gather", "train_zero3_gather_offload", "train_zero3_llama");
 each row of the
 kernels line is timed and bounded at its path's shapes and carries that path's launches (matvec_int8's
 row: no path, 0). "generate_gpt2_kv8" (bf16 weights, an
@@ -387,6 +421,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12        # fp32 outside the tensor cores
+L2_BYTES = 50 * 2**20          # H100's L2 cache
 LAYER = 17
 # teacher-forced check: the plain logit of the engine's token may sit at
 # most this many bf16 units in the last place (of the position's top
@@ -592,6 +627,17 @@ ZERO2 = {}
 # NVMe tier alone takes ~14 s a step on the 9p /tmp: 6.2 GB of moments
 # read and written)
 ZERO2_TIER_LAYERS = 9
+# ZeRO stage 3 off the prefetch pipeline (the gather path: the compute copy
+# all-gathered whole at a step's start, the bucket stream, each rank's
+# shards stepped), run in train_zero2's four-rank world: the train cell at
+# stage 3 with stage3_prefetch off, held bit for bit to train_zero2 (the
+# same bucket stream and AdamW on the same rows; a cast then gathered
+# compute copy equals a gathered then cast one); in the offload world with
+# the streamed tier and stage3_prefetch on (which falls back), held to
+# train_zero2_offload; and LLaMA-7B's width at ZERO3_LLAMA_LAYERS layers,
+# 1 x ZERO3_LLAMA_SEQ a rank, at stage 3 and at stage 2 (a bucket of
+# ZERO3_LLAMA_BUCKET elements, both), held to each other
+ZERO3_LLAMA_LAYERS, ZERO3_LLAMA_SEQ, ZERO3_LLAMA_BUCKET = 4, 2048, int(2e8)
 
 
 _CLOCK = [time.perf_counter()]
@@ -1701,9 +1747,14 @@ def flash_rows(gen, batch, path, more_bwd_cases=(), H=20, S=TRAIN_SEQ,
     o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=True)
     # fault: every batch element attends to element 0's K/V, as a kernel
-    # that left the batch out of its K/V offset would
-    fault = fa.flash_attention_fwd_plain(q, k[:1].expand_as(k),
-                                         v[:1].expand_as(v), causal=True)[0]
+    # that left the batch out of its K/V offset would; at one element,
+    # every head to head 0's (the head left out)
+    lead = (slice(None, 1),) if B > 1 else (slice(None), slice(None, 1))
+    fault_what = "every batch element given element 0's K/V" if B > 1 \
+        else "every head given head 0's K/V"
+    fault = fa.flash_attention_fwd_plain(q, k[lead].expand_as(k),
+                                         v[lead].expand_as(v),
+                                         causal=True)[0]
     checks = [held("flash_attention_fwd", o, o_ref, fault)]
     lse_err = tolerance.check_lse(lse, lse_ref)
     del o, lse, o_ref, lse_ref, fault
@@ -1720,7 +1771,7 @@ def flash_rows(gen, batch, path, more_bwd_cases=(), H=20, S=TRAIN_SEQ,
            bound(4 * B * H * S * D * 2 + B * H * S * 4,
                  4 * B * H * D * S * (S + 1) // 2),
            [{"B": B, "S": S, "H": H, "Hkv": H, "D": D, "causal": True}],
-           "every batch element given element 0's K/V", library_ms=lib_ms,
+           fault_what, library_ms=lib_ms,
            lse_err=lse_err, extra=flash_variants(q, k, v, True, n=36))
     del q, k, v
     torch.cuda.synchronize()
@@ -1819,16 +1870,25 @@ def flash_bwd_rows(gen, path, cases):
            extra={"reruns_bit_equal": True,
                   "sdpa_backward_graph_us":
                       None if sdpa_graph_ms is None else sdpa_graph_ms * 1e3})
-    delta_ms = time_graph_ms(lambda i: fa.flash_attention_bwd_delta(o, do))
-    expr_ms = time_graph_ms(
-        lambda i: fa.flash_attention_bwd_delta_plain(o, do))
+    # the delta only reads o and do, which can fit in L2: its calls cycle
+    # through copies of them that hold 4 x L2 between them, so each call
+    # reads its inputs from HBM, as the path's backward does
+    pairs = [(o, do)] + [(o.clone(), do.clone()) for _ in range(
+        math.ceil(4 * L2_BYTES / nbytes(o, do)) - 1)]
+    cyc = itertools.cycle(pairs)
+    delta_ms = time_graph_ms(lambda i: fa.flash_attention_bwd_delta(
+        *pairs[i % len(pairs)]))
+    expr_ms = time_graph_ms(lambda i: fa.flash_attention_bwd_delta_plain(
+        *pairs[i % len(pairs)]))
     record(rows, "flash_attention_bwd_delta", path,
            "deepspeed_tpu/ops/pallas/flash_attention.py:260", delta_checks,
-           delta_ms, time_ms(lambda: fa.flash_attention_bwd_delta(o, do)),
-           time_ms(lambda: fa.flash_attention_bwd_delta_plain(o, do)),
+           delta_ms, time_ms(lambda: fa.flash_attention_bwd_delta(*next(cyc))),
+           time_ms(lambda: fa.flash_attention_bwd_delta_plain(*next(cyc))),
            bound(2 * nbytes(o) + nbytes(delta), 2 * o.numel(),
                  FP32_FLOP_PER_S), info, "one position's delta dropped",
-           extra={"plain_graph_us": expr_ms * 1e3})
+           extra={"plain_graph_us": expr_ms * 1e3,
+                  "input_copies_cycled": len(pairs)})
+    del pairs, cyc
     whole_ms = time_graph_ms(
         lambda i: fa.flash_attention_bwd(q, k, v, o, lse, do, causal))
     b_ms, b_by = bound(in_bytes + 3 * nbytes(q), 5 * mm_flops)
@@ -2444,7 +2504,7 @@ def check_losses(name, losses, warmup):
         raise AssertionError(f"{name}: the loss did not fall: {timed}")
 
 
-def train_llama_offload_phase(rates, stream="auto", warmup=2, budget_s=20.0,
+def train_llama_offload_phase(rates, stream="auto", warmup=2, budget_s=10.0,
                               max_steps=10):
     """``initialize`` + ``train_batch`` of LlamaForCausalLM at LLaMA-7B's
     width and all LLAMA_OFFLOAD_LAYERS layers with the optimizer state
@@ -2458,7 +2518,9 @@ def train_llama_offload_phase(rates, stream="auto", warmup=2, budget_s=20.0,
     floor whatever the copies overlap. Both directions' bytes over the
     duplex rate are printed beside it, unchecked (the probe's duplex
     rate is not a ceiling); an update under the bound fails the
-    phase."""
+    phase. The timed steps fit ``budget_s``: 10 s since the ZeRO-3
+    gather path's phases were added (20 s before: the streamed tier's 6
+    timed steps became 3; the host runner's 2 stay)."""
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
     host = stream == "host"
@@ -5656,7 +5718,7 @@ def zero3_grad_check(rank, world, n_layer=2):
     cfg = engine._fused_cfg
 
     def grads():
-        g, loss, _ = fn(batch)
+        g, loss = fn(batch)[:2]
         full = {k: prefetch.gather_leaf(t, engine._entries[k], mesh)
                 for k, t in zip(engine.param_names, g)}
         return float(loss), full
@@ -5954,7 +6016,8 @@ def zero3_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
     return runs["fused_matmul"]["launches"]
 
 
-def zero2_kernel_phase(gen):
+def zero2_kernel_phase(gen, shapes=None, bucket_elems=ZERO2_BUCKET,
+                       path="train_zero2", phase="zero2_kernels"):
     """mm_rs_reduce as the bucket stream of ZeRO stages 0-2 runs it on
     the card: one launch a bucket over the n ranks' [n, padded / n] fp32
     regions, row ``rank`` of each summed into the rank's chunk. At the
@@ -5966,14 +6029,17 @@ def zero2_kernel_phase(gen):
     Timed at ZERO3_TIMED_RANK by graph replay; library: torch.sum(x, 0)
     over the rank's n rows in one [n, run] buffer; bound: n·run·4 bytes
     read and run·4 written at 3.35 TB/s. The row is the first (larger)
-    bucket's; the last bucket's numbers are its second case."""
+    bucket's; the last bucket's numbers are its second case. ``shapes``,
+    ``bucket_elems`` and ``path``: another model's leaves and bucket
+    (train_zero3_llama's), printed as ``phase``."""
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
     from deepspeed_tpu_torch.ops.cuda import fused_collective as k
     from deepspeed_tpu_torch.parallel import overlap
     n, R = ZERO3_RANKS, ZERO3_TIMED_RANK
-    shapes = [p.shape for p in
-              GPT2LMHeadModel(train_model_config()).parameters()]
-    buckets = overlap.plan_buckets(shapes, ZERO2_BUCKET, n)
+    if shapes is None:
+        shapes = [p.shape for p in
+                  GPT2LMHeadModel(train_model_config()).parameters()]
+    buckets = overlap.plan_buckets(shapes, bucket_elems, n)
     checks, cases, timed = [], [], []
     for which, b in (("first", buckets[0]), ("last", buckets[-1])):
         run = b.padded // n
@@ -6011,14 +6077,14 @@ def zero2_kernel_phase(gen):
         torch.cuda.empty_cache()
     results = []
     ms, call_ms, plain_ms, lib_ms, bnd = timed[0]
-    record(results, "mm_rs_reduce", "train_zero2",
+    record(results, "mm_rs_reduce", path,
            "deepspeed_tpu/ops/pallas/fused_collective.py:491", checks, ms,
            call_ms, plain_ms, bnd, cases,
            "one peer's region read from the wrong rank", library_ms=lib_ms,
            extra={"launches_per_bucket": 1, "buckets": len(buckets),
                   "library": "torch.sum(x, 0) over the n chunk rows in one "
                              "local [n, run] buffer"})
-    emit({"phase": "zero2_kernels", "ranks": n, "bucket_elems": ZERO2_BUCKET,
+    emit({"phase": phase, "ranks": n, "bucket_elems": bucket_elems,
           "buckets": [{"leaves": len(b.leaf_ids), "elements": b.numel,
                        "padded": b.padded} for b in buckets],
           "max_abs_err": max(c[0] for c in checks)})
@@ -6125,18 +6191,26 @@ def zero2_train(rank, world, n_layer, warmup, steps, ckpt_dir=None,
         k.mm_rs_reduce, k.mm_rs_reduce_plain = right, right_plain
 
 
-def zero2_rank(rank, world, n_layer, warmup, steps, ckpt_dir):
+def zero2_rank(rank, world, n_layer, warmup, steps, ckpt_dir,
+               gather_dir=None):
     """One rank of the stage-2 phases: the run with its save and resume,
-    the run with the planted fault, and the same steps at stage 1."""
-    return {"run": zero2_train(rank, world, n_layer, warmup, steps,
-                               ckpt_dir),
-            "fault": zero2_train(rank, world, n_layer, warmup, steps,
-                                 fault=True),
-            "stage1": zero2_train(rank, world, n_layer, warmup, steps,
-                                  stage=1)}
+    the run with the planted fault, and the same steps at stage 1; with
+    ``gather_dir`` then the gather path's runs in the same world
+    (``zero3_gather_rank``)."""
+    out = {"run": zero2_train(rank, world, n_layer, warmup, steps,
+                              ckpt_dir),
+           "fault": zero2_train(rank, world, n_layer, warmup, steps,
+                                fault=True),
+           "stage1": zero2_train(rank, world, n_layer, warmup, steps,
+                                 stage=1)}
+    if gather_dir is not None:
+        out["gather"] = zero3_gather_rank(world, n_layer, warmup, steps,
+                                          gather_dir)
+    return out
 
 
-def zero2_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
+def zero2_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS,
+                      gather=True):
     """Four ranks on the one card at ZeRO stage 2 (``train_zero2``): every
     reading printed, then the launches a step a rank against the design
     (one mm_rs_reduce a bucket, no call of its plain version, the flash
@@ -6147,7 +6221,9 @@ def zero2_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
     resumed by fresh four-rank engines, bit for bit, and by one rank in
     this process, within ZERO3_LOSS_RTOL. Stage 1 runs the same exchange
     and the same moment slices: its losses must equal stage 2's bit for
-    bit. Returns rank 0's launches."""
+    bit. With ``gather`` the same world then runs the gather path's
+    phases (``zero3_gather_phase``), reported after train_zero2's.
+    Returns rank 0's launches, and with ``gather`` the gather path's."""
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
     from deepspeed_tpu_torch.parallel.mesh import spawn
@@ -6157,9 +6233,11 @@ def zero2_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     ckpt_dir = tempfile.mkdtemp(prefix="zero2_")
+    gather_dir = tempfile.mkdtemp(prefix="zero3_gather_") if gather \
+        else None
     try:
         ranks = spawn(zero2_rank, ZERO3_RANKS, n_layer, warmup, steps,
-                      ckpt_dir, timeout=900.0)
+                      ckpt_dir, gather_dir, timeout=900.0)
         run, fault, stage1 = (ranks[0][k]
                               for k in ("run", "fault", "stage1"))
         cfg = train_model_config(n_layer)
@@ -6174,8 +6252,12 @@ def zero2_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
         torch.cuda.empty_cache()
         ckpt_gb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
                       os.walk(ckpt_dir) for f in fs) / 1e9
+        if gather:
+            one_gather = zero3_gather_one_rank(n_layer, gather_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+        if gather_dir is not None:
+            shutil.rmtree(gather_dir, ignore_errors=True)
 
     def max_rel(losses, ref):
         return max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
@@ -6278,7 +6360,376 @@ def zero2_train_phase(n_layer=36, warmup=ZERO3_WARMUP, steps=ZERO3_STEPS):
             ZERO3_LOSS_RTOL * abs(run["next_loss"]):
         raise AssertionError(f"zero2_restore: one rank's loss "
                              f"{one_rank_loss} vs {run['next_loss']}")
-    return run["launches"]
+    if not gather:
+        return run["launches"]
+    return run["launches"], zero3_gather_phase(ranks, n_layer, warmup, steps,
+                                               one_gather)
+
+
+def zero3_gather_ds_config(offload=None, prefetch=False):
+    """train_zero2's config at ZeRO stage 3: the gather path with
+    ``stage3_prefetch`` off; with ``offload`` as its offload_optimizer
+    (``prefetch`` on then falls back to the gather path)."""
+    cfg = zero2_ds_config(3)
+    cfg["zero_optimization"]["stage3_prefetch"] = prefetch
+    if offload is not None:
+        cfg["zero_optimization"]["offload_optimizer"] = offload
+    return cfg
+
+
+def shifted_gather(gather):
+    """``all_gather_slices`` with a planted fault: each rank's shard lands
+    in its neighbour's place (every cut leaf's chunks rolled by one)."""
+    def faulty(leaves, plan, mesh, buckets):
+        gather(leaves, plan, mesh, buckets)
+        for t, e in zip(leaves, plan):
+            if e is not None:
+                t.copy_(torch.roll(t, e[1], dims=e[0]))
+        return leaves
+    return faulty
+
+
+def world_run(mesh, build, batch, warmup, steps):
+    """``build()``'s engine (its build timed with the warmup) trained
+    ``train_batch`` warmup + steps times; over the timed steps the
+    launches, the plain reduce's calls, barriers and each step's
+    CUDA-event split, from the engine's marks: at stage 3 gather,
+    fwd+bwd, exchange, update; at stages 0-2 exchange, update, gather.
+    With the streamed tier the update ends when its last state copy
+    reaches the host, and the tier's stream spans are read too. Returns
+    (the engine, its readings)."""
+    from deepspeed_tpu_torch.ops.cuda import builder
+    from deepspeed_tpu_torch.ops.cuda import fused_collective as fc
+    right_plain, plain_calls = fc.mm_rs_reduce_plain, [0]
+
+    def counted_plain(*a, **kw):
+        plain_calls[0] += 1
+        return right_plain(*a, **kw)
+    free_host_caches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = build()
+    runner = engine._host_runner
+    warm = [engine.train_batch(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    streamed = hasattr(runner, "span_ms")
+    if streamed:
+        runner.timed = True
+    builder.launches.clear()          # count the main path's run only
+    fc.mm_rs_reduce_plain = counted_plain
+    barriers, blocked_s = mesh.barriers, mesh.barrier_s
+    marks, spans, losses = [], [], []
+    try:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            losses.append(engine.train_batch(batch))
+            marks.append(engine.world_marks)
+            if streamed:
+                spans.append(runner.span_ms())
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        fc.mm_rs_reduce_plain = right_plain
+    if streamed:
+        runner.timed = False
+    stage3 = len(marks[0]) == 6      # the gather's two marks first
+    names = ("gather_ms", "fwd_bwd_ms", "exchange_ms", "update_ms") \
+        if stage3 else ("exchange_ms", "update_ms", "gather_ms")
+    split = [{name: m[i][0].elapsed_time(m[i + 1][0])
+              for i, name in enumerate(names)} for m in marks]
+    # the update-and-gather window: from the exchange's end until the
+    # gather after the update ends (at stage 3 the next step's, whose
+    # barrier waits for every rank's last state copy)
+    if stage3:
+        windows = [m[3][0].elapsed_time(m[5][0]) + nxt["gather_ms"]
+                   for m, nxt in zip(marks, split[1:])]
+    else:
+        windows = [m[1][0].elapsed_time(m[3][0]) for m in marks]
+    out = {"losses": [float(x) for x in torch.stack(warm + losses).cpu()],
+           "zero3_path": engine.zero3_path,
+           "tier": None if runner is None else type(runner).__name__,
+           "init_and_warmup_s": init_s, "step_ms": wall_s / steps * 1e3,
+           "split_ms": {k: statistics.median(s_[k] for s_ in split)
+                        for k in names},
+           "update_ms_min": min(s_["update_ms"] for s_ in split),
+           "update_and_gather_ms_min": min(windows) if windows else None,
+           "barriers_per_step": (mesh.barriers - barriers) / steps,
+           "barrier_wall_ms_per_step":
+               (mesh.barrier_s - blocked_s) / steps * 1e3,
+           "launches": dict(builder.launches),
+           "plain_reduce_calls": plain_calls[0],
+           "buckets_per_step": len(engine._buckets),
+           "shards": sum(e is not None for e in engine._plan),
+           "leaves": len(engine._plan),
+           "host_state_gb": getattr(runner, "host_bytes", 0) / 1e9,
+           "peak_torch_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "heap_gb": mesh.heap.nbytes / 1e9}
+    if streamed:
+        out["update_stream_ms"] = {k: statistics.median(s_[k] for s_ in
+                                                        spans)
+                                   for k in spans[0]}
+        out["groups"] = len(runner.groups)
+    return engine, out
+
+
+def zero3_gather_run(mesh, cfg, model, batch, warmup, steps, fault=False):
+    """``world_run`` of a fresh engine of ``model`` under ``cfg``; with
+    ``fault`` the compute copy is gathered by ``shifted_gather``."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.parallel import overlap
+    right_gather = overlap.all_gather_slices
+    if fault:
+        overlap.all_gather_slices = shifted_gather(right_gather)
+    try:
+        return world_run(mesh, lambda: ds.initialize(
+            config=cfg, mesh=mesh, model=model)[0], batch, warmup, steps)
+    finally:
+        overlap.all_gather_slices = right_gather
+
+
+def _gpt2_large(n_layer):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    return GPT2LMHeadModel(train_model_config(n_layer))
+
+
+def zero3_llama_run(mesh, stage, warmup=1, steps=2):
+    """LLaMA-7B's width at ZERO3_LLAMA_LAYERS layers (full-block remat, the
+    chunked loss over the untied head), 1 x ZERO3_LLAMA_SEQ a rank, at
+    ZeRO ``stage`` with a bucket of ZERO3_LLAMA_BUCKET elements."""
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    cfg = llama_train_config(ZERO3_LLAMA_LAYERS)
+    ds_cfg = dict(zero2_ds_config(stage), train_batch_size=ZERO3_RANKS)
+    ds_cfg["zero_optimization"]["reduce_bucket_size"] = ZERO3_LLAMA_BUCKET
+    engine, out = zero3_gather_run(
+        mesh, ds_cfg, LlamaForCausalLM(cfg),
+        llama_batch_ids(cfg, batch=ZERO3_RANKS, seq=ZERO3_LLAMA_SEQ),
+        warmup, steps)
+    engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero3_gather_rank(world, n_layer, warmup, steps, ckpt_dir):
+    """One rank's gather-path runs in train_zero2's world: the train cell
+    at stage 3 (stage3_prefetch off), saved after its steps, the
+    uninterrupted next step, the save loaded by a fresh gather engine
+    and by a fresh prefetch engine (each taking the same step); the
+    planted fault (``shifted_gather``); LLaMA at stage 3 and stage 2."""
+    from deepspeed_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    mesh = make_mesh(MeshConfig(data=world))
+    batch = train_batch_ids()
+    engine, run = zero3_gather_run(mesh, zero3_gather_ds_config(),
+                                   _gpt2_large(n_layer), batch, warmup, steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.save_checkpoint(ckpt_dir, tag="gather")
+    run["save_s"] = time.perf_counter() - t0
+    run["next_loss"] = float(engine.train_batch(batch))
+    engine.close()
+    del engine
+    import deepspeed_tpu_torch as ds
+    for name, prefetch in (("resumed", False), ("resumed_prefetch", True)):
+        free_host_caches()
+        fresh, _, _, _ = ds.initialize(
+            config=zero3_gather_ds_config(prefetch=prefetch), mesh=mesh,
+            model=_gpt2_large(n_layer))
+        t0 = time.perf_counter()
+        fresh.load_checkpoint(ckpt_dir, tag="gather")
+        torch.cuda.synchronize()
+        run[f"{name}_load_s"] = time.perf_counter() - t0
+        run[f"{name}_loss"] = float(fresh.train_batch(batch))
+        run[f"{name}_path"] = fresh.zero3_path
+        fresh.close()
+        del fresh
+    engine, fault = zero3_gather_run(mesh, zero3_gather_ds_config(),
+                                     _gpt2_large(n_layer), batch, warmup,
+                                     steps, fault=True)
+    engine.close()
+    del engine
+    out = {"run": run, "fault": fault,
+           "llama": zero3_llama_run(mesh, 3),
+           "llama_stage2": zero3_llama_run(mesh, 2)}
+    free_host_caches()
+    return out
+
+
+def zero3_gather_one_rank(n_layer, ckpt_dir):
+    """``zero3_gather_restore``'s one-rank resume, in this process: (the
+    loss of the next step, the load's seconds)."""
+    import deepspeed_tpu_torch as ds
+    free_host_caches()
+    engine, _, _, _ = ds.initialize(config=zero3_gather_ds_config(),
+                                    model=_gpt2_large(n_layer))
+    t0 = time.perf_counter()
+    engine.load_checkpoint(ckpt_dir, tag="gather")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loss = float(engine.train_batch(train_batch_ids()))
+    del engine
+    torch.cuda.empty_cache()
+    return loss, load_s
+
+
+def zero3_gather_phase(ranks, n_layer, warmup, steps, one_rank):
+    """``train_zero3_gather``, ``train_zero3_llama`` and
+    ``zero3_gather_restore`` from the ranks' results of train_zero2's
+    world (see the module docstring, phase 19): every reading printed,
+    then the checks. Returns rank 0's launches of the GPT-2 run and of
+    LLaMA's stage-3 run."""
+    run, fault = ranks[0]["gather"]["run"], ranks[0]["gather"]["fault"]
+    llama, llama2 = (ranks[0]["gather"][k] for k in ("llama",
+                                                      "llama_stage2"))
+    one_rank_loss, one_load_s = one_rank
+
+    def max_rel(losses, ref):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    vs_zero2 = max_rel(run["losses"], ZERO2["losses"])
+    vs_ring = max_rel(run["losses"], ZERO3_RING_LOSSES)
+    fault_rel = max_rel(fault["losses"], ZERO2["losses"])
+    llama_rel = max_rel(llama["losses"], llama2["losses"])
+    want = {"mm_rs_reduce": run["buckets_per_step"] * steps,
+            **{name: n_layer * steps for name in FLASH_KERNELS}}
+    L = ZERO3_LLAMA_LAYERS
+    llama_steps = len(llama["losses"]) - 1
+    want_llama = {"mm_rs_reduce": llama["buckets_per_step"] * llama_steps,
+                  "flash_attention_fwd": 2 * L * llama_steps,
+                  "flash_attention_bwd": L * llama_steps,
+                  "flash_attention_bwd_delta": L * llama_steps}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit({"phase": "train_zero3_gather", "model": "gpt2_large",
+          "layers": n_layer, "ranks": ZERO3_RANKS, "zero_stage": 3,
+          "stage3_prefetch": False, "zero3_path": run["zero3_path"],
+          "overlap_comm": True, "bucket_elems": ZERO2_BUCKET,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "rows_per_rank": TRAIN_BATCH // ZERO3_RANKS,
+          "warmup_steps": warmup, "steps": steps,
+          "step_ms": run["step_ms"],
+          "step_ms_by_rank": [rk["gather"]["run"]["step_ms"] for rk in ranks],
+          "tokens_per_s": tokens / run["step_ms"] * 1e3,
+          "split_ms": run["split_ms"],
+          "split_ms_by_rank": [rk["gather"]["run"]["split_ms"]
+                               for rk in ranks],
+          "init_and_warmup_s": run["init_and_warmup_s"],
+          "barriers_per_step": run["barriers_per_step"],
+          "barrier_wall_ms_per_step": run["barrier_wall_ms_per_step"],
+          "buckets_per_step": run["buckets_per_step"],
+          "shards": run["shards"], "leaves": run["leaves"],
+          "peak_torch_memory_gb_by_rank":
+              [rk["gather"]["run"]["peak_torch_memory_gb"] for rk in ranks],
+          "heap_gb_by_rank": [rk["gather"]["run"]["heap_gb"] for rk in ranks],
+          "train_zero2_peak_gb_by_rank": ZERO2["peak_gb"],
+          "train_zero2_heap_gb_by_rank": ZERO2["heap_gb"],
+          "launches_per_step_per_rank":
+              {k: v / steps for k, v in run["launches"].items()},
+          "launches_predicted_per_step_per_rank":
+              {k: v / steps for k, v in want.items()},
+          "plain_reduce_calls_by_rank":
+              [rk["gather"]["run"]["plain_reduce_calls"] for rk in ranks],
+          "losses": run["losses"], "train_zero2_losses": ZERO2["losses"],
+          "bit_equal_to_train_zero2": run["losses"] == ZERO2["losses"],
+          "losses_vs_train_zero2_max_rel": vs_zero2,
+          "losses_vs_zero3_ring_max_rel": vs_ring,
+          "loss_rtol": ZERO3_LOSS_RTOL,
+          "fault": "each rank's compute-copy shard gathered into its "
+                   "neighbour's place",
+          "fault_losses": fault["losses"],
+          "fault_vs_train_zero2_max_rel": fault_rel,
+          "note": "four ranks time-share one card and read their peers' "
+                  "regions from its own HBM: no multi-GPU number"})
+    emit({"phase": "train_zero3_llama", "model": "llama_7b",
+          "layers": L, "reduced": f"depth 32 -> {L}",
+          "ranks": ZERO3_RANKS, "zero_stage": 3,
+          "zero3_path": llama["zero3_path"], "seq": ZERO3_LLAMA_SEQ,
+          "rows_per_rank": 1, "bucket_elems": ZERO3_LLAMA_BUCKET,
+          "warmup_steps": 1, "steps": llama_steps,
+          "step_ms": llama["step_ms"], "split_ms": llama["split_ms"],
+          "barriers_per_step": llama["barriers_per_step"],
+          "peak_torch_memory_gb_by_rank":
+              [rk["gather"]["llama"]["peak_torch_memory_gb"]
+               for rk in ranks],
+          "heap_gb_by_rank": [rk["gather"]["llama"]["heap_gb"]
+                              for rk in ranks],
+          "launches_per_step_per_rank":
+              {k: v / llama_steps for k, v in llama["launches"].items()},
+          "launches_predicted_per_step_per_rank":
+              {k: v / llama_steps for k, v in want_llama.items()},
+          "losses": llama["losses"],
+          "stage2_losses": llama2["losses"],
+          "stage2_step_ms": llama2["step_ms"],
+          "stage2_peak_torch_memory_gb_by_rank":
+              [rk["gather"]["llama_stage2"]["peak_torch_memory_gb"]
+               for rk in ranks],
+          "bit_equal_to_stage2": llama["losses"] == llama2["losses"],
+          "losses_vs_stage2_max_rel": llama_rel,
+          "loss_rtol": ZERO3_LOSS_RTOL})
+    emit({"phase": "zero3_gather_restore", "ranks": ZERO3_RANKS,
+          "save_s_by_rank": [rk["gather"]["run"]["save_s"] for rk in ranks],
+          "next_loss": run["next_loss"],
+          "resumed_loss_by_rank": [rk["gather"]["run"]["resumed_loss"]
+                                   for rk in ranks],
+          "prefetch_loss_by_rank":
+              [rk["gather"]["run"]["resumed_prefetch_loss"] for rk in ranks],
+          "prefetch_path": run["resumed_prefetch_path"],
+          "prefetch_rel": abs(run["resumed_prefetch_loss"]
+                              - run["next_loss"]) / abs(run["next_loss"]),
+          "one_rank_loss": one_rank_loss, "one_rank_load_s": one_load_s,
+          "one_rank_rel": abs(one_rank_loss - run["next_loss"])
+          / abs(run["next_loss"]), "loss_rtol": ZERO3_LOSS_RTOL})
+
+    for r, rank in enumerate(ranks):
+        got = rank["gather"]["run"]
+        if got["launches"] != want:
+            raise AssertionError(f"train_zero3_gather rank {r}: launches "
+                                 f"{got['launches']} != {want}")
+        if rank["gather"]["llama"]["launches"] != want_llama:
+            raise AssertionError(f"train_zero3_llama rank {r}: launches "
+                                 f"{rank['gather']['llama']['launches']} "
+                                 f"!= {want_llama}")
+        if got["plain_reduce_calls"] or \
+                rank["gather"]["llama"]["plain_reduce_calls"]:
+            raise AssertionError(f"train_zero3_gather rank {r}: the plain "
+                                 f"reduce ran")
+        if got["losses"] != run["losses"]:
+            raise AssertionError(f"train_zero3_gather rank {r}: losses "
+                                 f"differ")
+        if got["resumed_loss"] != run["next_loss"]:
+            raise AssertionError(
+                f"zero3_gather_restore rank {r}: resumed loss "
+                f"{got['resumed_loss']!r} != the uninterrupted "
+                f"{run['next_loss']!r}")
+        if not abs(got["resumed_prefetch_loss"] - run["next_loss"]) <= \
+                ZERO3_LOSS_RTOL * abs(run["next_loss"]):
+            raise AssertionError(
+                f"zero3_gather_restore rank {r}: the prefetch path's loss "
+                f"{got['resumed_prefetch_loss']} vs {run['next_loss']}")
+    if run["zero3_path"] != "gather" or \
+            run["resumed_prefetch_path"] != "prefetch" or \
+            llama["zero3_path"] != "gather":
+        raise AssertionError(f"paths: {run['zero3_path']}, "
+                             f"{run['resumed_prefetch_path']}, "
+                             f"{llama['zero3_path']}")
+    if run["losses"] != ZERO2["losses"] and not vs_zero2 <= ZERO3_LOSS_RTOL:
+        raise AssertionError(f"train_zero3_gather losses {run['losses']} vs "
+                             f"train_zero2's {ZERO2['losses']}")
+    if not vs_ring <= ZERO3_LOSS_RTOL:
+        raise AssertionError(f"train_zero3_gather losses vs "
+                             f"train_zero3_ring's: {vs_ring:.3g}")
+    if not fault_rel > ZERO3_LOSS_RTOL:
+        raise AssertionError(f"train_zero3_gather: a planted fault passes "
+                             f"the loss check: {fault_rel:.3g}")
+    timed = llama["losses"][1:]
+    if not (all(np.isfinite(llama["losses"])) and timed[-1] < timed[0]):
+        raise AssertionError(f"train_zero3_llama: losses {llama['losses']}")
+    if not llama_rel <= ZERO3_LOSS_RTOL:
+        raise AssertionError(f"train_zero3_llama losses {llama['losses']} vs "
+                             f"stage 2's {llama2['losses']}")
+    if not abs(one_rank_loss - run["next_loss"]) <= \
+            ZERO3_LOSS_RTOL * abs(run["next_loss"]):
+        raise AssertionError(f"zero3_gather_restore: one rank's loss "
+                             f"{one_rank_loss} vs {run['next_loss']}")
+    return run["launches"], llama["launches"]
 
 
 def zero2_offload_ds_config(offload):
@@ -6317,82 +6768,21 @@ def _zero2_offload_engine(n_layer, mesh, offload, fault=False):
 
 
 def zero2_offload_run(mesh, n_layer, offload, warmup, steps, fault=False):
-    """``train_batch`` warmup + steps times on a fresh offload engine;
-    the launches, the plain reduce's calls, barriers and each step's
-    marks over the timed steps. Returns (the engine, its readings)."""
-    from deepspeed_tpu_torch.ops.cuda import builder
-    from deepspeed_tpu_torch.ops.cuda import fused_collective as fc
-    right_plain, plain_calls = fc.mm_rs_reduce_plain, [0]
-
-    def counted_plain(*a, **kw):
-        plain_calls[0] += 1
-        return right_plain(*a, **kw)
-    free_host_caches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    engine = _zero2_offload_engine(n_layer, mesh, offload, fault)
-    runner = engine._host_runner
-    batch = train_batch_ids()
-    warm = [engine.train_batch(batch) for _ in range(warmup)]
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    streamed = hasattr(runner, "span_ms")
-    if streamed:
-        runner.timed = True
-    builder.launches.clear()          # count the main path's run only
-    fc.mm_rs_reduce_plain = counted_plain
-    barriers, blocked_s = mesh.barriers, mesh.barrier_s
-    marks, spans, losses = [], [], []
-    try:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            losses.append(engine.train_batch(batch))
-            marks.append(engine.world_marks)
-            if streamed:
-                spans.append(runner.span_ms())
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    finally:
-        fc.mm_rs_reduce_plain = right_plain
-    if streamed:
-        runner.timed = False
-    split = [{name: m[i][0].elapsed_time(m[i + 1][0]) for i, name in
-              enumerate(("exchange_ms", "update_ms", "gather_ms"))}
-             for m in marks]
-    for s_, m in zip(split, marks):
-        s_["update_and_gather_ms"] = m[1][0].elapsed_time(m[3][0])
-    out = {"losses": [float(x) for x in torch.stack(warm + losses).cpu()],
-           "tier": type(runner).__name__,
-           "init_and_warmup_s": init_s, "step_ms": wall_s / steps * 1e3,
-           "split_ms": {k: statistics.median(s_[k] for s_ in split)
-                        for k in split[0]},
-           "update_ms_min": min(s_["update_ms"] for s_ in split),
-           "update_and_gather_ms_min": min(s_["update_and_gather_ms"]
-                                           for s_ in split),
-           "barriers_per_step": (mesh.barriers - barriers) / steps,
-           "barrier_wall_ms_per_step":
-               (mesh.barrier_s - blocked_s) / steps * 1e3,
-           "launches": dict(builder.launches),
-           "plain_reduce_calls": plain_calls[0],
-           "buckets_per_step": len(engine._buckets),
-           "host_state_gb": runner.host_bytes / 1e9,
-           "peak_torch_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "heap_gb": mesh.heap.nbytes / 1e9}
-    if streamed:
-        out["update_stream_ms"] = {k: statistics.median(s_[k] for s_ in
-                                                        spans)
-                                   for k in spans[0]}
-        out["groups"] = len(runner.groups)
-    return engine, out
+    """``world_run`` of a fresh offload engine (``_zero2_offload_engine``)
+    on train_zero2's batch."""
+    return world_run(mesh, lambda: _zero2_offload_engine(
+        n_layer, mesh, offload, fault), train_batch_ids(), warmup, steps)
 
 
 def zero2_offload_rank(rank, world, n_layer, warmup, steps, ckpt_dir,
-                       nvme_dir, tier_layers, tier_steps):
+                       nvme_dir, tier_layers, tier_steps, gather=False):
     """One rank of the offload phases: the streamed tier's run with its
     save, the uninterrupted next step, the save resumed by a fresh
-    offload engine and by the device optimizer; the planted fault; at
-    ``tier_layers`` the streamed tier, the host runner and NVMe moments
-    (1 + ``tier_steps`` steps)."""
+    offload engine and by the device optimizer; with ``gather`` the
+    streamed tier at stage 3 with stage3_prefetch on (the gather path,
+    1 + ``tier_steps`` steps); the planted fault; at ``tier_layers`` the
+    streamed tier, the host runner and NVMe moments (1 + ``tier_steps``
+    steps)."""
     from deepspeed_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     mesh = make_mesh(MeshConfig(data=world))
     batch = train_batch_ids()
@@ -6417,6 +6807,13 @@ def zero2_offload_rank(rank, world, n_layer, warmup, steps, ckpt_dir,
         run[f"{name}_loss"] = float(fresh.train_batch(batch))
         fresh.close()
         del fresh
+    if gather:
+        engine, out["gather"] = zero3_gather_run(
+            mesh, zero3_gather_ds_config({"device": "cpu"}, prefetch=True),
+            _gpt2_large(n_layer), batch, 1, tier_steps)
+        engine.close()
+        del engine
+        free_host_caches()
     for name, offload, depth, n_steps in (
             ("fault", {"device": "cpu"}, n_layer, 1),
             ("streamed_cut", {"device": "cpu"}, tier_layers, tier_steps),
@@ -6441,11 +6838,13 @@ def zero2_offload_rank(rank, world, n_layer, warmup, steps, ckpt_dir,
 
 
 def zero2_offload_phase(rates, n_layer=36, warmup=ZERO3_WARMUP,
-                        steps=ZERO3_STEPS, tier_steps=2):
+                        steps=ZERO3_STEPS, tier_steps=2, gather=True):
     """``train_zero2_offload`` and ``zero2_offload_restore``: four ranks
     on the one card at train_zero2's config with the optimizer state off
-    the card (see the module docstring, phase 18). Returns rank 0's
-    launches on the streamed tier's run."""
+    the card (see the module docstring, phase 18); with ``gather`` also
+    ``train_zero3_gather_offload`` (phase 19). Returns rank 0's launches
+    on the streamed tier's run, and with ``gather`` on the gather
+    path's."""
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
     from deepspeed_tpu_torch.parallel.mesh import spawn
@@ -6460,7 +6859,7 @@ def zero2_offload_phase(rates, n_layer=36, warmup=ZERO3_WARMUP,
         tier_layers = min(n_layer, ZERO2_TIER_LAYERS)
         ranks = spawn(zero2_offload_rank, ZERO3_RANKS, n_layer, warmup,
                       steps, ckpt_dir, nvme_dir, tier_layers, tier_steps,
-                      timeout=600.0)
+                      gather, timeout=600.0)
         run = ranks[0]["run"]
         free_host_caches()
         engine, _, _, _ = ds.initialize(
@@ -6617,6 +7016,87 @@ def zero2_offload_phase(rates, n_layer=36, warmup=ZERO3_WARMUP,
             ZERO3_LOSS_RTOL * abs(run["next_loss"]):
         raise AssertionError(f"zero2_offload_restore: one rank's loss "
                              f"{one_rank_loss} vs {run['next_loss']}")
+    if not gather:
+        return run["launches"]
+    return run["launches"], zero3_gather_offload_phase(
+        ranks, run, rates, n_layer, tier_steps)
+
+
+def zero3_gather_offload_phase(ranks, zero2_run, rates, n_layer, steps):
+    """``train_zero3_gather_offload`` from the offload world's ranks: the
+    streamed tier on the gather path (stage3_prefetch on, which falls
+    back), its readings beside train_zero2_offload's, then the checks:
+    launches, the transfer bound under the update-and-gather window (and
+    each rank's bytes under its update), losses bit for bit as
+    train_zero2_offload's first steps (or within LOSS_RTOL, the cause
+    stated). Returns rank 0's launches."""
+    run = ranks[0]["gather"]
+    slow = min(rates["h2d"], rates["d2h"])
+    world_bytes = sum(rk["gather"]["host_state_gb"] for rk in ranks) * 1e9
+    bound_ms = world_bytes / slow / 1e6
+    rank_bound_ms = [rk["gather"]["host_state_gb"] * 1e9 / slow / 1e6
+                     for rk in ranks]
+    want = {"mm_rs_reduce": run["buckets_per_step"] * steps,
+            **{name: n_layer * steps for name in FLASH_KERNELS}}
+    ref = zero2_run["losses"][:len(run["losses"])]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref))
+    emit({"phase": "train_zero3_gather_offload", "model": "gpt2_large",
+          "layers": n_layer, "ranks": ZERO3_RANKS, "zero_stage": 3,
+          "stage3_prefetch": True, "zero3_path": run["zero3_path"],
+          "offload_optimizer": {"device": "cpu"}, "tier": run["tier"],
+          "bucket_elems": ZERO2_BUCKET, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "rows_per_rank": TRAIN_BATCH // ZERO3_RANKS,
+          "warmup_steps": 1, "steps": steps, "step_ms": run["step_ms"],
+          "step_ms_by_rank": [rk["gather"]["step_ms"] for rk in ranks],
+          "split_ms": run["split_ms"],
+          "update_stream_ms": run["update_stream_ms"],
+          "init_and_warmup_s": run["init_and_warmup_s"],
+          "barriers_per_step": run["barriers_per_step"],
+          "barrier_wall_ms_per_step": run["barrier_wall_ms_per_step"],
+          "launches_per_step_per_rank":
+              {k: v / steps for k, v in run["launches"].items()},
+          "pinned_gb_by_rank": [rk["gather"]["host_state_gb"]
+                                for rk in ranks],
+          "pinned_gb_total": world_bytes / 1e9,
+          "peak_torch_memory_gb_by_rank":
+              [rk["gather"]["peak_torch_memory_gb"] for rk in ranks],
+          "heap_gb_by_rank": [rk["gather"]["heap_gb"] for rk in ranks],
+          "train_zero2_offload_step_ms": zero2_run["step_ms"],
+          "pinned_gb_s": dict(rates), "transfer_bound_ms": bound_ms,
+          "update_and_gather_ms_min": run["update_and_gather_ms_min"],
+          "rank_transfer_bound_ms": rank_bound_ms,
+          "update_ms_min_by_rank": [rk["gather"]["update_ms_min"]
+                                    for rk in ranks],
+          "losses": run["losses"], "train_zero2_offload_losses": ref,
+          "bit_equal_to_train_zero2_offload": run["losses"] == ref,
+          "losses_vs_train_zero2_offload_max_rel": rel,
+          "loss_rtol": LOSS_RTOL,
+          "note": "four ranks time-share one card and its host link"})
+    for r, rank in enumerate(ranks):
+        got = rank["gather"]
+        if got["launches"] != want or got["plain_reduce_calls"]:
+            raise AssertionError(f"train_zero3_gather_offload rank {r}: "
+                                 f"launches {got['launches']} != {want}, "
+                                 f"plain {got['plain_reduce_calls']}")
+        if got["losses"] != run["losses"]:
+            raise AssertionError(f"train_zero3_gather_offload rank {r}: "
+                                 f"losses differ")
+        if not got["update_ms_min"] >= rank_bound_ms[r]:
+            raise AssertionError(f"train_zero3_gather_offload rank {r}: an "
+                                 f"update beat its transfer bound "
+                                 f"({rank_bound_ms[r]:.1f} ms)")
+    if run["zero3_path"] != "gather" or \
+            run["tier"] != "StreamedOffloadOptimizer":
+        raise AssertionError(f"train_zero3_gather_offload: path "
+                             f"{run['zero3_path']}, tier {run['tier']}")
+    if not run["update_and_gather_ms_min"] >= bound_ms:
+        raise AssertionError(f"train_zero3_gather_offload: an update and "
+                             f"gather beat the four ranks' transfer bound "
+                             f"({bound_ms:.1f} ms)")
+    if run["losses"] != ref and not rel <= LOSS_RTOL:
+        raise AssertionError(f"train_zero3_gather_offload losses "
+                             f"{run['losses']} vs train_zero2_offload's "
+                             f"{ref}: {rel:.3g}")
     return run["launches"]
 
 
@@ -6656,7 +7136,7 @@ def main():
         return 2
     import deepspeed_tpu_torch.serving as serving
     from deepspeed_tpu_torch.models.gpt2 import gpt2_large, init_params
-    from deepspeed_tpu_torch.models.llama import llama_7b
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
     from deepspeed_tpu_torch.models.llama_inference import \
         init_serving_params
     profile = "--profile" in sys.argv[1:]
@@ -6777,12 +7257,27 @@ def main():
     kernels += [dict(row, path="train_zero2") for row in kernels
                 if row["path"] == "train_zero3_fused"
                 and row["name"] in FLASH_KERNELS]
-    launches["train_zero2"] = zero2_train_phase()
-    torch.cuda.empty_cache()
-    # the offload run takes train_zero2's kernels at its shapes
-    kernels += [dict(row, path="train_zero2_offload") for row in kernels
+    # the gather path runs train_zero2's kernels at its shapes (the same
+    # rows a rank, the same bucket plan); LLaMA's at its own
+    kernels += [dict(row, path="train_zero3_gather") for row in kernels
                 if row["path"] == "train_zero2"]
-    launches["train_zero2_offload"] = zero2_offload_phase(rates)
+    kernels += flash_rows(gen, 1, "train_zero3_llama", H=32,
+                          S=ZERO3_LLAMA_SEQ, D=128)
+    kernels += zero2_kernel_phase(
+        gen, [p_.shape for p_ in LlamaForCausalLM(llama_train_config(
+            ZERO3_LLAMA_LAYERS)).parameters()], ZERO3_LLAMA_BUCKET,
+        "train_zero3_llama", "zero3_llama_kernels")
+    (launches["train_zero2"], (launches["train_zero3_gather"],
+                               launches["train_zero3_llama"])) = \
+        zero2_train_phase()
+    torch.cuda.empty_cache()
+    # the offload runs take train_zero2's kernels at their shapes
+    kernels += [dict(row, path=p_) for row in kernels
+                if row["path"] == "train_zero2"
+                for p_ in ("train_zero2_offload",
+                           "train_zero3_gather_offload")]
+    launches["train_zero2_offload"], \
+        launches["train_zero3_gather_offload"] = zero2_offload_phase(rates)
     decode_paths = [p_ for p_ in launches if p_.startswith(("serve",
                                                             "generate"))]
     for p_ in decode_paths:

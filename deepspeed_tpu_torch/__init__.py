@@ -10,8 +10,8 @@ on the card unless the caller passes ``device="cpu"``.
 Ported so far: GPT-2 paged serving (``serving.build_engine``),
 single-device training (``initialize`` → ``engine.train_batch``), with
 the ZeRO-Offload tiers and, for ``offload_param.stream_segments > 0``,
-the ZeRO-Infinity engine (``runtime/zero/infinity.py``), and ZeRO-3
-training over n ranks (``initialize(mesh=...)``)::
+the ZeRO-Infinity engine (``runtime/zero/infinity.py``), and ZeRO stages
+0-3 over n ranks (``initialize(mesh=...)``)::
 
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel, gpt2_large
@@ -42,8 +42,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     without a card, ``"cpu"`` runs the plain versions of the kernels.
     ``mesh`` is a ``parallel.mesh.Mesh`` (``make_mesh(MeshConfig(data=n))``
     in each of n processes of a ``torch.distributed`` gloo group): at
-    n > 1 the engine runs ZeRO stage 3 with ``stage3_prefetch``, each rank
-    on the mesh's device. ``mpu`` (a model-parallel unit) is not ported.
+    n > 1 the engine runs ZeRO stages 0-2 on the bucket stream and stage
+    3 on the prefetch pipeline or the gather path (``engine.zero3_path``),
+    each rank on the mesh's device. ``mpu`` (a model-parallel unit) is
+    not ported.
     A config with ``zero_optimization.offload_param.stream_segments > 0``
     gives the ZeRO-Infinity engine (``runtime/zero/infinity.py``) and
     ``(engine, None, None, None)``, as JAX's ``initialize`` does;

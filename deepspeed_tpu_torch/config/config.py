@@ -441,11 +441,6 @@ class ZeroConfig:
                 "offload_optimizer stream='device' supports device='cpu' "
                 "with Adam/AdamW only (NVMe state and LAMB run on the host "
                 "runner)")
-        if (self.offload_optimizer.enabled or self.offload_param.enabled) \
-                and self.stage3_prefetch:
-            raise NotImplementedError(
-                f"the offload tiers with stage3_prefetch are not ported "
-                f"({ROADMAP_MULTI_RANK})")
 
 
 # MoQ quantize-aware training and progressive layer drop: the keys and
@@ -556,20 +551,14 @@ class DeepSpeedConfig:
         self.zero_enabled = self.zero_optimization_stage > 0
         self.zero_config = ZeroConfig(pd)
         self.aio_config = AioConfig(pd)
-        # the optimizer tiers run at world size n on each rank's slices at
-        # stages 0-2; the parameter tier is ZeRO-Infinity's, a stage-3
-        # feature
+        # the optimizer tiers run at world size n on each rank's slices
+        # (stages 0-2) or shards (stage 3, off the prefetch pipeline); the
+        # parameter tier is ZeRO-Infinity's
         zc = self.zero_config
         if self.world_size > 1 and zc.offload_param.enabled:
             raise NotImplementedError(
                 f"the parameter tier (offload_param) at world size "
                 f"{self.world_size} is not ported ({ROADMAP_MULTI_RANK})")
-        if self.world_size > 1 and zc.offload_optimizer.enabled \
-                and self.zero_optimization_stage == 3:
-            raise NotImplementedError(
-                f"the offload tiers at world size {self.world_size} run at "
-                f"ZeRO stages 0-2; at stage 3 they are not ported "
-                f"({ROADMAP_MULTI_RANK})")
         data = int((pd.get("mesh") or {}).get("data", 1))
         if data > 1 and data != self.world_size:
             raise DeepSpeedConfigError(

@@ -60,7 +60,10 @@ per-micro copy of gradients to the host under ``overlap_comm``
 keep the per-rank windows, the masters cut as the moments are, so a save
 restores into either optimizer at any world size.
 
-ZeRO stage 3 at world size n needs ``stage3_prefetch``: the JAX engine's
+ZeRO stage 3 at world size n takes one of JAX's two paths
+(``_choose_zero3_path``, JAX's ``_compute_prefetch`` :1976). With
+``stage3_prefetch``, no offload tier, the model's layered-apply contract
+and no user ``loss_fn``, ``train_batch`` runs the JAX engine's
 ``_build_prefetch_train_fn`` (:2033). Each rank keeps its shard of every
 leaf the stage-3 specs cut (``runtime/zero/partition.py``) as fp32
 masters with its AdamW moments; the compute copy of the shards lives in
@@ -70,7 +73,22 @@ takes the rank's rows of the global batch, gathers the outer leaves once
 pipeline (``parallel/prefetch.py``; under ``fused_matmul`` the four
 projections stream through the fused kernels), scales the shard
 gradients (sums over the ranks) by 1/n, all-reduces the replicated
-leaves' gradients and the loss to their means, and updates the shards.
+leaves' gradients and the loss to their means (and under fp16 the finite
+flag, so every rank skips together), and updates the shards.
+
+Every other case at stage 3 takes the gather path, JAX's fused GSPMD
+stage-3 program (``_build_jit_fns`` :1474) in explicit form: each rank
+keeps its shards of the stage-3 plan (``stage3_param_plan``: JAX's
+``param_specs`` over the JAX tree's leaves) as fp32 masters and moments
+(or in its offload tier) and as compute-copy shards; a step all-gathers
+the compute copy whole into the module's parameters before its first
+micro batch, runs the module's own forward and backward on the rank's
+rows (any model, any ``loss_fn``), releases the whole copy after the
+last backward, and runs the bucket stream and update of stages 0-2 on
+the rank's shards, which writes the rank's compute-copy shards and
+gathers nothing. ``forward``/``backward``/``step`` and ``eval_batch`` run
+the gather path's step on either path, on the same shards, as JAX runs
+its GSPMD functions there.
 """
 
 import inspect
@@ -103,7 +121,8 @@ from deepspeed_tpu_torch.runtime.lr_schedules import (_Schedule,
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
     ProgressiveLayerDrop
 from deepspeed_tpu_torch.runtime.quantize import Quantizer
-from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartitioner
+from deepspeed_tpu_torch.runtime.zero.partition import (ZeroPartitioner,
+                                                      stage3_param_plan)
 from deepspeed_tpu_torch.telemetry.registry import MetricsRegistry
 from deepspeed_tpu_torch.utils.device import resolve_device
 
@@ -170,6 +189,7 @@ class DeepSpeedEngine:
         self.metrics = MetricsRegistry()
         if self.mesh is not None:
             self._check_world_path()
+        self.zero3_path = self._choose_zero3_path()
         self.precision = prec.PrecisionConfig.from_ds_config(self._config)
 
         if optimizer is None:
@@ -182,8 +202,8 @@ class DeepSpeedEngine:
                             "TorchOptimizer (ops/adam.py FusedAdam)")
         if self.mesh is not None and not getattr(
                 self.optimizer, "elementwise_update", False):
-            # JAX falls back to its GSPMD exchange here, which the port
-            # does not have
+            # JAX falls back to its GSPMD exchange here, whose optimizer
+            # sees whole leaves; every n-rank path of the port steps slices
             raise NotImplementedError(
                 f"{type(self.optimizer).__name__} is not elementwise: the "
                 f"per-rank ZeRO update slices leaves, which breaks its "
@@ -275,6 +295,7 @@ class DeepSpeedEngine:
         self._loss_fn = None
         self._moq_batch = None
         self.world_marks = None
+        self._gathered = False
         if self.mesh is None:
             self._init_state(model_parameters)
         elif self._prefetch_active():
@@ -340,6 +361,7 @@ class DeepSpeedEngine:
                 torch.Generator(device=dev).manual_seed(self._seed))
         self.param_names = [n for n, _ in model.named_parameters()]
         params = [p for _, p in model.named_parameters()]
+        self._module_params = params
         for n, p in zip(self.param_names, params):
             if p.dtype != torch.float32:
                 raise ValueError(f"parameter {n} is {p.dtype}: the engine "
@@ -384,6 +406,10 @@ class DeepSpeedEngine:
             return self._refresh_zero3()
         if self._host_runner is not None:
             return      # the offload step writes the compute copy itself
+        if self.zero3_path == "gather":
+            with torch.no_grad():
+                torch._foreach_copy_(self._rest, self.master)
+            return
         if self._bf16_grads:
             with torch.no_grad():
                 torch._foreach_copy_([p.data for p in self.compute_params],
@@ -437,22 +463,24 @@ class DeepSpeedEngine:
         return _map(lambda x: torch.as_tensor(np.asarray(x)).to(self.device)
                     if not torch.is_tensor(x) else x.to(self.device), batch)
 
-    def _micro_loss_and_grads(self, micro_batch, loss_fn=None):
+    def _micro_loss_and_grads(self, micro_batch, loss_fn=None, params=None):
         """(loss, grads) of one micro batch: grads of loss × loss scale,
         in the compute parameters' dtype (bf16 with grad_dtype bf16).
         ``loss_fn(micro, keep_prob)``: the loss (default: the engine's
-        loss of the module)."""
+        loss of the module); ``params``: what the gradients are of
+        (default the compute copy)."""
         if self._loss_fn is None:
             self._loss_fn = self._resolve_loss_fn()
         pld = self.progressive_layer_drop
         keep = 1.0 if pld is None else pld.theta_at(self.global_step_t)
         loss = loss_fn(micro_batch, keep) if loss_fn is not None else \
             self._loss_fn(self.module, micro_batch, keep)
+        params = self.compute_params if params is None else params
         grads = torch.autograd.grad(
-            (loss.float() * self.scaler["loss_scale"]), self.compute_params,
+            (loss.float() * self.scaler["loss_scale"]), params,
             allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, self.compute_params)]
+                 for g, p in zip(grads, params)]
         return loss.detach().float(), grads
 
     def _split(self, batch, gas):
@@ -530,16 +558,17 @@ class DeepSpeedEngine:
         return {"loss": loss, "grad_norm": grad_norm, "lr": lr,
                 "overflow": ~finite, "loss_scale": self.scaler["loss_scale"]}
 
-    def _apply_grads(self, grads, loss, sq_norm=None):
+    def _apply_grads(self, grads, loss, sq_norm=None, finite=None):
         """Unscale, clip, step, scaler update in one pass of the update
         (engine.py:1394); the caller refreshes the compute copy. On an
         fp16 overflow the masters and the optimizer state keep their
         values (``_tree_where``): the optimizer folds the finite flag into
-        its update. ``sq_norm``: the global squared gradient norm, when
-        ``grads`` are one rank's shards."""
+        its update. ``sq_norm`` and ``finite``: the global squared
+        gradient norm and finite flag, when ``grads`` are one rank's
+        shards."""
         with torch.no_grad():
-            finite = prec.grads_finite(grads) if self.precision.fp16 \
-                else None
+            if finite is None and self.precision.fp16:
+                finite = prec.grads_finite(grads)
             grad_norm, gscale = self._clip_coefficient(grads, sq_norm)
             lr = self._lr()
             self.optimizer.step(self.master, grads, self.opt_state, lr,
@@ -575,18 +604,22 @@ class DeepSpeedEngine:
         batch = self._to_device(batch)
         self._ensure_params_resident()
         if self.mesh is not None and not self._prefetch_active():
+            marks = self._gather_compute_copy()
             grads, loss = self._accumulate_grads(self._rank_rows(batch))
+            self._release_compute_copy()
             metrics = self._world_apply_grads(grads, loss)
+            if marks is not None and self.world_marks is not None:
+                self.world_marks = list(marks) + self.world_marks
             del grads
         elif self._host_runner is not None:
             metrics = self._offload_train_batch(batch)
         else:
+            finite = sq_norm = None
             if self._prefetch_active():
-                grads, loss, sq_norm = self._zero3_grads(batch)
+                grads, loss, sq_norm, finite = self._zero3_grads(batch)
             else:
                 grads, loss = self._accumulate_grads(batch)
-                sq_norm = None
-            metrics = self._apply_grads(grads, loss, sq_norm)
+            metrics = self._apply_grads(grads, loss, sq_norm, finite)
             del grads
         self.micro_steps += self.gradient_accumulation_steps()
         self._after_step(metrics)
@@ -600,15 +633,19 @@ class DeepSpeedEngine:
         ``backward``/``step`` (engine.py:3229). At world size n the rank
         takes its rows of the micro batch and keeps its local gradients;
         the loss returned is the mean over the ranks, the micro batch's
-        loss as JAX returns it."""
-        self._one_rank_only("forward/backward/step")
+        loss as JAX returns it. At ZeRO stage 3 (either path: JAX runs
+        them on its GSPMD program) the whole compute copy is gathered
+        first, unless it is held from an earlier micro batch, and held
+        until ``step``."""
         self._ensure_params_resident()
         batch = self._to_device(batch)
         if self.mesh is None:
             loss, grads = self._micro_loss_and_grads(batch)
             self._pending_micro = (loss, grads, loss)
         else:
-            loss, grads = self._micro_loss_and_grads(self._rank_rows(batch))
+            self._gather_compute_copy()
+            loss, grads = self._micro_loss_and_grads(
+                self._rank_rows(batch), params=self._module_params)
             mean = overlap.all_reduce(loss.reshape(1), self.mesh,
                                       mean=True)[0]
             self._pending_micro = (loss, grads, mean)
@@ -621,7 +658,6 @@ class DeepSpeedEngine:
     def backward(self, loss=None):
         """Accumulate the kept micro gradients in fp32, divided by gas (at
         world size n the rank's local ones: ``step`` exchanges them)."""
-        self._one_rank_only("forward/backward/step")
         if self._pending_micro is None:
             raise AssertionError("forward() must precede backward()")
         local, grads, mloss = self._pending_micro
@@ -638,13 +674,14 @@ class DeepSpeedEngine:
         return loss if loss is not None else mloss
 
     def step(self):
-        """The optimizer step at a gradient-accumulation boundary."""
-        self._one_rank_only("forward/backward/step")
+        """The optimizer step at a gradient-accumulation boundary (at
+        ZeRO stage 3 the gathered compute copy is released first)."""
         if self.micro_steps % self.gradient_accumulation_steps() != 0:
             return
         if self._pending_grads is None:
             raise AssertionError("backward() must precede step()")
         if self.mesh is not None:
+            self._release_compute_copy()
             metrics = self._world_apply_grads(self._pending_grads,
                                               self._accum_loss)
         elif self._host_runner is not None:
@@ -939,53 +976,60 @@ class DeepSpeedEngine:
                     park=park)
             return self._end_update(loss, norm, lr, fin_t)
 
-    # -- ZeRO stages 0-2 at world size n ------------------------------------
-    def _one_rank_only(self, what):
-        if self._prefetch_active():
-            raise NotImplementedError(
-                f"{what} on the ZeRO-3 prefetch path at world size "
-                f"{self.mesh.size} is not ported; it trains there through "
-                f"train_batch ({ROADMAP_MULTI_RANK})")
-
+    # -- ZeRO stages 0-3 at world size n ------------------------------------
     def _check_world_path(self):
-        """What the n-rank paths run. Stages 0-2: any model, a user
-        ``loss_fn``, fp16 or bf16 (``_compute_overlap_comm`` :1798); the
-        optimizer must be elementwise (checked once it is built). Stage 3:
-        ``stage3_prefetch`` (``_compute_prefetch`` :1971, whose fallback,
-        the fused GSPMD exchange, the port does not have), the model's
-        layered-apply contract, the default loss, bf16 or fp32. MoQ and
-        its eigenvalues quantize whole leaves on one rank: refused."""
-        n, zc = self.mesh.size, self._config.zero_config
-        why = None
+        """What the n-rank paths do not run: MoQ and its eigenvalues,
+        which quantize whole leaves on one rank (the optimizer must be
+        elementwise, checked once it is built; the parameter tier at
+        world size n is refused by the config)."""
         if self._config.quantize_training_config.enabled:
-            why = (f"MoQ (quantize_training, its eigenvalues) at world size "
-                   f"{n}")
-        elif zc.stage < 3:
-            pass
-        elif not zc.stage3_prefetch:
-            why = (f"ZeRO stage 3 at world size {n} without stage3_prefetch "
-                   f"(the port runs stage 3 through the prefetch pipeline "
-                   f"alone)")
-        elif not (getattr(self.module, "prefetch_layer_subtree", None)
-                  and hasattr(self.module, "prefetch_apply")):
-            why = (f"{type(self.module).__name__} does not expose the "
-                   f"layered-apply contract (prefetch_apply + a "
-                   f"prefetch_layer_subtree)")
+            raise NotImplementedError(
+                f"MoQ (quantize_training, its eigenvalues) at world size "
+                f"{self.mesh.size}: not ported ({ROADMAP_MULTI_RANK})")
+
+    def _choose_zero3_path(self):
+        """Which path ZeRO stage 3 takes at world size n, as JAX's
+        ``_compute_prefetch`` (:1976) decides it: "prefetch" (the layered
+        pipeline, ``_build_prefetch_train_fn``) with ``stage3_prefetch``,
+        no offload tier, the model's layered-apply contract and no user
+        ``loss_fn``; otherwise "gather" (JAX's fused GSPMD stage-3 path,
+        ``_init_zero3_gather_state``). None below stage 3 or on one rank.
+        ``forward``/``backward``/``step`` and ``eval_batch`` run the gather
+        path's step on either, as JAX runs its GSPMD functions there. Rank
+        0 logs the choice with JAX's reason."""
+        if self.mesh is None or self._config.zero_optimization_stage < 3:
+            return None
+        zc, model = self._config.zero_config, self.module
+        why = None
+        if not zc.stage3_prefetch:
+            why = "stage3_prefetch is off"
+        elif zc.offload_optimizer.enabled:
+            why = ("stage3_prefetch: optimizer/pinned-host offload tiers "
+                   "stream state through host memory on their own "
+                   "schedule; falling back to the fused GSPMD stage-3 "
+                   "exchange")
+        elif not (getattr(model, "prefetch_layer_subtree", None)
+                  and hasattr(model, "prefetch_apply")):
+            why = (f"stage3_prefetch: {type(model).__name__} does not "
+                   f"expose the layered-apply contract (prefetch_apply + a "
+                   f"non-None prefetch_layer_subtree — scanned layers, no "
+                   f"MoE, no dropout); falling back to the fused GSPMD "
+                   f"exchange")
         elif self._loss_fn_user is not None:
-            why = "a custom loss_fn on the ZeRO-3 prefetch path"
-        elif self._config.fp16_enabled:
-            why = "fp16 loss scaling on the ZeRO-3 prefetch path"
-        if why is not None:
-            raise NotImplementedError(f"{why}: not ported "
-                                      f"({ROADMAP_MULTI_RANK})")
+            why = ("stage3_prefetch: a custom loss_fn drives model.apply "
+                   "itself, which the layered pipeline cannot intercept; "
+                   "falling back to the fused GSPMD exchange")
+        path = "prefetch" if why is None else "gather"
+        if self.mesh.rank == 0:
+            logger.info(f"ZeRO stage 3 at world size {self.mesh.size}: the "
+                        f"{path} path" + (f" ({why})" if why else ""))
+        return path
 
     def _prefetch_active(self):
-        """True when train_batch runs the stage-3 prefetch pipeline: a
-        world of more than one rank at ZeRO stage 3 (``_prefetch_active``
-        :1960; at world size 1 nothing is sharded and the plain path is
-        the program; stages 0-2 run the bucket stream)."""
-        return self.mesh is not None and \
-            self._config.zero_optimization_stage == 3
+        """True when train_batch runs the stage-3 prefetch pipeline
+        (``_prefetch_active`` :1960; at world size 1 nothing is sharded
+        and the plain path is the program)."""
+        return self.zero3_path == "prefetch"
 
     def _rank_rows(self, batch):
         """This rank's rows of the global batch: the r-th of n equal
@@ -997,36 +1041,117 @@ class DeepSpeedEngine:
 
     def _init_world_state(self, model_parameters=None):
         """ZeRO stages 0-2 at world size n (``_build_overlap_train_fn``
-        :1840): the model placed and initialized as on one rank (the
-        same seed on every rank, so the same weights), the fp32 masters
-        and the compute copy whole, the moments of this rank's slices
-        (``explicit_shard_plan`` of the moment specs; the persistence
-        threshold is stage 3's alone, as in JAX), the bucket plan over the
+        :1840), and stage 3's gather path: the model placed and
+        initialized as on one rank (the same seed on every rank, so the
+        same weights); at stages 0-2 the fp32 masters and the compute copy
+        whole, the moments of this rank's slices (``explicit_shard_plan``
+        of the moment specs; the persistence threshold is stage 3's alone,
+        as in JAX); at stage 3 this rank's shards alone
+        (``_init_zero3_gather_state``). Then the bucket plan over the
         leaves in order, and on the card a symmetric heap whose two
         exchange slots hold the largest bucket."""
         mesh, zc = self.mesh, self._config.zero_config
         n = mesh.size
         params = self._place_model(model_parameters)
         shapes = {k: tuple(p.shape) for k, p in zip(self.param_names, params)}
-        self._plan = ZeroPartitioner(n, zc.stage).explicit_shard_plan(shapes)
-        self._entries = {k: None for k in self.param_names}
-        self._moment_entries = dict(zip(self.param_names, self._plan))
-        if self._offload_cfg.enabled:
-            # the rank's slices of the masters and their moments go to
-            # the rank's offload tier
-            self._init_offload_state(
-                params, self._own_slices([p.data for p in params]))
+        if self.zero3_path == "gather":
+            self._plan = stage3_param_plan(self.module, shapes, n,
+                                           zc.param_persistence_threshold)
+            self._entries = dict(zip(self.param_names, self._plan))
+            self._moment_entries = self._entries
+            self._init_zero3_gather_state(params)
         else:
-            self._keep_masters(params)
-            self.opt_state = self.optimizer.init(
-                self._own_slices(self.master))
-        total = sum(p.numel() for p in params)
-        bucket = zc.reduce_bucket_size if zc.reduce_bucket_size > 0 \
-            else total
-        self._buckets = overlap.plan_buckets(
-            [p.shape for p in params], bucket, n)
+            self._plan = ZeroPartitioner(n, zc.stage).explicit_shard_plan(
+                shapes)
+            self._entries = {k: None for k in self.param_names}
+            self._moment_entries = dict(zip(self.param_names, self._plan))
+            if self._offload_cfg.enabled:
+                # the rank's slices of the masters and their moments go to
+                # the rank's offload tier
+                self._init_offload_state(
+                    params, self._own_slices([p.data for p in params]))
+            else:
+                self._keep_masters(params)
+                self.opt_state = self.optimizer.init(
+                    self._own_slices(self.master))
+        self._buckets = self._bucket_plan(shapes.values())
         if mesh.device.type == "cuda":
             SymmetricHeap(mesh, {}, 4 * max(b.padded for b in self._buckets))
+
+    def _bucket_plan(self, shapes, cap=None):
+        """The bucket plan over the whole leaves' ``shapes`` in order:
+        ``reduce_bucket_size`` elements a bucket (every leaf in one when it
+        is not positive), at most ``cap``."""
+        zc = self._config.zero_config
+        bucket = zc.reduce_bucket_size if zc.reduce_bucket_size > 0 \
+            else sum(math.prod(s) for s in shapes)
+        if cap is not None:
+            bucket = min(bucket, cap)
+        return overlap.plan_buckets(list(shapes), bucket, self.mesh.size)
+
+    def _init_zero3_gather_state(self, params):
+        """ZeRO stage 3 off the prefetch pipeline at world size n (JAX's
+        fused GSPMD stage-3 path, ``_build_jit_fns`` :1474): this rank
+        keeps its shards of the stage-3 plan (``stage3_param_plan``) and
+        nothing whole: the fp32 masters with their AdamW moments, or the
+        offload tier holding both; and the compute copy's shards
+        (``_rest``; bf16 with grad_dtype bf16, fp16 under fp16 with an
+        offload tier, else fp32). A step gathers the compute copy whole
+        into the module's parameters before its first micro batch
+        (``_gather_compute_copy``) and releases it after the last
+        backward; outside a step the parameters hold no storage."""
+        own = [t.clone() for t in self._own_slices([p.data for p in params])]
+        cdt = torch.bfloat16 if self._bf16_grads else \
+            torch.float16 if (self.precision.fp16
+                              and self._offload_cfg.enabled) \
+            else torch.float32
+        self._rest = [m.to(cdt, copy=True) for m in own]
+        if self._offload_cfg.enabled:
+            self._host_runner = self._make_offload_runner(own)
+            self.master, self.opt_state = None, {}
+        else:
+            self.master = own
+            self.opt_state = self.optimizer.init(self.master)
+        self.compute_params = params
+        for p in params:
+            p.data = torch.empty(0, dtype=cdt, device=self.device)
+
+    def _gather_compute_copy(self):
+        """ZeRO stage 3 at world size n: every rank's compute-copy shards
+        all-gathered whole into the module's parameters
+        (``all_gather_slices`` over the bucket plan, in the compute dtype:
+        half the bytes of the fp32 masters under bf16), held until
+        ``_release_compute_copy``. Returns the (start, end) timing marks
+        on the card, else None; a no-op below stage 3 or when held."""
+        if self.zero3_path is None or self._gathered:
+            return None
+        mesh, r = self.mesh, self.mesh.rank
+        m0 = self._mark()
+        with torch.no_grad():
+            whole = []
+            for shard, e in zip(self._rest, self._plan):
+                if e is None:
+                    whole.append(shard.detach())
+                    continue
+                shape = list(shard.shape)
+                shape[e[0]] *= mesh.size
+                t = torch.empty(shape, dtype=shard.dtype, device=shard.device)
+                t.narrow(e[0], r * e[1], e[1]).copy_(shard)
+                whole.append(t)
+            overlap.all_gather_slices(whole, self._plan, mesh, self._buckets)
+        for p, t in zip(self._module_params, whole):
+            p.data = t
+        self._gathered = True
+        return None if m0 is None else (m0, self._mark())
+
+    def _release_compute_copy(self):
+        """The gathered compute copy let go: the module's parameters hold
+        no storage again."""
+        if not self._gathered:
+            return
+        for p in self._module_params:
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        self._gathered = False
 
     def _own_slices(self, tensors, plan=None):
         """This rank's slice of each leaf (a view; whole where the plan,
@@ -1053,8 +1178,13 @@ class DeepSpeedEngine:
         mean and skips. On the card ``world_marks`` keeps CUDA events at
         the step's four points (start, exchanged, updated, gathered); with
         the streamed tier the update ends when its last state copy
-        reaches the host, and the gather waits for it."""
+        reaches the host, and the gather waits for it. At ZeRO stage 3
+        the rank's slices are its shards: the optimizer (or the tier)
+        steps the shards of the masters and writes the rank's shards of
+        the compute copy, and nothing is gathered (the next step's start
+        gathers the compute copy)."""
         mesh = self.mesh
+        stage3 = self.zero3_path is not None
         marks = [self._mark()]
         fp16 = self.precision.fp16
         if not isinstance(grads, list):
@@ -1083,18 +1213,20 @@ class DeepSpeedEngine:
             if runner is None:
                 grad_norm, gscale = self._clip_coefficient(own, sq_norm)
                 lr = self._lr()
-                self.optimizer.step(self._own_slices(self.master), own,
-                                    self.opt_state, lr, grad_scale=gscale,
-                                    finite=finite)
+                self.optimizer.step(
+                    self.master if stage3 else self._own_slices(self.master),
+                    own, self.opt_state, lr, grad_scale=gscale,
+                    finite=finite)
                 metrics = self._end_update(loss, grad_norm, lr, finite)
-                gathered = self.master
+                gathered = None if stage3 else self.master
             else:
                 # every rank reads the same flag: all skip, or none
                 stepped = bool(finite) if fp16 else True
-                compute = [p.data for p in self.compute_params]
+                compute = None if stage3 else \
+                    [p.data for p in self.compute_params]
                 metrics = self._offload_apply_grads(
-                    own, loss, stepped, sq_norm,
-                    params=self._own_slices(compute))
+                    own, loss, stepped, sq_norm, params=self._rest if stage3
+                    else self._own_slices(compute))
                 gathered = compute if stepped else None
                 store = getattr(runner, "store_stream", None)
             del own
@@ -1162,9 +1294,17 @@ class DeepSpeedEngine:
                 return t.detach().clone()
             d, size = e
             return t.detach().narrow(d, rank * size, size).clone()
+        whole = [tuple(m.shape) for m in self.master]
         self.master = [shard_of(m, self._entries[k])
                        for k, m in zip(self.param_names, self.master)]
+        # the gather path's state (forward/backward/step, eval_batch) on
+        # the same shards: the plan by leaf and a bucket plan whose
+        # buckets fit the heap's slots
+        self._plan = [self._entries[k] for k in self.param_names]
+        self._buckets = self._bucket_plan(
+            whole, cap=max(math.prod(s) for s in whole))
         self.compute_params = self._zero3_compute_copy(cdt)
+        self._rest = self.compute_params
         for p in model.parameters():
             p.data = torch.empty(0, dtype=p.dtype, device=dev)
         self._moment_entries = self._entries
@@ -1207,7 +1347,8 @@ class DeepSpeedEngine:
                        for leaf in self._layer_leaves], n)
         repl = sum(f for f, k in zip(full, self.param_names)
                    if self._entries[k] is None)
-        heap = SymmetricHeap(mesh, regions, 4 * max(full + [layer, repl]))
+        heap = SymmetricHeap(mesh, regions, 4 * max(
+            full + [layer, repl] + [b.padded for b in self._buckets]))
         views = {}
         for region, names in packed.items():
             buf, off = heap.tensor(region), 0
@@ -1328,10 +1469,11 @@ class DeepSpeedEngine:
 
     def _build_prefetch_train_fn(self):
         """The n-rank step's gradients (``_build_prefetch_train_fn``
-        :2033): ``fn(batch) -> (grads, loss, squared norm)``, fp32
+        :2033): ``fn(batch) -> (grads, loss, squared norm, finite)``, fp32
         gradients of this rank's shards (SUMS over the ranks scaled by
         1/n) and of the replicated leaves (all-reduced means), the loss
-        the global mean. Each rank takes its rows of the global batch and
+        the global mean, and under fp16 the global finite flag (None
+        otherwise). Each rank takes its rows of the global batch and
         accumulates its micro batches as one rank does
         (``_accumulate_grads``); the caller updates the shards."""
         mesh, model = self.mesh, self.module
@@ -1365,6 +1507,8 @@ class DeepSpeedEngine:
             return model.prefetch_apply(view, ids, run_layers,
                                         keep_prob=keep, labels=labels)
 
+        fp16 = self.precision.fp16
+
         def fn(batch):
             grads, loss = self._accumulate_grads(self._rank_rows(batch),
                                                  micro_loss)
@@ -1377,9 +1521,15 @@ class DeepSpeedEngine:
                     acc[i] = g
                 zero = torch.zeros((), device=self.device)
                 shard_sq = sum((acc[i].square().sum() for i in sharded), zero)
-                tot = overlap.all_reduce(torch.stack([loss, shard_sq]), mesh)
+                # the ranks whose shard or replicated gradients are not
+                # finite, summed with the loss and the shard norms: under
+                # fp16 every rank skips together (JAX's pmin, :2359)
+                bad = (~prec.grads_finite(acc)).float() if fp16 else zero
+                tot = overlap.all_reduce(torch.stack([loss, shard_sq, bad]),
+                                         mesh)
                 repl_sq = sum((acc[i].square().sum() for i in repl), zero)
-            return acc, tot[0] / n, tot[1] + repl_sq
+            finite = tot[2] == 0 if fp16 else None
+            return acc, tot[0] / n, tot[1] + repl_sq, finite
         return fn
 
     def _rows_divisible(self, batch, n):
@@ -1433,9 +1583,10 @@ class DeepSpeedEngine:
                 self._param_host = None
             return
         self._zero3_grads = None
+        self._release_compute_copy()
         if self.mesh.heap is not None:
             if self._prefetch_active():
-                self.compute_params = None
+                self.compute_params = self._rest = None
             self.mesh.heap.close()
 
 
@@ -1443,10 +1594,11 @@ class DeepSpeedEngine:
         self._pending_grads = None
 
     def eval_batch(self, batch):
-        """The model's output (logits) for the batch's inputs (at world
-        size n, stages 0-2, the whole batch's on every rank: the
-        parameters are replicated)."""
-        self._one_rank_only("eval_batch")
+        """The model's output (logits) for the batch's inputs; at world
+        size n the whole batch's on every rank (``_jit_eval`` :1610): the
+        parameters are replicated at stages 0-2, and at stage 3 the
+        compute copy is gathered for the call and released after it
+        (unless a ``forward`` holds it)."""
         self._ensure_params_resident()
         batch = self._to_device(batch)
         if isinstance(batch, dict):
@@ -1456,8 +1608,14 @@ class DeepSpeedEngine:
             x = batch[0]
         else:
             x = batch
-        with torch.no_grad():
-            return self.module(x)
+        held = self._gathered
+        self._gather_compute_copy()
+        try:
+            with torch.no_grad():
+                return self.module(x)
+        finally:
+            if not held:
+                self._release_compute_copy()
 
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None):
         return DeepSpeedDataLoader(
@@ -1713,13 +1871,19 @@ class DeepSpeedEngine:
     def _adopt_world_offload(self, reader, want_opt, fill):
         """World size n with an offload tier: every leaf's master read
         whole (the compute copy is its cast, the tier takes the rank's
-        slices of it) and, with ``want_opt``, the rank's moment slices and
-        Adam's count into the tier (``fill(prefix, tensors, entries)``
-        reads windows into CPU tensors)."""
+        slices of it; at stage 3 the rank's shards alone, for the tier
+        and the compute copy's shards) and, with ``want_opt``, the rank's
+        moment slices and Adam's count into the tier (``fill(prefix,
+        tensors, entries)`` reads windows into CPU tensors)."""
         runner = self._host_runner
-        whole = [torch.empty(p.shape) for p in self.compute_params]
-        fill("model_states:params", whole, self._entries)
-        mine = self._own_slices(whole)
+        if self.zero3_path is not None:
+            whole = None
+            mine = [torch.empty(t.shape) for t in self._rest]
+            fill("model_states:params", mine, self._entries)
+        else:
+            whole = [torch.empty(p.shape) for p in self.compute_params]
+            fill("model_states:params", whole, self._entries)
+            mine = self._own_slices(whole)
         runner.load_master_leaves(mine)
         if want_opt:
             sd = {"step": int(reader.read("optim_states:opt_state/step"))}
@@ -1728,8 +1892,10 @@ class DeepSpeedEngine:
                 fill(f"optim_states:opt_state/{k}", sd[k],
                      self._moment_entries)
             runner.load_state_dict(sd)
-        for p, m in zip(self.compute_params, whole):
-            p.data.copy_(m)
+        for p, m in zip(self._rest if whole is None else
+                        [p.data for p in self.compute_params],
+                        mine if whole is None else whole):
+            p.copy_(m)
 
     def _adopt_loaded_state_offload(self, state, want_opt):
         """``_adopt_loaded_state_offload`` (:4282): the loaded fp32

@@ -19,7 +19,9 @@ and mlp c_proj [L, 4E, E] leads on the input dimension: they cut the
 contracting one.
 
 A spec is a tuple over the leaf's dimensions of an axis name or None
-(JAX's ``PartitionSpec``).
+(JAX's ``PartitionSpec``). ``stage3_param_plan`` takes the stage-3 specs
+over a model's JAX tree (its layers stacked as one [L, ...] leaf under
+scan) and gives each of the port's per-layer parameters its cut.
 """
 
 import math
@@ -113,3 +115,44 @@ class ZeroPartitioner:
         return plan_from_specs(list(shapes.values()),
                                [specs[k] for k in shapes], DATA_AXIS,
                                self.dp)
+
+
+def stage3_param_plan(model, shapes, dp, param_persistence_threshold=0):
+    """The stage-3 resting plan of a model's parameters: [(dim, size) or
+    None] in the order of ``shapes`` ({port name: shape}), each entry in
+    the port leaf's own coordinates. The specs are JAX's ``param_specs``
+    over the JAX tree's leaves (``model.jax_paths()``: a scan model's
+    layers stacked as [L, ...] leaves, so the persistence threshold and
+    the largest-dimension rule see the stacked shape), so a rank holds the
+    same windows as JAX's rank on ``MeshConfig(data=dp)``; a model
+    without the weight bridge is its own tree. A stacked leaf cut on its
+    layer dimension would give whole layers to ranks, which the port's
+    per-layer parameters do not hold: refused."""
+    if hasattr(model, "jax_paths"):
+        paths = model.jax_paths()
+    else:
+        paths = {k: (tuple(k.split(".")), None) for k in shapes}
+    depth = {}
+    for path, layer in paths.values():
+        if layer is not None:
+            depth[path] = max(depth.get(path, 0), layer + 1)
+    tree = {}
+    for name, (path, layer) in paths.items():
+        lead = (depth[path],) if layer is not None else ()
+        tree["/".join(path)] = lead + tuple(shapes[name])
+    zero = ZeroPartitioner(dp, 3, param_persistence_threshold)
+    specs = zero.param_specs(tree)
+    plan = []
+    for name in shapes:
+        path, layer = paths[name]
+        spec = specs["/".join(path)]
+        if layer is not None:
+            if spec[0] is not None:
+                raise NotImplementedError(
+                    f"the stage-3 plan cuts {'/'.join(path)} "
+                    f"{tree['/'.join(path)]} on its layer dimension; the "
+                    f"port keeps a layer's parameters whole per layer")
+            spec = spec[1:]
+        plan.append(plan_from_specs([shapes[name]], [spec], DATA_AXIS,
+                                    dp)[0])
+    return plan

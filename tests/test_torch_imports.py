@@ -166,6 +166,43 @@ def test_n_rank_stage2_step_and_checkpoint_run_with_jax_poisoned(tmp_path):
     assert proc.stdout.startswith("OK")
 
 
+def test_n_rank_stage3_gather_path_runs_with_jax_poisoned(tmp_path):
+    """A gloo world of 2 ranks at ZeRO stage 3 on the gather path
+    (stage3_prefetch off, several buckets) takes its steps, saves per-rank
+    checkpoints and resumes from them, with jax and deepspeed_tpu
+    poisoned in the parent and in every rank."""
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'deepspeed_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "import numpy as np, torch\n"
+            "from deepspeed_tpu_torch.models import gpt2\n"
+            "from deepspeed_tpu_torch.parallel.mesh import spawn\n"
+            "import torch_zero_stages_worker as w\n"
+            "kw = {'dtype': torch.float32}\n"
+            "m = gpt2.GPT2LMHeadModel(gpt2.gpt2_tiny(**kw), device='cpu')\n"
+            "m.reset_parameters(torch.Generator().manual_seed(0))\n"
+            "state = {k: v.detach().numpy() for k, v in\n"
+            "         m.state_dict().items()}\n"
+            "cfg = {'train_batch_size': 4, 'zero_optimization': {\n"
+            "    'stage': 3, 'reduce_bucket_size': 5000,\n"
+            "    'stage3_param_persistence_threshold': 0}}\n"
+            "ids = [{'input_ids': np.random.RandomState(i).randint(\n"
+            "    0, 512, (4, 8))} for i in range(3)]\n"
+            f"d = {str(tmp_path)!r}\n"
+            "out = spawn(w.poisoned_jobs, 2, [('save_and_resume', cfg,\n"
+            "            state, ids[:2], ids[2], d, kw)])\n"
+            "losses, want, got, files = out[0][0]\n"
+            "assert all(np.isfinite(losses)) and got == want, out\n"
+            "assert 'shard_index_1.json' in files, files\n"
+            "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO), str(REPO / "tests")]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), \
+        proc.stdout + proc.stderr
+
+
 def test_n_rank_offload_step_and_checkpoint_run_with_jax_poisoned(tmp_path):
     """A gloo world of 2 ranks at ZeRO stage 2 with the optimizer state on
     the host (the streamed tier) and with NVMe moments (the host runner)

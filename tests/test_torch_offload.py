@@ -300,16 +300,18 @@ def _llama_model():
                                                     scheduler=None),
                             model=_llama_model(), device="cpu"),
      ValueError, "streams GPT-2"),
-    ({"stage": 3, "stage3_prefetch": True,
-      "offload_optimizer": {"device": "cpu"}}, NotImplementedError,
-     "ZeRO stages over torch.distributed"),
+    # the parameter tier with stage3_prefetch at world size > 1 (the
+    # optimizer tiers with stage3_prefetch build, and fall back)
+    (lambda: DeepSpeedConfig({"train_batch_size": 8, "zero_optimization": {
+        "stage": 3, "stage3_prefetch": True,
+        "offload_param": {"device": "cpu"}}}, world_size=4),
+     NotImplementedError, "ZeRO stages over torch.distributed"),
 ])
 def test_refusals_that_stay_name_roadmap(build, error, match):
     """What still raises around the offload tiers: the parameter tier at
-    world size > 1 and the tiers with stage3_prefetch (ROADMAP item 4;
-    the optimizer tiers run at world size n at stages 0-2), MoQ with
-    them (item 3), and the Infinity engine given what JAX's ignores or a
-    model it does not stream."""
+    world size > 1 (ROADMAP item 4; the optimizer tiers run at world size
+    n at every stage), MoQ with them (item 3), and the Infinity engine
+    given what JAX's ignores or a model it does not stream."""
     with pytest.raises(error, match=match):
         if callable(build):
             build()
@@ -319,10 +321,19 @@ def test_refusals_that_stay_name_roadmap(build, error, match):
 
 
 def test_offload_refusals_at_world_size_and_with_moq():
+    """The parameter tier at world size 2 raises; the optimizer tier at
+    stage 3 there builds (with stage3_prefetch too, at any world size:
+    the engine falls back, as JAX's does); MoQ with a tier raises."""
     cfg = {"train_batch_size": 8, "zero_optimization": {
-        "stage": 3, "offload_optimizer": {"device": "cpu"}}}
+        "stage": 3, "offload_param": {"device": "cpu"}}}
     with pytest.raises(NotImplementedError, match="ZeRO stages over"):
         DeepSpeedConfig(cfg, world_size=2)
+    for world in (1, 2):
+        zc = DeepSpeedConfig({"train_batch_size": 8, "zero_optimization": {
+            "stage": 3, "stage3_prefetch": True,
+            "offload_optimizer": {"device": "cpu"}}},
+            world_size=world).zero_config
+        assert zc.offload_optimizer.enabled and zc.stage3_prefetch
     cfg = _config({"device": "cpu"}, quantize_training={"enabled": True})
     with pytest.raises(NotImplementedError, match="ZeRO-Offload / Infinity"):
         _port_engine(cfg, _params())

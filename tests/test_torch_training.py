@@ -489,8 +489,11 @@ def test_config_errors_carry_the_jax_messages(cfg):
 
 
 @pytest.mark.parametrize("block", [
+    # the offload tiers with stage3_prefetch build (the engine falls back,
+    # as JAX's does); partitioned activations beside it do not
     {"zero_optimization": {"stage": 3, "stage3_prefetch": True,
-                           "offload_param": {"device": "cpu"}}},
+                           "offload_param": {"device": "cpu"}},
+     "activation_checkpointing": {"partition_activations": True}},
     {"zero_optimization": {"stage": 3, "stage3_prefetch": True,
                            "stage3_prefetch_gather": "fused"}},
     {"comm": {"hierarchy": {"slow_axis": 2}}},

@@ -166,15 +166,19 @@ def test_what_the_n_rank_path_does_not_run_raises_naming_roadmap():
     with pytest.raises(DeepSpeedConfigError, match="mesh.data 4"):
         DeepSpeedConfig({"train_batch_size": 8, "mesh": {"data": 4}},
                         world_size=2)
-    # a world of two ranks at stage 3 without prefetch, or with MoQ at
-    # stage 2: the engine refuses before any collective
+    # a world of two ranks with MoQ at stage 3 (stage 3 without prefetch
+    # trains on the gather path) or at stage 2, or with the parameter tier
+    # at stage 3: refused before any collective
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models import gpt2
     moq = {"enabled": True, "quantize_bits": {"start_bits": 16,
                                               "target_bits": 8}}
-    for cfg in ({"zero_optimization": {"stage": 3}},
+    for cfg in ({"zero_optimization": {"stage": 3},
+                 "quantize_training": moq},
                 {"zero_optimization": {"stage": 2},
-                 "quantize_training": moq}):
+                 "quantize_training": moq},
+                {"zero_optimization": {"stage": 3, "offload_param": {
+                    "device": "cpu"}}}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             ds.initialize(config=dict(cfg, train_batch_size=8),
                           model=gpt2.GPT2LMHeadModel(gpt2.gpt2_tiny()),
@@ -207,8 +211,9 @@ def _batches():
 
 def _jax_baseline(n, gas=1):
     """The JAX engine's stage-3 run (prefetch off) on n CPU devices: the
-    initial weights by the port's names, the losses and the updated
-    weights by the port's names."""
+    initial weights by the port's names, the losses, the updated weights
+    by the port's names and the loss ``forward`` then returns on the first
+    batch."""
     jax = importlib.import_module("jax")
     jnp = importlib.import_module("jax.numpy")
     dstpu = importlib.import_module("deepspeed_tpu")
@@ -230,13 +235,14 @@ def _jax_baseline(n, gas=1):
                                        model_parameters=params, mesh=mesh)
     assert not engine._prefetch_active()
     losses = [float(engine.train_batch(b)) for b in _batches()]
+    fwd = float(engine.forward(_batches()[0]))
     bridge = gpt2.GPT2LMHeadModel(gpt2.gpt2_tiny(n_positions=SEQ))
 
     def by_name(tree):
         tree = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32),
                                       jax.device_get(tree))
         return {k: v.numpy() for k, v in bridge.from_jax_tree(tree).items()}
-    return by_name(params), losses, by_name(engine.state.params)
+    return by_name(params), losses, by_name(engine.state.params), fwd
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -248,18 +254,18 @@ def test_n_rank_trajectories_match_the_jax_stage3_baseline(n):
     grad_accum_dtype bf16, which JAX's prefetch path does not read: held
     to the fp32-accumulated run, from which bf16 accumulation must part
     (the setting takes effect) by no more than bf16 rounding."""
-    state, want_losses, want = _jax_baseline(n)
+    state, want_losses, want, want_fwd = _jax_baseline(n)
     kw = {"dtype": torch.float32, "n_positions": SEQ}
     modes = [(m, _port_cfg(m), kw) for m in ("ring", "fused_matmul")]
-    baselines = {m: (want_losses, want) for m, _, _ in modes}
+    baselines = {m: (want_losses, want, want_fwd) for m, _, _ in modes}
     if n == 2:
         modes.append(("fused_matmul_gas2", _port_cfg("fused_matmul", 2), kw))
         modes.append(("fused_matmul_gas2_bf16acc",
                       _port_cfg("fused_matmul", 2, "bf16"), kw))
-        _, gas_losses, gas_want = _jax_baseline(n, gas=2)
-        baselines["fused_matmul_gas2"] = (gas_losses, gas_want)
+        _, gas_losses, gas_want, gas_fwd = _jax_baseline(n, gas=2)
+        baselines["fused_matmul_gas2"] = (gas_losses, gas_want, gas_fwd)
     results = spawn(worker.train_modes, n, modes, state, _batches())
-    for mode, (losses, got, stats, refused, freed) in results[0].items():
+    for mode, (losses, got, stats, fwd, freed) in results[0].items():
         # close() leaves no cycle through the engine: its shards go with
         # its last reference
         assert freed, mode
@@ -271,7 +277,7 @@ def test_n_rank_trajectories_match_the_jax_stage3_baseline(n):
             assert any(not np.array_equal(got[k], fp32_got[k])
                        for k in got)
             continue
-        want_losses, want = baselines[mode]
+        want_losses, want, want_fwd = baselines[mode]
         np.testing.assert_allclose(losses, want_losses, rtol=RTOL,
                                    err_msg=mode)
         assert set(got) == set(want)
@@ -282,9 +288,9 @@ def test_n_rank_trajectories_match_the_jax_stage3_baseline(n):
         assert stats["fused_leaves_per_layer"] == (4 if fused else 0), mode
         assert stats["layers"] == 2
         assert (stats["fused_stream_bytes"] > 0) == fused
-        # forward/backward/step on the prefetch path are not ported: they
-        # raise
-        assert refused, mode
+        # forward on a prefetch engine runs the gather path's step, as
+        # JAX's runs its GSPMD program: the same loss
+        np.testing.assert_allclose(fwd, want_fwd, rtol=RTOL, err_msg=mode)
     # every rank reports the same all-reduced losses
     for rank_result in results[1:]:
         for mode, (losses, _, _, _, _) in rank_result.items():

@@ -356,8 +356,9 @@ def test_zero_config_bucket_knobs_carry_the_jax_messages():
 def test_what_stages_0_2_do_not_run_at_world_n_raises_naming_roadmap():
     """MoQ at world n, a non-elementwise optimizer: refused before any
     collective, naming the ROADMAP item; in the config, the parameter
-    tier at world n and the optimizer tier with stage3_prefetch (the
-    optimizer tiers at stages 0-2 run at world n)."""
+    tier at world n, at stage 2 and at stage 3 with stage3_prefetch (the
+    optimizer tiers run at world n at every stage, and with
+    stage3_prefetch, which then falls back to the gather path)."""
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.config.config import DeepSpeedConfig
     from deepspeed_tpu_torch.models import gpt2
@@ -378,9 +379,13 @@ def test_what_stages_0_2_do_not_run_at_world_n_raises_naming_roadmap():
                       mesh=Mesh(2, 0, "cpu"))
     for zero in ({"stage": 2, "offload_param": {"device": "cpu"}},
                  {"stage": 3, "stage3_prefetch": True,
-                  "offload_optimizer": {"device": "cpu"}}):
+                  "offload_param": {"device": "cpu"}}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             DeepSpeedConfig(_cfg(2, zero_optimization=zero), world_size=2)
+    zc = DeepSpeedConfig(_cfg(2, zero_optimization={
+        "stage": 3, "stage3_prefetch": True,
+        "offload_optimizer": {"device": "cpu"}}), world_size=2).zero_config
+    assert zc.stage3_prefetch and zc.offload_optimizer.enabled
 
 
 # -- the bucket stream -------------------------------------------------------

@@ -1,7 +1,7 @@
 """chip_smoke.py's ZeRO stage 0-2 phases alone, on the card.
 
     python3 tests/torch_zero2_phases.py [--layers L] [--skip-zero3]
-                                        [--offload]
+                                        [--offload] [--gather]
 
 Runs chip_smoke's device phase, the one-card GPT-2 train phase (2 + 10
 steps: the losses the stage-2 run is held to), then train_zero3_ring's
@@ -12,9 +12,13 @@ at the default plan's first and last bucket) and ``train_zero2`` /
 ``zero2_restore`` (four ranks at ZeRO stage 2, save, resume at four and
 at one). With ``--offload`` then ``train_zero2_offload`` /
 ``zero2_offload_restore`` (the same four ranks with the optimizer state
-in pinned host memory or on NVMe, held to train_zero2's losses).
-``--layers`` cuts the depth of every run (a quick first call). Each
-prints its chip_smoke line.
+in pinned host memory or on NVMe, held to train_zero2's losses). With
+``--gather`` the same worlds also run ZeRO stage 3's gather path:
+``train_zero3_gather``, ``train_zero3_llama`` and
+``zero3_gather_restore`` in train_zero2's world, and with ``--offload``
+``train_zero3_gather_offload`` in the offload world.
+``--layers`` cuts the depth of every GPT-2 run (a quick first call).
+Each prints its chip_smoke line.
 """
 
 import os
@@ -56,16 +60,29 @@ def main():
                 "step_ms": ring[0]["step_ms"],
                 "losses": ring[0]["losses"]})
     gen = torch.Generator(device="cuda").manual_seed(0)
+    gather = "--gather" in sys.argv
     rows = c.zero2_kernel_phase(gen)
-    launches = c.zero2_train_phase(n_layer=layers)
+    launches = c.zero2_train_phase(n_layer=layers, gather=gather)
+    if gather:
+        launches, (gathered, _) = launches
+        rows += [dict(row, path="train_zero3_gather",
+                      launches=gathered.get(row["name"], 0))
+                 for row in rows]
     for row in rows:
-        row["launches"] = launches.get(row["name"], 0)
+        if row["path"] == "train_zero2":
+            row["launches"] = launches.get(row["name"], 0)
     if "--offload" in sys.argv:
         torch.cuda.empty_cache()
-        launches = c.zero2_offload_phase(rates, n_layer=layers)
+        launches = c.zero2_offload_phase(rates, n_layer=layers,
+                                         gather=gather)
+        if gather:
+            launches, gathered = launches
+            rows += [dict(row, path="train_zero3_gather_offload",
+                          launches=gathered.get(row["name"], 0))
+                     for row in rows if row["path"] == "train_zero2"]
         rows += [dict(row, path="train_zero2_offload",
                       launches=launches.get(row["name"], 0))
-                 for row in rows]
+                 for row in rows if row["path"] == "train_zero2"]
     c.emit({"kernels": rows})
     return 0
 

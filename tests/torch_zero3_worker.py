@@ -8,10 +8,10 @@ import torch
 def train_modes(rank, world, cfgs, state, batches):
     """For each (mode, ds_config) in ``cfgs``: the tiny GPT-2 from the
     ``state`` dict (numpy), ``train_batch`` over ``batches``; returns
-    {mode: (losses, gathered fp32 params by name (rank 0), stats, whether
-    forward refused (forward/backward/step are not ported on the prefetch
-    path), whether the closed engine was freed at its last
-    reference)}."""
+    {mode: (losses, gathered fp32 params by name (rank 0), stats, the
+    loss ``forward`` then returns on the first batch (the gather path's
+    step, which JAX runs on its GSPMD program), whether the closed engine
+    was freed at its last reference)}."""
     import weakref
 
     import deepspeed_tpu_torch as ds
@@ -29,16 +29,12 @@ def train_modes(rank, world, cfgs, state, batches):
         losses = [float(engine.train_batch(b)) for b in batches]
         full = engine.gather_master()
         stats = dict(engine.prefetch_live_param_stats())
-        try:
-            engine.forward(batches[0])
-            refused = False
-        except NotImplementedError:
-            refused = True
+        fwd = float(engine.forward(batches[0]))
         engine.close()
         ref = weakref.ref(engine)
         del engine
         out[mode] = (losses, {k: v.numpy() for k, v in full.items()}
-                     if rank == 0 else None, stats, refused, ref() is None)
+                     if rank == 0 else None, stats, fwd, ref() is None)
     return out
 
 
@@ -199,14 +195,14 @@ def batch_vs_unbatched(rank, world, cfgs, batch):
         mesh.all_gather = counted
         overlap.ReduceScatterBatch.close = counted_close
         try:
-            got, _, _ = engine._zero3_grads(batch)
+            got = engine._zero3_grads(batch)[0]
             n_batched, n_closes = gathers[0], closes[0]
             gathers[0] = 0
             backward = prefetch._PrefetchedScan.backward
             prefetch._PrefetchedScan.backward = staticmethod(
                 _unbatched_backward)
             try:
-                want, _, _ = engine._zero3_grads(batch)
+                want = engine._zero3_grads(batch)[0]
             finally:
                 prefetch._PrefetchedScan.backward = staticmethod(backward)
         finally:
